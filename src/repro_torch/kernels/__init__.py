@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the port.
+
+Each kernel ships as ``<name>.py`` (its plain PyTorch version and the
+wrapper the model calls) beside ``csrc/<name>.cu`` (the CUDA source,
+built for ``sm_90a`` by ``build.py`` at first use).  A wrapper takes the
+plain version only for CPU tensors; on CUDA tensors it launches the
+kernel or raises.
+"""
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_decode_attention_plain)
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_plain"]

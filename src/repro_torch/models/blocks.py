@@ -1,0 +1,94 @@
+"""Block-level assembly (port of ``repro/models/blocks.py``) for the
+dense attention-only kinds: ``attn`` and ``dec`` without cross
+attention, including ``parallel_block``.  Other kinds, MoE and cross
+attention raise ``NotImplementedError`` naming the ROADMAP queue A item
+that ports them."""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.models.attention import (PagedKVCache, attn_defs,
+                                          init_paged_kv_cache,
+                                          self_attention_paged)
+from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+
+_LATER = {"hymba": "SSM", "mlstm": "SSM", "slstm": "SSM", "enc": "enc-dec"}
+
+
+def _supported(spec: BlockSpec) -> None:
+    if spec.kind in _LATER:
+        raise NotImplementedError(
+            f"block kind {spec.kind!r} is not ported yet "
+            f"(ROADMAP queue A: {_LATER[spec.kind]})")
+    if spec.kind not in ("attn", "dec"):
+        raise ValueError(f"unknown block kind {spec.kind!r}")
+    if spec.cross_attention:
+        raise NotImplementedError(
+            "cross attention is not ported yet (ROADMAP queue A: enc-dec)")
+    if spec.moe:
+        raise NotImplementedError(
+            "MoE FFN is not ported yet (ROADMAP queue A: MoE)")
+
+
+# ---------------------------------------------------------------------------
+# Defs
+# ---------------------------------------------------------------------------
+
+
+def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
+    _supported(spec)
+    defs: dict[str, Any] = {
+        "norm1": rmsnorm_defs(cfg.d_model),
+        "attn": attn_defs(cfg),
+    }
+    if not spec.parallel_block:
+        defs["norm2"] = rmsnorm_defs(cfg.d_model)
+    defs["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff)
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+
+
+def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
+                           num_pages: int, page_size: int,
+                           dtype: torch.dtype, device: torch.device,
+                           stack: tuple[int, ...] = ()) -> dict:
+    """Paged-pool decode state for a stack of layers of one block kind:
+    pools of shape ``stack + (num_pages + 1, page, Hkv, dh)``, shared
+    across slots and sized by the allocator's page count."""
+    _supported(spec)
+    one = init_paged_kv_cache(num_pages, page_size, cfg.n_kv_heads,
+                              cfg.d_head, dtype, device)
+    return {"kv": PagedKVCache(
+        *(torch.zeros(stack + t.shape, dtype=t.dtype, device=t.device)
+          for t in one))}
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+
+def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                spec: BlockSpec, positions: torch.Tensor, cache: dict,
+                tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B,S,d); positions: (B,S); tables: (B,P) physical page ids.
+    Returns the block's output; the layer's pool in ``cache`` is updated
+    in place.  The paged pool serves prefill and decode alike
+    (write-then-attend), so there is no mode argument: this slice has
+    no train mode."""
+    _supported(spec)
+    xr = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    a, _ = self_attention_paged(params["attn"], xr, cache["kv"], cfg, spec,
+                                positions, tables)
+    if spec.parallel_block:
+        # attention and FFN read the same normed input, summed
+        return x + a + mlp(params["mlp"], xr)
+    x = x + a
+    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))

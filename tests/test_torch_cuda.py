@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here is marked ``cuda`` and skips without a GPU (a
+CUDA kernel has no CPU mode).  The file imports no JAX, so it runs on a
+machine with the card and no JAX:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: 2e-5 f32, 2e-2 bf16, as the reference's kernel tests.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import paged_decode_attention  # noqa: E402
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    paged_decode_attention_plain)
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def case(dev, dtype, b, hkv, g, dh, page, ctx, shared=1, seed=0):
+    """Pool and block tables: ``shared`` leading pages common to every
+    row, then private pages in a random physical order, -1 tails."""
+    rng = np.random.default_rng(seed)
+    p_max = -(-max(ctx) // page) + 1
+    rows, nxt = [], shared
+    for c in ctx:
+        own = max(-(-c // page) - shared, 0)
+        rows.append(list(range(shared)) + list(range(nxt, nxt + own)))
+        nxt += own
+    perm = rng.permutation(nxt)
+    bt = np.full((b, p_max), -1, np.int32)
+    for r, ids in enumerate(rows):
+        if ctx[r] > 0:
+            bt[r, :len(ids)] = perm[ids]
+    q = rng.standard_normal((b, 1, hkv * g, dh))
+    kp = rng.standard_normal((nxt + 1, page, hkv, dh))
+    vp = rng.standard_normal((nxt + 1, page, hkv, dh))
+    return ([torch.from_numpy(a).to(dev, dtype) for a in (q, kp, vp)]
+            + [torch.from_numpy(bt).to(dev),
+               torch.tensor(ctx, dtype=torch.int32, device=dev)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g,dh,page,window", [(4, 128, 128, -1),
+                                              (4, 128, 16, 512),
+                                              (2, 32, 16, 24),
+                                              (8, 64, 16, -1),
+                                              (1, 128, 32, 40)])
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, g, dh, page,
+                                           window):
+    ctx = [1000, 999, 130, 1, 0]                    # row 4: inactive slot
+    args = case(cuda_device, dtype, len(ctx), 2, g, dh, page, ctx)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_plain(*args, window=window)
+    live = torch.tensor([c > 0 for c in ctx], device=cuda_device)
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_rejects_unsupported(cuda_device):
+    args = case(cuda_device, torch.float32, 2, 2, 3, 64, 16, [40, 17])
+    with pytest.raises(ValueError, match="no kernel"):   # G = 3
+        paged_decode_attention(*args)
+    args = case(cuda_device, torch.float32, 2, 2, 2, 64, 16, [40, 17])
+    args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(*args)
