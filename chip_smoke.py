@@ -6,24 +6,37 @@
 Phases, each printed on its own lines; any failure raises, so the exit
 code is non-zero and the final JSON line is not printed:
 
-1. device   -- needs CUDA; prints the card's name and power limit.
-2. build    -- compiles every CUDA source of ``src/repro_torch/kernels/
-               csrc`` (one nvcc each, in parallel) into ``build/``.
-3. kernels  -- each kernel against its plain PyTorch version on the card,
-               at the main path's shapes, with its time, the plain
-               version's, a PyTorch library call's, and its bound.
-4. parity   -- agent-7b width at 2 layers in f32: TorchEngine's greedy
-               tokens with the kernel equal those of the gather path.
-5. serve    -- agent-7b in full (32 layers, bf16) serves 8 requests; the
-               kernel must launch once per layer per decode step.
+1. device     -- needs CUDA; prints the card's name and power limit.
+2. build      -- compiles every CUDA source of ``src/repro_torch/kernels/
+                 csrc`` (one nvcc each, in parallel) into ``build/``.
+3. kernels    -- each kernel (paged decode, flash, ring decode) against
+                 its plain PyTorch version on the card, in f32 and bf16,
+                 with its time at the main path's shapes, the plain
+                 version's, a PyTorch library call's, and its bound.
+4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
+                 tokens are equal across the paged layout with and
+                 without its kernel and the ring layout with and without
+                 its kernels, also for a sliding window whose ring wraps.
+5. migrate    -- the same model: ring->paged, paged->ring and ring->ring
+                 migration continue with an unmigrated run's tokens;
+                 paged->ring with a window is refused.
+6. serve      -- agent-7b in full (32 layers, bf16), paged layout, serves
+                 8 requests; the paged kernel launches once per layer per
+                 decode step; a profile of four decode steps follows.
+7. serve ring -- the same weights and requests on the ring layout: the
+                 flash kernel launches once per layer per prefill, the
+                 ring decode kernel once per layer per decode step, and
+                 the paged kernel never; a profile follows.
 
 The last two lines are a JSON object of kernel numbers and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +54,10 @@ from repro_torch import models  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.types import Request, RequestState  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.serving.engine import TorchEngine  # noqa: E402
@@ -48,6 +65,7 @@ from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # bf16 tensor cores, dense
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -78,7 +96,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the kernel against its plain version
+# Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 # the main path's decode shapes: 8 slots, agent-7b heads (Hkv 8, G 4,
@@ -87,6 +105,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # inactive slot (ctx 0, all -1), and short rows carry -1 tails.
 CTX = [4096, 4001, 2085, 1500, 777, 0, 3333, 3333]
 SHARED_TOKENS = 1024
+
+
+def ops_rate(dtype) -> float:
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+
+
+def bound_of(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    """The larger of the byte time at HBM rate and the operation time at
+    the card's peak rate for ``dtype``, in ms, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate(dtype)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check(name: str, err: float, dtype, what: str) -> None:
+    log("kernels", f"{name} {what}: max |kernel - plain| {err:.3e} "
+        f"(tolerance {TOL[dtype]:.0e})")
+    if not math.isfinite(err) or err > TOL[dtype]:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({what}): {err} > {TOL[dtype]}")
 
 
 def kernel_case(dtype, page: int, gen: torch.Generator, dev):
@@ -131,10 +169,7 @@ def bound(args, window: int) -> tuple[float, str]:
     nbytes = (2 * keys * hkv * dh * kp.element_size()
               + 2 * q.numel() * q.element_size()
               + bt.numel() * 4 + ctx.numel() * 4)
-    ops = 4 * g * dh * keys * hkv
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound_of(nbytes, 4 * g * dh * keys * hkv, torch.float32)
 
 
 def sdpa_inputs(args, window: int):
@@ -169,13 +204,8 @@ def phase_kernels(dev) -> dict:
                 torch.cuda.synchronize()
                 want = paged_decode_attention_plain(*args, window=window)
                 err = (out.float() - want.float())[live].abs().max().item()
-                log("kernels", f"{dtype} page {page} window {window}: "
-                    f"max |kernel - plain| on live rows {err:.3e} "
-                    f"(tolerance {TOL[dtype]:.0e})")
-                if not math.isfinite(err) or err > TOL[dtype]:
-                    raise AssertionError(
-                        f"paged_decode_attention disagrees with its plain "
-                        f"version: {err} > {TOL[dtype]}")
+                check("paged_decode_attention", err, dtype,
+                      f"{dtype} page {page} window {window}, live rows")
                 if not torch.equal(out[6], out[7]):
                     raise AssertionError("identical rows 6 and 7 differ")
                 if not torch.isfinite(out).all():
@@ -214,8 +244,197 @@ def phase_kernels(dev) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# flash attention at agent-7b's heads: the ring prefill of one prompt
+FLASH_HEADS = (32, 8, 128)                          # H, Hkv, dh
+FLASH_CASES = [(1024, 1024, True, -1), (1024, 1024, True, 512),
+               (900, 900, True, -1), (900, 900, True, 512),
+               (1024, 900, False, -1)]              # S, T, causal, window
+
+
+def flash_case(dtype, s: int, t: int, gen: torch.Generator, dev, b: int = 1):
+    h, hkv, dh = FLASH_HEADS
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
+
+
+def flash_valid_keys(s: int, t: int, causal: bool, window: int) -> int:
+    """Valid (query row, key) pairs of one head."""
+    if not causal:
+        return s * t
+    i = np.arange(s)
+    hi = np.minimum(i, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(args, causal: bool, window: int) -> tuple[float, str]:
+    """q, k, v read once and out written once, against 4 * dh operations
+    per valid (row, head, key): two for q.k, two for p.v."""
+    q, k, _ = args
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ops = 4 * dh * b * h * flash_valid_keys(s, t, causal, window)
+    return bound_of(nbytes, ops, q.dtype)
+
+
+def flash_sdpa_inputs(args, causal: bool, window: int):
+    """The same attention as one SDPA call: (B, H, S, dh) with K/V
+    repeated to H heads, and a boolean mask where a window needs one."""
+    q, k, v = args
+    s, h = q.shape[1], q.shape[2]
+    t, hkv = k.shape[1], k.shape[2]
+    kr = k.transpose(1, 2).repeat_interleave(h // hkv, dim=1).contiguous()
+    vr = v.transpose(1, 2).repeat_interleave(h // hkv, dim=1).contiguous()
+    mask = None
+    if causal and window > 0:
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(t, device=q.device)[None, :]
+        mask = (j <= i) & (j > i - window)
+    return (q.transpose(1, 2).contiguous(), kr, vr, mask,
+            causal and mask is None)
+
+
+def phase_flash(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, t, causal, window in FLASH_CASES:
+            args = flash_case(dtype, s, t, gen, dev)
+            out = flash_attention(*args, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(*args, causal=causal, window=window)
+            err = (out.float() - want.float()).abs().max().item()
+            check("flash_attention", err, dtype,
+                  f"{dtype} S={s} T={t} causal={causal} window={window}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+
+    # times at the ring prefill's longest prompt: bf16, S = T = 1024
+    args = flash_case(torch.bfloat16, 1024, 1024, gen, dev)
+    ms = cuda_ms(lambda: flash_attention(*args, causal=True), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(*args, causal=True), 5)
+    sq, sk, sv, mask, is_causal = flash_sdpa_inputs(args, True, -1)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                              is_causal=is_causal)
+    lib_err = (sdpa().transpose(1, 2).float() - flash_attention(
+        *args, causal=True).float()).abs().max().item()
+    if lib_err > TOL[torch.bfloat16]:
+        raise AssertionError(f"library yardstick computes another "
+                             f"function: {lib_err}")
+    library_ms = cuda_ms(sdpa, 20)
+    bound_ms, bound_by = flash_bound(args, True, -1)
+    log("kernels", f"flash_attention bf16 B=1 S=T=1024 H=32 Hkv=8 dh=128 "
+        f"causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {100 * bound_ms / ms:.2f}% of bound")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:90",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ring decode at the serve phase's shapes: 8 slots, agent-7b heads, a
+# 4096-slot full-attention ring with the contexts CTX, and a 1536-slot
+# ring of a 512-token window whose positions wrapped
+RING_CASES = [(4096, -1), (1536, 512)]              # slots, window
+
+
+def ring_case(dtype, slots: int, gen: torch.Generator, dev):
+    """Rings after writing positions 0..c-1 of each row's context c at
+    slot ``pos % slots``; q_pos = c - 1 (row 5, c = 0, has no valid
+    slot).  Returns q, k, v, kpos, q_pos."""
+    b, hkv, g, dh = len(CTX), 8, 4, 128
+    last = np.asarray(CTX)[:, None] - 1
+    s = np.arange(slots)[None, :]
+    kpos = last - np.mod(last - s, slots)
+    kpos = np.where(kpos >= 0, kpos, -1).astype(np.int32)
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen, device=dev)
+    k = torch.randn((b, slots, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, slots, hkv, dh), generator=gen, device=dev)
+    return (q.to(dtype), k.to(dtype), v.to(dtype),
+            torch.from_numpy(kpos).to(dev),
+            torch.tensor(last[:, 0], dtype=torch.int32, device=dev))
+
+
+def ring_valid(args, window: int) -> torch.Tensor:
+    """(B, T) bool: the slots the validity rule keeps."""
+    kpos, q_pos = args[3].long(), args[4].long()[:, None]
+    valid = (kpos >= 0) & (kpos <= q_pos)
+    if window > 0:
+        valid &= kpos > q_pos - window
+    return valid
+
+
+def ring_bound(args, window: int) -> tuple[float, str]:
+    """K/V of the valid slots, q, out, kpos and q_pos, against 4 * G *
+    dh f32 operations per valid slot and KV head."""
+    q, k, _, kpos, q_pos = args
+    hkv, dh = k.shape[2], k.shape[3]
+    g = q.shape[2] // hkv
+    keys = int(ring_valid(args, window).sum())
+    nbytes = (2 * keys * hkv * dh * k.element_size()
+              + 2 * q.numel() * q.element_size()
+              + kpos.numel() * 4 + q_pos.numel() * 4)
+    return bound_of(nbytes, 4 * g * dh * keys * hkv, torch.float32)
+
+
+def phase_ring_decode(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(2)
+    live = torch.tensor([c > 0 for c in CTX], device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for slots, window in RING_CASES:
+            args = ring_case(dtype, slots, gen, dev)
+            out = decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            want = decode_attention_plain(*args, window=window)
+            err = (out.float() - want.float())[live].abs().max().item()
+            check("decode_attention", err, dtype,
+                  f"{dtype} {slots} slots window {window}, live rows")
+            if not torch.isfinite(out).all():
+                raise AssertionError("non-finite kernel output")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+
+    # times at the serve phase's full-attention ring: bf16, 4096 slots
+    args = ring_case(torch.bfloat16, 4096, gen, dev)
+    ms = cuda_ms(lambda: decode_attention(*args), 50)
+    plain_ms = cuda_ms(lambda: decode_attention_plain(*args), 10)
+    q, k, v = args[:3]
+    h, hkv = q.shape[2], k.shape[2]
+    sq = q.transpose(1, 2).contiguous()
+    sk = k.transpose(1, 2).repeat_interleave(h // hkv, dim=1).contiguous()
+    sv = v.transpose(1, 2).repeat_interleave(h // hkv, dim=1).contiguous()
+    mask = ring_valid(args, -1)[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+    lib_err = (sdpa().transpose(1, 2).float() - decode_attention(
+        *args).float())[live].abs().max().item()
+    if lib_err > TOL[torch.bfloat16]:
+        raise AssertionError(f"library yardstick computes another "
+                             f"function: {lib_err}")
+    library_ms = cuda_ms(sdpa, 50)
+    bound_ms, bound_by = ring_bound(args, -1)
+    log("kernels", f"decode_attention bf16 B=8 Hkv=8 G=4 dh=128, 4096-slot "
+        f"ring, ctx={CTX}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA with a slot mask {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of bound")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:75",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the engine
+# Phases 4 to 7: the engine
 # ---------------------------------------------------------------------------
 
 
@@ -253,70 +472,190 @@ def serve(eng: TorchEngine, reqs) -> dict:
     return {"times": times, "decode_tokens": decode_tokens}
 
 
-def phase_parity(dev) -> None:
-    cfg = get_config("agent-7b").replace(n_layers=2, dtype="float32")
-    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    lens = [100, 333, 517, 700]
-    outs = {}
-    for use_pallas in (True, False):
-        c = cfg.replace(use_pallas=use_pallas)
-        eng = TorchEngine(c, params, SchedulerConfig(
-            max_slots=4, num_pages=40, page_size=128, max_context=1024),
-            name=f"parity-{use_pallas}", device=dev)
-        reqs = make_requests(lens, 16, cfg.vocab, seed=1)
-        launches = paged_decode_attention.launches
-        serve(eng, reqs)
-        used = paged_decode_attention.launches - launches
-        want = cfg.n_layers * eng.decode_steps if use_pallas else 0
-        if used != want:
-            raise AssertionError(f"kernel launched {used} times, "
-                                 f"expected {want}")
-        outs[use_pallas] = [list(r.output_tokens) for r in reqs]
-    if outs[True] != outs[False]:
-        raise AssertionError(f"kernel and gather paths disagree:\n"
-                             f"{outs[True]}\n{outs[False]}")
-    log("parity", f"agent-7b width, 2 layers, f32, prompts {lens}: greedy "
-        f"tokens equal with and without the kernel "
-        f"({sum(map(len, outs[True]))} tokens)")
+KERNELS = {"paged_decode_attention": paged_decode_attention,
+           "flash_attention": flash_attention,
+           "decode_attention": decode_attention}
 
 
-def phase_serve(dev) -> int:
-    cfg = get_config("agent-7b").replace(use_pallas=True)
-    t0 = time.perf_counter()
-    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    torch.cuda.synchronize()
-    log("serve", f"agent-7b: {models.param_count(cfg) / 1e9:.3f} B params, "
-        f"{cfg.n_layers} layers, {cfg.dtype}; init "
-        f"{time.perf_counter() - t0:.1f} s")
-    eng = TorchEngine(cfg, params, SchedulerConfig(
-        max_slots=8, num_pages=512, page_size=128, max_context=4096),
-        name="serve", device=dev)
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def expected_launches(eng: TorchEngine, prefills: int) -> dict:
+    """Launches of each kernel on a run of ``eng`` that prefilled
+    ``prefills`` prompts: one per layer per prefill (flash, ring) or per
+    decode step (the layout's decode kernel); none without the flag, and
+    none on the CPU, where the wrappers take the plain versions."""
+    want = dict.fromkeys(KERNELS, 0)
+    if eng.cfg.use_pallas and eng.device.type == "cuda":
+        n = eng.cfg.n_layers
+        if eng.cache_layout == "paged":
+            want["paged_decode_attention"] = n * eng.decode_steps
+        else:
+            want["flash_attention"] = n * prefills
+            want["decode_attention"] = n * eng.decode_steps
+    return want
+
+
+def served_counts(eng: TorchEngine, reqs, before: dict) -> dict:
+    """Serve ``reqs`` and check each kernel's launches on that run."""
+    res = serve(eng, reqs)
+    after = launch_counts()
+    used = {k: after[k] - before[k] for k in KERNELS}
+    if eng.scheduler.preempt_count:
+        raise AssertionError(f"{eng.name}: unexpected preemption")
+    want = expected_launches(eng, len(reqs))
+    if used != want:
+        raise AssertionError(f"{eng.name}: kernel launches {used}, "
+                             f"expected {want}")
+    res["launches"] = used
+    return res
+
+
+PARITY_LENS = [100, 333, 517, 700]
+PARITY_SCHED = dict(max_slots=4, num_pages=40, page_size=128,
+                    max_context=1024)
+PARITY_SWA = (256, 128)          # window, attn_chunk: a 384-slot ring
+MIGRATE_LEN = 517
+LAYOUTS = [("paged", True), ("paged", False), ("ring", True),
+           ("ring", False)]
+
+
+def small_engine(cfg, params, layout: str, use_pallas: bool, dev,
+                 name: str) -> TorchEngine:
+    return TorchEngine(cfg.replace(use_pallas=use_pallas), params,
+                       SchedulerConfig(**PARITY_SCHED), name=name,
+                       cache_layout=layout, device=dev)
+
+
+def phase_parity(dev, cfg, params) -> None:
+    """Greedy tokens equal across both layouts with and without their
+    kernels, for full attention and for the ``PARITY_SWA`` window, whose
+    ring is shorter than the longer prompts."""
+    for window, chunk in ((-1, cfg.attn_chunk), PARITY_SWA):
+        c = cfg.replace(window=window, attn_chunk=chunk)
+        outs = {}
+        for layout, use_pallas in LAYOUTS:
+            eng = small_engine(c, params, layout, use_pallas, dev,
+                               f"parity-{layout}-{use_pallas}")
+            if layout == "ring" and window > 0:
+                size = eng.cache["segments"][0]["e0"]["kv"].k.shape[2]
+                if not size < max(PARITY_LENS):
+                    raise AssertionError(f"ring of {size} slots does not "
+                                         f"wrap")
+            reqs = make_requests(PARITY_LENS, 16, cfg.vocab, seed=1)
+            served_counts(eng, reqs, launch_counts())
+            outs[layout, use_pallas] = [list(r.output_tokens) for r in reqs]
+        first = outs[LAYOUTS[0]]
+        for key, got in outs.items():
+            if got != first:
+                raise AssertionError(f"window {window}: {key} disagrees with "
+                                     f"{LAYOUTS[0]}:\n{got}\n{first}")
+        log("parity", f"agent-7b width, 2 layers, f32, window {window}, "
+            f"attn_chunk {chunk}, prompts {PARITY_LENS}: greedy tokens "
+            f"equal across paged and ring, with and without their kernels "
+            f"({sum(map(len, first))} tokens each)")
+
+
+def start_and_extract(eng: TorchEngine, prompt, at: int, max_new: int):
+    """Serve ``prompt`` until ``at`` tokens are out, then export it and
+    drop it from ``eng``.  Returns (state, tokens so far)."""
+    r = Request(prompt_len=len(prompt), max_new_tokens=max_new,
+                prompt_tokens=prompt)
+    eng.submit(r)
+    while r.generated < at:
+        eng.step()
+    state = eng.extract_state(r)
+    first = list(r.output_tokens)
+    eng.scheduler.preempt_one()
+    return state, first
+
+
+def admit_migrated(eng: TorchEngine, prompt, at: int, max_new: int):
+    r = Request(prompt_len=len(prompt), max_new_tokens=max_new,
+                prompt_tokens=prompt)
+    r.generated = at
+    r.prefilled = r.prompt_len
+    if not eng.scheduler.admit_direct(r):
+        raise AssertionError(f"{eng.name}: no room for the migrated request")
+    return r
+
+
+def phase_migrate(dev, cfg, params) -> None:
+    at, max_new = 4, 16
+    prompt = make_requests([MIGRATE_LEN], max_new, cfg.vocab,
+                           seed=5)[0].prompt_tokens
+
+    def fresh(layout, name, c=cfg):
+        return small_engine(c, params, layout, True, dev, name)
+
+    want = {}
+    for layout in ("ring", "paged"):
+        r = make_requests([MIGRATE_LEN], max_new, cfg.vocab, seed=5)[0]
+        serve(fresh(layout, f"unmigrated-{layout}"), [r])
+        want[layout] = list(r.output_tokens)
+    for src, dst in (("ring", "paged"), ("paged", "ring"), ("ring", "ring")):
+        state, first = start_and_extract(fresh(src, f"{src}-src"), prompt, at,
+                                         max_new)
+        eng = fresh(dst, f"{dst}-dst")
+        r = admit_migrated(eng, prompt, at, max_new)
+        eng.inject_state(r, state)
+        eng.run_until_idle()
+        if first + r.output_tokens != want[src]:
+            raise AssertionError(f"{src}->{dst} migration changed the tokens:"
+                                 f"\n{first + r.output_tokens}\n{want[src]}")
+        log("migrate", f"{src}->{dst} after {at} tokens "
+            f"({state['nbytes'] / 2**20:.1f} MiB of state): the continued "
+            f"{max_new - at} tokens equal the unmigrated run's")
+
+    window, chunk = PARITY_SWA
+    swa = cfg.replace(window=window, attn_chunk=chunk)
+    state, _ = start_and_extract(fresh("paged", "swa-src", swa), prompt, at,
+                                 max_new)
+    eng = fresh("ring", "swa-dst", swa)
+    r = admit_migrated(eng, prompt, at, max_new)
+    try:
+        eng.inject_state(r, state)
+    except ValueError as e:
+        log("migrate", f"paged->ring with window {window} refused: {e}")
+    else:
+        raise AssertionError("paged->ring with a window was not refused")
+
+
+SERVE_SCHED = dict(max_slots=8, num_pages=512, page_size=128,
+                   max_context=4096)
+
+
+def phase_serve(dev, cfg, params, layout: str) -> dict:
+    """Full agent-7b serves the 8 requests on ``layout``; every kernel of
+    the path launches exactly as often as expected.  Returns the counts
+    of that run."""
+    eng = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
+                      name=f"serve-{layout}", cache_layout=layout,
+                      device=dev)
     lens = [int(x) for x in np.random.default_rng(2).integers(256, 1025, 8)]
     reqs = make_requests(lens, 64, cfg.vocab, seed=3)
     torch.cuda.reset_peak_memory_stats()
-    paged_decode_attention.launches = 0          # the main path's count
-    res = serve(eng, reqs)
-    launches = paged_decode_attention.launches
-    want = cfg.n_layers * eng.decode_steps
-    if launches != want:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{want} = {cfg.n_layers} x {eng.decode_steps}")
+    for fn in KERNELS.values():                 # the main path's counts
+        fn.launches = 0
+    res = served_counts(eng, reqs, launch_counts())
+    launches = res["launches"]
     dec = res["times"]["decode"]
-    log("serve", f"8 requests, prompts {lens}, 64 new tokens each: all "
-        f"FINISHED; {eng.prefill_steps} prefill steps "
+    phase = "serve" if layout == "paged" else "serve ring"
+    log(phase, f"{layout} layout, 8 requests, prompts {lens}, 64 new tokens "
+        f"each: all FINISHED; {eng.prefill_steps} prefill steps "
         f"{res['times']['prefill']:.3f} s, {eng.decode_steps} decode steps "
         f"{dec:.3f} s, mean decode step {1e3 * dec / eng.decode_steps:.2f} "
         f"ms, decode {res['decode_tokens'] / dec:.1f} tokens/s; kernel "
-        f"launches {launches} = {cfg.n_layers} x {eng.decode_steps}; "
-        f"max_memory_allocated "
+        f"launches {launches} ({cfg.n_layers} layers, {len(reqs)} "
+        f"prefills, {eng.decode_steps} decode steps); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_decode(eng, 1e3 * dec / eng.decode_steps)
+    profile_decode(eng, 1e3 * dec / eng.decode_steps, phase)
     return launches
 
 
-def profile_decode(eng: TorchEngine, step_ms: float, steps: int = 4) -> None:
+def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
+                   steps: int = 4) -> None:
     """Where a decode step's time goes, after the counted run: device
     time by kernel over ``steps`` decode steps of 8 fresh 512-token
     sequences, against the unprofiled mean decode step time."""
@@ -340,13 +679,13 @@ def profile_decode(eng: TorchEngine, step_ms: float, steps: int = 4) -> None:
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     device_ms = sum(r[0] for r in rows) / 1e3 / steps
-    log("profile", f"decode step: device busy {device_ms:.2f} ms of "
+    log("profile", f"{phase}: decode step: device busy {device_ms:.2f} ms of "
         f"{step_ms:.2f} ms unprofiled ({100 * device_ms / step_ms:.1f}% "
         f"busy, {100 * (1 - device_ms / step_ms):.1f}% idle); "
         f"{sum(r[1] for r in rows) / steps:.0f} kernels and copies per "
         f"step")
     for us, count, key in sorted(rows, reverse=True)[:8]:
-        log("profile", f"  {us / 1e3 / steps:8.3f} ms/step  "
+        log("profile", f"  {phase}: {us / 1e3 / steps:8.3f} ms/step  "
             f"{count / steps:6.0f} calls/step  {key[:90]}")
 
 
@@ -365,17 +704,45 @@ def main() -> int:
     logs = build.build_all()
     log("build", f"{sorted(logs)} built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+        regs = [int(w) for line in text.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt.startswith("registers")]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log("build", f"{name}: {len(regs)} instantiations, "
+            f"{min(regs, default=0)}-{max(regs, default=0)} registers; "
+            f"{sum(n > 0 for n in spills)} spill, at most "
+            f"{max(spills, default=0)} bytes")
 
-    row = phase_kernels(dev)
-    phase_parity(dev)
+    rows = [phase_kernels(dev), phase_flash(dev), phase_ring_decode(dev)]
+
+    small = get_config("agent-7b").replace(n_layers=2, dtype="float32")
+    params = models.init(small, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    phase_parity(dev, small, params)
+    phase_migrate(dev, small, params)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
-    row["launches"] = phase_serve(dev)
+
+    cfg = get_config("agent-7b").replace(use_pallas=True)
+    t0 = time.perf_counter()
+    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    log("serve", f"agent-7b: {models.param_count(cfg) / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers, {cfg.dtype}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    paged = phase_serve(dev, cfg, params, "paged")
+    gc.collect()                             # the paged engine is gone
+    torch.cuda.empty_cache()
+    ring = phase_serve(dev, cfg, params, "ring")
+    for row in rows:
+        counts = paged if row["name"] == "paged_decode_attention" else ring
+        row["launches"] = counts[row["name"]]
 
     print(card(), flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,13 @@ built for ``sm_90a`` by ``build.py`` at first use).  A wrapper takes the
 plain version only for CPU tensors; on CUDA tensors it launches the
 kernel or raises.
 """
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "flash_attention",
+           "flash_attention_plain", "paged_decode_attention",
+           "paged_decode_attention_plain"]

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone with
 ``nvcc`` for ``sm_90a`` into a shared library (no PyTorch headers, so a
-build takes seconds).  Libraries go to ``build/repro_torch/`` at the
-root of the checkout, named by a hash of the source and the flags, so a
-stale library is never loaded.  ``build_all`` starts one ``nvcc`` per
+build takes seconds); the sources share device helpers through
+``csrc/*.cuh``.  Libraries go to ``build/repro_torch/`` at the root of
+the checkout, named by a hash of the source, the headers and the flags,
+so a stale library is never loaded.  ``build_all`` starts one ``nvcc`` per
 source, all at once.
 """
 from __future__ import annotations
@@ -40,7 +41,10 @@ def sources() -> list[str]:
 
 
 def lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers of ``csrc`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

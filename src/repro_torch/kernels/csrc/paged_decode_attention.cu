@@ -31,57 +31,15 @@
 // the NWARPS partial states merge once, in shared memory, at the end.
 // Split-KV across CTAs, TMA and wgmma are later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int NWARPS = 8;
 constexpr int UNROLL = 4;
-
-template <int N>
-__device__ __forceinline__ void load_row(const float* p, float (&o)[N]) {
-  if constexpr (N == 4) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  } else if constexpr (N == 2) {
-    float2 v = *reinterpret_cast<const float2*>(p);
-    o[0] = v.x; o[1] = v.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = p[i];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
-                                         float (&o)[N]) {
-  if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p + i));
-      o[i] = f.x; o[i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = __bfloat162float(p[i]);
-  }
-}
-
-__device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T, int DH, int G>
 __global__ void __launch_bounds__(NWARPS * 32)

@@ -1,16 +1,25 @@
-"""Attention over the paged KV pool (port of the paged half of
-``repro/models/attention.py``): GQA projections, the masked-softmax
-core, the query-chunked cached attention, and the shared page pool.
+"""Attention (port of ``repro/models/attention.py``): GQA projections,
+the masked-softmax core, the ring-buffer KV cache and the shared paged
+pool.
 
-Decode (one query token) with ``cfg.use_pallas`` runs the hand-written
-Hopper kernel ``kernels.paged_decode_attention`` straight over the pool
-and the live block tables; everything else (suffix prefill, and decode
-with the flag off) gathers a contiguous view of each sequence's pages
-(``paged_view``) and runs ``attention_cached``, as the reference does.
+Two layouts share one masked-softmax core:
 
-JAX updates the pool functionally and donates the old buffer; here the
-pool is updated in place (``index_put_``) and the same tensors are
-returned.  The ring layout waits for a later slice.
+* ``ring``  -- slot-contiguous ring buffers (``KVCache``) whose ``kpos``
+  holds each slot's absolute position.  One-shot prefill runs
+  ``attention_full`` over the prompt (query-chunked, window-sliced) and
+  writes the surviving tail into the ring; decode writes its token and
+  attends with ``attention_cached``.  With ``cfg.use_pallas`` prefill
+  runs the Hopper kernel ``kernels.flash_attention`` and decode
+  ``kernels.decode_attention``.
+* ``paged`` -- one shared page pool per layer (``PagedKVCache``).
+  Decode with ``cfg.use_pallas`` runs ``kernels.paged_decode_attention``
+  straight over the pool and the live block tables; everything else
+  gathers a contiguous view of each sequence's pages (``paged_view``)
+  and runs ``attention_cached``, as the reference does.
+
+JAX updates caches functionally and donates the old buffers; here ring
+and pool are updated in place (``index_put_``) and the same tensors are
+returned.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.kernels import paged_decode_attention
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 paged_decode_attention)
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import P
 
@@ -76,18 +86,105 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Cached attention over a contiguous (gathered) view
+# Full-sequence path (one-shot prefill)
+# ---------------------------------------------------------------------------
+
+
+def _causal_window_mask(qpos: torch.Tensor, kpos: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """qpos (Sq,), kpos (T,) -> (1,1,1,Sq,T) bool."""
+    m = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        m &= kpos[None, :] > (qpos[:, None] - window)
+    return m[None, None, None]
+
+
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   window: int, chunk: int, causal: bool = True
+                   ) -> torch.Tensor:
+    """q (B,S,H,dh) vs k,v (B,T,Hkv,dh), queries chunked by ``chunk``.
+    A windowed layer reads only the ``window + chunk`` keys a query chunk
+    can see, as the reference's ``dynamic_slice`` does."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    hkv = k.shape[2]
+    qg = _group(q, hkv)
+    dev = q.device
+
+    if not causal:
+        mask = torch.ones((1, 1, 1, s, t), dtype=torch.bool, device=dev)
+        return attn_core(qg, k, v, mask).reshape(b, s, h, dh)
+
+    if s <= chunk or s % chunk != 0:
+        mask = _causal_window_mask(torch.arange(s, device=dev),
+                                   torch.arange(t, device=dev), window)
+        return attn_core(qg, k, v, mask).reshape(b, s, h, dh)
+    use_slice = window > 0 and t > window + chunk
+    kv_span = window + chunk if use_slice else t
+    outs = []
+    for qs in range(0, s, chunk):
+        ks = min(max(qs - window, 0), t - kv_span) if use_slice else 0
+        kpos = torch.arange(ks, ks + kv_span, device=dev)
+        qpos = torch.arange(qs, qs + chunk, device=dev)
+        outs.append(attn_core(qg[:, qs:qs + chunk], k[:, ks:ks + kv_span],
+                              v[:, ks:ks + kv_span],
+                              _causal_window_mask(qpos, kpos, window)))
+    return torch.cat(outs, dim=1).reshape(b, s, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer KV cache
 # ---------------------------------------------------------------------------
 
 
 class KVCache(NamedTuple):
-    """A contiguous per-sequence view; ``kpos`` holds the absolute
-    position in each slot (-1 = empty).  Here it is only the type of
-    ``paged_view``'s result."""
+    """Ring buffer over ``size`` slots; ``kpos`` holds the absolute
+    position written in each slot (-1 = empty).  For full-attention
+    layers ``size`` is the max context, so the ring never wraps; for SWA
+    layers it is ``window + chunk`` rounded up (``kv_cache_size``).
+    ``paged_view`` returns the same type for a gathered view."""
 
-    k: torch.Tensor       # (B, T, Hkv, dh)
-    v: torch.Tensor       # (B, T, Hkv, dh)
-    kpos: torch.Tensor    # (B, T) int32
+    k: torch.Tensor       # (B, size, Hkv, dh)
+    v: torch.Tensor       # (B, size, Hkv, dh)
+    kpos: torch.Tensor    # (B, size) int32
+
+
+def kv_cache_size(spec: BlockSpec, max_context: int, chunk: int) -> int:
+    if spec.window > 0:
+        size = spec.window + chunk
+        return min(-(-size // chunk) * chunk, max_context)
+    return max_context
+
+
+def init_kv_cache(batch: int, size: int, hkv: int, dh: int,
+                  dtype: torch.dtype, device: torch.device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, size, hkv, dh), dtype=dtype, device=device),
+        v=torch.zeros((batch, size, hkv, dh), dtype=dtype, device=device),
+        kpos=torch.full((batch, size), -1, dtype=torch.int32, device=device))
+
+
+def cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                start_pos: torch.Tensor) -> KVCache:
+    """Write S_new tokens at absolute positions start_pos..start_pos+S_new
+    (start_pos (B,) int32), in place.  If S_new exceeds the ring size only
+    the last ``size`` tokens are written (the older ones would be
+    overwritten anyway), which keeps the scatter slots unique."""
+    b, s_new = k_new.shape[:2]
+    size = cache.k.shape[1]
+    start = start_pos.long()
+    if s_new > size:
+        k_new = k_new[:, s_new - size:]
+        v_new = v_new[:, s_new - size:]
+        start = start + (s_new - size)
+        s_new = size
+    pos = start[:, None] + torch.arange(s_new, device=start.device)[None, :]
+    slots = torch.remainder(pos, size)
+    bidx = torch.arange(b, device=start.device)[:, None].expand(b, s_new)
+    cache.k.index_put_((bidx, slots), k_new.to(cache.k.dtype))
+    cache.v.index_put_((bidx, slots), v_new.to(cache.v.dtype))
+    cache.kpos.index_put_((bidx, slots), pos.to(torch.int32))
+    return cache
 
 
 def _cached_mask(kpos: torch.Tensor, q_pos: torch.Tensor,
@@ -200,6 +297,48 @@ def self_attention_paged(params: dict, x: torch.Tensor, cache: PagedKVCache,
         view = paged_view(cache, tables)
         out = attention_cached(q, view, pos1, window=spec.window,
                                chunk=cfg.attn_chunk)
+    return out_project(params, out), cache
+
+
+# ---------------------------------------------------------------------------
+# Ring entry points (one-shot prefill, write-then-attend decode)
+# ---------------------------------------------------------------------------
+
+
+def self_attention_cached(params: dict, x: torch.Tensor, cache: KVCache,
+                          cfg: ModelConfig, spec: BlockSpec,
+                          positions: torch.Tensor
+                          ) -> tuple[torch.Tensor, KVCache]:
+    """Write this block of tokens into the ring, then attend.  Decode
+    (Sq = 1) with ``cfg.use_pallas`` runs the ring decode kernel over the
+    ring and its ``kpos``."""
+    q, k, v = qkv_project(params, x, cfg, positions)
+    pos1 = _pos1d(positions)
+    cache = cache_write(cache, k, v, pos1[:, 0])
+    if cfg.use_pallas and q.shape[1] == 1:
+        out = decode_attention(q, cache.k, cache.v, cache.kpos,
+                               pos1[:, 0].contiguous(), window=spec.window)
+    else:
+        out = attention_cached(q, cache, pos1, window=spec.window,
+                               chunk=cfg.attn_chunk)
+    return out_project(params, out), cache
+
+
+def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
+                           cfg: ModelConfig, spec: BlockSpec,
+                           positions: torch.Tensor
+                           ) -> tuple[torch.Tensor, KVCache]:
+    """One-shot prefill from position 0: causal (windowed) attention over
+    the prompt itself, then the surviving tail written into the ring.
+    With ``cfg.use_pallas`` the attention is the flash kernel."""
+    q, k, v = qkv_project(params, x, cfg, positions)
+    if cfg.use_pallas:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, window=spec.window)
+    else:
+        out = attention_full(q, k, v, window=spec.window,
+                             chunk=cfg.attn_chunk)
+    cache = cache_write(cache, k, v, _pos1d(positions)[:, 0])
     return out_project(params, out), cache
 
 

@@ -1,8 +1,8 @@
 """Block-level assembly (port of ``repro/models/blocks.py``) for the
 dense attention-only kinds: ``attn`` and ``dec`` without cross
-attention, including ``parallel_block``.  Other kinds, MoE and cross
-attention raise ``NotImplementedError`` naming the ROADMAP queue A item
-that ports them."""
+attention, including ``parallel_block``, over a ring or a paged cache.
+Other kinds, MoE and cross attention raise ``NotImplementedError``
+naming the ROADMAP queue A item that ports them."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -10,9 +10,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.attention import (PagedKVCache, attn_defs,
-                                          init_paged_kv_cache,
-                                          self_attention_paged)
+from repro_torch.models.attention import (KVCache, PagedKVCache, attn_defs,
+                                          init_kv_cache, init_paged_kv_cache,
+                                          kv_cache_size,
+                                          self_attention_cached,
+                                          self_attention_paged,
+                                          self_attention_prefill)
 from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 
 _LATER = {"hymba": "SSM", "mlstm": "SSM", "slstm": "SSM", "enc": "enc-dec"}
@@ -55,6 +58,21 @@ def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     max_context: int, dtype: torch.dtype,
+                     device: torch.device, stack: tuple[int, ...] = ()
+                     ) -> dict:
+    """Ring decode state for a stack of layers of one block kind: rings
+    of shape ``stack + (batch, size, Hkv, dh)`` and ``kpos`` of ``stack +
+    (batch, size)``, ``size`` from ``kv_cache_size``."""
+    _supported(spec)
+    size = kv_cache_size(spec, max_context, cfg.attn_chunk)
+    one = init_kv_cache(batch, size, cfg.n_kv_heads, cfg.d_head, dtype,
+                        device)
+    return {"kv": KVCache(*(t.expand(*stack, *t.shape).contiguous()
+                            for t in one))}
+
+
 def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
                            num_pages: int, page_size: int,
                            dtype: torch.dtype, device: torch.device,
@@ -77,16 +95,31 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 spec: BlockSpec, positions: torch.Tensor, cache: dict,
-                tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                tables: Optional[torch.Tensor] = None,
+                mode: Optional[str] = None) -> torch.Tensor:
     """x: (B,S,d); positions: (B,S); tables: (B,P) physical page ids.
-    Returns the block's output; the layer's pool in ``cache`` is updated
-    in place.  The paged pool serves prefill and decode alike
-    (write-then-attend), so there is no mode argument: this slice has
-    no train mode."""
+    Returns the block's output; the layer's cache is updated in place.
+    A ring cache needs ``mode``: ``"prefill"`` (one shot from position
+    0) or ``"step"`` (write-then-attend).  The paged pool serves prefill
+    and decode alike, so it takes no mode; this slice has no train
+    mode."""
     _supported(spec)
     xr = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    a, _ = self_attention_paged(params["attn"], xr, cache["kv"], cfg, spec,
-                                positions, tables)
+    kv = cache["kv"]
+    if isinstance(kv, PagedKVCache):
+        if tables is None:
+            raise ValueError("a paged cache needs block tables")
+        a, _ = self_attention_paged(params["attn"], xr, kv, cfg, spec,
+                                    positions, tables)
+    elif mode == "prefill":
+        a, _ = self_attention_prefill(params["attn"], xr, kv, cfg, spec,
+                                      positions)
+    elif mode == "step":
+        a, _ = self_attention_cached(params["attn"], xr, kv, cfg, spec,
+                                     positions)
+    else:
+        raise ValueError(f"a ring cache needs mode 'prefill' or 'step', "
+                         f"got {mode!r}")
     if spec.parallel_block:
         # attention and FFN read the same normed input, summed
         return x + a + mlp(params["mlp"], xr)

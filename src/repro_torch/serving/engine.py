@@ -1,20 +1,27 @@
-"""Live PyTorch serving engine (port of ``repro/serving/engine.py``),
-paged KV layout.
+"""Live PyTorch serving engine (port of ``repro/serving/engine.py``).
 
-One shared page pool per layer, sized by the scheduler's
-``PageAllocator`` (pool page *i* is allocator page *i*).  Each decode
-step runs every slot at once: inactive slots ride along with all -1
-block-table rows, so their writes land in the pool's sink page and
-their reads mask out.  With ``cfg.use_pallas`` decode attention runs the
-hand-written Hopper kernel over the live block tables.  Prefill computes
-only the uncached suffix of a prompt, in the chunks the scheduler plans
-(the ``prefill_chunk`` knob), straight into the pool.  Sampling runs on
-the device; only token ids cross to the host.
+Two KV layouts, selected by the ``cache_layout`` knob (default: paged
+when ``cfg.use_pallas`` is set, else ring, as in the reference):
 
-PyTorch runs eagerly, so there is nothing to compile or donate: each
-step updates the pool in place.  Waiting for later slices (ROADMAP
-queue A): the mixed step, ``extract_state``/``inject_state``, the
-prefix cache and the ring layout.
+* ``ring``  -- slot-contiguous ring buffers.  Prefill recomputes the
+  whole prompt into a fresh batch-1 sub-cache in one shot, which is then
+  copied into the slot (``serving/cache_utils``).  With ``cfg.use_pallas``
+  prefill attention runs the Hopper flash kernel and decode attention the
+  ring decode kernel.
+* ``paged`` -- one shared page pool per layer, sized by the scheduler's
+  ``PageAllocator`` (pool page *i* is allocator page *i*).  Inactive
+  slots ride along with all -1 block-table rows, so their writes land in
+  the pool's sink page and their reads mask out.  With ``cfg.use_pallas``
+  decode attention runs the paged Hopper kernel over the live block
+  tables.  Prefill computes only the uncached suffix of a prompt, in the
+  chunks the scheduler plans (the ``prefill_chunk`` knob).
+
+Each decode step runs every slot at once.  Sampling runs on the device;
+only token ids cross to the host.  ``extract_state``/``inject_state``
+move one sequence between engines of either layout through the batch-1
+ring tree.  PyTorch runs eagerly, so there is nothing to compile or
+donate: each step updates the cache in place.  Waiting for later slices
+(ROADMAP queue A): the mixed step and the prefix cache.
 """
 from __future__ import annotations
 
@@ -26,9 +33,9 @@ import torch
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.knobs import KnobSpec
-from repro_torch.core.types import Request
+from repro_torch.core.types import Request, RequestState
 from repro_torch.models.params import resolve_device
-from repro_torch.serving import sampler
+from repro_torch.serving import cache_utils, sampler
 from repro_torch.serving.engine_base import EngineCore
 from repro_torch.serving.kv_cache import block_tables
 from repro_torch.serving.scheduler import SchedulerConfig, StepKind
@@ -36,21 +43,19 @@ from repro_torch.serving.scheduler import SchedulerConfig, StepKind
 
 class TorchEngine(EngineCore):
     KNOB_SPECS = EngineCore.KNOB_SPECS + (
-        KnobSpec("cache_layout", kind="str", choices=("paged",),
-                 attr="_cache_layout",
-                 doc="KV cache layout: 'paged' shared page pool driven by "
-                     "live allocator block tables (the ring layout is not "
-                     "ported yet)"),
+        KnobSpec("cache_layout", kind="str", choices=("ring", "paged"),
+                 attr="_cache_layout", on_change="_cache_layout_changed",
+                 doc="KV cache layout: 'ring' slot-contiguous buffers or "
+                     "'paged' shared page pool driven by live allocator "
+                     "block tables"),
     )
 
     def __init__(self, cfg: ModelConfig, params, sched_cfg: SchedulerConfig,
                  name: str = "engine", collector=None, seed: int = 0,
                  cache_layout: str | None = None, device=None):
         self.device = resolve_device(device)
-        if cache_layout not in (None, "paged"):
-            raise NotImplementedError(
-                f"cache layout {cache_layout!r} is not ported yet (ROADMAP "
-                "queue A: ring layout)")
+        if cache_layout not in (None, "ring", "paged"):
+            raise ValueError(f"unknown cache layout {cache_layout!r}")
         if sched_cfg.mixed:
             raise NotImplementedError(
                 "mixed batching is not ported yet (ROADMAP queue A: mixed "
@@ -68,17 +73,35 @@ class TorchEngine(EngineCore):
         # fixed block-table width: the allocator never hands a live
         # sequence more pages than a max_context footprint
         self._p_max = self.scheduler.alloc.pages_for(sched_cfg.max_context)
-        self._cache_layout = "paged"
+        self._axes = cache_utils.batch_axes(cfg, sched_cfg.max_context)
+        if cache_layout is None:
+            cache_layout = "paged" if cfg.use_pallas else "ring"
+        self._cache_layout = cache_layout
         self._last_token = np.zeros((sched_cfg.max_slots,), np.int32)
-        sc = sched_cfg
-        self.cache = models.init_cache(cfg, sc.max_slots, sc.max_context,
-                                       layout="paged", num_pages=sc.num_pages,
-                                       page_size=sc.page_size,
-                                       device=self.device)
+        self._build_cache()
 
+    # ----------------------------------------------------------- cache layout
     @property
     def cache_layout(self) -> str:
         return self._cache_layout
+
+    def _build_cache(self) -> None:
+        sc = self.scheduler.cfg
+        self.cache = None                   # free the old cache first
+        self.cache = models.init_cache(
+            self.cfg, sc.max_slots, sc.max_context, layout=self._cache_layout,
+            num_pages=sc.num_pages, page_size=sc.page_size,
+            device=self.device)
+
+    def _cache_layout_changed(self, old: str, new: str) -> None:
+        if old == new:
+            return
+        if self.scheduler.num_running > 0:
+            self._cache_layout = old            # revert before failing
+            raise RuntimeError(
+                f"{self.name}: cache_layout flip needs an idle engine "
+                f"({self.scheduler.num_running} sequences running)")
+        self._build_cache()
 
     def on_knob_set(self, name: str, old, new) -> None:
         if name == "mixed" and new:
@@ -117,8 +140,14 @@ class TorchEngine(EngineCore):
         t_start = time.monotonic()
         plan = self.scheduler.plan_step()
         if plan.kind == StepKind.PREFILL:
-            firsts = [self._run_prefill_paged(w.req, w.chunk)
-                      for w in plan.prefills]
+            firsts = []
+            for work in plan.prefills:
+                if self._cache_layout == "paged":
+                    firsts.append(self._run_prefill_paged(work.req,
+                                                          work.chunk))
+                else:
+                    work.chunk = work.req.prompt_len   # ring: one shot
+                    firsts.append(self._run_prefill(work.req))
             self.apply_prefill(plan.prefills, firsts, self.now())
         elif plan.kind == StepKind.DECODE:
             live = [r for r in plan.decodes
@@ -137,6 +166,20 @@ class TorchEngine(EngineCore):
             self.step()
 
     # ---------------------------------------------------------------- prefill
+    @torch.inference_mode()
+    def _run_prefill(self, req: Request) -> int:
+        """Ring prefill: the whole prompt in one shot into a fresh batch-1
+        sub-cache, then copied into the request's slot."""
+        tokens = self._to_device(
+            np.asarray(req.prompt_tokens, np.int64)[None, :])
+        sub = models.init_cache(self.cfg, 1, self.scheduler.cfg.max_context,
+                                layout="ring", device=self.device)
+        logits, sub = models.prefill(self.params, self.cfg, tokens, sub)
+        cache_utils.cache_insert(self.cache, sub, req.slot, self._axes)
+        first = int(sampler.sample(logits, self._gen, self.temperature)[0])
+        self._last_token[req.slot] = first
+        return first
+
     @torch.inference_mode()
     def _run_prefill_paged(self, req: Request, chunk: int):
         """Prefill ``chunk`` uncached prompt tokens into the shared pool.
@@ -164,7 +207,9 @@ class TorchEngine(EngineCore):
     @torch.inference_mode()
     def _run_decode(self, reqs: list[Request]) -> list[int]:
         tokens = self._to_device(self._last_token[:, None].astype(np.int64))
-        tables = self._to_device(self._block_table_rows(reqs))
+        tables = None
+        if self._cache_layout == "paged":
+            tables = self._to_device(self._block_table_rows(reqs))
         logits, self.cache = models.decode_step(self.params, self.cfg, tokens,
                                                 self.cache, tables)
         toks = sampler.sample(logits, self._gen, self.temperature).cpu()
@@ -177,12 +222,37 @@ class TorchEngine(EngineCore):
         return out
 
     # ------------------------------------------------------------ kv transfer
-    def extract_state(self, req: Request):
-        raise NotImplementedError(
-            "extract_state is not ported yet (ROADMAP queue A: migration "
-            "bridge)")
+    @torch.inference_mode()
+    def extract_state(self, req: Request) -> dict:
+        """(batch-1 ring-format cache tree, last token, nbytes) of one
+        sequence, for migration.  Both layouts export the same format, so
+        the receiving engine never cares which layout produced it.  The
+        tree is a copy on this engine's device."""
+        if self._cache_layout == "paged":
+            row = self._block_table_rows([req])[req.slot]
+            ctx = int(self.cache["pos"][req.slot])
+            sub = models.paged_extract(self.cfg, self.cache, row, ctx,
+                                       self.scheduler.cfg.max_context,
+                                       req.slot)
+        else:
+            sub = cache_utils.cache_extract(self.cache, req.slot, self._axes)
+        return {"cache": sub,
+                "last_token": int(self._last_token[req.slot]),
+                "nbytes": cache_utils.cache_nbytes(sub)}
 
+    @torch.inference_mode()
     def inject_state(self, req: Request, state: dict) -> None:
-        raise NotImplementedError(
-            "inject_state is not ported yet (ROADMAP queue A: migration "
-            "bridge)")
+        """Install a migrated request into a fresh slot (already admitted:
+        ``req.slot`` assigned, scheduler pages reserved).  A ring engine
+        refuses a ring whose size differs from its own (the reference
+        fails there too, with a TypeError from its slice update)."""
+        if self._cache_layout == "paged":
+            row = self._block_table_rows([req])[req.slot]
+            self.cache = models.paged_insert(self.cfg, self.cache,
+                                             state["cache"], row, req.slot)
+        else:
+            cache_utils.cache_insert(self.cache, state["cache"], req.slot,
+                                     self._axes)
+        self._last_token[req.slot] = state["last_token"]
+        req.state = RequestState.RUNNING
+        req.prefilled = req.prompt_len

@@ -4,6 +4,7 @@ they claim, and the serve loop drives TorchEngine to completion.  The
 script itself needs a GPU; this keeps its pieces from rotting."""
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -61,3 +62,123 @@ def test_serve_loop_finishes_every_request(smoke):
     assert paged_decode_attention.launches == launches   # CPU: no kernel
     assert res["decode_tokens"] == sum(r.max_new_tokens - 1 for r in reqs)
     assert res["times"]["decode"] > 0 and eng.decode_steps > 0
+
+
+@pytest.mark.parametrize("s,t,causal,window", [(40, 40, True, -1),
+                                               (40, 40, True, 9),
+                                               (48, 30, False, -1)])
+def test_flash_case_bound_and_yardstick(smoke, monkeypatch, s, t, causal,
+                                        window):
+    from repro_torch.kernels import flash_attention
+
+    monkeypatch.setattr(smoke, "FLASH_HEADS", (4, 2, 32))
+    gen = torch.Generator().manual_seed(0)
+    args = smoke.flash_case(torch.float32, s, t, gen, torch.device("cpu"))
+    assert [tuple(a.shape) for a in args] == [(1, s, 4, 32), (1, t, 2, 32),
+                                              (1, t, 2, 32)]
+    out = flash_attention(*args, causal=causal, window=window)
+    sq, sk, sv, mask, is_causal = smoke.flash_sdpa_inputs(args, causal,
+                                                          window)
+    ref = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask, is_causal=is_causal).transpose(1, 2)
+    torch.testing.assert_close(ref, out, atol=2e-5, rtol=2e-5)
+    # the valid-pair count the bound uses, against a brute-force mask
+    i, j = np.arange(s)[:, None], np.arange(t)[None, :]
+    valid = np.ones((s, t), bool)
+    if causal:
+        valid = j <= i
+        if window > 0:
+            valid &= j > i - window
+    assert smoke.flash_valid_keys(s, t, causal, window) == valid.sum()
+    ms, by = smoke.flash_bound(args, causal, window)
+    t_ops = 4 * 32 * 4 * valid.sum() / smoke.F32_OPS_PER_S
+    t_bytes = (2 * s * 4 * 32 + 2 * t * 2 * 32) * 4 / smoke.HBM_BYTES_PER_S
+    assert ms == pytest.approx(1e3 * max(t_ops, t_bytes))
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@pytest.mark.parametrize("slots,window", [(4096, -1), (1536, 512)])
+def test_ring_case_bound_and_yardstick(smoke, slots, window):
+    from repro_torch.kernels import decode_attention
+
+    gen = torch.Generator().manual_seed(0)
+    args = smoke.ring_case(torch.float32, slots, gen, torch.device("cpu"))
+    q, k, _, kpos, q_pos = args
+    assert tuple(q.shape) == (8, 1, 32, 128) and k.shape[1] == slots
+    assert q_pos.tolist() == [c - 1 for c in smoke.CTX]
+    # every slot holds the newest position of its residue class
+    for r, c in enumerate(smoke.CTX):
+        held = sorted(p for p in kpos[r].tolist() if p >= 0)
+        assert held == list(range(max(c - slots, 0), c))
+    valid = smoke.ring_valid(args, window)
+    assert valid.sum(1).tolist() == smoke.needed_keys(window)
+    live = torch.tensor([c > 0 for c in smoke.CTX])
+    out = decode_attention(*args, window=window)
+    h, hkv = q.shape[2], k.shape[2]
+    sk = k.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    sv = args[2].transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    ref = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), sk, sv,
+        attn_mask=valid[:, None, None, :]).transpose(1, 2)
+    torch.testing.assert_close(ref[live], out[live], atol=2e-5, rtol=2e-5)
+    ms, by = smoke.ring_bound(args, window)
+    keys = sum(smoke.needed_keys(window))
+    assert by == "bytes"
+    assert ms > 1e3 * 2 * keys * 8 * 128 * 4 / smoke.HBM_BYTES_PER_S
+
+
+@pytest.fixture
+def small(smoke, monkeypatch):
+    """chip_smoke's engine phases cut to tiny-agent sizes on the CPU."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(smoke, "PARITY_LENS", [20, 33, 70, 100])
+    monkeypatch.setattr(smoke, "PARITY_SCHED", dict(
+        max_slots=4, num_pages=40, page_size=16, max_context=128))
+    monkeypatch.setattr(smoke, "PARITY_SWA", (24, 32))
+    monkeypatch.setattr(smoke, "MIGRATE_LEN", 70)
+    cfg = get_config("tiny-agent").replace(dtype="float32")
+    return cfg, models.init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+
+
+def test_parity_phase_runs_both_layouts(smoke, small, capsys):
+    smoke.phase_parity(torch.device("cpu"), *small)
+    out = capsys.readouterr().out
+    assert out.count("greedy tokens equal across paged and ring") == 2
+
+
+def test_migrate_phase_runs_every_direction(smoke, small, capsys):
+    smoke.phase_migrate(torch.device("cpu"), *small)
+    out = capsys.readouterr().out
+    for d in ("ring->paged", "paged->ring after", "ring->ring"):
+        assert d in out
+    assert "paged->ring with window 24 refused: " in out
+    assert "ring size 128 vs 64" in out
+
+
+def test_expected_launches_follow_layout_and_flag(smoke, small):
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg, params = small
+    for layout, use_pallas in smoke.LAYOUTS:
+        eng = TorchEngine(cfg.replace(use_pallas=use_pallas), params,
+                          SchedulerConfig(max_slots=2, num_pages=16,
+                                          page_size=16, max_context=64),
+                          cache_layout=layout, device="cpu")
+        eng.decode_steps = 5
+        assert set(smoke.expected_launches(eng, 3).values()) == {0}
+        eng.device = torch.device("cuda")       # as the card would count
+        want = smoke.expected_launches(eng, 3)
+        n = cfg.n_layers
+        if not use_pallas:
+            assert set(want.values()) == {0}
+        elif layout == "paged":
+            assert want == {"paged_decode_attention": 5 * n,
+                            "flash_attention": 0, "decode_attention": 0}
+        else:
+            assert want == {"paged_decode_attention": 0,
+                            "flash_attention": 3 * n,
+                            "decode_attention": 5 * n}

@@ -12,7 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import paged_decode_attention  # noqa: E402
+from repro_torch.kernels import (decode_attention,  # noqa: E402
+                                 flash_attention, paged_decode_attention)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_plain)
 
@@ -81,3 +86,84 @@ def test_paged_decode_kernel_rejects_unsupported(cuda_device):
     args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention(*args)
+
+
+def flash_case(dev, dtype, b, s, t, hkv, g, dh, seed=1):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+            for shape in ((b, s, hkv * g, dh), (b, t, hkv, dh),
+                          (b, t, hkv, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,g,dh,causal,window", [
+    (1, 300, 300, 4, 128, True, -1),
+    (2, 130, 130, 2, 64, True, 48),
+    (1, 77, 77, 8, 32, True, 5),
+    (1, 200, 90, 1, 128, False, -1),
+    (2, 64, 64, 4, 64, False, -1)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
+                                    causal, window):
+    args = flash_case(cuda_device, dtype, b, s, t, 2, g, dh)
+    before = flash_attention.launches
+    out = flash_attention(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(*args, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
+    """Rings after writing positions 0..q_pos[b] at slot ``pos % slots``
+    (wrapped where q_pos >= slots)."""
+    rng = np.random.default_rng(seed)
+    b = len(q_pos)
+    last = np.asarray(q_pos)[:, None]
+    kpos = last - np.mod(last - np.arange(slots)[None], slots)
+    kpos = np.where(kpos >= 0, kpos, -1).astype(np.int32)
+    return ([torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+             for shape in ((b, 1, hkv * g, dh), (b, slots, hkv, dh),
+                           (b, slots, hkv, dh))]
+            + [torch.from_numpy(kpos).to(dev),
+               torch.tensor(q_pos, dtype=torch.int32, device=dev)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g,dh,slots,window", [(4, 128, 1024, -1),
+                                               (4, 128, 384, 256),
+                                               (2, 32, 64, 24),
+                                               (8, 64, 300, -1),
+                                               (1, 128, 96, 40)])
+def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
+                                     window):
+    q_pos = [999, 998, 129, 0, 5000]
+    args = ring_case(cuda_device, dtype, q_pos, slots, 2, g, dh)
+    before = decode_attention.launches
+    out = decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(*args, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_ring_kernels_reject_unsupported(cuda_device):
+    fargs = flash_case(cuda_device, torch.float32, 1, 40, 40, 2, 3, 64)
+    dargs = ring_case(cuda_device, torch.float32, [30, 17], 64, 2, 3, 64)
+    before = (flash_attention.launches, decode_attention.launches)
+    with pytest.raises(ValueError, match="no kernel"):       # G = 3
+        flash_attention(*fargs)
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention(*dargs)
+    fargs = flash_case(cuda_device, torch.float32, 1, 40, 40, 2, 2, 64)
+    fargs[1] = fargs[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(*fargs)
+    assert (flash_attention.launches, decode_attention.launches) == before

@@ -159,16 +159,13 @@ def test_unported_engine_paths_raise():
     params = tmodels.from_jax(tcfg, tree, device="cpu")
     with pytest.raises(NotImplementedError, match="mixed"):
         TorchEngine(tcfg, params, SchedulerConfig(mixed=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        TorchEngine(tcfg, params, SchedulerConfig(), cache_layout="ring",
+    with pytest.raises(ValueError, match="layout"):
+        TorchEngine(tcfg, params, SchedulerConfig(), cache_layout="ragged",
                     device="cpu")
     eng = TorchEngine(tcfg, params, SchedulerConfig(**sched_kw()),
                       device="cpu")
     with pytest.raises(NotImplementedError, match="mixed"):
         eng.set_param("mixed", True)
     assert eng.scheduler.cfg.mixed is False
-    r = Request(prompt_len=4, max_new_tokens=1,
-                prompt_tokens=np.arange(4, dtype=np.int32))
-    with pytest.raises(NotImplementedError, match="migration"):
-        eng.extract_state(r)
+    # use_pallas picks the paged layout, as the reference's default rule
     assert eng.get_param("cache_layout") == "paged"

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -61,6 +62,7 @@ def test_source_imports_no_jax_and_no_reference(path):
 def test_entry_points_refuse_missing_cuda(monkeypatch):
     from repro_torch import models
     from repro_torch.configs import get_config
+    from repro_torch.serving import cache_utils
     from repro_torch.serving.engine import TorchEngine
     from repro_torch.serving.scheduler import SchedulerConfig
 
@@ -69,12 +71,17 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         models.init(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
-        models.init_cache(cfg, 2, 64, num_pages=4)
+        models.init_cache(cfg, 2, 64, layout="paged", num_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_cache(cfg, 2, 64, layout="ring")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cache_utils.ring_tree_from_numpy({"pos": np.zeros(1, np.int32)})
     with pytest.raises(RuntimeError, match="CUDA"):
         models.from_jax(cfg, {})
     params = models.init(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        TorchEngine(cfg, params, SchedulerConfig())
+    for layout in ("ring", "paged", None):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TorchEngine(cfg, params, SchedulerConfig(), cache_layout=layout)
 
 
 def test_chip_smoke_refuses_missing_cuda(monkeypatch):

@@ -154,7 +154,42 @@ def test_prefill_query_chunks_parity(window):
 
 def test_unported_paths_raise():
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="ring layout"):
-        tmodels.init_cache(tcfg, 2, 64, layout="ring", device="cpu")
+    with pytest.raises(ValueError, match="layout"):
+        tmodels.init_cache(tcfg, 2, 64, layout="ragged", device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         tmodels.model_defs(tcfg.replace(n_experts=4, top_k=2, d_ff_expert=64))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "kernel"])
+@pytest.mark.parametrize("window", [-1, 24], ids=["full", "swa"])
+def test_ring_logit_parity(window, use_pallas):
+    """One-shot ring prefill of a 70-token batch (longer than the 64-slot
+    SWA ring), then decode steps, against the reference's ring path.  With
+    the kernel flag the port runs its flash and ring decode wrappers
+    (plain versions on the CPU); the reference's ring path is jnp."""
+    jcfg, tcfg = configs(window=window, use_pallas=use_pallas)
+    tree, tparams = shared_params(jcfg, tcfg)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab, (2, 70))
+    toks = toks.astype(np.int32)
+    jcache = jmodels.init_cache(jcfg, 2, 96)
+    tcache = tmodels.init_cache(tcfg, 2, 96, device="cpu")
+    lj, jcache = jtfm.prefill(jparams, jcfg, jnp.asarray(toks), jcache)
+    lt, tcache = tmodels.prefill(tparams, tcfg, torch.from_numpy(toks).long(),
+                                 tcache)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=TOL, atol=TOL)
+    ring_j = jcache["segments"][0]["e0"]["kv"]
+    ring_t = tcache["segments"][0]["e0"]["kv"]
+    assert ring_t.k.shape == ring_j.k.shape
+    np.testing.assert_array_equal(ring_t.kpos.numpy(), np.asarray(ring_j.kpos))
+    tok = np.argmax(np.asarray(lj), -1).astype(np.int32)[:, None]
+    for _ in range(6):
+        lj, jcache = jmodels.decode_step(jparams, jcfg, jnp.asarray(tok),
+                                         jcache)
+        lt, tcache = tmodels.decode_step(tparams, tcfg,
+                                         torch.from_numpy(tok).long(), tcache)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                   rtol=DECODE_TOL, atol=DECODE_TOL)
+        tok = np.argmax(np.asarray(lj), -1).astype(np.int32)[:, None]
+        assert (np.argmax(lt.numpy(), -1)[:, None] == tok).all()
+    assert tcache["pos"].tolist() == [76, 76]
