@@ -9,10 +9,11 @@ code is non-zero and the final JSON line is not printed:
 1. device     -- needs CUDA; prints the card's name and power limit.
 2. build      -- compiles every CUDA source of ``src/repro_torch/kernels/
                  csrc`` (one nvcc each, in parallel) into ``build/``.
-3. kernels    -- each kernel (paged decode, flash, ring decode) against
-                 its plain PyTorch version on the card, in f32 and bf16,
-                 with its time at the main path's shapes, the plain
-                 version's, a PyTorch library call's, and its bound.
+3. kernels    -- each kernel (paged decode, flash, ring decode, SSM scan)
+                 against its plain PyTorch version on the card, in f32
+                 and bf16, at agent-7b's and hymba-1.5b's heads, with its
+                 time at the main path's shapes, the plain version's, a
+                 PyTorch library call's where one exists, and its bound.
 4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
                  tokens are equal across the paged layout with and
                  without its kernel and the ring layout with and without
@@ -27,6 +28,15 @@ code is non-zero and the final JSON line is not printed:
                  flash kernel launches once per layer per prefill, the
                  ring decode kernel once per layer per decode step, and
                  the paged kernel never; a profile follows.
+8. hymba      -- hymba-1.5b width at 3 layers in f32 on the ring layout:
+                 greedy tokens equal with and without the kernels, for
+                 full attention and a window whose ring wraps, prompts
+                 longer than 128 and ragged; ring->ring migration with
+                 the SSM state continues an unmigrated run's tokens.
+9. serve hymba -- hymba-1.5b in full (32 layers, bf16), ring layout,
+                 serves 8 requests: flash and the SSM scan launch once
+                 per layer per prefill, ring decode once per layer per
+                 decode step; a profile follows.
 
 The last two lines are a JSON object of kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +70,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.serving import cache_utils  # noqa: E402
 from repro_torch.serving.engine import TorchEngine  # noqa: E402
 from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
 
@@ -67,6 +79,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # bf16 tensor cores, dense
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ssm_scan in f32: the reference's own band for that kernel
+# (tests/test_kernels.py:253), chunked and sequential sums differ in order
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def log(phase: str, msg: str) -> None:
@@ -119,12 +134,13 @@ def bound_of(nbytes: float, ops: float, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
-def check(name: str, err: float, dtype, what: str) -> None:
+def check(name: str, err: float, dtype, what: str, tol=None) -> None:
+    tol = TOL[dtype] if tol is None else tol
     log("kernels", f"{name} {what}: max |kernel - plain| {err:.3e} "
-        f"(tolerance {TOL[dtype]:.0e})")
-    if not math.isfinite(err) or err > TOL[dtype]:
+        f"(tolerance {tol:.0e})")
+    if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{name} disagrees with its plain version "
-                             f"({what}): {err} > {TOL[dtype]}")
+                             f"({what}): {err} > {tol}")
 
 
 def kernel_case(dtype, page: int, gen: torch.Generator, dev):
@@ -249,10 +265,15 @@ FLASH_HEADS = (32, 8, 128)                          # H, Hkv, dh
 FLASH_CASES = [(1024, 1024, True, -1), (1024, 1024, True, 512),
                (900, 900, True, -1), (900, 900, True, 512),
                (1024, 900, False, -1)]              # S, T, causal, window
+# and at hymba-1.5b's: G = 5, dh 64, its window of 1024 and a shorter one
+HYMBA_HEADS = (25, 5, 64)
+HYMBA_FLASH_CASES = [(1024, 1024, True, -1), (1000, 1000, True, 1024),
+                     (1000, 1000, True, 300), (700, 900, False, -1)]
 
 
-def flash_case(dtype, s: int, t: int, gen: torch.Generator, dev, b: int = 1):
-    h, hkv, dh = FLASH_HEADS
+def flash_case(dtype, s: int, t: int, gen: torch.Generator, dev, b: int = 1,
+               heads=None):
+    h, hkv, dh = FLASH_HEADS if heads is None else heads
     return [torch.randn(shape, generator=gen, device=dev).to(dtype)
             for shape in ((b, s, h, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
 
@@ -295,23 +316,9 @@ def flash_sdpa_inputs(args, causal: bool, window: int):
             causal and mask is None)
 
 
-def phase_flash(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(1)
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for s, t, causal, window in FLASH_CASES:
-            args = flash_case(dtype, s, t, gen, dev)
-            out = flash_attention(*args, causal=causal, window=window)
-            torch.cuda.synchronize()
-            want = flash_attention_plain(*args, causal=causal, window=window)
-            err = (out.float() - want.float()).abs().max().item()
-            check("flash_attention", err, dtype,
-                  f"{dtype} S={s} T={t} causal={causal} window={window}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
-
-    # times at the ring prefill's longest prompt: bf16, S = T = 1024
-    args = flash_case(torch.bfloat16, 1024, 1024, gen, dev)
+def time_flash(args, label: str):
+    """Kernel, plain and SDPA times of causal prefill attention on
+    ``args``, and the bound; SDPA is held to the kernel's function."""
     ms = cuda_ms(lambda: flash_attention(*args, causal=True), 20)
     plain_ms = cuda_ms(lambda: flash_attention_plain(*args, causal=True), 5)
     sq, sk, sv, mask, is_causal = flash_sdpa_inputs(args, True, -1)
@@ -326,10 +333,41 @@ def phase_flash(dev) -> dict:
                              f"function: {lib_err}")
     library_ms = cuda_ms(sdpa, 20)
     bound_ms, bound_by = flash_bound(args, True, -1)
-    log("kernels", f"flash_attention bf16 B=1 S=T=1024 H=32 Hkv=8 dh=128 "
-        f"causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"kernel at {100 * bound_ms / ms:.2f}% of bound")
+    log("kernels", f"flash_attention bf16 {label} causal: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.2f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def phase_flash(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for heads, cases in ((FLASH_HEADS, FLASH_CASES),
+                             (HYMBA_HEADS, HYMBA_FLASH_CASES)):
+            for s, t, causal, window in cases:
+                args = flash_case(dtype, s, t, gen, dev, heads=heads)
+                out = flash_attention(*args, causal=causal, window=window)
+                torch.cuda.synchronize()
+                want = flash_attention_plain(*args, causal=causal,
+                                             window=window)
+                err = (out.float() - want.float()).abs().max().item()
+                check("flash_attention", err, dtype,
+                      f"{dtype} H={heads[0]} Hkv={heads[1]} dh={heads[2]} "
+                      f"S={s} T={t} causal={causal} window={window}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+
+    # hymba's ring prefill of its longest prompt, for PERF.md
+    time_flash(flash_case(torch.bfloat16, 1024, 1024, gen, dev,
+                          heads=HYMBA_HEADS),
+               "B=1 S=T=1024 H=25 Hkv=5 dh=64")
+
+    # the JSON row: agent-7b's ring prefill of its longest prompt
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_flash(
+        flash_case(torch.bfloat16, 1024, 1024, gen, dev),
+        "B=1 S=T=1024 H=32 Hkv=8 dh=128")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:90",
@@ -340,15 +378,20 @@ def phase_flash(dev) -> dict:
 
 # ring decode at the serve phase's shapes: 8 slots, agent-7b heads, a
 # 4096-slot full-attention ring with the contexts CTX, and a 1536-slot
-# ring of a 512-token window whose positions wrapped
+# ring of a 512-token window whose positions wrapped; then hymba-1.5b's
+# heads with its global ring and the 2048-slot ring of its 1024 window
+RING_HEADS = (8, 4, 128)                            # Hkv, G, dh
 RING_CASES = [(4096, -1), (1536, 512)]              # slots, window
+HYMBA_RING_HEADS = (5, 5, 64)
+HYMBA_RING_CASES = [(4096, -1), (2048, 1024)]
 
 
-def ring_case(dtype, slots: int, gen: torch.Generator, dev):
+def ring_case(dtype, slots: int, gen: torch.Generator, dev, heads=None):
     """Rings after writing positions 0..c-1 of each row's context c at
     slot ``pos % slots``; q_pos = c - 1 (row 5, c = 0, has no valid
     slot).  Returns q, k, v, kpos, q_pos."""
-    b, hkv, g, dh = len(CTX), 8, 4, 128
+    hkv, g, dh = RING_HEADS if heads is None else heads
+    b = len(CTX)
     last = np.asarray(CTX)[:, None] - 1
     s = np.arange(slots)[None, :]
     kpos = last - np.mod(last - s, slots)
@@ -383,26 +426,9 @@ def ring_bound(args, window: int) -> tuple[float, str]:
     return bound_of(nbytes, 4 * g * dh * keys * hkv, torch.float32)
 
 
-def phase_ring_decode(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(2)
-    live = torch.tensor([c > 0 for c in CTX], device=dev)
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for slots, window in RING_CASES:
-            args = ring_case(dtype, slots, gen, dev)
-            out = decode_attention(*args, window=window)
-            torch.cuda.synchronize()
-            want = decode_attention_plain(*args, window=window)
-            err = (out.float() - want.float())[live].abs().max().item()
-            check("decode_attention", err, dtype,
-                  f"{dtype} {slots} slots window {window}, live rows")
-            if not torch.isfinite(out).all():
-                raise AssertionError("non-finite kernel output")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
-
-    # times at the serve phase's full-attention ring: bf16, 4096 slots
-    args = ring_case(torch.bfloat16, 4096, gen, dev)
+def time_ring_decode(args, live, label: str):
+    """Kernel, plain and SDPA times of ring decode over ``args`` (full
+    attention), and the bound; SDPA is held to the kernel's function."""
     ms = cuda_ms(lambda: decode_attention(*args), 50)
     plain_ms = cuda_ms(lambda: decode_attention_plain(*args), 10)
     q, k, v = args[:3]
@@ -421,10 +447,42 @@ def phase_ring_decode(dev) -> dict:
                              f"function: {lib_err}")
     library_ms = cuda_ms(sdpa, 50)
     bound_ms, bound_by = ring_bound(args, -1)
-    log("kernels", f"decode_attention bf16 B=8 Hkv=8 G=4 dh=128, 4096-slot "
-        f"ring, ctx={CTX}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA with a slot mask {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of bound")
+    log("kernels", f"decode_attention bf16 {label}, 4096-slot ring, "
+        f"ctx={CTX}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with "
+        f"a slot mask {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def phase_ring_decode(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(2)
+    live = torch.tensor([c > 0 for c in CTX], device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for heads, cases in ((RING_HEADS, RING_CASES),
+                             (HYMBA_RING_HEADS, HYMBA_RING_CASES)):
+            for slots, window in cases:
+                args = ring_case(dtype, slots, gen, dev, heads=heads)
+                out = decode_attention(*args, window=window)
+                torch.cuda.synchronize()
+                want = decode_attention_plain(*args, window=window)
+                err = (out.float() - want.float())[live].abs().max().item()
+                check("decode_attention", err, dtype,
+                      f"{dtype} Hkv={heads[0]} G={heads[1]} dh={heads[2]} "
+                      f"{slots} slots window {window}, live rows")
+                if not torch.isfinite(out).all():
+                    raise AssertionError("non-finite kernel output")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+
+    # hymba's global ring, for PERF.md
+    time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
+                               heads=HYMBA_RING_HEADS), live,
+                     "B=8 Hkv=5 G=5 dh=64")
+    # the JSON row: agent-7b's full-attention ring
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_ring_decode(
+        ring_case(torch.bfloat16, 4096, gen, dev), live,
+        "B=8 Hkv=8 G=4 dh=128")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:75",
@@ -433,8 +491,107 @@ def phase_ring_decode(dev) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# the SSM scan: hymba's prefill (B = 1, 50 heads, dk 16, dv 64, one B/C
+# row broadcast over the heads, decay from softplus as at a_log = 0), a
+# ragged T, the JAX sweep (tests/test_kernels.py:237-241) and a
+# non-zero h0.  b, t, h, dk, dv, chunk, shared q/k, decay, h0 scale;
+# decay None draws log_a = -softplus(N(0, 1))
+SCAN_CASES = [(1, 1024, 50, 16, 64, 128, True, None, 0.0),
+              (1, 1000, 50, 16, 64, 128, True, None, 0.0),
+              (1, 128, 2, 16, 16, 32, False, 0.1, 0.0),
+              (2, 96, 4, 32, 16, 32, False, 0.1, 0.0),
+              (1, 64, 1, 64, 64, 64, False, 0.1, 0.0),
+              (1, 64, 2, 16, 16, 16, False, 0.05, 0.5)]
+
+
+def scan_case(dtype, b, t, h, dk, dv, shared, decay, h0_scale,
+              gen: torch.Generator, dev):
+    """q, k, v, log_a, h0 in model layout; ``shared`` makes q and k one
+    row broadcast over the heads (head stride 0), as hymba's are."""
+    nq = 1 if shared else h
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q = (0.3 * randn(b, t, nq, dk)).to(dtype)
+    k = (0.3 * randn(b, t, nq, dk)).to(dtype)
+    v = (0.3 * randn(b, t, h, dv)).to(dtype)
+    if decay is None:
+        log_a = -F.softplus(randn(b, t, h))
+    else:
+        log_a = -decay * torch.rand((b, t, h), generator=gen, device=dev)
+    h0 = h0_scale * randn(b, h, dk, dv)
+    if shared:
+        q, k = q.expand(b, t, h, dk), k.expand(b, t, h, dk)
+    return q, k, v, log_a, h0
+
+
+def stored_bytes(x: torch.Tensor) -> int:
+    """Bytes a call must read of ``x``: a broadcast head axis once."""
+    n = x.numel() // x.shape[2] if x.ndim == 4 and x.stride(2) == 0 \
+        else x.numel()
+    return n * x.element_size()
+
+
+def scan_bound(args, chunk: int) -> tuple[float, str]:
+    """q, k (once per broadcast row), v, log_a and h0 read once, y and
+    h_T written once, against the operations of the chunked form: 2 *
+    (dk + dv) per causal (i, j) pair of a chunk for the scores and the
+    intra-chunk y, 4 * dk * dv per token for the inter-chunk y and the
+    state update."""
+    q, k, v, log_a, h0 = args
+    b, t, h, dk = q.shape
+    dv = v.shape[3]
+    pairs = sum(n * (n + 1) // 2 for n in
+                (min(chunk, t - c0) for c0 in range(0, t, chunk)))
+    nbytes = (sum(stored_bytes(x) for x in args)
+              + v.numel() * v.element_size() + h0.numel() * 4)
+    ops = b * h * (2 * (dk + dv) * pairs + 4 * t * dk * dv)
+    return bound_of(nbytes, ops, q.dtype)
+
+
+def phase_ssm_scan(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, h, dk, dv, chunk, shared, decay, h0s in SCAN_CASES:
+            args = scan_case(dtype, b, t, h, dk, dv, shared, decay, h0s, gen,
+                             dev)
+            y, h_t = ssm_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            want_y, want_h = ssm_scan_plain(*args, chunk=chunk)
+            if not (torch.isfinite(y).all() and torch.isfinite(h_t).all()):
+                raise AssertionError("non-finite kernel output")
+            err = max((y.float() - want_y.float()).abs().max().item(),
+                      (h_t - want_h).abs().max().item())
+            check("ssm_scan", err, dtype,
+                  f"{dtype} B={b} T={t} H={h} dk={dk} dv={dv} chunk={chunk} "
+                  f"shared q/k={shared} h0={h0s} (y and h_T)",
+                  tol=SCAN_TOL[dtype])
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+
+    # times at hymba's prefill of its longest prompt: bf16, T = 1024
+    b, t, h, dk, dv, chunk, shared, decay, h0s = SCAN_CASES[0]
+    args = scan_case(torch.bfloat16, b, t, h, dk, dv, shared, decay, h0s, gen,
+                     dev)
+    ms = cuda_ms(lambda: ssm_scan(*args, chunk=chunk), 50)
+    plain_ms = cuda_ms(lambda: ssm_scan_plain(*args, chunk=chunk), 10)
+    bound_ms, bound_by = scan_bound(args, chunk)
+    log("kernels", f"ssm_scan bf16 B=1 T=1024 H=50 dk=16 dv=64 chunk=128, "
+        f"q/k broadcast over heads: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, no library call computes it, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:69",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 to 7: the engine
+# Phases 4 to 9: the engine
 # ---------------------------------------------------------------------------
 
 
@@ -474,7 +631,8 @@ def serve(eng: TorchEngine, reqs) -> dict:
 
 KERNELS = {"paged_decode_attention": paged_decode_attention,
            "flash_attention": flash_attention,
-           "decode_attention": decode_attention}
+           "decode_attention": decode_attention,
+           "ssm_scan": ssm_scan}
 
 
 def launch_counts() -> dict:
@@ -483,9 +641,10 @@ def launch_counts() -> dict:
 
 def expected_launches(eng: TorchEngine, prefills: int) -> dict:
     """Launches of each kernel on a run of ``eng`` that prefilled
-    ``prefills`` prompts: one per layer per prefill (flash, ring) or per
-    decode step (the layout's decode kernel); none without the flag, and
-    none on the CPU, where the wrappers take the plain versions."""
+    ``prefills`` prompts: one per layer per prefill (flash and, in a
+    hybrid's mamba branch, the SSM scan; ring) or per decode step (the
+    layout's decode kernel); none without the flag, and none on the CPU,
+    where the wrappers take the plain versions."""
     want = dict.fromkeys(KERNELS, 0)
     if eng.cfg.use_pallas and eng.device.type == "cuda":
         n = eng.cfg.n_layers
@@ -494,6 +653,8 @@ def expected_launches(eng: TorchEngine, prefills: int) -> dict:
         else:
             want["flash_attention"] = n * prefills
             want["decode_attention"] = n * eng.decode_steps
+            if eng.cfg.family == "hybrid":
+                want["ssm_scan"] = n * prefills
     return want
 
 
@@ -528,32 +689,36 @@ def small_engine(cfg, params, layout: str, use_pallas: bool, dev,
                        cache_layout=layout, device=dev)
 
 
-def phase_parity(dev, cfg, params) -> None:
-    """Greedy tokens equal across both layouts with and without their
-    kernels, for full attention and for the ``PARITY_SWA`` window, whose
+def phase_parity(dev, cfg, params, layouts=LAYOUTS,
+                 label: str = "agent-7b width, 2 layers") -> None:
+    """Greedy tokens equal across ``layouts`` (layout, kernels on or
+    off), for full attention and for the ``PARITY_SWA`` window, whose
     ring is shorter than the longer prompts."""
     for window, chunk in ((-1, cfg.attn_chunk), PARITY_SWA):
         c = cfg.replace(window=window, attn_chunk=chunk)
         outs = {}
-        for layout, use_pallas in LAYOUTS:
+        for layout, use_pallas in layouts:
             eng = small_engine(c, params, layout, use_pallas, dev,
                                f"parity-{layout}-{use_pallas}")
             if layout == "ring" and window > 0:
-                size = eng.cache["segments"][0]["e0"]["kv"].k.shape[2]
+                size = min(e["kv"].k.shape[-3] for seg in
+                           eng.cache["segments"] for e in seg.values())
                 if not size < max(PARITY_LENS):
                     raise AssertionError(f"ring of {size} slots does not "
                                          f"wrap")
             reqs = make_requests(PARITY_LENS, 16, cfg.vocab, seed=1)
             served_counts(eng, reqs, launch_counts())
             outs[layout, use_pallas] = [list(r.output_tokens) for r in reqs]
-        first = outs[LAYOUTS[0]]
+        first = outs[layouts[0]]
         for key, got in outs.items():
             if got != first:
                 raise AssertionError(f"window {window}: {key} disagrees with "
-                                     f"{LAYOUTS[0]}:\n{got}\n{first}")
-        log("parity", f"agent-7b width, 2 layers, f32, window {window}, "
-            f"attn_chunk {chunk}, prompts {PARITY_LENS}: greedy tokens "
-            f"equal across paged and ring, with and without their kernels "
+                                     f"{layouts[0]}:\n{got}\n{first}")
+        how = ("paged and ring, with and without their kernels"
+               if len({lay for lay, _ in layouts}) > 1
+               else f"{layouts[0][0]}, with and without its kernels")
+        log("parity", f"{label}, f32, window {window}, attn_chunk {chunk}, "
+            f"prompts {PARITY_LENS}: greedy tokens equal across {how} "
             f"({sum(map(len, first))} tokens each)")
 
 
@@ -622,14 +787,40 @@ def phase_migrate(dev, cfg, params) -> None:
         raise AssertionError("paged->ring with a window was not refused")
 
 
+def phase_hymba_migrate(dev, cfg, params) -> None:
+    """Ring->ring migration of a hybrid: the exported tree carries every
+    layer's SSM state beside its ring, and the continued tokens equal an
+    unmigrated run's."""
+    at, max_new = 4, 16
+    r = make_requests([MIGRATE_LEN], max_new, cfg.vocab, seed=5)[0]
+    serve(small_engine(cfg, params, "ring", True, dev, "unmigrated"), [r])
+    want = list(r.output_tokens)
+    state, first = start_and_extract(
+        small_engine(cfg, params, "ring", True, dev, "hymba-src"),
+        r.prompt_tokens, at, max_new)
+    ssm_bytes = sum(cache_utils.cache_nbytes(e["ssm"]) for seg in
+                    state["cache"]["segments"] for e in seg.values())
+    eng = small_engine(cfg, params, "ring", True, dev, "hymba-dst")
+    r2 = admit_migrated(eng, r.prompt_tokens, at, max_new)
+    eng.inject_state(r2, state)
+    eng.run_until_idle()
+    if first + r2.output_tokens != want:
+        raise AssertionError(f"hymba ring->ring migration changed the "
+                             f"tokens:\n{first + r2.output_tokens}\n{want}")
+    log("migrate", f"hymba ring->ring after {at} tokens "
+        f"({state['nbytes'] / 2**20:.1f} MiB of state, of which "
+        f"{ssm_bytes / 2**20:.2f} MiB SSM state): the continued "
+        f"{max_new - at} tokens equal the unmigrated run's")
+
+
 SERVE_SCHED = dict(max_slots=8, num_pages=512, page_size=128,
                    max_context=4096)
 
 
-def phase_serve(dev, cfg, params, layout: str) -> dict:
-    """Full agent-7b serves the 8 requests on ``layout``; every kernel of
-    the path launches exactly as often as expected.  Returns the counts
-    of that run."""
+def phase_serve(dev, cfg, params, layout: str, phase: str) -> dict:
+    """The full model serves the 8 requests on ``layout``; every kernel
+    of the path launches exactly as often as expected.  Returns the
+    counts of that run."""
     eng = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
                       name=f"serve-{layout}", cache_layout=layout,
                       device=dev)
@@ -641,7 +832,6 @@ def phase_serve(dev, cfg, params, layout: str) -> dict:
     res = served_counts(eng, reqs, launch_counts())
     launches = res["launches"]
     dec = res["times"]["decode"]
-    phase = "serve" if layout == "paged" else "serve ring"
     log(phase, f"{layout} layout, 8 requests, prompts {lens}, 64 new tokens "
         f"each: all FINISHED; {eng.prefill_steps} prefill steps "
         f"{res['times']['prefill']:.3f} s, {eng.decode_steps} decode steps "
@@ -689,6 +879,25 @@ def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
             f"{count / steps:6.0f} calls/step  {key[:90]}")
 
 
+def init_full(cfg, dev, phase: str):
+    """Random weights of ``cfg`` at full size from a seeded generator."""
+    t0 = time.perf_counter()
+    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    log(phase, f"{cfg.name}: {models.param_count(cfg) / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers, {cfg.dtype}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def free(params) -> None:
+    """Drop the last reference to ``params`` and return the memory."""
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU")
@@ -714,31 +923,41 @@ def main() -> int:
             f"{sum(n > 0 for n in spills)} spill, at most "
             f"{max(spills, default=0)} bytes")
 
-    rows = [phase_kernels(dev), phase_flash(dev), phase_ring_decode(dev)]
+    rows = [phase_kernels(dev), phase_flash(dev), phase_ring_decode(dev),
+            phase_ssm_scan(dev)]
 
     small = get_config("agent-7b").replace(n_layers=2, dtype="float32")
     params = models.init(small, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     phase_parity(dev, small, params)
     phase_migrate(dev, small, params)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(params)
 
     cfg = get_config("agent-7b").replace(use_pallas=True)
-    t0 = time.perf_counter()
-    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    torch.cuda.synchronize()
-    log("serve", f"agent-7b: {models.param_count(cfg) / 1e9:.3f} B params, "
-        f"{cfg.n_layers} layers, {cfg.dtype}; init "
-        f"{time.perf_counter() - t0:.1f} s")
-    paged = phase_serve(dev, cfg, params, "paged")
+    params = init_full(cfg, dev, "serve")
+    paged = phase_serve(dev, cfg, params, "paged", "serve")
     gc.collect()                             # the paged engine is gone
     torch.cuda.empty_cache()
-    ring = phase_serve(dev, cfg, params, "ring")
+    phase_serve(dev, cfg, params, "ring", "serve ring")
+    free(params)
+
+    # hymba-1.5b width at 3 layers (global, SWA, global); PARITY_SWA's
+    # window gives its middle layer a ring the longer prompts wrap
+    small = get_config("hymba-1.5b").replace(n_layers=3, global_layers=(0, 2),
+                                             dtype="float32")
+    params = models.init(small, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    phase_parity(dev, small, params, [("ring", True), ("ring", False)],
+                 "hymba-1.5b width, 3 layers")
+    phase_hymba_migrate(dev, small.replace(window=PARITY_SWA[0],
+                                           attn_chunk=PARITY_SWA[1]), params)
+    free(params)
+
+    cfg = get_config("hymba-1.5b").replace(use_pallas=True)
+    params = init_full(cfg, dev, "serve hymba")
+    hymba = phase_serve(dev, cfg, params, "ring", "serve hymba")
     for row in rows:
-        counts = paged if row["name"] == "paged_decode_attention" else ring
+        counts = paged if row["name"] == "paged_decode_attention" else hymba
         row["launches"] = counts[row["name"]]
 
     print(card(), flush=True)

@@ -1,6 +1,6 @@
-// Device helpers shared by the port's attention kernels: row loads that
-// widen f32 or bf16 to f32 registers, stores that narrow back, and a warp
-// sum.  Each kernel source includes this header and compiles alone.
+// Device helpers shared by the port's kernels: loads that widen f32 or
+// bf16 to f32 registers, stores that narrow back, and a warp sum.  Each
+// kernel source includes this header and compiles alone.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +38,11 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = __bfloat162float(p[i]);
   }
+}
+
+__device__ __forceinline__ float load_one(const float* p) { return *p; }
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 
 __device__ __forceinline__ void store_one(float* p, float x) { *p = x; }

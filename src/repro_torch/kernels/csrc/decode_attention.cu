@@ -202,6 +202,8 @@ bool dispatch_g(int g, const void* q, const void* k, const void* v,
                              window, scale, s); return true;
     case 4: launch<T, DH, 4>(q, k, v, kpos, q_pos, out, batch, t_len, hkv,
                              window, scale, s); return true;
+    case 5: launch<T, DH, 5>(q, k, v, kpos, q_pos, out, batch, t_len, hkv,
+                             window, scale, s); return true;
     case 8: launch<T, DH, 8>(q, k, v, kpos, q_pos, out, batch, t_len, hkv,
                              window, scale, s); return true;
     default: return false;

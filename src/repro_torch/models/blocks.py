@@ -1,8 +1,10 @@
 """Block-level assembly (port of ``repro/models/blocks.py``) for the
-dense attention-only kinds: ``attn`` and ``dec`` without cross
-attention, including ``parallel_block``, over a ring or a paged cache.
-Other kinds, MoE and cross attention raise ``NotImplementedError``
-naming the ROADMAP queue A item that ports them."""
+kinds the port serves: ``attn`` and ``dec`` without cross attention,
+including ``parallel_block``, over a ring or a paged cache; and
+``hymba`` (attention and a mamba branch side by side) over a ring cache
+plus its SSM state.  Other kinds, MoE and cross attention raise
+``NotImplementedError`` naming the ROADMAP queue A item that ports them.
+"""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -10,7 +12,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
-from repro_torch.models.attention import (KVCache, PagedKVCache, attn_defs,
+from repro_torch.models import ssm
+from repro_torch.models.attention import (PagedKVCache, attn_defs,
                                           init_kv_cache, init_paged_kv_cache,
                                           kv_cache_size,
                                           self_attention_cached,
@@ -18,7 +21,7 @@ from repro_torch.models.attention import (KVCache, PagedKVCache, attn_defs,
                                           self_attention_prefill)
 from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 
-_LATER = {"hymba": "SSM", "mlstm": "SSM", "slstm": "SSM", "enc": "enc-dec"}
+_LATER = {"mlstm": "xLSTM", "slstm": "xLSTM", "enc": "enc-dec"}
 
 
 def _supported(spec: BlockSpec) -> None:
@@ -26,7 +29,7 @@ def _supported(spec: BlockSpec) -> None:
         raise NotImplementedError(
             f"block kind {spec.kind!r} is not ported yet "
             f"(ROADMAP queue A: {_LATER[spec.kind]})")
-    if spec.kind not in ("attn", "dec"):
+    if spec.kind not in ("attn", "dec", "hymba"):
         raise ValueError(f"unknown block kind {spec.kind!r}")
     if spec.cross_attention:
         raise NotImplementedError(
@@ -43,6 +46,14 @@ def _supported(spec: BlockSpec) -> None:
 
 def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
     _supported(spec)
+    if spec.kind == "hymba":
+        return {
+            "norm1": rmsnorm_defs(cfg.d_model),
+            "attn": attn_defs(cfg),
+            "mamba": ssm.mamba_defs(cfg),
+            "norm2": rmsnorm_defs(cfg.d_model),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff),
+        }
     defs: dict[str, Any] = {
         "norm1": rmsnorm_defs(cfg.d_model),
         "attn": attn_defs(cfg),
@@ -64,13 +75,21 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      ) -> dict:
     """Ring decode state for a stack of layers of one block kind: rings
     of shape ``stack + (batch, size, Hkv, dh)`` and ``kpos`` of ``stack +
-    (batch, size)``, ``size`` from ``kv_cache_size``."""
+    (batch, size)``, ``size`` from ``kv_cache_size``; a hymba layer adds
+    its ``SSMState`` (``stack + (batch, nh, ds, 64)`` f32 and ``stack +
+    (batch, 3, d_inner)``)."""
     _supported(spec)
+
+    def stacked(one):
+        return type(one)(*(t.expand(*stack, *t.shape).contiguous()
+                           for t in one))
+
     size = kv_cache_size(spec, max_context, cfg.attn_chunk)
-    one = init_kv_cache(batch, size, cfg.n_kv_heads, cfg.d_head, dtype,
-                        device)
-    return {"kv": KVCache(*(t.expand(*stack, *t.shape).contiguous()
-                            for t in one))}
+    cache = {"kv": stacked(init_kv_cache(batch, size, cfg.n_kv_heads,
+                                         cfg.d_head, dtype, device))}
+    if spec.kind == "hymba":
+        cache["ssm"] = stacked(ssm.init_ssm_state(batch, cfg, dtype, device))
+    return cache
 
 
 def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
@@ -79,7 +98,12 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
                            stack: tuple[int, ...] = ()) -> dict:
     """Paged-pool decode state for a stack of layers of one block kind:
     pools of shape ``stack + (num_pages + 1, page, Hkv, dh)``, shared
-    across slots and sized by the allocator's page count."""
+    across slots and sized by the allocator's page count.  Only plain
+    attention blocks page: recurrent state has no page structure."""
+    if spec.kind not in ("attn", "dec") or spec.cross_attention:
+        raise ValueError(
+            f"paged KV layout supports attention-only blocks, not "
+            f"{spec.kind!r} (cross={spec.cross_attention})")
     _supported(spec)
     one = init_paged_kv_cache(num_pages, page_size, cfg.n_kv_heads,
                               cfg.d_head, dtype, device)
@@ -120,8 +144,18 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(f"a ring cache needs mode 'prefill' or 'step', "
                          f"got {mode!r}")
-    if spec.parallel_block:
+    if spec.kind == "hymba":
+        if mode == "prefill":
+            m, st = ssm.mamba_branch(params["mamba"], xr, cfg)
+        else:
+            m, st = ssm.mamba_branch_step(params["mamba"], xr, cache["ssm"],
+                                          cfg)
+        for old, new in zip(cache["ssm"], st):
+            old.copy_(new)
+        x = x + 0.5 * (a + m)
+    elif spec.parallel_block:
         # attention and FFN read the same normed input, summed
         return x + a + mlp(params["mlp"], xr)
-    x = x + a
+    else:
+        x = x + a
     return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))

@@ -4,6 +4,8 @@ points of both KV layouts -- ring: ``init_cache(layout="ring")``,
 ``prefill`` and ``decode_step``; paged: ``init_cache(layout="paged")``,
 ``prefill_paged`` and ``decode_step(tables=)`` -- and the paged <-> ring
 state bridge of KV migration (``paged_extract``, ``paged_insert``).
+Hybrid (hymba) stacks run on the ring layout only; their caches carry
+an ``SSMState`` beside each ring.
 
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
@@ -76,8 +78,9 @@ def param_count(cfg: ModelConfig) -> int:
 
 def _layer(tree, idx: tuple[int, ...]):
     """One layer's slice of a stacked tree (views, so in-place cache
-    writes land in the stacked pools)."""
-    if isinstance(tree, (KVCache, PagedKVCache)):
+    writes land in the stacked pools).  Namedtuples (``KVCache``,
+    ``PagedKVCache``, ``SSMState``) keep their type."""
+    if isinstance(tree, tuple):
         return type(tree)(*(t[idx] for t in tree))
     if isinstance(tree, dict):
         return {k: _layer(v, idx) for k, v in tree.items()}

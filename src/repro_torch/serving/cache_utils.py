@@ -12,8 +12,9 @@ The batch-1 ring tree is also the exchange format of KV migration.
 ``ring_tree_from_numpy`` and ``ring_tree_to_numpy`` carry it across the
 package boundary as numpy: the reference's tree
 (``jax.device_get(engine.extract_state(req)["cache"])``, whose ring
-leaves are namedtuples with fields ``k``, ``v``, ``kpos``) into the
-port's, and back.
+leaves are namedtuples with fields ``k``, ``v``, ``kpos`` and, in a
+hymba layer, SSM states with fields ``h``, ``conv``) into the port's,
+and back.
 """
 from __future__ import annotations
 
@@ -26,11 +27,14 @@ from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import KVCache
 from repro_torch.models.params import resolve_device
+from repro_torch.models.ssm import SSMState
+
+_STATE_TYPES = (KVCache, SSMState)
 
 
 def _leaves(tree) -> list[torch.Tensor]:
     """Tensor leaves in a fixed walk order: lists in order, dict keys
-    sorted, ring caches field by field."""
+    sorted, ring caches and SSM states field by field."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -43,8 +47,8 @@ def _rebuild(tree, it):
     order of ``_leaves``."""
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
-    if isinstance(tree, KVCache):
-        return KVCache(*(_rebuild(v, it) for v in tree))
+    if isinstance(tree, _STATE_TYPES):
+        return type(tree)(*(_rebuild(v, it) for v in tree))
     if isinstance(tree, (list, tuple)):
         return [_rebuild(v, it) for v in tree]
     return next(it)
@@ -115,13 +119,15 @@ def ring_tree_from_numpy(tree, device=None):
     """A batch-1 ring tree of numpy arrays (the reference's
     ``extract_state(req)["cache"]`` after ``jax.device_get``) as the
     port's tree on ``device``.  Any namedtuple with fields ``k``, ``v``,
-    ``kpos`` becomes a ``KVCache``; bf16 stays bf16."""
+    ``kpos`` becomes a ``KVCache``, any with fields ``h``, ``conv`` an
+    ``SSMState``; bf16 stays bf16."""
     dev = resolve_device(device)
 
     def walk(node):
-        if all(hasattr(node, f) for f in KVCache._fields):
-            return KVCache(*(_from_numpy(getattr(node, f), dev)
-                             for f in KVCache._fields))
+        for typ in _STATE_TYPES:
+            if all(hasattr(node, f) for f in typ._fields):
+                return typ(*(_from_numpy(getattr(node, f), dev)
+                             for f in typ._fields))
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
@@ -131,15 +137,18 @@ def ring_tree_from_numpy(tree, device=None):
     return walk(tree)
 
 
-def ring_tree_to_numpy(tree, kv_type=KVCache):
+def ring_tree_to_numpy(tree, kv_type=KVCache, ssm_type=SSMState):
     """The port's batch-1 ring tree as numpy arrays, each ring as
-    ``kv_type(k=, v=, kpos=)`` (pass the reference's ``KVCache`` to hand
+    ``kv_type(k=, v=, kpos=)`` and each SSM state as ``ssm_type(h=,
+    conv=)`` (pass the reference's ``KVCache`` and ``SSMState`` to hand
     the tree to its ``inject_state``).  bf16 leaves come out as float32,
     which holds their values exactly."""
+    out_type = {KVCache: kv_type, SSMState: ssm_type}
+
     def walk(node):
-        if isinstance(node, KVCache):
-            return kv_type(**{f: walk(getattr(node, f))
-                              for f in KVCache._fields})
+        if isinstance(node, _STATE_TYPES):
+            return out_type[type(node)](**{f: walk(getattr(node, f))
+                                           for f in node._fields})
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

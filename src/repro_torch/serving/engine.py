@@ -7,7 +7,9 @@ when ``cfg.use_pallas`` is set, else ring, as in the reference):
   whole prompt into a fresh batch-1 sub-cache in one shot, which is then
   copied into the slot (``serving/cache_utils``).  With ``cfg.use_pallas``
   prefill attention runs the Hopper flash kernel and decode attention the
-  ring decode kernel.
+  ring decode kernel.  A hybrid's (hymba's) layers add their SSM state
+  to the slot, and their mamba branch runs the SSM scan kernel at
+  prefill; a hybrid serves only on this layout.
 * ``paged`` -- one shared page pool per layer, sized by the scheduler's
   ``PageAllocator`` (pool page *i* is allocator page *i*).  Inactive
   slots ride along with all -1 block-table rows, so their writes land in
@@ -19,9 +21,10 @@ when ``cfg.use_pallas`` is set, else ring, as in the reference):
 Each decode step runs every slot at once.  Sampling runs on the device;
 only token ids cross to the host.  ``extract_state``/``inject_state``
 move one sequence between engines of either layout through the batch-1
-ring tree.  PyTorch runs eagerly, so there is nothing to compile or
-donate: each step updates the cache in place.  Waiting for later slices
-(ROADMAP queue A): the mixed step and the prefix cache.
+ring tree (SSM states included).  PyTorch runs eagerly, so there is
+nothing to compile or donate: each step updates the cache in place.
+Waiting for later slices (ROADMAP queue A): the mixed step and the
+prefix cache.
 """
 from __future__ import annotations
 

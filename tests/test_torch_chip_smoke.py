@@ -177,8 +177,86 @@ def test_expected_launches_follow_layout_and_flag(smoke, small):
             assert set(want.values()) == {0}
         elif layout == "paged":
             assert want == {"paged_decode_attention": 5 * n,
-                            "flash_attention": 0, "decode_attention": 0}
+                            "flash_attention": 0, "decode_attention": 0,
+                            "ssm_scan": 0}
         else:
             assert want == {"paged_decode_attention": 0,
                             "flash_attention": 3 * n,
-                            "decode_attention": 5 * n}
+                            "decode_attention": 5 * n, "ssm_scan": 0}
+
+
+def test_expected_launches_of_a_hybrid(smoke):
+    """A hymba ring engine launches the SSM scan once per layer per
+    prefill, beside flash; without the flag nothing."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg = get_smoke("hymba-1.5b").replace(dtype="float32")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for use_pallas in (False, True):
+        eng = TorchEngine(cfg.replace(use_pallas=use_pallas), params,
+                          SchedulerConfig(max_slots=2, num_pages=16,
+                                          page_size=16, max_context=64),
+                          cache_layout="ring", device="cpu")
+        eng.decode_steps = 7
+        eng.device = torch.device("cuda")       # as the card would count
+        n = cfg.n_layers
+        assert smoke.expected_launches(eng, 2) == (
+            {"paged_decode_attention": 0, "flash_attention": 2 * n,
+             "decode_attention": 7 * n, "ssm_scan": 2 * n} if use_pallas
+            else dict.fromkeys(smoke.KERNELS, 0))
+
+
+def test_scan_phase_checks_and_bound(smoke, monkeypatch):
+    """The SSM-scan phase on the CPU at small shapes: its cases run the
+    wrapper (plain version here) against the plain version, the timed
+    row has every key, and the bound counts what the call must move."""
+    monkeypatch.setattr(smoke, "SCAN_CASES", [
+        (1, 40, 3, 16, 64, 16, True, None, 0.0),
+        (2, 20, 2, 8, 16, 8, False, 0.1, 0.5)])
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    row = smoke.phase_ssm_scan(torch.device("cpu"))
+    assert row["name"] == "ssm_scan" and row["library_ms"] is None
+    assert row["replaces"] == "src/repro/kernels/ssm_scan.py:69"
+    assert row["max_abs_err"] == 0.0 and row["bound_by"] == "bytes"
+    gen = torch.Generator().manual_seed(0)
+    args = smoke.scan_case(torch.bfloat16, 1, 40, 3, 16, 64, True, None, 0.0,
+                           gen, torch.device("cpu"))
+    q, k, v, log_a, h0 = args
+    assert q.stride(2) == 0 and tuple(q.shape) == (1, 40, 3, 16)
+    assert (log_a <= 0).all() and not h0.any()
+    assert smoke.stored_bytes(q) == 40 * 16 * 2
+    assert smoke.stored_bytes(v) == 40 * 3 * 64 * 2
+    nbytes = 2 * 40 * 16 * 2 + 2 * 40 * 3 * 64 * 2 + 40 * 3 * 4 \
+        + 2 * 3 * 16 * 64 * 4
+    pairs = 2 * (16 * 17 // 2) + 8 * 9 // 2        # chunks of 16, 16, 8
+    ops = 3 * (2 * 80 * pairs + 4 * 40 * 16 * 64)
+    ms, by = smoke.scan_bound(args, 16)
+    assert ms == pytest.approx(1e3 * max(nbytes / smoke.HBM_BYTES_PER_S,
+                                         ops / smoke.BF16_OPS_PER_S))
+    assert by == "bytes"
+
+
+def test_hymba_phases_run_on_cpu(smoke, monkeypatch, capsys):
+    """chip_smoke's hymba parity and migration phases at hymba-smoke
+    sizes on the CPU."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "PARITY_LENS", [20, 70, 130])
+    monkeypatch.setattr(smoke, "PARITY_SCHED", dict(
+        max_slots=3, num_pages=40, page_size=16, max_context=160))
+    monkeypatch.setattr(smoke, "PARITY_SWA", (16, 8))
+    monkeypatch.setattr(smoke, "MIGRATE_LEN", 70)
+    cfg = get_smoke("hymba-1.5b").replace(dtype="float32")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    smoke.phase_parity(torch.device("cpu"), cfg, params,
+                       [("ring", True), ("ring", False)], "hymba smoke")
+    smoke.phase_hymba_migrate(torch.device("cpu"),
+                              cfg.replace(window=16, attn_chunk=8), params)
+    out = capsys.readouterr().out
+    assert out.count("greedy tokens equal across ring, with and without "
+                     "its kernels") == 2
+    assert "hymba ring->ring after 4 tokens" in out

@@ -5,7 +5,9 @@ machine with the card and no JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: 2e-5 f32, 2e-2 bf16, as the reference's kernel tests.
+Tolerance: 2e-5 f32, 2e-2 bf16, as the reference's kernel tests; 1e-4
+f32 for ``ssm_scan``, the reference's own band for that kernel
+(tests/test_kernels.py:253).
 """
 import numpy as np
 import pytest
@@ -13,13 +15,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decode_attention,  # noqa: E402
-                                 flash_attention, paged_decode_attention)
+                                 flash_attention, paged_decode_attention,
+                                 ssm_scan)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_plain)
+from repro_torch.kernels.ssm_scan import ssm_scan_plain  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -102,6 +106,7 @@ def flash_case(dev, dtype, b, s, t, hkv, g, dh, seed=1):
     (1, 300, 300, 4, 128, True, -1),
     (2, 130, 130, 2, 64, True, 48),
     (1, 77, 77, 8, 32, True, 5),
+    (1, 300, 300, 5, 64, True, 100),               # hymba-1.5b's G and dh
     (1, 200, 90, 1, 128, False, -1),
     (2, 64, 64, 4, 64, False, -1)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
@@ -138,6 +143,7 @@ def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
                                                (4, 128, 384, 256),
                                                (2, 32, 64, 24),
                                                (8, 64, 300, -1),
+                                               (5, 64, 384, 256),
                                                (1, 128, 96, 40)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
                                      window):
@@ -167,3 +173,61 @@ def test_ring_kernels_reject_unsupported(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(*fargs)
     assert (flash_attention.launches, decode_attention.launches) == before
+
+
+def scan_case(dev, dtype, b, t, h, dk, dv, seed=3, shared_qk=False,
+              decay=0.1, h0_scale=0.0):
+    """The sweep's inputs; ``shared_qk`` broadcasts one q/k row over the
+    heads with stride 0, as hymba's mamba branch does."""
+    rng = np.random.default_rng(seed)
+    nq = 1 if shared_qk else h
+    q = torch.from_numpy(rng.standard_normal((b, t, nq, dk)) * 0.3)
+    k = torch.from_numpy(rng.standard_normal((b, t, nq, dk)) * 0.3)
+    v = torch.from_numpy(rng.standard_normal((b, t, h, dv)) * 0.3)
+    la = torch.from_numpy(-rng.uniform(0, decay, (b, t, h)))
+    h0 = torch.from_numpy(rng.standard_normal((b, h, dk, dv)) * h0_scale)
+    q, k, v = (x.to(dev, dtype) for x in (q, k, v))
+    if shared_qk:
+        q, k = q.expand(b, t, h, dk), k.expand(b, t, h, dk)
+    return q, k, v, la.to(dev, torch.float32), h0.to(dev, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk,shared,decay,h0", [
+    (1, 128, 2, 16, 16, 32, False, 0.1, 0.0),      # the JAX sweep
+    (2, 96, 4, 32, 16, 32, False, 0.1, 0.0),
+    (1, 64, 1, 64, 64, 64, False, 0.1, 0.0),
+    (1, 64, 2, 16, 16, 16, False, 0.05, 0.5),      # non-zero h0
+    (1, 1000, 50, 16, 64, 128, True, 1.0, 0.0),    # hymba, ragged, L ~ -60
+    (2, 7, 3, 5, 33, 128, True, 0.5, 0.2)])        # odd sizes, one chunk
+def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, b, t, h, dk, dv,
+                                       chunk, shared, decay, h0):
+    args = scan_case(cuda_device, dtype, b, t, h, dk, dv, shared_qk=shared,
+                     decay=decay, h0_scale=h0)
+    before = ssm_scan.launches
+    y, h_t = ssm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan_plain(*args, chunk=chunk)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h_t, want_h, atol=tol, rtol=tol)
+    assert torch.isfinite(y).all() and y.dtype == dtype
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_rejects_unsupported(cuda_device):
+    args = list(scan_case(cuda_device, torch.float32, 1, 40, 2, 65, 16))
+    before = ssm_scan.launches
+    with pytest.raises(ValueError, match="no kernel"):       # dk 65
+        ssm_scan(*args)
+    args = list(scan_case(cuda_device, torch.float32, 1, 40, 2, 16, 16))
+    args[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssm_scan(*args)
+    with pytest.raises(ValueError, match="chunk"):
+        ssm_scan(*scan_case(cuda_device, torch.float32, 1, 400, 2, 16, 16),
+                 chunk=256)
+    assert ssm_scan.launches == before

@@ -28,9 +28,13 @@ def _modules() -> list[str]:
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
+    mods = _modules()
+    for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
+              "repro_torch.configs.hymba_1_5b"):
+        assert m in mods
     code = (
         "import importlib, json, sys\n"
-        f"for m in {_modules()!r}:\n"
+        f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -61,7 +65,7 @@ def test_source_imports_no_jax_and_no_reference(path):
 
 def test_entry_points_refuse_missing_cuda(monkeypatch):
     from repro_torch import models
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke
     from repro_torch.serving import cache_utils
     from repro_torch.serving.engine import TorchEngine
     from repro_torch.serving.scheduler import SchedulerConfig
@@ -82,6 +86,12 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     for layout in ("ring", "paged", None):
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchEngine(cfg, params, SchedulerConfig(), cache_layout=layout)
+    hymba = get_smoke("hymba-1.5b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_cache(hymba, 2, 64, layout="ring")
+    params = models.init(hymba, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(hymba, params, SchedulerConfig(), cache_layout="ring")
 
 
 def test_chip_smoke_refuses_missing_cuda(monkeypatch):
