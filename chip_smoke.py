@@ -9,11 +9,12 @@ code is non-zero and the final JSON line is not printed:
 1. device     -- needs CUDA; prints the card's name and power limit.
 2. build      -- compiles every CUDA source of ``src/repro_torch/kernels/
                  csrc`` (one nvcc each, in parallel) into ``build/``.
-3. kernels    -- each kernel (paged decode, flash, ring decode, SSM scan)
-                 against its plain PyTorch version on the card, in f32
-                 and bf16, at agent-7b's and hymba-1.5b's heads, with its
-                 time at the main path's shapes, the plain version's, a
-                 PyTorch library call's where one exists, and its bound.
+3. kernels    -- each kernel (paged decode, flash, ring decode, SSM scan,
+                 grouped matmul) against its plain PyTorch version on the
+                 card, in f32 and bf16, at agent-7b's, hymba-1.5b's and
+                 arctic-480b's heads and expert shapes, with its time at
+                 the main path's shapes, the plain version's, a PyTorch
+                 library call's where one exists, and its bound.
 4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
                  tokens are equal across the paged layout with and
                  without its kernel and the ring layout with and without
@@ -37,6 +38,16 @@ code is non-zero and the final JSON line is not printed:
                  serves 8 requests: flash and the SSM scan launch once
                  per layer per prefill, ring decode once per layer per
                  decode step; a profile follows.
+10. parity arctic -- arctic-480b width at 1 layer in f32 (128 experts,
+                 top-2, a dense residual MLP): greedy tokens equal across
+                 both layouts with and without their kernels, full
+                 attention and a window whose ring wraps.
+11. serve arctic -- arctic-480b at 2 of its 35 layers, bf16, serves 8
+                 requests in the paged and then the ring layout:
+                 grouped_matmul launches three times per MoE layer per
+                 forward, the attention kernels as for agent-7b; then 16
+                 tokens each with the kernels off, where every expert
+                 product reads all 128 experts; each with a profile.
 
 The last two lines are a JSON object of kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -68,6 +79,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul, grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
@@ -143,8 +156,10 @@ def check(name: str, err: float, dtype, what: str, tol=None) -> None:
                              f"({what}): {err} > {tol}")
 
 
-def kernel_case(dtype, page: int, gen: torch.Generator, dev):
-    b, hkv, g, dh, max_ctx = len(CTX), 8, 4, 128, 4096
+def kernel_case(dtype, page: int, gen: torch.Generator, dev, g: int = 4):
+    """Pages and tables of the CTX rows at 8 KV heads of dh 128 and G
+    query heads each (agent-7b's 4, arctic-480b's 7)."""
+    b, hkv, dh, max_ctx = len(CTX), 8, 128, 4096
     p_max = max_ctx // page
     n_shared = SHARED_TOKENS // page
     rows, nxt = [], n_shared
@@ -211,28 +226,47 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     live = torch.tensor([c > 0 for c in CTX], device=dev)
     worst = 0.0
-    timed = None
+    timed = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for page in (128, 16):
-            for window in (-1, 512):
-                args = kernel_case(dtype, page, gen, dev)
-                out = paged_decode_attention(*args, window=window)
-                torch.cuda.synchronize()
-                want = paged_decode_attention_plain(*args, window=window)
-                err = (out.float() - want.float())[live].abs().max().item()
-                check("paged_decode_attention", err, dtype,
-                      f"{dtype} page {page} window {window}, live rows")
-                if not torch.equal(out[6], out[7]):
-                    raise AssertionError("identical rows 6 and 7 differ")
-                if not torch.isfinite(out).all():
-                    raise AssertionError("non-finite kernel output")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-                if (dtype, page, window) == (torch.bfloat16, 128, -1):
-                    timed = (args, window)
+        for g in (4, 7):
+            for page in (128, 16):
+                for window in (-1, 512):
+                    args = kernel_case(dtype, page, gen, dev, g)
+                    out = paged_decode_attention(*args, window=window)
+                    torch.cuda.synchronize()
+                    want = paged_decode_attention_plain(*args, window=window)
+                    err = (out.float() - want.float())[live].abs().max()
+                    err = err.item()
+                    check("paged_decode_attention", err, dtype,
+                          f"{dtype} G={g} page {page} window {window}, "
+                          f"live rows")
+                    if not torch.equal(out[6], out[7]):
+                        raise AssertionError("identical rows 6 and 7 differ")
+                    if not torch.isfinite(out).all():
+                        raise AssertionError("non-finite kernel output")
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, err)
+                    if (dtype, page, window) == (torch.bfloat16, 128, -1):
+                        timed[g] = args
 
-    # times at the serve phase's decode shapes: bf16, pages of 128
-    args, window = timed
+    # times at the serve phases' decode shapes: bf16, pages of 128;
+    # arctic-480b's heads for PERF.md, then the JSON row at agent-7b's
+    time_paged(timed[7], live, "G=7")
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_paged(timed[4], live,
+                                                              "G=4")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:89",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def time_paged(args, live, label: str):
+    """Kernel, plain and SDPA times of full-attention paged decode over
+    ``args``, and the bound; SDPA is held to the kernel's function."""
+    window = -1
     ms = cuda_ms(lambda: paged_decode_attention(*args, window=window), 50)
     plain_ms = cuda_ms(
         lambda: paged_decode_attention_plain(*args, window=window), 10)
@@ -247,17 +281,12 @@ def phase_kernels(dev) -> dict:
         lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask),
         50)
     bound_ms, bound_by = bound(args, window)
-    log("kernels", f"bf16 B=8 Hkv=8 G=4 dh=128 page=128 ctx={CTX}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over the "
-        f"gathered view {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of bound")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      "paged_decode_attention.cu",
-            "replaces": "src/repro/kernels/paged_decode_attention.py:89",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    log("kernels", f"paged_decode_attention bf16 B=8 Hkv=8 {label} dh=128 "
+        f"page=128 ctx={CTX}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA over the gathered view {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
 # flash attention at agent-7b's heads: the ring prefill of one prompt
@@ -269,6 +298,10 @@ FLASH_CASES = [(1024, 1024, True, -1), (1024, 1024, True, 512),
 HYMBA_HEADS = (25, 5, 64)
 HYMBA_FLASH_CASES = [(1024, 1024, True, -1), (1000, 1000, True, 1024),
                      (1000, 1000, True, 300), (700, 900, False, -1)]
+# and at arctic-480b's: G = 7, dh 128
+ARCTIC_HEADS = (56, 8, 128)
+ARCTIC_FLASH_CASES = [(1024, 1024, True, -1), (900, 900, True, 512),
+                      (300, 700, False, -1)]
 
 
 def flash_case(dtype, s: int, t: int, gen: torch.Generator, dev, b: int = 1,
@@ -345,7 +378,8 @@ def phase_flash(dev) -> dict:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for heads, cases in ((FLASH_HEADS, FLASH_CASES),
-                             (HYMBA_HEADS, HYMBA_FLASH_CASES)):
+                             (HYMBA_HEADS, HYMBA_FLASH_CASES),
+                             (ARCTIC_HEADS, ARCTIC_FLASH_CASES)):
             for s, t, causal, window in cases:
                 args = flash_case(dtype, s, t, gen, dev, heads=heads)
                 out = flash_attention(*args, causal=causal, window=window)
@@ -359,10 +393,14 @@ def phase_flash(dev) -> dict:
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
 
-    # hymba's ring prefill of its longest prompt, for PERF.md
+    # hymba's and arctic's ring prefill of their longest prompt, for
+    # PERF.md
     time_flash(flash_case(torch.bfloat16, 1024, 1024, gen, dev,
                           heads=HYMBA_HEADS),
                "B=1 S=T=1024 H=25 Hkv=5 dh=64")
+    time_flash(flash_case(torch.bfloat16, 1024, 1024, gen, dev,
+                          heads=ARCTIC_HEADS),
+               "B=1 S=T=1024 H=56 Hkv=8 dh=128")
 
     # the JSON row: agent-7b's ring prefill of its longest prompt
     ms, plain_ms, library_ms, bound_ms, bound_by = time_flash(
@@ -384,6 +422,7 @@ RING_HEADS = (8, 4, 128)                            # Hkv, G, dh
 RING_CASES = [(4096, -1), (1536, 512)]              # slots, window
 HYMBA_RING_HEADS = (5, 5, 64)
 HYMBA_RING_CASES = [(4096, -1), (2048, 1024)]
+ARCTIC_RING_HEADS = (8, 7, 128)
 
 
 def ring_case(dtype, slots: int, gen: torch.Generator, dev, heads=None):
@@ -460,7 +499,8 @@ def phase_ring_decode(dev) -> dict:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for heads, cases in ((RING_HEADS, RING_CASES),
-                             (HYMBA_RING_HEADS, HYMBA_RING_CASES)):
+                             (HYMBA_RING_HEADS, HYMBA_RING_CASES),
+                             (ARCTIC_RING_HEADS, RING_CASES)):
             for slots, window in cases:
                 args = ring_case(dtype, slots, gen, dev, heads=heads)
                 out = decode_attention(*args, window=window)
@@ -475,10 +515,13 @@ def phase_ring_decode(dev) -> dict:
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
 
-    # hymba's global ring, for PERF.md
+    # hymba's global ring and arctic's, for PERF.md
     time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
                                heads=HYMBA_RING_HEADS), live,
                      "B=8 Hkv=5 G=5 dh=64")
+    time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
+                               heads=ARCTIC_RING_HEADS), live,
+                     "B=8 Hkv=8 G=7 dh=128")
     # the JSON row: agent-7b's full-attention ring
     ms, plain_ms, library_ms, bound_ms, bound_by = time_ring_decode(
         ring_case(torch.bfloat16, 4096, gen, dev), live,
@@ -590,6 +633,154 @@ def phase_ssm_scan(dev) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+# grouped_matmul at arctic-480b's expert shapes: E 128, d_model 7168,
+# d_ff_expert 4864; w_in and w_gate take d -> f, w_out f -> d.  C is 8 at
+# a decode step over 8 slots and 24 at a 900-1024-token prefill, and the
+# counts come from a top-2 routing of 8 and 1024 tokens.  f32 runs the
+# full d and f with 16 experts; the ragged counts hold 0, 1, C and the
+# middle.
+ARCTIC_EXPERTS = (128, 7168, 4864)                 # E, d, f
+GM_RAGGED = [0, 1, 24, 13, 0, 7, 24, 2, 19, 0, 5, 24, 1, 11, 0, 23]
+
+
+def routed_counts(tokens: int, e: int, c: int, gen: torch.Generator,
+                  dev) -> torch.Tensor:
+    """Per-expert loads of a top-2 routing of ``tokens`` tokens (softmax
+    of random logits), clamped to the capacity ``c``, as moe.py builds
+    them."""
+    logits = torch.randn((tokens, e), generator=gen, device=dev)
+    ids = torch.topk(torch.softmax(logits, -1), 2, dim=-1).indices
+    load = torch.zeros(e, dtype=torch.int64, device=dev)
+    load.index_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+    return load.clamp(max=c).to(torch.int32)
+
+
+def gm_weights(dtype, e: int, d: int, f: int, gen: torch.Generator, dev):
+    """Expert weights scaled by 1/sqrt(d), as the model's, drawn one
+    expert at a time (no f32 copy of the whole tensor)."""
+    w = torch.empty((e, d, f), dtype=dtype, device=dev)
+    for i in range(e):
+        w[i] = torch.randn((d, f), generator=gen, device=dev).mul_(d ** -0.5)
+    return w
+
+
+def gm_buffer(dtype, counts: torch.Tensor, c: int, d: int,
+              gen: torch.Generator, dev) -> torch.Tensor:
+    """An (E, C, d) dispatch buffer: rows past each count are zero, as
+    the routing leaves them."""
+    x = torch.randn((counts.numel(), c, d), generator=gen, device=dev)
+    row = torch.arange(c, device=dev)[None, :, None]
+    return torch.where(row < counts[:, None, None], x, 0.0).to(dtype)
+
+
+def gm_bound(x, w, counts) -> tuple[float, str]:
+    """The weights of the live experts, the live rows of x, all of out and
+    counts, against 2 * sum(min(counts, C)) * d * f operations."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    rows = int(counts.clamp(0, c).sum())
+    live = int((counts > 0).sum())
+    nbytes = ((live * d * f + rows * d + e * c * f) * x.element_size()
+              + counts.numel() * 4)
+    return bound_of(nbytes, 2 * rows * d * f, x.dtype)
+
+
+def gm_errors(got, want) -> tuple[float, float]:
+    """Max |got - want|, and max |got - want| / (1 + |want|): the band of
+    ``torch.testing.assert_close`` with atol = rtol.  The products are
+    O(1) and reach |y| ~ 5 at these sizes, where one bf16 unit in the last
+    place is 0.03125, so either of two right roundings passes only a band
+    that grows with |y|."""
+    diff = (got.float() - want.float()).abs()
+    rel = diff / (1 + want.float().abs())
+    return diff.max().item(), rel.max().item()
+
+
+def check_gm(x, w, counts, what: str) -> float:
+    """The kernel against its plain version within TOL as atol and rtol;
+    rows past each count zero.  Returns max |kernel - plain|."""
+    out = grouped_matmul(x, w, counts)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("non-finite kernel output")
+    for i, n in enumerate(counts.tolist()):
+        if out[i, max(n, 0):].any():
+            raise AssertionError(f"grouped_matmul: expert {i}'s rows past "
+                                 f"its count {n} are not zero")
+    err, rel = gm_errors(out, grouped_matmul_plain(x, w, counts))
+    tol = TOL[x.dtype]
+    log("kernels", f"grouped_matmul {x.dtype} E={x.shape[0]} C={x.shape[1]} "
+        f"d={x.shape[2]} f={w.shape[2]} {what}, counts "
+        f"{sorted(set(counts.tolist()))}: max |kernel - plain| {err:.3e}, "
+        f"max |kernel - plain| / (1 + |plain|) {rel:.3e} (tolerance "
+        f"{tol:.0e})")
+    if not math.isfinite(rel) or rel > tol:
+        raise AssertionError(f"grouped_matmul disagrees with its plain "
+                             f"version ({what}): {rel} > {tol}")
+    return err
+
+
+def time_gm(x, w, counts, label: str):
+    """Kernel, plain and ``torch.bmm`` times over the zero-padded buffer,
+    and the bound; bmm is held to the kernel's function."""
+    ms = cuda_ms(lambda: grouped_matmul(x, w, counts), 20)
+    plain_ms = cuda_ms(lambda: grouped_matmul_plain(x, w, counts), 3)
+    _, lib_err = gm_errors(torch.bmm(x, w), grouped_matmul(x, w, counts))
+    if lib_err > TOL[x.dtype]:
+        raise AssertionError(f"library yardstick computes another "
+                             f"function: {lib_err}")
+    library_ms = cuda_ms(lambda: torch.bmm(x, w), 10)
+    bound_ms, bound_by = gm_bound(x, w, counts)
+    e, c, d = x.shape
+    log("kernels", f"grouped_matmul {x.dtype} {label} E={e} C={c} d={d} "
+        f"f={w.shape[2]}, {int((counts > 0).sum())} experts live, "
+        f"{int(counts.sum())} rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bmm over every expert {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def phase_grouped_matmul(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(4)
+    e, d, f = ARCTIC_EXPERTS
+    ragged = torch.tensor(GM_RAGGED, dtype=torch.int32, device=dev)
+    few = routed_counts(8, len(GM_RAGGED), 8, gen, dev)
+    for a, b in ((d, f), (f, d)):                  # w_in's and w_out's
+        w = gm_weights(torch.float32, len(GM_RAGGED), a, b, gen, dev)
+        for counts, c, what in ((ragged, 24, "ragged"),
+                                (few, 8, "8 tokens routed")):
+            check_gm(gm_buffer(torch.float32, counts, c, a, gen, dev), w,
+                     counts, what)
+        check_gm(gm_buffer(torch.bfloat16, ragged, 24, a, gen, dev),
+                 w.bfloat16(), ragged, "ragged")
+        del w
+
+    worst, row = 0.0, None
+    decode = routed_counts(8, e, 8, gen, dev)
+    prefill = routed_counts(1024, e, 24, gen, dev)
+    for a, b, name in ((d, f, "w_in"), (f, d, "w_out")):
+        w = gm_weights(torch.bfloat16, e, a, b, gen, dev)
+        for counts, c, step in ((decode, 8, "decode"),
+                                (prefill, 24, "prefill")):
+            x = gm_buffer(torch.bfloat16, counts, c, a, gen, dev)
+            worst = max(worst, check_gm(x, w, counts, f"{name} {step}"))
+            times = time_gm(x, w, counts, f"{name} {step}")
+            if (name, step) == ("w_in", "decode"):
+                row = times
+        del w, x
+        torch.cuda.empty_cache()
+    # the JSON row: w_in's (and w_gate's) product at a decode step, the
+    # launch the main path makes most
+    ms, plain_ms, library_ms, bound_ms, bound_by = row
+    return {"name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:59",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 to 9: the engine
 # ---------------------------------------------------------------------------
@@ -632,19 +823,28 @@ def serve(eng: TorchEngine, reqs) -> dict:
 KERNELS = {"paged_decode_attention": paged_decode_attention,
            "flash_attention": flash_attention,
            "decode_attention": decode_attention,
-           "ssm_scan": ssm_scan}
+           "ssm_scan": ssm_scan,
+           "grouped_matmul": grouped_matmul}
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def moe_layers(cfg) -> int:
+    return sum(seg.repeat * n for seg in cfg.plan()
+               for spec, n in seg.pattern if spec.moe)
+
+
 def expected_launches(eng: TorchEngine, prefills: int) -> dict:
-    """Launches of each kernel on a run of ``eng`` that prefilled
-    ``prefills`` prompts: one per layer per prefill (flash and, in a
+    """Launches of each kernel on a run of ``eng`` that ran ``prefills``
+    prefill forwards (the ring layout one per prompt; the paged layout
+    one per chunk, and the scheduler's token budget splits a step's
+    prompts into chunks): one per layer per prefill (flash and, in a
     hybrid's mamba branch, the SSM scan; ring) or per decode step (the
-    layout's decode kernel); none without the flag, and none on the CPU,
-    where the wrappers take the plain versions."""
+    layout's decode kernel), and three per MoE layer per forward
+    (grouped_matmul, either layout); none without the flag, and none on
+    the CPU, where the wrappers take the plain versions."""
     want = dict.fromkeys(KERNELS, 0)
     if eng.cfg.use_pallas and eng.device.type == "cuda":
         n = eng.cfg.n_layers
@@ -655,17 +855,39 @@ def expected_launches(eng: TorchEngine, prefills: int) -> dict:
             want["decode_attention"] = n * eng.decode_steps
             if eng.cfg.family == "hybrid":
                 want["ssm_scan"] = n * prefills
+        want["grouped_matmul"] = (3 * moe_layers(eng.cfg)
+                                  * (prefills + eng.decode_steps))
     return want
+
+
+def count_prefill_work(eng: TorchEngine) -> list:
+    """Count the prefill work items the scheduler hands ``eng`` from now
+    on: each is one forward (a whole prompt on the ring layout, a chunk
+    on the paged one).  Returns a one-element list holding the count."""
+    count = [0]
+    plan_step = eng.scheduler.plan_step
+
+    def counted():
+        plan = plan_step()
+        count[0] += len(plan.prefills)
+        return plan
+    eng.scheduler.plan_step = counted
+    return count
 
 
 def served_counts(eng: TorchEngine, reqs, before: dict) -> dict:
     """Serve ``reqs`` and check each kernel's launches on that run."""
+    forwards = count_prefill_work(eng)
     res = serve(eng, reqs)
     after = launch_counts()
     used = {k: after[k] - before[k] for k in KERNELS}
     if eng.scheduler.preempt_count:
         raise AssertionError(f"{eng.name}: unexpected preemption")
-    want = expected_launches(eng, len(reqs))
+    if eng.cache_layout == "ring" and forwards[0] != len(reqs):
+        raise AssertionError(f"{eng.name}: {forwards[0]} ring prefills for "
+                             f"{len(reqs)} prompts")
+    res["prefill_forwards"] = forwards[0]
+    want = expected_launches(eng, forwards[0])
     if used != want:
         raise AssertionError(f"{eng.name}: kernel launches {used}, "
                              f"expected {want}")
@@ -817,7 +1039,8 @@ SERVE_SCHED = dict(max_slots=8, num_pages=512, page_size=128,
                    max_context=4096)
 
 
-def phase_serve(dev, cfg, params, layout: str, phase: str) -> dict:
+def phase_serve(dev, cfg, params, layout: str, phase: str,
+                max_new: int = 64) -> dict:
     """The full model serves the 8 requests on ``layout``; every kernel
     of the path launches exactly as often as expected.  Returns the
     counts of that run."""
@@ -825,20 +1048,22 @@ def phase_serve(dev, cfg, params, layout: str, phase: str) -> dict:
                       name=f"serve-{layout}", cache_layout=layout,
                       device=dev)
     lens = [int(x) for x in np.random.default_rng(2).integers(256, 1025, 8)]
-    reqs = make_requests(lens, 64, cfg.vocab, seed=3)
+    reqs = make_requests(lens, max_new, cfg.vocab, seed=3)
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNELS.values():                 # the main path's counts
         fn.launches = 0
     res = served_counts(eng, reqs, launch_counts())
     launches = res["launches"]
     dec = res["times"]["decode"]
-    log(phase, f"{layout} layout, 8 requests, prompts {lens}, 64 new tokens "
-        f"each: all FINISHED; {eng.prefill_steps} prefill steps "
+    log(phase, f"{layout} layout, kernels {'on' if cfg.use_pallas else 'off'}"
+        f", 8 requests, prompts {lens}, {max_new} new tokens each: all "
+        f"FINISHED; {eng.prefill_steps} prefill steps "
         f"{res['times']['prefill']:.3f} s, {eng.decode_steps} decode steps "
         f"{dec:.3f} s, mean decode step {1e3 * dec / eng.decode_steps:.2f} "
         f"ms, decode {res['decode_tokens'] / dec:.1f} tokens/s; kernel "
         f"launches {launches} ({cfg.n_layers} layers, {len(reqs)} "
-        f"prefills, {eng.decode_steps} decode steps); max_memory_allocated "
+        f"prompts in {res['prefill_forwards']} prefill forwards, "
+        f"{eng.decode_steps} decode steps); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_decode(eng, 1e3 * dec / eng.decode_steps, phase)
     return launches
@@ -924,7 +1149,7 @@ def main() -> int:
             f"{max(spills, default=0)} bytes")
 
     rows = [phase_kernels(dev), phase_flash(dev), phase_ring_decode(dev),
-            phase_ssm_scan(dev)]
+            phase_ssm_scan(dev), phase_grouped_matmul(dev)]
 
     small = get_config("agent-7b").replace(n_layers=2, dtype="float32")
     params = models.init(small, torch.Generator(device=dev).manual_seed(0),
@@ -956,9 +1181,35 @@ def main() -> int:
     cfg = get_config("hymba-1.5b").replace(use_pallas=True)
     params = init_full(cfg, dev, "serve hymba")
     hymba = phase_serve(dev, cfg, params, "ring", "serve hymba")
+    free(params)
+
+    # arctic-480b width at 1 layer in f32 (56.3 GB of weights): greedy
+    # tokens equal across layouts and kernel paths
+    small = get_config("arctic-480b").replace(n_layers=1, dtype="float32")
+    params = init_full(small, dev, "parity arctic")
+    phase_parity(dev, small, params, label="arctic-480b width, 1 layer")
+    free(params)
+
+    # arctic-480b at 2 of its 35 layers, bf16 (55.4 GB): paged, ring, and
+    # paged with the kernels off (every expert product a bmm over all 128
+    # experts) for the step it costs
+    cfg = get_config("arctic-480b").replace(n_layers=2, use_pallas=True)
+    params = init_full(cfg, dev, "serve arctic")
+    arctic = phase_serve(dev, cfg, params, "paged", "serve arctic")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve(dev, cfg, params, "ring", "serve arctic ring")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve(dev, cfg.replace(use_pallas=False), params, "paged",
+                "serve arctic off", max_new=16)
+    free(params)
+
+    main_path = {"paged_decode_attention": paged, "flash_attention": hymba,
+                 "decode_attention": hymba, "ssm_scan": hymba,
+                 "grouped_matmul": arctic}
     for row in rows:
-        counts = paged if row["name"] == "paged_decode_attention" else hymba
-        row["launches"] = counts[row["name"]]
+        row["launches"] = main_path[row["name"]][row["name"]]
 
     print(card(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,22 +1,24 @@
-"""Model configs the port serves: the paper's agentic-workload family
-and the hybrid ``hymba-1.5b``.
+"""Model configs the port serves: the paper's agentic-workload family,
+the hybrid ``hymba-1.5b`` and the MoE models ``arctic-480b`` and
+``kimi-k2-1t-a32b``.
 
-``get_config(name)`` resolves ``tiny-agent``, ``agent-1b``, ``agent-7b``
-and ``hymba-1.5b``; ``get_smoke(name)`` the reduced same-family config
-of the CPU tests (the config itself where there is none).  The other
-architectures wait for their block kinds (MoE, xLSTM, enc-dec, VLM) to
-be ported.
+``get_config(name)`` resolves ``tiny-agent``, ``agent-1b``, ``agent-7b``,
+``hymba-1.5b``, ``arctic-480b`` and ``kimi-k2-1t-a32b``;
+``get_smoke(name)`` the reduced same-family config of the CPU tests (the
+config itself where there is none).  The other architectures wait for
+their block kinds (xLSTM, enc-dec, VLM) to be ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import hymba_1_5b
+from repro_torch.configs import arctic_480b, hymba_1_5b, kimi_k2_1t_a32b
 from repro_torch.configs.base import (FULL_ATTENTION, BlockSpec, ModelConfig,
                                       Segment)
 from repro_torch.configs.paper_agentic import AGENT_1B, AGENT_7B, TINY_AGENT
 
+_MODULES = (hymba_1_5b, arctic_480b, kimi_k2_1t_a32b)
 _CONFIGS = {c.name: c for c in (TINY_AGENT, AGENT_1B, AGENT_7B,
-                                hymba_1_5b.CONFIG)}
-_SMOKE = {hymba_1_5b.CONFIG.name: hymba_1_5b.SMOKE}
+                                *(m.CONFIG for m in _MODULES))}
+_SMOKE = {m.CONFIG.name: m.SMOKE for m in _MODULES}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -10,10 +10,13 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 
 __all__ = ["decode_attention", "decode_attention_plain", "flash_attention",
-           "flash_attention_plain", "paged_decode_attention",
-           "paged_decode_attention_plain", "ssm_scan", "ssm_scan_plain"]
+           "flash_attention_plain", "grouped_matmul", "grouped_matmul_plain",
+           "paged_decode_attention", "paged_decode_attention_plain",
+           "ssm_scan", "ssm_scan_plain"]

@@ -204,6 +204,8 @@ bool dispatch_g(int g, const void* q, const void* k, const void* v,
                              window, scale, s); return true;
     case 5: launch<T, DH, 5>(q, k, v, kpos, q_pos, out, batch, t_len, hkv,
                              window, scale, s); return true;
+    case 7: launch<T, DH, 7>(q, k, v, kpos, q_pos, out, batch, t_len, hkv,
+                             window, scale, s); return true;
     case 8: launch<T, DH, 8>(q, k, v, kpos, q_pos, out, batch, t_len, hkv,
                              window, scale, s); return true;
     default: return false;

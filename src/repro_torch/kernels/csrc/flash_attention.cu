@@ -212,7 +212,7 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       float scale, void* stream) {
   if (hkv <= 0 || h_q % hkv != 0 || s_len <= 0 || t_len <= 0) return -1;
   const int g = h_q / hkv;
-  if (g != 1 && g != 2 && g != 4 && g != 5 && g != 8) return -1;
+  if (g != 1 && g != 2 && g != 4 && g != 5 && g != 7 && g != 8) return -1;
   auto st = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == 0)

@@ -185,6 +185,8 @@ bool dispatch_g(int g, const void* q, const void* k, const void* v,
                              n_pool, window, scale, s); return true;
     case 4: launch<T, DH, 4>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
                              n_pool, window, scale, s); return true;
+    case 7: launch<T, DH, 7>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
+                             n_pool, window, scale, s); return true;
     case 8: launch<T, DH, 8>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
                              n_pool, window, scale, s); return true;
     default: return false;

@@ -35,8 +35,9 @@ import torch
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-# G = 5: hymba-1.5b, 25 query heads over 5 KV heads
-GROUPS = (1, 2, 4, 5, 8)
+# G = 5: hymba-1.5b, 25 query heads over 5 KV heads; G = 7: arctic-480b,
+# 56 over 8
+GROUPS = (1, 2, 4, 5, 7, 8)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

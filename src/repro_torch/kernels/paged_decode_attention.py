@@ -29,7 +29,8 @@ import torch
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+# G = 7: arctic-480b, 56 query heads over 8 KV heads
+GROUPS = (1, 2, 4, 7, 8)
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,

@@ -2,8 +2,11 @@
 kinds the port serves: ``attn`` and ``dec`` without cross attention,
 including ``parallel_block``, over a ring or a paged cache; and
 ``hymba`` (attention and a mamba branch side by side) over a ring cache
-plus its SSM state.  Other kinds, MoE and cross attention raise
-``NotImplementedError`` naming the ROADMAP queue A item that ports them.
+plus its SSM state.  An ``attn`` block's FFN is the dense MLP or the MoE
+FFN (``models/moe.py``), with arctic's dense residual MLP beside the
+experts and kimi's shared expert inside them, on every branch.  Other
+kinds and cross attention raise ``NotImplementedError`` naming the
+ROADMAP queue A item that ports them.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.models.attention import (PagedKVCache, attn_defs,
                                           self_attention_paged,
                                           self_attention_prefill)
 from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from repro_torch.models.moe import moe_defs, moe_ffn
 
 _LATER = {"mlstm": "xLSTM", "slstm": "xLSTM", "enc": "enc-dec"}
 
@@ -34,9 +38,6 @@ def _supported(spec: BlockSpec) -> None:
     if spec.cross_attention:
         raise NotImplementedError(
             "cross attention is not ported yet (ROADMAP queue A: enc-dec)")
-    if spec.moe:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP queue A: MoE)")
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +61,12 @@ def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
     }
     if not spec.parallel_block:
         defs["norm2"] = rmsnorm_defs(cfg.d_model)
-    defs["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff)
+    if spec.moe:
+        defs["moe"] = moe_defs(cfg)
+        if spec.dense_residual:
+            defs["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff)
+    else:
+        defs["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff)
     return defs
 
 
@@ -117,6 +123,19 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
+         spec: BlockSpec) -> torch.Tensor:
+    """The block's FFN: the MoE (plus arctic's dense residual MLP) or the
+    dense MLP.  Serving drops the MoE's aux loss, as the reference's
+    engine does."""
+    if spec.moe:
+        y, _ = moe_ffn(params["moe"], x, cfg, spec, with_stats=False)
+        if spec.dense_residual:
+            y = y + mlp(params["mlp"], x)
+        return y
+    return mlp(params["mlp"], x)
+
+
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 spec: BlockSpec, positions: torch.Tensor, cache: dict,
                 tables: Optional[torch.Tensor] = None,
@@ -155,7 +174,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         x = x + 0.5 * (a + m)
     elif spec.parallel_block:
         # attention and FFN read the same normed input, summed
-        return x + a + mlp(params["mlp"], xr)
+        return x + a + _ffn(params, xr, cfg, spec)
     else:
         x = x + a
-    return x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+    return x + _ffn(params, rmsnorm(params["norm2"], x, cfg.norm_eps), cfg,
+                    spec)

@@ -17,6 +17,7 @@ order, as ``jax.tree`` flattening does.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -93,6 +94,15 @@ def _leaf_dtype(p: P, dtype: torch.dtype) -> torch.dtype:
     return torch_dtype(p.dtype) if p.dtype else dtype
 
 
+# A leaf of more elements than this is drawn in slices along its leading
+# dims, each slice at most this size, so the f32 temporary stays small:
+# arctic-480b's stacked expert weights hold 8.9 G elements a leaf at two
+# layers, a 35.7 GB f32 draw beside its 17.9 GB bf16 result.  The dense
+# and hybrid models' leaves are all drawn whole (agent-7b's largest, its
+# stacked MLP weights, holds 1.44 G).
+MAX_DRAW = 2 ** 31
+
+
 def _init_one(p: P, gen: torch.Generator, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     dt = _leaf_dtype(p, dtype)
@@ -104,9 +114,18 @@ def _init_one(p: P, gen: torch.Generator, dtype: torch.dtype,
     fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
     std = p.scale / math.sqrt(max(fan_in, 1))
     # drawn in f32 on the generator's device, then moved and cast
-    x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return x.mul_(std).to(device=device, dtype=dt)
+    if math.prod(p.shape) <= MAX_DRAW:
+        x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return x.mul_(std).to(device=device, dtype=dt)
+    lead = next(n for n in range(1, len(p.shape) + 1)
+                if math.prod(p.shape[n:]) <= MAX_DRAW)
+    out = torch.empty(p.shape, dtype=dt, device=device)
+    for idx in itertools.product(*map(range, p.shape[:lead])):
+        x = torch.randn(p.shape[lead:], generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        out[idx] = x.mul_(std)
+    return out
 
 
 def init_params(defs: Tree, gen: torch.Generator, dtype: torch.dtype,

@@ -178,11 +178,12 @@ def test_expected_launches_follow_layout_and_flag(smoke, small):
         elif layout == "paged":
             assert want == {"paged_decode_attention": 5 * n,
                             "flash_attention": 0, "decode_attention": 0,
-                            "ssm_scan": 0}
+                            "ssm_scan": 0, "grouped_matmul": 0}
         else:
             assert want == {"paged_decode_attention": 0,
                             "flash_attention": 3 * n,
-                            "decode_attention": 5 * n, "ssm_scan": 0}
+                            "decode_attention": 5 * n, "ssm_scan": 0,
+                            "grouped_matmul": 0}
 
 
 def test_expected_launches_of_a_hybrid(smoke):
@@ -205,7 +206,8 @@ def test_expected_launches_of_a_hybrid(smoke):
         n = cfg.n_layers
         assert smoke.expected_launches(eng, 2) == (
             {"paged_decode_attention": 0, "flash_attention": 2 * n,
-             "decode_attention": 7 * n, "ssm_scan": 2 * n} if use_pallas
+             "decode_attention": 7 * n, "ssm_scan": 2 * n,
+             "grouped_matmul": 0} if use_pallas
             else dict.fromkeys(smoke.KERNELS, 0))
 
 
@@ -260,3 +262,133 @@ def test_hymba_phases_run_on_cpu(smoke, monkeypatch, capsys):
     assert out.count("greedy tokens equal across ring, with and without "
                      "its kernels") == 2
     assert "hymba ring->ring after 4 tokens" in out
+
+
+@pytest.mark.parametrize("name", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_expected_launches_of_moe(smoke, name):
+    """An MoE engine launches grouped_matmul three times per MoE layer per
+    forward in either layout (kimi's dense first layer none), beside the
+    layout's attention kernels; without the flag nothing."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg = get_smoke(name).replace(dtype="float32")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert smoke.moe_layers(cfg) == 2 and cfg.n_layers == (
+        2 if name == "arctic-480b" else 3)
+    for layout in ("paged", "ring"):
+        for use_pallas in (False, True):
+            eng = TorchEngine(cfg.replace(use_pallas=use_pallas), params,
+                              SchedulerConfig(max_slots=2, num_pages=16,
+                                              page_size=16, max_context=64),
+                              cache_layout=layout, device="cpu")
+            eng.decode_steps = 7
+            eng.device = torch.device("cuda")   # as the card would count
+            want = smoke.expected_launches(eng, 3)
+            n = cfg.n_layers
+            if not use_pallas:
+                assert set(want.values()) == {0}
+                continue
+            assert want["grouped_matmul"] == 3 * 2 * (3 + 7)
+            if layout == "paged":
+                assert want["paged_decode_attention"] == 7 * n
+            else:
+                assert (want["flash_attention"],
+                        want["decode_attention"]) == (3 * n, 7 * n)
+
+
+def test_grouped_matmul_phase_checks_and_bound(smoke, monkeypatch):
+    """The grouped_matmul phase on the CPU at small widths: its cases run
+    the wrapper (plain version here) against the plain version, the
+    timed row has every key, and the bound counts the live experts'
+    weights, the live rows and all of the output."""
+    monkeypatch.setattr(smoke, "ARCTIC_EXPERTS", (32, 48, 40))
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    row = smoke.phase_grouped_matmul(torch.device("cpu"))
+    assert row["name"] == "grouped_matmul" and row["route"] == "cuda"
+    assert row["replaces"] == "src/repro/kernels/grouped_matmul.py:59"
+    assert row["max_abs_err"] == 0.0 and row["library_ms"] == 1.0
+    assert set(row) == {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device("cpu")
+    counts = smoke.routed_counts(8, 128, 8, gen, dev)
+    assert counts.dtype == torch.int32 and int(counts.sum()) == 16
+    assert int((counts > 0).sum()) <= 16
+    full = smoke.routed_counts(1024, 128, 24, gen, dev)
+    assert int(full.max()) <= 24 and 1900 < int(full.sum()) <= 2048
+    counts = torch.tensor([0, 3, 8, 0], dtype=torch.int32)
+    x = smoke.gm_buffer(torch.bfloat16, counts, 8, 16, gen, dev)
+    assert not x[0].any() and not x[1, 3:].any() and x[1, :3].all()
+    w = smoke.gm_weights(torch.bfloat16, 4, 16, 24, gen, dev)
+    assert w.dtype == torch.bfloat16 and tuple(w.shape) == (4, 16, 24)
+    ms, by = smoke.gm_bound(x, w, counts)
+    nbytes = (2 * 16 * 24 + 11 * 16 + 4 * 8 * 24) * 2 + 4 * 4
+    ops = 2 * 11 * 16 * 24
+    assert ms == pytest.approx(1e3 * max(nbytes / smoke.HBM_BYTES_PER_S,
+                                         ops / smoke.BF16_OPS_PER_S))
+    assert by == "bytes"
+    err = smoke.check_gm(x, w, counts, "rehearsal")
+    assert err == 0.0
+    # the band grows with |y|: one bf16 unit at 4 passes, 0.05 at 1 not
+    want = torch.tensor([4.0, 1.0, 0.0])
+    assert smoke.gm_errors(torch.tensor([4.03125, 1.0, 0.0]), want) == \
+        pytest.approx((0.03125, 0.03125 / 5))
+    assert smoke.gm_errors(torch.tensor([4.0, 1.05, 0.0]), want)[1] == \
+        pytest.approx(0.025)
+
+
+def test_arctic_parity_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """chip_smoke's arctic parity phase at arctic-smoke sizes on the CPU:
+    both layouts, kernels on and off, full attention and a window."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "PARITY_LENS", [20, 45])
+    monkeypatch.setattr(smoke, "PARITY_SCHED", dict(
+        max_slots=2, num_pages=24, page_size=16, max_context=64))
+    monkeypatch.setattr(smoke, "PARITY_SWA", (24, 8))
+    cfg = get_smoke("arctic-480b").replace(dtype="float32")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    smoke.phase_parity(torch.device("cpu"), cfg, params,
+                       label="arctic smoke")
+    out = capsys.readouterr().out
+    assert out.count("arctic smoke, f32") == 2
+    assert out.count("greedy tokens equal across paged and ring") == 2
+
+
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_expected_grouped_matmul_calls_follow_prefill_forwards(
+        smoke, monkeypatch, layout):
+    """A token budget smaller than the prompts splits the paged layout's
+    prefills into chunks, each a forward; the ring layout prefills each
+    prompt whole.  The expected grouped_matmul launches, from the counted
+    prefill work and decode steps, equal the wrapper's calls on the CPU
+    (where it runs its plain version and launches nothing)."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    calls = []
+    real = moe.grouped_matmul
+    monkeypatch.setattr(moe, "grouped_matmul",
+                        lambda *a: calls.append(1) or real(*a))
+    cfg = get_smoke("arctic-480b").replace(dtype="float32", use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = TorchEngine(cfg, params, SchedulerConfig(
+        max_slots=3, num_pages=40, page_size=16, max_context=128,
+        max_batch_tokens=64), cache_layout=layout, device="cpu")
+    reqs = smoke.make_requests([50, 40, 30], 4, cfg.vocab, seed=3)
+    res = smoke.served_counts(eng, reqs, smoke.launch_counts())
+    forwards = res["prefill_forwards"]
+    # paged: 50 + 14 of 40 in the first step, 26 + 30 in the second
+    assert forwards == (4 if layout == "paged" else 3)
+    eng.device = torch.device("cuda")           # as the card would count
+    want = smoke.expected_launches(eng, forwards)["grouped_matmul"]
+    assert want == len(calls) == 3 * 2 * (forwards + eng.decode_steps)

@@ -7,7 +7,9 @@ machine with the card and no JAX:
 
 Tolerance: 2e-5 f32, 2e-2 bf16, as the reference's kernel tests; 1e-4
 f32 for ``ssm_scan``, the reference's own band for that kernel
-(tests/test_kernels.py:253).
+(tests/test_kernels.py:253).  ``grouped_matmul``'s weights are scaled by
+1/sqrt(d), as the model's are, so its outputs are O(1) and the absolute
+bands mean what they mean for attention.
 """
 import numpy as np
 import pytest
@@ -15,12 +17,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decode_attention,  # noqa: E402
-                                 flash_attention, paged_decode_attention,
-                                 ssm_scan)
+                                 flash_attention, grouped_matmul,
+                                 paged_decode_attention, ssm_scan)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain)
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan_plain  # noqa: E402
@@ -65,6 +69,8 @@ def case(dev, dtype, b, hkv, g, dh, page, ctx, shared=1, seed=0):
                                               (4, 128, 16, 512),
                                               (2, 32, 16, 24),
                                               (8, 64, 16, -1),
+                                              (7, 128, 128, -1),  # arctic
+                                              (7, 128, 16, 512),
                                               (1, 128, 32, 40)])
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, g, dh, page,
                                            window):
@@ -107,6 +113,8 @@ def flash_case(dev, dtype, b, s, t, hkv, g, dh, seed=1):
     (2, 130, 130, 2, 64, True, 48),
     (1, 77, 77, 8, 32, True, 5),
     (1, 300, 300, 5, 64, True, 100),               # hymba-1.5b's G and dh
+    (1, 300, 300, 7, 128, True, -1),               # arctic-480b's
+    (1, 130, 130, 7, 128, True, 48),
     (1, 200, 90, 1, 128, False, -1),
     (2, 64, 64, 4, 64, False, -1)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
@@ -144,6 +152,8 @@ def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
                                                (2, 32, 64, 24),
                                                (8, 64, 300, -1),
                                                (5, 64, 384, 256),
+                                               (7, 128, 1024, -1),
+                                               (7, 128, 384, 256),
                                                (1, 128, 96, 40)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
                                      window):
@@ -231,3 +241,90 @@ def test_ssm_scan_kernel_rejects_unsupported(cuda_device):
         ssm_scan(*scan_case(cuda_device, torch.float32, 1, 400, 2, 16, 16),
                  chunk=256)
     assert ssm_scan.launches == before
+
+
+def gm_case(dev, dtype, e, c, d, f, counts, seed=4, poison=False):
+    """The dispatch buffer and expert weights (scaled by 1/sqrt(d), as
+    the model's); ``poison`` puts NaN in the rows past each count and in
+    the weights of every empty expert, which the kernel must not read."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((e, c, d)))
+    w = torch.from_numpy(rng.standard_normal((e, d, f)) / np.sqrt(d))
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    if poison:
+        rows = torch.arange(c)[None, :] >= cnt[:, None]
+        x[rows] = float("nan")
+        w[cnt == 0] = float("nan")
+    return x.to(dev, dtype), w.to(dev, dtype), cnt.to(dev)
+
+
+def ref_counts(e, c):
+    """The reference sweep's counts (tests/test_kernels.py:213-215)."""
+    return [min(c, max(0, c - i * (c // max(e - 1, 1)))) for i in range(e)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,c,d,f,counts", [
+    (4, 64, 128, 256, None),                       # the reference sweep
+    (8, 32, 64, 64, None),
+    (2, 128, 256, 128, None),
+    (8, 8, 64, 96, [8, 0, 1, 5, 8, 0, 3, 2]),      # arctic smoke widths
+    (8, 24, 64, 32, [24, 0, 1, 13, 7, 0, 24, 9]),  # kimi smoke widths
+    (9, 40, 100, 33, [40, 33, 32, 31, 0, 1, 17, 8, 9]),  # ragged f and d
+    (3, 5, 70, 130, [5, 2, 0]),                    # C below a row tile
+    (4, 16, 72, 136, [16, 9, 0, 1]),               # d and f past a tile
+    (3, 40, 64, 128, [40, 33, 7]),                 # two row blocks
+    (4, 8, 7168, 4864, [0, 1, 8, 5]),              # arctic decode
+    (3, 24, 4864, 7168, [24, 0, 17])])             # arctic w_out, prefill
+def test_grouped_matmul_kernel_matches_plain(cuda_device, dtype, e, c, d, f,
+                                             counts):
+    counts = ref_counts(e, c) if counts is None else counts
+    x, w, cnt = gm_case(cuda_device, dtype, e, c, d, f, counts)
+    before = grouped_matmul.launches
+    out = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (e, c, f)
+    want = grouped_matmul_plain(x, w, cnt)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grouped_matmul_kernel_reads_no_dead_row_or_expert(cuda_device,
+                                                           dtype):
+    """NaN in the rows past each count and in the empty experts' weights:
+    the kernel's output is finite and zero there, as the TPU kernel's
+    skip of empty row blocks implies."""
+    counts = [16, 0, 3, 0, 9]
+    x, w, cnt = gm_case(cuda_device, dtype, 5, 16, 96, 200, counts,
+                        poison=True)
+    out = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for i, n in enumerate(counts):
+        assert (out[i, n:] == 0).all()
+    live = torch.arange(16, device=cuda_device)[None, :] < cnt[:, None]
+    want = grouped_matmul_plain(torch.nan_to_num(x), w.nan_to_num(), cnt)
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_kernel_rejects_unsupported(cuda_device):
+    x, w, cnt = gm_case(cuda_device, torch.float32, 2, 8, 32, 16, [8, 1])
+    before = grouped_matmul.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        grouped_matmul(x.half(), w.half(), cnt)
+    with pytest.raises(ValueError, match="int32"):
+        grouped_matmul(x, w, cnt.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul(x.transpose(1, 2).contiguous().transpose(1, 2),
+                       w, cnt)
+    with pytest.raises(ValueError, match="share a dtype"):
+        grouped_matmul(x, w.bfloat16(), cnt)
+    assert grouped_matmul.launches == before

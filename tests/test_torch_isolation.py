@@ -30,7 +30,10 @@ def _modules() -> list[str]:
 def test_import_pulls_in_no_jax_and_no_reference():
     mods = _modules()
     for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
-              "repro_torch.configs.hymba_1_5b"):
+              "repro_torch.configs.hymba_1_5b", "repro_torch.models.moe",
+              "repro_torch.kernels.grouped_matmul",
+              "repro_torch.configs.arctic_480b",
+              "repro_torch.configs.kimi_k2_1t_a32b"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
@@ -92,6 +95,14 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     params = models.init(hymba, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchEngine(hymba, params, SchedulerConfig(), cache_layout="ring")
+    arctic = get_smoke("arctic-480b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init(arctic, torch.Generator())
+    params = models.init(arctic, torch.Generator(), device="cpu")
+    for layout in ("ring", "paged"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TorchEngine(arctic, params, SchedulerConfig(),
+                        cache_layout=layout)
 
 
 def test_chip_smoke_refuses_missing_cuda(monkeypatch):

@@ -156,8 +156,12 @@ def test_unported_paths_raise():
     _, tcfg = configs()
     with pytest.raises(ValueError, match="layout"):
         tmodels.init_cache(tcfg, 2, 64, layout="ragged", device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tmodels.model_defs(tcfg.replace(n_experts=4, top_k=2, d_ff_expert=64))
+    # the MoE FFN is ported (tests/test_torch_moe*.py): its defs build
+    moe = tmodels.model_defs(tcfg.replace(n_experts=4, top_k=2,
+                                          d_ff_expert=64))
+    assert "moe" in moe["decoder"][0]["e0"]
+    with pytest.raises(NotImplementedError, match="xLSTM"):
+        tmodels.model_defs(tcfg.replace(family="ssm"))
 
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "kernel"])
