@@ -28,7 +28,8 @@ code is non-zero and the final JSON line is not printed:
 7. serve ring -- the same weights and requests on the ring layout: the
                  flash kernel launches once per layer per prefill, the
                  ring decode kernel once per layer per decode step, and
-                 the paged kernel never; a profile follows.
+                 the paged kernel never; profiles of four decode steps
+                 and of the longest prompt's prefill follow.
 8. hymba      -- hymba-1.5b width at 3 layers in f32 on the ring layout:
                  greedy tokens equal with and without the kernels, for
                  full attention and a window whose ring wraps, prompts
@@ -37,7 +38,7 @@ code is non-zero and the final JSON line is not printed:
 9. serve hymba -- hymba-1.5b in full (32 layers, bf16), ring layout,
                  serves 8 requests: flash and the SSM scan launch once
                  per layer per prefill, ring decode once per layer per
-                 decode step; a profile follows.
+                 decode step; profiles of decode and of a prefill follow.
 10. parity arctic -- arctic-480b width at 1 layer in f32 (128 experts,
                  top-2, a dense residual MLP): greedy tokens equal across
                  both layouts with and without their kernels, full
@@ -58,6 +59,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -76,7 +78,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.types import Request, RequestState  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
@@ -108,13 +110,22 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the stream is held ~100 us per timed call (at up to 2 GHz) while the
+# host enqueues the calls
+SLEEP_CYCLES_PER_CALL = 200_000
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.  A
+    sleep kernel holds the stream while the host enqueues them, so a
+    kernel shorter than its wrapper's host overhead runs back to back
+    and is not timed at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -302,6 +313,17 @@ HYMBA_FLASH_CASES = [(1024, 1024, True, -1), (1000, 1000, True, 1024),
 ARCTIC_HEADS = (56, 8, 128)
 ARCTIC_FLASH_CASES = [(1024, 1024, True, -1), (900, 900, True, 512),
                       (300, 700, False, -1)]
+# the edges of the tensor-core tiles (64 query rows, 64-key tiles): dh 32,
+# ragged S and T, B = 2, S > T under a window (rows 955.. have no valid
+# key and come out as zeros), non-causal T of 90 and under one tile
+SMALL_HEADS = (8, 2, 32)
+EDGE_FLASH_CASES = [(SMALL_HEADS, 1, 77, 77, True, -1),   # heads, B, S, T,
+                    (SMALL_HEADS, 1, 900, 900, True, -1),  # causal, window
+                    (SMALL_HEADS, 2, 77, 77, True, 5),
+                    (FLASH_HEADS, 2, 300, 300, True, -1),
+                    (HYMBA_HEADS, 1, 1100, 700, True, 256),
+                    (FLASH_HEADS, 1, 200, 90, False, -1),
+                    (ARCTIC_HEADS, 1, 100, 40, False, -1)]
 
 
 def flash_case(dtype, s: int, t: int, gen: torch.Generator, dev, b: int = 1,
@@ -319,6 +341,16 @@ def flash_valid_keys(s: int, t: int, causal: bool, window: int) -> int:
     hi = np.minimum(i, t - 1)
     lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
     return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_live_rows(s: int, t: int, causal: bool, window: int) -> np.ndarray:
+    """(S,) bool: the query rows with at least one valid key.  The kernel
+    writes zeros for the others, the plain version a uniform average."""
+    if not causal:
+        return np.ones(s, bool)
+    i = np.arange(s)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    return lo <= np.minimum(i, t - 1)
 
 
 def flash_bound(args, causal: bool, window: int) -> tuple[float, str]:
@@ -373,25 +405,40 @@ def time_flash(args, label: str):
     return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
+def check_flash(dtype, heads, b: int, s: int, t: int, causal: bool,
+                window: int, gen: torch.Generator, dev) -> float:
+    """The kernel against its plain version on the rows with a valid key;
+    the others must be zeros.  Returns max |kernel - plain|."""
+    args = flash_case(dtype, s, t, gen, dev, b=b, heads=heads)
+    out = flash_attention(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(*args, causal=causal, window=window)
+    live = torch.from_numpy(flash_live_rows(s, t, causal, window)).to(dev)
+    err = (out.float() - want.float())[:, live].abs().max().item()
+    dead = int((~live).sum())
+    check("flash_attention", err, dtype,
+          f"{dtype} B={b} H={heads[0]} Hkv={heads[1]} dh={heads[2]} S={s} "
+          f"T={t} causal={causal} window={window}"
+          + (f", {dead} rows with no valid key" if dead else ""))
+    if dead and out[:, ~live].any():
+        raise AssertionError("flash_attention: a row with no valid key is "
+                             "not zero")
+    if not torch.isfinite(out).all():
+        raise AssertionError("non-finite kernel output")
+    return err
+
+
 def phase_flash(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for heads, cases in ((FLASH_HEADS, FLASH_CASES),
-                             (HYMBA_HEADS, HYMBA_FLASH_CASES),
-                             (ARCTIC_HEADS, ARCTIC_FLASH_CASES)):
-            for s, t, causal, window in cases:
-                args = flash_case(dtype, s, t, gen, dev, heads=heads)
-                out = flash_attention(*args, causal=causal, window=window)
-                torch.cuda.synchronize()
-                want = flash_attention_plain(*args, causal=causal,
-                                             window=window)
-                err = (out.float() - want.float()).abs().max().item()
-                check("flash_attention", err, dtype,
-                      f"{dtype} H={heads[0]} Hkv={heads[1]} dh={heads[2]} "
-                      f"S={s} T={t} causal={causal} window={window}")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
+        cases = [(heads, 1, *case) for heads, cases in (
+            (FLASH_HEADS, FLASH_CASES), (HYMBA_HEADS, HYMBA_FLASH_CASES),
+            (ARCTIC_HEADS, ARCTIC_FLASH_CASES)) for case in cases]
+        for case in cases + EDGE_FLASH_CASES:
+            err = check_flash(dtype, *case, gen, dev)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
 
     # hymba's and arctic's ring prefill of their longest prompt, for
     # PERF.md
@@ -417,21 +464,27 @@ def phase_flash(dev) -> dict:
 # ring decode at the serve phase's shapes: 8 slots, agent-7b heads, a
 # 4096-slot full-attention ring with the contexts CTX, and a 1536-slot
 # ring of a 512-token window whose positions wrapped; then hymba-1.5b's
-# heads with its global ring and the 2048-slot ring of its 1024 window
+# heads with its global ring and the 2048-slot ring of its 1024 window.
+# The split planner (decode_splits) cuts the 4096-slot rings into 16
+# ranges of 256; 3000 slots leave a ragged last range, 64 slots make one
+# range (no merge), and 1000 slots at hymba's heads make ranges of 64.
 RING_HEADS = (8, 4, 128)                            # Hkv, G, dh
-RING_CASES = [(4096, -1), (1536, 512)]              # slots, window
+RING_CASES = [(4096, -1), (1536, 512), (3000, -1), (64, -1)]  # slots, window
 HYMBA_RING_HEADS = (5, 5, 64)
-HYMBA_RING_CASES = [(4096, -1), (2048, 1024)]
+HYMBA_RING_CASES = [(4096, -1), (2048, 1024), (1000, 300)]
 ARCTIC_RING_HEADS = (8, 7, 128)
 
 
-def ring_case(dtype, slots: int, gen: torch.Generator, dev, heads=None):
-    """Rings after writing positions 0..c-1 of each row's context c at
-    slot ``pos % slots``; q_pos = c - 1 (row 5, c = 0, has no valid
-    slot).  Returns q, k, v, kpos, q_pos."""
+def ring_case(dtype, slots: int, gen: torch.Generator, dev, heads=None,
+              ctx=None):
+    """Rings after writing positions 0..c-1 of each row's context c (of
+    ``ctx``, default CTX) at slot ``pos % slots``; q_pos = c - 1 (a row
+    with c = 0, as row 5 of CTX, has no valid slot).  Returns q, k, v,
+    kpos, q_pos."""
     hkv, g, dh = RING_HEADS if heads is None else heads
-    b = len(CTX)
-    last = np.asarray(CTX)[:, None] - 1
+    ctx = CTX if ctx is None else ctx
+    b = len(ctx)
+    last = np.asarray(ctx)[:, None] - 1
     s = np.arange(slots)[None, :]
     kpos = last - np.mod(last - s, slots)
     kpos = np.where(kpos >= 0, kpos, -1).astype(np.int32)
@@ -493,6 +546,43 @@ def time_ring_decode(args, live, label: str):
     return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
+# a decode step of the serve phases: 8 rows of ~515 tokens in a
+# 4096-slot ring, where most of the planner's ranges hold no valid slot
+SERVE_CTX = [515, 517, 513, 520, 515, 516, 514, 519]
+RANGE_LENS = (512, 256, 128)                  # ring slots per CTA
+
+
+def time_ranges(gen: torch.Generator, dev) -> None:
+    """Ring decode bf16 with each of RANGE_LENS in place of the planner's
+    range, on the CTX rings and at SERVE_CTX, at each head shape: the
+    numbers behind decode_splits' target (PERF.md)."""
+    planner = sys.modules[decode_attention.__module__]
+    plan = planner.decode_splits
+    for heads in (RING_HEADS, HYMBA_RING_HEADS, ARCTIC_RING_HEADS):
+        for label, ctx in (("CTX", CTX), ("serve", SERVE_CTX)):
+            args = ring_case(torch.bfloat16, 4096, gen, dev, heads=heads,
+                             ctx=ctx)
+            live = args[4] >= 0
+            want = decode_attention_plain(*args).float()[live]
+            times = []
+            for n in RANGE_LENS:
+                planner.decode_splits = lambda b, h, t, n=n: (-(-t // n), n)
+                try:
+                    err = (decode_attention(*args).float()[live]
+                           - want).abs().max().item()
+                    check("decode_attention", err, torch.bfloat16,
+                          f"{label} contexts, ranges of {n}")
+                    times.append(cuda_ms(lambda: decode_attention(*args),
+                                         100))
+                finally:
+                    planner.decode_splits = plan
+            log("kernels", f"decode_attention bf16 Hkv={heads[0]} "
+                f"G={heads[1]} dh={heads[2]}, 4096-slot ring, {label} "
+                f"contexts, ranges of {'/'.join(map(str, RANGE_LENS))} "
+                f"slots: {' / '.join(f'{t:.4f}' for t in times)} ms "
+                f"(the planner takes {plan(len(ctx), heads[0], 4096)[1]})")
+
+
 def phase_ring_decode(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     live = torch.tensor([c > 0 for c in CTX], device=dev)
@@ -507,11 +597,16 @@ def phase_ring_decode(dev) -> dict:
                 torch.cuda.synchronize()
                 want = decode_attention_plain(*args, window=window)
                 err = (out.float() - want.float())[live].abs().max().item()
+                splits, per = decode_splits(len(CTX), heads[0], slots)
                 check("decode_attention", err, dtype,
                       f"{dtype} Hkv={heads[0]} G={heads[1]} dh={heads[2]} "
-                      f"{slots} slots window {window}, live rows")
+                      f"{slots} slots window {window} ({splits} splits of "
+                      f"{per}), live rows")
                 if not torch.isfinite(out).all():
                     raise AssertionError("non-finite kernel output")
+                if out[~live].any():
+                    raise AssertionError("decode_attention: the row with no "
+                                         "valid slot is not zero")
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
 
@@ -522,6 +617,7 @@ def phase_ring_decode(dev) -> dict:
     time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
                                heads=ARCTIC_RING_HEADS), live,
                      "B=8 Hkv=8 G=7 dh=128")
+    time_ranges(gen, dev)
     # the JSON row: agent-7b's full-attention ring
     ms, plain_ms, library_ms, bound_ms, bound_by = time_ring_decode(
         ring_case(torch.bfloat16, 4096, gen, dev), live,
@@ -1040,10 +1136,11 @@ SERVE_SCHED = dict(max_slots=8, num_pages=512, page_size=128,
 
 
 def phase_serve(dev, cfg, params, layout: str, phase: str,
-                max_new: int = 64) -> dict:
+                max_new: int = 64, prefill_profile: bool = False) -> dict:
     """The full model serves the 8 requests on ``layout``; every kernel
     of the path launches exactly as often as expected.  Returns the
-    counts of that run."""
+    counts of that run.  A profile of four decode steps follows, and with
+    ``prefill_profile`` one of the longest prompt's prefill."""
     eng = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
                       name=f"serve-{layout}", cache_layout=layout,
                       device=dev)
@@ -1066,6 +1163,8 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
         f"{eng.decode_steps} decode steps); max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_decode(eng, 1e3 * dec / eng.decode_steps, phase)
+    if prefill_profile:
+        profile_prefill(eng, max(lens), phase)
     return launches
 
 
@@ -1087,12 +1186,7 @@ def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
             eng.step()
         torch.cuda.synchronize()
     eng.run_until_idle()
-    # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3 / steps
     log("profile", f"{phase}: decode step: device busy {device_ms:.2f} ms of "
         f"{step_ms:.2f} ms unprofiled ({100 * device_ms / step_ms:.1f}% "
@@ -1102,6 +1196,54 @@ def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log("profile", f"  {phase}: {us / 1e3 / steps:8.3f} ms/step  "
             f"{count / steps:6.0f} calls/step  {key[:90]}")
+
+
+def device_rows(prof) -> list:
+    """(device us, calls, name) of each kernel and copy in a profile.
+    Device-side events only: a CPU op's self device time repeats the time
+    of the kernels it launched."""
+    return [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
+    """Where a ring prefill's time goes: one ``prompt_len``-token prompt
+    prefilled alone, once unprofiled for its wall time, then once under
+    the profiler for device time by kernel and flash_attention's share."""
+    def prefill(prof=None) -> float:
+        r = make_requests([prompt_len], 2, eng.cfg.vocab, seed=6)[0]
+        eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while r.state != RequestState.RUNNING:
+            eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        eng.run_until_idle()
+        return 1e3 * dt
+
+    wall_ms = prefill()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts, acc_events=True)
+    prof.start()
+    prefill(prof)
+    rows = device_rows(prof)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    flash_ms = sum(r[0] for r in rows if "flash_attention" in r[2]) / 1e3
+    log("profile", f"{phase}: prefill of one {prompt_len}-token prompt: "
+        f"device busy {device_ms:.2f} ms of {wall_ms:.2f} ms unprofiled "
+        f"({100 * device_ms / wall_ms:.1f}% busy); flash_attention "
+        f"{flash_ms:.3f} ms ({100 * flash_ms / device_ms:.1f}% of the "
+        f"device time, {100 * flash_ms / wall_ms:.1f}% of the wall time); "
+        f"{sum(r[1] for r in rows)} kernels and copies")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        log("profile", f"  {phase} prefill: {us / 1e3:8.3f} ms  {count:6d} "
+            f"calls  {key[:90]}")
 
 
 def init_full(cfg, dev, phase: str):
@@ -1123,6 +1265,36 @@ def free(params) -> None:
     torch.cuda.empty_cache()
 
 
+# the kernels redesigned last, whose instantiations phase 2 lists
+NEW_KERNELS = ("flash_attention_mma_kernel", "decode_split_kernel",
+               "split_merge_kernel")
+
+
+def ptxas_entries(text: str) -> list:
+    """(kernel, registers, spill-store bytes) of each entry function in
+    ``nvcc -Xptxas -v`` output, names demangled where c++filt exists."""
+    entries, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries.append([name, int(m.group(1)), spill])
+            name = None
+    if entries and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(out) == len(entries):
+            for e, n in zip(entries, out):
+                e[0] = n.replace("(anonymous namespace)::", "")
+    return [tuple(e) for e in entries]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU")
@@ -1138,15 +1310,18 @@ def main() -> int:
     logs = build.build_all()
     log("build", f"{sorted(logs)} built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        regs = [int(w) for line in text.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:])
-                if nxt.startswith("registers")]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                             text)]
+        entries = ptxas_entries(text)
+        regs = [e[1] for e in entries]
+        spills = [e[2] for e in entries]
         log("build", f"{name}: {len(regs)} instantiations, "
             f"{min(regs, default=0)}-{max(regs, default=0)} registers; "
             f"{sum(n > 0 for n in spills)} spill, at most "
             f"{max(spills, default=0)} bytes")
+        # each instantiation of the redesigned kernels on a line of its own
+        for fn, n_regs, spill in entries:
+            if any(k in fn for k in NEW_KERNELS):
+                log("build", f"  {fn}: {n_regs} registers, {spill} bytes "
+                    f"spill stores")
 
     rows = [phase_kernels(dev), phase_flash(dev), phase_ring_decode(dev),
             phase_ssm_scan(dev), phase_grouped_matmul(dev)]
@@ -1163,7 +1338,8 @@ def main() -> int:
     paged = phase_serve(dev, cfg, params, "paged", "serve")
     gc.collect()                             # the paged engine is gone
     torch.cuda.empty_cache()
-    phase_serve(dev, cfg, params, "ring", "serve ring")
+    phase_serve(dev, cfg, params, "ring", "serve ring",
+                prefill_profile=True)
     free(params)
 
     # hymba-1.5b width at 3 layers (global, SWA, global); PARITY_SWA's
@@ -1180,7 +1356,8 @@ def main() -> int:
 
     cfg = get_config("hymba-1.5b").replace(use_pallas=True)
     params = init_full(cfg, dev, "serve hymba")
-    hymba = phase_serve(dev, cfg, params, "ring", "serve hymba")
+    hymba = phase_serve(dev, cfg, params, "ring", "serve hymba",
+                        prefill_profile=True)
     free(params)
 
     # arctic-480b width at 1 layer in f32 (56.3 GB of weights): greedy

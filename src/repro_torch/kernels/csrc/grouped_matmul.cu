@@ -233,26 +233,6 @@ constexpr int WP = BF + 8;         // w tile pitch, bf16
 constexpr int XP = KT + 8;         // x tile pitch, bf16
 constexpr int RP = BF + 4;         // output staging pitch, f32
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <int BC>
 __global__ void __launch_bounds__(NT)
 grouped_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,

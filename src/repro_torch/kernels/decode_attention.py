@@ -18,8 +18,11 @@ such a live row, since each step writes its token before attending.
 
 Bound on the card: the bytes of K and V of the valid slots, about
 ``2 * valid * Hkv * dh * sizeof`` per sequence, against 3.35 TB/s of
-HBM.  The kernel reads ``kpos`` first and loads only the valid slots'
-rows, so its work follows the context, not the ring size.  See the CUDA
+HBM.  The kernel splits the ring into ranges of slots, one CTA per
+(range, KV head, sequence), as ``decode_splits`` plans from the shapes
+alone; each CTA reads its range's ``kpos`` first and loads only the
+valid slots' rows, and a second kernel merges the ranges' partial
+softmax states from an f32 scratch this wrapper allocates.  See the CUDA
 source for the design.
 """
 from __future__ import annotations
@@ -35,6 +38,33 @@ HEAD_DIMS = (32, 64, 128)
 # G = 5: hymba-1.5b, 25 query heads over 5 KV heads; G = 7: arctic-480b,
 # 56 over 8
 GROUPS = (1, 2, 4, 5, 7, 8)
+# split planning: ring slots per CTA, largest first, and the CTAs a call
+# should reach: four per SM of an H100 (132 SMs).  Only the ranges that
+# hold live slots do work, and a ring sized for the longest context is
+# mostly empty at a decode step; at the serve shapes (8 rows, 4096 slots)
+# four a SM gives ranges of 256.  chip_smoke.py's time_ranges holds 256
+# against 512 and 128 on full rings and at 515-token contexts (PERF.md).
+SPLIT_LENS = (1024, 512, 256, 128, 64)
+TARGET_CTAS = 4 * 132
+
+
+def decode_splits(b: int, hkv: int, t: int) -> tuple[int, int]:
+    """The kernel's split of a ring of ``t`` slots for ``b`` sequences of
+    ``hkv`` KV heads: ``(splits, slots_per_split)``, with ``splits =
+    ceil(t / slots_per_split)``.  The largest range in ``SPLIT_LENS``
+    that still gives ``b * hkv * splits >= TARGET_CTAS`` CTAs, else the
+    smallest.  Shapes only, as plain ints: it never reads a tensor, so a
+    decode step stays free of host syncs."""
+    for name, x in (("b", b), ("hkv", hkv), ("t", t)):
+        if type(x) is not int:
+            raise TypeError(f"decode_splits takes ints; {name} is "
+                            f"{type(x).__name__}")
+        if x <= 0:
+            raise ValueError(f"{name} must be positive, got {x}")
+    for n in SPLIT_LENS:
+        if b * hkv * -(-t // n) >= TARGET_CTAS:
+            break
+    return -(-t // n), n
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,12 +136,18 @@ def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_int])
+    splits, split_len = decode_splits(b, hkv, t)
     out = torch.empty_like(q)
+    # per (query row, split): the partial accumulator, then (m, l)
+    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              kpos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, t, hkv, g,
-             dh, int(window), 1.0 / math.sqrt(dh), stream)
+             dh, int(window), 1.0 / math.sqrt(dh), stream,
+             None if scratch is None else scratch.data_ptr(), split_len)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: error {err}")
     decode_attention.launches += 1
@@ -125,8 +161,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32, -1 = empty; q_pos (B,) int32.  Returns (B, 1, H, dh).
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    the plain version.  ``decode_attention.launches`` counts kernel
-    launches."""
+    the plain version.  ``decode_attention.launches`` counts the calls
+    that launch the kernel (one per call, whether or not the splits need
+    the merge kernel after it)."""
     _check(q, k, v, kpos, q_pos)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kpos, q_pos, window=window)

@@ -22,8 +22,10 @@ valid key (causal with a window and ``S > T`` only) comes out as zeros
 from the kernel and as the uniform average from the plain version.
 
 Bound on the card: operations, ``4 * dh`` per (query row, head, valid
-key), against the tensor cores' bf16 rate.  See the CUDA source for the
-design.
+key), against the tensor cores' bf16 rate.  bf16 runs on the tensor
+cores (``mma.sync``, f32 accumulators, P rounded to bf16 before P V);
+f32 runs IEEE FMAs on the CUDA cores, since the f32 band of 2e-5 is
+beyond TF32.  See the CUDA source for the design.
 """
 from __future__ import annotations
 

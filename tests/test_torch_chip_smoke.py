@@ -392,3 +392,135 @@ def test_expected_grouped_matmul_calls_follow_prefill_forwards(
     eng.device = torch.device("cuda")           # as the card would count
     want = smoke.expected_launches(eng, forwards)["grouped_matmul"]
     assert want == len(calls) == 3 * 2 * (forwards + eng.decode_steps)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126flash_attention_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126flash_attention_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118split_merge_kernelIfEEvPKfPK6float2PT_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118split_merge_kernelIfEEvPKfPK6float2PT_ii
+    8 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_entries_reads_registers_and_spills(smoke):
+    entries = smoke.ptxas_entries(PTXAS_LOG)
+    assert [e[1:] for e in entries] == [(128, 0), (30, 12)]
+    assert "flash_attention_mma_kernel" in entries[0][0]
+    assert "split_merge_kernel" in entries[1][0]
+    assert all(any(k in e[0] for k in smoke.NEW_KERNELS) for e in entries)
+    assert smoke.ptxas_entries("nvcc: nothing compiled") == []
+
+
+@pytest.mark.parametrize("s,t,causal,window", [(400, 200, True, 64),
+                                               (1100, 700, True, 256),
+                                               (77, 77, True, 5),
+                                               (200, 90, False, -1)])
+def test_flash_live_rows_against_brute_force(smoke, s, t, causal, window):
+    i, j = np.arange(s)[:, None], np.arange(t)[None, :]
+    valid = np.ones((s, t), bool)
+    if causal:
+        valid = j <= i
+        if window > 0:
+            valid &= j > i - window
+    live = smoke.flash_live_rows(s, t, causal, window)
+    assert (live == valid.any(1)).all()
+    if (s, t, window) == (1100, 700, 256):        # chip_smoke's edge case
+        assert live.sum() == 955
+
+
+def test_flash_edge_cases_run_on_cpu(smoke, monkeypatch):
+    """check_flash over chip_smoke's edge cases at small heads on the CPU,
+    where the wrapper takes the plain version: rows with no valid key are
+    zeroed by a stand-in for the kernel, the others compared."""
+    from repro_torch.kernels import flash_attention_plain
+
+    def kernel(q, k, v, *, causal=True, window=-1):
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+        live = smoke.flash_live_rows(q.shape[1], k.shape[1], causal, window)
+        out[:, ~torch.from_numpy(live)] = 0
+        return out
+
+    monkeypatch.setattr(smoke, "flash_attention", kernel)
+    gen = torch.Generator().manual_seed(0)
+    small = (4, 2, 32)
+    for _, b, s, t, causal, window in smoke.EDGE_FLASH_CASES:
+        err = smoke.check_flash(torch.float32, small, b, s, t, causal,
+                                window, gen, torch.device("cpu"))
+        assert err == 0.0
+    monkeypatch.setattr(smoke, "flash_attention", flash_attention_plain)
+    with pytest.raises(AssertionError, match="no valid key is not zero"):
+        smoke.check_flash(torch.float32, small, 1, 300, 120, True, 64, gen,
+                          torch.device("cpu"))
+
+
+def test_ring_edge_cases_plan_as_documented(smoke):
+    """The phase's rings split as its comment says: 16 ranges of 256 at
+    4096 slots, a ragged last range at 3000, one range at 64, ranges of
+    64 for hymba's 1000-slot ring."""
+    from repro_torch.kernels.decode_attention import decode_splits
+
+    b = len(smoke.CTX)
+    assert decode_splits(b, smoke.RING_HEADS[0], 4096) == (16, 256)
+    assert decode_splits(b, smoke.HYMBA_RING_HEADS[0], 4096) == (16, 256)
+    splits, per = decode_splits(b, smoke.RING_HEADS[0], 3000)
+    assert 3000 % per and splits == 12
+    assert decode_splits(b, smoke.RING_HEADS[0], 64)[0] == 1
+    assert decode_splits(b, smoke.HYMBA_RING_HEADS[0], 1000) == (16, 64)
+    assert (64, -1) in smoke.RING_CASES and (3000, -1) in smoke.RING_CASES
+    assert (2048, 1024) in smoke.HYMBA_RING_CASES
+
+
+def test_prefill_profile_runs_on_cpu(smoke, monkeypatch, capsys):
+    """profile_prefill on a tiny ring engine: one prompt prefilled twice,
+    its device rows (faked here: the CPU has no device time) summed and
+    flash's share printed; the engine ends idle."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg = get_config("tiny-agent").replace(dtype="float32")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = TorchEngine(cfg, params, SchedulerConfig(
+        max_slots=2, num_pages=16, page_size=16, max_context=128),
+        cache_layout="ring", device="cpu")
+    monkeypatch.setattr(smoke, "device_rows", lambda prof: [
+        (750.0, 2, "void flash_attention_mma_kernel<128>(...)"),
+        (2250.0, 10, "gemm")])
+    smoke.profile_prefill(eng, 40, "serve ring")
+    out = capsys.readouterr().out
+    assert "prefill of one 40-token prompt: device busy 3.00 ms" in out
+    assert "flash_attention 0.750 ms (25.0% of the device time" in out
+    assert not eng.busy and eng.prefill_steps == 2
+
+
+def test_time_ranges_restores_the_planner(smoke, monkeypatch, capsys):
+    """time_ranges on the CPU at small heads: each range length is held
+    to the plain version and timed (faked here), one line per (heads,
+    contexts), and decode_splits is the planner again afterwards."""
+    import sys as _sys
+
+    from repro_torch.kernels import decode_attention
+
+    planner = _sys.modules[decode_attention.__module__]
+    plan = planner.decode_splits
+    for name, heads in (("RING_HEADS", (2, 4, 32)),
+                        ("HYMBA_RING_HEADS", (1, 5, 32)),
+                        ("ARCTIC_RING_HEADS", (1, 7, 32))):
+        monkeypatch.setattr(smoke, name, heads)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    smoke.time_ranges(torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert planner.decode_splits is plan
+    out = capsys.readouterr().out
+    assert out.count("ranges of 512/256/128 slots: 1.0000 / 1.0000 / "
+                     "1.0000 ms") == 6
+    assert out.count("4096-slot ring, serve contexts") == 3
+    assert out.count("max |kernel - plain| 0.000e+00") == 18
+    args = smoke.ring_case(torch.float32, 4096, torch.Generator(),
+                           torch.device("cpu"), heads=(1, 1, 32),
+                           ctx=smoke.SERVE_CTX)
+    assert args[4].tolist() == [c - 1 for c in smoke.SERVE_CTX]

@@ -116,7 +116,14 @@ def flash_case(dev, dtype, b, s, t, hkv, g, dh, seed=1):
     (1, 300, 300, 7, 128, True, -1),               # arctic-480b's
     (1, 130, 130, 7, 128, True, 48),
     (1, 200, 90, 1, 128, False, -1),
-    (2, 64, 64, 4, 64, False, -1)])
+    (2, 64, 64, 4, 64, False, -1),
+    # the tensor-core tiles' edges: dh 32 ragged, B = 2, S > T under a
+    # window (rows 263.. have no valid key), T under one 64-key tile
+    (1, 77, 77, 4, 32, True, -1),
+    (1, 900, 900, 4, 32, True, -1),
+    (2, 300, 300, 4, 128, True, -1),
+    (1, 400, 200, 5, 64, True, 64),
+    (1, 64, 40, 2, 64, False, -1)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
                                     causal, window):
     args = flash_case(cuda_device, dtype, b, s, t, 2, g, dh)
@@ -125,8 +132,15 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     want = flash_attention_plain(*args, causal=causal, window=window)
-    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    # a row with no valid key: zeros from the kernel, the uniform average
+    # from the plain version
+    i = torch.arange(s, device=cuda_device)
+    live = (torch.clamp(i - window + 1, min=0) <= torch.clamp(i, max=t - 1)
+            if causal and window > 0 else torch.ones_like(i, dtype=bool))
+    torch.testing.assert_close(out[:, live].float(), want[:, live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert not out[:, ~live].any()
+    assert torch.isfinite(out).all()
 
 
 def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
@@ -154,7 +168,15 @@ def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
                                                (5, 64, 384, 256),
                                                (7, 128, 1024, -1),
                                                (7, 128, 384, 256),
-                                               (1, 128, 96, 40)])
+                                               (1, 128, 96, 40),
+                                               # split-KV: 64 ranges of 64,
+                                               # a ragged last range, one
+                                               # range, hymba's wrapped
+                                               # window ring
+                                               (4, 128, 4096, -1),
+                                               (4, 128, 3000, -1),
+                                               (4, 128, 64, -1),
+                                               (5, 64, 2048, 1024)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
                                      window):
     q_pos = [999, 998, 129, 0, 5000]
@@ -167,6 +189,24 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("slots", [64, 1024])      # one split; sixteen
+def test_decode_kernel_row_without_valid_slot_is_zero(cuda_device, dtype,
+                                                      slots):
+    """Row 1 (q_pos -1) has no valid slot, so every split of it is empty:
+    the kernel writes zeros there and the other rows are untouched."""
+    args = ring_case(cuda_device, dtype, [700, -1, 3000], slots, 2, 4, 128)
+    out = decode_attention(*args)
+    torch.cuda.synchronize()
+    want = decode_attention_plain(*args)
+    live = torch.tensor([True, False, True], device=cuda_device)
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert not out[1].any()
 
 
 @pytest.mark.cuda
