@@ -11,10 +11,12 @@ code is non-zero and the final JSON line is not printed:
                  csrc`` (one nvcc each, in parallel) into ``build/``.
 3. kernels    -- each kernel (paged decode, flash, ring decode, SSM scan,
                  grouped matmul) against its plain PyTorch version on the
-                 card, in f32 and bf16, at agent-7b's, hymba-1.5b's and
-                 arctic-480b's heads and expert shapes, with its time at
-                 the main path's shapes, the plain version's, a PyTorch
-                 library call's where one exists, and its bound.
+                 card, in f32 and bf16, at agent-7b's, hymba-1.5b's,
+                 arctic-480b's and kimi-k2's heads and expert shapes, and
+                 the attention kernels also at head dim 120 and groups 6,
+                 12 and 16, which no ported config uses yet; with its
+                 time at the main path's shapes, the plain version's, a
+                 PyTorch library call's where one exists, and its bound.
 4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
                  tokens are equal across the paged layout with and
                  without its kernel and the ring layout with and without
@@ -49,6 +51,15 @@ code is non-zero and the final JSON line is not printed:
                  forward, the attention kernels as for agent-7b; then 16
                  tokens each with the kernels off, where every expert
                  product reads all 128 experts; each with a profile.
+12. parity kimi -- kimi-k2 width at 1 layer in f32 (its dense first
+                 layer; attention at head dim 112, G = 8): greedy tokens
+                 equal across both layouts with and without their kernels,
+                 full attention and a window whose ring wraps.
+13. serve kimi -- kimi-k2 at 2 of its 61 layers, bf16 (the dense layer and
+                 an MoE layer of 384 experts, top-8, a shared expert),
+                 serves 8 requests in the paged and then the ring layout
+                 with exact launch counts of all four kernels it runs;
+                 each with a profile.
 
 The last two lines are a JSON object of kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -84,7 +95,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
-    paged_decode_attention, paged_decode_attention_plain)
+    paged_decode_attention, paged_decode_attention_plain, paged_decode_splits)
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.serving import cache_utils  # noqa: E402
 from repro_torch.serving.engine import TorchEngine  # noqa: E402
@@ -167,19 +178,32 @@ def check(name: str, err: float, dtype, what: str, tol=None) -> None:
                              f"({what}): {err} > {tol}")
 
 
-def kernel_case(dtype, page: int, gen: torch.Generator, dev, g: int = 4):
-    """Pages and tables of the CTX rows at 8 KV heads of dh 128 and G
-    query heads each (agent-7b's 4, arctic-480b's 7)."""
-    b, hkv, dh, max_ctx = len(CTX), 8, 128, 4096
+# (Hkv, G, dh) of the served models' paged decode, then the shapes no
+# ported config uses yet (dh 120: h2o-danube-3; G 6: qwen2-vl; 12:
+# command-r-plus; 16: llama3-405b)
+PAGED_HEADS = (8, 4, 128)                               # agent-7b
+ARCTIC_PAGED_HEADS = (8, 7, 128)
+KIMI_HEADS = (8, 8, 112)                                # kimi-k2: 7168 / 64
+UNSERVED_HEADS = [(8, 6, 120), (8, 12, 120), (8, 16, 120)]
+
+
+def kernel_case(dtype, page: int, gen: torch.Generator, dev,
+                heads=PAGED_HEADS, ctx=None):
+    """Pages and tables of the rows of contexts ``ctx`` (default CTX; rows
+    0-3 share their first SHARED_TOKENS, rows 6 and 7 are one) at
+    ``heads`` (Hkv, G, dh): agent-7b's (8, 4, 128) by default."""
+    hkv, g, dh = heads
+    ctx = CTX if ctx is None else ctx
+    b, max_ctx = len(ctx), 4096
     p_max = max_ctx // page
     n_shared = SHARED_TOKENS // page
     rows, nxt = [], n_shared
-    for r, c in enumerate(CTX):
+    for r, c in enumerate(ctx):
         need = -(-c // page)
         if r == 7:
             rows.append(list(rows[6]))
             continue
-        head = list(range(n_shared)) if r < 4 else []
+        head = list(range(min(n_shared, need))) if r < 4 else []
         own = need - len(head)
         rows.append(head + list(range(nxt, nxt + own)))
         nxt += own
@@ -194,7 +218,7 @@ def kernel_case(dtype, page: int, gen: torch.Generator, dev, g: int = 4):
     vp = torch.randn((n_pool, page, hkv, dh), generator=gen, device=dev)
     return (q.to(dtype), kp.to(dtype), vp.to(dtype),
             torch.from_numpy(tables).to(dev),
-            torch.tensor(CTX, dtype=torch.int32, device=dev))
+            torch.tensor(ctx, dtype=torch.int32, device=dev))
 
 
 def needed_keys(window: int) -> list[int]:
@@ -239,32 +263,41 @@ def phase_kernels(dev) -> dict:
     worst = 0.0
     timed = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for g in (4, 7):
+        for heads in (PAGED_HEADS, ARCTIC_PAGED_HEADS, KIMI_HEADS,
+                      *UNSERVED_HEADS):
             for page in (128, 16):
                 for window in (-1, 512):
-                    args = kernel_case(dtype, page, gen, dev, g)
+                    args = kernel_case(dtype, page, gen, dev, heads)
                     out = paged_decode_attention(*args, window=window)
                     torch.cuda.synchronize()
                     want = paged_decode_attention_plain(*args, window=window)
                     err = (out.float() - want.float())[live].abs().max()
                     err = err.item()
+                    splits, per = paged_decode_splits(
+                        len(CTX), heads[0], args[3].shape[1], page)
                     check("paged_decode_attention", err, dtype,
-                          f"{dtype} G={g} page {page} window {window}, "
-                          f"live rows")
+                          f"{dtype} Hkv={heads[0]} G={heads[1]} "
+                          f"dh={heads[2]} page {page} window {window} "
+                          f"({splits} splits of {per} pages), live rows")
                     if not torch.equal(out[6], out[7]):
                         raise AssertionError("identical rows 6 and 7 differ")
+                    if out[~live].any():
+                        raise AssertionError("paged_decode_attention: the "
+                                             "ctx 0 row is not zero")
                     if not torch.isfinite(out).all():
                         raise AssertionError("non-finite kernel output")
                     if dtype == torch.bfloat16:
                         worst = max(worst, err)
                     if (dtype, page, window) == (torch.bfloat16, 128, -1):
-                        timed[g] = args
+                        timed[heads] = args
 
     # times at the serve phases' decode shapes: bf16, pages of 128;
-    # arctic-480b's heads for PERF.md, then the JSON row at agent-7b's
-    time_paged(timed[7], live, "G=7")
-    ms, plain_ms, library_ms, bound_ms, bound_by = time_paged(timed[4], live,
-                                                              "G=4")
+    # arctic-480b's and kimi-k2's heads for PERF.md, then the JSON row at
+    # agent-7b's
+    time_paged(timed[ARCTIC_PAGED_HEADS], live)
+    time_paged(timed[KIMI_HEADS], live)
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_paged(
+        timed[PAGED_HEADS], live)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/"
                       "paged_decode_attention.cu",
@@ -274,7 +307,7 @@ def phase_kernels(dev) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def time_paged(args, live, label: str):
+def time_paged(args, live):
     """Kernel, plain and SDPA times of full-attention paged decode over
     ``args``, and the bound; SDPA is held to the kernel's function."""
     window = -1
@@ -292,8 +325,10 @@ def time_paged(args, live, label: str):
         lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask),
         50)
     bound_ms, bound_by = bound(args, window)
-    log("kernels", f"paged_decode_attention bf16 B=8 Hkv=8 {label} dh=128 "
-        f"page=128 ctx={CTX}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    _, _, hkv, dh = args[1].shape
+    log("kernels", f"paged_decode_attention bf16 B=8 Hkv={hkv} "
+        f"G={args[0].shape[2] // hkv} dh={dh} page=128 ctx={CTX}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"SDPA over the gathered view {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); kernel at "
         f"{100 * bound_ms / ms:.1f}% of bound")
@@ -309,10 +344,15 @@ FLASH_CASES = [(1024, 1024, True, -1), (1024, 1024, True, 512),
 HYMBA_HEADS = (25, 5, 64)
 HYMBA_FLASH_CASES = [(1024, 1024, True, -1), (1000, 1000, True, 1024),
                      (1000, 1000, True, 300), (700, 900, False, -1)]
-# and at arctic-480b's: G = 7, dh 128
+# and at arctic-480b's: G = 7, dh 128; at kimi-k2's: G = 8, dh 112 (on
+# the 128-wide body with zero columns); at the shapes no ported config
+# uses yet: dh 120 with G 6, 12 and 16
 ARCTIC_HEADS = (56, 8, 128)
 ARCTIC_FLASH_CASES = [(1024, 1024, True, -1), (900, 900, True, 512),
                       (300, 700, False, -1)]
+KIMI_FLASH_HEADS = (64, 8, 112)
+UNSERVED_FLASH_HEADS = [(48, 8, 120), (96, 8, 120), (128, 8, 120)]
+UNSERVED_FLASH_CASES = [(1024, 1024, True, -1), (300, 700, False, -1)]
 # the edges of the tensor-core tiles (64 query rows, 64-key tiles): dh 32,
 # ragged S and T, B = 2, S > T under a window (rows 955.. have no valid
 # key and come out as zeros), non-causal T of 90 and under one tile
@@ -434,20 +474,26 @@ def phase_flash(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(heads, 1, *case) for heads, cases in (
             (FLASH_HEADS, FLASH_CASES), (HYMBA_HEADS, HYMBA_FLASH_CASES),
-            (ARCTIC_HEADS, ARCTIC_FLASH_CASES)) for case in cases]
+            (ARCTIC_HEADS, ARCTIC_FLASH_CASES),
+            (KIMI_FLASH_HEADS, ARCTIC_FLASH_CASES),
+            *((h, UNSERVED_FLASH_CASES) for h in UNSERVED_FLASH_HEADS))
+            for case in cases]
         for case in cases + EDGE_FLASH_CASES:
             err = check_flash(dtype, *case, gen, dev)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
 
-    # hymba's and arctic's ring prefill of their longest prompt, for
-    # PERF.md
+    # hymba's, arctic's and kimi's ring prefill of their longest prompt,
+    # for PERF.md
     time_flash(flash_case(torch.bfloat16, 1024, 1024, gen, dev,
                           heads=HYMBA_HEADS),
                "B=1 S=T=1024 H=25 Hkv=5 dh=64")
     time_flash(flash_case(torch.bfloat16, 1024, 1024, gen, dev,
                           heads=ARCTIC_HEADS),
                "B=1 S=T=1024 H=56 Hkv=8 dh=128")
+    time_flash(flash_case(torch.bfloat16, 1024, 1024, gen, dev,
+                          heads=KIMI_FLASH_HEADS),
+               "B=1 S=T=1024 H=64 Hkv=8 dh=112")
 
     # the JSON row: agent-7b's ring prefill of its longest prompt
     ms, plain_ms, library_ms, bound_ms, bound_by = time_flash(
@@ -473,6 +519,7 @@ RING_CASES = [(4096, -1), (1536, 512), (3000, -1), (64, -1)]  # slots, window
 HYMBA_RING_HEADS = (5, 5, 64)
 HYMBA_RING_CASES = [(4096, -1), (2048, 1024), (1000, 300)]
 ARCTIC_RING_HEADS = (8, 7, 128)
+UNSERVED_RING_CASES = [(4096, -1), (1536, 512)]
 
 
 def ring_case(dtype, slots: int, gen: torch.Generator, dev, heads=None,
@@ -590,7 +637,10 @@ def phase_ring_decode(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for heads, cases in ((RING_HEADS, RING_CASES),
                              (HYMBA_RING_HEADS, HYMBA_RING_CASES),
-                             (ARCTIC_RING_HEADS, RING_CASES)):
+                             (ARCTIC_RING_HEADS, RING_CASES),
+                             (KIMI_HEADS, RING_CASES),
+                             *((h, UNSERVED_RING_CASES)
+                               for h in UNSERVED_HEADS)):
             for slots, window in cases:
                 args = ring_case(dtype, slots, gen, dev, heads=heads)
                 out = decode_attention(*args, window=window)
@@ -610,13 +660,16 @@ def phase_ring_decode(dev) -> dict:
                 if dtype == torch.bfloat16:
                     worst = max(worst, err)
 
-    # hymba's global ring and arctic's, for PERF.md
+    # hymba's global ring, arctic's and kimi's, for PERF.md
     time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
                                heads=HYMBA_RING_HEADS), live,
                      "B=8 Hkv=5 G=5 dh=64")
     time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
                                heads=ARCTIC_RING_HEADS), live,
                      "B=8 Hkv=8 G=7 dh=128")
+    time_ring_decode(ring_case(torch.bfloat16, 4096, gen, dev,
+                               heads=KIMI_HEADS), live,
+                     "B=8 Hkv=8 G=8 dh=112")
     time_ranges(gen, dev)
     # the JSON row: agent-7b's full-attention ring
     ms, plain_ms, library_ms, bound_ms, bound_by = time_ring_decode(
@@ -1168,6 +1221,12 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
     return launches
 
 
+# the decode attention kernels' names in a profile: the split kernels of
+# either layout and the merge they share
+DECODE_KERNELS = ("paged_split_kernel", "decode_split_kernel",
+                  "split_merge_kernel")
+
+
 def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
                    steps: int = 4) -> None:
     """Where a decode step's time goes, after the counted run: device
@@ -1193,6 +1252,10 @@ def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
         f"busy, {100 * (1 - device_ms / step_ms):.1f}% idle); "
         f"{sum(r[1] for r in rows) / steps:.0f} kernels and copies per "
         f"step")
+    attn = [r for r in rows if any(k in r[2] for k in DECODE_KERNELS)]
+    log("profile", f"{phase}: decode attention kernels (split and merge): "
+        f"{sum(r[0] for r in attn) / 1e3 / steps:.3f} ms/step in "
+        f"{sum(r[1] for r in attn) / steps:.0f} calls/step")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log("profile", f"  {phase}: {us / 1e3 / steps:8.3f} ms/step  "
             f"{count / steps:6.0f} calls/step  {key[:90]}")
@@ -1265,8 +1328,10 @@ def free(params) -> None:
     torch.cuda.empty_cache()
 
 
-# the kernels redesigned last, whose instantiations phase 2 lists
-NEW_KERNELS = ("flash_attention_mma_kernel", "decode_split_kernel",
+# the kernels redesigned or widened last, whose instantiations phase 2
+# lists
+NEW_KERNELS = ("paged_split_kernel", "decode_split_kernel",
+               "flash_attention_mma_kernel", "flash_attention_kernel",
                "split_merge_kernel")
 
 
@@ -1380,6 +1445,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve(dev, cfg.replace(use_pallas=False), params, "paged",
                 "serve arctic off", max_new=16)
+    free(params)
+
+    # kimi-k2-1t-a32b width at 1 layer in f32 (its dense first layer,
+    # 10.8 GB): greedy tokens equal across layouts and kernel paths at
+    # head dim 112 and G = 8
+    small = get_config("kimi-k2-1t-a32b").replace(n_layers=1,
+                                                  dtype="float32")
+    params = init_full(small, dev, "parity kimi")
+    phase_parity(dev, small, params, label="kimi-k2 width, 1 layer")
+    free(params)
+
+    # kimi-k2 at 2 of its 61 layers, bf16: the dense layer and one MoE
+    # layer of 384 experts, paged then ring
+    cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=2, use_pallas=True)
+    params = init_full(cfg, dev, "serve kimi")
+    phase_serve(dev, cfg, params, "paged", "serve kimi")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve(dev, cfg, params, "ring", "serve kimi ring")
     free(params)
 
     main_path = {"paged_decode_attention": paged, "flash_attention": hymba,

@@ -13,8 +13,14 @@
 // key (causal with a window and S > T only) is written as zeros.
 //
 // Layouts are the model's, so nothing is transposed or padded:
-//   q, out (B, S, H, DH)    element (b, i, h, d) at ((b*S + i)*H + h)*DH + d
-//   k, v   (B, T, Hkv, DH)  element (b, j, h, d) at ((b*T + j)*Hkv + h)*DH + d
+//   q, out (B, S, H, dh)    element (b, i, h, d) at ((b*S + i)*H + h)*dh + d
+//   k, v   (B, T, Hkv, dh)  element (b, j, h, d) at ((b*T + j)*Hkv + h)*dh + d
+// G = H / Hkv is a run-time value.  dh is any multiple of 8 up to 128: the
+// body is instantiated at DH = 32, 64 and 128, and a dh below DH (112 and
+// 120 on the 128 one) loads zeros into the columns past dh of q and of
+// the K/V tiles (cp.async's src-size 0) and stores only dh columns, so
+// the DH-wide products compute the dh-wide attention; the scale is
+// 1/sqrt(dh) of the real dh.  Every row start stays 16-byte aligned.
 //
 // What bounds it: operations.  4 * DH per (query row, head, valid key) --
 // about 8.6 GFLOP for S = T = 1024, H = 32, DH = 128 causal, 8.7 us at the
@@ -80,8 +86,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int s_len,
-                       int t_len, int h_q, int g, int causal, int window,
-                       float scale) {
+                       int t_len, int h_q, int g, int dh, int causal,
+                       int window, float scale) {
   constexpr int NF = DH / (4 * TPR);  // float4 chunks of a row per thread
   __shared__ __align__(16) float ks[BK][DH];
   __shared__ __align__(16) float vs[BK][DH];
@@ -114,10 +120,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[NF][4], acc[NF][4];
   {
     const T* qp = q + ((static_cast<int64_t>(b) * s_len + (live ? qi : 0))
-                       * h_q + h) * DH;
+                       * h_q + h) * dh;
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
-      load_row<4>(qp + (f * TPR + c) * 4, qr[f]);
+      const int col = (f * TPR + c) * 4;
+      if (col < dh) {
+        load_row<4>(qp + col, qr[f]);
+      } else {                      // past dh: zeros, as in the K/V tiles
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qr[f][e] = 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         qr[f][e] *= scale;
@@ -127,9 +139,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = NEG_INF, l = 0.f;
 
-  const int64_t krow = static_cast<int64_t>(hkv) * DH;  // one key's stride
-  const T* kb = k + static_cast<int64_t>(b) * t_len * krow + kh * DH;
-  const T* vb = v + static_cast<int64_t>(b) * t_len * krow + kh * DH;
+  const int64_t krow = static_cast<int64_t>(hkv) * dh;  // one key's stride
+  const T* kb = k + static_cast<int64_t>(b) * t_len * krow + kh * dh;
+  const T* vb = v + static_cast<int64_t>(b) * t_len * krow + kh * dh;
 
   for (int t0 = k_begin; t0 < k_end; t0 += BK) {
     __syncthreads();  // the previous tile is consumed
@@ -138,7 +150,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = idx % DH;
       const int t = t0 + j;
       float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (t < t_len) {
+      if (t < t_len && d < dh) {
         load_row<4>(kb + t * krow + d, kx);
         load_row<4>(vb + t * krow + d, vx);
       }
@@ -196,12 +208,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / (l == 0.f ? 1.f : l);
-  T* op = out + ((static_cast<int64_t>(b) * s_len + qi) * h_q + h) * DH;
+  T* op = out + ((static_cast<int64_t>(b) * s_len + qi) * h_q + h) * dh;
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
+  for (int f = 0; f < NF; ++f) {
+    const int col = (f * TPR + c) * 4;
+    if (col >= dh) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      store_one(op + (f * TPR + c) * 4 + e, acc[f][e] * inv);
+    for (int e = 0; e < 4; ++e) store_one(op + col + e, acc[f][e] * inv);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -264,13 +278,14 @@ __device__ __forceinline__ unsigned load_pair(const __nv_bfloat16* p) {
 }
 
 // K and V rows k0 .. k0 + TC_BK - 1 of one KV head into a stage (the K
-// tile, then the V tile, rows DH + 8 apart); rows past T as zeros
+// tile, then the V tile, rows DH + 8 apart); rows past T and columns past
+// dh as zeros
 template <int DH>
 __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* sk,
                                              const __nv_bfloat16* kb,
                                              const __nv_bfloat16* vb,
                                              int64_t krow, int k0,
-                                             int t_len) {
+                                             int t_len, int dh) {
   constexpr int P = DH + 8;
   constexpr int CPR = DH / 8;            // 16-byte chunks of a row
   static_assert((TC_BK * CPR) % TC_NT == 0, "a tile splits over the CTA");
@@ -280,7 +295,7 @@ __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* sk,
     const int c = threadIdx.x + i * TC_NT;
     const int row = c / CPR;
     const int col = (c % CPR) * 8;
-    const bool ok = k0 + row < t_len;
+    const bool ok = k0 + row < t_len && col < dh;
     const int64_t off = ok ? (k0 + row) * krow + col : 0;
     cp_async16(sk + row * P + col, kb + off, ok);
     cp_async16(sv + row * P + col, vb + off, ok);
@@ -298,8 +313,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ out, int s_len,
-                           int t_len, int h_q, int g, int causal, int window,
-                           float scale_log2) {
+                           int t_len, int h_q, int g, int dh, int causal,
+                           int window, float scale_log2) {
   constexpr int P = DH + 8;             // tile pitch, bf16 (16 bytes of pad)
   constexpr int TILE = TC_BK * P;       // one K or V tile, bf16
   constexpr int ST = tc_stages(DH);
@@ -331,38 +346,41 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + TC_BK - 1) / TC_BK
                                       : 0;
 
-  const int64_t krow = static_cast<int64_t>(hkv) * DH;  // one key's stride
+  const int64_t krow = static_cast<int64_t>(hkv) * dh;  // one key's stride
   const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * t_len * krow
-                            + kh * DH;
+                            + kh * dh;
   const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * t_len * krow
-                            + kh * DH;
+                            + kh * dh;
 
 #pragma unroll
   for (int st = 0; st < ST - 1; ++st) {
     if (st < n_tiles)
       load_kv_tile<DH>(smem + st * 2 * TILE, kb, vb, krow,
-                       k_begin + st * TC_BK, t_len);
+                       k_begin + st * TC_BK, t_len, dh);
     cp_async_commit();
   }
 
-  // the warp's 16 query rows as A fragments, once; rows past S as zeros
+  // the warp's 16 query rows as A fragments, once; rows past S and
+  // columns past dh as zeros (with the zero K/V columns of the tiles, the
+  // DH-wide loops compute a dh-wide attention)
   unsigned qa[KS][4];
   {
     const int r0 = w0 + gq;
     const int r1 = r0 + 8;
     const __nv_bfloat16* p0 =
         q + ((static_cast<int64_t>(b) * s_len + min(r0, s_len - 1)) * h_q
-             + h) * DH;
+             + h) * dh;
     const __nv_bfloat16* p1 =
         q + ((static_cast<int64_t>(b) * s_len + min(r1, s_len - 1)) * h_q
-             + h) * DH;
+             + h) * dh;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int col = kk * 16 + 2 * tq;
-      qa[kk][0] = r0 < s_len ? load_pair(p0 + col) : 0u;
-      qa[kk][1] = r1 < s_len ? load_pair(p1 + col) : 0u;
-      qa[kk][2] = r0 < s_len ? load_pair(p0 + col + 8) : 0u;
-      qa[kk][3] = r1 < s_len ? load_pair(p1 + col + 8) : 0u;
+      const bool c0 = col < dh, c1 = col + 8 < dh;
+      qa[kk][0] = r0 < s_len && c0 ? load_pair(p0 + col) : 0u;
+      qa[kk][1] = r1 < s_len && c0 ? load_pair(p1 + col) : 0u;
+      qa[kk][2] = r0 < s_len && c1 ? load_pair(p0 + col + 8) : 0u;
+      qa[kk][3] = r1 < s_len && c1 ? load_pair(p1 + col + 8) : 0u;
     }
   }
 
@@ -381,7 +399,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();             // tile `it` landed; tile it - 1 consumed
     if (it + ST - 1 < n_tiles)
       load_kv_tile<DH>(smem + (it + ST - 1) % ST * 2 * TILE, kb, vb,
-                       krow, k_begin + (it + ST - 1) * TC_BK, t_len);
+                       krow, k_begin + (it + ST - 1) * TC_BK, t_len, dh);
     cp_async_commit();
 
     const int k0 = k_begin + it * TC_BK;
@@ -504,12 +522,14 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = w0 + gq + 8 * r;
     if (row >= s_len) continue;
     __nv_bfloat16* op =
-        out + ((static_cast<int64_t>(b) * s_len + row) * h_q + h) * DH
+        out + ((static_cast<int64_t>(b) * s_len + row) * h_q + h) * dh
         + 2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) = __floats2bfloat162_rn(
-          acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+      if (n * 8 < dh)                  // dh % 8 == 0: whole 8-column tiles
+        *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
+            __floats2bfloat162_rn(acc[n][2 * r] * inv[r],
+                                  acc[n][2 * r + 1] * inv[r]);
   }
 }
 
@@ -520,20 +540,20 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int batch, int s_len, int t_len, int h_q, int g,
-                       int causal, int window, float scale,
+                       int dh, int causal, int window, float scale,
                        cudaStream_t stream) {
   dim3 grid((s_len + BQ - 1) / BQ, h_q, batch);
   flash_attention_kernel<float, DH><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), s_len, t_len,
-      h_q, g, causal, window, scale);
+      h_q, g, dh, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* out, int batch, int s_len, int t_len, int h_q,
-                       int g, int causal, int window, float scale,
+                       int g, int dh, int causal, int window, float scale,
                        cudaStream_t stream) {
   constexpr int SMEM = tc_smem_bytes(DH);
   static bool smem_set = false;   // the attribute, once per instantiation
@@ -551,18 +571,20 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), s_len, t_len, h_q, g, causal, window,
-      scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(out), s_len, t_len, h_q, g, dh, causal,
+      window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores).  Returns the CUDA error of the
-// launch (0 on success), or -1 when the (dtype, dh, G) combination is not
-// supported.  The launch is asynchronous on `stream` and allocates
-// nothing.
+// cores), 1 = bfloat16 (tensor cores).  Any G = h_q / hkv (the kernels
+// take it at run time) and any dh that is a multiple of 8 up to 128, on
+// the 32, 64 or 128 wide instantiation with zero columns past dh.
+// Returns the CUDA error of the launch (0 on success), or -1 when the
+// (dtype, dh, G) combination is not supported.  The launch is
+// asynchronous on `stream` and allocates nothing.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int s_len, int t_len, int h_q, int hkv,
@@ -570,28 +592,22 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       float scale, void* stream) {
   if (hkv <= 0 || h_q % hkv != 0 || s_len <= 0 || t_len <= 0) return -1;
   const int g = h_q / hkv;
-  if (g != 1 && g != 2 && g != 4 && g != 5 && g != 7 && g != 8) return -1;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0 && dh == 32)
-    err = launch_f32<32>(q, k, v, out, batch, s_len, t_len, h_q, g, causal,
-                         window, scale, st);
-  else if (dtype == 0 && dh == 64)
-    err = launch_f32<64>(q, k, v, out, batch, s_len, t_len, h_q, g, causal,
-                         window, scale, st);
-  else if (dtype == 0 && dh == 128)
-    err = launch_f32<128>(q, k, v, out, batch, s_len, t_len, h_q, g, causal,
-                          window, scale, st);
-  else if (dtype == 1 && dh == 32)
-    err = launch_mma<32>(q, k, v, out, batch, s_len, t_len, h_q, g, causal,
-                         window, scale, st);
-  else if (dtype == 1 && dh == 64)
-    err = launch_mma<64>(q, k, v, out, batch, s_len, t_len, h_q, g, causal,
-                         window, scale, st);
-  else if (dtype == 1 && dh == 128)
-    err = launch_mma<128>(q, k, v, out, batch, s_len, t_len, h_q, g, causal,
-                          window, scale, st);
-  else
-    return -1;
+#define FLASH_DH(DH_)                                                        \
+  case DH_:                                                                  \
+    err = dtype == 0 ? launch_f32<DH_>(q, k, v, out, batch, s_len, t_len,    \
+                                       h_q, g, dh, causal, window, scale, st) \
+                     : launch_mma<DH_>(q, k, v, out, batch, s_len, t_len,    \
+                                       h_q, g, dh, causal, window, scale, st);\
+    break
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (head_width(dh)) {
+    FLASH_DH(32);
+    FLASH_DH(64);
+    FLASH_DH(128);
+    default: return -1;
+  }
+#undef FLASH_DH
   return static_cast<int>(err);
 }

@@ -1,4 +1,5 @@
-// Paged decode attention for NVIDIA Hopper (sm_90a).
+// Paged decode attention for NVIDIA Hopper (sm_90a), split-KV over page
+// ranges.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_decode_attention.py
 // (paged_decode_attention / _kernel), reached through the model-layout
@@ -10,26 +11,49 @@
 // order and h runs over the GQA group of KV head h / G.  Valid keys are
 // kpos < ctx[b] (and kpos >= ctx[b] - window with a window).  A -1 table
 // entry is read as page 0 and masked by position only, as the reference
-// does.  f32 arithmetic throughout, NEG_INF = -1e30, and l == 0 gives 0.
+// does.  f32 arithmetic throughout, NEG_INF = -1e30; a row with no valid
+// key (an inactive slot, ctx 0) is written as zeros.
 //
-// Layouts are the model's, so no transpose of the pool is ever made:
-//   q    (B, 1, Hkv*G, DH)           out (B, 1, Hkv*G, DH)
-//   pool (Npool, page, Hkv, DH)      element (p, s, h, d) at
-//                                    ((p*page + s)*Hkv + h)*DH + d
+// Layouts are the model's, so no transpose of the pool is ever made and
+// nothing is padded:
+//   q    (B, 1, Hkv*G, dh)           out (B, 1, Hkv*G, dh)
+//   pool (Npool, page, Hkv, dh)      element (p, s, h, d) at
+//                                    ((p*page + s)*Hkv + h)*dh + d
 //   bt   (B, P) int32, ctx (B,) int32
+// dh is any multiple of 8 up to 128 and G any of 1, 2, 4-8, 12 and 16.
 //
-// What bounds it: the bytes of K and V it must read, 2 * keys * Hkv * DH
-// * sizeof(T) per sequence, against 3.35 TB/s of HBM.  The arithmetic is
-// 4 * G * DH operations per key and head, far below the card's rates.
-// The design keeps those reads to one pass: one CTA per (sequence, KV
-// head) streams only the row's valid keys [lo, hi) once, and the whole
-// GQA group of G query heads shares each K/V row it loads.  Each warp owns
-// UNROLL consecutive keys at a time; a lane holds DH/32 contiguous
-// elements, so a warp reads one K row as one coalesced transaction and the
-// UNROLL rows' loads are in flight together.  Warp shuffles reduce q.k
-// over DH.  The running (m, l, acc) of the G heads stay in registers and
-// the NWARPS partial states merge once, in shared memory, at the end.
-// Split-KV across CTAs, TMA and wgmma are later work.
+// What bounds it: the bytes of K and V of the valid keys, 2 * keys * Hkv
+// * dh * sizeof(T) per sequence, against 3.35 TB/s of HBM.  The
+// arithmetic is 4 * G * dh operations per key and head, far below the
+// card's rates, so the kernel has to keep enough loads in flight on every
+// SM.  One CTA per (sequence, KV head), the first design, gave 64 CTAs
+// for 132 SMs at the serve shapes, each walking its whole context alone
+// (0.41 ms where the bytes need 0.023).  This design is the ring decode
+// kernel's (decode_attention.cu), over pages:
+//
+// * Split-KV over page ranges.  The grid is (splits, Hkv x group chunks,
+//   B): each CTA takes pages_per_split consecutive entries of its row's
+//   table, as the wrapper's planner chooses them from the shapes alone
+//   (paged_decode_splits in paged_decode_attention.py: no host sync, and
+//   static under a CUDA graph), enough for about four CTAs per SM at the
+//   serve shapes.  It reads ctx[b] first: a range wholly at or past
+//   ctx[b], or wholly before ctx[b] - window, writes (m, l) = (NEG_INF, 0)
+//   and exits.  A live range loads its page ids into shared memory once
+//   and walks only its valid keys, a contiguous run, which its warps cut
+//   into four contiguous parts.
+// * The shared split-KV core (common.cuh) does the rest: 16-byte loads
+//   of K and V rows, several rows in flight per lane, each row shared by
+//   the whole GQA group (or group chunk: from G = 6 on, CTAs of at most 4
+//   heads), shuffles over a row's lanes, an online softmax in exp2
+//   units, then the warps' merge in shared memory.  dh below the
+//   instantiated width (112 and 120 on the 128 one) leaves tail lanes
+//   idle.  The partial states go to an f32 scratch that the wrapper
+//   allocates and split_merge_kernel folds into out on the same stream;
+//   with one split the CTA writes out itself and no merge is launched.
+//
+// wgmma and TMA would not pay for 4 * G * dh operations a key.  Later
+// work: ranges planned from the live context (most ranges of a short
+// context are empty and exit at once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,200 +62,135 @@
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int UNROLL = 4;
+constexpr int NWARPS = 4;
+constexpr int NT = NWARPS * 32;
+constexpr int MAX_PAGES = 256;               // most pages a CTA takes
 
+struct PagedArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* bt;
+  const int32_t* ctx;
+  void* out;
+  float* part_acc;
+  float2* part_ml;
+  int batch, hkv, g, dh, page, p_max, n_pool, splits, pages_per_split,
+      window;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+// One CTA: query heads row0 .. row0 + G - 1 (a group chunk of KV head h)
+// of sequence b over table entries [p0, p0 + pages_per_split) of its row.
 template <typename T, int DH, int G>
-__global__ void __launch_bounds__(NWARPS * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool,
-                    const int32_t* __restrict__ bt,
-                    const int32_t* __restrict__ ctx, T* __restrict__ out,
-                    int hkv, int page, int p_max, int n_pool, int window,
-                    float scale) {
-  constexpr int N = DH / 32;  // elements of a row each lane holds
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+__global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
+  __shared__ int pids[MAX_PAGES];
+  __shared__ DecodeSmem<DH, G, NWARPS> sm;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* out = static_cast<T*>(a.out);
+
+  const int split = blockIdx.x;
+  const int chunks = (a.g + G - 1) / G;
+  const int h = blockIdx.y / chunks;
+  const int c0 = (blockIdx.y % chunks) * G;  // the chunk's first head
+  const int heads = min(G, a.g - c0);
+  const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int64_t row0 = (static_cast<int64_t>(b) * a.hkv + h) * a.g
+                       + c0;
 
-  // valid keys of this row: [lo, hi).  hi never passes the table's
+  // this range's valid keys: [s0, s1).  They never pass the table's
   // mapped width, so no row reads beyond its table.
-  const int c = ctx[b];
-  const int hi = min(c, p_max * page);
-  const int lo = window > 0 ? max(c - window, 0) : 0;
-
-  const int64_t row = static_cast<int64_t>(hkv) * DH;  // one slot's stride
-  const int32_t* bt_b = bt + static_cast<int64_t>(b) * p_max;
-
-  float qr[G][N];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const T* qp = q + ((static_cast<int64_t>(b) * hkv + h) * G + g) * DH
-                  + lane * N;
-    load_row<N>(qp, qr[g]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) qr[g][i] *= scale;
+  const int c = a.ctx[b];
+  const int hi = min(c, a.p_max * a.page);
+  const int lo = a.window > 0 ? max(c - a.window, 0) : 0;
+  const int p0 = split * a.pages_per_split;
+  const int s0 = max(p0 * a.page, lo);
+  const int s1 = min((p0 + a.pages_per_split) * a.page, hi);
+  if (s0 >= s1) {                          // uniform across the CTA
+    decode_empty(heads, a.dh, out, a.part_ml, row0, split, a.splits);
+    return;
   }
 
-  float m[G], l[G], acc[G][N];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[g][i] = 0.f;
-  }
-
-  for (int k0 = lo + warp * UNROLL; k0 < hi; k0 += NWARPS * UNROLL) {
-    float kr[UNROLL][N], vr[UNROLL][N];
-    bool ok[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = k0 + u;
-      ok[u] = t < hi;
-      const int tt = ok[u] ? t : k0;  // a valid key: its load is harmless
-      int phys = bt_b[tt / page];
-      // -1 reads page 0 (masked by position only, as the reference);
-      // an id past the pool is clamped rather than read out of bounds
-      phys = min(max(phys, 0), n_pool - 1);
-      const int64_t off =
-          (static_cast<int64_t>(phys) * page + tt % page) * row +
-          static_cast<int64_t>(h) * DH + lane * N;
-      load_row<N>(kpool + off, kr[u]);
-      load_row<N>(vpool + off, vr[u]);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s[UNROLL];
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < N; ++i) part += qr[g][i] * kr[u][i];
-        s[u] = ok[u] ? warp_sum(part) : NEG_INF;
-        mx = fmaxf(mx, s[u]);
-      }
-      const float alpha = expf(m[g] - mx);
-      l[g] *= alpha;
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[g][i] *= alpha;
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const float p = ok[u] ? expf(s[u] - mx) : 0.f;
-        l[g] += p;
-#pragma unroll
-        for (int i = 0; i < N; ++i) acc[g][i] += p * vr[u][i];
-      }
-      m[g] = mx;
-    }
-  }
-
-  // cross-warp merge of the NWARPS partial softmax states
-  __shared__ float sm_m[NWARPS][G];
-  __shared__ float sm_l[NWARPS][G];
-  __shared__ float sm_acc[NWARPS][G][DH];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) sm_acc[warp][g][lane * N + i] = acc[g][i];
-  }
+  // the page ids of the pages holding [s0, s1), once.  -1 reads page 0
+  // (masked by position only, as the reference); an id past the pool is
+  // clamped rather than read out of bounds.
+  const int pa = s0 / a.page;
+  const int32_t* bt_b = a.bt + static_cast<int64_t>(b) * a.p_max;
+  for (int i = threadIdx.x; i <= (s1 - 1) / a.page - pa; i += NT)
+    pids[i] = min(max(bt_b[pa + i], 0), a.n_pool - 1);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * DH; idx += NWARPS * 32) {
-    const int g = idx / DH;
-    const int d = idx % DH;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float f = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * f;
-      a += sm_acc[w][g][d] * f;
-    }
-    const float o = a / (lsum == 0.f ? 1.f : lsum);
-    store_one(out + ((static_cast<int64_t>(b) * hkv + h) * G + g) * DH + d,
-              o);
-  }
+
+  DecodeState<T, DH, G> st;
+  decode_begin(st, q, row0, heads, a.dh, a.scale_log2);
+  // the warps take four contiguous parts of the range
+  const int per = (s1 - s0 + NWARPS - 1) / NWARPS;
+  const int w0 = s0 + warp * per;
+  const int n = max(min(per, s1 - w0), 0);
+  const int64_t rs = static_cast<int64_t>(a.hkv) * a.dh;  // a slot's stride
+  const int64_t head = static_cast<int64_t>(h) * a.dh;
+  const int page = a.page;
+  const int* pid = pids;
+  decode_rows(st, k + head, v + head, n, a.dh, [=](int j) {
+    const int t = w0 + j;
+    return (static_cast<int64_t>(pid[t / page - pa]) * page + t % page) * rs;
+  });
+  decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, row0, split,
+             a.splits);
 }
 
 template <typename T, int DH, int G>
-void launch(const void* q, const void* k, const void* v, const int32_t* bt,
-            const int32_t* ctx, void* out, int batch, int hkv, int page,
-            int p_max, int n_pool, int window, float scale,
-            cudaStream_t stream) {
-  dim3 grid(hkv, batch);
-  paged_decode_kernel<T, DH, G><<<grid, NWARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bt, ctx, static_cast<T*>(out), hkv, page,
-      p_max, n_pool, window, scale);
-}
-
-template <typename T, int DH>
-bool dispatch_g(int g, const void* q, const void* k, const void* v,
-                const int32_t* bt, const int32_t* ctx, void* out, int batch,
-                int hkv, int page, int p_max, int n_pool, int window,
-                float scale, cudaStream_t s) {
-  switch (g) {
-    case 1: launch<T, DH, 1>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
-                             n_pool, window, scale, s); return true;
-    case 2: launch<T, DH, 2>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
-                             n_pool, window, scale, s); return true;
-    case 4: launch<T, DH, 4>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
-                             n_pool, window, scale, s); return true;
-    case 7: launch<T, DH, 7>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
-                             n_pool, window, scale, s); return true;
-    case 8: launch<T, DH, 8>(q, k, v, bt, ctx, out, batch, hkv, page, p_max,
-                             n_pool, window, scale, s); return true;
-    default: return false;
+struct PagedLaunch {
+  static int run(const PagedArgs& a) {
+    const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
+    paged_split_kernel<T, DH, G><<<grid, NT, 0, a.stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess && a.splits > 1)
+      err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),
+                               a.batch * a.hkv * a.g, a.splits, a.dh,
+                               a.stream);
+    return static_cast<int>(err);
   }
-}
-
-template <typename T>
-bool dispatch_dh(int dh, int g, const void* q, const void* k, const void* v,
-                 const int32_t* bt, const int32_t* ctx, void* out, int batch,
-                 int hkv, int page, int p_max, int n_pool, int window,
-                 float scale, cudaStream_t s) {
-  switch (dh) {
-    case 32: return dispatch_g<T, 32>(g, q, k, v, bt, ctx, out, batch, hkv,
-                                      page, p_max, n_pool, window, scale, s);
-    case 64: return dispatch_g<T, 64>(g, q, k, v, bt, ctx, out, batch, hkv,
-                                      page, p_max, n_pool, window, scale, s);
-    case 128: return dispatch_g<T, 128>(g, q, k, v, bt, ctx, out, batch, hkv,
-                                        page, p_max, n_pool, window, scale,
-                                        s);
-    default: return false;
-  }
-}
+};
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 =
-// bfloat16.  Returns cudaGetLastError() after the launch, or -1 when the
-// (dtype, dh, G) combination has no instantiation.  The launch is
-// asynchronous on `stream` and allocates nothing.
+// bfloat16.  The P table entries of a row are split into ceil(P /
+// pages_per_split) ranges (1 <= pages_per_split <= 256); with more than
+// one, `scratch` holds B * Hkv * G * splits * (dh + 2) floats: the partial
+// accumulators, then the (m, l) pairs.  Each CTA takes gc of a group's G
+// query heads (the last chunk what is left).  Returns the CUDA error of
+// the launches (0 on success), or -1 when the (dtype, dh, gc)
+// combination has no instantiation or the split is out of range.  The
+// launches are asynchronous on `stream` and allocate nothing.
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* ctx_lens, void* out, int batch,
     int hkv, int g, int dh, int page, int p_max, int n_pool, int window,
-    float scale, void* stream) {
-  const auto* bt = static_cast<const int32_t*>(block_tables);
-  const auto* ctx = static_cast<const int32_t*>(ctx_lens);
-  auto s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0)
-    ok = dispatch_dh<float>(dh, g, q, k_pool, v_pool, bt, ctx, out, batch,
-                            hkv, page, p_max, n_pool, window, scale, s);
-  else if (dtype == 1)
-    ok = dispatch_dh<__nv_bfloat16>(dh, g, q, k_pool, v_pool, bt, ctx, out,
-                                    batch, hkv, page, p_max, n_pool, window,
-                                    scale, s);
-  if (!ok) return -1;
-  return static_cast<int>(cudaGetLastError());
+    float scale, void* stream, void* scratch, int pages_per_split, int gc) {
+  if (batch <= 0 || batch > 65535 || hkv <= 0 || g <= 0 || gc <= 0 ||
+      gc > g || hkv * ((g + gc - 1) / gc) > 65535 || page <= 0 ||
+      p_max <= 0 || n_pool <= 0 || pages_per_split <= 0 ||
+      pages_per_split > MAX_PAGES)
+    return -1;
+  const int splits = (p_max + pages_per_split - 1) / pages_per_split;
+  if (splits > 1 && scratch == nullptr) return -1;
+  float* acc = static_cast<float*>(scratch);
+  PagedArgs a{q, k_pool, v_pool, static_cast<const int32_t*>(block_tables),
+              static_cast<const int32_t*>(ctx_lens), out, acc,
+              splits > 1 ? reinterpret_cast<float2*>(
+                               acc + static_cast<int64_t>(batch) * hkv * g *
+                                         splits * dh)
+                         : nullptr,
+              batch, hkv, g, dh, page, p_max, n_pool, splits,
+              pages_per_split, window, scale * 1.4426950408889634f,
+              static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_decode<PagedLaunch, float>(dh, gc, a);
+  if (dtype == 1)
+    return dispatch_decode<PagedLaunch, __nv_bfloat16>(dh, gc, a);
+  return -1;
 }

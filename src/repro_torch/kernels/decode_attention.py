@@ -32,12 +32,10 @@ import math
 
 import torch
 
+from repro_torch.kernels.attention_shapes import (
+    DTYPES, check_attention_shape, group_chunk)
+
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-# G = 5: hymba-1.5b, 25 query heads over 5 KV heads; G = 7: arctic-480b,
-# 56 over 8
-GROUPS = (1, 2, 4, 5, 7, 8)
 # split planning: ring slots per CTA, largest first, and the CTAs a call
 # should reach: four per SM of an H100 (132 SMs).  Only the ranges that
 # hold live slots do work, and a ring sized for the longest context is
@@ -120,10 +118,7 @@ def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
     b, _, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    if q.dtype not in DTYPES or dh not in HEAD_DIMS or g not in GROUPS:
-        raise ValueError(f"no kernel for dtype {q.dtype}, dh {dh}, G {g} "
-                         f"(dtypes {list(DTYPES)}, dh {HEAD_DIMS}, "
-                         f"G {GROUPS})")
+    check_attention_shape(q.dtype, dh, g)
     # K/V rows are read 16 bytes a lane; kpos and q_pos one int at a time
     for name, x, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
                            ("kpos", kpos, 4), ("q_pos", q_pos, 4)):
@@ -137,7 +132,7 @@ def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int])
+                          ctypes.c_int, ctypes.c_int])
     splits, split_len = decode_splits(b, hkv, t)
     out = torch.empty_like(q)
     # per (query row, split): the partial accumulator, then (m, l)
@@ -147,7 +142,8 @@ def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              kpos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, t, hkv, g,
              dh, int(window), 1.0 / math.sqrt(dh), stream,
-             None if scratch is None else scratch.data_ptr(), split_len)
+             None if scratch is None else scratch.data_ptr(), split_len,
+             group_chunk(g))
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: error {err}")
     decode_attention.launches += 1

@@ -34,12 +34,10 @@ import math
 
 import torch
 
+from repro_torch.kernels.attention_shapes import (DTYPES,
+                                                  check_attention_shape)
+
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-# G = 5: hymba-1.5b, 25 query heads over 5 KV heads; G = 7: arctic-480b,
-# 56 over 8
-GROUPS = (1, 2, 4, 5, 7, 8)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,10 +85,7 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    if q.dtype not in DTYPES or dh not in HEAD_DIMS or g not in GROUPS:
-        raise ValueError(f"no kernel for dtype {q.dtype}, dh {dh}, G {g} "
-                         f"(dtypes {list(DTYPES)}, dh {HEAD_DIMS}, "
-                         f"G {GROUPS})")
+    check_attention_shape(q.dtype, dh, g)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -17,7 +17,12 @@ Bound on the card: the bytes of K and V read, about ``2 * ctx * Hkv * dh
 * sizeof`` per sequence, against 3.35 TB/s of HBM.  The kernel reads the
 pool in the model's ``(N+1, page, Hkv, dh)`` layout in place: unlike the
 reference wrapper it transposes nothing (a whole-pool copy per layer per
-step) and pads no head dim.  See the CUDA source for the design.
+step) and pads no head dim.  It splits each row's table into ranges of
+whole pages, one CTA per (range, KV head or group chunk, sequence), as
+``paged_decode_splits`` plans from the shapes alone; each CTA reads its
+row's ``ctx`` first and walks only its valid keys, and a second kernel
+merges the ranges' partial softmax states from an f32 scratch this
+wrapper allocates.  See the CUDA source for the design.
 """
 from __future__ import annotations
 
@@ -26,11 +31,38 @@ import math
 
 import torch
 
+from repro_torch.kernels.attention_shapes import (
+    DTYPES, check_attention_shape, group_chunk)
+from repro_torch.kernels.decode_attention import SPLIT_LENS, TARGET_CTAS
+
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-# G = 7: arctic-480b, 56 query heads over 8 KV heads
-GROUPS = (1, 2, 4, 7, 8)
+# most pages a CTA takes (csrc/paged_decode_attention.cu)
+MAX_PAGES = 256
+
+
+def paged_decode_splits(b: int, hkv: int, p_max: int,
+                        page: int) -> tuple[int, int]:
+    """The kernel's split of block tables ``p_max`` pages wide, pages of
+    ``page`` slots, for ``b`` sequences of ``hkv`` KV heads: ``(splits,
+    pages_per_split)``, with ``splits = ceil(p_max / pages_per_split)``.
+    Ranges are whole pages: the most pages that fit the largest slot
+    count in ``SPLIT_LENS`` (at least one page, at most ``MAX_PAGES``)
+    that still gives ``b * hkv * splits >= TARGET_CTAS`` CTAs, else the
+    smallest.  Shapes only, as plain ints, as ``decode_splits``: it never
+    reads a tensor, so a decode step stays free of host syncs and its
+    launch is the same from step to step."""
+    for name, x in (("b", b), ("hkv", hkv), ("p_max", p_max),
+                    ("page", page)):
+        if type(x) is not int:
+            raise TypeError(f"paged_decode_splits takes ints; {name} is "
+                            f"{type(x).__name__}")
+        if x <= 0:
+            raise ValueError(f"{name} must be positive, got {x}")
+    for n in SPLIT_LENS:
+        per = min(max(n // page, 1), MAX_PAGES)
+        if b * hkv * -(-p_max // per) >= TARGET_CTAS:
+            break
+    return -(-p_max // per), per
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -94,10 +126,7 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
     b, _, h, dh = q.shape
     n_pool, page, hkv, _ = k_pages.shape
     g = h // hkv
-    if q.dtype not in DTYPES or dh not in HEAD_DIMS or g not in GROUPS:
-        raise ValueError(f"no kernel for dtype {q.dtype}, dh {dh}, G {g} "
-                         f"(dtypes {list(DTYPES)}, dh {HEAD_DIMS}, "
-                         f"G {GROUPS})")
+    check_attention_shape(q.dtype, dh, g)
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("ctx_lens", ctx_lens)):
         if not x.is_contiguous():
@@ -109,13 +138,21 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_int])
+    p_max = block_tables.shape[1]
+    splits, per = paged_decode_splits(b, hkv, p_max, page)
     out = torch.empty_like(q)
+    # per (query row, split): the partial accumulator, then (m, l)
+    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
-             out.data_ptr(), b, hkv, g, dh, page, block_tables.shape[1],
-             n_pool, int(window), 1.0 / math.sqrt(dh), stream)
+             out.data_ptr(), b, hkv, g, dh, page, p_max, n_pool, int(window),
+             1.0 / math.sqrt(dh), stream,
+             None if scratch is None else scratch.data_ptr(), per,
+             group_chunk(g))
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"error {err}")
@@ -132,8 +169,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     Returns (B, 1, H, dh).
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    the plain version.  ``paged_decode_attention.launches`` counts kernel
-    launches."""
+    the plain version.  ``paged_decode_attention.launches`` counts the
+    calls that launch the kernel (one per call, whether or not the splits
+    need the merge kernel after it)."""
     _check(q, k_pages, v_pages, block_tables, ctx_lens)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,

@@ -1,4 +1,4 @@
-"""The arithmetic the two attention kernels rest on, emulated on the CPU.
+"""The arithmetic the attention kernels rest on, emulated on the CPU.
 
 The CUDA kernels cannot run here, so this file holds emulations of their
 designs in PyTorch and checks them against the plain versions:
@@ -14,6 +14,13 @@ designs in PyTorch and checks them against the plain versions:
   units, masks only the tiles a warp does not wholly see as valid, skips
   the tiles none of its rows needs, and rounds P to bf16 before P V.
   Held to ``flash_attention_plain`` within the bf16 band 2e-2.
+* paged decode splits each row's block table into ranges of whole pages
+  (``paged_decode_splits``); each CTA takes one range, one KV head and a
+  group chunk (past 5 heads, chunks of at most 4), walks the range's
+  valid keys in four contiguous warp parts through its page ids, and the
+  partial states merge as ring decode's do.  Held to
+  ``paged_decode_attention_plain`` within 1e-5 (f32), with the scratch
+  filled with NaN where no CTA writes.
 """
 import math
 
@@ -22,10 +29,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.attention_shapes import (  # noqa: E402
+    GROUPS, group_chunk)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    GROUPS, SPLIT_LENS, TARGET_CTAS, decode_attention_plain, decode_splits)
+    SPLIT_LENS, TARGET_CTAS, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain)
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    MAX_PAGES, paged_decode_attention_plain, paged_decode_splits)
 
 NEG_INF = -1e30
 LOG2E = 1.0 / math.log(2.0)
@@ -313,3 +324,205 @@ def test_flash_tiles_bf16_edges(b, s, t, dh, causal, window):
     torch.testing.assert_close(got[:, live].float(), want[:, live].float(),
                                atol=2e-2, rtol=2e-2)
     assert not got[:, ~live].any()
+
+
+# ---------------------------------------------------------------------------
+# paged_decode_splits and split-KV paged decode: split, then merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hkv,p_max,page,want", [
+    (8, 8, 32, 128, (16, 2)),      # the serve shapes: ranges of 2 pages
+    (8, 8, 256, 16, (16, 16)),     # pages of 16: the same 256 slots
+    (8, 8, 33, 128, (9, 4)),       # a ragged last range of one page
+    (8, 8, 250, 16, (16, 16)),     # ... of 10 pages
+    (8, 5, 8, 128, (8, 1)),        # one page a range, too few rows
+    (2, 1, 3, 16, (1, 4)),         # one range, no merge
+    (64, 8, 32, 128, (4, 8)),      # many rows: ranges of 1024 slots
+    (1, 1, 4, 2048, (4, 1))])      # a page past the largest range
+def test_paged_decode_splits_at_serve_and_test_shapes(b, hkv, p_max, page,
+                                                      want):
+    assert paged_decode_splits(b, hkv, p_max, page) == want
+
+
+def test_paged_decode_splits_rule_over_a_grid():
+    """Whole pages: per = min(max(n // page, 1), MAX_PAGES) for the
+    largest n of SPLIT_LENS that reaches TARGET_CTAS, else the smallest;
+    splits = ceil(P / per)."""
+    for b in (1, 3, 8, 33):
+        for hkv in (1, 5, 8):
+            for p_max in (1, 7, 32, 33, 250, 1024):
+                for page in (1, 16, 128, 256):
+                    splits, per = paged_decode_splits(b, hkv, p_max, page)
+                    cands = [min(max(n // page, 1), MAX_PAGES)
+                             for n in SPLIT_LENS]
+                    reach = [c for c in cands
+                             if b * hkv * -(-p_max // c) >= TARGET_CTAS]
+                    assert per == (reach[0] if reach else cands[-1])
+                    assert 1 <= per <= MAX_PAGES
+                    assert splits == -(-p_max // per) >= 1
+
+
+@pytest.mark.parametrize("bad", [torch.tensor(8), np.int64(8), 8.0, True])
+def test_paged_decode_splits_takes_only_ints(bad):
+    """Shapes only: a tensor, a numpy scalar, a float or a bool is
+    refused, so a decode step never syncs on a length."""
+    for i in range(4):
+        args = [8, 8, 32, 128]
+        args[i] = bad
+        with pytest.raises(TypeError, match="takes ints"):
+            paged_decode_splits(*args)
+    with pytest.raises(ValueError, match="positive"):
+        paged_decode_splits(8, 8, 0, 128)
+
+
+@pytest.mark.parametrize("g,chunk", [(1, 1), (2, 2), (4, 4), (5, 5),
+                                     (6, 3), (7, 4), (8, 4), (12, 4),
+                                     (16, 4), (9, 3), (10, 4)])
+def test_group_chunk(g, chunk):
+    """The whole group up to 5 heads, else the fewest chunks of at most 4;
+    every chunk size of the repo's groups is an instantiated one."""
+    assert group_chunk(g) == chunk
+    if g in GROUPS:
+        assert chunk in (1, 2, 3, 4, 5)
+
+
+@pytest.mark.parametrize("bad", [torch.tensor(8), np.int64(8), 8.0])
+def test_group_chunk_takes_only_ints(bad):
+    with pytest.raises(TypeError, match="takes ints"):
+        group_chunk(bad)
+    with pytest.raises(ValueError, match="positive"):
+        group_chunk(0)
+
+
+def paged_split_emulation(q, kp, vp, bt, ctx, window, per):
+    """Paged decode as the split kernel and its merge compute it: each
+    (range of ``per`` pages, KV head, group chunk, row) is one CTA, which
+    walks only the range's valid keys [s0, s1) in four contiguous warp
+    parts through its page ids; a range with no valid key writes only (m,
+    l) = (NEG_INF, 0).  The scratch starts as NaN, so a read of anything
+    a CTA did not write would show.  Then split_merge_kernel."""
+    b, _, h, dh = q.shape
+    n_pool, page, hkv, _ = kp.shape
+    g = h // hkv
+    gc = group_chunk(g)
+    p_max = bt.shape[1]
+    splits = -(-p_max // per)
+    qs = q[:, 0] * (LOG2E / math.sqrt(dh))                  # (B, H, dh)
+    part_m = torch.full((b, h, splits), math.nan)
+    part_l = torch.full((b, h, splits), math.nan)
+    part_acc = torch.full((b, h, splits, dh), math.nan)
+    out = torch.full((b, h, dh), math.nan)
+    # (KV head, its query rows) of each CTA: a group chunk of KV head kh
+    ctas = [(kh, slice(kh * g + c0, kh * g + min(c0 + gc, g)))
+            for kh in range(hkv) for c0 in range(0, g, gc)]
+    for bi in range(b):
+        c = int(ctx[bi])
+        hi = min(c, p_max * page)
+        lo = max(c - window, 0) if window > 0 else 0
+        for sp in range(splits):
+            s0 = max(sp * per * page, lo)
+            s1 = min((sp + 1) * per * page, hi)
+            for kh, rows in ctas:                          # CTAs of the row
+                if s0 >= s1:
+                    if splits == 1:
+                        out[bi, rows] = 0.0
+                    else:
+                        part_m[bi, rows, sp] = NEG_INF
+                        part_l[bi, rows, sp] = 0.0
+                    continue
+                t = torch.arange(s0, s1)
+                pids = bt[bi, t // page].long().clamp(0, n_pool - 1)
+                k = kp[pids, t % page, kh]                  # (n, dh)
+                v = vp[pids, t % page, kh]
+                s = qs[bi, rows] @ k.T                      # (heads, n)
+                wper = -(-(s1 - s0) // 4)
+                warps = []
+                for w in range(4):
+                    part = slice(w * wper, min((w + 1) * wper, s1 - s0))
+                    sw = s[:, part]
+                    if sw.shape[1] == 0:                    # an idle warp
+                        n = s.shape[0]
+                        warps.append((torch.full((n,), NEG_INF),
+                                      torch.zeros(n), torch.zeros(n, dh)))
+                        continue
+                    m = sw.amax(1)
+                    p = torch.exp2(sw - m[:, None])
+                    warps.append((m, p.sum(1), p @ v[part]))
+                m, l, acc = merge(warps)
+                if splits == 1:
+                    out[bi, rows] = torch.where((l > 0)[:, None],
+                                                acc / l[:, None], 0.0)
+                else:
+                    part_m[bi, rows, sp] = m
+                    part_l[bi, rows, sp] = l
+                    part_acc[bi, rows, sp] = acc
+    if splits > 1:
+        _, lsum, acc = merge([(part_m[..., sp], part_l[..., sp],
+                               part_acc[..., sp, :])
+                              for sp in range(splits)])
+        out = torch.where((lsum > 0)[..., None], acc / lsum[..., None], 0.0)
+    return out.reshape(b, 1, h, dh)
+
+
+def paged_tables(ctx, page, p_max, rng, n_shared=1):
+    """Tables of ``p_max`` entries: ``n_shared`` leading pages shared by
+    every live row, then private pages in a shuffled order, -1 tails and
+    an all -1 row where ctx is 0.  Returns (tables, pool pages)."""
+    rows, nxt = [], n_shared
+    for c in ctx:
+        own = max(-(-c // page) - n_shared, 0)
+        rows.append(list(range(n_shared)) + list(range(nxt, nxt + own))
+                    if c > 0 else [])
+        nxt += own
+    perm = rng.permutation(nxt)
+    bt = np.full((len(ctx), p_max), -1, np.int32)
+    for r, ids in enumerate(rows):
+        bt[r, :len(ids)] = perm[ids]
+    return torch.from_numpy(bt), nxt + 1                 # + the sink page
+
+
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("page,p_max,window,per", [
+    (16, 12, -1, None),        # the planner's split (one range here)
+    (16, 12, -1, 2),           # ranges of 2 pages: 6 splits
+    (16, 13, 24, 3),           # a window, a ragged last range of 1 page
+    (8, 20, 40, 4),            # a window wider than some contexts
+    (32, 6, -1, 5)])           # two ranges, the second of 1 page
+def test_paged_split_then_merge_matches_plain(g, page, p_max, window, per):
+    """ctx not a multiple of the page, a ctx 0 row (zeros), ctx 1, -1
+    tails; G past 5 runs as chunks of at most 4 heads (6 as 3 + 3, 7 as
+    4 + 3)."""
+    rng = np.random.default_rng(g)
+    cap = p_max * page
+    ctx = [cap - 5, 0, 1, cap // 2 + 3, 2 * page, page + 1]
+    bt, n_pool = paged_tables(ctx, page, p_max, rng)
+    hkv, dh = 2, 16
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(shape)).float()
+                 for shape in ((len(ctx), 1, hkv * g, dh),
+                               (n_pool, page, hkv, dh),
+                               (n_pool, page, hkv, dh)))
+    ctx_t = torch.tensor(ctx, dtype=torch.int32)
+    if per is None:
+        per = paged_decode_splits(len(ctx), hkv, p_max, page)[1]
+    got = paged_split_emulation(q, kp, vp, bt, ctx_t, window, per)
+    want = paged_decode_attention_plain(q, kp, vp, bt, ctx_t, window=window)
+    live = ctx_t > 0
+    assert torch.isfinite(got).all()             # no unwritten scratch read
+    torch.testing.assert_close(got[live], want[live], atol=1e-5, rtol=1e-5)
+    assert not got[~live].any()                  # zeros, not the average
+
+
+def test_paged_split_emulation_reads_page_zero_for_minus_one():
+    """A -1 entry inside ctx reads page 0, masked by position only, as
+    the reference does; an id past the pool is clamped to the sink."""
+    rng = np.random.default_rng(3)
+    page, hkv, g, dh = 8, 1, 4, 16
+    bt = torch.tensor([[2, -1, 1], [0, 9, -1]], dtype=torch.int32)
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(shape)).float()
+                 for shape in ((2, 1, hkv * g, dh), (4, page, hkv, dh),
+                               (4, page, hkv, dh)))
+    ctx = torch.tensor([20, 12], dtype=torch.int32)
+    got = paged_split_emulation(q, kp, vp, bt, ctx, -1, 1)
+    clamped = bt.clamp(max=3)
+    want = paged_decode_attention_plain(q, kp, vp, clamped, ctx)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)

@@ -524,3 +524,132 @@ def test_time_ranges_restores_the_planner(smoke, monkeypatch, capsys):
                            torch.device("cpu"), heads=(1, 1, 32),
                            ctx=smoke.SERVE_CTX)
     assert args[4].tolist() == [c - 1 for c in smoke.SERVE_CTX]
+
+
+@pytest.mark.parametrize("heads", [(8, 8, 112), (8, 16, 120), (8, 6, 120)])
+def test_kernel_case_at_new_heads(smoke, heads):
+    """kernel_case at kimi-k2's heads and at the shapes no ported config
+    uses yet: the pool and q take the heads, and the bound counts the
+    bytes of the real head dim."""
+    from repro_torch.kernels import paged_decode_attention
+
+    hkv, g, dh = heads
+    gen = torch.Generator().manual_seed(0)
+    args = smoke.kernel_case(torch.float32, 128, gen, torch.device("cpu"),
+                             heads)
+    q, kp, _, bt, ctx = args
+    assert tuple(q.shape) == (8, 1, hkv * g, dh)
+    assert tuple(kp.shape[1:]) == (128, hkv, dh)
+    assert torch.equal(bt[6], bt[7]) and (bt[5] == -1).all()
+    out = paged_decode_attention(*args)
+    assert torch.equal(out[6], out[7])
+    ms, by = smoke.bound(args, -1)
+    keys = sum(smoke.CTX)
+    assert by == "bytes"
+    assert ms > 1e3 * 2 * keys * hkv * dh * 4 / smoke.HBM_BYTES_PER_S
+    assert heads == smoke.KIMI_HEADS or heads in smoke.UNSERVED_HEADS
+
+
+def test_paged_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
+    """phase_kernels at short contexts on the CPU, where the wrapper takes
+    its plain version: every head shape, page and window is checked (the
+    ctx 0 row zero, rows 6 and 7 identical), three times are logged and
+    the JSON row has every key."""
+    from repro_torch.kernels import paged_decode_attention_plain
+
+    def kernel(*args, window=-1):
+        out = paged_decode_attention_plain(*args, window=window)
+        out[args[4] == 0] = 0                     # as the kernel writes it
+        return out
+
+    monkeypatch.setattr(smoke, "paged_decode_attention", kernel)
+    monkeypatch.setattr(smoke, "CTX", [300, 257, 129, 100, 17, 0, 200, 200])
+    monkeypatch.setattr(smoke, "SHARED_TOKENS", 128)
+    monkeypatch.setattr(smoke, "UNSERVED_HEADS", [(2, 12, 24)])
+    for name in ("PAGED_HEADS", "ARCTIC_PAGED_HEADS", "KIMI_HEADS"):
+        hkv, g, dh = getattr(smoke, name)
+        monkeypatch.setattr(smoke, name, (2, g, dh // 4))
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    row = smoke.phase_kernels(torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert out.count("paged_decode_attention torch.") == 2 * 4 * 2 * 2
+    assert "Hkv=2 G=12 dh=24 page 16 window 512" in out
+    assert out.count("kernel 1.0000 ms") == 3
+    assert row["name"] == "paged_decode_attention" and row["ms"] == 1.0
+    assert row["max_abs_err"] == 0.0 and row["bound_by"] == "bytes"
+    assert set(row) == {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+
+
+def test_kimi_parity_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """chip_smoke's kimi parity phase at kimi-smoke sizes on the CPU:
+    both layouts, kernels on and off, full attention and a window."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "PARITY_LENS", [20, 45])
+    monkeypatch.setattr(smoke, "PARITY_SCHED", dict(
+        max_slots=2, num_pages=24, page_size=16, max_context=64))
+    monkeypatch.setattr(smoke, "PARITY_SWA", (24, 8))
+    cfg = get_smoke("kimi-k2-1t-a32b").replace(dtype="float32", n_layers=1)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    smoke.phase_parity(torch.device("cpu"), cfg, params, label="kimi smoke")
+    out = capsys.readouterr().out
+    assert out.count("kimi smoke, f32") == 2
+    assert out.count("greedy tokens equal across paged and ring") == 2
+
+
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_expected_launches_of_kimi_serve(smoke, layout):
+    """The kimi serve phase's counts at full width, 2 of 61 layers (the
+    dense first layer and one MoE layer): the layout's attention kernels
+    twice per decode step (ring: flash twice per prefill), grouped_matmul
+    three times per forward of its one MoE layer."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=2, use_pallas=True)
+    assert smoke.moe_layers(cfg) == 1
+    assert cfg.d_head == 112 and cfg.n_heads // cfg.n_kv_heads == 8
+    assert smoke.KIMI_HEADS == (cfg.n_kv_heads, 8, cfg.d_head)
+    assert smoke.KIMI_FLASH_HEADS == (cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.d_head)
+    eng = SimpleNamespace(cfg=cfg, device=torch.device("cuda"),
+                          cache_layout=layout, decode_steps=63)
+    want = smoke.expected_launches(eng, 10 if layout == "paged" else 8)
+    if layout == "paged":
+        assert want == {"paged_decode_attention": 126, "flash_attention": 0,
+                        "decode_attention": 0, "ssm_scan": 0,
+                        "grouped_matmul": 3 * (10 + 63)}
+    else:
+        assert want == {"paged_decode_attention": 0, "flash_attention": 16,
+                        "decode_attention": 126, "ssm_scan": 0,
+                        "grouped_matmul": 3 * (8 + 63)}
+
+
+def test_decode_profile_runs_on_cpu(smoke, monkeypatch, capsys):
+    """profile_decode on a tiny paged engine: four decode steps profiled,
+    the device rows (faked: the CPU has no device time) summed, and the
+    decode attention kernels (split and merge) reported apart."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg = get_config("tiny-agent").replace(dtype="float32")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = TorchEngine(cfg, params, SchedulerConfig(
+        max_slots=8, num_pages=300, page_size=16, max_context=640),
+        device="cpu")
+    monkeypatch.setattr(smoke, "device_rows", lambda prof: [
+        (400.0, 8, "void paged_split_kernel<__nv_bfloat16, 128, 4>(...)"),
+        (200.0, 8, "void split_merge_kernel<__nv_bfloat16>(...)"),
+        (3400.0, 40, "gemm")])
+    smoke.profile_decode(eng, 10.0, "serve")
+    out = capsys.readouterr().out
+    assert "decode step: device busy 1.00 ms of 10.00 ms" in out
+    assert "decode attention kernels (split and merge): 0.150 ms/step in " \
+           "4 calls/step" in out
+    assert not eng.busy

@@ -87,11 +87,50 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, g, dh, page,
     assert torch.isfinite(out).all()
 
 
+HEAD_DIMS = [32, 64, 112, 120, 128]
+ALL_GROUPS = [1, 2, 4, 5, 6, 7, 8, 12, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("g", ALL_GROUPS)
+def test_paged_decode_split_kernel_every_head_dim_and_group(cuda_device,
+                                                            dtype, dh, g):
+    """The split-KV kernel at every head dim and group of the repo's
+    configs, pages of 16 and 128, full attention and a window: live rows
+    within the band, zeros for the ctx 0 row, and bit-identical outputs
+    for the two identical rows 5 and 6."""
+    ctx = [1000, 999, 130, 1, 0, 777, 777]
+    live = torch.tensor([c > 0 for c in ctx], device=cuda_device)
+    for page in (16, 128):
+        args = case(cuda_device, dtype, len(ctx), 2, g, dh, page, ctx,
+                    seed=g * 1000 + dh)
+        args[0][6] = args[0][5]                     # the same query ...
+        args[3][6] = args[3][5]                     # ... over the same pages
+        for window in (-1, 200):
+            before = paged_decode_attention.launches
+            out = paged_decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            assert paged_decode_attention.launches == before + 1
+            want = paged_decode_attention_plain(*args, window=window)
+            torch.testing.assert_close(out[live].float(), want[live].float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            assert torch.isfinite(out).all()
+            assert not out[4].any()                 # no valid key: zeros
+            assert torch.equal(out[5], out[6])
+
+
 @pytest.mark.cuda
 def test_paged_decode_kernel_rejects_unsupported(cuda_device):
     args = case(cuda_device, torch.float32, 2, 2, 3, 64, 16, [40, 17])
     with pytest.raises(ValueError, match="no kernel"):   # G = 3
         paged_decode_attention(*args)
+    for dh in (100, 136):               # not a multiple of 8; past 128
+        args = case(cuda_device, torch.float32, 2, 2, 2, dh, 16, [40, 17])
+        with pytest.raises(ValueError, match="a multiple of 8 up to 128"):
+            paged_decode_attention(*args)
     args = case(cuda_device, torch.float32, 2, 2, 2, 64, 16, [40, 17])
     args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -123,7 +162,20 @@ def flash_case(dev, dtype, b, s, t, hkv, g, dh, seed=1):
     (1, 900, 900, 4, 32, True, -1),
     (2, 300, 300, 4, 128, True, -1),
     (1, 400, 200, 5, 64, True, 64),
-    (1, 64, 40, 2, 64, False, -1)])
+    (1, 64, 40, 2, 64, False, -1),
+    # head dims on the 128-wide body with zero columns (kimi-k2's 112,
+    # h2o-danube-3's 120) and groups 6, 12 and 16
+    (1, 300, 300, 8, 112, True, -1),
+    (2, 130, 130, 8, 112, True, 48),
+    (1, 200, 90, 8, 112, False, -1),
+    (1, 300, 300, 4, 120, True, -1),
+    (1, 77, 77, 6, 120, True, 5),
+    (1, 300, 300, 6, 64, True, -1),
+    (1, 300, 300, 12, 128, True, 100),
+    (1, 130, 130, 12, 120, True, -1),
+    (1, 300, 300, 16, 128, True, -1),
+    (1, 64, 40, 16, 120, False, -1),
+    (1, 100, 100, 2, 40, True, -1)])                # dh 40 on the 64 body
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
                                     causal, window):
     args = flash_case(cuda_device, dtype, b, s, t, 2, g, dh)
@@ -176,7 +228,21 @@ def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
                                                (4, 128, 4096, -1),
                                                (4, 128, 3000, -1),
                                                (4, 128, 64, -1),
-                                               (5, 64, 2048, 1024)])
+                                               (5, 64, 2048, 1024),
+                                               # dh 112 and 120 with idle
+                                               # tail lanes; G 6, and 12
+                                               # and 16 as two chunks
+                                               (8, 112, 1024, -1),
+                                               (8, 112, 384, 256),
+                                               (4, 120, 3000, -1),
+                                               (6, 120, 384, 256),
+                                               (6, 64, 1024, -1),
+                                               (12, 128, 4096, -1),
+                                               (12, 120, 384, 256),
+                                               (16, 128, 1024, -1),
+                                               (16, 112, 64, -1),
+                                               (16, 120, 3000, -1),
+                                               (2, 40, 300, -1)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
                                      window):
     q_pos = [999, 998, 129, 0, 5000]
@@ -218,6 +284,13 @@ def test_ring_kernels_reject_unsupported(cuda_device):
         flash_attention(*fargs)
     with pytest.raises(ValueError, match="no kernel"):
         decode_attention(*dargs)
+    for dh in (100, 136):               # not a multiple of 8; past 128
+        with pytest.raises(ValueError, match="a multiple of 8 up to 128"):
+            flash_attention(*flash_case(cuda_device, torch.float32, 1, 40,
+                                        40, 2, 2, dh))
+        with pytest.raises(ValueError, match="a multiple of 8 up to 128"):
+            decode_attention(*ring_case(cuda_device, torch.float32,
+                                        [30, 17], 64, 2, 2, dh))
     fargs = flash_case(cuda_device, torch.float32, 1, 40, 40, 2, 2, 64)
     fargs[1] = fargs[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):

@@ -17,8 +17,12 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from _jax_caps import HAVE_PALLAS_API, PALLAS_SKIP_REASON  # noqa: E402
+from repro.configs import get_config as jget  # noqa: E402
+from repro.configs.base import BlockSpec  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro_torch.configs import get_config as tget  # noqa: E402
+from repro_torch.configs.base import BlockSpec as TBlockSpec  # noqa: E402
 from repro_torch.kernels import paged_decode_attention  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_plain)
@@ -145,6 +149,25 @@ def test_plain_inactive_row_is_not_compared_but_finite():
     assert np.isfinite(out).all()
 
 
+@needs_pallas
+@pytest.mark.parametrize("hkv,g,dh", [(1, 8, 112), (1, 12, 120),
+                                      (1, 16, 120)],
+                         ids=["kimi-dh112-g8", "dh120-g12", "dh120-g16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [-1, 24])
+def test_plain_matches_reference_at_new_head_shapes(hkv, g, dh, dtype,
+                                                    window):
+    """The head dims and groups the kernels newly take: the reference
+    pads dh to 128 lanes and G to the 8-row sublane, the port pads
+    nothing; ragged contexts, an unmapped tail and an inactive row."""
+    b, page, per_seq = 3, 16, 3
+    q, kp, vp, bt = paged_case(b, hkv, g, dh, page, per_seq, shared=1)
+    bt[1, 2:] = -1
+    bt[2] = -1
+    ctx = np.asarray([per_seq * page - 5, page + 7, 0], np.int32)
+    check_against_reference(q, kp, vp, bt, ctx, window=window, dtype=dtype)
+
+
 def test_wrapper_cpu_takes_plain_version_and_counts_no_launch():
     q, kp, vp, bt = paged_case(2, 2, 2, 32, 16, 3)
     ctx = np.asarray([40, 17], np.int32)
@@ -221,3 +244,63 @@ def test_paged_cache_write_at_sink_routing_and_view():
                                   np.asarray(view_j.k)[live])
     np.testing.assert_array_equal(view_t.v.numpy()[live],
                                   np.asarray(view_j.v)[live])
+
+
+# ---------------------------------------------------------------------------
+# The paged attention block at kimi-k2's head shape
+# ---------------------------------------------------------------------------
+
+
+def kimi_heads(**kw):
+    """kimi-k2's attention head shape (dh 112 = 7168 / 64, G = 8) over a
+    narrow d_model: 16 query heads over 2 KV heads, f32, kernels on."""
+    kw = dict(d_model=64, n_heads=16, n_kv_heads=2, d_head=112,
+              dtype="float32", use_pallas=True, **kw)
+    return jget("kimi-k2-1t-a32b").replace(**kw), \
+        tget("kimi-k2-1t-a32b").replace(**kw)
+
+
+def attn_params(cfg, seed=0):
+    """numpy attention weights of ``cfg``, fan-in scaled."""
+    rng = np.random.default_rng(seed)
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    shapes = {"wq": (d, h, dh), "wk": (d, hkv, dh), "wv": (d, hkv, dh),
+              "wo": (h, dh, d)}
+    return {k: (rng.standard_normal(s) / np.sqrt(s[-2] if k != "wo"
+                                                  else h * dh)
+                ).astype(np.float32) for k, s in shapes.items()}
+
+
+@needs_pallas
+@pytest.mark.parametrize("window", [-1, 24])
+def test_self_attention_paged_decode_at_kimi_heads(window):
+    """``self_attention_paged`` at one decode token with ``use_pallas``:
+    the port (its wrapper's plain version here) against
+    ``repro.models.attention`` (the Pallas kernel in interpret mode),
+    outputs of the live rows and the written pool.  Row 2 is an inactive
+    slot (an all -1 table row), whose write goes to the sink page."""
+    jcfg, tcfg = kimi_heads(window=window)
+    params = attn_params(jcfg)
+    page, n = 16, 7
+    rng = np.random.default_rng(1)
+    kp = rng.standard_normal((n + 1, page, 2, 112)).astype(np.float32)
+    vp = rng.standard_normal((n + 1, page, 2, 112)).astype(np.float32)
+    tables = np.asarray([[4, 0, 2], [5, 1, -1], [-1, -1, -1]], np.int32)
+    pos = np.asarray([[40], [22], [0]], np.int32)
+    x = rng.standard_normal((3, 1, 64)).astype(np.float32)
+    jout, jcache = jattn.self_attention_paged(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        jattn.PagedKVCache(jnp.asarray(kp), jnp.asarray(vp)), jcfg,
+        BlockSpec(window=window), jnp.asarray(pos), jnp.asarray(tables))
+    tout, tcache = tattn.self_attention_paged(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x),
+        tattn.PagedKVCache(torch.from_numpy(kp.copy()),
+                           torch.from_numpy(vp.copy())), tcfg,
+        TBlockSpec(window=window), torch.from_numpy(pos),
+        torch.from_numpy(tables))
+    np.testing.assert_allclose(tout.numpy()[:2], np.asarray(jout)[:2],
+                               atol=1e-4, rtol=1e-4)
+    for t, j in zip(tcache, jcache):        # real pages; the sink aside
+        np.testing.assert_allclose(t.numpy()[:n], np.asarray(j)[:n],
+                                   atol=1e-5, rtol=1e-5)

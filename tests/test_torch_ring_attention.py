@@ -19,9 +19,11 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from _jax_caps import HAVE_PALLAS_API, PALLAS_SKIP_REASON  # noqa: E402
+from repro.configs import get_config as jget  # noqa: E402
 from repro.configs.base import BlockSpec  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs.base import BlockSpec as TBlockSpec  # noqa: E402
 from repro_torch.kernels import decode_attention, flash_attention  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -206,6 +208,48 @@ def test_decode_plain_wrapped_ring(dtype):
                                    interpret=True), out, dtype)
 
 
+@needs_pallas
+@pytest.mark.parametrize("h,hkv,dh", [(8, 1, 112), (12, 1, 120),
+                                      (16, 1, 120)],
+                         ids=["kimi-dh112-g8", "dh120-g12", "dh120-g16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_kernel_at_new_head_shapes(h, hkv, dh, dtype):
+    """The head dims and groups the kernels newly take; the reference
+    pads dh to 128 lanes and rescales q for the padded scale."""
+    (jq, tq), (jk, tk), (jv, tv) = (pair(a, dtype) for a in
+                                    flash_inputs(1, 96, 96, h, hkv, dh, 13))
+    for window in (-1, 40):
+        out = flash_attention(tq, tk, tv, causal=True, window=window)
+        close(ops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  interpret=True), out, dtype)
+        close(flash_oracle(jq, jk, jv, causal=True, window=window), out,
+              dtype)
+
+
+@needs_pallas
+@pytest.mark.parametrize("h,hkv,dh", [(8, 1, 112), (12, 1, 120),
+                                      (16, 1, 120)],
+                         ids=["kimi-dh112-g8", "dh120-g12", "dh120-g16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_kernel_at_new_head_shapes(h, hkv, dh, dtype):
+    """A wrapped 96-slot ring at the new shapes; the reference pads dh to
+    128 lanes and G to the 8-row sublane."""
+    b, t = 2, 96
+    q, k, v = decode_inputs(b, h, hkv, dh, t, seed=17)
+    qp = np.asarray([250, 40], np.int32)
+    kpos = np.full((b, t), -1, np.int32)
+    for r, p in enumerate(qp):
+        for pos in range(p + 1):
+            kpos[r, pos % t] = pos
+    for window in (-1, 48):
+        (jq, tq), (jk, tk), (jv, tv), (jkp, tkp), (jqp, tqp) = (
+            pair(a, dtype) for a in (q, k, v, kpos, qp))
+        out = decode_attention(tq, tk, tv, tkp, tqp, window=window)
+        close(ops.decode_attention(jq, jk, jv, jkp, jqp, window=window,
+                                   interpret=True), out, dtype)
+        close(decode_oracle(jq, jk, jv, jkp, jqp, window), out, dtype)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers on the CPU
 # ---------------------------------------------------------------------------
@@ -325,3 +369,59 @@ def test_attention_cached_on_ring_matches_reference(sq, window):
                                  chunk=32)
     close(jattn.attention_cached(jnp.asarray(q), jc, jnp.asarray(qpos),
                                  window=window, chunk=32), out)
+
+
+@needs_pallas
+@pytest.mark.parametrize("window", [-1, 16])
+def test_ring_attention_blocks_at_kimi_heads(window):
+    """kimi-k2's head shape (dh 112, G = 8) over a narrow d_model with
+    ``use_pallas``: the port's ring prefill (flash) and two decode steps
+    (ring decode), their wrappers' plain versions here, against
+    ``repro.models.attention``, outputs and rings.  With the window the
+    40-token prompt wraps its 32-slot ring."""
+    kw = dict(d_model=64, n_heads=16, n_kv_heads=2, d_head=112,
+              dtype="float32", use_pallas=True, window=window,
+              attn_chunk=16)
+    jcfg = jget("kimi-k2-1t-a32b").replace(**kw)
+    tcfg = tget("kimi-k2-1t-a32b").replace(**kw)
+    rng = np.random.default_rng(21)
+    shapes = {"wq": (64, 16, 112), "wk": (64, 2, 112), "wv": (64, 2, 112),
+              "wo": (16, 112, 64)}
+    params = {k: (rng.standard_normal(s) / np.sqrt(s[0] if k != "wo"
+                                                   else 16 * 112)
+                  ).astype(np.float32) for k, s in shapes.items()}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    size = jattn.kv_cache_size(BlockSpec(window=window), 64, 16)
+    assert size < 40 if window > 0 else size == 64
+    b, s = 2, 40
+    jc = jattn.KVCache(jnp.zeros((b, size, 2, 112)),
+                       jnp.zeros((b, size, 2, 112)),
+                       jnp.full((b, size), -1, jnp.int32))
+    tc = tattn.KVCache(torch.zeros(b, size, 2, 112),
+                       torch.zeros(b, size, 2, 112),
+                       torch.full((b, size), -1, dtype=torch.int32))
+    x = rng.standard_normal((b, s, 64)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    jo, jc = jattn.self_attention_prefill(jp, jnp.asarray(x), jc, jcfg,
+                                          BlockSpec(window=window),
+                                          jnp.asarray(pos))
+    to, tc = tattn.self_attention_prefill(tp, torch.from_numpy(x), tc, tcfg,
+                                          TBlockSpec(window=window),
+                                          torch.from_numpy(pos))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-4,
+                               rtol=1e-4)
+    for step in range(2):
+        x1 = rng.standard_normal((b, 1, 64)).astype(np.float32)
+        p1 = np.full((b, 1), s + step, np.int32)
+        jo, jc = jattn.self_attention_cached(jp, jnp.asarray(x1), jc, jcfg,
+                                             BlockSpec(window=window),
+                                             jnp.asarray(p1))
+        to, tc = tattn.self_attention_cached(tp, torch.from_numpy(x1), tc,
+                                             tcfg, TBlockSpec(window=window),
+                                             torch.from_numpy(p1))
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-4,
+                                   rtol=1e-4)
+    for t, j in zip(tc, jc):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=1e-5)
