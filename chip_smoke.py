@@ -12,11 +12,14 @@ code is non-zero and the final JSON line is not printed:
 3. kernels    -- each kernel (paged decode, flash, ring decode, SSM scan,
                  grouped matmul) against its plain PyTorch version on the
                  card, in f32 and bf16, at agent-7b's, hymba-1.5b's,
-                 arctic-480b's and kimi-k2's heads and expert shapes, and
-                 the attention kernels also at head dim 120 and groups 6,
-                 12 and 16, which no ported config uses yet; with its
-                 time at the main path's shapes, the plain version's, a
-                 PyTorch library call's where one exists, and its bound.
+                 arctic-480b's and kimi-k2's heads and expert shapes, the
+                 attention kernels also at head dim 120 and groups 6, 12
+                 and 16 and the SSM scan at mLSTM's width (dk 512, dv
+                 513), which no ported config uses yet; with its time at
+                 the main path's shapes, the plain version's, a PyTorch
+                 library call's where one exists, and its bound; and
+                 grouped matmul's unit shapes and split of d timed
+                 against each other.
 4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
                  tokens are equal across the paged layout with and
                  without its kernel and the ring layout with and without
@@ -87,6 +90,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.types import Request, RequestState  # noqa: E402
+from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain, decode_splits)
@@ -685,27 +689,35 @@ def phase_ring_decode(dev) -> dict:
 
 # the SSM scan: hymba's prefill (B = 1, 50 heads, dk 16, dv 64, one B/C
 # row broadcast over the heads, decay from softplus as at a_log = 0), a
-# ragged T, the JAX sweep (tests/test_kernels.py:237-241) and a
-# non-zero h0.  b, t, h, dk, dv, chunk, shared q/k, decay, h0 scale;
+# ragged T, the JAX sweep (tests/test_kernels.py:237-241), a non-zero h0,
+# and mLSTM's width (xlstm-350m: dk 512, dv 513 with the normaliser
+# column, q and k scaled by dk^-1/2 as mLSTM scales them) on the tiled
+# CUDA-core path.  b, t, h, dk, dv, chunk, shared q/k, decay, h0 scale;
 # decay None draws log_a = -softplus(N(0, 1))
 SCAN_CASES = [(1, 1024, 50, 16, 64, 128, True, None, 0.0),
               (1, 1000, 50, 16, 64, 128, True, None, 0.0),
               (1, 128, 2, 16, 16, 32, False, 0.1, 0.0),
               (2, 96, 4, 32, 16, 32, False, 0.1, 0.0),
               (1, 64, 1, 64, 64, 64, False, 0.1, 0.0),
-              (1, 64, 2, 16, 16, 16, False, 0.05, 0.5)]
+              (1, 64, 2, 16, 16, 16, False, 0.05, 0.5),
+              (1, 300, 2, 512, 513, 128, False, 0.1, 0.3),
+              (1, 200, 2, 128, 129, 64, False, 0.1, 0.3)]
+MLSTM_SCAN = (1, 1024, 4, 512, 513, 128, False, 0.1, 0.0)   # xlstm-350m
 
 
 def scan_case(dtype, b, t, h, dk, dv, shared, decay, h0_scale,
               gen: torch.Generator, dev):
     """q, k, v, log_a, h0 in model layout; ``shared`` makes q and k one
-    row broadcast over the heads (head stride 0), as hymba's are."""
+    row broadcast over the heads (head stride 0), as hymba's are.  q and
+    k are 0.3 N(0, 1) up to dk 64 and N(0, 1) / sqrt(dk) past it, so the
+    outputs stay O(1) at mLSTM's widths."""
     nq = 1 if shared else h
+    scale = 0.3 if dk <= 64 else dk ** -0.5
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-    q = (0.3 * randn(b, t, nq, dk)).to(dtype)
-    k = (0.3 * randn(b, t, nq, dk)).to(dtype)
+    q = (scale * randn(b, t, nq, dk)).to(dtype)
+    k = (scale * randn(b, t, nq, dk)).to(dtype)
     v = (0.3 * randn(b, t, h, dv)).to(dtype)
     if decay is None:
         log_a = -F.softplus(randn(b, t, h))
@@ -774,6 +786,17 @@ def phase_ssm_scan(dev) -> dict:
         f"{plain_ms:.4f} ms, no library call computes it, bound "
         f"{bound_ms:.4f} ms ({bound_by}); kernel at "
         f"{100 * bound_ms / ms:.1f}% of bound")
+    # and at mLSTM's width, on the tiled CUDA-core path
+    b, t, h, dk, dv, chunk, shared, decay, h0s = MLSTM_SCAN
+    margs = scan_case(torch.bfloat16, b, t, h, dk, dv, shared, decay, h0s,
+                      gen, dev)
+    m_ms = cuda_ms(lambda: ssm_scan(*margs, chunk=chunk), 10)
+    m_plain = cuda_ms(lambda: ssm_scan_plain(*margs, chunk=chunk), 3)
+    m_bound, m_by = scan_bound(margs, chunk)
+    log("kernels", f"ssm_scan bf16 B={b} T={t} H={h} dk={dk} dv={dv} "
+        f"chunk={chunk} (mLSTM's width): kernel {m_ms:.4f} ms, plain "
+        f"{m_plain:.4f} ms, bound {m_bound:.4f} ms ({m_by}); kernel at "
+        f"{100 * m_bound / m_ms:.1f}% of bound")
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:69",
@@ -787,18 +810,20 @@ def phase_ssm_scan(dev) -> dict:
 # a decode step over 8 slots and 24 at a 900-1024-token prefill, and the
 # counts come from a top-2 routing of 8 and 1024 tokens.  f32 runs the
 # full d and f with 16 experts; the ragged counts hold 0, 1, C and the
-# middle.
+# middle.  kimi-k2's: E 384, d 7168, f 2048, top-8, C 8 at decode and 32
+# at a 1024-token prefill.
 ARCTIC_EXPERTS = (128, 7168, 4864)                 # E, d, f
+KIMI_EXPERTS = (384, 7168, 2048)
 GM_RAGGED = [0, 1, 24, 13, 0, 7, 24, 2, 19, 0, 5, 24, 1, 11, 0, 23]
 
 
 def routed_counts(tokens: int, e: int, c: int, gen: torch.Generator,
-                  dev) -> torch.Tensor:
-    """Per-expert loads of a top-2 routing of ``tokens`` tokens (softmax
+                  dev, top_k: int = 2) -> torch.Tensor:
+    """Per-expert loads of a top-k routing of ``tokens`` tokens (softmax
     of random logits), clamped to the capacity ``c``, as moe.py builds
     them."""
     logits = torch.randn((tokens, e), generator=gen, device=dev)
-    ids = torch.topk(torch.softmax(logits, -1), 2, dim=-1).indices
+    ids = torch.topk(torch.softmax(logits, -1), top_k, dim=-1).indices
     load = torch.zeros(e, dtype=torch.int64, device=dev)
     load.index_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
     return load.clamp(max=c).to(torch.int32)
@@ -906,21 +931,35 @@ def phase_grouped_matmul(dev) -> dict:
         del w
 
     worst, row = 0.0, None
-    decode = routed_counts(8, e, 8, gen, dev)
-    prefill = routed_counts(1024, e, 24, gen, dev)
-    for a, b, name in ((d, f, "w_in"), (f, d, "w_out")):
-        w = gm_weights(torch.bfloat16, e, a, b, gen, dev)
-        for counts, c, step in ((decode, 8, "decode"),
-                                (prefill, 24, "prefill")):
-            x = gm_buffer(torch.bfloat16, counts, c, a, gen, dev)
-            worst = max(worst, check_gm(x, w, counts, f"{name} {step}"))
-            times = time_gm(x, w, counts, f"{name} {step}")
-            if (name, step) == ("w_in", "decode"):
-                row = times
-        del w, x
-        torch.cuda.empty_cache()
-    # the JSON row: w_in's (and w_gate's) product at a decode step, the
-    # launch the main path makes most
+    for name, (e, d, f), top_k in (("arctic", ARCTIC_EXPERTS, 2),
+                                   ("kimi", KIMI_EXPERTS, 8)):
+        cfg_c = {"arctic": get_config("arctic-480b"),
+                 "kimi": get_config("kimi-k2-1t-a32b")}[name]
+        steps = [("decode", 8, routed_counts(8, e, capacity(8, cfg_c), gen,
+                                              dev, top_k)),
+                 ("prefill", 1024, routed_counts(1024, e,
+                                                 capacity(1024, cfg_c), gen,
+                                                 dev, top_k))]
+        for a, b, wname in ((d, f, "w_in"), (f, d, "w_out")):
+            w = gm_weights(torch.bfloat16, e, a, b, gen, dev)
+            for step, tokens, counts in steps:
+                c = capacity(tokens, cfg_c)
+                x = gm_buffer(torch.bfloat16, counts, c, a, gen, dev)
+                what = f"{name} {wname} {step}"
+                worst = max(worst, check_gm(x, w, counts, what))
+                times = time_gm(x, w, counts, what)
+                if (name, wname, step) == ("arctic", "w_in", "decode"):
+                    row = times
+                    # one live expert: 38 units for 132 CTAs
+                    one = torch.zeros_like(counts)
+                    one[0] = c
+                    x1 = gm_buffer(torch.bfloat16, one, c, a, gen, dev)
+                    check_gm(x1, w, one, f"{what}, one expert live")
+                    del x1
+            del w, x
+            torch.cuda.empty_cache()
+    # the JSON row: arctic's w_in (and w_gate) product at a decode step,
+    # the launch the main path makes most
     ms, plain_ms, library_ms, bound_ms, bound_by = row
     return {"name": "grouped_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
@@ -1271,6 +1310,10 @@ def device_rows(prof) -> list:
             and e.self_device_time_total > 0]
 
 
+SCAN_KERNELS = ("ssm_chunk_state_kernel", "ssm_state_pass_kernel",
+                "ssm_chunk_output")
+
+
 def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
     """Where a ring prefill's time goes: one ``prompt_len``-token prompt
     prefilled alone, once unprofiled for its wall time, then once under
@@ -1304,6 +1347,14 @@ def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
         f"{flash_ms:.3f} ms ({100 * flash_ms / device_ms:.1f}% of the "
         f"device time, {100 * flash_ms / wall_ms:.1f}% of the wall time); "
         f"{sum(r[1] for r in rows)} kernels and copies")
+    scan = [r for r in rows if any(k in r[2] for k in SCAN_KERNELS)]
+    if scan:
+        scan_ms = sum(r[0] for r in scan) / 1e3
+        share = 100 * scan_ms / device_ms
+        log("profile", f"{phase}: prefill's ssm_scan kernels (chunk states, "
+            f"state pass, chunk outputs): {scan_ms:.3f} ms in "
+            f"{sum(r[1] for r in scan)} launches ({share:.1f}% of the "
+            f"device time)")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log("profile", f"  {phase} prefill: {us / 1e3:8.3f} ms  {count:6d} "
             f"calls  {key[:90]}")
@@ -1328,11 +1379,12 @@ def free(params) -> None:
     torch.cuda.empty_cache()
 
 
-# the kernels redesigned or widened last, whose instantiations phase 2
-# lists
+# the kernels of the port's redesigns, whose instantiations phase 2 lists
 NEW_KERNELS = ("paged_split_kernel", "decode_split_kernel",
                "flash_attention_mma_kernel", "flash_attention_kernel",
-               "split_merge_kernel")
+               "split_merge_kernel", "grouped_matmul_tma_kernel",
+               "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
+               "ssm_chunk_output_kernel", "ssm_chunk_output_mma_kernel")
 
 
 def ptxas_entries(text: str) -> list:

@@ -74,6 +74,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -235,42 +236,12 @@ constexpr int tc_smem_bytes(int dh) {
   return tc_stages(dh) * 2 * TC_BK * (dh + 8) * 2;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row-major fragment) * b (16 x 8, column fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // 2^x in one MUFU op (flush to zero; 2^-inf = 0).  P is rounded to bf16
 // next, far coarser than its ~2^-22 relative error.
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 __device__ __forceinline__ unsigned load_pair(const __nv_bfloat16* p) {
@@ -432,10 +403,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < NS; ++j) {
         // keys j*8 .. j*8+7, head dims kk*16 .. kk*16+31: four 8x8 blocks
         unsigned kf[4];
-        ldmatrix_x4(kf, sk + (j * 8 + (lane & 7)) * P + kk * 16
-                            + (lane >> 3) * 8);
-        mma_bf16(s[j], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[j], qa[kk + 1], kf[2], kf[3]);
+        hopper::ldmatrix_x4(kf, sk + (j * 8 + (lane & 7)) * P + kk * 16
+                                    + (lane >> 3) * 8);
+        hopper::mma_bf16(s[j], qa[kk], kf[0], kf[1]);
+        hopper::mma_bf16(s[j], qa[kk + 1], kf[2], kf[3]);
       }
     }
 
@@ -490,8 +461,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const float p3 = ex2(fmaf(s[j][3], scale_log2, -ms[1]));
       l[0] += p0 + p1;
       l[1] += p2 + p3;
-      pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      pa[j / 2][(j & 1) * 2] = hopper::pack_bf16x2(p0, p1);
+      pa[j / 2][(j & 1) * 2 + 1] = hopper::pack_bf16x2(p2, p3);
     }
 
     // O += P V: keys kk*16 .. +15, head dims n*8 .. n*8+15
@@ -500,11 +471,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         unsigned vf[4];
-        ldmatrix_x4_trans(vf, sv + (kk * 16 + (lane & 7)
-                                    + ((lane >> 3) & 1) * 8) * P
-                                  + n * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[n], pa[kk], vf[0], vf[1]);
-        mma_bf16(acc[n + 1], pa[kk], vf[2], vf[3]);
+        hopper::ldmatrix_x4_trans(vf, sv + (kk * 16 + (lane & 7)
+                                            + ((lane >> 3) & 1) * 8) * P
+                                          + n * 8 + (lane >> 4) * 8);
+        hopper::mma_bf16(acc[n], pa[kk], vf[0], vf[1]);
+        hopper::mma_bf16(acc[n + 1], pa[kk], vf[2], vf[3]);
       }
     }
   }

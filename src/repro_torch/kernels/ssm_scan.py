@@ -24,19 +24,54 @@ with ``log_a = 0`` and ``k = 0`` (the state passes unchanged), as
 
 Bound on the card: bytes.  q, k, v and y once each plus log_a, h0 and
 h_T; the operations, about ``2 * chunk * (2 * dk + dv) + 4 * dk * dv``
-per token and head, are far below the card's rate.  See the CUDA source
-for the design.
+per token and head, are far below the card's rate.  The kernel runs
+mamba-2's three chunk phases (chunk states, the state pass, chunk
+outputs; ``scan_plan``), the third on the tensor cores for bf16 with dk
+<= 64.  See the CUDA source for the design.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 64          # dk and dv the kernel takes, each 1..64
-MAX_CHUNK = 128       # one thread per chunk row
+MAX_DK = 512          # mLSTM's head dim
+MAX_DV = 1024         # mLSTM's 513 (head dim + the normaliser column)
+MAX_CHUNK = 128       # rows of a chunk a CTA holds
+TILE = 64             # dv tile of every phase
+FAST_MAX_DK = 64      # the tensor-core phase 3 holds q and k whole
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """What the wrapper needs of one call's three launches: ``nc``
+    chunks; phase 3 on the tensor cores when ``fast``; the f32 scratch
+    ``states_shape`` (the chunk states, then the states entering each
+    chunk) and ``decay_shape`` (exp of each chunk's summed log_a)."""
+    nc: int
+    fast: bool
+    states_shape: tuple
+    decay_shape: tuple
+
+
+def scan_plan(b: int, t: int, h: int, dk: int, dv: int, chunk: int,
+              bf16: bool, aligned: bool) -> ScanPlan:
+    """The plan from ints only.  ``aligned``: q, k and v rows start on
+    16 bytes (strides multiples of 8 elements, 16-byte aligned bases),
+    which the tensor-core phase 3 loads 16 bytes at a time."""
+    if not (1 <= dk <= MAX_DK and 1 <= dv <= MAX_DV):
+        raise ValueError(f"no kernel for dk {dk}, dv {dv} (dk 1..{MAX_DK}, "
+                         f"dv 1..{MAX_DV})")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be 1..{MAX_CHUNK}, got {chunk}")
+    nc = -(-t // chunk)
+    fast = (bf16 and aligned and dk <= FAST_MAX_DK and dk % 8 == 0
+            and dv % 8 == 0)
+    return ScanPlan(nc=nc, fast=fast, states_shape=(b, h, nc, dk, dv),
+                    decay_shape=(b, h, nc))
 
 
 def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,17 +144,25 @@ def _check(q, k, v, log_a, h0) -> None:
         raise ValueError(f"inputs span devices {sorted(map(str, devs))}")
 
 
+def _aligned(q, k, v) -> bool:
+    """Rows of q, k and v start on 16 bytes."""
+    rows = [x.data_ptr() % 16 == 0 for x in (q, k, v)]
+    strides = [s % 8 == 0 for x in (q, k) for s in x.stride()[:3]]
+    return all(rows) and all(strides) and v.shape[3] % 8 == 0
+
+
 def _launch(q, k, v, log_a, h0, chunk: int):
     from repro_torch.kernels import build
 
     b, t, h, dk = q.shape
     dv = v.shape[3]
-    if q.dtype not in DTYPES or not (1 <= dk <= MAX_DIM) \
-            or not (1 <= dv <= MAX_DIM):
-        raise ValueError(f"no kernel for dtype {q.dtype}, dk {dk}, dv {dv} "
-                         f"(dtypes {list(DTYPES)}, dk and dv 1..{MAX_DIM})")
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"chunk must be 1..{MAX_CHUNK}, got {chunk}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"no kernel for dtype {q.dtype} (dtypes "
+                         f"{list(DTYPES)})")
+    plan = scan_plan(b, t, h, dk, dv, chunk, q.dtype == torch.bfloat16,
+                     _aligned(q, k, v))
+    if h * -(-dk // 16) * -(-dv // TILE) > 65535 or b > 65535:
+        raise ValueError(f"no kernel for B {b}, H {h} (grid limits)")
     # q and k may broadcast over heads (stride 0): hymba shares one B/C
     # pair among all its SSM heads
     for name, x in (("q", q), ("k", k)):
@@ -133,15 +176,20 @@ def _launch(q, k, v, log_a, h0, chunk: int):
     fn = build.load("ssm_scan").ssm_scan_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
     y = torch.empty_like(v)
     h_t = torch.empty_like(h0)
+    states = torch.empty(plan.states_shape, dtype=torch.float32,
+                         device=q.device)
+    decay = torch.empty(plan.decay_shape, dtype=torch.float32,
+                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             la.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), b, t,
-             h, dk, dv, chunk, *q.stride()[:3], *k.stride()[:3], stream)
+             la.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(),
+             states.data_ptr(), decay.data_ptr(), b, t, h, dk, dv, chunk,
+             int(plan.fast), *q.stride()[:3], *k.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan launch failed: error {err}")
     ssm_scan.launches += 1
@@ -155,8 +203,9 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h0 (B, H, dk, dv).  Returns (y (B, T, H, dv), h_T (B, H, dk, dv)
     f32).  Any T: a ragged last chunk is handled, not refused.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    the plain version.  ``ssm_scan.launches`` counts kernel launches."""
+    CUDA tensors launch the Hopper kernels (or raise); CPU tensors take
+    the plain version.  ``ssm_scan.launches`` counts calls that launched
+    the kernels (three launches each, one count)."""
     _check(q, k, v, log_a, h0)
     if q.device.type == "cpu":
         return ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)

@@ -217,7 +217,10 @@ def test_scan_phase_checks_and_bound(smoke, monkeypatch):
     row has every key, and the bound counts what the call must move."""
     monkeypatch.setattr(smoke, "SCAN_CASES", [
         (1, 40, 3, 16, 64, 16, True, None, 0.0),
-        (2, 20, 2, 8, 16, 8, False, 0.1, 0.5)])
+        (2, 20, 2, 8, 16, 8, False, 0.1, 0.5),
+        (1, 20, 2, 80, 81, 8, False, 0.1, 0.3)])
+    monkeypatch.setattr(smoke, "MLSTM_SCAN",
+                        (1, 24, 2, 72, 73, 8, False, 0.1, 0.0))
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
     row = smoke.phase_ssm_scan(torch.device("cpu"))
     assert row["name"] == "ssm_scan" and row["library_ms"] is None
@@ -305,6 +308,7 @@ def test_grouped_matmul_phase_checks_and_bound(smoke, monkeypatch):
     timed row has every key, and the bound counts the live experts'
     weights, the live rows and all of the output."""
     monkeypatch.setattr(smoke, "ARCTIC_EXPERTS", (32, 48, 40))
+    monkeypatch.setattr(smoke, "KIMI_EXPERTS", (48, 40, 24))
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
     row = smoke.phase_grouped_matmul(torch.device("cpu"))
     assert row["name"] == "grouped_matmul" and row["route"] == "cuda"
@@ -653,3 +657,19 @@ def test_decode_profile_runs_on_cpu(smoke, monkeypatch, capsys):
     assert "decode attention kernels (split and merge): 0.150 ms/step in " \
            "4 calls/step" in out
     assert not eng.busy
+
+
+def test_scan_case_scales_wide_heads(smoke):
+    """Past dk 64 (mLSTM's widths) q and k are N(0, 1) / sqrt(dk), as
+    mLSTM scales them, so y stays O(1) and the bf16 band means what it
+    means at hymba's widths."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, log_a, h0 = smoke.scan_case(torch.float32, 1, 64, 2, 512, 513,
+                                         False, 0.1, 0.0, gen,
+                                         torch.device("cpu"))
+    assert tuple(v.shape) == (1, 64, 2, 513) and tuple(q.shape) == (1, 64,
+                                                                    2, 512)
+    assert 0.03 < q.std().item() < 0.06             # 512 ** -0.5 = 0.044
+    y, _ = smoke.ssm_scan_plain(q, k, v, log_a, h0, chunk=64)
+    assert y.abs().max().item() < 2.0
+    assert smoke.MLSTM_SCAN[3:5] == (512, 513)

@@ -341,11 +341,58 @@ def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, b, t, h, dk, dv,
 
 
 @pytest.mark.cuda
-def test_ssm_scan_kernel_rejects_unsupported(cuda_device):
-    args = list(scan_case(cuda_device, torch.float32, 1, 40, 2, 65, 16))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk,decay,h0", [
+    (1, 150, 2, 65, 513, 64, 0.1, 0.0),            # past the fast path's dk
+    (1, 200, 2, 128, 513, 128, 0.1, 0.3),          # h0 != 0, ragged T
+    (1, 100, 2, 512, 513, 32, 0.1, 0.2),           # mLSTM's widths
+    (2, 77, 3, 512, 513, 128, 5.0, 0.0),           # strong decay, one chunk
+    (1, 300, 4, 16, 64, 32, 5.0, 0.3),             # hymba widths, chunk 32
+    (1, 130, 4, 64, 1024, 64, 0.1, 0.0),           # dv at its limit
+    (1, 129, 2, 32, 40, 128, 0.1, 0.5)])           # a one-row last chunk
+def test_ssm_scan_kernel_wide_states(cuda_device, dtype, b, t, h, dk, dv,
+                                     chunk, decay, h0):
+    """mLSTM's widths (dk 512, dv 513) and others past 64 on the tiled
+    CUDA-core path, and the tensor-core path at chunks of 32, 64 and 128:
+    q and k scaled by dk^-1/2 past 64, as mLSTM scales them, so y stays
+    O(1)."""
+    args = list(scan_case(cuda_device, dtype, b, t, h, dk, dv, decay=decay,
+                          h0_scale=h0))
+    if dk > 64:
+        args[0] = (args[0].float() * (dk ** -0.5 / 0.3)).to(dtype)
+        args[1] = (args[1].float() * (dk ** -0.5 / 0.3)).to(dtype)
     before = ssm_scan.launches
-    with pytest.raises(ValueError, match="no kernel"):       # dk 65
-        ssm_scan(*args)
+    y, h_t = ssm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan_plain(*args, chunk=chunk)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h_t, want_h, atol=tol, rtol=tol)
+    assert torch.isfinite(y).all() and tuple(y.shape) == (b, t, h, dv)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_is_deterministic(cuda_device):
+    """No atomics: two calls give the same bits, on both phase-3 paths."""
+    for dtype, dk in ((torch.bfloat16, 16), (torch.bfloat16, 128),
+                      (torch.float32, 16)):
+        args = scan_case(cuda_device, dtype, 1, 300, 3, dk, 64,
+                         shared_qk=True, h0_scale=0.3)
+        y1, h1 = ssm_scan(*args, chunk=128)
+        y2, h2 = ssm_scan(*args, chunk=128)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_rejects_unsupported(cuda_device):
+    before = ssm_scan.launches
+    with pytest.raises(ValueError, match="dk 513"):       # past MAX_DK
+        ssm_scan(*scan_case(cuda_device, torch.float32, 1, 40, 2, 513, 16))
+    with pytest.raises(ValueError, match="dv 1025"):      # past MAX_DV
+        ssm_scan(*scan_case(cuda_device, torch.float32, 1, 40, 1, 16, 1025))
     args = list(scan_case(cuda_device, torch.float32, 1, 40, 2, 16, 16))
     args[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="unit stride"):
@@ -353,6 +400,9 @@ def test_ssm_scan_kernel_rejects_unsupported(cuda_device):
     with pytest.raises(ValueError, match="chunk"):
         ssm_scan(*scan_case(cuda_device, torch.float32, 1, 400, 2, 16, 16),
                  chunk=256)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssm_scan(*(x.half() if i < 3 else x for i, x in enumerate(
+            scan_case(cuda_device, torch.float32, 1, 40, 2, 16, 16))))
     assert ssm_scan.launches == before
 
 
@@ -441,3 +491,122 @@ def test_grouped_matmul_kernel_rejects_unsupported(cuda_device):
     with pytest.raises(ValueError, match="share a dtype"):
         grouped_matmul(x, w.bfloat16(), cnt)
     assert grouped_matmul.launches == before
+
+
+def gm_device_case(dev, e, c, d, f, counts, seed=5):
+    """Expert-width inputs drawn on the card (kimi's weights are 11 GB in
+    bf16): the dispatch buffer with NaN past each count, weights scaled
+    by 1/sqrt(d) with NaN in every empty expert's."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+    x = torch.randn((e, c, d), generator=gen, device=dev).bfloat16()
+    x[torch.arange(c, device=dev)[None, :] >= cnt[:, None]] = float("nan")
+    w = torch.empty((e, d, f), dtype=torch.bfloat16, device=dev)
+    for i in range(e):
+        w[i] = torch.randn((d, f), generator=gen, device=dev).mul_(d ** -0.5)
+    w[cnt == 0] = float("nan")
+    return x, w, cnt
+
+
+def routed(tokens, e, c, top_k, seed=6):
+    """Per-expert loads of a top-k routing of ``tokens`` tokens (numpy),
+    clamped to the capacity ``c``."""
+    rng = np.random.default_rng(seed)
+    ids = np.argsort(-rng.standard_normal((tokens, e)), axis=1)[:, :top_k]
+    return np.minimum(np.bincount(ids.ravel(), minlength=e), c).tolist()
+
+
+def check_live_rows(out, x, w, cnt):
+    """Finite, zero past each count, and the live rows within the bf16
+    band of the plain version."""
+    assert torch.isfinite(out).all()
+    c = x.shape[1]
+    live = torch.arange(c, device=x.device)[None, :] < cnt[:, None]
+    assert not out[~live].any()
+    want = grouped_matmul_plain(torch.nan_to_num(x), torch.nan_to_num(w),
+                                cnt)
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(7168, 2048), (2048, 7168)],
+                         ids=["w_in", "w_out"])
+@pytest.mark.parametrize("tokens,c", [(8, 8), (1024, 32)],
+                         ids=["decode", "prefill"])
+def test_grouped_matmul_kernel_at_kimi_experts(cuda_device, d, f, tokens,
+                                               c):
+    """kimi-k2's expert products: 384 experts, d 7168 <-> f 2048, top-8,
+    C 8 from a routing of 8 tokens and C 32 from 1024."""
+    counts = routed(tokens, 384, c, 8)
+    x, w, cnt = gm_device_case(cuda_device, 384, c, d, f, counts)
+    before = grouped_matmul.launches
+    out = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    check_live_rows(out, x, w, cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[0] * 12, [0] * 11 + [8],
+                                    [8] + [0] * 11, [3] + [0] * 11],
+                         ids=["all-dead", "last-live", "first-live",
+                              "one-row"])
+def test_grouped_matmul_kernel_dead_and_single_experts(cuda_device, counts):
+    """Every expert dead (zeros, no weight read), or one live: 7 units of
+    128 columns for 132 CTAs."""
+    x, w, cnt = gm_device_case(cuda_device, 12, 8, 4096, 896, counts)
+    out = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    check_live_rows(out, x, w, cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live,extra", [(0, 1), (0, -1), (-4, 0)],
+                         ids=["ragged-tail", "half-tile", "fewer-than-sms"])
+def test_grouped_matmul_kernel_units_not_dividing_sms(cuda_device, n_live,
+                                                      extra):
+    """Units that do not divide the CTAs: 7 column tiles per live expert
+    and SMs / 7 live experts, give or take, so the stride walk ends
+    ragged (or, with fewer units than CTAs, leaves CTAs idle)."""
+    from repro_torch.kernels.grouped_matmul import sm_count
+    sms = sm_count(cuda_device)
+    live = max(1, sms // 7 + n_live)
+    f = 7 * 128 + 8 * extra if extra > 0 else 7 * 128
+    if extra < 0:
+        f -= 64                          # a half tile at the end
+    e, c, d = live + 3, 8, 1024
+    counts = [1 + i % 8 for i in range(live)] + [0, 0, 0]
+    x, w, cnt = gm_device_case(cuda_device, e, c, d, f, counts)
+    out = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    check_live_rows(out, x, w, cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[8, 0, 3, 1, 0, 5, 2, 8, 7, 6, 4, 8],
+                                    [8] + [0] * 11],
+                         ids=["several", "one-live"])
+def test_grouped_matmul_kernel_is_bit_identical(cuda_device, counts):
+    """Two calls give the same bits: the unit walk is fixed and each
+    output is one CTA's sum over d in order, with no float atomics.  Ten
+    live experts make 160 units, one makes 16."""
+    x, w, cnt = gm_device_case(cuda_device, 12, 8, 7168, 2048, counts)
+    a = grouped_matmul(x, w, cnt)
+    b = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", range(8, 80, 8))
+def test_grouped_matmul_kernel_every_row_count(cuda_device, c):
+    """Every instantiated unit height (C 8 .. 64, and 72 as a block of 64
+    and one of 8), with 128-column units up to C 16 and 256 past it,
+    against the plain version with ragged rows."""
+    counts = [c, 0, 1, c // 2 + 1, 0, c - 3]
+    x, w, cnt = gm_device_case(cuda_device, 6, c, 1024, 640, counts)
+    out = grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    check_live_rows(out, x, w, cnt)
