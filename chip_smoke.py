@@ -27,6 +27,12 @@ code is non-zero and the final JSON line is not printed:
 5. migrate    -- the same model: ring->paged, paged->ring and ring->ring
                  migration continue with an unmigrated run's tokens;
                  paged->ring with a window is refused.
+14. mixed parity -- (after 5) the same model, paged: the mixed step
+                 replayed as a CUDA graph gives the serialized eager run's
+                 greedy tokens, kernels on and off, over two waves (the
+                 second over one 256-token prefix, after a prefill_chunk
+                 move), also with a PrefixCache attached; the mixed step
+                 is captured once, its warm-up under sync debug "error".
 6. serve      -- agent-7b in full (32 layers, bf16), paged layout, serves
                  8 requests; the paged kernel launches once per layer per
                  decode step; a profile of four decode steps follows.
@@ -35,6 +41,11 @@ code is non-zero and the final JSON line is not printed:
                  ring decode kernel once per layer per decode step, and
                  the paged kernel never; profiles of four decode steps
                  and of the longest prompt's prefill follow.
+15. serve mixed -- (after 7) the same weights, paged, mixed, prefill_chunk
+                 512, a PrefixCache: the 8 requests, then 8 over one
+                 1024-token system prompt with 64-256-token suffixes;
+                 prefill tokens computed against the uncached count, step
+                 times, profiles of decode and mixed steps.
 8. hymba      -- hymba-1.5b width at 3 layers in f32 on the ring layout:
                  greedy tokens equal with and without the kernels, for
                  full attention and a window whose ring wraps, prompts
@@ -54,6 +65,8 @@ code is non-zero and the final JSON line is not printed:
                  forward, the attention kernels as for agent-7b; then 16
                  tokens each with the kernels off, where every expert
                  product reads all 128 experts; each with a profile.
+16. serve mixed arctic -- (after 11) phase 15's run at arctic's 2
+                 layers: grouped_matmul inside the replayed mixed graphs.
 12. parity kimi -- kimi-k2 width at 1 layer in f32 (its dense first
                  layer; attention at head dim 112, G = 8): greedy tokens
                  equal across both layouts with and without their kernels,
@@ -64,8 +77,13 @@ code is non-zero and the final JSON line is not printed:
                  with exact launch counts of all four kernels it runs;
                  each with a profile.
 
-The last two lines are a JSON object of kernel numbers and
-``{"ok": true, "device": {...}}``.
+Every engine phase (4 to 16) replays its decode and mixed steps as CUDA
+graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
+13, 15, 16) run each request set a second time on an eager engine: the
+greedy tokens are equal, and the mean step times and profiles of both
+are printed.  A launch count includes a capture's eager warm-up runs and
+each replay (``serving/graphs.py``).  The last two lines are a JSON
+object of kernel numbers and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -103,7 +121,9 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.serving import cache_utils  # noqa: E402
 from repro_torch.serving.engine import TorchEngine  # noqa: E402
-from repro_torch.serving.scheduler import SchedulerConfig  # noqa: E402
+from repro_torch.serving.prefix_cache import PrefixCache  # noqa: E402
+from repro_torch.serving.scheduler import (SchedulerConfig,  # noqa: E402
+                                           StepKind)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
@@ -981,23 +1001,41 @@ def make_requests(lens, max_new: int, vocab: int, seed: int):
             for n in lens]
 
 
-def serve(eng: TorchEngine, reqs) -> dict:
+def serve(eng: TorchEngine, reqs, stagger: bool = False) -> dict:
     """Submit ``reqs`` and step the engine until idle (the loop of
-    ``run_until_idle``), timing prefill and decode steps apart."""
-    for r in reqs:
-        eng.submit(r)
-    times = {"prefill": 0.0, "decode": 0.0}
-    decode_tokens = 0
-    while eng.busy:
+    ``run_until_idle``), timing each step kind apart.  With ``stagger``
+    the first request is prefilled alone before the others arrive, so
+    that a prompt prefix it shares with them is cached for them.  A step
+    that made a program (a graph capture, or without graphs the first
+    run of the step's static buffers) is timed apart as ``build_s``, not
+    in its kind's mean."""
+    waiting = list(reqs)
+    if stagger:
+        eng.submit(waiting.pop(0))
+    times = {"prefill": 0.0, "decode": 0.0, "mixed": 0.0}
+    steps = dict.fromkeys(times, 0)
+    tokens = dict.fromkeys(times, 0)
+    decode_tokens, build_s = 0, 0.0
+    while eng.busy or waiting:
+        if waiting and (not stagger or reqs[0].state in (
+                RequestState.RUNNING, RequestState.FINISHED)):
+            for r in waiting:
+                eng.submit(r)
+            waiting = []
         before = eng.tokens_generated
+        made = sum(eng.step_captures.values())
         t0 = time.perf_counter()
         kind = eng.step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if kind.value in times:
-            times[kind.value] += dt
-        if kind.value == "decode":
+        if kind.value in ("decode", "mixed"):
             decode_tokens += eng.tokens_generated - before
+        if sum(eng.step_captures.values()) > made:
+            build_s += dt
+        elif kind.value in times:
+            times[kind.value] += dt
+            steps[kind.value] += 1
+            tokens[kind.value] += eng.tokens_generated - before
     for r in reqs:
         if r.state != RequestState.FINISHED or \
                 len(r.output_tokens) != r.max_new_tokens:
@@ -1005,7 +1043,13 @@ def serve(eng: TorchEngine, reqs) -> dict:
                                  f"{len(r.output_tokens)} tokens")
         if not all(0 <= t < eng.cfg.vocab for t in r.output_tokens):
             raise AssertionError(f"{r.req_id} emitted an out-of-vocab id")
-    return {"times": times, "decode_tokens": decode_tokens}
+    return {"times": times, "steps": steps, "tokens": tokens,
+            "build_s": build_s, "decode_tokens": decode_tokens}
+
+
+def mean_ms(res: dict, kind: str) -> float:
+    """Mean wall time of ``kind``'s steps in a ``serve`` result, ms."""
+    return 1e3 * res["times"][kind] / max(res["steps"][kind], 1)
 
 
 KERNELS = {"paged_decode_attention": paged_decode_attention,
@@ -1024,49 +1068,61 @@ def moe_layers(cfg) -> int:
                for spec, n in seg.pattern if spec.moe)
 
 
-def expected_launches(eng: TorchEngine, prefills: int) -> dict:
+def expected_launches(eng: TorchEngine, prefills: int, decodes: int,
+                      mixed: int = 0) -> dict:
     """Launches of each kernel on a run of ``eng`` that ran ``prefills``
-    prefill forwards (the ring layout one per prompt; the paged layout
-    one per chunk, and the scheduler's token budget splits a step's
-    prompts into chunks): one per layer per prefill (flash and, in a
-    hybrid's mamba branch, the SSM scan; ring) or per decode step (the
-    layout's decode kernel), and three per MoE layer per forward
-    (grouped_matmul, either layout); none without the flag, and none on
-    the CPU, where the wrappers take the plain versions."""
+    serialized prefill forwards (the ring layout one per prompt; the
+    paged layout one per chunk, and the scheduler's token budget splits a
+    step's prompts into chunks) and ``decodes`` and ``mixed`` bodies of
+    the decode and mixed steps (a graph's warm-up runs and replays, or
+    the eager calls): one per layer per prefill (flash and, in a hybrid's
+    mamba branch, the SSM scan; ring) or per decode row set (the layout's
+    decode kernel; a mixed step's decode rows), and three per MoE layer
+    per forward (grouped_matmul, either layout; a mixed step is two
+    forwards, its decode rows and its chunk, whose gather path launches
+    no attention kernel); none without the flag, and none on the CPU,
+    where the wrappers take the plain versions."""
     want = dict.fromkeys(KERNELS, 0)
     if eng.cfg.use_pallas and eng.device.type == "cuda":
         n = eng.cfg.n_layers
         if eng.cache_layout == "paged":
-            want["paged_decode_attention"] = n * eng.decode_steps
+            want["paged_decode_attention"] = n * (decodes + mixed)
         else:
             want["flash_attention"] = n * prefills
-            want["decode_attention"] = n * eng.decode_steps
+            want["decode_attention"] = n * decodes
             if eng.cfg.family == "hybrid":
                 want["ssm_scan"] = n * prefills
         want["grouped_matmul"] = (3 * moe_layers(eng.cfg)
-                                  * (prefills + eng.decode_steps))
+                                  * (prefills + decodes + 2 * mixed))
     return want
 
 
 def count_prefill_work(eng: TorchEngine) -> list:
-    """Count the prefill work items the scheduler hands ``eng`` from now
-    on: each is one forward (a whole prompt on the ring layout, a chunk
-    on the paged one).  Returns a one-element list holding the count."""
-    count = [0]
+    """Count the serialized prefill work items and the prefill tokens
+    (serialized or in a mixed step's chunk) the scheduler hands ``eng``
+    from now on: each serialized item is one forward (a whole prompt on
+    the ring layout, a chunk on the paged one).  Returns ``[forwards,
+    tokens]``, updated as the engine steps."""
+    count = [0, 0]
     plan_step = eng.scheduler.plan_step
 
     def counted():
         plan = plan_step()
-        count[0] += len(plan.prefills)
+        if plan.kind == StepKind.PREFILL:
+            count[0] += len(plan.prefills)
+        count[1] += sum(w.chunk for w in plan.prefills)
         return plan
     eng.scheduler.plan_step = counted
     return count
 
 
-def served_counts(eng: TorchEngine, reqs, before: dict) -> dict:
+def served_counts(eng: TorchEngine, reqs, before: dict,
+                  stagger: bool = False) -> dict:
     """Serve ``reqs`` and check each kernel's launches on that run."""
     forwards = count_prefill_work(eng)
-    res = serve(eng, reqs)
+    runs = dict(eng.step_runs)
+    res = serve(eng, reqs, stagger)
+    runs = {k: eng.step_runs[k] - runs.get(k, 0) for k in ("decode", "mixed")}
     after = launch_counts()
     used = {k: after[k] - before[k] for k in KERNELS}
     if eng.scheduler.preempt_count:
@@ -1074,8 +1130,9 @@ def served_counts(eng: TorchEngine, reqs, before: dict) -> dict:
     if eng.cache_layout == "ring" and forwards[0] != len(reqs):
         raise AssertionError(f"{eng.name}: {forwards[0]} ring prefills for "
                              f"{len(reqs)} prompts")
-    res["prefill_forwards"] = forwards[0]
-    want = expected_launches(eng, forwards[0])
+    res["prefill_forwards"], res["prefill_tokens"] = forwards
+    res["runs"] = runs
+    want = expected_launches(eng, forwards[0], runs["decode"], runs["mixed"])
     if used != want:
         raise AssertionError(f"{eng.name}: kernel launches {used}, "
                              f"expected {want}")
@@ -1227,37 +1284,223 @@ SERVE_SCHED = dict(max_slots=8, num_pages=512, page_size=128,
                    max_context=4096)
 
 
+SERVE_LENS = [int(x) for x in np.random.default_rng(2).integers(256, 1025,
+                                                                  8)]
+
+
+def release(eng: TorchEngine) -> None:
+    """Free ``eng``'s graphs (their memory pools) and its cache."""
+    eng.release_graphs()
+    eng.cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve(dev, cfg, params, layout: str, phase: str,
                 max_new: int = 64, prefill_profile: bool = False) -> dict:
-    """The full model serves the 8 requests on ``layout``; every kernel
-    of the path launches exactly as often as expected.  Returns the
-    counts of that run.  A profile of four decode steps follows, and with
-    ``prefill_profile`` one of the longest prompt's prefill."""
-    eng = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
-                      name=f"serve-{layout}", cache_layout=layout,
-                      device=dev)
-    lens = [int(x) for x in np.random.default_rng(2).integers(256, 1025, 8)]
-    reqs = make_requests(lens, max_new, cfg.vocab, seed=3)
-    torch.cuda.reset_peak_memory_stats()
-    for fn in KERNELS.values():                 # the main path's counts
-        fn.launches = 0
-    res = served_counts(eng, reqs, launch_counts())
-    launches = res["launches"]
-    dec = res["times"]["decode"]
-    log(phase, f"{layout} layout, kernels {'on' if cfg.use_pallas else 'off'}"
-        f", 8 requests, prompts {lens}, {max_new} new tokens each: all "
-        f"FINISHED; {eng.prefill_steps} prefill steps "
-        f"{res['times']['prefill']:.3f} s, {eng.decode_steps} decode steps "
-        f"{dec:.3f} s, mean decode step {1e3 * dec / eng.decode_steps:.2f} "
-        f"ms, decode {res['decode_tokens'] / dec:.1f} tokens/s; kernel "
-        f"launches {launches} ({cfg.n_layers} layers, {len(reqs)} "
-        f"prompts in {res['prefill_forwards']} prefill forwards, "
-        f"{eng.decode_steps} decode steps); max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_decode(eng, 1e3 * dec / eng.decode_steps, phase)
-    if prefill_profile:
-        profile_prefill(eng, max(lens), phase)
-    return launches
+    """The full model serves the 8 requests on ``layout``, its decode
+    steps replayed as CUDA graphs, then an eager engine serves the same
+    requests: the greedy tokens are equal, and every kernel of the path
+    launches exactly as often as expected in both runs.  Returns the
+    counts of the graph run.  A profile of four decode steps follows
+    each run, and with ``prefill_profile`` one of the longest prompt's
+    prefill the graph run."""
+    out = {}
+    for how in ("graph", "eager"):
+        eng = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
+                          name=f"serve-{layout}-{how}", cache_layout=layout,
+                          device=dev,
+                          cuda_graphs=None if how == "graph" else False)
+        reqs = make_requests(SERVE_LENS, max_new, cfg.vocab, seed=3)
+        torch.cuda.reset_peak_memory_stats()
+        if how == "graph":
+            for fn in KERNELS.values():         # the main path's counts
+                fn.launches = 0
+        res = served_counts(eng, reqs, launch_counts())
+        dec = res["times"]["decode"]
+        log(phase, f"{layout} layout, kernels "
+            f"{'on' if cfg.use_pallas else 'off'}, {how} decode steps, 8 "
+            f"requests, prompts {SERVE_LENS}, {max_new} new tokens each: all "
+            f"FINISHED; {eng.prefill_steps} prefill steps "
+            f"{res['times']['prefill']:.3f} s, {eng.decode_steps} decode "
+            f"steps, mean decode step {mean_ms(res, 'decode'):.2f} ms over "
+            f"the {res['steps']['decode']} after the first (which took "
+            f"{res['build_s']:.3f} s; a graph run captures there), decode "
+            f"{res['tokens']['decode'] / dec:.1f} tokens/s; captures "
+            f"{dict(eng.step_captures)}; kernel launches {res['launches']} "
+            f"({cfg.n_layers} layers, {len(reqs)} prompts in "
+            f"{res['prefill_forwards']} prefill forwards, decode bodies "
+            f"{res['runs']['decode']}); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_decode(eng, mean_ms(res, "decode"), phase, how)
+        if prefill_profile and how == "graph":
+            profile_prefill(eng, max(SERVE_LENS), phase)
+        out[how] = ([list(r.output_tokens) for r in reqs], res)
+        release(eng)
+    compare_runs(phase, out)
+    return out["graph"][1]["launches"]
+
+
+def compare_runs(phase: str, out: dict) -> None:
+    """The graph and eager runs' greedy tokens are equal; their mean step
+    times side by side."""
+    (g_tok, g), (e_tok, e) = out["graph"], out["eager"]
+    if g_tok != e_tok:
+        raise AssertionError(f"{phase}: graph and eager tokens differ:\n"
+                             f"{g_tok}\n{e_tok}")
+    times = ", ".join(
+        f"{kind} step {mean_ms(g, kind):.2f} vs {mean_ms(e, kind):.2f} ms "
+        f"({mean_ms(e, kind) / mean_ms(g, kind):.2f}x)"
+        for kind in ("decode", "mixed") if g["steps"][kind])
+    log(phase, f"graph vs eager: mean {times}; greedy tokens equal "
+        f"({sum(map(len, g_tok))} tokens)")
+
+
+# the mixed parity phase: a second wave of prompts over one 256-token
+# prefix (two pages of 128), after a chunk move
+MIXED_PREFIX = 256
+MIXED_SUFFIXES = [60, 200, 450, 131]
+MIXED_CHUNK = 200
+
+
+def attach_prefix_cache(eng: TorchEngine) -> PrefixCache:
+    """A PrefixCache over the engine's allocator, blocks of one page."""
+    page = eng.scheduler.cfg.page_size
+    return eng.attach_cache(PrefixCache(
+        eng.scheduler.alloc, name=f"{eng.name}.cache", instance=eng.name,
+        block_tokens=page, reserve_frac=0.8))
+
+
+def shared_prefix_requests(n_prefix: int, suffixes, max_new: int,
+                           vocab: int, seed: int):
+    """Requests whose prompts share one ``n_prefix``-token prefix, each
+    with its own suffix of the given lengths."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, n_prefix).astype(np.int32)
+    return [Request(prompt_len=n_prefix + n, max_new_tokens=max_new,
+                    prompt_tokens=np.concatenate(
+                        [prefix, rng.integers(0, vocab, n).astype(np.int32)]))
+            for n in suffixes]
+
+
+def phase_mixed_parity(dev, cfg, params) -> None:
+    """The mixed step with its CUDA graphs against the serialized eager
+    run, kernels on and off: wave 1 the parity prompts, wave 2 prompts
+    over one 256-token prefix after a ``prefill_chunk`` move, once
+    without and once with a PrefixCache (wave 2's first prompt prefilled
+    alone, so the others find its prefix).  Greedy tokens are equal,
+    every launch count is exact, and the mixed step is captured once.
+    Each capture's warm-up runs under sync debug mode "error"."""
+    def waves():
+        return (make_requests(PARITY_LENS, 16, cfg.vocab, seed=1),
+                shared_prefix_requests(MIXED_PREFIX, MIXED_SUFFIXES, 16,
+                                       cfg.vocab, seed=8))
+
+    for use_pallas in (True, False):
+        c = cfg.replace(use_pallas=use_pallas)
+        tokens = {}
+        for how in ("serialized eager", "mixed graph", "mixed graph cached"):
+            mixed = how != "serialized eager"
+            eng = TorchEngine(c, params, SchedulerConfig(
+                **PARITY_SCHED, mixed=mixed), name=f"parity-{how}",
+                cache_layout="paged", device=dev,
+                cuda_graphs=None if mixed else False)
+            if how.endswith("cached"):
+                attach_prefix_cache(eng)
+            w1, w2 = waves()
+            served_counts(eng, w1, launch_counts())
+            eng.set_param("prefill_chunk", MIXED_CHUNK)
+            res = served_counts(eng, w2, launch_counts(), stagger=True)
+            tokens[how] = [list(r.output_tokens) for r in w1 + w2]
+            cached = sum(r.meta.get("cached_prompt_tokens", 0) for r in w2)
+            if mixed and eng.mixed_step_traces != 1:
+                raise AssertionError(f"{how}: {eng.mixed_step_traces} "
+                                     f"captures of the mixed step")
+            if how.endswith("cached") and cached == 0:
+                raise AssertionError("wave 2 found no cached prefix")
+            log("mixed parity", f"kernels {'on' if use_pallas else 'off'}, "
+                f"{how}: wave 2 prefilled {res['prefill_tokens']} of "
+                f"{sum(r.prompt_len for r in w2)} prompt tokens ({cached} "
+                f"cached); captures {dict(eng.step_captures)}, body runs "
+                f"{dict(eng.step_runs)}")
+            release(eng)
+        want = tokens["serialized eager"]
+        for how, got in tokens.items():
+            if got != want:
+                raise AssertionError(f"{how} disagrees with the serialized "
+                                     f"eager run:\n{got}\n{want}")
+        log("mixed parity", f"agent-7b width, 2 layers, f32, kernels "
+            f"{'on' if use_pallas else 'off'}: greedy tokens equal across "
+            f"{list(tokens)} ({sum(map(len, want))} tokens each); the mixed "
+            f"step captured once across two waves and a prefill_chunk move")
+
+
+# serve mixed: prefill_chunk 512 and a token budget of one chunk beside
+# the 8 decode rows, so the chunk buffer (the budget) pads a chunk by at
+# most 8 tokens beyond its fill
+MIXED_SCHED = dict(SERVE_SCHED, mixed=True, prefill_chunk=512,
+                   max_batch_tokens=520)
+SYSTEM_PROMPT = 1024
+
+
+def phase_serve_mixed(dev, cfg, params, phase: str,
+                      max_new: int = 64) -> dict:
+    """The full model serves, paged, with the mixed step and a
+    PrefixCache: the 8 requests of phase 6, then 8 requests over one
+    1024-token system prompt with their own 64-256-token suffixes (the
+    first prefilled alone), every decode and mixed step replayed as a
+    CUDA graph; then an eager engine serves the same requests.  Greedy
+    tokens are equal and every launch count is exact in both runs.
+    Returns the graph run's counts."""
+    out = {}
+    for how in ("graph", "eager"):
+        eng = TorchEngine(cfg, params, SchedulerConfig(**MIXED_SCHED),
+                          name=f"mixed-{how}", cache_layout="paged",
+                          device=dev,
+                          cuda_graphs=None if how == "graph" else False)
+        attach_prefix_cache(eng)
+        w1 = make_requests(SERVE_LENS, max_new, cfg.vocab, seed=3)
+        suffixes = np.random.default_rng(9).integers(64, 257, 8)
+        w2 = shared_prefix_requests(SYSTEM_PROMPT, suffixes, max_new,
+                                    cfg.vocab, seed=10)
+        torch.cuda.reset_peak_memory_stats()
+        if how == "graph":
+            for fn in KERNELS.values():         # the main path's counts
+                fn.launches = 0
+        t0 = time.perf_counter()
+        r1 = served_counts(eng, w1, launch_counts())
+        r2 = served_counts(eng, w2, launch_counts(), stagger=True)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        res = {k: {kind: r1[k][kind] + r2[k][kind] for kind in r1[k]}
+               for k in ("times", "steps", "tokens")}
+        computed = r1["prefill_tokens"] + r2["prefill_tokens"]
+        uncached = sum(r.prompt_len for r in w1 + w2)
+        log(phase, f"{how} steps, mixed, prefill_chunk 512, a PrefixCache; "
+            f"wave 1: the 8 prompts {SERVE_LENS}; wave 2: 8 prompts of a "
+            f"{SYSTEM_PROMPT}-token system prompt and suffixes "
+            f"{suffixes.tolist()}; {max_new} new tokens each: all FINISHED "
+            f"in {wall:.3f} s; prefill tokens computed {computed} of "
+            f"{uncached} uncached (wave 2: {r2['prefill_tokens']} of "
+            f"{sum(r.prompt_len for r in w2)}); mean decode step "
+            f"{mean_ms(res, 'decode'):.2f} ms ({res['steps']['decode']} "
+            f"steps), mean mixed step {mean_ms(res, 'mixed'):.2f} ms "
+            f"({res['steps']['mixed']} steps), the first step of each kind "
+            f"(a graph run's captures) {r1['build_s'] + r2['build_s']:.3f} "
+            f"s; "
+            f"{sum(res['tokens'].values()) / sum(res['times'].values()):.1f}"
+            f" tokens/s over the decode and mixed steps; captures "
+            f"{dict(eng.step_captures)}; kernel launches {launches} (body "
+            f"runs {dict(eng.step_runs)}); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_decode(eng, mean_ms(res, "decode"), phase, how)
+        profile_mixed(eng, mean_ms(res, "mixed"), phase, how)
+        out[how] = ([list(r.output_tokens) for r in w1 + w2], res)
+        if how == "graph":
+            main = launches
+        release(eng)
+    compare_runs(phase, out)
+    return main
 
 
 # the decode attention kernels' names in a profile: the split kernels of
@@ -1266,37 +1509,87 @@ DECODE_KERNELS = ("paged_split_kernel", "decode_split_kernel",
                   "split_merge_kernel")
 
 
-def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
-                   steps: int = 4) -> None:
-    """Where a decode step's time goes, after the counted run: device
-    time by kernel over ``steps`` decode steps of 8 fresh 512-token
-    sequences, against the unprofiled mean decode step time."""
-    reqs = make_requests([512] * 8, steps + 2, eng.cfg.vocab, seed=4)
-    for r in reqs:
-        eng.submit(r)
-    while any(r.state != RequestState.RUNNING for r in reqs):
-        eng.step()                                   # admit + prefill
+# the prompts of the profiled windows: a prompt is one 512-token chunk
+PROFILE_LEN = 512
+
+
+def profile_steps(eng: TorchEngine, steps: int):
+    """Profile the engine's next ``steps`` steps: (their kinds, device
+    rows)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(steps):
-            eng.step()
+        kinds = [eng.step() for _ in range(steps)]
         torch.cuda.synchronize()
-    eng.run_until_idle()
-    rows = device_rows(prof)
+    return kinds, device_rows(prof)
+
+
+def log_profile(phase: str, what: str, rows, step_ms: float,
+                steps: int) -> bool:
+    """The busy and idle share of ``steps`` profiled steps against the
+    unprofiled mean step time; False if the profile lists no device
+    time (CUPTI showing no kernel of a replayed graph)."""
     device_ms = sum(r[0] for r in rows) / 1e3 / steps
-    log("profile", f"{phase}: decode step: device busy {device_ms:.2f} ms of "
+    if device_ms == 0:
+        log("profile", f"{phase}: {what}: the profile lists no device "
+            f"time (no kernel of a replayed graph); see the eager step")
+        return False
+    log("profile", f"{phase}: {what}: device busy {device_ms:.2f} ms of "
         f"{step_ms:.2f} ms unprofiled ({100 * device_ms / step_ms:.1f}% "
         f"busy, {100 * (1 - device_ms / step_ms):.1f}% idle); "
         f"{sum(r[1] for r in rows) / steps:.0f} kernels and copies per "
         f"step")
+    return True
+
+
+def profile_decode(eng: TorchEngine, step_ms: float, phase: str,
+                   how: str = "eager", steps: int = 4) -> None:
+    """Where a decode step's time goes, after the counted run: device
+    time by kernel over ``steps`` decode steps (``how``: graph replays or
+    eager) of 8 fresh ``PROFILE_LEN``-token sequences, against the
+    unprofiled mean decode step time."""
+    # a mixed engine's first sequences decode while the last prefill
+    reqs = make_requests([PROFILE_LEN] * 8, steps + 10, eng.cfg.vocab,
+                         seed=4)
+    for r in reqs:
+        eng.submit(r)
+    while any(r.state in (RequestState.QUEUED, RequestState.PREFILL)
+              for r in reqs):
+        eng.step()                                   # admit + prefill
+    kinds, rows = profile_steps(eng, steps)
+    eng.run_until_idle()
+    if any(k != StepKind.DECODE for k in kinds):
+        raise AssertionError(f"profiled {kinds}, not decode steps")
+    if not log_profile(phase, f"decode step ({how})", rows, step_ms, steps):
+        return
     attn = [r for r in rows if any(k in r[2] for k in DECODE_KERNELS)]
     log("profile", f"{phase}: decode attention kernels (split and merge): "
         f"{sum(r[0] for r in attn) / 1e3 / steps:.3f} ms/step in "
         f"{sum(r[1] for r in attn) / steps:.0f} calls/step")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log("profile", f"  {phase}: {us / 1e3 / steps:8.3f} ms/step  "
+            f"{count / steps:6.0f} calls/step  {key[:90]}")
+
+
+def profile_mixed(eng: TorchEngine, step_ms: float, phase: str, how: str,
+                  steps: int = 4) -> None:
+    """Where a mixed step's time goes: 8 fresh ``PROFILE_LEN``-token
+    prompts, the first prefilled alone, then ``steps`` mixed steps (a
+    chunk beside one to four decode rows) profiled, against the
+    unprofiled mean mixed step time of the served run."""
+    reqs = make_requests([PROFILE_LEN] * 8, 2, eng.cfg.vocab, seed=4)
+    for r in reqs:
+        eng.submit(r)
+    eng.step()                              # the first chunk, no decode row
+    kinds, rows = profile_steps(eng, steps)
+    eng.run_until_idle()
+    if any(k != StepKind.MIXED for k in kinds):
+        raise AssertionError(f"profiled {kinds}, not mixed steps")
+    if not log_profile(phase, f"mixed step ({how})", rows, step_ms, steps):
+        return
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        log("profile", f"  {phase} mixed: {us / 1e3 / steps:8.3f} ms/step  "
             f"{count / steps:6.0f} calls/step  {key[:90]}")
 
 
@@ -1448,15 +1741,15 @@ def main() -> int:
                          device=dev)
     phase_parity(dev, small, params)
     phase_migrate(dev, small, params)
+    phase_mixed_parity(dev, small, params)
     free(params)
 
     cfg = get_config("agent-7b").replace(use_pallas=True)
     params = init_full(cfg, dev, "serve")
-    paged = phase_serve(dev, cfg, params, "paged", "serve")
-    gc.collect()                             # the paged engine is gone
-    torch.cuda.empty_cache()
+    phase_serve(dev, cfg, params, "paged", "serve")
     phase_serve(dev, cfg, params, "ring", "serve ring",
                 prefill_profile=True)
+    mixed = phase_serve_mixed(dev, cfg, params, "serve mixed")
     free(params)
 
     # hymba-1.5b width at 3 layers (global, SWA, global); PARITY_SWA's
@@ -1489,14 +1782,11 @@ def main() -> int:
     # experts) for the step it costs
     cfg = get_config("arctic-480b").replace(n_layers=2, use_pallas=True)
     params = init_full(cfg, dev, "serve arctic")
-    arctic = phase_serve(dev, cfg, params, "paged", "serve arctic")
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_serve(dev, cfg, params, "paged", "serve arctic")
     phase_serve(dev, cfg, params, "ring", "serve arctic ring")
-    gc.collect()
-    torch.cuda.empty_cache()
     phase_serve(dev, cfg.replace(use_pallas=False), params, "paged",
                 "serve arctic off", max_new=16)
+    arctic = phase_serve_mixed(dev, cfg, params, "serve mixed arctic")
     free(params)
 
     # kimi-k2-1t-a32b width at 1 layer in f32 (its dense first layer,
@@ -1513,12 +1803,10 @@ def main() -> int:
     cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=2, use_pallas=True)
     params = init_full(cfg, dev, "serve kimi")
     phase_serve(dev, cfg, params, "paged", "serve kimi")
-    gc.collect()
-    torch.cuda.empty_cache()
     phase_serve(dev, cfg, params, "ring", "serve kimi ring")
     free(params)
 
-    main_path = {"paged_decode_attention": paged, "flash_attention": hymba,
+    main_path = {"paged_decode_attention": mixed, "flash_attention": hymba,
                  "decode_attention": hymba, "ssm_scan": hymba,
                  "grouped_matmul": arctic}
     for row in rows:

@@ -4,7 +4,11 @@ Each kernel ships as ``<name>.py`` (its plain PyTorch version and the
 wrapper the model calls) beside ``csrc/<name>.cu`` (the CUDA source,
 built for ``sm_90a`` by ``build.py`` at first use).  A wrapper takes the
 plain version only for CPU tensors; on CUDA tensors it launches the
-kernel or raises.
+kernel or raises.  A wrapper launches on PyTorch's current stream and
+does its one-time work (building and loading the library, reading the SM
+count, setting a kernel attribute, fetching the CUDA driver's tensor-map
+encoder) at its first call, so a CUDA graph captures it after one eager
+call (``serving/graphs.py``).
 """
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)

@@ -147,6 +147,13 @@ def _launch(x, w, counts) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     path = kernel_path(x, w)
     if path == PATH_TENSOR_CORES:
+        # the kernel's CUtensorMaps are __grid_constant__ parameters
+        # encoded on the host at each launch; under a CUDA graph they are
+        # encoded at capture and baked into the graph, so they stay right
+        # only while x, w and out keep their addresses.  They do: x and
+        # out live in the graph's memory pool and w is a weight.  The SM
+        # count is read and the CUDA driver's encoder fetched at the first
+        # launch, which a capture's eager warm-up makes.
         plan = tma_plan(c, f, sm_count(x.device))
         fn = lib.grouped_matmul_tma_launch
         if fn.argtypes is None:

@@ -2,7 +2,8 @@
 → stack-plan segments → final norm → unembed, with the serving entry
 points of both KV layouts -- ring: ``init_cache(layout="ring")``,
 ``prefill`` and ``decode_step``; paged: ``init_cache(layout="paged")``,
-``prefill_paged`` and ``decode_step(tables=)`` -- and the paged <-> ring
+``prefill_paged``, the mixed step's ``prefill_paged_padded`` and
+``decode_step(tables=)`` -- and the paged <-> ring
 state bridge of KV migration (``paged_extract``, ``paged_insert``).
 Hybrid (hymba) stacks run on the ring layout only; their caches carry
 an ``SSMState`` beside each ring.
@@ -10,7 +11,8 @@ an ``SSMState`` beside each ring.
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
 stacked parameters and pools.  The cache is updated in place: a step
-returns the same pool tensors it was given.
+returns the same pool tensors it was given, so a step captured as a CUDA
+graph keeps writing the cache it was captured against.
 """
 from __future__ import annotations
 
@@ -207,6 +209,35 @@ def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _logits(params, cfg, x_last)[:, 0]
     cache["pos"][slot] = start[0] + s
+    return logits, cache
+
+
+def prefill_paged_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
+                         cache: dict, tables: torch.Tensor,
+                         start: torch.Tensor, slot: torch.Tensor,
+                         n: torch.Tensor):
+    """Shape-stable suffix prefill: a fixed-capacity chunk buffer whose
+    valid length is a device value, for the mixed step's CUDA graph.
+
+    tokens (1, C): the chunk buffer, of which the first ``n`` tokens are
+    real; ``start``, ``slot`` and ``n`` are 0-d integer tensors on the
+    device (the reference's traced scalars), so nothing here reads a
+    value back to the host.  Tail positions at or past ``n`` are -1:
+    their KV writes land in the pool's sink page (``_phys_slots``) and
+    their queries mask out.  Returns (logits of the token at ``n - 1``
+    (1, V), cache), with ``pos[slot] = start + n``."""
+    b, c = tokens.shape
+    idx = torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
+    positions = torch.where(idx < n, start + idx, -1).to(torch.int32)
+    x = embed(params["embed"], tokens)
+    x = _run_plan(cfg, params["decoder"], x, positions, cache["segments"],
+                  tables)
+    last = (n - 1).reshape(1).long()
+    x_last = rmsnorm(params["final_norm"], torch.index_select(x, 1, last),
+                     cfg.norm_eps)
+    logits = _logits(params, cfg, x_last)[:, 0]
+    cache["pos"].index_put_((slot.reshape(1).long(),),
+                            (start + n).reshape(1).to(torch.int32))
     return logits, cache
 
 

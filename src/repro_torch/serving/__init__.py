@@ -1,2 +1,2 @@
-"""Serving plane: page allocator, scheduler, engine core, sampler and
-the live PyTorch engine."""
+"""Serving plane: page allocator, prefix cache, scheduler, engine core,
+sampler, step graphs and the live PyTorch engine."""

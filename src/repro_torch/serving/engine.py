@@ -18,17 +18,33 @@ when ``cfg.use_pallas`` is set, else ring, as in the reference):
   tables.  Prefill computes only the uncached suffix of a prompt, in the
   chunks the scheduler plans (the ``prefill_chunk`` knob).
 
-Each decode step runs every slot at once.  Sampling runs on the device;
-only token ids cross to the host.  ``extract_state``/``inject_state``
-move one sequence between engines of either layout through the batch-1
-ring tree (SSM states included).  PyTorch runs eagerly, so there is
-nothing to compile or donate: each step updates the cache in place.
-Waiting for later slices (ROADMAP queue A): the mixed step and the
-prefix cache.
+Each decode step runs every slot at once.  With the scheduler's
+``mixed`` knob (paged layout only), prefill stops serializing against
+decode: one mixed step runs every decode slot and one prefill chunk
+padded to a fixed capacity (``_mixed_cap``), its start, length and slot
+device scalars, as the reference's ``_mixed_step``.  A ``PrefixCache``
+(``serving/prefix_cache.py``, attached with ``attach_cache``) hands
+admission a shared prompt prefix as page ids in the block table: no KV
+is copied.  Sampling runs on the device; only token ids cross to the
+host.  ``extract_state``/``inject_state`` move one sequence between
+engines of either layout through the batch-1 ring tree (SSM states
+included).
+
+On the card every decode step (both layouts) and every mixed step is a
+replay of a CUDA graph captured once per engine (``serving/graphs.py``,
+the counterpart of the reference's ``jax.jit`` with donated buffers;
+``cuda_graphs=False`` runs them eagerly).  A graph writes the cache
+tensors it was captured against, so every cache update keeps their
+addresses: ``cache_insert``, ``paged_insert``, ``prefill_paged`` and the
+steps themselves write in place.  Only a ``cache_layout`` flip builds a
+new cache, and it drops the graphs, so the next step captures anew.
+Serialized prefill (a ring one-shot prompt, a paged chunk) stays eager at
+its exact length, as the reference retraces per length.
 """
 from __future__ import annotations
 
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -40,6 +56,7 @@ from repro_torch.core.types import Request, RequestState
 from repro_torch.models.params import resolve_device
 from repro_torch.serving import cache_utils, sampler
 from repro_torch.serving.engine_base import EngineCore
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.kv_cache import block_tables
 from repro_torch.serving.scheduler import SchedulerConfig, StepKind
 
@@ -55,14 +72,16 @@ class TorchEngine(EngineCore):
 
     def __init__(self, cfg: ModelConfig, params, sched_cfg: SchedulerConfig,
                  name: str = "engine", collector=None, seed: int = 0,
-                 cache_layout: str | None = None, device=None):
+                 cache_layout: str | None = None, device=None,
+                 cuda_graphs: bool | None = None):
         self.device = resolve_device(device)
         if cache_layout not in (None, "ring", "paged"):
             raise ValueError(f"unknown cache layout {cache_layout!r}")
-        if sched_cfg.mixed:
-            raise NotImplementedError(
-                "mixed batching is not ported yet (ROADMAP queue A: mixed "
-                "step)")
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not "
+                             f"{self.device}")
         table_dev = params["embed"]["table"].device
         if table_dev.type != self.device.type:
             raise ValueError(f"params live on {table_dev}, engine device "
@@ -80,7 +99,24 @@ class TorchEngine(EngineCore):
         if cache_layout is None:
             cache_layout = "paged" if cfg.use_pallas else "ring"
         self._cache_layout = cache_layout
+        if sched_cfg.mixed and cache_layout != "paged":
+            raise RuntimeError(
+                f"{name}: mixed batching needs the paged cache layout "
+                f"(got {cache_layout!r})")
         self._last_token = np.zeros((sched_cfg.max_slots,), np.int32)
+        # fixed chunk capacity of the mixed step, set once so that moving
+        # the prefill_chunk knob never changes the captured shapes (knob
+        # values above it are clamped)
+        self._mixed_cap = min(sched_cfg.max_batch_tokens,
+                              sched_cfg.max_context)
+        self._cuda_graphs = cuda_graphs
+        self._graphs: dict[str, StepGraph] = {}
+        # per step kind ("decode", "mixed"): programs made (graph
+        # captures, or without graphs the one build of the static
+        # buffers) and body runs (warm-up runs included, so launch
+        # counts can be checked exactly)
+        self.step_captures: Counter = Counter()
+        self.step_runs: Counter = Counter()
         self._build_cache()
 
     # ----------------------------------------------------------- cache layout
@@ -88,8 +124,16 @@ class TorchEngine(EngineCore):
     def cache_layout(self) -> str:
         return self._cache_layout
 
+    @property
+    def mixed_step_traces(self) -> int:
+        """Programs made for the mixed step (the reference counts its
+        traces): 1 whatever the churn, until a ``cache_layout`` flip
+        builds a new cache and the step is captured anew."""
+        return self.step_captures["mixed"]
+
     def _build_cache(self) -> None:
         sc = self.scheduler.cfg
+        self.release_graphs()               # captured against the old cache
         self.cache = None                   # free the old cache first
         self.cache = models.init_cache(
             self.cfg, sc.max_slots, sc.max_context, layout=self._cache_layout,
@@ -104,14 +148,19 @@ class TorchEngine(EngineCore):
             raise RuntimeError(
                 f"{self.name}: cache_layout flip needs an idle engine "
                 f"({self.scheduler.num_running} sequences running)")
+        if new == "ring" and self.scheduler.cfg.mixed:
+            self._cache_layout = old            # revert before failing
+            raise RuntimeError(
+                f"{self.name}: cache_layout 'ring' is incompatible with "
+                "mixed batching -- set mixed false first")
         self._build_cache()
 
     def on_knob_set(self, name: str, old, new) -> None:
-        if name == "mixed" and new:
+        if name == "mixed" and new and self._cache_layout != "paged":
             self.scheduler.cfg.mixed = old      # revert before failing
-            raise NotImplementedError(
-                f"{self.name}: mixed batching is not ported yet (ROADMAP "
-                "queue A: mixed step)")
+            raise RuntimeError(
+                f"{self.name}: mixed batching needs the paged cache "
+                f"layout (current: {self._cache_layout!r})")
         super().on_knob_set(name, old, new)
 
     def _block_table_rows(self, reqs: list[Request]) -> np.ndarray:
@@ -130,6 +179,84 @@ class TorchEngine(EngineCore):
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _temperature(self) -> torch.Tensor:
+        return torch.full((), self.temperature, dtype=torch.float32,
+                          device=self.device)
+
+    # ---------------------------------------------------------- step graphs
+    def _recurrent_state(self) -> list[torch.Tensor]:
+        """The cache tensors a step updates from their own values: each
+        slot's ``pos`` and a hybrid's SSM states.  A capture's warm-up
+        runs put them back; every other write of a step is the same on
+        every run."""
+        out = [self.cache["pos"]]
+        for seg in self.cache["segments"]:
+            for e in seg.values():
+                if "ssm" in e:
+                    out.extend(e["ssm"])
+        return out
+
+    def _step_graph(self, kind: str) -> StepGraph:
+        g = self._graphs.get(kind)
+        if g is not None:
+            return g
+        slots = self.scheduler.cfg.max_slots
+        tok, i32, f32 = torch.int64, torch.int32, torch.float32
+        if kind == "decode":
+            specs = {"tokens": ((slots, 1), tok), "temperature": ((), f32)}
+            if self._cache_layout == "paged":
+                specs["tables"] = ((slots, self._p_max), i32)
+            body = self._decode_body
+        else:
+            specs = {"dec_tokens": ((slots, 1), tok),
+                     "pf_tokens": ((1, self._mixed_cap), tok),
+                     "dec_tables": ((slots, self._p_max), i32),
+                     "pf_table": ((1, self._p_max), i32),
+                     "start": ((), i32), "n": ((), i32), "slot": ((), i32),
+                     "temperature": ((), f32)}
+            body = self._mixed_body
+        g = StepGraph(body, specs, self.device, graphed=self._cuda_graphs,
+                      restore=self._recurrent_state(), generator=self._gen)
+        self._graphs[kind] = g
+        return g
+
+    def _run_step(self, kind: str, **arrays) -> np.ndarray:
+        """Run the ``kind`` step on ``arrays``; its sampled ids on the
+        host."""
+        g = self._step_graph(kind)
+        captures, runs = g.captures, g.runs
+        out = g.run(**arrays).cpu().numpy()
+        self.step_captures[kind] += g.captures - captures
+        self.step_runs[kind] += g.runs - runs
+        return out
+
+    def release_graphs(self) -> None:
+        """Drop the step graphs and free their memory pools; the next step
+        captures anew."""
+        for g in self._graphs.values():
+            g.close()
+        self._graphs.clear()
+
+    def _decode_body(self, tokens, temperature, tables=None) -> torch.Tensor:
+        logits, _ = models.decode_step(self.params, self.cfg, tokens,
+                                       self.cache, tables)
+        return sampler.sample(logits, self._gen, temperature)
+
+    def _mixed_body(self, dec_tokens, pf_tokens, dec_tables, pf_table, start,
+                    n, slot, temperature) -> torch.Tensor:
+        """Every decode slot, then the prefill chunk.  The decode rows
+        write into their own pages; the chunk attends into its resident
+        prefix pages and sets its slot's ``pos`` absolutely, over the
+        blanket ``pos + 1`` of the decode rows.  Returns the decode ids
+        and then the chunk's id, (max_slots + 1,)."""
+        dec_logits, _ = models.decode_step(self.params, self.cfg, dec_tokens,
+                                           self.cache, dec_tables)
+        pf_logits, _ = models.prefill_paged_padded(
+            self.params, self.cfg, pf_tokens, self.cache, pf_table, start,
+            slot, n)
+        return torch.cat([sampler.sample(dec_logits, self._gen, temperature),
+                          sampler.sample(pf_logits, self._gen, temperature)])
 
     # ------------------------------------------------------------------ time
     def now(self) -> float:
@@ -152,6 +279,8 @@ class TorchEngine(EngineCore):
                     work.chunk = work.req.prompt_len   # ring: one shot
                     firsts.append(self._run_prefill(work.req))
             self.apply_prefill(plan.prefills, firsts, self.now())
+        elif plan.kind == StepKind.MIXED:
+            self._run_mixed(plan)
         elif plan.kind == StepKind.DECODE:
             live = [r for r in plan.decodes
                     if self.scheduler.ensure_decode_capacity(r)]
@@ -179,7 +308,7 @@ class TorchEngine(EngineCore):
                                 layout="ring", device=self.device)
         logits, sub = models.prefill(self.params, self.cfg, tokens, sub)
         cache_utils.cache_insert(self.cache, sub, req.slot, self._axes)
-        first = int(sampler.sample(logits, self._gen, self.temperature)[0])
+        first = int(sampler.sample(logits, self._gen, self._temperature())[0])
         self._last_token[req.slot] = first
         return first
 
@@ -202,21 +331,58 @@ class TorchEngine(EngineCore):
             req.slot)
         if start + chunk < req.prompt_len:
             return None                     # chunk not final: no token yet
-        first = int(sampler.sample(logits, self._gen, self.temperature)[0])
+        first = int(sampler.sample(logits, self._gen, self._temperature())[0])
         self._last_token[req.slot] = first
         return first
+
+    # ------------------------------------------------------------------ mixed
+    @torch.inference_mode()
+    def _run_mixed(self, plan) -> None:
+        """One fused step: every live decode slot advances a token while
+        one prefill chunk computes.  Every input of the step has a fixed
+        shape (see ``_step_graph``)."""
+        if self._cache_layout != "paged":
+            raise RuntimeError(
+                f"{self.name}: mixed batching needs the paged cache "
+                f"layout (current: {self._cache_layout!r})")
+        work = plan.prefills[0]
+        req = work.req
+        live = [r for r in plan.decodes
+                if self.scheduler.ensure_decode_capacity(r)]
+        cap = self._mixed_cap
+        chunk = min(work.chunk, cap)
+        work.chunk = chunk                  # bookkeeping sees the clamp
+        start = req.prefilled
+        buf = np.zeros((1, cap), np.int64)
+        buf[0, :chunk] = req.prompt_tokens[start:start + chunk]
+        toks = self._run_step(
+            "mixed", dec_tokens=self._last_token[:, None], pf_tokens=buf,
+            dec_tables=self._block_table_rows(live),
+            pf_table=self._block_table_rows([req])[req.slot][None],
+            start=start, n=chunk, slot=req.slot,
+            temperature=self.temperature)
+        out = []
+        for r in live:
+            t = int(toks[r.slot])
+            self._last_token[r.slot] = t
+            out.append(t)
+        final = (start + chunk) >= req.prompt_len
+        first = int(toks[-1]) if final else None
+        if final:
+            self._last_token[req.slot] = first
+        now = self.now()
+        self.apply_prefill([work], [first], now)
+        if live:
+            self.apply_decode(live, out, now)
 
     # ----------------------------------------------------------------- decode
     @torch.inference_mode()
     def _run_decode(self, reqs: list[Request]) -> list[int]:
-        tokens = self._to_device(self._last_token[:, None].astype(np.int64))
-        tables = None
+        arrays = {"tokens": self._last_token[:, None],
+                  "temperature": self.temperature}
         if self._cache_layout == "paged":
-            tables = self._to_device(self._block_table_rows(reqs))
-        logits, self.cache = models.decode_step(self.params, self.cfg, tokens,
-                                                self.cache, tables)
-        toks = sampler.sample(logits, self._gen, self.temperature).cpu()
-        toks = toks.numpy()
+            arrays["tables"] = self._block_table_rows(reqs)
+        toks = self._run_step("decode", **arrays)
         out = []
         for r in reqs:
             t = int(toks[r.slot])

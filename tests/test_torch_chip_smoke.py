@@ -168,10 +168,9 @@ def test_expected_launches_follow_layout_and_flag(smoke, small):
                           SchedulerConfig(max_slots=2, num_pages=16,
                                           page_size=16, max_context=64),
                           cache_layout=layout, device="cpu")
-        eng.decode_steps = 5
-        assert set(smoke.expected_launches(eng, 3).values()) == {0}
+        assert set(smoke.expected_launches(eng, 3, 5).values()) == {0}
         eng.device = torch.device("cuda")       # as the card would count
-        want = smoke.expected_launches(eng, 3)
+        want = smoke.expected_launches(eng, 3, 5)
         n = cfg.n_layers
         if not use_pallas:
             assert set(want.values()) == {0}
@@ -201,10 +200,9 @@ def test_expected_launches_of_a_hybrid(smoke):
                           SchedulerConfig(max_slots=2, num_pages=16,
                                           page_size=16, max_context=64),
                           cache_layout="ring", device="cpu")
-        eng.decode_steps = 7
         eng.device = torch.device("cuda")       # as the card would count
         n = cfg.n_layers
-        assert smoke.expected_launches(eng, 2) == (
+        assert smoke.expected_launches(eng, 2, 7) == (
             {"paged_decode_attention": 0, "flash_attention": 2 * n,
              "decode_attention": 7 * n, "ssm_scan": 2 * n,
              "grouped_matmul": 0} if use_pallas
@@ -287,9 +285,8 @@ def test_expected_launches_of_moe(smoke, name):
                               SchedulerConfig(max_slots=2, num_pages=16,
                                               page_size=16, max_context=64),
                               cache_layout=layout, device="cpu")
-            eng.decode_steps = 7
             eng.device = torch.device("cuda")   # as the card would count
-            want = smoke.expected_launches(eng, 3)
+            want = smoke.expected_launches(eng, 3, 7)
             n = cfg.n_layers
             if not use_pallas:
                 assert set(want.values()) == {0}
@@ -297,6 +294,10 @@ def test_expected_launches_of_moe(smoke, name):
             assert want["grouped_matmul"] == 3 * 2 * (3 + 7)
             if layout == "paged":
                 assert want["paged_decode_attention"] == 7 * n
+                # two mixed steps: decode rows and a chunk, two forwards
+                mixed = smoke.expected_launches(eng, 3, 7, 2)
+                assert mixed["grouped_matmul"] == 3 * 2 * (3 + 7 + 2 * 2)
+                assert mixed["paged_decode_attention"] == 9 * n
             else:
                 assert (want["flash_attention"],
                         want["decode_attention"]) == (3 * n, 7 * n)
@@ -394,7 +395,8 @@ def test_expected_grouped_matmul_calls_follow_prefill_forwards(
     # paged: 50 + 14 of 40 in the first step, 26 + 30 in the second
     assert forwards == (4 if layout == "paged" else 3)
     eng.device = torch.device("cuda")           # as the card would count
-    want = smoke.expected_launches(eng, forwards)["grouped_matmul"]
+    want = smoke.expected_launches(eng, forwards,
+                                   res["runs"]["decode"])["grouped_matmul"]
     assert want == len(calls) == 3 * 2 * (forwards + eng.decode_steps)
 
 
@@ -621,8 +623,8 @@ def test_expected_launches_of_kimi_serve(smoke, layout):
     assert smoke.KIMI_FLASH_HEADS == (cfg.n_heads, cfg.n_kv_heads,
                                       cfg.d_head)
     eng = SimpleNamespace(cfg=cfg, device=torch.device("cuda"),
-                          cache_layout=layout, decode_steps=63)
-    want = smoke.expected_launches(eng, 10 if layout == "paged" else 8)
+                          cache_layout=layout)
+    want = smoke.expected_launches(eng, 10 if layout == "paged" else 8, 63)
     if layout == "paged":
         assert want == {"paged_decode_attention": 126, "flash_attention": 0,
                         "decode_attention": 0, "ssm_scan": 0,
@@ -653,7 +655,7 @@ def test_decode_profile_runs_on_cpu(smoke, monkeypatch, capsys):
         (3400.0, 40, "gemm")])
     smoke.profile_decode(eng, 10.0, "serve")
     out = capsys.readouterr().out
-    assert "decode step: device busy 1.00 ms of 10.00 ms" in out
+    assert "decode step (eager): device busy 1.00 ms of 10.00 ms" in out
     assert "decode attention kernels (split and merge): 0.150 ms/step in " \
            "4 calls/step" in out
     assert not eng.busy
@@ -673,3 +675,54 @@ def test_scan_case_scales_wide_heads(smoke):
     y, _ = smoke.ssm_scan_plain(q, k, v, log_a, h0, chunk=64)
     assert y.abs().max().item() < 2.0
     assert smoke.MLSTM_SCAN[3:5] == (512, 513)
+
+
+def test_mixed_parity_phase_runs_on_cpu(smoke, small, monkeypatch, capsys):
+    """The mixed parity phase at tiny-agent sizes: the serialized eager
+    run, the mixed step and the mixed step with a PrefixCache give equal
+    tokens, kernels on and off; the cached run finds wave 2's prefix."""
+    monkeypatch.setattr(smoke, "MIXED_PREFIX", 32)
+    monkeypatch.setattr(smoke, "MIXED_SUFFIXES", [10, 25, 40, 7])
+    monkeypatch.setattr(smoke, "MIXED_CHUNK", 16)
+    smoke.phase_mixed_parity(torch.device("cpu"), *small)
+    out = capsys.readouterr().out
+    assert out.count("greedy tokens equal across ['serialized eager', "
+                     "'mixed graph', 'mixed graph cached']") == 2
+    assert out.count("wave 2 prefilled 114 of 210 prompt tokens (96 "
+                     "cached)") == 2
+
+
+def test_serve_mixed_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """The serve mixed phase at tiny-agent sizes, graph (built once on
+    the CPU) and eager: both waves finish, wave 2 computes only the
+    suffixes past the cached system prompt, the tokens of the two runs
+    are equal, and both profiles run (device rows faked)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(smoke, "SERVE_LENS", [20, 33, 47, 5, 60, 12, 40, 28])
+    monkeypatch.setattr(smoke, "MIXED_SCHED", dict(
+        max_slots=8, num_pages=300, page_size=16, max_context=640,
+        mixed=True, prefill_chunk=64, max_batch_tokens=72))
+    monkeypatch.setattr(smoke, "SYSTEM_PROMPT", 48)
+    monkeypatch.setattr(smoke, "PROFILE_LEN", 64)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "device_rows", lambda prof: [
+        (400.0, 8, "void paged_split_kernel<__nv_bfloat16, 128, 4>(...)"),
+        (3400.0, 40, "gemm")])
+    cfg = get_config("tiny-agent").replace(dtype="float32", use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    launches = smoke.phase_serve_mixed(torch.device("cpu"), cfg, params,
+                                       "serve mixed", max_new=8)
+    assert set(launches.values()) == {0}           # CPU: plain versions
+    out = capsys.readouterr().out
+    assert out.count("prefill tokens computed 1709 of 2045 uncached "
+                     "(wave 2: 1464 of 1800)") == 2
+    assert "captures {'mixed': 1, 'decode': 1}" in out
+    for how in ("graph", "eager"):
+        assert f"mixed step ({how}): device busy 0.95 ms" in out
+        assert f"decode step ({how}): device busy 0.95 ms" in out
+    assert "greedy tokens equal (128 tokens)" in out

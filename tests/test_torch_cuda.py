@@ -28,6 +28,7 @@ from repro_torch.kernels.grouped_matmul import (  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan_plain  # noqa: E402
+from repro_torch.serving.graphs import WARMUP_RUNS  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -610,3 +611,138 @@ def test_grouped_matmul_kernel_every_row_count(cuda_device, c):
     out = grouped_matmul(x, w, cnt)
     torch.cuda.synchronize()
     check_live_rows(out, x, w, cnt)
+
+
+# ---------------------------------------------------------------------------
+# Serving steps replayed as CUDA graphs (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+def graph_case(dev, name):
+    from repro_torch import models
+    from repro_torch.configs import get_config, get_smoke
+
+    cfg = (get_config(name) if name == "tiny-agent" else get_smoke(name))
+    cfg = cfg.replace(dtype="bfloat16", use_pallas=True)
+    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    return cfg, params
+
+
+def step_engine(cfg, params, dev, layout, graphs, mixed=False):
+    from repro_torch.serving.engine import TorchEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    return TorchEngine(cfg, params, SchedulerConfig(
+        max_slots=4, num_pages=64, page_size=16, max_context=256,
+        max_batch_tokens=96, prefill_chunk=24 if mixed else 0, mixed=mixed),
+        cache_layout=layout, device=dev, cuda_graphs=graphs)
+
+
+def served_tokens(eng, lens=(40, 77, 19, 130, 64), max_new=8, seed=3):
+    from repro_torch.core.types import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt_len=n, max_new_tokens=max_new,
+                    prompt_tokens=rng.integers(0, eng.cfg.vocab, n)
+                    .astype(np.int32)) for n in lens]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_idle()
+    assert all(len(r.output_tokens) == max_new for r in reqs)
+    return [list(r.output_tokens) for r in reqs]
+
+
+def moe_layers(cfg):
+    return sum(seg.repeat * n for seg in cfg.plan()
+               for spec, n in seg.pattern if spec.moe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layout,mixed", [
+    ("tiny-agent", "paged", False), ("tiny-agent", "ring", False),
+    ("tiny-agent", "paged", True), ("hymba-1.5b", "ring", False),
+    ("arctic-480b", "paged", True), ("arctic-480b", "ring", False)])
+def test_graph_replay_matches_eager_step(cuda_device, name, layout, mixed):
+    """bf16, kernels on: the decode (and mixed) steps replayed as CUDA
+    graphs give the eager steps' greedy ids, bit for bit, with five
+    requests over four slots (admission churn); each step is captured
+    once, and the decode kernels and grouped_matmul count exactly one
+    launch per layer (three per MoE layer per forward) per body run,
+    warm-up runs and replays alike."""
+    cfg, params = graph_case(cuda_device, name)
+    n, moe = cfg.n_layers, moe_layers(cfg)
+    toks = {}
+    for graphs in (True, False):
+        eng = step_engine(cfg, params, cuda_device, layout, graphs, mixed)
+        before = (paged_decode_attention.launches, decode_attention.launches,
+                  grouped_matmul.launches)
+        toks[graphs] = served_tokens(eng)
+        torch.cuda.synchronize()
+        runs = eng.step_runs
+        assert eng.step_captures == ({"decode": 1, "mixed": 1} if mixed
+                                     else {"decode": 1})
+        if not mixed:                   # a graph adds its warm-up runs
+            assert runs["decode"] == eng.decode_steps + (
+                WARMUP_RUNS if graphs else 0)
+        dec_kernel = (paged_decode_attention.launches - before[0]
+                      if layout == "paged"
+                      else decode_attention.launches - before[1])
+        assert dec_kernel == n * (runs["decode"] + runs["mixed"])
+        if moe and (mixed or layout == "ring"):
+            prefills = 0 if mixed else 5            # ring: one per prompt
+            assert grouped_matmul.launches - before[2] == 3 * moe * (
+                prefills + runs["decode"] + 2 * runs["mixed"])
+        eng.release_graphs()
+    assert toks[True] == toks[False]
+
+
+@pytest.mark.cuda
+def test_graph_temperature_knob_and_generator(cuda_device):
+    """The temperature knob moves at the next replay with no new capture,
+    and the registered generator advances on every replay."""
+    cfg, params = graph_case(cuda_device, "tiny-agent")
+    greedy = served_tokens(step_engine(cfg, params, cuda_device, "paged",
+                                       True), lens=(30,), max_new=12)
+    eng = step_engine(cfg, params, cuda_device, "paged", True)
+    from repro_torch.core.types import Request
+    p = np.random.default_rng(3).integers(0, cfg.vocab, 30).astype(np.int32)
+    r = Request(prompt_len=30, max_new_tokens=12, prompt_tokens=p)
+    eng.submit(r)
+    offsets = []
+    while r.state.value != "finished":
+        if r.generated == 4:
+            eng.set_param("temperature", 1e4)
+        eng.step()
+        offsets.append(eng._gen.get_offset())
+    assert eng.step_captures["decode"] == 1
+    assert r.output_tokens[:4] == greedy[0][:4]
+    assert r.output_tokens[4:] != greedy[0][4:]
+    assert all(b > a for a, b in zip(offsets[2:], offsets[3:]))
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device):
+    """No fallback: a host sync in the body fails the eager warm-up (sync
+    debug mode "error"), and one that shows only inside the capture
+    fails the capture; both raise, and nothing is counted as captured."""
+    from repro_torch.serving.graphs import StepGraph
+
+    spec = {"a": ((4,), torch.float32)}
+    g = StepGraph(lambda a: a * 2 + a.sum().item(), spec, cuda_device,
+                  graphed=True)
+    with pytest.raises(RuntimeError):
+        g.run(a=np.ones(4, np.float32))
+    assert g.captures == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    def late_sync(a):
+        if torch.cuda.is_current_stream_capturing():
+            a.sum().item()
+        return a * 2
+
+    g = StepGraph(late_sync, spec, cuda_device, graphed=True)
+    with pytest.raises(RuntimeError):
+        g.run(a=np.ones(4, np.float32))
+    assert g.captures == 0
+    ok = StepGraph(lambda a: a * 2, spec, cuda_device, graphed=True)
+    assert ok.run(a=np.arange(4, dtype=np.float32)).tolist() == [0, 2, 4, 6]

@@ -155,17 +155,34 @@ def test_decode_reaches_kernel_wrapper_with_live_table(monkeypatch):
 
 
 def test_unported_engine_paths_raise():
+    """The mixed step is ported; what stays refused is mixed batching off
+    the paged layout, as the reference's three guards: at construction,
+    on the ``mixed`` knob, and on a ``cache_layout`` flip to ring (each a
+    RuntimeError that reverts the knob)."""
     _, tcfg, tree = setup()
     params = tmodels.from_jax(tcfg, tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        TorchEngine(tcfg, params, SchedulerConfig(mixed=True), device="cpu")
+    with pytest.raises(RuntimeError, match="paged"):
+        TorchEngine(tcfg, params, SchedulerConfig(mixed=True),
+                    cache_layout="ring", device="cpu")
     with pytest.raises(ValueError, match="layout"):
         TorchEngine(tcfg, params, SchedulerConfig(), cache_layout="ragged",
                     device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        TorchEngine(tcfg, params, SchedulerConfig(), device="cpu",
+                    cuda_graphs=True)
+    ring = TorchEngine(tcfg, params, SchedulerConfig(**sched_kw()),
+                       cache_layout="ring", device="cpu")
+    with pytest.raises(RuntimeError, match="paged"):
+        ring.set_param("mixed", True)
+    assert ring.scheduler.cfg.mixed is False
     eng = TorchEngine(tcfg, params, SchedulerConfig(**sched_kw()),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        eng.set_param("mixed", True)
-    assert eng.scheduler.cfg.mixed is False
     # use_pallas picks the paged layout, as the reference's default rule
     assert eng.get_param("cache_layout") == "paged"
+    eng.set_param("mixed", True)
+    with pytest.raises(RuntimeError, match="mixed"):
+        eng.set_param("cache_layout", "ring")
+    assert eng.get_param("cache_layout") == "paged"
+    eng.set_param("mixed", False)
+    eng.set_param("cache_layout", "ring")
+    assert eng.cache_layout == "ring"

@@ -33,7 +33,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.configs.hymba_1_5b", "repro_torch.models.moe",
               "repro_torch.kernels.grouped_matmul",
               "repro_torch.configs.arctic_480b",
-              "repro_torch.configs.kimi_k2_1t_a32b"):
+              "repro_torch.configs.kimi_k2_1t_a32b",
+              "repro_torch.serving.graphs",
+              "repro_torch.serving.prefix_cache"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
