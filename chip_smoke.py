@@ -33,6 +33,11 @@ code is non-zero and the final JSON line is not printed:
                  second over one 256-token prefix, after a prefill_chunk
                  move), also with a PrefixCache attached; the mixed step
                  is captured once, its warm-up under sync debug "error".
+17. control parity -- (after 14) the same model, paged (serialized and
+                 mixed) and ring: a request pinned in its slot, or
+                 offloaded to pinned host memory and resumed or migrated
+                 to a sibling engine, while another decodes beside it,
+                 continues with an unsuspended run's greedy tokens.
 6. serve      -- agent-7b in full (32 layers, bf16), paged layout, serves
                  8 requests; the paged kernel launches once per layer per
                  decode step; a profile of four decode steps follows.
@@ -46,6 +51,21 @@ code is non-zero and the final JSON line is not printed:
                  1024-token system prompt with 64-256-token suffixes;
                  prefill tokens computed against the uncached count, step
                  times, profiles of decode and mixed steps.
+18. serve control -- (after 15) the same weights on two paged mixed
+                 engines, llm-0 and llm-1, under the control plane: 16
+                 requests (every third INTERACTIVE) on llm-0, a Registry,
+                 a Collector -> CentralPoller -> StateStore metrics plane,
+                 a Controller ticking serve_llm's intent between steps
+                 (admit_priority_min and the captured mixed step's
+                 prefill_chunk set and reset), a Tracer on both engines;
+                 requests 0 and 1 pinned and 2 and 3 offloaded to pinned
+                 host memory after 16 tokens, held 24 steps, then 0-2
+                 resumed and 3 migrated to llm-1.  Every request
+                 finishes, the pinned slots' pos holds, the offload frees
+                 device memory, one capture per step kind per engine,
+                 the expected action log, exact launch counts; graph and
+                 eager runs with equal tokens, and an unsuspended run
+                 each resumed request's tokens are counted against.
 8. hymba      -- hymba-1.5b width at 3 layers in f32 on the ring layout:
                  greedy tokens equal with and without the kernels, for
                  full attention and a window whose ring wraps, prompts
@@ -77,7 +97,7 @@ code is non-zero and the final JSON line is not printed:
                  with exact launch counts of all four kernels it runs;
                  each with a profile.
 
-Every engine phase (4 to 16) replays its decode and mixed steps as CUDA
+Every engine phase (4 to 18) replays its decode and mixed steps as CUDA
 graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
 13, 15, 16) run each request set a second time on an eager engine: the
 greedy tokens are equal, and the mean step times and profiles of both
@@ -107,7 +127,10 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from repro_torch import models  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.types import Request, RequestState  # noqa: E402
+from repro_torch.core import Tracer  # noqa: E402
+from repro_torch.core.metrics import Collector  # noqa: E402
+from repro_torch.core.types import Priority, Request, RequestState  # noqa: E402
+from repro_torch.examples.serve_llm import tick, wire  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -1150,9 +1173,9 @@ LAYOUTS = [("paged", True), ("paged", False), ("ring", True),
 
 
 def small_engine(cfg, params, layout: str, use_pallas: bool, dev,
-                 name: str) -> TorchEngine:
+                 name: str, **sched) -> TorchEngine:
     return TorchEngine(cfg.replace(use_pallas=use_pallas), params,
-                       SchedulerConfig(**PARITY_SCHED), name=name,
+                       SchedulerConfig(**PARITY_SCHED, **sched), name=name,
                        cache_layout=layout, device=dev)
 
 
@@ -1503,6 +1526,333 @@ def phase_serve_mixed(dev, cfg, params, phase: str,
     return main
 
 
+# ---------------------------------------------------------------------------
+# The control plane and tool-call suspend/resume over live engines
+# ---------------------------------------------------------------------------
+
+# a request parks after CONTROL_AT of its tokens, for CONTROL_HOLD steps
+# of other traffic
+CONTROL_AT = 4
+CONTROL_HOLD = 8
+CONTROL_TRAFFIC = 333                # the prompt decoding beside a parked one
+
+
+def host_gates(eng: TorchEngine, req: Request, mem_before: int) -> int:
+    """A host-tier suspend left pinned CPU tensors of ``nbytes`` in the
+    engine's host store, and the device holds no more memory than before
+    it.  Returns the bytes."""
+    state = eng._host_store[req.req_id]
+    leaves = cache_utils._leaves(state["cache"])
+    bad = [tuple(t.shape) for t in leaves if t.device.type != "cpu"
+           or (eng.device.type == "cuda" and not t.is_pinned())]
+    if bad:
+        raise AssertionError(f"{eng.name}: host-tier leaves not in pinned "
+                             f"host memory: {bad[:4]}")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    if nbytes != state["nbytes"]:
+        raise AssertionError(f"host store {nbytes} B, nbytes "
+                             f"{state['nbytes']}")
+    if torch.cuda.memory_allocated() > mem_before:
+        raise AssertionError(f"{eng.name}: device memory grew across the "
+                             f"offload ({mem_before} -> "
+                             f"{torch.cuda.memory_allocated()} B)")
+    return nbytes
+
+
+def park(eng: TorchEngine, prompt, max_new: int) -> Request:
+    """Serve ``prompt`` until ``CONTROL_AT`` tokens are out."""
+    r = Request(prompt_len=len(prompt), max_new_tokens=max_new,
+                prompt_tokens=prompt)
+    eng.submit(r)
+    while r.generated < CONTROL_AT:
+        eng.step()
+    return r
+
+
+def phase_control_parity(dev, cfg, params) -> None:
+    """Tool-call suspend/resume on live engines in f32: a request parked
+    in its slot (pin) or in pinned host memory (host) while another
+    decodes beside it, then resumed on its engine or migrated to a
+    sibling from the host tier, continues with an unsuspended run's
+    greedy tokens; paged (serialized and mixed) and ring, kernels on.
+    The pinned slot's ``pos`` does not move across the hold."""
+    max_new = 16
+    prompt, other = (r.prompt_tokens for r in make_requests(
+        [MIGRATE_LEN, CONTROL_TRAFFIC], max_new, cfg.vocab, seed=5))
+    for layout, mixed in (("paged", False), ("paged", True),
+                          ("ring", False)):
+        def fresh(name):
+            return small_engine(cfg, params, layout, True, dev, name,
+                                mixed=mixed, host_capacity_pages=16)
+
+        r = Request(prompt_len=len(prompt), max_new_tokens=max_new,
+                    prompt_tokens=prompt)
+        serve(fresh("unsuspended"), [r])
+        want = list(r.output_tokens)
+        what = f"{layout}{' mixed' if mixed else ''}"
+        for tier in ("pin", "host", "migrate"):
+            eng = fresh(f"control-{tier}")
+            r = park(eng, prompt, max_new)
+            pos = int(eng.cache["pos"][r.slot])
+            mem = torch.cuda.memory_allocated()
+            got = eng.suspend_request(r, offload=tier != "pin")
+            if got != ("pin" if tier == "pin" else "host"):
+                raise AssertionError(f"{what} {tier}: suspended to {got}")
+            nbytes = host_gates(eng, r, mem) if tier != "pin" else 0
+            eng.submit(Request(prompt_len=len(other), max_new_tokens=max_new,
+                               prompt_tokens=other))
+            for _ in range(CONTROL_HOLD):
+                eng.step()
+            if tier == "pin":
+                if int(eng.cache["pos"][r.slot]) != pos:
+                    raise AssertionError(
+                        f"{what}: the pinned slot's pos moved from {pos} "
+                        f"to {int(eng.cache['pos'][r.slot])}")
+                home = eng
+                landed = eng.resume_suspended(r)
+            elif tier == "host":
+                home = eng
+                landed = eng.resume_suspended(r)
+            else:
+                home = fresh("control-dst")
+                landed = "hit" if eng.migrate_suspended(r, home) else "none"
+            if landed != ("pin" if tier == "pin" else "hit"):
+                raise AssertionError(f"{what} {tier}: resumed as {landed}")
+            eng.run_until_idle()
+            home.run_until_idle()
+            if list(r.output_tokens) != want:
+                raise AssertionError(
+                    f"{what} {tier}: tokens changed across the suspend:\n"
+                    f"{list(r.output_tokens)}\n{want}")
+            if any(v != 1 for e in {eng, home}
+                   for v in e.step_captures.values()):
+                raise AssertionError(f"{what} {tier}: captures "
+                                     f"{dict(eng.step_captures)}")
+            log("control parity", f"agent-7b width, 2 layers, f32, {what}: "
+                f"{tier} after {CONTROL_AT} tokens, {CONTROL_HOLD} steps of "
+                f"a {CONTROL_TRAFFIC}-token request beside it"
+                + (f", {nbytes / 2**20:.1f} MiB in pinned host memory"
+                   if nbytes else f", pos held at {pos}")
+                + f": the {max_new} tokens equal the unsuspended run's")
+            release(eng)
+            if home is not eng:
+                release(home)
+
+
+# serve control: two engines over one set of weights, llm-0 taking the
+# traffic, llm-1 the migrated request
+CONTROL_SCHED = dict(MIXED_SCHED, host_capacity_pages=64)
+CONTROL_LENS = [int(x) for x in np.random.default_rng(4).integers(256, 1025,
+                                                                   16)]
+CONTROL_PARK_AT = 16                 # tokens out before a request parks
+CONTROL_PARK_FOR = 24                # steps of llm-0 it stays parked
+# serve_llm's intent, its two rules also moving the chunk knob of the
+# captured mixed step, and a rule first that reopens admission when
+# llm-0 runs nothing: the shed rule holds every LOW request, and with
+# eight of them waiting queue_len never falls to 2 by itself
+CONTROL_INTENT = """
+objective: minimize p95(llm-0.latency)
+rule drain: when last(llm-0.num_running) <= 0
+    => reset llm-0.admit_priority_min
+rule shed: when last(llm-0.queue_len) > 6
+    => set llm-0.admit_priority_min 1; set llm-0.prefill_chunk 256
+rule open: when last(llm-0.queue_len) <= 2
+    => reset llm-0.admit_priority_min; reset llm-0.prefill_chunk
+"""
+CONTROL_ACTIONS = [("set", "llm-0", "admit_priority_min=1"),
+                   ("set", "llm-0", "prefill_chunk=256"),
+                   ("reset", "llm-0", "admit_priority_min"),
+                   ("reset", "llm-0", "prefill_chunk")]
+
+
+def control_requests(vocab: int) -> list:
+    """16 requests, every third INTERACTIVE and the rest LOW."""
+    reqs = make_requests(CONTROL_LENS, 64, vocab, seed=4)
+    for i, r in enumerate(reqs):
+        r.priority = Priority.INTERACTIVE if i % 3 == 0 else Priority.LOW
+    return reqs
+
+
+def serve_control(dev, cfg, params, how: str, suspend: bool) -> dict:
+    """Serve the 16 requests on llm-0 under ``CONTROL_INTENT``, the
+    controller ticking between steps as serve_llm's loop does, a Tracer
+    on both engines.  With ``suspend`` requests 0 and 1 are pinned and
+    2 and 3 offloaded to the host after ``CONTROL_PARK_AT`` tokens, held
+    ``CONTROL_PARK_FOR`` steps; then 0-2 resume on llm-0 and 3 migrates
+    to llm-1.  Returns the run's tokens, times and counts."""
+    engines, collector = [], Collector("serve")
+    for name in ("llm-0", "llm-1"):
+        engines.append(TorchEngine(
+            cfg, params, SchedulerConfig(**CONTROL_SCHED), name=name,
+            collector=collector, cache_layout="paged", device=dev,
+            cuda_graphs=None if how == "graph" else False))
+    llm0, llm1 = engines
+    registry, poller, controller = wire(llm0, collector, CONTROL_INTENT)
+    registry.register(llm1)
+    tracer = Tracer(llm0.now)
+    tracer.set_scope(None, 1.0)
+    for e in engines:
+        e.tracer = tracer
+    reqs = control_requests(cfg.vocab)
+    parked = {}                             # index -> (tier, step, pos)
+    moves, times = [], {"decode": [], "mixed": [], "control": []}
+    runs = {e.name: dict(e.step_runs) for e in engines}
+    torch.cuda.reset_peak_memory_stats()
+    for r in reqs:
+        llm0.submit(r)
+    t0 = time.perf_counter()
+    while any(e.busy for e in engines):
+        for e in engines:
+            if not e.busy:
+                continue
+            made = sum(e.step_captures.values())
+            t = time.perf_counter()
+            kind = e.step()
+            torch.cuda.synchronize()
+            if sum(e.step_captures.values()) == made and \
+                    kind.value in ("decode", "mixed") and e is llm0:
+                times[kind.value].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        tick(llm0, poller, controller)
+        times["control"].append(time.perf_counter() - t)
+        if not suspend:
+            continue
+        for i, r in enumerate(reqs[:4]):
+            if i not in parked and r.generated >= CONTROL_PARK_AT:
+                tier = "pin" if i < 2 else "host"
+                pos = int(llm0.cache["pos"][r.slot])
+                mem = torch.cuda.memory_allocated()
+                t = time.perf_counter()
+                got = llm0.suspend_request(r, offload=tier == "host")
+                dt = time.perf_counter() - t
+                if got != tier:
+                    raise AssertionError(f"request {i} suspended to {got}")
+                parked[i] = (tier, llm0.steps, pos)
+                if tier == "host":
+                    moves.append((i, "extract", host_gates(llm0, r, mem),
+                                  dt))
+            elif i in parked and parked[i][1] is not None and \
+                    llm0.steps - parked[i][1] >= CONTROL_PARK_FOR:
+                tier, _, pos = parked[i]
+                if tier == "pin" and int(llm0.cache["pos"][r.slot]) != pos:
+                    raise AssertionError(
+                        f"request {i}: the pinned slot's pos moved from "
+                        f"{pos} to {int(llm0.cache['pos'][r.slot])}")
+                nbytes = llm0._host_store.get(r.req_id, {}).get("nbytes", 0)
+                t = time.perf_counter()
+                if i == 3:
+                    landed = "hit" if llm0.migrate_suspended(r, llm1) \
+                        else "none"
+                else:
+                    landed = llm0.resume_suspended(r)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                if landed != ("pin" if tier == "pin" else "hit"):
+                    raise AssertionError(f"request {i} resumed as {landed}")
+                parked[i] = (tier, None, pos)
+                if tier == "host":
+                    moves.append((i, "inject" if i < 3 else "migrate",
+                                  nbytes, dt))
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if r.state != RequestState.FINISHED or \
+                len(r.output_tokens) != r.max_new_tokens:
+            raise AssertionError(f"{r.req_id} ended {r.state} with "
+                                 f"{len(r.output_tokens)} tokens")
+    if suspend and sorted(parked) != [0, 1, 2, 3]:
+        raise AssertionError(f"parked only {sorted(parked)}")
+    log_ = [(a.kind, a.target, a.detail) for a in controller.actions]
+    if log_ != CONTROL_ACTIONS:
+        raise AssertionError(f"controller actions {log_}, expected "
+                             f"{CONTROL_ACTIONS}")
+    for e in engines:
+        caps = dict(e.step_captures)
+        if any(v != 1 for v in caps.values()) or (
+                e is llm0 and set(caps) != {"decode", "mixed"}):
+            raise AssertionError(f"{e.name}: captures {caps}")
+    used = {e.name: {k: e.step_runs[k] - runs[e.name].get(k, 0)
+                     for k in ("decode", "mixed")} for e in engines}
+    want = dict.fromkeys(KERNELS, 0)
+    for e in engines:
+        for k, v in expected_launches(e, 0, used[e.name]["decode"],
+                                      used[e.name]["mixed"]).items():
+            want[k] += v
+    return {"tokens": [list(r.output_tokens) for r in reqs], "times": times,
+            "moves": moves, "wall": wall, "runs": used, "want": want,
+            "pins": {i: p[2] for i, p in parked.items() if p[0] == "pin"},
+            "captures": {e.name: dict(e.step_captures) for e in engines},
+            "spans": tracer.spans_total, "engines": engines,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def ms(xs) -> float:
+    return 1e3 * sum(xs) / max(len(xs), 1)
+
+
+def phase_serve_control(dev, cfg, params, phase: str = "serve control"
+                        ) -> dict:
+    """The control plane over two live engines at full agent-7b: the
+    suspended run with its CUDA graphs, the same run eager, and an
+    unsuspended graph run; every gate of ``serve_control``, exact
+    kernel launch counts, graph and eager tokens equal, and each resumed
+    request's tokens against the unsuspended run's.  Returns the graph
+    run's launches."""
+    out, gpu = {}, card()
+    for how, suspend in (("graph", True), ("eager", True),
+                         ("unsuspended", False)):
+        if how == "graph":
+            for fn in KERNELS.values():         # the main path's counts
+                fn.launches = 0
+        before = launch_counts()
+        res = serve_control(dev, cfg, params,
+                            "eager" if how == "eager" else "graph", suspend)
+        after = launch_counts()
+        used = {k: after[k] - before[k] for k in KERNELS}
+        if used != res["want"]:
+            raise AssertionError(f"{phase} {how}: kernel launches {used}, "
+                                 f"expected {res['want']}")
+        t = res["times"]
+        log(phase, f"{how}, {gpu}: 16 requests (prompts {CONTROL_LENS}, "
+            f"64 new tokens, every third INTERACTIVE) on llm-0, all "
+            f"FINISHED in {res['wall']:.3f} s; mean decode step {ms(t['decode']):.2f} ms "
+            f"({len(t['decode'])} steps), mean mixed step "
+            f"{ms(t['mixed']):.2f} ms ({len(t['mixed'])} steps), controller "
+            f"poll + tick {ms(t['control']):.3f} ms a step "
+            f"({len(t['control'])} ticks); captures {res['captures']}; "
+            f"body runs {res['runs']}; kernel launches {used}; tracer spans "
+            f"{res['spans']}; max_memory_allocated "
+            f"{res['peak'] / 2**30:.2f} GiB")
+        for i, kind, nbytes, dt in res["moves"]:
+            log(phase, f"{how}: request {i} host tier {kind} "
+                f"{nbytes / 2**20:.1f} MiB in {1e3 * dt:.3f} ms, "
+                f"{nbytes / dt / 1e9:.2f} GB/s (pinned host memory)")
+        for i, pos in res["pins"].items():
+            log(phase, f"{how}: request {i} pinned at pos {pos}, held "
+                f"across {CONTROL_PARK_FOR} steps")
+        for e in res.pop("engines"):
+            release(e)
+        out[how] = res
+        if how == "graph":
+            main = used
+    g, e, u = (out[k]["tokens"] for k in ("graph", "eager", "unsuspended"))
+    if g != e:
+        raise AssertionError(f"{phase}: graph and eager tokens differ")
+    for i in range(4):
+        same = sum(a == b for a, b in zip(g[i], u[i]))
+        first = next((k for k, (a, b) in enumerate(zip(g[i], u[i]))
+                      if a != b), None)
+        log(phase, f"request {i} ({('pin', 'pin', 'host', 'migrate')[i]}): "
+            f"{same} of {len(u[i])} tokens equal the unsuspended run's"
+            + ("" if first is None else f"; first differs at token {first}"))
+    log(phase, f"graph vs eager: mean decode step "
+        f"{ms(out['graph']['times']['decode']):.2f} vs "
+        f"{ms(out['eager']['times']['decode']):.2f} ms, mixed step "
+        f"{ms(out['graph']['times']['mixed']):.2f} vs "
+        f"{ms(out['eager']['times']['mixed']):.2f} ms; greedy tokens equal "
+        f"({sum(map(len, g))} tokens)")
+    return main
+
+
 # the decode attention kernels' names in a profile: the split kernels of
 # either layout and the merge they share
 DECODE_KERNELS = ("paged_split_kernel", "decode_split_kernel",
@@ -1742,6 +2092,7 @@ def main() -> int:
     phase_parity(dev, small, params)
     phase_migrate(dev, small, params)
     phase_mixed_parity(dev, small, params)
+    phase_control_parity(dev, small, params)
     free(params)
 
     cfg = get_config("agent-7b").replace(use_pallas=True)
@@ -1749,7 +2100,8 @@ def main() -> int:
     phase_serve(dev, cfg, params, "paged", "serve")
     phase_serve(dev, cfg, params, "ring", "serve ring",
                 prefill_profile=True)
-    mixed = phase_serve_mixed(dev, cfg, params, "serve mixed")
+    phase_serve_mixed(dev, cfg, params, "serve mixed")
+    control = phase_serve_control(dev, cfg, params)
     free(params)
 
     # hymba-1.5b width at 3 layers (global, SWA, global); PARITY_SWA's
@@ -1806,7 +2158,7 @@ def main() -> int:
     phase_serve(dev, cfg, params, "ring", "serve kimi ring")
     free(params)
 
-    main_path = {"paged_decode_attention": mixed, "flash_attention": hymba,
+    main_path = {"paged_decode_attention": control, "flash_attention": hymba,
                  "decode_attention": hymba, "ssm_scan": hymba,
                  "grouped_matmul": arctic}
     for row in rows:

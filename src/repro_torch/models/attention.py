@@ -24,7 +24,7 @@ returned.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -165,11 +165,16 @@ def init_kv_cache(batch: int, size: int, hkv: int, dh: int,
 
 
 def cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                start_pos: torch.Tensor) -> KVCache:
+                start_pos: torch.Tensor,
+                live: Optional[torch.Tensor] = None) -> KVCache:
     """Write S_new tokens at absolute positions start_pos..start_pos+S_new
     (start_pos (B,) int32), in place.  If S_new exceeds the ring size only
     the last ``size`` tokens are written (the older ones would be
-    overwritten anyway), which keeps the scatter slots unique."""
+    overwritten anyway), which keeps the scatter slots unique.  ``live``
+    (B,) bool, when given, marks the rows to write: every other row
+    writes back what its slots hold, so an empty or parked slot's ring
+    and ``kpos`` are left as they were (the shapes stay fixed for a
+    captured step)."""
     b, s_new = k_new.shape[:2]
     size = cache.k.shape[1]
     start = start_pos.long()
@@ -181,9 +186,18 @@ def cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     pos = start[:, None] + torch.arange(s_new, device=start.device)[None, :]
     slots = torch.remainder(pos, size)
     bidx = torch.arange(b, device=start.device)[:, None].expand(b, s_new)
-    cache.k.index_put_((bidx, slots), k_new.to(cache.k.dtype))
-    cache.v.index_put_((bidx, slots), v_new.to(cache.v.dtype))
-    cache.kpos.index_put_((bidx, slots), pos.to(torch.int32))
+    k_new, v_new = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+    pos = pos.to(torch.int32)
+    if live is not None:
+        keep = ~live[:, None]                            # (B, 1)
+        k_new = torch.where(keep[..., None, None], cache.k[bidx, slots],
+                            k_new)
+        v_new = torch.where(keep[..., None, None], cache.v[bidx, slots],
+                            v_new)
+        pos = torch.where(keep, cache.kpos[bidx, slots], pos)
+    cache.k.index_put_((bidx, slots), k_new)
+    cache.v.index_put_((bidx, slots), v_new)
+    cache.kpos.index_put_((bidx, slots), pos)
     return cache
 
 
@@ -307,14 +321,16 @@ def self_attention_paged(params: dict, x: torch.Tensor, cache: PagedKVCache,
 
 def self_attention_cached(params: dict, x: torch.Tensor, cache: KVCache,
                           cfg: ModelConfig, spec: BlockSpec,
-                          positions: torch.Tensor
+                          positions: torch.Tensor,
+                          live: Optional[torch.Tensor] = None
                           ) -> tuple[torch.Tensor, KVCache]:
     """Write this block of tokens into the ring, then attend.  Decode
     (Sq = 1) with ``cfg.use_pallas`` runs the ring decode kernel over the
-    ring and its ``kpos``."""
+    ring and its ``kpos``.  Rows outside ``live`` (B,) bool leave their
+    ring untouched (``cache_write``)."""
     q, k, v = qkv_project(params, x, cfg, positions)
     pos1 = _pos1d(positions)
-    cache = cache_write(cache, k, v, pos1[:, 0])
+    cache = cache_write(cache, k, v, pos1[:, 0], live)
     if cfg.use_pallas and q.shape[1] == 1:
         out = decode_attention(q, cache.k, cache.v, cache.kpos,
                                pos1[:, 0].contiguous(), window=spec.window)

@@ -139,13 +139,16 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 spec: BlockSpec, positions: torch.Tensor, cache: dict,
                 tables: Optional[torch.Tensor] = None,
-                mode: Optional[str] = None) -> torch.Tensor:
+                mode: Optional[str] = None,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B,S,d); positions: (B,S); tables: (B,P) physical page ids.
     Returns the block's output; the layer's cache is updated in place.
     A ring cache needs ``mode``: ``"prefill"`` (one shot from position
     0) or ``"step"`` (write-then-attend).  The paged pool serves prefill
     and decode alike, so it takes no mode; this slice has no train
-    mode."""
+    mode.  A ``"step"`` leaves the ring and SSM state of every row
+    outside ``live`` (B,) bool as they were; a paged row outside it has
+    an all -1 table row, so its writes already land in the sink."""
     _supported(spec)
     xr = rmsnorm(params["norm1"], x, cfg.norm_eps)
     kv = cache["kv"]
@@ -159,7 +162,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                       positions)
     elif mode == "step":
         a, _ = self_attention_cached(params["attn"], xr, kv, cfg, spec,
-                                     positions)
+                                     positions, live)
     else:
         raise ValueError(f"a ring cache needs mode 'prefill' or 'step', "
                          f"got {mode!r}")
@@ -168,7 +171,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
             m, st = ssm.mamba_branch(params["mamba"], xr, cfg)
         else:
             m, st = ssm.mamba_branch_step(params["mamba"], xr, cache["ssm"],
-                                          cfg)
+                                          cfg, live)
         for old, new in zip(cache["ssm"], st):
             old.copy_(new)
         x = x + 0.5 * (a + m)

@@ -19,7 +19,7 @@ model dtype.  The mLSTM and sLSTM blocks (xLSTM) wait for their slice.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -157,8 +157,11 @@ def init_ssm_state(batch: int, cfg: ModelConfig, dtype: torch.dtype,
 
 
 def mamba_branch_step(params: dict, x: torch.Tensor, state: SSMState,
-                      cfg: ModelConfig) -> tuple[torch.Tensor, SSMState]:
-    """Decode: x (B,1,d)."""
+                      cfg: ModelConfig, live: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, SSMState]:
+    """Decode: x (B,1,d).  Rows outside ``live`` (B,) bool, when given,
+    keep their state: the returned state holds their old ``h`` and
+    ``conv``."""
     b = x.shape[0]
     d_inner, nh, ds = mamba_dims(cfg)
     xs, z, b_in, c_out, dt, log_a = _mamba_qkv(params, x, cfg)
@@ -172,4 +175,7 @@ def mamba_branch_step(params: dict, x: torch.Tensor, state: SSMState,
     y = y.reshape(b, 1, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
     out = torch.einsum("bte,ed->btd", y, params["out_proj"])
+    if live is not None:
+        h_new = torch.where(live[:, None, None, None], h_new, state.h)
+        conv_state = torch.where(live[:, None, None], conv_state, state.conv)
     return out, SSMState(h=h_new, conv=conv_state)

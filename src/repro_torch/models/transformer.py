@@ -90,7 +90,7 @@ def _layer(tree, idx: tuple[int, ...]):
 
 
 def _run_plan(cfg: ModelConfig, params_list, x, positions, cache_list,
-              tables, mode=None):
+              tables, mode=None, live=None):
     for seg, seg_params, seg_cache in zip(cfg.plan(), params_list,
                                           cache_list):
         for r in range(seg.repeat):
@@ -100,7 +100,7 @@ def _run_plan(cfg: ModelConfig, params_list, x, positions, cache_list,
                     x = block_apply(_layer(seg_params[f"e{j}"], idx), x,
                                     cfg, spec, positions,
                                     _layer(seg_cache[f"e{j}"], idx), tables,
-                                    mode)
+                                    mode, live)
     return x
 
 
@@ -178,18 +178,27 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
-                tables: Optional[torch.Tensor] = None):
+                tables: Optional[torch.Tensor] = None,
+                live: Optional[torch.Tensor] = None):
     """tokens: (B, 1), one new token per sequence.  A paged cache needs
     ``tables`` (B, P), the live block tables; a ring cache takes none.
-    Returns (logits (B, V), cache), the cache updated in place and every
-    slot's ``pos`` advanced by one."""
+    ``live`` (B,) bool marks the slots that decode; ``None`` means all.
+    Returns (logits (B, V), cache), the cache updated in place: each live
+    slot's ``pos`` advanced by one and its token written.  Every other
+    slot (empty, or parked on a tool call) keeps its cache state as it
+    was -- its ``pos``, its ring and a hybrid's SSM state -- so a pinned
+    request resumes where it stopped (the reference advances every
+    slot; ROADMAP §C, reference fault 4)."""
     pos = cache["pos"]                                   # (B,)
     x = embed(params["embed"], tokens)
     x = _run_plan(cfg, params["decoder"], x, pos[:, None],
-                  cache["segments"], tables, "step")
+                  cache["segments"], tables, "step", live)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)[:, 0]
-    pos += 1
+    if live is None:
+        pos += 1
+    else:
+        pos += live.to(pos.dtype)
     return logits, cache
 
 
@@ -250,16 +259,20 @@ def _map_paged_kv(cache: dict, fn):
     """A copy of the cache's segment tree with ``fn`` applied to every
     PagedKVCache (leaves carry leading layer-stack dims), dict keys
     visited in sorted order."""
-    def walk(node):
-        if isinstance(node, PagedKVCache):
-            return fn(node)
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        return node
+    return _map_paged(cache["segments"], fn)
 
-    return walk(cache["segments"])
+
+def _map_paged(node, fn):
+    # a module-level recursion: a recursive closure would be a reference
+    # cycle holding ``fn`` and the device tensors it closes over until
+    # the cyclic collector ran
+    if isinstance(node, PagedKVCache):
+        return fn(node)
+    if isinstance(node, dict):
+        return {k: _map_paged(node[k], fn) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_map_paged(v, fn) for v in node]
+    return node
 
 
 def _ring_leaves(tree) -> list[KVCache]:
@@ -318,10 +331,10 @@ def _pool_to_ring(cfg: ModelConfig, pkv: PagedKVCache, tables: torch.Tensor,
 def paged_insert(cfg: ModelConfig, cache: dict, sub: dict, table_row,
                  slot: int) -> dict:
     """Install a batch-1 ring-layout cache (from ``paged_extract`` or a
-    ring engine's extract) into the paged pool at ``table_row``'s pages,
-    in place.  Ring slots scatter through their absolute ``kpos``, so a
-    wrapped SWA ring lands at the right logical pages and empty slots
-    hit the sink."""
+    ring engine's extract, on the device or in host memory) into the
+    paged pool at ``table_row``'s pages, in place.  Ring slots scatter
+    through their absolute ``kpos``, so a wrapped SWA ring lands at the
+    right logical pages and empty slots hit the sink."""
     dev = cache["pos"].device
     tables = _as_table(table_row, dev)
     rings = iter(_ring_leaves(sub["segments"]))
@@ -330,9 +343,12 @@ def paged_insert(cfg: ModelConfig, cache: dict, sub: dict, table_row,
         ring = next(rings)
         kf = pkv.k.reshape((-1,) + pkv.k.shape[-4:])
         vf = pkv.v.reshape((-1,) + pkv.v.shape[-4:])
-        rk = ring.k.reshape((-1,) + ring.k.shape[-4:]).to(dev)
-        rv = ring.v.reshape((-1,) + ring.v.shape[-4:]).to(dev)
-        rp = ring.kpos.reshape((-1,) + ring.kpos.shape[-2:]).to(dev)
+        rk = ring.k.reshape((-1,) + ring.k.shape[-4:]).to(
+            dev, non_blocking=True)
+        rv = ring.v.reshape((-1,) + ring.v.shape[-4:]).to(
+            dev, non_blocking=True)
+        rp = ring.kpos.reshape((-1,) + ring.kpos.shape[-2:]).to(
+            dev, non_blocking=True)
         for i in range(kf.shape[0]):
             attn.paged_cache_write_at(PagedKVCache(kf[i], vf[i]), rk[i],
                                       rv[i], rp[i], tables)

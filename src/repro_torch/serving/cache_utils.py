@@ -76,11 +76,31 @@ def cache_extract(cache, slot: int, axes: tuple[int, ...]):
     return _rebuild(cache, it)
 
 
+def to_host(tree):
+    """``tree`` with its leaves in host memory, the counterpart of the
+    reference's ``jax.device_get``: each leaf on the card is copied into
+    pinned memory with one asynchronous copy, and one synchronize ends
+    them all, so the copy is complete on return.  A leaf already on the
+    CPU is kept as it is."""
+    out, dev = [], None
+    for leaf in _leaves(tree):
+        if leaf.device.type == "cpu":
+            out.append(leaf)
+            continue
+        host = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+        out.append(host.copy_(leaf, non_blocking=True))
+        dev = leaf.device
+    if dev is not None:
+        torch.cuda.current_stream(dev).synchronize()
+    return _rebuild(tree, iter(out))
+
+
 def cache_insert(cache, sub, slot: int, axes: tuple[int, ...]):
     """Write a batch-1 cache tree into slot ``slot`` of ``cache``, in
-    place.  Returns ``cache``.  Raises ``ValueError`` when a leaf of
-    ``sub`` does not fit, naming the ring sizes: a ring's slot axis
-    follows its batch axis."""
+    place.  Returns ``cache``.  ``sub`` may lie in host memory: pinned
+    leaves copy asynchronously on the current stream.  Raises
+    ``ValueError`` when a leaf of ``sub`` does not fit, naming the ring
+    sizes: a ring's slot axis follows its batch axis."""
     leaves, subs = _leaves(cache), _leaves(sub)
     if len(leaves) != len(subs):
         raise ValueError(f"cache trees differ: {len(leaves)} vs "
@@ -93,7 +113,7 @@ def cache_insert(cache, sub, slot: int, axes: tuple[int, ...]):
             raise ValueError(f"a leaf of shape {tuple(s.shape)} does not fit "
                              f"slot {slot} of {tuple(leaf.shape)}{sizes}")
     for leaf, s, ax in zip(leaves, subs, axes):
-        leaf.narrow(ax, slot, 1).copy_(s.to(leaf.dtype))
+        leaf.narrow(ax, slot, 1).copy_(s.to(leaf.dtype), non_blocking=True)
     return cache
 
 

@@ -18,7 +18,11 @@ when ``cfg.use_pallas`` is set, else ring, as in the reference):
   tables.  Prefill computes only the uncached suffix of a prompt, in the
   chunks the scheduler plans (the ``prefill_chunk`` knob).
 
-Each decode step runs every slot at once.  With the scheduler's
+Each decode step runs every slot at once.  A per-slot live mask (the
+plan's decoding requests) goes in beside the block tables: a slot outside
+it -- empty, or parked on a tool call (a *pinned* suspend) -- keeps its
+``pos``, its ring and a hybrid's SSM state, so a pinned request resumes
+where it stopped.  With the scheduler's
 ``mixed`` knob (paged layout only), prefill stops serializing against
 decode: one mixed step runs every decode slot and one prefill chunk
 padded to a fixed capacity (``_mixed_cap``), its start, length and slot
@@ -28,7 +32,8 @@ admission a shared prompt prefix as page ids in the block table: no KV
 is copied.  Sampling runs on the device; only token ids cross to the
 host.  ``extract_state``/``inject_state`` move one sequence between
 engines of either layout through the batch-1 ring tree (SSM states
-included).
+included), which lives in host memory in between (pinned on the card):
+the host tier of a tool-call suspend and the carrier of a migration.
 
 On the card every decode step (both layouts) and every mixed step is a
 replay of a CUDA graph captured once per engine (``serving/graphs.py``,
@@ -136,7 +141,8 @@ class TorchEngine(EngineCore):
         self.release_graphs()               # captured against the old cache
         self.cache = None                   # free the old cache first
         self.cache = models.init_cache(
-            self.cfg, sc.max_slots, sc.max_context, layout=self._cache_layout,
+            self.cfg, self.physical_slots(), sc.max_context,
+            layout=self._cache_layout,
             num_pages=sc.num_pages, page_size=sc.page_size,
             device=self.device)
 
@@ -164,10 +170,11 @@ class TorchEngine(EngineCore):
         super().on_knob_set(name, old, new)
 
     def _block_table_rows(self, reqs: list[Request]) -> np.ndarray:
-        """(max_slots, P_max) int32 table: live rows come straight from
-        ``PageAllocator.page_table`` (physical ids in logical order);
-        inactive slots are all -1."""
-        slots = self.scheduler.cfg.max_slots
+        """(slots, P_max) int32 table, a row for each of the cache's
+        slots (the ``max_num_seqs`` knob may use fewer): live rows come
+        straight from ``PageAllocator.page_table`` (physical ids in
+        logical order); inactive slots are all -1."""
+        slots = self.physical_slots()
         out = np.full((slots, self._p_max), -1, np.int32)
         live = [r for r in reqs if 0 <= r.slot < slots]
         if live:
@@ -175,6 +182,13 @@ class TorchEngine(EngineCore):
                                 [r.req_id for r in live], width=self._p_max)
             for r, row in zip(live, rows):
                 out[r.slot] = row
+        return out
+
+    def _live_rows(self, reqs: list[Request]) -> np.ndarray:
+        """(slots,) bool: the slots of ``reqs``, the rows a step decodes;
+        every other slot's cache state is left as it is."""
+        out = np.zeros((self.physical_slots(),), bool)
+        out[[r.slot for r in reqs if 0 <= r.slot < out.shape[0]]] = True
         return out
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -201,15 +215,17 @@ class TorchEngine(EngineCore):
         g = self._graphs.get(kind)
         if g is not None:
             return g
-        slots = self.scheduler.cfg.max_slots
+        slots = self.physical_slots()
         tok, i32, f32 = torch.int64, torch.int32, torch.float32
         if kind == "decode":
-            specs = {"tokens": ((slots, 1), tok), "temperature": ((), f32)}
+            specs = {"tokens": ((slots, 1), tok),
+                     "live": ((slots,), torch.bool), "temperature": ((), f32)}
             if self._cache_layout == "paged":
                 specs["tables"] = ((slots, self._p_max), i32)
             body = self._decode_body
         else:
             specs = {"dec_tokens": ((slots, 1), tok),
+                     "dec_live": ((slots,), torch.bool),
                      "pf_tokens": ((1, self._mixed_cap), tok),
                      "dec_tables": ((slots, self._p_max), i32),
                      "pf_table": ((1, self._p_max), i32),
@@ -238,20 +254,21 @@ class TorchEngine(EngineCore):
             g.close()
         self._graphs.clear()
 
-    def _decode_body(self, tokens, temperature, tables=None) -> torch.Tensor:
+    def _decode_body(self, tokens, live, temperature,
+                     tables=None) -> torch.Tensor:
         logits, _ = models.decode_step(self.params, self.cfg, tokens,
-                                       self.cache, tables)
+                                       self.cache, tables, live)
         return sampler.sample(logits, self._gen, temperature)
 
-    def _mixed_body(self, dec_tokens, pf_tokens, dec_tables, pf_table, start,
-                    n, slot, temperature) -> torch.Tensor:
+    def _mixed_body(self, dec_tokens, dec_live, pf_tokens, dec_tables,
+                    pf_table, start, n, slot, temperature) -> torch.Tensor:
         """Every decode slot, then the prefill chunk.  The decode rows
-        write into their own pages; the chunk attends into its resident
-        prefix pages and sets its slot's ``pos`` absolutely, over the
-        blanket ``pos + 1`` of the decode rows.  Returns the decode ids
-        and then the chunk's id, (max_slots + 1,)."""
+        write into their own pages and advance their own ``pos``; the
+        chunk attends into its resident prefix pages and sets its slot's
+        ``pos`` absolutely.  Returns the decode ids and then the chunk's
+        id, (max_slots + 1,)."""
         dec_logits, _ = models.decode_step(self.params, self.cfg, dec_tokens,
-                                           self.cache, dec_tables)
+                                           self.cache, dec_tables, dec_live)
         pf_logits, _ = models.prefill_paged_padded(
             self.params, self.cfg, pf_tokens, self.cache, pf_table, start,
             slot, n)
@@ -356,7 +373,8 @@ class TorchEngine(EngineCore):
         buf = np.zeros((1, cap), np.int64)
         buf[0, :chunk] = req.prompt_tokens[start:start + chunk]
         toks = self._run_step(
-            "mixed", dec_tokens=self._last_token[:, None], pf_tokens=buf,
+            "mixed", dec_tokens=self._last_token[:, None],
+            dec_live=self._live_rows(live), pf_tokens=buf,
             dec_tables=self._block_table_rows(live),
             pf_table=self._block_table_rows([req])[req.slot][None],
             start=start, n=chunk, slot=req.slot,
@@ -379,6 +397,7 @@ class TorchEngine(EngineCore):
     @torch.inference_mode()
     def _run_decode(self, reqs: list[Request]) -> list[int]:
         arrays = {"tokens": self._last_token[:, None],
+                  "live": self._live_rows(reqs),
                   "temperature": self.temperature}
         if self._cache_layout == "paged":
             arrays["tables"] = self._block_table_rows(reqs)
@@ -394,9 +413,12 @@ class TorchEngine(EngineCore):
     @torch.inference_mode()
     def extract_state(self, req: Request) -> dict:
         """(batch-1 ring-format cache tree, last token, nbytes) of one
-        sequence, for migration.  Both layouts export the same format, so
-        the receiving engine never cares which layout produced it.  The
-        tree is a copy on this engine's device."""
+        sequence, for migration and the host tier of a suspend.  Both
+        layouts export the same format, so the receiving engine never
+        cares which layout produced it.  The tree is a copy in host
+        memory, as the reference's ``jax.device_get``: pinned, and
+        complete when this returns, so the scheduler may free the pages
+        next (``cache_utils.to_host``)."""
         if self._cache_layout == "paged":
             row = self._block_table_rows([req])[req.slot]
             ctx = int(self.cache["pos"][req.slot])
@@ -405,14 +427,16 @@ class TorchEngine(EngineCore):
                                        req.slot)
         else:
             sub = cache_utils.cache_extract(self.cache, req.slot, self._axes)
+        sub = cache_utils.to_host(sub)
         return {"cache": sub,
                 "last_token": int(self._last_token[req.slot]),
                 "nbytes": cache_utils.cache_nbytes(sub)}
 
     @torch.inference_mode()
     def inject_state(self, req: Request, state: dict) -> None:
-        """Install a migrated request into a fresh slot (already admitted:
-        ``req.slot`` assigned, scheduler pages reserved).  A ring engine
+        """Install a migrated or host-tier request into a fresh slot
+        (already admitted: ``req.slot`` assigned, scheduler pages
+        reserved); the tree may lie in host memory.  A ring engine
         refuses a ring whose size differs from its own (the reference
         fails there too, with a TypeError from its slice update)."""
         if self._cache_layout == "paged":

@@ -726,3 +726,52 @@ def test_serve_mixed_phase_runs_on_cpu(smoke, monkeypatch, capsys):
         assert f"mixed step ({how}): device busy 0.95 ms" in out
         assert f"decode step ({how}): device busy 0.95 ms" in out
     assert "greedy tokens equal (128 tokens)" in out
+
+
+def test_control_parity_phase_runs_on_cpu(smoke, small, monkeypatch, capsys):
+    """The control parity phase at tiny-agent sizes: pin, host and
+    migrate, each with traffic beside the parked request, give the
+    unsuspended run's tokens, paged (serialized and mixed) and ring."""
+    monkeypatch.setattr(smoke, "CONTROL_TRAFFIC", 33)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    smoke.phase_control_parity(torch.device("cpu"), *small)
+    out = capsys.readouterr().out
+    assert out.count("tokens equal the unsuspended run's") == 9
+    for what in ("paged:", "paged mixed:", "ring:"):
+        assert out.count(f"f32, {what} ") == 3
+    assert out.count("pos held at 73") == 3
+
+
+def test_serve_control_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """The serve control phase at tiny-agent sizes, graph (built once on
+    the CPU), eager and unsuspended: every request finishes, the
+    controller sets and resets both knobs, request 3 lands on llm-1, and
+    the resumed requests keep the unsuspended run's tokens."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(smoke, "CONTROL_LENS", [
+        20, 33, 47, 5, 60, 12, 40, 28, 9, 51, 17, 38, 22, 44, 30, 14])
+    monkeypatch.setattr(smoke, "CONTROL_SCHED", dict(
+        max_slots=8, num_pages=300, page_size=16, max_context=640,
+        mixed=True, prefill_chunk=64, max_batch_tokens=72,
+        host_capacity_pages=64))
+    for name in ("reset_peak_memory_stats", "max_memory_allocated",
+                 "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "card", lambda: "a CPU")
+    cfg = get_config("tiny-agent").replace(dtype="float32", use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    launches = smoke.phase_serve_control(torch.device("cpu"), cfg, params)
+    assert set(launches.values()) == {0}           # CPU: plain versions
+    out = capsys.readouterr().out
+    for how in ("graph", "eager", "unsuspended"):
+        assert f"{how}, a CPU: 16 requests" in out
+    assert out.count("captures {'llm-0': {'mixed': 1, 'decode': 1}, "
+                     "'llm-1': {'decode': 1}}") == 2
+    for i in range(4):
+        assert f"request {i} ({('pin', 'pin', 'host', 'migrate')[i]}): " \
+            "64 of 64 tokens equal the unsuspended run's" in out
+    assert out.count("request 3 host tier migrate") == 2
+    assert out.count("pinned at pos") == 4
+    assert "greedy tokens equal (1024 tokens)" in out

@@ -746,3 +746,77 @@ def test_failed_capture_raises(cuda_device):
     assert g.captures == 0
     ok = StepGraph(lambda a: a * 2, spec, cuda_device, graphed=True)
     assert ok.run(a=np.arange(4, dtype=np.float32)).tolist() == [0, 2, 4, 6]
+
+
+# ---------------------------------------------------------------------------
+# Tool-call suspend on the card: the host tier and the pin tier
+# ---------------------------------------------------------------------------
+
+def parked_run(eng, tier, at=4, hold=6, max_new=12):
+    """Serve one request; after ``at`` tokens suspend it to ``tier``
+    ("pin" or "host"), run ``hold`` steps of a second request beside it,
+    resume and finish.  Returns (its tokens, the host-store leaves at
+    the suspend, device memory before and after it, ``pos`` of the slot
+    at the suspend and at the resume)."""
+    from repro_torch.core.types import Request
+    from repro_torch.serving import cache_utils
+
+    rng = np.random.default_rng(3)
+    p, q = (rng.integers(0, eng.cfg.vocab, n).astype(np.int32)
+            for n in (40, 77))
+    r = Request(prompt_len=40, max_new_tokens=max_new, prompt_tokens=p)
+    eng.submit(r)
+    while r.generated < at:
+        eng.step()
+    eng.set_param("host_capacity_pages", 32)
+    pos = [int(eng.cache["pos"][r.slot])]
+    mem = [torch.cuda.memory_allocated()]
+    assert eng.suspend_request(r, offload=tier == "host") == tier
+    mem.append(torch.cuda.memory_allocated())
+    leaves = (cache_utils._leaves(eng._host_store[r.req_id]["cache"])
+              if tier == "host" else [])
+    eng.submit(Request(prompt_len=77, max_new_tokens=max_new,
+                       prompt_tokens=q))
+    for _ in range(hold):
+        eng.step()
+    if tier == "pin":
+        pos.append(int(eng.cache["pos"][r.slot]))
+    assert eng.resume_suspended(r) == ("pin" if tier == "pin" else "hit")
+    eng.run_until_idle()
+    return list(r.output_tokens), leaves, mem, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_host_tier_is_pinned_and_round_trips(cuda_device, layout):
+    """A host-tier suspend copies the request's state into pinned host
+    memory (its bytes the state's ``nbytes``) and frees device memory;
+    the resume copies it back and the tokens are the unsuspended
+    run's."""
+    cfg, params = graph_case(cuda_device, "tiny-agent")
+    want = served_tokens(step_engine(cfg, params, cuda_device, layout, True),
+                         lens=(40,), max_new=12)[0]
+    eng = step_engine(cfg, params, cuda_device, layout, True)
+    got, leaves, mem, _ = parked_run(eng, "host")
+    assert leaves and all(t.device.type == "cpu" and t.is_pinned()
+                          for t in leaves)
+    assert mem[1] <= mem[0]
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True], ids=["decode", "mixed"])
+def test_pinned_slot_kept_across_replays(cuda_device, mixed):
+    """A slot pinned while the captured decode (and mixed) graphs replay
+    with another request's rows live: the live mask changes between
+    replays, the pinned slot's ``pos`` does not, each step is captured
+    once, and the resumed request gives the unsuspended run's tokens."""
+    cfg, params = graph_case(cuda_device, "tiny-agent")
+    want = served_tokens(step_engine(cfg, params, cuda_device, "paged", True,
+                                     mixed), lens=(40,), max_new=12)[0]
+    eng = step_engine(cfg, params, cuda_device, "paged", True, mixed)
+    got, _, _, pos = parked_run(eng, "pin")
+    assert pos[1] == pos[0] == 40 + 3
+    assert eng.step_captures == ({"decode": 1, "mixed": 1} if mixed
+                                 else {"decode": 1})
+    assert got == want

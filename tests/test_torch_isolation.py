@@ -35,7 +35,13 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.configs.arctic_480b",
               "repro_torch.configs.kimi_k2_1t_a32b",
               "repro_torch.serving.graphs",
-              "repro_torch.serving.prefix_cache"):
+              "repro_torch.serving.prefix_cache",
+              "repro_torch.core.metrics", "repro_torch.core.registry",
+              "repro_torch.core.rules", "repro_torch.core.controller",
+              "repro_torch.core.intent", "repro_torch.core.policies",
+              "repro_torch.core.trace", "repro_torch.core.dataplane",
+              "repro_torch.core.tenancy", "repro_torch.sim.clock",
+              "repro_torch.sim.network", "repro_torch.examples.serve_llm"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
@@ -105,6 +111,9 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchEngine(arctic, params, SchedulerConfig(),
                         cache_layout=layout)
+    from repro_torch.examples import serve_llm
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_llm.main([])
 
 
 def test_chip_smoke_refuses_missing_cuda(monkeypatch):
