@@ -13,9 +13,9 @@ code is non-zero and the final JSON line is not printed:
                  grouped matmul) against its plain PyTorch version on the
                  card, in f32 and bf16, at agent-7b's, hymba-1.5b's,
                  arctic-480b's and kimi-k2's heads and expert shapes, the
-                 attention kernels also at head dim 120 and groups 6, 12
-                 and 16 and the SSM scan at mLSTM's width (dk 512, dv
-                 513), which no ported config uses yet; with its time at
+                 attention kernels also at head dim 120 with groups 6, 12
+                 and 16, which no config combines, and the SSM scan at
+                 mLSTM's width (dk 512, dv 513); with its time at
                  the main path's shapes, the plain version's, a PyTorch
                  library call's where one exists, and its bound; and
                  grouped matmul's unit shapes and split of d timed
@@ -96,14 +96,49 @@ code is non-zero and the final JSON line is not printed:
                  serves 8 requests in the paged and then the ring layout
                  with exact launch counts of all four kernels it runs;
                  each with a profile.
+19. new paths  -- each kernel on the paths of the architectures below
+                 against its plain version, f32 and bf16: both decode
+                 kernels and causal flash at gemma3-27b's, h2o-danube-3's,
+                 llama3-405b's, command-r-plus's and qwen2-vl's heads;
+                 flash non-causal at seamless-m4t's encoder (T = 1000)
+                 and cross prefill; ring decode as a decode step's cross
+                 attention; the SSM scan at an xlstm-350m mLSTM layer's
+                 inputs (dk 512, dv 513).
+20. parity    -- one layer at each of those widths in f32 (gemma3: one
+                 local and one global; xlstm: one mLSTM and one sLSTM):
+                 greedy tokens equal across both layouts (ring only for
+                 xlstm) with and without the kernels, and graph and eager.
+21. serve xlstm -- xlstm-350m in full (24 layers, bf16), ring layout, 8
+                 requests: the SSM scan launches once per mLSTM layer per
+                 prefill; a prefill profile gives the scan's and the
+                 sLSTM layers' shares.
+22. serve qwen2-vl -- qwen2-vl-2b in full (28 layers, bf16; M-RoPE's
+                 3-axis positions): paged, ring and serve mixed; then at
+                 the model level a prefill of 256 patch embeddings at
+                 (t, h, w) positions and 16 decode steps, kernels on
+                 against off: greedy tokens equal in f32 at 2 layers, and
+                 at full depth in bf16 every kernel call held to its
+                 plain version on the path's inputs (a random-init stack
+                 amplifies rounding layer by layer, so a deep stack's
+                 tokens are not comparable).
+23. serve dense -- gemma3-27b in full (62 layers, 56.8 GB bf16; 128 pages,
+                 1536-slot rings), h2o-danube-3-4b in full (24 layers),
+                 llama3-405b and command-r-plus-104b at 2 layers: paged
+                 and ring.
+24. encdec    -- seamless-m4t-large-v2 in full (24 + 24 layers) at the
+                 model level: encode 8 x 1000 frames, prefill, 64 decode
+                 steps, kernels on against off: greedy tokens equal in
+                 f32 at 1 + 1 layers, every kernel call held at full
+                 depth in bf16, as phase 22.
 
-Every engine phase (4 to 18) replays its decode and mixed steps as CUDA
+Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
 graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
-13, 15, 16) run each request set a second time on an eager engine: the
-greedy tokens are equal, and the mean step times and profiles of both
-are printed.  A launch count includes a capture's eager warm-up runs and
-each replay (``serving/graphs.py``).  The last two lines are a JSON
-object of kernel numbers and ``{"ok": true, "device": {...}}``.
+13, 15, 16, 21-23) run each request set a second time on an eager
+engine: the greedy tokens are equal, and the mean step times and
+profiles of both are printed.  A launch count includes a capture's
+eager warm-up runs and each replay (``serving/graphs.py``).  The last
+two lines are a JSON object of kernel numbers and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -126,11 +161,15 @@ import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 
 from repro_torch import models  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Tracer  # noqa: E402
 from repro_torch.core.metrics import Collector  # noqa: E402
 from repro_torch.core.types import Priority, Request, RequestState  # noqa: E402
 from repro_torch.examples.serve_llm import tick, wire  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -225,9 +264,10 @@ def check(name: str, err: float, dtype, what: str, tol=None) -> None:
                              f"({what}): {err} > {tol}")
 
 
-# (Hkv, G, dh) of the served models' paged decode, then the shapes no
-# ported config uses yet (dh 120: h2o-danube-3; G 6: qwen2-vl; 12:
-# command-r-plus; 16: llama3-405b)
+# (Hkv, G, dh) of the served models' paged decode, then dh 120 (as
+# h2o-danube-3's) with G 6 (qwen2-vl's), 12 (command-r-plus's) and 16
+# (llama3-405b's), which no config combines; phase 19 takes each
+# config's own heads
 PAGED_HEADS = (8, 4, 128)                               # agent-7b
 ARCTIC_PAGED_HEADS = (8, 7, 128)
 KIMI_HEADS = (8, 8, 112)                                # kimi-k2: 7168 / 64
@@ -392,8 +432,7 @@ HYMBA_HEADS = (25, 5, 64)
 HYMBA_FLASH_CASES = [(1024, 1024, True, -1), (1000, 1000, True, 1024),
                      (1000, 1000, True, 300), (700, 900, False, -1)]
 # and at arctic-480b's: G = 7, dh 128; at kimi-k2's: G = 8, dh 112 (on
-# the 128-wide body with zero columns); at the shapes no ported config
-# uses yet: dh 120 with G 6, 12 and 16
+# the 128-wide body with zero columns); at dh 120 with G 6, 12 and 16
 ARCTIC_HEADS = (56, 8, 128)
 ARCTIC_FLASH_CASES = [(1024, 1024, True, -1), (900, 900, True, 512),
                       (300, 700, False, -1)]
@@ -1091,6 +1130,12 @@ def moe_layers(cfg) -> int:
                for spec, n in seg.pattern if spec.moe)
 
 
+def kind_layers(cfg, kinds) -> int:
+    """Decoder layers whose block kind is one of ``kinds``."""
+    return sum(seg.repeat * n for seg in cfg.plan()
+               for spec, n in seg.pattern if spec.kind in kinds)
+
+
 def expected_launches(eng: TorchEngine, prefills: int, decodes: int,
                       mixed: int = 0) -> dict:
     """Launches of each kernel on a run of ``eng`` that ran ``prefills``
@@ -1098,23 +1143,24 @@ def expected_launches(eng: TorchEngine, prefills: int, decodes: int,
     paged layout one per chunk, and the scheduler's token budget splits a
     step's prompts into chunks) and ``decodes`` and ``mixed`` bodies of
     the decode and mixed steps (a graph's warm-up runs and replays, or
-    the eager calls): one per layer per prefill (flash and, in a hybrid's
-    mamba branch, the SSM scan; ring) or per decode row set (the layout's
-    decode kernel; a mixed step's decode rows), and three per MoE layer
-    per forward (grouped_matmul, either layout; a mixed step is two
-    forwards, its decode rows and its chunk, whose gather path launches
-    no attention kernel); none without the flag, and none on the CPU,
-    where the wrappers take the plain versions."""
+    the eager calls): one per attention layer per prefill (flash; ring)
+    or per decode row set (the layout's decode kernel; a mixed step's
+    decode rows), one SSM scan per prefill in each layer with a matrix
+    memory (a hybrid's mamba branch, an mLSTM layer; ring), and three
+    grouped_matmul per MoE layer per forward (either layout; a mixed
+    step is two forwards, its decode rows and its chunk, whose gather
+    path launches no attention kernel); none without the flag, and none
+    on the CPU, where the wrappers take the plain versions."""
     want = dict.fromkeys(KERNELS, 0)
     if eng.cfg.use_pallas and eng.device.type == "cuda":
-        n = eng.cfg.n_layers
+        n = kind_layers(eng.cfg, ("attn", "dec", "hymba"))
         if eng.cache_layout == "paged":
             want["paged_decode_attention"] = n * (decodes + mixed)
         else:
             want["flash_attention"] = n * prefills
             want["decode_attention"] = n * decodes
-            if eng.cfg.family == "hybrid":
-                want["ssm_scan"] = n * prefills
+            want["ssm_scan"] = kind_layers(eng.cfg,
+                                           ("hymba", "mlstm")) * prefills
         want["grouped_matmul"] = (3 * moe_layers(eng.cfg)
                                   * (prefills + decodes + 2 * mixed))
     return want
@@ -1173,41 +1219,57 @@ LAYOUTS = [("paged", True), ("paged", False), ("ring", True),
 
 
 def small_engine(cfg, params, layout: str, use_pallas: bool, dev,
-                 name: str, **sched) -> TorchEngine:
+                 name: str, graphs: bool = True, **sched) -> TorchEngine:
     return TorchEngine(cfg.replace(use_pallas=use_pallas), params,
                        SchedulerConfig(**PARITY_SCHED, **sched), name=name,
-                       cache_layout=layout, device=dev)
+                       cache_layout=layout, device=dev,
+                       cuda_graphs=None if graphs else False)
 
 
 def phase_parity(dev, cfg, params, layouts=LAYOUTS,
-                 label: str = "agent-7b width, 2 layers") -> None:
+                 label: str = "agent-7b width, 2 layers", windows=None,
+                 eager: bool = False) -> None:
     """Greedy tokens equal across ``layouts`` (layout, kernels on or
-    off), for full attention and for the ``PARITY_SWA`` window, whose
-    ring is shorter than the longer prompts."""
-    for window, chunk in ((-1, cfg.attn_chunk), PARITY_SWA):
-        c = cfg.replace(window=window, attn_chunk=chunk)
+    off), for each (window, attn_chunk) of ``windows``: by default full
+    attention and the ``PARITY_SWA`` window, whose ring is shorter than
+    the longer prompts.  A window of None keeps the config's own.  With
+    ``eager`` the first of ``layouts`` also runs without CUDA graphs."""
+    if windows is None:
+        windows = ((-1, cfg.attn_chunk), PARITY_SWA)
+    runs = [(lay, on, True) for lay, on in layouts]
+    if eager:
+        runs.append((*layouts[0], False))
+    for window, chunk in windows:
+        c = cfg.replace(attn_chunk=chunk)
+        if window is not None:
+            c = c.replace(window=window)
         outs = {}
-        for layout, use_pallas in layouts:
+        for layout, use_pallas, graphs in runs:
             eng = small_engine(c, params, layout, use_pallas, dev,
-                               f"parity-{layout}-{use_pallas}")
-            if layout == "ring" and window > 0:
+                               f"parity-{layout}-{use_pallas}", graphs)
+            if layout == "ring" and c.window > 0:
                 size = min(e["kv"].k.shape[-3] for seg in
-                           eng.cache["segments"] for e in seg.values())
+                           eng.cache["segments"] for e in seg.values()
+                           if "kv" in e)
                 if not size < max(PARITY_LENS):
                     raise AssertionError(f"ring of {size} slots does not "
                                          f"wrap")
             reqs = make_requests(PARITY_LENS, 16, cfg.vocab, seed=1)
             served_counts(eng, reqs, launch_counts())
-            outs[layout, use_pallas] = [list(r.output_tokens) for r in reqs]
-        first = outs[layouts[0]]
+            outs[layout, use_pallas, graphs] = [list(r.output_tokens)
+                                                for r in reqs]
+            release(eng)
+        first = outs[runs[0]]
         for key, got in outs.items():
             if got != first:
-                raise AssertionError(f"window {window}: {key} disagrees with "
-                                     f"{layouts[0]}:\n{got}\n{first}")
+                raise AssertionError(f"window {c.window}: {key} disagrees "
+                                     f"with {runs[0]}:\n{got}\n{first}")
         how = ("paged and ring, with and without their kernels"
                if len({lay for lay, _ in layouts}) > 1
                else f"{layouts[0][0]}, with and without its kernels")
-        log("parity", f"{label}, f32, window {window}, attn_chunk {chunk}, "
+        if eager:
+            how += ", graph and eager"
+        log("parity", f"{label}, f32, window {c.window}, attn_chunk {chunk}, "
             f"prompts {PARITY_LENS}: greedy tokens equal across {how} "
             f"({sum(map(len, first))} tokens each)")
 
@@ -1320,7 +1382,8 @@ def release(eng: TorchEngine) -> None:
 
 
 def phase_serve(dev, cfg, params, layout: str, phase: str,
-                max_new: int = 64, prefill_profile: bool = False) -> dict:
+                max_new: int = 64, prefill_profile: bool = False,
+                sched=None) -> dict:
     """The full model serves the 8 requests on ``layout``, its decode
     steps replayed as CUDA graphs, then an eager engine serves the same
     requests: the greedy tokens are equal, and every kernel of the path
@@ -1330,7 +1393,8 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
     prefill the graph run."""
     out = {}
     for how in ("graph", "eager"):
-        eng = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
+        eng = TorchEngine(cfg, params,
+                          SchedulerConfig(**(sched or SERVE_SCHED)),
                           name=f"serve-{layout}-{how}", cache_layout=layout,
                           device=dev,
                           cuda_graphs=None if how == "graph" else False)
@@ -1959,8 +2023,10 @@ SCAN_KERNELS = ("ssm_chunk_state_kernel", "ssm_state_pass_kernel",
 
 def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
     """Where a ring prefill's time goes: one ``prompt_len``-token prompt
-    prefilled alone, once unprofiled for its wall time, then once under
-    the profiler for device time by kernel and flash_attention's share."""
+    prefilled alone, once unprofiled for its wall time (and, in a model
+    with sLSTM layers, their share of it, between CUDA events around
+    each layer), then once under the profiler for device time by kernel
+    and the flash and SSM scan shares."""
     def prefill(prof=None) -> float:
         r = make_requests([prompt_len], 2, eng.cfg.vocab, seed=6)[0]
         eng.submit(r)
@@ -1975,7 +2041,8 @@ def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
         eng.run_until_idle()
         return 1e3 * dt
 
-    wall_ms = prefill()
+    with slstm_timer() as slstm:
+        wall_ms = prefill()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts, acc_events=True)
@@ -1997,10 +2064,405 @@ def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
         log("profile", f"{phase}: prefill's ssm_scan kernels (chunk states, "
             f"state pass, chunk outputs): {scan_ms:.3f} ms in "
             f"{sum(r[1] for r in scan)} launches ({share:.1f}% of the "
-            f"device time)")
+            f"device time, {100 * scan_ms / wall_ms:.1f}% of the wall "
+            f"time)")
+    if slstm.calls:
+        log("profile", f"{phase}: prefill's sLSTM layers (a token loop of "
+            f"plain PyTorch ops, no kernel of their own): {slstm.ms:.2f} ms "
+            f"between events in {slstm.calls} layers, "
+            f"{100 * slstm.ms / wall_ms:.1f}% of the wall time")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log("profile", f"  {phase} prefill: {us / 1e3:8.3f} ms  {count:6d} "
             f"calls  {key[:90]}")
+
+
+class slstm_timer:
+    """Within the block, every ``ssm.slstm_block`` call (an sLSTM layer's
+    prefill) runs between two CUDA events; ``ms`` sums their spans and
+    ``calls`` counts them."""
+
+    def __enter__(self):
+        self.calls, self._spans, self._real = 0, [], ssm.slstm_block
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._real(*args, **kw)
+            end.record()
+            self._spans.append((start, end))
+            self.calls += 1
+            return out
+        ssm.slstm_block = timed
+        return self
+
+    def __exit__(self, *exc):
+        ssm.slstm_block = self._real
+        torch.cuda.synchronize()
+        self.ms = sum(a.elapsed_time(b) for a, b in self._spans)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Every architecture of the repo: the kernels on this slice's paths, the
+# VLM's patch path and the encoder-decoder at the model level
+# ---------------------------------------------------------------------------
+
+# the dense configs this slice serves, and the seamless encoder's frames
+SLICE_DENSE = ("gemma3-27b", "h2o-danube-3-4b", "llama3-405b",
+               "command-r-plus-104b", "qwen2-vl-2b")
+ENC_FRAMES = 1000                # not a multiple of 128
+ENC_BATCH = 8
+ENC_PROMPT = 32                  # decoder prompt tokens
+ENC_STEPS = 64
+VISION_GRID = (16, 16)           # 256 patch embeddings
+VISION_TEXT = 64
+def config_heads(name: str) -> tuple[int, int, int]:
+    """(Hkv, G, dh) of a config's attention."""
+    c = get_config(name)
+    return c.n_kv_heads, c.n_heads // c.n_kv_heads, c.d_head
+
+
+def phase_new_paths(dev) -> None:
+    """Each kernel on this slice's paths against its plain version at the
+    shapes those paths give it, f32 and bf16: both decode kernels and
+    causal flash at each new dense config's heads (qwen2-vl's G 6,
+    command-r's 12, llama3's 16, danube's dh 120, gemma3's G 2), flash
+    non-causal at the seamless encoder's self attention (T = 1000) and
+    its prefill's cross attention, ring decode as the cross attention of
+    a decode step (all 1000 keys valid), and the SSM scan at the inputs
+    an mLSTM layer of xlstm-350m gives it (dk 512, dv 513); then G 6's
+    chunk timed against the others (``time_group_chunks``)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    live = torch.tensor([c > 0 for c in CTX], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in SLICE_DENSE:
+            hkv, g, dh = heads = config_heads(name)
+            for window in (-1, 512):
+                args = kernel_case(dtype, 128, gen, dev, heads)
+                err = (paged_decode_attention(*args, window=window).float()
+                       - paged_decode_attention_plain(
+                           *args, window=window).float())[live]
+                check("paged_decode_attention", err.abs().max().item(), dtype,
+                      f"{dtype} {name} Hkv={hkv} G={g} dh={dh} window "
+                      f"{window}, live rows")
+                args = ring_case(dtype, 4096, gen, dev, heads=heads)
+                err = (decode_attention(*args, window=window).float()
+                       - decode_attention_plain(*args, window=window).float()
+                       )[live]
+                check("decode_attention", err.abs().max().item(), dtype,
+                      f"{dtype} {name} Hkv={hkv} G={g} dh={dh} 4096 slots "
+                      f"window {window}, live rows")
+            check_flash(dtype, (hkv * g, hkv, dh), 1, 700, 700, True, -1,
+                        gen, dev)
+        enc = config_heads("seamless-m4t-large-v2")
+        enc_heads = (enc[0] * enc[1], enc[0], enc[2])
+        check_flash(dtype, enc_heads, 2, ENC_FRAMES, ENC_FRAMES, False, -1,
+                    gen, dev)
+        check_flash(dtype, enc_heads, 2, 300, ENC_FRAMES, False, -1, gen, dev)
+        q, k, v, _, _ = ring_case(dtype, ENC_FRAMES, gen, dev, heads=enc)
+        b = q.shape[0]
+        kpos = torch.arange(ENC_FRAMES, dtype=torch.int32,
+                            device=dev)[None].expand(b, -1).contiguous()
+        q_pos = torch.full((b,), ENC_FRAMES - 1, dtype=torch.int32,
+                           device=dev)
+        out = decode_attention(q, k, v, kpos, q_pos)
+        err = (out.float() - decode_attention_plain(q, k, v, kpos, q_pos)
+               .float()).abs().max().item()
+        check("decode_attention", err, dtype, f"{dtype} cross attention of "
+              f"a seamless decode step: B={b} Hkv={enc[0]} G={enc[1]} "
+              f"dh={enc[2]}, all {ENC_FRAMES} keys valid")
+        cfg = get_config("xlstm-350m").replace(
+            dtype=str(dtype).removeprefix("torch."))
+        p = prm.init_params(ssm.mlstm_defs(cfg), gen, dtype, dev)
+        x = torch.randn((1, ENC_FRAMES, cfg.d_model), generator=gen,
+                        device=dev).to(dtype)
+        xr = rmsnorm(p["norm"], x, cfg.norm_eps)
+        q, k, v_aug, log_a, _ = ssm._mlstm_proj(p, xr, cfg)
+        _, nh, dh = ssm.mlstm_dims(cfg)
+        h0 = torch.zeros((1, nh, dh, dh + 1), device=dev)
+        y, h_t = ssm_scan(q, k, v_aug, log_a, h0)
+        want_y, want_h = ssm_scan_plain(q, k, v_aug, log_a, h0)
+        # v is unscaled here (|v| ~ 20 at the reference's init, |y| ~
+        # 1e3), so the error is taken relative to the largest |y|, |h_T|
+        err = max(((y.float() - want_y.float()).abs().max()
+                   / want_y.float().abs().max()).item(),
+                  ((h_t - want_h).abs().max() / want_h.abs().max()).item())
+        check("ssm_scan", err, dtype, f"{dtype} inside an xlstm-350m mLSTM "
+              f"layer: T={ENC_FRAMES} H={nh} dk={dh} dv={dh + 1} (y and h_T, "
+              f"relative to their largest magnitude, "
+              f"{want_y.float().abs().max().item():.1f} and "
+              f"{want_h.abs().max().item():.1f})", tol=SCAN_TOL[dtype])
+    time_group_chunks(gen, dev)
+
+
+# the query heads a decode CTA takes at G = 6 (the kernels instantiate
+# chunks of 1 to 5; group_chunk takes 3, two chunks of 3)
+GROUP_CHUNKS = (2, 3, 4, 5)
+
+
+def time_group_chunks(gen: torch.Generator, dev) -> None:
+    """Both decode kernels, bf16, at qwen2-vl's heads (Hkv 2, G 6, dh
+    128) with each chunk of GROUP_CHUNKS in place of group_chunk's, on
+    the CTX rows and at SERVE_CTX, each held to its plain version: the
+    numbers behind G 6's chunk (PERF.md)."""
+    heads = config_heads("qwen2-vl-2b")
+    mods = [sys.modules[f.__module__]
+            for f in (paged_decode_attention, decode_attention)]
+    chosen = mods[0].group_chunk(heads[1])
+    for label, ctx in (("CTX", CTX), ("serve", SERVE_CTX)):
+        live = torch.tensor([c > 0 for c in ctx], device=dev)
+        cases = [("paged", paged_decode_attention,
+                  kernel_case(torch.bfloat16, 128, gen, dev, heads, ctx=ctx),
+                  paged_decode_attention_plain),
+                 ("ring", decode_attention,
+                  ring_case(torch.bfloat16, 4096, gen, dev, heads=heads,
+                            ctx=ctx), decode_attention_plain)]
+        times = {}
+        for kernel, fn, args, plain in cases:
+            want = plain(*args).float()[live]
+            for gc in GROUP_CHUNKS:
+                real = [m.group_chunk for m in mods]
+                for m in mods:
+                    m.group_chunk = lambda g, gc=gc: gc
+                try:
+                    err = (fn(*args).float()[live] - want).abs().max().item()
+                    check(fn.__name__, err, torch.bfloat16,
+                          f"qwen2-vl heads, {label} contexts, chunks of {gc}")
+                    times[kernel, gc] = cuda_ms(lambda: fn(*args), 100)
+                finally:
+                    for m, r in zip(mods, real):
+                        m.group_chunk = r
+            ms = " / ".join(f"{times[kernel, gc]:.4f}" for gc in GROUP_CHUNKS)
+            log("kernels", f"{fn.__name__} bf16 Hkv={heads[0]} G={heads[1]} "
+                f"dh={heads[2]}, {label} contexts, chunks of "
+                f"{'/'.join(map(str, GROUP_CHUNKS))} heads: {ms} ms "
+                f"(group_chunk takes {chosen})")
+
+
+def greedy_run(params, cfg, prefill, steps: int, forced=None):
+    """Prefill (``prefill(cfg, params)`` -> (logits, cache)) and ``steps``
+    decode steps of greedy tokens; with ``forced`` (B, steps + 1) the
+    tokens fed are those instead.  Returns the greedy tokens (B, steps +
+    1)."""
+    logits, cache = prefill(cfg, params)
+    toks = []
+    for i in range(steps + 1):
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        if i == steps:
+            break
+        feed = tok if forced is None else forced[:, i]
+        logits, cache = models.decode_step(params, cfg, feed[:, None], cache)
+    return torch.stack(toks, 1)
+
+
+def greedy_equal_check(phase: str, params, cfg, prefill, steps: int,
+                       what: str) -> None:
+    """f32, at a depth where rounding does not decide a token: the greedy
+    tokens with the kernels on and off are equal."""
+    t_on = greedy_run(params, cfg.replace(use_pallas=True), prefill, steps)
+    t_off = greedy_run(params, cfg.replace(use_pallas=False), prefill, steps)
+    if not torch.equal(t_on, t_off):
+        raise AssertionError(f"{phase}: greedy tokens differ, kernels on vs "
+                             f"off:\n{t_on}\n{t_off}")
+    log(phase, f"{what}, f32: greedy tokens equal, kernels on vs off "
+        f"({t_on.numel()} tokens)")
+
+
+class kernelwise:
+    """Within the block, every call the model makes to the flash and ring
+    decode wrappers also runs the wrapper's plain version on the same
+    inputs; ``max_err()`` is the largest |kernel - plain| over the plain
+    output's largest magnitude (the path's activations reach ~30, where
+    one bf16 unit is 0.125), and ``calls`` counts the calls held."""
+
+    KERNELS = {"flash_attention": flash_attention_plain,
+               "decode_attention": decode_attention_plain}
+
+    def __enter__(self):
+        self.errs, self.calls = [], dict.fromkeys(self.KERNELS, 0)
+        self._real = {n: getattr(attention, n) for n in self.KERNELS}
+        for name, plain in self.KERNELS.items():
+            def both(*args, _real=self._real[name], _plain=plain,
+                     _name=name, **kw):
+                out = _real(*args, **kw)
+                want = _plain(*args, **kw).float()
+                self.errs.append((out.float() - want).abs().max()
+                                 / want.abs().max())
+                self.calls[_name] += 1
+                return out
+            setattr(attention, name, both)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(attention, name, real)
+        return False
+
+    def max_err(self) -> float:
+        return torch.stack(self.errs).max().item() if self.errs else 0.0
+
+
+def kernelwise_check(phase: str, params, cfg, prefill, steps: int,
+                     what: str) -> dict:
+    """The full model with the kernels on, every attention kernel call
+    held to its plain version on the inputs the path gives it (relative
+    to the output's magnitude, within the bf16 band of 2e-2).
+
+    The model's own tokens are not compared with the kernels off at this
+    depth: at the reference's init rule attention is close to a hard max
+    (q and k projections drawn with the head count as fan-in: scores of
+    standard deviation 64 to 314 at seamless's, agent-7b's and
+    qwen2-vl's heads), so a rounding difference in one layer's output
+    moves the next layer's scores by O(0.1) and a random-init stack
+    amplifies it layer by layer (at qwen2-vl's width a kernels-on and a
+    kernels-off f32 prefill differ by 0, 6.7e-6, 2.2e-4, 0.18 and 1.6 in
+    logits of ~3.7 at 1, 2, 4, 8 and 12 layers on the CPU; in bf16 one
+    seamless decoder layer's output already moves by up to 3% of its
+    norm between the two paths on the card).  The cut-depth f32 runs
+    (``greedy_equal_check``) hold the tokens.  Returns the run's
+    launches."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with kernelwise() as kw:
+        greedy_run(params, cfg.replace(use_pallas=True), prefill, steps)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    err = kw.max_err()
+    if not err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"{phase}: a kernel call differs from its "
+                             f"plain version by {err} (relative)")
+    log(phase, f"{what}, {cfg.dtype}, kernels on: "
+        f"{time.perf_counter() - t0:.2f} s with the checks, kernel launches "
+        f"{launched}; every call held to its plain version on the path's "
+        f"inputs ({kw.calls}): max |kernel - plain| {err:.3e} of the "
+        f"output's largest magnitude (tolerance "
+        f"{TOL[torch.bfloat16]:.0e})")
+    return launched
+
+
+def cut_depth(params, n: int, dtype: torch.dtype):
+    """The first ``n`` layers of each single-segment stack (decoder, and
+    the encoder where there is one), cast to ``dtype``."""
+    out = prm.tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                       {k: v for k, v in params.items()
+                        if k not in ("decoder", "encoder")})
+    for part in ("decoder", "encoder"):
+        if part in params:
+            out[part] = [prm.tree_map(lambda t: t[:n].to(dtype), seg)
+                         for seg in params[part]]
+    return out
+
+
+def phase_vision(dev, cfg, params) -> None:
+    """qwen2-vl at the model level: a prefill whose first 256 slots are
+    patch embeddings at 3-axis (t, h, w) positions over a 16 x 16 grid,
+    then 64 text tokens whose three streams run on together, and 16
+    decode steps; kernels on against off, in f32 at 2 layers (greedy
+    tokens equal) and in the served bf16 at full depth
+    (``kernelwise_check``)."""
+    gh, gw = VISION_GRID
+    p = gh * gw
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b = 2
+    tokens = torch.randint(0, cfg.vocab, (b, p + VISION_TEXT), generator=gen,
+                           device=dev)
+    emb = torch.randn((b, p, cfg.d_model), generator=gen, device=dev)
+    hh, ww = torch.meshgrid(torch.arange(gh, device=dev),
+                            torch.arange(gw, device=dev), indexing="ij")
+    vis = torch.stack([torch.zeros_like(hh), hh, ww], -1).reshape(p, 3)
+    text = (max(gh, gw) + torch.arange(VISION_TEXT, device=dev))[:, None]
+    pos = torch.cat([vis, text.expand(-1, 3)]).to(torch.int32)
+    pos = pos[None].expand(b, -1, -1).contiguous()
+
+    def prefill(cc, pp):
+        cache = models.init_cache(cc, b, p + VISION_TEXT + 32, device=dev)
+        return models.prefill(pp, cc, tokens, cache, positions=pos,
+                              vision_embeds=emb.to(prm.torch_dtype(cc.dtype)))
+    what = (f"{p} patch embeddings at 3-axis positions + {VISION_TEXT} text "
+            f"tokens, B={b}, 16 decode steps")
+    small = cut_depth(params, 2, torch.float32)
+    greedy_equal_check("vision", small, cfg.replace(n_layers=2,
+                                                    dtype="float32"),
+                       prefill, 16, f"qwen2-vl-2b, 2 layers, {what}")
+    free(small)
+    launched = kernelwise_check("vision", params, cfg, prefill, 16,
+                                f"qwen2-vl-2b, {cfg.n_layers} layers, "
+                                f"{what}")
+    n = cfg.n_layers if dev.type == "cuda" else 0   # the CPU: plain versions
+    if launched["flash_attention"] != n or \
+            launched["decode_attention"] != 16 * n:
+        raise AssertionError(f"vision: kernel launches {launched}")
+
+
+def phase_encdec(dev, cfg, params) -> dict:
+    """seamless-m4t at the model level: the encoder over 8 x 1000 frame
+    embeddings (non-causal flash), a 32-token decoder prefill (causal
+    flash over the prompt, non-causal flash over the memory) and 64
+    decode steps (ring decode over each layer's own ring and over its
+    cross K/V); kernels on against off, in f32 at 1 + 1 layers (greedy
+    tokens equal; at 2 + 2 the f32 logits already differ by up to 0.19
+    of 5.8 on the card and 3 of 520 near ties flip) and in the served
+    bf16 at full depth (``kernelwise_check``).  Returns the full-depth
+    kernels-on run's launches."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    frames = torch.randn((ENC_BATCH, ENC_FRAMES, cfg.d_model), generator=gen,
+                         device=dev)
+    tokens = torch.randint(0, cfg.vocab, (ENC_BATCH, ENC_PROMPT),
+                           generator=gen, device=dev)
+
+    def prefill(cc, pp):
+        cache = models.init_cache(cc, ENC_BATCH, ENC_PROMPT + ENC_STEPS + 1,
+                                  device=dev, enc_len=ENC_FRAMES)
+        return models.prefill(pp, cc, tokens, cache,
+                              frames=frames.to(prm.torch_dtype(cc.dtype)))
+    what = (f"{ENC_BATCH} x {ENC_FRAMES} frames, {ENC_PROMPT}-token prompts, "
+            f"{ENC_STEPS} decode steps")
+    small = cut_depth(params, 1, torch.float32)
+    greedy_equal_check("encdec", small, cfg.replace(
+        n_layers=1, enc_layers=1, dtype="float32"), prefill, ENC_STEPS,
+        f"seamless-m4t-large-v2, 1 + 1 layers, {what}")
+    free(small)
+    launched = kernelwise_check(
+        "encdec", params, cfg, prefill, ENC_STEPS,
+        f"seamless-m4t-large-v2, {cfg.enc_layers} + {cfg.n_layers} layers, "
+        f"{what}")
+    n, e = cfg.n_layers, cfg.enc_layers
+    if dev.type != "cuda":                   # the CPU: plain versions
+        n = e = 0
+    want = {"flash_attention": e + 2 * n,
+            "decode_attention": 2 * n * ENC_STEPS}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"encdec: kernel launches {launched}, expected "
+                             f"{want}")
+    return launched
+
+
+# one layer at each new width, f32 (gemma3: one local layer, its window
+# cut to PARITY_SWA's so its ring wraps, and one global; xlstm: one mLSTM
+# and one sLSTM layer; danube's window cut likewise): (config, cut,
+# windows for phase_parity, layouts)
+WIDTH_PARITY = [
+    ("gemma3-27b", dict(n_layers=2, local_global_ratio=1), [PARITY_SWA],
+     LAYOUTS),
+    ("h2o-danube-3-4b", dict(n_layers=1), [PARITY_SWA], LAYOUTS),
+    ("llama3-405b", dict(n_layers=1), [(None, 1024)], LAYOUTS),
+    ("command-r-plus-104b", dict(n_layers=1), [(None, 1024)], LAYOUTS),
+    ("qwen2-vl-2b", dict(n_layers=1), [(None, 1024)], LAYOUTS),
+    ("xlstm-350m", dict(n_layers=2, mlstm_ratio=1), [(None, 1024)],
+     [("ring", True), ("ring", False)]),
+]
+# gemma3-27b's 56.8 GB of weights leave room for a pool of 128 pages (62
+# MiB a page across its 62 layers) and rings of 1536 slots
+GEMMA_SCHED = dict(SERVE_SCHED, num_pages=128, max_context=1536)
+# the dense serve phases: (config, cut, scheduler, new tokens)
+SLICE_SERVE = [
+    ("gemma3-27b", {}, GEMMA_SCHED, 64),
+    ("h2o-danube-3-4b", {}, None, 64),
+    ("llama3-405b", dict(n_layers=2), None, 16),
+    ("command-r-plus-104b", dict(n_layers=2), None, 16),
+]
 
 
 def init_full(cfg, dev, phase: str):
@@ -2156,6 +2618,46 @@ def main() -> int:
     params = init_full(cfg, dev, "serve kimi")
     phase_serve(dev, cfg, params, "paged", "serve kimi")
     phase_serve(dev, cfg, params, "ring", "serve kimi ring")
+    free(params)
+
+    # this slice: every architecture of the repo
+    phase_new_paths(dev)
+    for name, cut, windows, layouts in WIDTH_PARITY:
+        small = get_config(name).replace(dtype="float32", **cut)
+        params = init_full(small, dev, "parity")
+        phase_parity(dev, small, params, layouts,
+                     f"{name} width, {small.n_layers} layer(s)", windows,
+                     eager=True)
+        free(params)
+
+    cfg = get_config("xlstm-350m").replace(use_pallas=True)
+    params = init_full(cfg, dev, "serve xlstm")
+    xlstm = phase_serve(dev, cfg, params, "ring", "serve xlstm",
+                        prefill_profile=True)
+    log("serve xlstm", f"ssm_scan launches on the xlstm serve path (graph "
+        f"run): {xlstm['ssm_scan']} ({kind_layers(cfg, ('mlstm',))} "
+        f"mLSTM layers, one launch each per prefill)")
+    free(params)
+
+    cfg = get_config("qwen2-vl-2b").replace(use_pallas=True)
+    params = init_full(cfg, dev, "serve qwen2-vl")
+    phase_serve(dev, cfg, params, "paged", "serve qwen2-vl")
+    phase_serve(dev, cfg, params, "ring", "serve qwen2-vl ring")
+    phase_serve_mixed(dev, cfg, params, "serve mixed qwen2-vl")
+    phase_vision(dev, cfg, params)
+    free(params)
+
+    for name, cut, sched, max_new in SLICE_SERVE:
+        cfg = get_config(name).replace(use_pallas=True, **cut)
+        params = init_full(cfg, dev, f"serve {name}")
+        for layout in ("paged", "ring"):
+            phase_serve(dev, cfg, params, layout, f"serve {name} {layout}",
+                        max_new=max_new, sched=sched)
+        free(params)
+
+    cfg = get_config("seamless-m4t-large-v2").replace(use_pallas=True)
+    params = init_full(cfg, dev, "encdec")
+    phase_encdec(dev, cfg, params)
     free(params)
 
     main_path = {"paged_decode_attention": control, "flash_attention": hymba,

@@ -38,10 +38,9 @@ def group_chunk(g: int) -> int:
     (``PERF.md`` §6): the state of 7 or 8 heads in one CTA takes 186-227
     registers a thread and was slower than chunks of 4 that each read the
     K/V rows again, mostly from L2, at every context tried; 5 heads were
-    faster whole.  G = 6 was faster as 3 + 3 at the serve contexts in
-    both decode kernels, and whole only for the paged kernel at the long
-    contexts; no ported config has G = 6 yet, so its chunk is provisional.
-    Shapes only, as plain ints."""
+    faster whole.  At qwen2-vl-2b's heads (G = 6, Hkv 2, dh 128) chunks
+    of 3 were the fastest of 2 to 5 in both decode kernels, at long and
+    serve contexts alike.  Shapes only, as plain ints."""
     if type(g) is not int:
         raise TypeError(f"group_chunk takes ints; g is {type(g).__name__}")
     if g <= 0:

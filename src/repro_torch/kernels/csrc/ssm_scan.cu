@@ -5,7 +5,7 @@
 // _kernel), reached through the model-layout wrapper
 // src/repro/kernels/ops.py::ssm_scan.  On the port's path it is the chunked
 // scan of every hymba layer's mamba branch at prefill (models/ssm.py); at
-// dk 512 and dv 513 it is mLSTM's (xLSTM, not ported yet).
+// dk 512 and dv 513 it is an xlstm-350m mLSTM layer's.
 //
 // What it computes, per (batch b, head h), with an f32 state H (dk x dv):
 //   H_t = exp(log_a_t) H_{t-1} + k_t v_t^T,   y_t = q_t . H_t,   H_0 = h0

@@ -5,7 +5,8 @@ Port of the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention``), reached in the reference through the
 model-layout wrapper ``repro/kernels/ops.py::decode_attention``.  The
 CUDA source is ``csrc/decode_attention.cu``.  On the port's path it
-computes the ring layout's decode attention.
+computes the ring layout's decode attention, and a decode step's cross
+attention over an encoder's K/V (every key valid).
 
 One query token per sequence attends over a slot-contiguous ring of
 ``T`` slots.  ``kpos[b, t]`` is the absolute position held in slot

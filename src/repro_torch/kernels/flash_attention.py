@@ -5,7 +5,8 @@ Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``), reached in the reference through the model-layout
 wrapper ``repro/kernels/ops.py::flash_attention``.  The CUDA source is
 ``csrc/flash_attention.cu``.  On the port's path it computes the ring
-layout's one-shot causal prefill.
+layout's one-shot causal prefill, and non-causal the encoder's self
+attention and a decoder prefill's cross attention.
 
 Blocked GQA attention of q (B, S, H, dh) against k, v (B, T, Hkv, dh):
 query head ``h`` reads KV head ``h // (H // Hkv)``.  Causal: key ``j``

@@ -6,7 +6,8 @@ Port of the Pallas TPU kernel ``repro/kernels/ssm_scan.py``
 (``ssm_scan``), reached in the reference through the model-layout
 wrapper ``repro/kernels/ops.py::ssm_scan``.  The CUDA source is
 ``csrc/ssm_scan.cu``.  On the port's path it is the chunked scan of
-every hymba layer's mamba branch at prefill (``models/ssm.py``).
+every hymba layer's mamba branch and every xLSTM mLSTM layer at prefill
+(``models/ssm.py``).
 
 Per (batch, head), with an f32 state ``h`` of (dk, dv):
 

@@ -8,14 +8,16 @@
 """
 from repro_torch.models.params import from_jax
 from repro_torch.models.transformer import (decode_step, default_positions,
-                                            init, init_cache, model_defs,
+                                            encode, init, init_cache,
+                                            model_defs,
                                             paged_extract, paged_insert,
                                             param_count, prefill,
                                             prefill_paged,
                                             prefill_paged_padded)
 
 __all__ = [
-    "decode_step", "default_positions", "from_jax", "init", "init_cache",
+    "decode_step", "default_positions", "encode", "from_jax", "init",
+    "init_cache",
     "model_defs", "paged_extract", "paged_insert", "param_count", "prefill",
     "prefill_paged", "prefill_paged_padded",
 ]

@@ -17,6 +17,15 @@ Two layouts share one masked-softmax core:
   gathers a contiguous view of each sequence's pages (``paged_view``)
   and runs ``attention_cached``, as the reference does.
 
+Cache-free paths serve the encoder of an encoder-decoder model:
+``self_attention`` (``causal=False`` in an encoder block) and the cross
+attention of a decoder block, whose keys are the encoder's memory:
+``cross_kv_precompute`` projects it once at prefill into a ``CrossKV``
+the decoder's cache keeps, and ``cross_attention_cached`` attends to it.
+With ``cfg.use_pallas`` a full sequence runs the flash kernel
+non-causal, and a decode step's cross attention the ring decode kernel
+over the cross K/V (every key valid).
+
 JAX updates caches functionally and donates the old buffers; here ring
 and pool are updated in place (``index_put_``) and the same tensors are
 returned.
@@ -384,3 +393,78 @@ def out_project(params: dict, out: torch.Tensor) -> torch.Tensor:
 def _pos1d(positions: torch.Tensor) -> torch.Tensor:
     """(B,S) from (B,S) or (B,S,3)."""
     return positions[..., 0] if positions.ndim == 3 else positions
+
+
+# ---------------------------------------------------------------------------
+# Cache-free full-sequence attention (the encoder) and cross attention
+# ---------------------------------------------------------------------------
+
+
+def _full(q, k, v, cfg: ModelConfig, window: int, causal: bool):
+    """Whole-sequence attention: the flash kernel with ``cfg.use_pallas``
+    (non-causal too, over the real key length), else ``attention_full``."""
+    if cfg.use_pallas:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window)
+    return attention_full(q, k, v, window=window, chunk=cfg.attn_chunk,
+                          causal=causal)
+
+
+def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                   spec: BlockSpec, positions: torch.Tensor,
+                   causal: bool = True) -> torch.Tensor:
+    """Whole-sequence self attention with no cache (an encoder block's,
+    ``causal=False``)."""
+    q, k, v = qkv_project(params, x, cfg, positions)
+    return out_project(params, _full(q, k, v, cfg, spec.window, causal))
+
+
+def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention against the memory (B, T_enc, d),
+    projected here."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("btd,dhk->bthk", memory, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", memory, params["wv"])
+    return out_project(params, _full(q, k, v, cfg, -1, False))
+
+
+class CrossKV(NamedTuple):
+    k: torch.Tensor   # (B, T_enc, Hkv, dh)
+    v: torch.Tensor
+
+
+def cross_kv_precompute(params: dict, memory: torch.Tensor) -> CrossKV:
+    k = torch.einsum("btd,dhk->bthk", memory, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", memory, params["wv"])
+    return CrossKV(k, v)
+
+
+def cross_attention_cached(params: dict, x: torch.Tensor, ckv: CrossKV,
+                           cfg: Optional[ModelConfig] = None
+                           ) -> torch.Tensor:
+    """x (B, Sq, d) against precomputed cross K/V, every key valid.  With
+    ``cfg.use_pallas`` a decode step (Sq = 1) runs the ring decode kernel
+    with ``kpos = arange(T_enc)`` and ``q_pos = T_enc - 1``, and a longer
+    query block the flash kernel non-causal; else the reference's masked
+    core."""
+    b, sq = x.shape[:2]
+    t = ckv.k.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    h, dh = q.shape[2], q.shape[3]
+    if cfg is not None and cfg.use_pallas:
+        if sq == 1:
+            kpos = torch.arange(t, dtype=torch.int32,
+                                device=x.device)[None].expand(b, t)
+            q_pos = torch.full((b,), t - 1, dtype=torch.int32,
+                               device=x.device)
+            out = decode_attention(q.contiguous(), ckv.k.contiguous(),
+                                   ckv.v.contiguous(), kpos.contiguous(),
+                                   q_pos, window=-1)
+        else:
+            out = _full(q, ckv.k, ckv.v, cfg, -1, False)
+        return out_project(params, out)
+    hkv = ckv.k.shape[2]
+    mask = torch.ones((1, 1, 1, sq, t), dtype=torch.bool, device=x.device)
+    out = attn_core(_group(q, hkv), ckv.k, ckv.v, mask)
+    return out_project(params, out.reshape(b, sq, h, dh))

@@ -1,12 +1,13 @@
-"""Block-level assembly (port of ``repro/models/blocks.py``) for the
-kinds the port serves: ``attn`` and ``dec`` without cross attention,
-including ``parallel_block``, over a ring or a paged cache; and
-``hymba`` (attention and a mamba branch side by side) over a ring cache
-plus its SSM state.  An ``attn`` block's FFN is the dense MLP or the MoE
-FFN (``models/moe.py``), with arctic's dense residual MLP beside the
-experts and kimi's shared expert inside them, on every branch.  Other
-kinds and cross attention raise ``NotImplementedError`` naming the
-ROADMAP queue A item that ports them.
+"""Block-level assembly (port of ``repro/models/blocks.py``) for every
+block kind of the reference: ``attn`` (the dense MLP or the MoE FFN,
+with arctic's dense residual MLP beside the experts and kimi's shared
+expert inside them; ``parallel_block`` for cohere) over a ring or a
+paged cache; ``hymba`` (attention and a mamba branch side by side) over
+a ring plus its SSM state; xLSTM's ``mlstm`` and ``slstm`` over their
+recurrent states; the encoder's ``enc`` (non-causal, no cache) and the
+decoder's ``dec`` with cross attention over the encoder's memory, whose
+projected K/V the decoder's ring cache keeps.  Only attention-only
+blocks page.
 """
 from __future__ import annotations
 
@@ -16,28 +17,23 @@ import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import ssm
-from repro_torch.models.attention import (PagedKVCache, attn_defs,
-                                          init_kv_cache, init_paged_kv_cache,
-                                          kv_cache_size,
+from repro_torch.models.attention import (CrossKV, PagedKVCache, attn_defs,
+                                          cross_attention_cached,
+                                          cross_kv_precompute, init_kv_cache,
+                                          init_paged_kv_cache,
+                                          kv_cache_size, self_attention,
                                           self_attention_cached,
                                           self_attention_paged,
                                           self_attention_prefill)
 from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 from repro_torch.models.moe import moe_defs, moe_ffn
 
-_LATER = {"mlstm": "xLSTM", "slstm": "xLSTM", "enc": "enc-dec"}
+_KINDS = ("attn", "enc", "dec", "hymba", "mlstm", "slstm")
 
 
 def _supported(spec: BlockSpec) -> None:
-    if spec.kind in _LATER:
-        raise NotImplementedError(
-            f"block kind {spec.kind!r} is not ported yet "
-            f"(ROADMAP queue A: {_LATER[spec.kind]})")
-    if spec.kind not in ("attn", "dec", "hymba"):
+    if spec.kind not in _KINDS:
         raise ValueError(f"unknown block kind {spec.kind!r}")
-    if spec.cross_attention:
-        raise NotImplementedError(
-            "cross attention is not ported yet (ROADMAP queue A: enc-dec)")
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +43,10 @@ def _supported(spec: BlockSpec) -> None:
 
 def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
     _supported(spec)
+    if spec.kind == "mlstm":
+        return ssm.mlstm_defs(cfg)
+    if spec.kind == "slstm":
+        return ssm.slstm_defs(cfg)
     if spec.kind == "hymba":
         return {
             "norm1": rmsnorm_defs(cfg.d_model),
@@ -55,10 +55,14 @@ def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
             "norm2": rmsnorm_defs(cfg.d_model),
             "mlp": mlp_defs(cfg.d_model, cfg.d_ff),
         }
+    # attn / enc / dec
     defs: dict[str, Any] = {
         "norm1": rmsnorm_defs(cfg.d_model),
         "attn": attn_defs(cfg),
     }
+    if spec.cross_attention:
+        defs["norm_x"] = rmsnorm_defs(cfg.d_model)
+        defs["cross"] = attn_defs(cfg, cross=True)
     if not spec.parallel_block:
         defs["norm2"] = rmsnorm_defs(cfg.d_model)
     if spec.moe:
@@ -77,24 +81,38 @@ def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
 
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      max_context: int, dtype: torch.dtype,
-                     device: torch.device, stack: tuple[int, ...] = ()
-                     ) -> dict:
+                     device: torch.device, stack: tuple[int, ...] = (),
+                     enc_len: int = 0) -> dict:
     """Ring decode state for a stack of layers of one block kind: rings
     of shape ``stack + (batch, size, Hkv, dh)`` and ``kpos`` of ``stack +
     (batch, size)``, ``size`` from ``kv_cache_size``; a hymba layer adds
     its ``SSMState`` (``stack + (batch, nh, ds, 64)`` f32 and ``stack +
-    (batch, 3, d_inner)``)."""
+    (batch, 3, d_inner)``), a decoder block with cross attention the
+    ``CrossKV`` of ``enc_len`` encoder positions.  An mLSTM layer holds
+    only its matrix memory ``h`` (``stack + (batch, nh, dh, dh + 1)``
+    f32), an sLSTM layer its ``SLSTMState`` (``stack + (batch, d)`` f32,
+    three of them)."""
     _supported(spec)
 
     def stacked(one):
-        return type(one)(*(t.expand(*stack, *t.shape).contiguous()
-                           for t in one))
+        if isinstance(one, torch.Tensor):
+            return one.expand(*stack, *one.shape).contiguous()
+        return type(one)(*(stacked(t) for t in one))
 
+    if spec.kind == "mlstm":
+        return {"h": stacked(ssm.init_mlstm_state(batch, cfg, device))}
+    if spec.kind == "slstm":
+        return {"s": stacked(ssm.init_slstm_state(batch, cfg, device))}
     size = kv_cache_size(spec, max_context, cfg.attn_chunk)
     cache = {"kv": stacked(init_kv_cache(batch, size, cfg.n_kv_heads,
                                          cfg.d_head, dtype, device))}
     if spec.kind == "hymba":
         cache["ssm"] = stacked(ssm.init_ssm_state(batch, cfg, dtype, device))
+    if spec.cross_attention:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+        cache["cross"] = stacked(CrossKV(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device)))
     return cache
 
 
@@ -136,23 +154,57 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return mlp(params["mlp"], x)
 
 
+def _copy_state(old, new) -> None:
+    """Write a recurrent state (a tensor or a namedtuple of them) into the
+    cache's tensors in place."""
+    if isinstance(old, torch.Tensor):
+        old.copy_(new)
+        return
+    for o, n in zip(old, new):
+        o.copy_(n)
+
+
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                spec: BlockSpec, positions: torch.Tensor, cache: dict,
-                tables: Optional[torch.Tensor] = None,
+                spec: BlockSpec, positions: torch.Tensor,
+                cache: Optional[dict], tables: Optional[torch.Tensor] = None,
                 mode: Optional[str] = None,
-                live: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (B,S,d); positions: (B,S); tables: (B,P) physical page ids.
-    Returns the block's output; the layer's cache is updated in place.
-    A ring cache needs ``mode``: ``"prefill"`` (one shot from position
-    0) or ``"step"`` (write-then-attend).  The paged pool serves prefill
-    and decode alike, so it takes no mode; this slice has no train
-    mode.  A ``"step"`` leaves the ring and SSM state of every row
-    outside ``live`` (B,) bool as they were; a paged row outside it has
-    an all -1 table row, so its writes already land in the sink."""
+                live: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B,S,d); positions: (B,S) or (B,S,3); tables: (B,P) physical
+    page ids.  Returns the block's output; the layer's cache is updated
+    in place.  ``cache=None`` runs the whole sequence with no decode
+    state (the encoder's blocks, non-causal).  A ring cache needs
+    ``mode``: ``"prefill"`` (one shot from position 0) or ``"step"``
+    (write-then-attend), as do the recurrent kinds.  The paged pool
+    serves prefill and decode alike, so it takes no mode.  A ``"step"``
+    leaves the ring and recurrent state of every row outside ``live``
+    (B,) bool as they were; a paged row outside it has an all -1 table
+    row, so its writes already land in the sink.  ``memory`` (B, T_enc,
+    d) is the encoder's output, read by a cross-attention block's
+    prefill; its step reads the cross K/V of the cache."""
     _supported(spec)
+    if spec.kind in ("mlstm", "slstm"):
+        key = "h" if spec.kind == "mlstm" else "s"
+        if mode == "step":
+            step = (ssm.mlstm_block_step if spec.kind == "mlstm"
+                    else ssm.slstm_block_step)
+            y, st = step(params, x, cache[key], cfg, live)
+        elif mode == "prefill":
+            block = (ssm.mlstm_block if spec.kind == "mlstm"
+                     else ssm.slstm_block)
+            y, st = block(params, x, cfg)
+        else:
+            raise ValueError(f"a recurrent block needs mode 'prefill' or "
+                             f"'step', got {mode!r}")
+        _copy_state(cache[key], st)
+        return y
+
     xr = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    kv = cache["kv"]
-    if isinstance(kv, PagedKVCache):
+    kv = cache["kv"] if cache is not None else None
+    if cache is None:
+        a = self_attention(params["attn"], xr, cfg, spec, positions,
+                           causal=spec.kind != "enc")
+    elif isinstance(kv, PagedKVCache):
         if tables is None:
             raise ValueError("a paged cache needs block tables")
         a, _ = self_attention_paged(params["attn"], xr, kv, cfg, spec,
@@ -172,13 +224,24 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         else:
             m, st = ssm.mamba_branch_step(params["mamba"], xr, cache["ssm"],
                                           cfg, live)
-        for old, new in zip(cache["ssm"], st):
-            old.copy_(new)
+        _copy_state(cache["ssm"], st)
         x = x + 0.5 * (a + m)
     elif spec.parallel_block:
         # attention and FFN read the same normed input, summed
         return x + a + _ffn(params, xr, cfg, spec)
     else:
         x = x + a
+    if spec.cross_attention:
+        xq = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        if cache is None or mode == "prefill":
+            if memory is None:
+                raise ValueError("a cross-attention block's prefill needs "
+                                 "the encoder's memory")
+            ckv = cross_kv_precompute(params["cross"], memory)
+            if cache is not None:
+                _copy_state(cache["cross"], ckv)
+        else:
+            ckv = cache["cross"]
+        x = x + cross_attention_cached(params["cross"], xq, ckv, cfg)
     return x + _ffn(params, rmsnorm(params["norm2"], x, cfg.norm_eps), cfg,
                     spec)

@@ -1,9 +1,9 @@
 """Shared neural building blocks (port of ``repro/models/layers.py``):
-norms, rotary embeddings, the SwiGLU MLP, embeddings.  Plain functions
-over parameter dicts, in the reference's weight layouts, so each einsum
-keeps the reference's subscripts.
+norms, rotary embeddings (M-RoPE included), the SwiGLU MLP, embeddings.
+Plain functions over parameter dicts, in the reference's weight layouts,
+so each einsum keeps the reference's subscripts.
 
-M-RoPE and the losses wait for the VLM and training slices."""
+The losses wait for the training slice."""
 from __future__ import annotations
 
 import torch
@@ -43,17 +43,33 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
-    """x: (B, S, H, dh); positions: (B, S) int32 (or (B, S, 3), of which
-    the temporal stream is used)."""
-    if mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP queue A: VLM)")
-    dh = x.shape[-1]
+    """x: (B, S, H, dh); positions: (B, S) int32, or (B, S, 3) for M-RoPE.
+
+    M-RoPE (qwen2-vl): the dh/2 frequency channels are split into
+    ``mrope_sections`` groups, each driven by one of the (t, h, w)
+    position streams.  Without sections a 3-axis ``positions`` uses its
+    temporal stream."""
+    b, s, _, dh = x.shape
     half = dh // 2
-    if positions.ndim == 3:
-        positions = positions[..., 0]
     freqs = rope_freqs(dh, theta, device=x.device)        # (half,)
-    angles = positions.float()[..., None] * freqs          # (B, S, half)
+    if mrope_sections:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"mrope_sections {mrope_sections} must sum to "
+                             f"{half}")
+        if positions.ndim != 3 or positions.shape[-1] != len(mrope_sections):
+            raise ValueError(f"M-RoPE needs (B, S, {len(mrope_sections)}) "
+                             f"positions, got {tuple(positions.shape)}")
+        # channel c takes the stream of its section; built from slices,
+        # not an index tensor, so no host-to-device copy enters a
+        # captured step
+        pf = positions.float()
+        pos = torch.cat([pf[..., i:i + 1].expand(b, s, n)
+                         for i, n in enumerate(mrope_sections)], dim=-1)
+    else:
+        if positions.ndim == 3:
+            positions = positions[..., 0]
+        pos = positions.float()[..., None]                 # (B, S, 1)
+    angles = pos * freqs                                   # (B, S, half)
     sin = torch.sin(angles)[:, :, None, :]
     cos = torch.cos(angles)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

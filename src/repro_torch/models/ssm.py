@@ -1,5 +1,6 @@
-"""State-space blocks (port of ``repro/models/ssm.py``), the mamba-2
-(SSD) half: the branch that runs beside attention in every hymba layer.
+"""State-space blocks (port of ``repro/models/ssm.py``): the mamba-2
+(SSD) branch that runs beside attention in every hymba layer, and
+xLSTM's mLSTM and sLSTM blocks.
 
 Every matrix-state recurrence reduces to one primitive,
 
@@ -9,16 +10,23 @@ Every matrix-state recurrence reduces to one primitive,
 ``chunked_linear_attention`` evaluates it chunk-parallel at prefill (the
 plain PyTorch version of the ``ssm_scan`` kernel; with ``cfg.use_pallas``
 the mamba branch runs the Hopper kernel itself), ``recurrent_step`` is
-the O(1) decode update.  Unlike the reference, a prompt whose length is
-not a multiple of the chunk is served: the ragged tail is padded as
-``ops.ssm_scan`` pads it (ROADMAP §C, fault 3).
+the O(1) decode update.  mLSTM's matrix memory is the same primitive
+(with ``cfg.use_pallas`` its prefill runs the same kernel, at dk = dh
+and dv = dh + 1 for the normaliser column).  Unlike the reference, a
+prompt whose length is not a multiple of the chunk is served: the ragged
+tail is padded as ``ops.ssm_scan`` pads it (ROADMAP §C, fault 3).  The
+sLSTM's scalar memory is a sequential recurrence with no kernel in the
+reference (a ``lax.scan``); here its prefill is a loop over the tokens.
 
 Casts follow the reference, since the bf16 results depend on them: the
 dt and B/C projections in f32, silu through f32, dt folded into v in the
-model dtype.  The mLSTM and sLSTM blocks (xLSTM) wait for their slice.
+model dtype.  A decode step takes a ``live`` (B,) bool mask: the state
+of every other row (an empty or parked slot) is returned unchanged.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -28,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ssm_scan
 from repro_torch.kernels.ssm_scan import \
     ssm_scan_plain as chunked_linear_attention
+from repro_torch.models.layers import rmsnorm, rmsnorm_defs
 from repro_torch.models.params import P
 
 
@@ -179,3 +188,201 @@ def mamba_branch_step(params: dict, x: torch.Tensor, state: SSMState,
         h_new = torch.where(live[:, None, None, None], h_new, state.h)
         conv_state = torch.where(live[:, None, None], conv_state, state.conv)
     return out, SSMState(h=h_new, conv=conv_state)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nh = cfg.n_heads
+    dh = d_inner // nh
+    return d_inner, nh, dh
+
+
+def mlstm_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    d_inner, nh, dh = mlstm_dims(cfg)
+    return {
+        "norm": rmsnorm_defs(d),
+        "up_proj": P((d, 2 * d_inner), ("embed", "ff")),       # x, z
+        "wq": P((d_inner, nh, dh), ("ff", "heads", None)),
+        "wk": P((d_inner, nh, dh), ("ff", "heads", None)),
+        "wv": P((d_inner, nh, dh), ("ff", "heads", None)),
+        "w_if": P((d_inner, 2 * nh), ("ff", None)),            # i, f gates
+        "gn": P((nh, dh), (None, None), init="ones", dtype="float32"),
+        "down_proj": P((d_inner, d), ("ff", "embed")),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _sqrt_as(dh: int, dtype: torch.dtype) -> float:
+    """The reference divides by ``jnp.sqrt(float(dh))``, a weakly typed
+    scalar that takes the operand's dtype first: sqrt(dh) rounded to
+    ``dtype``, as a host float."""
+    return float(torch.tensor(math.sqrt(dh)).to(dtype))
+
+
+def _mlstm_proj(params, xr, cfg):
+    d_inner, nh, dh = mlstm_dims(cfg)
+    xz = torch.einsum("btd,de->bte", xr, params["up_proj"])
+    xs, z = xz.chunk(2, dim=-1)
+    root = _sqrt_as(dh, xs.dtype)
+    q = torch.einsum("bte,ehd->bthd", xs, params["wq"]) / root
+    k = torch.einsum("bte,ehd->bthd", xs, params["wk"]) / root
+    v = torch.einsum("bte,ehd->bthd", xs, params["wv"])
+    gates = torch.einsum("bte,eh->bth", xs.float(), params["w_if"].float())
+    i_g, f_g = gates.chunk(2, dim=-1)                          # (B,T,nh)
+    log_a = F.logsigmoid(f_g)                                  # <= 0
+    i_t = torch.sigmoid(i_g)
+    # fold the input gate into k; append the normaliser ones-column to v
+    k = k * i_t[..., None].to(k.dtype)
+    v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+    return q, k, v_aug, log_a, z
+
+
+def _mlstm_out(params, y_aug, z, cfg):
+    b, t = y_aug.shape[:2]
+    d_inner, nh, dh = mlstm_dims(cfg)
+    y, n = y_aug[..., :-1], y_aug[..., -1:]
+    y = y / torch.clamp(n.abs(), min=1.0).to(y.dtype)
+    # per-head group norm, in f32
+    yf = y.float()
+    var = yf.square().mean(dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + 1e-6) * params["gn"]
+    y = yf.to(z.dtype).reshape(b, t, d_inner)
+    y = y * F.silu(z.float()).to(y.dtype)
+    return torch.einsum("bte,ed->btd", y, params["down_proj"])
+
+
+def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full sequence: (B,T,d) -> ((B,T,d), final state (B, nh, dh, dh+1)
+    f32).  With ``cfg.use_pallas`` the chunked scan is the ``ssm_scan``
+    kernel (dk = dh, dv = dh + 1)."""
+    xr = rmsnorm(params["norm"], x, cfg.norm_eps)
+    q, k, v_aug, log_a, z = _mlstm_proj(params, xr, cfg)
+    _, nh, dh = mlstm_dims(cfg)
+    h0 = torch.zeros((x.shape[0], nh, dh, dh + 1), dtype=torch.float32,
+                     device=x.device)
+    scan = ssm_scan if cfg.use_pallas else chunked_linear_attention
+    y_aug, h_t = scan(q, k, v_aug, log_a, h0)
+    return x + _mlstm_out(params, y_aug, z, cfg), h_t
+
+
+def init_mlstm_state(batch: int, cfg: ModelConfig,
+                     device: torch.device) -> torch.Tensor:
+    _, nh, dh = mlstm_dims(cfg)
+    return torch.zeros((batch, nh, dh, dh + 1), dtype=torch.float32,
+                       device=device)
+
+
+def mlstm_block_step(params: dict, x: torch.Tensor, h: torch.Tensor,
+                     cfg: ModelConfig, live: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode: x (B,1,d), h (B, nh, dh, dh+1) f32.  Rows outside ``live``
+    keep their ``h``."""
+    xr = rmsnorm(params["norm"], x, cfg.norm_eps)
+    q, k, v_aug, log_a, z = _mlstm_proj(params, xr, cfg)
+    y_aug, h_new = recurrent_step(q, k, v_aug, log_a, h)
+    if live is not None:
+        h_new = torch.where(live[:, None, None, None], h_new, h)
+    return x + _mlstm_out(params, y_aug, z, cfg), h_new
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM) -- sequential scalar-memory recurrence
+# ---------------------------------------------------------------------------
+
+
+def slstm_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    nh, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    ff = -(-4 * d // 3 // 64) * 64                  # gated FFN, ~4d/3
+    return {
+        "norm": rmsnorm_defs(d),
+        "w_gates": P((d, 4 * d), ("embed", "ff")),
+        "r_gates": P((nh, dh, 4 * dh), (None, None, None)),  # per-head recur.
+        "ffn_norm": rmsnorm_defs(d),
+        "ffn_in": P((d, ff), ("embed", "ff")),
+        "ffn_gate": P((d, ff), ("embed", "ff")),
+        "ffn_out": P((ff, d), ("ff", "embed")),
+    }
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor   # (B, d) f32
+    n: torch.Tensor   # (B, d) f32
+    h: torch.Tensor   # (B, d) f32
+
+
+def init_slstm_state(batch: int, cfg: ModelConfig,
+                     device: torch.device) -> SLSTMState:
+    def z():
+        return torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+                           device=device)
+    return SLSTMState(c=z(), n=z(), h=z())
+
+
+def _slstm_cell(params, wx_t, state: SLSTMState, nh: int, dh: int
+                ) -> SLSTMState:
+    """wx_t: (B, 4d) f32, the input's contribution at one step."""
+    b = wx_t.shape[0]
+    hr = state.h.reshape(b, nh, dh)
+    rec = torch.einsum("bhd,hde->bhe", hr, params["r_gates"].float()
+                       ).reshape(b, 4 * nh * dh)
+    pre = (wx_t + rec).reshape(b, 4, nh * dh)
+    z_t = torch.tanh(pre[:, 0])
+    i_t = torch.sigmoid(pre[:, 1])
+    f_t = torch.sigmoid(pre[:, 2])
+    o_t = torch.sigmoid(pre[:, 3])
+    c = f_t * state.c + i_t * z_t
+    n = f_t * state.n + i_t
+    h = o_t * c / torch.clamp(n, min=1.0)
+    return SLSTMState(c=c, n=n, h=h)
+
+
+def _slstm_ffn(params, x, cfg):
+    xr = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+    h = torch.einsum("btd,df->btf", xr, params["ffn_in"])
+    g = torch.einsum("btd,df->btf", xr, params["ffn_gate"])
+    h = h * F.silu(g.float()).to(h.dtype)
+    return x + torch.einsum("btf,fd->btd", h, params["ffn_out"])
+
+
+def _slstm_wx(params, x, cfg):
+    xr = rmsnorm(params["norm"], x, cfg.norm_eps)
+    return torch.einsum("btd,de->bte", xr.float(), params["w_gates"].float())
+
+
+def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, SLSTMState]:
+    """Full sequence: (B,T,d) -> ((B,T,d), final state).  The recurrence
+    runs token by token, as the reference's ``lax.scan``."""
+    b, t, d = x.shape
+    nh, dh = cfg.n_heads, d // cfg.n_heads
+    wx = _slstm_wx(params, x, cfg)                  # (B, T, 4d) f32
+    state = init_slstm_state(b, cfg, x.device)
+    hs = []
+    for i in range(t):
+        state = _slstm_cell(params, wx[:, i], state, nh, dh)
+        hs.append(state.h)
+    x = x + torch.stack(hs, dim=1).to(x.dtype)
+    return _slstm_ffn(params, x, cfg), state
+
+
+def slstm_block_step(params: dict, x: torch.Tensor, state: SLSTMState,
+                     cfg: ModelConfig, live: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, SLSTMState]:
+    """Decode: x (B,1,d).  Rows outside ``live`` keep their state."""
+    d = x.shape[-1]
+    nh, dh = cfg.n_heads, d // cfg.n_heads
+    wx = _slstm_wx(params, x, cfg)
+    new = _slstm_cell(params, wx[:, 0], state, nh, dh)
+    x = x + new.h[:, None].to(x.dtype)
+    if live is not None:
+        new = SLSTMState(*(torch.where(live[:, None], a, old)
+                           for a, old in zip(new, state)))
+    return _slstm_ffn(params, x, cfg), new

@@ -5,8 +5,15 @@ points of both KV layouts -- ring: ``init_cache(layout="ring")``,
 ``prefill_paged``, the mixed step's ``prefill_paged_padded`` and
 ``decode_step(tables=)`` -- and the paged <-> ring
 state bridge of KV migration (``paged_extract``, ``paged_insert``).
-Hybrid (hymba) stacks run on the ring layout only; their caches carry
-an ``SSMState`` beside each ring.
+Hybrid (hymba) and xLSTM stacks run on the ring layout only; their
+caches carry an ``SSMState`` beside each ring, or an mLSTM or sLSTM
+state in place of one.  An encoder-decoder model (``cfg.is_encdec``)
+runs its encoder over the frame embeddings at ``prefill(frames=)``
+(``encode``, no cache) and keeps each decoder layer's projected cross
+K/V in its ring cache (``init_cache(enc_len=)``).  A VLM's M-RoPE takes
+3-axis positions, the three streams equal for text; ``prefill`` takes
+patch embeddings over the first token slots (``vision_embeds``) and
+explicit ``positions``.
 
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
@@ -46,10 +53,6 @@ def _segment_defs(cfg: ModelConfig, seg: Segment) -> dict:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP queue A: "
-            "enc-dec)")
     defs: dict[str, Any] = {
         "embed": embed_defs(cfg.vocab, cfg.d_model),
         "final_norm": rmsnorm_defs(cfg.d_model),
@@ -57,6 +60,9 @@ def model_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["unembed"] = unembed_defs(cfg.d_model, cfg.vocab)
+    if cfg.is_encdec:
+        defs["encoder"] = [_segment_defs(cfg, s) for s in cfg.enc_plan()]
+        defs["enc_norm"] = rmsnorm_defs(cfg.d_model)
     return defs
 
 
@@ -89,18 +95,21 @@ def _layer(tree, idx: tuple[int, ...]):
     return tree[idx]
 
 
-def _run_plan(cfg: ModelConfig, params_list, x, positions, cache_list,
-              tables, mode=None, live=None):
-    for seg, seg_params, seg_cache in zip(cfg.plan(), params_list,
-                                          cache_list):
+def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
+              tables, mode=None, live=None, memory=None):
+    """Run ``plan``'s segments over ``x``.  ``cache_list=None`` runs
+    without decode state (the encoder)."""
+    for k, (seg, seg_params) in enumerate(zip(plan, params_list)):
+        seg_cache = cache_list[k] if cache_list is not None else None
         for r in range(seg.repeat):
             for j, (spec, n) in enumerate(seg.pattern):
                 for i in range(n):
                     idx = (r, i) if seg.repeat > 1 else (i,)
+                    layer_cache = (_layer(seg_cache[f"e{j}"], idx)
+                                   if seg_cache is not None else None)
                     x = block_apply(_layer(seg_params[f"e{j}"], idx), x,
-                                    cfg, spec, positions,
-                                    _layer(seg_cache[f"e{j}"], idx), tables,
-                                    mode, live)
+                                    cfg, spec, positions, layer_cache,
+                                    tables, mode, live, memory)
     return x
 
 
@@ -111,14 +120,31 @@ def _run_plan(cfg: ModelConfig, params_list, x, positions, cache_list,
 
 def default_positions(cfg: ModelConfig, b: int, s: int, offset=None,
                       device=None) -> torch.Tensor:
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE positions are not ported yet (ROADMAP queue A: VLM)")
+    """(B, S) int32 positions from ``offset`` (B,) or 0; (B, S, 3), the
+    three streams equal, for an M-RoPE model."""
     dev = offset.device if offset is not None else device
     pos = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
     if offset is not None:
         pos = pos + offset.to(torch.int32)[:, None]
+    return _streams(cfg, pos)
+
+
+def _streams(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions as the (B, S, 3) of M-RoPE, each stream equal (a
+    view); unchanged for any other model."""
+    if cfg.mrope_sections:
+        return pos[..., None].expand(*pos.shape, len(cfg.mrope_sections))
     return pos
+
+
+def _embed_inputs(params, tokens, vision_embeds):
+    """Token embeddings; a VLM's precomputed patch embeddings (B, P, d)
+    take the first P slots."""
+    x = embed(params["embed"], tokens)
+    if vision_embeds is not None:
+        p = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, p:]], dim=1)
+    return x
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -128,19 +154,37 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
+# Encoder (enc-dec models; the frontend stub gives frame embeddings)
+# ---------------------------------------------------------------------------
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over frame embeddings (B, T, d): non-causal, no
+    cache.  Returns the memory (B, T, d) the decoder's cross attention
+    reads."""
+    b, t, _ = frames.shape
+    pos = torch.arange(t, dtype=torch.int32,
+                       device=frames.device)[None].expand(b, t)
+    x = _run_plan(cfg.enc_plan(), cfg, params["encoder"], frames, pos, None,
+                  None)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
 # Cache + serving entry points
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_context: int,
                layout: str = "ring", num_pages: int = 0,
-               page_size: int = 128, device=None) -> dict:
+               page_size: int = 128, device=None, enc_len: int = 0) -> dict:
     """Decode state, stacked per segment element, plus the per-slot next
     position ``pos``.  ``layout="ring"`` (default) builds slot-contiguous
     rings (``batch`` rows, ``kv_cache_size`` slots per layer);
     ``layout="paged"`` one shared page pool per layer sized by the
     allocator's ``num_pages``, where ``max_context`` only bounds the
-    block tables the engine passes."""
+    block tables the engine passes.  An encoder-decoder model's ring
+    cache holds the cross K/V of ``enc_len`` encoder positions."""
     if layout not in ("ring", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     if layout == "paged" and num_pages <= 0:
@@ -153,7 +197,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_context: int,
             return init_paged_block_cache(cfg, spec, num_pages, page_size,
                                           dtype, dev, stack)
         return init_block_cache(cfg, spec, batch, max_context, dtype, dev,
-                                stack)
+                                stack, enc_len)
 
     segments = [{f"e{j}": one(spec, _stack_dims(seg, n))
                  for j, (spec, n) in enumerate(seg.pattern)}
@@ -162,15 +206,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_context: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
-    """One-shot prefill of a ring cache from position 0.  tokens (B, S).
-    Returns (last-token logits (B, V), cache), the cache updated in place
-    and every row's ``pos`` set to S."""
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, *,
+            positions=None, vision_embeds=None, frames=None):
+    """One-shot prefill of a ring cache from position 0.  tokens (B, S);
+    ``positions`` (B, S) or, for M-RoPE, (B, S, 3), by default
+    ``default_positions``; ``vision_embeds`` (B, P, d) over the first P
+    token slots (a VLM); ``frames`` (B, T_enc, d), the encoder's input
+    (an encoder-decoder model, whose cache was built with ``enc_len =
+    T_enc``).  Returns (last-token logits (B, V), cache), the cache
+    updated in place and every row's ``pos`` set to S."""
     b, s = tokens.shape
-    positions = default_positions(cfg, b, s, device=tokens.device)
-    x = embed(params["embed"], tokens)
-    x = _run_plan(cfg, params["decoder"], x, positions, cache["segments"],
-                  None, "prefill")
+    memory = encode(params, cfg, frames) if cfg.is_encdec else None
+    if positions is None:
+        positions = default_positions(cfg, b, s, device=tokens.device)
+    x = _embed_inputs(params, tokens, vision_embeds)
+    x = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
+                  cache["segments"], None, "prefill", memory=memory)
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _logits(params, cfg, x_last)[:, 0]
     cache["pos"].fill_(s)
@@ -186,13 +237,15 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     Returns (logits (B, V), cache), the cache updated in place: each live
     slot's ``pos`` advanced by one and its token written.  Every other
     slot (empty, or parked on a tool call) keeps its cache state as it
-    was -- its ``pos``, its ring and a hybrid's SSM state -- so a pinned
-    request resumes where it stopped (the reference advances every
-    slot; ROADMAP §C, reference fault 4)."""
+    was -- its ``pos``, its ring and a recurrent layer's state -- so a
+    pinned request resumes where it stopped (the reference advances every
+    slot; ROADMAP §C, reference fault 4).  A decoder with cross attention
+    reads the cross K/V its prefill stored."""
     pos = cache["pos"]                                   # (B,)
     x = embed(params["embed"], tokens)
-    x = _run_plan(cfg, params["decoder"], x, pos[:, None],
-                  cache["segments"], tables, "step", live)
+    x = _run_plan(cfg.plan(), cfg, params["decoder"], x,
+                  _streams(cfg, pos[:, None]), cache["segments"], tables,
+                  "step", live)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)[:, 0]
     if live is None:
@@ -213,8 +266,8 @@ def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     b, s = tokens.shape
     positions = default_positions(cfg, b, s, offset=start)
     x = embed(params["embed"], tokens)
-    x = _run_plan(cfg, params["decoder"], x, positions, cache["segments"],
-                  tables)
+    x = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
+                  cache["segments"], tables)
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _logits(params, cfg, x_last)[:, 0]
     cache["pos"][slot] = start[0] + s
@@ -239,8 +292,8 @@ def prefill_paged_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
     idx = torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
     positions = torch.where(idx < n, start + idx, -1).to(torch.int32)
     x = embed(params["embed"], tokens)
-    x = _run_plan(cfg, params["decoder"], x, positions, cache["segments"],
-                  tables)
+    x = _run_plan(cfg.plan(), cfg, params["decoder"], x,
+                  _streams(cfg, positions), cache["segments"], tables)
     last = (n - 1).reshape(1).long()
     x_last = rmsnorm(params["final_norm"], torch.index_select(x, 1, last),
                      cfg.norm_eps)

@@ -12,9 +12,10 @@ The batch-1 ring tree is also the exchange format of KV migration.
 ``ring_tree_from_numpy`` and ``ring_tree_to_numpy`` carry it across the
 package boundary as numpy: the reference's tree
 (``jax.device_get(engine.extract_state(req)["cache"])``, whose ring
-leaves are namedtuples with fields ``k``, ``v``, ``kpos`` and, in a
-hymba layer, SSM states with fields ``h``, ``conv``) into the port's,
-and back.
+leaves are namedtuples with fields ``k``, ``v``, ``kpos``; in a hymba
+layer SSM states with fields ``h``, ``conv``; in an xLSTM stack an
+mLSTM layer's matrix memory, a plain array, and an sLSTM layer's state
+with fields ``c``, ``n``, ``h``) into the port's, and back.
 """
 from __future__ import annotations
 
@@ -25,16 +26,16 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import CrossKV, KVCache
 from repro_torch.models.params import resolve_device
-from repro_torch.models.ssm import SSMState
+from repro_torch.models.ssm import SLSTMState, SSMState
 
-_STATE_TYPES = (KVCache, SSMState)
+_STATE_TYPES = (KVCache, SSMState, SLSTMState, CrossKV)
 
 
 def _leaves(tree) -> list[torch.Tensor]:
     """Tensor leaves in a fixed walk order: lists in order, dict keys
-    sorted, ring caches and SSM states field by field."""
+    sorted, ring caches and recurrent states field by field."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -140,7 +141,8 @@ def ring_tree_from_numpy(tree, device=None):
     ``extract_state(req)["cache"]`` after ``jax.device_get``) as the
     port's tree on ``device``.  Any namedtuple with fields ``k``, ``v``,
     ``kpos`` becomes a ``KVCache``, any with fields ``h``, ``conv`` an
-    ``SSMState``; bf16 stays bf16."""
+    ``SSMState``, any with fields ``c``, ``n``, ``h`` an ``SLSTMState``;
+    bf16 stays bf16."""
     dev = resolve_device(device)
 
     def walk(node):
@@ -157,13 +159,15 @@ def ring_tree_from_numpy(tree, device=None):
     return walk(tree)
 
 
-def ring_tree_to_numpy(tree, kv_type=KVCache, ssm_type=SSMState):
+def ring_tree_to_numpy(tree, kv_type=KVCache, ssm_type=SSMState,
+                       slstm_type=SLSTMState):
     """The port's batch-1 ring tree as numpy arrays, each ring as
-    ``kv_type(k=, v=, kpos=)`` and each SSM state as ``ssm_type(h=,
-    conv=)`` (pass the reference's ``KVCache`` and ``SSMState`` to hand
-    the tree to its ``inject_state``).  bf16 leaves come out as float32,
-    which holds their values exactly."""
-    out_type = {KVCache: kv_type, SSMState: ssm_type}
+    ``kv_type(k=, v=, kpos=)``, each SSM state as ``ssm_type(h=,
+    conv=)`` and each sLSTM state as ``slstm_type(c=, n=, h=)`` (pass
+    the reference's types to hand the tree to its ``inject_state``).
+    bf16 leaves come out as float32, which holds their values exactly."""
+    out_type = {KVCache: kv_type, SSMState: ssm_type,
+                SLSTMState: slstm_type, CrossKV: CrossKV}
 
     def walk(node):
         if isinstance(node, _STATE_TYPES):

@@ -9,7 +9,9 @@ when ``cfg.use_pallas`` is set, else ring, as in the reference):
   prefill attention runs the Hopper flash kernel and decode attention the
   ring decode kernel.  A hybrid's (hymba's) layers add their SSM state
   to the slot, and their mamba branch runs the SSM scan kernel at
-  prefill; a hybrid serves only on this layout.
+  prefill; an xLSTM stack keeps an mLSTM or sLSTM state per layer in
+  place of a ring, and its mLSTM layers run the same kernel at prefill.
+  Hybrid and recurrent models serve only on this layout.
 * ``paged`` -- one shared page pool per layer, sized by the scheduler's
   ``PageAllocator`` (pool page *i* is allocator page *i*).  Inactive
   slots ride along with all -1 block-table rows, so their writes land in
@@ -21,18 +23,21 @@ when ``cfg.use_pallas`` is set, else ring, as in the reference):
 Each decode step runs every slot at once.  A per-slot live mask (the
 plan's decoding requests) goes in beside the block tables: a slot outside
 it -- empty, or parked on a tool call (a *pinned* suspend) -- keeps its
-``pos``, its ring and a hybrid's SSM state, so a pinned request resumes
-where it stopped.  With the scheduler's
-``mixed`` knob (paged layout only), prefill stops serializing against
-decode: one mixed step runs every decode slot and one prefill chunk
-padded to a fixed capacity (``_mixed_cap``), its start, length and slot
-device scalars, as the reference's ``_mixed_step``.  A ``PrefixCache``
+``pos``, its ring and a recurrent layer's state (SSM, mLSTM, sLSTM), so
+a pinned request resumes where it stopped.  An encoder-decoder model is
+refused: the reference's ``Engine`` passes its prefill no frames either
+(ROADMAP §C), so such a model runs at the model level only.  With the
+scheduler's ``mixed`` knob (paged layout only), prefill stops
+serializing against decode: one mixed step runs every decode slot and
+one prefill chunk padded to a fixed capacity (``_mixed_cap``), its
+start, length and slot device scalars, as the reference's
+``_mixed_step``.  A ``PrefixCache``
 (``serving/prefix_cache.py``, attached with ``attach_cache``) hands
 admission a shared prompt prefix as page ids in the block table: no KV
 is copied.  Sampling runs on the device; only token ids cross to the
 host.  ``extract_state``/``inject_state`` move one sequence between
-engines of either layout through the batch-1 ring tree (SSM states
-included), which lives in host memory in between (pinned on the card):
+engines of either layout through the batch-1 ring tree (recurrent
+states included), which lives in host memory in between (pinned on the card):
 the host tier of a tool-call suspend and the carrier of a migration.
 
 On the card every decode step (both layouts) and every mixed step is a
@@ -79,6 +84,11 @@ class TorchEngine(EngineCore):
                  name: str = "engine", collector=None, seed: int = 0,
                  cache_layout: str | None = None, device=None,
                  cuda_graphs: bool | None = None):
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: the engine has no "
+                f"frames to encode (serve it with models.prefill(frames=) "
+                f"and models.decode_step)")
         self.device = resolve_device(device)
         if cache_layout not in (None, "ring", "paged"):
             raise ValueError(f"unknown cache layout {cache_layout!r}")
@@ -201,14 +211,18 @@ class TorchEngine(EngineCore):
     # ---------------------------------------------------------- step graphs
     def _recurrent_state(self) -> list[torch.Tensor]:
         """The cache tensors a step updates from their own values: each
-        slot's ``pos`` and a hybrid's SSM states.  A capture's warm-up
-        runs put them back; every other write of a step is the same on
-        every run."""
+        slot's ``pos`` and the recurrent layers' states (a hybrid's SSM
+        states, xLSTM's mLSTM memories and sLSTM states).  A capture's
+        warm-up runs put them back; every other write of a step is the
+        same on every run."""
         out = [self.cache["pos"]]
         for seg in self.cache["segments"]:
             for e in seg.values():
-                if "ssm" in e:
-                    out.extend(e["ssm"])
+                for key in ("ssm", "s"):
+                    if key in e:
+                        out.extend(e[key])
+                if "h" in e:
+                    out.append(e["h"])
         return out
 
     def _step_graph(self, kind: str) -> StepGraph:

@@ -16,8 +16,8 @@ the CUDA driver's ``cuTensorMapEncodeTiled``, ``cudaFuncSetAttribute``),
 under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in the
 body fails there by name instead of breaking the capture.  A warm-up run
 really executes the step, so the cache tensors the step updates from
-their own values (``restore``: each slot's ``pos``, a hybrid's SSM
-states) are put back after each; every other write of a step (the KV of
+their own values (``restore``: each slot's ``pos``, the recurrent
+layers' states) are put back after each; every other write of a step (the KV of
 its tokens at their positions, ``pos`` of a prefilled slot) is the same
 on every run.  A capture or replay that fails raises: nothing falls back
 to an eager step on the card.

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels.attention_shapes import (  # noqa: E402
     GROUPS, group_chunk)

@@ -2,12 +2,14 @@
 kernel-phase inputs, the bound and the library yardstick compute what
 they claim, and the serve loop drives TorchEngine to completion.  The
 script itself needs a GPU; this keeps its pieces from rotting."""
+import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -775,3 +777,239 @@ def test_serve_control_phase_runs_on_cpu(smoke, monkeypatch, capsys):
     assert out.count("request 3 host tier migrate") == 2
     assert out.count("pinned at pos") == 4
     assert "greedy tokens equal (1024 tokens)" in out
+
+
+# ---------------------------------------------------------------------------
+# The phases of every architecture (xLSTM, the VLM, the encoder-decoder
+# and the four other dense configs), rehearsed at smoke sizes
+# ---------------------------------------------------------------------------
+
+def test_expected_launches_of_xlstm(smoke):
+    """An xLSTM ring engine launches the SSM scan once per mLSTM layer
+    per prefill and no attention kernel; without the flag nothing.  At
+    full width: 21 mLSTM layers of 24."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config, get_smoke
+
+    cfg = get_smoke("xlstm-350m").replace(use_pallas=True)
+    assert smoke.kind_layers(cfg, ("mlstm",)) == 4 and cfg.n_layers == 6
+    eng = SimpleNamespace(cfg=cfg, device=torch.device("cuda"),
+                          cache_layout="ring")
+    assert smoke.expected_launches(eng, 3, 7) == {
+        "paged_decode_attention": 0, "flash_attention": 0,
+        "decode_attention": 0, "ssm_scan": 4 * 3, "grouped_matmul": 0}
+    eng.cfg = cfg.replace(use_pallas=False)
+    assert set(smoke.expected_launches(eng, 3, 7).values()) == {0}
+    full = get_config("xlstm-350m")
+    assert smoke.kind_layers(full, ("mlstm",)) == 21
+    assert smoke.kind_layers(full, ("slstm",)) == 3
+
+
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_expected_launches_of_gemma3(smoke, layout):
+    """gemma3-27b in full: 62 attention layers (52 local, 10 global),
+    each launching the layout's kernels."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma3-27b").replace(use_pallas=True)
+    assert smoke.kind_layers(cfg, ("attn",)) == 62
+    eng = SimpleNamespace(cfg=cfg, device=torch.device("cuda"),
+                          cache_layout=layout)
+    want = smoke.expected_launches(eng, 8, 63)
+    if layout == "paged":
+        assert want["paged_decode_attention"] == 62 * 63
+    else:
+        assert (want["flash_attention"], want["decode_attention"]) == \
+            (62 * 8, 62 * 63)
+    assert smoke.GEMMA_SCHED["num_pages"] == 128
+    assert smoke.config_heads("gemma3-27b") == (16, 2, 128)
+
+
+def test_new_paths_phase_on_cpu(smoke, monkeypatch, capsys):
+    """phase_new_paths at short contexts and small heads on the CPU, where
+    every wrapper takes its plain version: each check runs and agrees;
+    the mLSTM layer is xlstm-350m's own, over 40 tokens."""
+    monkeypatch.setattr(smoke, "CTX", [300, 257, 129, 100, 17, 0, 200, 200])
+    monkeypatch.setattr(smoke, "SHARED_TOKENS", 128)
+    monkeypatch.setattr(smoke, "ENC_FRAMES", 40)
+    heads = {"gemma3-27b": (2, 2, 16), "h2o-danube-3-4b": (2, 4, 24),
+             "llama3-405b": (1, 16, 16), "command-r-plus-104b": (1, 12, 16),
+             "qwen2-vl-2b": (2, 6, 16), "seamless-m4t-large-v2": (4, 1, 16)}
+    monkeypatch.setattr(smoke, "config_heads", heads.__getitem__)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    smoke.phase_new_paths(torch.device("cpu"))
+    out = capsys.readouterr().out
+    for name in smoke.SLICE_DENSE:
+        assert out.count(f" {name} Hkv=") == 2 * 2 * 2   # dtypes, kernels
+    assert out.count("non-causal") == 0
+    assert out.count("causal=False") == 2 * 2
+    assert out.count("cross attention of a seamless decode step") == 2
+    assert out.count("inside an xlstm-350m mLSTM layer: T=40 H=4 dk=512 "
+                     "dv=513") == 2
+    assert out.count("max |kernel - plain| 0.000e+00") == out.count(
+        "max |kernel - plain|")
+    # G 6's chunks timed (faked here) at both contexts in both kernels,
+    # and the planner restored
+    assert out.count("chunks of 2/3/4/5 heads: 1.0000 / 1.0000 / 1.0000 / "
+                     "1.0000 ms (group_chunk takes 3)") == 4
+    from repro_torch.kernels import attention_shapes
+    for fn in (smoke.paged_decode_attention, smoke.decode_attention):
+        assert sys.modules[fn.__module__].group_chunk is \
+            attention_shapes.group_chunk
+
+
+def test_config_heads_of_the_slice(smoke):
+    assert [smoke.config_heads(n) for n in smoke.SLICE_DENSE] == [
+        (16, 2, 128), (8, 4, 120), (8, 16, 128), (8, 12, 128), (2, 6, 128)]
+    assert smoke.config_heads("seamless-m4t-large-v2") == (16, 1, 64)
+
+
+@pytest.mark.parametrize("name", ["gemma3-27b", "h2o-danube-3-4b",
+                                  "llama3-405b", "command-r-plus-104b",
+                                  "qwen2-vl-2b", "xlstm-350m"])
+def test_width_parity_phases_run_on_cpu(smoke, monkeypatch, capsys, name):
+    """The width parity phase of each new architecture at its smoke size
+    on the CPU, with the phase's own cut, windows and layouts: greedy
+    tokens equal across layouts, kernels on and off, graph and eager."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "PARITY_LENS", [20, 45])
+    monkeypatch.setattr(smoke, "PARITY_SCHED", dict(
+        max_slots=2, num_pages=24, page_size=16, max_context=64))
+    _, cut, windows, layouts = next(w for w in smoke.WIDTH_PARITY
+                                    if w[0] == name)
+    windows = [(24, 8) if w == smoke.PARITY_SWA else (w[0], 8)
+               for w in windows]
+    cfg = get_smoke(name).replace(dtype="float32", **cut)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    smoke.phase_parity(torch.device("cpu"), cfg, params, layouts,
+                       f"{name} smoke", windows, eager=True)
+    out = capsys.readouterr().out
+    how = ("paged and ring, with and without their kernels"
+           if name != "xlstm-350m" else "ring, with and without its kernels")
+    assert out.count(f"greedy tokens equal across {how}, graph and "
+                     f"eager") == 1
+
+
+def test_xlstm_serve_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """The serve xlstm phase at xlstm-smoke sizes, graph (built once on
+    the CPU) and eager, with its prefill profile (device rows faked, the
+    sLSTM layers' events too): every request finishes, the tokens of the
+    two runs are equal, and the scan's and sLSTM's shares are printed."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "SERVE_LENS", [20, 33, 47, 5, 60, 12, 40, 28])
+    monkeypatch.setattr(smoke, "SERVE_SCHED", dict(
+        max_slots=8, num_pages=300, page_size=16, max_context=640))
+    monkeypatch.setattr(smoke, "PROFILE_LEN", 64)
+    for name in ("reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "device_rows", lambda prof: [
+        (300.0, 12, "void ssm_chunk_output_kernel<float>(...)"),
+        (2700.0, 40, "gemm")])
+
+    class Event:
+        def __init__(self, **kw):
+            self.t = 0.0
+
+        def record(self):
+            self.t = len(calls) * 2.5
+            calls.append(self)
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+    calls = []
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    cfg = get_smoke("xlstm-350m").replace(dtype="float32", use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    launches = smoke.phase_serve(torch.device("cpu"), cfg, params, "ring",
+                                 "serve xlstm", max_new=8,
+                                 prefill_profile=True)
+    assert set(launches.values()) == {0}           # CPU: plain versions
+    out = capsys.readouterr().out
+    assert "greedy tokens equal (64 tokens)" in out
+    assert "prefill's ssm_scan kernels (chunk states, state pass, chunk " \
+        "outputs): 0.300 ms in 12 launches (10.0% of the device time" in out
+    # two sLSTM layers in the smoke model, each 2.5 ms between its events
+    assert "prefill's sLSTM layers (a token loop of plain PyTorch ops, no " \
+        "kernel of their own): 5.00 ms between events in 2 layers" in out
+
+
+def test_vision_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """The model-level patch path of qwen2-vl at its smoke size: patch
+    embeddings at (t, h, w) positions and text after them, kernels on and
+    off: equal greedy tokens at 2 layers in f32, every kernel call held
+    to its plain version at the full depth."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "VISION_GRID", (4, 3))
+    monkeypatch.setattr(smoke, "VISION_TEXT", 9)
+    cfg = get_smoke("qwen2-vl-2b").replace(use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    smoke.phase_vision(torch.device("cpu"), cfg, params)
+    out = capsys.readouterr().out
+    assert "12 patch embeddings at 3-axis positions + 9 text tokens" in out
+    assert "f32: greedy tokens equal, kernels on vs off (34 tokens)" in out
+    # 2 layers x (a prefill and 16 decode steps)
+    assert "({'flash_attention': 2, 'decode_attention': 32}): max " \
+        "|kernel - plain| 0.000e+00" in out
+
+
+def test_encdec_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """The model-level encoder-decoder phase at seamless's smoke size:
+    frames through the encoder, a prefill and decode steps, kernels on
+    against off: equal tokens in f32 at 1 + 1 layers, every kernel call
+    (the encoder's too) held to its plain version at full depth."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "ENC_FRAMES", 23)
+    monkeypatch.setattr(smoke, "ENC_BATCH", 2)
+    monkeypatch.setattr(smoke, "ENC_PROMPT", 5)
+    monkeypatch.setattr(smoke, "ENC_STEPS", 6)
+    cfg = get_smoke("seamless-m4t-large-v2").replace(use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    launched = smoke.phase_encdec(torch.device("cpu"), cfg, params)
+    assert set(launched.values()) == {0}
+    out = capsys.readouterr().out
+    assert "1 + 1 layers, 2 x 23 frames, 5-token prompts, 6 decode steps, " \
+        "f32: greedy tokens equal, kernels on vs off (14 tokens)" in out
+    # flash: 2 encoder layers, 2 decoder layers' self and cross prefill;
+    # decode: 2 layers' self and cross attention at 6 steps
+    assert "({'flash_attention': 6, 'decode_attention': 24}): max " \
+        "|kernel - plain| 0.000e+00" in out
+
+
+def test_kernelwise_restores_the_wrappers(smoke):
+    """kernelwise puts the model's kernel wrappers back on exit, an
+    error inside included."""
+    from repro_torch.models import attention
+
+    real = (attention.flash_attention, attention.decode_attention)
+    with pytest.raises(RuntimeError):
+        with smoke.kernelwise() as kw:
+            assert attention.flash_attention is not real[0]
+            raise RuntimeError
+    assert (attention.flash_attention, attention.decode_attention) == real
+    assert kw.max_err() == 0.0
+
+
+def test_cut_depth_takes_the_first_layers(smoke):
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke("seamless-m4t-large-v2")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    small = smoke.cut_depth(params, 1, torch.float32)
+    w = params["decoder"][0]["e0"]["mlp"]["w_in"]
+    got = small["decoder"][0]["e0"]["mlp"]["w_in"]
+    assert tuple(got.shape) == (1,) + tuple(w.shape[1:])
+    assert got.dtype == torch.float32 and torch.equal(got[0], w[0].float())
+    assert small["encoder"][0]["e0"]["attn"]["wq"].shape[0] == 1
+    assert small["embed"]["table"].dtype == torch.float32

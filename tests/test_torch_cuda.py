@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  flash_attention, grouped_matmul,
@@ -820,3 +821,141 @@ def test_pinned_slot_kept_across_replays(cuda_device, mixed):
     assert eng.step_captures == ({"decode": 1, "mixed": 1} if mixed
                                  else {"decode": 1})
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# Every architecture: the kernels on the paths of xLSTM, the VLM, the
+# encoder-decoder and the dense configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s,t", [(1000, 1000), (300, 1000), (1, 1000),
+                                 (77, 130)])
+def test_flash_non_causal_at_encoder_shapes(cuda_device, dtype, s, t):
+    """seamless-m4t's encoder self attention (16 heads, dh 64, MHA) over
+    T = 1000 frames, not a multiple of 128, and its decoder's cross
+    attention of a prompt block over that memory: every key valid."""
+    args = flash_case(cuda_device, dtype, 2, s, t, 16, 1, 64)
+    out = flash_attention(*args, causal=False)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(*args, causal=False)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cross_attention_decode_runs_the_ring_kernel(cuda_device, dtype):
+    """A decode step's cross attention over 1000 encoder positions: the
+    ring decode kernel with every key valid, against the masked core."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, params as prm
+
+    cfg = get_config("seamless-m4t-large-v2").replace(
+        dtype=str(dtype).removeprefix("torch."))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = prm.init_params(attention.attn_defs(cfg, cross=True), gen, dtype,
+                        cuda_device)
+    mem = torch.randn((4, 1000, cfg.d_model), generator=gen,
+                      device=cuda_device).to(dtype)
+    x = torch.randn((4, 1, cfg.d_model), generator=gen,
+                    device=cuda_device).to(dtype)
+    ckv = attention.cross_kv_precompute(p, mem)
+    before = decode_attention.launches
+    got = attention.cross_attention_cached(p, x, ckv,
+                                           cfg.replace(use_pallas=True))
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = attention.cross_attention_cached(p, x, ckv, cfg)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [300, 1000])
+def test_ssm_scan_inside_mlstm_block(cuda_device, dtype, t):
+    """An xlstm-350m mLSTM layer at full width (4 heads, dk 512, dv 513):
+    the block with the kernel (one launch) against the block with the
+    plain scan; the scan's outputs are large (|y| ~ 1e3 at the
+    reference's init), so both are compared relative to their largest
+    magnitude, with the scan's bands."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as prm, ssm
+
+    cfg = get_config("xlstm-350m").replace(
+        dtype=str(dtype).removeprefix("torch."))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    p = prm.init_params(ssm.mlstm_defs(cfg), gen, dtype, cuda_device)
+    x = torch.randn((2, t, cfg.d_model), generator=gen,
+                    device=cuda_device).to(dtype)
+    before = ssm_scan.launches
+    y, h = ssm.mlstm_block(p, x, cfg.replace(use_pallas=True))
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm.mlstm_block(p, x, cfg)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    h_scale = want_h.abs().max()
+    torch.testing.assert_close(h / h_scale, want_h / h_scale, atol=tol,
+                               rtol=tol)
+    # the block's output: the normalised y through the group norm and
+    # down_proj, O(1)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5 * tol,
+                               rtol=5 * tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["qwen2-vl-2b", "command-r-plus-104b",
+                                  "llama3-405b", "h2o-danube-3-4b",
+                                  "gemma3-27b"])
+def test_decode_kernels_at_served_heads(cuda_device, dtype, name):
+    """Both decode kernels at the heads of the configs that serve them
+    (G 6, 12, 16; danube's dh 120 with G 4; gemma3's G 2), at serve
+    contexts, a wrapped window ring included."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    hkv, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    ctx = [1000, 515, 130, 1, 0]
+    args = case(cuda_device, dtype, len(ctx), hkv, g, dh, 128, ctx)
+    live = args[4] > 0
+    for window in (-1, 512):
+        out = paged_decode_attention(*args, window=window)
+        want = paged_decode_attention_plain(*args, window=window)
+        torch.testing.assert_close(out[live].float(), want[live].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    for slots, window in ((1024, -1), (384, 256)):
+        rargs = ring_case(cuda_device, dtype, [999, 514, 129, 0], slots, hkv,
+                          g, dh)
+        out = decode_attention(*rargs, window=window)
+        want = decode_attention_plain(*rargs, window=window)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layout,mixed", [
+    ("xlstm-350m", "ring", False), ("qwen2-vl-2b", "paged", True),
+    ("qwen2-vl-2b", "ring", False), ("gemma3-27b", "ring", False)])
+def test_graph_replay_of_new_architectures(cuda_device, name, layout, mixed):
+    """bf16, kernels on, at smoke size: replayed steps give the eager
+    steps' greedy ids (the mLSTM and sLSTM states restored after a
+    capture's warm-up; M-RoPE's 3-axis positions inside the mixed
+    step's graph)."""
+    cfg, params = graph_case(cuda_device, name)
+    toks = {}
+    for graphs in (True, False):
+        eng = step_engine(cfg, params, cuda_device, layout, graphs, mixed)
+        before = ssm_scan.launches
+        toks[graphs] = served_tokens(eng)
+        if name == "xlstm-350m":            # 4 mLSTM layers, 5 prompts
+            assert ssm_scan.launches - before == 4 * 5
+        eng.release_graphs()
+    assert toks[True] == toks[False]

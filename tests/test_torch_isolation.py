@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -34,6 +35,13 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.kernels.grouped_matmul",
               "repro_torch.configs.arctic_480b",
               "repro_torch.configs.kimi_k2_1t_a32b",
+              "repro_torch.configs.gemma3_27b",
+              "repro_torch.configs.h2o_danube_3_4b",
+              "repro_torch.configs.llama3_405b",
+              "repro_torch.configs.command_r_plus_104b",
+              "repro_torch.configs.qwen2_vl_2b",
+              "repro_torch.configs.xlstm_350m",
+              "repro_torch.configs.seamless_m4t_large_v2",
               "repro_torch.serving.graphs",
               "repro_torch.serving.prefix_cache",
               "repro_torch.core.metrics", "repro_torch.core.registry",
@@ -111,6 +119,15 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchEngine(arctic, params, SchedulerConfig(),
                         cache_layout=layout)
+    xlstm = get_smoke("xlstm-350m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_cache(xlstm, 2, 64, layout="ring")
+    params = models.init(xlstm, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(xlstm, params, SchedulerConfig(), cache_layout="ring")
+    seamless = get_smoke("seamless-m4t-large-v2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_cache(seamless, 2, 64, enc_len=16)
     from repro_torch.examples import serve_llm
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_llm.main([])

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -160,8 +161,15 @@ def test_unported_paths_raise():
     moe = tmodels.model_defs(tcfg.replace(n_experts=4, top_k=2,
                                           d_ff_expert=64))
     assert "moe" in moe["decoder"][0]["e0"]
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        tmodels.model_defs(tcfg.replace(family="ssm"))
+    # every block kind is ported: an xLSTM stack's defs build (its mLSTM
+    # and sLSTM trees, tests/test_torch_xlstm.py), and the paged layout
+    # refuses its recurrent blocks, as the reference does
+    ssm = tcfg.replace(family="ssm", mlstm_ratio=1)
+    defs = tmodels.model_defs(ssm)["decoder"][0]
+    assert "up_proj" in defs["e0"] and "r_gates" in defs["e1"]
+    with pytest.raises(ValueError, match="attention-only"):
+        tmodels.init_cache(ssm, 2, 64, layout="paged", num_pages=4,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "kernel"])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -324,7 +325,15 @@ def test_ragged_prompt_reference_fault():
 
 
 def test_xlstm_kinds_not_ported_yet():
-    _, tcfg = configs()
+    """The xLSTM kinds are ported now (tests/test_torch_xlstm.py): their
+    block defs are the reference's, leaf for leaf."""
+    from repro.models import blocks as jblocks
+
+    jcfg, tcfg = configs()
     for kind in ("mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="xLSTM"):
-            tblocks.block_defs(tcfg, BlockSpec(kind=kind))
+        want = jblocks.block_defs(jcfg, BlockSpec(kind=kind))
+        got = tblocks.block_defs(tcfg, BlockSpec(kind=kind))
+        assert set(got) == set(want)
+        for k, p in got.items():
+            if not isinstance(p, dict):
+                assert (p.shape, p.dtype) == (want[k].shape, want[k].dtype)

@@ -5,14 +5,16 @@ parity), on tiny-agent f32 with the reference's weights (``from_jax``).
 The host tier (``offload=True``): a warm resume on the same engine and a
 migration of the suspended request to a sibling engine continue with
 the unsuspended run's greedy tokens, which are the JAX ``Engine``'s, in
-both layouts and with the mixed step; the host store holds the state on
-the CPU, its bytes equal to ``nbytes``.
+both layouts and with the mixed step, and on xLSTM's smoke model (its
+mLSTM and sLSTM states in the host copy); the host store holds the
+state on the CPU, its bytes equal to ``nbytes``.
 
 The pin tier (``offload=False``) with traffic between suspend and
-resume: the port's parked slot keeps its ``pos``, ring and SSM state, so
-its tokens equal the unsuspended run's, in both layouts, with the mixed
-step and on hymba's smoke model.  The JAX ``Engine`` advances every
-slot on every step, so on the same schedule its tokens differ
+resume: the port's parked slot keeps its ``pos``, ring and recurrent
+state, so its tokens equal the unsuspended run's, in both layouts, with
+the mixed step and on hymba's and xLSTM's smoke models.  The JAX
+``Engine`` advances every slot on every step, so on the same schedule
+its tokens differ
 (ROADMAP §C, reference fault 4).  Then the starved-pin demotion and the
 drop-and-recompute rung of a full host tier.
 """
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -49,10 +52,11 @@ CASES = {"paged": ("tiny-agent", "paged", False),
          "paged-mixed": ("tiny-agent", "paged", True),
          "ring": ("tiny-agent", "ring", False)}
 HYMBA = {"hymba-ring": ("hymba-1.5b", "ring", False)}
+XLSTM = {"xlstm-ring": ("xlstm-350m", "ring", False)}
 
 
 def _cfgs(name):
-    if name == "hymba-1.5b":
+    if name in ("hymba-1.5b", "xlstm-350m"):
         return (jsmoke(name).replace(dtype="float32"),
                 tsmoke(name).replace(dtype="float32"))
     return (jget(name).replace(dtype="float32"),
@@ -126,7 +130,8 @@ def host_leaves(eng, r):
 # The host tier: warm resume and cross-engine migration
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", list(CASES.values()), ids=list(CASES))
+@pytest.mark.parametrize("case", list({**CASES, **XLSTM}.values()),
+                         ids=list({**CASES, **XLSTM}))
 def test_warm_resume_and_migrate_match_reference(case):
     ref = unsuspended(jax_engine(case), JRequest)
     assert unsuspended(port_engine(case), Request) == ref
@@ -180,8 +185,8 @@ def pinned_with_traffic(eng, cls, vocab):
     return list(r.output_tokens), (pos0, pos1)
 
 
-@pytest.mark.parametrize("case", list({**CASES, **HYMBA}.values()),
-                         ids=list({**CASES, **HYMBA}))
+@pytest.mark.parametrize("case", list({**CASES, **HYMBA, **XLSTM}.values()),
+                         ids=list({**CASES, **HYMBA, **XLSTM}))
 def test_pin_tier_keeps_the_parked_slot(case):
     jcfg = _cfgs(case[0])[0]
     want = unsuspended(port_engine(case), Request)
