@@ -66,6 +66,30 @@ code is non-zero and the final JSON line is not printed:
                  the expected action log, exact launch counts; graph and
                  eager runs with equal tokens, and an unsuspended run
                  each resumed request's tokens are counted against.
+25. calibrate  -- (after 18) the same weights: the port's twin of
+                 benchmarks/calibrate.py's measuring loop: models.prefill
+                 at 64-512 tokens on a fresh ring cache (flash), and
+                 models.decode_step at (batch, context) (1, 128) to (8,
+                 1024) on a full ring replayed as a CUDA graph (ring
+                 decode), medians of 5 synchronized reps; the port's
+                 calibrate(backend="cuda") fits flops_scale, bytes_scale
+                 and step_overhead, one line per point and the fit
+                 (max_rel_err against the gpu band 0.35: a miss is
+                 printed, not failed); CALIB_agent-7b.json under
+                 chiprun_out/, read back through costmodel_for; exact
+                 launches.  Then agent-1b's fit, the workflow's small tier.
+26. serve disagg -- (after 25) the reference's DisaggPool over two live
+                 agent-7b paged engines, a prefill-role and a decode-role
+                 one, a KVTransferManager on an EventLoop: the 8 serve
+                 requests, 64 new tokens; greedy tokens equal a unified
+                 paged engine's, 8 handoffs, each state in pinned host
+                 memory, the decode engine's graph replayed; extract and
+                 inject ms and GB/s per handoff.
+27. sim on the card's fit -- the quickstart AgenticPipeline and the
+                 workflow example's WorkflowPipeline (the port's example
+                 twins) with every SimEngine priced by phase 25's fits:
+                 tasks done, engine steps, latency percentiles (simulated
+                 time at the costs fitted on the card).
 8. hymba      -- hymba-1.5b width at 3 layers in f32 on the ring layout:
                  greedy tokens equal with and without the kernels, for
                  full attention and a window whose ring wraps, prompts
@@ -142,9 +166,12 @@ two lines are a JSON object of kernel numbers and ``{"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -167,8 +194,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Tracer  # noqa: E402
 from repro_torch.core.metrics import Collector  # noqa: E402
 from repro_torch.core.types import Priority, Request, RequestState  # noqa: E402
+from repro_torch.agents.pipeline import ServingFabric  # noqa: E402
+from repro_torch.examples import quickstart, workflow  # noqa: E402
 from repro_torch.examples.serve_llm import tick, wire  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -182,10 +212,20 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain, paged_decode_splits)
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.serving import cache_utils  # noqa: E402
+from repro_torch.serving.disagg import DisaggPool  # noqa: E402
 from repro_torch.serving.engine import TorchEngine  # noqa: E402
+from repro_torch.serving.engine_sim import SimEngine  # noqa: E402
+from repro_torch.serving.graphs import WARMUP_RUNS, StepGraph  # noqa: E402
+from repro_torch.serving.kv_transfer import (  # noqa: E402
+    KVTransferManager, SessionDirectory)
 from repro_torch.serving.prefix_cache import PrefixCache  # noqa: E402
 from repro_torch.serving.scheduler import (SchedulerConfig,  # noqa: E402
                                            StepKind)
+from repro_torch.sim import costmodel  # noqa: E402
+from repro_torch.sim.calibration import (  # noqa: E402
+    CalibrationPoint, calibrate, load_calibration, save_calibration)
+from repro_torch.sim.clock import EventLoop  # noqa: E402
+from repro_torch.sim.costmodel import costmodel_for  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
@@ -2517,6 +2557,385 @@ def ptxas_entries(text: str) -> list:
     return [tuple(e) for e in entries]
 
 
+# ---------------------------------------------------------------------------
+# The agent planes: the cost model fitted on the card, the sim fleet priced
+# by that fit, and the disaggregated pool over two live engines
+# ---------------------------------------------------------------------------
+
+# benchmarks/calibrate.py's grid: prompt lengths, and (batch, context)
+CALIB_PREFILL_LENS = (64, 128, 256, 512)
+CALIB_DECODE_GRID = ((1, 128), (1, 512), (2, 256), (4, 512), (8, 1024))
+CALIB_REPS = 5
+CALIB_WARMUP = 2
+# where the fits go: CALIB_<model>.json, read back by costmodel_for
+CALIB_DIR = ROOT / "chiprun_out"
+# the workflow example's tiers, each priced by its own fit
+SIM_MODELS = ("agent-7b", "agent-1b")
+
+
+def median_s(fn, reps: int, warmup: int, sync) -> float:
+    """Median of ``reps`` synchronized host-clock times of ``fn()``,
+    after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def fill_ring(cache: dict, ctx: int) -> None:
+    """Mark every ring slot of ``cache`` as holding a position below
+    ``ctx``, so a decode step at position ``ctx`` attends over ``ctx``
+    keys, the context ``CostModel.decode_cost`` charges."""
+    for kv in transformer._ring_leaves(cache["segments"]):
+        size = kv.kpos.shape[-1]
+        kv.kpos.copy_(torch.arange(size, dtype=kv.kpos.dtype,
+                                   device=kv.kpos.device).expand_as(kv.kpos))
+
+
+@torch.inference_mode()
+def measure_points(dev, cfg, params, prefill_lens, decode_grid,
+                   reps: int = CALIB_REPS) -> list:
+    """The port's twin of ``benchmarks/calibrate.py::measure_points``:
+    ``models.prefill`` of a prompt on a fresh ring cache of its length,
+    and ``models.decode_step`` on a ring of ``max_context = ctx`` whose
+    slots all hold keys, replayed as a CUDA graph on the card (a
+    ``StepGraph``, as ``TorchEngine`` replays decode); the median of
+    ``reps`` synchronized host-clock times after warm-up, each paired
+    with the cost model's analytic (FLOPs, bytes) of that shape."""
+    cm = costmodel.CostModel(cfg, chips=1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    pts = []
+    for length in prefill_lens:
+        cache = models.init_cache(cfg, 1, length, device=dev)
+        tokens = torch.zeros((1, length), dtype=torch.int32, device=dev)
+        t = median_s(lambda: models.prefill(params, cfg, tokens, cache),
+                     reps, CALIB_WARMUP, sync)
+        flops, nbytes = cm.prefill_cost(length)
+        pts.append(CalibrationPoint("prefill", 1, length, flops, nbytes, t))
+        del cache
+    for batch, ctx in decode_grid:
+        cache = models.init_cache(cfg, batch, ctx, device=dev)
+        fill_ring(cache, ctx)
+
+        def body(tokens, cache=cache, ctx=ctx):
+            cache["pos"].fill_(ctx)          # the same step on every replay
+            return models.decode_step(params, cfg, tokens, cache)[0]
+        graph = StepGraph(body, {"tokens": ((batch, 1), torch.int32)}, dev,
+                          graphed=dev.type == "cuda")
+        zeros = np.zeros((batch, 1), np.int32)
+        t = median_s(lambda: graph.run(tokens=zeros), reps, CALIB_WARMUP,
+                     sync)
+        graph.close()
+        flops, nbytes = cm.decode_cost(batch, ctx)
+        pts.append(CalibrationPoint("decode", batch, ctx, flops, nbytes, t))
+        del cache
+    return pts
+
+
+@torch.inference_mode()
+def prefill_device_ms(dev, cfg, params, length: int) -> tuple[float, int]:
+    """Device time (ms) and kernels of one ``models.prefill`` of a
+    ``length``-token prompt on a fresh ring cache, under the profiler."""
+    cache = models.init_cache(cfg, 1, length, device=dev)
+    tokens = torch.zeros((1, length), dtype=torch.int32, device=dev)
+    models.prefill(params, cfg, tokens, cache)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        models.prefill(params, cfg, tokens, cache)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+
+
+def phase_calibrate(dev, cfg, params, out_dir: Path,
+                    phase: str = "calibrate"):
+    """Fit the port's cost model to ``cfg``'s steps measured on the card
+    (``measure_points``) with ``calibrate(backend=<device type>)``; one
+    line per point (measured, predicted, relative error) and the fit;
+    save ``CALIB_<model>.json`` under ``out_dir`` and read it back
+    through ``costmodel_for``.  A fit whose largest error passes the
+    band is reported, not failed (the band is not widened).  On the
+    card each prompt length's device busy time follows, from one more
+    prefill under the profiler.  The kernels of the path (flash at each prefill, ring decode at each
+    decode replay) launch exactly as often as the calls made."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pts = measure_points(dev, cfg, params, CALIB_PREFILL_LENS,
+                         CALIB_DECODE_GRID)
+    backend = params["embed"]["table"].device.type
+    calib = calibrate(cfg.name, backend, pts, chips=1)
+    path = save_calibration(calib, out_dir / f"CALIB_{cfg.name}.json")
+    gpu = card() if dev.type == "cuda" else "a CPU"
+    for p, err in zip(calib.points, calib.rel_errors()):
+        log(phase, f"{cfg.name} {p.kind} batch {p.batch} context "
+            f"{p.context}: measured {1e3 * p.measured_s:.4f} ms, predicted "
+            f"{1e3 * calib.predict(p):.4f} ms, relative error {err:.4f}")
+    verdict = ("within" if calib.within_tolerance
+               else "MISSES (recorded, the band is not widened)")
+    log(phase, f"{cfg.name} fit on {gpu}, backend {backend}: flops_scale "
+        f"{calib.flops_scale:.6g}, bytes_scale {calib.bytes_scale:.6g}, "
+        f"step_overhead {1e3 * calib.step_overhead:.6g} ms; max_rel_err "
+        f"{calib.max_rel_err:.4f} {verdict} the band {calib.tolerance} "
+        f"({len(pts)} points, {CALIB_REPS} reps each, "
+        f"median; {time.perf_counter() - t0:.1f} s); saved {path.name}")
+    if dev.type == "cuda":
+        for p in calib.points[:len(CALIB_PREFILL_LENS)]:
+            ms_dev, kernels = prefill_device_ms(dev, cfg, params, p.context)
+            log(phase, f"{cfg.name} prefill of {p.context} tokens: device "
+                f"busy {ms_dev:.3f} ms of the {1e3 * p.measured_s:.3f} ms "
+                f"measured ({100e-3 * ms_dev / p.measured_s:.1f}% busy), "
+                f"{kernels} kernels and copies")
+    cm = costmodel_for(cfg, calib_dir=out_dir)
+    got = (cm.flops_scale, cm.bytes_scale, cm.step_overhead)
+    if got != (calib.flops_scale, calib.bytes_scale, calib.step_overhead):
+        raise AssertionError(f"{phase}: costmodel_for read {got} from "
+                             f"{path}, the fit is {calib}")
+    n = kind_layers(cfg, ("attn", "dec", "hymba")) if (
+        cfg.use_pallas and dev.type == "cuda") else 0
+    calls = CALIB_WARMUP + CALIB_REPS
+    want = dict.fromkeys(KERNELS, 0)
+    # and on the card two more prefills of each length, the profiled one
+    # and its warm-up (prefill_device_ms)
+    want["flash_attention"] = n * (calls + 2) * len(CALIB_PREFILL_LENS)
+    # a graph's capture warm-up runs, then each replay
+    runs = calls + (WARMUP_RUNS if dev.type == "cuda" else 0)
+    want["decode_attention"] = n * runs * len(CALIB_DECODE_GRID)
+    if launch_counts() != want:
+        raise AssertionError(f"{phase}: kernel launches {launch_counts()}, "
+                             f"expected {want}")
+    log(phase, f"{cfg.name}: costmodel_for read the fit back; kernel "
+        f"launches of this path {launch_counts()}")
+    return calib
+
+
+class captured_pipelines:
+    """Keep each pipeline that runs inside the block (``ServingFabric.run``
+    records its pipeline), restoring the method on exit."""
+
+    def __enter__(self) -> list:
+        self.pipelines, self._run = [], ServingFabric.run
+        pipelines, run = self.pipelines, self._run
+
+        def recorded(fabric, until):
+            pipelines.append(fabric)
+            return run(fabric, until)
+        ServingFabric.run = recorded
+        return self.pipelines
+
+    def __exit__(self, *exc) -> None:
+        ServingFabric.run = self._run
+
+
+def phase_sim(calib_dir: Path, gpu: str, phase: str = "sim on the card's fit"
+              ) -> None:
+    """The quickstart ``AgenticPipeline`` and the workflow example's
+    ``WorkflowPipeline`` (the port's example twins, unchanged), every
+    ``SimEngine`` priced by the fits under ``calib_dir``
+    (``REPRO_TORCH_CALIB_DIR``): tasks done, engine steps and latency
+    percentiles, simulated at the costs fitted on ``gpu``.  Gates: every
+    sim engine carries its model's fitted scales, the quickstart's
+    intent switches the channel's granularity, and the workflow's 24
+    graph tasks all finish."""
+    fits = {p.stem[len("CALIB_"):]: load_calibration(p)
+            for p in sorted(calib_dir.glob("CALIB_*.json"))}
+    saved = os.environ.get(costmodel.CALIB_DIR_ENV)
+    os.environ[costmodel.CALIB_DIR_ENV] = str(calib_dir)
+    try:
+        for name, example in (("quickstart", quickstart),
+                              ("workflow", workflow)):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with captured_pipelines() as runs, \
+                    contextlib.redirect_stdout(out):
+                example.main()
+            wall = time.perf_counter() - t0
+            for line in out.getvalue().splitlines():
+                if line.strip():
+                    log(phase, f"{name} | {line}")
+            (p,) = runs
+            engines = [p.registry.get(n) for n in p.registry.names()
+                       if isinstance(p.registry.get(n), SimEngine)]
+            for e in engines:
+                fit = fits.get(e.cm.cfg.name)
+                if fit is None or (e.cm.flops_scale, e.cm.bytes_scale,
+                                   e.cm.step_overhead) != (
+                        fit.flops_scale, fit.bytes_scale, fit.step_overhead):
+                    raise AssertionError(f"{phase}: {e.name} "
+                                         f"({e.cm.cfg.name}) is not priced "
+                                         f"by a fit under {calib_dir}")
+            lat = np.array(p.latencies())
+            if name == "quickstart" and not any(
+                    "granularity" in a.detail
+                    for a in p.controller.action_log("set")):
+                raise AssertionError(f"{phase}: the quickstart intent "
+                                     f"never switched the granularity")
+            if name == "workflow" and len(p.done) != 24:
+                raise AssertionError(f"{phase}: {len(p.done)} of 24 "
+                                     f"workflow tasks finished")
+            if not len(lat):
+                raise AssertionError(f"{phase}: {name} finished no task")
+            p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+            log(phase, f"{name}, simulated at the costs fitted on {gpu}: "
+                f"{len(p.done)} tasks done by t = {p.loop.now():.1f} s "
+                f"(virtual); {len(engines)} sim engines "
+                f"({', '.join(sorted({e.cm.cfg.name for e in engines}))}) "
+                f"ran {sum(e.steps for e in engines)} steps "
+                f"({sum(e.prefill_steps for e in engines)} prefill, "
+                f"{sum(e.decode_steps for e in engines)} decode); task "
+                f"latency p50 {p50:.4f} s, p95 {p95:.4f} s, p99 "
+                f"{p99:.4f} s; {wall:.2f} s of host time")
+    finally:
+        if saved is None:
+            os.environ.pop(costmodel.CALIB_DIR_ENV, None)
+        else:
+            os.environ[costmodel.CALIB_DIR_ENV] = saved
+
+
+def drive_pool(loop, engines, reqs, max_rounds: int = 100_000) -> int:
+    """Drive a ``DisaggPool`` of live engines: run the event loop until
+    its queue is empty (routed prompts land, finished handoffs arrive at
+    their decode engine), then step each busy engine once; until every
+    request has finished.  Returns the rounds taken."""
+    for n in range(max_rounds):
+        loop.run_until()
+        if all(r.state == RequestState.FINISHED for r in reqs):
+            return n
+        busy = [e for e in engines if e.busy]
+        if not busy:
+            raise AssertionError(f"no engine busy, requests "
+                                 f"{[r.state.value for r in reqs]}")
+        for e in busy:
+            e.step()
+    raise AssertionError(f"unfinished after {max_rounds} rounds")
+
+
+def timed(fn, sync, record: list):
+    """``fn`` with each call kept in ``record`` as (synchronized seconds,
+    arguments, result)."""
+    def wrapped(*args):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        record.append((time.perf_counter() - t0, args, out))
+        return out
+    return wrapped
+
+
+def phase_serve_disagg(dev, cfg, params, phase: str = "serve disagg") -> dict:
+    """The reference's ``DisaggPool`` over two live paged engines on one
+    set of weights, a prefill-role and a decode-role one, with a
+    ``KVTransferManager`` on an ``EventLoop`` moving the cost model's
+    bytes (``drive_pool``): the 8 serve requests, 64 new tokens each.
+    Gates: every request's greedy tokens equal a unified paged engine's
+    on the same requests; 8 handoffs, each state extracted into pinned
+    host memory (``cache_utils.to_host``) on the prefill engine and
+    injected on the decode engine; the decode engine replays its
+    captured decode graph, the prefill engine never decodes; exact
+    kernel launches.  Prints each handoff's extract and inject time and
+    rate.  Returns the run's launches."""
+    gpu = card() if dev.type == "cuda" else "a CPU"
+    graphs = None if dev.type == "cuda" else False
+    unified = TorchEngine(cfg, params, SchedulerConfig(**SERVE_SCHED),
+                          name="unified", cache_layout="paged", device=dev,
+                          cuda_graphs=graphs)
+    reqs = make_requests(SERVE_LENS, 64, cfg.vocab, seed=3)
+    serve(unified, reqs)
+    want_tokens = [list(r.output_tokens) for r in reqs]
+    release(unified)
+
+    loop = EventLoop()
+    engines = [TorchEngine(cfg, params,
+                           SchedulerConfig(**SERVE_SCHED, role=role),
+                           name=f"{role}-0", cache_layout="paged",
+                           device=dev, cuda_graphs=graphs)
+               for role in ("prefill", "decode")]
+    pre, dec = engines
+    cm = costmodel_for(cfg, calib_dir=CALIB_DIR)
+    kvx = KVTransferManager(loop, SessionDirectory(),
+                            bytes_fn=cm.kv_transfer_bytes)
+    pool = DisaggPool(loop, engines, kvx)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    extracts, injects = [], []
+    pre.extract_state = timed(pre.extract_state, sync, extracts)
+    dec.inject_state = timed(dec.inject_state, sync, injects)
+    forwards = count_prefill_work(pre)
+    reqs = make_requests(SERVE_LENS, 64, cfg.vocab, seed=3)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        pool.submit(r)
+    rounds = drive_pool(loop, engines, reqs)
+    wall = time.perf_counter() - t0
+    used = launch_counts()
+
+    got = [list(r.output_tokens) for r in reqs]
+    if got != want_tokens:
+        bad = [i for i, (a, b) in enumerate(zip(got, want_tokens)) if a != b]
+        raise AssertionError(f"{phase}: requests {bad} differ from the "
+                             f"unified run's tokens")
+    if pool.handoffs != len(reqs) or kvx.handoffs != len(reqs) or \
+            len(extracts) != len(reqs) or len(injects) != len(reqs):
+        raise AssertionError(f"{phase}: {pool.handoffs} handoffs, "
+                             f"{len(extracts)} extracts, {len(injects)} "
+                             f"injects for {len(reqs)} requests")
+    for _, _, state in extracts:
+        leaves = cache_utils._leaves(state["cache"])
+        bad = [tuple(t.shape) for t in leaves if t.device.type != "cpu"
+               or (dev.type == "cuda" and not t.is_pinned())]
+        if bad:
+            raise AssertionError(f"{phase}: handoff state not in pinned "
+                                 f"host memory: {bad[:4]}")
+    if pre.decode_steps or dec.prefill_steps or \
+            pre.tokens_generated != len(reqs):
+        raise AssertionError(f"{phase}: prefill engine {pre.decode_steps} "
+                             f"decode steps, {pre.tokens_generated} tokens; "
+                             f"decode engine {dec.prefill_steps} prefill "
+                             f"steps")
+    if dev.type == "cuda" and dict(dec.step_captures) != {"decode": 1}:
+        raise AssertionError(f"{phase}: decode engine captures "
+                             f"{dict(dec.step_captures)}")
+    want = dict.fromkeys(KERNELS, 0)
+    for e, pf, runs in ((pre, forwards[0], 0),
+                        (dec, 0, dec.step_runs["decode"])):
+        for k, v in expected_launches(e, pf, runs).items():
+            want[k] += v
+    if used != want:
+        raise AssertionError(f"{phase}: kernel launches {used}, expected "
+                             f"{want}")
+    log(phase, f"{cfg.name}, {gpu}: a prefill-role and a decode-role paged "
+        f"engine over one set of weights behind a DisaggPool, 8 requests "
+        f"(prompts {SERVE_LENS}, 64 new tokens): all FINISHED in "
+        f"{wall:.3f} s ({rounds} rounds of drive_pool), greedy tokens equal "
+        f"the unified paged run's ({sum(map(len, got))} tokens); "
+        f"{pool.handoffs} handoffs through pinned host memory; prefill "
+        f"engine {pre.prefill_steps} prefill steps in {forwards[0]} "
+        f"forwards, decode engine {dec.decode_steps} decode steps, "
+        f"captures {dict(dec.step_captures)}, body runs "
+        f"{dec.step_runs['decode']}; the link priced "
+        f"{kvx.handoff_bytes / 1e9:.3f} GB; kernel launches {used}")
+    injected = {args[0].req_id: dt for dt, args, _ in injects}
+    for i, (te, (req,), state) in enumerate(extracts):
+        nbytes, ti = state["nbytes"], injected[req.req_id]
+        log(phase, f"{gpu}: handoff {i}: {nbytes / 2**20:.1f} MiB, extract "
+            f"to pinned host memory {1e3 * te:.3f} ms "
+            f"({nbytes / te / 1e9:.2f} GB/s), inject "
+            f"{1e3 * ti:.3f} ms ({nbytes / ti / 1e9:.2f} GB/s)")
+    release(pre)
+    release(dec)
+    return used
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU")
@@ -2564,7 +2983,17 @@ def main() -> int:
                 prefill_profile=True)
     phase_serve_mixed(dev, cfg, params, "serve mixed")
     control = phase_serve_control(dev, cfg, params)
+    # the agent planes: the cost model fitted to agent-7b's steps, the
+    # disaggregated pool over two live engines, then the fit of agent-1b
+    # (the workflow's small tier) and the sim fleet priced by both fits
+    phase_calibrate(dev, cfg, params, CALIB_DIR)
+    phase_serve_disagg(dev, cfg, params)
     free(params)
+    cfg = get_config(SIM_MODELS[1]).replace(use_pallas=True)
+    params = init_full(cfg, dev, "calibrate")
+    phase_calibrate(dev, cfg, params, CALIB_DIR)
+    free(params)
+    phase_sim(CALIB_DIR, gpu)
 
     # hymba-1.5b width at 3 layers (global, SWA, global); PARITY_SWA's
     # window gives its middle layer a ring the longer prompts wrap

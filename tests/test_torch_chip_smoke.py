@@ -1013,3 +1013,86 @@ def test_cut_depth_takes_the_first_layers(smoke):
     assert got.dtype == torch.float32 and torch.equal(got[0], w[0].float())
     assert small["encoder"][0]["e0"]["attn"]["wq"].shape[0] == 1
     assert small["embed"]["table"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The agent planes' phases (calibrate, serve disagg, the sim on the fits),
+# rehearsed at tiny-agent sizes
+# ---------------------------------------------------------------------------
+
+def test_calibrate_phase_runs_on_cpu(smoke, monkeypatch, capsys, tmp_path):
+    """The calibrate phase at tiny-agent width on the CPU (the plain
+    kernel versions, backend "cpu"): every grid point measured, the fit
+    saved as CALIB_tiny-agent.json and read back through costmodel_for;
+    the port's calibration directory is not the reference's."""
+    import repro.sim.costmodel as reference
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.sim import calibration, costmodel
+
+    assert costmodel.DEFAULT_CALIB_DIR != reference.DEFAULT_CALIB_DIR
+    monkeypatch.setattr(smoke, "CALIB_PREFILL_LENS", (16, 32, 64, 128))
+    monkeypatch.setattr(smoke, "CALIB_DECODE_GRID",
+                        ((1, 32), (1, 64), (2, 32), (4, 64), (8, 128)))
+    cfg = get_config("tiny-agent").replace(dtype="float32", use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calib = smoke.phase_calibrate(torch.device("cpu"), cfg, params, tmp_path)
+    out = capsys.readouterr().out
+    assert calib.backend == "cpu" and calib.tolerance == 0.75
+    assert [(p.kind, p.batch, p.context) for p in calib.points] == [
+        ("prefill", 1, n) for n in (16, 32, 64, 128)] + [
+        ("decode", b, c) for b, c in smoke.CALIB_DECODE_GRID]
+    assert all(p.measured_s > 0 for p in calib.points)
+    assert calibration.load_calibration(
+        tmp_path / "CALIB_tiny-agent.json") == calib
+    assert out.count("relative error") == 9
+    assert "costmodel_for read the fit back" in out
+    assert "fit on a CPU, backend cpu" in out and "band 0.75" in out
+
+
+def test_sim_phase_runs_on_the_fits(smoke, monkeypatch, capsys, tmp_path):
+    """The sim phase on fits saved for the workflow's two tiers: both
+    example pipelines finish, every sim engine carries its model's
+    fitted scales, and a missing fit fails the phase."""
+    from repro_torch.sim.calibration import Calibration, save_calibration
+    from repro_torch.sim.clock import EventLoop
+
+    orig = EventLoop.run_until
+    monkeypatch.setattr(EventLoop, "run_until",
+                        lambda self, t_end=float("inf"), max_events=10**7:
+                        orig(self, min(t_end, 8.0), max_events))
+    for i, name in enumerate(smoke.SIM_MODELS):
+        save_calibration(Calibration(name, 1, "cpu", 1.5 + i, 2.7, 1e-3, 0.75,
+                                     0.1, True), tmp_path / f"CALIB_{name}.json")
+    smoke.phase_sim(tmp_path, "a CPU")
+    out = capsys.readouterr().out
+    assert "quickstart, simulated at the costs fitted on a CPU" in out
+    assert "workflow, simulated at the costs fitted on a CPU: 24 tasks " \
+        "done" in out
+    assert "(agent-1b, agent-7b)" in out
+    (tmp_path / "CALIB_agent-1b.json").unlink()
+    with pytest.raises(AssertionError, match="not priced by a fit"):
+        smoke.phase_sim(tmp_path, "a CPU")
+
+
+def test_serve_disagg_phase_runs_on_cpu(smoke, monkeypatch, capsys,
+                                        tmp_path):
+    """The serve disagg phase at tiny-agent sizes: the 8 requests finish
+    through a prefill-role and a decode-role engine with the unified
+    run's tokens, in 8 handoffs through host memory."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(smoke, "SERVE_LENS", [20, 33, 47, 5, 60, 12, 40, 28])
+    monkeypatch.setattr(smoke, "SERVE_SCHED", dict(
+        max_slots=8, num_pages=64, page_size=16, max_context=128))
+    monkeypatch.setattr(smoke, "CALIB_DIR", tmp_path)
+    monkeypatch.setattr(smoke, "card", lambda: "a CPU")
+    cfg = get_config("tiny-agent").replace(dtype="float32", use_pallas=True)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    launches = smoke.phase_serve_disagg(torch.device("cpu"), cfg, params)
+    assert set(launches.values()) == {0}           # CPU: plain versions
+    out = capsys.readouterr().out
+    assert "greedy tokens equal the unified paged run's (512 tokens)" in out
+    assert "8 handoffs through pinned host memory" in out
+    assert out.count("extract to pinned host memory") == 8

@@ -68,6 +68,18 @@ COPIES = {
         (r"\(PrefillWork, Scheduler, SchedulerConfig,\n +StepKind, StepPlan\)",
          "(PrefillWork, Scheduler,\n" + " " * 43 + "SchedulerConfig)"),),
     "configs/base.py": (), "configs/paper_agentic.py": (),
+    "serving/router.py": (), "serving/kv_transfer.py": (),
+    "serving/engine_sim.py": (), "serving/disagg.py": (),
+    "agents/protocol.py": (), "agents/stage.py": (), "agents/agent.py": (),
+    "agents/graph.py": (), "agents/workloads.py": (),
+    "agents/__init__.py": (),
+    # the port reads its own fits, never the JAX package's
+    "agents/pipeline.py": (
+        (r"REPRO_CALIB_DIR env / artifacts/bench default",
+         "REPRO_TORCH_CALIB_DIR env / artifacts/torch default"),),
+    # the elastic tester group every AgenticPipeline builds, and the
+    # heartbeat monitor it attaches new replicas to
+    "runtime/elastic.py": (), "runtime/heartbeat.py": (),
 }
 
 

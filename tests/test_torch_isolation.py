@@ -49,7 +49,21 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.core.intent", "repro_torch.core.policies",
               "repro_torch.core.trace", "repro_torch.core.dataplane",
               "repro_torch.core.tenancy", "repro_torch.sim.clock",
-              "repro_torch.sim.network", "repro_torch.examples.serve_llm"):
+              "repro_torch.sim.network", "repro_torch.examples.serve_llm",
+              "repro_torch.sim.costmodel", "repro_torch.sim.calibration",
+              "repro_torch.serving.router", "repro_torch.serving.kv_transfer",
+              "repro_torch.serving.engine_sim",
+              "repro_torch.serving.disagg", "repro_torch.agents",
+              "repro_torch.agents.protocol", "repro_torch.agents.stage",
+              "repro_torch.agents.agent", "repro_torch.agents.graph",
+              "repro_torch.agents.pipeline", "repro_torch.agents.workloads",
+              "repro_torch.runtime.elastic", "repro_torch.runtime.heartbeat",
+              "repro_torch.examples.quickstart",
+              "repro_torch.examples.workflow",
+              "repro_torch.examples.autoscale",
+              "repro_torch.examples.prefix_cache",
+              "repro_torch.examples.trace", "repro_torch.examples.tenancy",
+              "repro_torch.examples.disagg"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
