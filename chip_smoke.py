@@ -155,6 +155,31 @@ code is non-zero and the final JSON line is not printed:
                  f32 at 1 + 1 layers, every kernel call held at full
                  depth in bf16, as phase 22.
 
+28. flash backward -- (in 3) the backward kernels (LSE from the forward,
+                 dq, dk, dv) against the plain version's autograd in f32
+                 and bf16 at agent-7b's, gemma3's windowed, danube's dh
+                 120, llama3's G 16 and command-r's G 12 heads, a ragged
+                 S, dh 32 and 64, rows with no valid key and non-causal,
+                 each output within 2e-5 / 2e-2 of its largest
+                 magnitude; timed against SDPA's backward and the bound.
+29. train parity -- (after 24) agent-7b's width at 2 layers, f32 and bf16:
+                 loss and every gradient leaf with the kernels on against
+                 off, every flash call held to its plain version, then
+                 one make_train_step with f32 and one with int8 moments
+                 (the same parameters after one step).
+30. train     -- agent-7b in full (32 layers, bf16, remat, int8 moments),
+                 B 2 x S 4096 from the token pipeline: a warm-up and 4
+                 timed steps, exact launch counts (64 forwards and 32
+                 backwards a step), every leaf changed, the first and
+                 last layer's backward held to the plain one, tokens/s,
+                 the model-FLOPs share of the bf16 peak, peak memory and
+                 one profiled step.
+31. train agent-1b -- full depth, two microbatches of B 1 x S 4096, f32
+                 moments and accumulators: step ms and peak memory.
+32. train_lm  -- the train_lm twin at lm-100m, 150 steps with --chaos and
+                 once uninterrupted, under deterministic algorithms: one
+                 restart, equal losses bit for bit, >= 0.2 nats gained.
+
 Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
 graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
 13, 15, 16, 21-23) run each request set a second time on an eager
@@ -195,7 +220,8 @@ from repro_torch.core import Tracer  # noqa: E402
 from repro_torch.core.metrics import Collector  # noqa: E402
 from repro_torch.core.types import Priority, Request, RequestState  # noqa: E402
 from repro_torch.agents.pipeline import ServingFabric  # noqa: E402
-from repro_torch.examples import quickstart, workflow  # noqa: E402
+from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.examples import quickstart, train_lm, workflow  # noqa: E402
 from repro_torch.examples.serve_llm import tick, wire  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -205,12 +231,16 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_backward, flash_attention_backward_plain,
+    flash_attention_forward, flash_attention_lse_plain, flash_attention_plain)
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain, paged_decode_splits)
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.launch.train import (AdamWConfig, TrainPlan,  # noqa: E402
+                                      make_train_step)
+from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.serving import cache_utils  # noqa: E402
 from repro_torch.serving.disagg import DisaggPool  # noqa: E402
 from repro_torch.serving.engine import TorchEngine  # noqa: E402
@@ -627,6 +657,143 @@ def phase_flash(dev) -> dict:
         "B=1 S=T=1024 H=32 Hkv=8 dh=128")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:90",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# the flash backward (training's attention gradient), each case: heads
+# (H, Hkv, dh), B, S, T, causal, window.  agent-7b's heads at the forward
+# row's shape; gemma3-27b's (G 2) under its 1024 window; h2o-danube-3's
+# dh 120 under its 4096 window; llama3-405b's G 16 and command-r-plus's
+# G 12; a ragged S with a window; dh 32 and 64 with B 2; S > T under a
+# window (rows 955.. have no valid key: zero dq, -inf LSE); non-causal.
+BWD_CASES = [((32, 8, 128), 1, 1024, 1024, True, -1),
+             ((32, 16, 128), 1, 1536, 1536, True, 1024),
+             ((32, 8, 120), 1, 1024, 1024, True, 4096),
+             ((128, 8, 128), 1, 512, 512, True, -1),
+             ((96, 8, 128), 1, 512, 512, True, -1),
+             ((32, 8, 128), 1, 1000, 1000, True, 300),
+             (SMALL_HEADS, 2, 77, 77, True, 5),
+             (HYMBA_HEADS, 2, 333, 333, True, -1),
+             (HYMBA_HEADS, 1, 1100, 700, True, 256),
+             ((32, 8, 128), 1, 300, 700, False, -1)]
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|, as the scan's checks."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def bwd_case(dtype, heads, b, s, t, causal, window, gen, dev):
+    """(q, k, v, out, lse, dout) on the card; dout is zero on the rows
+    with no valid key (whose plain gradient is the uniform average's)."""
+    q, k, v = flash_case(dtype, s, t, gen, dev, b=b, heads=heads)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=window)
+    live = torch.from_numpy(flash_live_rows(s, t, causal, window)).to(dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    dout[:, ~live] = 0
+    return (q, k, v, out, lse, dout), live
+
+
+def check_flash_backward(dtype, heads, b, s, t, causal, window, gen,
+                         dev) -> float:
+    """LSE, dq, dk and dv of the kernels against the plain version's
+    autograd on the same (q, k, v, dout), each relative to its largest
+    magnitude.  Returns the worst of the four."""
+    (q, k, v, out, lse, dout), live = bwd_case(dtype, heads, b, s, t,
+                                               causal, window, gen, dev)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                          causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                          window=window)
+    want_lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
+    errs = {"lse": rel_err(lse[..., live], want_lse[..., live]),
+            "dq": rel_err(dq[:, live], want[0][:, live]),
+            "dk": rel_err(dk, want[1]), "dv": rel_err(dv, want[2])}
+    dead = int((~live).sum())
+    what = (f"{dtype} B={b} H={heads[0]} Hkv={heads[1]} dh={heads[2]} S={s} "
+            f"T={t} causal={causal} window={window}"
+            + (f", {dead} rows with no valid key" if dead else ""))
+    for name, err in errs.items():
+        check(f"flash_attention_backward {name}", err, dtype, what)
+    if dead and (dq[:, ~live].any()
+                 or not torch.isneginf(lse[..., ~live]).all()):
+        raise AssertionError("flash_attention_backward: a row with no valid "
+                             "key has a gradient or a finite LSE")
+    if not all(torch.isfinite(x).all() for x in (dq, dk, dv)):
+        raise AssertionError("non-finite backward output")
+    return max(errs.values())
+
+
+def bwd_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
+    """q, k, v, out, dout read once, lse and D, dq, dk, dv written once;
+    10 * dh operations per valid (row, head, key): QK^T and dO V^T, and
+    P^T dO, dS^T Q and dS K, two per element each."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 2 * b * h * s * 4
+    ops = 10 * dh * b * h * flash_valid_keys(s, t, causal, window)
+    return bound_of(nbytes, ops, q.dtype)
+
+
+def time_flash_backward(args, causal: bool, window: int, label: str):
+    """Kernel, plain and SDPA backward times on one case, and the bound.
+    SDPA's backward (repeated K/V, its own forward saved) is the
+    yardstick; the port never calls it."""
+    q, k, v, out, lse, dout = args
+    ms = cuda_ms(lambda: flash_attention_backward(
+        q, k, v, out, lse, dout, causal=causal, window=window), 10)
+    plain_ms = cuda_ms(lambda: flash_attention_backward_plain(
+        q, k, v, dout, causal=causal, window=window), 3)
+    sq, sk, sv, mask, is_causal = flash_sdpa_inputs((q, k, v), causal,
+                                                    window)
+    sq, sk, sv = (x.requires_grad_(True) for x in (sq, sk, sv))
+    with torch.enable_grad():
+        so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                            is_causal=is_causal)
+    sdo = dout.transpose(1, 2).contiguous()
+    got = torch.autograd.grad(so, sq, sdo, retain_graph=True)[0]
+    dq = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                  window=window)[0]
+    lib_err = rel_err(got.transpose(1, 2), dq)
+    if lib_err > TOL[torch.bfloat16]:
+        raise AssertionError(f"library yardstick computes another "
+                             f"function: {lib_err}")
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), sdo, retain_graph=True), 10)
+    bound_ms, bound_by = bwd_bound(q, k, causal, window)
+    log("kernels", f"flash_attention_backward {q.dtype} {label}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel "
+        f"at {100 * bound_ms / ms:.2f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def phase_flash_backward(dev) -> dict:
+    """[kernels] flash backward: every case in f32 and bf16, then the
+    timed row at agent-7b's heads."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in BWD_CASES:
+            err = check_flash_backward(dtype, *case, gen, dev)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    args, _ = bwd_case(torch.bfloat16, FLASH_HEADS, 1, 1024, 1024, True, -1,
+                       gen, dev)
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_flash_backward(
+        args, True, -1, "B=1 S=T=1024 H=32 Hkv=8 dh=128 causal")
+    # the training step's shape: agent-7b's heads at B 2, S 4096
+    time_flash_backward(bwd_case(torch.bfloat16, FLASH_HEADS, 2, 4096, 4096,
+                                 True, -1, gen, dev)[0], True, -1,
+                        "B=2 S=T=4096 H=32 Hkv=8 dh=128 causal (train)")
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:90",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2529,7 +2696,10 @@ NEW_KERNELS = ("paged_split_kernel", "decode_split_kernel",
                "flash_attention_mma_kernel", "flash_attention_kernel",
                "split_merge_kernel", "grouped_matmul_tma_kernel",
                "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
-               "ssm_chunk_output_kernel", "ssm_chunk_output_mma_kernel")
+               "ssm_chunk_output_kernel", "ssm_chunk_output_mma_kernel",
+               "flash_bwd_dot_kernel", "flash_bwd_dq_f32_kernel",
+               "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkdv_mma_kernel")
 
 
 def ptxas_entries(text: str) -> list:
@@ -2555,6 +2725,471 @@ def ptxas_entries(text: str) -> list:
             for e, n in zip(entries, out):
                 e[0] = n.replace("(anonymous namespace)::", "")
     return [tuple(e) for e in entries]
+
+
+# ---------------------------------------------------------------------------
+# Training: the dense decoder's train step, the optimizer, checkpoints,
+# the data pipeline and the supervisor, with the flash forward and
+# backward kernels doing the attention
+# ---------------------------------------------------------------------------
+
+# the f32 gradient band of the 2-layer parity: the JAX package's own f32
+# gradients stand up to 4.3e-3 (of each leaf's largest magnitude) from
+# float64 ones at a 1024-wide cut of agent-7b on the CPU, and the
+# port's two attention paths 6.7e-4 from each other there
+TRAIN_F32_GRAD_TOL = 1e-2
+# train: agent-7b, B 2 x S 4096 (SHAPES["train_4k"]'s sequence; its global
+# batch of 256 cut to 2 for one card's step time), 1 warm-up and 4 timed
+# steps; agent-1b two microbatches of B 1 x S 4096
+TRAIN_MODEL, TRAIN_1B_MODEL = "agent-7b", "agent-1b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 4096, 2, 1, 4
+TRAIN_1B_STEPS = 2
+# parity: agent-7b's width at 2 layers, B 1 x S 1024
+TRAIN_PARITY_MODEL, TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = \
+    "agent-7b", 2, 1024
+# train_lm: the twin's own model and sizes
+TRAIN_LM_MODEL, TRAIN_LM_STEPS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = \
+    "lm-100m", 150, 8, 256
+
+
+def train_batches(cfg, seq: int, batch: int, seed: int = 0):
+    """The token pipeline's batches for ``cfg`` (background prefetch)."""
+    return TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=seed))
+
+
+@contextlib.contextmanager
+def record_flash(forward: bool, picks=None):
+    """Record the flash kernel calls made inside the block: each call's
+    inputs and outputs (clones), in call order, for the calls whose
+    0-based index is in ``picks`` (every call when None).  The recorded
+    call still counts one launch."""
+    mod = sys.modules["repro_torch.kernels.flash_attention"]
+    name = "_launch" if forward else "_launch_backward"
+    orig = getattr(mod, name)
+    calls, seen = [], [0]
+
+    def rec(*args, **kw):
+        res = orig(*args, **kw)
+        if picks is None or seen[0] in picks:
+            keep = lambda x: x.detach().clone() \
+                if isinstance(x, torch.Tensor) else x  # noqa: E731
+            calls.append((seen[0], [keep(a) for a in args],
+                          [keep(r) for r in (res if isinstance(res, tuple)
+                                             else (res,))]))
+        seen[0] += 1
+        return res
+
+    setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, orig)
+
+
+def hold_flash_calls(phase: str, fwd_calls, bwd_calls, dtype,
+                     held: bool = True) -> float:
+    """Each recorded forward (out, LSE) and backward (dq, dk, dv) call
+    against the plain versions on that call's own inputs, relative to
+    each output's largest magnitude; ``held=False`` prints the errors
+    without holding them to the band.  Returns the worst error."""
+    worst = 0.0
+
+    def report(name, err, what):
+        if held:
+            check(name, err, dtype, what)
+        else:
+            log("kernels", f"{name} {what}: max |kernel - plain| "
+                f"{err:.3e} (printed, not held)")
+    for i, (q, k, v, causal, window, *_), (out, *lse) in fwd_calls:
+        errs = [rel_err(out, flash_attention_plain(
+            q, k, v, causal=causal, window=window))]
+        if lse:
+            errs.append(rel_err(lse[0], flash_attention_lse_plain(
+                q, k, causal=causal, window=window)))
+        report("flash_attention", max(errs),
+               f"{phase} forward call {i}, out and LSE, relative")
+        worst = max(worst, *errs)
+    for i, (q, k, v, _, _, dout, causal, window), got in bwd_calls:
+        want = flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                              window=window)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        report("flash_attention_backward", max(errs),
+               f"{phase} backward call {i}, dq/dk/dv "
+               + "/".join(f"{e:.2e}" for e in errs) + ", relative")
+        worst = max(worst, *errs)
+        del want
+    return worst
+
+
+def grads_and_loss(cfg, params, batch):
+    """(loss, grads) of ``models.loss_fn`` on the card."""
+    leaves, treedef = prm.flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    loss, _ = models.loss_fn(prm.unflatten(treedef, live), cfg, batch)
+    return loss.detach(), torch.autograd.grad(loss, live)
+
+
+def phase_train_parity(dev) -> None:
+    """[train parity]: agent-7b's width at 2 layers, f32 and bf16: loss and
+    every gradient leaf with the kernels on against off; every flash
+    call of the kernels-on step held to its plain version; then one
+    make_train_step with f32 and one with int8 moments from the same
+    weights, which after one step give the same parameters."""
+    phase = "train parity"
+    base = get_config(TRAIN_PARITY_MODEL)
+    pipe = train_batches(base, TRAIN_PARITY_SEQ, 1, seed=3)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    card_runs = dev.type == "cuda"         # the CPU: plain versions only
+    n = TRAIN_PARITY_LAYERS
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.replace(n_layers=n, dtype=dtype)
+        params = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        out = {}
+        for kernels in (True, False):
+            c = cfg.replace(use_pallas=kernels)
+            f0, b0 = flash_attention.launches, \
+                flash_attention_backward.launches
+            with record_flash(True) as fw, record_flash(False) as bw:
+                out[kernels] = grads_and_loss(c, params, batch)
+                torch.cuda.synchronize()
+            used = (flash_attention.launches - f0,
+                    flash_attention_backward.launches - b0)
+            if used != ((2 * n, n) if kernels and card_runs else (0, 0)):
+                raise AssertionError(f"{phase}: flash launches {used}, "
+                                     f"kernels {kernels} ({n} layers, remat: "
+                                     f"2 forwards and 1 backward a layer)")
+            if kernels:
+                # f32 at this width: a random-init layer's scores have a
+                # std near 120, so f32 rounding of a score moves P by
+                # about 1e-4 on either side; the f32 calls are printed
+                # and [kernels] holds the kernels at 2e-5 on unit inputs
+                worst = hold_flash_calls(f"{phase} {dtype}", fw, bw,
+                                         prm.torch_dtype(dtype),
+                                         held=dtype == "bfloat16")
+            del fw, bw
+        (l_on, g_on), (l_off, g_off) = out[True], out[False]
+        errs = [rel_err(a, b) for a, b in zip(g_on, g_off)]
+        finite = all(torch.isfinite(g).all() for g in g_on + g_off)
+        log(phase, f"{cfg.name} width, {n} layers, {dtype}, B 1 x S "
+            f"{TRAIN_PARITY_SEQ}: "
+            f"loss kernels on {l_on.item():.6f}, off {l_off.item():.6f}; "
+            f"gradient leaves, |on - off| over the leaf's largest: max "
+            f"{max(errs):.3e}, median {float(np.median(errs)):.3e} "
+            f"({len(errs)} leaves); each kernel call within "
+            f"{worst:.3e} of its plain version")
+        if not finite or not torch.isfinite(l_on):
+            raise AssertionError(f"{phase}: non-finite loss or gradient")
+        if dtype == "float32":
+            if abs(l_on.item() - l_off.item()) > 1e-4 \
+                    or max(errs) > TRAIN_F32_GRAD_TOL:
+                raise AssertionError(f"{phase}: f32 kernels on and off "
+                                     f"disagree: {max(errs)}")
+        elif abs(l_on.item() - l_off.item()) > TOL[torch.bfloat16]:
+            # bf16 gradients of a random-init model at this width are
+            # rounding-dominated on either path (ROADMAP §C): the leaves
+            # are printed, the loss and every kernel call are held
+            raise AssertionError(f"{phase}: bf16 losses disagree")
+        del out, g_on, g_off
+
+        c = cfg.replace(use_pallas=True)
+        steps = {}
+        for int8 in (False, True):
+            acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=int8)
+            p = prm.unflatten(prm.flatten(params)[1],
+                              [x.clone() for x in prm.flatten(params)[0]])
+            step = make_train_step(c, TrainPlan(int8_moments=int8), acfg,
+                                   device=dev)
+            p, opt, m = step(p, adamw_init(p, acfg), batch)
+            torch.cuda.synchronize()
+            steps[int8] = (p, m)
+            log(phase, f"{dtype} make_train_step, "
+                f"{'int8' if int8 else 'f32'} moments: loss "
+                f"{m['loss'].item():.6f}, grad_norm "
+                f"{m['grad_norm'].item():.4f}, lr {m['lr'].item():.2e}; "
+                f"moments {opt_bytes(opt) / 2**20:.1f} MiB")
+            del opt
+        same = all(torch.equal(a, b) for a, b in zip(
+            prm.flatten(steps[False][0])[0], prm.flatten(steps[True][0])[0]))
+        if not same:
+            raise AssertionError(f"{phase}: one step from the same weights "
+                                 f"differs between f32 and int8 moments")
+        log(phase, f"{dtype}: after one step the parameters of the f32- and "
+            f"int8-moment runs are equal bit for bit (the first update "
+            f"reads the unquantized moments)")
+        del steps
+        free(params)
+    pipe.close()
+
+
+def opt_bytes(opt) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in prm.flatten((opt.m, opt.v))[0])
+
+
+LEAF_SAMPLE = 2 ** 20
+
+
+def leaf_sample(p: torch.Tensor) -> torch.Tensor:
+    """A strided copy of up to ``LEAF_SAMPLE`` elements of a leaf, which
+    counts as changed when its sample did: a step of AdamW moves nearly
+    every element by about lr, and the copies of agent-7b's 11.9 GB of
+    weights stay small."""
+    flat = p.reshape(-1)
+    return flat[::max(1, flat.numel() // LEAF_SAMPLE)].clone()
+
+
+def model_flops(cfg, b: int, s: int) -> tuple[float, float]:
+    """(model FLOPs, executed FLOPs with remat) of one train step: 6 per
+    parameter of every matmul per token plus attention's 12 * dh per
+    (head, causal query-key pair, layer); remat runs the forward again
+    (2 per parameter per token, 4 * dh per pair)."""
+    n_mat = models.param_count(cfg) - cfg.vocab * cfg.d_model   # no lookup
+    pairs = b * s * (s + 1) / 2
+    attn = cfg.n_layers * cfg.n_heads * cfg.d_head * pairs
+    model = 6 * n_mat * b * s + 12 * attn
+    return model, model + 2 * n_mat * b * s + 4 * attn
+
+
+def init_train(cfg, dev, phase: str):
+    """Seeded random weights for the full-depth train phases: the
+    reference's rule (``init_full``), then the attention projections at
+    their true fan-in (``attention.rescale_to_true_fan_in``).  With the
+    rule alone agent-7b's gradients grow about 6x a layer downwards, to
+    4e20 at layer 1, and the global norm (5.6e22) overflows the f32 clip
+    of either package (ROADMAP §C, reference fault 5)."""
+    params = init_full(cfg, dev, phase)
+    attention.rescale_to_true_fan_in(params)
+    return params
+
+
+def kernel_class(key: str) -> str:
+    """A profiled kernel's class for the train step's breakdown."""
+    if "flash" in key:
+        return "flash"
+    if any(k in key for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "matmul"
+    if any(k in key for k in ("elementwise", "copy", "Fill", "reduce",
+                              "Reduce", "index", "scatter", "gather")):
+        return "elementwise, copies, reductions"
+    return "other"
+
+
+def phase_train(dev) -> dict:
+    """[train]: agent-7b in full, bf16, remat, int8 moments, B 2 x S 4096
+    from the token pipeline, on ``init_train``'s weights: a warm-up step (its first and last layer's
+    backward calls recorded and held to the plain backward), 4 timed
+    steps with exact launch counts, one profiled step.  Returns the flash
+    launches of the warm-up and timed steps."""
+    phase = "train"
+    cfg = get_config(TRAIN_MODEL).replace(use_pallas=True)
+    card_runs = dev.type == "cuda"
+    params = init_train(cfg, dev, phase)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+    plan = TrainPlan(microbatch=1, int8_moments=True)
+    step = make_train_step(cfg, plan, acfg, device=dev)
+    opt = adamw_init(params, acfg)
+    before = [leaf_sample(p) for p in prm.flatten(params)[0]]
+    pipe = train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    it = iter(pipe)
+    torch.cuda.synchronize()
+    if card_runs:
+        torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        KERNELS[k].launches = 0
+    flash_attention_backward.launches = 0
+    times, losses, norms = [], [], []
+    n_layers = cfg.n_layers
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with record_flash(False, picks={0, n_layers - 1}) as calls:
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+        else:
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    used = launch_counts()
+    used["flash_attention_backward"] = flash_attention_backward.launches
+    peak = torch.cuda.max_memory_allocated() if card_runs else 0
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    want = dict.fromkeys(used, 0)
+    if card_runs:
+        want["flash_attention"] = 2 * n_layers * steps
+        want["flash_attention_backward"] = n_layers * steps
+        if [c[0] for c in calls] != [0, n_layers - 1]:
+            raise AssertionError(f"{phase}: recorded backward calls "
+                                 f"{[c[0] for c in calls]}")
+    if used != want:
+        raise AssertionError(f"{phase}: kernel launches {used}, expected "
+                             f"{want} (remat: 2 forwards and 1 backward a "
+                             f"layer a step)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{phase}: non-finite loss or grad norm: "
+                             f"{losses}, {norms}")
+    unchanged = [i for i, (a, p) in enumerate(zip(
+        before, prm.flatten(params)[0])) if torch.equal(a, leaf_sample(p))]
+    del before
+    if unchanged:
+        raise AssertionError(f"{phase}: parameter leaves {unchanged} did not "
+                             f"change")
+    gpu = card() if card_runs else "a CPU"
+    timed = times[TRAIN_WARMUP:]
+    step_s = float(np.mean(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mf, hf = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log(phase, f"{cfg.name}, {models.param_count(cfg) / 1e9:.3f} B params, "
+        f"{n_layers} layers, bf16, remat, int8 moments "
+        f"({opt_bytes(opt) / 1e9:.2f} GB of moments), B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, {gpu}: steps "
+        + ", ".join(f"{1e3 * t:.1f}" for t in times)
+        + f" ms (the first a warm-up); mean timed step {1e3 * step_s:.1f} "
+        f"ms, {tokens / step_s:.0f} tokens/s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in norms)
+        + f"; max_memory_allocated {peak / 1e9:.2f} GB; kernel launches "
+        f"{used} (= {2 * n_layers} forwards and {n_layers} backwards a "
+        f"step); every one of {len(prm.flatten(params)[0])} parameter "
+        f"leaves changed (a strided sample of up to {LEAF_SAMPLE} elements "
+        f"of each)")
+    log(phase, f"{gpu}: model FLOPs {mf:.3e} a step ({mf / step_s / 1e12:.1f} "
+        f"TFLOP/s, {100 * mf / step_s / BF16_OPS_PER_S:.1f}% of the "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak); executed with "
+        f"remat {hf:.3e} ({100 * hf / step_s / BF16_OPS_PER_S:.1f}%)")
+    hold_flash_calls(phase, [], sorted(calls), torch.bfloat16)
+    log(phase, f"the backward calls of layers {n_layers} and 1 (calls 0 and "
+        f"{n_layers - 1} of the warm-up step) held to the plain backward on "
+        f"their own inputs")
+    del calls
+
+    # one profiled step: device busy against the unprofiled step time
+    batch = next(it)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    log_profile(phase, "train step", rows, 1e3 * step_s, 1)
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        log("profile", f"  {phase}: {us / 1e3:9.3f} ms/step  {count:6d} "
+            f"calls/step  {key[:90]}")
+    classes: dict = {}
+    for us, count, key in rows:
+        c = kernel_class(key)
+        ms_, n_ = classes.get(c, (0.0, 0))
+        classes[c] = (ms_ + us / 1e3, n_ + count)
+    busy = sum(v[0] for v in classes.values())
+    log("profile", f"{phase}: device time by class: " + "; ".join(
+        f"{c} {ms_:.1f} ms ({100 * ms_ / busy:.1f}%, {n_} calls)"
+        for c, (ms_, n_) in sorted(classes.items(),
+                                   key=lambda kv: -kv[1][0])))
+    pipe.close()
+    del opt
+    free(params)
+    return used
+
+
+def phase_train_1b(dev) -> None:
+    """[train agent-1b]: full depth, two microbatches of B 1 x S 4096, f32
+    moments and f32 accumulators: step ms and peak memory."""
+    phase = "train agent-1b"
+    cfg = get_config(TRAIN_1B_MODEL).replace(use_pallas=True)
+    card_runs = dev.type == "cuda"
+    params = init_train(cfg, dev, phase)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, TrainPlan(microbatch=2), acfg, device=dev)
+    opt = adamw_init(params, acfg)
+    pipe = train_batches(cfg, TRAIN_SEQ, 2, seed=1)
+    it = iter(pipe)
+    torch.cuda.synchronize()
+    if card_runs:
+        torch.cuda.reset_peak_memory_stats()
+    f0, b0 = flash_attention.launches, flash_attention_backward.launches
+    times, losses = [], []
+    for _ in range(1 + TRAIN_1B_STEPS):
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    used = (flash_attention.launches - f0,
+            flash_attention_backward.launches - b0)
+    n = (1 + TRAIN_1B_STEPS) * card_runs
+    if used != (2 * 2 * cfg.n_layers * n, 2 * cfg.n_layers * n):
+        raise AssertionError(f"{phase}: flash launches {used}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    step_s = float(np.mean(times[1:]))
+    log(phase, f"{cfg.name}, {models.param_count(cfg) / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers, bf16, remat, f32 moments and f32 "
+        f"accumulators, 2 microbatches of B 1 x S {TRAIN_SEQ}, "
+        f"{card() if card_runs else 'a CPU'}: "
+        f"steps " + ", ".join(f"{1e3 * t:.1f}" for t in times)
+        + f" ms (the first a warm-up), mean {1e3 * step_s:.1f} ms, "
+        f"{2 * TRAIN_SEQ / step_s:.0f} tokens/s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9 if card_runs else 0:.2f} "
+        f"GB; flash launches "
+        f"{used} (2 microbatches x {cfg.n_layers} layers x (2, 1) a step)")
+    pipe.close()
+    del opt
+    free(params)
+
+
+def phase_train_lm(dev) -> None:
+    """[train_lm]: the train_lm twin at lm-100m, 150 steps with --chaos
+    (one failure at step 100, resumed from the step-100 checkpoint) and
+    once uninterrupted, both under torch.use_deterministic_algorithms
+    (the embedding's backward otherwise adds with atomics): the resumed
+    run's losses equal the uninterrupted run's bit for bit, and the loss
+    improves by at least 0.2 nats (the twin asserts it)."""
+    phase = "train_lm"
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for chaos in (True, False):
+            ckpt = ROOT / "build" / f"train_lm_{'chaos' if chaos else 'plain'}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            t0 = time.perf_counter()
+            res = train_lm.main(
+                ["--model", TRAIN_LM_MODEL, "--steps", str(TRAIN_LM_STEPS),
+                 "--batch", str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ),
+                 "--ckpt-dir", str(ckpt), "--device", str(dev)]
+                + (["--chaos"] if chaos else []))
+            res["wall"] = time.perf_counter() - t0
+            runs[chaos] = res
+            shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got, want = runs[True], runs[False]
+    if got["restarts"] != 1 or want["restarts"] != 0:
+        raise AssertionError(f"{phase}: restarts {got['restarts']}, "
+                             f"{want['restarts']}")
+    if got["losses"] != want["losses"]:
+        first = next(i for i, (a, b) in enumerate(zip(
+            got["losses"], want["losses"])) if a != b)
+        raise AssertionError(f"{phase}: the resumed run's loss differs from "
+                             f"the uninterrupted run's at step {first}")
+    gpu = card() if dev.type == "cuda" else "a CPU"
+    log(phase, f"{TRAIN_LM_MODEL}, {gpu}: {TRAIN_LM_STEPS} steps of B "
+        f"{TRAIN_LM_BATCH} x S {TRAIN_LM_SEQ}, "
+        f"loss {got['first']:.3f} -> {got['last']:.3f} (improved "
+        f"{got['first'] - got['last']:.3f} nats); chaos run survived "
+        f"{got['restarts']} failure ({got['log']}) in {got['wall']:.1f} s, "
+        f"its {len(got['losses'])} losses equal the uninterrupted run's "
+        f"({want['wall']:.1f} s) bit for bit (deterministic algorithms)")
 
 
 # ---------------------------------------------------------------------------
@@ -2964,8 +3599,9 @@ def main() -> int:
                 log("build", f"  {fn}: {n_regs} registers, {spill} bytes "
                     f"spill stores")
 
-    rows = [phase_kernels(dev), phase_flash(dev), phase_ring_decode(dev),
-            phase_ssm_scan(dev), phase_grouped_matmul(dev)]
+    rows = [phase_kernels(dev), phase_flash(dev), phase_flash_backward(dev),
+            phase_ring_decode(dev), phase_ssm_scan(dev),
+            phase_grouped_matmul(dev)]
 
     small = get_config("agent-7b").replace(n_layers=2, dtype="float32")
     params = models.init(small, torch.Generator(device=dev).manual_seed(0),
@@ -3089,9 +3725,15 @@ def main() -> int:
     phase_encdec(dev, cfg, params)
     free(params)
 
+    # this slice: training the dense decoders on the card
+    phase_train_parity(dev)
+    train = phase_train(dev)
+    phase_train_1b(dev)
+    phase_train_lm(dev)
+
     main_path = {"paged_decode_attention": control, "flash_attention": hymba,
                  "decode_attention": hymba, "ssm_scan": hymba,
-                 "grouped_matmul": arctic}
+                 "grouped_matmul": arctic, "flash_attention_backward": train}
     for row in rows:
         row["launches"] = main_path[row["name"]][row["name"]]
 

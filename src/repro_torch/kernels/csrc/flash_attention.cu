@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention / _kernel), reached through the model-layout wrapper
 // src/repro/kernels/ops.py::flash_attention.  On the port's path it is the
-// ring layout's one-shot causal prefill (self_attention_prefill).
+// ring layout's one-shot causal prefill (self_attention_prefill) and the
+// forward of training's whole-sequence attention, where it also writes
+// each query row's log-sum-exp for the backward (flash_attention_bwd.cu).
 //
 // What it computes: out[b, i, h] = softmax(q[b,i,h] . K_b^T / sqrt(dh)) . V_b
 // over the keys of KV head h / G.  Causal: key j is valid for query i when
@@ -86,9 +88,9 @@ constexpr int NT = BQ * TPR;     // threads per CTA
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int s_len,
-                       int t_len, int h_q, int g, int dh, int causal,
-                       int window, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int s_len, int t_len, int h_q,
+                       int g, int dh, int causal, int window, float scale) {
   constexpr int NF = DH / (4 * TPR);  // float4 chunks of a row per thread
   __shared__ __align__(16) float ks[BK][DH];
   __shared__ __align__(16) float vs[BK][DH];
@@ -208,6 +210,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!live) return;
+  // scores are in scaled units (q was scaled), so the row's log-sum-exp
+  // is m + log(l); -inf for a row with no valid key
+  if (lse != nullptr && c == 0)
+    lse[(static_cast<int64_t>(b) * h_q + h) * s_len + qi] =
+        l > 0.f ? m + logf(l) : -INFINITY;
   const float inv = 1.f / (l == 0.f ? 1.f : l);
   T* op = out + ((static_cast<int64_t>(b) * s_len + qi) * h_q + h) * dh;
 #pragma unroll
@@ -283,9 +290,10 @@ __global__ void __launch_bounds__(TC_NT, 1)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int s_len,
-                           int t_len, int h_q, int g, int dh, int causal,
-                           int window, float scale_log2) {
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int s_len, int t_len,
+                           int h_q, int g, int dh, int causal, int window,
+                           float scale_log2) {
   constexpr int P = DH + 8;             // tile pitch, bf16 (16 bytes of pad)
   constexpr int TILE = TC_BK * P;       // one K or V tile, bf16
   constexpr int ST = tc_stages(DH);
@@ -488,6 +496,19 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;   // no valid key: zeros
   }
+  if (lse != nullptr && tq == 0) {
+    // natural log-sum-exp of the scaled scores: (m * scale_log2 +
+    // log2(l)) * ln 2; -inf for a row with no valid key
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + gq + 8 * r;
+      if (row < s_len)
+        lse[(static_cast<int64_t>(b) * h_q + h) * s_len + row] =
+            l[r] > 0.f ? (m[r] * scale_log2 + __log2f(l[r]))
+                             * 0.6931471805599453f
+                       : -INFINITY;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = w0 + gq + 8 * r;
@@ -510,22 +531,22 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int batch, int s_len, int t_len, int h_q, int g,
-                       int dh, int causal, int window, float scale,
+                       float* lse, int batch, int s_len, int t_len, int h_q,
+                       int g, int dh, int causal, int window, float scale,
                        cudaStream_t stream) {
   dim3 grid((s_len + BQ - 1) / BQ, h_q, batch);
   flash_attention_kernel<float, DH><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s_len, t_len,
-      h_q, g, dh, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, s_len,
+      t_len, h_q, g, dh, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* out, int batch, int s_len, int t_len, int h_q,
-                       int g, int dh, int causal, int window, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* lse, int batch, int s_len,
+                       int t_len, int h_q, int g, int dh, int causal,
+                       int window, float scale, cudaStream_t stream) {
   constexpr int SMEM = tc_smem_bytes(DH);
   static bool smem_set = false;   // the attribute, once per instantiation
   if (!smem_set) {
@@ -542,8 +563,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), s_len, t_len, h_q, g, dh, causal,
-      window, scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(out), lse, s_len, t_len, h_q, g, dh,
+      causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -553,24 +574,32 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // cores), 1 = bfloat16 (tensor cores).  Any G = h_q / hkv (the kernels
 // take it at run time) and any dh that is a multiple of 8 up to 128, on
 // the 32, 64 or 128 wide instantiation with zero columns past dh.
-// Returns the CUDA error of the launch (0 on success), or -1 when the
-// (dtype, dh, G) combination is not supported.  The launch is
-// asynchronous on `stream` and allocates nothing.
+// lse, when not null, receives each query row's f32 natural log-sum-exp
+// of its scaled scores, (B, H, S) at (b * H + h) * S + i, -inf for a row
+// with no valid key: the backward (flash_attention_bwd.cu) recomputes P
+// from it.  The serving callers pass null.  Returns the CUDA error of the
+// launch (0 on success), or -1 when the (dtype, dh, G) combination is not
+// supported.  The launch is asynchronous on `stream` and allocates
+// nothing.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out, int batch,
+                                      const void* v, void* out, void* lse,
+                                      int batch,
                                       int s_len, int t_len, int h_q, int hkv,
                                       int dh, int causal, int window,
                                       float scale, void* stream) {
   if (hkv <= 0 || h_q % hkv != 0 || s_len <= 0 || t_len <= 0) return -1;
   const int g = h_q / hkv;
   auto st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   cudaError_t err;
 #define FLASH_DH(DH_)                                                        \
   case DH_:                                                                  \
-    err = dtype == 0 ? launch_f32<DH_>(q, k, v, out, batch, s_len, t_len,    \
-                                       h_q, g, dh, causal, window, scale, st) \
-                     : launch_mma<DH_>(q, k, v, out, batch, s_len, t_len,    \
-                                       h_q, g, dh, causal, window, scale, st);\
+    err = dtype == 0 ? launch_f32<DH_>(q, k, v, out, lse_f, batch, s_len,  \
+                                       t_len, h_q, g, dh, causal, window,    \
+                                       scale, st)                            \
+                     : launch_mma<DH_>(q, k, v, out, lse_f, batch, s_len,  \
+                                       t_len, h_q, g, dh, causal, window,    \
+                                       scale, st);                           \
     break
   if (dtype != 0 && dtype != 1) return -1;
   switch (head_width(dh)) {

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels.attention_shapes import (
     DTYPES, check_attention_shape, group_chunk)
+from repro_torch.kernels.grad import refuse_grad
 
 NEG_INF = -1e30
 # split planning: ring slots per CTA, largest first, and the CTAs a call
@@ -166,6 +167,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, kpos, q_pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no decode_attention for device {q.device}")
+    refuse_grad("decode_attention", q, k, v)
     return _launch(q, k, v, kpos, q_pos, window)
 
 

@@ -5,8 +5,13 @@ Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``), reached in the reference through the model-layout
 wrapper ``repro/kernels/ops.py::flash_attention``.  The CUDA source is
 ``csrc/flash_attention.cu``.  On the port's path it computes the ring
-layout's one-shot causal prefill, and non-causal the encoder's self
-attention and a decoder prefill's cross attention.
+layout's one-shot causal prefill, non-causal the encoder's self
+attention and a decoder prefill's cross attention, and training's
+whole-sequence attention (``models/attention.py::_full``).  Training
+differentiates it: under grad the wrapper is an autograd Function whose
+forward also writes each query row's log-sum-exp and whose backward is
+the hand-written Hopper kernel of ``csrc/flash_attention_bwd.cu`` (the
+reference has no backward kernel; JAX differentiates its jnp attention).
 
 Blocked GQA attention of q (B, S, H, dh) against k, v (B, T, Hkv, dh):
 query head ``h`` reads KV head ``h // (H // Hkv)``.  Causal: key ``j``
@@ -20,13 +25,15 @@ padded length as ``kv_len``, so non-causal calls with ``T % 128 != 0``
 let zero keys into the softmax; ROADMAP §C), and nothing is padded, so
 the scale is ``1/sqrt(dh)`` of the real head dim.  A query row with no
 valid key (causal with a window and ``S > T`` only) comes out as zeros
-from the kernel and as the uniform average from the plain version.
+from the kernel (with LSE ``-inf`` and a zero gradient) and as the
+uniform average from the plain version.
 
 Bound on the card: operations, ``4 * dh`` per (query row, head, valid
 key), against the tensor cores' bf16 rate.  bf16 runs on the tensor
 cores (``mma.sync``, f32 accumulators, P rounded to bf16 before P V);
 f32 runs IEEE FMAs on the CUDA cores, since the f32 band of 2e-5 is
-beyond TF32.  See the CUDA source for the design.
+beyond TF32.  The backward's bound is operations too, ``10 * dh`` per
+(query row, head, valid key).  See the CUDA sources for the designs.
 """
 from __future__ import annotations
 
@@ -62,6 +69,37 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, dh).to(q.dtype)
 
 
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                              causal: bool = True,
+                              window: int = -1) -> torch.Tensor:
+    """The f32 (B, H, S) log-sum-exp of each query row's scaled scores
+    over its valid keys: what the forward kernel writes for the
+    backward (a row with no valid key: about ``NEG_INF`` here, ``-inf``
+    from the kernel)."""
+    b, s, h, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, dh).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) / math.sqrt(dh)
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        scores = scores.masked_fill(~mask, NEG_INF)
+    return torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+
+
+def flash_attention_backward_plain(q, k, v, dout, *, causal: bool = True,
+                                   window: int = -1):
+    """(dq, dk, dv): autograd through ``flash_attention_plain``, the
+    backward's plain version."""
+    with torch.enable_grad():
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = flash_attention_plain(qq, kk, vv, causal=causal, window=window)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
 def _check(q, k, v) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, S, H, dh) and k, v equal (B, T, "
@@ -80,33 +118,104 @@ def _check(q, k, v) -> None:
         raise ValueError(f"inputs span devices {sorted(map(str, devs))}")
 
 
-def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _check_launch(name: str, *xs) -> None:
+    for i, x in enumerate(xs):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: input {i} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: input {i} must be 16-byte aligned")
+
+
+def _launch(q, k, v, causal: bool, window: int,
+            with_lse: bool = False):
+    """The forward kernel.  Returns ``out``, or ``(out, lse)`` with the
+    f32 (B, H, S) log-sum-exp of each query row when ``with_lse``; without
+    it the kernel gets a null pointer, so the serving launches (and the
+    CUDA graphs that captured them) are unchanged."""
     from repro_torch.kernels import build
 
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
-    check_attention_shape(q.dtype, dh, g)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    check_attention_shape(q.dtype, dh, h // hkv)
+    _check_launch("flash_attention", q, k, v)
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), b, s, t, h, hkv, dh, int(bool(causal)),
-             int(window), 1.0 / math.sqrt(dh), stream)
+             out.data_ptr(), lse.data_ptr() if with_lse else None, b, s, t,
+             h, hkv, dh, int(bool(causal)), int(window), 1.0 / math.sqrt(dh),
+             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
+    """The backward kernels (``csrc/flash_attention_bwd.cu``: the D
+    pre-pass, dK/dV, dQ) on the current stream.  Returns (dq, dk, dv) in
+    q's dtype.  One call counts one launch."""
+    from repro_torch.kernels import build
+
+    b, s, h, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    check_attention_shape(q.dtype, dh, h // hkv)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {(b, h, s)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    _check_launch("flash_attention_backward", q, k, v, out, lse, dout)
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+             dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, s, t, h, hkv, dh, int(bool(causal)), int(window),
+             1.0 / math.sqrt(dh), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_backward launch failed: error "
+                           f"{err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel pair under autograd: the forward kernel with its LSE,
+    the backward kernels on the saved (q, k, v, out, lse).  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward
+    pass, and the LSE saved is the recomputed one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _launch(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, out, lse, dout.contiguous(),
+                                      ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -114,15 +223,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model layout: q (B, S, H, dh); k, v (B, T, Hkv, dh).  Returns
     (B, S, H, dh).
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    the plain version.  ``flash_attention.launches`` counts kernel
-    launches."""
+    CUDA tensors launch the Hopper kernel (or raise); with grad mode on
+    and an input that requires grad, the call is the autograd Function
+    whose backward is the Hopper backward kernel (there is no fallback to
+    the plain version's autograd).  CPU tensors take the plain version,
+    which autograd differentiates.  ``flash_attention.launches`` counts
+    forward launches, ``flash_attention_backward.launches`` backward
+    ones."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
     return _launch(q, k, v, causal, window)
 
 
+def flash_attention_forward(q, k, v, *, causal: bool = True,
+                            window: int = -1):
+    """The forward kernel called directly on CUDA tensors, with the f32
+    (B, H, S) log-sum-exp the backward reads: (out, lse).  Counts on
+    ``flash_attention.launches``."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_forward runs on CUDA tensors")
+    return _launch(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: int = -1):
+    """The backward kernels called directly on CUDA tensors: (dq, dk, dv)
+    from the forward's ``out`` and ``lse`` and the output gradient
+    ``dout``.  ``flash_attention_backward.launches`` counts the calls,
+    from here and from autograd."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_backward runs on CUDA tensors; "
+                         "the CPU differentiates flash_attention_plain")
+    return _launch_backward(q, k, v, out, lse, dout, causal, window)
+
+
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

@@ -30,6 +30,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.grad import refuse_grad
+
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the CUDA source's paths: f32 FMAs a column at a time, f32 FMAs four
 # columns a load (f % 4 == 0, w 16-byte aligned), bf16 on the tensor cores
@@ -191,6 +193,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
         return grouped_matmul_plain(x, w, counts)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped_matmul for device {x.device}")
+    refuse_grad("grouped_matmul", x, w)
     return _launch(x, w, counts)
 
 

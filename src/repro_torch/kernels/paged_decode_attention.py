@@ -34,6 +34,7 @@ import torch
 from repro_torch.kernels.attention_shapes import (
     DTYPES, check_attention_shape, group_chunk)
 from repro_torch.kernels.decode_attention import SPLIT_LENS, TARGET_CTAS
+from repro_torch.kernels.grad import refuse_grad
 
 NEG_INF = -1e30
 # most pages a CTA takes (csrc/paged_decode_attention.cu)
@@ -179,6 +180,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                             window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_decode_attention for device {q.device}")
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     return _launch(q, k_pages, v_pages, block_tables, ctx_lens, window)
 
 

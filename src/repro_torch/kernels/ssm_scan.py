@@ -38,6 +38,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.grad import refuse_grad
+
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DK = 512          # mLSTM's head dim
 MAX_DV = 1024         # mLSTM's 513 (head dim + the normaliser column)
@@ -212,6 +214,7 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"no ssm_scan for device {q.device}")
+    refuse_grad("ssm_scan", q, k, v, log_a, h0)
     return _launch(q, k, v, log_a, h0, min(chunk, q.shape[1]))
 
 

@@ -65,6 +65,31 @@ def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     return defs
 
 
+@torch.no_grad()
+def rescale_to_true_fan_in(params) -> None:
+    """Rescale, in place, every attention projection of a parameter tree
+    drawn by the reference's rule (``models.init``) to a normal of its
+    true fan-in: wq, wk and wv (..., d, heads, dh) to 1/sqrt(d), wo
+    (..., heads, dh, d) to 1/sqrt(heads * dh).  The rule takes a
+    weight's last-but-one axis as its fan-in, so it draws wq, wk and wv
+    at 1/sqrt(heads) and wo at 1/sqrt(dh): attention scores get a std of
+    64-314 and a deep stack's gradients explode (ROADMAP §C, reference
+    fault 5).  Training entry points call this after ``init``."""
+    if isinstance(params, list):
+        for x in params:
+            rescale_to_true_fan_in(x)
+        return
+    if not isinstance(params, dict):
+        return
+    for key, x in params.items():
+        if key in ("wq", "wk", "wv"):
+            x.mul_(math.sqrt(x.shape[-2] / x.shape[-3]))
+        elif key == "wo":
+            x.mul_(math.sqrt(1 / x.shape[-3]))
+        else:
+            rescale_to_true_fan_in(x)
+
+
 # ---------------------------------------------------------------------------
 # Core masked attention (GQA grouped layout)
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
 """Shared neural building blocks (port of ``repro/models/layers.py``):
 norms, rotary embeddings (M-RoPE included), the SwiGLU MLP, embeddings.
 Plain functions over parameter dicts, in the reference's weight layouts,
-so each einsum keeps the reference's subscripts.
-
-The losses wait for the training slice."""
+so each einsum keeps the reference's subscripts.  The losses
+(``softmax_xent``, ``chunked_unembed_xent``) take f32 logits, mask
+labels of -1 and reduce as the reference does."""
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.params import P
 
@@ -130,3 +133,65 @@ def unembed_tied(embed_params: dict, x: torch.Tensor,
                  softcap: float = 0.0) -> torch.Tensor:
     return _softcap(torch.einsum("...d,vd->...v", x, embed_params["table"]),
                     softcap)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy.  logits (..., V), upcast to f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _chunk_sums(logits_fn: Callable, xc: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor):
+    """(sum of nll * mask, sum of mask) of one sequence chunk."""
+    logits = logits_fn(xc).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def chunked_unembed_xent(logits_fn: Callable, x: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    """Cross entropy without materializing the full (B, S, V) logits.
+
+    Walks the sequence in ``chunk``-token slices (S padded to a multiple
+    of ``chunk``, the padding masked); each slice computes its logits
+    with ``logits_fn`` (the unembed closure) and reduces them to two f32
+    scalars at once, summed in the reference's order.  Under autograd
+    each slice runs inside ``torch.utils.checkpoint`` (non-reentrant), so
+    its f32 logits are recomputed in the backward pass instead of being
+    kept, which is the reference's intent.  Exact, not an approximation.
+    """
+    b, s = labels.shape
+    if chunk <= 0 or s <= chunk:
+        return softmax_xent(logits_fn(x), labels, mask)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[1], chunk):
+        args = (x[:, i:i + chunk], labels[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        if torch.is_grad_enabled():
+            nll, m = checkpoint(_chunk_sums, logits_fn, *args,
+                                use_reentrant=False)
+        else:
+            nll, m = _chunk_sums(logits_fn, *args)
+        nll_sum = nll_sum + nll
+        m_sum = m_sum + m
+    return nll_sum / torch.clamp(m_sum, min=1.0)

@@ -83,6 +83,59 @@ def tree_leaves(tree: Tree) -> list:
     return out
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
+def flatten(tree: Tree, is_leaf: Optional[Callable] = None):
+    """(leaves, treedef) in ``jax.tree.flatten``'s order: dict keys
+    sorted, lists and tuples in order, NamedTuples (``AdamWState``,
+    ``Q8``, ``KVCache``) in field order, ``None`` an empty subtree.
+    ``is_leaf(x)`` true stops the walk at ``x``."""
+    leaves: list = []
+
+    def walk(x):
+        if is_leaf is not None and is_leaf(x):
+            leaves.append(x)
+            return ("leaf",)
+        if x is None:
+            return ("none",)
+        if isinstance(x, dict):
+            keys = sorted(x)
+            return ("dict", tuple(keys), tuple(walk(x[k]) for k in keys))
+        if isinstance(x, (list, tuple)):
+            kind = type(x) if _is_namedtuple(x) else type(x).__name__
+            return ("seq", kind, tuple(walk(v) for v in x))
+        leaves.append(x)
+        return ("leaf",)
+
+    return leaves, walk(tree)
+
+
+def unflatten(treedef, leaves) -> Tree:
+    """The tree of ``treedef`` (from ``flatten``) over ``leaves``."""
+    it = iter(leaves)
+
+    def build(d):
+        if d[0] == "leaf":
+            return next(it)
+        if d[0] == "none":
+            return None
+        if d[0] == "dict":
+            return {k: build(c) for k, c in zip(d[1], d[2])}
+        kids = [build(c) for c in d[2]]
+        if d[1] == "list":
+            return kids
+        if d[1] == "tuple":
+            return tuple(kids)
+        return d[1](*kids)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def stack(defs: Tree, *dims: int) -> Tree:
     """Prepend layer-stack dims (replicated axes) to every P in the tree."""
     return tree_map(lambda p: P(tuple(dims) + p.shape,
@@ -169,3 +222,45 @@ def from_jax(cfg, tree: Tree, device=None, dtype=None) -> Tree:
     from repro_torch.models.transformer import model_defs
 
     return load_tree(model_defs(cfg), tree, dtype, resolve_device(device))
+
+
+def _map_opt(x, leaf: Callable, state_type, q8_type):
+    """An optimizer-state tree (an ``AdamWState`` of dicts and lists of
+    f32 arrays or ``Q8``s, from either package) rebuilt in ``state_type``
+    and ``q8_type`` with ``leaf`` applied to every array."""
+    name = type(x).__name__
+    if name == "AdamWState":
+        return state_type(leaf(x.step), _map_opt(x.m, leaf, state_type,
+                                                 q8_type),
+                          _map_opt(x.v, leaf, state_type, q8_type))
+    if name == "Q8":
+        return q8_type(leaf(x.q), leaf(x.scale))
+    if isinstance(x, dict):
+        return {k: _map_opt(x[k], leaf, state_type, q8_type)
+                for k in sorted(x)}
+    if isinstance(x, list):
+        return [_map_opt(v, leaf, state_type, q8_type) for v in x]
+    return leaf(x)
+
+
+def opt_state_from_jax(state, device=None):
+    """The reference's optimizer state (``repro.optim.adamw.AdamWState``
+    of numpy arrays, e.g. ``jax.device_get(adamw_init(params, cfg))``:
+    f32 moments or ``Q8``) as the port's ``AdamWState`` on ``device``,
+    every leaf with its own dtype: the counterpart of ``from_jax`` for
+    the optimizer."""
+    from repro_torch.optim.adamw import Q8, AdamWState
+
+    dev = resolve_device(device)
+    return _map_opt(state, lambda a: torch.from_numpy(np.array(a)).to(dev),
+                    AdamWState, Q8)
+
+
+def opt_state_to_numpy(state, state_type=None, q8_type=None):
+    """The port's ``AdamWState`` as numpy arrays on the host, in the
+    port's NamedTuples or in the given ``state_type`` and ``q8_type``
+    (the reference's, for its ``adamw_update``)."""
+    from repro_torch.optim.adamw import Q8, AdamWState
+
+    return _map_opt(state, lambda t: t.detach().cpu().numpy(),
+                    state_type or AdamWState, q8_type or Q8)

@@ -15,6 +15,15 @@ K/V in its ring cache (``init_cache(enc_len=)``).  A VLM's M-RoPE takes
 patch embeddings over the first token slots (``vision_embeds``) and
 explicit ``positions``.
 
+Training entry points: ``hidden_states``, ``forward`` and ``loss_fn``,
+with the reference's signatures and return values, for the dense
+decoder configs.  ``cfg.remat`` runs each layer under
+``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps
+the reference's scan body; the loss walks the sequence in
+``cfg.loss_chunk`` slices.  A config with MoE, a hybrid or xLSTM stack,
+vision embeddings or an encoder is refused with the ROADMAP item that
+will train it, never run halfway.
+
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
 stacked parameters and pools.  The cache is updated in place: a step
@@ -26,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.models import params as prm
@@ -34,9 +44,9 @@ from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.blocks import (block_apply, block_defs,
                                        init_block_cache,
                                        init_paged_block_cache)
-from repro_torch.models.layers import (embed, embed_defs, rmsnorm,
-                                       rmsnorm_defs, unembed, unembed_defs,
-                                       unembed_tied)
+from repro_torch.models.layers import (chunked_unembed_xent, embed,
+                                       embed_defs, rmsnorm, rmsnorm_defs,
+                                       unembed, unembed_defs, unembed_tied)
 
 # ---------------------------------------------------------------------------
 # Defs / parameters
@@ -95,21 +105,51 @@ def _layer(tree, idx: tuple[int, ...]):
     return tree[idx]
 
 
+def _unbound(tree, idxs) -> dict:
+    """Each layer's tree of a stacked parameter tree, keyed by its index
+    in ``idxs``, from one ``unbind`` per leaf (and per repeat): under
+    autograd a stacked leaf's gradient is then one stack of the layers'
+    gradients, where indexing it layer by layer would zero-fill and add
+    a gradient of the whole stack once a layer."""
+    if isinstance(tree, dict):
+        subs = {k: _unbound(v, idxs) for k, v in tree.items()}
+        return {idx: {k: subs[k][idx] for k in tree} for idx in idxs}
+    if len(idxs[0]) == 2:
+        rows = [t.unbind(0) for t in tree.unbind(0)]
+        return {(r, i): rows[r][i] for r, i in idxs}
+    parts = tree.unbind(0)
+    return {idx: parts[idx[0]] for idx in idxs}
+
+
 def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
               tables, mode=None, live=None, memory=None):
     """Run ``plan``'s segments over ``x``.  ``cache_list=None`` runs
-    without decode state (the encoder)."""
+    without decode state (the encoder, and training); then, with grad
+    mode on, the layers' parameters come from ``_unbound`` and, with
+    ``cfg.remat``, each layer runs under a non-reentrant checkpoint,
+    which keeps only its input for the backward pass."""
+    train = cache_list is None and torch.is_grad_enabled()
+    remat = train and cfg.remat
     for k, (seg, seg_params) in enumerate(zip(plan, params_list)):
         seg_cache = cache_list[k] if cache_list is not None else None
+        layers = {}
+        if train:
+            for j, (spec, n) in enumerate(seg.pattern):
+                layers[j] = _unbound(seg_params[f"e{j}"], [
+                    (r, i) if seg.repeat > 1 else (i,)
+                    for r in range(seg.repeat) for i in range(n)])
         for r in range(seg.repeat):
             for j, (spec, n) in enumerate(seg.pattern):
                 for i in range(n):
                     idx = (r, i) if seg.repeat > 1 else (i,)
                     layer_cache = (_layer(seg_cache[f"e{j}"], idx)
                                    if seg_cache is not None else None)
-                    x = block_apply(_layer(seg_params[f"e{j}"], idx), x,
-                                    cfg, spec, positions, layer_cache,
-                                    tables, mode, live, memory)
+                    layer = (layers[j][idx] if train
+                             else _layer(seg_params[f"e{j}"], idx))
+                    args = (layer, x, cfg, spec, positions, layer_cache,
+                            tables, mode, live, memory)
+                    x = (checkpoint(block_apply, *args, use_reentrant=False)
+                         if remat else block_apply(*args))
     return x
 
 
@@ -168,6 +208,74 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     x = _run_plan(cfg.enc_plan(), cfg, params["encoder"], frames, pos, None,
                   None)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Training entry points (dense decoders)
+# ---------------------------------------------------------------------------
+
+AUX_WEIGHT = 0.01
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config the port does not train yet,
+    naming the ROADMAP item that will."""
+    if cfg.n_experts > 0:
+        item = "A4.1 (MoE: a grouped_matmul backward and the aux loss)"
+    elif cfg.family in ("hybrid", "ssm"):
+        item = ("A4.2 (hymba and xLSTM: an ssm_scan backward and the "
+                "sLSTM loop)")
+    elif cfg.is_encdec:
+        item = "A4.4 (the encoder-decoder)"
+    elif cfg.family == "vlm" or cfg.mrope_sections or cfg.frontend != "none":
+        item = "A4.3 (qwen2-vl's vision embeds)"
+    else:
+        return
+    raise ValueError(f"the port trains the dense decoder configs only; "
+                     f"{cfg.name} waits for ROADMAP {item}")
+
+
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  positions=None, vision_embeds=None, frames=None):
+    """Trunk only: embeddings -> stack -> final norm.  Returns ((B, S, D),
+    aux), the aux loss an f32 zero (a dense stack has none)."""
+    check_trainable(cfg)
+    if frames is not None:
+        raise ValueError("frames feed an encoder; the port trains no "
+                         "encoder-decoder yet (ROADMAP A4.4)")
+    b, s = tokens.shape
+    if positions is None:
+        positions = default_positions(cfg, b, s, device=tokens.device)
+    x = _embed_inputs(params, tokens, vision_embeds)
+    x = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions, None,
+                  None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions=None, vision_embeds=None, frames=None):
+    """Full-sequence forward -> (logits (B, S, V), aux)."""
+    x, aux = hidden_states(params, cfg, tokens, positions=positions,
+                           vision_embeds=vision_embeds, frames=frames)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """batch: tokens (B, S), labels (B, S) (-1 = pad), optional
+    positions.  Returns (loss, {"loss", "xent", "aux"}).  The unembed and
+    cross entropy run in ``cfg.loss_chunk`` slices, so the (B, S, V)
+    logits never exist at once."""
+    x, aux = hidden_states(params, cfg, batch["tokens"],
+                           positions=batch.get("positions"),
+                           vision_embeds=batch.get("vision_embeds"),
+                           frames=batch.get("frames"))
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    xent = chunked_unembed_xent(lambda xc: _logits(params, cfg, xc), x,
+                                labels.clamp_min(0), mask, cfg.loss_chunk)
+    loss = xent + AUX_WEIGHT * aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,7 @@
-"""Runtime planes the serving fleet needs: ``elastic.py`` (the elastic
-tester group behind intent's ``scale`` action) and ``heartbeat.py``
-(liveness).  Import them by module; the training supervisor and the
-straggler policy are not part of the port yet."""
+from repro_torch.runtime.heartbeat import HeartbeatMonitor
+from repro_torch.runtime.straggler import StragglerPolicy
+from repro_torch.runtime.elastic import ElasticGroup
+from repro_torch.runtime.supervisor import TrainSupervisor, SimulatedFailure
+
+__all__ = ["ElasticGroup", "HeartbeatMonitor", "SimulatedFailure",
+           "StragglerPolicy", "TrainSupervisor"]

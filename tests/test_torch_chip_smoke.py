@@ -1096,3 +1096,122 @@ def test_serve_disagg_phase_runs_on_cpu(smoke, monkeypatch, capsys,
     assert "greedy tokens equal the unified paged run's (512 tokens)" in out
     assert "8 handoffs through pinned host memory" in out
     assert out.count("extract to pinned host memory") == 8
+
+
+# ---------------------------------------------------------------------------
+# The training phases
+# ---------------------------------------------------------------------------
+
+def test_flash_backward_bound_and_cases(smoke):
+    """The backward's bound counts 10 * dh operations per valid pair; the
+    cases cover the issue's shapes (windows, G 12 and 16, dh 120, a
+    ragged S, non-causal, rows with no valid key)."""
+    q = torch.zeros((1, 1024, 32, 128), dtype=torch.bfloat16)
+    k = torch.zeros((1, 1024, 8, 128), dtype=torch.bfloat16)
+    ms, by = smoke.bwd_bound(q, k, True, -1)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 10 * 128 * 32 * 1024 * 1025 / 2
+                               / smoke.BF16_OPS_PER_S)
+    heads = {c[0] for c in smoke.BWD_CASES}
+    assert {(128, 8, 128), (96, 8, 128), (32, 8, 120)} <= heads
+    assert any(not c[4] for c in smoke.BWD_CASES)
+    assert any(c[2] > c[3] and c[5] > 0 for c in smoke.BWD_CASES)
+
+
+def test_hold_flash_calls_on_recorded_cpu_calls(smoke, capsys):
+    """record_flash keeps each call's inputs and outputs; held to the
+    plain versions they agree (here the plain versions themselves)."""
+    from repro_torch.kernels import flash_attention as fa_mod  # noqa: F401
+    mod = sys.modules["repro_torch.kernels.flash_attention"]
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen) for s in
+               ((1, 30, 4, 32), (1, 30, 2, 32), (1, 30, 2, 32)))
+    dout = torch.randn(q.shape, generator=gen)
+
+    def fake_fwd(q, k, v, causal, window, with_lse=False):
+        out = mod.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        lse = mod.flash_attention_lse_plain(q, k, causal=causal,
+                                            window=window)
+        return (out, lse) if with_lse else out
+
+    def fake_bwd(q, k, v, out, lse, dout, causal, window):
+        return mod.flash_attention_backward_plain(q, k, v, dout,
+                                                  causal=causal,
+                                                  window=window)
+
+    real = (mod._launch, mod._launch_backward)
+    try:
+        mod._launch, mod._launch_backward = fake_fwd, fake_bwd
+        with smoke.record_flash(True) as fw, \
+                smoke.record_flash(False, picks={1}) as bw:
+            for _ in range(2):
+                out, lse = mod._launch(q, k, v, True, 7, with_lse=True)
+                mod._launch_backward(q, k, v, out, lse, dout, True, 7)
+        assert (mod._launch, mod._launch_backward) == (fake_fwd, fake_bwd)
+    finally:
+        mod._launch, mod._launch_backward = real
+    assert [c[0] for c in fw] == [0, 1] and [c[0] for c in bw] == [1]
+    assert smoke.hold_flash_calls("rehearsal", fw, bw, torch.float32) == 0
+    assert capsys.readouterr().out.count("(tolerance 2e-05)") == 3
+
+
+def test_model_flops_of_agent_7b(smoke):
+    """About 4.3e14 executed FLOP a step of B 2 x S 4096 under remat."""
+    from repro_torch.configs import get_config
+
+    mf, hf = smoke.model_flops(get_config("agent-7b"), 2, 4096)
+    assert 2.9e14 < mf < 3.3e14 and 3.9e14 < hf < 4.5e14
+    assert hf / mf == pytest.approx(4 / 3, rel=0.02)
+
+
+def test_train_phases_run_on_cpu(smoke, monkeypatch, capsys, tmp_path):
+    """The training phases at tiny-agent sizes on the CPU (plain
+    versions, so no launch): parity, the full-depth steps with every
+    leaf changed and a profiled step, microbatches, and the train_lm
+    twin's restart (its 75 steps checkpoint at 50 and fail at 50)
+    equal to the uninterrupted run."""
+    for name, value in (("TRAIN_PARITY_MODEL", "tiny-agent"),
+                        ("TRAIN_PARITY_SEQ", 48), ("TRAIN_MODEL", "tiny-agent"),
+                        ("TRAIN_1B_MODEL", "tiny-agent"), ("TRAIN_SEQ", 32),
+                        ("TRAIN_STEPS", 2), ("TRAIN_LM_MODEL", "tiny-agent"),
+                        ("TRAIN_LM_STEPS", 75), ("TRAIN_LM_BATCH", 4),
+                        ("TRAIN_LM_SEQ", 32), ("ROOT", tmp_path)):
+        monkeypatch.setattr(smoke, name, value)
+    dev = torch.device("cpu")
+    smoke.phase_train_parity(dev)
+    used = smoke.phase_train(dev)
+    smoke.phase_train_1b(dev)
+    smoke.phase_train_lm(dev)
+    assert set(used.values()) == {0}
+    out = capsys.readouterr().out
+    assert out.count("after one step the parameters of the f32- and int8-"
+                     "moment runs are equal bit for bit") == 2
+    assert "every one of 12 parameter leaves changed (a strided sample" in out
+    assert "[profile] train: train step: " in out
+    assert smoke.kernel_class("nvjet_tst_192x192") == "matmul"
+    assert "2 microbatches of B 1 x S 32" in out
+    assert "losses equal the uninterrupted run's" in out
+
+
+def test_init_train_rescales_attention_to_true_fan_in(smoke, monkeypatch):
+    """init_train: the reference's seeded weights with wq, wk and wv at
+    1/sqrt(d_model) and wo at 1/sqrt(H * dh) (``attention.
+    rescale_to_true_fan_in``); nothing else moves."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as prm
+
+    monkeypatch.setattr(smoke, "card", lambda: "a CPU")
+    cfg = get_config("agent-7b").replace(n_layers=2, d_model=512, n_heads=8,
+                                         n_kv_heads=2, d_ff=64, vocab=64,
+                                         dtype="float32")
+    got = smoke.init_train(cfg, torch.device("cpu"), "rehearsal")
+    ref = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    attn = got["decoder"][0]["e0"]["attn"]
+    # d_head stays 128 under replace: wo's fan-in is 8 heads x 128
+    for name, fan in (("wq", 512), ("wk", 512), ("wv", 512), ("wo", 1024)):
+        assert attn[name].std().item() == pytest.approx(fan ** -0.5, rel=0.05)
+    same = [torch.equal(a, b) for a, b in zip(prm.flatten(got)[0],
+                                              prm.flatten(ref)[0])]
+    assert same.count(False) == 4

@@ -80,6 +80,13 @@ COPIES = {
     # the elastic tester group every AgenticPipeline builds, and the
     # heartbeat monitor it attaches new replicas to
     "runtime/elastic.py": (), "runtime/heartbeat.py": (),
+    # the training slice: the token pipeline, the supervisor and the
+    # straggler policy; the package inits of runtime, data, checkpoint
+    # and optim export what the reference's export
+    "data/pipeline.py": (), "data/__init__.py": (),
+    "runtime/supervisor.py": (), "runtime/straggler.py": (),
+    "runtime/__init__.py": (), "checkpoint/__init__.py": (),
+    "optim/__init__.py": (),
 }
 
 

@@ -959,3 +959,153 @@ def test_graph_replay_of_new_architectures(cuda_device, name, layout, mixed):
             assert ssm_scan.launches - before == 4 * 5
         eng.release_graphs()
     assert toks[True] == toks[False]
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash backward, autograd and the gradient guard
+# ---------------------------------------------------------------------------
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,g,dh,causal,window", [
+    (1, 300, 300, 4, 128, True, -1),
+    (2, 130, 130, 2, 64, True, 48),
+    (1, 77, 77, 8, 32, True, 5),                   # a ragged S
+    (1, 300, 300, 12, 120, True, 100),             # G 12, dh 120
+    (1, 200, 200, 16, 128, True, -1),              # G 16
+    (1, 200, 90, 4, 128, False, -1),               # non-causal
+    (1, 400, 200, 5, 64, True, 64)])               # rows with no valid key
+def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, s, t, g,
+                                             dh, causal, window):
+    """dq, dk and dv of the backward kernels against autograd through
+    the plain version, each within the band of its largest magnitude;
+    dout is zero on rows with no valid key, whose dq is zero."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_forward)
+    q, k, v = flash_case(cuda_device, dtype, b, s, t, 2, g, dh)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=window)
+    i = torch.arange(s, device=cuda_device)
+    live = (torch.clamp(i - window + 1, min=0) <= torch.clamp(i, max=t - 1)
+            if causal and window > 0 else torch.ones_like(i, dtype=bool))
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device).to(dtype)
+    dout[:, ~live] = 0
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    want = flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert rel_err(got[0][:, live], want[0][:, live]) <= TOL[dtype]
+    assert not got[0][:, ~live].any()
+    assert rel_err(got[1], want[1]) <= TOL[dtype]
+    assert rel_err(got[2], want[2]) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_under_grad_is_the_kernel_pair(cuda_device, dtype):
+    """Under grad the wrapper launches the forward (with its LSE) and,
+    in backward, the backward kernel, never the plain autograd; without
+    grad it launches the forward alone."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain)
+    q, k, v = (x.requires_grad_(True) for x in flash_case(
+        cuda_device, dtype, 2, 130, 130, 2, 4, 64))
+    f0, b0 = flash_attention.launches, flash_attention_backward.launches
+    out = flash_attention(q, k, v, causal=True, window=48)
+    assert out.grad_fn is not None
+    dout = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (f0 + 1, b0 + 1)
+    want = flash_attention_backward_plain(q, k, v, dout, causal=True,
+                                          window=48)
+    for x, y in zip(got, want):
+        assert rel_err(x, y) <= TOL[dtype]
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    assert flash_attention_backward.launches == b0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["paged_decode_attention",
+                                   "decode_attention", "ssm_scan",
+                                   "grouped_matmul"])
+def test_kernels_without_backward_refuse_grad(cuda_device, which):
+    """The four wrappers without a backward raise under grad, naming
+    the ROADMAP item, instead of returning an output cut from the
+    graph; under no_grad they launch as before."""
+    dev, f32 = cuda_device, torch.float32
+    if which == "paged_decode_attention":
+        args = case(dev, f32, 2, 2, 4, 64, 16, [40, 7])
+        fn, kw = paged_decode_attention, {"window": -1}
+    elif which == "decode_attention":
+        args = ring_case(dev, f32, [39, 6], 64, 2, 4, 64)
+        fn, kw = decode_attention, {"window": -1}
+    elif which == "ssm_scan":
+        args = scan_case(dev, f32, 1, 40, 2, 16, 32)
+        fn, kw = ssm_scan, {}
+    else:
+        args = gm_case(dev, f32, 4, 8, 64, 32, [8, 3, 0, 5])
+        fn, kw = grouped_matmul, {}
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="ROADMAP A4"):
+        fn(*args, **kw)
+    before = fn.launches
+    with torch.no_grad():
+        fn(*args, **kw)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_plain_path(cuda_device):
+    """tiny-agent, f32, with the kernels on against the plain path
+    (``use_pallas=False``) from the same weights: the loss within 1e-5
+    and every gradient leaf within 1e-3 of its largest magnitude (a
+    backward that dropped or garbled a gradient is off by O(1)); 2
+    forward and 2 backward launches (2 layers, remat off); then one
+    ``make_train_step`` on the card, its loss the same."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.launch.train import (AdamWConfig, TrainPlan,
+                                          make_train_step)
+    from repro_torch.models.params import flatten, unflatten
+    from repro_torch.optim.adamw import adamw_init
+
+    base = get_config("tiny-agent").replace(dtype="float32", remat=False)
+    toks = np.random.default_rng(0).integers(0, base.vocab, (2, 64))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(cuda_device)
+    batch = {"tokens": toks, "labels": toks}
+    params = models.init(base, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    leaves, treedef = flatten(params)
+    runs = {}
+    for kernels in (True, False):
+        cfg = base.replace(use_pallas=kernels)
+        f0 = flash_attention.launches
+        b0 = flash_attention_backward.launches
+        live = [p.detach().clone().requires_grad_(True) for p in leaves]
+        loss, _ = models.loss_fn(unflatten(treedef, live), cfg, batch)
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        runs[kernels] = (loss.item(), grads)
+        launched = (flash_attention.launches - f0,
+                    flash_attention_backward.launches - b0)
+        assert launched == ((2, 2) if kernels else (0, 0))
+    assert abs(runs[True][0] - runs[False][0]) <= 1e-5
+    for x, y in zip(runs[True][1], runs[False][1]):
+        assert rel_err(x, y) <= 1e-3
+    cfg = base.replace(use_pallas=True)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, TrainPlan(), acfg, device=cuda_device)
+    _, _, m = step(params, adamw_init(params, acfg), batch)
+    assert abs(m["loss"].item() - runs[True][0]) <= 1e-5

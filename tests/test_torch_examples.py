@@ -1,4 +1,4 @@
-"""The seven sim examples' twins under ``src/repro_torch/examples/``
+"""The eight sim examples' twins under ``src/repro_torch/examples/``
 against the JAX package's ``examples/``.
 
 Each twin differs from its example only in import paths (and the
@@ -19,9 +19,9 @@ from test_examples import SIM_EXAMPLES, load_example  # noqa: E402
 from test_torch_agents import aligned  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
-# the twins of every sim example but failover_drill (the runtime slice)
+# the twins of every sim example
 TWINS = ("quickstart", "workflow", "autoscale", "prefix_cache", "trace",
-         "tenancy", "disagg")
+         "tenancy", "disagg", "failover_drill")
 # each twin's edits beyond the import paths: (text in the reference,
 # text in the twin)
 TWIN_EDITS = {
@@ -37,7 +37,7 @@ TWIN_EDITS = {
 
 
 def test_twins_cover_the_sim_examples():
-    assert set(TWINS) == set(SIM_EXAMPLES) - {"failover_drill"}
+    assert set(TWINS) == set(SIM_EXAMPLES)
 
 
 @pytest.mark.parametrize("name", TWINS)

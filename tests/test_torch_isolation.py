@@ -63,7 +63,15 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.examples.autoscale",
               "repro_torch.examples.prefix_cache",
               "repro_torch.examples.trace", "repro_torch.examples.tenancy",
-              "repro_torch.examples.disagg"):
+              "repro_torch.examples.disagg", "repro_torch.optim",
+              "repro_torch.optim.adamw", "repro_torch.launch",
+              "repro_torch.launch.train", "repro_torch.data",
+              "repro_torch.data.pipeline", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.manager",
+              "repro_torch.runtime.supervisor",
+              "repro_torch.runtime.straggler", "repro_torch.kernels.grad",
+              "repro_torch.examples.train_lm",
+              "repro_torch.examples.failover_drill"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
@@ -142,9 +150,14 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     seamless = get_smoke("seamless-m4t-large-v2")
     with pytest.raises(RuntimeError, match="CUDA"):
         models.init_cache(seamless, 2, 64, enc_len=16)
-    from repro_torch.examples import serve_llm
+    from repro_torch.examples import serve_llm, train_lm
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_llm.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main(["--steps", "1"])
+    from repro_torch.launch.train import make_train_step
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)
 
 
 def test_chip_smoke_refuses_missing_cuda(monkeypatch):
