@@ -179,12 +179,42 @@ code is non-zero and the final JSON line is not printed:
 32. train_lm  -- the train_lm twin at lm-100m, 150 steps with --chaos and
                  once uninterrupted, under deterministic algorithms: one
                  restart, equal losses bit for bit, >= 0.2 nats gained.
+33. kernels backward -- (after 3) the grouped_matmul backward (dX, dW) at
+                 arctic-480b's and kimi-k2's expert shapes, decode and
+                 training capacities, counts of 0, C and ragged, f32 and
+                 bf16, and the ssm_scan backward (dq, dk, dv, dlog_a,
+                 dh0) at hymba's training scan and mLSTM's width, a ragged
+                 T, a non-zero h0 and a gradient of h_T: each output
+                 within 2e-5 (1e-4 the scan) / 2e-2 of its largest
+                 magnitude against the plain version's autograd, two runs
+                 equal bit for bit; timed against the bound and (the
+                 grouped matmul) two bmm calls.
+34. train parity families -- (after 32) arctic-480b's width at 1 layer
+                 with 16 experts, kimi-k2's at 2 layers with 16, hymba at
+                 3, xlstm with one mLSTM and one sLSTM layer, qwen2-vl at
+                 2, seamless at 1 + 1, f32: loss and every gradient leaf,
+                 kernels on against off, exact launches, every
+                 grouped_matmul and ssm_scan call (forward and backward)
+                 held to its plain version; one make_train_step each.
+35. train moe -- arctic-480b at full width, 1 of 35 layers, bf16, remat,
+                 B 1 x S 4096: the gradient at all 128 experts (exact
+                 launches, live experts' gradients non-zero, backward
+                 calls held on a slice of the experts, peak memory), then
+                 make_train_step with int8 moments at 64 experts.
+36. train ssm -- hymba-1.5b in full, B 2 x S 4096, and xlstm-350m in full,
+                 B 4 x S 1024: bf16, remat, f32 moments, a warm-up and two
+                 timed steps, exact launches, tokens/s, peak memory.
+37. train vlm encdec -- qwen2-vl-2b in full, B 2 x S 4096 with 256 patch
+                 embeddings a row at (t, h, w) positions, and
+                 seamless-m4t-large-v2 in full, B 2 x 1000 frames x 1024
+                 tokens: as 36.
 
 Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
 graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
 13, 15, 16, 21-23) run each request set a second time on an eager
-engine: the greedy tokens are equal, and the mean step times and
-profiles of both are printed.  A launch count includes a capture's
+engine for its first 16 new tokens: those greedy tokens equal the graph
+run's, and the mean step times and profiles of both are printed.  Each
+phase's wall time is printed on a ``[time]`` line.  A launch count includes a capture's
 eager warm-up runs and each replay (``serving/graphs.py``).  The last
 two lines are a JSON object of kernel numbers and ``{"ok": true,
 "device": {...}}``.
@@ -193,7 +223,9 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import io
+import itertools
 import json
 import math
 import os
@@ -234,10 +266,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_backward, flash_attention_backward_plain,
     flash_attention_forward, flash_attention_lse_plain, flash_attention_plain)
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
-    grouped_matmul, grouped_matmul_plain)
+    grouped_matmul, grouped_matmul_backward, grouped_matmul_backward_plain,
+    grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain, paged_decode_splits)
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ssm_scan, ssm_scan_backward, ssm_scan_backward_plain, ssm_scan_plain)
+scan_mod = importlib.import_module("repro_torch.kernels.ssm_scan")
 from repro_torch.launch.train import (AdamWConfig, TrainPlan,  # noqa: E402
                                       make_train_step)
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
@@ -268,6 +303,14 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def timed_phase(name: str):
+    """A ``[time]`` line with the block's wall time."""
+    t0 = time.perf_counter()
+    yield
+    log("time", f"{name}: {time.perf_counter() - t0:.1f} s")
 
 
 def card() -> str:
@@ -1580,6 +1623,11 @@ SERVE_LENS = [int(x) for x in np.random.default_rng(2).integers(256, 1025,
                                                                   8)]
 
 
+# the eager reruns of the serve phases: the first 16 new tokens of each
+# request, held to the graph run's
+EAGER_NEW = 16
+
+
 def release(eng: TorchEngine) -> None:
     """Free ``eng``'s graphs (their memory pools) and its cache."""
     eng.release_graphs()
@@ -1593,8 +1641,9 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
                 sched=None) -> dict:
     """The full model serves the 8 requests on ``layout``, its decode
     steps replayed as CUDA graphs, then an eager engine serves the same
-    requests: the greedy tokens are equal, and every kernel of the path
-    launches exactly as often as expected in both runs.  Returns the
+    prompts for their first ``EAGER_NEW`` tokens: those greedy tokens are
+    equal, and every kernel of the path launches exactly as often as
+    expected in both runs.  Returns the
     counts of the graph run.  A profile of four decode steps follows
     each run, and with ``prefill_profile`` one of the longest prompt's
     prefill the graph run."""
@@ -1605,7 +1654,8 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
                           name=f"serve-{layout}-{how}", cache_layout=layout,
                           device=dev,
                           cuda_graphs=None if how == "graph" else False)
-        reqs = make_requests(SERVE_LENS, max_new, cfg.vocab, seed=3)
+        n_new = max_new if how == "graph" else min(max_new, EAGER_NEW)
+        reqs = make_requests(SERVE_LENS, n_new, cfg.vocab, seed=3)
         torch.cuda.reset_peak_memory_stats()
         if how == "graph":
             for fn in KERNELS.values():         # the main path's counts
@@ -1614,7 +1664,7 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
         dec = res["times"]["decode"]
         log(phase, f"{layout} layout, kernels "
             f"{'on' if cfg.use_pallas else 'off'}, {how} decode steps, 8 "
-            f"requests, prompts {SERVE_LENS}, {max_new} new tokens each: all "
+            f"requests, prompts {SERVE_LENS}, {n_new} new tokens each: all "
             f"FINISHED; {eng.prefill_steps} prefill steps "
             f"{res['times']['prefill']:.3f} s, {eng.decode_steps} decode "
             f"steps, mean decode step {mean_ms(res, 'decode'):.2f} ms over "
@@ -1636,9 +1686,11 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
 
 
 def compare_runs(phase: str, out: dict) -> None:
-    """The graph and eager runs' greedy tokens are equal; their mean step
-    times side by side."""
+    """The graph and eager runs' greedy tokens are equal over the eager
+    run's tokens (its first ``EAGER_NEW`` of each request); their mean
+    step times side by side."""
     (g_tok, g), (e_tok, e) = out["graph"], out["eager"]
+    g_tok = [t[:len(u)] for t, u in zip(g_tok, e_tok)]   # eager's first
     if g_tok != e_tok:
         raise AssertionError(f"{phase}: graph and eager tokens differ:\n"
                              f"{g_tok}\n{e_tok}")
@@ -1743,8 +1795,9 @@ def phase_serve_mixed(dev, cfg, params, phase: str,
     PrefixCache: the 8 requests of phase 6, then 8 requests over one
     1024-token system prompt with their own 64-256-token suffixes (the
     first prefilled alone), every decode and mixed step replayed as a
-    CUDA graph; then an eager engine serves the same requests.  Greedy
-    tokens are equal and every launch count is exact in both runs.
+    CUDA graph; then an eager engine serves the same prompts for their
+    first ``EAGER_NEW`` tokens.  Those greedy tokens are equal and every
+    launch count is exact in both runs.
     Returns the graph run's counts."""
     out = {}
     for how in ("graph", "eager"):
@@ -1753,9 +1806,10 @@ def phase_serve_mixed(dev, cfg, params, phase: str,
                           device=dev,
                           cuda_graphs=None if how == "graph" else False)
         attach_prefix_cache(eng)
-        w1 = make_requests(SERVE_LENS, max_new, cfg.vocab, seed=3)
+        n_new = max_new if how == "graph" else min(max_new, EAGER_NEW)
+        w1 = make_requests(SERVE_LENS, n_new, cfg.vocab, seed=3)
         suffixes = np.random.default_rng(9).integers(64, 257, 8)
-        w2 = shared_prefix_requests(SYSTEM_PROMPT, suffixes, max_new,
+        w2 = shared_prefix_requests(SYSTEM_PROMPT, suffixes, n_new,
                                     cfg.vocab, seed=10)
         torch.cuda.reset_peak_memory_stats()
         if how == "graph":
@@ -1773,7 +1827,7 @@ def phase_serve_mixed(dev, cfg, params, phase: str,
         log(phase, f"{how} steps, mixed, prefill_chunk 512, a PrefixCache; "
             f"wave 1: the 8 prompts {SERVE_LENS}; wave 2: 8 prompts of a "
             f"{SYSTEM_PROMPT}-token system prompt and suffixes "
-            f"{suffixes.tolist()}; {max_new} new tokens each: all FINISHED "
+            f"{suffixes.tolist()}; {n_new} new tokens each: all FINISHED "
             f"in {wall:.3f} s; prefill tokens computed {computed} of "
             f"{uncached} uncached (wave 2: {r2['prefill_tokens']} of "
             f"{sum(r.prompt_len for r in w2)}); mean decode step "
@@ -2562,6 +2616,19 @@ def cut_depth(params, n: int, dtype: torch.dtype):
     return out
 
 
+def vision_positions(b: int, n_text: int, dev) -> torch.Tensor:
+    """(B, P + n_text, 3) int32: the VISION_GRID patches at (0, row, col),
+    then text whose three streams run on together from max(grid)."""
+    gh, gw = VISION_GRID
+    hh, ww = torch.meshgrid(torch.arange(gh, device=dev),
+                            torch.arange(gw, device=dev), indexing="ij")
+    vis = torch.stack([torch.zeros_like(hh), hh, ww], -1).reshape(gh * gw,
+                                                                  3)
+    text = (max(gh, gw) + torch.arange(n_text, device=dev))[:, None]
+    pos = torch.cat([vis, text.expand(-1, 3)]).to(torch.int32)
+    return pos[None].expand(b, -1, -1).contiguous()
+
+
 def phase_vision(dev, cfg, params) -> None:
     """qwen2-vl at the model level: a prefill whose first 256 slots are
     patch embeddings at 3-axis (t, h, w) positions over a 16 x 16 grid,
@@ -2576,12 +2643,7 @@ def phase_vision(dev, cfg, params) -> None:
     tokens = torch.randint(0, cfg.vocab, (b, p + VISION_TEXT), generator=gen,
                            device=dev)
     emb = torch.randn((b, p, cfg.d_model), generator=gen, device=dev)
-    hh, ww = torch.meshgrid(torch.arange(gh, device=dev),
-                            torch.arange(gw, device=dev), indexing="ij")
-    vis = torch.stack([torch.zeros_like(hh), hh, ww], -1).reshape(p, 3)
-    text = (max(gh, gw) + torch.arange(VISION_TEXT, device=dev))[:, None]
-    pos = torch.cat([vis, text.expand(-1, 3)]).to(torch.int32)
-    pos = pos[None].expand(b, -1, -1).contiguous()
+    pos = vision_positions(b, VISION_TEXT, dev)
 
     def prefill(cc, pp):
         cache = models.init_cache(cc, b, p + VISION_TEXT + 32, device=dev)
@@ -2699,7 +2761,7 @@ NEW_KERNELS = ("paged_split_kernel", "decode_split_kernel",
                "ssm_chunk_output_kernel", "ssm_chunk_output_mma_kernel",
                "flash_bwd_dot_kernel", "flash_bwd_dq_f32_kernel",
                "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_mma_kernel",
-               "flash_bwd_dkdv_mma_kernel")
+               "flash_bwd_dkdv_mma_kernel", "gm_bwd_", "scan_bwd_")
 
 
 def ptxas_entries(text: str) -> list:
@@ -2759,25 +2821,21 @@ def train_batches(cfg, seq: int, batch: int, seed: int = 0):
 
 
 @contextlib.contextmanager
-def record_flash(forward: bool, picks=None):
-    """Record the flash kernel calls made inside the block: each call's
-    inputs and outputs (clones), in call order, for the calls whose
-    0-based index is in ``picks`` (every call when None).  The recorded
-    call still counts one launch."""
-    mod = sys.modules["repro_torch.kernels.flash_attention"]
-    name = "_launch" if forward else "_launch_backward"
+def record_calls(module: str, name: str, keep=None):
+    """Every call of ``module.name`` made inside the block, as (args,
+    result), in call order, or as ``keep(args, result)`` returns them
+    (a call it returns None for is not kept).  The arguments are kept
+    by reference: a training step's inputs are parameters and
+    activations that nothing writes in place."""
+    mod = sys.modules[module]
     orig = getattr(mod, name)
-    calls, seen = [], [0]
+    calls = []
 
     def rec(*args, **kw):
         res = orig(*args, **kw)
-        if picks is None or seen[0] in picks:
-            keep = lambda x: x.detach().clone() \
-                if isinstance(x, torch.Tensor) else x  # noqa: E731
-            calls.append((seen[0], [keep(a) for a in args],
-                          [keep(r) for r in (res if isinstance(res, tuple)
-                                             else (res,))]))
-        seen[0] += 1
+        kept = (args, res) if keep is None else keep(args, res)
+        if kept is not None:
+            calls.append(kept)
         return res
 
     setattr(mod, name, rec)
@@ -2785,6 +2843,30 @@ def record_flash(forward: bool, picks=None):
         yield calls
     finally:
         setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def record_flash(forward: bool, picks=None):
+    """Record the flash kernel calls made inside the block: each call's
+    inputs and outputs (clones), in call order, for the calls whose
+    0-based index is in ``picks`` (every call when None).  The recorded
+    call still counts one launch."""
+    seen = itertools.count()
+
+    def keep(args, res):
+        i = next(seen)
+        if picks is not None and i not in picks:
+            return None
+        clone = lambda x: x.detach().clone() \
+            if isinstance(x, torch.Tensor) else x  # noqa: E731
+        return (i, [clone(a) for a in args],
+                [clone(r) for r in (res if isinstance(res, tuple)
+                                    else (res,))])
+
+    with record_calls("repro_torch.kernels.flash_attention",
+                      "_launch" if forward else "_launch_backward",
+                      keep) as calls:
+        yield calls
 
 
 def hold_flash_calls(phase: str, fwd_calls, bwd_calls, dtype,
@@ -3193,6 +3275,671 @@ def phase_train_lm(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Training of every other family: the backward kernels of grouped_matmul
+# and ssm_scan, each family's parity at its width, and each family
+# trained at full width on one card
+# ---------------------------------------------------------------------------
+
+BACKWARDS = {"flash_attention_backward": flash_attention_backward,
+             "grouped_matmul_backward": grouped_matmul_backward,
+             "ssm_scan_backward": ssm_scan_backward}
+
+
+def all_counts() -> dict:
+    """Launch counts of every kernel, forward and backward."""
+    return {name: fn.launches for name, fn in {**KERNELS,
+                                               **BACKWARDS}.items()}
+
+
+# the grouped_matmul backward: arctic-480b's w_in at a decode step (C 8)
+# and at the training step of B 1 x S 4096 (capacity 88), kimi-k2's at
+# the same two, counts from a top-k routing with experts 0, 1 and 2 set
+# to no row, all C rows and C / 3 rows; f32 with 16 experts.  The plain
+# backward's f32 copies of every expert would not fit beside the kernel's
+# outputs, so the outputs are held on the first GM_BWD_HELD experts.
+GM_BWD_HELD = 8
+
+
+def gm_bwd_inputs(dtype, e: int, d: int, f: int, tokens: int, top_k: int,
+                  cfg_c, gen: torch.Generator, dev, w=None):
+    """(x, w, counts, dout): dispatch buffer and output gradient zero past
+    each count (what the routing's gather leaves), counts of 0, C and C /
+    3 on experts 0-2."""
+    c = capacity(tokens, cfg_c)
+    counts = routed_counts(tokens, e, c, gen, dev, top_k)
+    counts[0], counts[1], counts[2] = 0, c, c // 3
+    x = gm_buffer(dtype, counts, c, d, gen, dev)
+    dout = gm_buffer(dtype, counts, c, f, gen, dev)
+    if w is None:
+        w = gm_weights(dtype, e, d, f, gen, dev)
+    return x, w, counts, dout
+
+
+def check_gm_backward(x, w, counts, dout, what: str,
+                      held: int | None = None) -> float:
+    """dx and dw of the backward kernels against the plain backward on the
+    first ``held`` experts (all when None), each relative to its largest
+    magnitude; dx past each count and the dw of an expert no token chose
+    exactly zero; two runs equal bit for bit.  Returns the worst error."""
+    dx, dw = grouped_matmul_backward(x, w, counts, dout)
+    again = grouped_matmul_backward(x, w, counts, dout)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+        raise AssertionError(f"grouped_matmul_backward ({what}): two runs "
+                             f"differ")
+    del again
+    c = x.shape[1]
+    dead = torch.arange(c, device=x.device)[None, :] >= counts[:, None]
+    if dx[dead].any() or dw[counts == 0].any():
+        raise AssertionError(f"grouped_matmul_backward ({what}): a dead row "
+                             f"or an empty expert has a gradient")
+    if not (torch.isfinite(dx).all() and torch.isfinite(dw).all()):
+        raise AssertionError("non-finite backward output")
+    sl = slice(0, held)
+    want = grouped_matmul_backward_plain(x[sl], w[sl], counts[sl], dout[sl])
+    errs = [rel_err(dx[sl], want[0]), rel_err(dw[sl], want[1])]
+    check("grouped_matmul_backward", max(errs), x.dtype,
+          f"{x.dtype} E={x.shape[0]} C={c} d={x.shape[2]} f={w.shape[2]} "
+          f"{what}, counts {sorted(set(counts.tolist()))[:6]}..., dx/dw "
+          f"{errs[0]:.2e}/{errs[1]:.2e} of the largest magnitude"
+          + (f" (experts 0-{held - 1})" if held else "")
+          + "; two runs equal bit for bit")
+    return max(errs)
+
+
+def gm_bwd_bound(x, w, counts) -> tuple[float, str]:
+    """The live experts' weights, the live rows of x and dout read, all of
+    dx and dw written (E * d * f), against 2 * 2 * rows * d * f
+    operations (dX and dW)."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    rows = int(counts.clamp(0, c).sum())
+    live = int((counts > 0).sum())
+    nbytes = ((live * d * f + rows * (d + f) + e * c * d + e * d * f)
+              * x.element_size() + counts.numel() * 4)
+    return bound_of(nbytes, 4 * rows * d * f, x.dtype)
+
+
+def time_gm_backward(x, w, counts, dout, label: str, plain: bool = True):
+    """Kernel, plain (when ``plain``) and the two bmm calls' times, and
+    the bound; the bmm pair is held to the kernel's function (dout and x
+    are zero past each count, so it computes the same dx and dw): all of
+    dx, dw on the first GM_BWD_HELD experts."""
+    ms = cuda_ms(lambda: grouped_matmul_backward(x, w, counts, dout), 5)
+    plain_ms = cuda_ms(lambda: grouped_matmul_backward_plain(
+        x, w, counts, dout), 1, warmup=1) if plain else None
+    torch.cuda.empty_cache()
+
+    def library():
+        return (torch.bmm(dout, w.transpose(1, 2)),
+                torch.bmm(x.transpose(1, 2), dout))
+    got = grouped_matmul_backward(x, w, counts, dout)
+    lib = library()
+    held = slice(0, GM_BWD_HELD)      # dW's f32 difference: a slice
+    lib_err = max(gm_errors(lib[0], got[0])[1],
+                  gm_errors(lib[1][held], got[1][held])[1])
+    del got, lib
+    if lib_err > TOL[x.dtype]:
+        raise AssertionError(f"library yardstick computes another "
+                             f"function: {lib_err}")
+    library_ms = cuda_ms(library, 5)
+    bound_ms, bound_by = gm_bwd_bound(x, w, counts)
+    e, c, d = x.shape
+    log("kernels", f"grouped_matmul_backward {x.dtype} {label} E={e} C={c} "
+        f"d={d} f={w.shape[2]}, {int((counts > 0).sum())} experts live, "
+        f"{int(counts.sum())} rows: kernel {ms:.4f} ms (dX and dW), plain "
+        + (f"{plain_ms:.4f} ms" if plain else "not timed (its f32 copies "
+           "would not fit)")
+        + f", two bmm over every expert {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+# the ssm_scan backward: hymba-1.5b's training scan (B 2, T 4096, 50
+# heads, dk 16, dv 64, q/k shared over the heads) and mLSTM's (xlstm-350m:
+# B 4, T 1024, 4 heads, dk 512, dv 513), each also with a ragged T, a
+# non-zero h0 and a gradient of h_T; b, t, h, dk, dv, chunk, shared,
+# decay, h0 scale, dH_T
+SCAN_BWD_CASES = [(2, 4096, 50, 16, 64, 128, True, None, 0.0, False),
+                  (1, 1000, 50, 16, 64, 128, True, None, 0.5, True),
+                  (4, 1024, 4, 512, 513, 128, False, 0.1, 0.0, False),
+                  (1, 300, 2, 512, 513, 128, False, 0.1, 0.3, True)]
+
+
+def scan_bwd_args(dtype, case, gen: torch.Generator, dev):
+    """(q, k, v, log_a, h0, dy, dh_T or None) of a case."""
+    b, t, h, dk, dv, chunk, shared, decay, h0s, dht = case
+    args = scan_case(dtype, b, t, h, dk, dv, shared, decay, h0s, gen, dev)
+    dy = torch.randn((b, t, h, dv), generator=gen, device=dev).to(dtype)
+    dh_t = (torch.randn((b, h, dk, dv), generator=gen, device=dev)
+            if dht else None)
+    return (*args, dy, dh_t)
+
+
+def check_scan_backward(dtype, case, gen, dev) -> float:
+    """dq, dk, dv, dlog_a and dh0 of the backward kernels against the
+    plain backward, each within SCAN_TOL of its largest magnitude; two
+    runs equal bit for bit.  Returns the worst error."""
+    chunk = case[5]
+    q, k, v, la, h0, dy, dh_t = scan_bwd_args(dtype, case, gen, dev)
+    got = ssm_scan_backward(q, k, v, la, h0, dy, dh_t, chunk=chunk)
+    again = ssm_scan_backward(q, k, v, la, h0, dy, dh_t, chunk=chunk)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("ssm_scan_backward: two runs differ")
+    if not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError("non-finite backward output")
+    want = ssm_scan_backward_plain(q, k, v, la, h0, dy, dh_t, chunk=chunk)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    b, t, h, dk, dv, _, shared, _, h0s, dht = case
+    check("ssm_scan_backward", max(errs), dtype,
+          f"{dtype} B={b} T={t} H={h} dk={dk} dv={dv} chunk={chunk} shared "
+          f"q/k={shared} h0={h0s} dH_T={dht}: dq/dk/dv/dlog_a/dh0 "
+          + "/".join(f"{e:.2e}" for e in errs)
+          + " of the largest magnitude; two runs equal bit for bit",
+          tol=SCAN_TOL[dtype])
+    return max(errs)
+
+
+def scan_bwd_bound(q, k, v, states) -> tuple[float, str]:
+    """q, k (once per broadcast row), v, dy, log_a and the forward's chunk
+    states read; dq, dk (full shape), dv and dlog_a written; against the
+    chunked form's operations: per (token, head) 2 * chunk * (dk + dv)
+    for the pair matrices, 2 * chunk * (2 dk + dv) for the three chunk
+    products (about half the pairs are causal: counted whole, as the
+    kernel computes them) and 8 * dk * dv for U and the three state
+    terms."""
+    b, t, h, dk = q.shape
+    dv = v.shape[3]
+    chunk = min(128, t)
+    el = v.element_size()
+    nbytes = (stored_bytes(q) + stored_bytes(k) + 2 * v.numel() * el
+              + b * t * h * 4 + states.numel() * 4
+              + 2 * b * t * h * dk * el + v.numel() * el + b * t * h * 4)
+    ops = b * t * h * (2 * chunk * (3 * dk + 2 * dv) + 8 * dk * dv)
+    return bound_of(nbytes, ops, q.dtype)
+
+
+def time_scan_backward(dtype, case, gen, dev, label: str):
+    """The backward kernels' time alone (the forward's states made once
+    before), the plain backward's (autograd through the plain scan, its
+    forward included: the plain version has no other way), the bound;
+    no PyTorch call computes it."""
+    chunk = case[5]
+    q, k, v, la, h0, dy, dh_t = scan_bwd_args(dtype, case, gen, dev)
+    _, h_t, states = scan_mod._launch(q, k, v, la, h0, chunk,
+                                      keep_states=True)
+    la32 = la.float().contiguous()
+    ms = cuda_ms(lambda: scan_mod._launch_backward(
+        q, k, v, la32, states, h_t, dy, dh_t, chunk), 5)
+    plain_ms = cuda_ms(lambda: ssm_scan_backward_plain(
+        q, k, v, la, h0, dy, dh_t, chunk=chunk), 2, warmup=1)
+    bound_ms, bound_by = scan_bwd_bound(q, k, v, states)
+    log("kernels", f"ssm_scan_backward {dtype} {label}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, no library call computes it, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return ms, plain_ms, None, bound_ms, bound_by
+
+
+def phase_backward_kernels(dev) -> list:
+    """[kernels] backward: the grouped_matmul and ssm_scan backward kernels
+    against the plain backward, deterministic, timed; returns their two
+    JSON rows."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    arctic, kimi = get_config("arctic-480b"), get_config("kimi-k2-1t-a32b")
+    e, d, f = ARCTIC_EXPERTS
+    x, w, counts, dout = gm_bwd_inputs(torch.float32, 16, d, f, TRAIN_SEQ,
+                                       2, arctic, gen, dev)
+    check_gm_backward(x, w, counts, dout, "arctic width, 16 experts, train C")
+    del x, w, counts, dout
+    worst, row = 0.0, None
+    for name, (e, d, f), top_k, cfg_c in (("arctic", ARCTIC_EXPERTS, 2,
+                                           arctic),
+                                          ("kimi", KIMI_EXPERTS, 8, kimi)):
+        w = gm_weights(torch.bfloat16, e, d, f, gen, dev)
+        for step, tokens in (("decode", 8), ("train", TRAIN_SEQ)):
+            x, _, counts, dout = gm_bwd_inputs(torch.bfloat16, e, d, f,
+                                               tokens, top_k, cfg_c, gen, dev,
+                                               w=w)
+            what = f"{name} w_in {step}"
+            worst = max(worst, check_gm_backward(x, w, counts, dout, what,
+                                                 GM_BWD_HELD))
+            torch.cuda.empty_cache()
+            times = time_gm_backward(x, w, counts, dout, what,
+                                     plain=name == "arctic")
+            if (name, step) == ("arctic", "train"):
+                row = times
+            del x, counts, dout
+            torch.cuda.empty_cache()
+        del w
+        torch.cuda.empty_cache()
+    ms, plain_ms, library_ms, bound_ms, bound_by = row
+    gm_row = {"name": "grouped_matmul_backward", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/grouped_matmul_bwd.cu",
+              "replaces": "src/repro/kernels/grouped_matmul.py:59",
+              "launches": None, "max_abs_err": worst, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms}
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SCAN_BWD_CASES:
+            err = check_scan_backward(dtype, case, gen, dev)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            torch.cuda.empty_cache()
+    ms, plain_ms, library_ms, bound_ms, bound_by = time_scan_backward(
+        torch.bfloat16, SCAN_BWD_CASES[0], gen, dev,
+        "B=2 T=4096 H=50 dk=16 dv=64 chunk=128, q/k shared (hymba train)")
+    time_scan_backward(torch.bfloat16, SCAN_BWD_CASES[2], gen, dev,
+                       "B=4 T=1024 H=4 dk=512 dv=513 chunk=128 (mLSTM train)")
+    scan_row = {"name": "ssm_scan_backward", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                "replaces": "src/repro/kernels/ssm_scan.py:69",
+                "launches": None, "max_abs_err": worst, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+    return [gm_row, scan_row]
+
+
+GM_MOD = "repro_torch.kernels.grouped_matmul"
+SCAN_MOD = "repro_torch.kernels.ssm_scan"
+
+
+@contextlib.contextmanager
+def record_training_kernels():
+    """The grouped_matmul and ssm_scan launches, forward and backward,
+    made inside the block: {"gm_fwd", "gm_bwd", "scan_fwd", "scan_bwd"}."""
+    with record_calls(GM_MOD, "_launch") as gf, \
+            record_calls(GM_MOD, "_launch_backward") as gb, \
+            record_calls(SCAN_MOD, "_launch") as sf, \
+            record_calls(SCAN_MOD, "_launch_backward") as sb:
+        yield {"gm_fwd": gf, "gm_bwd": gb, "scan_fwd": sf, "scan_bwd": sb}
+
+
+def hold_training_calls(phase: str, calls: dict, dtype,
+                        held: int | None = None) -> float:
+    """Each recorded grouped_matmul and ssm_scan call, forward and
+    backward, against its plain version on that call's own inputs,
+    relative to each output's largest magnitude (grouped_matmul on its
+    first ``held`` experts when given).  Returns the worst error."""
+    worst = 0.0
+    sl = slice(0, held)
+    for i, ((x, w, counts), out) in enumerate(calls["gm_fwd"]):
+        err = rel_err(out[sl], grouped_matmul_plain(x[sl], w[sl],
+                                                    counts[sl]))
+        check("grouped_matmul", err, dtype, f"{phase} forward call {i}, "
+              f"relative")
+        worst = max(worst, err)
+    for i, ((x, w, counts, dout, need_dx, need_dw), got) in enumerate(
+            calls["gm_bwd"]):
+        want = grouped_matmul_backward_plain(x[sl], w[sl], counts[sl],
+                                             dout[sl])
+        errs = [rel_err(g[sl], wv) for g, wv, need in zip(
+            got, want, (need_dx, need_dw)) if need]
+        check("grouped_matmul_backward", max(errs), dtype,
+              f"{phase} backward call {i}, dx/dw "
+              + "/".join(f"{e:.2e}" for e in errs) + ", relative")
+        worst = max(worst, *errs)
+        del want
+    for i, (args, res) in enumerate(calls["scan_fwd"]):
+        q, k, v, log_a, h0, chunk = args[:6]
+        want = ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)
+        errs = [rel_err(res[0], want[0]), rel_err(res[1], want[1])]
+        check("ssm_scan", max(errs), dtype, f"{phase} forward call {i}, y/h_T "
+              + "/".join(f"{e:.2e}" for e in errs) + ", relative",
+              tol=SCAN_TOL[dtype])
+        worst = max(worst, *errs)
+    for i, (args, got) in enumerate(calls["scan_bwd"]):
+        q, k, v, la, states, h_t, dy, dh_t, chunk = args
+        want = ssm_scan_backward_plain(q, k, v, la, states[:, :, 0], dy,
+                                       dh_t, chunk=chunk)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        check("ssm_scan_backward", max(errs), dtype,
+              f"{phase} backward call {i}, dq/dk/dv/dlog_a/dh0 "
+              + "/".join(f"{e:.2e}" for e in errs) + ", relative",
+              tol=SCAN_TOL[dtype])
+        worst = max(worst, *errs)
+    return worst
+
+
+def train_launches(cfg, steps: int = 1) -> dict:
+    """Each kernel's launches in ``steps`` forward-and-backward passes of
+    ``loss_fn`` on the card with the kernels on: per layer, one flash
+    call per attention (self attention of every attention kind, the
+    decoder's cross attention, the encoder's), one scan per matrix-memory
+    layer (hymba's mamba branch, mLSTM) and three grouped_matmul per MoE
+    layer, each with one backward, and a second forward under remat."""
+    fwd = 2 if cfg.remat else 1
+    attn = kind_layers(cfg, ("attn", "dec", "hymba"))
+    cross = sum(seg.repeat * n for seg in cfg.plan()
+                for spec, n in seg.pattern if spec.cross_attention)
+    enc = sum(seg.repeat * n for seg in cfg.enc_plan()
+              for _, n in seg.pattern) if cfg.is_encdec else 0
+    flash = attn + cross + enc
+    scan = kind_layers(cfg, ("hymba", "mlstm"))
+    gm = 3 * moe_layers(cfg)
+    want = dict.fromkeys(all_counts(), 0)
+    want.update(flash_attention=fwd * flash * steps,
+                flash_attention_backward=flash * steps,
+                ssm_scan=fwd * scan * steps, ssm_scan_backward=scan * steps,
+                grouped_matmul=fwd * gm * steps,
+                grouped_matmul_backward=gm * steps)
+    return want
+
+
+def family_batch(cfg, b: int, s: int, gen: torch.Generator, dev,
+                 frames: int = 0) -> dict:
+    """Tokens and next-token labels (the last -1) of B x S, plus a VLM's
+    VISION_GRID patch embeddings over the first slots at (t, h, w)
+    positions and an encoder-decoder's ``frames`` frame embeddings."""
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels = torch.roll(tokens, -1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.frontend == "patch":
+        gh, gw = VISION_GRID
+        batch["vision_embeds"] = torch.randn(
+            (b, gh * gw, cfg.d_model), generator=gen, device=dev).to(
+                prm.torch_dtype(cfg.dtype))
+        batch["positions"] = vision_positions(b, s - gh * gw, dev)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            (b, frames, cfg.d_model), generator=gen, device=dev).to(
+                prm.torch_dtype(cfg.dtype))
+    return batch
+
+
+# train parity of the families, f32, B 1 x S 512 (seamless: 512 frames):
+# (config, cut)
+TRAIN_FAMILIES = [
+    ("arctic-480b", dict(n_layers=1, n_experts=16)),
+    ("kimi-k2-1t-a32b", dict(n_layers=2, n_experts=16)),
+    ("hymba-1.5b", dict(n_layers=3, global_layers=(0, 2))),
+    ("xlstm-350m", dict(n_layers=2, mlstm_ratio=1)),
+    ("qwen2-vl-2b", dict(n_layers=2)),
+    ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1)),
+]
+FAMILY_SEQ = 512
+
+
+def phase_train_families(dev) -> None:
+    """[train parity families]: each family at its width and a cut depth,
+    f32, on ``init_train``'s weights (at the true fan-in the scores stay
+    moderate, so f32 flash calls hold the 2e-5 band here, unlike phase
+    29's): loss and every gradient leaf with the kernels on against off,
+    exact launches, every grouped_matmul, ssm_scan and flash call
+    (forward and backward) held to its plain version; then one
+    make_train_step (f32 moments) with every leaf moved."""
+    phase = "train parity families"
+    card_runs = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for name, cut in TRAIN_FAMILIES:
+        cfg = get_config(name).replace(dtype="float32", **cut)
+        params = init_train(cfg, dev, phase)
+        batch = family_batch(cfg, 1, FAMILY_SEQ, gen, dev,
+                             frames=FAMILY_SEQ)
+        out = {}
+        for kernels in (True, False):
+            c = cfg.replace(use_pallas=kernels)
+            before = all_counts()
+            with record_training_kernels() as calls, \
+                    record_flash(True) as fw, record_flash(False) as bw:
+                out[kernels] = grads_and_loss(c, params, batch)
+                torch.cuda.synchronize()
+            used = {k: v - before[k] for k, v in all_counts().items()}
+            want = train_launches(cfg) if kernels and card_runs \
+                else dict.fromkeys(used, 0)
+            if used != want:
+                raise AssertionError(f"{phase} {name}: launches {used}, "
+                                     f"expected {want}")
+            if kernels:
+                worst = hold_training_calls(f"{phase} {name}", calls,
+                                            torch.float32)
+                flash_err = hold_flash_calls(f"{phase} {name}", fw, bw,
+                                             torch.float32)
+            del calls, fw, bw
+        (l_on, g_on), (l_off, g_off) = out[True], out[False]
+        errs = [rel_err(a, b) for a, b in zip(g_on, g_off)]
+        finite = all(torch.isfinite(g).all() for g in g_on + g_off)
+        log(phase, f"{name} width, {cut}, f32, B 1 x S {FAMILY_SEQ}: loss "
+            f"kernels on {l_on.item():.6f}, off {l_off.item():.6f}; gradient "
+            f"leaves, |on - off| over the leaf's largest: max "
+            f"{max(errs):.3e}, median {float(np.median(errs)):.3e} "
+            f"({len(errs)} leaves); launches "
+            f"{ {k: v for k, v in want.items() if v} }; grouped_matmul and "
+            f"ssm_scan calls within {worst:.3e} of their plain versions, "
+            f"flash calls {flash_err:.3e}")
+        if not finite or not torch.isfinite(l_on):
+            raise AssertionError(f"{phase} {name}: non-finite loss or "
+                                 f"gradient")
+        if abs(l_on.item() - l_off.item()) > 1e-4 \
+                or max(errs) > TRAIN_F32_GRAD_TOL:
+            raise AssertionError(f"{phase} {name}: kernels on and off "
+                                 f"disagree: {max(errs)}")
+        del out, g_on, g_off
+        acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+        c = cfg.replace(use_pallas=True)
+        before = [leaf_sample(p) for p in prm.flatten(params)[0]]
+        step = make_train_step(c, TrainPlan(), acfg, device=dev)
+        params, opt, m = step(params, adamw_init(params, acfg), batch)
+        torch.cuda.synchronize()
+        moved = sum(not torch.equal(a, leaf_sample(p)) for a, p in zip(
+            before, prm.flatten(params)[0]))
+        if moved != len(before) or not math.isfinite(m["loss"].item()):
+            raise AssertionError(f"{phase} {name}: {moved} of {len(before)} "
+                                 f"leaves moved, loss {m['loss'].item()}")
+        log(phase, f"{name}: make_train_step, f32 moments: loss "
+            f"{m['loss'].item():.6f}, aux {m['aux'].item():.6f}, grad_norm "
+            f"{m['grad_norm'].item():.4f}; every one of {moved} leaves "
+            f"moved")
+        del opt, before
+        free(params)
+
+
+def all_finite(x: torch.Tensor) -> bool:
+    """Every element finite, checked 2^26 at a time (a full-size bool
+    temporary of an expert gradient would be 4.5 GB)."""
+    return all(bool(torch.isfinite(part).all())
+               for part in x.reshape(-1).split(1 << 26))
+
+
+def hold_live_experts(phase: str, grads, cfg, counts) -> None:
+    """The MoE layer's expert-weight gradients: finite, non-zero for each
+    expert a token chose (its count), zero for the others."""
+    leaves = prm.flatten(grads)[0]
+    e = cfg.n_experts
+    experts = [g for g in leaves if g.ndim == 4 and g.shape[1] == e]
+    if len(experts) != 3:
+        raise AssertionError(f"{phase}: {len(experts)} expert leaves")
+    live = counts > 0
+    for g in experts:
+        flat = g.reshape(e, -1)          # no full-size temporaries
+        nz = (flat.amax(1) != 0) | (flat.amin(1) != 0)
+        if not torch.equal(nz, live):
+            raise AssertionError(f"{phase}: expert gradients non-zero at "
+                                 f"{nz.sum().item()} experts, "
+                                 f"{live.sum().item()} live")
+
+
+# train moe: arctic-480b at full width, 1 of 35 layers, bf16, remat, B 1 x
+# S 4096: the gradient at all 128 experts (no optimizer state: weights
+# and gradients are 56.3 GB), then the whole step with int8 moments at 64
+MOE_TRAIN_MODEL, MOE_TRAIN_EXPERTS = "arctic-480b", 64
+TRAIN_FULL_STEPS = 2
+
+
+def peak_gb(card_runs: bool) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if card_runs else 0.0
+
+
+def phase_train_moe(dev) -> dict:
+    """[train moe]: (a) arctic-480b's gradient at full width, 1 layer, all
+    128 experts, bf16, remat, B 1 x S 4096: exact launches, every
+    gradient finite, the experts a token chose with non-zero gradients
+    and the others zero, each backward call held to the plain backward on
+    its first GM_BWD_HELD experts; time and peak memory.  (b) the whole
+    make_train_step with int8 moments at 64 experts: a warm-up and
+    TRAIN_FULL_STEPS timed steps (``train_full``).  Returns (b)'s
+    launches."""
+    phase = "train moe"
+    card_runs = dev.type == "cuda"
+    gpu = card() if card_runs else "a CPU"
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cfg = get_config(MOE_TRAIN_MODEL).replace(n_layers=1, use_pallas=True)
+    params = init_train(cfg, dev, phase)
+    batch = family_batch(cfg, 1, TRAIN_SEQ, gen, dev)
+    torch.cuda.synchronize()
+    if card_runs:
+        torch.cuda.reset_peak_memory_stats()
+    before = all_counts()
+    t0 = time.perf_counter()
+    def first_experts(args, res):
+        # each call's dW is 8.9 GB: only the held experts' are kept
+        return args, tuple(None if r is None else r[:GM_BWD_HELD].clone()
+                           for r in res)
+    with record_calls(GM_MOD, "_launch_backward", first_experts) as gb:
+        loss, grads = grads_and_loss(cfg, params, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = peak_gb(card_runs)
+    used = {k: v - before[k] for k, v in all_counts().items()}
+    want = train_launches(cfg) if card_runs else dict.fromkeys(used, 0)
+    if used != want:
+        raise AssertionError(f"{phase}: launches {used}, expected {want}")
+    if not torch.isfinite(loss) or not all(all_finite(g) for g in grads):
+        raise AssertionError(f"{phase}: non-finite loss or gradient")
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in prm.flatten(params)[0]) / 1e9
+    grad_gb = sum(g.numel() * g.element_size() for g in grads) / 1e9
+    log(phase, f"after the backward: memory_allocated "
+        f"{torch.cuda.memory_allocated() / 1e9 if card_runs else 0:.2f} "
+        f"GB, of which parameters {param_gb:.2f} GB and gradients "
+        f"{grad_gb:.2f} GB")
+    treedef = prm.flatten(params)[1]
+    if card_runs:
+        hold_live_experts(phase, prm.unflatten(treedef, list(grads)), cfg,
+                          gb[0][0][2])
+        worst = hold_training_calls(phase, {"gm_fwd": [], "gm_bwd": gb,
+                                            "scan_fwd": [], "scan_bwd": []},
+                                    torch.bfloat16, held=GM_BWD_HELD)
+        live = int((gb[0][0][2] > 0).sum())
+    else:
+        worst, live = 0.0, 0
+    log(phase, f"{cfg.name} at full width, 1 of 35 layers, "
+        f"{models.param_count(cfg) / 1e9:.3f} B params, all "
+        f"{cfg.n_experts} experts, bf16, remat, B 1 x S {TRAIN_SEQ}, {gpu}: "
+        f"loss and backward {1e3 * wall:.1f} ms (the first pass: no "
+        f"warm-up), loss {loss.item():.4f}; every gradient finite; "
+        f"{live} experts chosen, each with non-zero expert gradients and "
+        f"the others zero; launches {used} (exact); the backward calls "
+        f"held on experts 0-{GM_BWD_HELD - 1} within {worst:.3e}; "
+        f"max_memory_allocated {peak:.2f} GB")
+    del grads, gb, loss
+    free(params)
+    cfg = cfg.replace(n_experts=MOE_TRAIN_EXPERTS)
+    return train_full(dev, phase, cfg, 1, TRAIN_SEQ, int8=True)
+
+
+def train_full(dev, phase: str, cfg, b: int, s: int, int8: bool = False,
+               frames: int = 0) -> dict:
+    """``cfg`` (use_pallas) trained on ``init_train``'s weights, bf16,
+    remat, B x S from the seeded generator: a warm-up and
+    TRAIN_FULL_STEPS timed steps of make_train_step (f32 or int8
+    moments), exact launches, finite losses, every leaf moved; tokens/s
+    and peak memory.  Returns the run's launches."""
+    card_runs = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cfg = cfg.replace(use_pallas=True)
+    params = init_train(cfg, dev, phase)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=int8)
+    step = make_train_step(cfg, TrainPlan(int8_moments=int8), acfg,
+                           device=dev)
+    opt = adamw_init(params, acfg)
+    before = [leaf_sample(p) for p in prm.flatten(params)[0]]
+    batches = [family_batch(cfg, b, s, gen, dev, frames=frames)
+               for _ in range(1 + TRAIN_FULL_STEPS)]
+    torch.cuda.synchronize()
+    if card_runs:
+        torch.cuda.reset_peak_memory_stats()
+    start = all_counts()
+    times, losses, norms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    used = {k: v - start[k] for k, v in all_counts().items()}
+    want = train_launches(cfg, len(batches)) if card_runs \
+        else dict.fromkeys(used, 0)
+    if used != want:
+        raise AssertionError(f"{phase} {cfg.name}: launches {used}, "
+                             f"expected {want}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{phase} {cfg.name}: non-finite loss or norm: "
+                             f"{losses}, {norms}")
+    moved = sum(not torch.equal(a, leaf_sample(p)) for a, p in zip(
+        before, prm.flatten(params)[0]))
+    if moved != len(before):
+        raise AssertionError(f"{phase} {cfg.name}: {moved} of {len(before)} "
+                             f"leaves moved")
+    step_s = float(np.mean(times[1:]))
+    extra = f" (and {frames} frames a row)" if frames else ""
+    log(phase, f"{cfg.name}, {models.param_count(cfg) / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers"
+        + (f" + {cfg.enc_layers} encoder layers" if cfg.is_encdec else "")
+        + (f", {cfg.n_experts} experts" if cfg.n_experts else "")
+        + f", bf16, remat, {'int8' if int8 else 'f32'} moments "
+        f"({opt_bytes(opt) / 1e9:.2f} GB), B {b} x S {s}{extra}, "
+        f"{card() if card_runs else 'a CPU'}: steps "
+        + ", ".join(f"{1e3 * t:.1f}" for t in times)
+        + f" ms (the first a warm-up); mean timed step {1e3 * step_s:.1f} "
+        f"ms, {b * s / step_s:.0f} tokens/s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in norms)
+        + f"; max_memory_allocated {peak_gb(card_runs):.2f} GB; launches "
+        f"{ {k: v for k, v in used.items() if v} } (exact); every one of "
+        f"{moved} leaves moved")
+    del opt, before, batches
+    free(params)
+    return used
+
+
+# train ssm: hymba-1.5b in full, B 2 x S 4096; xlstm-350m in full, B 4 x
+# S 1024 (the sLSTM token loop under autograd would make S 4096 slow)
+SSM_TRAIN = [("hymba-1.5b", 2, 4096), ("xlstm-350m", 4, 1024)]
+# train vlm encdec: qwen2-vl-2b in full, B 2 x S 4096 with 256 patch
+# embeddings a row; seamless-m4t-large-v2 in full, B 2 x 1000 frames x
+# 1024 target tokens
+VLM_TRAIN = ("qwen2-vl-2b", 2, 4096)
+ENCDEC_TRAIN = ("seamless-m4t-large-v2", 2, 1024, 1000)
+
+
+def phase_train_ssm(dev) -> dict:
+    """[train ssm]: hymba-1.5b and xlstm-350m trained in full
+    (``train_full``).  Returns hymba's launches."""
+    runs = {name: train_full(dev, "train ssm", get_config(name), b, s)
+            for name, b, s in SSM_TRAIN}
+    return runs[SSM_TRAIN[0][0]]
+
+
+def phase_train_vlm_encdec(dev) -> None:
+    """[train vlm encdec]: qwen2-vl-2b and seamless-m4t-large-v2 trained
+    in full (``train_full``)."""
+    name, b, s = VLM_TRAIN
+    train_full(dev, "train vlm encdec", get_config(name), b, s)
+    name, b, s, frames = ENCDEC_TRAIN
+    train_full(dev, "train vlm encdec", get_config(name), b, s,
+               frames=frames)
+
+
+# ---------------------------------------------------------------------------
 # The agent planes: the cost model fitted on the card, the sim fleet priced
 # by that fit, and the disaggregated pool over two live engines
 # ---------------------------------------------------------------------------
@@ -3581,159 +4328,212 @@ def main() -> int:
     print(gpu, flush=True)
     log("device", f"{torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    t_all = time.perf_counter()
 
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    log("build", f"{sorted(logs)} built in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        entries = ptxas_entries(text)
-        regs = [e[1] for e in entries]
-        spills = [e[2] for e in entries]
-        log("build", f"{name}: {len(regs)} instantiations, "
-            f"{min(regs, default=0)}-{max(regs, default=0)} registers; "
-            f"{sum(n > 0 for n in spills)} spill, at most "
-            f"{max(spills, default=0)} bytes")
-        # each instantiation of the redesigned kernels on a line of its own
-        for fn, n_regs, spill in entries:
-            if any(k in fn for k in NEW_KERNELS):
-                log("build", f"  {fn}: {n_regs} registers, {spill} bytes "
-                    f"spill stores")
+    with timed_phase("2 build"):
+        t0 = time.perf_counter()
+        logs = build.build_all()
+        log("build", f"{sorted(logs)} built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, text in logs.items():
+            entries = ptxas_entries(text)
+            regs = [e[1] for e in entries]
+            spills = [e[2] for e in entries]
+            log("build", f"{name}: {len(regs)} instantiations, "
+                f"{min(regs, default=0)}-{max(regs, default=0)} registers; "
+                f"{sum(n > 0 for n in spills)} spill, at most "
+                f"{max(spills, default=0)} bytes")
+            # each instantiation of the redesigned kernels on its own line
+            for fn, n_regs, spill in entries:
+                if any(k in fn for k in NEW_KERNELS):
+                    log("build", f"  {fn}: {n_regs} registers, {spill} "
+                        f"bytes spill stores")
 
-    rows = [phase_kernels(dev), phase_flash(dev), phase_flash_backward(dev),
-            phase_ring_decode(dev), phase_ssm_scan(dev),
-            phase_grouped_matmul(dev)]
+    with timed_phase("3, 28 kernels"):
+        rows = [phase_kernels(dev), phase_flash(dev),
+                phase_flash_backward(dev), phase_ring_decode(dev),
+                phase_ssm_scan(dev), phase_grouped_matmul(dev)]
+    with timed_phase("33 kernels backward"):
+        rows += phase_backward_kernels(dev)
 
     small = get_config("agent-7b").replace(n_layers=2, dtype="float32")
     params = models.init(small, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
-    phase_parity(dev, small, params)
-    phase_migrate(dev, small, params)
-    phase_mixed_parity(dev, small, params)
-    phase_control_parity(dev, small, params)
+    with timed_phase("4 parity"):
+        phase_parity(dev, small, params)
+    with timed_phase("5 migrate"):
+        phase_migrate(dev, small, params)
+    with timed_phase("14 mixed parity"):
+        phase_mixed_parity(dev, small, params)
+    with timed_phase("17 control parity"):
+        phase_control_parity(dev, small, params)
     free(params)
 
     cfg = get_config("agent-7b").replace(use_pallas=True)
     params = init_full(cfg, dev, "serve")
-    phase_serve(dev, cfg, params, "paged", "serve")
-    phase_serve(dev, cfg, params, "ring", "serve ring",
-                prefill_profile=True)
-    phase_serve_mixed(dev, cfg, params, "serve mixed")
-    control = phase_serve_control(dev, cfg, params)
+    with timed_phase("6 serve"):
+        phase_serve(dev, cfg, params, "paged", "serve")
+    with timed_phase("7 serve ring"):
+        phase_serve(dev, cfg, params, "ring", "serve ring",
+                    prefill_profile=True)
+    with timed_phase("15 serve mixed"):
+        phase_serve_mixed(dev, cfg, params, "serve mixed")
+    with timed_phase("18 serve control"):
+        control = phase_serve_control(dev, cfg, params)
     # the agent planes: the cost model fitted to agent-7b's steps, the
     # disaggregated pool over two live engines, then the fit of agent-1b
     # (the workflow's small tier) and the sim fleet priced by both fits
-    phase_calibrate(dev, cfg, params, CALIB_DIR)
-    phase_serve_disagg(dev, cfg, params)
+    with timed_phase("25 calibrate agent-7b"):
+        phase_calibrate(dev, cfg, params, CALIB_DIR)
+    with timed_phase("26 serve disagg"):
+        phase_serve_disagg(dev, cfg, params)
     free(params)
-    cfg = get_config(SIM_MODELS[1]).replace(use_pallas=True)
-    params = init_full(cfg, dev, "calibrate")
-    phase_calibrate(dev, cfg, params, CALIB_DIR)
-    free(params)
-    phase_sim(CALIB_DIR, gpu)
+    with timed_phase("25 calibrate agent-1b"):
+        cfg = get_config(SIM_MODELS[1]).replace(use_pallas=True)
+        params = init_full(cfg, dev, "calibrate")
+        phase_calibrate(dev, cfg, params, CALIB_DIR)
+        free(params)
+    with timed_phase("27 sim on the card's fit"):
+        phase_sim(CALIB_DIR, gpu)
 
     # hymba-1.5b width at 3 layers (global, SWA, global); PARITY_SWA's
     # window gives its middle layer a ring the longer prompts wrap
-    small = get_config("hymba-1.5b").replace(n_layers=3, global_layers=(0, 2),
-                                             dtype="float32")
-    params = models.init(small, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    phase_parity(dev, small, params, [("ring", True), ("ring", False)],
-                 "hymba-1.5b width, 3 layers")
-    phase_hymba_migrate(dev, small.replace(window=PARITY_SWA[0],
-                                           attn_chunk=PARITY_SWA[1]), params)
-    free(params)
+    with timed_phase("8 hymba"):
+        small = get_config("hymba-1.5b").replace(
+            n_layers=3, global_layers=(0, 2), dtype="float32")
+        params = models.init(small, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        phase_parity(dev, small, params, [("ring", True), ("ring", False)],
+                     "hymba-1.5b width, 3 layers")
+        phase_hymba_migrate(dev, small.replace(window=PARITY_SWA[0],
+                                               attn_chunk=PARITY_SWA[1]),
+                            params)
+        free(params)
 
-    cfg = get_config("hymba-1.5b").replace(use_pallas=True)
-    params = init_full(cfg, dev, "serve hymba")
-    hymba = phase_serve(dev, cfg, params, "ring", "serve hymba",
-                        prefill_profile=True)
-    free(params)
+    with timed_phase("9 serve hymba"):
+        cfg = get_config("hymba-1.5b").replace(use_pallas=True)
+        params = init_full(cfg, dev, "serve hymba")
+        hymba = phase_serve(dev, cfg, params, "ring", "serve hymba",
+                            prefill_profile=True)
+        free(params)
 
     # arctic-480b width at 1 layer in f32 (56.3 GB of weights): greedy
     # tokens equal across layouts and kernel paths
-    small = get_config("arctic-480b").replace(n_layers=1, dtype="float32")
-    params = init_full(small, dev, "parity arctic")
-    phase_parity(dev, small, params, label="arctic-480b width, 1 layer")
-    free(params)
+    with timed_phase("10 parity arctic"):
+        small = get_config("arctic-480b").replace(n_layers=1,
+                                                  dtype="float32")
+        params = init_full(small, dev, "parity arctic")
+        phase_parity(dev, small, params, label="arctic-480b width, 1 layer")
+        free(params)
 
     # arctic-480b at 2 of its 35 layers, bf16 (55.4 GB): paged, ring, and
     # paged with the kernels off (every expert product a bmm over all 128
     # experts) for the step it costs
     cfg = get_config("arctic-480b").replace(n_layers=2, use_pallas=True)
     params = init_full(cfg, dev, "serve arctic")
-    phase_serve(dev, cfg, params, "paged", "serve arctic")
-    phase_serve(dev, cfg, params, "ring", "serve arctic ring")
-    phase_serve(dev, cfg.replace(use_pallas=False), params, "paged",
-                "serve arctic off", max_new=16)
-    arctic = phase_serve_mixed(dev, cfg, params, "serve mixed arctic")
+    with timed_phase("11 serve arctic"):
+        phase_serve(dev, cfg, params, "paged", "serve arctic")
+        phase_serve(dev, cfg, params, "ring", "serve arctic ring")
+        phase_serve(dev, cfg.replace(use_pallas=False), params, "paged",
+                    "serve arctic off", max_new=16)
+    with timed_phase("16 serve mixed arctic"):
+        arctic = phase_serve_mixed(dev, cfg, params, "serve mixed arctic")
     free(params)
 
     # kimi-k2-1t-a32b width at 1 layer in f32 (its dense first layer,
     # 10.8 GB): greedy tokens equal across layouts and kernel paths at
     # head dim 112 and G = 8
-    small = get_config("kimi-k2-1t-a32b").replace(n_layers=1,
-                                                  dtype="float32")
-    params = init_full(small, dev, "parity kimi")
-    phase_parity(dev, small, params, label="kimi-k2 width, 1 layer")
-    free(params)
+    with timed_phase("12 parity kimi"):
+        small = get_config("kimi-k2-1t-a32b").replace(n_layers=1,
+                                                      dtype="float32")
+        params = init_full(small, dev, "parity kimi")
+        phase_parity(dev, small, params, label="kimi-k2 width, 1 layer")
+        free(params)
 
     # kimi-k2 at 2 of its 61 layers, bf16: the dense layer and one MoE
     # layer of 384 experts, paged then ring
-    cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=2, use_pallas=True)
-    params = init_full(cfg, dev, "serve kimi")
-    phase_serve(dev, cfg, params, "paged", "serve kimi")
-    phase_serve(dev, cfg, params, "ring", "serve kimi ring")
-    free(params)
-
-    # this slice: every architecture of the repo
-    phase_new_paths(dev)
-    for name, cut, windows, layouts in WIDTH_PARITY:
-        small = get_config(name).replace(dtype="float32", **cut)
-        params = init_full(small, dev, "parity")
-        phase_parity(dev, small, params, layouts,
-                     f"{name} width, {small.n_layers} layer(s)", windows,
-                     eager=True)
+    with timed_phase("13 serve kimi"):
+        cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=2,
+                                                    use_pallas=True)
+        params = init_full(cfg, dev, "serve kimi")
+        phase_serve(dev, cfg, params, "paged", "serve kimi")
+        phase_serve(dev, cfg, params, "ring", "serve kimi ring")
         free(params)
 
-    cfg = get_config("xlstm-350m").replace(use_pallas=True)
-    params = init_full(cfg, dev, "serve xlstm")
-    xlstm = phase_serve(dev, cfg, params, "ring", "serve xlstm",
-                        prefill_profile=True)
-    log("serve xlstm", f"ssm_scan launches on the xlstm serve path (graph "
-        f"run): {xlstm['ssm_scan']} ({kind_layers(cfg, ('mlstm',))} "
-        f"mLSTM layers, one launch each per prefill)")
-    free(params)
+    # every architecture of the repo
+    with timed_phase("19 new paths"):
+        phase_new_paths(dev)
+    with timed_phase("20 parity at each width"):
+        for name, cut, windows, layouts in WIDTH_PARITY:
+            small = get_config(name).replace(dtype="float32", **cut)
+            params = init_full(small, dev, "parity")
+            phase_parity(dev, small, params, layouts,
+                         f"{name} width, {small.n_layers} layer(s)", windows,
+                         eager=True)
+            free(params)
 
-    cfg = get_config("qwen2-vl-2b").replace(use_pallas=True)
-    params = init_full(cfg, dev, "serve qwen2-vl")
-    phase_serve(dev, cfg, params, "paged", "serve qwen2-vl")
-    phase_serve(dev, cfg, params, "ring", "serve qwen2-vl ring")
-    phase_serve_mixed(dev, cfg, params, "serve mixed qwen2-vl")
-    phase_vision(dev, cfg, params)
-    free(params)
-
-    for name, cut, sched, max_new in SLICE_SERVE:
-        cfg = get_config(name).replace(use_pallas=True, **cut)
-        params = init_full(cfg, dev, f"serve {name}")
-        for layout in ("paged", "ring"):
-            phase_serve(dev, cfg, params, layout, f"serve {name} {layout}",
-                        max_new=max_new, sched=sched)
+    with timed_phase("21 serve xlstm"):
+        cfg = get_config("xlstm-350m").replace(use_pallas=True)
+        params = init_full(cfg, dev, "serve xlstm")
+        xlstm = phase_serve(dev, cfg, params, "ring", "serve xlstm",
+                            prefill_profile=True)
+        log("serve xlstm", f"ssm_scan launches on the xlstm serve path "
+            f"(graph run): {xlstm['ssm_scan']} "
+            f"({kind_layers(cfg, ('mlstm',))} mLSTM layers, one launch each "
+            f"per prefill)")
         free(params)
 
-    cfg = get_config("seamless-m4t-large-v2").replace(use_pallas=True)
-    params = init_full(cfg, dev, "encdec")
-    phase_encdec(dev, cfg, params)
-    free(params)
+    with timed_phase("22 serve qwen2-vl"):
+        cfg = get_config("qwen2-vl-2b").replace(use_pallas=True)
+        params = init_full(cfg, dev, "serve qwen2-vl")
+        phase_serve(dev, cfg, params, "paged", "serve qwen2-vl")
+        phase_serve(dev, cfg, params, "ring", "serve qwen2-vl ring")
+        phase_serve_mixed(dev, cfg, params, "serve mixed qwen2-vl")
+        phase_vision(dev, cfg, params)
+        free(params)
 
-    # this slice: training the dense decoders on the card
-    phase_train_parity(dev)
-    train = phase_train(dev)
-    phase_train_1b(dev)
-    phase_train_lm(dev)
+    with timed_phase("23 serve dense"):
+        for name, cut, sched, max_new in SLICE_SERVE:
+            cfg = get_config(name).replace(use_pallas=True, **cut)
+            params = init_full(cfg, dev, f"serve {name}")
+            for layout in ("paged", "ring"):
+                phase_serve(dev, cfg, params, layout,
+                            f"serve {name} {layout}", max_new=max_new,
+                            sched=sched)
+            free(params)
+
+    with timed_phase("24 encdec"):
+        cfg = get_config("seamless-m4t-large-v2").replace(use_pallas=True)
+        params = init_full(cfg, dev, "encdec")
+        phase_encdec(dev, cfg, params)
+        free(params)
+
+    # training the dense decoders on the card
+    with timed_phase("29 train parity"):
+        phase_train_parity(dev)
+    with timed_phase("30 train"):
+        train = phase_train(dev)
+    with timed_phase("31 train agent-1b"):
+        phase_train_1b(dev)
+    with timed_phase("32 train_lm"):
+        phase_train_lm(dev)
+
+    # training every other family on the card
+    with timed_phase("34 train parity families"):
+        phase_train_families(dev)
+    with timed_phase("35 train moe"):
+        moe = phase_train_moe(dev)
+    with timed_phase("36 train ssm"):
+        ssm_run = phase_train_ssm(dev)
+    with timed_phase("37 train vlm encdec"):
+        phase_train_vlm_encdec(dev)
+    log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
 
     main_path = {"paged_decode_attention": control, "flash_attention": hymba,
                  "decode_attention": hymba, "ssm_scan": hymba,
-                 "grouped_matmul": arctic, "flash_attention_backward": train}
+                 "grouped_matmul": arctic, "flash_attention_backward": train,
+                 "grouped_matmul_backward": moe,
+                 "ssm_scan_backward": ssm_run}
     for row in rows:
         row["launches"] = main_path[row["name"]][row["name"]]
 

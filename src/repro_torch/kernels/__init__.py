@@ -10,24 +10,30 @@ count, setting a kernel attribute, fetching the CUDA driver's tensor-map
 encoder) at its first call, so a CUDA graph captures it after one eager
 call (``serving/graphs.py``).
 
-Training: ``flash_attention`` under grad is an autograd Function whose
-backward is ``csrc/flash_attention_bwd.cu``
-(``flash_attention_backward``); the other four wrappers have no
-backward yet and raise under grad (``grad.py``).
+Training: ``flash_attention``, ``grouped_matmul`` and ``ssm_scan`` under
+grad are autograd Functions whose backwards are hand-written Hopper
+kernels too (``csrc/flash_attention_bwd.cu``, ``grouped_matmul_bwd.cu``,
+``ssm_scan_bwd.cu``; ``*_backward`` calls them directly); the two decode
+wrappers have no backward and raise under grad (``grad.py``).
 """
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_plain,
     flash_attention_plain)
-from repro_torch.kernels.grouped_matmul import (grouped_matmul,
-                                                grouped_matmul_plain)
+from repro_torch.kernels.grouped_matmul import (
+    grouped_matmul, grouped_matmul_backward, grouped_matmul_backward_plain,
+    grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_backward,
+                                          ssm_scan_backward_plain,
+                                          ssm_scan_plain)
 
 __all__ = ["decode_attention", "decode_attention_plain", "flash_attention",
            "flash_attention_backward", "flash_attention_backward_plain",
-           "flash_attention_plain", "grouped_matmul", "grouped_matmul_plain",
-           "paged_decode_attention", "paged_decode_attention_plain",
-           "ssm_scan", "ssm_scan_plain"]
+           "flash_attention_plain", "grouped_matmul",
+           "grouped_matmul_backward", "grouped_matmul_backward_plain",
+           "grouped_matmul_plain", "paged_decode_attention",
+           "paged_decode_attention_plain", "ssm_scan", "ssm_scan_backward",
+           "ssm_scan_backward_plain", "ssm_scan_plain"]

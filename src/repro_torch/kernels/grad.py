@@ -2,11 +2,12 @@
 
 A wrapper fills its output through ``ctypes`` from ``data_ptr()``s, so on
 a CUDA tensor the output has no ``grad_fn``: under autograd the inputs
-would silently get no gradient.  ``flash_attention`` has a backward
-kernel (its autograd Function); the other four wrappers call
-``refuse_grad`` before they launch, and raise instead of returning a
-tensor cut from the graph.  Serving runs under ``torch.inference_mode``,
-where grad mode is off, so the guard never fires there.
+would silently get no gradient.  ``flash_attention``, ``grouped_matmul``
+and ``ssm_scan`` have backward kernels (their autograd Functions); the
+two decode wrappers call ``refuse_grad`` before they launch, and raise
+instead of returning a tensor cut from the graph.  Serving runs under
+``torch.inference_mode``, where grad mode is off, so the guard never
+fires there.
 """
 from __future__ import annotations
 
@@ -16,8 +17,6 @@ import torch
 BACKWARD_ITEM = {
     "paged_decode_attention": "A4.5 (a decode step under grad)",
     "decode_attention": "A4.5 (a decode step under grad)",
-    "ssm_scan": "A4.2 (hymba and xLSTM training)",
-    "grouped_matmul": "A4.1 (MoE training)",
 }
 
 

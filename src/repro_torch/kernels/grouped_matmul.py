@@ -22,6 +22,14 @@ multiples of 8 runs the persistent TMA + wgmma kernel, planned here from
 ints only (``tma_plan``); f32 and ragged widths the CUDA-core kernel.
 Neither the wrapper nor the kernels read ``counts`` on the host.  See
 the CUDA source for the design.
+
+Training differentiates it: under grad the wrapper is an autograd
+Function whose backward is the hand-written Hopper kernel of
+``csrc/grouped_matmul_bwd.cu`` (``grouped_matmul_backward``: dX = dOut
+w^T over the live rows, dW = x^T dOut over them, both deterministic; the
+reference has no backward kernel, JAX differentiates its einsums).  Its
+bound is bytes too: the live experts' weights read for dX, E * d * f
+written for dW.
 """
 from __future__ import annotations
 
@@ -29,8 +37,6 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
-
-from repro_torch.kernels.grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the CUDA source's paths: f32 FMAs a column at a time, f32 FMAs four
@@ -95,6 +101,16 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     row = torch.arange(x.shape[1], device=x.device)[None, :, None]
     live = row < counts.to(x.device)[:, None, None]
     return torch.where(live, out, 0.0).to(x.dtype)
+
+
+def grouped_matmul_backward_plain(x: torch.Tensor, w: torch.Tensor,
+                                  counts: torch.Tensor, dout: torch.Tensor):
+    """(dx, dw): autograd through ``grouped_matmul_plain``, the backward's
+    plain version."""
+    with torch.enable_grad():
+        xx, ww = (t.detach().requires_grad_(True) for t in (x, w))
+        out = grouped_matmul_plain(xx, ww, counts)
+        return torch.autograd.grad(out, (xx, ww), dout)
 
 
 def _check(x, w, counts) -> None:
@@ -179,22 +195,113 @@ def _launch(x, w, counts) -> torch.Tensor:
     return out
 
 
+def tensor_core_backward(x, w, dout) -> bool:
+    """The backward's mma.sync kernels take bf16 with d and f multiples of
+    8 and 16-byte aligned x, w and dout; the rest runs on the CUDA
+    cores."""
+    d, f = w.shape[1], w.shape[2]
+    return (x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, dout)))
+
+
+def _launch_backward(x, w, counts, dout, need_dx: bool = True,
+                     need_dw: bool = True):
+    """The backward kernels (``csrc/grouped_matmul_bwd.cu``) on the current
+    stream: (dx or None, dw or None) in x's dtype.  One call counts one
+    launch."""
+    from repro_torch.kernels import build
+
+    e, c, d = x.shape
+    f = w.shape[2]
+    if x.dtype not in DTYPES:
+        raise ValueError(f"no kernel for dtype {x.dtype} (dtypes "
+                         f"{list(DTYPES)})")
+    if counts.dtype != torch.int32:
+        raise ValueError(f"counts must be int32, got {counts.dtype}")
+    if dout.shape != (e, c, f) or dout.dtype != x.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match out {(e, c, f)} {x.dtype}")
+    if e > 65535 or -(-c // 64) > 65535 or -(-d // 64) > 65535:
+        raise ValueError(f"no kernel for E {e}, C {c}, d {d} (grid limits)")
+    for name, t in (("x", x), ("w", w), ("counts", counts),
+                    ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    if x.numel() == 0 or w.numel() == 0:
+        return (dx.zero_() if need_dx else None,
+                dw.zero_() if need_dw else None)
+    fn = build.load("grouped_matmul_bwd").grouped_matmul_bwd_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), counts.data_ptr(),
+             dout.data_ptr(), dx.data_ptr() if need_dx else None,
+             dw.data_ptr() if need_dw else None, e, c, d, f,
+             int(tensor_core_backward(x, w, dout)), stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_matmul_backward launch failed: error "
+                           f"{err}")
+    grouped_matmul_backward.launches += 1
+    return dx, dw
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The kernel pair under autograd: the forward kernel, and the backward
+    kernels on the saved (x, w, counts).  Under ``torch.utils.checkpoint``
+    the forward runs again in the backward pass (one more forward
+    launch)."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts):
+        ctx.save_for_backward(x, w, counts)
+        return _launch(x, w, counts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, counts = ctx.saved_tensors
+        dx, dw = _launch_backward(x, w, counts, dout.contiguous(),
+                                  ctx.needs_input_grad[0],
+                                  ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    counts: torch.Tensor) -> torch.Tensor:
     """x (E, C, d) @ w (E, d, f) -> (E, C, f) in x's dtype; counts (E,)
     int32, the live rows of each expert (clamped to [0, C]); rows past
     them are zeros.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
-    the plain version.  ``grouped_matmul.launches`` counts kernel
-    launches."""
+    CUDA tensors launch the Hopper kernel (or raise); with grad mode on
+    and x or w requiring grad, the call is the autograd Function whose
+    backward is the Hopper backward kernel (there is no fallback to the
+    plain version's autograd).  CPU tensors take the plain version, which
+    autograd differentiates.  ``grouped_matmul.launches`` counts forward
+    launches, ``grouped_matmul_backward.launches`` backward ones."""
     _check(x, w, counts)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, counts)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped_matmul for device {x.device}")
-    refuse_grad("grouped_matmul", x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(x, w, counts)
     return _launch(x, w, counts)
 
 
+def grouped_matmul_backward(x, w, counts, dout):
+    """The backward kernels called directly on CUDA tensors: (dx, dw) of
+    ``out = grouped_matmul(x, w, counts)`` for the output gradient
+    ``dout``.  ``grouped_matmul_backward.launches`` counts the calls, from
+    here and from autograd."""
+    _check(x, w, counts)
+    if x.device.type != "cuda":
+        raise ValueError("grouped_matmul_backward runs on CUDA tensors; the "
+                         "CPU differentiates grouped_matmul_plain")
+    return _launch_backward(x, w, counts, dout)
+
+
 grouped_matmul.launches = 0
+grouped_matmul_backward.launches = 0

@@ -29,6 +29,14 @@ per token and head, are far below the card's rate.  The kernel runs
 mamba-2's three chunk phases (chunk states, the state pass, chunk
 outputs; ``scan_plan``), the third on the tensor cores for bf16 with dk
 <= 64.  See the CUDA source for the design.
+
+Training differentiates it: under grad the wrapper is an autograd
+Function whose forward keeps the kernel's chunk-entry states and whose
+backward is the hand-written Hopper kernel of ``csrc/ssm_scan_bwd.cu``
+(``ssm_scan_backward``: gradients of q, k, v, log_a and h0 from those of
+y and h_T, chunk-parallel in reverse and deterministic; the reference has
+no backward kernel, JAX differentiates its jnp scan).  Its bound is
+bytes too.
 """
 from __future__ import annotations
 
@@ -37,8 +45,6 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-
-from repro_torch.kernels.grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DK = 512          # mLSTM's head dim
@@ -125,6 +131,21 @@ def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(v.dtype), state
 
 
+def ssm_scan_backward_plain(q, k, v, log_a, h0, dy, dh_t=None, *,
+                            chunk: int = 128):
+    """(dq, dk, dv, dlog_a, dh0): autograd through ``ssm_scan_plain`` for
+    the gradients ``dy`` of y and ``dh_t`` of h_T (None: no gradient
+    reaches h_T), the backward's plain version."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v, log_a, h0)]
+        y, h_t = ssm_scan_plain(*xs, chunk=chunk)
+        outs, grads = [y], [dy]
+        if dh_t is not None:
+            outs.append(h_t)
+            grads.append(dh_t)
+        return torch.autograd.grad(outs, xs, grads)
+
+
 def _check(q, k, v, log_a, h0) -> None:
     if q.ndim != 4 or k.shape != q.shape or v.ndim != 4 \
             or v.shape[:3] != q.shape[:3]:
@@ -154,7 +175,10 @@ def _aligned(q, k, v) -> bool:
     return all(rows) and all(strides) and v.shape[3] % 8 == 0
 
 
-def _launch(q, k, v, log_a, h0, chunk: int):
+def _launch(q, k, v, log_a, h0, chunk: int, keep_states: bool = False):
+    """The forward kernels.  Returns (y, h_T), or (y, h_T, states) with
+    the f32 (B, H, nc, dk, dv) states entering each chunk, which the
+    backward reads, when ``keep_states``."""
     from repro_torch.kernels import build
 
     b, t, h, dk = q.shape
@@ -166,12 +190,7 @@ def _launch(q, k, v, log_a, h0, chunk: int):
                      _aligned(q, k, v))
     if h * -(-dk // 16) * -(-dv // TILE) > 65535 or b > 65535:
         raise ValueError(f"no kernel for B {b}, H {h} (grid limits)")
-    # q and k may broadcast over heads (stride 0): hymba shares one B/C
-    # pair among all its SSM heads
-    for name, x in (("q", q), ("k", k)):
-        if x.stride(3) != 1 and dk > 1:
-            raise ValueError(f"{name} must have a unit stride on its last "
-                             f"axis")
+    _check_qk_strides(q, k)
     if not v.is_contiguous():
         raise ValueError("v must be contiguous")
     la = log_a.float().contiguous()
@@ -196,7 +215,103 @@ def _launch(q, k, v, log_a, h0, chunk: int):
     if err != 0:
         raise RuntimeError(f"ssm_scan launch failed: error {err}")
     ssm_scan.launches += 1
-    return y, h_t
+    return (y, h_t, states) if keep_states else (y, h_t)
+
+
+def _check_qk_strides(q, k) -> None:
+    # q and k may broadcast over heads (stride 0): hymba shares one B/C
+    # pair among all its SSM heads
+    for name, x in (("q", q), ("k", k)):
+        if x.stride(3) != 1 and x.shape[3] > 1:
+            raise ValueError(f"{name} must have a unit stride on its last "
+                             f"axis")
+
+
+def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
+    """The backward kernels (``csrc/ssm_scan_bwd.cu``) on the current
+    stream, from the forward's f32 ``la`` and chunk-entry ``states`` (and
+    ``h_t`` when ``dh_t`` is given): (dq, dk, dv, dlog_a f32, dh0 f32),
+    dq and dk full (B, T, H, dk) even where q and k broadcast over heads.
+    One call counts one launch."""
+    from repro_torch.kernels import build
+
+    b, t, h, dk = q.shape
+    dv = v.shape[3]
+    nc = -(-t // chunk)
+    if q.dtype not in DTYPES:
+        raise ValueError(f"no kernel for dtype {q.dtype} (dtypes "
+                         f"{list(DTYPES)})")
+    scan_plan(b, t, h, dk, dv, chunk, False, False)    # the size checks
+    if dy.shape != v.shape or dy.dtype != v.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
+                         f"y {tuple(v.shape)} {v.dtype}")
+    if states.shape != (b, h, nc, dk, dv) or states.dtype != torch.float32:
+        raise ValueError(f"states must be f32 {(b, h, nc, dk, dv)}, got "
+                         f"{tuple(states.shape)} {states.dtype}")
+    _check_qk_strides(q, k)
+    for name, x in (("v", v), ("dy", dy), ("log_a", la),
+                    ("states", states)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dh_t is not None:
+        dh_t = dh_t.float().contiguous()
+        h_t = h_t.float().contiguous()
+    fn = build.load("ssm_scan_bwd").ssm_scan_bwd_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq = torch.empty((b, t, h, dk), dtype=q.dtype, device=dev)
+    dk_ = torch.empty((b, t, h, dk), dtype=q.dtype, device=dev)
+    dv_ = torch.empty_like(v)
+    dla = torch.empty((b, t, h), **f32)
+    dh0 = torch.empty((b, h, dk, dv), **f32)
+    pw = torch.empty((b, h, nc, 2, chunk, chunk), **f32)
+    us = torch.empty((b, h, nc, dk, dv), **f32)
+    decay = torch.empty((b, h, nc), **f32)
+    gq = torch.empty((b, t, h, dk), **f32)
+    gk = torch.empty((b, t, h, dk), **f32)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             la.data_ptr(), dy.data_ptr(), states.data_ptr(), ptr(dh_t),
+             ptr(h_t if dh_t is not None else None), dq.data_ptr(),
+             dk_.data_ptr(), dv_.data_ptr(), dla.data_ptr(), dh0.data_ptr(),
+             pw.data_ptr(), us.data_ptr(), decay.data_ptr(), gq.data_ptr(),
+             gk.data_ptr(), b, t, h, dk, dv, chunk, *q.stride()[:3],
+             *k.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_backward launch failed: error {err}")
+    ssm_scan_backward.launches += 1
+    return dq, dk_, dv_, dla, dh0
+
+
+class _SsmScan(torch.autograd.Function):
+    """The kernel pair under autograd: the forward kernels keeping their
+    chunk-entry states, the backward kernels on the saved (q, k, v, f32
+    log_a, states, h_T).  A gradient that reaches neither output stays
+    None (no zeros are made for h_T's)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, h0, chunk: int):
+        ctx.set_materialize_grads(False)
+        y, h_t, states = _launch(q, k, v, log_a, h0, chunk, keep_states=True)
+        ctx.save_for_backward(q, k, v, log_a.float().contiguous(), states,
+                              h_t)
+        ctx.chunk, ctx.la_dtype = chunk, log_a.dtype
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        q, k, v, la, states, h_t = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(v)
+        dq, dk, dv, dla, dh0 = _launch_backward(
+            q, k, v, la, states, h_t, dy.contiguous(), dh_t, ctx.chunk)
+        return dq, dk, dv, dla.to(ctx.la_dtype), dh0, None
 
 
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -206,16 +321,44 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h0 (B, H, dk, dv).  Returns (y (B, T, H, dv), h_T (B, H, dk, dv)
     f32).  Any T: a ragged last chunk is handled, not refused.
 
-    CUDA tensors launch the Hopper kernels (or raise); CPU tensors take
-    the plain version.  ``ssm_scan.launches`` counts calls that launched
-    the kernels (three launches each, one count)."""
+    CUDA tensors launch the Hopper kernels (or raise); with grad mode on
+    and an input that requires grad, the call is the autograd Function
+    whose backward is the Hopper backward kernel (there is no fallback to
+    the plain version's autograd).  CPU tensors take the plain version,
+    which autograd differentiates.  ``ssm_scan.launches`` counts calls
+    that launched the forward kernels (three launches each, one count),
+    ``ssm_scan_backward.launches`` backward calls (seven launches, one
+    count)."""
     _check(q, k, v, log_a, h0)
     if q.device.type == "cpu":
         return ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"no ssm_scan for device {q.device}")
-    refuse_grad("ssm_scan", q, k, v, log_a, h0)
-    return _launch(q, k, v, log_a, h0, min(chunk, q.shape[1]))
+    chunk = min(chunk, q.shape[1])
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v, log_a, h0)):
+        return _SsmScan.apply(q, k, v, log_a, h0, chunk)
+    return _launch(q, k, v, log_a, h0, chunk)
+
+
+def ssm_scan_backward(q, k, v, log_a, h0, dy, dh_t=None, *,
+                      chunk: int = 128):
+    """The forward kernels (for their chunk-entry states) and then the
+    backward kernels, called directly on CUDA tensors: (dq, dk, dv,
+    dlog_a, dh0) for the gradients ``dy`` of y and ``dh_t`` of h_T (None:
+    none reaches it).  Counts one launch on ``ssm_scan`` and one on
+    ``ssm_scan_backward.launches``."""
+    _check(q, k, v, log_a, h0)
+    if q.device.type != "cuda":
+        raise ValueError("ssm_scan_backward runs on CUDA tensors; the CPU "
+                         "differentiates ssm_scan_plain")
+    chunk = min(chunk, q.shape[1])
+    _, h_t, states = _launch(q, k, v, log_a, h0, chunk, keep_states=True)
+    dq, dk, dv, dla, dh0 = _launch_backward(
+        q, k, v, log_a.float().contiguous(), states, h_t, dy.contiguous(),
+        dh_t, chunk)
+    return dq, dk, dv, dla.to(log_a.dtype), dh0
 
 
 ssm_scan.launches = 0
+ssm_scan_backward.launches = 0

@@ -4,9 +4,11 @@ device.
 ``make_train_step`` builds the (params, opt_state, batch) -> (params,
 opt_state, metrics) update for a config on one device:
 
-* gradients of ``models.loss_fn`` by ``torch.autograd.grad``, with the
-  Hopper flash attention forward and backward on the card when
-  ``cfg.use_pallas`` is set (``kernels/flash_attention.py``);
+* gradients of ``models.loss_fn`` by ``torch.autograd.grad`` for every
+  config of the registry, with the Hopper kernels' forwards and
+  backwards on the card when ``cfg.use_pallas`` is set (flash attention,
+  the MoE's ``grouped_matmul``, the ``ssm_scan`` of hymba and the
+  mLSTM);
 * optional microbatch gradient accumulation in ``plan.accum_dtype``, in
   the reference's order (``a + g / k`` per microbatch);
 * AdamW, optionally with int8 moments (``repro_torch.optim``), updating
@@ -57,16 +59,18 @@ def default_plan(cfg: ModelConfig, shape: ShapeConfig,
 def make_train_step(cfg: ModelConfig, plan: Optional[TrainPlan] = None,
                     acfg: Optional[AdamWConfig] = None, device=None):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``batch`` holds tokens and labels (B, S) (numpy arrays
-    or tensors; moved to ``device``, CUDA unless the caller asks for the
-    CPU); the global batch splits into ``plan.microbatch`` equal slices.
+    metrics)``.  ``batch`` holds tokens and labels (B, S) and, where the
+    config takes them, positions (B, S) or (B, S, 3), vision_embeds (B,
+    P, d) and frames (B, T_enc, d) (numpy arrays or tensors; moved to
+    ``device``, CUDA unless the caller asks for the CPU); the global
+    batch splits into ``plan.microbatch`` equal slices of every key, as
+    the reference's ``slice_mb`` maps over every leaf.
     ``metrics``: loss (and xent, aux without microbatches), grad_norm and
     lr, as 0-d tensors on the device."""
     plan = plan or TrainPlan()
     acfg = acfg or AdamWConfig(int8_moments=plan.int8_moments)
     dev = resolve_device(device)
     accum_dt = torch_dtype(plan.accum_dtype)
-    transformer.check_trainable(cfg)
 
     def grads_of(params, mb):
         leaves, treedef = flatten(params)

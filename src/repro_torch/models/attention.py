@@ -24,7 +24,9 @@ attention of a decoder block, whose keys are the encoder's memory:
 the decoder's cache keeps, and ``cross_attention_cached`` attends to it.
 With ``cfg.use_pallas`` a full sequence runs the flash kernel
 non-causal, and a decode step's cross attention the ring decode kernel
-over the cross K/V (every key valid).
+over the cross K/V (every key valid).  Training runs the encoder's self
+attention and the decoder's ``cross_attention`` through flash under
+grad, whose backward kernel takes the non-causal case too.
 
 JAX updates caches functionally and donates the old buffers; here ring
 and pool are updated in place (``index_put_``) and the same tensors are

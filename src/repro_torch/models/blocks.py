@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import ssm
 from repro_torch.models.attention import (CrossKV, PagedKVCache, attn_defs,
+                                          cross_attention,
                                           cross_attention_cached,
                                           cross_kv_precompute, init_kv_cache,
                                           init_paged_kv_cache,
@@ -142,16 +143,21 @@ def init_paged_block_cache(cfg: ModelConfig, spec: BlockSpec,
 
 
 def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
-         spec: BlockSpec) -> torch.Tensor:
+         spec: BlockSpec, with_aux: bool = False):
     """The block's FFN: the MoE (plus arctic's dense residual MLP) or the
-    dense MLP.  Serving drops the MoE's aux loss, as the reference's
-    engine does."""
+    dense MLP.  Returns y, or (y, aux) with ``with_aux``: the MoE's
+    load-balance loss, None for a dense FFN.  Serving drops the aux loss
+    (``with_stats=False``), as the reference's engine does."""
+    aux = None
     if spec.moe:
-        y, _ = moe_ffn(params["moe"], x, cfg, spec, with_stats=False)
+        y, stats = moe_ffn(params["moe"], x, cfg, spec, with_stats=with_aux)
+        if with_aux:
+            aux = stats.aux_loss
         if spec.dense_residual:
             y = y + mlp(params["mlp"], x)
-        return y
-    return mlp(params["mlp"], x)
+    else:
+        y = mlp(params["mlp"], x)
+    return (y, aux) if with_aux else y
 
 
 def _copy_state(old, new) -> None:
@@ -169,7 +175,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[dict], tables: Optional[torch.Tensor] = None,
                 mode: Optional[str] = None,
                 live: Optional[torch.Tensor] = None,
-                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
     """x: (B,S,d); positions: (B,S) or (B,S,3); tables: (B,P) physical
     page ids.  Returns the block's output; the layer's cache is updated
     in place.  ``cache=None`` runs the whole sequence with no decode
@@ -181,11 +188,17 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     (B,) bool as they were; a paged row outside it has an all -1 table
     row, so its writes already land in the sink.  ``memory`` (B, T_enc,
     d) is the encoder's output, read by a cross-attention block's
-    prefill; its step reads the cross K/V of the cache."""
+    prefill (and, with no cache, by training's cross attention); its step
+    reads the cross K/V of the cache.  ``with_aux`` returns (x, aux), aux
+    the MoE's load-balance loss or None: training's path, with no cache."""
     _supported(spec)
     if spec.kind in ("mlstm", "slstm"):
         key = "h" if spec.kind == "mlstm" else "s"
-        if mode == "step":
+        if cache is None:            # the whole sequence, no decode state
+            block = (ssm.mlstm_block if spec.kind == "mlstm"
+                     else ssm.slstm_block)
+            y, _ = block(params, x, cfg)
+        elif mode == "step":
             step = (ssm.mlstm_block_step if spec.kind == "mlstm"
                     else ssm.slstm_block_step)
             y, st = step(params, x, cache[key], cfg, live)
@@ -196,8 +209,9 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         else:
             raise ValueError(f"a recurrent block needs mode 'prefill' or "
                              f"'step', got {mode!r}")
-        _copy_state(cache[key], st)
-        return y
+        if cache is not None:
+            _copy_state(cache[key], st)
+        return (y, None) if with_aux else y
 
     xr = rmsnorm(params["norm1"], x, cfg.norm_eps)
     kv = cache["kv"] if cache is not None else None
@@ -219,29 +233,39 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"a ring cache needs mode 'prefill' or 'step', "
                          f"got {mode!r}")
     if spec.kind == "hymba":
-        if mode == "prefill":
+        if cache is None or mode == "prefill":
             m, st = ssm.mamba_branch(params["mamba"], xr, cfg)
         else:
             m, st = ssm.mamba_branch_step(params["mamba"], xr, cache["ssm"],
                                           cfg, live)
-        _copy_state(cache["ssm"], st)
+        if cache is not None:
+            _copy_state(cache["ssm"], st)
         x = x + 0.5 * (a + m)
     elif spec.parallel_block:
         # attention and FFN read the same normed input, summed
-        return x + a + _ffn(params, xr, cfg, spec)
+        y = _ffn(params, xr, cfg, spec, with_aux)
+        return (x + a + y[0], y[1]) if with_aux else x + a + y
     else:
         x = x + a
-    if spec.cross_attention:
+    if spec.cross_attention and cache is None:
+        # training's cross attention over the memory, as the reference's
+        # train mode: no cross K/V is kept
+        if memory is None:
+            raise ValueError("a cross-attention block needs the encoder's "
+                             "memory")
         xq = rmsnorm(params["norm_x"], x, cfg.norm_eps)
-        if cache is None or mode == "prefill":
+        x = x + cross_attention(params["cross"], xq, memory, cfg)
+    elif spec.cross_attention:
+        xq = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        if mode == "prefill":
             if memory is None:
                 raise ValueError("a cross-attention block's prefill needs "
                                  "the encoder's memory")
             ckv = cross_kv_precompute(params["cross"], memory)
-            if cache is not None:
-                _copy_state(cache["cross"], ckv)
+            _copy_state(cache["cross"], ckv)
         else:
             ckv = cache["cross"]
         x = x + cross_attention_cached(params["cross"], xq, ckv, cfg)
-    return x + _ffn(params, rmsnorm(params["norm2"], x, cfg.norm_eps), cfg,
-                    spec)
+    y = _ffn(params, rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, spec,
+             with_aux)
+    return (x + y[0], y[1]) if with_aux else x + y

@@ -13,9 +13,13 @@ the host.
 
 Supports top-k routing with capacity dropping, shared experts (kimi),
 the dense residual branch (arctic, applied by ``blocks._ffn``) and the
-load-balancing auxiliary loss.  The reference's sharding hints have no
-meaning on one card and are dropped; its per-row (GShard-style) dispatch
-of long batched inputs is a loop over the rows.
+load-balancing auxiliary loss.  Training takes the statistics
+(``with_stats``; ``blocks._ffn`` hands the aux loss up to ``loss_fn``);
+under grad on the card each expert product is ``grouped_matmul``'s
+autograd Function, whose backward is a Hopper kernel too.  The
+reference's sharding hints have no meaning on one card and are dropped;
+its per-row (GShard-style) dispatch of long batched inputs is a loop
+over the rows.
 """
 from __future__ import annotations
 

@@ -17,6 +17,10 @@ prompt whose length is not a multiple of the chunk is served: the ragged
 tail is padded as ``ops.ssm_scan`` pads it (ROADMAP §C, fault 3).  The
 sLSTM's scalar memory is a sequential recurrence with no kernel in the
 reference (a ``lax.scan``); here its prefill is a loop over the tokens.
+Training differentiates all three: the scan under grad on the card is
+``ssm_scan``'s autograd Function (a Hopper backward kernel; hymba's
+head-shared q and k get full-shape gradients that autograd's expand
+sums), and the sLSTM token loop runs under autograd as plain ops.
 
 Casts follow the reference, since the bf16 results depend on them: the
 dt and B/C projections in f32, silu through f32, dt folded into v in the

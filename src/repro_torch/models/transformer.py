@@ -16,13 +16,14 @@ patch embeddings over the first token slots (``vision_embeds``) and
 explicit ``positions``.
 
 Training entry points: ``hidden_states``, ``forward`` and ``loss_fn``,
-with the reference's signatures and return values, for the dense
-decoder configs.  ``cfg.remat`` runs each layer under
-``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps
-the reference's scan body; the loss walks the sequence in
-``cfg.loss_chunk`` slices.  A config with MoE, a hybrid or xLSTM stack,
-vision embeddings or an encoder is refused with the ROADMAP item that
-will train it, never run halfway.
+with the reference's signatures and return values, for every config of
+the registry: the MoE layers' load-balance loss summed over the layers
+as the aux loss, hymba's mamba branch and xLSTM's mLSTM through the
+scan, the sLSTM token loop under autograd, a VLM's patch embeddings and
+M-RoPE positions, and an encoder-decoder's encoder over ``frames``.
+``cfg.remat`` runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), as ``jax.checkpoint`` wraps the reference's scan body;
+the loss walks the sequence in ``cfg.loss_chunk`` slices.
 
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
@@ -123,13 +124,19 @@ def _unbound(tree, idxs) -> dict:
 
 def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
               tables, mode=None, live=None, memory=None):
-    """Run ``plan``'s segments over ``x``.  ``cache_list=None`` runs
-    without decode state (the encoder, and training); then, with grad
-    mode on, the layers' parameters come from ``_unbound`` and, with
-    ``cfg.remat``, each layer runs under a non-reentrant checkpoint,
-    which keeps only its input for the backward pass."""
-    train = cache_list is None and torch.is_grad_enabled()
+    """Run ``plan``'s segments over ``x``.  Returns (x, aux).
+    ``cache_list=None`` runs without decode state (the encoder, and
+    training): then aux is the MoE layers' load-balance losses summed
+    over the layers (an f32 zero without MoE), as the reference's
+    ``_run_plan`` sums its scans'; with grad mode on, the layers'
+    parameters come from ``_unbound`` and, with ``cfg.remat``, each layer
+    runs under a non-reentrant checkpoint, which keeps only its input for
+    the backward pass.  With a cache (serving) aux is None."""
+    cache_free = cache_list is None
+    train = cache_free and torch.is_grad_enabled()
     remat = train and cfg.remat
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if cache_free else None
     for k, (seg, seg_params) in enumerate(zip(plan, params_list)):
         seg_cache = cache_list[k] if cache_list is not None else None
         layers = {}
@@ -147,10 +154,16 @@ def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
                     layer = (layers[j][idx] if train
                              else _layer(seg_params[f"e{j}"], idx))
                     args = (layer, x, cfg, spec, positions, layer_cache,
-                            tables, mode, live, memory)
-                    x = (checkpoint(block_apply, *args, use_reentrant=False)
-                         if remat else block_apply(*args))
-    return x
+                            tables, mode, live, memory, cache_free)
+                    out = (checkpoint(block_apply, *args, use_reentrant=False)
+                           if remat else block_apply(*args))
+                    if cache_free:
+                        x, a = out
+                        if a is not None:
+                            aux = aux + a
+                    else:
+                        x = out
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -205,51 +218,36 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     b, t, _ = frames.shape
     pos = torch.arange(t, dtype=torch.int32,
                        device=frames.device)[None].expand(b, t)
-    x = _run_plan(cfg.enc_plan(), cfg, params["encoder"], frames, pos, None,
-                  None)
+    x, _ = _run_plan(cfg.enc_plan(), cfg, params["encoder"], frames, pos,
+                     None, None)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
-# Training entry points (dense decoders)
+# Training entry points
 # ---------------------------------------------------------------------------
 
 AUX_WEIGHT = 0.01
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a config the port does not train yet,
-    naming the ROADMAP item that will."""
-    if cfg.n_experts > 0:
-        item = "A4.1 (MoE: a grouped_matmul backward and the aux loss)"
-    elif cfg.family in ("hybrid", "ssm"):
-        item = ("A4.2 (hymba and xLSTM: an ssm_scan backward and the "
-                "sLSTM loop)")
-    elif cfg.is_encdec:
-        item = "A4.4 (the encoder-decoder)"
-    elif cfg.family == "vlm" or cfg.mrope_sections or cfg.frontend != "none":
-        item = "A4.3 (qwen2-vl's vision embeds)"
-    else:
-        return
-    raise ValueError(f"the port trains the dense decoder configs only; "
-                     f"{cfg.name} waits for ROADMAP {item}")
-
-
 def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   positions=None, vision_embeds=None, frames=None):
     """Trunk only: embeddings -> stack -> final norm.  Returns ((B, S, D),
-    aux), the aux loss an f32 zero (a dense stack has none)."""
-    check_trainable(cfg)
-    if frames is not None:
-        raise ValueError("frames feed an encoder; the port trains no "
-                         "encoder-decoder yet (ROADMAP A4.4)")
+    aux), aux the MoE layers' summed load-balance loss (an f32 zero
+    without MoE).  ``positions`` (B, S), or (B, S, 3) for M-RoPE (by
+    default ``default_positions``); ``vision_embeds`` (B, P, d) over the
+    first P token slots; ``frames`` (B, T_enc, d), the encoder's input,
+    which an encoder-decoder model needs."""
     b, s = tokens.shape
+    if cfg.is_encdec and frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
+                         f"encoder needs frames")
+    memory = encode(params, cfg, frames) if cfg.is_encdec else None
     if positions is None:
         positions = default_positions(cfg, b, s, device=tokens.device)
     x = _embed_inputs(params, tokens, vision_embeds)
-    x = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions, None,
-                  None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
+                       None, None, memory=memory)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -263,9 +261,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
     """batch: tokens (B, S), labels (B, S) (-1 = pad), optional
-    positions.  Returns (loss, {"loss", "xent", "aux"}).  The unembed and
-    cross entropy run in ``cfg.loss_chunk`` slices, so the (B, S, V)
-    logits never exist at once."""
+    positions / vision_embeds / frames.  Returns (loss, {"loss", "xent",
+    "aux"}), loss = xent + AUX_WEIGHT * aux.  The unembed and cross
+    entropy run in ``cfg.loss_chunk`` slices, so the (B, S, V) logits
+    never exist at once."""
     x, aux = hidden_states(params, cfg, batch["tokens"],
                            positions=batch.get("positions"),
                            vision_embeds=batch.get("vision_embeds"),
@@ -328,8 +327,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, *,
     if positions is None:
         positions = default_positions(cfg, b, s, device=tokens.device)
     x = _embed_inputs(params, tokens, vision_embeds)
-    x = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
-                  cache["segments"], None, "prefill", memory=memory)
+    x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
+                     cache["segments"], None, "prefill", memory=memory)
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _logits(params, cfg, x_last)[:, 0]
     cache["pos"].fill_(s)
@@ -351,9 +350,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     reads the cross K/V its prefill stored."""
     pos = cache["pos"]                                   # (B,)
     x = embed(params["embed"], tokens)
-    x = _run_plan(cfg.plan(), cfg, params["decoder"], x,
-                  _streams(cfg, pos[:, None]), cache["segments"], tables,
-                  "step", live)
+    x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x,
+                     _streams(cfg, pos[:, None]), cache["segments"], tables,
+                     "step", live)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)[:, 0]
     if live is None:
@@ -374,8 +373,8 @@ def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     b, s = tokens.shape
     positions = default_positions(cfg, b, s, offset=start)
     x = embed(params["embed"], tokens)
-    x = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
-                  cache["segments"], tables)
+    x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
+                     cache["segments"], tables)
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _logits(params, cfg, x_last)[:, 0]
     cache["pos"][slot] = start[0] + s
@@ -400,8 +399,8 @@ def prefill_paged_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
     idx = torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
     positions = torch.where(idx < n, start + idx, -1).to(torch.int32)
     x = embed(params["embed"], tokens)
-    x = _run_plan(cfg.plan(), cfg, params["decoder"], x,
-                  _streams(cfg, positions), cache["segments"], tables)
+    x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x,
+                     _streams(cfg, positions), cache["segments"], tables)
     last = (n - 1).reshape(1).long()
     x_last = rmsnorm(params["final_norm"], torch.index_select(x, 1, last),
                      cfg.norm_eps)

@@ -1215,3 +1215,191 @@ def test_init_train_rescales_attention_to_true_fan_in(smoke, monkeypatch):
     same = [torch.equal(a, b) for a, b in zip(prm.flatten(got)[0],
                                               prm.flatten(ref)[0])]
     assert same.count(False) == 4
+
+
+# ---------------------------------------------------------------------------
+# The other families' training phases
+# ---------------------------------------------------------------------------
+
+def test_backward_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
+    """Phase 33's helpers at small shapes, the kernels' places taken by
+    their plain versions (the CPU has no kernel): the grouped_matmul
+    backward's inputs hold counts of 0, C and C / 3 with zeros past each
+    count, the checks pass and find two runs equal, the bmm yardstick
+    computes the same dx and dw, and the bounds count what they claim."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul_backward_plain)
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward_plain
+
+    monkeypatch.setattr(smoke, "grouped_matmul_backward",
+                        grouped_matmul_backward_plain)
+    monkeypatch.setattr(smoke, "ssm_scan_backward", ssm_scan_backward_plain)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters, warmup=3:
+                        (fn(), 1.0)[1])
+    dev = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    arctic = get_config("arctic-480b")
+    x, w, counts, dout = smoke.gm_bwd_inputs(torch.float32, 10, 24, 16, 200,
+                                             2, arctic, gen, dev)
+    c = smoke.capacity(200, arctic)
+    assert tuple(x.shape) == (10, c, 24) and tuple(dout.shape) == (10, c, 16)
+    assert counts[:3].tolist() == [0, c, c // 3]
+    dead = torch.arange(c)[None, :] >= counts[:, None]
+    assert not x[dead].any() and not dout[dead].any()
+    assert smoke.check_gm_backward(x, w, counts, dout, "rehearsal", 4) == 0
+    ms, plain_ms, lib_ms, bound_ms, by = smoke.time_gm_backward(
+        x, w, counts, dout, "rehearsal")
+    rows, live = int(counts.sum()), int((counts > 0).sum())
+    nbytes = (live * 24 * 16 + rows * 40 + 10 * c * 24 + 10 * 24 * 16) * 4 \
+        + 40
+    t_bytes = nbytes / smoke.HBM_BYTES_PER_S
+    t_ops = 4 * rows * 24 * 16 / smoke.F32_OPS_PER_S
+    assert bound_ms == pytest.approx(1e3 * max(t_bytes, t_ops))
+    case = (1, 70, 3, 8, 12, 32, True, 0.3, 0.5, True)
+    assert smoke.check_scan_backward(torch.float32, case, gen, dev) == 0
+    q, k, v, la, h0, dy, dh_t = smoke.scan_bwd_args(torch.float32, case,
+                                                    gen, dev)
+    assert q.stride(2) == 0 and tuple(dh_t.shape) == (1, 3, 8, 12)
+    states = torch.zeros((1, 3, 3, 8, 12))
+    ms, by = smoke.scan_bwd_bound(q, k, v, states)
+    # q and k once (one row for the heads); v, dy, dv; log_a and dlog_a;
+    # the states; dq and dk at full shape
+    nbytes = (2 * 70 * 8 + 3 * 70 * 3 * 12 + 2 * 70 * 3 + 3 * 3 * 8 * 12
+              + 2 * 70 * 3 * 8) * 4
+    ops = 70 * 3 * (2 * 70 * (3 * 8 + 2 * 12) + 8 * 8 * 12)
+    assert ms == pytest.approx(1e3 * max(nbytes / smoke.HBM_BYTES_PER_S,
+                                         ops / smoke.F32_OPS_PER_S))
+    assert by == "operations"
+    out = capsys.readouterr().out
+    assert out.count("two runs equal bit for bit") == 2
+    assert "two bmm over every expert" in out
+
+
+def test_train_launches_of_each_family(smoke):
+    """The launches of one forward-and-backward pass under remat: a
+    second forward of each kernel per layer, one backward."""
+    from repro_torch.configs import get_config
+
+    def nonzero(cfg):
+        return {k: v for k, v in smoke.train_launches(cfg).items() if v}
+    assert nonzero(get_config("arctic-480b").replace(n_layers=1)) == {
+        "flash_attention": 2, "flash_attention_backward": 1,
+        "grouped_matmul": 6, "grouped_matmul_backward": 3}
+    assert nonzero(get_config("hymba-1.5b")) == {
+        "flash_attention": 64, "flash_attention_backward": 32,
+        "ssm_scan": 64, "ssm_scan_backward": 32}
+    assert nonzero(get_config("xlstm-350m")) == {
+        "ssm_scan": 42, "ssm_scan_backward": 21}
+    assert nonzero(get_config("qwen2-vl-2b")) == {
+        "flash_attention": 56, "flash_attention_backward": 28}
+    # 24 encoder layers, 24 decoder layers of self and cross attention
+    assert nonzero(get_config("seamless-m4t-large-v2")) == {
+        "flash_attention": 144, "flash_attention_backward": 72}
+    kimi = get_config("kimi-k2-1t-a32b").replace(n_layers=2, remat=False)
+    assert nonzero(kimi) == {"flash_attention": 2,
+                             "flash_attention_backward": 2,
+                             "grouped_matmul": 3,
+                             "grouped_matmul_backward": 3}
+    assert smoke.train_launches(kimi, 3)["grouped_matmul"] == 9
+
+
+def test_hold_training_calls_on_recorded_cpu_calls(smoke, capsys):
+    """hold_training_calls holds each recorded grouped_matmul and
+    ssm_scan call, forward and backward, on its own inputs (here the
+    plain versions' outputs, so every error is 0); record_calls keeps
+    the calls made inside the block and restores the function."""
+    import importlib
+
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul_backward_plain, grouped_matmul_plain)
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward_plain,
+                                              ssm_scan_plain)
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 8, 16), generator=gen)
+    w = torch.randn((4, 16, 12), generator=gen)
+    counts = torch.tensor([8, 0, 3, 5], dtype=torch.int32)
+    dout = torch.randn((4, 8, 12), generator=gen)
+    q, k = (torch.randn((1, 20, 2, 4), generator=gen) for _ in range(2))
+    v = torch.randn((1, 20, 2, 6), generator=gen)
+    la = -torch.rand((1, 20, 2), generator=gen)
+    h0 = torch.zeros((1, 2, 4, 6))
+    dy = torch.randn((1, 20, 2, 6), generator=gen)
+    states = torch.zeros((1, 2, 3, 4, 6))            # chunk 8: 3 chunks
+    mod = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    real = mod._launch
+    try:
+        mod._launch = grouped_matmul_plain
+        with smoke.record_calls(smoke.GM_MOD, "_launch") as calls:
+            mod._launch(x, w, counts)
+        assert mod._launch is grouped_matmul_plain
+    finally:
+        mod._launch = real
+    recorded = {
+        "gm_fwd": calls,
+        "gm_bwd": [((x, w, counts, dout, True, True),
+                    grouped_matmul_backward_plain(x, w, counts, dout))],
+        "scan_fwd": [((q, k, v, la, h0, 8),
+                      ssm_scan_plain(q, k, v, la, h0, chunk=8))],
+        "scan_bwd": [((q, k, v, la, states, None, dy, None, 8),
+                      ssm_scan_backward_plain(q, k, v, la, h0, dy,
+                                              chunk=8))]}
+    assert len(calls) == 1
+    assert smoke.hold_training_calls("rehearsal", recorded,
+                                     torch.float32) == 0
+    out = capsys.readouterr().out
+    assert out.count("rehearsal") == 4
+
+
+def test_family_batch_carries_each_familys_inputs(smoke, monkeypatch):
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "VISION_GRID", (4, 3))
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device("cpu")
+    vlm = smoke.family_batch(get_smoke("qwen2-vl-2b"), 2, 20, gen, dev)
+    assert tuple(vlm["vision_embeds"].shape[:2]) == (2, 12)
+    assert tuple(vlm["positions"].shape) == (2, 20, 3)
+    assert vlm["positions"][0, 12].tolist() == [4, 4, 4]
+    assert (vlm["labels"][:, :-1] == vlm["tokens"][:, 1:]).all()
+    assert (vlm["labels"][:, -1] == -1).all()
+    enc = smoke.family_batch(get_smoke("seamless-m4t-large-v2"), 2, 9, gen,
+                             dev, frames=13)
+    assert tuple(enc["frames"].shape[:2]) == (2, 13)
+    assert set(smoke.family_batch(get_smoke("hymba-1.5b"), 1, 5, gen,
+                                  dev)) == {"tokens", "labels"}
+
+
+def test_family_train_phases_run_on_cpu(smoke, monkeypatch, capsys):
+    """Phases 34-37 at the families' smoke configs on the CPU (plain
+    versions, so no launch): parity kernels on and off, the MoE's
+    gradient and step, hymba, xlstm, qwen2-vl and seamless trained with
+    every leaf moved."""
+    from repro_torch.configs import get_smoke
+
+    for name, value in (("get_config", get_smoke), ("FAMILY_SEQ", 32),
+                        ("VISION_GRID", (4, 3)), ("TRAIN_SEQ", 32),
+                        ("MOE_TRAIN_EXPERTS", 4),
+                        ("SSM_TRAIN", [("hymba-1.5b", 1, 32),
+                                       ("xlstm-350m", 1, 16)]),
+                        ("VLM_TRAIN", ("qwen2-vl-2b", 1, 32)),
+                        ("ENCDEC_TRAIN", ("seamless-m4t-large-v2", 1, 16,
+                                          20)),
+                        ("TRAIN_FULL_STEPS", 1),
+                        ("card", lambda: "a CPU")):
+        monkeypatch.setattr(smoke, name, value)
+    for name in ("reset_peak_memory_stats", "max_memory_allocated",
+                 "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    dev = torch.device("cpu")
+    smoke.phase_train_families(dev)
+    moe = smoke.phase_train_moe(dev)
+    ssm = smoke.phase_train_ssm(dev)
+    smoke.phase_train_vlm_encdec(dev)
+    assert set(moe.values()) == set(ssm.values()) == {0}
+    out = capsys.readouterr().out
+    assert out.count("make_train_step, f32 moments") == 6
+    assert out.count("leaves moved") == 6 + 5
+    assert "4 experts, bf16, remat, int8 moments" in out
+    assert "(and 20 frames a row)" in out

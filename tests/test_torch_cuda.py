@@ -1037,32 +1037,204 @@ def test_flash_under_grad_is_the_kernel_pair(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["paged_decode_attention",
-                                   "decode_attention", "ssm_scan",
-                                   "grouped_matmul"])
+                                   "decode_attention"])
 def test_kernels_without_backward_refuse_grad(cuda_device, which):
-    """The four wrappers without a backward raise under grad, naming
-    the ROADMAP item, instead of returning an output cut from the
+    """The two decode wrappers, which have no backward, raise under grad,
+    naming the ROADMAP item, instead of returning an output cut from the
     graph; under no_grad they launch as before."""
     dev, f32 = cuda_device, torch.float32
     if which == "paged_decode_attention":
         args = case(dev, f32, 2, 2, 4, 64, 16, [40, 7])
         fn, kw = paged_decode_attention, {"window": -1}
-    elif which == "decode_attention":
+    else:
         args = ring_case(dev, f32, [39, 6], 64, 2, 4, 64)
         fn, kw = decode_attention, {"window": -1}
-    elif which == "ssm_scan":
-        args = scan_case(dev, f32, 1, 40, 2, 16, 32)
-        fn, kw = ssm_scan, {}
-    else:
-        args = gm_case(dev, f32, 4, 8, 64, 32, [8, 3, 0, 5])
-        fn, kw = grouped_matmul, {}
     args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="ROADMAP A4"):
+    with pytest.raises(RuntimeError, match="ROADMAP A4.5"):
         fn(*args, **kw)
     before = fn.launches
     with torch.no_grad():
         fn(*args, **kw)
     assert fn.launches == before + 1
+
+
+def gm_dout(x, f, seed=5):
+    e, c = x.shape[:2]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.randn((e, c, f), generator=g, device=x.device).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,c,d,f,counts", [
+    (4, 8, 64, 32, [8, 3, 0, 5]),                  # 0, C and ragged
+    (3, 88, 256, 192, [88, 40, 0]),                # arctic's training C
+    (2, 130, 72, 40, [130, 129]),                  # two dX row blocks
+    (3, 24, 60, 36, [24, 0, 7]),                   # widths not of 8
+    (5, 16, 128, 96, [0, 0, 0, 0, 0])])            # no token at all
+def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, dtype, e,
+                                                      c, d, f, counts):
+    """dx and dw of the backward kernels against autograd through the
+    plain version, each within the band of its largest magnitude; rows
+    past each count of dx and the dw of an expert no token chose are
+    exactly zero.  The rows past the counts and the empty experts'
+    weights hold NaN, which the kernels must not read."""
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul_backward, grouped_matmul_backward_plain)
+    x, w, cnt = gm_case(cuda_device, dtype, e, c, d, f, counts, poison=True)
+    dout = gm_dout(x, f)
+    got = grouped_matmul_backward(x, w, cnt, dout)
+    xs = torch.nan_to_num(x)
+    ws = torch.nan_to_num(w)
+    want = grouped_matmul_backward_plain(xs, ws, cnt, dout)
+    torch.cuda.synchronize()
+    rows = torch.arange(c, device=cuda_device)[None, :] \
+        >= cnt[:, None]
+    assert not got[0][rows].any()
+    assert not got[1][cnt == 0].any()
+    if any(counts):
+        assert rel_err(got[0], want[0]) <= TOL[dtype]
+        assert rel_err(got[1], want[1]) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grouped_matmul_under_grad_is_the_kernel_pair(cuda_device, dtype):
+    """Under grad the wrapper launches the forward and, in backward, the
+    backward kernels (one count), never the plain autograd; the
+    gradients equal the direct backward call's bit for bit, twice."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_backward
+    x, w, cnt = gm_case(cuda_device, dtype, 4, 24, 128, 64, [24, 9, 0, 1])
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    f0, b0 = grouped_matmul.launches, grouped_matmul_backward.launches
+    out = grouped_matmul(x, w, cnt)
+    assert out.grad_fn is not None
+    dout = gm_dout(x, 64)
+    got = torch.autograd.grad(out, (x, w), dout)
+    assert (grouped_matmul.launches, grouped_matmul_backward.launches) \
+        == (f0 + 1, b0 + 1)
+    for _ in range(2):
+        again = grouped_matmul_backward(x.detach(), w.detach(), cnt, dout)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def scan_grads(x_shape, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(x_shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk,shared,decay,h0,dh_t", [
+    (1, 128, 2, 16, 16, 32, False, 0.1, 0.0, False),
+    (2, 100, 3, 16, 64, 32, True, 0.5, 0.0, False),   # hymba's shared q/k
+    (1, 77, 2, 8, 24, 16, False, 1.0, 0.5, True),     # ragged T, h0, dH_T
+    (1, 260, 50, 16, 64, 128, True, 2.0, 0.0, False),  # hymba's heads
+    (1, 200, 2, 512, 513, 128, False, 0.05, 0.2, True)])  # mLSTM's width
+def test_scan_backward_kernel_matches_plain(cuda_device, dtype, b, t, h, dk,
+                                            dv, chunk, shared, decay, h0,
+                                            dh_t):
+    """dq, dk, dv, dlog_a and dh0 of the backward kernels against autograd
+    through the plain version, within 1e-4 (f32) / 2e-2 (bf16) of each
+    output's largest magnitude; with q and k shared over the heads
+    (stride 0) both give full-shape gradients, which autograd's expand
+    sums in a model."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
+                                              ssm_scan_backward_plain)
+    q, k, v, la, h0_ = scan_case(cuda_device, dtype, b, t, h, dk, dv,
+                                 shared_qk=shared, decay=decay,
+                                 h0_scale=h0)
+    dy = scan_grads(v.shape, dtype, cuda_device, 6)
+    dht = (scan_grads(h0_.shape, torch.float32, cuda_device, 7)
+           if dh_t else None)
+    got = ssm_scan_backward(q, k, v, la, h0_, dy, dht, chunk=chunk)
+    want = ssm_scan_backward_plain(q, k, v, la, h0_, dy, dht, chunk=chunk)
+    torch.cuda.synchronize()
+    band = 1e-4 if dtype == torch.float32 else 2e-2
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert rel_err(x, y) <= band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scan_under_grad_is_the_kernel_pair(cuda_device, dtype):
+    """Under grad the wrapper launches the forward and, in backward, the
+    backward kernels (one count each), with no gradient for h_T when
+    only y is used; the gradients equal a second run's bit for bit."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    args = scan_case(cuda_device, dtype, 2, 150, 4, 32, 48, h0_scale=0.3)
+    runs = []
+    for _ in range(2):
+        xs = [a.detach().clone().requires_grad_(True) for a in args]
+        f0, b0 = ssm_scan.launches, ssm_scan_backward.launches
+        y, h_t = ssm_scan(*xs, chunk=64)
+        assert y.grad_fn is not None
+        dy = scan_grads(y.shape, dtype, cuda_device, 8)
+        runs.append(torch.autograd.grad(y, xs, dy))
+        assert (ssm_scan.launches, ssm_scan_backward.launches) \
+            == (f0 + 1, b0 + 1)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["arctic-480b", "hymba-1.5b", "xlstm-350m",
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_family_gradients_on_the_card_match_the_plain_path(cuda_device,
+                                                           name):
+    """Each family's smoke, f32, with the kernels on against the plain
+    path from the same weights: the loss within 1e-4 and every gradient
+    leaf within 1e-2 of its largest magnitude (a backward that dropped or
+    garbled a gradient is off by O(1)), with at least one forward and one
+    backward launch of each kernel the family runs."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_backward
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    from repro_torch.models.params import flatten, unflatten
+
+    base = get_smoke(name).replace(dtype="float32")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, base.vocab, (2, 40)).astype(
+        np.int32)).to(cuda_device)
+    batch = {"tokens": toks, "labels": toks}
+    if base.frontend == "patch":
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, 8, base.d_model)).astype(np.float32)).to(cuda_device)
+    if base.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 24, base.d_model)).astype(np.float32)).to(cuda_device)
+    params = models.init(base, torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    leaves, treedef = flatten(params)
+    kinds = {spec.kind for seg in base.plan() for spec, _ in seg.pattern}
+    fns = []
+    if kinds - {"mlstm", "slstm"}:          # xlstm has no attention
+        fns += [flash_attention, flash_attention_backward]
+    if base.n_experts:
+        fns += [grouped_matmul, grouped_matmul_backward]
+    if base.family in ("hybrid", "ssm"):
+        fns += [ssm_scan, ssm_scan_backward]
+    runs = {}
+    for kernels in (True, False):
+        cfg = base.replace(use_pallas=kernels)
+        before = [fn.launches for fn in fns]
+        live = [p.detach().clone().requires_grad_(True) for p in leaves]
+        loss, _ = models.loss_fn(unflatten(treedef, live), cfg, batch)
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        runs[kernels] = (loss.item(), grads)
+        used = [fn.launches - n for fn, n in zip(fns, before)]
+        assert all(u > 0 for u in used) if kernels else not any(used)
+    assert abs(runs[True][0] - runs[False][0]) <= 1e-4
+    for x, y in zip(runs[True][1], runs[False][1]):
+        assert rel_err(x, y) <= 1e-2
 
 
 @pytest.mark.cuda

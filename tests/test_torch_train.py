@@ -33,7 +33,8 @@ made with numpy, in f32; the port runs its kernels' plain versions.
   largest magnitudes (f32 noise at this batch, measured against
   float64), and int8 moments' q within one step of the grid.
 * The twin of ``tests/test_launch.py::test_train_step_runs_and_learns``.
-* Configs the port does not train yet are refused by name.
+
+The other families' training: ``tests/test_torch_train_families.py``.
 """
 import numpy as np
 import pytest
@@ -72,9 +73,6 @@ ARRAY_TOL = 1e-4
 # up to 8.9e-5, so the moments (0.1 g and 0.05 g^2) are held to 2e-4 and
 # 4e-4
 STEP_TOL = 2e-4
-UNTRAINED = {"arctic-480b": "A4.1", "kimi-k2-1t-a32b": "A4.1",
-             "hymba-1.5b": "A4.2", "xlstm-350m": "A4.2",
-             "qwen2-vl-2b": "A4.3", "seamless-m4t-large-v2": "A4.4"}
 
 
 def configs(name, **kw):
@@ -299,18 +297,6 @@ def test_train_step_runs_and_learns():
         params, opt, m = step(params, opt, b)
         losses.append(m["loss"].item())
     assert losses[-1] < losses[0] - 0.3      # memorizes a fixed batch
-
-
-@pytest.mark.parametrize("name", sorted(UNTRAINED))
-def test_untrained_configs_are_refused(name):
-    cfg = tsmoke(name).replace(dtype="float32")
-    params = tmodels.init(cfg, torch.Generator().manual_seed(0),
-                          device="cpu")
-    b = t_batch(batch(cfg, pads=False))
-    with pytest.raises(ValueError, match=UNTRAINED[name]):
-        tmodels.loss_fn(params, cfg, b)
-    with pytest.raises(ValueError, match=UNTRAINED[name]):
-        make_train_step(cfg, device="cpu")
 
 
 def test_rescale_to_true_fan_in():
