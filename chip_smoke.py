@@ -268,6 +268,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, grouped_matmul_backward, grouped_matmul_backward_plain,
     grouped_matmul_plain)
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    _launch_backward as gm_launch_backward)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain, paged_decode_splits)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
@@ -342,6 +344,13 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms3(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
+    """The median of three ``cuda_ms`` readings and their spread (the
+    largest less the smallest), in ms."""
+    xs = sorted(cuda_ms(fn, iters, warmup) for _ in range(3))
+    return xs[1], xs[2] - xs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -750,7 +759,13 @@ def check_flash_backward(dtype, heads, b, s, t, causal, window, gen,
                                                causal, window, gen, dev)
     dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
                                           causal=causal, window=window)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+        raise AssertionError(f"flash_attention_backward: two runs differ "
+                             f"({dtype} B={b} S={s} T={t} heads {heads})")
+    del again
     want = flash_attention_backward_plain(q, k, v, dout, causal=causal,
                                           window=window)
     want_lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
@@ -760,7 +775,8 @@ def check_flash_backward(dtype, heads, b, s, t, causal, window, gen,
     dead = int((~live).sum())
     what = (f"{dtype} B={b} H={heads[0]} Hkv={heads[1]} dh={heads[2]} S={s} "
             f"T={t} causal={causal} window={window}"
-            + (f", {dead} rows with no valid key" if dead else ""))
+            + (f", {dead} rows with no valid key" if dead else "")
+            + "; two runs equal bit for bit")
     for name, err in errs.items():
         check(f"flash_attention_backward {name}", err, dtype, what)
     if dead and (dq[:, ~live].any()
@@ -787,16 +803,22 @@ def bwd_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
 def time_flash_backward(args, causal: bool, window: int, label: str):
     """Kernel, plain and SDPA backward times on one case, and the bound.
     SDPA's backward (repeated K/V, its own forward saved) is the
-    yardstick; the port never calls it."""
+    yardstick, pinned to PyTorch's flash-attention backend so that the
+    reading does not move with the dispatcher's choice; the port never
+    calls it.  Kernel and SDPA: the median of three readings, with their
+    spread."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     q, k, v, out, lse, dout = args
-    ms = cuda_ms(lambda: flash_attention_backward(
+    ms, spread = cuda_ms3(lambda: flash_attention_backward(
         q, k, v, out, lse, dout, causal=causal, window=window), 10)
     plain_ms = cuda_ms(lambda: flash_attention_backward_plain(
         q, k, v, dout, causal=causal, window=window), 3)
     sq, sk, sv, mask, is_causal = flash_sdpa_inputs((q, k, v), causal,
                                                     window)
     sq, sk, sv = (x.requires_grad_(True) for x in (sq, sk, sv))
-    with torch.enable_grad():
+    backend = SDPBackend.FLASH_ATTENTION
+    with torch.enable_grad(), sdpa_kernel(backend):
         so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
                                             is_causal=is_causal)
     sdo = dout.transpose(1, 2).contiguous()
@@ -807,13 +829,16 @@ def time_flash_backward(args, causal: bool, window: int, label: str):
     if lib_err > TOL[torch.bfloat16]:
         raise AssertionError(f"library yardstick computes another "
                              f"function: {lib_err}")
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
+    library_ms, lib_spread = cuda_ms3(lambda: torch.autograd.grad(
         so, (sq, sk, sv), sdo, retain_graph=True), 10)
     bound_ms, bound_by = bwd_bound(q, k, causal, window)
     log("kernels", f"flash_attention_backward {q.dtype} {label}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel "
-        f"at {100 * bound_ms / ms:.2f}% of bound")
+        f"{ms:.4f} ms (median of 3, spread {spread:.4f}), plain "
+        f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms (backend "
+        f"{backend.name}, median of 3, spread {lib_spread:.4f}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{100 * bound_ms / ms:.2f}% of bound, "
+        f"{ms / library_ms:.2f}x SDPA's backward")
     return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
@@ -3174,6 +3199,11 @@ def phase_train(dev) -> dict:
         f"{c} {ms_:.1f} ms ({100 * ms_ / busy:.1f}%, {n_} calls)"
         for c, (ms_, n_) in sorted(classes.items(),
                                    key=lambda kv: -kv[1][0])))
+    bwd = [(us, count) for us, count, key in rows if "flash_bwd" in key]
+    bwd_ms = sum(us for us, _ in bwd) / 1e3
+    log("profile", f"{phase}: the flash backward's kernels (D pre-pass, "
+        f"dK/dV, dQ) {bwd_ms:.1f} ms in {sum(c for _, c in bwd)} launches, "
+        f"{100 * bwd_ms / max(busy, 1e-9):.1f}% of the step's device time")
     pipe.close()
     del opt
     free(params)
@@ -3347,32 +3377,58 @@ def check_gm_backward(x, w, counts, dout, what: str,
     return max(errs)
 
 
-def gm_bwd_bound(x, w, counts) -> tuple[float, str]:
-    """The live experts' weights, the live rows of x and dout read, all of
-    dx and dw written (E * d * f), against 2 * 2 * rows * d * f
-    operations (dX and dW)."""
+def gm_bwd_bound(x, w, counts, part: str = "both") -> tuple[float, str]:
+    """The bound of dX and dW together (``part`` "both"), of dX alone
+    ("dx": the live experts' weights and the live rows of dout read, all
+    of dx written, 2 * rows * d * f operations) or of dW alone ("dw": the
+    live rows of x and dout read, all of dw (E * d * f) written, as many
+    operations).  Together: the live experts' weights, the live rows of x
+    and dout read once, dx and dw written, 4 * rows * d * f operations."""
     e, c, d = x.shape
     f = w.shape[2]
     rows = int(counts.clamp(0, c).sum())
     live = int((counts > 0).sum())
-    nbytes = ((live * d * f + rows * (d + f) + e * c * d + e * d * f)
-              * x.element_size() + counts.numel() * 4)
-    return bound_of(nbytes, 4 * rows * d * f, x.dtype)
+    dx_bytes = live * d * f + rows * f + e * c * d
+    dw_bytes = rows * (d + f) + e * d * f
+    elems = {"both": live * d * f + rows * (d + f) + e * c * d + e * d * f,
+             "dx": dx_bytes, "dw": dw_bytes}[part]
+    ops = (4 if part == "both" else 2) * rows * d * f
+    return bound_of(elems * x.element_size() + counts.numel() * 4, ops,
+                    x.dtype)
+
+
+def gm_backward_part(x, w, counts, dout, part: str):
+    """One of the backward's two kernels alone ("dx" or "dw"): the C entry
+    point takes a null pointer for the output it does not compute."""
+    return gm_launch_backward(x, w, counts, dout, part == "dx",
+                              part == "dw")
 
 
 def time_gm_backward(x, w, counts, dout, label: str, plain: bool = True):
-    """Kernel, plain (when ``plain``) and the two bmm calls' times, and
-    the bound; the bmm pair is held to the kernel's function (dout and x
-    are zero past each count, so it computes the same dx and dw): all of
-    dx, dw on the first GM_BWD_HELD experts."""
-    ms = cuda_ms(lambda: grouped_matmul_backward(x, w, counts, dout), 5)
+    """Kernel (dX and dW together, and each alone), plain (when ``plain``)
+    and the two bmm calls' times (together and each alone), and the
+    bounds; the bmm pair is held to the kernel's function (dout and x are
+    zero past each count, so it computes the same dx and dw): all of dx,
+    dw on the first GM_BWD_HELD experts.  Kernel and bmm times: the
+    median of three readings, with their spread.  Returns the together
+    row."""
+    ms, spread = cuda_ms3(lambda: grouped_matmul_backward(x, w, counts,
+                                                          dout), 5)
+    part_ms = {p: cuda_ms3(lambda p=p: gm_backward_part(x, w, counts, dout,
+                                                        p), 5)[0]
+               for p in ("dx", "dw")}
     plain_ms = cuda_ms(lambda: grouped_matmul_backward_plain(
         x, w, counts, dout), 1, warmup=1) if plain else None
     torch.cuda.empty_cache()
 
+    def lib_dx():
+        return torch.bmm(dout, w.transpose(1, 2))
+
+    def lib_dw():
+        return torch.bmm(x.transpose(1, 2), dout)
+
     def library():
-        return (torch.bmm(dout, w.transpose(1, 2)),
-                torch.bmm(x.transpose(1, 2), dout))
+        return lib_dx(), lib_dw()
     got = grouped_matmul_backward(x, w, counts, dout)
     lib = library()
     held = slice(0, GM_BWD_HELD)      # dW's f32 difference: a slice
@@ -3382,17 +3438,26 @@ def time_gm_backward(x, w, counts, dout, label: str, plain: bool = True):
     if lib_err > TOL[x.dtype]:
         raise AssertionError(f"library yardstick computes another "
                              f"function: {lib_err}")
-    library_ms = cuda_ms(library, 5)
+    library_ms, lib_spread = cuda_ms3(library, 5)
+    lib_part = {"dx": cuda_ms3(lib_dx, 5)[0], "dw": cuda_ms3(lib_dw, 5)[0]}
     bound_ms, bound_by = gm_bwd_bound(x, w, counts)
+    bounds = {p: gm_bwd_bound(x, w, counts, p) for p in ("dx", "dw")}
     e, c, d = x.shape
     log("kernels", f"grouped_matmul_backward {x.dtype} {label} E={e} C={c} "
         f"d={d} f={w.shape[2]}, {int((counts > 0).sum())} experts live, "
-        f"{int(counts.sum())} rows: kernel {ms:.4f} ms (dX and dW), plain "
+        f"{int(counts.sum())} rows: kernel {ms:.4f} ms (dX and dW; median "
+        f"of 3, spread {spread:.4f}), plain "
         + (f"{plain_ms:.4f} ms" if plain else "not timed (its f32 copies "
            "would not fit)")
-        + f", two bmm over every expert {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
-        f"{100 * bound_ms / ms:.1f}% of bound")
+        + f", two bmm over every expert {library_ms:.4f} ms (spread "
+        f"{lib_spread:.4f}), bound {bound_ms:.4f} ms ({bound_by}); kernel "
+        f"at {100 * bound_ms / ms:.1f}% of bound, "
+        f"{ms / library_ms:.2f}x the bmm pair")
+    for p, name in (("dx", "dX"), ("dw", "dW")):
+        log("kernels", f"grouped_matmul_backward {label} {name} alone: "
+            f"kernel {part_ms[p]:.4f} ms, bmm {lib_part[p]:.4f} ms, bound "
+            f"{bounds[p][0]:.4f} ms ({bounds[p][1]}); kernel at "
+            f"{100 * bounds[p][0] / part_ms[p]:.1f}% of bound")
     return ms, plain_ms, library_ms, bound_ms, bound_by
 
 
@@ -3838,7 +3903,18 @@ def phase_train_moe(dev) -> dict:
         f"the others zero; launches {used} (exact); the backward calls "
         f"held on experts 0-{GM_BWD_HELD - 1} within {worst:.3e}; "
         f"max_memory_allocated {peak:.2f} GB")
-    del grads, gb, loss
+    del grads
+    if card_runs:
+        # the backward calls again on their own inputs, each timed alone
+        # (one warm-up call): their share of the loss and backward
+        bwd_ms = [cuda_ms(lambda a=args: gm_launch_backward(*a), 1,
+                          warmup=1) for args, _ in gb]
+        log(phase, f"the {len(gb)} grouped_matmul backward calls, replayed "
+            f"on their own inputs: " + ", ".join(f"{t:.3f}" for t in bwd_ms)
+            + f" ms, {sum(bwd_ms):.3f} ms together, "
+            f"{100 * sum(bwd_ms) / (1e3 * wall):.1f}% of the loss and "
+            f"backward's {1e3 * wall:.1f} ms")
+    del gb, loss
     free(params)
     cfg = cfg.replace(n_experts=MOE_TRAIN_EXPERTS)
     return train_full(dev, phase, cfg, 1, TRAIN_SEQ, int8=True)

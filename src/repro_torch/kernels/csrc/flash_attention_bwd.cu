@@ -21,49 +21,67 @@
 // P = 0 everywhere and gets dQ = 0.  dq, dk and dv take q's type.
 //
 // Three launches, no atomics, so the result is the same bit for bit on
-// every run (a supervised restart on the card replays it exactly):
-// * the D pre-pass: one warp per query row;
-// * dK/dV: one CTA per (b, KV head, block of keys).  It walks the G query
-//   heads of its group and, for each, the query tiles that can see its
-//   keys (from the block's first key on when causal, up to its last key +
-//   window - 1 with a window), and keeps dK and dV in registers, so the
-//   G-head reduction of GQA happens inside the CTA;
-// * dQ: one CTA per (b, query head, 64 query rows), over the key tiles its
-//   rows can see (the forward's walk).
+// every run (a supervised restart on the card replays it exactly): the D
+// pre-pass (one warp per query row), dK/dV, and dQ.
 //
 // What bounds it: operations, 10 * dh per (query row, head, valid key)
-// (QK^T and dO V^T recomputed or computed once each pass: 2 products of
-// 2 dh in dK/dV, 2 in dQ, plus P^T dO and dS^T Q, 2 dh each, and dS K:
-// 5 products of 2 dh), against the tensor cores' bf16 rate; the bytes are
-// q, k, v, out, dO, lse and the three gradients, a few MB at a
-// 1024-token sequence.  This first version is simple and right, not yet
-// fast: single-buffered tiles, every product recomputed per pass.
+// (QK^T, dO V^T, P^T dO, dS^T Q and dS K, 2 dh each), against the tensor
+// cores' bf16 rate; the bytes are q, k, v, out, dO, lse and the three
+// gradients, a few MB at a 1024-token sequence.
 //
-// * bf16: the tensor cores (mma.sync m16n8k16, bf16 operands, f32
-//   accumulators; the fragment layouts of hopper.cuh).  In dK/dV each of
-//   the 4 warps owns 16 keys: S^T = K_w Q^T and dP^T = V_w dO^T take K and
-//   V rows from shared memory as A fragments (ldmatrix) and Q, dO as B
-//   fragments; P^T and dS^T are rounded to bf16 in registers and used
-//   directly as the A fragments of dV += P^T dO and dK += dS^T Q (the C
-//   layout of m16n8 is the A layout of m16n8k16), with dO and Q through
-//   ldmatrix.trans.  In dQ each warp owns 16 query rows, with Q and dO as
-//   register A fragments loaded once; S = Q K^T and dP = dO V^T read K and
-//   V tiles as B fragments, and dQ += dS K reads K through ldmatrix.trans.
-//   Query tiles of dK/dV and key tiles of dQ are 32 rows at DH 128 and 64
-//   below, to keep the accumulators (dK and dV: 128 f32 registers at DH
-//   128) and the score tiles in registers.
+// * bf16: TMA, wgmma and warp specialisation.  Each kernel has three
+//   warpgroups: two consumers (setmaxnreg 232) and a producer (40) of
+//   which one warp works.  q and dO are read through (dh, H, S, B) tensor
+//   maps and k and v through (dh, Hkv, T, B) ones, in boxes of 64 columns
+//   of dh (128 bytes, the 128-byte swizzle) by 64 rows, so the body is DH
+//   = 64 (one box) or 128 (two); dh 112 and 120 take zeros past dh from
+//   outside the dh dimension, never the next head's columns, and rows
+//   past S or T arrive as zeros, never the next batch's.
+//   - dK/dV: one CTA per (b, KV head, 128 keys), the first key blocks
+//     (the heaviest under a causal mask) launched first.  Each consumer
+//     warpgroup holds 64 keys' K and V in shared memory (loaded once) and
+//     their dK and dV in f32 registers (DH / 2 each a thread).  The
+//     producer streams 64-query tiles of Q and dO by TMA through a ring
+//     of 4 stages, with their LSE (in log2 units) and D written into the
+//     stage by its 32 lanes; it walks the G query heads of the group, for
+//     each the tiles that can see the block's keys, so the GQA sum stays
+//     inside the CTA in a fixed order.  Per tile: S^T = K Q^T and dP^T =
+//     V dO^T (wgmma from shared memory, both operands K-major, 64 x 64);
+//     P^T and dS^T = P^T (dP^T - D) rounded to bf16 in the registers that
+//     hold them and used as register A operands of dV += P^T dO and dK +=
+//     dS^T Q (dO and Q as MN-major B).  A warpgroup skips a tile none of
+//     its pairs needs, and masks elements only where a pair may fail the
+//     mask.  Shared memory at DH 128: 64 KB of K and V, 32 KB a stage.
+//   - dQ: a second pass, one CTA per (b, query head, 128 rows), the last
+//     query blocks (the heaviest) first: each consumer warpgroup holds its
+//     64 rows of Q and dO in shared memory and dQ in registers, and the
+//     producer streams 64-key tiles of K and V through the ring.  S = Q
+//     K^T and dP = dO V^T are computed again, and dQ += dS K takes dS from
+//     registers and K as an MN-major B.  Seven products per valid pair
+//     against the bound's five: at the tensor cores' peak the design
+//     reaches at most 5/7 of the bound, the price of no atomics and no
+//     f32 workspace.
+//   - Grid fill: at B 1 x S 1024 and agent-7b's heads, 128-key blocks
+//     give 64 CTAs (8 KV heads x 8 blocks) for 132 SMs, and under a
+//     causal mask the first block's CTA walks 4 heads x 16 tiles.  Where
+//     the 128-key grid would leave SMs idle and G >= 2, the dK/dV pass
+//     takes 64-key blocks instead and splits the group's heads between
+//     the two warpgroups (ceil(G / 2) and the rest), warpgroup 1 handing
+//     its f32 sums to warpgroup 0 through shared memory at the end: twice
+//     the CTAs, half the tiles on the longest, the sum still in one fixed
+//     order.  The training shape (B 2 x S 4096) gives 512 CTAs of 128
+//     keys.
 // * f32: IEEE FMAs on the CUDA cores, four threads per key (dK/dV) or per
 //   query row (dQ), as the forward's f32 body; the f32 band of 2e-5 is
-//   beyond TF32.
-//
-// dh is any multiple of 8 up to 128 on the DH = 32, 64 or 128 wide body,
-// with zero columns past dh, as in the forward.
+//   beyond TF32.  dh is any multiple of 8 up to 128 on the DH = 32, 64 or
+//   128 wide body, with zero columns past dh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -348,41 +366,36 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int TC_NT = 128;        // 4 warps
-constexpr int TC_KB = 64;         // dK/dV: keys per CTA, 16 per warp
-constexpr int TC_BQ = 64;         // dQ: query rows per CTA, 16 per warp
+constexpr int TILE = 64;          // rows of a tile and of a warpgroup
+constexpr int BOX = 64;           // columns of dh in a box (128 bytes)
+constexpr int BOX_BYTES = BOX * TILE * 2;
+constexpr int NWG = 2;            // consumer warpgroups
+constexpr int THREADS = (NWG + 1) * 128;
+constexpr int BLOCK = NWG * TILE; // keys of a dK/dV CTA, rows of a dQ CTA
+constexpr int MAX_RING = 4;
+constexpr int BUDGET = 227 * 1024 - 256;   // dynamic shared memory a CTA
 
-// dK/dV's query tile and dQ's key tile: 32 rows at DH 128, else 64
-__host__ __device__ constexpr int tc_tile(int dh) { return dh == 128 ? 32 : 64; }
-
-constexpr int tc_dkdv_smem(int dh) {
-  return (2 * TC_KB + 2 * tc_tile(dh)) * (dh + 8) * 2 + 2 * tc_tile(dh) * 4;
-}
-
-constexpr int tc_dq_smem(int dh) {  // two stages of (K tile, V tile)
-  return 2 * 2 * tc_tile(dh) * (dh + 8) * 2;
-}
-
-// rows r0 .. r0 + ROWS - 1 of a (rows, stride) bf16 matrix into a shared
-// tile of pitch DH + 8 by cp.async; zeros past `limit` rows and dh columns
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           int64_t stride, int r0, int limit,
-                                           int dh) {
-  constexpr int P = DH + 8;
-  constexpr int CPR = DH / 8;
-  for (int ci = threadIdx.x; ci < ROWS * CPR; ci += TC_NT) {
-    const int row = ci / CPR;
-    const int col = (ci % CPR) * 8;
-    const bool ok = r0 + row < limit && col < dh;
-    const int64_t off = ok ? (r0 + row) * stride + col : 0;
-    cp_async16(dst + row * P + col, src + off, ok);
-  }
-}
+// Shared memory of both kernels at body width DH: the CTA's resident
+// block (two tensors x two warpgroups x DH/64 boxes: K and V, or Q and
+// dO), the ring of streamed tiles (two tensors x DH/64 boxes a stage), 64
+// f32 of LSE and of D a stage (dK/dV), and the barriers.
+template <int DH>
+struct Layout {
+  static constexpr int NB = DH / BOX;
+  static constexpr int RES_BYTES = 2 * NWG * NB * BOX_BYTES;
+  static constexpr int STAGE = 2 * NB * BOX_BYTES;
+  static constexpr int ROW_BYTES = MAX_RING * 2 * TILE * 4;
+  static constexpr int BAR_BYTES = (2 * MAX_RING + 1) * 8;
+  static constexpr int FIXED = 1024 + RES_BYTES + ROW_BYTES + BAR_BYTES;
+  static constexpr int RING = (BUDGET - FIXED) / STAGE < MAX_RING
+                                  ? (BUDGET - FIXED) / STAGE
+                                  : MAX_RING;
+  static constexpr int SMEM = FIXED + RING * STAGE;
+  static_assert(RING >= 2, "the ring needs two stages");
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -390,386 +403,497 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ unsigned load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// k-step kk (16 columns of dh) of a K-major 64-row operand DH wide: box
+// kk / 4, 32 bytes a step inside its swizzled rows
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* base,
+                                           int kk) {
+  return hopper::sw128_desc(base + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16,
+                            1024);
 }
 
-// acc[N/8][4] (16 rows x N) = A (16 x DH, register fragments a) times
-// the rows 0 .. N-1 of a shared tile (N x DH, pitch DH + 8) transposed
-template <int DH, int N>
-__device__ __forceinline__ void rows_by_tile(float (&acc)[N / 8][4],
-                                             const unsigned (&a)[DH / 16][4],
-                                             const __nv_bfloat16* tile) {
-  constexpr int P = DH + 8;
-  const int lane = threadIdx.x & 31;
+// k-step kk (16 rows) of an MN-major operand: 64-column boxes BOX_BYTES
+// apart, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* base,
+                                            int kk) {
+  return hopper::sw128_desc(base + kk * 2048, BOX_BYTES, 1024);
+}
+
+// a 64 x 64 f32 tile in the accumulator layout as bf16 register A
+// operands of four k-steps (wgmma.cuh)
+__device__ __forceinline__ void to_a_frags(const float (&c)[32],
+                                           unsigned (&a)[4][4]) {
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; kk += 2) {
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      unsigned f[4];
-      hopper::ldmatrix_x4(f, tile + (j * 8 + (lane & 7)) * P + kk * 16
-                                 + (lane >> 3) * 8);
-      hopper::mma_bf16(acc[j], a[kk], f[0], f[1]);
-      hopper::mma_bf16(acc[j], a[kk + 1], f[2], f[3]);
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = hopper::pack_bf16x2(c[8 * kk], c[8 * kk + 1]);
+    a[kk][1] = hopper::pack_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = hopper::pack_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = hopper::pack_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
 
-// the same with A the 16 rows w16 .. w16 + 15 of a shared tile
-template <int DH, int N>
-__device__ __forceinline__ void tile_rows_by_tile(float (&acc)[N / 8][4],
-                                                  const __nv_bfloat16* arows,
-                                                  const __nv_bfloat16* tile) {
-  constexpr int P = DH + 8;
-  const int lane = threadIdx.x & 31;
+template <int R>
+__device__ __forceinline__ void zero(float (&x)[R]) {
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    unsigned a[4];
-    hopper::ldmatrix_x4(a, arows + (lane & 15) * P + kk * 16
-                               + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < N / 8; j += 2) {
-      unsigned f[4];
-      // keys (rows) j*8 .. j*8 + 15 of the tile, head dims kk*16 .. +15
-      hopper::ldmatrix_x4(f, tile + (j * 8 + (lane & 7)
-                                     + ((lane >> 4) << 3)) * P
-                                 + kk * 16 + ((lane >> 3) & 1) * 8);
-      hopper::mma_bf16(acc[j], a, f[0], f[1]);
-      hopper::mma_bf16(acc[j + 1], a, f[2], f[3]);
-    }
-  }
+  for (int i = 0; i < R; ++i) x[i] = 0.f;
 }
 
-// acc (16 x DH) += A (16 x N, bf16 fragments pa) times rows 0 .. N-1 of a
-// shared tile (N x DH), through ldmatrix.trans
-template <int DH, int N>
-__device__ __forceinline__ void frag_by_tile(float (&acc)[DH / 8][4],
-                                             const unsigned (&pa)[N / 16][4],
-                                             const __nv_bfloat16* tile) {
-  constexpr int P = DH + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < DH / 8; n += 2) {
-      unsigned f[4];
-      hopper::ldmatrix_x4_trans(f, tile + (kk * 16 + (lane & 7)
-                                           + ((lane >> 3) & 1) * 8) * P
-                                       + n * 8 + (lane >> 4) * 8);
-      hopper::mma_bf16(acc[n], pa[kk], f[0], f[1]);
-      hopper::mma_bf16(acc[n + 1], pa[kk], f[2], f[3]);
-    }
-  }
-}
-
-// C fragments (16 x N, f32) as bf16 A fragments of a product over N
-template <int N>
-__device__ __forceinline__ void to_frags(const float (&c)[N / 8][4],
-                                         unsigned (&pa)[N / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    pa[j / 2][(j & 1) * 2] = hopper::pack_bf16x2(c[j][0], c[j][1]);
-    pa[j / 2][(j & 1) * 2 + 1] = hopper::pack_bf16x2(c[j][2], c[j][3]);
-  }
-}
-
+// S = A B^T over DH for two K-major 64-row operands (A from the
+// warpgroup's resident block, B a streamed tile), one commit group
 template <int DH>
-__global__ void __launch_bounds__(TC_NT, 1)
-flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
+__device__ __forceinline__ void scores(float (&s)[32],
+                                       const unsigned char* a,
+                                       const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    hopper::WgmmaSS<64>::mma<0, 0>(s, kmajor(a, kk), kmajor(b, kk), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// acc (64 x DH) += A (64 x 64, register operands a) B, B an MN-major
+// 64-row tile DH wide
+template <int DH>
+__device__ __forceinline__ void acc_product(float (&acc)[DH / 2],
+                                            const unsigned (&a)[4][4],
+                                            const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::WgmmaRS<DH>::template mma<1>(acc, a[kk], mnmajor(b, kk), 1);
+}
+
+// dK and dV of one (b, KV head, block of keys).  Thread roles:
+// warpgroups 0 and 1 the consumers, 2 the producer, whose warp 8 issues
+// the loads (lane 0) and writes each stage's LSE and D (all 32 lanes,
+// each arriving on the stage's barrier).  Two ways to share the block:
+// * HEADS false: 128 keys, 64 a consumer warpgroup, each walking all G
+//   query heads;
+// * HEADS true (a grid of 128-key blocks would leave SMs idle, G >= 2):
+//   64 keys, both warpgroups on them, warpgroup 0 walking the first
+//   ceil(G / 2) heads and warpgroup 1 the rest; at the end warpgroup 1
+//   hands its f32 sums to warpgroup 0 through shared memory, which adds
+//   them to its own (one fixed order) and stores.  Twice the CTAs, half
+//   the tiles on the longest one.
+template <int DH, bool HEADS>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap dmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
                           const float* __restrict__ lse,
                           const float* __restrict__ dsum,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int s_len,
                           int t_len, int h_q, int g, int dh, int causal,
                           int window, float scale, float scale_log2) {
-  constexpr int P = DH + 8;
-  constexpr int QT = tc_tile(DH);        // queries per tile
-  constexpr int NQ = QT / 8;             // n-tiles of S^T
-  constexpr int ND = DH / 8;             // n-tiles of dK, dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sv = sk + TC_KB * P;
-  __nv_bfloat16* sq = sv + TC_KB * P;
-  __nv_bfloat16* sdo = sq + QT * P;
-  float* sl = reinterpret_cast<float*>(sdo + QT * P);   // lse, log2 units
-  float* sd = sl + QT;                                   // D
+  using L = Layout<DH>;
+  constexpr int NB = L::NB;
+  constexpr int RING = L::RING;
+  constexpr int KEYS = HEADS ? TILE : BLOCK;     // keys of the CTA
+  constexpr int SETS = HEADS ? 1 : NWG;          // resident K/V sets
+  constexpr int WAYS = HEADS ? NWG : 1;          // stages a (head, tile)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sv = sk + NWG * NB * BOX_BYTES;
+  unsigned char* ring = sv + NWG * NB * BOX_BYTES;
+  float* sl = reinterpret_cast<float*>(ring + RING * L::STAGE);  // lse log2
+  float* sd = sl + MAX_RING * TILE;                               // D
+  uint64_t* full = reinterpret_cast<uint64_t*>(sd + MAX_RING * TILE);
+  uint64_t* empty = full + MAX_RING;
+  uint64_t* kv_full = empty + MAX_RING;
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = blockIdx.z * TC_KB;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
+  const int k0 = blockIdx.z * KEYS;      // the first key blocks first
   const int hkv = h_q / g;
-  const int kw = k0 + warp * 16;          // the warp's first key
+  const int gh = HEADS ? (g + 1) / 2 : g;   // heads of warpgroup 0
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = warp >> 2;
 
-  const int64_t krow = static_cast<int64_t>(hkv) * dh;
-  const int64_t kbase = static_cast<int64_t>(b) * t_len * krow + kh * dh;
-  stage_bf16<DH, TC_KB>(sk, k + kbase, krow, k0, t_len, dh);
-  stage_bf16<DH, TC_KB>(sv, v + kbase, krow, k0, t_len, dh);
-  cp_async_commit();
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) {
+      hopper::mbar_init(&full[i], 32);
+      hopper::mbar_init(&empty[i], HEADS ? 4 : NWG * 4);
+    }
+    hopper::mbar_init(kv_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  int q_begin = 0, q_end = s_len;       // the queries that see the block
+  int q_begin = 0, q_end = s_len;        // the queries that see the block
   if (causal) {
     q_begin = k0;
-    if (window > 0) q_end = min(s_len, min(k0 + TC_KB, t_len) - 1 + window);
+    if (window > 0) q_end = min(s_len, min(k0 + KEYS, t_len) - 1 + window);
   }
-  q_begin = (q_begin / QT) * QT;
-  const int kw_last = min(kw + 15, t_len - 1);
+  q_begin = (q_begin / TILE) * TILE;
+  const int n_tiles =
+      q_end > q_begin ? (q_end - q_begin + TILE - 1) / TILE : 0;
 
-  const int64_t qrow = static_cast<int64_t>(h_q) * dh;
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = kh * g + gi;
-    const int64_t qbase = static_cast<int64_t>(b) * s_len * qrow + h * dh;
-    const int64_t lb = (static_cast<int64_t>(b) * h_q + h) * s_len;
-    for (int i0 = q_begin; i0 < q_end; i0 += QT) {
-      __syncthreads();                   // the previous tile is consumed
-      stage_bf16<DH, QT>(sq, q + qbase, qrow, i0, s_len, dh);
-      stage_bf16<DH, QT>(sdo, dout + qbase, qrow, i0, s_len, dh);
-      cp_async_commit();
-      if (threadIdx.x < QT) {
-        const int i = i0 + threadIdx.x;
-        sl[threadIdx.x] = i < s_len ? lse[lb + i] * LOG2E : 0.f;
-        sd[threadIdx.x] = i < s_len ? dsum[lb + i] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-
-      // warp-uniform: does any (key, query) pair of the warp pass the
-      // masks, and do all of them?
-      const int i_last = min(i0 + QT, s_len) - 1;
-      bool need = kw < t_len && i0 < s_len;
-      bool full = kw + 16 <= t_len && i0 + QT <= s_len;
-      if (causal) {
-        need = need && i_last >= kw;
-        full = full && i0 >= kw + 15;
-        if (window > 0) {
-          need = need && i0 < kw_last + window;
-          full = full && i_last < kw + window;
-        }
-      }
-      if (!need) continue;
-
-      // S^T = K_w Q^T (16 keys x QT queries), then P^T in place
-      float s[NQ][4];
-      tile_rows_by_tile<DH, QT>(s, sk + warp * 16 * P, sq);
+  // The stages, in order: for each head step j and query tile, one stage
+  // a way (HEADS: warpgroup 0's head j, then warpgroup 1's head gh + j
+  // where it exists).
+  if (wg == NWG) {
+    // ---- producer ----
+    hopper::reg_dealloc<40>();
+    if (warp == NWG * 4) {
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * SETS * NB * BOX_BYTES);
 #pragma unroll
-      for (int j = 0; j < NQ; ++j)
+        for (int w = 0; w < SETS; ++w)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kw + gq + (e >> 1) * 8;
-          const int qi = i0 + j * 8 + 2 * tq + (e & 1);
-          bool ok = true;
-          if (!full) {
-            ok = key < t_len && qi < s_len;
-            if (causal)
-              ok = ok && key <= qi && (window <= 0 || key > qi - window);
+          for (int bx = 0; bx < NB; ++bx) {
+            hopper::tma_load_4d(sk + (w * NB + bx) * BOX_BYTES, &kmap,
+                                kv_full, bx * BOX, kh, k0 + w * TILE, b);
+            hopper::tma_load_4d(sv + (w * NB + bx) * BOX_BYTES, &vmap,
+                                kv_full, bx * BOX, kh, k0 + w * TILE, b);
           }
-          s[j][e] = ok ? ex2(fmaf(s[j][e], scale_log2, -sl[qi - i0])) : 0.f;
-        }
-      unsigned pa[QT / 16][4];
-      to_frags<QT>(s, pa);
-      frag_by_tile<DH, QT>(dva, pa, sdo);              // dV += P^T dO
-
-      // dP^T = V_w dO^T, then dS^T = P^T (dP^T - D) in bf16
-      float dp[NQ][4];
-      tile_rows_by_tile<DH, QT>(dp, sv + warp * 16 * P, sdo);
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * tq + (e & 1);
-          dp[j][e] = s[j][e] * (dp[j][e] - sd[qi]);
-        }
-      to_frags<QT>(dp, pa);
-      frag_by_tile<DH, QT>(dka, pa, sq);               // dK += dS^T Q
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kw + gq + 8 * r;
-    if (key >= t_len) continue;
-    const int64_t off = kbase + key * krow + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      if (n * 8 < dh) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-            __floats2bfloat162_rn(dka[n][2 * r] * scale,
-                                  dka[n][2 * r + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-            __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
       }
+      int it = 0;
+      for (int j = 0; j < gh; ++j) {
+        for (int tile = 0; tile < n_tiles; ++tile) {
+          const int i0 = q_begin + tile * TILE;
+          for (int w = 0; w < WAYS; ++w) {
+            const int gi = w * gh + j;
+            if (gi >= g) continue;
+            const int h = kh * g + gi;
+            const int64_t lb = (static_cast<int64_t>(b) * h_q + h) * s_len;
+            const int st = it % RING;
+            hopper::mbar_wait(&empty[st], ((it / RING) & 1) ^ 1);
+            for (int r = lane; r < TILE; r += 32) {
+              const int i = i0 + r;
+              sl[st * TILE + r] = i < s_len ? lse[lb + i] * LOG2E : 0.f;
+              sd[st * TILE + r] = i < s_len ? dsum[lb + i] : 0.f;
+            }
+            if (lane == 0) {
+              unsigned char* stage = ring + st * L::STAGE;
+              hopper::mbar_arrive_expect_tx(&full[st], L::STAGE);
+#pragma unroll
+              for (int bx = 0; bx < NB; ++bx) {
+                hopper::tma_load_4d(stage + bx * BOX_BYTES, &qmap, &full[st],
+                                    bx * BOX, h, i0, b);
+                hopper::tma_load_4d(stage + (NB + bx) * BOX_BYTES, &dmap,
+                                    &full[st], bx * BOX, h, i0, b);
+              }
+            } else {
+              hopper::mbar_arrive(&full[st]);
+            }
+            ++it;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    hopper::reg_alloc<232>();
+    const int kw = HEADS ? k0 : k0 + wg * TILE;  // the warpgroup's keys
+    const int kw_last = min(kw + TILE - 1, t_len - 1);
+    const int key_r = kw + 16 * (warp & 3) + (lane >> 2);  // and key_r + 8
+    const int qc = 2 * (lane & 3);             // query columns 8j + qc, +1
+    const unsigned char* my_k = sk + (HEADS ? 0 : wg) * NB * BOX_BYTES;
+    const unsigned char* my_v = sv + (HEADS ? 0 : wg) * NB * BOX_BYTES;
+    float dka[DH / 2], dva[DH / 2], s[32], dp[32];
+    zero(dka);
+    zero(dva);
+    zero(s);                // the first k-step of each product overwrites
+    zero(dp);
+    hopper::mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int j = 0; j < gh; ++j) {
+      for (int tile = 0; tile < n_tiles; ++tile) {
+        const int i0 = q_begin + tile * TILE;
+        for (int w = 0; w < WAYS; ++w) {
+          if (w * gh + j >= g) continue;
+          if (HEADS && w != wg) {              // the other warpgroup's
+            ++it;
+            continue;
+          }
+          const int st = it % RING;
+          hopper::mbar_wait(&full[st], (it / RING) & 1);
+          ++it;
+          // warpgroup-uniform: does any (key, query) pair pass the
+          // masks, and do all of them?
+          const int i_last = min(i0 + TILE, s_len) - 1;
+          bool need = kw < t_len && i0 < s_len;
+          bool whole = kw + TILE <= t_len && i0 + TILE <= s_len;
+          if (causal) {
+            need = need && i_last >= kw;
+            whole = whole && i0 >= kw + TILE - 1;
+            if (window > 0) {
+              need = need && i0 < kw_last + window;
+              whole = whole && i_last < kw + window;
+            }
+          }
+          if (need) {
+            const unsigned char* sq = ring + st * L::STAGE;
+            const unsigned char* sdo = sq + NB * BOX_BYTES;
+            const float* tl = sl + st * TILE;
+            const float* td = sd + st * TILE;
+            hopper::wgmma_fence();
+            scores<DH>(s, my_k, sq);               // S^T = K Q^T
+            scores<DH>(dp, my_v, sdo);             // dP^T = V dO^T
+            hopper::wgmma_wait<1>();
+            hopper::fence_regs(s);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int key = key_r + 8 * (i >> 1);
+                const int q = 8 * jj + qc + (i & 1);
+                bool ok = true;
+                if (!whole) {
+                  const int qi = i0 + q;
+                  ok = key < t_len && qi < s_len;
+                  if (causal)
+                    ok = ok && key <= qi && (window <= 0 || key > qi - window);
+                }
+                s[4 * jj + i] =
+                    ok ? ex2(fmaf(s[4 * jj + i], scale_log2, -tl[q])) : 0.f;
+              }
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dp);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                dp[4 * jj + i] = s[4 * jj + i]
+                                 * (dp[4 * jj + i] - td[8 * jj + qc + (i & 1)]);
+            unsigned pa[4][4], da[4][4];
+            to_a_frags(s, pa);                      // P^T in bf16
+            to_a_frags(dp, da);                     // dS^T in bf16
+            hopper::fence_regs(dva);
+            hopper::fence_regs(dka);
+            hopper::wgmma_fence();
+            acc_product<DH>(dva, pa, sdo);          // dV += P^T dO
+            acc_product<DH>(dka, da, sq);           // dK += dS^T Q
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dva);
+            hopper::fence_regs(dka);
+          }
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&empty[st]);
+        }
+      }
+    }
+    if (HEADS) {
+      // warpgroup 1's sums into the drained ring, added by warpgroup 0
+      // element by element (the same layout: the same keys)
+      float* part = reinterpret_cast<float*>(ring);
+      const int t = tid & 127;
+      hopper::named_barrier(1, NWG * 128);    // every stage is consumed
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) {
+          part[i * 128 + t] = dka[i];
+          part[(DH / 2 + i) * 128 + t] = dva[i];
+        }
+      }
+      hopper::named_barrier(1, NWG * 128);
+      if (wg == 1) return;
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) {
+        dka[i] += part[i * 128 + t];
+        dva[i] += part[(DH / 2 + i) * 128 + t];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key_r + 8 * r;
+      if (key >= t_len) continue;
+      const int64_t off =
+          (static_cast<int64_t>(b) * t_len + key) * hkv * dh
+          + static_cast<int64_t>(kh) * dh + qc;
+#pragma unroll
+      for (int jj = 0; jj < DH / 8; ++jj)
+        if (8 * jj < dh) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jj) =
+              __floats2bfloat162_rn(dka[4 * jj + 2 * r] * scale,
+                                    dka[4 * jj + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * jj) =
+              __floats2bfloat162_rn(dva[4 * jj + 2 * r],
+                                    dva[4 * jj + 2 * r + 1]);
+        }
+    }
   }
 }
 
+// dQ of one (b, query head, 128 rows).  Thread roles: warpgroups 0 and 1
+// the consumers (64 rows each), 2 the producer, of which one thread
+// issues the loads.
 template <int DH>
-__global__ void __launch_bounds__(TC_NT, 1)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap dmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
                         const float* __restrict__ lse,
                         const float* __restrict__ dsum,
                         __nv_bfloat16* __restrict__ dq, int s_len, int t_len,
                         int h_q, int g, int dh, int causal, int window,
                         float scale, float scale_log2) {
-  constexpr int P = DH + 8;
-  constexpr int KT = tc_tile(DH);         // keys per tile
-  constexpr int TILE = KT * P;
-  constexpr int KS = DH / 16;
-  constexpr int NS = KT / 8;
-  constexpr int ND = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  using L = Layout<DH>;
+  constexpr int NB = L::NB;
+  constexpr int RING = L::RING;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sdo = sq + NWG * NB * BOX_BYTES;
+  unsigned char* ring = sdo + NWG * NB * BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING * L::STAGE
+                                               + L::ROW_BYTES);
+  uint64_t* empty = full + MAX_RING;
+  uint64_t* qd_full = empty + MAX_RING;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_BQ;  // heaviest first
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int hkv = h_q / g;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BLOCK;   // heaviest first
   const int kh = h / g;
-  const int w0 = q0 + warp * 16;
-  const int w_last = min(w0 + 15, s_len - 1);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = warp >> 2;
 
-  int k_begin = 0, k_end = t_len;
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], NWG * 4);
+    }
+    hopper::mbar_init(qd_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  int k_begin = 0, k_end = t_len;        // the keys the block's rows see
   if (causal) {
-    k_end = min(min(q0 + TC_BQ, s_len), t_len);
+    k_end = min(min(q0 + BLOCK, s_len), t_len);
     if (window > 0) k_begin = max(q0 - window + 1, 0);
   }
-  k_begin = (k_begin / KT) * KT;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + KT - 1) / KT : 0;
+  k_begin = (k_begin / TILE) * TILE;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + TILE - 1) / TILE : 0;
 
-  const int64_t krow = static_cast<int64_t>(hkv) * dh;
-  const int64_t kbase = static_cast<int64_t>(b) * t_len * krow + kh * dh;
-  if (n_tiles > 0) {
-    stage_bf16<DH, KT>(smem, k + kbase, krow, k_begin, t_len, dh);
-    stage_bf16<DH, KT>(smem + TILE, v + kbase, krow, k_begin, t_len, dh);
-  }
-  cp_async_commit();
-
-  // the warp's 16 rows of q and dO as A fragments, once; zeros past S
-  // and past dh
-  unsigned qa[KS][4], da[KS][4];
-  const int r0 = w0 + gq;
-  const int r1 = r0 + 8;
-  {
-    const int64_t o0 = (static_cast<int64_t>(b) * s_len + min(r0, s_len - 1))
-                       * h_q * dh + static_cast<int64_t>(h) * dh;
-    const int64_t o1 = (static_cast<int64_t>(b) * s_len + min(r1, s_len - 1))
-                       * h_q * dh + static_cast<int64_t>(h) * dh;
+  if (wg == NWG) {
+    // ---- producer ----
+    hopper::reg_dealloc<40>();
+    if (tid == NWG * 128) {
+      hopper::mbar_arrive_expect_tx(qd_full, L::RES_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int col = kk * 16 + 2 * tq;
-      const bool c0 = col < dh, c1 = col + 8 < dh;
-      qa[kk][0] = r0 < s_len && c0 ? load_pair(q + o0 + col) : 0u;
-      qa[kk][1] = r1 < s_len && c0 ? load_pair(q + o1 + col) : 0u;
-      qa[kk][2] = r0 < s_len && c1 ? load_pair(q + o0 + col + 8) : 0u;
-      qa[kk][3] = r1 < s_len && c1 ? load_pair(q + o1 + col + 8) : 0u;
-      da[kk][0] = r0 < s_len && c0 ? load_pair(dout + o0 + col) : 0u;
-      da[kk][1] = r1 < s_len && c0 ? load_pair(dout + o1 + col) : 0u;
-      da[kk][2] = r0 < s_len && c1 ? load_pair(dout + o0 + col + 8) : 0u;
-      da[kk][3] = r1 < s_len && c1 ? load_pair(dout + o1 + col + 8) : 0u;
-    }
-  }
-  const int64_t lb = (static_cast<int64_t>(b) * h_q + h) * s_len;
-  const float l2[2] = {r0 < s_len ? lse[lb + r0] * LOG2E : 0.f,
-                       r1 < s_len ? lse[lb + r1] * LOG2E : 0.f};
-  const float dd[2] = {r0 < s_len ? dsum[lb + r0] : 0.f,
-                       r1 < s_len ? dsum[lb + r1] : 0.f};
-
-  float acc[ND][4];
+      for (int w = 0; w < NWG; ++w)
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();              // tile `it` landed; tile it - 1 consumed
-    if (it + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + ((it + 1) & 1) * 2 * TILE;
-      stage_bf16<DH, KT>(nxt, k + kbase, krow, k_begin + (it + 1) * KT,
-                         t_len, dh);
-      stage_bf16<DH, KT>(nxt + TILE, v + kbase, krow,
-                         k_begin + (it + 1) * KT, t_len, dh);
-    }
-    cp_async_commit();
-
-    const int k0 = k_begin + it * KT;
-    bool need = w0 < s_len;
-    bool full = k0 + KT <= t_len && w0 + 16 <= s_len;
-    if (causal) {
-      need = need && k0 <= w_last;
-      full = full && k0 + KT - 1 <= w0;
-      if (window > 0) {
-        need = need && k0 + KT - 1 > w0 - window;
-        full = full && k0 > w_last - window;
-      }
-    }
-    if (!need) continue;
-
-    const __nv_bfloat16* sk = smem + (it & 1) * 2 * TILE;
-    const __nv_bfloat16* sv = sk + TILE;
-    float s[NS][4], dp[NS][4];
-    rows_by_tile<DH, KT>(s, qa, sk);                   // S = Q K^T
-    rows_by_tile<DH, KT>(dp, da, sv);                  // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * tq + (e & 1);
-        const int rr = e >> 1;
-        const int row = w0 + gq + rr * 8;
-        bool ok = true;
-        if (!full) {
-          ok = key < t_len && row < s_len;
-          if (causal)
-            ok = ok && key <= row && (window <= 0 || key > row - window);
+        for (int bx = 0; bx < NB; ++bx) {
+          hopper::tma_load_4d(sq + (w * NB + bx) * BOX_BYTES, &qmap, qd_full,
+                              bx * BOX, h, q0 + w * TILE, b);
+          hopper::tma_load_4d(sdo + (w * NB + bx) * BOX_BYTES, &dmap,
+                              qd_full, bx * BOX, h, q0 + w * TILE, b);
         }
-        const float p = ok ? ex2(fmaf(s[j][e], scale_log2, -l2[rr])) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dd[rr]);             // dS
+      for (int tile = 0; tile < n_tiles; ++tile) {
+        const int st = tile % RING;
+        hopper::mbar_wait(&empty[st], ((tile / RING) & 1) ^ 1);
+        unsigned char* stage = ring + st * L::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[st], L::STAGE);
+        const int t0 = k_begin + tile * TILE;
+#pragma unroll
+        for (int bx = 0; bx < NB; ++bx) {
+          hopper::tma_load_4d(stage + bx * BOX_BYTES, &kmap, &full[st],
+                              bx * BOX, kh, t0, b);
+          hopper::tma_load_4d(stage + (NB + bx) * BOX_BYTES, &vmap,
+                              &full[st], bx * BOX, kh, t0, b);
+        }
       }
-    unsigned pa[KT / 16][4];
-    to_frags<KT>(dp, pa);
-    frag_by_tile<DH, KT>(acc, pa, sk);                 // dQ += dS K
-  }
-  cp_async_wait<0>();
-
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    hopper::reg_alloc<232>();
+    const int w0 = q0 + wg * TILE;             // the warpgroup's first row
+    const int w_last = min(w0 + TILE - 1, s_len - 1);
+    const int row_r = w0 + 16 * (warp & 3) + (lane >> 2);  // and row_r + 8
+    const int kc = 2 * (lane & 3);             // key columns 8j + kc, +1
+    const unsigned char* my_q = sq + wg * NB * BOX_BYTES;
+    const unsigned char* my_do = sdo + wg * NB * BOX_BYTES;
+    const int64_t lb = (static_cast<int64_t>(b) * h_q + h) * s_len;
+    float l2[2], dd[2];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = w0 + gq + 8 * rr;
-    if (row >= s_len) continue;
-    __nv_bfloat16* op = dq + (static_cast<int64_t>(b) * s_len + row) * h_q * dh
-                        + static_cast<int64_t>(h) * dh + 2 * tq;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_r + 8 * r;
+      l2[r] = row < s_len ? lse[lb + row] * LOG2E : 0.f;
+      dd[r] = row < s_len ? dsum[lb + row] : 0.f;
+    }
+    float dqa[DH / 2], s[32], dp[32];
+    zero(dqa);
+    zero(s);                // the first k-step of each product overwrites
+    zero(dp);
+    hopper::mbar_wait(qd_full, 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int t0 = k_begin + tile * TILE;
+      const int st = tile % RING;
+      hopper::mbar_wait(&full[st], (tile / RING) & 1);
+      bool need = w0 < s_len;
+      bool whole = t0 + TILE <= t_len && w0 + TILE <= s_len;
+      if (causal) {
+        need = need && t0 <= w_last;
+        whole = whole && t0 + TILE - 1 <= w0;
+        if (window > 0) {
+          need = need && t0 + TILE - 1 > w0 - window;
+          whole = whole && t0 > w_last - window;
+        }
+      }
+      if (need) {
+        const unsigned char* skt = ring + st * L::STAGE;
+        const unsigned char* svt = skt + NB * BOX_BYTES;
+        hopper::wgmma_fence();
+        scores<DH>(s, my_q, skt);                // S = Q K^T
+        scores<DH>(dp, my_do, svt);              // dP = dO V^T
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      if (n * 8 < dh)
-        *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
-            __floats2bfloat162_rn(acc[n][2 * rr] * scale,
-                                  acc[n][2 * rr + 1] * scale);
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = row_r + 8 * (i >> 1);
+            const int key = t0 + 8 * j + kc + (i & 1);
+            bool ok = true;
+            if (!whole) {
+              ok = key < t_len && row < s_len;
+              if (causal)
+                ok = ok && key <= row && (window <= 0 || key > row - window);
+            }
+            s[4 * j + i] =
+                ok ? ex2(fmaf(s[4 * j + i], scale_log2, -l2[i >> 1])) : 0.f;
+          }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dp[4 * j + i] = s[4 * j + i] * (dp[4 * j + i] - dd[i >> 1]);
+        unsigned da[4][4];
+        to_a_frags(dp, da);                       // dS in bf16
+        hopper::fence_regs(dqa);
+        hopper::wgmma_fence();
+        acc_product<DH>(dqa, da, skt);            // dQ += dS K
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dqa);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_r + 8 * r;
+      if (row >= s_len) continue;
+      __nv_bfloat16* op = dq + (static_cast<int64_t>(b) * s_len + row)
+                                   * h_q * dh
+                          + static_cast<int64_t>(h) * dh + kc;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        if (8 * j < dh)
+          *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * r] * scale,
+                                    dqa[4 * j + 2 * r + 1] * scale);
+    }
   }
 }
 
@@ -823,62 +947,94 @@ cudaError_t launch_f32(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+
+// the (dh, heads, rows, B) tensor map of a (B, rows, heads, dh) bf16
+// tensor, in boxes of 64 columns of dh x 1 head x 64 rows
+bool head_map(CUtensorMap* map, const void* p, int batch, int rows,
+              int heads, int dh) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(dh),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[3] = {2ull * dh, 2ull * heads * dh,
+                               2ull * rows * heads * dh};
+  const uint32_t box[4] = {BOX, 1, TILE, 1};
+  return hopper::encode_tensor_map_nd(map, p, 4, dims, strides, box);
+}
+
 template <int DH>
-cudaError_t launch_mma(const BwdArgs& a) {
-  constexpr int S1 = tc_dkdv_smem(DH);
-  constexpr int S2 = tc_dq_smem(DH);
+int launch_tma(const BwdArgs& a) {
+  using L = Layout<DH>;
   static bool smem_set = false;   // the attributes, once per instantiation
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv_mma_kernel<DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, S1);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DH>,
+        flash_bwd_dkdv_tma_kernel<DH, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_tma_kernel<DH, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S2);
-    if (err != cudaSuccess) return err;
+                               L::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  cudaError_t err = launch_dot<__nv_bfloat16>(a);
-  if (err != cudaSuccess) return err;
   const int hkv = a.h_q / a.g;
-  const int kblocks = (a.t_len + TC_KB - 1) / TC_KB;
-  const int qblocks = (a.s_len + TC_BQ - 1) / TC_BQ;
+  int kblocks = (a.t_len + BLOCK - 1) / BLOCK;
+  const int qblocks = (a.s_len + BLOCK - 1) / BLOCK;
+  // 128-key blocks that would leave SMs idle split the group's heads
+  // between the warpgroups instead, over 64-key blocks
+  const bool heads = a.g >= 2 && static_cast<int64_t>(hkv) * a.batch
+                                         * kblocks < hopper::sm_count();
+  if (heads) kblocks = (a.t_len + TILE - 1) / TILE;
   if (a.batch > 65535 || kblocks > 65535 || qblocks > 65535)
-    return cudaErrorInvalidConfiguration;
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap qm, dm, km, vm;
+  if (!head_map(&qm, a.q, a.batch, a.s_len, a.h_q, a.dh) ||
+      !head_map(&dm, a.dout, a.batch, a.s_len, a.h_q, a.dh) ||
+      !head_map(&km, a.k, a.batch, a.t_len, hkv, a.dh) ||
+      !head_map(&vm, a.v, a.batch, a.t_len, hkv, a.dh))
+    return -2;
+  cudaError_t err = launch_dot<__nv_bfloat16>(a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = a.scale * LOG2E;
-  dim3 g1(hkv, a.batch, kblocks);
-  flash_bwd_dkdv_mma_kernel<DH><<<g1, TC_NT, S1, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.dsum,
-      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
-      a.s_len, a.t_len, a.h_q, a.g, a.dh, a.causal, a.window, a.scale,
-      scale_log2);
+  const dim3 grid(hkv, a.batch, kblocks);
+  if (heads)
+    flash_bwd_dkdv_tma_kernel<DH, true><<<grid, THREADS, L::SMEM, a.stream>>>(
+        qm, dm, km, vm, a.lse, a.dsum, static_cast<__nv_bfloat16*>(a.dk),
+        static_cast<__nv_bfloat16*>(a.dv), a.s_len, a.t_len, a.h_q, a.g,
+        a.dh, a.causal, a.window, a.scale, scale_log2);
+  else
+    flash_bwd_dkdv_tma_kernel<DH, false>
+        <<<grid, THREADS, L::SMEM, a.stream>>>(
+            qm, dm, km, vm, a.lse, a.dsum,
+            static_cast<__nv_bfloat16*>(a.dk),
+            static_cast<__nv_bfloat16*>(a.dv), a.s_len, a.t_len, a.h_q, a.g,
+            a.dh, a.causal, a.window, a.scale, scale_log2);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 g2(a.h_q, a.batch, qblocks);
-  flash_bwd_dq_mma_kernel<DH><<<g2, TC_NT, S2, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.dsum,
-      static_cast<__nv_bfloat16*>(a.dq), a.s_len, a.t_len, a.h_q, a.g, a.dh,
-      a.causal, a.window, a.scale, scale_log2);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_tma_kernel<DH>
+      <<<dim3(a.h_q, a.batch, qblocks), THREADS, L::SMEM, a.stream>>>(
+          qm, dm, km, vm, a.lse, a.dsum, static_cast<__nv_bfloat16*>(a.dq),
+          a.s_len, a.t_len, a.h_q, a.g, a.dh, a.causal, a.window, a.scale,
+          scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores).  q, out, dout and dq are (B, S, H,
+// cores), 1 = bfloat16 (TMA + wgmma; row strides H dh and Hkv dh of 16
+// bytes, which dh % 8 == 0 gives).  q, out, dout and dq are (B, S, H,
 // dh); k, v, dk and dv (B, T, Hkv, dh); lse is the forward's (B, H, S) f32
 // log-sum-exp and dsum a (B, H, S) f32 scratch the caller allocates (D).
-// Every tensor is contiguous.  Launches the D pre-pass, dK/dV and dQ, in
-// that order, on `stream`; allocates nothing.  Returns the CUDA error of
-// the first launch that fails (0 on success), or -1 when the (dtype, dh,
-// G) combination is not supported.
+// Every tensor is contiguous and 16-byte aligned.  Launches the D
+// pre-pass, dK/dV and dQ, in that order, on `stream`; allocates nothing.
+// Returns the CUDA error of the first launch that fails (0 on success),
+// -1 when the (dtype, dh, G) combination is not supported, -2 when the
+// driver refuses a tensor map.
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
@@ -891,14 +1047,17 @@ extern "C" int flash_attention_bwd_launch(
                   static_cast<float*>(dsum), dq, dk, dv, batch, s_len, t_len,
                   h_q, h_q / hkv, dh, causal, window, scale,
                   static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
   switch (head_width(dh)) {
-    case 32: err = dtype == 0 ? launch_f32<32>(a) : launch_mma<32>(a); break;
-    case 64: err = dtype == 0 ? launch_f32<64>(a) : launch_mma<64>(a); break;
+    case 32:
+      return dtype == 0 ? static_cast<int>(launch_f32<32>(a))
+                        : launch_tma<64>(a);
+    case 64:
+      return dtype == 0 ? static_cast<int>(launch_f32<64>(a))
+                        : launch_tma<64>(a);
     case 128:
-      err = dtype == 0 ? launch_f32<128>(a) : launch_mma<128>(a);
-      break;
-    default: return -1;
+      return dtype == 0 ? static_cast<int>(launch_f32<128>(a))
+                        : launch_tma<128>(a);
+    default:
+      return -1;
   }
-  return static_cast<int>(err);
 }

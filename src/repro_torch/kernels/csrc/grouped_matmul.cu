@@ -76,6 +76,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -335,23 +336,8 @@ grouped_matmul_tma_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 
   // the live experts in expert order: a block scan of (counts > 0)
-  int n_live = 0;
-  for (int e0 = 0; e0 < e_len; e0 += L::THREADS) {
-    const int e = e0 + tid;
-    const bool is_live = e < e_len && clamp_count(counts, e, c_len) > 0;
-    const unsigned m = __ballot_sync(0xffffffffu, is_live);
-    if (lane == 0) warp_cnt[warp] = __popc(m);
-    __syncthreads();
-    int before = n_live, total = 0;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      before += w < warp ? warp_cnt[w] : 0;
-      total += warp_cnt[w];
-    }
-    if (is_live) live[before + __popc(m & ((1u << lane) - 1u))] = e;
-    n_live += total;
-    __syncthreads();            // the list is whole; warp_cnt is reused
-  }
+  const int n_live = hopper::live_experts(counts, e_len, c_len, live,
+                                          warp_cnt);
 
   const int tiles = (f_len + BN - 1) / BN;
   const int nrb = (c_len + N - 1) / N;
@@ -435,7 +421,7 @@ grouped_matmul_tma_kernel(const __grid_constant__ CUtensorMap wmap,
         const uint64_t bdesc = hopper::sw128_desc(xt + kk * 32, 16, 1024);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          hopper::Wgmma<N>::mma(
+          hopper::WgmmaSS<N>::template mma<1, 0>(
               acc[mt],
               hopper::sw128_desc(stage + (wg * MT + mt) * L::W_BOX
                                      + kk * 2048, 8192, 1024),

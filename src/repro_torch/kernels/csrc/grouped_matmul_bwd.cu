@@ -16,236 +16,451 @@
 //   dW[e] = x[e, :n]^T @ dOut[e, :n],  n = counts[e]; zeros for an expert
 //                              no token chose
 // (counts clamped to [0, C]), accumulated in f32 and written in x's type.
+// Rows of x and dOut past a count may hold anything, NaN included (the
+// forward's contract): no such row reaches a live output.
 //
-// What bounds it: bytes.  dX reads the live experts' weights once (a row
-// block past counts[e] never reads w[e], as the forward skips it) and dOut;
-// dW writes E * d * f.  At arctic-480b's training shape (E 128, C 88, d
-// 7168, f 4864) each is 8.9 GB of bf16, about 2.7 ms at 3.35 TB/s, against
-// 0.8 ms of bf16 tensor-core work.
+// What bounds it: bytes.  dX reads the live experts' weights once and
+// dOut; dW writes E * d * f.  At arctic-480b's training shape (E 128, C
+// 88, d 7168, f 4864) each is 8.9 GB of bf16, about 2.7 ms at 3.35 TB/s,
+// against 0.8 ms of bf16 tensor-core work; at a decode step (C 8) dW's
+// write is most of it, dead experts' zeros included.
 //
-// Two deterministic kernels a product, no atomics (every sum inside one CTA
-// in a fixed order), so two runs give the same bits:
-// * bf16 with d and f multiples of 8 and 16-byte aligned rows: mma.sync
-//   m16n8k16 (bf16 operands, f32 accumulators; the fragment layouts of
-//   hopper.cuh), tiles double-buffered through cp.async.
-//   - dX: one CTA (4 warps) per (expert, 64 columns of d, 128 rows of C).
-//     w is read in its stored (E, d, f) layout as the transposed operand:
-//     a row of w[e] is a K-major column of w[e]^T, so both operands load
-//     with plain ldmatrix and no transposed copy of the experts exists (it
-//     would be 8.9 GB a product at arctic).  Each warp owns 16 columns and
-//     the live 16-row tiles of the block; 128 rows cover C = 88 in one
-//     block, so w[e] is read once.
-//   - dW: one CTA per (expert, 64 rows of d, 128 columns of f), walking the
-//     live rows of C 32 at a time (C = 88 at arctic's B 1 x S 4096, so no
-//     split of C is needed); x and dOut tiles are C-major, loaded as
-//     fragments through ldmatrix.trans.
-// * otherwise (f32, or widths that are not multiples of 8): IEEE f32 FMAs
-//   on the CUDA cores (no TF32: the f32 band of 2e-5 is beyond it), 64 x 64
-//   output tiles, the reduction staged 16 deep, 4 x 4 outputs a thread.
+// bf16 with d and f multiples of 8 (16-byte rows for TMA): two persistent,
+// warp-specialised kernels on TMA and wgmma, one CTA per SM, deterministic
+// with no atomics (each output element is one CTA's sum over its
+// reduction in one fixed order), so two runs give the same bits.
+//
+// * dX, the forward's pipeline transposed (swap-AB): dX[e]^T = w[e]
+//   dOut[e]^T, M = 64 rows of d per w box, N = the unit's rows of C (the
+//   smallest of 8, 16, 32, 48, 64, 96, 128 that holds C, else blocks of
+//   128), K = f, 64 a stage.  A row of w[e] is contiguous in f, so the w
+//   box is a K-major A operand read in place (no 8.9 GB transposed copy);
+//   dOut's box is a K-major B.  Each CTA builds the live-expert list from
+//   counts in shared memory (hopper::live_experts, the forward's) and
+//   walks units (live expert, 128 columns of d, row block) in a fixed
+//   stride order; one producer thread keeps a ring of up to 8 stages full
+//   (w evict-first, dOut evict-last in L2: every column tile of an expert
+//   reads its dOut again); two consumer warpgroups own 64 columns each.
+//   Rows at or past a count (dead experts whole) are written as zeros
+//   first, reading nothing.  The f32 tile goes through a bf16 staging tile
+//   (row n, 64 columns) to 16-byte stores of the live rows.  Past 1024
+//   experts the list does not fit and every expert is walked, the dead
+//   ones skipped.
+// * dW, write-streaming: output tiles (expert, 128 rows of d, 256 columns
+//   of f) in a fixed stride order over the CTAs.  Per tile the producer
+//   brings, 64 live rows a stage, x[e]'s slab (two 64 d x 64 row boxes:
+//   an MN-major A, x^T) and dOut[e]'s (four 64 f x 64 row boxes: an
+//   MN-major B); K = counts[e] rounded up to 16.  The rows from the count
+//   to that multiple of 16 are zeroed in shared memory before the wgmma
+//   (TMA zero-fills only past C, and NaN * 0 is NaN).  Each consumer
+//   warpgroup (64 rows of d, setmaxnreg 232) keeps its 64 x 256 f32 tile
+//   in registers (one m64n256k16 a k-step), rounds it to bf16 into a
+//   128-byte-swizzled staging tile and writes it by TMA stores, so the
+//   write of one tile overlaps the next tile's loads and products.  An
+//   expert no token chose gets its tiles stored from a zero box, reading
+//   nothing.  Stores carry evict-first, loads evict-last.
+//
+// Otherwise (f32, or widths that are not multiples of 8): IEEE f32 FMAs on
+// the CUDA cores (no TF32: the f32 band of 2e-5 is beyond it), 64 x 64
+// output tiles, the reduction staged 16 deep, 4 x 4 outputs a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int TC_NT = 128;       // 4 warps
-constexpr int DX_ROWS = 128;     // rows of C a dX CTA covers
-constexpr int DX_COLS = 64;      // columns of d a dX CTA covers
-constexpr int DW_ROWS = 64;      // rows of d a dW CTA covers
-constexpr int DW_COLS = 128;     // columns of f a dW CTA covers
-constexpr int KS = 32;           // reduction depth a stage holds
-constexpr int PK = KS + 8;       // padded row of a K-major stage (80 bytes)
-constexpr int PX = DW_ROWS + 8;  // padded row of a dW x stage (144 bytes)
-constexpr int PG = DW_COLS + 8;  // padded row of a dW dOut stage (272 bytes)
 
 __device__ __forceinline__ int live_rows(const int* counts, int e, int c) {
   return min(max(counts[e], 0), c);
 }
 
-__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a,
-                                             float b) {
-  *reinterpret_cast<unsigned*>(p) = hopper::pack_bf16x2(a, b);
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: TMA + wgmma, persistent
+// ---------------------------------------------------------------------------
+
+constexpr int TK = 64;           // reduction per stage: one 128-byte box row
+constexpr int BOX = 64;          // a box: 64 contiguous elements x 64 rows
+constexpr int BOX_BYTES = BOX * BOX * 2;
+constexpr int NWG = 2;           // consumer warpgroups
+constexpr int MAX_E = 1024;      // experts the shared live list holds
+constexpr int BUDGET = 227 * 1024 - 256;   // dynamic shared memory a CTA
+
+// dX: units of N rows x 128 columns of d; a ring as deep as fits, at
+// most 8 stages
+template <int N>
+struct DxLayout {
+  static constexpr int W_BYTES = NWG * BOX_BYTES;   // two 64 d x 64 f boxes
+  static constexpr int G_BYTES = N * TK * 2;        // N rows x 64 f of dOut
+  static constexpr int STAGE = W_BYTES + G_BYTES;   // a multiple of 1024
+  static constexpr int STG_P = BOX + 8;             // staging pitch, bf16
+  static constexpr int STG_BYTES = NWG * N * STG_P * 2;
+  static constexpr int LIST_BYTES = MAX_E * 4;
+  static constexpr int MAX_RING = 8;
+  static constexpr int BAR_BYTES = 2 * MAX_RING * 8;
+  static constexpr int FIXED = 1024 + STG_BYTES + LIST_BYTES + BAR_BYTES;
+  static constexpr int RING = (BUDGET - FIXED) / STAGE < MAX_RING
+                                  ? (BUDGET - FIXED) / STAGE
+                                  : MAX_RING;
+  static constexpr int SMEM = FIXED + RING * STAGE;
+  static constexpr int THREADS = NWG * 128 + 32;
+  static_assert(RING >= 3, "the ring needs three stages");
+};
+
+// one dX unit: (live expert le, column tile, row block rb), rb fastest
+struct Unit {
+  int le, tile, rb;
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int tiles, int nrb) {
+  Unit o;
+  o.rb = u % nrb;
+  u /= nrb;
+  o.tile = u % tiles;
+  o.le = u / tiles;
+  return o;
 }
 
-// dX (E, C, d) = dOut (E, C, f) w^T over the live rows.  grid (d / 64, C /
-// 128, E).
-__global__ void __launch_bounds__(TC_NT)
-gm_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ dout,
-                     const __nv_bfloat16* __restrict__ w,
-                     const int* __restrict__ counts,
-                     __nv_bfloat16* __restrict__ dx, int c, int d, int f) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][DX_ROWS][PK];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][DX_COLS][PK];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * DX_ROWS, n0 = blockIdx.x * DX_COLS;
-  const int live = min(live_rows(counts, e, c) - m0, DX_ROWS);
-  const int gq = lane >> 2, tq = lane & 3;
-  __nv_bfloat16* out = dx + static_cast<int64_t>(e) * c * d;
-  if (live <= 0) {               // no live row: zeros, and w is not read
-    for (int idx = tid; idx < DX_ROWS * DX_COLS / 2; idx += TC_NT) {
-      const int r = m0 + idx / (DX_COLS / 2);
-      const int col = n0 + idx % (DX_COLS / 2) * 2;
-      if (r < c && col < d)
-        store_bf16x2(out + static_cast<int64_t>(r) * d + col, 0.f, 0.f);
+// Thread roles: warps 0-7 the two consumer warpgroups, warp 8 the
+// producer, of which one thread issues the copies.
+template <int N>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+gm_bwd_dx_tma_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap gmap,
+                     const int32_t* __restrict__ counts,
+                     __nv_bfloat16* __restrict__ dx, int e_len, int c_len,
+                     int d_len, int f_len) {
+  using L = DxLayout<N>;
+  constexpr int RING = L::RING;
+  constexpr int BD = NWG * BOX;                 // columns of d a unit
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int warp_cnt[L::THREADS / 32];
+  unsigned char* ring =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* stg =
+      reinterpret_cast<__nv_bfloat16*>(ring + RING * L::STAGE);
+  int* live = reinterpret_cast<int*>(ring + RING * L::STAGE + L::STG_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + RING * L::STAGE + L::STG_BYTES + L::LIST_BYTES);
+  uint64_t* empty = full + L::MAX_RING;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], NWG * 4);
     }
-    return;
+    hopper::fence_barrier_init();
   }
-  const int live_mt = (live + 15) / 16;
-  const __nv_bfloat16* gsrc = dout + (static_cast<int64_t>(e) * c + m0) * f;
-  const __nv_bfloat16* wsrc = w + (static_cast<int64_t>(e) * d + n0) * f;
-  auto load = [&](int st, int k0) {
-    for (int idx = tid; idx < live_mt * 16 * (KS / 8); idx += TC_NT) {
-      const int r = idx / (KS / 8), col = k0 + idx % (KS / 8) * 8;
-      const bool ok = r < live && col < f;
-      cp_async16(&as[st][r][idx % (KS / 8) * 8],
-                 ok ? gsrc + static_cast<int64_t>(r) * f + col : gsrc, ok);
-    }
-    for (int idx = tid; idx < DX_COLS * (KS / 8); idx += TC_NT) {
-      const int r = idx / (KS / 8), col = k0 + idx % (KS / 8) * 8;
-      const bool ok = n0 + r < d && col < f;
-      cp_async16(&bs[st][r][idx % (KS / 8) * 8],
-                 ok ? wsrc + static_cast<int64_t>(r) * f + col : wsrc, ok);
-    }
-  };
-  float acc[DX_ROWS / 16][2][4];
+  // the live experts; past MAX_E every expert is walked, dead ones skipped
+  const bool listed = e_len <= MAX_E;
+  const int n_live = listed ? hopper::live_experts(counts, e_len, c_len,
+                                                   live, warp_cnt)
+                            : e_len;
+  __syncthreads();
+
+  const int tiles = (d_len + BD - 1) / BD;
+  const int nrb = (c_len + N - 1) / N;
+  const int kblocks = (f_len + TK - 1) / TK;
+  const int units = n_live * tiles * nrb;
+
+  if (warp == NWG * 4) {
+    // ---- producer: one thread keeps the ring full ----
+    if (lane == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit un = unit_of(u, tiles, nrb);
+        const int e = listed ? live[un.le] : un.le;
+        if (un.rb * N >= live_rows(counts, e, c_len)) continue;
+        for (int kb = 0; kb < kblocks; ++kb, ++it) {
+          const int st = it % RING;
+          hopper::mbar_wait(&empty[st], ((it / RING) & 1) ^ 1);
+          unsigned char* stage = ring + st * L::STAGE;
+          hopper::mbar_arrive_expect_tx(&full[st], L::STAGE);
 #pragma unroll
-  for (int mt = 0; mt < DX_ROWS / 16; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-  const int nk = (f + KS - 1) / KS;
-  load(0, 0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) load((kc + 1) & 1, (kc + 1) * KS);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = kc & 1;
-#pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk) {
-      unsigned fb[4];
-      // w rows (columns of dX) 16 warp .. + 15, f kk*16 .. + 15
-      hopper::ldmatrix_x4(fb, &bs[st][warp * 16 + (lane & 7)
-                                      + ((lane >> 4) << 3)]
-                                     [kk * 16 + ((lane >> 3) & 1) * 8]);
-#pragma unroll
-      for (int mt = 0; mt < DX_ROWS / 16; ++mt) {
-        if (mt < live_mt) {      // uniform over the CTA
-          unsigned a[4];
-          hopper::ldmatrix_x4(a, &as[st][mt * 16 + (lane & 15)]
-                                        [kk * 16 + (lane >> 4) * 8]);
-          hopper::mma_bf16(acc[mt][0], a, fb[0], fb[1]);
-          hopper::mma_bf16(acc[mt][1], a, fb[2], fb[3]);
+          for (int g = 0; g < NWG; ++g)
+            hopper::tma_load_3d(stage + g * BOX_BYTES, &wmap, &full[st],
+                                kb * TK, un.tile * BD + g * BOX, e,
+                                hopper::L2_EVICT_FIRST);
+          hopper::tma_load_3d(stage + L::W_BYTES, &gmap, &full[st], kb * TK,
+                              un.rb * N, e, hopper::L2_EVICT_LAST);
         }
       }
     }
-    __syncthreads();
+    return;
   }
-  // rows past the live ones were loaded as zeros (or not computed): zeros
+
+  // ---- consumers ----
+  const int wg = warp >> 2;
+  const int t = tid & 127;
+
+  // zeros for every row at or past its count, w never read
+  const int64_t n_rows = static_cast<int64_t>(e_len) * c_len;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * NWG * 4 + warp;
+       row < n_rows; row += static_cast<int64_t>(gridDim.x) * NWG * 4) {
+    const int e = static_cast<int>(row / c_len);
+    if (row - static_cast<int64_t>(e) * c_len >= live_rows(counts, e, c_len)) {
+      uint4* p = reinterpret_cast<uint4*>(dx + row * d_len);
+      for (int ch = lane; ch < d_len / 8; ch += 32)
+        p[ch] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  __nv_bfloat16* my_stg = stg + wg * N * L::STG_P;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit un = unit_of(u, tiles, nrb);
+    const int e = listed ? live[un.le] : un.le;
+    const int count = live_rows(counts, e, c_len);
+    if (un.rb * N >= count) continue;
+
+    float acc[N / 2];
 #pragma unroll
-  for (int mt = 0; mt < DX_ROWS / 16; ++mt)
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int kb = 0; kb < kblocks; ++kb, ++it) {
+      const int st = it % RING;
+      hopper::mbar_wait(&full[st], (it / RING) & 1);
+      const unsigned char* stage = ring + st * L::STAGE;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n0 + warp * 16 + j * 8 + 2 * tq;
+      for (int kk = 0; kk < TK / 16; ++kk)
+        hopper::WgmmaSS<N>::template mma<0, 0>(
+            acc, hopper::sw128_desc(stage + wg * BOX_BYTES + kk * 32, 16, 1024),
+            hopper::sw128_desc(stage + L::W_BYTES + kk * 32, 16, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+
+    // epilogue: the accumulators (column m of d, row n) through the
+    // warpgroup's bf16 staging tile [n][m], then 16-byte stores of the
+    // live rows
+    hopper::named_barrier(1 + wg, 128);         // the staging tile is free
+    {
+      const int m = 16 * (warp & 3) + (lane >> 2);
+      const int n = 2 * (lane & 3);
 #pragma unroll
-      for (int hlf = 0; hlf < 2; ++hlf) {
-        const int r = m0 + mt * 16 + gq + 8 * hlf;
-        if (r < c && col < d)
-          store_bf16x2(out + static_cast<int64_t>(r) * d + col,
-                       acc[mt][j][2 * hlf], acc[mt][j][2 * hlf + 1]);
+      for (int j = 0; j < N / 8; ++j) {
+        __nv_bfloat16* sp = my_stg + (8 * j + n) * L::STG_P + m;
+        sp[0] = __float2bfloat16_rn(acc[4 * j]);
+        sp[L::STG_P] = __float2bfloat16_rn(acc[4 * j + 1]);
+        sp[8] = __float2bfloat16_rn(acc[4 * j + 2]);
+        sp[L::STG_P + 8] = __float2bfloat16_rn(acc[4 * j + 3]);
       }
     }
+    hopper::named_barrier(1 + wg, 128);
+    const int rows = min(N, count - un.rb * N);   // live rows, >= 1
+    const int col0 = un.tile * BD + wg * BOX;
+    for (int idx = t; idx < rows * (BOX / 8); idx += 128) {
+      const int r = idx / (BOX / 8);
+      const int cl = (idx % (BOX / 8)) * 8;
+      if (col0 + cl >= d_len) continue;
+      *reinterpret_cast<uint4*>(
+          dx + (static_cast<int64_t>(e) * c_len + un.rb * N + r) * d_len
+          + col0 + cl) =
+          *reinterpret_cast<const uint4*>(&my_stg[r * L::STG_P + cl]);
+    }
+  }
 }
 
-// dW (E, d, f) = x^T dOut over the live rows of C.  grid (f / 128, d / 64,
-// E).
-__global__ void __launch_bounds__(TC_NT)
-gm_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const int* __restrict__ counts,
-                     __nv_bfloat16* __restrict__ dw, int c, int d, int f) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][KS][PX];
-  __shared__ __align__(16) __nv_bfloat16 gs[2][KS][PG];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * DW_ROWS, n0 = blockIdx.x * DW_COLS;
-  const int live = live_rows(counts, e, c);
-  const int gq = lane >> 2, tq = lane & 3;
-  __nv_bfloat16* out = dw + static_cast<int64_t>(e) * d * f;
-  float acc[DW_COLS / 8][4];
-#pragma unroll
-  for (int j = 0; j < DW_COLS / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  const __nv_bfloat16* xsrc = x + static_cast<int64_t>(e) * c * d;
-  const __nv_bfloat16* gsrc = dout + static_cast<int64_t>(e) * c * f;
-  auto load = [&](int st, int k0) {
-    for (int idx = tid; idx < KS * (DW_ROWS / 8); idx += TC_NT) {
-      const int r = idx / (DW_ROWS / 8), v = idx % (DW_ROWS / 8) * 8;
-      const bool ok = k0 + r < live && m0 + v < d;
-      cp_async16(&xs[st][r][v], ok ? xsrc + static_cast<int64_t>(k0 + r) * d
-                                         + m0 + v
-                                   : xsrc, ok);
+// dW: output tiles of 128 rows of d x 256 columns of f, 64 rows of C a
+// stage
+struct DwLayout {
+  static constexpr int BM = NWG * BOX;              // rows of d a tile
+  static constexpr int BN = 4 * BOX;                // columns of f a tile
+  static constexpr int X_BYTES = NWG * BOX_BYTES;   // x^T: a box a warpgroup
+  static constexpr int G_BYTES = 4 * BOX_BYTES;     // dOut: four boxes
+  static constexpr int STAGE = X_BYTES + G_BYTES;
+  static constexpr int OUT_BYTES = NWG * 4 * BOX_BYTES;  // the bf16 tile
+  static constexpr int MAX_RING = 4;
+  static constexpr int BAR_BYTES = 2 * MAX_RING * 8;
+  static constexpr int FIXED = 1024 + OUT_BYTES + BOX_BYTES + BAR_BYTES;
+  static constexpr int RING = (BUDGET - FIXED) / STAGE < MAX_RING
+                                  ? (BUDGET - FIXED) / STAGE
+                                  : MAX_RING;
+  static constexpr int SMEM = FIXED + RING * STAGE;
+  static constexpr int THREADS = (NWG + 1) * 128;
+  static_assert(RING >= 2, "the ring needs two stages");
+};
+
+// Thread roles: warpgroups 0 and 1 the consumers (setmaxnreg 232), 2 the
+// producer (setmaxnreg 40), of which one thread issues the loads.  The
+// roles split once and never meet again: the two consumer warpgroups
+// synchronise by named barriers only.
+__global__ void __launch_bounds__(DwLayout::THREADS, 1)
+gm_bwd_dw_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap gmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const int32_t* __restrict__ counts, int e_len,
+                     int c_len, int d_len, int f_len) {
+  using L = DwLayout;
+  constexpr int RING = L::RING;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* out = ring + RING * L::STAGE;
+  unsigned char* zero = out + L::OUT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(zero + BOX_BYTES);
+  uint64_t* empty = full + L::MAX_RING;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wg = warp >> 2;
+
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], NWG * 4);
     }
-    for (int idx = tid; idx < KS * (DW_COLS / 8); idx += TC_NT) {
-      const int r = idx / (DW_COLS / 8), v = idx % (DW_COLS / 8) * 8;
-      const bool ok = k0 + r < live && n0 + v < f;
-      cp_async16(&gs[st][r][v], ok ? gsrc + static_cast<int64_t>(k0 + r) * f
-                                         + n0 + v
-                                   : gsrc, ok);
-    }
-  };
-  const int nk = (live + KS - 1) / KS;   // 0 for an expert no token chose
-  if (nk > 0) {
-    load(0, 0);
-    cp_async_commit();
+    hopper::fence_barrier_init();
   }
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) load((kc + 1) & 1, (kc + 1) * KS);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = kc & 1;
+  for (int i = tid; i < BOX_BYTES / 16; i += L::THREADS)
+    reinterpret_cast<uint4*>(zero)[i] = make_uint4(0u, 0u, 0u, 0u);
+  hopper::fence_proxy_async();    // TMA stores read the zero box
+  __syncthreads();
+
+  const int tiles_f = (f_len + L::BN - 1) / L::BN;
+  const int tiles_d = (d_len + L::BM - 1) / L::BM;
+  const int per_e = tiles_f * tiles_d;
+  const int64_t units = static_cast<int64_t>(e_len) * per_e;
+
+  if (wg == NWG) {
+    // ---- producer ----
+    hopper::reg_dealloc<40>();
+    if (tid == NWG * 128) {
+      int it = 0;
+      for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
+        const int e = static_cast<int>(u / per_e);
+        const int r = static_cast<int>(u % per_e);
+        const int dt = r / tiles_f;
+        const int ft = r % tiles_f;
+        const int count = live_rows(counts, e, c_len);
+        for (int k0 = 0; k0 < count; k0 += TK, ++it) {
+          const int st = it % RING;
+          hopper::mbar_wait(&empty[st], ((it / RING) & 1) ^ 1);
+          unsigned char* stage = ring + st * L::STAGE;
+          hopper::mbar_arrive_expect_tx(&full[st], L::STAGE);
 #pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk) {
-      unsigned a[4];
-      // A = x^T: rows of d 16 warp .. + 15 (contiguous in the stage),
-      // C rows kk*16 .. + 15 down the stage
-      hopper::ldmatrix_x4_trans(a, &xs[st][kk * 16 + (lane & 7)
-                                           + (lane >> 4) * 8]
-                                          [warp * 16 + ((lane >> 3) & 1) * 8]);
+          for (int g = 0; g < NWG; ++g)
+            hopper::tma_load_3d(stage + g * BOX_BYTES, &xmap, &full[st],
+                                dt * L::BM + g * BOX, k0, e,
+                                hopper::L2_EVICT_LAST);
 #pragma unroll
-      for (int jp = 0; jp < DW_COLS / 16; ++jp) {
-        unsigned fb[4];
-        hopper::ldmatrix_x4_trans(fb, &gs[st][kk * 16 + (lane & 7)
-                                              + ((lane >> 3) & 1) * 8]
-                                             [jp * 16 + (lane >> 4) * 8]);
-        hopper::mma_bf16(acc[2 * jp], a, fb[0], fb[1]);
-        hopper::mma_bf16(acc[2 * jp + 1], a, fb[2], fb[3]);
+          for (int j = 0; j < 4; ++j)
+            hopper::tma_load_3d(stage + L::X_BYTES + j * BOX_BYTES, &gmap,
+                                &full[st], ft * L::BN + j * BOX, k0, e,
+                                hopper::L2_EVICT_LAST);
+        }
       }
     }
-    __syncthreads();
-  }
+  } else {
+    // ---- consumers ----
+    hopper::reg_alloc<232>();
+    const int t = tid & 127;
+    unsigned char* my_out = out + wg * 4 * BOX_BYTES;
+    const int m = 16 * (warp & 3) + (lane >> 2);   // this thread's rows
+    const int sw = m & 7;                          // (m and m + 8)
+    int it = 0;
+    for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
+      const int e = static_cast<int>(u / per_e);
+      const int r = static_cast<int>(u % per_e);
+      const int dt = r / tiles_f;
+      const int ft = r % tiles_f;
+      const int count = live_rows(counts, e, c_len);
+      const int row0 = dt * L::BM + wg * BOX;      // this warpgroup's d
+      if (count == 0) {                // no token chose e: zeros
+        if (t == 0) {
 #pragma unroll
-  for (int j = 0; j < DW_COLS / 8; ++j) {
-    const int col = n0 + j * 8 + 2 * tq;
+          for (int j = 0; j < 4; ++j)
+            hopper::tma_store_3d(&omap, zero, ft * L::BN + j * BOX, row0, e,
+                                 hopper::L2_EVICT_FIRST);
+          hopper::bulk_commit();
+        }
+        continue;
+      }
+
+      float acc[128];
 #pragma unroll
-    for (int hlf = 0; hlf < 2; ++hlf) {
-      const int r = m0 + warp * 16 + gq + 8 * hlf;
-      if (r < d && col < f)
-        store_bf16x2(out + static_cast<int64_t>(r) * f + col,
-                     acc[j][2 * hlf], acc[j][2 * hlf + 1]);
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int k0 = 0; k0 < count; k0 += TK, ++it) {
+        const int st = it % RING;
+        hopper::mbar_wait(&full[st], (it / RING) & 1);
+        unsigned char* stage = ring + st * L::STAGE;
+        const int rows = min(TK, count - k0);
+        const int ksteps = (rows + 15) / 16;
+        if (rows % 16 != 0) {
+          // rows [rows, 16 ksteps) of this warpgroup's x box and of dOut
+          // boxes 2 wg and 2 wg + 1 to zeros (whole 128-byte rows, so the
+          // swizzle does not matter); both warpgroups read all four dOut
+          // boxes, so they meet before the product
+          const int zr = 16 * ksteps - rows;
+          for (int idx = t; idx < 3 * zr * 8; idx += 128) {
+            const int box = idx / (zr * 8);
+            const int rr = rows + (idx % (zr * 8)) / 8;
+            const int ch = idx % 8;
+            unsigned char* bp =
+                box == 0 ? stage + wg * BOX_BYTES
+                         : stage + L::X_BYTES + (2 * wg + box - 1) * BOX_BYTES;
+            *reinterpret_cast<uint4*>(bp + rr * 128 + ch * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          hopper::fence_proxy_async();
+          hopper::named_barrier(1, NWG * 128);
+        }
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk)
+          if (kk < ksteps)
+            hopper::WgmmaSS<256>::template mma<1, 1>(
+                acc,
+                hopper::sw128_desc(stage + wg * BOX_BYTES + kk * 2048,
+                                   BOX_BYTES, 1024),
+                hopper::sw128_desc(stage + L::X_BYTES + kk * 2048, BOX_BYTES,
+                                   1024),
+                1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
+      }
+
+      // epilogue: bf16 into the 128-byte-swizzled staging boxes (row m,
+      // 16-byte chunk c at chunk c ^ (m % 8)), then four TMA stores; the
+      // previous tile's stores must have read the staging tile first
+      if (t == 0) hopper::bulk_wait_read<0>();
+      hopper::named_barrier(2 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        unsigned char* bp = my_out + (j >> 3) * BOX_BYTES
+                            + (((j & 7) ^ sw) << 4) + (lane & 3) * 4;
+        *reinterpret_cast<unsigned*>(bp + m * 128) =
+            hopper::pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<unsigned*>(bp + (m + 8) * 128) =
+            hopper::pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_barrier(2 + wg, 128);
+      if (t == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          hopper::tma_store_3d(&omap, my_out + j * BOX_BYTES,
+                               ft * L::BN + j * BOX, row0, e,
+                               hopper::L2_EVICT_FIRST);
+        hopper::bulk_commit();
+      }
     }
+    if (t == 0) hopper::bulk_wait<0>();
   }
 }
 
@@ -388,27 +603,100 @@ cudaError_t launch_cores(const void* x, const void* w, const int* counts,
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma(const void* x, const void* w, const int* counts,
-                       const void* dout, void* dx, void* dw, int e, int c,
-                       int d, int f, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  if (dx != nullptr) {
-    gm_bwd_dx_mma_kernel<<<dim3((d + DX_COLS - 1) / DX_COLS,
-                                (c + DX_ROWS - 1) / DX_ROWS, e),
-                           TC_NT, 0, s>>>(static_cast<const bf*>(dout),
-                                          static_cast<const bf*>(w), counts,
-                                          static_cast<bf*>(dx), c, d, f);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+
+// the rows of a dX unit: the smallest of DX_ROWS that holds C, else 128
+constexpr int DX_ROWS[] = {8, 16, 32, 48, 64, 96, 128};
+
+int dx_rows(int c) {
+  for (const int r : DX_ROWS)
+    if (c <= r) return r;
+  return 128;
+}
+
+template <int N>
+int launch_dx(const void* w, const void* dout, const int* counts, void* dx,
+              int e, int c, int d, int f, int grid, cudaStream_t s) {
+  using L = DxLayout<N>;
+  static bool smem_set = false;   // the attribute, once per instantiation
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gm_bwd_dx_tma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
   }
-  if (dw != nullptr)
-    gm_bwd_dw_mma_kernel<<<dim3((f + DW_COLS - 1) / DW_COLS,
-                                (d + DW_ROWS - 1) / DW_ROWS, e),
-                           TC_NT, 0, s>>>(static_cast<const bf*>(x),
-                                          static_cast<const bf*>(dout),
-                                          counts, static_cast<bf*>(dw), c, d,
-                                          f);
-  return cudaGetLastError();
+  CUtensorMap wmap, gmap;
+  // w as {f, d, E} in boxes of 64 f x 64 d; dOut as {f, C, E} in boxes of
+  // 64 f x N rows
+  if (!hopper::encode_tensor_map(&wmap, w, f, d, e, 2ull * f, 2ull * d * f,
+                                 BOX, BOX) ||
+      !hopper::encode_tensor_map(&gmap, dout, f, c, e, 2ull * f,
+                                 2ull * c * f, TK, N))
+    return -2;
+  gm_bwd_dx_tma_kernel<N><<<grid, L::THREADS, L::SMEM, s>>>(
+      wmap, gmap, counts, static_cast<__nv_bfloat16*>(dx), e, c, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dw(const void* x, const void* dout, const int* counts, void* dw,
+              int e, int c, int d, int f, int grid, cudaStream_t s) {
+  using L = DwLayout;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gm_bwd_dw_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  CUtensorMap xmap, gmap, omap;
+  // x as {d, C, E} and dOut as {f, C, E} in boxes of 64 x 64 rows; dW as
+  // {f, d, E} in boxes of 64 f x 64 d (the stores)
+  if (!hopper::encode_tensor_map(&xmap, x, d, c, e, 2ull * d, 2ull * c * d,
+                                 BOX, TK) ||
+      !hopper::encode_tensor_map(&gmap, dout, f, c, e, 2ull * f,
+                                 2ull * c * f, BOX, TK) ||
+      !hopper::encode_tensor_map(&omap, dw, f, d, e, 2ull * f, 2ull * d * f,
+                                 BOX, BOX))
+    return -2;
+  gm_bwd_dw_tma_kernel<<<grid, L::THREADS, L::SMEM, s>>>(
+      xmap, gmap, omap, counts, e, c, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tma(const void* x, const void* w, const int* counts,
+               const void* dout, void* dx, void* dw, int e, int c, int d,
+               int f, cudaStream_t s) {
+  const int grid = hopper::sm_count();
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (dx != nullptr) {
+    int err;
+#define GM_DX(N_)                                                     \
+  case N_:                                                            \
+    err = launch_dx<N_>(w, dout, counts, dx, e, c, d, f, grid, s); \
+    break
+    switch (dx_rows(c)) {
+      GM_DX(8);
+      GM_DX(16);
+      GM_DX(32);
+      GM_DX(48);
+      GM_DX(64);
+      GM_DX(96);
+      GM_DX(128);
+      default:
+        return -1;
+    }
+#undef GM_DX
+    if (err != 0) return err;
+  }
+  if (dw != nullptr) {
+    const int64_t tiles = static_cast<int64_t>(e)
+                          * ((d + DwLayout::BM - 1) / DwLayout::BM)
+                          * ((f + DwLayout::BN - 1) / DwLayout::BN);
+    return launch_dw(x, dout, counts, dw, e, c, d, f,
+                     static_cast<int>(tiles < grid ? tiles : grid), s);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -416,11 +704,11 @@ cudaError_t launch_mma(const void* x, const void* w, const int* counts,
 // Plain C entry point, loaded with ctypes: dX and/or dW (either output
 // pointer may be null: that gradient is not computed) on `stream`.
 // dtype: 0 = float32, 1 = bfloat16 (x, w, dout, dx, dw); counts (E,) int32
-// on the device.  tensor_cores: 1 takes the mma.sync kernels (bf16, d and f
-// multiples of 8, 16-byte aligned x, w and dout; the wrapper checks), 0 the
-// CUDA-core ones.  Returns the CUDA error of the launches (0 on success),
-// or -1 for sizes out of range.  Nothing is allocated and nothing
-// synchronises.
+// on the device.  tensor_cores: 1 takes the TMA + wgmma kernels (bf16, d
+// and f multiples of 8, 16-byte aligned x, w and dout; the wrapper
+// checks), 0 the CUDA-core ones.  Returns the CUDA error of the launches
+// (0 on success), -1 for sizes out of range, -2 when the driver refuses a
+// tensor map.  Nothing is allocated and nothing synchronises.
 extern "C" int grouped_matmul_bwd_launch(int dtype, const void* x,
                                          const void* w, const void* counts,
                                          const void* dout, void* dx, void* dw,
@@ -433,8 +721,8 @@ extern "C" int grouped_matmul_bwd_launch(int dtype, const void* x,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (tensor_cores)
-    err = launch_mma(x, w, cnt, dout, dx, dw, e, c, d, f, s);
-  else if (dtype == 0)
+    return launch_tma(x, w, cnt, dout, dx, dw, e, c, d, f, s);
+  if (dtype == 0)
     err = launch_cores<float>(x, w, cnt, dout, dx, dw, e, c, d, f, s);
   else if (dtype == 1)
     err = launch_cores<__nv_bfloat16>(x, w, cnt, dout, dx, dw, e, c, d, f,

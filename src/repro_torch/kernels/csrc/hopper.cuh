@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels:
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
-// m64nNk16 bf16 product with an f32 accumulator, mma.sync m16n8k16 with
-// its ldmatrix feeds, and the host's lookup of the CUDA driver's
-// tensor-map encoder.  Sources that include this header compile alone,
-// like every source of csrc.
+// mbarriers, TMA tensor loads and stores, the proxy fence, setmaxnreg,
+// wgmma shared-memory descriptors, fences and waits (the m64nNk16
+// products themselves are in wgmma.cuh), mma.sync m16n8k16 with its
+// ldmatrix feeds, the block's list of live experts, and the host's
+// lookup of the CUDA driver's tensor-map encoder.  Sources that include
+// this header compile alone, like every source of csrc.
 //
 // The libraries are built by nvcc and loaded with ctypes, without
 // PyTorch's headers and without -lcuda: cuTensorMapEncodeTiled is a CUDA
@@ -109,6 +110,69 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 4-D box, e.g. {64 columns of dh, 1 head, 64 rows, 1 batch} of a
+// (B, S, H, dh) tensor: rows past S arrive as zeros, never the next
+// batch's.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 3-D box from shared memory to the tensor, with an L2 policy; the
+// part of the box outside the tensor is not written.  The store joins
+// the thread's current bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of the thread's bulk groups still read shared
+// memory (their sources may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of the thread's bulk groups are not complete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's ordinary shared-memory writes before later reads
+// of the async proxy (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// setmaxnreg: a warpgroup gives registers back (a producer) or takes
+// them (the consumers); every thread of the warpgroup executes it
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // ---------------------------------------------------------------------------
 // wgmma: a warpgroup (4 aligned warps) multiplies a 64-row A tile by an
 // N-column B tile, both read from shared memory through descriptors, into
@@ -127,8 +191,8 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // swizzled row.  MN-major operand (M or N contiguous in 128-byte rows of
 // 64 elements, K down the rows): the stride byte offset is the step
 // between groups of 8 K rows (1024 bytes), the leading one the step
-// between 64-wide blocks of M (unused at M = 64); a k-step of 16 rows
-// moves the start by 2048 bytes.
+// between 64-wide blocks of M or N (one box each; unused for a single
+// block); a k-step of 16 rows moves the start by 2048 bytes.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint64_t sw128_desc(const void* smem,
@@ -163,187 +227,6 @@ __device__ __forceinline__ void fence_regs(float (&acc)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
-// acc (64 x N, f32) = A (64 x 16) B (16 x N) + (scale_d ? acc : 0), bf16.
-// A is MN-major (its 64 rows contiguous: transposed through the
-// descriptor), B K-major.
-// Accumulator layout (thread t of the warpgroup, warp w = t / 32, lane
-// l): acc[4j + i] holds row 16w + l/4 + 8 (i >> 1), column 8j + 2 (l % 4)
-// + (i & 1).
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<8> {
-  __device__ __forceinline__ static void mma(float (&d)[4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}"
-        ", %4, %5, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<16> {
-  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}"
-        ", %8, %9, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<24> {
-  __device__ __forceinline__ static void mma(float (&d)[12], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %14, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}"
-        ", %12, %13, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        " %12, %13, %14, %15}"
-        ", %16, %17, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<40> {
-  __device__ __forceinline__ static void mma(float (&d)[20], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %22, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        " %12, %13, %14, %15, %16, %17, %18, %19}"
-        ", %20, %21, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<48> {
-  __device__ __forceinline__ static void mma(float (&d)[24], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %26, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21,"
-        " %22, %23}"
-        ", %24, %25, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<56> {
-  __device__ __forceinline__ static void mma(float (&d)[28], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %30, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21,"
-        " %22, %23, %24, %25, %26, %27}"
-        ", %28, %29, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21,"
-        " %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-        ", %32, %33, p, 1, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
 // a barrier of the `threads` threads that name `id` (1-15; 0 is
 // __syncthreads), e.g. one warpgroup
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -354,6 +237,36 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The experts whose count (clamped to [0, C]) is above 0, in expert
+// order, written to live[] by a block scan of the flags; returns how
+// many.  Every thread of the block calls it (it takes __syncthreads);
+// warp_cnt holds one int per warp of the block.
+__device__ __forceinline__ int live_experts(const int32_t* counts, int e_len,
+                                            int c_len, int* live,
+                                            int* warp_cnt) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  int n_live = 0;
+  for (int e0 = 0; e0 < e_len; e0 += blockDim.x) {
+    const int e = e0 + tid;
+    const bool is_live = e < e_len && min(max(counts[e], 0), c_len) > 0;
+    const unsigned m = __ballot_sync(0xffffffffu, is_live);
+    if (lane == 0) warp_cnt[warp] = __popc(m);
+    __syncthreads();
+    int before = n_live, total = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      before += w < warp ? warp_cnt[w] : 0;
+      total += warp_cnt[w];
+    }
+    if (is_live) live[before + __popc(m & ((1u << lane) - 1u))] = e;
+    n_live += total;
+    __syncthreads();            // the list is whole; warp_cnt is reused
+  }
+  return n_live;
 }
 
 // ---------------------------------------------------------------------------
@@ -431,24 +344,51 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D bf16 tensor map of dims {d0 (contiguous), d1, d2} with byte
-// strides s1, s2 between rows and planes, boxes of {b0, b1, 1}, the
-// 128-byte swizzle (b0 * 2 must be 128), out-of-range elements as zeros.
-// Returns false if the driver refuses it.
-inline bool encode_tensor_map(CUtensorMap* map, const void* base, uint64_t d0,
-                              uint64_t d1, uint64_t d2, uint64_t s1,
-                              uint64_t s2, uint32_t b0, uint32_t b1) {
+// A bf16 tensor map of `rank` (2-5) dims {dims[0] (contiguous), ...}
+// with byte strides strides[0 .. rank-2] between the outer dims' steps,
+// boxes of box[0 .. rank-1], the 128-byte swizzle (box[0] * 2 must be
+// 128), out-of-range elements as zeros.  Returns false if the driver
+// refuses it.
+inline bool encode_tensor_map_nd(CUtensorMap* map, const void* base, int rank,
+                                 const uint64_t* dims,
+                                 const uint64_t* strides,
+                                 const uint32_t* box) {
   const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, elem,
+  if (fn == nullptr || rank < 2 || rank > 5) return false;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    elem[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), d, s, b, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D bf16 tensor map of dims {d0 (contiguous), d1, d2} with byte
+// strides s1, s2 between rows and planes, boxes of {b0, b1, 1}.
+inline bool encode_tensor_map(CUtensorMap* map, const void* base, uint64_t d0,
+                              uint64_t d1, uint64_t d2, uint64_t s1,
+                              uint64_t s2, uint32_t b0, uint32_t b1) {
+  const uint64_t dims[3] = {d0, d1, d2};
+  const uint64_t strides[2] = {s1, s2};
+  const uint32_t box[3] = {b0, b1, 1};
+  return encode_tensor_map_nd(map, base, 3, dims, strides, box);
+}
+
+// The device's SM count, read once per device (the persistent grids)
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cached[dev];
 }
 
 }  // namespace hopper

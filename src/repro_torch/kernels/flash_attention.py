@@ -33,7 +33,10 @@ key), against the tensor cores' bf16 rate.  bf16 runs on the tensor
 cores (``mma.sync``, f32 accumulators, P rounded to bf16 before P V);
 f32 runs IEEE FMAs on the CUDA cores, since the f32 band of 2e-5 is
 beyond TF32.  The backward's bound is operations too, ``10 * dh`` per
-(query row, head, valid key).  See the CUDA sources for the designs.
+(query row, head, valid key); its bf16 body runs on TMA and ``wgmma``
+(a dK/dV pass of 128-key blocks and a dQ pass of 128-row blocks, each
+two consumer warpgroups of 64 rows fed 64-row tiles by a producer
+warp).  See the CUDA sources for the designs.
 """
 from __future__ import annotations
 
@@ -173,6 +176,8 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32 {(b, h, s)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    # dh % 8 == 0 (check_attention_shape) makes every row stride of the
+    # bf16 kernels' tensor maps, H dh and Hkv dh elements, 16-byte whole
     _check_launch("flash_attention_backward", q, k, v, out, lse, dout)
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
     if fn.argtypes is None:

@@ -29,7 +29,9 @@ Function whose backward is the hand-written Hopper kernel of
 w^T over the live rows, dW = x^T dOut over them, both deterministic; the
 reference has no backward kernel, JAX differentiates its einsums).  Its
 bound is bytes too: the live experts' weights read for dX, E * d * f
-written for dW.
+written for dW.  bf16 at widths of 8 runs two persistent TMA + wgmma
+kernels (dX as the forward's swap-AB pipeline, dW writing 128 x 256
+tiles by TMA stores); the rest the CUDA cores.
 """
 from __future__ import annotations
 
@@ -196,9 +198,10 @@ def _launch(x, w, counts) -> torch.Tensor:
 
 
 def tensor_core_backward(x, w, dout) -> bool:
-    """The backward's mma.sync kernels take bf16 with d and f multiples of
-    8 and 16-byte aligned x, w and dout; the rest runs on the CUDA
-    cores."""
+    """The backward's TMA + wgmma kernels take bf16 with d and f multiples
+    of 8 (16-byte rows for the tensor maps) and 16-byte aligned x, w and
+    dout, at any E (past 1024 experts dX walks every expert instead of a
+    shared list of the live ones); the rest runs on the CUDA cores."""
     d, f = w.shape[1], w.shape[2]
     return (x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, w, dout)))

@@ -1234,6 +1234,12 @@ def test_backward_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
 
     monkeypatch.setattr(smoke, "grouped_matmul_backward",
                         grouped_matmul_backward_plain)
+
+    def part_plain(x, w, counts, dout, need_dx, need_dw):
+        grads = grouped_matmul_backward_plain(x, w, counts, dout)
+        return tuple(g if n else None for g, n in zip(grads,
+                                                      (need_dx, need_dw)))
+    monkeypatch.setattr(smoke, "gm_launch_backward", part_plain)
     monkeypatch.setattr(smoke, "ssm_scan_backward", ssm_scan_backward_plain)
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters, warmup=3:
                         (fn(), 1.0)[1])
@@ -1271,9 +1277,22 @@ def test_backward_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
     assert ms == pytest.approx(1e3 * max(nbytes / smoke.HBM_BYTES_PER_S,
                                          ops / smoke.F32_OPS_PER_S))
     assert by == "operations"
+    for part in ("dx", "dw"):
+        got = smoke.gm_backward_part(x, w, counts, dout, part)
+        assert (got[0] is None) == (part == "dw")
+        assert (got[1] is None) == (part == "dx")
+    ms_dx, by_dx = smoke.gm_bwd_bound(x, w, counts, "dx")
+    ms_dw, by_dw = smoke.gm_bwd_bound(x, w, counts, "dw")
+    dx_bytes = (live * 24 * 16 + rows * 16 + 10 * c * 24) * 4 + 40
+    dw_bytes = (rows * 40 + 10 * 24 * 16) * 4 + 40
+    assert ms_dx == pytest.approx(1e3 * max(
+        dx_bytes / smoke.HBM_BYTES_PER_S, t_ops / 2))
+    assert ms_dw == pytest.approx(1e3 * max(
+        dw_bytes / smoke.HBM_BYTES_PER_S, t_ops / 2))
     out = capsys.readouterr().out
     assert out.count("two runs equal bit for bit") == 2
     assert "two bmm over every expert" in out
+    assert "dX alone: kernel" in out and "dW alone: kernel" in out
 
 
 def test_train_launches_of_each_family(smoke):

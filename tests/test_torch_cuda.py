@@ -980,12 +980,19 @@ def rel_err(got, want) -> float:
     (1, 300, 300, 12, 120, True, 100),             # G 12, dh 120
     (1, 200, 200, 16, 128, True, -1),              # G 16
     (1, 200, 90, 4, 128, False, -1),               # non-causal
-    (1, 400, 200, 5, 64, True, 64)])               # rows with no valid key
+    (1, 400, 200, 5, 64, True, 64),                # rows with no valid key
+    # 2 KV heads x B 2 x 36 blocks of 128 keys fill 132 SMs: the dK/dV
+    # pass keeps 128-key blocks (every case above splits the heads)
+    (2, 4600, 4600, 2, 64, True, 700),
+    (2, 4600, 4600, 1, 128, True, -1)])
 def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, s, t, g,
                                              dh, causal, window):
     """dq, dk and dv of the backward kernels against autograd through
     the plain version, each within the band of its largest magnitude;
-    dout is zero on rows with no valid key, whose dq is zero."""
+    dout is zero on rows with no valid key, whose dq is zero.  bf16 takes
+    both ways of the dK/dV pass: 64-key blocks with the group's heads
+    split between the warpgroups where 128-key blocks would leave SMs
+    idle, and 128-key blocks otherwise (or at G = 1)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward)
@@ -1006,6 +1013,61 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, s, t, g,
     assert not got[0][:, ~live].any()
     assert rel_err(got[1], want[1]) <= TOL[dtype]
     assert rel_err(got[2], want[2]) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,g,dh,causal,window", [
+    (2, 300, 300, 4, 128, True, -1),
+    (1, 333, 333, 5, 64, True, 100),
+    (1, 200, 90, 8, 112, False, -1)])
+def test_flash_backward_kernel_is_bit_identical(cuda_device, dtype, b, s, t,
+                                                g, dh, causal, window):
+    """Two calls on the same inputs give the same bits: no atomics, every
+    sum in one fixed order (a supervised restart replays training)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    q, k, v = flash_case(cuda_device, dtype, b, s, t, 2, g, dh)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=window)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(4), device=cuda_device).to(dtype)
+    first = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [112, 120])
+@pytest.mark.parametrize("hkv,g,causal,window", [(8, 8, True, -1),
+                                                 (3, 4, True, 70),
+                                                 (2, 12, False, -1)])
+def test_flash_backward_kernel_dh_past_a_box(cuda_device, dh, hkv, g,
+                                             causal, window):
+    """bf16 at dh 112 and 120 (kimi-k2's and h2o-danube-3's) on the
+    128-wide body, random values in every head: a tensor-map box that
+    read past dh into the next head's columns, or wrote past them, would
+    change dq, dk or dv of a neighbouring head, the last one included."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_forward)
+    dtype = torch.bfloat16
+    q, k, v = flash_case(cuda_device, dtype, 1, 190, 190, hkv, g, dh, seed=6)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=window)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(8), device=cuda_device).to(dtype)
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    want = flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        for head in (0, x.shape[2] - 1):        # the first and last heads
+            assert rel_err(x[:, :, head], y[:, :, head]) <= TOL[dtype]
+        assert rel_err(x, y) <= TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -1096,6 +1158,40 @@ def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, dtype, e,
     if any(counts):
         assert rel_err(got[0], want[0]) <= TOL[dtype]
         assert rel_err(got[1], want[1]) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,c,d,f,counts", [
+    (6, 40, 136, 264, [0, 1, 15, 16, 17, 40]),     # the 16-row edges
+    (3, 88, 7168, 512, [88, 0, 29]),               # arctic's d, train C
+    (2, 200, 256, 520, [200, 65]),                 # stages and dX blocks
+    # past the 1024 experts of dX's shared live list: every expert walked
+    (1100, 8, 64, 32, [i % 9 for i in range(1100)])])
+def test_grouped_matmul_backward_past_counts_and_bits(cuda_device, dtype, e,
+                                                      c, d, f, counts):
+    """x and dout hold NaN past every count and the empty experts'
+    weights NaN: dx and dw stay finite and equal the plain backward's on
+    the cleaned inputs (dW zeroes the rows from a count up to its
+    multiple of 16 before the product); two calls give the same bits."""
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul_backward, grouped_matmul_backward_plain)
+    x, w, cnt = gm_case(cuda_device, dtype, e, c, d, f, counts, poison=True)
+    dout = gm_dout(x, f)
+    dead = torch.arange(c, device=cuda_device)[None, :] >= cnt[:, None]
+    dout[dead] = float("nan")
+    got = grouped_matmul_backward(x, w, cnt, dout)
+    again = grouped_matmul_backward(x, w, cnt, dout)
+    want = grouped_matmul_backward_plain(torch.nan_to_num(x),
+                                         torch.nan_to_num(w), cnt,
+                                         torch.nan_to_num(dout))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.isfinite(g).all() for g in got)
+    assert not got[0][dead].any() and not got[1][cnt == 0].any()
+    assert rel_err(got[0], want[0]) <= TOL[dtype]
+    assert rel_err(got[1], want[1]) <= TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -8,21 +8,25 @@ same (q, k, v, dout):
 * the D pre-pass: D = rowsum(dout * out), f32, ``out`` the forward's
   output in q's dtype;
 * pass (a), dK/dV: one CTA per (b, KV head, block of keys) walks the G
-  query heads of its group and, for each, the query tiles that can see
-  its keys (the kernel's bounds: from the block's first key when causal,
+  query heads of its group (or, where 128-key blocks would leave SMs
+  idle, two warpgroups over 64 keys each walk half of them and add their
+  sums) and, for each, the query tiles that can see its keys (the kernel's bounds: from the block's first key when causal,
   to its last key + window - 1 with a window), recomputing P from the
-  forward's log-sum-exp; bf16 rounds P before P^T dout and dS before
-  dS^T q, and a warp (16 keys) skips a tile none of its pairs needs;
-* pass (b), dQ: one CTA per (b, head, 64 query rows) over the key tiles
-  of the forward's walk, dS rounded to bf16.
+  forward's log-sum-exp; bf16 rounds P^T before P^T dout and dS^T before
+  dS^T q, and a warpgroup (64 keys) skips a tile none of its pairs
+  needs;
+* pass (b), dQ: one CTA per (b, head, block of query rows) over the key
+  tiles of the forward's walk, dS rounded to bf16, a warpgroup (64 rows)
+  skipping a tile none of its pairs needs.
 
-Tiles: bf16 takes 64-key blocks with 32-query tiles at head width 128
-(dh 120 runs on it) and 64 below, and 32-key tiles in dQ at width 128;
-f32 takes 32-key blocks and 32-query tiles, and 64-row dQ blocks over
-32-key tiles.  Cases: windows, a ragged S, G 12 and 16, dh 120,
-non-causal, and S > T under a window (rows with no valid key: zero dq).
-Tolerance, relative to each gradient's largest magnitude: 2e-2 bf16,
-2e-5 f32 (the repo's bands).
+Tiles: bf16 (TMA + wgmma) takes 128-key dK/dV blocks of two 64-key
+warpgroups over 64-query tiles, and 128-row dQ blocks of two 64-row
+warpgroups over 64-key tiles, at every head width; f32 takes 32-key
+blocks and 32-query tiles, and 64-row dQ blocks over 32-key tiles.
+Cases: windows, a ragged S, T not a multiple of 128, G 12 and 16, dh
+112 and 120, non-causal, and S > T under a window (rows with no valid
+key: zero dq).  Tolerance, relative to each gradient's largest
+magnitude: 2e-2 bf16, 2e-5 f32 (the repo's bands).
 """
 import math
 
@@ -37,19 +41,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_lse_plain, flash_attention_plain)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-WARP_ROWS = 16            # bf16: keys (a) or query rows (b) of a warp
+WG_ROWS = 64              # bf16: keys (a) or query rows (b) of a warpgroup
 
 
-def head_width(dh: int) -> int:
-    return 32 if dh <= 32 else 64 if dh <= 64 else 128
-
-
-def tiles(dtype, dh: int) -> dict:
+def tiles(dtype) -> dict:
     """The kernels' tile sizes: keys per dK/dV block, queries per tile,
     query rows per dQ block, keys per dQ tile."""
     if dtype == torch.bfloat16:
-        t = 32 if head_width(dh) == 128 else 64
-        return {"kb": 64, "qt": t, "bq": 64, "kt": t}
+        return {"kb": 128, "qt": 64, "bq": 128, "kt": 64}
     return {"kb": 32, "qt": 32, "bq": 64, "kt": 32}
 
 
@@ -64,7 +63,7 @@ def valid(i, j, s, t, causal, window):
     return m
 
 
-def emulate(q, k, v, dout, causal, window):
+def emulate(q, k, v, dout, causal, window, split_heads=False):
     """(dq, dk, dv) by the kernels' walks, in q's dtype."""
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -73,7 +72,7 @@ def emulate(q, k, v, dout, causal, window):
     bf16 = q.dtype == torch.bfloat16
     rnd = (lambda x: x.to(torch.bfloat16).float()) if bf16 else (
         lambda x: x)
-    tl = tiles(q.dtype, dh)
+    tl = tiles(q.dtype)
     out = flash_attention_plain(q, k, v, causal=causal, window=window)
     lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
     d = (dout.float() * out.float()).sum(-1).transpose(1, 2)   # (B, H, S)
@@ -82,38 +81,53 @@ def emulate(q, k, v, dout, causal, window):
     dk = torch.zeros(kf.shape)
     dv = torch.zeros(vf.shape)
 
-    # pass (a): dK/dV
+    # pass (a): dK/dV; with ``split_heads`` 64-key blocks whose two
+    # warpgroups take the first ceil(G / 2) heads and the rest, their sums
+    # added in that order
     kb, qt = tl["kb"], tl["qt"]
-    warp = WARP_ROWS if bf16 else kb
+    warp = WG_ROWS if bf16 else kb
+    groups = [range(g)]
+    if split_heads:
+        kb, warp = WG_ROWS, WG_ROWS
+        groups = [range(0, (g + 1) // 2), range((g + 1) // 2, g)]
     for bi in range(b):
         for kh in range(hkv):
             for k0 in range(0, t, kb):
+                k1 = min(k0 + kb, t)
                 q_begin, q_end = 0, s
                 if causal:
                     q_begin = k0
                     if window > 0:
-                        q_end = min(s, min(k0 + kb, t) - 1 + window)
+                        q_end = min(s, k1 - 1 + window)
                 q_begin = q_begin // qt * qt
-                for gi in range(g):
-                    hh = kh * g + gi
-                    for i0 in range(q_begin, q_end, qt):
-                        i = torch.arange(i0, min(i0 + qt, s))
-                        for w0 in range(k0, min(k0 + kb, t), warp):
-                            j = torch.arange(w0, min(w0 + warp, t))
-                            m = valid(i, j, s, t, causal, window).T
-                            if not m.any():       # the warp skips the tile
-                                continue
-                            sc = kf[bi, j, kh] @ qf[bi, i, hh].T * scale
-                            p = torch.where(m, torch.exp(sc - lse[bi, hh, i]),
-                                            0.0)
-                            dv[bi, j, kh] += rnd(p) @ df[bi, i, hh]
-                            dp = vf[bi, j, kh] @ df[bi, i, hh].T
-                            ds = p * (dp - d[bi, hh, i])
-                            dk[bi, j, kh] += rnd(ds) @ qf[bi, i, hh]
+                parts = []
+                for heads in groups:
+                    pk = torch.zeros((k1 - k0, dh))
+                    pv = torch.zeros((k1 - k0, dh))
+                    for gi in heads:
+                        hh = kh * g + gi
+                        for i0 in range(q_begin, q_end, qt):
+                            i = torch.arange(i0, min(i0 + qt, s))
+                            for w0 in range(k0, k1, warp):
+                                j = torch.arange(w0, min(w0 + warp, t))
+                                m = valid(i, j, s, t, causal, window).T
+                                if not m.any():   # the warp skips the tile
+                                    continue
+                                sc = kf[bi, j, kh] @ qf[bi, i, hh].T * scale
+                                p = torch.where(
+                                    m, torch.exp(sc - lse[bi, hh, i]), 0.0)
+                                pv[j - k0] += rnd(p) @ df[bi, i, hh]
+                                dp = vf[bi, j, kh] @ df[bi, i, hh].T
+                                ds = p * (dp - d[bi, hh, i])
+                                pk[j - k0] += rnd(ds) @ qf[bi, i, hh]
+                    parts.append((pk, pv))
+                for pk, pv in parts:
+                    dk[bi, k0:k1, kh] += pk
+                    dv[bi, k0:k1, kh] += pv
 
     # pass (b): dQ
     bq, kt = tl["bq"], tl["kt"]
-    warp = WARP_ROWS if bf16 else 8
+    warp = WG_ROWS if bf16 else 8
     for bi in range(b):
         for hh in range(h):
             kh = hh // g
@@ -169,6 +183,9 @@ CASES = [  # b, s, t, h, hkv, dh, causal, window
     (1, 100, 100, 16, 1, 64, True, -1),        # G 16
     (1, 90, 170, 4, 2, 32, False, -1),         # non-causal, S < T
     (1, 170, 100, 8, 2, 64, True, 30),         # S > T: rows with no key
+    (1, 190, 190, 8, 2, 128, True, -1),        # T not a multiple of 128
+    (1, 150, 150, 16, 2, 112, True, 70),       # dh 112
+    (1, 100, 260, 8, 2, 120, False, -1),       # dh 120, non-causal
 ]
 
 
@@ -185,6 +202,29 @@ def test_backward_walks_match_plain_autograd(dtype, b, s, t, h, hkv, dh,
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         if name == "dq":
             assert not x[:, ~live].any()
+            x, y = x[:, live], y[:, live]
+        assert rel(x, y) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,dh,causal,window", [
+    (1, 200, 200, 8, 2, 64, True, -1),         # G 4
+    (1, 100, 100, 10, 2, 64, True, 30),        # G 5: an odd split
+    (1, 130, 130, 12, 1, 120, True, -1),       # G 12, dh 120
+    (1, 90, 170, 4, 2, 112, False, -1)])       # G 2, non-causal, dh 112
+def test_backward_heads_split_walk_matches_plain_autograd(b, s, t, h, hkv,
+                                                          dh, causal,
+                                                          window):
+    """bf16's dK/dV pass where 128-key blocks would leave SMs idle: 64-key
+    blocks whose two warpgroups split the group's heads and add their
+    sums in one order; dq is the dQ pass's as before."""
+    dtype = torch.bfloat16
+    q, k, v, dout = inputs(dtype, b, s, t, h, hkv, dh, causal, window)
+    got = emulate(q, k, v, dout, causal, window, split_heads=True)
+    want = flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                          window=window)
+    live = live_rows(s, t, causal, window)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        if name == "dq":
             x, y = x[:, live], y[:, live]
         assert rel(x, y) <= TOL[dtype], name
 

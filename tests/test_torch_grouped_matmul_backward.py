@@ -8,16 +8,21 @@ plain version.
   of each output's largest magnitude (f32), for counts of 0, of C and
   ragged.
 * ``walk``: the kernels of ``csrc/grouped_matmul_bwd.cu`` in PyTorch.
-  dX: blocks of 128 rows of C, only the live rows' 16-row tiles
-  computed, f consumed 32 at a time, so a block past an expert's count
-  never reads its weights; dW: the live rows of C consumed 32 at a time,
-  nothing read for an expert no token chose.  Inputs widened to f32 from
-  their type (bf16 operands are exact in the tensor cores' f32
-  accumulators), outputs rounded once.  Dead rows of x and the weights
-  of empty experts hold NaN, which the walk must not read.  Held to the
-  plain backward within 2e-5 (f32) and 2e-2 (bf16) of each output's
-  largest magnitude, dead rows of dx and empty experts' dw exactly zero.
-* ``tensor_core_backward``: which inputs the mma.sync kernels take.
+  dX, the forward's swap-AB pipeline: units of N rows of C (the
+  smallest of 8, 16, 32, 48, 64, 96, 128 that holds C, else blocks of
+  128) by 128 columns of d, f consumed 64 a stage; a unit past an
+  expert's count is never walked (its weights are not read) and rows
+  past the count are written as zeros.  dW: output tiles of 128 rows of
+  d by 256 columns of f over the live rows of C, 64 a stage, each stage
+  rounded up to 16 rows with the rows from the count to that multiple
+  of 16 zeroed first (they hold NaN here); an expert no token chose gets
+  zero tiles, nothing read.  Inputs widened to f32 from their type (bf16
+  operands are exact in the tensor cores' f32 accumulators), outputs
+  rounded once.  Dead rows of x and dOut and the weights of empty
+  experts hold NaN, which the walk must not read.  Held to the plain
+  backward within 2e-5 (f32) and 2e-2 (bf16) of each output's largest
+  magnitude, dead rows of dx and empty experts' dw exactly zero.
+* ``tensor_core_backward``: which inputs the TMA + wgmma kernels take.
 """
 import numpy as np
 import pytest
@@ -34,27 +39,40 @@ from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     tensor_core_backward)
 
 BAND = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-DX_ROWS, KS, LIVE_TILE = 128, 32, 16
+DX_UNIT_ROWS = (8, 16, 32, 48, 64, 96, 128)   # dX: N of a unit
+DX_COLS = 128          # dX: columns of d a unit (two warpgroups of 64)
+DW_ROWS, DW_COLS = 128, 256   # dW: an output tile, rows of d x columns of f
+STAGE, K_STEP = 64, 16        # rows or columns a stage; a wgmma k-step
 # e, c, d, f, counts
 CASES = [(4, 8, 64, 32, [8, 3, 0, 5]),
          (3, 88, 96, 72, [88, 40, 0]),
          (2, 130, 40, 24, [130, 129]),
          (3, 24, 60, 36, [24, 0, 7]),
-         (2, 16, 32, 16, [0, 0])]
+         (2, 16, 32, 16, [0, 0]),
+         (6, 40, 136, 264, [0, 1, 15, 16, 17, 40]),
+         (2, 200, 144, 520, [200, 65])]
 IDS = ["decode", "arctic-train-C", "two-row-blocks", "widths-not-of-8",
-       "no-token"]
+       "no-token", "counts-at-16-edges", "two-tiles-and-stages"]
 
 
 def gm_inputs(e, c, d, f, counts, dtype, seed=0, poison=True):
+    """``poison`` puts NaN in the rows of x and dout past each count and
+    in the weights of every empty expert."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((e, c, d))).float()
     w = torch.from_numpy(rng.standard_normal((e, d, f)) / np.sqrt(d)).float()
-    dout = torch.from_numpy(rng.standard_normal((e, c, f))).to(dtype)
+    dout = torch.from_numpy(rng.standard_normal((e, c, f))).float()
     cnt = torch.tensor(counts, dtype=torch.int32)
     if poison:
-        x[torch.arange(c)[None, :] >= cnt[:, None]] = float("nan")
+        dead = torch.arange(c)[None, :] >= cnt[:, None]
+        x[dead] = float("nan")
+        dout[dead] = float("nan")
         w[cnt == 0] = float("nan")
-    return x.to(dtype), w.to(dtype), cnt, dout
+    return x.to(dtype), w.to(dtype), cnt, dout.to(dtype)
+
+
+def dx_unit_rows(c: int) -> int:
+    return next((r for r in DX_UNIT_ROWS if c <= r), DX_UNIT_ROWS[-1])
 
 
 def walk(x, w, counts, dout):
@@ -63,24 +81,42 @@ def walk(x, w, counts, dout):
     f = w.shape[2]
     dx = torch.zeros((e, c, d))
     dw = torch.zeros((e, d, f))
+    n_rows = dx_unit_rows(c)
     for ei in range(e):
         live = min(max(int(counts[ei]), 0), c)
-        for m0 in range(0, c, DX_ROWS):               # dX row blocks
-            n = min(live - m0, DX_ROWS)
-            if n <= 0:
-                continue                              # w[e] is not read
-            rows = -(-n // LIVE_TILE) * LIVE_TILE     # live 16-row tiles
-            a = torch.zeros((rows, f))
-            a[:n] = dout[ei, m0:m0 + n].float()
-            acc = torch.zeros((rows, d))
-            for k0 in range(0, f, KS):
-                acc += a[:, k0:k0 + KS] @ w[ei, :, k0:k0 + KS].float().T
-            dx[ei, m0:m0 + n] = acc[:n]
-        acc = torch.zeros((d, f))
-        for k0 in range(0, live, KS):                 # dW over live rows
-            k1 = min(k0 + KS, live)
-            acc += x[ei, k0:k1].float().T @ dout[ei, k0:k1].float()
-        dw[ei] = acc
+        # dX: units (row block, 128 columns of d), f 64 a stage; a unit's
+        # rows past C arrive as zeros, rows past the count are computed
+        # and not stored
+        for rb in range(0, c, n_rows):
+            if rb >= live:
+                continue                      # w[e] is not read
+            g = torch.zeros((n_rows, f))
+            rows = min(n_rows, c - rb)
+            g[:rows] = dout[ei, rb:rb + rows].float()
+            for c0 in range(0, d, DX_COLS):
+                wt = w[ei, c0:c0 + DX_COLS].float()
+                acc = torch.zeros((wt.shape[0], n_rows))
+                for k0 in range(0, f, STAGE):
+                    acc += wt[:, k0:k0 + STAGE] @ g[:, k0:k0 + STAGE].T
+                n = min(n_rows, live - rb)
+                dx[ei, rb:rb + n, c0:c0 + DX_COLS] = acc[:, :n].T
+        # dW: 128 x 256 tiles over the live rows, 64 a stage rounded up to
+        # 16, the rows from the count to that multiple zeroed first
+        for r0 in range(0, d, DW_ROWS):
+            for f0 in range(0, f, DW_COLS):
+                acc = torch.zeros((min(DW_ROWS, d - r0), min(DW_COLS, f - f0)))
+                for k0 in range(0, live, STAGE):
+                    n = min(STAGE, live - k0)
+                    k = -(-n // K_STEP) * K_STEP
+                    xs = torch.zeros((k, acc.shape[0]))
+                    gs = torch.zeros((k, acc.shape[1]))
+                    top = min(k, c - k0)      # rows past C arrive as zeros
+                    xs[:top] = x[ei, k0:k0 + top, r0:r0 + DW_ROWS].float()
+                    gs[:top] = dout[ei, k0:k0 + top, f0:f0 + DW_COLS].float()
+                    xs[n:] = 0                # zeroed before the product
+                    gs[n:] = 0
+                    acc += xs.T @ gs
+                dw[ei, r0:r0 + DW_ROWS, f0:f0 + DW_COLS] = acc
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
@@ -117,7 +153,8 @@ def test_kernel_walk_matches_plain_backward(case, dtype):
     got = walk(x, w, cnt, dout)
     assert all(torch.isfinite(g).all() for g in got)   # NaN never read
     want = grouped_matmul_backward_plain(torch.nan_to_num(x),
-                                         torch.nan_to_num(w), cnt, dout)
+                                         torch.nan_to_num(w), cnt,
+                                         torch.nan_to_num(dout))
     dead = torch.arange(c)[None, :] >= cnt[:, None]
     assert not got[0][dead].any() and not want[0][dead].any()
     assert not got[1][cnt == 0].any()
