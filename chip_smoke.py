@@ -203,7 +203,9 @@ code is non-zero and the final JSON line is not printed:
                  make_train_step with int8 moments at 64 experts.
 36. train ssm -- hymba-1.5b in full, B 2 x S 4096, and xlstm-350m in full,
                  B 4 x S 1024: bf16, remat, f32 moments, a warm-up and two
-                 timed steps, exact launches, tokens/s, peak memory.
+                 timed steps, exact launches, tokens/s, peak memory; then
+                 one profiled hymba step: the ssm_scan backward's device
+                 time and its share of the step.
 37. train vlm encdec -- qwen2-vl-2b in full, B 2 x S 4096 with 256 patch
                  embeddings a row at (t, h, w) positions, and
                  seamless-m4t-large-v2 in full, B 2 x 1000 frames x 1024
@@ -3921,12 +3923,15 @@ def phase_train_moe(dev) -> dict:
 
 
 def train_full(dev, phase: str, cfg, b: int, s: int, int8: bool = False,
-               frames: int = 0) -> dict:
+               frames: int = 0, profile: str = "") -> dict:
     """``cfg`` (use_pallas) trained on ``init_train``'s weights, bf16,
     remat, B x S from the seeded generator: a warm-up and
     TRAIN_FULL_STEPS timed steps of make_train_step (f32 or int8
     moments), exact launches, finite losses, every leaf moved; tokens/s
-    and peak memory.  Returns the run's launches."""
+    and peak memory.  With ``profile`` (a kernel name prefix), one more
+    step under the profiler prints the device time of the kernels so
+    named against the step's.  Returns the run's launches (the profiled
+    step's not among them)."""
     card_runs = dev.type == "cuda"
     gen = torch.Generator(device=dev).manual_seed(16)
     cfg = cfg.replace(use_pallas=True)
@@ -3982,9 +3987,38 @@ def train_full(dev, phase: str, cfg, b: int, s: int, int8: bool = False,
         + f"; max_memory_allocated {peak_gb(card_runs):.2f} GB; launches "
         f"{ {k: v for k, v in used.items() if v} } (exact); every one of "
         f"{moved} leaves moved")
+    if profile and card_runs:
+        profile_train_step(phase, cfg, step, params, opt,
+                           family_batch(cfg, b, s, gen, dev, frames=frames),
+                           1e3 * step_s, profile)
     del opt, before, batches
     free(params)
     return used
+
+
+def profile_train_step(phase: str, cfg, step, params, opt, batch,
+                       step_ms: float, prefix: str) -> None:
+    """One more step under the profiler: device busy against the
+    unprofiled mean step, and the device time and launches of the kernels
+    whose names start with ``prefix``, their share of both."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    log_profile(phase, f"{cfg.name} train step", rows, step_ms, 1)
+    busy = sum(us for us, _, _ in rows) / 1e3
+    named = [(us, n) for us, n, key in rows
+             if re.sub(r"^void |\(anonymous namespace\)::", "",
+                       key).startswith(prefix)]
+    ms = sum(us for us, _ in named) / 1e3
+    log(phase, f"{cfg.name}: the {prefix}* kernels (the ssm_scan "
+        f"backward) {ms:.2f} ms of device time in {sum(n for _, n in named)}"
+        f" launches in one profiled step: {100 * ms / max(busy, 1e-9):.1f}% "
+        f"of its {busy:.1f} ms device time, {100 * ms / step_ms:.1f}% of "
+        f"the {step_ms:.1f} ms mean step ({card()})")
 
 
 # train ssm: hymba-1.5b in full, B 2 x S 4096; xlstm-350m in full, B 4 x
@@ -3999,9 +4033,11 @@ ENCDEC_TRAIN = ("seamless-m4t-large-v2", 2, 1024, 1000)
 
 def phase_train_ssm(dev) -> dict:
     """[train ssm]: hymba-1.5b and xlstm-350m trained in full
-    (``train_full``).  Returns hymba's launches."""
-    runs = {name: train_full(dev, "train ssm", get_config(name), b, s)
-            for name, b, s in SSM_TRAIN}
+    (``train_full``), one more hymba step profiled for the ssm_scan
+    backward's share.  Returns hymba's launches."""
+    runs = {name: train_full(dev, "train ssm", get_config(name), b, s,
+                             profile="scan_bwd_" if i == 0 else "")
+            for i, (name, b, s) in enumerate(SSM_TRAIN)}
     return runs[SSM_TRAIN[0][0]]
 
 

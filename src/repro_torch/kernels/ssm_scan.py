@@ -36,7 +36,13 @@ backward is the hand-written Hopper kernel of ``csrc/ssm_scan_bwd.cu``
 (``ssm_scan_backward``: gradients of q, k, v, log_a and h0 from those of
 y and h_T, chunk-parallel in reverse and deterministic; the reference has
 no backward kernel, JAX differentiates its jnp scan).  Its bound is
-bytes too.
+bytes too.  ``backward_plan`` picks its route: where dk and dv are at
+most 64 (hymba) one fused pass per chunk builds the decayed pair
+matrices in registers and never writes them (four launches: U, the
+reverse state pass, the chunk pass, dlog_a's suffix sums); above that
+(the mLSTM's dk 512, dv 513) a pair pass writes P and W once per chunk
+in the input type for tile passes over dk and dv (six launches).  bf16
+runs the products on the tensor cores, f32 in FMAs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -81,6 +87,41 @@ def scan_plan(b: int, t: int, h: int, dk: int, dv: int, chunk: int,
             and dv % 8 == 0)
     return ScanPlan(nc=nc, fast=fast, states_shape=(b, h, nc, dk, dv),
                     decay_shape=(b, h, nc))
+
+
+FUSED_MAX = 64        # dk and dv the backward's fused chunk pass holds
+
+
+@dataclass(frozen=True)
+class BackwardPlan:
+    """What the wrapper needs of one backward call: the fused chunk pass
+    (``fused``, four launches) or the tiled one (six); ``n_parts`` parts
+    of r a row (q . dq and -k . dk per 64 columns of dk in the tiled
+    pass); ``states_shape`` of the reverse chunk states (their rows padded
+    to a multiple of 8 in the tiled pass); the pair scratch ``pw_shape``
+    (the tiled pass's, in the input type) or None."""
+    nc: int
+    fused: bool
+    n_parts: int
+    states_shape: tuple
+    pw_shape: tuple | None
+
+
+def backward_plan(b: int, t: int, h: int, dk: int, dv: int, chunk: int,
+                  vec: int, aligned: bool) -> BackwardPlan:
+    """The backward's plan from ints only.  ``vec``: elements of 16 bytes
+    (8 bf16, 4 f32); ``aligned``: q, k, v and dy rows start on 16 bytes,
+    which the fused pass loads 16 bytes at a time."""
+    scan_plan(b, t, h, dk, dv, chunk, False, False)     # the size checks
+    nc = -(-t // chunk)
+    fused = (aligned and dk <= FUSED_MAX and dv <= FUSED_MAX
+             and dk % vec == 0 and dv % vec == 0)
+    if fused:
+        return BackwardPlan(nc=nc, fused=True, n_parts=1,
+                            states_shape=(b, h, nc, dk, dv), pw_shape=None)
+    return BackwardPlan(nc=nc, fused=False, n_parts=2 * -(-dk // TILE),
+                        states_shape=(b, h, nc, dk, -(-dv // 8) * 8),
+                        pw_shape=(b, h, nc, 2, chunk, chunk))
 
 
 def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,11 +209,13 @@ def _check(q, k, v, log_a, h0) -> None:
         raise ValueError(f"inputs span devices {sorted(map(str, devs))}")
 
 
-def _aligned(q, k, v) -> bool:
-    """Rows of q, k and v start on 16 bytes."""
-    rows = [x.data_ptr() % 16 == 0 for x in (q, k, v)]
-    strides = [s % 8 == 0 for x in (q, k) for s in x.stride()[:3]]
-    return all(rows) and all(strides) and v.shape[3] % 8 == 0
+def _rows16(q, k, *rows, vec: int = 8) -> bool:
+    """Rows of q, k and the contiguous ``rows`` start on 16 bytes: every
+    base 16-byte aligned and q's and k's strides multiples of ``vec``
+    elements (16 bytes of their type)."""
+    bases = [x.data_ptr() % 16 == 0 for x in (q, k, *rows)]
+    strides = [s % vec == 0 for x in (q, k) for s in x.stride()[:3]]
+    return all(bases) and all(strides)
 
 
 def _launch(q, k, v, log_a, h0, chunk: int, keep_states: bool = False):
@@ -187,7 +230,7 @@ def _launch(q, k, v, log_a, h0, chunk: int, keep_states: bool = False):
         raise ValueError(f"no kernel for dtype {q.dtype} (dtypes "
                          f"{list(DTYPES)})")
     plan = scan_plan(b, t, h, dk, dv, chunk, q.dtype == torch.bfloat16,
-                     _aligned(q, k, v))
+                     _rows16(q, k, v))
     if h * -(-dk // 16) * -(-dv // TILE) > 65535 or b > 65535:
         raise ValueError(f"no kernel for B {b}, H {h} (grid limits)")
     _check_qk_strides(q, k)
@@ -232,16 +275,20 @@ def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
     stream, from the forward's f32 ``la`` and chunk-entry ``states`` (and
     ``h_t`` when ``dh_t`` is given): (dq, dk, dv, dlog_a f32, dh0 f32),
     dq and dk full (B, T, H, dk) even where q and k broadcast over heads.
-    One call counts one launch."""
+    Scratch: U (the size of ``states``; the reverse states over it when
+    fused), r's parts and, in the tiled pass only, the reverse states and
+    the pair matrices in q's type.  One call counts one launch."""
     from repro_torch.kernels import build
 
     b, t, h, dk = q.shape
     dv = v.shape[3]
-    nc = -(-t // chunk)
     if q.dtype not in DTYPES:
         raise ValueError(f"no kernel for dtype {q.dtype} (dtypes "
                          f"{list(DTYPES)})")
-    scan_plan(b, t, h, dk, dv, chunk, False, False)    # the size checks
+    vec = 16 // q.element_size()
+    plan = backward_plan(b, t, h, dk, dv, chunk, vec,
+                         _rows16(q, k, v, dy, vec=vec))
+    nc = plan.nc
     if dy.shape != v.shape or dy.dtype != v.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
                          f"y {tuple(v.shape)} {v.dtype}")
@@ -260,7 +307,7 @@ def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
-                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
                        + [ctypes.c_void_p])
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -269,20 +316,21 @@ def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
     dv_ = torch.empty_like(v)
     dla = torch.empty((b, t, h), **f32)
     dh0 = torch.empty((b, h, dk, dv), **f32)
-    pw = torch.empty((b, h, nc, 2, chunk, chunk), **f32)
-    us = torch.empty((b, h, nc, dk, dv), **f32)
+    us = torch.empty(plan.states_shape, **f32)      # U (and D, fused)
     decay = torch.empty((b, h, nc), **f32)
-    gq = torch.empty((b, t, h, dk), **f32)
-    gk = torch.empty((b, t, h, dk), **f32)
+    parts = torch.empty((b, t, h, plan.n_parts), **f32)
+    tiled = dict(dtype=q.dtype, device=dev)
+    ds = None if plan.fused else torch.empty(plan.states_shape, **tiled)
+    pw = None if plan.fused else torch.empty(plan.pw_shape, **tiled)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              la.data_ptr(), dy.data_ptr(), states.data_ptr(), ptr(dh_t),
              ptr(h_t if dh_t is not None else None), dq.data_ptr(),
              dk_.data_ptr(), dv_.data_ptr(), dla.data_ptr(), dh0.data_ptr(),
-             pw.data_ptr(), us.data_ptr(), decay.data_ptr(), gq.data_ptr(),
-             gk.data_ptr(), b, t, h, dk, dv, chunk, *q.stride()[:3],
-             *k.stride()[:3], stream)
+             us.data_ptr(), ptr(ds), decay.data_ptr(), parts.data_ptr(),
+             ptr(pw), b, t, h, dk, dv, chunk, int(plan.fused),
+             *q.stride()[:3], *k.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan_backward launch failed: error {err}")
     ssm_scan_backward.launches += 1
@@ -327,8 +375,8 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain version's autograd).  CPU tensors take the plain version,
     which autograd differentiates.  ``ssm_scan.launches`` counts calls
     that launched the forward kernels (three launches each, one count),
-    ``ssm_scan_backward.launches`` backward calls (seven launches, one
-    count)."""
+    ``ssm_scan_backward.launches`` backward calls (four launches at
+    hymba's width, six at the mLSTM's; one count)."""
     _check(q, k, v, log_a, h0)
     if q.device.type == "cpu":
         return ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)

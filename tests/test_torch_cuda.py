@@ -11,6 +11,8 @@ f32 for ``ssm_scan``, the reference's own band for that kernel
 1/sqrt(d), as the model's are, so its outputs are O(1) and the absolute
 bands mean what they mean for attention.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -1230,7 +1232,11 @@ def scan_grads(x_shape, dtype, dev, seed):
     (2, 100, 3, 16, 64, 32, True, 0.5, 0.0, False),   # hymba's shared q/k
     (1, 77, 2, 8, 24, 16, False, 1.0, 0.5, True),     # ragged T, h0, dH_T
     (1, 260, 50, 16, 64, 128, True, 2.0, 0.0, False),  # hymba's heads
-    (1, 200, 2, 512, 513, 128, False, 0.05, 0.2, True)])  # mLSTM's width
+    (1, 200, 2, 512, 513, 128, False, 0.05, 0.2, True),  # mLSTM's width
+    (1, 300, 3, 32, 64, 128, False, 0.3, 0.2, True),   # the dk 32 template
+    (2, 200, 2, 64, 48, 128, False, 0.5, 0.0, True),   # the dk 64 template
+    (1, 150, 2, 16, 72, 64, False, 0.3, 0.1, True),    # dv 72: tiled
+    (2, 300, 2, 512, 513, 128, False, 0.1, 0.3, True)])  # mLSTM, 3 chunks
 def test_scan_backward_kernel_matches_plain(cuda_device, dtype, b, t, h, dk,
                                             dv, chunk, shared, decay, h0,
                                             dh_t):
@@ -1254,6 +1260,47 @@ def test_scan_backward_kernel_matches_plain(cuda_device, dtype, b, t, h, dk,
     for x, y in zip(got, want):
         assert x.shape == y.shape
         assert rel_err(x, y) <= band
+
+
+@pytest.mark.cuda
+def test_scan_backward_kernel_is_deterministic_at_mlstm_width(cuda_device):
+    """Two bf16 runs of the tiled pass at the mLSTM's width (dk 512, dv
+    513, three chunks, dH_T) give the same bits: no atomics, every sum
+    in a fixed order, r's parts added in tile order."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    q, k, v, la, h0_ = scan_case(cuda_device, torch.bfloat16, 2, 300, 4,
+                                 512, 513, decay=0.1, h0_scale=0.3)
+    dy = scan_grads(v.shape, torch.bfloat16, cuda_device, 9)
+    dht = scan_grads(h0_.shape, torch.float32, cuda_device, 10)
+    first = ssm_scan_backward(q, k, v, la, h0_, dy, dht, chunk=128)
+    again = ssm_scan_backward(q, k, v, la, h0_, dy, dht, chunk=128)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_scan_backward_at_hymba_width_allocates_no_pair_scratch(cuda_device):
+    """One hymba-shaped bf16 backward call (B 1, T 1024, H 50, dk 16, dv
+    64, q/k shared) raises the peak of allocated memory by no more than
+    its outputs, its reverse chunk states (the size of the forward's) and
+    8 MB: the fused pass writes no chunk x chunk pair matrices (52 MB at
+    this shape in f32) and no f32 dq/dk."""
+    scan_mod = importlib.import_module("repro_torch.kernels.ssm_scan")
+    q, k, v, la, h0_ = scan_case(cuda_device, torch.bfloat16, 1, 1024, 50,
+                                 16, 64, shared_qk=True, decay=1.0)
+    dy = scan_grads(v.shape, torch.bfloat16, cuda_device, 11)
+    _, h_t, states = scan_mod._launch(q, k, v, la, h0_, 128,
+                                      keep_states=True)
+    scan_mod._launch_backward(q, k, v, la, states, h_t, dy, None, 128)
+    torch.cuda.synchronize()              # built and loaded
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = scan_mod._launch_backward(q, k, v, la, states, h_t, dy, None, 128)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    out_bytes = sum(x.numel() * x.element_size() for x in outs)
+    pair_bytes = 50 * 8 * 2 * 128 * 128 * 4
+    assert rise <= out_bytes + states.numel() * 4 + 8 * 2 ** 20 < pair_bytes
 
 
 @pytest.mark.cuda
