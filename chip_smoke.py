@@ -210,12 +210,31 @@ code is non-zero and the final JSON line is not printed:
                  embeddings a row at (t, h, w) positions, and
                  seamless-m4t-large-v2 in full, B 2 x 1000 frames x 1024
                  tokens: as 36.
+38. sharded   -- the launch layer over torch.distributed.  (a) A world
+                 of one over NCCL, make_mesh((1, 1)), agent-7b in full,
+                 bf16, kernels on: make_prefill_step and make_serve_step
+                 over 8 sequences give transformer.prefill's and
+                 decode_step's logits bit for bit, and one
+                 make_train_step(cfg, mesh) step at B 2 x S 4096 with int8
+                 moments gives the mesh-less step's parameters, moments
+                 and metrics bit for bit.  (b) Two gloo ranks spawned on
+                 the one card (NCCL refuses two ranks on one device), f32,
+                 kernels on, mesh (1, 2): agent-7b's width at 2 layers
+                 (TP) and arctic's at 1 layer with 8 experts (EP); prefill
+                 and 16 greedy tokens equal the unsharded run's, one train
+                 step's loss and every gradient leaf within phase 29's
+                 bands, every kernel call on a rank's shards held to its
+                 plain version, each kernel's launches printed.  (c) The
+                 same ranks on (2, 1), DP + FSDP, agent-7b's width at 2
+                 layers: the train-step check.  (b) and (c) times are two
+                 processes sharing one card, not a multi-GPU figure.
 
 Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
 graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
 13, 15, 16, 21-23) run each request set a second time on an eager
 engine for its first 16 new tokens: those greedy tokens equal the graph
-run's, and the mean step times and profiles of both are printed.  Each
+run's, and the mean step times of both are printed, with the profiles
+of the graph runs and of agent-7b's eager runs (``EAGER_PROFILES``).  Each
 phase's wall time is printed on a ``[time]`` line.  A launch count includes a capture's
 eager warm-up runs and each replay (``serving/graphs.py``).  The last
 two lines are a JSON object of kernel numbers and ``{"ok": true,
@@ -249,7 +268,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core import Tracer  # noqa: E402
 from repro_torch.core.metrics import Collector  # noqa: E402
 from repro_torch.core.types import Priority, Request, RequestState  # noqa: E402
@@ -277,8 +296,16 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan, ssm_scan_backward, ssm_scan_backward_plain, ssm_scan_plain)
 scan_mod = importlib.import_module("repro_torch.kernels.ssm_scan")
+import torch.distributed as dist  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed import parallel  # noqa: E402
+from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.launch import specs as specs_launch  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.serve import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
 from repro_torch.launch.train import (AdamWConfig, TrainPlan,  # noqa: E402
-                                      make_train_step)
+                                      init_opt_state, make_train_step)
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.serving import cache_utils  # noqa: E402
 from repro_torch.serving.disagg import DisaggPool  # noqa: E402
@@ -1653,6 +1680,11 @@ SERVE_LENS = [int(x) for x in np.random.default_rng(2).integers(256, 1025,
 # the eager reruns of the serve phases: the first 16 new tokens of each
 # request, held to the graph run's
 EAGER_NEW = 16
+# the eager reruns' profiles (each admits 8 more sequences and decodes 14
+# eager steps beside the 4 it profiles) run in agent-7b's paged and ring
+# serve phases only; every other eager rerun keeps its token and launch
+# checks, and every graph run its profile (cut for phase 38's time)
+EAGER_PROFILES = ("serve", "serve ring")
 
 
 def release(eng: TorchEngine) -> None:
@@ -1672,8 +1704,9 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
     equal, and every kernel of the path launches exactly as often as
     expected in both runs.  Returns the
     counts of the graph run.  A profile of four decode steps follows
-    each run, and with ``prefill_profile`` one of the longest prompt's
-    prefill the graph run."""
+    the graph run (and the eager run in ``EAGER_PROFILES``' phases), and
+    with ``prefill_profile`` one of the longest prompt's prefill the
+    graph run."""
     out = {}
     for how in ("graph", "eager"):
         eng = TorchEngine(cfg, params,
@@ -1703,7 +1736,8 @@ def phase_serve(dev, cfg, params, layout: str, phase: str,
             f"{res['prefill_forwards']} prefill forwards, decode bodies "
             f"{res['runs']['decode']}); max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_decode(eng, mean_ms(res, "decode"), phase, how)
+        if how == "graph" or phase in EAGER_PROFILES:
+            profile_decode(eng, mean_ms(res, "decode"), phase, how)
         if prefill_profile and how == "graph":
             profile_prefill(eng, max(SERVE_LENS), phase)
         out[how] = ([list(r.output_tokens) for r in reqs], res)
@@ -1868,8 +1902,9 @@ def phase_serve_mixed(dev, cfg, params, phase: str,
             f"{dict(eng.step_captures)}; kernel launches {launches} (body "
             f"runs {dict(eng.step_runs)}); max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_decode(eng, mean_ms(res, "decode"), phase, how)
-        profile_mixed(eng, mean_ms(res, "mixed"), phase, how)
+        if how == "graph" or phase in EAGER_PROFILES:
+            profile_decode(eng, mean_ms(res, "decode"), phase, how)
+            profile_mixed(eng, mean_ms(res, "mixed"), phase, how)
         out[how] = ([list(r.output_tokens) for r in w1 + w2], res)
         if how == "graph":
             main = launches
@@ -2575,9 +2610,10 @@ class kernelwise:
             def both(*args, _real=self._real[name], _plain=plain,
                      _name=name, **kw):
                 out = _real(*args, **kw)
-                want = _plain(*args, **kw).float()
-                self.errs.append((out.float() - want).abs().max()
-                                 / want.abs().max())
+                with torch.no_grad():
+                    want = _plain(*args, **kw).float()
+                    self.errs.append((out.detach().float() - want).abs()
+                                     .max() / want.abs().max())
                 self.calls[_name] += 1
                 return out
             setattr(attention, name, both)
@@ -3009,8 +3045,8 @@ def phase_train_parity(dev) -> None:
             acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=int8)
             p = prm.unflatten(prm.flatten(params)[1],
                               [x.clone() for x in prm.flatten(params)[0]])
-            step = make_train_step(c, TrainPlan(int8_moments=int8), acfg,
-                                   device=dev)
+            step = make_train_step(c, None, TrainPlan(int8_moments=int8),
+                                   acfg, device=dev)
             p, opt, m = step(p, adamw_init(p, acfg), batch)
             torch.cuda.synchronize()
             steps[int8] = (p, m)
@@ -3098,7 +3134,7 @@ def phase_train(dev) -> dict:
     params = init_train(cfg, dev, phase)
     acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
     plan = TrainPlan(microbatch=1, int8_moments=True)
-    step = make_train_step(cfg, plan, acfg, device=dev)
+    step = make_train_step(cfg, None, plan, acfg, device=dev)
     opt = adamw_init(params, acfg)
     before = [leaf_sample(p) for p in prm.flatten(params)[0]]
     pipe = train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH)
@@ -3220,7 +3256,8 @@ def phase_train_1b(dev) -> None:
     card_runs = dev.type == "cuda"
     params = init_train(cfg, dev, phase)
     acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
-    step = make_train_step(cfg, TrainPlan(microbatch=2), acfg, device=dev)
+    step = make_train_step(cfg, None, TrainPlan(microbatch=2), acfg,
+                           device=dev)
     opt = adamw_init(params, acfg)
     pipe = train_batches(cfg, TRAIN_SEQ, 2, seed=1)
     it = iter(pipe)
@@ -3791,7 +3828,7 @@ def phase_train_families(dev) -> None:
         acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
         c = cfg.replace(use_pallas=True)
         before = [leaf_sample(p) for p in prm.flatten(params)[0]]
-        step = make_train_step(c, TrainPlan(), acfg, device=dev)
+        step = make_train_step(c, None, TrainPlan(), acfg, device=dev)
         params, opt, m = step(params, adamw_init(params, acfg), batch)
         torch.cuda.synchronize()
         moved = sum(not torch.equal(a, leaf_sample(p)) for a, p in zip(
@@ -3937,7 +3974,7 @@ def train_full(dev, phase: str, cfg, b: int, s: int, int8: bool = False,
     cfg = cfg.replace(use_pallas=True)
     params = init_train(cfg, dev, phase)
     acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=int8)
-    step = make_train_step(cfg, TrainPlan(int8_moments=int8), acfg,
+    step = make_train_step(cfg, None, TrainPlan(int8_moments=int8), acfg,
                            device=dev)
     opt = adamw_init(params, acfg)
     before = [leaf_sample(p) for p in prm.flatten(params)[0]]
@@ -4430,6 +4467,435 @@ def phase_serve_disagg(dev, cfg, params, phase: str = "serve disagg") -> dict:
     return used
 
 
+# ---------------------------------------------------------------------------
+# Sharded steps (phase 38): the launch layer's mesh-aware serve, prefill
+# and train steps, world 1 over NCCL, then two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# (a) agent-7b in full, bf16: 8 sequences of 128 tokens and 8 decode steps,
+# one train step at B 2 x S 4096 with int8 moments
+SHARDED_FULL, SHARDED_B, SHARDED_PROMPT, SHARDED_DECODE = "agent-7b", 8, 128, 8
+# (b), (c) two gloo ranks sharing the card, f32: agent-7b's width at 2
+# layers, arctic's at 1 layer with 8 of its 128 experts (both ranks keep
+# the unsharded model beside their shards: 128 would take 2 x 62 GB);
+# prefill of B 2 x 64 then 16 greedy tokens, a train step at B 2 x S 512
+SHARDED_TP = ("agent-7b", dict(n_layers=2))
+SHARDED_EP = ("arctic-480b", dict(n_layers=1, n_experts=8))
+SHARDED_SERVE_B, SHARDED_SERVE_PROMPT, SHARDED_NEW = 2, 64, 16
+SHARDED_TRAIN_B, SHARDED_TRAIN_SEQ = 2, 512
+# f32 logits through a 2-layer random-init stack: the ranks' partial sums
+# reduce in another order than one device's einsum; the parity phases'
+# decode band (ROADMAP §C: f32 decode logits drift ~1e-4 in both packages)
+SHARDED_LOGIT_TOL = 2e-3
+SHARDED_DIR = ROOT / "build" / "sharded"
+
+
+def sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sharded_store(name: str) -> str:
+    """A FileStore path under SHARDED_DIR (no TCP port), made fresh."""
+    SHARDED_DIR.mkdir(parents=True, exist_ok=True)
+    path = SHARDED_DIR / name
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
+
+
+def sharded_world1(dev) -> dict:
+    """(a) World 1 over NCCL (gloo on the CPU), ``make_mesh((1, 1))``:
+    agent-7b in full, bf16, kernels on.  make_prefill_step and
+    make_serve_step over 8 sequences give transformer.prefill's and
+    decode_step's logits bit for bit; one make_train_step(cfg, mesh) step
+    at B 2 x S 4096 with int8 moments gives the mesh-less step's loss,
+    parameters and moments bit for bit (both under deterministic
+    algorithms).  Returns the mesh run's launches."""
+    phase = "sharded"
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    marks = [("start", time.perf_counter())]
+    dist.init_process_group(backend, init_method=sharded_store("world1"),
+                            world_size=1, rank=0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        marks.append(("process group and mesh", time.perf_counter()))
+        cfg = get_config(SHARDED_FULL).replace(use_pallas=True)
+        params = init_train(cfg, dev, phase)
+        sync(dev)
+        marks.append(("init", time.perf_counter()))
+        b, s = SHARDED_B, SHARDED_PROMPT
+        shape_d = ShapeConfig("sharded", s, b, "decode")
+        pre, _ = make_prefill_step(cfg, mesh, ShapeConfig("sharded", s, b,
+                                                          "prefill"))
+        dec, _ = make_serve_step(cfg, mesh, shape_d)
+        gen = torch.Generator(device=dev).manual_seed(38)
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                             device=dev)
+        cache = serve_launch.init_cache(cfg, mesh, shape_d)
+        ref_cache = models.init_cache(cfg, b, specs_launch.decode_context(
+            shape_d), device=dev)
+        start = all_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got, cache = pre(params, toks, cache)
+            want, ref_cache = models.prefill(params, cfg, toks, ref_cache)
+            equal = [torch.equal(got, want)]
+            for _ in range(SHARDED_DECODE):
+                nxt = want.argmax(-1)[:, None]
+                got, cache = dec(params, nxt, cache)
+                want, ref_cache = models.decode_step(params, cfg, nxt,
+                                                     ref_cache)
+                equal.append(torch.equal(got, want))
+        sync(dev)
+        serve_s = time.perf_counter() - t0
+        used = {k: v - start[k] for k, v in all_counts().items()}
+        if not all(equal):
+            raise AssertionError(f"{phase}: world-1 mesh serve logits differ "
+                                 f"from the mesh-less steps': {equal}")
+        del cache, ref_cache
+        marks.append(("serve", time.perf_counter()))
+        acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+        plan = TrainPlan(int8_moments=True)
+        batch = family_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, gen, dev)
+        # two copies of the weights and moments (2 x 18 GB), made before
+        # either step
+        t0 = time.perf_counter()
+        states = [(params, adamw_init(params, acfg))]
+        states.append(tuple(prm.unflatten(d, [t.clone() for t in leaves])
+                            for leaves, d in (prm.flatten(x)
+                                              for x in states[0])))
+        sync(dev)
+        states_s = time.perf_counter() - t0
+        runs = {}
+        for name, (p, opt), m in zip(("mesh-less", "mesh"), states,
+                                     (None, mesh)):
+            step = make_train_step(cfg, m, plan, acfg, device=dev,
+                                   shape=ShapeConfig("sharded", TRAIN_SEQ,
+                                                     TRAIN_BATCH, "train"))
+            gc.collect()
+            sync(dev)
+            mem = (torch.cuda.memory_allocated() / 1e9
+                   if dev.type == "cuda" else 0.0)
+            t0 = time.perf_counter()
+            p, opt, metrics = step(p, opt, batch)
+            sync(dev)
+            runs[name] = (p, opt, metrics, time.perf_counter() - t0, mem)
+            del step
+        del states
+        marks.append(("two train steps", time.perf_counter()))
+        (p0, o0, m0, t_0, _), (p1, o1, m1, t_1, mem) = runs["mesh-less"], \
+            runs["mesh"]
+        same = all(torch.equal(a, c) for a, c in zip(
+            prm.flatten((p0, o0))[0], prm.flatten((p1, o1))[0]))
+        same_m = all(torch.equal(m0[k], m1[k]) for k in m0)
+        if not (same and same_m):
+            raise AssertionError(f"{phase}: the world-1 mesh train step "
+                                 f"differs from the mesh-less step "
+                                 f"(leaves equal {same}, metrics {same_m})")
+        marks.append(("compare", time.perf_counter()))
+        gpu = card() if dev.type == "cuda" else "a CPU"
+        log(phase, f"(a) world 1, {backend}, mesh (1, 1), {cfg.name} in "
+            f"full ({cfg.n_layers} layers, bf16, kernels on), {gpu}: "
+            f"make_prefill_step + {SHARDED_DECODE} make_serve_step steps "
+            f"over {b} sequences of {s} tokens ({serve_s:.2f} s with the "
+            f"mesh-less twins) give transformer.prefill's and "
+            f"decode_step's logits bit for bit; one make_train_step(cfg, "
+            f"mesh) step at B {TRAIN_BATCH} x S {TRAIN_SEQ}, int8 moments, "
+            f"{1e3 * t_1:.1f} ms (mesh-less {1e3 * t_0:.1f} ms, each the "
+            f"first of its step), loss {m1['loss'].item():.6f}, gives the "
+            f"mesh-less step's loss, grad_norm, parameters and moments bit "
+            f"for bit (deterministic algorithms; {mem:.2f} GB allocated "
+            f"before the second step; the two states made in "
+            f"{states_s:.1f} s); serve launches "
+            f"{ {k: v for k, v in used.items() if v} }; "
+            + ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b)
+                        in zip(marks, marks[1:])))
+        del runs, p0, p1, o0, o1
+        free(params)
+        return used
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+class hold_sharded_calls:
+    """Within the block, every flash, ring decode and grouped_matmul call
+    a rank makes on its local shard, forward (served or trained) and
+    backward, is kept; ``check(phase)`` holds each to its plain version
+    on the call's own inputs (``kernelwise``, ``hold_flash_calls``,
+    ``hold_training_calls``)."""
+
+    def __enter__(self):
+        self._stack = contextlib.ExitStack()
+        self.kw = self._stack.enter_context(kernelwise())
+        self.fwd = self._stack.enter_context(record_flash(True))
+        self.bwd = self._stack.enter_context(record_flash(False))
+        self.gm = self._stack.enter_context(record_training_kernels())
+        return self
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+    def check(self, phase: str, dtype) -> float:
+        err = self.kw.max_err()
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"{phase}: a served kernel call differs "
+                                 f"from its plain version by {err}")
+        return max(err, hold_flash_calls(phase, self.fwd, self.bwd, dtype),
+                   hold_training_calls(phase, self.gm, dtype))
+
+
+def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
+                 serve: bool = True) -> dict:
+    """One config on ``mesh`` in a gloo rank, kernels on, f32: prefill of
+    B 2 x 64 and 16 greedy tokens through make_prefill_step /
+    make_serve_step, and one make_train_step (its gradients, then its
+    AdamW half on them), every kernel call on the rank's shards held to
+    its plain version.  Rank 0 also runs the unsharded model, on the
+    card they share: the greedy tokens equal its (logits within
+    SHARDED_LOGIT_TOL), the loss and every gradient leaf, gathered,
+    within phase 29's bands (loss 1e-4, each leaf 1e-2 of its largest
+    magnitude); the phase holds the other rank's tokens and loss to rank
+    0's.  Returns the results, stage times and launches."""
+    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
+           else get_config(name))
+    cfg = cfg.replace(dtype="float32", use_pallas=True, **cut)
+    ref = dist.get_rank() == 0
+    marks = [("start", time.perf_counter())]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = models.init(cfg, gen, device=dev)
+    attention.rescale_to_true_fan_in(full)
+    where = f"{phase} {cfg.name} on {dict(parallel.context(mesh).sizes)}"
+    out = {"config": f"{cfg.name} width, {cfg.n_layers} layer(s)"
+           + (f", {cfg.n_experts} experts" if cfg.n_experts else "")}
+    worst = 0.0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sync(dev)
+    marks.append(("init", time.perf_counter()))
+    start = all_counts()
+    if serve:
+        b, s = sizes["serve_b"], sizes["prompt"]
+        shape_d = ShapeConfig("sharded", s, b, "decode")
+        pre, specs = make_prefill_step(cfg, mesh, ShapeConfig(
+            "sharded", s, b, "prefill"))
+        dec, _ = make_serve_step(cfg, mesh, shape_d)
+        params = parallel.shard_tree(full, specs["params"], mesh)
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                             device=dev)
+        rows = serve_launch.local_rows(torch.arange(b, device=dev),
+                                       parallel.context(mesh))
+        cache = serve_launch.init_cache(cfg, mesh, shape_d)
+        got_t, logits = [], []
+        with torch.no_grad():
+            with hold_sharded_calls() as held:
+                got, cache = pre(params, toks, cache)
+            worst = max(worst, held.check(where, torch.float32))
+            nxt = torch.zeros((b, 1), dtype=torch.long, device=dev)
+            for i in range(sizes["new"]):
+                got_t.append(got.argmax(-1))
+                logits.append(got)
+                if i == sizes["new"] - 1:
+                    break
+                nxt[rows] = got_t[-1][:, None]
+                with hold_sharded_calls() as held:
+                    got, cache = dec(params, nxt, cache)
+                worst = max(worst, held.check(where, torch.float32))
+            del params, cache
+            used = {k: v - start[k] for k, v in all_counts().items()}
+            if ref:
+                ref_cache = models.init_cache(
+                    cfg, b, specs_launch.decode_context(shape_d), device=dev)
+                want, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+                diffs, same = [], True
+                for i, (g, t) in enumerate(zip(logits, got_t)):
+                    if i:
+                        want, ref_cache = models.decode_step(
+                            full, cfg, want.argmax(-1)[:, None], ref_cache)
+                    diffs.append((g - want[rows]).abs().max().item())
+                    same &= torch.equal(t, want[rows].argmax(-1))
+                if not same:
+                    raise AssertionError(f"{where}: greedy tokens differ "
+                                         f"from the unsharded run's")
+                if max(diffs) > SHARDED_LOGIT_TOL:
+                    raise AssertionError(f"{where}: logits differ by "
+                                         f"{max(diffs)}")
+                out["logits"] = max(diffs)
+                del ref_cache
+        out["tokens"] = torch.stack(got_t, 1).tolist()
+        sync(dev)
+        marks.append(("serve", time.perf_counter()))
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+    b, s = sizes["train_b"], sizes["train_seq"]
+    batch = family_batch(cfg, b, s, gen, dev)
+    start = all_counts()
+    step = make_train_step(cfg, mesh, TrainPlan(int8_moments=True), acfg,
+                           shape=ShapeConfig("sharded", s, b, "train"))
+    specs = step.shardings["params"]
+    params = parallel.shard_tree(full, specs, mesh)
+    opt = init_opt_state(params, acfg, mesh, cfg=cfg)
+    with hold_sharded_calls() as held:
+        metrics, grads = step.grads(params, batch, with_metrics=True)
+    worst = max(worst, held.check(where, torch.float32))
+    del held
+    whole = parallel.gather_tree(grads, specs, mesh)
+    sync(dev)
+    marks.append(("sharded gradients, held", time.perf_counter()))
+    # the step's AdamW half on the gradients just held
+    params, opt, m = step.update(params, opt, grads, metrics)
+    sync(dev)
+    marks.append(("update", time.perf_counter()))
+    if not all(torch.isfinite(t).all() for t in prm.flatten(params)[0]):
+        raise AssertionError(f"{where}: non-finite parameters after a step")
+    del params, opt, grads
+    launches = {k: v - start[k] + (used[k] if serve else 0)
+                for k, v in all_counts().items()}
+    if ref:
+        ref_loss, ref_g = grads_and_loss(cfg, full, batch)
+        errs = [rel_err(a, c) for a, c in zip(prm.flatten(whole)[0], ref_g)]
+        loss_err = abs(m["loss"].item() - ref_loss.item())
+        if loss_err > 1e-4 or max(errs) > TRAIN_F32_GRAD_TOL:
+            raise AssertionError(f"{where}: train step loss off by "
+                                 f"{loss_err}, gradient leaves by up to "
+                                 f"{max(errs)}")
+        out.update(loss_err=loss_err, grad_err=max(errs), leaves=len(errs))
+        del ref_g
+        sync(dev)
+        marks.append(("unsharded run", time.perf_counter()))
+    free(full)
+    out["stages"] = ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b)
+                              in zip(marks, marks[1:]))
+    out.update(loss=m["loss"].item(), kernel_err=worst,
+               launches={k: v for k, v in launches.items() if v})
+    return out
+
+
+def sharded_rank(rank: int, world: int, store: str, out_dir: str,
+                 device_type: str, sizes: dict) -> None:
+    """A gloo rank of phase 38 (b) and (c), spawned by the phase (which
+    passes the configs and sizes in ``sizes``): on the card both ranks
+    share CUDA device 0."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    if device_type == "cpu":
+        torch.set_num_threads(1)
+    else:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    dist.init_process_group("gloo", init_method=store, world_size=world,
+                            rank=rank)
+    res: dict = {}
+    try:
+        t0 = time.perf_counter()
+        tp = make_mesh((1, world), ("data", "model"), device_type)
+        res["tp"] = sharded_case(tp, *sizes["tp"], dev, "sharded (b) TP",
+                                 sizes)
+        res["ep"] = sharded_case(tp, *sizes["ep"], dev, "sharded (b) EP",
+                                 sizes)
+        dp = make_mesh((world, 1), ("data", "model"), device_type)
+        res["dp"] = sharded_case(dp, *sizes["tp"], dev, "sharded (c) DP",
+                                 sizes, serve=False)
+        res["seconds"] = time.perf_counter() - t0
+    except Exception:
+        import traceback
+        res["error"] = traceback.format_exc()[-4000:]
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev) -> None:
+    """[sharded]: (b) two gloo ranks sharing the card on mesh (1, 2):
+    agent-7b's width at 2 layers (TP) and arctic's at 1 layer (EP); (c)
+    the same ranks on (2, 1) (DP + FSDP), agent-7b's width at 2 layers,
+    train only (``sharded_world2``, ``sharded_case``); then (a) world-1
+    NCCL steps bit-equal to mesh-less at agent-7b's full depth
+    (``sharded_world1``), whose 50 GB would not leave the ranks room.  Times
+    of (b) and (c) are two processes sharing one H100 over gloo, not a
+    multi-GPU figure."""
+    sharded_world2(dev)
+    sharded_world1(dev)
+
+
+def sharded_world2(dev) -> None:
+    """(b) and (c): two gloo ranks spawned on the card (``sharded_rank``),
+    their results printed and held."""
+    phase = "sharded"
+    import torch.multiprocessing as mp
+
+    # the ranks share the card with this process: return its cache first
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        log(phase, f"this process holds {torch.cuda.memory_reserved() / 1e9:.2f}"
+            f" GB of the card before the ranks start")
+    out_dir = SHARDED_DIR / "ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    sizes = {"tp": SHARDED_TP, "ep": SHARDED_EP, "serve_b": SHARDED_SERVE_B,
+             "prompt": SHARDED_SERVE_PROMPT, "new": SHARDED_NEW,
+             "train_b": SHARDED_TRAIN_B, "train_seq": SHARDED_TRAIN_SEQ}
+    mp.start_processes(sharded_rank, args=(2, sharded_store("world2"),
+                                           str(out_dir), dev.type, sizes),
+                       nprocs=2, start_method="spawn")
+    wall = time.perf_counter() - t0
+    res = [json.loads((out_dir / f"rank{r}.json").read_text())
+           for r in range(2)]
+    for r, got in enumerate(res):
+        if "error" in got:
+            raise AssertionError(f"{phase}: rank {r} failed:\n"
+                                 f"{got['error']}")
+    label = ("two processes sharing one " + card() + " over gloo"
+             if dev.type == "cuda" else "two CPU processes over gloo")
+    for key, what in (("tp", "(b) mesh (1, 2), TP"),
+                      ("ep", "(b) mesh (1, 2), EP"),
+                      ("dp", "(c) mesh (2, 1), DP + FSDP")):
+        c0 = res[0][key]
+        for r, got in enumerate(res):
+            c = got[key]
+            if c.get("tokens") != c0.get("tokens") \
+                    or c["loss"] != c0["loss"] \
+                    or c["launches"] != c0["launches"]:
+                raise AssertionError(f"{phase} {what}: rank {r}'s tokens, "
+                                     f"loss or launches differ from rank "
+                                     f"0's")
+            n_tok = sum(map(len, c.get("tokens", [])))
+            served = (f"prefill + {sizes['new']} greedy tokens ({n_tok}) "
+                      f"equal rank 0's; " if r and n_tok else "")
+            if not r and n_tok:
+                served = (f"prefill + {sizes['new']} greedy tokens equal the "
+                          f"unsharded run's ({n_tok} tokens), logits within "
+                          f"{c['logits']:.3e}; ")
+            held = (f"train step loss {c['loss']:.6f} (|diff| "
+                    f"{c['loss_err']:.2e}), {c['leaves']} gradient leaves "
+                    f"within {c['grad_err']:.3e} of their largest magnitude"
+                    if not r else f"train step loss {c['loss']:.6f}, equal "
+                    f"to rank 0's")
+            log(phase, f"{what}, rank {r}: {c['config']}, f32, kernels on: "
+                f"{served}{held}; every kernel call on the rank's shards "
+                f"within {c['kernel_err']:.3e} of its plain version; "
+                f"launches on the sharded path {c['launches']}; "
+                f"{c['stages']}")
+            if dev.type == "cuda":
+                want = {"flash_attention", "flash_attention_backward"} | (
+                    {"decode_attention"} if "tokens" in c else set()) | (
+                    {"grouped_matmul", "grouped_matmul_backward"}
+                    if key == "ep" else set())
+                if not want <= set(c["launches"]):
+                    raise AssertionError(f"{phase} {what}: rank {r} "
+                                         f"launched {c['launches']}, "
+                                         f"expected each of {sorted(want)}")
+    log(phase, f"(b) and (c): {wall:.1f} s of wall time for the spawn, "
+        f"{max(r['seconds'] for r in res):.1f} s in the ranks ({label}; "
+        f"not a multi-GPU figure)")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU")
@@ -4639,6 +5105,11 @@ def main() -> int:
         ssm_run = phase_train_ssm(dev)
     with timed_phase("37 train vlm encdec"):
         phase_train_vlm_encdec(dev)
+
+    # the launch layer over torch.distributed: world 1 over NCCL, then two
+    # gloo ranks sharing the card
+    with timed_phase("38 sharded"):
+        phase_sharded(dev)
     log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
 
     main_path = {"paged_decode_attention": control, "flash_attention": hymba,

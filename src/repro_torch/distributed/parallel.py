@@ -1,0 +1,398 @@
+"""The port's counterpart of what GSPMD does for the reference: explicit
+shards, explicit process groups, and collectives where the shards meet.
+
+* ``MeshContext`` -- a ``DeviceMesh`` as the model code sees it: this
+  rank's coordinate on each axis, each axis's process group
+  (``DeviceMesh.get_group``), the joint groups of the rules' axis tuples
+  (``("pod", "data")``), the device and the sharding rules.  A step makes
+  its context current (``use_mesh``) while it runs; with none current,
+  every hook below is the identity and the model runs as on one device.
+* ``shard_tree`` / ``gather_tree`` -- cut a full tree to this rank's
+  shards by a PartitionSpec tree, and put the shards back together.
+* The autograd collectives of Megatron-style TP and of FSDP:
+  ``reduce_from`` (forward all-reduce, backward identity: the end of a
+  region whose ranks hold partial sums), ``copy_to`` (forward identity,
+  backward all-reduce: a replicated tensor entering such a region),
+  ``gather_from`` (forward all-gather, backward reduce-scatter: FSDP's
+  weight gather, whose gradient is summed over the ranks' local losses;
+  the train step normalises each rank's loss by the global token count,
+  so the sum is the global batch's mean) and ``gather_keep`` (forward
+  all-gather, backward this rank's slice: logits gathered over the
+  vocabulary for a loss every model rank computes alike).
+
+Every collective of a group of one rank is skipped, so a world of one
+runs the single-device step's operations exactly.  A collective that
+fails raises; nothing falls back.
+
+``gloo`` with CUDA tensors (two ranks sharing one card, where NCCL
+refuses): every collective used here (``all_reduce`` with SUM and MAX,
+``all_gather`` of int8 and f32, ``reduce_scatter``, ``new_group``) takes
+CUDA tensors in torch 2.11+cu128 on an H100, so nothing is staged
+through host memory.  The names used exist in torch 2.11 and 2.13
+(``reduce_scatter`` of a list, not ``reduce_scatter_tensor``).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# the contexts of the steps running now, innermost last: a process-wide
+# stack, not a context variable, because the autograd engine runs a
+# CUDA backward (and remat's recompute inside it) on its own threads
+_ACTIVE: list = []
+
+
+def current() -> Optional["MeshContext"]:
+    """The mesh context of the step running now, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextlib.contextmanager
+def use_mesh(ctx: Optional["MeshContext"]):
+    """Make ``ctx`` current for the model code run inside (None: no
+    mesh, the single-device path)."""
+    _ACTIVE.append(ctx)
+    try:
+        yield ctx
+    finally:
+        _ACTIVE.pop()
+
+
+# ---------------------------------------------------------------------------
+# Plain collectives (no autograd)
+# ---------------------------------------------------------------------------
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``t`` reduced over ``group`` (``"sum"`` or
+    ``"max"``)."""
+    if group_size(group) == 1:
+        return t
+    out = t.clone()
+    dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
+    return out
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """(n, *t.shape): every rank's ``t`` in group-rank order."""
+    n = group_size(group)
+    if n == 1:
+        return t[None]
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts)
+
+
+def gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in group-rank order."""
+    if group_size(group) == 1:
+        return t
+    return torch.cat(list(all_gather(t, group).unbind(0)), dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group``, this rank's equal
+    chunk along ``dim``."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    chunks = [c.contiguous() for c in t.chunk(n, dim=dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Autograd collectives
+# ---------------------------------------------------------------------------
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherKeep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.start = dist.get_rank(group) * ctx.n
+        return gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """Forward all-reduce (sum), backward identity."""
+    return x if group_size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Forward identity, backward all-reduce (sum)."""
+    return x if group_size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Forward all-gather along ``dim``, backward reduce-scatter (sum)."""
+    return x if group_size(group) == 1 else _GatherFrom.apply(x, dim, group)
+
+
+def gather_keep(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Forward all-gather along ``dim``, backward this rank's slice."""
+    return x if group_size(group) == 1 else _GatherKeep.apply(x, dim, group)
+
+
+# ---------------------------------------------------------------------------
+# The mesh as the model sees it
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one PartitionSpec entry."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class MeshContext:
+    """A ``DeviceMesh`` with the sharding rules: sizes, this rank's
+    coordinates, and a process group for every axis and for every axis
+    tuple the rules name (built here, on every rank in one order)."""
+
+    def __init__(self, mesh, rules=None):
+        from repro_torch.distributed import sharding as shd
+
+        self.mesh = mesh
+        self.rules = rules or shd.DEFAULT_RULES
+        self.sizes = shd.mesh_axis_sizes(mesh)
+        self.names = tuple(self.sizes)
+        self.coords = dict(zip(self.names, mesh.get_coordinate()))
+        self.groups = {a: mesh.get_group(a) for a in self.names}
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if mesh.device_type == "cuda"
+                       else torch.device(mesh.device_type))
+        ranks = mesh.mesh
+        tuples = {tuple(a for a in cand if a in self.sizes)
+                  for _, cands in self.rules.rules for cand in cands
+                  if isinstance(cand, tuple)}
+        tuples.add(tuple(a for a in self.rules.batch_axes if a in self.sizes))
+        self._joint = {}
+        for axes in sorted(t for t in tuples if len(t) > 1):
+            dims = [self.names.index(a) for a in axes]
+            rest = [i for i in range(len(self.names)) if i not in dims]
+            rows = ranks.permute(*rest, *dims).reshape(
+                -1, math.prod(self.sizes[a] for a in axes))
+            for row in rows.tolist():
+                g = dist.new_group(row)
+                if dist.get_rank() in row:
+                    self._joint[axes] = g
+
+    def size(self, entry) -> int:
+        return math.prod(self.sizes.get(a, 1) for a in entry_axes(entry))
+
+    def coord(self, entry) -> int:
+        """This rank's index along an entry's axes (row-major)."""
+        idx = 0
+        for a in entry_axes(entry):
+            idx = idx * self.sizes.get(a, 1) + self.coords.get(a, 0)
+        return idx
+
+    def group(self, entry):
+        """The process group spanning an entry's axes (None: one rank)."""
+        axes = tuple(a for a in entry_axes(entry)
+                     if self.sizes.get(a, 1) > 1)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.groups[axes[0]]
+        full = tuple(a for a in entry_axes(entry) if a in self.sizes)
+        return self._joint[full]
+
+    # -- the axes the model code asks for --------------------------------
+
+    @property
+    def model(self):
+        return self.group("model")
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.rules.batch_axes if a in self.sizes)
+
+    @property
+    def batch(self):
+        """The group over every batch axis (pod x data)."""
+        return self.group(self.batch_axes)
+
+    @property
+    def batch_world(self) -> int:
+        return self.size(self.batch_axes)
+
+    @property
+    def batch_rank(self) -> int:
+        return self.coord(self.batch_axes)
+
+    # -- FSDP -------------------------------------------------------------
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(self.sizes)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.names
+
+    def fsdp_leaf(self, t: torch.Tensor, p) -> torch.Tensor:
+        """``t``, a leaf of def ``p`` (``models.params.P``; a stacked leaf
+        or one layer of it), whole along every dim the rules cut over the
+        batch axes."""
+        from repro_torch.distributed.sharding import spec_for
+
+        spec = spec_for(p.axes, p.shape, self, self.rules)
+        for dim, entry in enumerate(spec):
+            axes = entry_axes(entry)
+            if axes and set(axes) <= set(self.batch_axes):
+                g = self.group(entry)
+                if g is not None:
+                    t = gather_from(t, t.ndim - len(spec) + dim, g)
+        return t
+
+    def fsdp_gather(self, tree, defs):
+        """A layer's leaves gathered over the batch axes where the rules
+        cut them (FSDP), ``defs`` its def tree."""
+        from repro_torch.models import params as prm
+
+        return prm.tree_map(lambda t, p: self.fsdp_leaf(t, p), tree, defs)
+
+    @property
+    def fsdp(self) -> bool:
+        return self.batch_world > 1
+
+
+def context(mesh, rules=None) -> Optional[MeshContext]:
+    """The context of a ``DeviceMesh``; None for no mesh, or a shape-only
+    mesh of one device (the single-device path).  A shape-only mesh of
+    more devices, or a DeviceMesh with no initialised process group,
+    raises."""
+    if mesh is None or isinstance(mesh, MeshContext):
+        return mesh
+    if not hasattr(mesh, "get_group"):
+        from repro_torch.distributed.sharding import mesh_axis_sizes
+
+        n = math.prod(mesh_axis_sizes(mesh).values())
+        if n == 1:
+            return None
+        raise RuntimeError(f"a mesh of {n} devices needs a DeviceMesh "
+                           f"(launch.mesh.make_mesh) over an initialised "
+                           f"process group, not {type(mesh).__name__}")
+    if mesh.device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; a CPU mesh "
+                           "(device_type='cpu') runs the port's plain "
+                           "PyTorch paths")
+    if not dist.is_initialized():
+        raise RuntimeError("a sharded step needs an initialised process "
+                           "group")
+    return MeshContext(mesh, rules)
+
+
+def check_device(device, mesh_device: torch.device) -> None:
+    """Raise when a step on a mesh of ``mesh_device`` is asked for another
+    device (``None`` asks for none)."""
+    if device is None:
+        return
+    d = torch.device(device)
+    if d.type != mesh_device.type or (d.index is not None
+                                      and d.index != mesh_device.index):
+        raise ValueError(f"device {d} on a mesh of {mesh_device}")
+
+
+# ---------------------------------------------------------------------------
+# Whole trees
+# ---------------------------------------------------------------------------
+
+
+def _cut(t: torch.Tensor, spec, ctx: MeshContext) -> torch.Tensor:
+    for dim, entry in enumerate(spec):
+        n = ctx.size(entry)
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, ctx.coord(entry) * size, size)
+    return t
+
+
+def shard_tree(tree, specs, mesh_or_ctx):
+    """This rank's shard of every leaf of a full tree (params, a cache),
+    by a matching PartitionSpec tree, as contiguous copies."""
+    from repro_torch.distributed.sharding import is_spec
+    from repro_torch.models import params as prm
+
+    ctx = _as_ctx(mesh_or_ctx)
+    leaves, treedef = prm.flatten(tree)
+    spec_leaves = prm.flatten(specs, is_leaf=is_spec)[0]
+    if ctx is None:
+        return prm.unflatten(treedef, [t.clone() for t in leaves])
+    return prm.unflatten(treedef, [_cut(t, s, ctx).contiguous().clone()
+                                   for t, s in zip(leaves, spec_leaves)])
+
+
+def gather_tree(tree, specs, mesh_or_ctx):
+    """Every leaf whole again (all-gathers over each cut dim): the
+    inverse of ``shard_tree``, for checks and checkpoints."""
+    from repro_torch.distributed.sharding import is_spec
+    from repro_torch.models import params as prm
+
+    ctx = _as_ctx(mesh_or_ctx)
+    leaves, treedef = prm.flatten(tree)
+    if ctx is None:
+        return tree
+    spec_leaves = prm.flatten(specs, is_leaf=is_spec)[0]
+    out = []
+    for t, spec in zip(leaves, spec_leaves):
+        for dim, entry in enumerate(spec):
+            t = gather_cat(t, dim, ctx.group(entry))
+        out.append(t)
+    return prm.unflatten(treedef, out)
+
+
+def _as_ctx(mesh_or_ctx):
+    if mesh_or_ctx is None or isinstance(mesh_or_ctx, MeshContext):
+        return mesh_or_ctx
+    return context(mesh_or_ctx)

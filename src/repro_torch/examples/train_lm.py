@@ -50,7 +50,7 @@ def main(argv=None) -> dict:
 
     acfg = AdamWConfig(lr=1e-3, warmup_steps=min(30, args.steps // 5),
                        total_steps=args.steps)
-    step_fn = make_train_step(cfg, TrainPlan(), acfg, device=device)
+    step_fn = make_train_step(cfg, None, TrainPlan(), acfg, device=device)
     params = models.init(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
     # the reference draws its attention projections at the fan-in of the

@@ -28,6 +28,10 @@ over the cross K/V (every key valid).  Training runs the encoder's self
 attention and the decoder's ``cross_attention`` through flash under
 grad, whose backward kernel takes the non-causal case too.
 
+On a mesh whose model axis cuts the heads (TP), ``qkv_project`` and
+``out_project`` are where the shards meet: each rank projects its own
+heads and the output projection's partial sums are reduced.
+
 JAX updates caches functionally and donates the old buffers; here ring
 and pool are updated in place (``index_put_``) and the same tensors are
 returned.
@@ -40,9 +44,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import (decode_attention, flash_attention,
                                  paged_decode_attention)
 from repro_torch.models.layers import apply_rope
+from repro_torch.models import params as prm
 from repro_torch.models.params import P
 
 NEG_INF = -1e30
@@ -347,7 +353,7 @@ def self_attention_paged(params: dict, x: torch.Tensor, cache: PagedKVCache,
         view = paged_view(cache, tables)
         out = attention_cached(q, view, pos1, window=spec.window,
                                chunk=cfg.attn_chunk)
-    return out_project(params, out), cache
+    return out_project(params, out, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +379,7 @@ def self_attention_cached(params: dict, x: torch.Tensor, cache: KVCache,
     else:
         out = attention_cached(q, cache, pos1, window=spec.window,
                                chunk=cfg.attn_chunk)
-    return out_project(params, out), cache
+    return out_project(params, out, cfg), cache
 
 
 def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
@@ -391,7 +397,7 @@ def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
         out = attention_full(q, k, v, window=spec.window,
                              chunk=cfg.attn_chunk)
     cache = cache_write(cache, k, v, _pos1d(positions)[:, 0])
-    return out_project(params, out), cache
+    return out_project(params, out, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -401,20 +407,56 @@ def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
 
 def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, rope: bool = True):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    if cfg.qk_norm and "q_scale" in params:
-        q = _qk_rms(q, params["q_scale"], cfg.norm_eps)
-        k = _qk_rms(k, params["k_scale"], cfg.norm_eps)
+    """q, k, v of ``x``.  On a mesh whose model axis cuts the heads (TP)
+    they are this rank's heads: ``x`` (and the qk-norm scales) enter the
+    region through ``copy_to``, and where the rules replicate the KV heads
+    (fewer than the model axis) this rank takes the KV heads its query
+    heads read, their weights through ``copy_to`` too."""
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    q_scale, k_scale = params.get("q_scale"), params.get("k_scale")
+    q_off = prm.tp(wq, -2, cfg.n_heads)
+    if q_off is not None:
+        model = parallel.current().model
+        x = parallel.copy_to(x, model)
+        if q_scale is not None:
+            q_scale = parallel.copy_to(q_scale, model)
+            k_scale = parallel.copy_to(k_scale, model)
+        if prm.tp(wk, -2, cfg.n_kv_heads) is None:
+            k0, k1 = local_kv_heads(cfg, q_off, wq.shape[-2])
+            wk = parallel.copy_to(wk, model)[..., k0:k1, :]
+            wv = parallel.copy_to(wv, model)[..., k0:k1, :]
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    if cfg.qk_norm and q_scale is not None:
+        q = _qk_rms(q, q_scale, cfg.norm_eps)
+        k = _qk_rms(k, k_scale, cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
-def out_project(params: dict, out: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+def local_kv_heads(cfg: ModelConfig, q_off: int, n_q: int
+                   ) -> tuple[int, int]:
+    """[k0, k1): the KV heads that query heads [q_off, q_off + n_q) read,
+    which must be whole groups or lie within one group."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    k0, k1 = q_off // g, (q_off + n_q - 1) // g + 1
+    if n_q % (k1 - k0) or (n_q < g and g % n_q):
+        raise ValueError(f"{cfg.name}: query heads [{q_off}, {q_off + n_q})"
+                         f" do not split evenly over KV groups of {g}")
+    return k0, k1
+
+
+def out_project(params: dict, out: torch.Tensor,
+                cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """The output projection; where the model axis cuts the heads the
+    ranks' partial sums are reduced (``reduce_from``)."""
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    if cfg is not None and prm.tp(params["wo"], -3, cfg.n_heads) is not None:
+        y = parallel.reduce_from(y, parallel.current().model)
+    return y
 
 
 def _pos1d(positions: torch.Tensor) -> torch.Tensor:
@@ -443,7 +485,8 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """Whole-sequence self attention with no cache (an encoder block's,
     ``causal=False``)."""
     q, k, v = qkv_project(params, x, cfg, positions)
-    return out_project(params, _full(q, k, v, cfg, spec.window, causal))
+    return out_project(params, _full(q, k, v, cfg, spec.window, causal),
+                       cfg)
 
 
 def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
@@ -453,7 +496,7 @@ def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("btd,dhk->bthk", memory, params["wk"])
     v = torch.einsum("btd,dhk->bthk", memory, params["wv"])
-    return out_project(params, _full(q, k, v, cfg, -1, False))
+    return out_project(params, _full(q, k, v, cfg, -1, False), cfg)
 
 
 class CrossKV(NamedTuple):
@@ -490,8 +533,8 @@ def cross_attention_cached(params: dict, x: torch.Tensor, ckv: CrossKV,
                                    q_pos, window=-1)
         else:
             out = _full(q, ckv.k, ckv.v, cfg, -1, False)
-        return out_project(params, out)
+        return out_project(params, out, cfg)
     hkv = ckv.k.shape[2]
     mask = torch.ones((1, 1, 1, sq, t), dtype=torch.bool, device=x.device)
     out = attn_core(_group(q, hkv), ckv.k, ckv.v, mask)
-    return out_project(params, out.reshape(b, sq, h, dh))
+    return out_project(params, out.reshape(b, sq, h, dh), cfg)

@@ -154,9 +154,9 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
         if with_aux:
             aux = stats.aux_loss
         if spec.dense_residual:
-            y = y + mlp(params["mlp"], x)
+            y = y + mlp(params["mlp"], x, cfg.d_ff)
     else:
-        y = mlp(params["mlp"], x)
+        y = mlp(params["mlp"], x, cfg.d_ff)
     return (y, aux) if with_aux else y
 
 

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import parallel
+from repro_torch.models import params as prm
 from repro_torch.models.params import P
 
 # ---------------------------------------------------------------------------
@@ -93,11 +95,21 @@ def mlp_defs(d: int, ff: int) -> dict:
     }
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, ff: Optional[int] = None
+        ) -> torch.Tensor:
+    """SwiGLU.  ``ff`` is the full hidden width: where the model axis cuts
+    it (TP: ``w_in`` and ``w_gate`` column shards, ``w_out`` a row
+    shard), ``x`` enters through ``copy_to`` and the ranks' partial sums
+    are reduced."""
+    model = None
+    if ff is not None and prm.tp(params["w_in"], -1, ff) is not None:
+        model = parallel.current().model
+        x = parallel.copy_to(x, model)
     h = torch.einsum("...d,df->...f", x, params["w_in"])
     g = torch.einsum("...d,df->...f", x, params["w_gate"])
     h = h * F.silu(g.float()).to(h.dtype)
-    return torch.einsum("...f,fd->...d", h, params["w_out"])
+    y = torch.einsum("...f,fd->...d", h, params["w_out"])
+    return y if model is None else parallel.reduce_from(y, model)
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +121,20 @@ def embed_defs(vocab: int, d: int) -> dict:
     return {"table": P((vocab, d), ("vocab", "embed"), scale=1.0)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params: dict, tokens: torch.Tensor,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """Token embeddings.  ``vocab`` is the full vocabulary: where the
+    model axis cuts the table's rows, each rank looks up the tokens in its
+    rows (zeros elsewhere) and the ranks' rows are summed."""
+    table = params["table"]
+    off = prm.tp(table, -2, vocab) if vocab is not None else None
+    if off is None:
+        return table[tokens]
+    n = table.shape[-2]
+    local = tokens.long() - off
+    hit = (local >= 0) & (local < n)
+    x = torch.where(hit[..., None], table[local.clamp(0, n - 1)], 0)
+    return parallel.reduce_from(x, parallel.current().model)
 
 
 def unembed_defs(d: int, vocab: int) -> dict:
@@ -161,23 +185,16 @@ def _chunk_sums(logits_fn: Callable, xc: torch.Tensor, lc: torch.Tensor,
     return ((logz - gold) * mc).sum(), mc.sum()
 
 
-def chunked_unembed_xent(logits_fn: Callable, x: torch.Tensor,
+def chunked_unembed_sums(logits_fn: Callable, x: torch.Tensor,
                          labels: torch.Tensor, mask: torch.Tensor,
-                         chunk: int) -> torch.Tensor:
-    """Cross entropy without materializing the full (B, S, V) logits.
-
-    Walks the sequence in ``chunk``-token slices (S padded to a multiple
-    of ``chunk``, the padding masked); each slice computes its logits
-    with ``logits_fn`` (the unembed closure) and reduces them to two f32
-    scalars at once, summed in the reference's order.  Under autograd
-    each slice runs inside ``torch.utils.checkpoint`` (non-reentrant), so
-    its f32 logits are recomputed in the backward pass instead of being
-    kept, which is the reference's intent.  Exact, not an approximation.
-    """
-    b, s = labels.shape
-    if chunk <= 0 or s <= chunk:
-        return softmax_xent(logits_fn(x), labels, mask)
-    pad = (-s) % chunk
+                         chunk: int):
+    """(sum of nll * mask, sum of mask) over the sequence in ``chunk``-token
+    slices, each under a non-reentrant checkpoint with grad on, as
+    ``chunked_unembed_xent`` walks it: the parts a data-parallel loss
+    normalises by the global token count."""
+    if chunk <= 0 or x.shape[1] <= chunk:
+        return _chunk_sums(logits_fn, x, labels, mask)
+    pad = (-x.shape[1]) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
@@ -194,4 +211,24 @@ def chunked_unembed_xent(logits_fn: Callable, x: torch.Tensor,
             nll, m = _chunk_sums(logits_fn, *args)
         nll_sum = nll_sum + nll
         m_sum = m_sum + m
+    return nll_sum, m_sum
+
+
+def chunked_unembed_xent(logits_fn: Callable, x: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    """Cross entropy without materializing the full (B, S, V) logits.
+
+    Walks the sequence in ``chunk``-token slices (S padded to a multiple
+    of ``chunk``, the padding masked); each slice computes its logits
+    with ``logits_fn`` (the unembed closure) and reduces them to two f32
+    scalars at once, summed in the reference's order.  Under autograd
+    each slice runs inside ``torch.utils.checkpoint`` (non-reentrant), so
+    its f32 logits are recomputed in the backward pass instead of being
+    kept, which is the reference's intent.  Exact, not an approximation.
+    """
+    b, s = labels.shape
+    if chunk <= 0 or s <= chunk:
+        return softmax_xent(logits_fn(x), labels, mask)
+    nll_sum, m_sum = chunked_unembed_sums(logits_fn, x, labels, mask, chunk)
     return nll_sum / torch.clamp(m_sum, min=1.0)

@@ -16,10 +16,11 @@ the dense residual branch (arctic, applied by ``blocks._ffn``) and the
 load-balancing auxiliary loss.  Training takes the statistics
 (``with_stats``; ``blocks._ffn`` hands the aux loss up to ``loss_fn``);
 under grad on the card each expert product is ``grouped_matmul``'s
-autograd Function, whose backward is a Hopper kernel too.  The
-reference's sharding hints have no meaning on one card and are dropped;
-its per-row (GShard-style) dispatch of long batched inputs is a loop
-over the rows.
+autograd Function, whose backward is a Hopper kernel too.  Where the
+reference pins a sharding with ``prm.tp``, a mesh's model axis cuts the
+experts here (EP) and its data axes the batch, whose dispatch stays the
+whole batch's (``_moe_tokens``); the per-row (GShard-style) dispatch of
+long batched inputs is a loop over the rows.
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.models.layers import mlp, mlp_defs
+from repro_torch.models import params as prm
 from repro_torch.models.params import P
 
 
@@ -68,12 +71,23 @@ def _expert_product(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
 
 
 def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
-                with_stats: bool = True):
+                with_stats: bool = True, group=None):
     """Token-level MoE core: xt (T, d) -> (y (T, d), aux, dropped); the
-    two statistics are None without ``with_stats``."""
+    two statistics are None without ``with_stats``.
+
+    ``group``, a data-parallel process group whose ranks hold the other
+    slices of the batch (in rank order), makes the dispatch the whole
+    batch's: capacity from the global token count, each token's place in
+    its expert after the earlier ranks' tokens (an all-gather of the
+    per-expert counts), and the statistics over the global batch.  Where
+    the model axis cuts the experts (EP), this rank runs only its
+    experts' products and the combine's partial sums are reduced."""
     t, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     dev = xt.device
+    e_off = prm.tp(params["w_in"], -3, e)
+    e_loc = params["w_in"].shape[-3]
+    model = parallel.current().model if e_off is not None else None
 
     # --- routing (f32) -----------------------------------------------------
     logits = xt.float() @ params["router"]
@@ -82,43 +96,64 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # --- sort-based dispatch ------------------------------------------------
-    c = capacity(t, cfg)
     flat_expert = expert_ids.reshape(-1)                        # (T*k,)
     order = torch.argsort(flat_expert, stable=True)             # by expert
     sorted_expert = flat_expert[order]
     first = torch.searchsorted(sorted_expert, sorted_expert)    # group start
     pos_in_e = torch.arange(t * k, device=dev) - first          # rank in group
-    keep = pos_in_e < c
-    dest = torch.where(keep, sorted_expert * c + pos_in_e, e * c)
     # tokens routed to each expert, from the group boundaries
     edges = torch.searchsorted(sorted_expert, torch.arange(e + 1, device=dev))
     load = edges[1:] - edges[:-1]                               # (E,)
+    if group is None:
+        t_all, load_all = t, load
+        offset = torch.zeros_like(load)
+    else:
+        loads = parallel.all_gather(load, group)                # (n, E)
+        offset = loads[:torch.distributed.get_rank(group)].sum(0)
+        t_all, load_all = t * loads.shape[0], loads.sum(0)
+    c = capacity(t_all, cfg)
+    keep = pos_in_e + offset[sorted_expert] < c
+    # this rank's slots: its experts' rows, counted from its first token
+    e0 = e_off or 0
+    mine = keep & (sorted_expert >= e0) & (sorted_expert < e0 + e_loc)
+    dest = torch.where(mine, (sorted_expert - e0) * c + pos_in_e, e_loc * c)
 
-    buf = xt.new_zeros((e * c + 1, d))          # row e*c: sink of drops
-    buf[dest] = xt[order // k]
-    buf = buf[:e * c].view(e, c, d)
+    xin = xt if model is None else parallel.copy_to(xt, model)
+    buf = xt.new_zeros((e_loc * c + 1, d))      # row e_loc*c: sink of drops
+    buf[dest] = xin[order // k]
+    buf = buf[:e_loc * c].view(e_loc, c, d)
 
     # --- expert computation (grouped matmul layout) -------------------------
-    counts = load.clamp(max=c).to(torch.int32)
+    counts = torch.minimum(load, (c - offset).clamp_min(0))
+    counts = counts[e0:e0 + e_loc].to(torch.int32)
     h = _expert_product(buf, params["w_in"], counts, cfg)
     g = _expert_product(buf, params["w_gate"], counts, cfg)
     h = h * F.silu(g.float()).to(h.dtype)
     out_buf = _expert_product(h, params["w_out"], counts, cfg)  # (E, C, d)
 
     # --- return + combine ----------------------------------------------------
-    y_sorted = out_buf.reshape(e * c, d)[torch.where(keep, dest, 0)]
-    y_sorted = torch.where(keep[:, None], y_sorted, 0)
+    y_sorted = out_buf.reshape(e_loc * c, d)[torch.where(mine, dest, 0)]
+    y_sorted = torch.where(mine[:, None], y_sorted, 0)
     y_flat = torch.empty_like(y_sorted)
     y_flat[order] = y_sorted
-    y = (y_flat.view(t, k, d).float() * gate_vals[..., None]).sum(dim=1)
+    gates = gate_vals if model is None else parallel.copy_to(gate_vals, model)
+    y = (y_flat.view(t, k, d).float() * gates[..., None]).sum(dim=1)
+    if model is not None:
+        y = parallel.reduce_from(y, model)
     if not with_stats:
         return y.to(xt.dtype), None, None
 
     # --- load-balance aux loss ---------------------------------------------
-    density = load.float() / (t * k)                            # (E,)
-    prop = probs.mean(dim=0)                                    # (E,)
+    density = load_all.float() / (t_all * k)                    # (E,)
+    if group is None:
+        prop = probs.mean(dim=0)                                # (E,)
+        dropped = 1.0 - keep.float().mean()
+    else:
+        prop = parallel.reduce_from(probs.sum(dim=0), group) / t_all
+        dropped = 1.0 - parallel.all_reduce(keep.float().sum(),
+                                            group) / (t_all * k)
     aux = (density * prop).sum() * e
-    return y.to(xt.dtype), aux, 1.0 - keep.float().mean()
+    return y.to(xt.dtype), aux, dropped
 
 
 GROUPWISE_MIN_TOKENS = 256
@@ -136,20 +171,30 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     row; short inputs (decode steps) route the whole batch at once.
     """
     b, s, d = x.shape
-    if s >= GROUPWISE_MIN_TOKENS and b > 1:
+    ctx = parallel.current()
+    world = ctx.batch_world if ctx is not None else 1
+    if s >= GROUPWISE_MIN_TOKENS and b * world > 1:
         rows = [_moe_tokens(params, x[i], cfg, with_stats) for i in range(b)]
         y = torch.stack([r[0] for r in rows])
-        if with_stats:
+        if with_stats and world == 1:
             aux = torch.stack([r[1] for r in rows]).mean()
             dropped = torch.stack([r[2] for r in rows]).mean()
+        elif with_stats:
+            # the mean over the global batch's rows
+            aux = parallel.reduce_from(torch.stack([r[1] for r in rows])
+                                       .sum(), ctx.batch) / (b * world)
+            dropped = parallel.all_reduce(torch.stack(
+                [r[2] for r in rows]).sum(), ctx.batch) / (b * world)
     else:
-        yt, aux, dropped = _moe_tokens(params, x.reshape(b * s, d), cfg,
-                                       with_stats)
+        yt, aux, dropped = _moe_tokens(
+            params, x.reshape(b * s, d), cfg, with_stats,
+            ctx.batch if world > 1 else None)
         y = yt.reshape(b, s, d)
 
     # --- shared experts (always-on) ------------------------------------------
     if "shared" in params:
-        y = y + mlp(params["shared"], x)
+        y = y + mlp(params["shared"], x,
+                    cfg.d_ff_expert * cfg.n_shared_experts)
 
     if not with_stats:
         return y, None

@@ -53,6 +53,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def tp(w: torch.Tensor, dim: int, full: int) -> Optional[int]:
+    """The twin of the reference's ``prm.tp``, and the one place a model
+    function asks for its local shard: None when ``w`` holds the whole of
+    ``dim`` (no mesh, a model axis of one, a dim the rules replicate);
+    else this rank's offset along ``dim``, its shard of the ``model``
+    axis of the current mesh (``distributed.parallel.current``).  A
+    weight cut with no mesh current raises."""
+    n = w.shape[dim]
+    if n == full:
+        return None
+    from repro_torch.distributed import parallel
+
+    ctx = parallel.current()
+    m = ctx.size("model") if ctx is not None else 1
+    if ctx is None or n * m != full:
+        raise RuntimeError(
+            f"a weight of {n} of {full} along dim {dim} needs a mesh whose "
+            f"model axis cuts it; current mesh: "
+            f"{None if ctx is None else ctx.sizes}")
+    return ctx.coord("model") * n
+
+
 def torch_dtype(name: str) -> torch.dtype:
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):

@@ -25,6 +25,13 @@ M-RoPE positions, and an encoder-decoder's encoder over ``frames``.
 (non-reentrant), as ``jax.checkpoint`` wraps the reference's scan body;
 the loss walks the sequence in ``cfg.loss_chunk`` slices.
 
+On a mesh (``distributed.parallel.use_mesh``, set by the launch steps)
+each layer's leaves that the rules cut over the batch axes are gathered
+as the layer runs (FSDP), the embedding and the logits are
+vocab-parallel where the model axis cuts the vocabulary, and the loss is
+normalised by the global batch's token count; with no mesh none of this
+runs.
+
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
 stacked parameters and pools.  The cache is updated in place: a step
@@ -39,13 +46,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Segment
+from repro_torch.distributed import parallel
 from repro_torch.models import params as prm
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.blocks import (block_apply, block_defs,
                                        init_block_cache,
                                        init_paged_block_cache)
-from repro_torch.models.layers import (chunked_unembed_xent, embed,
+from repro_torch.models.layers import (chunked_unembed_sums,
+                                       chunked_unembed_xent, embed,
                                        embed_defs, rmsnorm, rmsnorm_defs,
                                        unembed, unembed_defs, unembed_tied)
 
@@ -155,8 +164,8 @@ def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
                              else _layer(seg_params[f"e{j}"], idx))
                     args = (layer, x, cfg, spec, positions, layer_cache,
                             tables, mode, live, memory, cache_free)
-                    out = (checkpoint(block_apply, *args, use_reentrant=False)
-                           if remat else block_apply(*args))
+                    out = (checkpoint(_block, *args, use_reentrant=False)
+                           if remat else _block(*args))
                     if cache_free:
                         x, a = out
                         if a is not None:
@@ -164,6 +173,16 @@ def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
                     else:
                         x = out
     return x, aux
+
+
+def _block(layer, x, cfg: ModelConfig, spec, *rest):
+    """``block_apply`` over one layer whose leaves the current mesh may
+    hold cut over its batch axes (FSDP): each is gathered here, inside the
+    layer's remat, so one layer's weights are whole at a time."""
+    ctx = parallel.current()
+    if ctx is not None and ctx.fsdp:
+        layer = ctx.fsdp_gather(layer, block_defs(cfg, spec))
+    return block_apply(layer, x, cfg, spec, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -190,20 +209,55 @@ def _streams(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def _embed_inputs(params, tokens, vision_embeds):
+def _whole(t: torch.Tensor, p: prm.P) -> torch.Tensor:
+    """A top-level leaf (the embedding table, the unembedding) gathered
+    over the batch axes where the current mesh's rules cut it (FSDP)."""
+    ctx = parallel.current()
+    return ctx.fsdp_leaf(t, p) if ctx is not None and ctx.fsdp else t
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    table = _whole(params["embed"]["table"],
+                   embed_defs(cfg.vocab, cfg.d_model)["table"])
+    return embed({"table": table}, tokens, cfg.vocab)
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, vision_embeds):
     """Token embeddings; a VLM's precomputed patch embeddings (B, P, d)
     take the first P slots."""
-    x = embed(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     if vision_embeds is not None:
         p = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, p:]], dim=1)
     return x
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    """The unembedding weight, whole over the batch axes: the embedding
+    table when tied."""
     if cfg.tie_embeddings:
-        return unembed_tied(params["embed"], x, cfg.logit_softcap)
-    return unembed(params["unembed"], x, cfg.logit_softcap)
+        return _whole(params["embed"]["table"],
+                      embed_defs(cfg.vocab, cfg.d_model)["table"])
+    return _whole(params["unembed"]["w"],
+                  unembed_defs(cfg.d_model, cfg.vocab)["w"])
+
+
+def _logits(params, cfg: ModelConfig, x, head=None):
+    """Logits over the whole vocabulary.  Where the model axis cuts the
+    vocabulary, each rank's logits of its rows are gathered (backward:
+    its slice), so every rank holds and scores all of them."""
+    w = _head(params, cfg) if head is None else head
+    vdim = -2 if cfg.tie_embeddings else -1
+    model = (parallel.current().model
+             if prm.tp(w, vdim, cfg.vocab) is not None else None)
+    if model is not None:
+        x = parallel.copy_to(x, model)
+    if cfg.tie_embeddings:
+        logits = unembed_tied({"table": w}, x, cfg.logit_softcap)
+    else:
+        logits = unembed({"w": w}, x, cfg.logit_softcap)
+    return logits if model is None else parallel.gather_keep(logits, -1,
+                                                               model)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +299,7 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     memory = encode(params, cfg, frames) if cfg.is_encdec else None
     if positions is None:
         positions = default_positions(cfg, b, s, device=tokens.device)
-    x = _embed_inputs(params, tokens, vision_embeds)
+    x = _embed_inputs(params, cfg, tokens, vision_embeds)
     x, aux = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
                        None, None, memory=memory)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -271,8 +325,22 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
                            frames=batch.get("frames"))
     labels = batch["labels"]
     mask = (labels >= 0).float()
-    xent = chunked_unembed_xent(lambda xc: _logits(params, cfg, xc), x,
-                                labels.clamp_min(0), mask, cfg.loss_chunk)
+    head = _head(params, cfg)
+    ctx = parallel.current()
+    if ctx is None or ctx.batch_world == 1:
+        xent = chunked_unembed_xent(lambda xc: _logits(params, cfg, xc, head),
+                                    x, labels.clamp_min(0), mask,
+                                    cfg.loss_chunk)
+    else:
+        # this rank's share of the global mean: its nll over the global
+        # token count, summed over the batch group (backward: identity,
+        # so each rank's gradient is its own share)
+        nll, m = chunked_unembed_sums(
+            lambda xc: _logits(params, cfg, xc, head), x,
+            labels.clamp_min(0), mask, cfg.loss_chunk)
+        total = parallel.all_reduce(m.detach(), ctx.batch)
+        xent = parallel.reduce_from(nll / torch.clamp(total, min=1.0),
+                                    ctx.batch)
     loss = xent + AUX_WEIGHT * aux
     return loss, {"loss": loss, "xent": xent, "aux": aux}
 
@@ -326,7 +394,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, *,
     memory = encode(params, cfg, frames) if cfg.is_encdec else None
     if positions is None:
         positions = default_positions(cfg, b, s, device=tokens.device)
-    x = _embed_inputs(params, tokens, vision_embeds)
+    x = _embed_inputs(params, cfg, tokens, vision_embeds)
     x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
                      cache["segments"], None, "prefill", memory=memory)
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
@@ -349,7 +417,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     slot; ROADMAP §C, reference fault 4).  A decoder with cross attention
     reads the cross K/V its prefill stored."""
     pos = cache["pos"]                                   # (B,)
-    x = embed(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x,
                      _streams(cfg, pos[:, None]), cache["segments"], tables,
                      "step", live)
@@ -372,7 +440,7 @@ def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     set.  Returns (last-token logits (1, V), cache)."""
     b, s = tokens.shape
     positions = default_positions(cfg, b, s, offset=start)
-    x = embed(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x, positions,
                      cache["segments"], tables)
     x_last = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
@@ -398,7 +466,7 @@ def prefill_paged_padded(params, cfg: ModelConfig, tokens: torch.Tensor,
     b, c = tokens.shape
     idx = torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
     positions = torch.where(idx < n, start + idx, -1).to(torch.int32)
-    x = embed(params["embed"], tokens)
+    x = _embed(params, cfg, tokens)
     x, _ = _run_plan(cfg.plan(), cfg, params["decoder"], x,
                      _streams(cfg, positions), cache["segments"], tables)
     last = (n - 1).reshape(1).long()

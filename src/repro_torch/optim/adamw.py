@@ -29,7 +29,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -92,6 +92,33 @@ def _dequantize(q8: Q8, shape) -> torch.Tensor:
     blocks = F.pad(q8.q.float(), (0, pad)).reshape(*shape[:-1], -1, BLOCK)
     out = blocks * q8.scale[..., None]
     return out.reshape(*shape[:-1], n + pad)[..., :n]
+
+
+def global_blocks(offset: int, full: int, reduce_max: Callable):
+    """(quantize, dequantize) for the shard [offset, offset + n) of a
+    leaf's last axis of ``full`` elements: the blocks are the whole
+    leaf's 128-element blocks, their scales (..., ceil(full / 128)) kept
+    whole on every rank, each block's max |x| the max over the ranks
+    sharing it (``reduce_max``).  Gives the unsharded leaf's numbers
+    exactly."""
+    nb = -(-full // BLOCK)
+
+    def spread(scale, n):
+        return scale.repeat_interleave(BLOCK, -1)[..., offset:offset + n]
+
+    def quantize(x: torch.Tensor) -> Q8:
+        n = x.shape[-1]
+        wide = x.new_zeros(*x.shape[:-1], nb * BLOCK)
+        wide[..., offset:offset + n] = x.abs()
+        amax = reduce_max(wide.reshape(*x.shape[:-1], nb, BLOCK).amax(-1))
+        scale = torch.clamp(amax / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(x / spread(scale, n)), -127, 127)
+        return Q8(q.to(torch.int8), scale.float())
+
+    def dequantize(q8: Q8, shape) -> torch.Tensor:
+        return q8.q.float() * spread(q8.scale, tuple(shape)[-1])
+
+    return quantize, dequantize
 
 
 # ---------------------------------------------------------------------------
@@ -162,10 +189,18 @@ def _sq_sum(g: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
+                 norm_sq: Optional[Callable] = None,
+                 quant: Optional[list] = None):
     """Returns (params, new_state, metrics), the parameters and moments
     updated in place (the same tensors), ``metrics`` with the pre-clip
-    ``grad_norm`` and this step's ``lr``."""
+    ``grad_norm`` and this step's ``lr``.
+
+    A sharded step passes ``norm_sq(flat_grads)``, the global squared
+    norm (its ranks' shares summed, each replicated element counted
+    once), and ``quant``: per flat leaf None or a (quantize, dequantize)
+    pair for int8 moments whose blocks are the whole leaf's (a shard whose
+    last axis is cut off a 128 boundary)."""
     step = state.step + 1
     flat_p, treedef = flatten(params)
     flat_g, gdef = flatten(grads)
@@ -175,7 +210,8 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
         raise ValueError("a parameter has no gradient")
 
     # global-norm clip, f32
-    gnorm = torch.sqrt(sum(_sq_sum(g) for g in flat_g))
+    gnorm = torch.sqrt(norm_sq(flat_g) if norm_sq is not None
+                       else sum(_sq_sum(g) for g in flat_g))
     scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
 
@@ -184,11 +220,12 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     b2t = 1 - cfg.b2 ** stepf
     lr = _lr_at(cfg, stepf)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, qz):
+        quantize, dequantize = qz or (_quantize, _dequantize)
         g = g.float() * scale
         if cfg.int8_moments:
-            mf = _dequantize(m, p.shape)
-            vf = torch.square(_dequantize(v, p.shape))
+            mf = dequantize(m, p.shape)
+            vf = torch.square(dequantize(v, p.shape))
         else:
             mf, vf = m, v
         mf = cfg.b1 * mf + (1 - cfg.b1) * g
@@ -198,7 +235,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
         newp = pf - lr * (update + cfg.weight_decay * pf)
         p.copy_(newp)
         if cfg.int8_moments:
-            for old, new in ((m, _quantize(mf)), (v, _quantize(
+            for old, new in ((m, quantize(mf)), (v, quantize(
                     torch.sqrt(vf)))):
                 old.q.copy_(new.q)
                 old.scale.copy_(new.scale)
@@ -208,12 +245,13 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
 
     flat_m = flatten(state.m, is_leaf=_is_q8)[0]
     flat_v = flatten(state.v, is_leaf=_is_q8)[0]
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+    quant = quant or [None] * len(flat_p)
+    for p, g, m, v, qz in zip(flat_p, flat_g, flat_m, flat_v, quant):
         for idx in _slices(p.shape):
             if cfg.int8_moments:
                 upd(p[idx], g[idx], Q8(m.q[idx], m.scale[idx]),
-                    Q8(v.q[idx], v.scale[idx]))
+                    Q8(v.q[idx], v.scale[idx]), qz)
             else:
-                upd(p[idx], g[idx], m[idx], v[idx])
+                upd(p[idx], g[idx], m[idx], v[idx], qz)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step, state.m, state.v), metrics

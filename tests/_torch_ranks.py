@@ -1,0 +1,317 @@
+"""Sharded checks of the port, run in CPU ``gloo`` ranks.
+
+``spawn(world, mesh_shapes, checks, tmp)`` starts ``world`` processes
+that rendezvous through a ``FileStore`` in ``tmp`` (no TCP port), build
+a ``DeviceMesh`` of each shape in ``mesh_shapes`` over them and run every
+named check of ``CHECKS`` on it; each rank writes its results to a JSON
+file and the parent returns them per rank.  Each check holds a sharded
+step to the single-device step on the same weights and inputs, both
+computed in the rank: greedy tokens, and the largest |difference| of
+logits, losses, every gradient leaf and every updated parameter, which
+the tests compare with their bands.  This module imports no JAX, so a
+rank starts in seconds.
+"""
+from __future__ import annotations
+
+import json
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import models
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import parallel
+from repro_torch.launch import serve as serve_mod
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import (AdamWConfig, TrainPlan,
+                                      init_opt_state, make_train_step)
+from repro_torch.models import params as prm
+from repro_torch.models.attention import rescale_to_true_fan_in
+from repro_torch.optim.adamw import adamw_init
+
+def f32(cfg):
+    return cfg.replace(dtype="float32")
+
+
+def tiny():
+    return f32(get_config("tiny-agent"))
+
+
+# every config a check names, at its CPU size in f32
+CONFIGS = {
+    "tiny": tiny,
+    # one KV head: it replicates over a model axis of 2 (the serve path
+    # refuses its cache; training slices the KV head each rank reads)
+    "tiny-kv1": lambda: tiny().replace(n_kv_heads=1),
+    "arctic": lambda: f32(get_smoke("arctic-480b")),
+    "kimi": lambda: f32(get_smoke("kimi-k2-1t-a32b")),
+    "hymba": lambda: f32(get_smoke("hymba-1.5b")),
+}
+
+
+def _params(cfg):
+    p = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rescale_to_true_fan_in(p)
+    return p
+
+
+def _batch(cfg, b: int, s: int, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, -5:] = -1          # rank 0's rows hold fewer labels
+    return {"tokens": torch.from_numpy(toks),
+            "labels": torch.from_numpy(labels)}
+
+
+def _max_diff(a, b) -> float:
+    la, lb = prm.flatten(a)[0], prm.flatten(b)[0]
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} leaves against {len(lb)}")
+    return max(float((x.float() - y.float()).abs().max()) if x.numel() else
+               0.0 for x, y in zip(la, lb))
+
+
+def _clone(tree):
+    return prm.tree_map(lambda t: t.clone(), tree)
+
+
+def train_check(ctx, cfg, b: int, s: int, int8: bool, microbatch: int = 1,
+                steps: int = 2, compress: bool = False) -> dict:
+    """Steps of the sharded train step against the single-device one."""
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=int8)
+    plan = TrainPlan(microbatch=microbatch, int8_moments=int8,
+                     compress_grads=compress)
+    full = _params(cfg)
+    batches = [_batch(cfg, b, s, seed) for seed in range(steps)]
+    ref_step = make_train_step(cfg, None, TrainPlan(
+        microbatch=microbatch, int8_moments=int8), acfg, device="cpu")
+    step = make_train_step(cfg, ctx, plan, acfg,
+                           shape=ShapeConfig("t", s, b, "train"))
+    specs = step.shardings["params"]
+    ref_p, ref_o = _clone(full), adamw_init(_clone(full), acfg)
+    params = parallel.shard_tree(full, specs, ctx)
+    opt = init_opt_state(params, acfg, ctx, cfg=cfg)
+    ref_g = ref_step.grads(ref_p, batches[0])
+    out = {"grads": _max_diff(
+        parallel.gather_tree(step.grads(params, batches[0]), specs, ctx),
+        ref_g), "grad_max": _max_diff(ref_g, prm.tree_map(torch.zeros_like,
+                                                          ref_g))}
+    losses, norms = [], []
+    for batch in batches:
+        ref_p, ref_o, rm = ref_step(ref_p, ref_o, batch)
+        params, opt, m = step(params, opt, batch)
+        losses.append(abs(float(m["loss"]) - float(rm["loss"])))
+        norms.append(abs(float(m["grad_norm"]) - float(rm["grad_norm"]))
+                     / max(float(rm["grad_norm"]), 1e-9))
+    out.update(loss=max(losses), loss0=losses[0], norm_rel=max(norms),
+               params=_max_diff(parallel.gather_tree(params, specs, ctx),
+                                ref_p), moved=_max_diff(ref_p, full))
+    if compress:
+        ef = prm.flatten(step.error_feedback())[0]
+        out["ef_leaves"] = len(ef)
+        out["ef_max"] = max(float(e.abs().max()) for e in ef)
+    return out
+
+
+def serve_check(ctx, cfg, b: int, prompt: int, new: int,
+                use_pallas: bool = False) -> dict:
+    """Prefill then ``new`` greedy decode steps through the launch steps on
+    the mesh, against ``transformer.prefill`` / ``decode_step`` on one
+    device: the rank's rows' logits and greedy tokens."""
+    cfg = cfg.replace(use_pallas=use_pallas)
+    full = _params(cfg)
+    toks = _batch(cfg, b, prompt)["tokens"]
+    shape_p = ShapeConfig("p", prompt, b, "prefill")
+    shape_d = ShapeConfig("d", prompt, b, "decode")
+    pre, specs = serve_mod.make_prefill_step(cfg, ctx, shape_p)
+    dec, dspecs = serve_mod.make_serve_step(cfg, ctx, shape_d)
+    params = parallel.shard_tree(full, specs["params"], ctx)
+    cache = serve_mod.init_cache(cfg, ctx, shape_d)
+    ref_cache = models.init_cache(cfg, b, prompt + 128, device="cpu")
+    rows = serve_mod.local_rows(torch.arange(b), ctx)
+    with torch.no_grad():
+        logits, cache = pre(params, toks, cache)
+        ref, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+        diffs = [float((logits - ref[rows]).abs().max())]
+        got, want = [logits.argmax(-1)], [ref[rows].argmax(-1)]
+        nxt, ref_nxt = torch.zeros((b, 1), dtype=torch.long), None
+        for _ in range(new):
+            ref_nxt = ref.argmax(-1)[:, None]
+            nxt[rows] = got[-1][:, None]
+            logits, cache = dec(params, nxt, cache)
+            ref, ref_cache = models.decode_step(full, cfg, ref_nxt, ref_cache)
+            diffs.append(float((logits - ref[rows]).abs().max()))
+            got.append(logits.argmax(-1))
+            want.append(ref[rows].argmax(-1))
+    return {"logits": max(diffs), "tokens_equal":
+            bool(all(torch.equal(x, y) for x, y in zip(got, want))),
+            "tokens": int(sum(x.numel() for x in got)),
+            "kv_heads": int(cache["segments"][0]["e0"]["kv"].k.shape[-2])}
+
+
+def dispatch_check(ctx, cfg, b: int, s: int) -> dict:
+    """The MoE layer's dropped fraction and aux loss over the mesh's
+    batch axes against one device on the whole batch, with drops forced
+    (a capacity factor of 0.5)."""
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = cfg.replace(capacity_factor=0.5)
+    p = _params(cfg)["decoder"][0]["e0"]["moe"]
+    p = prm.tree_map(lambda t: t[0], p)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(b, s, cfg.d_model)).astype(np.float32))
+    spec = cfg.plan()[0].pattern[0][0]
+    with torch.no_grad():
+        y_ref, st_ref = moe_ffn(p, x, cfg, spec)
+        defs = models.model_defs(cfg)["decoder"][0]["e0"]["moe"]
+        defs = prm.tree_map(lambda d: prm.P(d.shape[1:], d.axes[1:]), defs)
+        from repro_torch.distributed.sharding import spec_for
+        specs = prm.tree_map(lambda d: spec_for(d.axes, d.shape, ctx), defs)
+        local = parallel.shard_tree(p, specs, ctx)
+        local = ctx.fsdp_gather(local, defs)
+        with parallel.use_mesh(ctx):
+            y, st = moe_ffn(local, serve_mod.local_rows(x, ctx), cfg, spec)
+    rows = serve_mod.local_rows(torch.arange(b), ctx)
+    return {"y": float((y - y_ref[rows]).abs().max()),
+            "dropped": abs(float(st.dropped_frac) - float(st_ref.dropped_frac)),
+            "dropped_ref": float(st_ref.dropped_frac),
+            "aux": abs(float(st.aux_loss) - float(st_ref.aux_loss))}
+
+
+def refusal_check(ctx, what: str) -> dict:
+    """The named refusal raises ValueError; returns its message."""
+    try:
+        if what == "tp-hybrid":
+            make_train_step(CONFIGS["hymba"](), ctx, TrainPlan(),
+                            AdamWConfig())
+        elif what == "serve-seq-cache":
+            serve_mod.make_serve_step(CONFIGS["tiny-kv1"](), ctx,
+                                      ShapeConfig("d", 32, 2, "decode"))
+        elif what == "long-shard-seq":
+            serve_mod.make_serve_step(tiny(), ctx, ShapeConfig(
+                "long_500k", 64, 1, "decode"))
+        elif what == "local-shape":
+            make_train_step(tiny().replace(n_heads=12, n_kv_heads=1,
+                                           use_pallas=True), ctx)
+        elif what == "batch-split":
+            make_train_step(tiny(), ctx, TrainPlan(), AdamWConfig(),
+                            shape=ShapeConfig("t", 16, 3, "train"))
+        elif what == "compress-no-pod":
+            make_train_step(tiny(), ctx, TrainPlan(compress_grads=True),
+                            AdamWConfig())
+        else:
+            raise KeyError(what)
+    except ValueError as e:
+        return {"raised": True, "message": str(e)}
+    return {"raised": False, "message": ""}
+
+
+CHECKS = {
+    "train-tiny-f32": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
+                                            False),
+    "train-tiny-int8": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
+                                             True),
+    "train-tiny-micro": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
+                                              False, microbatch=2),
+    "train-tiny-kv1": lambda c: train_check(c, CONFIGS["tiny-kv1"](), 4, 16,
+                                            True),
+    "train-arctic": lambda c: train_check(c, CONFIGS["arctic"](), 4, 16,
+                                          True),
+    "train-arctic-drops": lambda c: train_check(
+        c, CONFIGS["arctic"]().replace(capacity_factor=0.5), 4, 16, False),
+    "train-kimi": lambda c: train_check(c, CONFIGS["kimi"](), 2, 16, False),
+    "train-hymba": lambda c: train_check(c, CONFIGS["hymba"](), 4, 16,
+                                         False),
+    "serve-tiny": lambda c: serve_check(c, CONFIGS["tiny"](), 4, 12, 6),
+    "serve-arctic": lambda c: serve_check(c, CONFIGS["arctic"](), 4, 12, 6),
+    "serve-hymba": lambda c: serve_check(c, CONFIGS["hymba"](), 4, 12, 6),
+    "dispatch-arctic": lambda c: dispatch_check(c, CONFIGS["arctic"](), 4,
+                                                24),
+    "dispatch-arctic-rows": lambda c: dispatch_check(
+        c, CONFIGS["arctic"](), 2, 256),
+    "refuse-tp-hybrid": lambda c: refusal_check(c, "tp-hybrid"),
+    "refuse-serve-seq-cache": lambda c: refusal_check(c, "serve-seq-cache"),
+    "refuse-long-shard-seq": lambda c: refusal_check(c, "long-shard-seq"),
+    "refuse-local-shape": lambda c: refusal_check(c, "local-shape"),
+    "refuse-batch-split": lambda c: refusal_check(c, "batch-split"),
+    "refuse-compress-no-pod": lambda c: refusal_check(c, "compress-no-pod"),
+    "train-tiny-compress": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
+                                                 False, compress=True),
+}
+
+
+def psum_inputs(step: int, rank: int) -> dict:
+    """The gradient tree rank ``rank`` reduces at ``step`` (numpy f32; the
+    ``bf16`` leaf's values are bf16 numbers)."""
+    rng = np.random.default_rng(1000 * step + rank)
+    half = rng.normal(size=(6, 5)).astype(np.float32)
+    half = torch.from_numpy(half).to(torch.bfloat16).float().numpy()
+    return {"a": rng.normal(size=(16,)).astype(np.float32) * (rank + 1),
+            "b": [rng.normal(size=(8, 12)).astype(np.float32) * 1e-3,
+                  np.zeros((3,), np.float32)],
+            "bf16": half}
+
+
+def psum_check(ctx, steps: int = 3) -> dict:
+    """``compressed_psum`` over the ``pod`` axis for ``steps`` steps, the
+    error feedback carried: each step's mean and residuals as lists."""
+    from repro_torch.distributed.collectives import compressed_psum
+
+    group, rank = ctx.group("pod"), ctx.coord("pod")
+    ef, out = None, []
+    for step in range(steps):
+        g = psum_inputs(step, rank)
+        g = prm.tree_map(torch.from_numpy, g)
+        g["bf16"] = g["bf16"].to(torch.bfloat16)
+        mean, ef = compressed_psum(g, ef, group)
+        out.append({"mean": [t.float().tolist() for t in
+                             prm.flatten(mean)[0]],
+                    "ef": [t.tolist() for t in prm.flatten(ef)[0]],
+                    "dtypes": [str(t.dtype) for t in prm.flatten(mean)[0]]})
+    return {"steps": out}
+
+
+CHECKS["psum"] = psum_check
+
+
+def _axes(shape) -> tuple:
+    return {1: ("pod",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}[len(shape)]
+
+
+def _rank(rank: int, world: int, tmp: str, plan: list) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=world, rank=rank)
+    out: dict = {}
+    try:
+        for shape, names in plan:
+            mesh = make_mesh(tuple(shape), _axes(shape), device_type="cpu")
+            ctx = parallel.MeshContext(mesh)
+            for name in names:
+                key = f"{tuple(shape)}:{name}"
+                try:
+                    out[key] = CHECKS[name](ctx)
+                except Exception:
+                    out[key] = {"error": traceback.format_exc()[-3000:]}
+    finally:
+        Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def spawn(world: int, plan: list, tmp) -> list[dict]:
+    """Run ``plan`` ([(mesh shape, [check names])]) in ``world`` gloo
+    ranks; the per-rank results."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank, args=(world, str(tmp), plan), nprocs=world,
+                       start_method="spawn")
+    return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+            for r in range(world)]
+

@@ -708,6 +708,9 @@ def test_serve_mixed_phase_runs_on_cpu(smoke, monkeypatch, capsys):
         mixed=True, prefill_chunk=64, max_batch_tokens=72))
     monkeypatch.setattr(smoke, "SYSTEM_PROMPT", 48)
     monkeypatch.setattr(smoke, "PROFILE_LEN", 64)
+    # the card profiles agent-7b's eager mixed steps no more; the
+    # rehearsal keeps that path covered
+    monkeypatch.setattr(smoke, "EAGER_PROFILES", ("serve mixed",))
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
                         lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",
@@ -1422,3 +1425,30 @@ def test_family_train_phases_run_on_cpu(smoke, monkeypatch, capsys):
     assert out.count("leaves moved") == 6 + 5
     assert "4 experts, bf16, remat, int8 moments" in out
     assert "(and 20 frames a row)" in out
+
+
+def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
+    """Phase 38 at tiny sizes with its ranks on the CPU: (a) world 1 over
+    gloo, the mesh steps bit-equal to the mesh-less ones; (b) and (c) two
+    spawned gloo ranks, TP and EP on (1, 2) and DP + FSDP on (2, 1), held
+    to the unsharded model."""
+    monkeypatch.setattr(smoke, "SHARDED_FULL", "tiny-agent")
+    monkeypatch.setattr(smoke, "SHARDED_PROMPT", 16)
+    monkeypatch.setattr(smoke, "SHARDED_DECODE", 3)
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 32)
+    monkeypatch.setattr(smoke, "SHARDED_TP", ("tiny-agent", {}))
+    monkeypatch.setattr(smoke, "SHARDED_EP", ("smoke:arctic-480b", {}))
+    monkeypatch.setattr(smoke, "SHARDED_SERVE_PROMPT", 16)
+    monkeypatch.setattr(smoke, "SHARDED_NEW", 4)
+    monkeypatch.setattr(smoke, "SHARDED_TRAIN_SEQ", 32)
+    monkeypatch.setattr(smoke, "SHARDED_DIR", tmp_path)
+    smoke.phase_sharded(torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "(a) world 1, gloo, mesh (1, 1), tiny-agent" in out
+    assert "bit for bit" in out
+    for what in ("(b) mesh (1, 2), TP, rank 0", "(b) mesh (1, 2), EP, rank 1",
+                 "(c) mesh (2, 1), DP + FSDP, rank 1"):
+        assert what in out
+    assert out.count("greedy tokens equal the unsharded run's") == 2
+    assert out.count("equal rank 0's; train step loss") == 2
+    assert "two CPU processes over gloo" in out

@@ -1421,6 +1421,109 @@ def test_train_step_on_the_card_matches_the_plain_path(cuda_device):
         assert rel_err(x, y) <= 1e-3
     cfg = base.replace(use_pallas=True)
     acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
-    step = make_train_step(cfg, TrainPlan(), acfg, device=cuda_device)
+    step = make_train_step(cfg, None, TrainPlan(), acfg, device=cuda_device)
     _, _, m = step(params, adamw_init(params, acfg), batch)
     assert abs(m["loss"].item() - runs[True][0]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_world1_nccl_mesh_steps_bit_equal_to_mesh_less(cuda_device,
+                                                       tmp_path):
+    """A world of one over NCCL, ``make_mesh((1, 1))``: tiny-agent with the
+    kernels on, bf16.  make_prefill_step and make_serve_step give
+    transformer.prefill's and decode_step's logits bit for bit, and one
+    make_train_step(cfg, mesh) step with int8 moments gives the mesh-less
+    step's parameters, moments and metrics bit for bit (deterministic
+    algorithms)."""
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (AdamWConfig, TrainPlan,
+                                          make_train_step)
+    from repro_torch.models.params import flatten
+    from repro_torch.optim.adamw import adamw_init
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config("tiny-agent").replace(use_pallas=True)
+        params = models.init(cfg, torch.Generator(
+            device=cuda_device).manual_seed(0), device=cuda_device)
+        b, s = 4, 48
+        shape = ShapeConfig("d", s, b, "decode")
+        pre, _ = serve.make_prefill_step(cfg, mesh, ShapeConfig(
+            "p", s, b, "prefill"))
+        dec, _ = serve.make_serve_step(cfg, mesh, shape)
+        toks = torch.randint(0, cfg.vocab, (b, s), device=cuda_device)
+        cache = serve.init_cache(cfg, mesh, shape)
+        ref_cache = models.init_cache(cfg, b, s + 128, device=cuda_device)
+        with torch.no_grad():
+            got, cache = pre(params, toks, cache)
+            want, ref_cache = models.prefill(params, cfg, toks, ref_cache)
+            assert torch.equal(got, want)
+            for _ in range(4):
+                nxt = want.argmax(-1)[:, None]
+                got, cache = dec(params, nxt, cache)
+                want, ref_cache = models.decode_step(params, cfg, nxt,
+                                                     ref_cache)
+                assert torch.equal(got, want)
+        acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+        batch = {"tokens": toks[:2, :32], "labels": toks[:2, 1:33]}
+        out = []
+        for m in (None, mesh):
+            p = models.init(cfg, torch.Generator(
+                device=cuda_device).manual_seed(0), device=cuda_device)
+            step = make_train_step(cfg, m, TrainPlan(int8_moments=True),
+                                   acfg, device=cuda_device)
+            out.append(step(p, adamw_init(p, acfg), batch))
+        (p0, o0, m0), (p1, o1, m1) = out
+        assert all(torch.equal(x, y) for x, y in zip(
+            flatten((p0, o0))[0], flatten((p1, o1))[0]))
+        assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
+    """chip_smoke's phase 38 ranks at smoke sizes: two gloo processes on
+    the one card, TP and EP on (1, 2) and DP + FSDP on (2, 1), each
+    config's tokens, loss and every gradient leaf held to the unsharded
+    model and every kernel call on a shard to its plain version."""
+    import json
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    import chip_smoke
+
+    sizes = {"tp": ("tiny-agent", {}), "ep": ("smoke:arctic-480b", {}),
+             "serve_b": 2, "prompt": 16, "new": 16, "train_b": 2,
+             "train_seq": 64}
+    mp.start_processes(chip_smoke.sharded_rank,
+                       args=(2, f"file://{tmp_path}/store", str(tmp_path),
+                             "cuda", sizes), nprocs=2, start_method="spawn")
+    res = [json.loads((tmp_path / f"rank{r}.json").read_text())
+           for r in range(2)]
+    for got in res:
+        assert "error" not in got, got["error"]
+    for key in ("tp", "ep", "dp"):
+        # rank 0 holds the shared results to the unsharded model
+        assert res[0][key]["grad_err"] <= 1e-2
+        assert res[0][key]["loss_err"] <= 1e-4
+        assert res[1][key]["loss"] == res[0][key]["loss"]
+        assert res[1][key]["launches"] == res[0][key]["launches"]
+        assert res[0][key]["launches"].get("flash_attention", 0) > 0
+    for key in ("tp", "ep"):
+        assert res[1][key]["tokens"] == res[0][key]["tokens"]
+        assert sum(map(len, res[0][key]["tokens"])) == 32
+    assert res[0]["ep"]["launches"].get("grouped_matmul", 0) > 0

@@ -71,7 +71,13 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.runtime.supervisor",
               "repro_torch.runtime.straggler", "repro_torch.kernels.grad",
               "repro_torch.examples.train_lm",
-              "repro_torch.examples.failover_drill"):
+              "repro_torch.examples.failover_drill",
+              "repro_torch.distributed",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.collectives",
+              "repro_torch.distributed.parallel",
+              "repro_torch.launch.mesh", "repro_torch.launch.specs",
+              "repro_torch.launch.serve", "repro_torch.launch.dryrun"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
@@ -158,6 +164,33 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     from repro_torch.launch.train import make_train_step
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(cfg)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import ShapeMesh, make_mesh
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    one = ShapeMesh(("data", "model"), (1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_serve_step(cfg, one, ShapeConfig("d", 32, 2, "decode"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_prefill_step(cfg, None, ShapeConfig("p", 32, 2, "prefill"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, one)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 2), ("data", "model"))
+
+    class CudaMesh:
+        """A DeviceMesh's surface, on CUDA."""
+        device_type = "cuda"
+        mesh_dim_names = ("data", "model")
+        shape = (1, 2)
+
+        def get_group(self, name):
+            raise AssertionError("no group is built without CUDA")
+
+    for mesh in (CudaMesh(),):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_train_step(cfg, mesh)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_serve_step(cfg, mesh, ShapeConfig("d", 32, 2, "decode"))
 
 
 def test_chip_smoke_refuses_missing_cuda(monkeypatch):

@@ -1,0 +1,414 @@
+"""The port's launch layer against the reference's, and its sharded steps
+against its single-device steps.
+
+* twins of ``tests/test_launch.py``: the dry run's helpers
+  (``_period``, ``_scaled_cfg``, ``_units_full``, ``_lin``), and
+  ``model_flops`` and ``recurrent_correction`` equal to the reference's
+  for every cell; the serve and prefill steps on a (1, 1) mesh against
+  the reference's on the same weights; ``opt_pspecs``' structure; the
+  train step learning a fixed batch;
+* sharded parity in CPU ``gloo`` ranks (``_torch_ranks``: one spawn of 2
+  ranks and one of 4 for the file, ``FileStore`` rendezvous) on (1, 2),
+  (2, 1), (2, 2) and a (2, 1, 1) pod mesh: tiny-agent (f32 and int8
+  moments, microbatches, one KV head replicated over the model axis),
+  the arctic smoke (EP, forced drops at S < 256 and B > 1, and per-row
+  dispatch at S 256), kimi's smoke (a dense first layer and a shared
+  expert) and hymba's (data axes only), each held to the single-device
+  step: greedy tokens equal; logits, losses, every gradient leaf and
+  every updated parameter within 1e-4 (``tests/test_torch_train.py``'s
+  bands); the MoE's dropped fraction and aux loss equal;
+* the refusals: TP of a hybrid, a sequence-sharded ring cache, a local
+  attention shape no kernel takes, a batch that does not split, compressed
+  gradients without a pod axis, a shape-only mesh of many devices;
+* the dry run: a record for every applicable cell on both production
+  meshes, its per-device parameter and optimizer bytes equal to the
+  reference's ``abstract_state`` cut by the reference's specs.
+"""
+import dataclasses
+import json
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
+jax.devices()        # fix the device count before the dry run's import
+
+import _torch_ranks as ranks  # noqa: E402
+from _jax_caps import HAVE_MESH_API, MESH_SKIP_REASON  # noqa: E402
+from repro import models as jmodels  # noqa: E402
+from repro.configs import SHAPES as JSHAPES  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs.base import ShapeConfig as JShape  # noqa: E402
+from repro.distributed import sharding as jshd  # noqa: E402
+from repro.launch import dryrun as jdry  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
+from repro_torch import models  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, get_smoke  # noqa: E402
+from repro_torch.configs.base import (SHAPES, ShapeConfig,  # noqa: E402
+                                      shape_applicable)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as specs_mod  # noqa: E402
+from repro_torch.launch.mesh import ShapeMesh, make_mesh  # noqa: E402
+from repro_torch.launch.serve import (check_serve,  # noqa: E402
+                                      make_prefill_step, make_serve_step)
+from repro_torch.launch.train import (AdamWConfig, TrainPlan,  # noqa: E402
+                                      abstract_state, check_mesh,
+                                      make_train_step, opt_pspecs)
+from repro_torch.models import params as prm  # noqa: E402
+from repro_torch.optim.adamw import adamw_init  # noqa: E402
+
+needs_mesh = pytest.mark.skipif(not HAVE_MESH_API, reason=MESH_SKIP_REASON)
+ONE = ShapeMesh(("data", "model"), (1, 1))
+TOL = 1e-4
+
+
+def _cells():
+    return [(a, s) for a in ARCHS for s in SHAPES
+            if shape_applicable(get_config(a), SHAPES[s])[0]]
+
+
+# ---------------------------------------------------------------------------
+# The dry run's helpers, against the reference's
+# ---------------------------------------------------------------------------
+
+
+def test_model_flops_and_recurrent_correction_equal_reference():
+    for arch, s in _cells():
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        assert dryrun.model_flops(cfg, SHAPES[s]) == jdry.model_flops(
+            jcfg, JSHAPES[s]), (arch, s)
+        assert dryrun.recurrent_correction(cfg, SHAPES[s]) == \
+            jdry.recurrent_correction(jcfg, JSHAPES[s]), (arch, s)
+
+
+def test_scaled_cfg_period_and_units_equal_reference():
+    for arch in ARCHS:
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        assert dryrun._period(cfg) == jdry._period(jcfg)
+        assert dryrun._units_full(cfg) == jdry._units_full(jcfg)
+        for u in (1, 2, 4):
+            assert dataclasses.asdict(dryrun._scaled_cfg(cfg, u)) == \
+                dataclasses.asdict(jdry._scaled_cfg(jcfg, u)), (arch, u)
+    gem = get_config("gemma3-27b")
+    assert dryrun._period(gem) == 6 and \
+        dryrun._scaled_cfg(gem, 2).n_layers == 12
+
+
+def test_linear_extrapolation_equals_reference():
+    fa = {"flops": 10.0, "bytes_accessed": 6.0,
+          "collectives": {"all-gather": 4, "total": 4, "count": 2}}
+    fb = {"flops": 16.0, "bytes_accessed": 8.0,
+          "collectives": {"all-gather": 6, "total": 6, "count": 3}}
+    got = dryrun._lin(fa, fb, 2, 4, 10)
+    assert got == jdry._lin(fa, fb, 2, 4, 10)
+    assert got["flops"] == pytest.approx(34.0)
+    assert got["collectives"]["count"] == 6
+
+
+def test_dryrun_writes_every_cell_with_reference_bytes(tmp_path):
+    """The CLI writes one record per (arch, shape, mesh); every applicable
+    cell's per-device parameter and optimizer bytes equal the reference's
+    abstract state cut by the reference's specs on the same mesh."""
+    assert dryrun.main(["--out", str(tmp_path)]) == 0
+    recs = [json.loads(p.read_text()) for p in sorted(tmp_path.iterdir())]
+    assert len(recs) == 2 * len(ARCHS) * len(SHAPES)
+    live = [r for r in recs if "skipped" not in r]
+    assert len(live) == 2 * 34
+    meshes = {"single": dict(data=16, model=16),
+              "multi": dict(pod=2, data=16, model=16)}
+    for rec in live:
+        axes = meshes[rec["mesh"]]
+        jm = _FakeMesh(**axes)
+        jcfg = jget_config(rec["arch"])
+        shape = JSHAPES[rec["shape"]]
+        int8 = rec.get("plan", {}).get("int8_moments", False)
+        jacfg = JAdamWConfig(int8_moments=int8)
+        p, o = jtrain.abstract_state(jcfg, jacfg)
+        want = _cut_bytes(p, jshd.param_pspecs(jcfg, jm), axes)
+        by = rec["bytes_per_device"]
+        assert by["params"] == want, rec
+        if shape.kind == "train":
+            assert by["opt"] == _cut_bytes(
+                o, jtrain.opt_pspecs(jcfg, jm, jacfg), axes), rec
+        assert by["total"] == sum(v for k, v in by.items() if k != "total")
+        assert rec["fits_h100_80gb"] == (by["total"] <= 80e9)
+        assert rec["model_flops"] == jdry.model_flops(jcfg, shape)
+
+
+class _FakeMesh:
+    def __init__(self, **axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(axes)
+        self.devices = np.empty(tuple(axes.values()), dtype=object)
+
+
+def _cut_bytes(tree, specs, sizes) -> int:
+    from jax.sharding import PartitionSpec as JP
+
+    leaves = jax.tree.leaves(tree)
+    spec_leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, JP))
+    total = 0
+    for leaf, spec in zip(leaves, spec_leaves):
+        n = math.prod(leaf.shape)
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                n //= sizes[a]
+        total += n * jnp.dtype(leaf.dtype).itemsize
+    return total
+
+
+# ---------------------------------------------------------------------------
+# One device: the reference's (1, 1) mesh steps
+# ---------------------------------------------------------------------------
+
+
+def _jweights(jcfg):
+    return jax.device_get(jmodels.init(jcfg, jax.random.key(0)))
+
+
+@needs_mesh
+def test_serve_step_matches_reference_on_one_device():
+    from repro.launch.mesh import make_mesh as jmake_mesh
+    from repro.launch.serve import make_serve_step as jmake
+
+    jcfg = jget_config("tiny-agent").replace(dtype="float32")
+    cfg = get_config("tiny-agent").replace(dtype="float32")
+    shape = ShapeConfig("d", 64, 2, "decode")
+    tree = _jweights(jcfg)
+    mesh = jmake_mesh((1, 1), ("data", "model"))
+    toks = np.array([[3], [5]], np.int32)
+    ctx = specs_mod.decode_context(shape)
+    with jax.set_mesh(mesh):
+        jstep, jspecs = jmake(jcfg, mesh, JShape("d", 64, 2, "decode"))
+        want, _ = jstep(jax.tree.map(jnp.asarray, tree), jnp.asarray(toks),
+                        jmodels.init_cache(jcfg, 2, ctx))
+    step, specs = make_serve_step(cfg, ONE, shape, device="cpu")
+    params = prm.from_jax(cfg, tree, device="cpu")
+    got, cache = step(params, torch.from_numpy(toks),
+                      models.init_cache(cfg, 2, ctx, device="cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+    assert cache["pos"].tolist() == [1, 1]
+    assert set(specs) == set(jspecs) == {"params", "cache", "batch"}
+
+
+@needs_mesh
+def test_prefill_step_matches_reference_on_one_device():
+    from repro.launch.mesh import make_mesh as jmake_mesh
+    from repro.launch.serve import make_prefill_step as jmake
+
+    jcfg = jget_config("tiny-agent").replace(dtype="float32")
+    cfg = get_config("tiny-agent").replace(dtype="float32")
+    tree = _jweights(jcfg)
+    mesh = jmake_mesh((1, 1), ("data", "model"))
+    toks = (np.arange(64, dtype=np.int32).reshape(2, 32) % cfg.vocab)
+    with jax.set_mesh(mesh):
+        jstep, _ = jmake(jcfg, mesh, JShape("p", 32, 2, "prefill"))
+        want, _ = jstep(jax.tree.map(jnp.asarray, tree), jnp.asarray(toks),
+                        jmodels.init_cache(jcfg, 2, 32))
+    step, _ = make_prefill_step(cfg, ONE, ShapeConfig("p", 32, 2, "prefill"),
+                                device="cpu")
+    got, cache = step(prm.from_jax(cfg, tree, device="cpu"),
+                      torch.from_numpy(toks),
+                      models.init_cache(cfg, 2, 32, device="cpu"))
+    assert got.shape == (2, cfg.vocab) and int(cache["pos"][0]) == 32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+def test_opt_pspecs_structure_matches_state():
+    cfg = get_smoke("llama3-405b")
+    for int8 in (False, True):
+        acfg = AdamWConfig(int8_moments=int8)
+        spec = opt_pspecs(cfg, ONE, acfg)
+        _, state = abstract_state(cfg, acfg)
+        from repro_torch.distributed.sharding import is_spec
+        s_leaves, s_def = prm.flatten(spec, is_leaf=is_spec)
+        t_leaves, t_def = prm.flatten(state)
+        assert s_def == t_def and len(s_leaves) == len(t_leaves)
+        assert all(len(s) == t.ndim for s, t in zip(s_leaves, t_leaves))
+        assert all(t.device.type == "meta" for t in t_leaves)
+
+
+def test_train_step_runs_and_learns():
+    cfg = get_config("tiny-agent")
+    acfg = AdamWConfig(lr=5e-3, warmup_steps=0)
+    step = make_train_step(cfg, ONE, TrainPlan(microbatch=2), acfg,
+                           shape=ShapeConfig("t", 32, 4, "train"),
+                           device="cpu")
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = adamw_init(params, acfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32))
+    batch = {"tokens": toks, "labels": toks}
+    losses = []
+    for _ in range(12):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0] - 0.3
+    assert set(step.shardings) == {"params", "opt", "batch"}
+
+
+# ---------------------------------------------------------------------------
+# Refusals (shape logic; the ranks below show the factories raise them)
+# ---------------------------------------------------------------------------
+
+
+def _mesh(**axes) -> ShapeMesh:
+    return ShapeMesh(tuple(axes), tuple(axes.values()))
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-350m", "qwen2-vl-2b",
+                                  "seamless-m4t-large-v2"])
+def test_tp_of_other_families_refused_by_name(name):
+    with pytest.raises(ValueError, match="A6.1"):
+        check_mesh(get_smoke(name), _mesh(data=1, model=2))
+    check_mesh(get_smoke(name), _mesh(data=2, model=1))
+
+
+def test_sequence_sharded_cache_refused_for_serving():
+    cfg = get_config("llama3-405b")
+    mesh = make_prod()
+    shape = SHAPES["decode_32k"]
+    cache = specs_mod.input_pspecs(cfg, shape, mesh)["cache"]
+    with pytest.raises(ValueError, match="A6.2"):
+        check_serve(cfg, mesh, cache, shape.global_batch)
+    gem = get_config("gemma3-27b")
+    check_serve(gem, mesh, specs_mod.input_pspecs(gem, shape, mesh)["cache"],
+                shape.global_batch)
+    long = SHAPES["long_500k"]
+    dan = get_config("h2o-danube-3-4b")
+    with pytest.raises(ValueError, match="A6.2"):
+        check_serve(dan, mesh, specs_mod.input_pspecs(dan, long,
+                                                      mesh)["cache"], 1)
+
+
+def make_prod():
+    from repro_torch.launch.mesh import make_production_mesh
+
+    return make_production_mesh()
+
+
+def test_local_attention_shape_refused_with_config_and_mesh():
+    cfg = get_config("tiny-agent").replace(n_heads=12, n_kv_heads=1,
+                                           use_pallas=True)
+    with pytest.raises(ValueError, match=r"tiny-agent on mesh .*'model': 4"
+                                         r".*no kernel"):
+        check_mesh(cfg, _mesh(data=1, model=4))
+    check_mesh(cfg, _mesh(data=1, model=2))          # local G 6
+    # llama3-405b at 16-way TP: 8 query heads on one replicated KV head
+    check_mesh(get_config("llama3-405b").replace(use_pallas=True),
+               _mesh(data=16, model=16))
+
+
+def test_sharded_step_needs_a_device_mesh_and_a_process_group():
+    cfg = get_config("tiny-agent")
+    with pytest.raises(RuntimeError, match="DeviceMesh"):
+        make_train_step(cfg, _mesh(data=1, model=2), device="cpu")
+    with pytest.raises(RuntimeError, match="DeviceMesh"):
+        make_serve_step(cfg, _mesh(data=2, model=1),
+                        ShapeConfig("d", 32, 2, "decode"))
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1, 2), ("data", "model"), device_type="cpu")
+    with pytest.raises(ValueError, match="pod"):
+        make_train_step(cfg, ONE, TrainPlan(compress_grads=True),
+                        device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Sharded parity in gloo ranks
+# ---------------------------------------------------------------------------
+
+TRAIN = ["train-tiny-f32", "train-tiny-int8", "train-tiny-micro",
+         "train-arctic", "train-arctic-drops", "train-kimi"]
+SERVE = ["serve-tiny", "serve-arctic"]
+MOE = ["dispatch-arctic", "dispatch-arctic-rows"]
+PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
+            "refuse-tp-hybrid", "refuse-serve-seq-cache"]),
+         ((2, 1), TRAIN + ["train-hymba", "serve-hymba"] + SERVE + MOE + [
+            "refuse-batch-split", "refuse-long-shard-seq",
+            "refuse-compress-no-pod"]),
+         ((2, 1, 1), ["train-tiny-int8", "train-tiny-compress",
+                      "serve-tiny"])]
+PLAN4 = [((2, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE),
+         ((1, 4), ["refuse-local-shape"])]
+CASES = [(shape, n, w) for w, plan in ((2, PLAN2), (4, PLAN4))
+         for shape, names in plan for n in names]
+REFUSED = {"refuse-tp-hybrid": "A6.1", "refuse-serve-seq-cache": "A6.2",
+           "refuse-long-shard-seq": "A6.2",
+           "refuse-batch-split": "does not split",
+           "refuse-compress-no-pod": "'pod'",
+           "refuse-local-shape": "no kernel"}
+
+
+@pytest.fixture(scope="module")
+def rank_results(tmp_path_factory):
+    return {2: ranks.spawn(2, PLAN2, tmp_path_factory.mktemp("w2")),
+            4: ranks.spawn(4, PLAN4, tmp_path_factory.mktemp("w4"))}
+
+
+@pytest.mark.parametrize("shape,name,world", CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{n}"
+                              for s, n, _ in CASES])
+def test_sharded_step_matches_single_device(rank_results, shape, name,
+                                            world):
+    key = f"{tuple(shape)}:{name}"
+    for r, res in enumerate(rank_results[world]):
+        got = res[key]
+        assert "error" not in got, f"rank {r}: {got.get('error')}"
+        if name.startswith("refuse-"):
+            assert got["raised"] and REFUSED[name] in got["message"], got
+        elif name == "train-tiny-compress":
+            # int8 on the wire: the gradients within the quantization step
+            # of the two ranks' shares, the first loss (same weights) equal
+            assert got["grads"] <= 2 * got["grad_max"] / 127, got
+            assert got["loss0"] <= TOL
+            assert got["ef_leaves"] > 0 and got["ef_max"] > 0
+        elif name.startswith("train-"):
+            assert got["grads"] <= TOL * max(got["grad_max"], 1.0), got
+            assert got["loss"] <= TOL and got["norm_rel"] <= TOL, got
+            assert got["params"] <= TOL and got["moved"] > 10 * TOL, got
+        elif name.startswith("serve-"):
+            assert got["tokens_equal"] and got["logits"] <= TOL, got
+            heads = {"serve-hymba": 2}.get(name)
+            if heads is None:
+                m = shape[-1]
+                kv = ranks.CONFIGS[name.split("-")[1]]().n_kv_heads
+                heads = kv // m if kv % m == 0 else kv
+            assert got["kv_heads"] == heads
+        elif name.startswith("dispatch-"):
+            assert got["dropped_ref"] > 0
+            assert got["dropped"] <= 1e-6 and got["aux"] <= 1e-6, got
+            assert got["y"] <= TOL, got
+
+
+@pytest.mark.parametrize("n,cut", [(200, 100), (128, 64), (384, 96)])
+def test_global_blocks_give_the_whole_leafs_int8_numbers(n, cut):
+    """A leaf's last axis cut into shards off the 128-element blocks: each
+    shard's quantize, its block maxima reduced over the shards, gives the
+    unsharded ``_quantize``'s q and scales exactly; dequantize likewise."""
+    from repro_torch.optim.adamw import _dequantize, _quantize, global_blocks
+
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(3, n)).astype(np.float32))
+    whole = _quantize(x)
+    parts = [x[:, i:i + cut] for i in range(0, n, cut)]
+    nb = -(-n // 128)
+
+    def local_amax(i, part):
+        wide = part.new_zeros(3, nb * 128)
+        wide[:, i * cut:i * cut + cut] = part.abs()
+        return wide.reshape(3, nb, 128).amax(-1)
+    amax = torch.stack([local_amax(i, p) for i, p in enumerate(parts)])
+    got = [global_blocks(i * cut, n, lambda t: amax.max(0).values)
+           for i in range(len(parts))]
+    q8s = [g[0](p) for g, p in zip(got, parts)]
+    assert torch.equal(torch.cat([q.q for q in q8s], -1), whole.q)
+    for q in q8s:
+        assert torch.equal(q.scale, whole.scale)
+    deq = torch.cat([g[1](q, p.shape) for g, q, p in zip(got, q8s, parts)],
+                    -1)
+    assert torch.equal(deq, _dequantize(whole, x.shape))

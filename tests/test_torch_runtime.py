@@ -139,7 +139,7 @@ def train_run(tmp, fail_at=()):
     cfg = get_config("tiny-agent").replace(dtype="float32")
     acfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=12,
                        int8_moments=True)
-    step_fn = make_train_step(cfg, TrainPlan(int8_moments=True), acfg,
+    step_fn = make_train_step(cfg, None, TrainPlan(int8_moments=True), acfg,
                               device="cpu")
     params = models.init(cfg, torch.Generator().manual_seed(0),
                          device="cpu")

@@ -243,7 +243,7 @@ def test_train_step_matches_reference(plan):
 
     params = tmodels.from_jax(tcfg, tree, device="cpu")
     opt = opt_state_from_jax(jopt, device="cpu")
-    step = make_train_step(tcfg, plan, tacfg, device="cpu")
+    step = make_train_step(tcfg, None, plan, tacfg, device="cpu")
     params, opt, m = step(params, opt, b)
     assert abs(m["loss"].item() - float(jm["loss"])) <= 1e-5
     assert abs(m["grad_norm"].item() - float(jm["grad_norm"])) \
@@ -285,7 +285,8 @@ def test_train_step_runs_and_learns():
     _, tcfg = configs("tiny-agent")
     tcfg = tcfg.replace(dtype="bfloat16")
     acfg = AdamWConfig(lr=5e-3, warmup_steps=0)
-    step = make_train_step(tcfg, TrainPlan(microbatch=2), acfg, device="cpu")
+    step = make_train_step(tcfg, None, TrainPlan(microbatch=2), acfg,
+                           device="cpu")
     params = tmodels.init(tcfg, torch.Generator().manual_seed(0),
                           device="cpu")
     opt = adamw_init(params, acfg)

@@ -194,7 +194,7 @@ def test_train_step_matches_reference(name):
 
     params = tmodels.from_jax(tcfg, tree, device="cpu")
     opt = opt_state_from_jax(jopt, device="cpu")
-    step = make_train_step(tcfg, plan, tacfg, device="cpu")
+    step = make_train_step(tcfg, None, plan, tacfg, device="cpu")
     params, opt, m = step(params, opt, b)
     assert abs(m["loss"].item() - float(jm["loss"])) <= 1e-5
     assert abs(m["grad_norm"].item() - float(jm["grad_norm"])) \
