@@ -19,7 +19,11 @@ code is non-zero and the final JSON line is not printed:
                  the main path's shapes, the plain version's, a PyTorch
                  library call's where one exists, and its bound; and
                  grouped matmul's unit shapes and split of d timed
-                 against each other.
+                 against each other; ring decode with its log-sum-exp
+                 over a slot range and attention_combine (a
+                 sequence-sharded ring's ranks), held to their plain
+                 versions and timed at llama3-405b's decode_32k rank
+                 shape with their bounds.
 4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
                  tokens are equal across the paged layout with and
                  without its kernel and the ring layout with and without
@@ -226,7 +230,21 @@ code is non-zero and the final JSON line is not printed:
                  bands, every kernel call on a rank's shards held to its
                  plain version, each kernel's launches printed.  (c) The
                  same ranks on (2, 1), DP + FSDP, agent-7b's width at 2
-                 layers: the train-step check.  (b) and (c) times are two
+                 layers: the train-step check.  (d) The same ranks serve
+                 over a ring whose sequence axis the cache spec cuts over
+                 model (the GQA fallback), agent-7b's width at 2 layers
+                 with 16 query heads over one KV head (G 16, as each
+                 rank of llama3-405b's fallback decodes), a 200-token
+                 prompt over 2 x 164 slots;
+                 (e) on (2, 1) a long-named decode shape, agent-7b's
+                 width at 2 layers, B 1, a 2100-token prompt prefilled on
+                 one device and cut into 2 x 2048 slots (the weights
+                 whole on each rank: rules without FSDP, which over
+                 gloo would take 42 s): 16 greedy tokens
+                 each equal the unsharded run's, every ring decode (with
+                 its log-sum-exp) and attention_combine call on a shard
+                 within the f32 band of its plain version, both kernels
+                 launched on every rank.  (b) to (e) times are two
                  processes sharing one card, not a multi-GPU figure.
 
 Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
@@ -281,6 +299,8 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.attention_combine import (  # noqa: E402
+    attention_combine, attention_combine_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -299,6 +319,7 @@ scan_mod = importlib.import_module("repro_torch.kernels.ssm_scan")
 import torch.distributed as dist  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed import parallel  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import specs as specs_launch  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -1071,6 +1092,135 @@ def phase_ring_decode(dev) -> dict:
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+# a rank's share of llama3-405b's decode_32k ring on the production mesh,
+# cut over the 16-way model axis (the GQA fallback; ROADMAP A6.2): 8 rows,
+# all 128 query heads over its 8 KV heads (G 16, dh 128) and ~2048 of the
+# 32896 slots, every slot valid; then the combine of the 16 ranks' partial
+# outputs of the rank's own 8 heads.  COMBINE_EMPTY ranks hold no valid
+# key for row 0 (as at a context short of the ring's end), and row 1 has
+# none on any rank.
+LSE_DECODE = (8, 2048, 8, 16, 128)               # B, slots, Hkv, G, dh
+COMBINE = (16, 8, 8, 128)                        # R, B, H, dh
+COMBINE_EMPTY = 5
+
+
+def lse_decode_case(dtype, gen: torch.Generator, dev):
+    """Ring decode over one rank's full slot range: positions lo .. lo +
+    slots - 1 of a longer context, q_pos past them."""
+    b, slots, hkv, g, dh = LSE_DECODE
+    lo = 7 * slots
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen, device=dev)
+    k = torch.randn((b, slots, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, slots, hkv, dh), generator=gen, device=dev)
+    kpos = (lo + torch.arange(slots, dtype=torch.int32, device=dev))[
+        None].expand(b, slots).contiguous()
+    q_pos = torch.full((b,), lo + 3 * slots, dtype=torch.int32, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype), kpos, q_pos
+
+
+def combine_case(dtype, gen: torch.Generator, dev):
+    r, b, h, dh = COMBINE
+    outs = torch.randn((r, b, h, dh), generator=gen, device=dev).to(dtype)
+    lses = 4 * torch.randn((r, b, h), generator=gen, device=dev)
+    lses[r - COMBINE_EMPTY:, 0] = attention.NEG_INF
+    lses[:, 1] = attention.NEG_INF
+    return outs, lses
+
+
+def combine_bound(outs, lses) -> tuple[float, str]:
+    """Each rank's partial and log-sum-exp read once, the output written
+    once; about 4 operations per rank and element."""
+    r, b, h, dh = outs.shape
+    nbytes = (outs.numel() * outs.element_size() + lses.numel() * 4
+              + b * h * dh * outs.element_size())
+    return bound_of(nbytes, 4 * r * b * h * dh, torch.float32)
+
+
+def phase_combine(dev) -> dict:
+    """[kernels] decode_attention with its log-sum-exp and
+    attention_combine against their plain versions (f32 and bf16, the
+    empty ranges and the row empty everywhere), then both timed at
+    llama3-405b's decode_32k local shape against their bounds, with the
+    card's name and power limit: the decode in bf16 (the model's
+    dtype), the combine in f32 (the serve path gathers and combines the
+    partials in f32).  The row's max_abs_err is the combine's in f32."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    worst = worst_c = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        # ring decode over a range, empty for row 2 and a windowed ring
+        # after its wrap (CTX's rings), with and without the log-sum-exp
+        for heads, slots, window in ((RING_HEADS, 4096, -1),
+                                     (RING_HEADS, 1536, 512),
+                                     ((8, 16, 128), 2048, -1)):
+            args = ring_case(dtype, slots, gen, dev, heads=heads)
+            half = slots // 2
+            for lo in (0, half):
+                # a rank's range, as its own contiguous shard
+                sub = (args[0], *(t[:, lo:lo + half].contiguous()
+                                  for t in args[1:4]), args[4])
+                out, lse = decode_attention(*sub, window=window,
+                                            with_lse=True)
+                plain = decode_attention(*sub, window=window)
+                if not torch.equal(out, plain):
+                    raise AssertionError("decode_attention: out with the "
+                                         "log-sum-exp differs from without")
+                err = call_err((out, lse), decode_attention_plain(
+                    *sub, window=window, with_lse=True)).item()
+                check("decode_attention", err, dtype,
+                      f"with its log-sum-exp, {dtype} Hkv={heads[0]} "
+                      f"G={heads[1]} slots [{lo}, {lo + half}) of {slots} "
+                      f"window {window}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+        for r in (2, COMBINE[0]):
+            outs, lses = combine_case(dtype, gen, dev)
+            outs, lses = outs[:r].contiguous(), lses[:r].contiguous()
+            got = attention_combine(outs, lses)
+            err = call_err(got, attention_combine_plain(outs, lses)).item()
+            check("attention_combine", err, dtype,
+                  f"{dtype} R={r} B={COMBINE[1]} H={COMBINE[2]} "
+                  f"dh={COMBINE[3]}, empty ranks and an empty row")
+            if got[1].any():
+                raise AssertionError("attention_combine: the row empty on "
+                                     "every rank is not zero")
+            if dtype == torch.float32:          # the path's partials
+                worst_c = max(worst_c, err)
+    gpu = card()
+    # the LSE mode at the local shape, beside the mode without it
+    args = lse_decode_case(torch.bfloat16, gen, dev)
+    b, slots, hkv, g, dh = LSE_DECODE
+    ms = cuda_ms(lambda: decode_attention(*args, with_lse=True), 50)
+    no_lse_ms = cuda_ms(lambda: decode_attention(*args), 50)
+    plain_ms = cuda_ms(lambda: decode_attention_plain(*args, with_lse=True),
+                       10)
+    bound_ms, bound_by = ring_bound(args, -1)
+    log("kernels", f"decode_attention bf16 with its log-sum-exp at "
+        f"llama3-405b's decode_32k rank shape (B={b}, {slots} slots of "
+        f"the rank, Hkv={hkv}, G={g}, dh={dh}), {gpu}: kernel {ms:.4f} ms "
+        f"(without the log-sum-exp {no_lse_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {100 * bound_ms / ms:.1f}% of bound")
+    # the serve path gathers and combines the partials in f32
+    outs, lses = combine_case(torch.float32, gen, dev)
+    c_ms = cuda_ms(lambda: attention_combine(outs, lses), 100)
+    c_plain = cuda_ms(lambda: attention_combine_plain(outs, lses), 20)
+    c_bound, c_by = combine_bound(outs, lses)
+    log("kernels", f"attention_combine f32 at llama3-405b's decode_32k "
+        f"(R={COMBINE[0]} ranks, B={COMBINE[1]}, {COMBINE[2]} own heads, "
+        f"dh={COMBINE[3]}), {gpu}: kernel {c_ms:.4f} ms, plain "
+        f"{c_plain:.4f} ms, bound {c_bound:.4f} ms ({c_by}); kernel at "
+        f"{100 * c_bound / c_ms:.1f}% of bound; no single PyTorch call "
+        f"computes it")
+    return {"name": "attention_combine", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/attention_combine.cu",
+            "replaces": "src/repro/distributed/sharding.py:241 (port-side: "
+                        "the softmax GSPMD reduces over a sequence-sharded "
+                        "cache; no Pallas kernel)",
+            "launches": None, "max_abs_err": worst_c, "ms": c_ms,
+            "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
+            "library_ms": None}
 
 
 # the SSM scan: hymba's prefill (B = 1, 50 heads, dk 16, dv 64, one B/C
@@ -2595,13 +2745,23 @@ def greedy_equal_check(phase: str, params, cfg, prefill, steps: int,
 
 class kernelwise:
     """Within the block, every call the model makes to the flash and ring
-    decode wrappers also runs the wrapper's plain version on the same
-    inputs; ``max_err()`` is the largest |kernel - plain| over the plain
-    output's largest magnitude (the path's activations reach ~30, where
-    one bf16 unit is 0.125), and ``calls`` counts the calls held."""
+    decode wrappers and to the combine of a sequence-sharded ring also
+    runs the wrapper's plain version on the same inputs; ``max_err()`` is
+    the largest |kernel - plain| over the plain output's largest
+    magnitude (the path's activations reach ~30, where one bf16 unit is
+    0.125) and, for ring decode with its log-sum-exp, the largest
+    |kernel - plain| of the log-sum-exps of the rows with a valid key
+    (the empty rows' NEG_INF must agree exactly); ``calls`` counts the
+    calls held.  The combine is held with ``combine=True`` (a
+    sequence-sharded ring's serve steps)."""
 
     KERNELS = {"flash_attention": flash_attention_plain,
                "decode_attention": decode_attention_plain}
+
+    def __init__(self, combine: bool = False):
+        if combine:
+            self.KERNELS = {**self.KERNELS,
+                            "attention_combine": attention_combine_plain}
 
     def __enter__(self):
         self.errs, self.calls = [], dict.fromkeys(self.KERNELS, 0)
@@ -2611,9 +2771,7 @@ class kernelwise:
                      _name=name, **kw):
                 out = _real(*args, **kw)
                 with torch.no_grad():
-                    want = _plain(*args, **kw).float()
-                    self.errs.append((out.detach().float() - want).abs()
-                                     .max() / want.abs().max())
+                    self.errs.append(call_err(out, _plain(*args, **kw)))
                 self.calls[_name] += 1
                 return out
             setattr(attention, name, both)
@@ -2626,6 +2784,26 @@ class kernelwise:
 
     def max_err(self) -> float:
         return torch.stack(self.errs).max().item() if self.errs else 0.0
+
+
+def call_err(got, want) -> torch.Tensor:
+    """A kernel call's output against its plain version's: |difference|
+    over the plain output's largest magnitude; with a log-sum-exp (an
+    (out, lse) pair), the larger of that and the log-sum-exps' largest
+    |difference| over the rows with a valid key, infinite where the two
+    disagree on which rows are empty."""
+    if isinstance(got, tuple):
+        (out, lse), (w_out, w_lse) = got, want
+        empty = w_lse <= 0.5 * attention.NEG_INF
+        if not torch.equal(lse <= 0.5 * attention.NEG_INF, empty):
+            return torch.tensor(float("inf"), device=out.device)
+        d = (lse - w_lse).abs()[~empty]
+        return torch.maximum(call_err(out, w_out),
+                             d.max() if d.numel() else torch.zeros(
+                                 (), device=out.device))
+    want = want.float()
+    return ((got.detach().float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30))
 
 
 def kernelwise_check(phase: str, params, cfg, prefill, steps: int,
@@ -4488,6 +4666,28 @@ SHARDED_TRAIN_B, SHARDED_TRAIN_SEQ = 2, 512
 # decode band (ROADMAP §C: f32 decode logits drift ~1e-4 in both packages)
 SHARDED_LOGIT_TOL = 2e-3
 SHARDED_DIR = ROOT / "build" / "sharded"
+# (d), (e) sequence-sharded rings on the same two ranks, f32, kernels on
+# (ROADMAP A6.2).  (d) mesh (1, 2), the GQA fallback: agent-7b's width
+# (d 4096, dh 128) at 2 layers with 16 query heads over one KV head (KV
+# heads that do not divide a model axis of 2 must be odd, and no config
+# of the repo has a single KV head; 32 heads over one would be a GQA
+# group of 32, which no decode kernel takes, while 16 is llama3-405b's
+# group, what each rank decodes with in its fallback), B 2, a 200-token
+# prompt in a 328-slot ring, 164 slots a rank, so both ranks hold keys.
+# (e) mesh (2, 1), a ``long``-named decode shape: agent-7b's width at 2
+# layers (32 heads, 8 KV heads, d 4096), B 1, a 4096-slot ring, 2048 slots
+# a rank, a 2100-token prompt prefilled on one device and cut to the
+# step's spec; 16 greedy tokens each.  (e) serves under rules that keep
+# the weights whole on every rank (the default rules' FSDP cuts them
+# over ``data``, and gloo would carry 2.5 GB of gathered weights a
+# decode step: 2.6 s, 42 s for the 16 steps); (c) holds FSDP on the card
+# and tests/test_torch_launch.py serves long_* with it on the CPU
+SHARDED_GQA = ("agent-7b", dict(n_layers=2, n_heads=16, n_kv_heads=1))
+SHARDED_GQA_B, SHARDED_GQA_PROMPT = 2, 200
+SHARDED_LONG = ("agent-7b", dict(n_layers=2))
+SHARDED_LONG_RING, SHARDED_LONG_PROMPT = 4096, 2100
+SHARDED_LONG_RULES = shd.ShardingRules(rules=tuple(
+    r for r in shd.DEFAULT_RULES.rules if r[0] != "embed"))
 
 
 def sync(dev) -> None:
@@ -4771,6 +4971,113 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     return out
 
 
+def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
+                     prompt: int, ring: int, new: int, long: bool,
+                     rules: shd.ShardingRules = shd.DEFAULT_RULES) -> dict:
+    """One config served over a sequence-sharded ring in a gloo rank,
+    kernels on, f32: prefill (the mesh's prefill step; with ``long`` one
+    device's prefill, cut to the decode step's spec by ``cut_cache``)
+    and ``new`` greedy tokens through make_serve_step under ``rules``, every decode,
+    log-sum-exp decode and combine call on the rank's shard held to its
+    plain version within the f32 band (``kernelwise``).  Rank 0 also
+    runs the unsharded model: greedy tokens equal, logits within
+    SHARDED_LOGIT_TOL.  Returns the results, the rank's slots and the
+    launches of the decode steps, counted from 0 just before them."""
+    cfg = get_config(name).replace(dtype="float32", use_pallas=True, **cut)
+    ref = dist.get_rank() == 0
+    marks = [("start", time.perf_counter())]
+    full = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    attention.rescale_to_true_fan_in(full)
+    mctx = parallel.context(mesh, rules)
+    where = f"{phase} {cfg.name} on {dict(mctx.sizes)}"
+    shape_d = ShapeConfig("long_sharded" if long else "sharded",
+                          ring - specs_launch.DECODE_CACHE_PAD, b, "decode")
+    dec, dspecs = make_serve_step(cfg, mesh, shape_d, rules)
+    params = parallel.shard_tree(full, dspecs["params"], mesh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
+                         device=dev)
+    rows = serve_launch.local_rows(torch.arange(b, device=dev), mctx,
+                                   dspecs["batch"])
+    worst = 0.0
+    sync(dev)
+    marks.append(("init", time.perf_counter()))
+    with torch.no_grad():
+        if long:
+            whole = models.init_cache(cfg, b, ring, device=dev)
+            got, whole = models.prefill(full, cfg, toks, whole)
+            got = got[rows]
+            cache = serve_launch.cut_cache(whole, cfg, mesh, shape_d, rules)
+            del whole
+        else:
+            pre, _ = make_prefill_step(cfg, mesh, ShapeConfig(
+                "sharded", prompt, b, "prefill"))
+            cache = serve_launch.init_cache(cfg, mesh, shape_d)
+            with kernelwise(combine=True) as kw:
+                got, cache = pre(params, toks, cache)
+            worst = kw.max_err()
+        kv = cache["segments"][0]["e0"]["kv"]
+        slots = (kv.k.shape[-3], kv.kpos.shape[-1])
+        sync(dev)
+        marks.append(("prefill", time.perf_counter()))
+        got_t, logits = [], []
+        nxt = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        for fn in (*KERNELS.values(), attention_combine):  # the main path's
+            fn.launches = 0
+        calls = {}
+        for i in range(new):
+            got_t.append(got.argmax(-1))
+            logits.append(got)
+            if i == new - 1:
+                break
+            nxt[rows] = got_t[-1][:, None]
+            with kernelwise(combine=True) as kw:
+                got, cache = dec(params, nxt, cache)
+            worst = max(worst, kw.max_err())
+            calls = {k: calls.get(k, 0) + v for k, v in kw.calls.items()}
+        used = {**launch_counts(), "attention_combine":
+                attention_combine.launches}
+        sync(dev)
+        marks.append(("decode, held", time.perf_counter()))
+        del params, cache
+        if not worst <= TOL[torch.float32]:
+            raise AssertionError(f"{where}: a kernel call on the rank's "
+                                 f"shard differs from its plain version "
+                                 f"by {worst}")
+        out = {"config": f"{cfg.name} width, {cfg.n_layers} layers, "
+                         f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+                         f"head(s)" + ("" if rules == shd.DEFAULT_RULES
+                                       else ", weights whole on each rank"),
+               "slots": list(slots), "kernel_err": worst, "calls": calls,
+               "launches": {k: v for k, v in used.items() if v},
+               "tokens": torch.stack(got_t, 1).tolist()}
+        if ref:
+            ref_cache = models.init_cache(cfg, b, ring, device=dev)
+            want, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+            diffs, same = [], True
+            for i, (g, t) in enumerate(zip(logits, got_t)):
+                if i:
+                    want, ref_cache = models.decode_step(
+                        full, cfg, want.argmax(-1)[:, None], ref_cache)
+                diffs.append((g - want[rows]).abs().max().item())
+                same &= torch.equal(t, want[rows].argmax(-1))
+            if not same:
+                raise AssertionError(f"{where}: greedy tokens differ from "
+                                     f"the unsharded run's")
+            if max(diffs) > SHARDED_LOGIT_TOL:
+                raise AssertionError(f"{where}: logits differ by "
+                                     f"{max(diffs)}")
+            out["logits"] = max(diffs)
+            del ref_cache
+            sync(dev)
+            marks.append(("unsharded run", time.perf_counter()))
+    free(full)
+    out["stages"] = ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b)
+                              in zip(marks, marks[1:]))
+    return out
+
+
 def sharded_rank(rank: int, world: int, store: str, out_dir: str,
                  device_type: str, sizes: dict) -> None:
     """A gloo rank of phase 38 (b) and (c), spawned by the phase (which
@@ -4796,9 +5103,18 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
                                  sizes)
         res["ep"] = sharded_case(tp, *sizes["ep"], dev, "sharded (b) EP",
                                  sizes)
+        res["gqa"] = sharded_seq_case(
+            tp, *sizes["gqa"], dev, "sharded (d) GQA fallback",
+            sizes["gqa_b"], sizes["gqa_prompt"],
+            sizes["gqa_prompt"] + specs_launch.DECODE_CACHE_PAD,
+            sizes["new"], long=False)
         dp = make_mesh((world, 1), ("data", "model"), device_type)
         res["dp"] = sharded_case(dp, *sizes["tp"], dev, "sharded (c) DP",
                                  sizes, serve=False)
+        res["long"] = sharded_seq_case(
+            dp, *sizes["long"], dev, "sharded (e) long", 1,
+            sizes["long_prompt"], sizes["long_ring"], sizes["new"],
+            long=True, rules=SHARDED_LONG_RULES)
         res["seconds"] = time.perf_counter() - t0
     except Exception:
         import traceback
@@ -4808,22 +5124,27 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
         dist.destroy_process_group()
 
 
-def phase_sharded(dev) -> None:
+def phase_sharded(dev) -> dict:
     """[sharded]: (b) two gloo ranks sharing the card on mesh (1, 2):
     agent-7b's width at 2 layers (TP) and arctic's at 1 layer (EP); (c)
     the same ranks on (2, 1) (DP + FSDP), agent-7b's width at 2 layers,
-    train only (``sharded_world2``, ``sharded_case``); then (a) world-1
-    NCCL steps bit-equal to mesh-less at agent-7b's full depth
+    train only (``sharded_world2``, ``sharded_case``); (d) and (e) the
+    same ranks serving over a sequence-sharded ring, the GQA fallback on
+    (1, 2) and a ``long`` shape on (2, 1) (``sharded_seq_case``); then (a)
+    world-1 NCCL steps bit-equal to mesh-less at agent-7b's full depth
     (``sharded_world1``), whose 50 GB would not leave the ranks room.  Times
-    of (b) and (c) are two processes sharing one H100 over gloo, not a
-    multi-GPU figure."""
-    sharded_world2(dev)
+    of (b) to (e) are two processes sharing one H100 over gloo, not a
+    multi-GPU figure.  Returns (d)'s and (e)'s decode launches."""
+    seq = sharded_world2(dev)
     sharded_world1(dev)
+    return seq
 
 
-def sharded_world2(dev) -> None:
-    """(b) and (c): two gloo ranks spawned on the card (``sharded_rank``),
-    their results printed and held."""
+def sharded_world2(dev) -> dict:
+    """(b) to (e): two gloo ranks spawned on the card (``sharded_rank``),
+    their results printed and held.  Returns the launches of (d)'s and
+    (e)'s decode steps, summed over the ranks: the main path of
+    ``attention_combine`` and of ring decode with its log-sum-exp."""
     phase = "sharded"
     import torch.multiprocessing as mp
 
@@ -4839,7 +5160,11 @@ def sharded_world2(dev) -> None:
     t0 = time.perf_counter()
     sizes = {"tp": SHARDED_TP, "ep": SHARDED_EP, "serve_b": SHARDED_SERVE_B,
              "prompt": SHARDED_SERVE_PROMPT, "new": SHARDED_NEW,
-             "train_b": SHARDED_TRAIN_B, "train_seq": SHARDED_TRAIN_SEQ}
+             "train_b": SHARDED_TRAIN_B, "train_seq": SHARDED_TRAIN_SEQ,
+             "gqa": SHARDED_GQA, "gqa_b": SHARDED_GQA_B,
+             "gqa_prompt": SHARDED_GQA_PROMPT, "long": SHARDED_LONG,
+             "long_ring": SHARDED_LONG_RING,
+             "long_prompt": SHARDED_LONG_PROMPT}
     mp.start_processes(sharded_rank, args=(2, sharded_store("world2"),
                                            str(out_dir), dev.type, sizes),
                        nprocs=2, start_method="spawn")
@@ -4890,9 +5215,44 @@ def sharded_world2(dev) -> None:
                     raise AssertionError(f"{phase} {what}: rank {r} "
                                          f"launched {c['launches']}, "
                                          f"expected each of {sorted(want)}")
-    log(phase, f"(b) and (c): {wall:.1f} s of wall time for the spawn, "
+    seq = {}
+    for key, what in (("gqa", "(d) mesh (1, 2), GQA fallback: the ring cut "
+                              "over model"),
+                      ("long", "(e) mesh (2, 1), long: the ring cut over "
+                               "data")):
+        c0 = res[0][key]
+        for r, got in enumerate(res):
+            c = got[key]
+            if c["tokens"] != c0["tokens"]:
+                raise AssertionError(f"{phase} {what}: rank {r}'s tokens "
+                                     f"differ from rank 0's")
+            local, total = c["slots"]
+            if local * 2 != total:
+                raise AssertionError(f"{phase} {what}: rank {r} holds "
+                                     f"{local} of {total} slots")
+            n_tok = sum(map(len, c["tokens"]))
+            served = (f"greedy tokens equal the unsharded run's ({n_tok} "
+                      f"tokens), logits within {c['logits']:.3e}"
+                      if not r else f"greedy tokens equal rank 0's")
+            log(phase, f"{what}, rank {r}: {c['config']}, f32, kernels on, "
+                f"{local} of the ring's {total} slots: prefill + "
+                f"{sizes['new']} greedy tokens, {served}; every decode "
+                f"(with its log-sum-exp) and combine call on the rank's "
+                f"shard {c['calls']} within {c['kernel_err']:.3e} of its "
+                f"plain version; launches of the decode steps "
+                f"{c['launches']}; {c['stages']}")
+            if dev.type == "cuda":
+                want = {"decode_attention", "attention_combine"}
+                if not want <= set(c["launches"]):
+                    raise AssertionError(f"{phase} {what}: rank {r} "
+                                         f"launched {c['launches']}, "
+                                         f"expected each of {sorted(want)}")
+            for k, v in c["launches"].items():
+                seq[k] = seq.get(k, 0) + v
+    log(phase, f"(b) to (e): {wall:.1f} s of wall time for the spawn, "
         f"{max(r['seconds'] for r in res):.1f} s in the ranks ({label}; "
         f"not a multi-GPU figure)")
+    return seq
 
 
 
@@ -4930,7 +5290,8 @@ def main() -> int:
     with timed_phase("3, 28 kernels"):
         rows = [phase_kernels(dev), phase_flash(dev),
                 phase_flash_backward(dev), phase_ring_decode(dev),
-                phase_ssm_scan(dev), phase_grouped_matmul(dev)]
+                phase_ssm_scan(dev), phase_grouped_matmul(dev),
+                phase_combine(dev)]
     with timed_phase("33 kernels backward"):
         rows += phase_backward_kernels(dev)
 
@@ -5109,14 +5470,14 @@ def main() -> int:
     # the launch layer over torch.distributed: world 1 over NCCL, then two
     # gloo ranks sharing the card
     with timed_phase("38 sharded"):
-        phase_sharded(dev)
+        seq = phase_sharded(dev)
     log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
 
     main_path = {"paged_decode_attention": control, "flash_attention": hymba,
                  "decode_attention": hymba, "ssm_scan": hymba,
                  "grouped_matmul": arctic, "flash_attention_backward": train,
                  "grouped_matmul_backward": moe,
-                 "ssm_scan_backward": ssm_run}
+                 "ssm_scan_backward": ssm_run, "attention_combine": seq}
     for row in rows:
         row["launches"] = main_path[row["name"]][row["name"]]
 

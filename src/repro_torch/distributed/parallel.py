@@ -9,6 +9,10 @@ shards, explicit process groups, and collectives where the shards meet.
   every hook below is the identity and the model runs as on one device.
 * ``shard_tree`` / ``gather_tree`` -- cut a full tree to this rank's
   shards by a PartitionSpec tree, and put the shards back together.
+* The serve steps' cache plan (``MeshContext.for_serving``): the rows of
+  the batch the step's batch spec cuts (all of them where a batch of one
+  replicates), and the mesh axis each ring's sequence axis is cut over
+  (``ring_shard``: this rank's slot range of a ring and its group).
 * The autograd collectives of Megatron-style TP and of FSDP:
   ``reduce_from`` (forward all-reduce, backward identity: the end of a
   region whose ranks hold partial sums), ``copy_to`` (forward identity,
@@ -34,8 +38,9 @@ through host memory.  The names used exist in torch 2.11 and 2.13
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -210,6 +215,8 @@ class MeshContext:
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if mesh.device_type == "cuda"
                        else torch.device(mesh.device_type))
+        self.row_axes = self.batch_axes
+        self.ring_seq: Optional[Callable[[int], object]] = None
         ranks = mesh.mesh
         tuples = {tuple(a for a in cand if a in self.sizes)
                   for _, cands in self.rules.rules for cand in cands
@@ -270,6 +277,32 @@ class MeshContext:
     def batch_rank(self) -> int:
         return self.coord(self.batch_axes)
 
+    # -- the rows a step's batch spec cuts ---------------------------------
+
+    @property
+    def rows(self):
+        """The group over the axes that cut the batch's rows: the batch
+        axes, or those of a serve step's batch spec (``for_serving``),
+        fewer where the batch does not split over all of them."""
+        return self.group(self.row_axes)
+
+    @property
+    def row_world(self) -> int:
+        return self.size(self.row_axes)
+
+    # -- a serve step's cache ---------------------------------------------
+
+    def for_serving(self, row_axes: tuple[str, ...],
+                    ring_seq: Callable[[int], object]) -> "MeshContext":
+        """A copy for one serve step: its batch spec's axes ``row_axes``,
+        and ``ring_seq(slots)``, the mesh axis (a spec entry, or None)
+        that the step's cache spec cuts the sequence axis of a ring of
+        ``slots`` slots over.  The copy shares the process groups."""
+        ctx = copy.copy(self)
+        ctx.row_axes = tuple(row_axes)
+        ctx.ring_seq = ring_seq
+        return ctx
+
     # -- FSDP -------------------------------------------------------------
 
     @property
@@ -305,6 +338,44 @@ class MeshContext:
     @property
     def fsdp(self) -> bool:
         return self.batch_world > 1
+
+
+class RingShard(NamedTuple):
+    """This rank's share of a ring whose sequence axis the step's cache
+    spec cuts: slots [lo, lo + local) of the ring's ``total``, held by
+    rank ``rank`` of the ``n`` ranks of ``group`` (over mesh axis
+    ``entry``)."""
+
+    group: object
+    n: int
+    rank: int
+    lo: int
+    local: int
+    total: int
+    entry: object
+
+
+def ring_shard(k: torch.Tensor, kpos: torch.Tensor) -> Optional[RingShard]:
+    """The current step's cut of a ring (k ``(..., B, local, Hkv, dh)``,
+    kpos ``(..., B, total)``, which the cache specs never cut along the
+    sequence), or None where the ring is whole.  Raises where the ring
+    does not match the step's spec: a cut ring with no mesh, or a whole
+    ring where the spec cuts it (a long-context decode step takes its
+    cache from a prefill only through ``launch.serve.cut_cache``)."""
+    ctx = current()
+    local, total = k.shape[-3], kpos.shape[-1]
+    ring_seq = None if ctx is None else ctx.ring_seq
+    entry = None if ring_seq is None else ring_seq(total)
+    n = 1 if entry is None else ctx.size(entry)
+    if local * n != total:
+        raise ValueError(
+            f"a ring of {local} of {total} slots does not match the "
+            f"step's cache spec, which cuts it over "
+            f"{entry!r} ({n} ranks)")
+    if n == 1:
+        return None
+    r = ctx.coord(entry)
+    return RingShard(ctx.group(entry), n, r, r * local, local, total, entry)
 
 
 def context(mesh, rules=None) -> Optional[MeshContext]:

@@ -223,6 +223,39 @@ def _cache_batch_axes(cfg: ModelConfig, max_context: int, enc_len: int):
     return treedef, l1, [axis(a, b) for a, b in zip(l1, l2)]
 
 
+def kv_entries(seq_len: int, heads: int, sizes: dict, used,
+               rules: ShardingRules = DEFAULT_RULES,
+               shard_seq: bool = False) -> tuple:
+    """(sequence entry, head entry) of a ring or cross K/V leaf of
+    ``seq_len`` slots and ``heads`` KV heads on a mesh of axis ``sizes``
+    whose axes ``used`` already cut the batch: the rule of
+    ``cache_pspecs``."""
+    seq = head = None
+    used = set(used)
+    if shard_seq:
+        cand = rules.cache_seq_axis
+        if cand in sizes and cand not in used and seq_len % sizes[cand] == 0:
+            seq = cand
+            used.add(cand)
+    if "model" in sizes and "model" not in used \
+            and heads % sizes["model"] == 0:
+        head = "model"
+    elif "model" in sizes and "model" not in used and seq is None \
+            and seq_len % sizes["model"] == 0:
+        seq = "model"                         # seq-TP fallback for GQA
+    return seq, head
+
+
+def cache_batch_axes(batch: int, sizes: dict,
+                     rules: ShardingRules = DEFAULT_RULES) -> tuple:
+    """The mesh axes a cache's batch of ``batch`` rows is cut over: the
+    batch axes, the outermost dropped until the batch divides."""
+    b_mesh = tuple(a for a in rules.batch_axes if a in sizes)
+    while b_mesh and batch % math.prod(sizes[a] for a in b_mesh):
+        b_mesh = b_mesh[1:]
+    return b_mesh
+
+
 def cache_pspecs(cfg: ModelConfig, batch: int, max_context: int, mesh,
                  enc_len: int = 0, rules: ShardingRules = DEFAULT_RULES,
                  shard_seq: bool = False):
@@ -231,15 +264,16 @@ def cache_pspecs(cfg: ModelConfig, batch: int, max_context: int, mesh,
     * batch over the data axes;
     * KV-head dim over ``model`` when divisible (TP);
     * otherwise the ring *sequence* dim over ``model`` (the GQA fallback
-      of the reference; the port's serve steps refuse it, ROADMAP A6.2);
+      of the reference: each rank holds a range of the ring's slots with
+      every KV head, and the serve steps combine the ranks' partial
+      softmaxes by their log-sum-exps);
     * ``shard_seq`` (long-context, batch 1): sequence over ``data`` too.
+    ``kpos`` keeps its sequence axis whole.
     """
     sizes = mesh_axis_sizes(mesh)
     treedef, leaves, b_axes = _cache_batch_axes(cfg, max_context, enc_len)
 
-    b_mesh = tuple(a for a in rules.batch_axes if a in sizes)
-    while b_mesh and batch % math.prod(sizes[a] for a in b_mesh):
-        b_mesh = b_mesh[1:]
+    b_mesh = cache_batch_axes(batch, sizes, rules)
     b_entry = _entry(b_mesh)
 
     specs = []
@@ -255,20 +289,8 @@ def cache_pspecs(cfg: ModelConfig, batch: int, max_context: int, mesh,
             cfg.n_kv_heads, cfg.n_heads)
         if is_kv:
             s_ax, h_ax = b_ax + 1, b_ax + 2
-            if shard_seq:
-                cand = rules.cache_seq_axis
-                if cand in sizes and cand not in used \
-                        and leaf.shape[s_ax] % sizes[cand] == 0:
-                    entries[s_ax] = cand
-                    used.add(cand)
-            if "model" in sizes and "model" not in used \
-                    and leaf.shape[h_ax] % sizes["model"] == 0:
-                entries[h_ax] = "model"
-                used.add("model")
-            elif "model" in sizes and "model" not in used \
-                    and entries[s_ax] is None \
-                    and leaf.shape[s_ax] % sizes["model"] == 0:
-                entries[s_ax] = "model"       # seq-TP fallback for GQA
-                used.add("model")
+            entries[s_ax], entries[h_ax] = kv_entries(
+                leaf.shape[s_ax], leaf.shape[h_ax], sizes, used, rules,
+                shard_seq)
         specs.append(PartitionSpec(*entries))
     return prm.unflatten(treedef, specs)

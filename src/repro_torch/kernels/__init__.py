@@ -14,8 +14,16 @@ Training: ``flash_attention``, ``grouped_matmul`` and ``ssm_scan`` under
 grad are autograd Functions whose backwards are hand-written Hopper
 kernels too (``csrc/flash_attention_bwd.cu``, ``grouped_matmul_bwd.cu``,
 ``ssm_scan_bwd.cu``; ``*_backward`` calls them directly); the two decode
-wrappers have no backward and raise under grad (``grad.py``).
+wrappers and ``attention_combine`` have no backward and raise under grad
+(``grad.py``).
+
+``attention_combine`` is port-side: it combines the partial softmaxes of
+a sequence-sharded ring's ranks (``decode_attention(..., with_lse=True)``
+over each rank's slots), where the reference leaves the reduction to
+GSPMD.
 """
+from repro_torch.kernels.attention_combine import (attention_combine,
+                                                   attention_combine_plain)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
@@ -30,7 +38,8 @@ from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_backward,
                                           ssm_scan_backward_plain,
                                           ssm_scan_plain)
 
-__all__ = ["decode_attention", "decode_attention_plain", "flash_attention",
+__all__ = ["attention_combine", "attention_combine_plain",
+           "decode_attention", "decode_attention_plain", "flash_attention",
            "flash_attention_backward", "flash_attention_backward_plain",
            "flash_attention_plain", "grouped_matmul",
            "grouped_matmul_backward", "grouped_matmul_backward_plain",

@@ -111,47 +111,78 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// Split-KV merge.  A decode kernel that splits a row's keys over `splits`
-// CTAs leaves, per query row (b, head) and split s, the partial softmax
-// state of the keys it saw: m (the running max, in log2 units: score *
-// scale * log2(e)), l (the sum of exp2(score - m)) and acc (the sum of
-// exp2(score - m) * v, unnormalised), at
+// Merging partial softmax states.  A decode kernel that splits a row's
+// keys over `splits` CTAs leaves, per query row (b, head) and split s, the
+// partial softmax state of the keys it saw: m (the running max, in log2
+// units: score * scale * log2(e)), l (the sum of exp2(score - m)) and acc
+// (the sum of exp2(score - m) * v, unnormalised), at
 //   part_ml[row * splits + s]              = (m, l)
 //   part_acc[(row * splits + s) * dh + d]  = acc[d]
 // A split with no valid key writes m = NEG_INF, l = 0 and no acc; the
 // merge never reads its acc, and its weight exp2(m - M) * l is 0 anyway.
 // out[row] = sum_s exp2(m_s - M) acc_s / sum_s exp2(m_s - M) l_s, with M
 // the largest m_s; a row with no valid key in any split comes out as
-// zeros.  One CTA per row, one thread per element of the head dim.
+// zeros.  The same arithmetic combines the ranks of a sequence-sharded
+// ring (attention_combine.cu), each rank a part with m = its log-sum-exp
+// in log2 units, l = 1 and acc = its normalised output.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void split_merge_kernel(const float* __restrict__ part_acc,
-                                   const float2* __restrict__ part_ml,
-                                   T* __restrict__ out, int splits, int dh) {
-  const int64_t row = blockIdx.x;
-  const float2* ml = part_ml + row * splits;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The natural log-sum-exp of a row's scaled scores from its merged state
+// (m in log2 units, l the sum of exp2(score - m)); NEG_INF for a row with
+// no valid key.
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * LN2 : NEG_INF;
+}
+
+// Merge one row's `parts` states into out[0 .. dh) and, where lse is not
+// null, *lse.  ml(s) gives part s's (m, l), acc(s, d) element d of its
+// accumulator; the threads of the CTA take the elements in turn.
+template <typename T, typename ML, typename Acc>
+__device__ __forceinline__ void merge_parts(int parts, int dh, ML ml,
+                                            Acc acc, T* __restrict__ out,
+                                            float* __restrict__ lse) {
   float mx = NEG_INF;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[s].x);
+  for (int s = 0; s < parts; ++s) mx = fmaxf(mx, ml(s).x);
   for (int d = threadIdx.x; d < dh; d += blockDim.x) {
     float lsum = 0.f, a = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float2 f = ml[s];
+    for (int s = 0; s < parts; ++s) {
+      const float2 f = ml(s);
       if (f.y > 0.f) {
         const float w = exp2f(f.x - mx);
         lsum += f.y * w;
-        a += part_acc[(row * splits + s) * dh + d] * w;
+        a += acc(s, d) * w;
       }
     }
-    store_one(out + row * dh + d, lsum > 0.f ? a / lsum : 0.f);
+    store_one(out + d, lsum > 0.f ? a / lsum : 0.f);
+    if (lse != nullptr && d == 0) *lse = lse_of(mx, lsum);
   }
+}
+
+// The split-KV merge: one CTA per row, one thread per element of the
+// head dim; lse (one float per row) may be null.
+template <typename T>
+__global__ void split_merge_kernel(const float* __restrict__ part_acc,
+                                   const float2* __restrict__ part_ml,
+                                   T* __restrict__ out,
+                                   float* __restrict__ lse, int splits,
+                                   int dh) {
+  const int64_t row = blockIdx.x;
+  const float2* ml = part_ml + row * splits;
+  const float* acc = part_acc + row * splits * dh;
+  merge_parts(
+      splits, dh, [=](int s) { return ml[s]; },
+      [=](int s, int d) { return acc[s * dh + d]; }, out + row * dh,
+      lse == nullptr ? nullptr : lse + row);
 }
 
 template <typename T>
 cudaError_t launch_split_merge(const float* part_acc, const float2* part_ml,
-                               T* out, int rows, int splits, int dh,
-                               cudaStream_t stream) {
-  split_merge_kernel<T><<<rows, dh, 0, stream>>>(part_acc, part_ml, out,
+                               T* out, float* lse, int rows, int splits,
+                               int dh, cudaStream_t stream) {
+  split_merge_kernel<T><<<rows, dh, 0, stream>>>(part_acc, part_ml, out, lse,
                                                  splits, dh);
   return cudaGetLastError();
 }
@@ -318,9 +349,9 @@ __device__ __forceinline__ void decode_rows(DecodeState<T, DH, G>& st,
 // Merge the state over the RPW row groups of each warp (shuffles) and the
 // NWARPS warps of the CTA (shared memory, in a fixed order), then write
 // query rows row0 .. row0 + heads - 1: with one split the normalised
-// output (zeros for a row with no valid key), else this split's partial
-// (m, l, acc) in the layout split_merge_kernel reads.  Every thread
-// calls it.
+// output (zeros for a row with no valid key) and, where lse is not null,
+// each row's log-sum-exp (lse_of), else this split's partial (m, l, acc)
+// in the layout split_merge_kernel reads.  Every thread calls it.
 template <typename T, int DH, int G, int NWARPS>
 __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
                                            DecodeSmem<DH, G, NWARPS>& sm,
@@ -328,6 +359,7 @@ __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
                                            T* __restrict__ out,
                                            float* __restrict__ part_acc,
                                            float2* __restrict__ part_ml,
+                                           float* __restrict__ lse,
                                            int64_t row0, int split,
                                            int splits) {
   using L = DecodeLanes<T, DH>;
@@ -379,6 +411,7 @@ __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
     }
     if (splits == 1) {
       store_one(out + (row0 + g) * dh + d, lsum > 0.f ? a / lsum : 0.f);
+      if (lse != nullptr && d == 0) lse[row0 + g] = lse_of(mx, lsum);
     } else {
       const int64_t pr = (row0 + g) * splits + split;
       part_acc[pr * dh + d] = a;
@@ -387,17 +420,21 @@ __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
   }
 }
 
-// A range with no valid key: with one split, zeros into out; else (m, l)
-// = (NEG_INF, 0) and no accumulator, which the merge weighs as 0.
+// A range with no valid key: with one split, zeros into out (and NEG_INF
+// into lse, where it is not null); else (m, l) = (NEG_INF, 0) and no
+// accumulator, which the merge weighs as 0.
 template <typename T>
 __device__ __forceinline__ void decode_empty(int heads, int dh,
                                              T* __restrict__ out,
                                              float2* __restrict__ part_ml,
+                                             float* __restrict__ lse,
                                              int64_t row0, int split,
                                              int splits) {
   if (splits == 1) {
     for (int i = threadIdx.x; i < heads * dh; i += blockDim.x)
       store_one(out + row0 * dh + i, 0.f);
+    if (lse != nullptr && threadIdx.x < heads)
+      lse[row0 + threadIdx.x] = NEG_INF;
   } else if (threadIdx.x < heads) {
     part_ml[(row0 + threadIdx.x) * splits + split] = make_float2(NEG_INF, 0.f);
   }

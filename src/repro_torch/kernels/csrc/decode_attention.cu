@@ -16,10 +16,19 @@
 // uniform average there; ring decode never has such a live row, since
 // each step writes its token before it attends).
 //
+// With a log-sum-exp output (the wrapper's with_lse) each query row's
+// natural log-sum-exp of its scaled scores is written beside out, f32,
+// NEG_INF where the row has no valid slot: a sequence-sharded ring's ranks
+// attend over their own slots and combine the partial results by it
+// (attention_combine.cu).  The one-split CTA writes it, or the merge.
+//
 // Layouts are the model's, so nothing is transposed or padded:
 //   q, out (B, 1, Hkv*G, dh)
-//   k, v   (B, T, Hkv, dh)   element (b, t, h, d) at ((b*T + t)*Hkv + h)*dh + d
-//   kpos   (B, T) int32, q_pos (B,) int32
+//   k, v   (B, T, Hkv, dh)   element (b, t, h, d) at (b*T + t)*R + h*dh + d,
+//                            R = Hkv * dh, or a view's larger slot stride
+//                            (the KV heads a rank's query heads read, of a
+//                            ring that holds them all)
+//   kpos   (B, T) int32, q_pos (B,) int32, lse (B, Hkv*G) f32
 // dh is any multiple of 8 up to 128 and G any of 1, 2, 4-8, 12 and 16
 // (the split-KV core in common.cuh: dh runs on the 32, 64 or 128 wide
 // instantiation with idle tail lanes; G past 5 in chunks of at most 4).
@@ -78,8 +87,10 @@ struct RingArgs {
   const int32_t* kpos;
   const int32_t* q_pos;
   void* out;
+  float* lse;
   float* part_acc;
   float2* part_ml;
+  int64_t slot_stride;
   int batch, t_len, hkv, g, dh, splits, split_len, window;
   float scale_log2;
   cudaStream_t stream;
@@ -126,20 +137,21 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(RingArgs a) {
   __syncwarp();
 
   if (!__syncthreads_or(n > 0)) {         // no valid slot in the range
-    decode_empty(heads, a.dh, out, a.part_ml, row0, split, a.splits);
+    decode_empty(heads, a.dh, out, a.part_ml, a.lse, row0, split,
+                 a.splits);
     return;
   }
 
   DecodeState<T, DH, G> st;
   decode_begin(st, q, row0, heads, a.dh, a.scale_log2);
-  const int64_t rs = static_cast<int64_t>(a.hkv) * a.dh;  // a slot's stride
+  const int64_t rs = a.slot_stride;          // elements from slot to slot
   const int64_t base = static_cast<int64_t>(b) * a.t_len * rs
                        + static_cast<int64_t>(h) * a.dh;
   const int* wid = ids[warp];
   decode_rows(st, k + base, v + base, n, a.dh,
               [=](int j) { return wid[j] * rs; });
-  decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, row0, split,
-             a.splits);
+  decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, a.lse, row0,
+             split, a.splits);
 }
 
 template <typename T, int DH, int G>
@@ -150,7 +162,7 @@ struct RingLaunch {
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess && a.splits > 1)
       err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),
-                               a.batch * a.hkv * a.g, a.splits, a.dh,
+                               a.lse, a.batch * a.hkv * a.g, a.splits, a.dh,
                                a.stream);
     return static_cast<int>(err);
   }
@@ -163,10 +175,15 @@ struct RingLaunch {
 // (1 <= split_len <= 1024); with more than one, `scratch` holds
 // B * Hkv * G * splits * (dh + 2) floats: the partial accumulators, then
 // the (m, l) pairs.  Each CTA takes gc of a group's G query heads (the
-// last chunk what is left).  Returns the CUDA error of the launches (0 on
-// success), or -1 when the (dtype, dh, gc) combination has no
-// instantiation or the split is out of range.  The launches are
-// asynchronous on `stream` and allocate nothing.
+// last chunk what is left).  `lse`, where it is not null, receives each
+// query row's log-sum-exp of its scaled scores (natural log; NEG_INF for
+// a row with no valid slot), B * Hkv * G floats.  K and V step
+// `slot_stride` elements from slot to slot (Hkv * dh for a whole ring;
+// more for a view of some of a ring's KV heads) and slot_stride * T from
+// row to row.  Returns the CUDA error of the launches (0 on success), or
+// -1 when the (dtype, dh, gc) combination has no instantiation or the
+// split or the stride is out of range.  The launches are asynchronous on
+// `stream` and allocate nothing.
 extern "C" int decode_attention_launch(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* kpos, const void* q_pos,
@@ -174,22 +191,26 @@ extern "C" int decode_attention_launch(int dtype, const void* q,
                                        int hkv, int g, int dh, int window,
                                        float scale, void* stream,
                                        void* scratch, int split_len,
-                                       int gc) {
+                                       int gc, void* lse,
+                                       long long slot_stride) {
   if (t_len <= 0 || batch <= 0 || batch > 65535 || hkv <= 0 || g <= 0 ||
       gc <= 0 || gc > g ||
-      hkv * ((g + gc - 1) / gc) > 65535 || split_len <= 0 || split_len > SPLIT_MAX)
+      hkv * ((g + gc - 1) / gc) > 65535 || split_len <= 0 ||
+      split_len > SPLIT_MAX || slot_stride < static_cast<long long>(hkv) * dh)
     return -1;
   const int splits = (t_len + split_len - 1) / split_len;
   if (splits > 1 && scratch == nullptr) return -1;
   float* acc = static_cast<float*>(scratch);
   RingArgs a{q, k, v, static_cast<const int32_t*>(kpos),
-             static_cast<const int32_t*>(q_pos), out, acc,
+             static_cast<const int32_t*>(q_pos), out,
+             static_cast<float*>(lse), acc,
              splits > 1 ? reinterpret_cast<float2*>(
                               acc + static_cast<int64_t>(batch) * hkv * g *
                                         splits * dh)
                         : nullptr,
-             batch, t_len, hkv, g, dh, splits, split_len, window,
-             scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream)};
+             static_cast<int64_t>(slot_stride), batch, t_len, hkv, g, dh,
+             splits, split_len, window, scale * LOG2E,
+             static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_decode<RingLaunch, float>(dh, gc, a);
   if (dtype == 1) return dispatch_decode<RingLaunch, __nv_bfloat16>(dh, gc, a);
   return -1;

@@ -85,7 +85,7 @@
 
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
+// LOG2E: common.cuh
 
 // ---------------------------------------------------------------------------
 // D = rowsum(dO * O): one warp per row (b, i, h) of the (B, S, H, dh)

@@ -111,7 +111,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
   const int s0 = max(p0 * a.page, lo);
   const int s1 = min((p0 + a.pages_per_split) * a.page, hi);
   if (s0 >= s1) {                          // uniform across the CTA
-    decode_empty(heads, a.dh, out, a.part_ml, row0, split, a.splits);
+    decode_empty(heads, a.dh, out, a.part_ml, nullptr, row0, split,
+                 a.splits);
     return;
   }
 
@@ -138,8 +139,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
     const int t = w0 + j;
     return (static_cast<int64_t>(pid[t / page - pa]) * page + t % page) * rs;
   });
-  decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, row0, split,
-             a.splits);
+  decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, nullptr, row0,
+             split, a.splits);
 }
 
 template <typename T, int DH, int G>
@@ -150,8 +151,8 @@ struct PagedLaunch {
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess && a.splits > 1)
       err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),
-                               a.batch * a.hkv * a.g, a.splits, a.dh,
-                               a.stream);
+                               nullptr, a.batch * a.hkv * a.g, a.splits,
+                               a.dh, a.stream);
     return static_cast<int>(err);
   }
 };

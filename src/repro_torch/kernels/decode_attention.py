@@ -69,10 +69,13 @@ def decode_splits(b: int, hkv: int, t: int) -> tuple[int, int]:
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kpos: torch.Tensor, q_pos: torch.Tensor, *,
-                           window: int = -1) -> torch.Tensor:
+                           window: int = -1, with_lse: bool = False):
     """``repro/kernels/ref.py:33-44`` in model layout: q (B, 1, H, dh);
     k, v (B, T, Hkv, dh); kpos (B, T) int32; q_pos (B,) int32.  Returns
-    (B, 1, H, dh)."""
+    (B, 1, H, dh); with ``with_lse`` the pair (out, lse), lse (B, H) f32
+    the natural log-sum-exp of each row's scaled scores over its valid
+    slots, and a row with no valid slot gives out = 0 and lse = NEG_INF
+    (as the kernel), not the uniform average of an all-masked softmax."""
     b, _, h, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, hkv, h // hkv, dh).float()
@@ -85,7 +88,12 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgt,bthd->bhgd", p, v.float())
-    return out.reshape(b, 1, h, dh).to(q.dtype)
+    if not with_lse:
+        return out.reshape(b, 1, h, dh).to(q.dtype)
+    live = valid.any(-1)[:, None, None]                  # (B, 1, 1)
+    lse = torch.where(live, torch.logsumexp(scores, dim=-1), NEG_INF)
+    out = torch.where(live[..., None], out, 0.0)
+    return out.reshape(b, 1, h, dh).to(q.dtype), lse.reshape(b, h)
 
 
 def _check(q, k, v, kpos, q_pos) -> None:
@@ -114,17 +122,34 @@ def _check(q, k, v, kpos, q_pos) -> None:
         raise ValueError(f"inputs span devices {sorted(map(str, devs))}")
 
 
-def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
+def slot_stride(k: torch.Tensor) -> int:
+    """Elements from slot to slot of a ring (B, T, Hkv, dh) the kernel
+    reads in place: a contiguous ring, or a view of some of its KV heads
+    (dh-contiguous heads, rows T slots apart); else ``ValueError``."""
+    b, t, hkv, dh = k.shape
+    rs = k.stride(1) if t > 1 else k.stride(0) if b > 1 else hkv * dh
+    if (k.stride(3) != 1 or (hkv > 1 and k.stride(2) != dh)
+            or rs < hkv * dh or (b > 1 and k.stride(0) != t * rs)):
+        raise ValueError(f"a ring must be contiguous or a view of some of "
+                         f"a contiguous ring's KV heads, got strides "
+                         f"{k.stride()} at shape {tuple(k.shape)}")
+    return rs
+
+
+def _launch(q, k, v, kpos, q_pos, window: int, with_lse: bool):
     from repro_torch.kernels import build
 
     b, _, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     check_attention_shape(q.dtype, dh, g)
+    rs = slot_stride(k)
+    if slot_stride(v) != rs:
+        raise ValueError("k and v must be laid out alike")
     # K/V rows are read 16 bytes a lane; kpos and q_pos one int at a time
     for name, x, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
                            ("kpos", kpos, 4), ("q_pos", q_pos, 4)):
-        if not x.is_contiguous():
+        if name not in ("k", "v") and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
@@ -134,9 +159,12 @@ def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_longlong])
     splits, split_len = decode_splits(b, hkv, t)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     # per (query row, split): the partial accumulator, then (m, l)
     scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
@@ -145,18 +173,23 @@ def _launch(q, k, v, kpos, q_pos, window: int) -> torch.Tensor:
              kpos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, t, hkv, g,
              dh, int(window), 1.0 / math.sqrt(dh), stream,
              None if scratch is None else scratch.data_ptr(), split_len,
-             group_chunk(g))
+             group_chunk(g), None if lse is None else lse.data_ptr(), rs)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: error {err}")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kpos: torch.Tensor, q_pos: torch.Tensor, *,
-                     window: int = -1) -> torch.Tensor:
-    """Model layout: q (B, 1, H, dh); k, v (B, T, Hkv, dh); kpos (B, T)
-    int32, -1 = empty; q_pos (B,) int32.  Returns (B, 1, H, dh).
+                     window: int = -1, with_lse: bool = False):
+    """Model layout: q (B, 1, H, dh); k, v (B, T, Hkv, dh), contiguous or
+    a view of some of a ring's KV heads; kpos (B, T) int32, -1 = empty;
+    q_pos (B,) int32.  Returns (B, 1, H, dh); with ``with_lse`` the pair
+    (out, lse), lse (B, H) f32 each query row's natural log-sum-exp of
+    its scaled scores (``flash_attention``'s units), and a row with no
+    valid slot gives out = 0 and lse = NEG_INF: what a rank of a
+    sequence-sharded ring gives ``attention_combine``.
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
     the plain version.  ``decode_attention.launches`` counts the calls
@@ -164,11 +197,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the merge kernel after it)."""
     _check(q, k, v, kpos, q_pos)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kpos, q_pos, window=window)
+        return decode_attention_plain(q, k, v, kpos, q_pos, window=window,
+                                      with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no decode_attention for device {q.device}")
     refuse_grad("decode_attention", q, k, v)
-    return _launch(q, k, v, kpos, q_pos, window)
+    return _launch(q, k, v, kpos, q_pos, window, with_lse)
 
 
 decode_attention.launches = 0

@@ -198,8 +198,7 @@ def cell_record(arch: str, shape_name: str, mesh, mesh_name: str) -> dict:
                   {k: v for k, v in ins.items() if k != "cache"},
                   {k: v for k, v in ins_specs.items() if k != "cache"},
                   mesh)}
-        refuse = _refusal(lambda: check_serve(cfg, mesh, ins_specs["cache"],
-                                              shape.global_batch))
+        refuse = _refusal(lambda: check_serve(cfg, mesh, ins_specs["cache"]))
     by["total"] = sum(by.values())
     rec["bytes_per_device"] = by
     rec["fits_h100_80gb"] = by["total"] <= H100_BYTES

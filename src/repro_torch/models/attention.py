@@ -30,7 +30,18 @@ grad, whose backward kernel takes the non-causal case too.
 
 On a mesh whose model axis cuts the heads (TP), ``qkv_project`` and
 ``out_project`` are where the shards meet: each rank projects its own
-heads and the output projection's partial sums are reduced.
+heads and the output projection's partial sums are reduced.  A ring whose
+KV heads the cache spec keeps whole gets every KV head of the new tokens,
+and each rank's query heads read theirs (``local_kv_heads``).
+
+A serve step's cache spec may cut a ring's sequence axis
+(``parallel.ring_shard``: the GQA fallback over ``model``, ``long_*``
+over ``data``); ``kpos`` stays whole.  Each rank then writes the tokens
+whose slots fall in its range (``cache_write_range``), prefill attends
+over the prompt as before, and decode (``attend_range``) attends over
+the rank's slots alone, with the query heads of the whole model axis
+where the ring is cut over it, and combines the ranks' partial softmaxes
+by their log-sum-exps (``kernels.attention_combine``).
 
 JAX updates caches functionally and donates the old buffers; here ring
 and pool are updated in place (``index_put_``) and the same tensors are
@@ -45,7 +56,8 @@ import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.distributed import parallel
-from repro_torch.kernels import (decode_attention, flash_attention,
+from repro_torch.kernels import (attention_combine, attention_combine_plain,
+                                 decode_attention, flash_attention,
                                  paged_decode_attention)
 from repro_torch.models.layers import apply_rope
 from repro_torch.models import params as prm
@@ -199,10 +211,14 @@ def kv_cache_size(spec: BlockSpec, max_context: int, chunk: int) -> int:
 
 
 def init_kv_cache(batch: int, size: int, hkv: int, dh: int,
-                  dtype: torch.dtype, device: torch.device) -> KVCache:
+                  dtype: torch.dtype, device: torch.device,
+                  slots: Optional[int] = None) -> KVCache:
+    """An empty ring of ``size`` slots; K and V hold ``slots`` of them
+    where given (a rank's range of a sequence-sharded ring)."""
+    n = size if slots is None else slots
     return KVCache(
-        k=torch.zeros((batch, size, hkv, dh), dtype=dtype, device=device),
-        v=torch.zeros((batch, size, hkv, dh), dtype=dtype, device=device),
+        k=torch.zeros((batch, n, hkv, dh), dtype=dtype, device=device),
+        v=torch.zeros((batch, n, hkv, dh), dtype=dtype, device=device),
         kpos=torch.full((batch, size), -1, dtype=torch.int32, device=device))
 
 
@@ -269,6 +285,86 @@ def attention_cached(q: torch.Tensor, cache: KVCache, q_pos: torch.Tensor, *,
     out = attn_core(qg, cache.k, cache.v,
                     _cached_mask(cache.kpos, q_pos, window))
     return out.reshape(b, sq, h, dh)
+
+
+def attention_cached_lse(q: torch.Tensor, cache: KVCache,
+                         q_pos: torch.Tensor, *, window: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_cached`` over the slots of ``cache`` alone (one rank's
+    range of a sequence-sharded ring), with each query row's natural
+    log-sum-exp of its scaled scores: (out (B,Sq,H,dh), lse (B,Sq,H)
+    f32).  A row with no valid slot gives zeros and NEG_INF, which
+    ``attention_combine`` weighs 0."""
+    b, sq, h, dh = q.shape
+    hkv = cache.k.shape[2]
+    mask = _cached_mask(cache.kpos, q_pos, window)       # (B,1,1,Sq,T)
+    scores = torch.einsum("bqhgd,bthd->bhgqt", _group(q, hkv).float(),
+                          cache.k.float()) * (1.0 / math.sqrt(dh))
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqt,bthd->bqhgd", probs.to(cache.v.dtype), cache.v)
+    live = mask.any(-1)                                  # (B,1,1,Sq)
+    lse = torch.where(live, torch.logsumexp(scores, dim=-1), NEG_INF)
+    out = torch.where(live.permute(0, 3, 1, 2)[..., None], out, 0.0)
+    return (out.reshape(b, sq, h, dh).to(q.dtype),
+            lse.permute(0, 3, 1, 2).reshape(b, sq, h))
+
+
+def cache_write_range(cache: KVCache, k_new: torch.Tensor,
+                      v_new: torch.Tensor, start_pos: torch.Tensor,
+                      shard: parallel.RingShard,
+                      live: Optional[torch.Tensor] = None) -> KVCache:
+    """``cache_write`` on this rank's slots [lo, lo + local) of a ring of
+    ``total`` slots cut along its sequence axis, in place: each token's
+    global slot is ``pos % total``, and the rank writes the tokens whose
+    slot is in its range at ``slot - lo``.  ``kpos`` is whole on every
+    rank and written as the unsharded ring's.
+
+    One token a row (decode) scatters to one slot a row, so no index
+    repeats; a row whose token another rank holds (or outside ``live``)
+    writes back what its slot held.  Several tokens a row (prefill) may
+    outnumber the range, so the rank instead merges its whole range once:
+    slot j takes token ``(lo + j - start) % total`` where that is one of
+    the new tokens, and keeps its content elsewhere."""
+    b, s_new = k_new.shape[:2]
+    size, lo, n = shard.total, shard.lo, shard.local
+    start = start_pos.long()
+    if s_new > size:
+        k_new = k_new[:, s_new - size:]
+        v_new = v_new[:, s_new - size:]
+        start = start + (s_new - size)
+        s_new = size
+    dev = start.device
+    pos = start[:, None] + torch.arange(s_new, device=dev)[None, :]
+    slots = torch.remainder(pos, size)
+    bidx = torch.arange(b, device=dev)[:, None].expand(b, s_new)
+    kp = pos.to(torch.int32)
+    if live is not None:
+        kp = torch.where(~live[:, None], cache.kpos[bidx, slots], kp)
+    cache.kpos.index_put_((bidx, slots), kp)
+    k_new, v_new = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+    if s_new == 1:
+        mine = (slots >= lo) & (slots < lo + n)
+        if live is not None:
+            mine &= live[:, None]
+        j = torch.where(mine, slots - lo, 0)
+        keep = ~mine[..., None, None]
+        cache.k.index_put_((bidx, j), torch.where(keep, cache.k[bidx, j],
+                                                  k_new))
+        cache.v.index_put_((bidx, j), torch.where(keep, cache.v[bidx, j],
+                                                  v_new))
+        return cache
+    t = torch.remainder(lo + torch.arange(n, device=dev)[None, :]
+                        - start[:, None], size)            # (B, local)
+    take = t < s_new
+    if live is not None:
+        take &= live[:, None]
+    src = t.clamp(max=s_new - 1)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, n)
+    take = take[..., None, None]
+    cache.k.copy_(torch.where(take, k_new[rows, src], cache.k))
+    cache.v.copy_(torch.where(take, v_new[rows, src], cache.v))
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -369,17 +465,70 @@ def self_attention_cached(params: dict, x: torch.Tensor, cache: KVCache,
     """Write this block of tokens into the ring, then attend.  Decode
     (Sq = 1) with ``cfg.use_pallas`` runs the ring decode kernel over the
     ring and its ``kpos``.  Rows outside ``live`` (B,) bool leave their
-    ring untouched (``cache_write``)."""
-    q, k, v = qkv_project(params, x, cfg, positions)
+    ring untouched (``cache_write``).  A ring whose sequence axis the
+    step's cache spec cuts goes through ``cache_write_range`` and
+    ``attend_range``."""
+    q, k, v = qkv_project(params, x, cfg, positions,
+                          all_kv=_holds_all_kv(cache, cfg))
     pos1 = _pos1d(positions)
+    shard = parallel.ring_shard(cache.k, cache.kpos)
+    if shard is not None:
+        cache = cache_write_range(cache, k, v, pos1[:, 0], shard, live)
+        out = attend_range(params, q, cache, pos1, cfg, spec, shard)
+        return out_project(params, out, cfg), cache
     cache = cache_write(cache, k, v, pos1[:, 0], live)
+    kc, vc = _read_kv(params, cfg, cache.k), _read_kv(params, cfg, cache.v)
     if cfg.use_pallas and q.shape[1] == 1:
-        out = decode_attention(q, cache.k, cache.v, cache.kpos,
+        out = decode_attention(q, kc, vc, cache.kpos,
                                pos1[:, 0].contiguous(), window=spec.window)
     else:
-        out = attention_cached(q, cache, pos1, window=spec.window,
-                               chunk=cfg.attn_chunk)
+        out = attention_cached(q, KVCache(kc, vc, cache.kpos), pos1,
+                               window=spec.window, chunk=cfg.attn_chunk)
     return out_project(params, out, cfg), cache
+
+
+def attend_range(params: dict, q: torch.Tensor, cache: KVCache,
+                 pos1: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
+                 shard: parallel.RingShard) -> torch.Tensor:
+    """Attention of this rank's query heads q (B,Sq,H,dh) over a ring cut
+    along its sequence axis: every rank of the ring's group attends over
+    its own slots, with the query heads of the whole model axis where
+    the ring is cut over it (they are gathered; the cache then holds
+    every KV head), the partial outputs and log-sum-exps are gathered
+    over the group and combined, and this rank keeps its own heads.
+    With ``cfg.use_pallas`` a decode step runs ``decode_attention`` with
+    its log-sum-exp and the combine kernel; else the plain versions.
+    The partials are gathered and combined in f32."""
+    b, sq, h, dh = q.shape
+    q_off = prm.tp(params["wq"], -2, cfg.n_heads)
+    gather_q = q_off is not None and "model" in parallel.entry_axes(
+        shard.entry)
+    if gather_q:
+        # gathered in f32 (exact for bf16), as every serving gather here
+        q = parallel.gather_cat(q.float(), 2,
+                                parallel.current().model).to(q.dtype)
+        k, v = cache.k, cache.v
+    else:
+        k, v = _read_kv(params, cfg, cache.k), _read_kv(params, cfg, cache.v)
+    kpos = cache.kpos[:, shard.lo:shard.lo + shard.local].contiguous()
+    if cfg.use_pallas and sq == 1:
+        out, lse = decode_attention(q.contiguous(), k, v, kpos,
+                                    pos1[:, 0].contiguous(),
+                                    window=spec.window, with_lse=True)
+        lse = lse[:, None]
+    else:
+        out, lse = attention_cached_lse(q, KVCache(k, v, kpos), pos1,
+                                        window=spec.window)
+    outs = parallel.all_gather(out.float(), shard.group)
+    lses = parallel.all_gather(lse, shard.group)
+    if gather_q:
+        outs = outs[:, :, :, q_off:q_off + h]
+        lses = lses[:, :, :, q_off:q_off + h]
+    combine = attention_combine if cfg.use_pallas else \
+        attention_combine_plain
+    out = combine(outs.reshape(shard.n, b * sq, h, dh),
+                  lses.reshape(shard.n, b * sq, h))
+    return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
 def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
@@ -387,17 +536,44 @@ def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
                            positions: torch.Tensor
                            ) -> tuple[torch.Tensor, KVCache]:
     """One-shot prefill from position 0: causal (windowed) attention over
-    the prompt itself, then the surviving tail written into the ring.
-    With ``cfg.use_pallas`` the attention is the flash kernel."""
-    q, k, v = qkv_project(params, x, cfg, positions)
+    the prompt itself, then the surviving tail written into the ring (a
+    rank's range of it, where the step's cache spec cuts its sequence
+    axis).  With ``cfg.use_pallas`` the attention is the flash kernel."""
+    q, k, v = qkv_project(params, x, cfg, positions,
+                          all_kv=_holds_all_kv(cache, cfg))
+    ka, va = _read_kv(params, cfg, k), _read_kv(params, cfg, v)
     if cfg.use_pallas:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=spec.window)
+        out = flash_attention(q.contiguous(), ka.contiguous(),
+                              va.contiguous(), causal=True,
+                              window=spec.window)
     else:
-        out = attention_full(q, k, v, window=spec.window,
+        out = attention_full(q, ka, va, window=spec.window,
                              chunk=cfg.attn_chunk)
-    cache = cache_write(cache, k, v, _pos1d(positions)[:, 0])
+    start = _pos1d(positions)[:, 0]
+    shard = parallel.ring_shard(cache.k, cache.kpos)
+    if shard is None:
+        cache = cache_write(cache, k, v, start)
+    else:
+        cache = cache_write_range(cache, k, v, start, shard)
     return out_project(params, out, cfg), cache
+
+
+def _holds_all_kv(cache: KVCache, cfg: ModelConfig) -> bool:
+    """Whether the ring holds every KV head (the cache spec keeps them
+    whole, also where the model axis cuts the query heads)."""
+    return cache.k.shape[-2] == cfg.n_kv_heads
+
+
+def _read_kv(params: dict, cfg: ModelConfig, t: torch.Tensor
+             ) -> torch.Tensor:
+    """The KV heads of ``t`` (B, T, Hkv, dh) that this rank's query heads
+    read: ``t`` itself, or a view of ``local_kv_heads`` of it where ``t``
+    holds every KV head while the model axis cuts the query heads."""
+    q_off = prm.tp(params["wq"], -2, cfg.n_heads)
+    if q_off is None or t.shape[-2] != cfg.n_kv_heads:
+        return t
+    k0, k1 = local_kv_heads(cfg, q_off, params["wq"].shape[-2])
+    return t[..., k0:k1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +582,14 @@ def self_attention_prefill(params: dict, x: torch.Tensor, cache: KVCache,
 
 
 def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, rope: bool = True):
+                positions: torch.Tensor, rope: bool = True,
+                all_kv: bool = False):
     """q, k, v of ``x``.  On a mesh whose model axis cuts the heads (TP)
     they are this rank's heads: ``x`` (and the qk-norm scales) enter the
     region through ``copy_to``, and where the rules replicate the KV heads
     (fewer than the model axis) this rank takes the KV heads its query
-    heads read, their weights through ``copy_to`` too."""
+    heads read, their weights through ``copy_to`` too, or every KV head
+    with ``all_kv`` (for a ring that holds them all)."""
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     q_scale, k_scale = params.get("q_scale"), params.get("k_scale")
     q_off = prm.tp(wq, -2, cfg.n_heads)
@@ -422,7 +600,8 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
             q_scale = parallel.copy_to(q_scale, model)
             k_scale = parallel.copy_to(k_scale, model)
         if prm.tp(wk, -2, cfg.n_kv_heads) is None:
-            k0, k1 = local_kv_heads(cfg, q_off, wq.shape[-2])
+            k0, k1 = (0, cfg.n_kv_heads) if all_kv else local_kv_heads(
+                cfg, q_off, wq.shape[-2])
             wk = parallel.copy_to(wk, model)[..., k0:k1, :]
             wv = parallel.copy_to(wv, model)[..., k0:k1, :]
     q = torch.einsum("bsd,dhk->bshk", x, wq)

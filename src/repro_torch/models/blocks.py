@@ -83,10 +83,12 @@ def block_defs(cfg: ModelConfig, spec: BlockSpec) -> dict:
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
                      max_context: int, dtype: torch.dtype,
                      device: torch.device, stack: tuple[int, ...] = (),
-                     enc_len: int = 0) -> dict:
+                     enc_len: int = 0, ring_slots=None) -> dict:
     """Ring decode state for a stack of layers of one block kind: rings
     of shape ``stack + (batch, size, Hkv, dh)`` and ``kpos`` of ``stack +
-    (batch, size)``, ``size`` from ``kv_cache_size``; a hymba layer adds
+    (batch, size)``, ``size`` from ``kv_cache_size`` (the rings
+    ``ring_slots(size)`` slots where that is given: a rank's range of a
+    sequence-sharded ring); a hymba layer adds
     its ``SSMState`` (``stack + (batch, nh, ds, 64)`` f32 and ``stack +
     (batch, 3, d_inner)``), a decoder block with cross attention the
     ``CrossKV`` of ``enc_len`` encoder positions.  An mLSTM layer holds
@@ -105,8 +107,9 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
     if spec.kind == "slstm":
         return {"s": stacked(ssm.init_slstm_state(batch, cfg, device))}
     size = kv_cache_size(spec, max_context, cfg.attn_chunk)
+    slots = size if ring_slots is None else ring_slots(size)
     cache = {"kv": stacked(init_kv_cache(batch, size, cfg.n_kv_heads,
-                                         cfg.d_head, dtype, device))}
+                                         cfg.d_head, dtype, device, slots))}
     if spec.kind == "hymba":
         cache["ssm"] = stacked(ssm.init_ssm_state(batch, cfg, dtype, device))
     if spec.cross_attention:

@@ -172,7 +172,7 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """
     b, s, d = x.shape
     ctx = parallel.current()
-    world = ctx.batch_world if ctx is not None else 1
+    world = ctx.row_world if ctx is not None else 1
     if s >= GROUPWISE_MIN_TOKENS and b * world > 1:
         rows = [_moe_tokens(params, x[i], cfg, with_stats) for i in range(b)]
         y = torch.stack([r[0] for r in rows])
@@ -182,13 +182,13 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
         elif with_stats:
             # the mean over the global batch's rows
             aux = parallel.reduce_from(torch.stack([r[1] for r in rows])
-                                       .sum(), ctx.batch) / (b * world)
+                                       .sum(), ctx.rows) / (b * world)
             dropped = parallel.all_reduce(torch.stack(
-                [r[2] for r in rows]).sum(), ctx.batch) / (b * world)
+                [r[2] for r in rows]).sum(), ctx.rows) / (b * world)
     else:
         yt, aux, dropped = _moe_tokens(
             params, x.reshape(b * s, d), cfg, with_stats,
-            ctx.batch if world > 1 else None)
+            ctx.rows if world > 1 else None)
         y = yt.reshape(b, s, d)
 
     # --- shared experts (always-on) ------------------------------------------

@@ -352,14 +352,18 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
 
 def init_cache(cfg: ModelConfig, batch: int, max_context: int,
                layout: str = "ring", num_pages: int = 0,
-               page_size: int = 128, device=None, enc_len: int = 0) -> dict:
+               page_size: int = 128, device=None, enc_len: int = 0,
+               ring_slots=None) -> dict:
     """Decode state, stacked per segment element, plus the per-slot next
     position ``pos``.  ``layout="ring"`` (default) builds slot-contiguous
     rings (``batch`` rows, ``kv_cache_size`` slots per layer);
     ``layout="paged"`` one shared page pool per layer sized by the
     allocator's ``num_pages``, where ``max_context`` only bounds the
     block tables the engine passes.  An encoder-decoder model's ring
-    cache holds the cross K/V of ``enc_len`` encoder positions."""
+    cache holds the cross K/V of ``enc_len`` encoder positions.
+    ``ring_slots(size)``, where given, is the K/V slots a rank holds of
+    a ring of ``size`` (a serve step's sequence-sharded ring; its
+    ``kpos`` keeps all ``size``)."""
     if layout not in ("ring", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     if layout == "paged" and num_pages <= 0:
@@ -372,7 +376,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_context: int,
             return init_paged_block_cache(cfg, spec, num_pages, page_size,
                                           dtype, dev, stack)
         return init_block_cache(cfg, spec, batch, max_context, dtype, dev,
-                                stack, enc_len)
+                                stack, enc_len, ring_slots)
 
     segments = [{f"e{j}": one(spec, _stack_dims(seg, n))
                  for j, (spec, n) in enumerate(seg.pattern)}

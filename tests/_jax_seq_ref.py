@@ -1,0 +1,110 @@
+"""The JAX package's own serve steps over a sequence-sharded ring cache,
+on a forced four-device CPU mesh: the reference the port's gloo ranks
+are held to (``tests/test_torch_launch.py``).
+
+Run as a script, in a process of its own, since the device count is
+fixed when JAX starts:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
+        PYTHONPATH=src python tests/_jax_seq_ref.py OUT.pkl
+
+It writes a pickle of numpy values: tiny-agent's f32 weights (seed 0,
+the attention projections at their true fan-in as the port's
+``rescale_to_true_fan_in`` sets them, ROADMAP §C, reference fault 5),
+and for each case (``CASES``) the prompt, the greedy tokens fed and the
+logits of the prefill and of every decode step.  ``(1, 4)``: tiny-agent's
+2 KV heads do not divide the model axis, so ``cache_pspecs`` cuts the
+ring's sequence over ``model`` (the GQA fallback).  ``(2, 1)``: a
+``long_*`` decode shape, a batch of one, so the ring's sequence is cut
+over ``data`` (``shard_seq``); its prefill step has no such layout, so
+the prefill's cache is put to the decode step's shardings first.
+"""
+from __future__ import annotations
+
+import pickle
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import NamedSharding
+
+from repro import models
+from repro.configs import get_config
+from repro.configs.base import ShapeConfig
+from repro.launch import specs as specs_mod
+from repro.launch.mesh import make_mesh
+from repro.launch.serve import make_prefill_step, make_serve_step
+
+# (mesh shape, decode shape name, batch, prompt, decode steps)
+CASES = {"gqa": ((1, 4), "d", 2, 40, 6),
+         "long": ((2, 1), "long_d", 1, 140, 6)}
+
+
+def prompt(case: str, vocab: int) -> np.ndarray:
+    _, _, b, s, _ = CASES[case]
+    return np.random.default_rng(7).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+def run(cfg, tree, case: str) -> dict:
+    mesh_shape, name, b, s, steps = CASES[case]
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    toks = prompt(case, cfg.vocab)
+    d_shape = ShapeConfig(name, s, b, "decode")
+
+    def put(x, spec):
+        return jax.tree.map(
+            lambda a, p: jax.device_put(a, NamedSharding(mesh, p)), x, spec)
+
+    with jax.set_mesh(mesh):
+        pre, pspecs = make_prefill_step(cfg, mesh,
+                                        ShapeConfig("p", s, b, "prefill"))
+        dec, dspecs = make_serve_step(cfg, mesh, d_shape)
+        params = put(tree, pspecs["params"])
+        cache = models.init_cache(cfg, b, specs_mod.decode_context(d_shape))
+        logits, cache = pre(params, put(toks, pspecs["batch"]),
+                            put(cache, pspecs["cache"]))
+        # the decode step's layout: for ``long_*`` the ring's sequence is
+        # cut over ``data``, which the prefill's spec does not do
+        cache = put(cache, dspecs["cache"])
+        out, fed = [np.asarray(logits)], []
+        for _ in range(steps):
+            nxt = np.asarray(out[-1]).argmax(-1)[:, None].astype(np.int32)
+            fed.append(nxt)
+            logits, cache = dec(params, put(nxt, dspecs["batch"]), cache)
+            out.append(np.asarray(logits))
+    return {"name": name, "batch": b, "prompt": toks, "fed": fed,
+            "logits": out,
+            "cache_spec": repr(dspecs["cache"]["segments"][0]["e0"]["kv"])}
+
+
+def true_fan_in(tree):
+    """The weights with wq, wk and wv (..., d, heads, dh) drawn at
+    1/sqrt(d) and wo (..., heads, dh, d) at 1/sqrt(heads * dh)."""
+    if isinstance(tree, list):
+        return [true_fan_in(x) for x in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for key, x in tree.items():
+        if key in ("wq", "wk", "wv"):
+            x = x * np.float32(np.sqrt(x.shape[-2] / x.shape[-3]))
+        elif key == "wo":
+            x = x * np.float32(np.sqrt(1 / x.shape[-3]))
+        out[key] = true_fan_in(x)
+    return out
+
+
+def main(path: str) -> None:
+    cfg = get_config("tiny-agent").replace(dtype="float32")
+    tree = true_fan_in(jax.device_get(models.init(cfg, jax.random.key(0))))
+    out = {"weights": tree}
+    for case in CASES:
+        out[case] = run(cfg, tree, case)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

@@ -14,6 +14,7 @@ rank starts in seconds.
 from __future__ import annotations
 
 import json
+import pickle
 import traceback
 from pathlib import Path
 
@@ -44,9 +45,13 @@ def tiny():
 # every config a check names, at its CPU size in f32
 CONFIGS = {
     "tiny": tiny,
-    # one KV head: it replicates over a model axis of 2 (the serve path
-    # refuses its cache; training slices the KV head each rank reads)
+    # one KV head: it replicates over a model axis of 2 (the serve cache
+    # cuts its ring's sequence over the model axis, the GQA fallback, or
+    # keeps it whole where the ring does not split; training slices the
+    # KV head each rank reads)
     "tiny-kv1": lambda: tiny().replace(n_kv_heads=1),
+    # sliding window 16 on every layer: a 24-slot ring the prompt wraps
+    "danube": lambda: f32(get_smoke("h2o-danube-3-4b")),
     "arctic": lambda: f32(get_smoke("arctic-480b")),
     "kimi": lambda: f32(get_smoke("kimi-k2-1t-a32b")),
     "hymba": lambda: f32(get_smoke("hymba-1.5b")),
@@ -120,24 +125,35 @@ def train_check(ctx, cfg, b: int, s: int, int8: bool, microbatch: int = 1,
 
 
 def serve_check(ctx, cfg, b: int, prompt: int, new: int,
-                use_pallas: bool = False) -> dict:
+                use_pallas: bool = False, long: bool = False) -> dict:
     """Prefill then ``new`` greedy decode steps through the launch steps on
     the mesh, against ``transformer.prefill`` / ``decode_step`` on one
-    device: the rank's rows' logits and greedy tokens."""
+    device: the rank's rows' logits and greedy tokens, the local cache's
+    KV heads and ring slots (of the first layer) and the ring's global
+    slots.  ``long`` names the decode shape ``long_*``, whose cache cuts
+    the ring's sequence over ``data`` (``shard_seq``): the prefill then
+    runs on one device and ``cut_cache`` gives the step its shard, as
+    the reference's prefill step has no such layout."""
     cfg = cfg.replace(use_pallas=use_pallas)
     full = _params(cfg)
     toks = _batch(cfg, b, prompt)["tokens"]
     shape_p = ShapeConfig("p", prompt, b, "prefill")
-    shape_d = ShapeConfig("d", prompt, b, "decode")
-    pre, specs = serve_mod.make_prefill_step(cfg, ctx, shape_p)
+    shape_d = ShapeConfig("long_d" if long else "d", prompt, b, "decode")
     dec, dspecs = serve_mod.make_serve_step(cfg, ctx, shape_d)
-    params = parallel.shard_tree(full, specs["params"], ctx)
-    cache = serve_mod.init_cache(cfg, ctx, shape_d)
+    params = parallel.shard_tree(full, dspecs["params"], ctx)
     ref_cache = models.init_cache(cfg, b, prompt + 128, device="cpu")
-    rows = serve_mod.local_rows(torch.arange(b), ctx)
+    rows = serve_mod.local_rows(torch.arange(b), ctx, dspecs["batch"])
     with torch.no_grad():
-        logits, cache = pre(params, toks, cache)
         ref, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+        if long:
+            whole = models.init_cache(cfg, b, prompt + 128, device="cpu")
+            logits, whole = models.prefill(full, cfg, toks, whole)
+            logits = logits[rows]
+            cache = serve_mod.cut_cache(whole, cfg, ctx, shape_d)
+        else:
+            pre, _ = serve_mod.make_prefill_step(cfg, ctx, shape_p)
+            cache = serve_mod.init_cache(cfg, ctx, shape_d)
+            logits, cache = pre(params, toks, cache)
         diffs = [float((logits - ref[rows]).abs().max())]
         got, want = [logits.argmax(-1)], [ref[rows].argmax(-1)]
         nxt, ref_nxt = torch.zeros((b, 1), dtype=torch.long), None
@@ -149,10 +165,51 @@ def serve_check(ctx, cfg, b: int, prompt: int, new: int,
             diffs.append(float((logits - ref[rows]).abs().max()))
             got.append(logits.argmax(-1))
             want.append(ref[rows].argmax(-1))
+    kv = cache["segments"][0]["e0"]["kv"]
     return {"logits": max(diffs), "tokens_equal":
             bool(all(torch.equal(x, y) for x, y in zip(got, want))),
             "tokens": int(sum(x.numel() for x in got)),
-            "kv_heads": int(cache["segments"][0]["e0"]["kv"].k.shape[-2])}
+            "kv_heads": int(kv.k.shape[-2]), "slots": int(kv.k.shape[-3]),
+            "ring": int(kv.kpos.shape[-1])}
+
+
+def jax_ref_check(ctx, case: str) -> dict:
+    """The sharded serve steps on tiny-agent's weights from the JAX
+    package, fed the greedy tokens of the JAX package's own serve steps
+    on the same mesh over a sequence-sharded ring (``_jax_seq_ref.py``,
+    run by the test into this spawn's directory): the largest |logits -
+    JAX logits| over the prefill and every decode step."""
+    with open(Path(RUN_DIR, "jax_seq_ref.pkl"), "rb") as f:
+        ref = pickle.load(f)
+    cfg = tiny()
+    r = ref[case]
+    b, s = r["batch"], r["prompt"].shape[1]
+    full = prm.from_jax(cfg, ref["weights"], device="cpu")
+    shape_d = ShapeConfig(r["name"], s, b, "decode")
+    dec, dspecs = serve_mod.make_serve_step(cfg, ctx, shape_d)
+    params = parallel.shard_tree(full, dspecs["params"], ctx)
+    rows = serve_mod.local_rows(torch.arange(b), ctx, dspecs["batch"])
+    toks = torch.from_numpy(r["prompt"]).long()
+    with torch.no_grad():
+        if r["name"].startswith("long"):
+            whole = models.init_cache(cfg, b, s + 128, device="cpu")
+            logits, whole = models.prefill(full, cfg, toks, whole)
+            logits = logits[rows]
+            cache = serve_mod.cut_cache(whole, cfg, ctx, shape_d)
+        else:
+            pre, _ = serve_mod.make_prefill_step(
+                cfg, ctx, ShapeConfig("p", s, b, "prefill"))
+            cache = serve_mod.init_cache(cfg, ctx, shape_d)
+            logits, cache = pre(params, toks, cache)
+        diffs = [float((logits - torch.from_numpy(r["logits"][0])[rows])
+                       .abs().max())]
+        for fed, want in zip(r["fed"], r["logits"][1:]):
+            logits, cache = dec(params, torch.from_numpy(fed).long(), cache)
+            diffs.append(float((logits - torch.from_numpy(want)[rows])
+                               .abs().max()))
+    kv = cache["segments"][0]["e0"]["kv"]
+    return {"logits": max(diffs), "steps": len(r["fed"]),
+            "slots": int(kv.k.shape[-3]), "ring": int(kv.kpos.shape[-1])}
 
 
 def dispatch_check(ctx, cfg, b: int, s: int) -> dict:
@@ -190,12 +247,6 @@ def refusal_check(ctx, what: str) -> dict:
         if what == "tp-hybrid":
             make_train_step(CONFIGS["hymba"](), ctx, TrainPlan(),
                             AdamWConfig())
-        elif what == "serve-seq-cache":
-            serve_mod.make_serve_step(CONFIGS["tiny-kv1"](), ctx,
-                                      ShapeConfig("d", 32, 2, "decode"))
-        elif what == "long-shard-seq":
-            serve_mod.make_serve_step(tiny(), ctx, ShapeConfig(
-                "long_500k", 64, 1, "decode"))
         elif what == "local-shape":
             make_train_step(tiny().replace(n_heads=12, n_kv_heads=1,
                                            use_pallas=True), ctx)
@@ -231,13 +282,31 @@ CHECKS = {
     "serve-tiny": lambda c: serve_check(c, CONFIGS["tiny"](), 4, 12, 6),
     "serve-arctic": lambda c: serve_check(c, CONFIGS["arctic"](), 4, 12, 6),
     "serve-hymba": lambda c: serve_check(c, CONFIGS["hymba"](), 4, 12, 6),
+    # sequence-sharded rings: the GQA fallback over ``model`` (a prompt
+    # past the first rank's range, so both ranks hold keys, and the
+    # empty ranges of the ranks a 12-token prompt leaves empty), the
+    # ring kept whole where it does not split (139 slots), ``long_*``
+    # over ``data`` (a batch of one), and on (2, 2) a whole KV head under
+    # query heads cut over ``model``
+    "serve-tiny-kv1": lambda c: serve_check(c, CONFIGS["tiny-kv1"](), 4,
+                                            136, 6),
+    "serve-tiny-kv1-odd": lambda c: serve_check(c, CONFIGS["tiny-kv1"](),
+                                                4, 11, 6),
+    "serve-tiny-long": lambda c: serve_check(c, CONFIGS["tiny"](), 1, 140,
+                                             6, long=True),
+    "serve-kv1-long": lambda c: serve_check(c, CONFIGS["tiny-kv1"](), 1,
+                                            140, 6, long=True),
+    "serve-hymba-long": lambda c: serve_check(c, CONFIGS["hymba"](), 1, 40,
+                                              6, long=True),
+    "serve-danube-long": lambda c: serve_check(c, CONFIGS["danube"](), 1,
+                                               40, 6, long=True),
     "dispatch-arctic": lambda c: dispatch_check(c, CONFIGS["arctic"](), 4,
                                                 24),
     "dispatch-arctic-rows": lambda c: dispatch_check(
         c, CONFIGS["arctic"](), 2, 256),
+    "jax-ref-gqa": lambda c: jax_ref_check(c, "gqa"),
+    "jax-ref-long": lambda c: jax_ref_check(c, "long"),
     "refuse-tp-hybrid": lambda c: refusal_check(c, "tp-hybrid"),
-    "refuse-serve-seq-cache": lambda c: refusal_check(c, "serve-seq-cache"),
-    "refuse-long-shard-seq": lambda c: refusal_check(c, "long-shard-seq"),
     "refuse-local-shape": lambda c: refusal_check(c, "local-shape"),
     "refuse-batch-split": lambda c: refusal_check(c, "batch-split"),
     "refuse-compress-no-pod": lambda c: refusal_check(c, "compress-no-pod"),
@@ -285,7 +354,13 @@ def _axes(shape) -> tuple:
             3: ("pod", "data", "model")}[len(shape)]
 
 
+# the spawn's directory, where a check finds the files the test put there
+RUN_DIR = "."
+
+
 def _rank(rank: int, world: int, tmp: str, plan: list) -> None:
+    global RUN_DIR
+    RUN_DIR = tmp
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             world_size=world, rank=rank)

@@ -1431,7 +1431,9 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     """Phase 38 at tiny sizes with its ranks on the CPU: (a) world 1 over
     gloo, the mesh steps bit-equal to the mesh-less ones; (b) and (c) two
     spawned gloo ranks, TP and EP on (1, 2) and DP + FSDP on (2, 1), held
-    to the unsharded model."""
+    to the unsharded model; (d) and (e) the same ranks serving over a
+    sequence-sharded ring (the GQA fallback on (1, 2), a long shape on
+    (2, 1)), both ranks holding keys, held to the unsharded model."""
     monkeypatch.setattr(smoke, "SHARDED_FULL", "tiny-agent")
     monkeypatch.setattr(smoke, "SHARDED_PROMPT", 16)
     monkeypatch.setattr(smoke, "SHARDED_DECODE", 3)
@@ -1442,13 +1444,63 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(smoke, "SHARDED_NEW", 4)
     monkeypatch.setattr(smoke, "SHARDED_TRAIN_SEQ", 32)
     monkeypatch.setattr(smoke, "SHARDED_DIR", tmp_path)
-    smoke.phase_sharded(torch.device("cpu"))
+    monkeypatch.setattr(smoke, "SHARDED_GQA", ("tiny-agent",
+                                               {"n_kv_heads": 1}))
+    monkeypatch.setattr(smoke, "SHARDED_GQA_PROMPT", 136)
+    monkeypatch.setattr(smoke, "SHARDED_LONG", ("tiny-agent", {}))
+    monkeypatch.setattr(smoke, "SHARDED_LONG_RING", 192)
+    monkeypatch.setattr(smoke, "SHARDED_LONG_PROMPT", 100)
+    seq = smoke.phase_sharded(torch.device("cpu"))
+    assert seq == {}                     # the CPU launches no kernel
     out = capsys.readouterr().out
     assert "(a) world 1, gloo, mesh (1, 1), tiny-agent" in out
     assert "bit for bit" in out
     for what in ("(b) mesh (1, 2), TP, rank 0", "(b) mesh (1, 2), EP, rank 1",
                  "(c) mesh (2, 1), DP + FSDP, rank 1"):
         assert what in out
-    assert out.count("greedy tokens equal the unsharded run's") == 2
+    assert out.count("greedy tokens equal the unsharded run's") == 4
     assert out.count("equal rank 0's; train step loss") == 2
+    assert "(d) mesh (1, 2), GQA fallback: the ring cut over model, " \
+        "rank 1: tiny-agent width, 2 layers, 4 heads over 1 KV head(s), " \
+        "f32, kernels on, 132 of the ring's 264 slots" in out
+    assert "(e) mesh (2, 1), long: the ring cut over data, rank 0: " \
+        "tiny-agent width, 2 layers, 4 heads over 2 KV head(s), weights " \
+        "whole on each rank, f32, kernels on, 96 of the ring's 192 slots" \
+        in out
     assert "two CPU processes over gloo" in out
+
+
+def test_combine_phase_inputs_bound_and_held_errors(smoke):
+    """phase_combine's inputs: the rank's full slot range all valid, the
+    empty ranks and the row empty everywhere; the combine's byte bound;
+    ``call_err`` on (out, lse) pairs, infinite where the empty rows
+    disagree."""
+    from repro_torch.kernels import (attention_combine_plain,
+                                     decode_attention_plain)
+
+    dev = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, kpos, q_pos = smoke.lse_decode_case(torch.float32, gen, dev)
+    b, slots, hkv, g, dh = smoke.LSE_DECODE
+    assert tuple(q.shape) == (b, 1, hkv * g, dh)
+    assert tuple(k.shape) == (b, slots, hkv, dh)
+    assert bool(smoke.ring_valid((q, k, v, kpos, q_pos), -1).all())
+    outs, lses = smoke.combine_case(torch.float32, gen, dev)
+    r = smoke.COMBINE[0]
+    assert (lses[r - smoke.COMBINE_EMPTY:, 0] == -1e30).all()
+    assert (lses[:, 1] == -1e30).all() and (lses[0, 0] > -1e29).all()
+    got = attention_combine_plain(outs, lses)
+    assert not got[1].any() and torch.isfinite(got).all()
+    ms, by = smoke.combine_bound(outs, lses)
+    n = outs.numel() * 4 + lses.numel() * 4 + got.numel() * 4
+    assert by == "bytes" and ms == pytest.approx(
+        1e3 * n / smoke.HBM_BYTES_PER_S)
+    pair = decode_attention_plain(q[:2, :, :8], k[:2, :64, :2],
+                                  v[:2, :64, :2], kpos[:2, :64].contiguous(),
+                                  q_pos[:2], with_lse=True)
+    assert smoke.call_err(pair, pair).item() == 0.0
+    shifted = (pair[0], pair[1].clone())
+    shifted[1][0, 0] = -1e30
+    assert smoke.call_err(shifted, pair).item() == float("inf")
+    zeros = torch.zeros(3, 4)
+    assert smoke.call_err(zeros, zeros).item() == 0.0

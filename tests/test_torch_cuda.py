@@ -19,7 +19,8 @@ import pytest
 torch = pytest.importorskip("torch")
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
-from repro_torch.kernels import (decode_attention,  # noqa: E402
+from repro_torch.kernels import (attention_combine,  # noqa: E402
+                                 attention_combine_plain, decode_attention,
                                  flash_attention, grouped_matmul,
                                  paged_decode_attention, ssm_scan)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -277,6 +278,148 @@ def test_decode_kernel_row_without_valid_slot_is_zero(cuda_device, dtype,
     torch.testing.assert_close(out[live].float(), want[live].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
     assert not out[1].any()
+
+
+# ---------------------------------------------------------------------------
+# A sequence-sharded ring: decode over a slot range with its log-sum-exp,
+# and the ranks' combine
+# ---------------------------------------------------------------------------
+
+
+def lse_err(got, want) -> float:
+    """|kernel - plain| of the log-sum-exps of the rows with a valid key;
+    the empty rows' NEG_INF must agree exactly."""
+    empty = want <= -5e29
+    assert torch.equal(got <= -5e29, empty)
+    return float((got - want).abs()[~empty].max()) if (~empty).any() else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g,dh,slots,window", [(4, 128, 1024, -1),
+                                               (4, 128, 64, -1),
+                                               (16, 128, 4096, -1),
+                                               (5, 64, 2048, 1024),
+                                               (1, 128, 384, 40),
+                                               (8, 112, 1024, -1)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_decode_kernel_with_lse_over_slot_ranges(cuda_device, dtype, g, dh,
+                                                 slots, window, n):
+    """Each of n ranges of the ring, as a rank of a sequence-sharded ring
+    holds it: out and lse against the plain version, ranges empty for
+    some rows (row 2 has no valid slot at all), the window's ring
+    wrapped; out bit-equal to the call without the log-sum-exp; and the
+    ranges' partials combined equal the whole ring's decode."""
+    args = ring_case(cuda_device, dtype, [999, 130, -1, 5000], slots, 2, g,
+                     dh)
+    q, k, v, kpos, q_pos = args
+    local = slots // n
+    outs, lses = [], []
+    for r in range(n):
+        sl = slice(r * local, (r + 1) * local)
+        # the rank's range, as its own contiguous shard
+        sub = (q, *(t[:, sl].contiguous() for t in (k, v, kpos)), q_pos)
+        before = decode_attention.launches
+        out, lse = decode_attention(*sub, window=window, with_lse=True)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        want, want_lse = decode_attention_plain(*sub, window=window,
+                                                with_lse=True)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert lse_err(lse, want_lse) <= 1e-4
+        assert lse.dtype == torch.float32 and lse.shape == q.shape[::2]
+        assert torch.equal(out, decode_attention(*sub, window=window))
+        outs.append(out[:, 0])
+        lses.append(lse)
+    got = attention_combine(torch.stack(outs), torch.stack(lses))
+    whole = decode_attention_plain(*args, window=window)[:, 0]
+    live = torch.tensor([True, True, False, True], device=cuda_device)
+    torch.testing.assert_close(got[live].float(), whole[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert not got[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_on_a_view_of_some_kv_heads(cuda_device, dtype):
+    """The KV heads a rank's query heads read, as a view of a ring that
+    holds them all (a slot stride past Hkv * dh): bit-equal to the same
+    heads copied out, with and without the log-sum-exp."""
+    q, k, v, kpos, q_pos = ring_case(cuda_device, dtype, [700, 40, 3000],
+                                     1024, 8, 4, 128)
+    q2 = q[:, :, 8:16].contiguous()          # the query heads of KV 2, 3
+    kv = (k[:, :, 2:4], v[:, :, 2:4])
+    assert not kv[0].is_contiguous()
+    for lse in (False, True):
+        got = decode_attention(q2, *kv, kpos, q_pos, with_lse=lse)
+        want = decode_attention(q2, *(t.contiguous() for t in kv), kpos,
+                                q_pos, with_lse=lse)
+        for a, b in zip(*((got, want) if lse else ((got,), (want,)))):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="contiguous ring"):
+        decode_attention(q2, k[:, :, ::4], v[:, :, ::4], kpos, q_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,b,h,dh", [(2, 8, 8, 128), (16, 8, 8, 128),
+                                      (16, 3, 5, 64), (4, 2, 3, 112),
+                                      (1, 4, 4, 32)])
+def test_attention_combine_kernel_matches_plain(cuda_device, dtype, r, b, h,
+                                                dh):
+    """R ranks' partials of (B, H) rows: ranks with no valid key (NEG_INF)
+    weigh 0, a row empty on every rank is zeros; launched once a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r * 100 + dh)
+    outs = torch.randn((r, b, h, dh), generator=gen,
+                       device=cuda_device).to(dtype)
+    lses = 5 * torch.randn((r, b, h), generator=gen, device=cuda_device)
+    lses[r // 2:, 0] = -1e30
+    lses[:, 1] = -1e30
+    before = attention_combine.launches
+    got = attention_combine(outs, lses)
+    torch.cuda.synchronize()
+    assert attention_combine.launches == before + 1
+    want = attention_combine_plain(outs, lses)
+    assert got.dtype == dtype and got.shape == (b, h, dh)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not got[1].any()
+
+
+# tools/decode_digests.py on the parent tree (before the log-sum-exp),
+# NVIDIA H100 80GB HBM3, 700.00 W; the tree with it printed the same
+DIGESTS_BEFORE_LSE = {
+    0: "de3dcf51d6b7326c",
+    1: "6b0f91dd84ac9ead",
+    2: "71b1be15f391a280",
+    3: "5c5ba157cff0c2c7",
+    4: "0a45af2b5b50494b",
+    5: "fdede08bb3e5d43c",
+    6: "30224fa02ca69e83",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(7))
+def test_decode_kernels_bit_equal_to_before_the_lse(cuda_device, case):
+    """Both decode kernels' outputs on ``tools/decode_digests.py``'s fixed
+    inputs, as digests of their bytes, equal those the kernels gave
+    before ``common.cuh`` learnt the log-sum-exp (the same tool on the
+    parent tree, on an H100)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import decode_digests
+    from repro_torch import kernels
+
+    spec = decode_digests.CASES[case]
+    got = decode_digests.run(torch, kernels, cuda_device, spec)
+    assert got == DIGESTS_BEFORE_LSE[case], spec
 
 
 @pytest.mark.cuda
@@ -1101,15 +1244,23 @@ def test_flash_under_grad_is_the_kernel_pair(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["paged_decode_attention",
-                                   "decode_attention"])
+                                   "decode_attention", "decode_with_lse",
+                                   "attention_combine"])
 def test_kernels_without_backward_refuse_grad(cuda_device, which):
-    """The two decode wrappers, which have no backward, raise under grad,
-    naming the ROADMAP item, instead of returning an output cut from the
-    graph; under no_grad they launch as before."""
+    """The two decode wrappers and the combine, which have no backward,
+    raise under grad, naming the ROADMAP item, instead of returning an
+    output cut from the graph; under no_grad they launch as before."""
     dev, f32 = cuda_device, torch.float32
     if which == "paged_decode_attention":
         args = case(dev, f32, 2, 2, 4, 64, 16, [40, 7])
         fn, kw = paged_decode_attention, {"window": -1}
+    elif which == "decode_with_lse":
+        args = ring_case(dev, f32, [39, 6], 64, 2, 4, 64)
+        fn, kw = decode_attention, {"window": -1, "with_lse": True}
+    elif which == "attention_combine":
+        args = [torch.randn((2, 3, 4, 64), device=dev),
+                torch.randn((2, 3, 4), device=dev)]
+        fn, kw = attention_combine, {}
     else:
         args = ring_case(dev, f32, [39, 6], 64, 2, 4, 64)
         fn, kw = decode_attention, {"window": -1}
@@ -1508,7 +1659,9 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
 
     sizes = {"tp": ("tiny-agent", {}), "ep": ("smoke:arctic-480b", {}),
              "serve_b": 2, "prompt": 16, "new": 16, "train_b": 2,
-             "train_seq": 64}
+             "train_seq": 64, "gqa": ("tiny-agent", {"n_kv_heads": 1}),
+             "gqa_b": 2, "gqa_prompt": 136, "long": ("tiny-agent", {}),
+             "long_ring": 192, "long_prompt": 100}
     mp.start_processes(chip_smoke.sharded_rank,
                        args=(2, f"file://{tmp_path}/store", str(tmp_path),
                              "cuda", sizes), nprocs=2, start_method="spawn")
@@ -1527,3 +1680,13 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
         assert res[1][key]["tokens"] == res[0][key]["tokens"]
         assert sum(map(len, res[0][key]["tokens"])) == 32
     assert res[0]["ep"]["launches"].get("grouped_matmul", 0) > 0
+    # (d), (e): serving over a sequence-sharded ring, both ranks holding
+    # keys, the log-sum-exp decode and the combine launched on each
+    for key, slots in (("gqa", [132, 264]), ("long", [96, 192])):
+        assert res[1][key]["tokens"] == res[0][key]["tokens"]
+        assert res[0][key]["logits"] <= chip_smoke.SHARDED_LOGIT_TOL
+        for got in res:
+            assert got[key]["slots"] == slots
+            assert got[key]["kernel_err"] <= 2e-5
+            assert got[key]["launches"].get("decode_attention", 0) > 0
+            assert got[key]["launches"].get("attention_combine", 0) > 0

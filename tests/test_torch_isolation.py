@@ -77,7 +77,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.distributed.collectives",
               "repro_torch.distributed.parallel",
               "repro_torch.launch.mesh", "repro_torch.launch.specs",
-              "repro_torch.launch.serve", "repro_torch.launch.dryrun"):
+              "repro_torch.launch.serve", "repro_torch.launch.dryrun",
+              "repro_torch.kernels.attention_combine"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"

@@ -9,24 +9,42 @@ against its single-device steps.
   train step learning a fixed batch;
 * sharded parity in CPU ``gloo`` ranks (``_torch_ranks``: one spawn of 2
   ranks and one of 4 for the file, ``FileStore`` rendezvous) on (1, 2),
-  (2, 1), (2, 2) and a (2, 1, 1) pod mesh: tiny-agent (f32 and int8
-  moments, microbatches, one KV head replicated over the model axis),
-  the arctic smoke (EP, forced drops at S < 256 and B > 1, and per-row
-  dispatch at S 256), kimi's smoke (a dense first layer and a shared
-  expert) and hymba's (data axes only), each held to the single-device
-  step: greedy tokens equal; logits, losses, every gradient leaf and
-  every updated parameter within 1e-4 (``tests/test_torch_train.py``'s
-  bands); the MoE's dropped fraction and aux loss equal;
-* the refusals: TP of a hybrid, a sequence-sharded ring cache, a local
-  attention shape no kernel takes, a batch that does not split, compressed
-  gradients without a pod axis, a shape-only mesh of many devices;
+  (2, 1), (2, 2), (1, 4) and a (2, 1, 1) pod mesh: tiny-agent (f32 and
+  int8 moments, microbatches, one KV head replicated over the model
+  axis), the arctic smoke (EP, forced drops at S < 256 and B > 1, and
+  per-row dispatch at S 256), kimi's smoke (a dense first layer and a
+  shared expert) and hymba's (data axes only), each held to the
+  single-device step: greedy tokens equal; logits, losses, every
+  gradient leaf and every updated parameter within 1e-4
+  (``tests/test_torch_train.py``'s bands); the MoE's dropped fraction and
+  aux loss equal;
+* serving over a sequence-sharded ring cache, held to the single device
+  the same way, with each rank's slots (``S / n``): the GQA fallback over
+  ``model`` (one KV head on (1, 2), tiny-agent's two on (1, 4), where
+  three ranks' ranges stay empty), a ring that does not split kept whole
+  under cut query heads, ``long_*`` over ``data`` on (2, 1) (tiny-agent,
+  hymba, and danube's 24-slot windowed ring the prompt wraps) and on
+  (2, 2) with a whole KV head under query heads cut over ``model``; and
+  against the JAX package's own sharded serve steps on a forced
+  four-device CPU mesh (``_jax_seq_ref.py``, a subprocess): the (1, 4)
+  GQA fallback and the (2, 1) ``long_*`` ring, logits within 1e-4;
+* the refusals: TP of a hybrid (the serve cells of hymba and qwen2-vl
+  too), a local attention shape no kernel takes, a batch that does not
+  split for training, compressed gradients without a pod axis, a
+  shape-only mesh of many devices;
 * the dry run: a record for every applicable cell on both production
   meshes, its per-device parameter and optimizer bytes equal to the
-  reference's ``abstract_state`` cut by the reference's specs.
+  reference's ``abstract_state`` cut by the reference's specs, and 28
+  refusals, each naming ROADMAP A6.1.
 """
 import dataclasses
 import json
 import math
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -120,6 +138,9 @@ def test_dryrun_writes_every_cell_with_reference_bytes(tmp_path):
     assert len(recs) == 2 * len(ARCHS) * len(SHAPES)
     live = [r for r in recs if "skipped" not in r]
     assert len(live) == 2 * 34
+    refused = [r["port_refuses"] for r in live if r["port_refuses"]]
+    assert len(refused) == 28
+    assert all("ROADMAP A6.1" in why for why in refused), refused
     meshes = {"single": dict(data=16, model=16),
               "multi": dict(pod=2, data=16, model=16)}
     for rec in live:
@@ -270,20 +291,44 @@ def test_tp_of_other_families_refused_by_name(name):
 
 
 def test_sequence_sharded_cache_refused_for_serving():
-    cfg = get_config("llama3-405b")
+    """No serve cell is refused for a sequence-sharded ring any more: the
+    dense and MoE cells on the production mesh pass ``check_serve``,
+    those whose ring the spec cuts over ``model`` (the GQA fallback) or
+    over ``data`` (``long_*``) included; hymba's and qwen2-vl's serve
+    cells are refused for TP of their family alone (ROADMAP A6.1)."""
     mesh = make_prod()
-    shape = SHAPES["decode_32k"]
-    cache = specs_mod.input_pspecs(cfg, shape, mesh)["cache"]
-    with pytest.raises(ValueError, match="A6.2"):
-        check_serve(cfg, mesh, cache, shape.global_batch)
-    gem = get_config("gemma3-27b")
-    check_serve(gem, mesh, specs_mod.input_pspecs(gem, shape, mesh)["cache"],
-                shape.global_batch)
-    long = SHAPES["long_500k"]
+    cut = 0
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for name in ("prefill_32k", "decode_32k", "long_500k"):
+            shape = SHAPES[name]
+            if not shape_applicable(cfg, shape)[0]:
+                continue
+            cache = specs_mod.input_pspecs(cfg, shape, mesh)["cache"]
+            cut += any(s[-3] is not None for s in _ring_specs(cache))
+            if cfg.family in ("dense", "moe"):
+                check_serve(cfg, mesh, cache)
+            elif cfg.family in ("hybrid", "vlm"):
+                with pytest.raises(ValueError, match="A6.1"):
+                    check_serve(cfg, mesh, cache)
+    assert cut == 17          # of the 80 cells of the single-pod mesh
     dan = get_config("h2o-danube-3-4b")
-    with pytest.raises(ValueError, match="A6.2"):
-        check_serve(dan, mesh, specs_mod.input_pspecs(dan, long,
-                                                      mesh)["cache"], 1)
+    long = SHAPES["long_500k"]
+    spec = _ring_specs(specs_mod.input_pspecs(dan, long, mesh)["cache"])[0]
+    assert spec[-3] == "data" and spec[-2] is None
+    check_serve(dan, mesh, specs_mod.input_pspecs(dan, long, mesh)["cache"])
+
+
+def _ring_specs(tree) -> list:
+    from repro_torch.models.attention import KVCache
+
+    if isinstance(tree, KVCache):
+        return [tree.k]
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _ring_specs(v)]
+    if isinstance(tree, list):
+        return [s for v in tree for s in _ring_specs(v)]
+    return []
 
 
 def make_prod():
@@ -327,27 +372,55 @@ TRAIN = ["train-tiny-f32", "train-tiny-int8", "train-tiny-micro",
 SERVE = ["serve-tiny", "serve-arctic"]
 MOE = ["dispatch-arctic", "dispatch-arctic-rows"]
 PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
-            "refuse-tp-hybrid", "refuse-serve-seq-cache"]),
+            "refuse-tp-hybrid", "serve-tiny-kv1", "serve-tiny-kv1-odd"]),
          ((2, 1), TRAIN + ["train-hymba", "serve-hymba"] + SERVE + MOE + [
-            "refuse-batch-split", "refuse-long-shard-seq",
-            "refuse-compress-no-pod"]),
+            "refuse-batch-split", "serve-tiny-long", "serve-hymba-long",
+            "serve-danube-long", "jax-ref-long", "refuse-compress-no-pod"]),
          ((2, 1, 1), ["train-tiny-int8", "train-tiny-compress",
                       "serve-tiny"])]
-PLAN4 = [((2, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE),
-         ((1, 4), ["refuse-local-shape"])]
+PLAN4 = [((2, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
+            "serve-kv1-long"]),
+         ((1, 4), ["refuse-local-shape", "serve-tiny", "jax-ref-gqa"])]
 CASES = [(shape, n, w) for w, plan in ((2, PLAN2), (4, PLAN4))
          for shape, names in plan for n in names]
-REFUSED = {"refuse-tp-hybrid": "A6.1", "refuse-serve-seq-cache": "A6.2",
-           "refuse-long-shard-seq": "A6.2",
+REFUSED = {"refuse-tp-hybrid": "A6.1",
            "refuse-batch-split": "does not split",
            "refuse-compress-no-pod": "'pod'",
            "refuse-local-shape": "no kernel"}
+# the config of each serve check (``_torch_ranks.CONFIGS``)
+SERVED = {"serve-tiny": "tiny", "serve-arctic": "arctic",
+          "serve-hymba": "hymba", "serve-tiny-kv1": "tiny-kv1",
+          "serve-tiny-kv1-odd": "tiny-kv1", "serve-tiny-long": "tiny",
+          "serve-kv1-long": "tiny-kv1", "serve-hymba-long": "hymba",
+          "serve-danube-long": "danube"}
+
+
+def _seq_shards(name: str, shape, kv: int, ring: int) -> int:
+    """The ranks a check's ring is cut over: ``long_*`` over ``data``,
+    else the GQA fallback over ``model`` where the KV heads do not divide
+    it and the ring does."""
+    if name.endswith("-long"):
+        return shape[-2]
+    m = shape[-1]
+    return m if kv % m and ring % m == 0 else 1
 
 
 @pytest.fixture(scope="module")
 def rank_results(tmp_path_factory):
-    return {2: ranks.spawn(2, PLAN2, tmp_path_factory.mktemp("w2")),
-            4: ranks.spawn(4, PLAN4, tmp_path_factory.mktemp("w4"))}
+    dirs = {w: tmp_path_factory.mktemp(f"w{w}") for w in (2, 4)}
+    ref = dirs[2] / "jax_seq_ref.pkl"
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(root / "src"))
+    # the JAX package's sharded serve steps, in a process whose JAX sees
+    # four CPU devices; a failure shows in the jax-ref checks
+    subprocess.run([sys.executable, str(root / "tests" / "_jax_seq_ref.py"),
+                    str(ref)], env=env, timeout=300, check=False)
+    if ref.exists():
+        shutil.copy(ref, dirs[4] / ref.name)
+    return {2: ranks.spawn(2, PLAN2, dirs[2]),
+            4: ranks.spawn(4, PLAN4, dirs[4])}
 
 
 @pytest.mark.parametrize("shape,name,world", CASES,
@@ -373,12 +446,16 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             assert got["params"] <= TOL and got["moved"] > 10 * TOL, got
         elif name.startswith("serve-"):
             assert got["tokens_equal"] and got["logits"] <= TOL, got
-            heads = {"serve-hymba": 2}.get(name)
-            if heads is None:
-                m = shape[-1]
-                kv = ranks.CONFIGS[name.split("-")[1]]().n_kv_heads
-                heads = kv // m if kv % m == 0 else kv
-            assert got["kv_heads"] == heads
+            m = shape[-1]
+            kv = ranks.CONFIGS[SERVED[name]]().n_kv_heads
+            assert got["kv_heads"] == (kv // m if kv % m == 0 else kv)
+            n = _seq_shards(name, shape, kv, got["ring"])
+            assert got["slots"] * n == got["ring"], got
+        elif name.startswith("jax-ref-"):
+            # the port's sharded steps against the JAX package's own
+            assert got["steps"] == 6 and got["logits"] <= TOL, got
+            n = 4 if name == "jax-ref-gqa" else 2
+            assert got["slots"] * n == got["ring"], got
         elif name.startswith("dispatch-"):
             assert got["dropped_ref"] > 0
             assert got["dropped"] <= 1e-6 and got["aux"] <= 1e-6, got
