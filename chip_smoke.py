@@ -244,8 +244,20 @@ code is non-zero and the final JSON line is not printed:
                  each equal the unsharded run's, every ring decode (with
                  its log-sum-exp) and attention_combine call on a shard
                  within the f32 band of its plain version, both kernels
-                 launched on every rank.  (b) to (e) times are two
-                 processes sharing one card, not a multi-GPU figure.
+                 launched on every rank.  (f) The same ranks on (1, 2),
+                 tensor parallelism over model of the other families at
+                 full width and cut depth: hymba-1.5b at 2 layers (its
+                 rings cut over model under whole query heads, so ring
+                 decode's log-sum-exp and attention_combine run),
+                 xlstm-350m as one mLSTM and one sLSTM layer, qwen2-vl-2b
+                 at 1 layer with patch embeddings and M-RoPE positions,
+                 seamless-m4t-large-v2 at 1 + 1 layers with frames: (b)'s
+                 serve and train checks, and each config's kernels
+                 (flash and its backward, ring decode, ssm_scan and its
+                 backward, attention_combine) launched on both ranks.
+                 In (b), (c) and (f) every rank holds its own gradient
+                 shards to the unsharded model's.  (b) to (f) times are
+                 two processes sharing one card, not a multi-GPU figure.
 
 Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
 graphs, captured once per engine, and the serve phases (6, 7, 9, 11,
@@ -2857,10 +2869,12 @@ def cut_depth(params, n: int, dtype: torch.dtype):
     return out
 
 
-def vision_positions(b: int, n_text: int, dev) -> torch.Tensor:
-    """(B, P + n_text, 3) int32: the VISION_GRID patches at (0, row, col),
-    then text whose three streams run on together from max(grid)."""
-    gh, gw = VISION_GRID
+def vision_positions(b: int, n_text: int, dev,
+                     grid: tuple | None = None) -> torch.Tensor:
+    """(B, P + n_text, 3) int32: the patches of ``grid`` (VISION_GRID by
+    default) at (0, row, col), then text whose three streams run on
+    together from max(grid)."""
+    gh, gw = grid or VISION_GRID
     hh, ww = torch.meshgrid(torch.arange(gh, device=dev),
                             torch.arange(gw, device=dev), indexing="ij")
     vis = torch.stack([torch.zeros_like(hh), hh, ww], -1).reshape(gh * gw,
@@ -3913,21 +3927,22 @@ def train_launches(cfg, steps: int = 1) -> dict:
 
 
 def family_batch(cfg, b: int, s: int, gen: torch.Generator, dev,
-                 frames: int = 0) -> dict:
+                 frames: int = 0, grid: tuple | None = None) -> dict:
     """Tokens and next-token labels (the last -1) of B x S, plus a VLM's
-    VISION_GRID patch embeddings over the first slots at (t, h, w)
-    positions and an encoder-decoder's ``frames`` frame embeddings."""
+    ``grid`` (VISION_GRID by default) of patch embeddings over the first
+    slots at (t, h, w) positions and an encoder-decoder's ``frames``
+    frame embeddings."""
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
                            dtype=torch.int32)
     labels = torch.roll(tokens, -1, 1)
     labels[:, -1] = -1
     batch = {"tokens": tokens, "labels": labels}
     if cfg.frontend == "patch":
-        gh, gw = VISION_GRID
+        gh, gw = grid or VISION_GRID
         batch["vision_embeds"] = torch.randn(
             (b, gh * gw, cfg.d_model), generator=gen, device=dev).to(
                 prm.torch_dtype(cfg.dtype))
-        batch["positions"] = vision_positions(b, s - gh * gw, dev)
+        batch["positions"] = vision_positions(b, s - gh * gw, dev, grid)
     if cfg.is_encdec:
         batch["frames"] = torch.randn(
             (b, frames, cfg.d_model), generator=gen, device=dev).to(
@@ -4688,6 +4703,38 @@ SHARDED_LONG = ("agent-7b", dict(n_layers=2))
 SHARDED_LONG_RING, SHARDED_LONG_PROMPT = 4096, 2100
 SHARDED_LONG_RULES = shd.ShardingRules(rules=tuple(
     r for r in shd.DEFAULT_RULES.rules if r[0] != "embed"))
+# (f) tensor parallelism over ``model`` of the other families on the same
+# ranks, mesh (1, 2), f32, kernels on, (b)'s sizes, each config at its
+# full width at cut depth: hymba-1.5b at 2 layers, one global and one
+# windowed (its 25 heads and 5 KV heads stay whole at a model axis of 2,
+# so each 192-slot ring is cut over ``model``: a rank decodes with whole
+# query heads over its 96 slots and the ranks combine; in_proj, out_proj
+# and the MLP are cut), xlstm-350m as one mLSTM and one sLSTM layer,
+# qwen2-vl-2b at 1 layer (6 heads over 1 KV head a rank) with 16 patch
+# embeddings in the prompt and 256 in the train rows at M-RoPE (t, h, w)
+# positions, seamless-m4t-large-v2 at 1 + 1 layers (8 heads a rank in
+# the encoder, the decoder and the cross attention, whose K/V is cut by
+# heads) with the prompt's 16 frames and SHARDED_FRAMES in training
+SHARDED_FAMILIES = [
+    ("hymba-1.5b", dict(n_layers=2, global_layers=(0,))),
+    ("xlstm-350m", dict(n_layers=2, mlstm_ratio=1)),
+    ("qwen2-vl-2b", dict(n_layers=1)),
+    ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1)),
+]
+SHARDED_PATCHES = 16
+SHARDED_FRAMES = 512
+# the kernels each (f) config runs on its shards: every rank launches
+# each of them on the path
+SHARDED_FAMILY_KERNELS = {
+    "hymba-1.5b": {"flash_attention", "flash_attention_backward",
+                   "decode_attention", "attention_combine", "ssm_scan",
+                   "ssm_scan_backward"},
+    "xlstm-350m": {"ssm_scan", "ssm_scan_backward"},
+    "qwen2-vl-2b": {"flash_attention", "flash_attention_backward",
+                    "decode_attention"},
+    "seamless-m4t-large-v2": {"flash_attention", "flash_attention_backward",
+                              "decode_attention"},
+}
 
 
 def sync(dev) -> None:
@@ -4821,15 +4868,17 @@ def sharded_world1(dev) -> dict:
 
 
 class hold_sharded_calls:
-    """Within the block, every flash, ring decode and grouped_matmul call
-    a rank makes on its local shard, forward (served or trained) and
-    backward, is kept; ``check(phase)`` holds each to its plain version
-    on the call's own inputs (``kernelwise``, ``hold_flash_calls``,
-    ``hold_training_calls``)."""
+    """Within the block, every flash, ring decode (with its log-sum-exp
+    over a ring cut over ``model``), attention_combine, grouped_matmul
+    and ssm_scan call a rank makes on its local shard, forward (served or
+    trained) and backward, is kept; ``check(phase, dtype)`` holds each to
+    its plain version on the call's own inputs, within the band of
+    ``dtype`` (``kernelwise``, ``hold_flash_calls``,
+    ``hold_training_calls``; the scan within SCAN_TOL)."""
 
     def __enter__(self):
         self._stack = contextlib.ExitStack()
-        self.kw = self._stack.enter_context(kernelwise())
+        self.kw = self._stack.enter_context(kernelwise(combine=True))
         self.fwd = self._stack.enter_context(record_flash(True))
         self.bwd = self._stack.enter_context(record_flash(False))
         self.gm = self._stack.enter_context(record_training_kernels())
@@ -4840,25 +4889,44 @@ class hold_sharded_calls:
 
     def check(self, phase: str, dtype) -> float:
         err = self.kw.max_err()
-        if not err <= TOL[torch.bfloat16]:
+        if not err <= TOL[dtype]:
             raise AssertionError(f"{phase}: a served kernel call differs "
                                  f"from its plain version by {err}")
         return max(err, hold_flash_calls(phase, self.fwd, self.bwd, dtype),
                    hold_training_calls(phase, self.gm, dtype))
 
 
+def sharded_frontend(cfg, b: int, patches: int, enc: int,
+                     gen: torch.Generator, dev) -> list:
+    """The prefill step's extra input for a config that takes one: a
+    VLM's ``patches`` patch embeddings (B, P, d) over the first slots, an
+    encoder-decoder's ``enc`` frame embeddings (B, enc, d)."""
+    if cfg.frontend == "patch":
+        n = patches
+    elif cfg.is_encdec:
+        n = enc
+    else:
+        return []
+    return [torch.randn((b, n, cfg.d_model), generator=gen,
+                        device=dev).to(prm.torch_dtype(cfg.dtype))]
+
+
 def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
                  serve: bool = True) -> dict:
     """One config on ``mesh`` in a gloo rank, kernels on, f32: prefill of
-    B 2 x 64 and 16 greedy tokens through make_prefill_step /
-    make_serve_step, and one make_train_step (its gradients, then its
-    AdamW half on them), every kernel call on the rank's shards held to
-    its plain version.  Rank 0 also runs the unsharded model, on the
-    card they share: the greedy tokens equal its (logits within
-    SHARDED_LOGIT_TOL), the loss and every gradient leaf, gathered,
-    within phase 29's bands (loss 1e-4, each leaf 1e-2 of its largest
-    magnitude); the phase holds the other rank's tokens and loss to rank
-    0's.  Returns the results, stage times and launches."""
+    B 2 x 64 (with a VLM's patch embeddings or an encoder-decoder's
+    frames, ``sharded_frontend``) and 16 greedy tokens through
+    make_prefill_step / make_serve_step, and one make_train_step (its
+    gradients, then its AdamW half on them; ``family_batch``, with
+    SHARDED_FRAMES frames for an encoder-decoder), every kernel call on
+    the rank's shards held to its plain version.  Rank 0 also serves the
+    unsharded model, on the card they share: the greedy tokens equal its
+    (logits within SHARDED_LOGIT_TOL); the phase holds the other rank's
+    tokens and loss to rank 0's.  Every rank takes the unsharded model's
+    loss and gradients and holds its step's loss (within 1e-4) and each
+    of its gradient shards to them (each leaf within phase 29's band of
+    the whole leaf's largest magnitude), so no gradient crosses gloo.
+    Returns the results, stage times and launches."""
     cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
            else get_config(name))
     cfg = cfg.replace(dtype="float32", use_pallas=True, **cut)
@@ -4869,12 +4937,19 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     attention.rescale_to_true_fan_in(full)
     where = f"{phase} {cfg.name} on {dict(parallel.context(mesh).sizes)}"
     out = {"config": f"{cfg.name} width, {cfg.n_layers} layer(s)"
+           + (f" + {cfg.enc_layers} encoder layer(s)" if cfg.is_encdec
+              else "")
            + (f", {cfg.n_experts} experts" if cfg.n_experts else "")}
     worst = 0.0
     gen = torch.Generator(device=dev).manual_seed(1)
     sync(dev)
     marks.append(("init", time.perf_counter()))
-    start = all_counts()
+
+    def counts() -> dict:
+        return {**all_counts(),
+                "attention_combine": attention_combine.launches}
+
+    start = counts()
     if serve:
         b, s = sizes["serve_b"], sizes["prompt"]
         shape_d = ShapeConfig("sharded", s, b, "decode")
@@ -4884,13 +4959,15 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
         params = parallel.shard_tree(full, specs["params"], mesh)
         toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
                              device=dev)
+        enc = specs_launch.enc_len(cfg, shape_d)
+        extra = sharded_frontend(cfg, b, sizes["patches"], enc, gen, dev)
         rows = serve_launch.local_rows(torch.arange(b, device=dev),
                                        parallel.context(mesh))
         cache = serve_launch.init_cache(cfg, mesh, shape_d)
         got_t, logits = [], []
         with torch.no_grad():
             with hold_sharded_calls() as held:
-                got, cache = pre(params, toks, cache)
+                got, cache = pre(params, toks, cache, *extra)
             worst = max(worst, held.check(where, torch.float32))
             nxt = torch.zeros((b, 1), dtype=torch.long, device=dev)
             for i in range(sizes["new"]):
@@ -4903,11 +4980,17 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
                     got, cache = dec(params, nxt, cache)
                 worst = max(worst, held.check(where, torch.float32))
             del params, cache
-            used = {k: v - start[k] for k, v in all_counts().items()}
+            used = {k: v - start[k] for k, v in counts().items()}
             if ref:
                 ref_cache = models.init_cache(
-                    cfg, b, specs_launch.decode_context(shape_d), device=dev)
-                want, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+                    cfg, b, specs_launch.decode_context(shape_d), device=dev,
+                    enc_len=enc)
+                kw = {}
+                if extra:
+                    kw["vision_embeds" if cfg.frontend == "patch"
+                       else "frames"] = extra[0]
+                want, ref_cache = models.prefill(full, cfg, toks, ref_cache,
+                                                 **kw)
                 diffs, same = [], True
                 for i, (g, t) in enumerate(zip(logits, got_t)):
                     if i:
@@ -4928,8 +5011,10 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
         marks.append(("serve", time.perf_counter()))
     acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
     b, s = sizes["train_b"], sizes["train_seq"]
-    batch = family_batch(cfg, b, s, gen, dev)
-    start = all_counts()
+    batch = family_batch(cfg, b, s, gen, dev,
+                         frames=sizes["frames"] if cfg.is_encdec else 0,
+                         grid=sizes["grid"])
+    start = counts()
     step = make_train_step(cfg, mesh, TrainPlan(int8_moments=True), acfg,
                            shape=ShapeConfig("sharded", s, b, "train"))
     specs = step.shardings["params"]
@@ -4939,30 +5024,32 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
         metrics, grads = step.grads(params, batch, with_metrics=True)
     worst = max(worst, held.check(where, torch.float32))
     del held
-    whole = parallel.gather_tree(grads, specs, mesh)
     sync(dev)
     marks.append(("sharded gradients, held", time.perf_counter()))
+    launches = {k: v - start[k] + (used[k] if serve else 0)
+                for k, v in counts().items()}
     # the step's AdamW half on the gradients just held
     params, opt, m = step.update(params, opt, grads, metrics)
     sync(dev)
     marks.append(("update", time.perf_counter()))
     if not all(torch.isfinite(t).all() for t in prm.flatten(params)[0]):
         raise AssertionError(f"{where}: non-finite parameters after a step")
-    del params, opt, grads
-    launches = {k: v - start[k] + (used[k] if serve else 0)
-                for k, v in all_counts().items()}
-    if ref:
-        ref_loss, ref_g = grads_and_loss(cfg, full, batch)
-        errs = [rel_err(a, c) for a, c in zip(prm.flatten(whole)[0], ref_g)]
-        loss_err = abs(m["loss"].item() - ref_loss.item())
-        if loss_err > 1e-4 or max(errs) > TRAIN_F32_GRAD_TOL:
-            raise AssertionError(f"{where}: train step loss off by "
-                                 f"{loss_err}, gradient leaves by up to "
-                                 f"{max(errs)}")
-        out.update(loss_err=loss_err, grad_err=max(errs), leaves=len(errs))
-        del ref_g
-        sync(dev)
-        marks.append(("unsharded run", time.perf_counter()))
+    del params, opt
+    ref_loss, ref_g = grads_and_loss(cfg, full, batch)
+    treedef = prm.flatten(full)[1]
+    mine = prm.flatten(parallel.shard_tree(prm.unflatten(treedef, list(
+        ref_g)), specs, mesh))[0]
+    errs = [((g.float() - r.float()).abs().max()
+             / w.float().abs().max().clamp_min(1e-30)).item()
+            for g, r, w in zip(prm.flatten(grads)[0], mine, ref_g)]
+    loss_err = abs(m["loss"].item() - ref_loss.item())
+    if loss_err > 1e-4 or max(errs) > TRAIN_F32_GRAD_TOL:
+        raise AssertionError(f"{where}: train step loss off by {loss_err}, "
+                             f"gradient shards by up to {max(errs)}")
+    out.update(loss_err=loss_err, grad_err=max(errs), leaves=len(errs))
+    del grads, ref_g, mine
+    sync(dev)
+    marks.append(("unsharded run", time.perf_counter()))
     free(full)
     out["stages"] = ", ".join(f"{name} {b - a:.1f} s" for (_, a), (name, b)
                               in zip(marks, marks[1:]))
@@ -5080,7 +5167,7 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
 
 def sharded_rank(rank: int, world: int, store: str, out_dir: str,
                  device_type: str, sizes: dict) -> None:
-    """A gloo rank of phase 38 (b) and (c), spawned by the phase (which
+    """A gloo rank of phase 38 (b) to (f), spawned by the phase (which
     passes the configs and sizes in ``sizes``): on the card both ranks
     share CUDA device 0."""
     if rank:
@@ -5115,6 +5202,9 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
             dp, *sizes["long"], dev, "sharded (e) long", 1,
             sizes["long_prompt"], sizes["long_ring"], sizes["new"],
             long=True, rules=SHARDED_LONG_RULES)
+        res["families"] = [sharded_case(tp, name, cut, dev,
+                                        "sharded (f) TP", sizes)
+                           for name, cut in sizes["families"]]
         res["seconds"] = time.perf_counter() - t0
     except Exception:
         import traceback
@@ -5130,10 +5220,12 @@ def phase_sharded(dev) -> dict:
     the same ranks on (2, 1) (DP + FSDP), agent-7b's width at 2 layers,
     train only (``sharded_world2``, ``sharded_case``); (d) and (e) the
     same ranks serving over a sequence-sharded ring, the GQA fallback on
-    (1, 2) and a ``long`` shape on (2, 1) (``sharded_seq_case``); then (a)
+    (1, 2) and a ``long`` shape on (2, 1) (``sharded_seq_case``); (f) the
+    same ranks on (1, 2), TP of hymba, xlstm, qwen2-vl and seamless at
+    full width (``sharded_case``); then (a)
     world-1 NCCL steps bit-equal to mesh-less at agent-7b's full depth
     (``sharded_world1``), whose 50 GB would not leave the ranks room.  Times
-    of (b) to (e) are two processes sharing one H100 over gloo, not a
+    of (b) to (f) are two processes sharing one H100 over gloo, not a
     multi-GPU figure.  Returns (d)'s and (e)'s decode launches."""
     seq = sharded_world2(dev)
     sharded_world1(dev)
@@ -5141,7 +5233,7 @@ def phase_sharded(dev) -> dict:
 
 
 def sharded_world2(dev) -> dict:
-    """(b) to (e): two gloo ranks spawned on the card (``sharded_rank``),
+    """(b) to (f): two gloo ranks spawned on the card (``sharded_rank``),
     their results printed and held.  Returns the launches of (d)'s and
     (e)'s decode steps, summed over the ranks: the main path of
     ``attention_combine`` and of ring decode with its log-sum-exp."""
@@ -5164,7 +5256,9 @@ def sharded_world2(dev) -> dict:
              "gqa": SHARDED_GQA, "gqa_b": SHARDED_GQA_B,
              "gqa_prompt": SHARDED_GQA_PROMPT, "long": SHARDED_LONG,
              "long_ring": SHARDED_LONG_RING,
-             "long_prompt": SHARDED_LONG_PROMPT}
+             "long_prompt": SHARDED_LONG_PROMPT,
+             "families": SHARDED_FAMILIES, "frames": SHARDED_FRAMES,
+             "patches": SHARDED_PATCHES, "grid": VISION_GRID}
     mp.start_processes(sharded_rank, args=(2, sharded_store("world2"),
                                            str(out_dir), dev.type, sizes),
                        nprocs=2, start_method="spawn")
@@ -5177,12 +5271,19 @@ def sharded_world2(dev) -> dict:
                                  f"{got['error']}")
     label = ("two processes sharing one " + card() + " over gloo"
              if dev.type == "cuda" else "two CPU processes over gloo")
-    for key, what in (("tp", "(b) mesh (1, 2), TP"),
-                      ("ep", "(b) mesh (1, 2), EP"),
-                      ("dp", "(c) mesh (2, 1), DP + FSDP")):
-        c0 = res[0][key]
+    cases = [(("tp",), "(b) mesh (1, 2), TP", None),
+             (("ep",), "(b) mesh (1, 2), EP", None),
+             (("dp",), "(c) mesh (2, 1), DP + FSDP", None)]
+    cases += [(("families", i), "(f) mesh (1, 2), TP of " + arch,
+               SHARDED_FAMILY_KERNELS[arch])
+              for i, arch in enumerate(name.removeprefix("smoke:")
+                                       for name, _ in SHARDED_FAMILIES)]
+    for key, what, kernels in cases:
+        def pick(got):
+            return got[key[0]] if len(key) == 1 else got[key[0]][key[1]]
+        c0 = pick(res[0])
         for r, got in enumerate(res):
-            c = got[key]
+            c = pick(got)
             if c.get("tokens") != c0.get("tokens") \
                     or c["loss"] != c0["loss"] \
                     or c["launches"] != c0["launches"]:
@@ -5197,20 +5298,20 @@ def sharded_world2(dev) -> dict:
                           f"unsharded run's ({n_tok} tokens), logits within "
                           f"{c['logits']:.3e}; ")
             held = (f"train step loss {c['loss']:.6f} (|diff| "
-                    f"{c['loss_err']:.2e}), {c['leaves']} gradient leaves "
-                    f"within {c['grad_err']:.3e} of their largest magnitude"
-                    if not r else f"train step loss {c['loss']:.6f}, equal "
-                    f"to rank 0's")
+                    f"{c['loss_err']:.2e}), its {c['leaves']} gradient "
+                    f"shards within {c['grad_err']:.3e} of their leaf's "
+                    f"largest magnitude")
             log(phase, f"{what}, rank {r}: {c['config']}, f32, kernels on: "
                 f"{served}{held}; every kernel call on the rank's shards "
                 f"within {c['kernel_err']:.3e} of its plain version; "
                 f"launches on the sharded path {c['launches']}; "
                 f"{c['stages']}")
             if dev.type == "cuda":
-                want = {"flash_attention", "flash_attention_backward"} | (
+                want = kernels or {"flash_attention",
+                                   "flash_attention_backward"} | (
                     {"decode_attention"} if "tokens" in c else set()) | (
                     {"grouped_matmul", "grouped_matmul_backward"}
-                    if key == "ep" else set())
+                    if key == ("ep",) else set())
                 if not want <= set(c["launches"]):
                     raise AssertionError(f"{phase} {what}: rank {r} "
                                          f"launched {c['launches']}, "
@@ -5249,7 +5350,7 @@ def sharded_world2(dev) -> dict:
                                          f"expected each of {sorted(want)}")
             for k, v in c["launches"].items():
                 seq[k] = seq.get(k, 0) + v
-    log(phase, f"(b) to (e): {wall:.1f} s of wall time for the spawn, "
+    log(phase, f"(b) to (f): {wall:.1f} s of wall time for the spawn, "
         f"{max(r['seconds'] for r in res):.1f} s in the ranks ({label}; "
         f"not a multi-GPU figure)")
     return seq

@@ -9,7 +9,9 @@ parameters, gradients (and the microbatch accumulator), optimizer state
 and batch or cache, each leaf's shard shape from the port's specs
 (``param_pspecs``, ``opt_pspecs``, ``input_pspecs``), with whether their
 sum fits one H100's 80 GB.  It also records whether the port's sharded
-steps run the cell, or the refusal they raise.  Every number is
+steps run the cell, or the refusal they raise (``port_refuses``: every
+family's train, prefill and decode steps run over ``model`` and the
+batch axes, so no cell of the registry is refused).  Every number is
 analytic: the meta tensors hold no memory, and activations and
 workspace are not counted.
 

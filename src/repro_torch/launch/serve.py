@@ -19,6 +19,11 @@ flash-decoding, ``models.attention.attend_range``).  With
 log-sum-exp over a slot range) and ``attention_combine`` at decode,
 ``grouped_matmul`` for the MoE's experts.
 
+Every family runs over ``model``: a hybrid's SSM state, an mLSTM's or
+sLSTM's state stays whole on every model rank (``cache_layout``), and an
+encoder-decoder's cross K/V is cut by heads, as the spec cuts it; its
+prefill step takes the frames, a VLM's its patch embeddings.
+
 A long-context decode step's cache is laid out unlike a prefill's (the
 reference's prefill step does not pass ``shard_seq``): ``cut_cache``
 cuts a whole cache, from a prefill on one device, to a step's spec.

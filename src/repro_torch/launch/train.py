@@ -181,31 +181,30 @@ def init_opt_state(params, acfg: AdamWConfig, mesh=None,
 # Refusals
 # ---------------------------------------------------------------------------
 
-# TP and EP over ``model`` cover the dense decoders and the MoE (ROADMAP
-# A6.1 for the rest): hymba's in_proj concatenates x and z along its
-# ``ff`` axis, so a contiguous shard splits them against the head layout
-TP_FAMILIES = ("dense", "moe")
+
+def _has_attention(cfg: ModelConfig) -> bool:
+    """Whether any block of the config attends (every kind but xLSTM's)."""
+    plans = cfg.plan() + (cfg.enc_plan() if cfg.is_encdec else [])
+    return any(spec.kind in ("attn", "enc", "dec", "hymba")
+               for seg in plans for spec, _ in seg.pattern)
 
 
 def check_mesh(cfg: ModelConfig, mesh, batch: Optional[int] = None,
                rules: shd.ShardingRules = shd.DEFAULT_RULES) -> None:
     """Raise ``ValueError``, naming the config and the mesh, for what the
-    port's sharded steps do not run: a family other than dense and MoE on
-    a model axis larger than one, a batch that does not split over the
-    batch axes, and a local attention shape no kernel takes (with
-    ``cfg.use_pallas``).  Shape logic only: ``mesh`` is any mesh-like
+    port's sharded steps do not run: a batch that does not split over the
+    batch axes, and with ``cfg.use_pallas`` a local attention shape no
+    kernel takes (the self attention's, and the cross attention's, whose
+    heads are cut alike).  Shape logic only: ``mesh`` is any mesh-like
     object (every rank's local shapes are alike)."""
     sizes = shd.mesh_axis_sizes(mesh)
     where = f"{cfg.name} on mesh {sizes}"
     m = sizes.get("model", 1)
-    if m > 1 and cfg.family not in TP_FAMILIES:
-        raise ValueError(f"{where}: a {cfg.family} config does not shard "
-                         f"over a model axis of {m} (ROADMAP A6.1)")
     b_axes = tuple(a for a in rules.batch_axes if a in sizes)
     if batch is not None and batch % shd.axes_size(b_axes, sizes):
         raise ValueError(f"{where}: a global batch of {batch} does not "
                          f"split over the batch axes {b_axes}")
-    if cfg.use_pallas and cfg.family in TP_FAMILIES:
+    if cfg.use_pallas and _has_attention(cfg):
         from repro_torch.kernels.attention_shapes import check_attention_shape
         from repro_torch.models.attention import local_kv_heads
 

@@ -30,7 +30,10 @@ grad, whose backward kernel takes the non-causal case too.
 
 On a mesh whose model axis cuts the heads (TP), ``qkv_project`` and
 ``out_project`` are where the shards meet: each rank projects its own
-heads and the output projection's partial sums are reduced.  A ring whose
+heads and the output projection's partial sums are reduced.  The cross
+attention does the same, its query input and the encoder's memory both
+entering through ``copy_to``; the cross K/V a decoder's cache keeps is
+cut by heads, as the reference's cache spec cuts it.  A ring whose
 KV heads the cache spec keeps whole gets every KV head of the new tokens,
 and each rank's query heads read theirs (``local_kv_heads``).
 
@@ -590,20 +593,14 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
     (fewer than the model axis) this rank takes the KV heads its query
     heads read, their weights through ``copy_to`` too, or every KV head
     with ``all_kv`` (for a ring that holds them all)."""
-    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    wq = params["wq"]
     q_scale, k_scale = params.get("q_scale"), params.get("k_scale")
-    q_off = prm.tp(wq, -2, cfg.n_heads)
-    if q_off is not None:
-        model = parallel.current().model
+    model, wk, wv = _head_shards(params, cfg, all_kv)
+    if model is not None:
         x = parallel.copy_to(x, model)
         if q_scale is not None:
             q_scale = parallel.copy_to(q_scale, model)
             k_scale = parallel.copy_to(k_scale, model)
-        if prm.tp(wk, -2, cfg.n_kv_heads) is None:
-            k0, k1 = (0, cfg.n_kv_heads) if all_kv else local_kv_heads(
-                cfg, q_off, wq.shape[-2])
-            wk = parallel.copy_to(wk, model)[..., k0:k1, :]
-            wv = parallel.copy_to(wv, model)[..., k0:k1, :]
     q = torch.einsum("bsd,dhk->bshk", x, wq)
     k = torch.einsum("bsd,dhk->bshk", x, wk)
     v = torch.einsum("bsd,dhk->bshk", x, wv)
@@ -614,6 +611,25 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
+
+
+def _head_shards(params: dict, cfg: ModelConfig, all_kv: bool = False):
+    """(model group, wk, wv) of a projection whose query heads the model
+    axis cuts, else (None, wk, wv): where the rules replicate the KV
+    heads (fewer than the model axis), the KV heads this rank's query
+    heads read, or all of them with ``all_kv``, their weights entering
+    the region through ``copy_to``."""
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    q_off = prm.tp(wq, -2, cfg.n_heads)
+    if q_off is None:
+        return None, wk, wv
+    model = parallel.current().model
+    if prm.tp(wk, -2, cfg.n_kv_heads) is None:
+        k0, k1 = (0, cfg.n_kv_heads) if all_kv else local_kv_heads(
+            cfg, q_off, wq.shape[-2])
+        wk = parallel.copy_to(wk, model)[..., k0:k1, :]
+        wv = parallel.copy_to(wv, model)[..., k0:k1, :]
+    return model, wk, wv
 
 
 def local_kv_heads(cfg: ModelConfig, q_off: int, n_q: int
@@ -671,10 +687,16 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """Encoder-decoder cross attention against the memory (B, T_enc, d),
-    projected here."""
+    projected here: this rank's query and KV heads where the model axis
+    cuts them, ``x`` and ``memory`` entering the region through
+    ``copy_to``."""
+    model, wk, wv = _head_shards(params, cfg)
+    if model is not None:
+        x = parallel.copy_to(x, model)
+        memory = parallel.copy_to(memory, model)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("btd,dhk->bthk", memory, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", memory, params["wv"])
+    k = torch.einsum("btd,dhk->bthk", memory, wk)
+    v = torch.einsum("btd,dhk->bthk", memory, wv)
     return out_project(params, _full(q, k, v, cfg, -1, False), cfg)
 
 
@@ -683,22 +705,41 @@ class CrossKV(NamedTuple):
     v: torch.Tensor
 
 
-def cross_kv_precompute(params: dict, memory: torch.Tensor) -> CrossKV:
-    k = torch.einsum("btd,dhk->bthk", memory, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", memory, params["wv"])
+def cross_kv_precompute(params: dict, memory: torch.Tensor,
+                        cfg: Optional[ModelConfig] = None,
+                        all_kv: bool = False) -> CrossKV:
+    """The cross K/V of the memory, once at prefill: this rank's KV heads
+    where the model axis cuts the heads, as the cache spec cuts the cross
+    K/V, or every KV head with ``all_kv`` (a cache that holds them all
+    while the query heads are cut)."""
+    wk, wv = params["wk"], params["wv"]
+    if cfg is not None:
+        model, wk, wv = _head_shards(params, cfg, all_kv)
+        if model is not None:
+            memory = parallel.copy_to(memory, model)
+    k = torch.einsum("btd,dhk->bthk", memory, wk)
+    v = torch.einsum("btd,dhk->bthk", memory, wv)
     return CrossKV(k, v)
 
 
 def cross_attention_cached(params: dict, x: torch.Tensor, ckv: CrossKV,
                            cfg: Optional[ModelConfig] = None
                            ) -> torch.Tensor:
-    """x (B, Sq, d) against precomputed cross K/V, every key valid.  With
+    """x (B, Sq, d) against precomputed cross K/V, every key valid: this
+    rank's query heads where the model axis cuts them, over the KV heads
+    they read (the cache's own, or a view of them where it holds every KV
+    head).  With
     ``cfg.use_pallas`` a decode step (Sq = 1) runs the ring decode kernel
     with ``kpos = arange(T_enc)`` and ``q_pos = T_enc - 1``, and a longer
     query block the flash kernel non-causal; else the reference's masked
     core."""
     b, sq = x.shape[:2]
     t = ckv.k.shape[1]
+    kc, vc = ckv
+    if cfg is not None:
+        if prm.tp(params["wq"], -2, cfg.n_heads) is not None:
+            x = parallel.copy_to(x, parallel.current().model)
+        kc, vc = _read_kv(params, cfg, kc), _read_kv(params, cfg, vc)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     h, dh = q.shape[2], q.shape[3]
     if cfg is not None and cfg.use_pallas:
@@ -707,13 +748,13 @@ def cross_attention_cached(params: dict, x: torch.Tensor, ckv: CrossKV,
                                 device=x.device)[None].expand(b, t)
             q_pos = torch.full((b,), t - 1, dtype=torch.int32,
                                device=x.device)
-            out = decode_attention(q.contiguous(), ckv.k.contiguous(),
-                                   ckv.v.contiguous(), kpos.contiguous(),
+            out = decode_attention(q.contiguous(), kc.contiguous(),
+                                   vc.contiguous(), kpos.contiguous(),
                                    q_pos, window=-1)
         else:
-            out = _full(q, ckv.k, ckv.v, cfg, -1, False)
+            out = _full(q, kc, vc, cfg, -1, False)
         return out_project(params, out, cfg)
-    hkv = ckv.k.shape[2]
+    hkv = kc.shape[2]
     mask = torch.ones((1, 1, 1, sq, t), dtype=torch.bool, device=x.device)
-    out = attn_core(_group(q, hkv), ckv.k, ckv.v, mask)
+    out = attn_core(_group(q, hkv), kc, vc, mask)
     return out_project(params, out.reshape(b, sq, h, dh), cfg)

@@ -243,6 +243,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                           cfg, live)
         if cache is not None:
             _copy_state(cache["ssm"], st)
+        # each branch is whole on every rank (its own reduce_from where
+        # the model axis cuts it), so their mean is reduced once
         x = x + 0.5 * (a + m)
     elif spec.parallel_block:
         # attention and FFN read the same normed input, summed
@@ -264,7 +266,9 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
             if memory is None:
                 raise ValueError("a cross-attention block's prefill needs "
                                  "the encoder's memory")
-            ckv = cross_kv_precompute(params["cross"], memory)
+            ckv = cross_kv_precompute(
+                params["cross"], memory, cfg,
+                all_kv=cache["cross"].k.shape[-2] == cfg.n_kv_heads)
             _copy_state(cache["cross"], ckv)
         else:
             ckv = cache["cross"]

@@ -1,7 +1,10 @@
 """Shared neural building blocks (port of ``repro/models/layers.py``):
 norms, rotary embeddings (M-RoPE included), the SwiGLU MLP, embeddings.
 Plain functions over parameter dicts, in the reference's weight layouts,
-so each einsum keeps the reference's subscripts.  The losses
+so each einsum keeps the reference's subscripts.  On a mesh whose model
+axis cuts a weight, the SwiGLU MLP is Megatron's column/row pair, and
+``gathered_columns`` / ``row_parallel`` are the two halves the recurrent
+blocks use around a region they run whole on every rank.  The losses
 (``softmax_xent``, ``chunked_unembed_xent``) take f32 logits, mask
 labels of -1 and reduce as the reference does."""
 from __future__ import annotations
@@ -110,6 +113,42 @@ def mlp(params: dict, x: torch.Tensor, ff: Optional[int] = None
     h = h * F.silu(g.float()).to(h.dtype)
     y = torch.einsum("...f,fd->...d", h, params["w_out"])
     return y if model is None else parallel.reduce_from(y, model)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel projections whose outputs do not follow the cut
+# ---------------------------------------------------------------------------
+
+
+def gathered_columns(eq: str, x: torch.Tensor, w: torch.Tensor,
+                     full: int) -> torch.Tensor:
+    """``einsum(eq, x, w)`` whole along its last dim, where the model axis
+    may cut ``w``'s last dim (``full`` wide) into column shards: ``x``
+    enters through ``copy_to`` and the ranks' columns are gathered whole
+    (``gather_keep``: backward, this rank's slice).  For an output whose
+    layout the cut does not follow (the x | z halves of an up-projection,
+    a recurrence's gates), which the replicated code after it reads
+    whole."""
+    if prm.tp(w, -1, full) is None:
+        return torch.einsum(eq, x, w)
+    model = parallel.current().model
+    y = torch.einsum(eq, parallel.copy_to(x, model), w)
+    return parallel.gather_keep(y, -1, model)
+
+
+def row_parallel(eq: str, x: torch.Tensor, w: torch.Tensor,
+                 full: int) -> torch.Tensor:
+    """``einsum(eq, x, w)`` contracting ``x``'s last dim (``full`` wide,
+    whole on every rank) with ``w``'s first, which the model axis may cut
+    into row shards: this rank takes its slice of ``x`` through
+    ``copy_to`` and the ranks' partial sums are reduced
+    (``reduce_from``)."""
+    off = prm.tp(w, 0, full)
+    if off is None:
+        return torch.einsum(eq, x, w)
+    model = parallel.current().model
+    x = parallel.copy_to(x, model).narrow(-1, off, w.shape[0])
+    return parallel.reduce_from(torch.einsum(eq, x, w), model)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,15 @@ Training differentiates all three: the scan under grad on the card is
 head-shared q and k get full-shape gradients that autograd's expand
 sums), and the sLSTM token loop runs under autograd as plain ops.
 
+On a mesh whose model axis cuts the blocks' ``ff`` weights (tensor
+parallelism, as the reference's specs cut them), every recurrence runs
+whole on every model rank, with its state: the up-projections' outputs
+(mamba's and the mLSTM's x | z, the sLSTM's four gates), whose layout
+the cut does not follow, are gathered whole (``layers.gathered_columns``),
+and the projections back into the residual (``out_proj``, ``down_proj``,
+the mLSTM's q/k/v/gate rows) are row-parallel (``layers.row_parallel``);
+the sLSTM's FFN is ``layers.mlp``.  No weight is gathered.
+
 Casts follow the reference, since the bf16 results depend on them: the
 dt and B/C projections in f32, silu through f32, dt folded into v in the
 model dtype.  A decode step takes a ``live`` (B,) bool mask: the state
@@ -40,7 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ssm_scan
 from repro_torch.kernels.ssm_scan import \
     ssm_scan_plain as chunked_linear_attention
-from repro_torch.models.layers import rmsnorm, rmsnorm_defs
+from repro_torch.models.layers import (gathered_columns, mlp, rmsnorm,
+                                       rmsnorm_defs, row_parallel)
 from repro_torch.models.params import P
 
 
@@ -106,8 +116,13 @@ def mamba_defs(cfg: ModelConfig) -> dict:
 
 
 def _mamba_qkv(params, x, cfg):
-    """Shared projections.  x: (B,T,d) -> (xs, z, B, C, dt, log_a)."""
-    xz = torch.einsum("btd,de->bte", x, params["in_proj"])
+    """Shared projections.  x: (B,T,d) -> (xs, z, B, C, dt, log_a).
+    On a mesh that cuts ``in_proj``'s columns, x and z are gathered whole
+    (a contiguous shard lies across the x | z boundary and across the
+    64-wide heads); B, C and dt come from replicated weights, so they
+    read the replicated input as it is."""
+    xz = gathered_columns("btd,de->bte", x, params["in_proj"],
+                          2 * mamba_dims(cfg)[0])
     xs, z = xz.chunk(2, dim=-1)
     bc = torch.einsum("btd,de->bte", x, params["bc_proj"]).float()
     b_in, c_out = bc.chunk(2, dim=-1)                          # (B,T,ds)
@@ -151,7 +166,7 @@ def mamba_branch(params: dict, x: torch.Tensor, cfg: ModelConfig
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b, t, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
-    out = torch.einsum("bte,ed->btd", y, params["out_proj"])
+    out = row_parallel("bte,ed->btd", y, params["out_proj"], d_inner)
     conv_k = params["conv_w"].shape[0]
     if t >= conv_k - 1:
         conv_state = xs_pre[:, t - (conv_k - 1):]
@@ -187,7 +202,7 @@ def mamba_branch_step(params: dict, x: torch.Tensor, state: SSMState,
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b, 1, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
-    out = torch.einsum("bte,ed->btd", y, params["out_proj"])
+    out = row_parallel("bte,ed->btd", y, params["out_proj"], d_inner)
     if live is not None:
         h_new = torch.where(live[:, None, None, None], h_new, state.h)
         conv_state = torch.where(live[:, None, None], conv_state, state.conv)
@@ -230,14 +245,20 @@ def _sqrt_as(dh: int, dtype: torch.dtype) -> float:
 
 
 def _mlstm_proj(params, xr, cfg):
+    """q, k (the input gate folded in), v with the normaliser column, the
+    forget gate's log and z.  On a mesh that cuts ``up_proj``'s columns
+    x and z are gathered whole, and ``wq``/``wk``/``wv``/``w_if``, cut on
+    their d_inner rows, are row-parallel: each rank's rows of x, the
+    partial sums reduced."""
     d_inner, nh, dh = mlstm_dims(cfg)
-    xz = torch.einsum("btd,de->bte", xr, params["up_proj"])
+    xz = gathered_columns("btd,de->bte", xr, params["up_proj"], 2 * d_inner)
     xs, z = xz.chunk(2, dim=-1)
     root = _sqrt_as(dh, xs.dtype)
-    q = torch.einsum("bte,ehd->bthd", xs, params["wq"]) / root
-    k = torch.einsum("bte,ehd->bthd", xs, params["wk"]) / root
-    v = torch.einsum("bte,ehd->bthd", xs, params["wv"])
-    gates = torch.einsum("bte,eh->bth", xs.float(), params["w_if"].float())
+    q = row_parallel("bte,ehd->bthd", xs, params["wq"], d_inner) / root
+    k = row_parallel("bte,ehd->bthd", xs, params["wk"], d_inner) / root
+    v = row_parallel("bte,ehd->bthd", xs, params["wv"], d_inner)
+    gates = row_parallel("bte,eh->bth", xs.float(), params["w_if"].float(),
+                         d_inner)
     i_g, f_g = gates.chunk(2, dim=-1)                          # (B,T,nh)
     log_a = F.logsigmoid(f_g)                                  # <= 0
     i_t = torch.sigmoid(i_g)
@@ -258,7 +279,7 @@ def _mlstm_out(params, y_aug, z, cfg):
     yf = yf * torch.rsqrt(var + 1e-6) * params["gn"]
     y = yf.to(z.dtype).reshape(b, t, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
-    return torch.einsum("bte,ed->btd", y, params["down_proj"])
+    return row_parallel("bte,ed->btd", y, params["down_proj"], d_inner)
 
 
 def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig
@@ -301,10 +322,15 @@ def mlstm_block_step(params: dict, x: torch.Tensor, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def slstm_ff(cfg: ModelConfig) -> int:
+    """The sLSTM's gated FFN width, ~4d/3 rounded up to 64."""
+    return -(-4 * cfg.d_model // 3 // 64) * 64
+
+
 def slstm_defs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     nh, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
-    ff = -(-4 * d // 3 // 64) * 64                  # gated FFN, ~4d/3
+    ff = slstm_ff(cfg)
     return {
         "norm": rmsnorm_defs(d),
         "w_gates": P((d, 4 * d), ("embed", "ff")),
@@ -349,16 +375,20 @@ def _slstm_cell(params, wx_t, state: SLSTMState, nh: int, dh: int
 
 
 def _slstm_ffn(params, x, cfg):
+    """The gated FFN: ``layers.mlp`` on the FFN's weights (Megatron's
+    column/row pair where the model axis cuts them)."""
     xr = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-    h = torch.einsum("btd,df->btf", xr, params["ffn_in"])
-    g = torch.einsum("btd,df->btf", xr, params["ffn_gate"])
-    h = h * F.silu(g.float()).to(h.dtype)
-    return x + torch.einsum("btf,fd->btd", h, params["ffn_out"])
+    return x + mlp({"w_in": params["ffn_in"], "w_gate": params["ffn_gate"],
+                    "w_out": params["ffn_out"]}, xr, slstm_ff(cfg))
 
 
 def _slstm_wx(params, x, cfg):
+    """The input's gate pre-activations (B, T, 4d) f32, once a block: on a
+    mesh that cuts ``w_gates``' columns the four gates are gathered whole,
+    since the recurrence reads every gate of a head."""
     xr = rmsnorm(params["norm"], x, cfg.norm_eps)
-    return torch.einsum("btd,de->bte", xr.float(), params["w_gates"].float())
+    return gathered_columns("btd,de->bte", xr.float(),
+                            params["w_gates"].float(), 4 * cfg.d_model)
 
 
 def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig

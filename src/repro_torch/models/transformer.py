@@ -224,7 +224,8 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 def _embed_inputs(params, cfg: ModelConfig, tokens, vision_embeds):
     """Token embeddings; a VLM's precomputed patch embeddings (B, P, d)
-    take the first P slots."""
+    take the first P slots once a vocabulary-cut embedding's ranks are
+    summed (``layers.embed``), so they enter the sum on no rank."""
     x = _embed(params, cfg, tokens)
     if vision_embeds is not None:
         p = vision_embeds.shape[1]

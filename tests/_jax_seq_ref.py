@@ -8,16 +8,22 @@ fixed when JAX starts:
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         PYTHONPATH=src python tests/_jax_seq_ref.py OUT.pkl
 
-It writes a pickle of numpy values: tiny-agent's f32 weights (seed 0,
-the attention projections at their true fan-in as the port's
-``rescale_to_true_fan_in`` sets them, ROADMAP §C, reference fault 5),
-and for each case (``CASES``) the prompt, the greedy tokens fed and the
-logits of the prefill and of every decode step.  ``(1, 4)``: tiny-agent's
-2 KV heads do not divide the model axis, so ``cache_pspecs`` cuts the
-ring's sequence over ``model`` (the GQA fallback).  ``(2, 1)``: a
-``long_*`` decode shape, a batch of one, so the ring's sequence is cut
-over ``data`` (``shard_seq``); its prefill step has no such layout, so
-the prefill's cache is put to the decode step's shardings first.
+It writes a pickle of numpy values: for each case (``CASES``) its
+config's name in the port's test ranks (``_torch_ranks.CONFIGS``), its
+f32 weights (seed 0, the attention projections at their true fan-in as
+the port's ``rescale_to_true_fan_in`` sets them, ROADMAP §C, reference
+fault 5), the prompt, an encoder-decoder's frames, the greedy tokens fed
+and the logits of the prefill and of every decode step.  ``gqa`` on
+``(1, 4)``: tiny-agent's 2 KV heads do not divide the model axis, so
+``cache_pspecs`` cuts the ring's sequence over ``model`` (the GQA
+fallback).  ``long`` on ``(2, 1)``: a ``long_*`` decode shape, a batch of
+one, so the ring's sequence is cut over ``data`` (``shard_seq``); its
+prefill step has no such layout, so the prefill's cache is put to the
+decode step's shardings first.  ``hymba`` and ``seamless`` on ``(1, 2)``:
+tensor parallelism over ``model`` of the hybrid smoke (its in_proj's x |
+z columns, out_proj's rows, heads and MLP cut) and of the
+encoder-decoder smoke with frames (the encoder's and the cross
+attention's heads cut, and the cross K/V by heads).
 """
 from __future__ import annotations
 
@@ -30,28 +36,41 @@ import numpy as np
 from jax.sharding import NamedSharding
 
 from repro import models
-from repro.configs import get_config
+from repro.configs import get_config, get_smoke
 from repro.configs.base import ShapeConfig
 from repro.launch import specs as specs_mod
 from repro.launch.mesh import make_mesh
 from repro.launch.serve import make_prefill_step, make_serve_step
 
-# (mesh shape, decode shape name, batch, prompt, decode steps)
-CASES = {"gqa": ((1, 4), "d", 2, 40, 6),
-         "long": ((2, 1), "long_d", 1, 140, 6)}
+# (mesh shape, decode shape name, batch, prompt, decode steps, config)
+CASES = {"gqa": ((1, 4), "d", 2, 40, 6, "tiny"),
+         "long": ((2, 1), "long_d", 1, 140, 6, "tiny"),
+         "hymba": ((1, 2), "d", 2, 12, 6, "hymba"),
+         "seamless": ((1, 2), "d", 2, 12, 6, "seamless")}
+# each config by its key in ``_torch_ranks.CONFIGS``, in f32
+CONFIGS = {"tiny": lambda: get_config("tiny-agent"),
+           "hymba": lambda: get_smoke("hymba-1.5b"),
+           "seamless": lambda: get_smoke("seamless-m4t-large-v2")}
 
 
 def prompt(case: str, vocab: int) -> np.ndarray:
-    _, _, b, s, _ = CASES[case]
+    _, _, b, s, _, _ = CASES[case]
     return np.random.default_rng(7).integers(0, vocab, (b, s)).astype(
         np.int32)
 
 
-def run(cfg, tree, case: str) -> dict:
-    mesh_shape, name, b, s, steps = CASES[case]
+def run(case: str) -> dict:
+    mesh_shape, name, b, s, steps, key = CASES[case]
+    cfg = CONFIGS[key]().replace(dtype="float32")
+    tree = true_fan_in(jax.device_get(models.init(cfg, jax.random.key(0))))
     mesh = make_mesh(mesh_shape, ("data", "model"))
     toks = prompt(case, cfg.vocab)
     d_shape = ShapeConfig(name, s, b, "decode")
+    enc = specs_mod._n_frames(s) if cfg.is_encdec else 0
+    extra = []
+    if cfg.is_encdec:
+        extra = [np.random.default_rng(8).normal(
+            size=(b, enc, cfg.d_model)).astype(np.float32)]
 
     def put(x, spec):
         return jax.tree.map(
@@ -62,9 +81,11 @@ def run(cfg, tree, case: str) -> dict:
                                         ShapeConfig("p", s, b, "prefill"))
         dec, dspecs = make_serve_step(cfg, mesh, d_shape)
         params = put(tree, pspecs["params"])
-        cache = models.init_cache(cfg, b, specs_mod.decode_context(d_shape))
+        cache = models.init_cache(cfg, b, specs_mod.decode_context(d_shape),
+                                  enc_len=enc)
         logits, cache = pre(params, put(toks, pspecs["batch"]),
-                            put(cache, pspecs["cache"]))
+                            put(cache, pspecs["cache"]),
+                            *(put(x, pspecs["batch"]) for x in extra))
         # the decode step's layout: for ``long_*`` the ring's sequence is
         # cut over ``data``, which the prefill's spec does not do
         cache = put(cache, dspecs["cache"])
@@ -74,9 +95,12 @@ def run(cfg, tree, case: str) -> dict:
             fed.append(nxt)
             logits, cache = dec(params, put(nxt, dspecs["batch"]), cache)
             out.append(np.asarray(logits))
-    return {"name": name, "batch": b, "prompt": toks, "fed": fed,
-            "logits": out,
-            "cache_spec": repr(dspecs["cache"]["segments"][0]["e0"]["kv"])}
+    res = {"config": key, "weights": tree, "name": name, "batch": b,
+           "prompt": toks, "fed": fed, "logits": out,
+           "cache_spec": repr(dspecs["cache"]["segments"][0]["e0"]["kv"])}
+    if extra:
+        res["extra"] = extra[0]
+    return res
 
 
 def true_fan_in(tree):
@@ -97,11 +121,7 @@ def true_fan_in(tree):
 
 
 def main(path: str) -> None:
-    cfg = get_config("tiny-agent").replace(dtype="float32")
-    tree = true_fan_in(jax.device_get(models.init(cfg, jax.random.key(0))))
-    out = {"weights": tree}
-    for case in CASES:
-        out[case] = run(cfg, tree, case)
+    out = {case: run(case) for case in CASES}
     with open(path, "wb") as f:
         pickle.dump(out, f)
 

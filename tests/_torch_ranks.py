@@ -27,6 +27,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import parallel
 from repro_torch.launch import serve as serve_mod
+from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.train import (AdamWConfig, TrainPlan,
                                       init_opt_state, make_train_step)
@@ -55,7 +56,25 @@ CONFIGS = {
     "arctic": lambda: f32(get_smoke("arctic-480b")),
     "kimi": lambda: f32(get_smoke("kimi-k2-1t-a32b")),
     "hymba": lambda: f32(get_smoke("hymba-1.5b")),
+    # the families the model axis cuts only since A6.1: xLSTM (mLSTM and
+    # sLSTM, d_inner 128: up_proj's contiguous cut puts all of x on rank
+    # 0 of (1, 2) and all of z on rank 1, half each on (1, 4)), the VLM
+    # (4 heads over 2 KV heads, M-RoPE, patch embeddings) and the
+    # encoder-decoder (4 heads over 4 KV heads, cross attention)
+    # hymba's full-width layout at smoke size: 3 query heads over 1 KV
+    # head stay whole on a model axis of 2 (hymba-1.5b's 25 over 5), so
+    # the ring is cut over ``model`` and each rank decodes whole query
+    # heads over its slots; the mamba branch and the MLP are still cut
+    "hymba-whole": lambda: f32(get_smoke("hymba-1.5b")).replace(
+        n_heads=3, n_kv_heads=1, d_head=16),
+    "xlstm": lambda: f32(get_smoke("xlstm-350m")),
+    "qwen2vl": lambda: f32(get_smoke("qwen2-vl-2b")),
+    "seamless": lambda: f32(get_smoke("seamless-m4t-large-v2")),
 }
+
+# the VLM's patch embeddings over the first slots, and the encoder's frames
+GRID = (2, 3)
+FRAMES = 10
 
 
 def _params(cfg):
@@ -64,14 +83,43 @@ def _params(cfg):
     return p
 
 
+def vision_positions(b: int, n_text: int) -> np.ndarray:
+    """(B, P + n_text, 3): the GRID patches at (0, row, col), then text
+    whose three streams run on together from max(GRID)."""
+    gh, gw = GRID
+    hh, ww = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    vis = np.stack([np.zeros_like(hh), hh, ww], -1).reshape(gh * gw, 3)
+    text = np.repeat((max(gh, gw) + np.arange(n_text))[:, None], 3, 1)
+    pos = np.concatenate([vis, text]).astype(np.int32)
+    return np.broadcast_to(pos[None], (b,) + pos.shape).copy()
+
+
+def frontend(cfg, b: int, rng, frames: int = FRAMES) -> dict:
+    """A VLM's patch embeddings (B, P, d) or an encoder-decoder's frames
+    (B, frames, d), as tensors; nothing for any other config."""
+    if cfg.frontend == "patch":
+        return {"vision_embeds": torch.from_numpy((0.5 * rng.standard_normal(
+            (b, GRID[0] * GRID[1], cfg.d_model))).astype(np.float32))}
+    if cfg.is_encdec:
+        return {"frames": torch.from_numpy((0.5 * rng.standard_normal(
+            (b, frames, cfg.d_model))).astype(np.float32))}
+    return {}
+
+
 def _batch(cfg, b: int, s: int, seed: int = 0) -> dict:
+    """Tokens and labels, plus the family's inputs: a VLM's patch
+    embeddings at (B, S, 3) positions, an encoder-decoder's frames."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
     labels = np.roll(toks, -1, axis=1)
     labels[:, -1] = -1
     labels[0, -5:] = -1          # rank 0's rows hold fewer labels
-    return {"tokens": torch.from_numpy(toks),
-            "labels": torch.from_numpy(labels)}
+    out = {"tokens": torch.from_numpy(toks),
+           "labels": torch.from_numpy(labels), **frontend(cfg, b, rng)}
+    if cfg.frontend == "patch":
+        out["positions"] = torch.from_numpy(
+            vision_positions(b, s - GRID[0] * GRID[1]))
+    return out
 
 
 def _max_diff(a, b) -> float:
@@ -80,6 +128,15 @@ def _max_diff(a, b) -> float:
         raise AssertionError(f"{len(la)} leaves against {len(lb)}")
     return max(float((x.float() - y.float()).abs().max()) if x.numel() else
                0.0 for x, y in zip(la, lb))
+
+
+def _max_rel(a, b) -> float:
+    """The largest |difference| of a leaf over the leaf's largest
+    magnitude in ``b``, over the leaves."""
+    return max(float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max().clamp_min(1e-30))
+               for x, y in zip(prm.flatten(a)[0], prm.flatten(b)[0])
+               if x.numel())
 
 
 def _clone(tree):
@@ -103,17 +160,22 @@ def train_check(ctx, cfg, b: int, s: int, int8: bool, microbatch: int = 1,
     params = parallel.shard_tree(full, specs, ctx)
     opt = init_opt_state(params, acfg, ctx, cfg=cfg)
     ref_g = ref_step.grads(ref_p, batches[0])
-    out = {"grads": _max_diff(
-        parallel.gather_tree(step.grads(params, batches[0]), specs, ctx),
-        ref_g), "grad_max": _max_diff(ref_g, prm.tree_map(torch.zeros_like,
-                                                          ref_g))}
+    got_g = parallel.gather_tree(step.grads(params, batches[0]), specs, ctx)
+    out = {"grads": _max_diff(got_g, ref_g), "grad_rel": _max_rel(got_g,
+                                                                  ref_g),
+           "grad_max": _max_diff(ref_g, prm.tree_map(torch.zeros_like,
+                                                     ref_g))}
     losses, norms = [], []
-    for batch in batches:
+    for i, batch in enumerate(batches):
         ref_p, ref_o, rm = ref_step(ref_p, ref_o, batch)
         params, opt, m = step(params, opt, batch)
         losses.append(abs(float(m["loss"]) - float(rm["loss"])))
         norms.append(abs(float(m["grad_norm"]) - float(rm["grad_norm"]))
                      / max(float(rm["grad_norm"]), 1e-9))
+        if i == 0:
+            out.update(_first_update(
+                parallel.gather_tree(params, specs, ctx), ref_p, full, ref_g,
+                float(rm["grad_norm"]), acfg))
     out.update(loss=max(losses), loss0=losses[0], norm_rel=max(norms),
                params=_max_diff(parallel.gather_tree(params, specs, ctx),
                                 ref_p), moved=_max_diff(ref_p, full))
@@ -122,6 +184,32 @@ def train_check(ctx, cfg, b: int, s: int, int8: bool, microbatch: int = 1,
         out["ef_leaves"] = len(ef)
         out["ef_max"] = max(float(e.abs().max()) for e in ef)
     return out
+
+
+def _first_update(got, want, p0, grads, norm: float, acfg) -> dict:
+    """AdamW's first step is sign-like (m / sqrt(v) = sign(g)), so a
+    gradient element within f32 noise of zero may move either way by the
+    learning rate.  As ``tests/test_torch_train_families.py`` holds it:
+    the largest |difference| of the updated parameters where the clipped
+    gradient stands clear of that noise (above 1e-3 of the leaf's largest
+    and above 1e-4) over the leaf's largest magnitude (``params_sure``),
+    the share of elements so held, and whether every element moved by at
+    most the learning rate (with its weight decay) from where it was."""
+    clip = min(1.0, acfg.clip_norm / max(norm, 1e-30))
+    worst, held, total, bounded = 0.0, 0, 0, True
+    for x, y, x0, g in zip(*(prm.flatten(t)[0]
+                             for t in (got, want, p0, grads))):
+        g = g.abs() * clip
+        sure = (g > 1e-3 * g.max()) & (g > 1e-4)
+        held += int(sure.sum())
+        total += sure.numel()
+        if sure.any():
+            worst = max(worst, float((x - y).abs()[sure].max()
+                                     / y.abs().max().clamp_min(1e-30)))
+        bounded &= bool(((x - x0).abs() <= acfg.lr * (
+            1 + acfg.weight_decay * x0.abs()) + 1e-6).all())
+    return {"params_sure": worst, "held": held / max(total, 1),
+            "bounded": bounded}
 
 
 def serve_check(ctx, cfg, b: int, prompt: int, new: int,
@@ -139,22 +227,27 @@ def serve_check(ctx, cfg, b: int, prompt: int, new: int,
     toks = _batch(cfg, b, prompt)["tokens"]
     shape_p = ShapeConfig("p", prompt, b, "prefill")
     shape_d = ShapeConfig("long_d" if long else "d", prompt, b, "decode")
+    enc = specs_mod.enc_len(cfg, shape_d)
+    kw = frontend(cfg, b, np.random.default_rng(5), enc)
     dec, dspecs = serve_mod.make_serve_step(cfg, ctx, shape_d)
     params = parallel.shard_tree(full, dspecs["params"], ctx)
-    ref_cache = models.init_cache(cfg, b, prompt + 128, device="cpu")
+    ref_cache = models.init_cache(cfg, b, prompt + 128, device="cpu",
+                                  enc_len=enc)
     rows = serve_mod.local_rows(torch.arange(b), ctx, dspecs["batch"])
     with torch.no_grad():
-        ref, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+        ref, ref_cache = models.prefill(full, cfg, toks, ref_cache, **kw)
         if long:
-            whole = models.init_cache(cfg, b, prompt + 128, device="cpu")
-            logits, whole = models.prefill(full, cfg, toks, whole)
+            whole = models.init_cache(cfg, b, prompt + 128, device="cpu",
+                                      enc_len=enc)
+            logits, whole = models.prefill(full, cfg, toks, whole, **kw)
             logits = logits[rows]
             cache = serve_mod.cut_cache(whole, cfg, ctx, shape_d)
         else:
             pre, _ = serve_mod.make_prefill_step(cfg, ctx, shape_p)
             cache = serve_mod.init_cache(cfg, ctx, shape_d)
-            logits, cache = pre(params, toks, cache)
+            logits, cache = pre(params, toks, cache, *kw.values())
         diffs = [float((logits - ref[rows]).abs().max())]
+        scale = [float(ref.abs().max())]
         got, want = [logits.argmax(-1)], [ref[rows].argmax(-1)]
         nxt, ref_nxt = torch.zeros((b, 1), dtype=torch.long), None
         for _ in range(new):
@@ -163,33 +256,54 @@ def serve_check(ctx, cfg, b: int, prompt: int, new: int,
             logits, cache = dec(params, nxt, cache)
             ref, ref_cache = models.decode_step(full, cfg, ref_nxt, ref_cache)
             diffs.append(float((logits - ref[rows]).abs().max()))
+            scale.append(float(ref.abs().max()))
             got.append(logits.argmax(-1))
             want.append(ref[rows].argmax(-1))
-    kv = cache["segments"][0]["e0"]["kv"]
-    return {"logits": max(diffs), "tokens_equal":
-            bool(all(torch.equal(x, y) for x, y in zip(got, want))),
-            "tokens": int(sum(x.numel() for x in got)),
-            "kv_heads": int(kv.k.shape[-2]), "slots": int(kv.k.shape[-3]),
+    out = {"logits": max(diffs), "logit_max": max(scale), "tokens_equal":
+           bool(all(torch.equal(x, y) for x, y in zip(got, want))),
+           "tokens": int(sum(x.numel() for x in got))}
+    out.update(_first_ring(cache))
+    cross = _first(cache, "cross")
+    if cross is not None:
+        out["cross_heads"] = int(cross.k.shape[-2])
+    return out
+
+
+def _first(cache, key: str):
+    """The first layer's cache leaf ``key`` (a stacked ``KVCache`` or
+    ``CrossKV``), or None where its blocks keep none (xLSTM's)."""
+    return cache["segments"][0]["e0"].get(key)
+
+
+def _first_ring(cache) -> dict:
+    """The first layer's ring, where it has one: its KV heads, this
+    rank's slots and the ring's global slots."""
+    kv = _first(cache, "kv")
+    if kv is None:
+        return {}
+    return {"kv_heads": int(kv.k.shape[-2]), "slots": int(kv.k.shape[-3]),
             "ring": int(kv.kpos.shape[-1])}
 
 
 def jax_ref_check(ctx, case: str) -> dict:
-    """The sharded serve steps on tiny-agent's weights from the JAX
-    package, fed the greedy tokens of the JAX package's own serve steps
-    on the same mesh over a sequence-sharded ring (``_jax_seq_ref.py``,
-    run by the test into this spawn's directory): the largest |logits -
-    JAX logits| over the prefill and every decode step."""
+    """The sharded serve steps on a config's weights from the JAX package
+    (``CONFIGS[r["config"]]``, with its patch embeddings or frames where
+    the case has them), fed the greedy tokens of the JAX package's own
+    serve steps on the same mesh (``_jax_seq_ref.py``, run by the test
+    into this spawn's directory): the largest |logits - JAX logits| over
+    the prefill and every decode step, and the largest |JAX logits|."""
     with open(Path(RUN_DIR, "jax_seq_ref.pkl"), "rb") as f:
         ref = pickle.load(f)
-    cfg = tiny()
     r = ref[case]
+    cfg = CONFIGS[r["config"]]()
     b, s = r["batch"], r["prompt"].shape[1]
-    full = prm.from_jax(cfg, ref["weights"], device="cpu")
+    full = prm.from_jax(cfg, r["weights"], device="cpu")
     shape_d = ShapeConfig(r["name"], s, b, "decode")
     dec, dspecs = serve_mod.make_serve_step(cfg, ctx, shape_d)
     params = parallel.shard_tree(full, dspecs["params"], ctx)
     rows = serve_mod.local_rows(torch.arange(b), ctx, dspecs["batch"])
     toks = torch.from_numpy(r["prompt"]).long()
+    extra = [torch.from_numpy(r["extra"])] if "extra" in r else []
     with torch.no_grad():
         if r["name"].startswith("long"):
             whole = models.init_cache(cfg, b, s + 128, device="cpu")
@@ -200,16 +314,16 @@ def jax_ref_check(ctx, case: str) -> dict:
             pre, _ = serve_mod.make_prefill_step(
                 cfg, ctx, ShapeConfig("p", s, b, "prefill"))
             cache = serve_mod.init_cache(cfg, ctx, shape_d)
-            logits, cache = pre(params, toks, cache)
+            logits, cache = pre(params, toks, cache, *extra)
         diffs = [float((logits - torch.from_numpy(r["logits"][0])[rows])
                        .abs().max())]
         for fed, want in zip(r["fed"], r["logits"][1:]):
             logits, cache = dec(params, torch.from_numpy(fed).long(), cache)
             diffs.append(float((logits - torch.from_numpy(want)[rows])
                                .abs().max()))
-    kv = cache["segments"][0]["e0"]["kv"]
     return {"logits": max(diffs), "steps": len(r["fed"]),
-            "slots": int(kv.k.shape[-3]), "ring": int(kv.kpos.shape[-1])}
+            "logit_max": max(float(np.abs(x).max()) for x in r["logits"]),
+            **_first_ring(cache)}
 
 
 def dispatch_check(ctx, cfg, b: int, s: int) -> dict:
@@ -242,7 +356,9 @@ def dispatch_check(ctx, cfg, b: int, s: int) -> dict:
 
 
 def refusal_check(ctx, what: str) -> dict:
-    """The named refusal raises ValueError; returns its message."""
+    """The named refusal raises ValueError; returns its message.
+    ``tp-hybrid``, refused until the model axis cut the hybrid and
+    recurrent families, is now a step that builds (raised False)."""
     try:
         if what == "tp-hybrid":
             make_train_step(CONFIGS["hymba"](), ctx, TrainPlan(),
@@ -282,6 +398,28 @@ CHECKS = {
     "serve-tiny": lambda c: serve_check(c, CONFIGS["tiny"](), 4, 12, 6),
     "serve-arctic": lambda c: serve_check(c, CONFIGS["arctic"](), 4, 12, 6),
     "serve-hymba": lambda c: serve_check(c, CONFIGS["hymba"](), 4, 12, 6),
+    # tensor parallelism over ``model`` for the hybrid, recurrent, VLM and
+    # encoder-decoder smokes (hymba's 2 KV heads replicate on (1, 4),
+    # where its ring's sequence is cut; qwen2-vl's likewise)
+    # one step: the first is sign-like, so a second compounds f32 noise
+    # that the first's gradient elements near zero turn into lr-sized moves
+    "train-hymba-tp": lambda c: train_check(c, CONFIGS["hymba"](), 4, 16,
+                                            False, steps=1),
+    "train-hymba-whole": lambda c: train_check(
+        c, CONFIGS["hymba-whole"](), 4, 16, False, steps=1),
+    "train-xlstm": lambda c: train_check(c, CONFIGS["xlstm"](), 4, 16,
+                                         False, steps=1),
+    "train-qwen2vl": lambda c: train_check(c, CONFIGS["qwen2vl"](), 4, 16,
+                                           False, steps=1),
+    "train-seamless": lambda c: train_check(c, CONFIGS["seamless"](), 4, 16,
+                                            False, steps=1),
+    "serve-hymba-whole": lambda c: serve_check(c, CONFIGS["hymba-whole"](),
+                                               4, 12, 6),
+    "serve-xlstm": lambda c: serve_check(c, CONFIGS["xlstm"](), 4, 12, 6),
+    "serve-qwen2vl": lambda c: serve_check(c, CONFIGS["qwen2vl"](), 4, 12,
+                                           6),
+    "serve-seamless": lambda c: serve_check(c, CONFIGS["seamless"](), 4, 12,
+                                            6),
     # sequence-sharded rings: the GQA fallback over ``model`` (a prompt
     # past the first rank's range, so both ranks hold keys, and the
     # empty ranges of the ranks a 12-token prompt leaves empty), the
@@ -306,6 +444,8 @@ CHECKS = {
         c, CONFIGS["arctic"](), 2, 256),
     "jax-ref-gqa": lambda c: jax_ref_check(c, "gqa"),
     "jax-ref-long": lambda c: jax_ref_check(c, "long"),
+    "jax-ref-hymba": lambda c: jax_ref_check(c, "hymba"),
+    "jax-ref-seamless": lambda c: jax_ref_check(c, "seamless"),
     "refuse-tp-hybrid": lambda c: refusal_check(c, "tp-hybrid"),
     "refuse-local-shape": lambda c: refusal_check(c, "local-shape"),
     "refuse-batch-split": lambda c: refusal_check(c, "batch-split"),

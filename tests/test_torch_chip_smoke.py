@@ -1433,7 +1433,10 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     spawned gloo ranks, TP and EP on (1, 2) and DP + FSDP on (2, 1), held
     to the unsharded model; (d) and (e) the same ranks serving over a
     sequence-sharded ring (the GQA fallback on (1, 2), a long shape on
-    (2, 1)), both ranks holding keys, held to the unsharded model."""
+    (2, 1)), both ranks holding keys, held to the unsharded model; (f)
+    TP over ``model`` of the hymba, xlstm, qwen2-vl (patch embeddings)
+    and seamless (frames) smokes on (1, 2), served and trained, held to
+    the unsharded model."""
     monkeypatch.setattr(smoke, "SHARDED_FULL", "tiny-agent")
     monkeypatch.setattr(smoke, "SHARDED_PROMPT", 16)
     monkeypatch.setattr(smoke, "SHARDED_DECODE", 3)
@@ -1450,16 +1453,30 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(smoke, "SHARDED_LONG", ("tiny-agent", {}))
     monkeypatch.setattr(smoke, "SHARDED_LONG_RING", 192)
     monkeypatch.setattr(smoke, "SHARDED_LONG_PROMPT", 100)
+    monkeypatch.setattr(smoke, "SHARDED_FAMILIES", [
+        ("smoke:hymba-1.5b", {}), ("smoke:xlstm-350m", {}),
+        ("smoke:qwen2-vl-2b", {}), ("smoke:seamless-m4t-large-v2", {})])
+    monkeypatch.setattr(smoke, "VISION_GRID", (2, 3))
+    monkeypatch.setattr(smoke, "SHARDED_PATCHES", 4)
+    monkeypatch.setattr(smoke, "SHARDED_FRAMES", 12)
     seq = smoke.phase_sharded(torch.device("cpu"))
     assert seq == {}                     # the CPU launches no kernel
     out = capsys.readouterr().out
     assert "(a) world 1, gloo, mesh (1, 1), tiny-agent" in out
     assert "bit for bit" in out
     for what in ("(b) mesh (1, 2), TP, rank 0", "(b) mesh (1, 2), EP, rank 1",
-                 "(c) mesh (2, 1), DP + FSDP, rank 1"):
+                 "(c) mesh (2, 1), DP + FSDP, rank 1",
+                 "(f) mesh (1, 2), TP of hymba-1.5b, rank 1: "
+                 "hymba-1.5b width, 5 layer(s), f32",
+                 "(f) mesh (1, 2), TP of xlstm-350m, rank 0",
+                 "(f) mesh (1, 2), TP of qwen2-vl-2b, rank 1",
+                 "(f) mesh (1, 2), TP of seamless-m4t-large-v2, rank "
+                 "0: seamless-m4t-large-v2 width, 2 layer(s) + 2 encoder "
+                 "layer(s)"):
         assert what in out
-    assert out.count("greedy tokens equal the unsharded run's") == 4
-    assert out.count("equal rank 0's; train step loss") == 2
+    assert out.count("greedy tokens equal the unsharded run's") == 4 + 4
+    assert out.count("equal rank 0's; train step loss") == 2 + 4
+    assert out.count("gradient shards within") == 2 * (3 + 4)
     assert "(d) mesh (1, 2), GQA fallback: the ring cut over model, " \
         "rank 1: tiny-agent width, 2 layers, 4 heads over 1 KV head(s), " \
         "f32, kernels on, 132 of the ring's 264 slots" in out

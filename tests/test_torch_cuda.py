@@ -1645,9 +1645,10 @@ def test_world1_nccl_mesh_steps_bit_equal_to_mesh_less(cuda_device,
 @pytest.mark.cuda
 def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
     """chip_smoke's phase 38 ranks at smoke sizes: two gloo processes on
-    the one card, TP and EP on (1, 2) and DP + FSDP on (2, 1), each
-    config's tokens, loss and every gradient leaf held to the unsharded
-    model and every kernel call on a shard to its plain version."""
+    the one card, TP and EP on (1, 2), DP + FSDP on (2, 1) and TP of the
+    hymba, xlstm, qwen2-vl and seamless smokes on (1, 2), each config's
+    tokens, loss and every gradient shard held to the unsharded model
+    and every kernel call on a shard to its plain version."""
     import json
     from pathlib import Path
 
@@ -1661,7 +1662,11 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
              "serve_b": 2, "prompt": 16, "new": 16, "train_b": 2,
              "train_seq": 64, "gqa": ("tiny-agent", {"n_kv_heads": 1}),
              "gqa_b": 2, "gqa_prompt": 136, "long": ("tiny-agent", {}),
-             "long_ring": 192, "long_prompt": 100}
+             "long_ring": 192, "long_prompt": 100,
+             "families": [("smoke:hymba-1.5b", {}), ("smoke:xlstm-350m", {}),
+                          ("smoke:qwen2-vl-2b", {}),
+                          ("smoke:seamless-m4t-large-v2", {})],
+             "frames": 12, "patches": 4, "grid": (2, 3)}
     mp.start_processes(chip_smoke.sharded_rank,
                        args=(2, f"file://{tmp_path}/store", str(tmp_path),
                              "cuda", sizes), nprocs=2, start_method="spawn")
@@ -1670,9 +1675,10 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
     for got in res:
         assert "error" not in got, got["error"]
     for key in ("tp", "ep", "dp"):
-        # rank 0 holds the shared results to the unsharded model
-        assert res[0][key]["grad_err"] <= 1e-2
-        assert res[0][key]["loss_err"] <= 1e-4
+        # each rank holds its gradient shards to the unsharded model's
+        for got in res:
+            assert got[key]["grad_err"] <= 1e-2
+            assert got[key]["loss_err"] <= 1e-4
         assert res[1][key]["loss"] == res[0][key]["loss"]
         assert res[1][key]["launches"] == res[0][key]["launches"]
         assert res[0][key]["launches"].get("flash_attention", 0) > 0
@@ -1690,3 +1696,17 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
             assert got[key]["kernel_err"] <= 2e-5
             assert got[key]["launches"].get("decode_attention", 0) > 0
             assert got[key]["launches"].get("attention_combine", 0) > 0
+    # (f): TP of the other families, each kernel of its path launched
+    for i, (name, _) in enumerate(sizes["families"]):
+        c0 = res[0]["families"][i]
+        assert c0["logits"] <= chip_smoke.SHARDED_LOGIT_TOL
+        for got in res:
+            c = got["families"][i]
+            assert c["tokens"] == c0["tokens"] and c["loss"] == c0["loss"]
+            assert c["grad_err"] <= 1e-2 and c["loss_err"] <= 1e-4
+            assert c["kernel_err"] <= 1e-4
+            # at smoke width hymba's 2 KV heads divide the model axis, so
+            # its rings are cut by heads and no combine runs
+            want = chip_smoke.SHARDED_FAMILY_KERNELS[
+                name.removeprefix("smoke:")] - {"attention_combine"}
+            assert want <= set(c["launches"]), (name, c["launches"])

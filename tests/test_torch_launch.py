@@ -13,11 +13,20 @@ against its single-device steps.
   int8 moments, microbatches, one KV head replicated over the model
   axis), the arctic smoke (EP, forced drops at S < 256 and B > 1, and
   per-row dispatch at S 256), kimi's smoke (a dense first layer and a
-  shared expert) and hymba's (data axes only), each held to the
-  single-device step: greedy tokens equal; logits, losses, every
-  gradient leaf and every updated parameter within 1e-4
-  (``tests/test_torch_train.py``'s bands); the MoE's dropped fraction and
-  aux loss equal;
+  shared expert) and hymba's (data axes), each held to the single-device
+  step: greedy tokens equal; logits, losses, every gradient leaf and
+  every updated parameter within 1e-4 (``tests/test_torch_train.py``'s
+  bands); the MoE's dropped fraction and aux loss equal;
+* tensor parallelism over ``model`` of the hybrid, xLSTM, VLM and
+  encoder-decoder smokes (hymba, xlstm, qwen2-vl with patch embeddings
+  and (B, S, 3) positions, seamless with frames), train and serve on
+  (1, 2) and (1, 4) and train on (2, 2): greedy tokens equal, logits
+  within each config's band of ``tests/test_torch_train_families.py``
+  (1e-4; hymba 2e-3, seamless 1e-3), and one train step's loss,
+  gradient norm and every gradient leaf within it, each leaf relative to
+  its largest magnitude (the mLSTM's f32 noise), the updated parameters
+  where the gradient stands clear of f32 noise (AdamW's first step is
+  sign-like, as the family tests hold it);
 * serving over a sequence-sharded ring cache, held to the single device
   the same way, with each rank's slots (``S / n``): the GQA fallback over
   ``model`` (one KV head on (1, 2), tiny-agent's two on (1, 4), where
@@ -27,15 +36,19 @@ against its single-device steps.
   (2, 2) with a whole KV head under query heads cut over ``model``; and
   against the JAX package's own sharded serve steps on a forced
   four-device CPU mesh (``_jax_seq_ref.py``, a subprocess): the (1, 4)
-  GQA fallback and the (2, 1) ``long_*`` ring, logits within 1e-4;
-* the refusals: TP of a hybrid (the serve cells of hymba and qwen2-vl
-  too), a local attention shape no kernel takes, a batch that does not
-  split for training, compressed gradients without a pod axis, a
-  shape-only mesh of many devices;
+  GQA fallback and the (2, 1) ``long_*`` ring, logits within 1e-4, and
+  the hymba and seamless smokes (with frames) on (1, 2) within their
+  config's band;
+* every family over ``model`` accepted where it once was refused (the
+  hybrid, xLSTM, VLM and encoder-decoder configs on the CPU meshes and
+  the production mesh, their serve cells too); the refusals: a local
+  attention shape no kernel takes, a batch that does not split for
+  training, compressed gradients without a pod axis, a shape-only mesh
+  of many devices;
 * the dry run: a record for every applicable cell on both production
   meshes, its per-device parameter and optimizer bytes equal to the
-  reference's ``abstract_state`` cut by the reference's specs, and 28
-  refusals, each naming ROADMAP A6.1.
+  reference's ``abstract_state`` cut by the reference's specs, and none
+  refused.
 """
 import dataclasses
 import json
@@ -139,8 +152,7 @@ def test_dryrun_writes_every_cell_with_reference_bytes(tmp_path):
     live = [r for r in recs if "skipped" not in r]
     assert len(live) == 2 * 34
     refused = [r["port_refuses"] for r in live if r["port_refuses"]]
-    assert len(refused) == 28
-    assert all("ROADMAP A6.1" in why for why in refused), refused
+    assert refused == []
     meshes = {"single": dict(data=16, model=16),
               "multi": dict(pod=2, data=16, model=16)}
     for rec in live:
@@ -285,33 +297,44 @@ def _mesh(**axes) -> ShapeMesh:
 @pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-350m", "qwen2-vl-2b",
                                   "seamless-m4t-large-v2"])
 def test_tp_of_other_families_refused_by_name(name):
-    with pytest.raises(ValueError, match="A6.1"):
-        check_mesh(get_smoke(name), _mesh(data=1, model=2))
-    check_mesh(get_smoke(name), _mesh(data=2, model=1))
+    """Once refused over a model axis larger than one (ROADMAP A6.1), the
+    hybrid, xLSTM, VLM and encoder-decoder configs now pass
+    ``check_mesh`` on every mesh, their smokes and full widths, with the
+    kernels' local attention shapes checked (hymba's 25 heads and 5 KV
+    heads stay whole at 16-way TP, seamless's 16 go one a rank; at 4-way
+    TP qwen2-vl's 12 heads over 2 KV heads would leave a GQA group of 3,
+    which no kernel takes)."""
+    for cfg in (get_smoke(name), get_config(name)):
+        for mesh in (_mesh(data=1, model=2), _mesh(data=2, model=1),
+                     _mesh(data=1, model=4), _mesh(data=16, model=16),
+                     _mesh(pod=2, data=16, model=16)):
+            check_mesh(cfg, mesh)
+            if mesh.shape["model"] != 4:
+                check_mesh(cfg.replace(use_pallas=True), mesh)
 
 
 def test_sequence_sharded_cache_refused_for_serving():
-    """No serve cell is refused for a sequence-sharded ring any more: the
-    dense and MoE cells on the production mesh pass ``check_serve``,
-    those whose ring the spec cuts over ``model`` (the GQA fallback) or
-    over ``data`` (``long_*``) included; hymba's and qwen2-vl's serve
-    cells are refused for TP of their family alone (ROADMAP A6.1)."""
+    """No serve cell is refused: every family's cells on the production
+    mesh pass ``check_serve`` with the kernels on, those whose ring the
+    spec cuts over ``model`` (the GQA fallback: hymba's 5 KV heads and
+    qwen2-vl's 2, whole query heads over a rank's slots) or over
+    ``data`` (``long_*``) included, and seamless's cross K/V cut by
+    heads."""
     mesh = make_prod()
-    cut = 0
+    cut = served = 0
     for arch in ARCHS:
-        cfg = get_config(arch)
+        cfg = get_config(arch).replace(use_pallas=True)
         for name in ("prefill_32k", "decode_32k", "long_500k"):
             shape = SHAPES[name]
             if not shape_applicable(cfg, shape)[0]:
                 continue
             cache = specs_mod.input_pspecs(cfg, shape, mesh)["cache"]
             cut += any(s[-3] is not None for s in _ring_specs(cache))
-            if cfg.family in ("dense", "moe"):
-                check_serve(cfg, mesh, cache)
-            elif cfg.family in ("hybrid", "vlm"):
-                with pytest.raises(ValueError, match="A6.1"):
-                    check_serve(cfg, mesh, cache)
+            check_serve(cfg, mesh, cache)
+            served += 1
     assert cut == 17          # of the 80 cells of the single-pod mesh
+    # prefill_32k and decode_32k of the ten configs, long_500k of four
+    assert served == 24
     dan = get_config("h2o-danube-3-4b")
     long = SHAPES["long_500k"]
     spec = _ring_specs(specs_mod.input_pspecs(dan, long, mesh)["cache"])[0]
@@ -371,28 +394,53 @@ TRAIN = ["train-tiny-f32", "train-tiny-int8", "train-tiny-micro",
          "train-arctic", "train-arctic-drops", "train-kimi"]
 SERVE = ["serve-tiny", "serve-arctic"]
 MOE = ["dispatch-arctic", "dispatch-arctic-rows"]
+# tensor parallelism over ``model`` of the hybrid, xLSTM, VLM and
+# encoder-decoder smokes
+FAMILY_TRAIN = ["train-hymba-tp", "train-xlstm", "train-qwen2vl",
+                "train-seamless"]
+FAMILY_SERVE = ["serve-hymba", "serve-xlstm", "serve-qwen2vl",
+                "serve-seamless"]
+# hymba's full-width layout at smoke size: whole query heads over a ring
+# cut over ``model``, the mamba branch cut
+WHOLE_HEADS = ["train-hymba-whole", "serve-hymba-whole"]
+FAMILY = set(FAMILY_TRAIN + FAMILY_SERVE + WHOLE_HEADS)
 PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
-            "refuse-tp-hybrid", "serve-tiny-kv1", "serve-tiny-kv1-odd"]),
+            "refuse-tp-hybrid", "serve-tiny-kv1", "serve-tiny-kv1-odd"]
+          + FAMILY_TRAIN + FAMILY_SERVE + WHOLE_HEADS
+          + ["jax-ref-hymba", "jax-ref-seamless"]),
          ((2, 1), TRAIN + ["train-hymba", "serve-hymba"] + SERVE + MOE + [
             "refuse-batch-split", "serve-tiny-long", "serve-hymba-long",
             "serve-danube-long", "jax-ref-long", "refuse-compress-no-pod"]),
          ((2, 1, 1), ["train-tiny-int8", "train-tiny-compress",
                       "serve-tiny"])]
 PLAN4 = [((2, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
-            "serve-kv1-long"]),
-         ((1, 4), ["refuse-local-shape", "serve-tiny", "jax-ref-gqa"])]
+            "serve-kv1-long", "train-hymba-tp", "train-seamless"]),
+         ((1, 4), ["refuse-local-shape", "serve-tiny", "jax-ref-gqa"]
+          + FAMILY_TRAIN + FAMILY_SERVE)]
 CASES = [(shape, n, w) for w, plan in ((2, PLAN2), (4, PLAN4))
          for shape, names in plan for n in names]
-REFUSED = {"refuse-tp-hybrid": "A6.1",
-           "refuse-batch-split": "does not split",
+REFUSED = {"refuse-batch-split": "does not split",
            "refuse-compress-no-pod": "'pod'",
            "refuse-local-shape": "no kernel"}
-# the config of each serve check (``_torch_ranks.CONFIGS``)
+# refused until the model axis cut every family: now the step builds
+ACCEPTED = {"refuse-tp-hybrid"}
+# the config of each serve and JAX-reference check
+# (``_torch_ranks.CONFIGS``)
 SERVED = {"serve-tiny": "tiny", "serve-arctic": "arctic",
           "serve-hymba": "hymba", "serve-tiny-kv1": "tiny-kv1",
           "serve-tiny-kv1-odd": "tiny-kv1", "serve-tiny-long": "tiny",
           "serve-kv1-long": "tiny-kv1", "serve-hymba-long": "hymba",
-          "serve-danube-long": "danube"}
+          "serve-danube-long": "danube", "serve-xlstm": "xlstm",
+          "serve-qwen2vl": "qwen2vl", "serve-seamless": "seamless",
+          "serve-hymba-whole": "hymba-whole",
+          "jax-ref-hymba": "hymba", "jax-ref-seamless": "seamless"}
+# each family check's band: its config's in
+# ``tests/test_torch_train_families.py`` (1e-4 but for hymba, seamless)
+BAND = {"hymba": 2e-3, "seamless": 1e-3}
+
+
+def _band(name: str) -> float:
+    return BAND.get(SERVED.get(name) or name.split("-")[1], TOL)
 
 
 def _seq_shards(name: str, shape, kv: int, ring: int) -> int:
@@ -432,8 +480,18 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
     for r, res in enumerate(rank_results[world]):
         got = res[key]
         assert "error" not in got, f"rank {r}: {got.get('error')}"
-        if name.startswith("refuse-"):
+        if name in ACCEPTED:
+            assert not got["raised"], got
+        elif name.startswith("refuse-"):
             assert got["raised"] and REFUSED[name] in got["message"], got
+        elif name in FAMILY and name.startswith("train-"):
+            # one step, each gradient leaf relative to its largest
+            # magnitude, the update where the gradient clears f32 noise
+            band = _band(name)
+            assert got["grad_rel"] <= band, got
+            assert got["loss"] <= band and got["norm_rel"] <= band, got
+            assert got["params_sure"] <= band and got["held"] >= 0.3, got
+            assert got["bounded"] and got["moved"] > 10 * TOL, got
         elif name == "train-tiny-compress":
             # int8 on the wire: the gradients within the quantization step
             # of the two ranks' shares, the first loss (same weights) equal
@@ -445,16 +503,23 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             assert got["loss"] <= TOL and got["norm_rel"] <= TOL, got
             assert got["params"] <= TOL and got["moved"] > 10 * TOL, got
         elif name.startswith("serve-"):
+            # every served smoke within 1e-4, inside each config's band
             assert got["tokens_equal"] and got["logits"] <= TOL, got
             m = shape[-1]
             kv = ranks.CONFIGS[SERVED[name]]().n_kv_heads
+            if name == "serve-xlstm":            # recurrent state only
+                assert "kv_heads" not in got, got
+                continue
             assert got["kv_heads"] == (kv // m if kv % m == 0 else kv)
             n = _seq_shards(name, shape, kv, got["ring"])
             assert got["slots"] * n == got["ring"], got
+            if name == "serve-seamless":         # cross K/V cut by heads
+                assert got["cross_heads"] == kv // m, got
         elif name.startswith("jax-ref-"):
             # the port's sharded steps against the JAX package's own
-            assert got["steps"] == 6 and got["logits"] <= TOL, got
-            n = 4 if name == "jax-ref-gqa" else 2
+            band = _band(name)
+            assert got["steps"] == 6 and got["logits"] <= band, got
+            n = {"jax-ref-gqa": 4, "jax-ref-long": 2}.get(name, 1)
             assert got["slots"] * n == got["ring"], got
         elif name.startswith("dispatch-"):
             assert got["dropped_ref"] > 0
