@@ -256,7 +256,20 @@ code is non-zero and the final JSON line is not printed:
                  (flash and its backward, ring decode, ssm_scan and its
                  backward, attention_combine) launched on both ranks.
                  In (b), (c) and (f) every rank holds its own gradient
-                 shards to the unsharded model's.  (b) to (f) times are
+                 shards to the unsharded model's.  (b) and (f) train
+                 sequence parallel (``act_sharding``: each rank keeps
+                 its S / 2 rows of the residual stream between blocks),
+                 and each rank prints what remat kept at the layer
+                 boundaries (measured with saved_tensors_hooks), 1/2 of
+                 the whole-S figure beside it (computed), and
+                 max_memory_allocated over the train step; (c) has no
+                 model axis to cut over and keeps S whole.  (g) On
+                 (2, 1) a long-named decode shape, seamless-m4t-large-v2
+                 at full width, 1 + 1 layers, B 1, (e)'s ring and prompt:
+                 the cross K/V cut along its 992 encoder positions over
+                 data, 15 greedy steps equal the unsharded run's, every
+                 ring decode (with its log-sum-exp) and attention_combine
+                 call held to its plain version.  (b) to (g) times are
                  two processes sharing one card, not a multi-GPU figure.
 
 Every engine phase (4 to 23) replays its decode and mixed steps as CUDA
@@ -4723,6 +4736,13 @@ SHARDED_FAMILIES = [
 ]
 SHARDED_PATCHES = 16
 SHARDED_FRAMES = 512
+# (g) mesh (2, 1), a ``long``-named decode shape: seamless-m4t-large-v2 at
+# full width, 1 + 1 layers, B 1, (e)'s 4096-slot ring and 2100-token
+# prompt, whose 992 frames (``enc_len`` of the shape) the cache spec cuts
+# along the cross K/V's encoder axis over ``data``, 496 a rank; prefilled
+# on one device and cut to the step's spec, 15 greedy steps, each rank
+# attending over its encoder range and the ranks combining
+SHARDED_CROSS = ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1))
 # the kernels each (f) config runs on its shards: every rank launches
 # each of them on the path
 SHARDED_FAMILY_KERNELS = {
@@ -5020,11 +5040,18 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     specs = step.shardings["params"]
     params = parallel.shard_tree(full, specs, mesh)
     opt = init_opt_state(params, acfg, mesh, cfg=cfg)
-    with hold_sharded_calls() as held:
+    if dev.type == "cuda":
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+    with hold_sharded_calls() as held, models.boundary_saves() as saved:
         metrics, grads = step.grads(params, batch, with_metrics=True)
     worst = max(worst, held.check(where, torch.float32))
     del held
     sync(dev)
+    out.update(boundary_bytes(cfg, step.ctx, saved, b, s,
+                              sizes["frames"] if cfg.is_encdec else 0, where))
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if dev.type == "cuda" else None)
     marks.append(("sharded gradients, held", time.perf_counter()))
     launches = {k: v - start[k] + (used[k] if serve else 0)
                 for k, v in counts().items()}
@@ -5058,6 +5085,30 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     return out
 
 
+def boundary_bytes(cfg, ctx, saved: list, b: int, s: int, frames: int,
+                   where: str) -> dict:
+    """What remat kept at the layer boundaries of one sharded train step
+    (``models.boundary_saves``: each layer's input as its checkpoint
+    saved it, measured with saved_tensors_hooks) against the whole-S
+    figure, computed: each stack's layers x B_local x S x d x 4 (f32),
+    the decoder's at S and an encoder's at its ``frames``.  Where the
+    reference's rule cuts a stack's S over the model axis (m ranks) its
+    layers must have kept exactly 1/m of that; elsewhere all of it."""
+    m = ctx.size("model")
+    b_local = b // ctx.batch_world
+    stacks = [(cfg.n_layers, s)] + ([(cfg.enc_layers, frames)]
+                                    if cfg.is_encdec else [])
+    whole = sum(n * b_local * t * cfg.d_model * 4 for n, t in stacks)
+    want = sum(n * b_local * (t // m if ctx.seq_parallel(t) else t)
+               * cfg.d_model * 4 for n, t in stacks)
+    got = sum(n for _, n in saved)
+    if got != want or len(saved) != sum(n for n, _ in stacks):
+        raise AssertionError(f"{where}: remat kept {got} B in "
+                             f"{len(saved)} layer inputs, expected {want}")
+    return {"saved_bytes": got, "whole_bytes": whole, "m": m,
+            "saved_shapes": sorted({str(list(sh)) for sh, _ in saved})}
+
+
 def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
                      prompt: int, ring: int, new: int, long: bool,
                      rules: shd.ShardingRules = shd.DEFAULT_RULES) -> dict:
@@ -5070,7 +5121,9 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
     runs the unsharded model: greedy tokens equal, logits within
     SHARDED_LOGIT_TOL.  Returns the results, the rank's slots and the
     launches of the decode steps, counted from 0 just before them."""
-    cfg = get_config(name).replace(dtype="float32", use_pallas=True, **cut)
+    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
+           else get_config(name))
+    cfg = cfg.replace(dtype="float32", use_pallas=True, **cut)
     ref = dist.get_rank() == 0
     marks = [("start", time.perf_counter())]
     full = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -5085,6 +5138,11 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
                          device=dev)
+    # an encoder-decoder's frames, as many as the decode shape's cache
+    # holds (its cross K/V's encoder axis)
+    enc = specs_launch.enc_len(cfg, shape_d)
+    extra = sharded_frontend(cfg, b, 0, enc, gen, dev)
+    fkw = {"frames": extra[0]} if extra else {}
     rows = serve_launch.local_rows(torch.arange(b, device=dev), mctx,
                                    dspecs["batch"])
     worst = 0.0
@@ -5092,8 +5150,8 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
     marks.append(("init", time.perf_counter()))
     with torch.no_grad():
         if long:
-            whole = models.init_cache(cfg, b, ring, device=dev)
-            got, whole = models.prefill(full, cfg, toks, whole)
+            whole = models.init_cache(cfg, b, ring, device=dev, enc_len=enc)
+            got, whole = models.prefill(full, cfg, toks, whole, **fkw)
             got = got[rows]
             cache = serve_launch.cut_cache(whole, cfg, mesh, shape_d, rules)
             del whole
@@ -5102,10 +5160,11 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
                 "sharded", prompt, b, "prefill"))
             cache = serve_launch.init_cache(cfg, mesh, shape_d)
             with kernelwise(combine=True) as kw:
-                got, cache = pre(params, toks, cache)
+                got, cache = pre(params, toks, cache, *extra)
             worst = kw.max_err()
         kv = cache["segments"][0]["e0"]["kv"]
         slots = (kv.k.shape[-3], kv.kpos.shape[-1])
+        cross = cache["segments"][0]["e0"].get("cross")
         sync(dev)
         marks.append(("prefill", time.perf_counter()))
         got_t, logits = [], []
@@ -5132,16 +5191,22 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
             raise AssertionError(f"{where}: a kernel call on the rank's "
                                  f"shard differs from its plain version "
                                  f"by {worst}")
-        out = {"config": f"{cfg.name} width, {cfg.n_layers} layers, "
+        layers = f"{cfg.n_layers} layers" + (
+            f" + {cfg.enc_layers} encoder layer(s)" if cfg.is_encdec else "")
+        out = {"config": f"{cfg.name} width, {layers}, "
                          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV "
                          f"head(s)" + ("" if rules == shd.DEFAULT_RULES
                                        else ", weights whole on each rank"),
                "slots": list(slots), "kernel_err": worst, "calls": calls,
                "launches": {k: v for k, v in used.items() if v},
                "tokens": torch.stack(got_t, 1).tolist()}
+        if cross is not None:
+            out["cross"] = [cross.k.shape[-3], enc]
         if ref:
-            ref_cache = models.init_cache(cfg, b, ring, device=dev)
-            want, ref_cache = models.prefill(full, cfg, toks, ref_cache)
+            ref_cache = models.init_cache(cfg, b, ring, device=dev,
+                                          enc_len=enc)
+            want, ref_cache = models.prefill(full, cfg, toks, ref_cache,
+                                             **fkw)
             diffs, same = [], True
             for i, (g, t) in enumerate(zip(logits, got_t)):
                 if i:
@@ -5167,7 +5232,7 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
 
 def sharded_rank(rank: int, world: int, store: str, out_dir: str,
                  device_type: str, sizes: dict) -> None:
-    """A gloo rank of phase 38 (b) to (f), spawned by the phase (which
+    """A gloo rank of phase 38 (b) to (g), spawned by the phase (which
     passes the configs and sizes in ``sizes``): on the card both ranks
     share CUDA device 0."""
     if rank:
@@ -5205,6 +5270,10 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
         res["families"] = [sharded_case(tp, name, cut, dev,
                                         "sharded (f) TP", sizes)
                            for name, cut in sizes["families"]]
+        res["cross"] = sharded_seq_case(
+            dp, *sizes["cross"], dev, "sharded (g) long cross", 1,
+            sizes["long_prompt"], sizes["long_ring"], sizes["new"],
+            long=True, rules=SHARDED_LONG_RULES)
         res["seconds"] = time.perf_counter() - t0
     except Exception:
         import traceback
@@ -5222,7 +5291,9 @@ def phase_sharded(dev) -> dict:
     same ranks serving over a sequence-sharded ring, the GQA fallback on
     (1, 2) and a ``long`` shape on (2, 1) (``sharded_seq_case``); (f) the
     same ranks on (1, 2), TP of hymba, xlstm, qwen2-vl and seamless at
-    full width (``sharded_case``); then (a)
+    full width (``sharded_case``), (b) and (f) sequence parallel; (g) the
+    same ranks serving seamless under a ``long`` shape on (2, 1), its
+    cross K/V cut along the encoder axis (``sharded_seq_case``); then (a)
     world-1 NCCL steps bit-equal to mesh-less at agent-7b's full depth
     (``sharded_world1``), whose 50 GB would not leave the ranks room.  Times
     of (b) to (f) are two processes sharing one H100 over gloo, not a
@@ -5233,9 +5304,9 @@ def phase_sharded(dev) -> dict:
 
 
 def sharded_world2(dev) -> dict:
-    """(b) to (f): two gloo ranks spawned on the card (``sharded_rank``),
-    their results printed and held.  Returns the launches of (d)'s and
-    (e)'s decode steps, summed over the ranks: the main path of
+    """(b) to (g): two gloo ranks spawned on the card (``sharded_rank``),
+    their results printed and held.  Returns the launches of (d)'s, (e)'s
+    and (g)'s decode steps, summed over the ranks: the main path of
     ``attention_combine`` and of ring decode with its log-sum-exp."""
     phase = "sharded"
     import torch.multiprocessing as mp
@@ -5258,7 +5329,8 @@ def sharded_world2(dev) -> dict:
              "long_ring": SHARDED_LONG_RING,
              "long_prompt": SHARDED_LONG_PROMPT,
              "families": SHARDED_FAMILIES, "frames": SHARDED_FRAMES,
-             "patches": SHARDED_PATCHES, "grid": VISION_GRID}
+             "patches": SHARDED_PATCHES, "grid": VISION_GRID,
+             "cross": SHARDED_CROSS}
     mp.start_processes(sharded_rank, args=(2, sharded_store("world2"),
                                            str(out_dir), dev.type, sizes),
                        nprocs=2, start_method="spawn")
@@ -5301,6 +5373,21 @@ def sharded_world2(dev) -> dict:
                     f"{c['loss_err']:.2e}), its {c['leaves']} gradient "
                     f"shards within {c['grad_err']:.3e} of their leaf's "
                     f"largest magnitude")
+            # sequence parallelism over the model axis: every stack's S
+            # divides it here, so remat keeps 1/m of the whole-S figure
+            if c["saved_bytes"] * c["m"] != c["whole_bytes"]:
+                raise AssertionError(f"{phase} {what}: rank {r} kept "
+                                     f"{c['saved_bytes']} B at the layer "
+                                     f"boundaries, not 1/{c['m']} of "
+                                     f"{c['whole_bytes']}")
+            peak = ("not measured" if c["peak_gb"] is None
+                    else f"{c['peak_gb']:.3f} GB")
+            held += (f"; remat kept {c['saved_bytes']} B "
+                     f"({c['saved_bytes'] / 1e6:.3f} MB) at the layer "
+                     f"boundaries (inputs {', '.join(c['saved_shapes'])}), "
+                     f"1/{c['m']} of the whole-S figure {c['whole_bytes']} B "
+                     f"(computed: layers x B_local x S x d x 4); "
+                     f"max_memory_allocated over the train step {peak}")
             log(phase, f"{what}, rank {r}: {c['config']}, f32, kernels on: "
                 f"{served}{held}; every kernel call on the rank's shards "
                 f"within {c['kernel_err']:.3e} of its plain version; "
@@ -5320,7 +5407,9 @@ def sharded_world2(dev) -> dict:
     for key, what in (("gqa", "(d) mesh (1, 2), GQA fallback: the ring cut "
                               "over model"),
                       ("long", "(e) mesh (2, 1), long: the ring cut over "
-                               "data")):
+                               "data"),
+                      ("cross", "(g) mesh (2, 1), long: the ring and the "
+                                "cross K/V cut over data")):
         c0 = res[0][key]
         for r, got in enumerate(res):
             c = got[key]
@@ -5335,6 +5424,13 @@ def sharded_world2(dev) -> dict:
             served = (f"greedy tokens equal the unsharded run's ({n_tok} "
                       f"tokens), logits within {c['logits']:.3e}"
                       if not r else f"greedy tokens equal rank 0's")
+            if "cross" in c:
+                if c["cross"][0] * 2 != c["cross"][1]:
+                    raise AssertionError(f"{phase} {what}: rank {r} holds "
+                                         f"{c['cross'][0]} of "
+                                         f"{c['cross'][1]} frames")
+                served += (f"; the cross K/V {c['cross'][0]} of the "
+                           f"{c['cross'][1]} encoder positions")
             log(phase, f"{what}, rank {r}: {c['config']}, f32, kernels on, "
                 f"{local} of the ring's {total} slots: prefill + "
                 f"{sizes['new']} greedy tokens, {served}; every decode "
@@ -5350,7 +5446,7 @@ def sharded_world2(dev) -> dict:
                                          f"expected each of {sorted(want)}")
             for k, v in c["launches"].items():
                 seq[k] = seq.get(k, 0) + v
-    log(phase, f"(b) to (f): {wall:.1f} s of wall time for the spawn, "
+    log(phase, f"(b) to (g): {wall:.1f} s of wall time for the spawn, "
         f"{max(r['seconds'] for r in res):.1f} s in the ranks ({label}; "
         f"not a multi-GPU figure)")
     return seq

@@ -23,6 +23,16 @@ shards, explicit process groups, and collectives where the shards meet.
   so the sum is the global batch's mean) and ``gather_keep`` (forward
   all-gather, backward this rank's slice: logits gathered over the
   vocabulary for a loss every model rank computes alike).
+* Megatron-style sequence parallelism over ``model`` (the reference's
+  ``_constrain_act``): ``MeshContext.seq_parallel`` decides, once for a
+  stack, by the reference's rule, whether its residual stream is cut
+  along S; ``split_to`` (forward this rank's rows, backward all-gather)
+  enters it, ``gather_from`` along S opens a block's model-cut region,
+  ``scatter_from`` (forward reduce-scatter, backward all-gather) closes
+  it, and ``gather_keep`` along S leaves it.  The model code goes
+  through ``seq_gather``, ``enter``, ``leave`` and ``seq_weight``, which
+  are TP's ``copy_to`` / ``reduce_from`` (or nothing) where the stack's
+  S is whole.
 
 Every collective of a group of one rank is skipped, so a world of one
 runs the single-device step's operations exactly.  A collective that
@@ -166,6 +176,53 @@ class _GatherKeep(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
 
 
+class _ScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cat(g, ctx.dim, ctx.group), None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // group_size(group)
+        # a copy: the rows must not keep the whole tensor's storage alive
+        return x.narrow(dim, dist.get_rank(group) * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cat(g, ctx.dim, ctx.group), None, None
+
+
+class _OwnRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // group_size(ctx.group)
+        out = torch.zeros_like(g)
+        start = dist.get_rank(ctx.group) * n
+        out.narrow(ctx.dim, start, n).copy_(g.narrow(ctx.dim, start, n))
+        return out, None, None
+
+
+def _unflat(fn, x: torch.Tensor, lead):
+    """``fn`` on x (T, d) viewed as (*lead, d), flattened back to rows."""
+    if lead is None:
+        return fn(x)
+    return fn(x.view(*lead, x.shape[-1])).reshape(-1, x.shape[-1])
+
+
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """Forward all-reduce (sum), backward identity."""
     return x if group_size(group) == 1 else _ReduceFrom.apply(x, group)
@@ -184,6 +241,83 @@ def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def gather_keep(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Forward all-gather along ``dim``, backward this rank's slice."""
     return x if group_size(group) == 1 else _GatherKeep.apply(x, dim, group)
+
+
+def scatter_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Forward reduce-scatter along ``dim`` (the sum of the ranks' partial
+    sums, this rank's equal chunk), backward all-gather."""
+    return x if group_size(group) == 1 else _ScatterFrom.apply(x, dim, group)
+
+
+def split_to(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Forward this rank's equal chunk along ``dim`` of a tensor every rank
+    holds whole (a copy), backward all-gather."""
+    return x if group_size(group) == 1 else _SplitTo.apply(x, dim, group)
+
+
+def own_rows(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Forward the identity, backward this rank's chunk along ``dim`` of
+    the gradient and zeros elsewhere: a gradient every rank holds whole
+    becomes this rank's share of a sum over ``group``."""
+    return x if group_size(group) == 1 else _OwnRows.apply(x, dim, group)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: the hooks the model code calls
+# ---------------------------------------------------------------------------
+
+
+def _seq_ctx() -> Optional["MeshContext"]:
+    ctx = current()
+    return ctx if ctx is not None and ctx.seq else None
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """A block's input to its model-cut regions, from the residual stream
+    (its normed rows): with the stack's S cut over ``model`` the rows are
+    gathered along S (backward: the reduce-scatter of the regions'
+    partial gradients, ``gather_from``); else ``x`` itself."""
+    ctx = _seq_ctx()
+    return x if ctx is None else gather_from(x, 1, ctx.model)
+
+
+def enter(x: torch.Tensor, group, dim: int = 1, lead=None) -> torch.Tensor:
+    """A region's input (from ``seq_gather``) as the weights read it.
+    ``group``: the model group where the model axis cuts the weights,
+    None where they are whole.  S whole: TP's ``copy_to`` where cut, else
+    ``x``.  S cut: ``x`` where cut (its gradient is a partial sum, which
+    the gather's reduce-scatter sums); where whole, ``own_rows``, so the
+    whole gradient every rank computes alike enters that sum once.  S is
+    ``x``'s dim ``dim``, or with ``lead`` x is (T, d) tokens flattened
+    from (*lead, d) and S is ``lead``'s dim ``dim``."""
+    ctx = _seq_ctx()
+    if ctx is None:
+        return x if group is None else copy_to(x, group)
+    if group is not None:
+        return x
+    return _unflat(lambda t: own_rows(t, dim, ctx.model), x, lead)
+
+
+def leave(y: torch.Tensor, group, dim: int = 1, lead=None) -> torch.Tensor:
+    """A region's output back into the residual stream.  ``group`` as in
+    ``enter``: the ranks hold partial sums where it is given, the whole
+    output alike where it is None.  S whole: TP's ``reduce_from``, or
+    ``y``.  S cut: the reduce-scatter along S (``scatter_from``), or this
+    rank's rows (``split_to``); ``dim`` and ``lead`` as in ``enter``."""
+    ctx = _seq_ctx()
+    if ctx is None:
+        return y if group is None else reduce_from(y, group)
+    if group is not None:
+        return _unflat(lambda t: scatter_from(t, dim, ctx.model), y, lead)
+    return _unflat(lambda t: split_to(t, dim, ctx.model), y, lead)
+
+
+def seq_weight(w: torch.Tensor) -> torch.Tensor:
+    """A replicated weight applied to the residual stream's rows (a norm's
+    scale): with S cut each rank's gradient covers its rows only, so it
+    is summed over ``model`` (``copy_to``); else ``w``."""
+    ctx = _seq_ctx()
+    return w if ctx is None else copy_to(w, ctx.model)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +351,11 @@ class MeshContext:
                        else torch.device(mesh.device_type))
         self.row_axes = self.batch_axes
         self.ring_seq: Optional[Callable[[int], object]] = None
+        self.cross_seq = None
+        # set by the train and prefill steps from ``cfg.act_sharding``
+        self.act_sharding = False
+        # a stack's context whose residual stream is cut along S
+        self.seq = False
         ranks = mesh.mesh
         tuples = {tuple(a for a in cand if a in self.sizes)
                   for _, cands in self.rules.rules for cand in cands
@@ -290,17 +429,37 @@ class MeshContext:
     def row_world(self) -> int:
         return self.size(self.row_axes)
 
+    # -- sequence parallelism ---------------------------------------------
+
+    def seq_parallel(self, s: int) -> Optional["MeshContext"]:
+        """The context of a stack whose residual stream has ``s`` positions,
+        where the reference's ``_constrain_act`` cuts it: with
+        ``act_sharding`` on, a model axis larger than one, ``s > 1`` and
+        ``s`` a multiple of it, a copy whose blocks hold their rows of S
+        between blocks (``seq``); else None, and the stack keeps S
+        whole.  The copy shares the process groups."""
+        m = self.size("model")
+        if not self.act_sharding or m == 1 or s == 1 or s % m:
+            return None
+        ctx = copy.copy(self)
+        ctx.seq = True
+        return ctx
+
     # -- a serve step's cache ---------------------------------------------
 
     def for_serving(self, row_axes: tuple[str, ...],
-                    ring_seq: Callable[[int], object]) -> "MeshContext":
+                    ring_seq: Callable[[int], object],
+                    cross_seq=None) -> "MeshContext":
         """A copy for one serve step: its batch spec's axes ``row_axes``,
-        and ``ring_seq(slots)``, the mesh axis (a spec entry, or None)
-        that the step's cache spec cuts the sequence axis of a ring of
-        ``slots`` slots over.  The copy shares the process groups."""
+        ``ring_seq(slots)``, the mesh axis (a spec entry, or None) that
+        the step's cache spec cuts the sequence axis of a ring of
+        ``slots`` slots over, and ``cross_seq``, the entry it cuts the
+        cross attention K/V's encoder axis over.  The copy shares the
+        process groups."""
         ctx = copy.copy(self)
         ctx.row_axes = tuple(row_axes)
         ctx.ring_seq = ring_seq
+        ctx.cross_seq = cross_seq
         return ctx
 
     # -- FSDP -------------------------------------------------------------
@@ -378,12 +537,32 @@ def ring_shard(k: torch.Tensor, kpos: torch.Tensor) -> Optional[RingShard]:
     return RingShard(ctx.group(entry), n, r, r * local, local, total, entry)
 
 
-def context(mesh, rules=None) -> Optional[MeshContext]:
+def cross_shard(k: torch.Tensor) -> Optional[RingShard]:
+    """The current step's cut of a cross attention K/V along its encoder
+    axis (k ``(B, local, Hkv, dh)``, the rank's ``local`` positions of
+    ``local * n``), or None where the step's cache spec keeps it whole."""
+    ctx = current()
+    entry = None if ctx is None else ctx.cross_seq
+    n = 1 if entry is None else ctx.size(entry)
+    if n == 1:
+        return None
+    local, r = k.shape[-3], ctx.coord(entry)
+    return RingShard(ctx.group(entry), n, r, r * local, local, local * n,
+                     entry)
+
+
+def context(mesh, rules=None, act_sharding: bool = False
+            ) -> Optional[MeshContext]:
     """The context of a ``DeviceMesh``; None for no mesh, or a shape-only
-    mesh of one device (the single-device path).  A shape-only mesh of
-    more devices, or a DeviceMesh with no initialised process group,
-    raises."""
+    mesh of one device (the single-device path).  ``act_sharding``: a
+    train or prefill step's ``cfg.act_sharding``, under which a stack's
+    residual stream is cut along S where the reference cuts it
+    (``MeshContext.seq_parallel``).  A shape-only mesh of more devices,
+    or a DeviceMesh with no initialised process group, raises."""
     if mesh is None or isinstance(mesh, MeshContext):
+        if mesh is not None and mesh.act_sharding != act_sharding:
+            mesh = copy.copy(mesh)
+            mesh.act_sharding = act_sharding
         return mesh
     if not hasattr(mesh, "get_group"):
         from repro_torch.distributed.sharding import mesh_axis_sizes
@@ -401,7 +580,9 @@ def context(mesh, rules=None) -> Optional[MeshContext]:
     if not dist.is_initialized():
         raise RuntimeError("a sharded step needs an initialised process "
                            "group")
-    return MeshContext(mesh, rules)
+    ctx = MeshContext(mesh, rules)
+    ctx.act_sharding = act_sharding
+    return ctx
 
 
 def check_device(device, mesh_device: torch.device) -> None:

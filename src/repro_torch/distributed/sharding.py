@@ -182,17 +182,22 @@ def batch_pspec(mesh, rules: ShardingRules = DEFAULT_RULES,
 
 def maybe_constrain(x, spec: PartitionSpec):
     """The identity.  The reference pins a GSPMD layout here; the port's
-    layout is explicit (each rank holds its shard and the collectives of
-    ``distributed/parallel.py`` sit where the shards meet), so there is
-    nothing to constrain."""
+    layout is explicit: each rank holds its shard, and the collectives of
+    ``distributed/parallel.py`` sit where the shards meet (for the
+    layer-boundary activations of ``activation_pspec``, the sequence
+    cut of ``MeshContext.seq_parallel`` in ``models.transformer``), so
+    there is nothing to constrain."""
     return x
 
 
 def activation_pspec(mesh, seq: bool = True,
                      rules: ShardingRules = DEFAULT_RULES) -> PartitionSpec:
     """(B, S, D) layer-boundary activations: batch over the data axes and,
-    Megatron-style sequence parallelism, S over the model axis.  The
-    port's steps keep S whole (ROADMAP A6.3); this is the layout only."""
+    Megatron-style sequence parallelism, S over the model axis.  What the
+    port's train and prefill steps hold between blocks where the
+    reference's ``_constrain_act`` cuts S (``cfg.act_sharding``, S > 1
+    and a multiple of the model axis: ``MeshContext.seq_parallel``);
+    ``seq=False`` is the block interior, S gathered."""
     sizes = mesh_axis_sizes(mesh)
     b_entry = _entry(a for a in rules.batch_axes if a in sizes)
     s_entry = rules.seq_axis if (seq and rules.seq_axis in sizes) else None

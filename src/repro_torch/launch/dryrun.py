@@ -7,13 +7,16 @@ the active parameters of an MoE), ``recurrent_correction`` (the
 recurrent scans' analytic FLOPs), and the per-device bytes of the
 parameters, gradients (and the microbatch accumulator), optimizer state
 and batch or cache, each leaf's shard shape from the port's specs
-(``param_pspecs``, ``opt_pspecs``, ``input_pspecs``), with whether their
-sum fits one H100's 80 GB.  It also records whether the port's sharded
+(``param_pspecs``, ``opt_pspecs``, ``input_pspecs``), and for a train
+cell the layer-boundary activations remat keeps (``acts``: layers x
+B_local x S_local x d x itemsize, S cut over ``model`` where the
+reference's ``_constrain_act`` cuts it), with whether their sum fits
+one H100's 80 GB.  It also records whether the port's sharded
 steps run the cell, or the refusal they raise (``port_refuses``: every
 family's train, prefill and decode steps run over ``model`` and the
 batch axes, so no cell of the registry is refused).  Every number is
-analytic: the meta tensors hold no memory, and activations and
-workspace are not counted.
+analytic: the meta tensors hold no memory, and the activations inside
+a layer (remat's recompute) and workspace are not counted.
 
 The reference lowers and compiles each cell with XLA on 512 placeholder
 CPU devices and reads ``compiled.memory_analysis()`` and
@@ -162,6 +165,31 @@ def shard_bytes(tree, specs, mesh) -> int:
     return total
 
 
+def activation_bytes(cfg, shape, mesh, microbatch: int = 1) -> int:
+    """Per-device bytes of the layer inputs remat keeps through a train
+    step's backward: each stack's layers x B_local x S_local x d x
+    itemsize (the decoder's at the shape's S, an encoder's at its frame
+    count), B cut over the batch axes as ``batch_pspec`` cuts it and
+    into ``microbatch`` slices, one of which is in flight, and S over
+    ``model`` where the reference's ``_constrain_act`` cuts it
+    (``cfg.act_sharding``, S > 1 and a multiple of the model axis), as
+    the port's sequence-parallel steps hold it."""
+    sizes = shd.mesh_axis_sizes(mesh)
+    b_spec = shd.batch_pspec(mesh, batch_size=shape.global_batch)
+    b_local = shape.global_batch // shd.axes_size(b_spec[0], sizes)
+    b_local //= microbatch
+    m = sizes.get("model", 1)
+    stacks = [(cfg.plan(), shape.seq_len)]
+    if cfg.is_encdec:
+        stacks.append((cfg.enc_plan(), specs_mod.enc_len(cfg, shape)))
+    total = 0
+    for plan, s in stacks:
+        layers = sum(n * seg.repeat for seg in plan for _, n in seg.pattern)
+        cut = cfg.act_sharding and m > 1 and s > 1 and s % m == 0
+        total += layers * b_local * (s // m if cut else s) * cfg.d_model
+    return total * torch_dtype(cfg.dtype).itemsize
+
+
 def cell_record(arch: str, shape_name: str, mesh, mesh_name: str) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -182,7 +210,8 @@ def cell_record(arch: str, shape_name: str, mesh, mesh_name: str) -> dict:
         p_bytes = shard_bytes(params, shd.param_pspecs(cfg, mesh), mesh)
         by = {"params": p_bytes, "grads": p_bytes,
               "opt": shard_bytes(opt, opt_pspecs(cfg, mesh, acfg), mesh),
-              "batch": shard_bytes(ins["batch"], ins_specs["batch"], mesh)}
+              "batch": shard_bytes(ins["batch"], ins_specs["batch"], mesh),
+              "acts": activation_bytes(cfg, shape, mesh, plan.microbatch)}
         if plan.microbatch > 1:
             item = torch_dtype(plan.accum_dtype).itemsize
             p_dt = torch_dtype(cfg.dtype).itemsize

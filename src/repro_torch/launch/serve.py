@@ -21,8 +21,13 @@ log-sum-exp over a slot range) and ``attention_combine`` at decode,
 
 Every family runs over ``model``: a hybrid's SSM state, an mLSTM's or
 sLSTM's state stays whole on every model rank (``cache_layout``), and an
-encoder-decoder's cross K/V is cut by heads, as the spec cuts it; its
-prefill step takes the frames, a VLM's its patch embeddings.
+encoder-decoder's cross K/V is cut by heads, as the spec cuts it, and
+along its encoder axis where the spec cuts that too (``long_*``: each
+rank attends over its range and the ranks combine, as over a ring);
+its prefill step takes the frames, a VLM's its patch embeddings.  With
+``cfg.act_sharding`` the prefill step's residual stream is cut along S
+over ``model`` between blocks, where the reference's ``_constrain_act``
+cuts it (``MeshContext.seq_parallel``); decode (S = 1) never is.
 
 A long-context decode step's cache is laid out unlike a prefill's (the
 reference's prefill step does not pass ``shard_seq``): ``cut_cache``
@@ -63,7 +68,8 @@ def serving_context(cfg: ModelConfig, mctx, shape: ShapeConfig,
                     rules: shd.ShardingRules = shd.DEFAULT_RULES):
     """The mesh context of a serve step of ``shape``: its batch spec's
     axes, and the mesh axis its cache spec cuts each ring's sequence
-    over (``kv_entries``, as ``cache_pspecs``)."""
+    over and the cross K/V's encoder axis over (``kv_entries``, as
+    ``cache_pspecs``)."""
     b_mesh = shd.cache_batch_axes(shape.global_batch, mctx.sizes, rules)
     shard_seq = _shard_seq(shape)
 
@@ -71,14 +77,17 @@ def serving_context(cfg: ModelConfig, mctx, shape: ShapeConfig,
         return shd.kv_entries(slots, cfg.n_kv_heads, mctx.sizes, b_mesh,
                               rules, shard_seq)[0]
 
-    return mctx.for_serving(b_mesh, ring_seq)
+    enc = specs_mod.enc_len(cfg, shape)
+    return mctx.for_serving(b_mesh, ring_seq,
+                            ring_seq(enc) if enc else None)
 
 
 def _plan(cfg: ModelConfig, mesh, shape: ShapeConfig, rules, device):
     """(mesh context, device, specs) of a serve step, after the refusals."""
     spec_mesh = mesh if mesh is not None else _one_device()
     specs = _specs(cfg, spec_mesh, shape, rules)
-    mctx = parallel.context(mesh, rules)
+    mctx = parallel.context(mesh, rules, act_sharding=(
+        shape.kind == "prefill" and cfg.act_sharding))
     if mctx is None:
         return None, prm.resolve_device(device), specs
     check_serve(cfg, mctx, specs["cache"], rules)
@@ -90,22 +99,16 @@ def check_serve(cfg: ModelConfig, mesh, cache_specs,
                 rules: shd.ShardingRules = shd.DEFAULT_RULES) -> None:
     """Raise ``ValueError`` for a serve cell the port's steps do not run:
     ``check_mesh``'s refusals (a batch that does not split over the batch
-    axes is served replicated, as the reference's batch spec does), a
-    cross attention K/V cut along its encoder axis, and with
-    ``cfg.use_pallas`` a ring cut over ``model`` whose whole GQA group
-    (every query head over the ring's KV heads) no decode kernel takes.
-    Shape logic only."""
+    axes is served replicated, as the reference's batch spec does), and
+    with ``cfg.use_pallas`` a ring or cross K/V cut over ``model`` whose
+    whole GQA group (every query head over its KV heads) no decode kernel
+    takes.  Shape logic only."""
     check_mesh(cfg, mesh, None, rules)
     sizes = shd.mesh_axis_sizes(mesh)
     where = f"{cfg.name} on mesh {sizes}"
-    for kv in _kv_specs(cache_specs, CrossKV):
-        if shd.axes_size(kv[-3], sizes) > 1:
-            raise ValueError(f"{where}: the cache spec {kv} cuts the cross "
-                             f"attention's K/V along its encoder axis, "
-                             f"which the port's cross attention does not "
-                             f"combine over ranks")
     if cfg.use_pallas and any("model" in parallel.entry_axes(kv[-3])
-                              for kv in _kv_specs(cache_specs, KVCache)):
+                              for kv in _kv_specs(cache_specs,
+                                                  (KVCache, CrossKV))):
         from repro_torch.kernels.attention_shapes import check_attention_shape
 
         try:
@@ -153,8 +156,9 @@ def init_cache(cfg: ModelConfig, mesh, shape: ShapeConfig,
                rules: shd.ShardingRules = shd.DEFAULT_RULES, device=None):
     """This rank's shard of the step's ring cache, zeroed, as the step's
     cache spec cuts it: its rows of the batch, its KV heads or all of
-    them, and of a ring whose sequence axis the spec cuts its range of
-    the slots (``S / n``) with the whole ``kpos``."""
+    them, of a ring whose sequence axis the spec cuts its range of the
+    slots (``S / n``) with the whole ``kpos``, and of a cross K/V whose
+    encoder axis the spec cuts its range of the encoder positions."""
     mctx = parallel.context(mesh, rules)
     b = shape.global_batch
     ctx_len = _context_len(shape)
@@ -171,7 +175,8 @@ def init_cache(cfg: ModelConfig, mesh, shape: ShapeConfig,
         return size // sctx.size(sctx.ring_seq(size))
 
     return transformer.init_cache(local, b // sctx.row_world, ctx_len,
-                                  device=mctx.device, enc_len=enc,
+                                  device=mctx.device,
+                                  enc_len=enc // sctx.size(sctx.cross_seq),
                                   ring_slots=ring_slots)
 
 

@@ -18,7 +18,10 @@ On a mesh (a ``DeviceMesh`` from ``launch.mesh.make_mesh``) each rank
 holds its shard of the parameters and moments by ``param_pspecs`` and
 ``opt_pspecs``, takes its rows of the global batch (``batch_pspec``),
 and runs the model with the TP, EP and FSDP collectives of
-``distributed.parallel``; after the backward each leaf's gradient is
+``distributed.parallel``, with ``cfg.act_sharding`` its residual stream
+cut along S over ``model`` between blocks where the reference's
+``_constrain_act`` cuts it (sequence parallelism: remat keeps 1/m of
+each layer's input); after the backward each leaf's gradient is
 summed over the batch axes its spec does not cut (FSDP's gathers already
 reduce-scattered the rest), and the clip's norm is summed over the
 ranks.  With ``plan.compress_grads`` the sum over ``pod`` of the leaves
@@ -286,7 +289,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     ``compress_grads``."""
     plan = plan or TrainPlan()
     acfg = acfg or AdamWConfig(int8_moments=plan.int8_moments)
-    ctx = parallel.context(mesh, rules)
+    ctx = parallel.context(mesh, rules, act_sharding=cfg.act_sharding)
     if ctx is None:
         dev = resolve_device(device)
     else:

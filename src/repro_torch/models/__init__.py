@@ -7,18 +7,18 @@
 >>> pool = models.init_cache(cfg, 8, 4096, layout="paged", num_pages=512)
 """
 from repro_torch.models.params import from_jax
-from repro_torch.models.transformer import (AUX_WEIGHT, decode_step,
-                                            default_positions, encode,
-                                            forward, hidden_states, init,
-                                            init_cache, loss_fn, model_defs,
-                                            paged_extract, paged_insert,
-                                            param_count, prefill,
-                                            prefill_paged,
+from repro_torch.models.transformer import (AUX_WEIGHT, boundary_saves,
+                                            decode_step, default_positions,
+                                            encode, forward, hidden_states,
+                                            init, init_cache, loss_fn,
+                                            model_defs, paged_extract,
+                                            paged_insert, param_count,
+                                            prefill, prefill_paged,
                                             prefill_paged_padded)
 
 __all__ = [
-    "AUX_WEIGHT", "decode_step", "default_positions", "encode", "forward",
-    "from_jax", "hidden_states", "init", "init_cache", "loss_fn",
-    "model_defs", "paged_extract", "paged_insert", "param_count", "prefill",
-    "prefill_paged", "prefill_paged_padded",
+    "AUX_WEIGHT", "boundary_saves", "decode_step", "default_positions",
+    "encode", "forward", "from_jax", "hidden_states", "init", "init_cache",
+    "loss_fn", "model_defs", "paged_extract", "paged_insert", "param_count",
+    "prefill", "prefill_paged", "prefill_paged_padded",
 ]

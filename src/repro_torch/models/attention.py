@@ -44,7 +44,14 @@ whose slots fall in its range (``cache_write_range``), prefill attends
 over the prompt as before, and decode (``attend_range``) attends over
 the rank's slots alone, with the query heads of the whole model axis
 where the ring is cut over it, and combines the ranks' partial softmaxes
-by their log-sum-exps (``kernels.attention_combine``).
+by their log-sum-exps (``kernels.attention_combine``).  A cross K/V cut
+along its encoder axis (``parallel.cross_shard``) is read the same way
+by a decode step's ``cross_attention_cached``.
+
+Where the stack's S is cut over ``model`` (sequence parallelism), the
+projections' input arrives gathered along S and ``out_project`` leaves
+this rank's rows (``parallel.enter`` / ``leave``); the attention itself
+runs over the whole sequence.
 
 JAX updates caches functionally and donates the old buffers; here ring
 and pool are updated in place (``index_put_``) and the same tensors are
@@ -477,7 +484,7 @@ def self_attention_cached(params: dict, x: torch.Tensor, cache: KVCache,
     shard = parallel.ring_shard(cache.k, cache.kpos)
     if shard is not None:
         cache = cache_write_range(cache, k, v, pos1[:, 0], shard, live)
-        out = attend_range(params, q, cache, pos1, cfg, spec, shard)
+        out = attend_range(params, q, cache, pos1, cfg, spec.window, shard)
         return out_project(params, out, cfg), cache
     cache = cache_write(cache, k, v, pos1[:, 0], live)
     kc, vc = _read_kv(params, cfg, cache.k), _read_kv(params, cfg, cache.v)
@@ -491,7 +498,7 @@ def self_attention_cached(params: dict, x: torch.Tensor, cache: KVCache,
 
 
 def attend_range(params: dict, q: torch.Tensor, cache: KVCache,
-                 pos1: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
+                 pos1: torch.Tensor, cfg: ModelConfig, window: int,
                  shard: parallel.RingShard) -> torch.Tensor:
     """Attention of this rank's query heads q (B,Sq,H,dh) over a ring cut
     along its sequence axis: every rank of the ring's group attends over
@@ -517,11 +524,11 @@ def attend_range(params: dict, q: torch.Tensor, cache: KVCache,
     if cfg.use_pallas and sq == 1:
         out, lse = decode_attention(q.contiguous(), k, v, kpos,
                                     pos1[:, 0].contiguous(),
-                                    window=spec.window, with_lse=True)
+                                    window=window, with_lse=True)
         lse = lse[:, None]
     else:
         out, lse = attention_cached_lse(q, KVCache(k, v, kpos), pos1,
-                                        window=spec.window)
+                                        window=window)
     outs = parallel.all_gather(out.float(), shard.group)
     lses = parallel.all_gather(lse, shard.group)
     if gather_q:
@@ -596,8 +603,8 @@ def qkv_project(params: dict, x: torch.Tensor, cfg: ModelConfig,
     wq = params["wq"]
     q_scale, k_scale = params.get("q_scale"), params.get("k_scale")
     model, wk, wv = _head_shards(params, cfg, all_kv)
+    x = parallel.enter(x, model)
     if model is not None:
-        x = parallel.copy_to(x, model)
         if q_scale is not None:
             q_scale = parallel.copy_to(q_scale, model)
             k_scale = parallel.copy_to(k_scale, model)
@@ -647,11 +654,14 @@ def local_kv_heads(cfg: ModelConfig, q_off: int, n_q: int
 def out_project(params: dict, out: torch.Tensor,
                 cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """The output projection; where the model axis cuts the heads the
-    ranks' partial sums are reduced (``reduce_from``)."""
+    ranks' partial sums are reduced (``reduce_from``), and where the
+    stack's S is cut the output leaves as this rank's rows
+    (``parallel.leave``)."""
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    if cfg is not None and prm.tp(params["wo"], -3, cfg.n_heads) is not None:
-        y = parallel.reduce_from(y, parallel.current().model)
-    return y
+    if cfg is None:
+        return y
+    cut = prm.tp(params["wo"], -3, cfg.n_heads) is not None
+    return parallel.leave(y, parallel.current().model if cut else None)
 
 
 def _pos1d(positions: torch.Tensor) -> torch.Tensor:
@@ -691,8 +701,8 @@ def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
     cuts them, ``x`` and ``memory`` entering the region through
     ``copy_to``."""
     model, wk, wv = _head_shards(params, cfg)
+    x = parallel.enter(x, model)
     if model is not None:
-        x = parallel.copy_to(x, model)
         memory = parallel.copy_to(memory, model)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("btd,dhk->bthk", memory, wk)
@@ -723,7 +733,8 @@ def cross_kv_precompute(params: dict, memory: torch.Tensor,
 
 
 def cross_attention_cached(params: dict, x: torch.Tensor, ckv: CrossKV,
-                           cfg: Optional[ModelConfig] = None
+                           cfg: Optional[ModelConfig] = None,
+                           shard: Optional[parallel.RingShard] = None
                            ) -> torch.Tensor:
     """x (B, Sq, d) against precomputed cross K/V, every key valid: this
     rank's query heads where the model axis cuts them, over the KV heads
@@ -732,16 +743,29 @@ def cross_attention_cached(params: dict, x: torch.Tensor, ckv: CrossKV,
     ``cfg.use_pallas`` a decode step (Sq = 1) runs the ring decode kernel
     with ``kpos = arange(T_enc)`` and ``q_pos = T_enc - 1``, and a longer
     query block the flash kernel non-causal; else the reference's masked
-    core."""
+    core.  ``shard``: the K/V is this rank's range of the encoder axis,
+    which the step's cache spec cuts (``parallel.cross_shard``: a
+    ``long_*`` decode step's ``shard_seq``); each rank attends over its
+    range with its log-sum-exp and the ranks combine, as
+    ``attend_range`` does over a ring's slots."""
     b, sq = x.shape[:2]
     t = ckv.k.shape[1]
     kc, vc = ckv
     if cfg is not None:
-        if prm.tp(params["wq"], -2, cfg.n_heads) is not None:
-            x = parallel.copy_to(x, parallel.current().model)
-        kc, vc = _read_kv(params, cfg, kc), _read_kv(params, cfg, vc)
+        x = parallel.enter(x, parallel.current().model if prm.tp(
+            params["wq"], -2, cfg.n_heads) is not None else None)
+        if shard is None:
+            kc, vc = _read_kv(params, cfg, kc), _read_kv(params, cfg, vc)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     h, dh = q.shape[2], q.shape[3]
+    if shard is not None:
+        kpos = torch.arange(shard.total, dtype=torch.int32,
+                            device=x.device)[None].expand(b, shard.total)
+        q_pos = torch.full((b, sq), shard.total - 1, dtype=torch.int32,
+                           device=x.device)
+        out = attend_range(params, q, KVCache(kc, vc, kpos), q_pos, cfg, -1,
+                           shard)
+        return out_project(params, out, cfg)
     if cfg is not None and cfg.use_pallas:
         if sq == 1:
             kpos = torch.arange(t, dtype=torch.int32,

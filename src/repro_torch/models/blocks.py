@@ -16,6 +16,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.models import ssm
 from repro_torch.models.attention import (CrossKV, PagedKVCache, attn_defs,
                                           cross_attention,
@@ -26,7 +27,7 @@ from repro_torch.models.attention import (CrossKV, PagedKVCache, attn_defs,
                                           self_attention_cached,
                                           self_attention_paged,
                                           self_attention_prefill)
-from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from repro_torch.models.layers import mlp, mlp_defs, rmsnorm_defs, row_norm
 from repro_torch.models.moe import moe_defs, moe_ffn
 
 _KINDS = ("attn", "enc", "dec", "hymba", "mlstm", "slstm")
@@ -216,7 +217,11 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
             _copy_state(cache[key], st)
         return (y, None) if with_aux else y
 
-    xr = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    # the regions read the normed rows gathered along S where the stack's
+    # S is cut (once for both of hymba's branches, and for a parallel
+    # block's attention and FFN); each region's output leaves as this
+    # rank's rows
+    xr = parallel.seq_gather(row_norm(params["norm1"], x, cfg.norm_eps))
     kv = cache["kv"] if cache is not None else None
     if cache is None:
         a = self_attention(params["attn"], xr, cfg, spec, positions,
@@ -243,8 +248,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                           cfg, live)
         if cache is not None:
             _copy_state(cache["ssm"], st)
-        # each branch is whole on every rank (its own reduce_from where
-        # the model axis cuts it), so their mean is reduced once
+        # each branch leaves the region on its own (``parallel.leave``:
+        # its reduce_from, or its reduce-scatter or rows along S)
         x = x + 0.5 * (a + m)
     elif spec.parallel_block:
         # attention and FFN read the same normed input, summed
@@ -258,10 +263,16 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         if memory is None:
             raise ValueError("a cross-attention block needs the encoder's "
                              "memory")
-        xq = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        xq = parallel.seq_gather(row_norm(params["norm_x"], x,
+                                          cfg.norm_eps))
         x = x + cross_attention(params["cross"], xq, memory, cfg)
     elif spec.cross_attention:
-        xq = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        xq = parallel.seq_gather(row_norm(params["norm_x"], x,
+                                          cfg.norm_eps))
+        # a rank's range of the encoder axis, where the step's cache spec
+        # cuts it: prefill stores its range and attends over the whole
+        # memory, a step attends over its range and the ranks combine
+        shard = parallel.cross_shard(cache["cross"].k)
         if mode == "prefill":
             if memory is None:
                 raise ValueError("a cross-attention block's prefill needs "
@@ -269,10 +280,12 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
             ckv = cross_kv_precompute(
                 params["cross"], memory, cfg,
                 all_kv=cache["cross"].k.shape[-2] == cfg.n_kv_heads)
-            _copy_state(cache["cross"], ckv)
+            _copy_state(cache["cross"], ckv if shard is None else CrossKV(
+                *(t[:, shard.lo:shard.lo + shard.local] for t in ckv)))
+            shard = None
         else:
             ckv = cache["cross"]
-        x = x + cross_attention_cached(params["cross"], xq, ckv, cfg)
-    y = _ffn(params, rmsnorm(params["norm2"], x, cfg.norm_eps), cfg, spec,
-             with_aux)
+        x = x + cross_attention_cached(params["cross"], xq, ckv, cfg, shard)
+    xf = parallel.seq_gather(row_norm(params["norm2"], x, cfg.norm_eps))
+    y = _ffn(params, xf, cfg, spec, with_aux)
     return (x + y[0], y[1]) if with_aux else x + y

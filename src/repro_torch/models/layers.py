@@ -4,7 +4,11 @@ Plain functions over parameter dicts, in the reference's weight layouts,
 so each einsum keeps the reference's subscripts.  On a mesh whose model
 axis cuts a weight, the SwiGLU MLP is Megatron's column/row pair, and
 ``gathered_columns`` / ``row_parallel`` are the two halves the recurrent
-blocks use around a region they run whole on every rank.  The losses
+blocks use around a region they run whole on every rank; where the
+stack's S is cut over ``model`` (sequence parallelism) a region's input
+arrives gathered along S (``parallel.seq_gather``), its output leaves as
+this rank's rows (``parallel.leave``), and ``row_norm`` normalises the
+residual stream's rows.  The losses
 (``softmax_xent``, ``chunked_unembed_xent``) take f32 logits, mask
 labels of -1 and reduce as the reference does."""
 from __future__ import annotations
@@ -34,6 +38,14 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"]).to(dt)
+
+
+def row_norm(params: dict, x: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """``rmsnorm`` of the residual stream.  Where the stack's S is cut over
+    ``model`` each rank normalises its own rows, so the scale's gradient
+    is summed over ``model`` (``parallel.seq_weight``)."""
+    return rmsnorm({"scale": parallel.seq_weight(params["scale"])}, x, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -103,16 +115,19 @@ def mlp(params: dict, x: torch.Tensor, ff: Optional[int] = None
     """SwiGLU.  ``ff`` is the full hidden width: where the model axis cuts
     it (TP: ``w_in`` and ``w_gate`` column shards, ``w_out`` a row
     shard), ``x`` enters through ``copy_to`` and the ranks' partial sums
-    are reduced."""
+    are reduced; where the stack's S is cut, ``x`` (B, S, d) comes
+    gathered and the output leaves as this rank's rows
+    (``parallel.enter`` / ``leave``)."""
     model = None
     if ff is not None and prm.tp(params["w_in"], -1, ff) is not None:
         model = parallel.current().model
-        x = parallel.copy_to(x, model)
+    if ff is not None:
+        x = parallel.enter(x, model)
     h = torch.einsum("...d,df->...f", x, params["w_in"])
     g = torch.einsum("...d,df->...f", x, params["w_gate"])
     h = h * F.silu(g.float()).to(h.dtype)
     y = torch.einsum("...f,fd->...d", h, params["w_out"])
-    return y if model is None else parallel.reduce_from(y, model)
+    return y if ff is None else parallel.leave(y, model)
 
 
 # ---------------------------------------------------------------------------
@@ -128,27 +143,32 @@ def gathered_columns(eq: str, x: torch.Tensor, w: torch.Tensor,
     (``gather_keep``: backward, this rank's slice).  For an output whose
     layout the cut does not follow (the x | z halves of an up-projection,
     a recurrence's gates), which the replicated code after it reads
-    whole."""
+    whole.  ``x`` is a region's input (``parallel.enter``)."""
     if prm.tp(w, -1, full) is None:
-        return torch.einsum(eq, x, w)
+        return torch.einsum(eq, parallel.enter(x, None), w)
     model = parallel.current().model
-    y = torch.einsum(eq, parallel.copy_to(x, model), w)
+    y = torch.einsum(eq, parallel.enter(x, model), w)
     return parallel.gather_keep(y, -1, model)
 
 
 def row_parallel(eq: str, x: torch.Tensor, w: torch.Tensor,
-                 full: int) -> torch.Tensor:
+                 full: int, residual: bool = False) -> torch.Tensor:
     """``einsum(eq, x, w)`` contracting ``x``'s last dim (``full`` wide,
     whole on every rank) with ``w``'s first, which the model axis may cut
     into row shards: this rank takes its slice of ``x`` through
     ``copy_to`` and the ranks' partial sums are reduced
-    (``reduce_from``)."""
+    (``reduce_from``).  ``residual``: the output goes back into the
+    residual stream (``parallel.leave``: this rank's rows where the
+    stack's S is cut)."""
     off = prm.tp(w, 0, full)
     if off is None:
-        return torch.einsum(eq, x, w)
+        y = torch.einsum(eq, x, w)
+        return parallel.leave(y, None) if residual else y
     model = parallel.current().model
     x = parallel.copy_to(x, model).narrow(-1, off, w.shape[0])
-    return parallel.reduce_from(torch.einsum(eq, x, w), model)
+    y = torch.einsum(eq, x, w)
+    return (parallel.leave(y, model) if residual
+            else parallel.reduce_from(y, model))
 
 
 # ---------------------------------------------------------------------------

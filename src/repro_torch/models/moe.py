@@ -71,9 +71,13 @@ def _expert_product(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
 
 
 def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
-                with_stats: bool = True, group=None):
+                with_stats: bool = True, group=None, lead=None):
     """Token-level MoE core: xt (T, d) -> (y (T, d), aux, dropped); the
-    two statistics are None without ``with_stats``.
+    two statistics are None without ``with_stats``.  ``lead``: the shape
+    the T tokens flatten, (B, S) or (S,).  Where the stack's S is cut
+    over ``model``, xt arrives gathered along S (``lead``'s last axis),
+    so routing, capacity and the statistics see every token, and y
+    leaves as this rank's rows of S (``parallel.leave``: T / m tokens).
 
     ``group``, a data-parallel process group whose ranks hold the other
     slices of the batch (in rank order), makes the dispatch the whole
@@ -83,14 +87,18 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     the model axis cuts the experts (EP), this rank runs only its
     experts' products and the combine's partial sums are reduced."""
     t, d = xt.shape
+    lead = (t,) if lead is None else tuple(lead)
+    sdim = len(lead) - 1
     e, k = cfg.n_experts, cfg.top_k
     dev = xt.device
     e_off = prm.tp(params["w_in"], -3, e)
     e_loc = params["w_in"].shape[-3]
     model = parallel.current().model if e_off is not None else None
+    # the router's weights are whole on every rank, the experts' may be cut
+    xin = parallel.enter(xt, model, sdim, lead)
 
     # --- routing (f32) -----------------------------------------------------
-    logits = xt.float() @ params["router"]
+    logits = parallel.enter(xt, None, sdim, lead).float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)        # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -118,7 +126,6 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     mine = keep & (sorted_expert >= e0) & (sorted_expert < e0 + e_loc)
     dest = torch.where(mine, (sorted_expert - e0) * c + pos_in_e, e_loc * c)
 
-    xin = xt if model is None else parallel.copy_to(xt, model)
     buf = xt.new_zeros((e_loc * c + 1, d))      # row e_loc*c: sink of drops
     buf[dest] = xin[order // k]
     buf = buf[:e_loc * c].view(e_loc, c, d)
@@ -138,8 +145,7 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     y_flat[order] = y_sorted
     gates = gate_vals if model is None else parallel.copy_to(gate_vals, model)
     y = (y_flat.view(t, k, d).float() * gates[..., None]).sum(dim=1)
-    if model is not None:
-        y = parallel.reduce_from(y, model)
+    y = parallel.leave(y, model, sdim, lead)
     if not with_stats:
         return y.to(xt.dtype), None, None
 
@@ -164,7 +170,9 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
             ) -> tuple[torch.Tensor, Optional[MoEStats]]:
     """x: (B, S, d) -> ((B, S, d), MoEStats, or None without
     ``with_stats``: the serve path drops the aux loss, as the
-    reference's engine does).
+    reference's engine does).  Where the stack's S is cut over
+    ``model``, x is the block's gathered input and the output this
+    rank's rows of S.
 
     Long batched inputs dispatch per row (the reference's GShard-style
     groups, there to keep its batch axis sharded), with capacity per
@@ -174,7 +182,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     ctx = parallel.current()
     world = ctx.row_world if ctx is not None else 1
     if s >= GROUPWISE_MIN_TOKENS and b * world > 1:
-        rows = [_moe_tokens(params, x[i], cfg, with_stats) for i in range(b)]
+        rows = [_moe_tokens(params, x[i], cfg, with_stats, lead=(s,))
+                for i in range(b)]
         y = torch.stack([r[0] for r in rows])
         if with_stats and world == 1:
             aux = torch.stack([r[1] for r in rows]).mean()
@@ -188,8 +197,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         yt, aux, dropped = _moe_tokens(
             params, x.reshape(b * s, d), cfg, with_stats,
-            ctx.rows if world > 1 else None)
-        y = yt.reshape(b, s, d)
+            ctx.rows if world > 1 else None, (b, s))
+        y = yt.reshape(b, -1, d)
 
     # --- shared experts (always-on) ------------------------------------------
     if "shared" in params:

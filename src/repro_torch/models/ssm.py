@@ -29,7 +29,12 @@ whole on every model rank, with its state: the up-projections' outputs
 the cut does not follow, are gathered whole (``layers.gathered_columns``),
 and the projections back into the residual (``out_proj``, ``down_proj``,
 the mLSTM's q/k/v/gate rows) are row-parallel (``layers.row_parallel``);
-the sLSTM's FFN is ``layers.mlp``.  No weight is gathered.
+the sLSTM's FFN is ``layers.mlp``.  No weight is gathered.  Where the
+stack's S is cut over ``model`` (sequence parallelism), each block
+normalises its rows (``layers.row_norm``), gathers them along S for its
+recurrence (``parallel.seq_gather``), which runs over the whole
+sequence on every rank as before, and adds back its rows of the output
+(``parallel.leave``).
 
 Casts follow the reference, since the bf16 results depend on them: the
 dt and B/C projections in f32, silu through f32, dt folded into v in the
@@ -46,11 +51,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import ssm_scan
 from repro_torch.kernels.ssm_scan import \
     ssm_scan_plain as chunked_linear_attention
-from repro_torch.models.layers import (gathered_columns, mlp, rmsnorm,
-                                       rmsnorm_defs, row_parallel)
+from repro_torch.models.layers import (gathered_columns, mlp, rmsnorm_defs,
+                                       row_norm, row_parallel)
 from repro_torch.models.params import P
 
 
@@ -120,10 +126,12 @@ def _mamba_qkv(params, x, cfg):
     On a mesh that cuts ``in_proj``'s columns, x and z are gathered whole
     (a contiguous shard lies across the x | z boundary and across the
     64-wide heads); B, C and dt come from replicated weights, so they
-    read the replicated input as it is."""
+    read the replicated input as it is (``parallel.enter`` of whole
+    weights)."""
     xz = gathered_columns("btd,de->bte", x, params["in_proj"],
                           2 * mamba_dims(cfg)[0])
     xs, z = xz.chunk(2, dim=-1)
+    x = parallel.enter(x, None)
     bc = torch.einsum("btd,de->bte", x, params["bc_proj"]).float()
     b_in, c_out = bc.chunk(2, dim=-1)                          # (B,T,ds)
     # the reference promotes the model-dtype dt_proj to f32 here
@@ -166,7 +174,8 @@ def mamba_branch(params: dict, x: torch.Tensor, cfg: ModelConfig
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b, t, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
-    out = row_parallel("bte,ed->btd", y, params["out_proj"], d_inner)
+    out = row_parallel("bte,ed->btd", y, params["out_proj"], d_inner,
+                       residual=True)
     conv_k = params["conv_w"].shape[0]
     if t >= conv_k - 1:
         conv_state = xs_pre[:, t - (conv_k - 1):]
@@ -202,7 +211,8 @@ def mamba_branch_step(params: dict, x: torch.Tensor, state: SSMState,
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b, 1, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
-    out = row_parallel("bte,ed->btd", y, params["out_proj"], d_inner)
+    out = row_parallel("bte,ed->btd", y, params["out_proj"], d_inner,
+                       residual=True)
     if live is not None:
         h_new = torch.where(live[:, None, None, None], h_new, state.h)
         conv_state = torch.where(live[:, None, None], conv_state, state.conv)
@@ -279,7 +289,8 @@ def _mlstm_out(params, y_aug, z, cfg):
     yf = yf * torch.rsqrt(var + 1e-6) * params["gn"]
     y = yf.to(z.dtype).reshape(b, t, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
-    return row_parallel("bte,ed->btd", y, params["down_proj"], d_inner)
+    return row_parallel("bte,ed->btd", y, params["down_proj"], d_inner,
+                        residual=True)
 
 
 def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig
@@ -287,7 +298,7 @@ def mlstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig
     """Full sequence: (B,T,d) -> ((B,T,d), final state (B, nh, dh, dh+1)
     f32).  With ``cfg.use_pallas`` the chunked scan is the ``ssm_scan``
     kernel (dk = dh, dv = dh + 1)."""
-    xr = rmsnorm(params["norm"], x, cfg.norm_eps)
+    xr = parallel.seq_gather(row_norm(params["norm"], x, cfg.norm_eps))
     q, k, v_aug, log_a, z = _mlstm_proj(params, xr, cfg)
     _, nh, dh = mlstm_dims(cfg)
     h0 = torch.zeros((x.shape[0], nh, dh, dh + 1), dtype=torch.float32,
@@ -309,7 +320,7 @@ def mlstm_block_step(params: dict, x: torch.Tensor, h: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode: x (B,1,d), h (B, nh, dh, dh+1) f32.  Rows outside ``live``
     keep their ``h``."""
-    xr = rmsnorm(params["norm"], x, cfg.norm_eps)
+    xr = row_norm(params["norm"], x, cfg.norm_eps)
     q, k, v_aug, log_a, z = _mlstm_proj(params, xr, cfg)
     y_aug, h_new = recurrent_step(q, k, v_aug, log_a, h)
     if live is not None:
@@ -377,7 +388,7 @@ def _slstm_cell(params, wx_t, state: SLSTMState, nh: int, dh: int
 def _slstm_ffn(params, x, cfg):
     """The gated FFN: ``layers.mlp`` on the FFN's weights (Megatron's
     column/row pair where the model axis cuts them)."""
-    xr = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+    xr = parallel.seq_gather(row_norm(params["ffn_norm"], x, cfg.norm_eps))
     return x + mlp({"w_in": params["ffn_in"], "w_gate": params["ffn_gate"],
                     "w_out": params["ffn_out"]}, xr, slstm_ff(cfg))
 
@@ -386,7 +397,7 @@ def _slstm_wx(params, x, cfg):
     """The input's gate pre-activations (B, T, 4d) f32, once a block: on a
     mesh that cuts ``w_gates``' columns the four gates are gathered whole,
     since the recurrence reads every gate of a head."""
-    xr = rmsnorm(params["norm"], x, cfg.norm_eps)
+    xr = parallel.seq_gather(row_norm(params["norm"], x, cfg.norm_eps))
     return gathered_columns("btd,de->bte", xr.float(),
                             params["w_gates"].float(), 4 * cfg.d_model)
 
@@ -394,16 +405,17 @@ def _slstm_wx(params, x, cfg):
 def slstm_block(params: dict, x: torch.Tensor, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, SLSTMState]:
     """Full sequence: (B,T,d) -> ((B,T,d), final state).  The recurrence
-    runs token by token, as the reference's ``lax.scan``."""
-    b, t, d = x.shape
+    runs token by token, as the reference's ``lax.scan``, over the whole
+    sequence on every rank (T the gathered length where S is cut)."""
+    b, _, d = x.shape
     nh, dh = cfg.n_heads, d // cfg.n_heads
     wx = _slstm_wx(params, x, cfg)                  # (B, T, 4d) f32
     state = init_slstm_state(b, cfg, x.device)
     hs = []
-    for i in range(t):
+    for i in range(wx.shape[1]):
         state = _slstm_cell(params, wx[:, i], state, nh, dh)
         hs.append(state.h)
-    x = x + torch.stack(hs, dim=1).to(x.dtype)
+    x = x + parallel.leave(torch.stack(hs, dim=1).to(x.dtype), None)
     return _slstm_ffn(params, x, cfg), state
 
 

@@ -30,7 +30,14 @@ each layer's leaves that the rules cut over the batch axes are gathered
 as the layer runs (FSDP), the embedding and the logits are
 vocab-parallel where the model axis cuts the vocabulary, and the loss is
 normalised by the global batch's token count; with no mesh none of this
-runs.
+runs.  Where the step's context cuts a stack's S over ``model`` (the
+reference's ``_constrain_act``, ``MeshContext.seq_parallel``: train and
+prefill steps with ``cfg.act_sharding``), the stack's input enters as
+this rank's rows of S, each block keeps its residual stream in them
+(Megatron-style sequence parallelism, so remat keeps 1/m of each layer's
+input), and the output is gathered whole before the final norm; the
+encoder's stack follows the same rule at its own S.  ``boundary_saves``
+measures what remat keeps at the layer boundaries.
 
 The reference runs each stacked segment with ``lax.scan``; here it is a
 Python loop over the leading ``(n,)`` (or ``(repeat, n)``) dims of the
@@ -40,6 +47,7 @@ graph keeps writing the cache it was captured against.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -131,6 +139,40 @@ def _unbound(tree, idxs) -> dict:
     return {idx: parts[idx[0]] for idx in idxs}
 
 
+# the lists ``boundary_saves`` fills, innermost last
+_BOUNDARY: list = []
+
+
+@contextlib.contextmanager
+def boundary_saves():
+    """Within the block, each layer that runs under remat appends to the
+    yielded list the (shape, bytes) of its input as its checkpoint saves
+    it for the backward pass, measured with
+    ``torch.autograd.graph.saved_tensors_hooks`` around the checkpoint
+    call (the bytes of its elements)."""
+    seen: list = []
+    _BOUNDARY.append(seen)
+    try:
+        yield seen
+    finally:
+        _BOUNDARY.pop()
+
+
+def _saving(x: torch.Tensor):
+    """The hooks that record ``x`` (a layer's input) where the checkpoint
+    saves it, or nothing when no ``boundary_saves`` is open."""
+    if not _BOUNDARY:
+        return contextlib.nullcontext()
+    seen = _BOUNDARY[-1]
+
+    def pack(t):
+        if t.data_ptr() == x.data_ptr() and t.shape == x.shape:
+            seen.append((tuple(t.shape), t.numel() * t.element_size()))
+        return t
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
+
+
 def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
               tables, mode=None, live=None, memory=None):
     """Run ``plan``'s segments over ``x``.  Returns (x, aux).
@@ -140,12 +182,20 @@ def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
     ``_run_plan`` sums its scans'; with grad mode on, the layers'
     parameters come from ``_unbound`` and, with ``cfg.remat``, each layer
     runs under a non-reentrant checkpoint, which keeps only its input for
-    the backward pass.  With a cache (serving) aux is None."""
+    the backward pass.  With a cache (serving) aux is None.  Where the
+    current context cuts the stack's S (``seq_parallel``, decided here
+    once for the stack), ``x`` is cut to this rank's rows on the way in
+    (``split_to``) and gathered whole on the way out (``gather_keep``:
+    every model rank then computes the same loss)."""
     cache_free = cache_list is None
     train = cache_free and torch.is_grad_enabled()
     remat = train and cfg.remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cache_free else None
+    ctx = parallel.current()
+    sp = ctx.seq_parallel(x.shape[1]) if ctx is not None else None
+    if sp is not None:
+        x = parallel.split_to(x, 1, sp.model)
     for k, (seg, seg_params) in enumerate(zip(plan, params_list)):
         seg_cache = cache_list[k] if cache_list is not None else None
         layers = {}
@@ -162,27 +212,39 @@ def _run_plan(plan, cfg: ModelConfig, params_list, x, positions, cache_list,
                                    if seg_cache is not None else None)
                     layer = (layers[j][idx] if train
                              else _layer(seg_params[f"e{j}"], idx))
-                    args = (layer, x, cfg, spec, positions, layer_cache,
-                            tables, mode, live, memory, cache_free)
-                    out = (checkpoint(_block, *args, use_reentrant=False)
-                           if remat else _block(*args))
+                    args = (layer, x, cfg, spec, sp, positions,
+                            layer_cache, tables, mode, live, memory,
+                            cache_free)
+                    if remat:
+                        with _saving(x):
+                            out = checkpoint(_block, *args,
+                                             use_reentrant=False)
+                    else:
+                        out = _block(*args)
                     if cache_free:
                         x, a = out
                         if a is not None:
                             aux = aux + a
                     else:
                         x = out
+    if sp is not None:
+        x = parallel.gather_keep(x, 1, sp.model)
     return x, aux
 
 
-def _block(layer, x, cfg: ModelConfig, spec, *rest):
+def _block(layer, x, cfg: ModelConfig, spec, sp, *rest):
     """``block_apply`` over one layer whose leaves the current mesh may
     hold cut over its batch axes (FSDP): each is gathered here, inside the
-    layer's remat, so one layer's weights are whole at a time."""
+    layer's remat, so one layer's weights are whole at a time.  ``sp``,
+    the stack's sequence-parallel context or None, is made current for
+    the block here, so remat's recompute runs under it too."""
     ctx = parallel.current()
     if ctx is not None and ctx.fsdp:
         layer = ctx.fsdp_gather(layer, block_defs(cfg, spec))
-    return block_apply(layer, x, cfg, spec, *rest)
+    if sp is None:
+        return block_apply(layer, x, cfg, spec, *rest)
+    with parallel.use_mesh(sp):
+        return block_apply(layer, x, cfg, spec, *rest)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,20 @@ decode step's shardings first.  ``hymba`` and ``seamless`` on ``(1, 2)``:
 tensor parallelism over ``model`` of the hybrid smoke (its in_proj's x |
 z columns, out_proj's rows, heads and MLP cut) and of the
 encoder-decoder smoke with frames (the encoder's and the cross
-attention's heads cut, and the cross K/V by heads).
+attention's heads cut, and the cross K/V by heads).  ``seamless-long``
+on ``(2, 1)``: the encoder-decoder smoke under a ``long_*`` decode shape,
+a batch of one, whose cache spec cuts the ring and the cross K/V's
+encoder axis (10 frames) over ``data``.
+
+The ``sp-*`` cases (``SP_CASES``) are the JAX package's sharded train
+and prefill steps with ``act_sharding`` on, whose ``_constrain_act``
+cuts the layer-boundary activations' S over ``model``: the loss and
+gradients of ``loss_fn`` jitted on the mesh with the train step's
+shardings, and the prefill step's logits, for tiny-agent and the hymba
+smoke on ``(1, 2)`` and ``(1, 4)``; they are written to a file of their
+own, so each test runs only the cases it reads:
+
+    ... python tests/_jax_seq_ref.py OUT.pkl sp-tiny-2 sp-hymba-4 ...
 """
 from __future__ import annotations
 
@@ -46,7 +59,13 @@ from repro.launch.serve import make_prefill_step, make_serve_step
 CASES = {"gqa": ((1, 4), "d", 2, 40, 6, "tiny"),
          "long": ((2, 1), "long_d", 1, 140, 6, "tiny"),
          "hymba": ((1, 2), "d", 2, 12, 6, "hymba"),
-         "seamless": ((1, 2), "d", 2, 12, 6, "seamless")}
+         "seamless": ((1, 2), "d", 2, 12, 6, "seamless"),
+         "seamless-long": ((2, 1), "long_d", 1, 40, 6, "seamless")}
+# (mesh shape, batch, sequence, config)
+SP_CASES = {"sp-tiny-2": ((1, 2), 2, 16, "tiny"),
+            "sp-tiny-4": ((1, 4), 2, 16, "tiny"),
+            "sp-hymba-2": ((1, 2), 2, 16, "hymba"),
+            "sp-hymba-4": ((1, 4), 2, 16, "hymba")}
 # each config by its key in ``_torch_ranks.CONFIGS``, in f32
 CONFIGS = {"tiny": lambda: get_config("tiny-agent"),
            "hymba": lambda: get_smoke("hymba-1.5b"),
@@ -103,6 +122,47 @@ def run(case: str) -> dict:
     return res
 
 
+def run_sp(case: str) -> dict:
+    """One ``SP_CASES`` case: the sharded loss and gradients, and the
+    prefill step's logits, on the mesh."""
+    from repro.launch.train import make_train_step
+    from repro.models import transformer
+
+    mesh_shape, b, s, key = SP_CASES[case]
+    cfg = CONFIGS[key]().replace(dtype="float32")
+    assert cfg.act_sharding
+    tree = true_fan_in(jax.device_get(models.init(cfg, jax.random.key(0))))
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, -5:] = -1
+
+    def put(x, spec):
+        return jax.tree.map(
+            lambda a, p: jax.device_put(a, NamedSharding(mesh, p)), x, spec)
+
+    with jax.set_mesh(mesh):
+        _, specs = make_train_step(cfg, mesh,
+                                   shape=ShapeConfig("t", s, b, "train"))
+        params = put(tree, specs["params"])
+        batch = {k: jax.device_put(v, NamedSharding(mesh, specs["batch"]))
+                 for k, v in (("tokens", toks), ("labels", labels))}
+        grad_fn = jax.jit(jax.value_and_grad(
+            lambda p, bt: transformer.loss_fn(p, cfg, bt)[0]))
+        loss, grads = grad_fn(params, batch)
+        pre, pspecs = make_prefill_step(cfg, mesh,
+                                        ShapeConfig("p", s, b, "prefill"))
+        cache = models.init_cache(cfg, b, s)
+        logits, _ = pre(put(tree, pspecs["params"]),
+                        put(toks, pspecs["batch"]),
+                        put(cache, pspecs["cache"]))
+    return {"config": key, "weights": tree, "tokens": toks,
+            "labels": labels, "loss": float(loss),
+            "grads": jax.device_get(grads), "logits": np.asarray(logits)}
+
+
 def true_fan_in(tree):
     """The weights with wq, wk and wv (..., d, heads, dh) drawn at
     1/sqrt(d) and wo (..., heads, dh, d) at 1/sqrt(heads * dh)."""
@@ -120,11 +180,12 @@ def true_fan_in(tree):
     return out
 
 
-def main(path: str) -> None:
-    out = {case: run(case) for case in CASES}
+def main(path: str, cases: list) -> None:
+    out = {case: run_sp(case) if case in SP_CASES else run(case)
+           for case in cases or CASES}
     with open(path, "wb") as f:
         pickle.dump(out, f)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

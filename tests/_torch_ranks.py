@@ -106,16 +106,18 @@ def frontend(cfg, b: int, rng, frames: int = FRAMES) -> dict:
     return {}
 
 
-def _batch(cfg, b: int, s: int, seed: int = 0) -> dict:
+def _batch(cfg, b: int, s: int, seed: int = 0, frames: int = FRAMES) -> dict:
     """Tokens and labels, plus the family's inputs: a VLM's patch
-    embeddings at (B, S, 3) positions, an encoder-decoder's frames."""
+    embeddings at (B, S, 3) positions, an encoder-decoder's ``frames``
+    frames."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
     labels = np.roll(toks, -1, axis=1)
     labels[:, -1] = -1
     labels[0, -5:] = -1          # rank 0's rows hold fewer labels
     out = {"tokens": torch.from_numpy(toks),
-           "labels": torch.from_numpy(labels), **frontend(cfg, b, rng)}
+           "labels": torch.from_numpy(labels),
+           **frontend(cfg, b, rng, frames)}
     if cfg.frontend == "patch":
         out["positions"] = torch.from_numpy(
             vision_positions(b, s - GRID[0] * GRID[1]))
@@ -266,6 +268,8 @@ def serve_check(ctx, cfg, b: int, prompt: int, new: int,
     cross = _first(cache, "cross")
     if cross is not None:
         out["cross_heads"] = int(cross.k.shape[-2])
+        out["cross_len"] = int(cross.k.shape[-3])
+        out["enc_len"] = enc
     return out
 
 
@@ -306,8 +310,11 @@ def jax_ref_check(ctx, case: str) -> dict:
     extra = [torch.from_numpy(r["extra"])] if "extra" in r else []
     with torch.no_grad():
         if r["name"].startswith("long"):
-            whole = models.init_cache(cfg, b, s + 128, device="cpu")
-            logits, whole = models.prefill(full, cfg, toks, whole)
+            enc = specs_mod.enc_len(cfg, shape_d)
+            whole = models.init_cache(cfg, b, s + 128, device="cpu",
+                                      enc_len=enc)
+            kw = {"frames": extra[0]} if cfg.is_encdec else {}
+            logits, whole = models.prefill(full, cfg, toks, whole, **kw)
             logits = logits[rows]
             cache = serve_mod.cut_cache(whole, cfg, ctx, shape_d)
         else:
@@ -324,6 +331,205 @@ def jax_ref_check(ctx, case: str) -> dict:
     return {"logits": max(diffs), "steps": len(r["fed"]),
             "logit_max": max(float(np.abs(x).max()) for x in r["logits"]),
             **_first_ring(cache)}
+
+
+def _norm_scales(tree) -> list:
+    """The RMSNorm scales of a parameter tree (every ``scale`` leaf,
+    stacked over the layers): the replicated weights a sequence-parallel
+    block applies to its rows of S."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in ([v] if k == "scale" else _norm_scales(v))]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _norm_scales(v)]
+    return []
+
+
+def _sp_grads(ctx, cfg, full, batch, b: int, s: int):
+    """(metrics, gathered gradients, boundary saves) of one sharded train
+    step's gradients, the layer-boundary tensors remat saved recorded."""
+    step = make_train_step(cfg, ctx, TrainPlan(), AdamWConfig(),
+                           shape=ShapeConfig("t", s, b, "train"))
+    specs = step.shardings["params"]
+    params = parallel.shard_tree(full, specs, ctx)
+    with models.boundary_saves() as saved:
+        m, g = step.grads(params, batch, with_metrics=True)
+    return m, parallel.gather_tree(g, specs, ctx), list(saved)
+
+
+def _prefill(ctx, cfg, full, toks, kw: dict):
+    """Last-token logits of the mesh's prefill step (this rank's rows)."""
+    b, s = toks.shape
+    shape_d = ShapeConfig("d", s, b, "decode")
+    pre, specs = serve_mod.make_prefill_step(
+        cfg, ctx, ShapeConfig("p", s, b, "prefill"))
+    params = parallel.shard_tree(full, specs["params"], ctx)
+    cache = serve_mod.init_cache(cfg, ctx, shape_d)
+    with torch.no_grad():
+        return pre(params, toks, cache, *kw.values())[0]
+
+
+def sp_check(ctx, cfg, b: int, s: int) -> dict:
+    """A sequence-parallel train step and prefill against one device: the
+    loss and every gradient leaf (relative to the leaf's largest
+    magnitude, the norm scales' apart), the prefill's logits and greedy
+    tokens; and what remat saved at the layer boundaries, with
+    ``act_sharding`` on and off: each saved input's shape and bytes."""
+    full = _params(cfg)
+    batch = _batch(cfg, b, s)
+    ref_step = make_train_step(cfg, None, TrainPlan(), AdamWConfig(),
+                               device="cpu")
+    ref_m, ref_g = ref_step.grads(full, batch, with_metrics=True)
+    m, got, saved = _sp_grads(ctx, cfg, full, batch, b, s)
+    _, _, whole = _sp_grads(ctx, cfg.replace(act_sharding=False), full,
+                            batch, b, s)
+    scales = [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+              for x, y in zip(_norm_scales(got), _norm_scales(ref_g))]
+    kw = frontend(cfg, b, np.random.default_rng(5),
+                  specs_mod.enc_len(cfg, ShapeConfig("d", s, b, "decode")))
+    toks = batch["tokens"]
+    rows = serve_mod.local_rows(torch.arange(b), ctx)
+    logits = _prefill(ctx, cfg, full, toks, kw)
+    with torch.no_grad():
+        ref_cache = models.init_cache(cfg, b, s + 128, device="cpu",
+                                      enc_len=specs_mod.enc_len(
+                                          cfg, ShapeConfig("d", s, b,
+                                                           "decode")))
+        ref, _ = models.prefill(full, cfg, toks, ref_cache, **kw)
+    return {"loss": abs(float(m["loss"]) - float(ref_m["loss"])),
+            "grad_rel": _max_rel(got, ref_g), "scales": len(scales),
+            "scale_rel": max(scales),
+            "logits": float((logits - ref[rows]).abs().max()),
+            "tokens_equal": bool(torch.equal(logits.argmax(-1),
+                                             ref[rows].argmax(-1))),
+            "saved": [[*sh, n] for sh, n in saved],
+            "whole": [[*sh, n] for sh, n in whole],
+            "b_local": b // ctx.batch_world}
+
+
+def handoff_check(ctx, cfg, b: int, s: int) -> dict:
+    """A stack whose S the rule keeps whole: the train step's loss and
+    gradients and the prefill's logits with ``act_sharding`` on equal
+    those with it off, bit for bit, and remat saves whole-S inputs.  An
+    encoder-decoder's encoder keeps its S whole too: 9 frames to train,
+    and ``enc_len``'s 9 to prefill at S of 36 to 39."""
+    full = _params(cfg)
+    batch = _batch(cfg, b, s, frames=9)
+    kw = frontend(cfg, b, np.random.default_rng(5),
+                  specs_mod.enc_len(cfg, ShapeConfig("d", s, b, "decode")))
+    runs = []
+    for act in (True, False):
+        c = cfg.replace(act_sharding=act)
+        m, g, saved = _sp_grads(ctx, c, full, batch, b, s)
+        runs.append((m["loss"], prm.flatten(g)[0], saved,
+                     _prefill(ctx, c, full, batch["tokens"], kw)))
+    (l0, g0, s0, p0), (l1, g1, s1, p1) = runs
+    return {"equal": bool(torch.equal(l0, l1) and torch.equal(p0, p1)
+                          and all(torch.equal(x, y) for x, y in zip(g0, g1))),
+            "saved": [list(sh) for sh, _ in s0],
+            "saved_off": [list(sh) for sh, _ in s1]}
+
+
+def world1_check(ctx, cfg, b: int, s: int) -> dict:
+    """A world of one: the mesh's train step (``act_sharding`` on) and
+    prefill give the mesh-less step's loss, gradients and logits bit for
+    bit."""
+    full = _params(cfg)
+    batch = _batch(cfg, b, s)
+    ref_step = make_train_step(cfg, None, TrainPlan(), AdamWConfig(),
+                               device="cpu")
+    l0, g0 = ref_step.grads(full, batch, with_metrics=True)
+    l1, g1, _ = _sp_grads(ctx, cfg, full, batch, b, s)
+    p1 = _prefill(ctx, cfg, full, batch["tokens"], {})
+    with torch.no_grad():
+        p0, _ = models.prefill(full, cfg, batch["tokens"], models.init_cache(
+            cfg, b, s + 128, device="cpu"))
+    return {"equal": bool(
+        torch.equal(l0["loss"], l1["loss"]) and torch.equal(p0, p1)
+        and all(torch.equal(x, y) for x, y in zip(prm.flatten(g0)[0],
+                                                  prm.flatten(g1)[0])))}
+
+
+def jax_sp_check(ctx, case: str) -> dict:
+    """The port's sequence-parallel train and prefill steps on the JAX
+    package's weights against the JAX package's own sharded gradients
+    and prefill on the same mesh (``_jax_seq_ref.py``'s ``sp-*`` cases):
+    the loss, every gradient leaf and the prefill's logits."""
+    with open(Path(RUN_DIR, "jax_seq_ref.pkl"), "rb") as f:
+        r = pickle.load(f)[case]
+    cfg = CONFIGS[r["config"]]()
+    full = prm.from_jax(cfg, r["weights"], device="cpu")
+    want_g = prm.from_jax(cfg, r["grads"], device="cpu")
+    batch = {"tokens": torch.from_numpy(r["tokens"]).long(),
+             "labels": torch.from_numpy(r["labels"]).long()}
+    b, s = r["tokens"].shape
+    m, got, saved = _sp_grads(ctx, cfg, full, batch, b, s)
+    logits = _prefill(ctx, cfg, full, batch["tokens"], {})
+    rows = serve_mod.local_rows(torch.arange(b), ctx)
+    want = torch.from_numpy(r["logits"])[rows]
+    return {"loss": abs(float(m["loss"]) - float(r["loss"])),
+            "grads": _max_diff(got, want_g),
+            "grad_max": _max_diff(want_g, prm.tree_map(torch.zeros_like,
+                                                       want_g)),
+            "logits": float((logits - want).abs().max()),
+            "tokens_equal": bool(torch.equal(logits.argmax(-1),
+                                             want.argmax(-1))),
+            "saved": [list(sh) for sh, _ in saved]}
+
+
+def collectives_check(ctx) -> dict:
+    """The sequence-parallel autograd collectives over ``model`` in f64
+    against their definitions, every rank's inputs drawn from its own
+    seed so each rank knows all of them: ``split_to``, ``scatter_from``
+    and ``gather_from`` along S (dim 1) and ``own_rows``, forward and
+    backward; and ``seq_parallel``'s rule at a few S, on and off."""
+    g, n, r = ctx.model, ctx.size("model"), ctx.coord("model")
+
+    def draw(seed: int, rows: int):
+        return torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(2, rows, 3)))
+
+    def run(fn, x, up):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        y.backward(up)
+        return y.detach(), x.grad
+
+    def rows(t, k):
+        return t[:, k * 4:(k + 1) * 4]
+
+    errs = {}
+    whole = draw(0, 4 * n)                    # alike on every rank
+    y, gx = run(lambda x: parallel.split_to(x, 1, g), whole, draw(10 + r, 4))
+    errs["split_to"] = max(
+        float((y - rows(whole, r)).abs().max()),
+        float((gx - torch.cat([draw(10 + k, 4) for k in range(n)], 1))
+              .abs().max()))
+    y, gx = run(lambda x: parallel.scatter_from(x, 1, g), draw(20 + r, 4 * n),
+                draw(30 + r, 4))
+    errs["scatter_from"] = max(
+        float((y - rows(sum(draw(20 + k, 4 * n) for k in range(n)), r))
+              .abs().max()),
+        float((gx - torch.cat([draw(30 + k, 4) for k in range(n)], 1))
+              .abs().max()))
+    y, gx = run(lambda x: parallel.gather_from(x, 1, g), draw(40 + r, 4),
+                draw(50 + r, 4 * n))
+    errs["gather_from"] = max(
+        float((y - torch.cat([draw(40 + k, 4) for k in range(n)], 1))
+              .abs().max()),
+        float((gx - rows(sum(draw(50 + k, 4 * n) for k in range(n)), r))
+              .abs().max()))
+    up = draw(60, 4 * n)
+    y, gx = run(lambda x: parallel.own_rows(x, 1, g), whole, up)
+    mask = torch.zeros_like(up)
+    mask[:, r * 4:(r + 1) * 4] = 1
+    errs["own_rows"] = max(float((y - whole).abs().max()),
+                           float((gx - up * mask).abs().max()))
+    on = parallel.context(ctx, act_sharding=True)
+    rule = {str(s_): [on.seq_parallel(s_) is not None,
+                      ctx.seq_parallel(s_) is not None]
+            for s_ in (1, 2, 15, 16, 18)}
+    return {"errs": errs, "rule": rule, "m": n}
 
 
 def dispatch_check(ctx, cfg, b: int, s: int) -> dict:
@@ -452,7 +658,25 @@ CHECKS = {
     "refuse-compress-no-pod": lambda c: refusal_check(c, "compress-no-pod"),
     "train-tiny-compress": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
                                                  False, compress=True),
+    # a cross attention K/V cut along its encoder axis (``long_*``: 10
+    # frames, 5 a rank) beside the ring cut over ``data``
+    "serve-seamless-long": lambda c: serve_check(c, CONFIGS["seamless"](), 1,
+                                                 40, 6, long=True),
+    "jax-ref-seamless-long": lambda c: jax_ref_check(c, "seamless-long"),
+    "world1-tiny": lambda c: world1_check(c, CONFIGS["tiny"](), 4, 16),
+    "sp-collectives": collectives_check,
 }
+# sequence parallelism over ``model`` (tests/test_torch_sequence_parallel.py)
+SP_CONFIGS = ("tiny", "arctic", "hymba", "hymba-whole", "xlstm", "qwen2vl",
+              "seamless")
+for _name in SP_CONFIGS:
+    CHECKS[f"sp-{_name}"] = (lambda n: lambda c: sp_check(
+        c, CONFIGS[n](), 4, 16))(_name)
+    # 37 positions: no model axis of 2 or 4 divides them
+    CHECKS[f"handoff-{_name}"] = (lambda n: lambda c: handoff_check(
+        c, CONFIGS[n](), 4, 37))(_name)
+for _case in ("sp-tiny-2", "sp-tiny-4", "sp-hymba-2", "sp-hymba-4"):
+    CHECKS[f"jax-{_case}"] = (lambda k: lambda c: jax_sp_check(c, k))(_case)
 
 
 def psum_inputs(step: int, rank: int) -> dict:

@@ -1436,7 +1436,10 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     (2, 1)), both ranks holding keys, held to the unsharded model; (f)
     TP over ``model`` of the hymba, xlstm, qwen2-vl (patch embeddings)
     and seamless (frames) smokes on (1, 2), served and trained, held to
-    the unsharded model."""
+    the unsharded model; (b) and (f) sequence parallel, remat keeping
+    half the whole-S bytes at the layer boundaries; (g) the seamless
+    smoke under a long shape on (2, 1), its cross K/V cut along the
+    encoder axis, held to the unsharded model."""
     monkeypatch.setattr(smoke, "SHARDED_FULL", "tiny-agent")
     monkeypatch.setattr(smoke, "SHARDED_PROMPT", 16)
     monkeypatch.setattr(smoke, "SHARDED_DECODE", 3)
@@ -1459,6 +1462,8 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(smoke, "VISION_GRID", (2, 3))
     monkeypatch.setattr(smoke, "SHARDED_PATCHES", 4)
     monkeypatch.setattr(smoke, "SHARDED_FRAMES", 12)
+    monkeypatch.setattr(smoke, "SHARDED_CROSS",
+                        ("smoke:seamless-m4t-large-v2", {}))
     seq = smoke.phase_sharded(torch.device("cpu"))
     assert seq == {}                     # the CPU launches no kernel
     out = capsys.readouterr().out
@@ -1474,7 +1479,8 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
                  "0: seamless-m4t-large-v2 width, 2 layer(s) + 2 encoder "
                  "layer(s)"):
         assert what in out
-    assert out.count("greedy tokens equal the unsharded run's") == 4 + 4
+    # (b), (f) served on rank 0; (d), (e), (g) on rank 0
+    assert out.count("greedy tokens equal the unsharded run's") == 4 + 4 + 1
     assert out.count("equal rank 0's; train step loss") == 2 + 4
     assert out.count("gradient shards within") == 2 * (3 + 4)
     assert "(d) mesh (1, 2), GQA fallback: the ring cut over model, " \
@@ -1485,6 +1491,20 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
         "whole on each rank, f32, kernels on, 96 of the ring's 192 slots" \
         in out
     assert "two CPU processes over gloo" in out
+    # (b) and (f) sequence parallel: remat kept half the whole-S figure;
+    # (c) on (2, 1) all of it
+    assert out.count("remat kept") == 2 * (2 + 1 + 4)
+    assert out.count("1/2 of the whole-S figure") == 2 * (2 + 4)
+    assert out.count("1/1 of the whole-S figure") == 2
+    assert "remat kept 32768 B (0.033 MB) at the layer boundaries (inputs " \
+        "[2, 16, 128]), 1/2 of the whole-S figure 65536 B" in out
+    assert "max_memory_allocated over the train step not measured" in out
+    # (g) the cross K/V cut along its 16 encoder positions over data
+    assert "(g) mesh (2, 1), long: the ring and the cross K/V cut over " \
+        "data, rank 1: seamless-m4t-large-v2 width, 2 layers + 2 encoder " \
+        "layer(s), 4 heads over 4 KV head(s), weights whole on each rank, " \
+        "f32, kernels on, 96 of the ring's 192 slots" in out
+    assert out.count("the cross K/V 8 of the 16 encoder positions") == 2
 
 
 def test_combine_phase_inputs_bound_and_held_errors(smoke):

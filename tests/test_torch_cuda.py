@@ -1648,7 +1648,10 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
     the one card, TP and EP on (1, 2), DP + FSDP on (2, 1) and TP of the
     hymba, xlstm, qwen2-vl and seamless smokes on (1, 2), each config's
     tokens, loss and every gradient shard held to the unsharded model
-    and every kernel call on a shard to its plain version."""
+    and every kernel call on a shard to its plain version; the (1, 2)
+    train steps sequence parallel, remat keeping half the whole-S bytes
+    at the layer boundaries; and (g) the seamless smoke under a long
+    shape on (2, 1), its cross K/V cut along the encoder axis."""
     import json
     from pathlib import Path
 
@@ -1666,7 +1669,8 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
              "families": [("smoke:hymba-1.5b", {}), ("smoke:xlstm-350m", {}),
                           ("smoke:qwen2-vl-2b", {}),
                           ("smoke:seamless-m4t-large-v2", {})],
-             "frames": 12, "patches": 4, "grid": (2, 3)}
+             "frames": 12, "patches": 4, "grid": (2, 3),
+             "cross": ("smoke:seamless-m4t-large-v2", {})}
     mp.start_processes(chip_smoke.sharded_rank,
                        args=(2, f"file://{tmp_path}/store", str(tmp_path),
                              "cuda", sizes), nprocs=2, start_method="spawn")
@@ -1686,9 +1690,19 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
         assert res[1][key]["tokens"] == res[0][key]["tokens"]
         assert sum(map(len, res[0][key]["tokens"])) == 32
     assert res[0]["ep"]["launches"].get("grouped_matmul", 0) > 0
-    # (d), (e): serving over a sequence-sharded ring, both ranks holding
-    # keys, the log-sum-exp decode and the combine launched on each
-    for key, slots in (("gqa", [132, 264]), ("long", [96, 192])):
+    # sequence parallel on (1, 2): half the whole-S bytes; whole on (2, 1)
+    for got in res:
+        for c in [got["tp"], got["ep"], *got["families"]]:
+            assert c["m"] == 2 and 2 * c["saved_bytes"] == c["whole_bytes"]
+            assert c["peak_gb"] > 0
+        assert got["dp"]["saved_bytes"] == got["dp"]["whole_bytes"]
+    # (d), (e), (g): serving over a sequence-sharded ring (and in (g) a
+    # cross K/V cut along its encoder axis), both ranks holding keys, the
+    # log-sum-exp decode and the combine launched on each
+    for got in res:
+        assert got["cross"]["cross"] == [8, 16]
+    for key, slots in (("gqa", [132, 264]), ("long", [96, 192]),
+                       ("cross", [96, 192])):
         assert res[1][key]["tokens"] == res[0][key]["tokens"]
         assert res[0][key]["logits"] <= chip_smoke.SHARDED_LOGIT_TOL
         for got in res:
@@ -1710,3 +1724,116 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
             want = chip_smoke.SHARDED_FAMILY_KERNELS[
                 name.removeprefix("smoke:")] - {"attention_combine"}
             assert want <= set(c["launches"]), (name, c["launches"])
+
+
+def _sp_card_rank(rank: int, tmp: str, out: str) -> None:
+    """A gloo rank on the card (both ranks on CUDA device 0): the
+    sequence-parallel collectives on CUDA tensors against their
+    definitions, and the cross attention of a decode step over this
+    rank's half of the encoder axis (ring decode with its log-sum-exp,
+    then the combine kernel) against the whole K/V on one rank."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import parallel
+    from repro_torch.models import attention, init
+    from repro_torch.models.attention import CrossKV
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=2, rank=rank)
+    res = {}
+    try:
+        g = dist.group.WORLD
+
+        def draw(seed, rows):
+            return torch.from_numpy(np.random.default_rng(seed).normal(
+                size=(2, rows, 3)).astype(np.float32)).to(dev)
+
+        def run(fn, x, up):
+            x = x.clone().requires_grad_(True)
+            y = fn(x)
+            y.backward(up)
+            return y.detach(), x.grad
+
+        whole = draw(0, 8)
+        y, gx = run(lambda x: parallel.split_to(x, 1, g), whole,
+                    draw(10 + rank, 4))
+        res["split_to"] = max(
+            (y - whole[:, 4 * rank:4 * rank + 4]).abs().max().item(),
+            (gx - torch.cat([draw(10, 4), draw(11, 4)], 1)).abs().max()
+            .item())
+        y, gx = run(lambda x: parallel.scatter_from(x, 1, g),
+                    draw(20 + rank, 8), draw(30 + rank, 4))
+        res["scatter_from"] = max(
+            (y - (draw(20, 8) + draw(21, 8))[:, 4 * rank:4 * rank + 4])
+            .abs().max().item(),
+            (gx - torch.cat([draw(30, 4), draw(31, 4)], 1)).abs().max()
+            .item())
+        y, gx = run(lambda x: parallel.own_rows(x, 1, g), whole,
+                    draw(40, 8))
+        res["own_rows"] = (gx[:, 4 * rank:4 * rank + 4]
+                           - draw(40, 8)[:, 4 * rank:4 * rank + 4]
+                           ).abs().max().item() + gx[
+            :, 4 * (1 - rank):4 * (1 - rank) + 4].abs().max().item()
+
+        cfg = get_smoke("seamless-m4t-large-v2").replace(
+            dtype="float32", use_pallas=True)
+        p = init(cfg, torch.Generator(device=dev).manual_seed(0),
+                 device=dev)["decoder"][0]["e0"]["cross"]
+        p = {k: v[0] for k, v in p.items()}
+        attention.rescale_to_true_fan_in(p)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t = 16
+        x = torch.randn((3, 1, cfg.d_model), generator=gen, device=dev)
+        mem = torch.randn((3, t, cfg.d_model), generator=gen, device=dev)
+        ckv = attention.cross_kv_precompute(p, mem, cfg)
+        local = t // 2
+        shard = parallel.RingShard(g, 2, rank, rank * local, local, t,
+                                   "data")
+        mine = CrossKV(*(u[:, rank * local:(rank + 1) * local].contiguous()
+                         for u in ckv))
+        d0, c0 = decode_attention.launches, attention_combine.launches
+        got = attention.cross_attention_cached(p, x, mine, cfg, shard)
+        res["launches"] = [decode_attention.launches - d0,
+                           attention_combine.launches - c0]
+        want = attention.cross_attention_cached(p, x, ckv, cfg)
+        plain = attention.cross_attention_cached(
+            p, x, mine, cfg.replace(use_pallas=False), shard)
+        res["cross"] = (got - want).abs().max().item()
+        res["cross_plain"] = (got - plain).abs().max().item()
+    finally:
+        from pathlib import Path
+        Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sequence_parallel_collectives_and_encoder_cut_cross_attention(
+        cuda_device, tmp_path):
+    """Two gloo ranks on the card: ``split_to``, ``scatter_from`` and
+    ``own_rows`` along S on CUDA tensors, forward and backward, equal
+    their definitions; a decode step's cross attention over each rank's
+    half of a 16-position encoder axis (ring decode with its
+    log-sum-exp, and the combine kernel) equals the whole K/V's on one
+    rank within the f32 band, and its plain version's."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import build
+
+    build.build_all(["decode_attention", "attention_combine"])
+    mp.start_processes(_sp_card_rank, args=(str(tmp_path), str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got["split_to"] == 0 and got["own_rows"] == 0, got
+        assert got["scatter_from"] <= 1e-6, got
+        assert got["launches"] == [1, 1], got
+        assert got["cross"] <= TOL[torch.float32], got
+        assert got["cross_plain"] <= TOL[torch.float32], got

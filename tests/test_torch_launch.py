@@ -464,7 +464,8 @@ def rank_results(tmp_path_factory):
     # the JAX package's sharded serve steps, in a process whose JAX sees
     # four CPU devices; a failure shows in the jax-ref checks
     subprocess.run([sys.executable, str(root / "tests" / "_jax_seq_ref.py"),
-                    str(ref)], env=env, timeout=300, check=False)
+                    str(ref), "gqa", "long", "hymba", "seamless"], env=env,
+                   timeout=300, check=False)
     if ref.exists():
         shutil.copy(ref, dirs[4] / ref.name)
     return {2: ranks.spawn(2, PLAN2, dirs[2]),
