@@ -193,30 +193,87 @@ cudaError_t launch_split_merge(const float* part_acc, const float2* part_ml,
 // GQA group, or a chunk of it, as the wrapper's group_chunk chooses) for
 // one query token, over a range of keys that each warp splits further.
 //
-// Head dims.  A lane loads 16 bytes of a K/V row (VEC elements), so LPR
-// = DH / VEC lanes cover a row of the DH-wide instantiation (32, 64 or
-// 128) and a warp loads RPW = 32 / LPR rows at once.  Any dh <= DH that
-// is a multiple of 8 runs on it: the lanes past dh skip their loads and
-// hold zeros, and every row is addressed with the real dh, so q, the
-// pool and the rings are read in place and nothing is padded in memory
-// (dh 112 and 120 run on the 128 instantiation with 14 or 15 of a row's
-// 16 bf16 lanes busy).  A multiple of 8 keeps every row start 16-byte
-// aligned in f32 and bf16.
+// Head dims.  LPR lanes cover a K/V row of the DH-wide instantiation (32,
+// 64, 128 or 256), each holding VEC consecutive elements, and a warp
+// loads RPW = 32 / LPR rows at once.  Up to DH 128 a lane's share is one
+// 16-byte load (LPR = DH / VEC); at DH 256 a row takes the whole warp,
+// 8 elements a lane: one 16-byte load in bf16, two in f32.  Any dh <= DH
+// runs on the narrowest width that holds it: the lanes past dh skip
+// their loads and hold zeros, and every row is addressed with the real
+// dh, so q, the pool and the rings are read in place and nothing is
+// padded in memory (dh 112 and 120 run on the 128 instantiation with 14
+// or 15 of a row's 16 bf16 lanes busy; Gemma 3's 256 on the 256 one).  A
+// dh that is a multiple of 8 keeps every row start 16-byte aligned in f32
+// and bf16; any other dh (NARROW) takes the same lanes, each loading its
+// elements one at a time, with zeros past dh.
 // ---------------------------------------------------------------------------
 
-// the instantiated width that holds head dim dh; 0 where none does
+// the instantiated width that holds head dim dh (1 to 256); 0 where none
+// does
 inline int head_width(int dh) {
-  if (dh <= 0 || dh > 128 || dh % 8) return 0;
-  return dh <= 32 ? 32 : dh <= 64 ? 64 : 128;
+  if (dh <= 0 || dh > 256) return 0;
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
 }
 
 template <typename T, int DH>
 struct DecodeLanes {
-  static constexpr int VEC = 16 / sizeof(T);   // elements of a 16-byte load
-  static constexpr int LPR = DH / VEC;         // lanes per K/V row
-  static constexpr int RPW = 32 / LPR;         // rows a warp loads at once
+  static constexpr int VEC16 = 16 / sizeof(T);   // elements of 16 bytes
+  static constexpr int LPR = DH / VEC16 < 32 ? DH / VEC16 : 32;  // a row's
+  static constexpr int VEC = DH / LPR;           // elements a lane holds
+  static constexpr int LOADS = VEC / VEC16;      // its 16-byte pieces
+  static constexpr int RPW = 32 / LPR;           // rows a warp loads at once
   static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row split");
+  static_assert(LOADS >= 1 && LOADS * VEC16 == VEC, "lane share");
 };
+
+// the first n elements of the 16 bytes at p (n may pass their count), as
+// raw bits with zeros after: element by element, for a row start that is
+// not 16-byte aligned
+__device__ __forceinline__ uint4 load16_narrow(const float* p, int n) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = i < n ? __float_as_uint(p[i]) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint4 load16_narrow(const __nv_bfloat16* p,
+                                               int n) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (2 * i < n ? static_cast<unsigned>(h[2 * i]) : 0u)
+           | (2 * i + 1 < n ? static_cast<unsigned>(h[2 * i + 1]) << 16
+                            : 0u);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// a lane's VEC elements of a row from p (its first element), n of them
+// inside dh, as LOADS pieces of raw bits
+template <typename T, int DH, bool NARROW>
+__device__ __forceinline__ void load_lane(
+    const T* __restrict__ p, int n,
+    uint4 (&raw)[DecodeLanes<T, DH>::LOADS]) {
+  using L = DecodeLanes<T, DH>;
+#pragma unroll
+  for (int i = 0; i < L::LOADS; ++i)
+    raw[i] = NARROW ? load16_narrow(p + i * L::VEC16, n - i * L::VEC16)
+                    : load16(p + i * L::VEC16);
+}
+
+template <typename T, int DH>
+__device__ __forceinline__ void lane_to_float(
+    const uint4 (&raw)[DecodeLanes<T, DH>::LOADS],
+    float (&o)[DecodeLanes<T, DH>::VEC]) {
+  using L = DecodeLanes<T, DH>;
+#pragma unroll
+  for (int i = 0; i < L::LOADS; ++i) {
+    float f[L::VEC16];
+    to_float(raw[i], f);
+#pragma unroll
+    for (int e = 0; e < L::VEC16; ++e) o[i * L::VEC16 + e] = f[e];
+  }
+}
 
 // K/V rows a lane has in flight
 constexpr int DECODE_UNROLL = 4;
@@ -242,7 +299,7 @@ struct DecodeSmem {
 // state, scaled by scale_log2 (= scale * log2(e): scores in log2 units,
 // softmax by exp2f); zeros past dh and past the chunk's heads.  m starts
 // at the finite NEG_INF, so a masked row's exp2 is exactly 0.
-template <typename T, int DH, int G>
+template <typename T, int DH, int G, bool NARROW>
 __device__ __forceinline__ void decode_begin(DecodeState<T, DH, G>& st,
                                              const T* __restrict__ q,
                                              int64_t row0, int heads, int dh,
@@ -253,7 +310,10 @@ __device__ __forceinline__ void decode_begin(DecodeState<T, DH, G>& st,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (in && g < heads) {
-      to_float(load16(q + (row0 + g) * dh + sub * L::VEC), st.qr[g]);
+      uint4 raw[L::LOADS];
+      load_lane<T, DH, NARROW>(q + (row0 + g) * dh + sub * L::VEC,
+                               dh - sub * L::VEC, raw);
+      lane_to_float<T, DH>(raw, st.qr[g]);
     } else {
 #pragma unroll
       for (int i = 0; i < L::VEC; ++i) st.qr[g][i] = 0.f;
@@ -270,33 +330,35 @@ __device__ __forceinline__ void decode_begin(DecodeState<T, DH, G>& st,
 
 // Fold the warp's n valid rows into the state; row j of them (0 <= j <
 // n) starts at element row_off(j) of k and of v.  Each step lane (grp,
-// sub) loads 16 bytes of rows j0 + u * RPW + grp, U of them in flight;
-// the dot products reduce over a row's LPR lanes with shuffles, and each
-// row serves all G heads.  n is the same across the warp.
-template <typename T, int DH, int G, typename RowOff>
+// sub) loads its VEC elements of rows j0 + u * RPW + grp, U of them in
+// flight; the dot products reduce over a row's LPR lanes with shuffles,
+// and each row serves all G heads.  n is the same across the warp.
+template <typename T, int DH, int G, bool NARROW, typename RowOff>
 __device__ __forceinline__ void decode_rows(DecodeState<T, DH, G>& st,
                                             const T* __restrict__ k,
                                             const T* __restrict__ v, int n,
                                             int dh, RowOff row_off) {
   using L = DecodeLanes<T, DH>;
-  constexpr int VEC = L::VEC, LPR = L::LPR, RPW = L::RPW;
+  constexpr int VEC = L::VEC, LPR = L::LPR, RPW = L::RPW, LD = L::LOADS;
   constexpr int U = DECODE_UNROLL;
   const int lane = threadIdx.x & 31;
   const int grp = lane / LPR;                // the row this lane loads
-  const int sub = lane % LPR;                // its 16 bytes of the row
+  const int sub = lane % LPR;                // its share of the row
   const bool in = sub * VEC < dh;
   for (int j0 = 0; j0 < n; j0 += RPW * U) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][LD], vr[U][LD];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * RPW + grp;
       ok[u] = j < n;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < LD; ++i)
+        kr[u][i] = vr[u][i] = make_uint4(0u, 0u, 0u, 0u);
       if (ok[u] && in) {
         const int64_t off = row_off(j) + sub * VEC;
-        kr[u] = load16(k + off);
-        vr[u] = load16(v + off);
+        load_lane<T, DH, NARROW>(k + off, dh - sub * VEC, kr[u]);
+        load_lane<T, DH, NARROW>(v + off, dh - sub * VEC, vr[u]);
       }
     }
     // scores of the U rows for each head, summed over the row's lanes
@@ -304,7 +366,7 @@ __device__ __forceinline__ void decode_rows(DecodeState<T, DH, G>& st,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[VEC];
-      to_float(kr[u], kf);
+      lane_to_float<T, DH>(kr[u], kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
@@ -336,7 +398,7 @@ __device__ __forceinline__ void decode_rows(DecodeState<T, DH, G>& st,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[VEC];
-      to_float(vr[u], vf);
+      lane_to_float<T, DH>(vr[u], vf);
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -440,31 +502,39 @@ __device__ __forceinline__ void decode_empty(int heads, int dh,
   }
 }
 
-// Launch<T, DH, GC>::run(a) for the width that holds dh and the group
-// chunk gc (the wrapper's group_chunk: 1 to 5); -1 where none is
-// instantiated.
-template <template <typename, int, int> class Launch, typename T, int DH,
-          typename A>
+// Launch<T, DH, GC, NARROW>::run(a) for the width that holds dh and the
+// group chunk gc (the wrapper's group_chunk: 1 to 5), NARROW for a dh
+// that is not a multiple of 8; -1 where none is instantiated.
+template <template <typename, int, int, bool> class Launch, typename T,
+          int DH, bool NARROW, typename A>
 int dispatch_group(int gc, const A& a) {
   switch (gc) {
-    case 1: return Launch<T, DH, 1>::run(a);
-    case 2: return Launch<T, DH, 2>::run(a);
-    case 3: return Launch<T, DH, 3>::run(a);   // chunks of G 6
-    case 4: return Launch<T, DH, 4>::run(a);   // also chunks of G 7-16
-    case 5: return Launch<T, DH, 5>::run(a);   // hymba-1.5b
+    case 1: return Launch<T, DH, 1, NARROW>::run(a);
+    case 2: return Launch<T, DH, 2, NARROW>::run(a);
+    case 3: return Launch<T, DH, 3, NARROW>::run(a);   // G 3, 9; chunks of 6
+    case 4: return Launch<T, DH, 4, NARROW>::run(a);   // chunks of G 7-16, 48
+    case 5: return Launch<T, DH, 5, NARROW>::run(a);   // hymba-1.5b
     default: return -1;
   }
 }
 
-template <template <typename, int, int> class Launch, typename T,
-          typename A>
-int dispatch_decode(int dh, int gc, const A& a) {
+template <template <typename, int, int, bool> class Launch, typename T,
+          bool NARROW, typename A>
+int dispatch_width(int dh, int gc, const A& a) {
   switch (head_width(dh)) {
-    case 32: return dispatch_group<Launch, T, 32>(gc, a);
-    case 64: return dispatch_group<Launch, T, 64>(gc, a);
-    case 128: return dispatch_group<Launch, T, 128>(gc, a);
+    case 32: return dispatch_group<Launch, T, 32, NARROW>(gc, a);
+    case 64: return dispatch_group<Launch, T, 64, NARROW>(gc, a);
+    case 128: return dispatch_group<Launch, T, 128, NARROW>(gc, a);
+    case 256: return dispatch_group<Launch, T, 256, NARROW>(gc, a);
     default: return -1;
   }
+}
+
+template <template <typename, int, int, bool> class Launch, typename T,
+          typename A>
+int dispatch_decode(int dh, int gc, const A& a) {
+  return dh % 8 ? dispatch_width<Launch, T, true>(dh, gc, a)
+                : dispatch_width<Launch, T, false>(dh, gc, a);
 }
 
 }  // namespace

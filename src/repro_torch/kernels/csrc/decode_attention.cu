@@ -29,9 +29,10 @@
 //                            (the KV heads a rank's query heads read, of a
 //                            ring that holds them all)
 //   kpos   (B, T) int32, q_pos (B,) int32, lse (B, Hkv*G) f32
-// dh is any multiple of 8 up to 128 and G any of 1, 2, 4-8, 12 and 16
-// (the split-KV core in common.cuh: dh runs on the 32, 64 or 128 wide
-// instantiation with idle tail lanes; G past 5 in chunks of at most 4).
+// dh is any of 1 to 256 and G any (the split-KV core in common.cuh: dh
+// runs on the 32, 64, 128 or 256 wide instantiation with idle tail lanes,
+// loading element by element where dh is not a multiple of 8; G past 5
+// in chunks of at most 4).
 //
 // What bounds it: the bytes of K and V of the valid slots, 2 * valid *
 // Hkv * dh * sizeof(T) per sequence, against 3.35 TB/s of HBM.  The
@@ -56,7 +57,8 @@
 //   hands them to the shared core (decode_rows, common.cuh), which loads
 //   only their K/V rows, each once for the whole GQA group (or group
 //   chunk).  A lane loads 16 bytes of a row (8 bf16 or 4 f32), so DH / 8
-//   (bf16) lanes cover a row and a warp reads 2-8 rows per load; each
+//   (bf16) lanes cover a row and a warp reads 2-8 rows per load (at DH
+//   256 a row takes the warp, 8 elements a lane, two loads in f32); each
 //   lane keeps U = 4 rows of K and V in flight.  The dot product
 //   reduces over the lanes of a row with shuffles.  Scores are in log2
 //   units (q is scaled by scale * log2(e) once), so the softmax is
@@ -98,7 +100,7 @@ struct RingArgs {
 
 // One CTA: query heads row0 .. row0 + G - 1 (a group chunk of KV head h)
 // of sequence b over ring slots [s0, s1) of split blockIdx.x.
-template <typename T, int DH, int G>
+template <typename T, int DH, int G, bool NARROW>
 __global__ void __launch_bounds__(NT) decode_split_kernel(RingArgs a) {
   __shared__ int ids[NWARPS][IDS];
   __shared__ DecodeSmem<DH, G, NWARPS> sm;
@@ -143,22 +145,22 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(RingArgs a) {
   }
 
   DecodeState<T, DH, G> st;
-  decode_begin(st, q, row0, heads, a.dh, a.scale_log2);
+  decode_begin<T, DH, G, NARROW>(st, q, row0, heads, a.dh, a.scale_log2);
   const int64_t rs = a.slot_stride;          // elements from slot to slot
   const int64_t base = static_cast<int64_t>(b) * a.t_len * rs
                        + static_cast<int64_t>(h) * a.dh;
   const int* wid = ids[warp];
-  decode_rows(st, k + base, v + base, n, a.dh,
-              [=](int j) { return wid[j] * rs; });
+  decode_rows<T, DH, G, NARROW>(st, k + base, v + base, n, a.dh,
+                                [=](int j) { return wid[j] * rs; });
   decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, a.lse, row0,
              split, a.splits);
 }
 
-template <typename T, int DH, int G>
+template <typename T, int DH, int G, bool NARROW>
 struct RingLaunch {
   static int run(const RingArgs& a) {
     const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
-    decode_split_kernel<T, DH, G><<<grid, NT, 0, a.stream>>>(a);
+    decode_split_kernel<T, DH, G, NARROW><<<grid, NT, 0, a.stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess && a.splits > 1)
       err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),

@@ -17,12 +17,14 @@
 // Layouts are the model's, so nothing is transposed or padded:
 //   q, out (B, S, H, dh)    element (b, i, h, d) at ((b*S + i)*H + h)*dh + d
 //   k, v   (B, T, Hkv, dh)  element (b, j, h, d) at ((b*T + j)*Hkv + h)*dh + d
-// G = H / Hkv is a run-time value.  dh is any multiple of 8 up to 128: the
-// body is instantiated at DH = 32, 64 and 128, and a dh below DH (112 and
-// 120 on the 128 one) loads zeros into the columns past dh of q and of
-// the K/V tiles (cp.async's src-size 0) and stores only dh columns, so
-// the DH-wide products compute the dh-wide attention; the scale is
-// 1/sqrt(dh) of the real dh.  Every row start stays 16-byte aligned.
+// G = H / Hkv is a run-time value.  dh is any multiple of 8 up to 256:
+// the body is instantiated at DH = 32, 64, 128 and 256, and a dh below DH
+// (112 and 120 on the 128 one, 200 on the 256 one) loads zeros into the
+// columns past dh of q and of the K/V tiles (cp.async's src-size 0) and
+// stores only dh columns, so the DH-wide products compute the dh-wide
+// attention; the scale is the caller's (1/sqrt(dh) of the real dh, which
+// the wrapper keeps where it pads a dh that is not a multiple of 8 into a
+// zero-filled copy).  Every row start stays 16-byte aligned.
 //
 // What bounds it: operations.  4 * DH per (query row, head, valid key) --
 // about 8.6 GFLOP for S = T = 1024, H = 32, DH = 128 causal, 8.7 us at the
@@ -35,9 +37,13 @@
 // * bf16: the tensor cores.  One CTA per (b, q head, 64 query rows), four
 //   warps of 16 rows each.  S = Q K^T and O += P V run as mma.sync
 //   m16n8k16 (bf16 operands, f32 accumulators).  A warp's Q fragments are
-//   loaded once into registers.  K and V tiles of 64 keys arrive through a
-//   2-stage (DH 128) or 3-stage (DH 32, 64) cp.async ring in dynamic shared
-//   memory (up to 68 KB, past the 48 KB static limit, so the launcher sets
+//   loaded once into registers up to DH 128; at DH 256 they would not fit
+//   beside O's 128 accumulators a thread, so the CTA's 64 rows of Q sit in
+//   a shared tile and each k-step of Q K^T reads its fragments by
+//   ldmatrix.  K and V tiles of 64 keys arrive through a 2-stage (DH 128,
+//   256) or 3-stage (DH 32, 64) cp.async ring in dynamic shared memory (up
+//   to 68 KB, and 165 KB with the Q tile at DH 256, past the 48 KB static
+//   limit, so the launcher sets
 //   cudaFuncAttributeMaxDynamicSharedMemorySize once per instantiation);
 //   rows of a ragged last tile are zero-filled by the src-size-0 form and
 //   masked.  Tile rows are padded by 16 bytes, so the 8 rows an ldmatrix
@@ -57,10 +63,10 @@
 // * f32: IEEE FMAs on the CUDA cores (the first port's body).  The f32
 //   sweeps are held to 2e-5, which TF32 on the tensor cores cannot meet,
 //   so f32 parity at full width still runs a kernel.  One CTA per (b, q
-//   head, 64 query rows) loops over 32-key tiles staged in shared memory
-//   as f32; four threads share a query row, each holding DH/4 of q and of
-//   the accumulator, interleaved by float4 so the four read one 64-byte
-//   span of a shared K/V row.
+//   head, 64 query rows) loops over 32-key tiles (16 at DH 256) staged in
+//   shared memory as f32; four threads share a query row, each holding
+//   DH/4 of q and of the accumulator, interleaved by float4 so the four
+//   read one 64-byte span of a shared K/V row.
 //
 // What holds the bf16 body back: at DH 128 a thread needs 243 registers,
 // so two CTAs (8 warps) share an SM, and each warp's tile loop -- the
@@ -81,9 +87,14 @@
 namespace {
 
 constexpr int BQ = 64;           // query rows per CTA
-constexpr int BK = 32;           // keys per shared-memory tile
 constexpr int TPR = 4;           // threads per query row
 constexpr int NT = BQ * TPR;     // threads per CTA
+
+// keys per shared-memory tile: 32, and 16 at DH 256, where the f32 K and
+// V tiles would pass the 48 KB of static shared memory
+__host__ __device__ constexpr int f32_keys(int dh) {
+  return dh > 128 ? 16 : 32;
+}
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
@@ -92,6 +103,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ lse, int s_len, int t_len, int h_q,
                        int g, int dh, int causal, int window, float scale) {
   constexpr int NF = DH / (4 * TPR);  // float4 chunks of a row per thread
+  constexpr int BK = f32_keys(DH);
   __shared__ __align__(16) float ks[BK][DH];
   __shared__ __align__(16) float vs[BK][DH];
 
@@ -235,12 +247,20 @@ constexpr int TC_BK = 64;            // keys per tile
 constexpr int TC_NT = TC_BQ * 2;     // one warp per 16 query rows
 
 __host__ __device__ constexpr int tc_stages(int dh) {
-  return dh == 128 ? 2 : 3;
+  return dh >= 128 ? 2 : 3;
 }
 
-// dynamic shared memory of one CTA: stages x (K tile, V tile), rows padded
+// Q in shared memory rather than in registers: at DH 256 a warp's Q
+// fragments (64 registers a thread) and O's accumulators (128) would pass
+// the 255 a thread may hold, so each k-step of Q K^T reads its Q
+// fragments from a shared tile by ldmatrix instead
+__host__ __device__ constexpr bool tc_q_shared(int dh) { return dh > 128; }
+
+// dynamic shared memory of one CTA: stages x (K tile, V tile), then the
+// Q tile where it is shared, rows padded (168,960 bytes at DH 256)
 constexpr int tc_smem_bytes(int dh) {
-  return tc_stages(dh) * 2 * TC_BK * (dh + 8) * 2;
+  return (tc_stages(dh) * 2 * TC_BK + (tc_q_shared(dh) ? TC_BQ : 0))
+         * (dh + 8) * 2;
 }
 
 // 2^x in one MUFU op (flush to zero; 2^-inf = 0).  P is rounded to bf16
@@ -300,8 +320,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = DH / 16;           // k-steps of Q K^T
   constexpr int NS = TC_BK / 8;         // n-tiles of S (8 keys each)
   constexpr int ND = DH / 8;            // n-tiles of O (8 columns each)
+  constexpr bool QS = tc_q_shared(DH);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sq = smem + ST * 2 * TILE;   // the Q tile (QS only)
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -331,6 +353,23 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * t_len * krow
                             + kh * dh;
 
+  if constexpr (QS) {
+    // the CTA's 64 query rows into the Q tile, in the first commit group;
+    // rows past S and columns past dh as zeros
+    constexpr int CPR = DH / 8;
+#pragma unroll
+    for (int i = 0; i < TC_BQ * CPR / TC_NT; ++i) {
+      const int c = threadIdx.x + i * TC_NT;
+      const int row = c / CPR;
+      const int col = (c % CPR) * 8;
+      const bool ok = q0 + row < s_len && col < dh;
+      const int64_t off =
+          ok ? ((static_cast<int64_t>(b) * s_len + q0 + row) * h_q + h) * dh
+                   + col
+             : 0;
+      cp_async16(sq + row * P + col, q + off, ok);
+    }
+  }
 #pragma unroll
   for (int st = 0; st < ST - 1; ++st) {
     if (st < n_tiles)
@@ -339,11 +378,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // the warp's 16 query rows as A fragments, once; rows past S and
-  // columns past dh as zeros (with the zero K/V columns of the tiles, the
-  // DH-wide loops compute a dh-wide attention)
-  unsigned qa[KS][4];
-  {
+  // the warp's 16 query rows as A fragments, once (from the Q tile at
+  // each k-step where it is shared); rows past S and columns past dh as
+  // zeros (with the zero K/V columns of the tiles, the DH-wide loops
+  // compute a dh-wide attention)
+  unsigned qa[QS ? 1 : KS][4];
+  if constexpr (!QS) {
     const int r0 = w0 + gq;
     const int r1 = r0 + 8;
     const __nv_bfloat16* p0 =
@@ -407,14 +447,28 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; kk += 2) {
+      unsigned qs0[4], qs1[4];
+      if constexpr (QS) {
+        // the warp's rows 0-15 at head dims kk*16 (lanes 0-15) and
+        // kk*16 + 8 (16-31): the four 8x8 blocks of an A fragment
+        const __nv_bfloat16* qp =
+            sq + (warp * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
+        hopper::ldmatrix_x4(qs0, qp);
+        hopper::ldmatrix_x4(qs1, qp + 16);
+      }
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         // keys j*8 .. j*8+7, head dims kk*16 .. kk*16+31: four 8x8 blocks
         unsigned kf[4];
         hopper::ldmatrix_x4(kf, sk + (j * 8 + (lane & 7)) * P + kk * 16
                                     + (lane >> 3) * 8);
-        hopper::mma_bf16(s[j], qa[kk], kf[0], kf[1]);
-        hopper::mma_bf16(s[j], qa[kk + 1], kf[2], kf[3]);
+        if constexpr (QS) {
+          hopper::mma_bf16(s[j], qs0, kf[0], kf[1]);
+          hopper::mma_bf16(s[j], qs1, kf[2], kf[3]);
+        } else {
+          hopper::mma_bf16(s[j], qa[kk], kf[0], kf[1]);
+          hopper::mma_bf16(s[j], qa[kk + 1], kf[2], kf[3]);
+        }
       }
     }
 
@@ -572,8 +626,10 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (CUDA
 // cores), 1 = bfloat16 (tensor cores).  Any G = h_q / hkv (the kernels
-// take it at run time) and any dh that is a multiple of 8 up to 128, on
-// the 32, 64 or 128 wide instantiation with zero columns past dh.
+// take it at run time) and any dh that is a multiple of 8 up to 256, on
+// the 32, 64, 128 or 256 wide instantiation with zero columns past dh
+// (the wrapper pads any other dh up to a multiple of 8, and passes the
+// real dh's scale).
 // lse, when not null, receives each query row's f32 natural log-sum-exp
 // of its scaled scores, (B, H, S) at (b * H + h) * S + i, -inf for a row
 // with no valid key: the backward (flash_attention_bwd.cu) recomputes P
@@ -601,11 +657,12 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                        t_len, h_q, g, dh, causal, window,    \
                                        scale, st);                           \
     break
-  if (dtype != 0 && dtype != 1) return -1;
+  if ((dtype != 0 && dtype != 1) || dh % 8) return -1;
   switch (head_width(dh)) {
     FLASH_DH(32);
     FLASH_DH(64);
     FLASH_DH(128);
+    FLASH_DH(256);
     default: return -1;
   }
 #undef FLASH_DH

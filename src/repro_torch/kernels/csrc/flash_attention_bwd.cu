@@ -34,9 +34,10 @@
 //   which one warp works.  q and dO are read through (dh, H, S, B) tensor
 //   maps and k and v through (dh, Hkv, T, B) ones, in boxes of 64 columns
 //   of dh (128 bytes, the 128-byte swizzle) by 64 rows, so the body is DH
-//   = 64 (one box) or 128 (two); dh 112 and 120 take zeros past dh from
-//   outside the dh dimension, never the next head's columns, and rows
-//   past S or T arrive as zeros, never the next batch's.
+//   = 64 (one box), 128 (two) or 256 (four); dh 112, 120 and 200 take
+//   zeros past dh from outside the dh dimension, never the next head's
+//   columns, and rows past S or T arrive as zeros, never the next
+//   batch's.
 //   - dK/dV: one CTA per (b, KV head, 128 keys), the first key blocks
 //     (the heaviest under a causal mask) launched first.  Each consumer
 //     warpgroup holds 64 keys' K and V in shared memory (loaded once) and
@@ -71,10 +72,22 @@
 //     the CTAs, half the tiles on the longest, the sum still in one fixed
 //     order.  The training shape (B 2 x S 4096) gives 512 CTAs of 128
 //     keys.
+//   - DH 256 (Gemma 3's heads; Layout's COLS): one warpgroup's 64 rows at
+//     the whole dh would hold 2 x 64 x 256 f32 sums, 256 registers a
+//     thread, past setmaxnreg's 232, and two resident 64 KB sets would
+//     leave one 64 KB stage.  So both passes take one 64-row block a CTA
+//     (one resident set, a ring of two stages, 219 KB), and per tile
+//     warpgroup 0 computes S (and P), warpgroup 1 dP (and dS), each once;
+//     P goes to warpgroup 1 and dS back to warpgroup 0 through shared
+//     memory (two named barriers a tile), and each warpgroup adds its
+//     half of dh's columns of the sums (N = 128 products): four products
+//     a valid pair in dK/dV and three in dQ, as at DH 128.
 // * f32: IEEE FMAs on the CUDA cores, four threads per key (dK/dV) or per
 //   query row (dQ), as the forward's f32 body; the f32 band of 2e-5 is
-//   beyond TF32.  dh is any multiple of 8 up to 128 on the DH = 32, 64 or
-//   128 wide body, with zero columns past dh.
+//   beyond TF32.  dh is any multiple of 8 up to 256 on the DH = 32, 64,
+//   128 or 256 wide body, with zero columns past dh; at DH 256 tiles of
+//   16 rows, eight threads a key or row and 32-row dQ blocks.  The wrapper
+//   pads any other dh to a multiple of 8 in a zero-filled copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,21 +134,33 @@ flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // f32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int TPR = 4;            // threads per key or query row
-constexpr int F_BQ = 64;          // dQ: query rows per CTA
-constexpr int F_BK = 32;          // dQ: keys per shared-memory tile
 constexpr int F_KB = 32;          // dK/dV: keys per CTA
-constexpr int F_QT = 32;          // dK/dV: queries per shared-memory tile
 
-// DH/4 of a row, this thread's share c of 4, interleaved by float4 (the
-// forward's layout); zeros past dh
+// Threads per key (dK/dV) or query row (dQ), the rows of a shared tile
+// (dQ's keys, dK/dV's queries) and dQ's query rows per CTA, by body
+// width.  Four threads, 32-row tiles and 64 rows up to DH 128.  At DH
+// 256 the f32 tiles take 16 rows (32 of 256 floats would pass the 48 KB
+// of static shared memory), and a key or row spreads over 8 threads:
+// dK/dV's four DH/TP-wide rows (K, V, dK, dV) at 4 threads would take 256
+// registers a thread, dQ's three (q, dO, dQ) 192 and spilled; dQ's CTA
+// takes 32 rows, so 256 threads may hold 255 registers each.
 template <int DH>
+struct F32Shape {
+  static constexpr int ROWS = DH > 128 ? 16 : 32;
+  static constexpr int TP_DQ = DH > 128 ? 8 : 4;
+  static constexpr int TP_KV = DH > 128 ? 8 : 4;
+  static constexpr int BQ = DH > 128 ? 32 : 64;
+};
+
+// DH/TP of a row, this thread's share c of TP, interleaved by float4 (the
+// forward's layout); zeros past dh
+template <int DH, int TP>
 __device__ __forceinline__ void load_share(const float* p, int c, int dh,
-                                           float (&r)[DH / 16][4],
+                                           float (&r)[DH / (4 * TP)][4],
                                            float mul) {
 #pragma unroll
-  for (int f = 0; f < DH / 16; ++f) {
-    const int col = (f * TPR + c) * 4;
+  for (int f = 0; f < DH / (4 * TP); ++f) {
+    const int col = (f * TP + c) * 4;
     if (col < dh) {
       load_row<4>(p + col, r[f]);
     } else {
@@ -148,28 +173,30 @@ __device__ __forceinline__ void load_share(const float* p, int c, int dh,
 }
 
 // the dot product of this thread's share with row s of a shared tile,
-// summed over the row's 4 threads
-template <int DH>
-__device__ __forceinline__ float share_dot(const float (&r)[DH / 16][4],
+// summed over the row's TP threads
+template <int DH, int TP>
+__device__ __forceinline__ float share_dot(const float (&r)[DH / (4 * TP)][4],
                                            const float* srow, int c) {
   float part = 0.f;
 #pragma unroll
-  for (int f = 0; f < DH / 16; ++f) {
-    const float4 x = *reinterpret_cast<const float4*>(&srow[(f * TPR + c)
+  for (int f = 0; f < DH / (4 * TP); ++f) {
+    const float4 x = *reinterpret_cast<const float4*>(&srow[(f * TP + c)
                                                             * 4]);
     part += r[f][0] * x.x + r[f][1] * x.y + r[f][2] * x.z + r[f][3] * x.w;
   }
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+  for (int o = 1; o < TP; o <<= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, o);
   return part;
 }
 
-template <int DH>
-__device__ __forceinline__ void share_axpy(float (&acc)[DH / 16][4], float a,
-                                           const float* srow, int c) {
+template <int DH, int TP>
+__device__ __forceinline__ void share_axpy(float (&acc)[DH / (4 * TP)][4],
+                                           float a, const float* srow,
+                                           int c) {
 #pragma unroll
-  for (int f = 0; f < DH / 16; ++f) {
-    const float4 x = *reinterpret_cast<const float4*>(&srow[(f * TPR + c)
+  for (int f = 0; f < DH / (4 * TP); ++f) {
+    const float4 x = *reinterpret_cast<const float4*>(&srow[(f * TP + c)
                                                             * 4]);
     acc[f][0] = fmaf(a, x.x, acc[f][0]);
     acc[f][1] = fmaf(a, x.y, acc[f][1]);
@@ -195,7 +222,7 @@ __device__ __forceinline__ void stage_f32(float (*dst)[DH], const float* src,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(F_BQ * TPR)
+__global__ void __launch_bounds__(F32Shape<DH>::BQ * F32Shape<DH>::TP_DQ)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -204,7 +231,10 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ dsum,
                         float* __restrict__ dq, int s_len, int t_len, int h_q,
                         int g, int dh, int causal, int window, float scale) {
-  constexpr int NF = DH / 16;
+  constexpr int TPR = F32Shape<DH>::TP_DQ;
+  constexpr int F_BK = F32Shape<DH>::ROWS;   // keys per shared tile
+  constexpr int F_BQ = F32Shape<DH>::BQ;     // query rows per CTA
+  constexpr int NF = DH / (4 * TPR);
   constexpr int NTH = F_BQ * TPR;
   __shared__ __align__(16) float ks[F_BK][DH];
   __shared__ __align__(16) float vs[F_BK][DH];
@@ -235,8 +265,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int64_t qoff = (static_cast<int64_t>(b) * s_len + (live ? qi : 0))
                        * qrow + static_cast<int64_t>(h) * dh;
   float qr[NF][4], dor[NF][4], acc[NF][4];
-  load_share<DH>(q + qoff, c, dh, qr, scale);
-  load_share<DH>(dout + qoff, c, dh, dor, 1.f);
+  load_share<DH, TPR>(q + qoff, c, dh, qr, scale);
+  load_share<DH, TPR>(dout + qoff, c, dh, dor, 1.f);
 #pragma unroll
   for (int f = 0; f < NF; ++f)
 #pragma unroll
@@ -258,12 +288,12 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     if (!__any_sync(0xffffffffu, need)) continue;
 #pragma unroll 4
     for (int j = 0; j < F_BK; ++j) {
-      const float s = share_dot<DH>(qr, ks[j], c);     // scaled score
-      const float dp = share_dot<DH>(dor, vs[j], c);
+      const float s = share_dot<DH, TPR>(qr, ks[j], c);   // scaled score
+      const float dp = share_dot<DH, TPR>(dor, vs[j], c);
       const int t = t0 + j;
       const bool ok = live && t >= lo && t <= hi;
       const float p = ok ? expf(s - lse_i) : 0.f;
-      share_axpy<DH>(acc, p * (dp - d_i), ks[j], c);
+      share_axpy<DH, TPR>(acc, p * (dp - d_i), ks[j], c);
     }
   }
   if (!live) return;
@@ -278,7 +308,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(F_KB * TPR)
+__global__ void __launch_bounds__(F_KB * F32Shape<DH>::TP_KV)
 flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -288,7 +318,9 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int s_len, int t_len, int h_q, int g, int dh,
                           int causal, int window, float scale) {
-  constexpr int NF = DH / 16;
+  constexpr int TPR = F32Shape<DH>::TP_KV;
+  constexpr int F_QT = F32Shape<DH>::ROWS;   // queries per shared tile
+  constexpr int NF = DH / (4 * TPR);
   constexpr int NTH = F_KB * TPR;
   __shared__ __align__(16) float qs[F_QT][DH];
   __shared__ __align__(16) float dos[F_QT][DH];
@@ -308,8 +340,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   const int64_t koff = (static_cast<int64_t>(b) * t_len + (live ? kj : 0))
                        * krow + static_cast<int64_t>(kh) * dh;
   float kr[NF][4], vr[NF][4], dka[NF][4], dva[NF][4];
-  load_share<DH>(k + koff, c, dh, kr, scale);
-  load_share<DH>(v + koff, c, dh, vr, 1.f);
+  load_share<DH, TPR>(k + koff, c, dh, kr, scale);
+  load_share<DH, TPR>(v + koff, c, dh, vr, 1.f);
 #pragma unroll
   for (int f = 0; f < NF; ++f)
 #pragma unroll
@@ -341,14 +373,14 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       __syncthreads();
 #pragma unroll 4
       for (int i = 0; i < F_QT; ++i) {
-        const float s = share_dot<DH>(kr, qs[i], c);   // scaled score
-        const float dp = share_dot<DH>(vr, dos[i], c);
+        const float s = share_dot<DH, TPR>(kr, qs[i], c);   // scaled score
+        const float dp = share_dot<DH, TPR>(vr, dos[i], c);
         const int qi = i0 + i;
         bool ok = live && qi < s_len;
         if (causal) ok = ok && kj <= qi && (window <= 0 || kj > qi - window);
         const float p = ok ? expf(s - ls[i]) : 0.f;
-        share_axpy<DH>(dva, p, dos[i], c);
-        share_axpy<DH>(dka, p * (dp - ds[i]), qs[i], c);
+        share_axpy<DH, TPR>(dva, p, dos[i], c);
+        share_axpy<DH, TPR>(dka, p * (dp - ds[i]), qs[i], c);
       }
     }
   }
@@ -379,17 +411,28 @@ constexpr int MAX_RING = 4;
 constexpr int BUDGET = 227 * 1024 - 256;   // dynamic shared memory a CTA
 
 // Shared memory of both kernels at body width DH: the CTA's resident
-// block (two tensors x two warpgroups x DH/64 boxes: K and V, or Q and
-// dO), the ring of streamed tiles (two tensors x DH/64 boxes a stage), 64
-// f32 of LSE and of D a stage (dK/dV), and the barriers.
+// block (two tensors x SETS x DH/64 boxes: K and V, or Q and dO), the
+// ring of streamed tiles (two tensors x DH/64 boxes a stage), 64 f32 of
+// LSE and of D a stage (dK/dV), the barriers, and with COLS the exchange
+// of P and dS between the warpgroups.  COLS (DH 256): both warpgroups
+// work on one 64-row block, one set resident (64 KB), each holding half
+// of dh's columns of the f32 sums: a warpgroup's 64 rows at the whole
+// 256 would take 2 x 64 x 256 / 128 = 256 registers a thread (past
+// setmaxnreg's 232), and two resident sets of 64 KB each would leave
+// room for one 64 KB stage.
 template <int DH>
 struct Layout {
   static constexpr int NB = DH / BOX;
-  static constexpr int RES_BYTES = 2 * NWG * NB * BOX_BYTES;
+  static constexpr bool COLS = DH > 128;
+  static constexpr int SETS = COLS ? 1 : NWG;
+  static constexpr int RES_BYTES = 2 * SETS * NB * BOX_BYTES;
   static constexpr int STAGE = 2 * NB * BOX_BYTES;
   static constexpr int ROW_BYTES = MAX_RING * 2 * TILE * 4;
   static constexpr int BAR_BYTES = (2 * MAX_RING + 1) * 8;
-  static constexpr int FIXED = 1024 + RES_BYTES + ROW_BYTES + BAR_BYTES;
+  // P (32 f32 a thread) and dS (16 bf16 pairs a thread) of a tile
+  static constexpr int XCHG_BYTES = COLS ? (32 + 16) * 128 * 4 : 0;
+  static constexpr int FIXED =
+      1024 + RES_BYTES + ROW_BYTES + BAR_BYTES + XCHG_BYTES;
   static constexpr int RING = (BUDGET - FIXED) / STAGE < MAX_RING
                                   ? (BUDGET - FIXED) / STAGE
                                   : MAX_RING;
@@ -449,15 +492,56 @@ __device__ __forceinline__ void scores(float (&s)[32],
   hopper::wgmma_commit();
 }
 
-// acc (64 x DH) += A (64 x 64, register operands a) B, B an MN-major
-// 64-row tile DH wide
-template <int DH>
-__device__ __forceinline__ void acc_product(float (&acc)[DH / 2],
+// acc (64 x N) += A (64 x 64, register operands a) B, B an MN-major
+// 64-row tile N wide (N = DH, or half of it from the box of column N *
+// half with COLS)
+template <int N>
+__device__ __forceinline__ void acc_product(float (&acc)[N / 2],
                                             const unsigned (&a)[4][4],
                                             const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    hopper::WgmmaRS<DH>::template mma<1>(acc, a[kk], mnmajor(b, kk), 1);
+    hopper::WgmmaRS<N>::template mma<1>(acc, a[kk], mnmajor(b, kk), 1);
+}
+
+// COLS: warpgroup 0 hands P (f32, its accumulator layout) to warpgroup
+// 1 through xp, which hands back dS as bf16 A operands through xd; thread
+// t of one warpgroup holds the elements thread t of the other needs, and
+// warpgroup 1 reads P from xp where it uses it (no register copy).  Named
+// barriers 1 and 2 order the two hand-offs within a tile, and the next
+// tile's writes come after both reads.
+__device__ __forceinline__ void hand_p(int wg, int t, const float (&x)[32],
+                                       float* xp) {
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xp[i * 128 + t] = x[i];
+  }
+  hopper::named_barrier(1, NWG * 128);
+}
+
+// P from xp (thread t's elements) as bf16 A operands of four k-steps,
+// as to_a_frags packs a register tile
+__device__ __forceinline__ void shared_a_frags(const float* xp, int t,
+                                               unsigned (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = hopper::pack_bf16x2(xp[(8 * kk + 2 * j) * 128 + t],
+                                     xp[(8 * kk + 2 * j + 1) * 128 + t]);
+}
+
+__device__ __forceinline__ void hand_ds(int wg, int t, unsigned (&da)[4][4],
+                                        unsigned* xd) {
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xd[i * 128 + t] = da[i >> 2][i & 3];
+  }
+  hopper::named_barrier(2, NWG * 128);
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) da[i >> 2][i & 3] = xd[i * 128 + t];
+  }
 }
 
 // dK and dV of one (b, KV head, block of keys).  Thread roles:
@@ -487,19 +571,23 @@ flash_bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap qmap,
   using L = Layout<DH>;
   constexpr int NB = L::NB;
   constexpr int RING = L::RING;
-  constexpr int KEYS = HEADS ? TILE : BLOCK;     // keys of the CTA
-  constexpr int SETS = HEADS ? 1 : NWG;          // resident K/V sets
+  constexpr bool COLS = L::COLS;
+  constexpr bool ONE = HEADS || COLS;            // one 64-key block
+  constexpr int KEYS = ONE ? TILE : BLOCK;       // keys of the CTA
+  constexpr int SETS = ONE ? 1 : NWG;            // resident K/V sets
   constexpr int WAYS = HEADS ? NWG : 1;          // stages a (head, tile)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* sv = sk + NWG * NB * BOX_BYTES;
-  unsigned char* ring = sv + NWG * NB * BOX_BYTES;
+  unsigned char* sv = sk + L::SETS * NB * BOX_BYTES;
+  unsigned char* ring = sv + L::SETS * NB * BOX_BYTES;
   float* sl = reinterpret_cast<float*>(ring + RING * L::STAGE);  // lse log2
   float* sd = sl + MAX_RING * TILE;                               // D
   uint64_t* full = reinterpret_cast<uint64_t*>(sd + MAX_RING * TILE);
   uint64_t* empty = full + MAX_RING;
   uint64_t* kv_full = empty + MAX_RING;
+  float* xp = reinterpret_cast<float*>(kv_full + 1);     // COLS: P
+  unsigned* xd = reinterpret_cast<unsigned*>(xp + 32 * 128);  // and dS
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -582,6 +670,113 @@ flash_bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap qmap,
           }
         }
       }
+    }
+  } else if constexpr (COLS) {
+    // ---- consumers, COLS: both warpgroups on the CTA's 64 keys.  Per
+    // tile warpgroup 0 computes S^T = K Q^T and P^T, warpgroup 1 dP^T =
+    // V dO^T and dS^T; each then adds its half of dh's columns of dV +=
+    // P^T dO and dK += dS^T Q. ----
+    hopper::reg_alloc<232>();
+    const int kw_last = min(k0 + TILE - 1, t_len - 1);
+    const int key_r = k0 + 16 * (warp & 3) + (lane >> 2);  // and key_r + 8
+    const int qc = 2 * (lane & 3);             // query columns 8j + qc, +1
+    const int t = tid & 127;
+    const int half = wg * (NB / 2) * BOX_BYTES;  // the warpgroup's columns
+    float dka[DH / 4], dva[DH / 4], x[32];
+    zero(dka);
+    zero(dva);
+    zero(x);                // the first k-step of the product overwrites
+    hopper::mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int gi = 0; gi < g; ++gi) {
+      for (int tile = 0; tile < n_tiles; ++tile, ++it) {
+        const int i0 = q_begin + tile * TILE;
+        const int st = it % RING;
+        hopper::mbar_wait(&full[st], (it / RING) & 1);
+        const int i_last = min(i0 + TILE, s_len) - 1;
+        bool need = k0 < t_len && i0 < s_len;
+        bool whole = k0 + TILE <= t_len && i0 + TILE <= s_len;
+        if (causal) {
+          need = need && i_last >= k0;
+          whole = whole && i0 >= k0 + TILE - 1;
+          if (window > 0) {
+            need = need && i0 < kw_last + window;
+            whole = whole && i_last < k0 + window;
+          }
+        }
+        if (need) {
+          const unsigned char* sq = ring + st * L::STAGE;
+          const unsigned char* sdo = sq + NB * BOX_BYTES;
+          const float* tl = sl + st * TILE;
+          const float* td = sd + st * TILE;
+          hopper::wgmma_fence();
+          scores<DH>(x, wg == 0 ? sk : sv, wg == 0 ? sq : sdo);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(x);
+          if (wg == 0) {                           // P^T
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int key = key_r + 8 * (i >> 1);
+                const int q = 8 * jj + qc + (i & 1);
+                bool ok = true;
+                if (!whole) {
+                  const int qi = i0 + q;
+                  ok = key < t_len && qi < s_len;
+                  if (causal)
+                    ok = ok && key <= qi && (window <= 0 || key > qi - window);
+                }
+                x[4 * jj + i] =
+                    ok ? ex2(fmaf(x[4 * jj + i], scale_log2, -tl[q])) : 0.f;
+              }
+          }
+          unsigned pa[4][4], da[4][4];
+          hand_p(wg, t, x, xp);
+          if (wg == 1) {                           // dS^T = P^T (dP^T - D)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                x[4 * jj + i] = xp[(4 * jj + i) * 128 + t]
+                                * (x[4 * jj + i] - td[8 * jj + qc + (i & 1)]);
+            shared_a_frags(xp, t, pa);
+            to_a_frags(x, da);
+          } else {
+            to_a_frags(x, pa);
+          }
+          hand_ds(wg, t, da, xd);
+          hopper::fence_regs(dva);
+          hopper::fence_regs(dka);
+          hopper::wgmma_fence();
+          acc_product<DH / 2>(dva, pa, sdo + half);     // dV += P^T dO
+          acc_product<DH / 2>(dka, da, sq + half);      // dK += dS^T Q
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dva);
+          hopper::fence_regs(dka);
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key_r + 8 * r;
+      if (key >= t_len) continue;
+      const int64_t off =
+          (static_cast<int64_t>(b) * t_len + key) * hkv * dh
+          + static_cast<int64_t>(kh) * dh + wg * (DH / 2) + qc;
+#pragma unroll
+      for (int jj = 0; jj < DH / 16; ++jj)
+        if (wg * (DH / 2) + 8 * jj < dh) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jj) =
+              __floats2bfloat162_rn(dka[4 * jj + 2 * r] * scale,
+                                    dka[4 * jj + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * jj) =
+              __floats2bfloat162_rn(dva[4 * jj + 2 * r],
+                                    dva[4 * jj + 2 * r + 1]);
+        }
     }
   } else {
     // ---- consumers: 64 keys each ----
@@ -735,19 +930,23 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap qmap,
   using L = Layout<DH>;
   constexpr int NB = L::NB;
   constexpr int RING = L::RING;
+  constexpr bool COLS = L::COLS;
+  constexpr int ROWS = COLS ? TILE : BLOCK;      // query rows of the CTA
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* sdo = sq + NWG * NB * BOX_BYTES;
-  unsigned char* ring = sdo + NWG * NB * BOX_BYTES;
+  unsigned char* sdo = sq + L::SETS * NB * BOX_BYTES;
+  unsigned char* ring = sdo + L::SETS * NB * BOX_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING * L::STAGE
                                                + L::ROW_BYTES);
   uint64_t* empty = full + MAX_RING;
   uint64_t* qd_full = empty + MAX_RING;
+  float* xp = reinterpret_cast<float*>(qd_full + 1);     // COLS: P
+  unsigned* xd = reinterpret_cast<unsigned*>(xp + 32 * 128);  // and dS
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BLOCK;   // heaviest first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;    // heaviest first
   const int kh = h / g;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -766,7 +965,7 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   int k_begin = 0, k_end = t_len;        // the keys the block's rows see
   if (causal) {
-    k_end = min(min(q0 + BLOCK, s_len), t_len);
+    k_end = min(min(q0 + ROWS, s_len), t_len);
     if (window > 0) k_begin = max(q0 - window + 1, 0);
   }
   k_begin = (k_begin / TILE) * TILE;
@@ -779,7 +978,7 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == NWG * 128) {
       hopper::mbar_arrive_expect_tx(qd_full, L::RES_BYTES);
 #pragma unroll
-      for (int w = 0; w < NWG; ++w)
+      for (int w = 0; w < L::SETS; ++w)
 #pragma unroll
         for (int bx = 0; bx < NB; ++bx) {
           hopper::tma_load_4d(sq + (w * NB + bx) * BOX_BYTES, &qmap, qd_full,
@@ -801,6 +1000,99 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap qmap,
                               &full[st], bx * BOX, kh, t0, b);
         }
       }
+    }
+  } else if constexpr (COLS) {
+    // ---- consumers, COLS: both warpgroups on the CTA's 64 rows.  Per
+    // tile warpgroup 0 computes S = Q K^T and P, warpgroup 1 dP = dO V^T
+    // and dS; each then adds its half of dh's columns of dQ += dS K. ----
+    hopper::reg_alloc<232>();
+    const int w_last = min(q0 + TILE - 1, s_len - 1);
+    const int row_r = q0 + 16 * (warp & 3) + (lane >> 2);  // and row_r + 8
+    const int kc = 2 * (lane & 3);             // key columns 8j + kc, +1
+    const int t = tid & 127;
+    const int half = wg * (NB / 2) * BOX_BYTES;  // the warpgroup's columns
+    const int64_t lb = (static_cast<int64_t>(b) * h_q + h) * s_len;
+    float l2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_r + 8 * r;
+      l2[r] = row < s_len ? lse[lb + row] * LOG2E : 0.f;
+      dd[r] = row < s_len ? dsum[lb + row] : 0.f;
+    }
+    float dqa[DH / 4], x[32];
+    zero(dqa);
+    zero(x);                // the first k-step of the product overwrites
+    hopper::mbar_wait(qd_full, 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int t0 = k_begin + tile * TILE;
+      const int st = tile % RING;
+      hopper::mbar_wait(&full[st], (tile / RING) & 1);
+      bool need = q0 < s_len;
+      bool whole = t0 + TILE <= t_len && q0 + TILE <= s_len;
+      if (causal) {
+        need = need && t0 <= w_last;
+        whole = whole && t0 + TILE - 1 <= q0;
+        if (window > 0) {
+          need = need && t0 + TILE - 1 > q0 - window;
+          whole = whole && t0 > w_last - window;
+        }
+      }
+      if (need) {
+        const unsigned char* skt = ring + st * L::STAGE;
+        const unsigned char* svt = skt + NB * BOX_BYTES;
+        hopper::wgmma_fence();
+        scores<DH>(x, wg == 0 ? sq : sdo, wg == 0 ? skt : svt);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(x);
+        if (wg == 0) {                             // P
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int row = row_r + 8 * (i >> 1);
+              const int key = t0 + 8 * j + kc + (i & 1);
+              bool ok = true;
+              if (!whole) {
+                ok = key < t_len && row < s_len;
+                if (causal)
+                  ok = ok && key <= row && (window <= 0 || key > row - window);
+              }
+              x[4 * j + i] =
+                  ok ? ex2(fmaf(x[4 * j + i], scale_log2, -l2[i >> 1])) : 0.f;
+            }
+        }
+        unsigned da[4][4];
+        hand_p(wg, t, x, xp);
+        if (wg == 1) {                             // dS = P (dP - D)
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            x[i] = xp[i * 128 + t] * (x[i] - dd[(i >> 1) & 1]);
+          to_a_frags(x, da);
+        }
+        hand_ds(wg, t, da, xd);
+        hopper::fence_regs(dqa);
+        hopper::wgmma_fence();
+        acc_product<DH / 2>(dqa, da, skt + half);    // dQ += dS K
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dqa);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_r + 8 * r;
+      if (row >= s_len) continue;
+      __nv_bfloat16* op = dq + (static_cast<int64_t>(b) * s_len + row)
+                                   * h_q * dh
+                          + static_cast<int64_t>(h) * dh + wg * (DH / 2) + kc;
+#pragma unroll
+      for (int j = 0; j < DH / 16; ++j)
+        if (wg * (DH / 2) + 8 * j < dh)
+          *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * r] * scale,
+                                    dqa[4 * j + 2 * r + 1] * scale);
     }
   } else {
     // ---- consumers: 64 query rows each ----
@@ -931,15 +1223,18 @@ cudaError_t launch_f32(const BwdArgs& a) {
   if (hkv > 65535 || a.batch > 65535 || a.h_q > 65535)
     return cudaErrorInvalidConfiguration;
   dim3 g1((a.t_len + F_KB - 1) / F_KB, hkv, a.batch);
-  flash_bwd_dkdv_f32_kernel<DH><<<g1, F_KB * TPR, 0, a.stream>>>(
+  flash_bwd_dkdv_f32_kernel<DH>
+      <<<g1, F_KB * F32Shape<DH>::TP_KV, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.dsum, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.s_len, a.t_len, a.h_q, a.g, a.dh, a.causal, a.window, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 g2((a.s_len + F_BQ - 1) / F_BQ, a.h_q, a.batch);
-  flash_bwd_dq_f32_kernel<DH><<<g2, F_BQ * TPR, 0, a.stream>>>(
+  constexpr int BQ = F32Shape<DH>::BQ;
+  dim3 g2((a.s_len + BQ - 1) / BQ, a.h_q, a.batch);
+  flash_bwd_dq_f32_kernel<DH><<<g2, BQ * F32Shape<DH>::TP_DQ, 0,
+                                 a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.dsum, static_cast<float*>(a.dq), a.s_len, a.t_len, a.h_q,
@@ -971,10 +1266,12 @@ int launch_tma(const BwdArgs& a) {
         flash_bwd_dkdv_tma_kernel<DH, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_tma_kernel<DH, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if constexpr (!L::COLS) {
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_tma_kernel<DH, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 L::SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     err = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::SMEM);
@@ -982,12 +1279,15 @@ int launch_tma(const BwdArgs& a) {
     smem_set = true;
   }
   const int hkv = a.h_q / a.g;
-  int kblocks = (a.t_len + BLOCK - 1) / BLOCK;
-  const int qblocks = (a.s_len + BLOCK - 1) / BLOCK;
+  // COLS: one 64-row block a CTA in both passes
+  constexpr int CTA_ROWS = L::COLS ? TILE : BLOCK;
+  int kblocks = (a.t_len + CTA_ROWS - 1) / CTA_ROWS;
+  const int qblocks = (a.s_len + CTA_ROWS - 1) / CTA_ROWS;
   // 128-key blocks that would leave SMs idle split the group's heads
   // between the warpgroups instead, over 64-key blocks
-  const bool heads = a.g >= 2 && static_cast<int64_t>(hkv) * a.batch
-                                         * kblocks < hopper::sm_count();
+  const bool heads = !L::COLS && a.g >= 2
+                     && static_cast<int64_t>(hkv) * a.batch * kblocks
+                            < hopper::sm_count();
   if (heads) kblocks = (a.t_len + TILE - 1) / TILE;
   if (a.batch > 65535 || kblocks > 65535 || qblocks > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -1001,12 +1301,19 @@ int launch_tma(const BwdArgs& a) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = a.scale * LOG2E;
   const dim3 grid(hkv, a.batch, kblocks);
-  if (heads)
-    flash_bwd_dkdv_tma_kernel<DH, true><<<grid, THREADS, L::SMEM, a.stream>>>(
-        qm, dm, km, vm, a.lse, a.dsum, static_cast<__nv_bfloat16*>(a.dk),
-        static_cast<__nv_bfloat16*>(a.dv), a.s_len, a.t_len, a.h_q, a.g,
-        a.dh, a.causal, a.window, a.scale, scale_log2);
-  else
+  bool launched = false;
+  if constexpr (!L::COLS) {
+    if (heads) {
+      flash_bwd_dkdv_tma_kernel<DH, true>
+          <<<grid, THREADS, L::SMEM, a.stream>>>(
+              qm, dm, km, vm, a.lse, a.dsum,
+              static_cast<__nv_bfloat16*>(a.dk),
+              static_cast<__nv_bfloat16*>(a.dv), a.s_len, a.t_len, a.h_q,
+              a.g, a.dh, a.causal, a.window, a.scale, scale_log2);
+      launched = true;
+    }
+  }
+  if (!launched)
     flash_bwd_dkdv_tma_kernel<DH, false>
         <<<grid, THREADS, L::SMEM, a.stream>>>(
             qm, dm, km, vm, a.lse, a.dsum,
@@ -1047,6 +1354,7 @@ extern "C" int flash_attention_bwd_launch(
                   static_cast<float*>(dsum), dq, dk, dv, batch, s_len, t_len,
                   h_q, h_q / hkv, dh, causal, window, scale,
                   static_cast<cudaStream_t>(stream)};
+  if (dh % 8) return -1;
   switch (head_width(dh)) {
     case 32:
       return dtype == 0 ? static_cast<int>(launch_f32<32>(a))
@@ -1057,6 +1365,9 @@ extern "C" int flash_attention_bwd_launch(
     case 128:
       return dtype == 0 ? static_cast<int>(launch_f32<128>(a))
                         : launch_tma<128>(a);
+    case 256:
+      return dtype == 0 ? static_cast<int>(launch_f32<256>(a))
+                        : launch_tma<256>(a);
     default:
       return -1;
   }

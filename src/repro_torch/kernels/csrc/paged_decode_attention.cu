@@ -20,7 +20,9 @@
 //   pool (Npool, page, Hkv, dh)      element (p, s, h, d) at
 //                                    ((p*page + s)*Hkv + h)*dh + d
 //   bt   (B, P) int32, ctx (B,) int32
-// dh is any multiple of 8 up to 128 and G any of 1, 2, 4-8, 12 and 16.
+// dh is any of 1 to 256 and G any (the split-KV core in common.cuh: a dh
+// that is not a multiple of 8 loads element by element).  A page of 128
+// rows holds 64 KB a KV head at dh 256 in bf16.
 //
 // What bounds it: the bytes of K and V of the valid keys, 2 * keys * Hkv
 // * dh * sizeof(T) per sequence, against 3.35 TB/s of HBM.  The
@@ -83,7 +85,7 @@ struct PagedArgs {
 
 // One CTA: query heads row0 .. row0 + G - 1 (a group chunk of KV head h)
 // of sequence b over table entries [p0, p0 + pages_per_split) of its row.
-template <typename T, int DH, int G>
+template <typename T, int DH, int G, bool NARROW>
 __global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
   __shared__ int pids[MAX_PAGES];
   __shared__ DecodeSmem<DH, G, NWARPS> sm;
@@ -126,7 +128,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
   __syncthreads();
 
   DecodeState<T, DH, G> st;
-  decode_begin(st, q, row0, heads, a.dh, a.scale_log2);
+  decode_begin<T, DH, G, NARROW>(st, q, row0, heads, a.dh, a.scale_log2);
   // the warps take four contiguous parts of the range
   const int per = (s1 - s0 + NWARPS - 1) / NWARPS;
   const int w0 = s0 + warp * per;
@@ -135,19 +137,21 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
   const int64_t head = static_cast<int64_t>(h) * a.dh;
   const int page = a.page;
   const int* pid = pids;
-  decode_rows(st, k + head, v + head, n, a.dh, [=](int j) {
-    const int t = w0 + j;
-    return (static_cast<int64_t>(pid[t / page - pa]) * page + t % page) * rs;
-  });
+  decode_rows<T, DH, G, NARROW>(
+      st, k + head, v + head, n, a.dh, [=](int j) {
+        const int t = w0 + j;
+        return (static_cast<int64_t>(pid[t / page - pa]) * page + t % page)
+               * rs;
+      });
   decode_end(st, sm, heads, a.dh, out, a.part_acc, a.part_ml, nullptr, row0,
              split, a.splits);
 }
 
-template <typename T, int DH, int G>
+template <typename T, int DH, int G, bool NARROW>
 struct PagedLaunch {
   static int run(const PagedArgs& a) {
     const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
-    paged_split_kernel<T, DH, G><<<grid, NT, 0, a.stream>>>(a);
+    paged_split_kernel<T, DH, G, NARROW><<<grid, NT, 0, a.stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess && a.splits > 1)
       err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),

@@ -34,7 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels.attention_shapes import (
-    DTYPES, check_attention_shape, group_chunk)
+    DTYPES, check_attention_shape, check_grid, group_chunk)
 from repro_torch.kernels.grad import refuse_grad
 
 NEG_INF = -1e30
@@ -143,11 +143,15 @@ def _launch(q, k, v, kpos, q_pos, window: int, with_lse: bool):
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     check_attention_shape(q.dtype, dh, g)
+    gc = group_chunk(g)
+    check_grid(hkv, g, gc)
     rs = slot_stride(k)
     if slot_stride(v) != rs:
         raise ValueError("k and v must be laid out alike")
-    # K/V rows are read 16 bytes a lane; kpos and q_pos one int at a time
-    for name, x, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
+    # K/V rows are read 16 bytes a lane where dh is a multiple of 8, else
+    # an element at a time; kpos and q_pos one int at a time
+    row = 16 if dh % 8 == 0 else q.element_size()
+    for name, x, align in (("q", q, row), ("k", k, row), ("v", v, row),
                            ("kpos", kpos, 4), ("q_pos", q_pos, 4)):
         if name not in ("k", "v") and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -173,7 +177,7 @@ def _launch(q, k, v, kpos, q_pos, window: int, with_lse: bool):
              kpos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, t, hkv, g,
              dh, int(window), 1.0 / math.sqrt(dh), stream,
              None if scratch is None else scratch.data_ptr(), split_len,
-             group_chunk(g), None if lse is None else lse.data_ptr(), rs)
+             gc, None if lse is None else lse.data_ptr(), rs)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: error {err}")
     decode_attention.launches += 1

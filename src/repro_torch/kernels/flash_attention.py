@@ -22,11 +22,15 @@ window); non-causal: every key.  Scores and softmax are f32 with
 Two differences from the reference wrapper, both on purpose: the key
 length is the real ``T`` (``ops.py`` pads the key axis and passes the
 padded length as ``kv_len``, so non-causal calls with ``T % 128 != 0``
-let zero keys into the softmax; ROADMAP §C), and nothing is padded, so
-the scale is ``1/sqrt(dh)`` of the real head dim.  A query row with no
-valid key (causal with a window and ``S > T`` only) comes out as zeros
-from the kernel (with LSE ``-inf`` and a zero gradient) and as the
-uniform average from the plain version.
+let zero keys into the softmax; ROADMAP §C), and the query and key axes
+are never padded.  The head dim is padded only where it is not a
+multiple of 8 (to the next one, where the reference pads every dh to a
+multiple of 128): q, k and v (and out and dout for the backward) are
+copied into zero-padded tensors, the scale stays ``1/sqrt(dh)`` of the
+real head dim, and the outputs and gradients are cut back to dh.  A
+query row with no valid key (causal with a window and ``S > T`` only)
+comes out as zeros from the kernel (with LSE ``-inf`` and a zero
+gradient) and as the uniform average from the plain version.
 
 Bound on the card: operations, ``4 * dh`` per (query row, head, valid
 key), against the tensor cores' bf16 rate.  bf16 runs on the tensor
@@ -46,7 +50,8 @@ import math
 import torch
 
 from repro_torch.kernels.attention_shapes import (DTYPES,
-                                                  check_attention_shape)
+                                                  check_attention_shape,
+                                                  pad_width)
 
 NEG_INF = -1e30
 
@@ -129,18 +134,30 @@ def _check_launch(name: str, *xs) -> None:
             raise ValueError(f"{name}: input {i} must be 16-byte aligned")
 
 
+def _padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with its last axis zero-padded to ``width`` (a copy), or
+    ``x`` itself where it is that wide already."""
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
 def _launch(q, k, v, causal: bool, window: int,
             with_lse: bool = False):
     """The forward kernel.  Returns ``out``, or ``(out, lse)`` with the
     f32 (B, H, S) log-sum-exp of each query row when ``with_lse``; without
     it the kernel gets a null pointer, so the serving launches (and the
-    CUDA graphs that captured them) are unchanged."""
+    CUDA graphs that captured them) are unchanged.  A dh that is not a
+    multiple of 8 runs on zero-padded copies of q, k and v at the next
+    one, with the real dh's scale, and ``out`` is cut back to dh."""
     from repro_torch.kernels import build
 
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     check_attention_shape(q.dtype, dh, h // hkv)
     _check_launch("flash_attention", q, k, v)
+    width = pad_width(dh)
+    q, k, v = (_padded(x, width) for x in (q, k, v))
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -153,11 +170,13 @@ def _launch(q, k, v, causal: bool, window: int,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), lse.data_ptr() if with_lse else None, b, s, t,
-             h, hkv, dh, int(bool(causal)), int(window), 1.0 / math.sqrt(dh),
-             stream)
+             h, hkv, width, int(bool(causal)), int(window),
+             1.0 / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: error {err}")
     flash_attention.launches += 1
+    if width != dh:
+        out = out[..., :dh].contiguous()
     return (out, lse) if with_lse else out
 
 
@@ -176,9 +195,13 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32 {(b, h, s)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    # dh % 8 == 0 (check_attention_shape) makes every row stride of the
-    # bf16 kernels' tensor maps, H dh and Hkv dh elements, 16-byte whole
     _check_launch("flash_attention_backward", q, k, v, out, lse, dout)
+    # a dh that is a multiple of 8 makes every row stride of the bf16
+    # kernels' tensor maps, H dh and Hkv dh elements, 16-byte whole; any
+    # other runs on zero-padded copies (the padded columns of out and
+    # dout add nothing to D = rowsum(dout * out)), cut back below
+    width = pad_width(dh)
+    q, k, v, out, dout = (_padded(x, width) for x in (q, k, v, out, dout))
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -193,12 +216,14 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
              dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, s, t, h, hkv, dh, int(bool(causal)), int(window),
+             b, s, t, h, hkv, width, int(bool(causal)), int(window),
              1.0 / math.sqrt(dh), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_backward launch failed: error "
                            f"{err}")
     flash_attention_backward.launches += 1
+    if width != dh:
+        dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

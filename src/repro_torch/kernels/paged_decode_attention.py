@@ -32,7 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels.attention_shapes import (
-    DTYPES, check_attention_shape, group_chunk)
+    DTYPES, check_attention_shape, check_grid, group_chunk)
 from repro_torch.kernels.decode_attention import SPLIT_LENS, TARGET_CTAS
 from repro_torch.kernels.grad import refuse_grad
 
@@ -128,12 +128,19 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
     n_pool, page, hkv, _ = k_pages.shape
     g = h // hkv
     check_attention_shape(q.dtype, dh, g)
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("ctx_lens", ctx_lens)):
+    gc = group_chunk(g)
+    check_grid(hkv, g, gc)
+    # rows are read 16 bytes a lane where dh is a multiple of 8, else an
+    # element at a time
+    row = 16 if dh % 8 == 0 else q.element_size()
+    for name, x, align in (("q", q, row), ("k_pages", k_pages, row),
+                           ("v_pages", v_pages, row),
+                           ("block_tables", block_tables, 16),
+                           ("ctx_lens", ctx_lens, 16)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if x.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -152,8 +159,7 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
              v_pages.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
              out.data_ptr(), b, hkv, g, dh, page, p_max, n_pool, int(window),
              1.0 / math.sqrt(dh), stream,
-             None if scratch is None else scratch.data_ptr(), per,
-             group_chunk(g))
+             None if scratch is None else scratch.data_ptr(), per, gc)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"error {err}")

@@ -570,8 +570,7 @@ def refusal_check(ctx, what: str) -> dict:
             make_train_step(CONFIGS["hymba"](), ctx, TrainPlan(),
                             AdamWConfig())
         elif what == "local-shape":
-            make_train_step(tiny().replace(n_heads=12, n_kv_heads=1,
-                                           use_pallas=True), ctx)
+            make_train_step(tiny().replace(d_head=264, use_pallas=True), ctx)
         elif what == "batch-split":
             make_train_step(tiny(), ctx, TrainPlan(), AdamWConfig(),
                             shape=ShapeConfig("t", 16, 3, "train"))

@@ -218,15 +218,17 @@ def warp_tile(w0, s, t, k0, causal, window):
     return need, full
 
 
-def flash_tiles_emulation(q, k, v, causal, window):
+def flash_tiles_emulation(q, k, v, causal, window, scale=None):
     """bf16 flash attention as the tensor-core kernel computes it: f32
     scores of bf16 operands, masks only on tiles that are not full, the
     online softmax in exp2 units from the finite NEG_INF, P rounded to
-    bf16 before P V, zeros for a row with no valid key."""
+    bf16 before P V, zeros for a row with no valid key.  ``scale``
+    (default 1/sqrt(dh)) is the caller's, as the kernel takes it: a
+    zero-padded copy keeps the real dh's."""
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    c = LOG2E / math.sqrt(dh)
+    c = LOG2E * (1 / math.sqrt(dh) if scale is None else scale)
     out = torch.zeros(b, s, h, dh)
     for bi in range(b):
         for hi in range(h):

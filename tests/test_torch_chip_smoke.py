@@ -534,11 +534,13 @@ def test_time_ranges_restores_the_planner(smoke, monkeypatch, capsys):
     assert args[4].tolist() == [c - 1 for c in smoke.SERVE_CTX]
 
 
-@pytest.mark.parametrize("heads", [(8, 8, 112), (8, 16, 120), (8, 6, 120)])
+@pytest.mark.parametrize("heads", [(8, 8, 112), (8, 16, 120), (8, 6, 120),
+                                   (8, 2, 256), (8, 3, 128), (8, 4, 100)])
 def test_kernel_case_at_new_heads(smoke, heads):
-    """kernel_case at kimi-k2's heads and at the shapes no ported config
-    uses yet: the pool and q take the heads, and the bound counts the
-    bytes of the real head dim."""
+    """kernel_case at kimi-k2's heads, at the shapes no ported config
+    uses yet and at those the reference pads (Gemma 3 12B's dh 256,
+    Llama 3.2 3B's G 3, dh 100): the pool and q take the heads, and the
+    bound counts the bytes of the real head dim."""
     from repro_torch.kernels import paged_decode_attention
 
     hkv, g, dh = heads
@@ -555,7 +557,8 @@ def test_kernel_case_at_new_heads(smoke, heads):
     keys = sum(smoke.CTX)
     assert by == "bytes"
     assert ms > 1e3 * 2 * keys * hkv * dh * 4 / smoke.HBM_BYTES_PER_S
-    assert heads == smoke.KIMI_HEADS or heads in smoke.UNSERVED_HEADS
+    assert (heads == smoke.KIMI_HEADS or heads in smoke.UNSERVED_HEADS
+            or heads in smoke.WIDE_HEADS)
 
 
 def test_paged_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
@@ -574,20 +577,26 @@ def test_paged_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
     monkeypatch.setattr(smoke, "CTX", [300, 257, 129, 100, 17, 0, 200, 200])
     monkeypatch.setattr(smoke, "SHARED_TOKENS", 128)
     monkeypatch.setattr(smoke, "UNSERVED_HEADS", [(2, 12, 24)])
+    # the shapes the reference pads: dh 256 (two loads a lane in f32), G
+    # 3 and a dh that is not a multiple of 8
+    monkeypatch.setattr(smoke, "WIDE_HEADS", [(1, 2, 256), (2, 3, 36)])
     for name in ("PAGED_HEADS", "ARCTIC_PAGED_HEADS", "KIMI_HEADS"):
         hkv, g, dh = getattr(smoke, name)
         monkeypatch.setattr(smoke, name, (2, g, dh // 4))
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
     row = smoke.phase_kernels(torch.device("cpu"))
     out = capsys.readouterr().out
-    assert out.count("paged_decode_attention torch.") == 2 * 4 * 2 * 2
+    assert out.count("paged_decode_attention torch.") == 2 * 6 * 2 * 2
     assert "Hkv=2 G=12 dh=24 page 16 window 512" in out
-    assert out.count("kernel 1.0000 ms") == 3
+    assert "Hkv=1 G=2 dh=256 page 128 window -1" in out
+    assert "Hkv=2 G=3 dh=36 page 16 window 512" in out
+    assert out.count("kernel 1.0000 ms") == 5
     assert row["name"] == "paged_decode_attention" and row["ms"] == 1.0
     assert row["max_abs_err"] == 0.0 and row["bound_by"] == "bytes"
     assert set(row) == {"name", "route", "source", "replaces", "launches",
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms"}
+                        "bound_by", "library_ms", "shapes"}
+    assert row["shapes"][-2:] == ["Hkv=1 G=2 dh=256", "Hkv=2 G=3 dh=36"]
 
 
 def test_kimi_parity_phase_runs_on_cpu(smoke, monkeypatch, capsys):
@@ -896,6 +905,83 @@ def test_width_parity_phases_run_on_cpu(smoke, monkeypatch, capsys, name):
            if name != "xlstm-350m" else "ring, with and without its kernels")
     assert out.count(f"greedy tokens equal across {how}, graph and "
                      f"eager") == 1
+
+
+@pytest.mark.parametrize("label", ["Gemma 3 12B's shape",
+                                   "Llama 3.2 3B's shape"])
+def test_wide_width_parity_runs_on_cpu(smoke, monkeypatch, capsys, label):
+    """Phase 20's entries at the shapes the reference pads, on their
+    configs' smokes with the head shape kept (dh 256 with the Gemma cut's
+    local and global layer; G 3): greedy tokens equal across both
+    layouts, kernels on and off, graph and eager."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "PARITY_LENS", [20, 45])
+    monkeypatch.setattr(smoke, "PARITY_SCHED", dict(
+        max_slots=2, num_pages=24, page_size=16, max_context=64))
+    name, cut, windows, layouts, got = next(
+        w for w in smoke.WIDTH_PARITY if w[4:] == (label,))
+    heads = {"d_head": cut["d_head"],
+             "n_kv_heads": 2, "n_heads": 2 * cut["n_heads"] // cut[
+                 "n_kv_heads"]}
+    rest = {k: v for k, v in cut.items()
+            if k not in ("d_model", "n_heads", "n_kv_heads", "d_head",
+                         "d_ff")}
+    windows = [(24, 8) if w == smoke.PARITY_SWA else (w[0], 8)
+               for w in windows]
+    cfg = get_smoke(name).replace(dtype="float32", **heads, **rest)
+    params = models.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    smoke.phase_parity(torch.device("cpu"), cfg, params, layouts,
+                       f"{got} smoke", windows, eager=True)
+    out = capsys.readouterr().out
+    assert out.count("greedy tokens equal across paged and ring, with and "
+                     "without their kernels, graph and eager") == 1
+
+
+def test_wide_heads_phase_runs_on_cpu(smoke, monkeypatch, capsys):
+    """Phase 39 at the smokes of its two configs with the head shapes
+    kept (dh 256; G 3) on the CPU: paged, ring and mixed serving with
+    the eager runs' kernel calls held (plain against plain here), then
+    the 2-layer train step with every leaf moved."""
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(smoke, "WIDE_MODELS", [
+        ("Gemma 3 12B's shape", "gemma3-27b",
+         {"d_head": 256, "local_global_ratio": 1}, 2),
+        ("Llama 3.2 3B's shape", "llama3-405b",
+         {"n_heads": 6, "n_kv_heads": 2}, 2)])
+    monkeypatch.setattr(smoke, "get_config",
+                        lambda name: get_smoke(name).replace(
+                            dtype="float32"))
+    monkeypatch.setattr(smoke, "SERVE_LENS", [20, 33, 47, 5, 60, 12, 40, 28])
+    monkeypatch.setattr(smoke, "SERVE_SCHED", dict(
+        max_slots=8, num_pages=80, page_size=16, max_context=96))
+    monkeypatch.setattr(smoke, "MIXED_SCHED", dict(
+        max_slots=8, num_pages=300, page_size=16, max_context=320,
+        mixed=True, prefill_chunk=64, max_batch_tokens=72))
+    monkeypatch.setattr(smoke, "SYSTEM_PROMPT", 48)
+    monkeypatch.setattr(smoke, "PROFILE_LEN", 64)
+    monkeypatch.setattr(smoke, "WIDE_TRAIN", (2, 1, 32))
+    monkeypatch.setattr(smoke, "WIDE_NEW", 6)
+    monkeypatch.setattr(smoke, "TRAIN_FULL_STEPS", 1)
+    for name in ("reset_peak_memory_stats", "max_memory_allocated",
+                 "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "device_rows", lambda prof: [
+        (400.0, 8, "void paged_split_kernel<float, 256, 2, false>(...)"),
+        (3400.0, 40, "gemm")])
+    used = smoke.phase_wide(torch.device("cpu"))
+    assert set(used.values()) == {0}               # CPU: plain versions
+    out = capsys.readouterr().out
+    for label in ("Gemma 3 12B's shape", "Llama 3.2 3B's shape"):
+        for how in ("paged", "ring", "mixed"):
+            assert f"[wide heads {label} {how}] eager run: every kernel " \
+                "call held to its plain version" in out
+        assert f"[wide heads {label}] train: 0 flash forward and 0 " \
+            "backward calls held" in out
+    assert out.count("greedy tokens equal") == 6
+    assert out.count("leaves moved") == 2
 
 
 def test_xlstm_serve_phase_runs_on_cpu(smoke, monkeypatch, capsys):

@@ -92,8 +92,8 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, g, dh, page,
     assert torch.isfinite(out).all()
 
 
-HEAD_DIMS = [32, 64, 112, 120, 128]
-ALL_GROUPS = [1, 2, 4, 5, 6, 7, 8, 12, 16]
+HEAD_DIMS = [32, 64, 100, 112, 120, 128, 200, 256]
+ALL_GROUPS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 48]
 
 
 @pytest.mark.cuda
@@ -129,13 +129,9 @@ def test_paged_decode_split_kernel_every_head_dim_and_group(cuda_device,
 
 @pytest.mark.cuda
 def test_paged_decode_kernel_rejects_unsupported(cuda_device):
-    args = case(cuda_device, torch.float32, 2, 2, 3, 64, 16, [40, 17])
-    with pytest.raises(ValueError, match="no kernel"):   # G = 3
+    args = case(cuda_device, torch.float32, 2, 2, 2, 264, 16, [40, 17])
+    with pytest.raises(ValueError, match="dh from 1 to 256"):   # past 256
         paged_decode_attention(*args)
-    for dh in (100, 136):               # not a multiple of 8; past 128
-        args = case(cuda_device, torch.float32, 2, 2, 2, dh, 16, [40, 17])
-        with pytest.raises(ValueError, match="a multiple of 8 up to 128"):
-            paged_decode_attention(*args)
     args = case(cuda_device, torch.float32, 2, 2, 2, 64, 16, [40, 17])
     args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -180,7 +176,17 @@ def flash_case(dev, dtype, b, s, t, hkv, g, dh, seed=1):
     (1, 130, 130, 12, 120, True, -1),
     (1, 300, 300, 16, 128, True, -1),
     (1, 64, 40, 16, 120, False, -1),
-    (1, 100, 100, 2, 40, True, -1)])                # dh 40 on the 64 body
+    (1, 100, 100, 2, 40, True, -1),                 # dh 40 on the 64 body
+    # the shapes the reference pads: dh 256 (Gemma 3) and 200 on the 256
+    # body, dh 100 and 36 padded to 104 and 40, G 3, 9 and 48
+    (1, 300, 300, 2, 256, True, -1),
+    (2, 130, 130, 2, 256, True, 48),
+    (1, 200, 90, 2, 256, False, -1),
+    (1, 77, 77, 3, 200, True, 5),
+    (1, 300, 300, 3, 128, True, -1),
+    (1, 130, 130, 9, 100, True, 48),
+    (1, 64, 40, 48, 128, False, -1),
+    (1, 300, 300, 48, 36, True, -1)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
                                     causal, window):
     args = flash_case(cuda_device, dtype, b, s, t, 2, g, dh)
@@ -247,7 +253,20 @@ def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
                                                (16, 128, 1024, -1),
                                                (16, 112, 64, -1),
                                                (16, 120, 3000, -1),
-                                               (2, 40, 300, -1)])
+                                               (2, 40, 300, -1),
+                                               # dh 256 and 200 on the
+                                               # 256 lanes (two loads a
+                                               # lane in f32), dh 100 and
+                                               # 36 element by element,
+                                               # G 3, 9 and 48
+                                               (2, 256, 1024, -1),
+                                               (2, 256, 384, 256),
+                                               (3, 200, 3000, -1),
+                                               (3, 128, 1024, -1),
+                                               (9, 100, 384, 256),
+                                               (48, 128, 1024, -1),
+                                               (4, 36, 64, -1),
+                                               (48, 256, 300, -1)])
 def test_decode_kernel_matches_plain(cuda_device, dtype, g, dh, slots,
                                      window):
     q_pos = [999, 998, 129, 0, 5000]
@@ -302,7 +321,10 @@ def lse_err(got, want) -> float:
                                                (16, 128, 4096, -1),
                                                (5, 64, 2048, 1024),
                                                (1, 128, 384, 40),
-                                               (8, 112, 1024, -1)])
+                                               (8, 112, 1024, -1),
+                                               (2, 256, 1024, -1),
+                                               (3, 128, 4096, -1),
+                                               (9, 100, 384, 40)])
 @pytest.mark.parametrize("n", [2, 4])
 def test_decode_kernel_with_lse_over_slot_ranges(cuda_device, dtype, g, dh,
                                                  slots, window, n):
@@ -368,7 +390,8 @@ def test_decode_kernel_on_a_view_of_some_kv_heads(cuda_device, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("r,b,h,dh", [(2, 8, 8, 128), (16, 8, 8, 128),
                                       (16, 3, 5, 64), (4, 2, 3, 112),
-                                      (1, 4, 4, 32)])
+                                      (1, 4, 4, 32), (16, 8, 16, 256),
+                                      (4, 3, 9, 100)])
 def test_attention_combine_kernel_matches_plain(cuda_device, dtype, r, b, h,
                                                 dh):
     """R ranks' partials of (B, H) rows: ranks with no valid key (NEG_INF)
@@ -424,20 +447,13 @@ def test_decode_kernels_bit_equal_to_before_the_lse(cuda_device, case):
 
 @pytest.mark.cuda
 def test_ring_kernels_reject_unsupported(cuda_device):
-    fargs = flash_case(cuda_device, torch.float32, 1, 40, 40, 2, 3, 64)
-    dargs = ring_case(cuda_device, torch.float32, [30, 17], 64, 2, 3, 64)
     before = (flash_attention.launches, decode_attention.launches)
-    with pytest.raises(ValueError, match="no kernel"):       # G = 3
-        flash_attention(*fargs)
-    with pytest.raises(ValueError, match="no kernel"):
-        decode_attention(*dargs)
-    for dh in (100, 136):               # not a multiple of 8; past 128
-        with pytest.raises(ValueError, match="a multiple of 8 up to 128"):
-            flash_attention(*flash_case(cuda_device, torch.float32, 1, 40,
-                                        40, 2, 2, dh))
-        with pytest.raises(ValueError, match="a multiple of 8 up to 128"):
-            decode_attention(*ring_case(cuda_device, torch.float32,
-                                        [30, 17], 64, 2, 2, dh))
+    with pytest.raises(ValueError, match="dh from 1 to 256"):  # past 256
+        flash_attention(*flash_case(cuda_device, torch.float32, 1, 40, 40,
+                                    2, 2, 264))
+    with pytest.raises(ValueError, match="dh from 1 to 256"):
+        decode_attention(*ring_case(cuda_device, torch.float32, [30, 17],
+                                    64, 2, 2, 264))
     fargs = flash_case(cuda_device, torch.float32, 1, 40, 40, 2, 2, 64)
     fargs[1] = fargs[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1129,7 +1145,18 @@ def rel_err(got, want) -> float:
     # 2 KV heads x B 2 x 36 blocks of 128 keys fill 132 SMs: the dK/dV
     # pass keeps 128-key blocks (every case above splits the heads)
     (2, 4600, 4600, 2, 64, True, 700),
-    (2, 4600, 4600, 1, 128, True, -1)])
+    (2, 4600, 4600, 1, 128, True, -1),
+    # the shapes the reference pads: dh 256 and 200 (one 64-row block a
+    # CTA, each warpgroup half of dh's columns), dh 100 and 36 padded to
+    # 104 and 40, G 3, 9 and 48
+    (1, 300, 300, 2, 256, True, -1),
+    (2, 130, 130, 3, 256, True, 48),
+    (1, 200, 90, 2, 256, False, -1),
+    (1, 400, 200, 2, 200, True, 64),
+    (1, 300, 300, 3, 128, True, -1),
+    (1, 333, 333, 9, 100, True, 100),
+    (1, 200, 200, 48, 128, True, -1),
+    (1, 77, 77, 3, 36, True, 5)])
 def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, s, t, g,
                                              dh, causal, window):
     """dq, dk and dv of the backward kernels against autograd through
@@ -1166,7 +1193,9 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, s, t, g,
 @pytest.mark.parametrize("b,s,t,g,dh,causal,window", [
     (2, 300, 300, 4, 128, True, -1),
     (1, 333, 333, 5, 64, True, 100),
-    (1, 200, 90, 8, 112, False, -1)])
+    (1, 200, 90, 8, 112, False, -1),
+    (1, 300, 300, 2, 256, True, -1),
+    (1, 130, 130, 3, 100, True, 48)])
 def test_flash_backward_kernel_is_bit_identical(cuda_device, dtype, b, s, t,
                                                 g, dh, causal, window):
     """Two calls on the same inputs give the same bits: no atomics, every
@@ -1186,14 +1215,15 @@ def test_flash_backward_kernel_is_bit_identical(cuda_device, dtype, b, s, t,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [112, 120])
+@pytest.mark.parametrize("dh", [112, 120, 200])
 @pytest.mark.parametrize("hkv,g,causal,window", [(8, 8, True, -1),
                                                  (3, 4, True, 70),
                                                  (2, 12, False, -1)])
 def test_flash_backward_kernel_dh_past_a_box(cuda_device, dh, hkv, g,
                                              causal, window):
     """bf16 at dh 112 and 120 (kimi-k2's and h2o-danube-3's) on the
-    128-wide body, random values in every head: a tensor-map box that
+    128-wide body and 200 on the 256-wide one, random values in every
+    head: a tensor-map box that
     read past dh into the next head's columns, or wrote past them, would
     change dq, dk or dv of a neighbouring head, the last one included."""
     from repro_torch.kernels.flash_attention import (

@@ -44,11 +44,17 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WG_ROWS = 64              # bf16: keys (a) or query rows (b) of a warpgroup
 
 
-def tiles(dtype) -> dict:
+def tiles(dtype, dh: int = 128) -> dict:
     """The kernels' tile sizes: keys per dK/dV block, queries per tile,
-    query rows per dQ block, keys per dQ tile."""
+    query rows per dQ block, keys per dQ tile.  bf16 past dh 128 (the
+    DH-256 body) takes one 64-row block a CTA in both passes; f32 there
+    takes 16-row tiles and 32-row dQ blocks."""
     if dtype == torch.bfloat16:
+        if dh > 128:
+            return {"kb": 64, "qt": 64, "bq": 64, "kt": 64}
         return {"kb": 128, "qt": 64, "bq": 128, "kt": 64}
+    if dh > 128:
+        return {"kb": 32, "qt": 16, "bq": 32, "kt": 16}
     return {"kb": 32, "qt": 32, "bq": 64, "kt": 32}
 
 
@@ -64,7 +70,10 @@ def valid(i, j, s, t, causal, window):
 
 
 def emulate(q, k, v, dout, causal, window, split_heads=False):
-    """(dq, dk, dv) by the kernels' walks, in q's dtype."""
+    """(dq, dk, dv) by the kernels' walks, in q's dtype.  bf16 past dh
+    128 walks as the DH-256 body: P and dS once a tile, each of the two
+    warpgroups adding its half of dh's columns (0-127 and the rest) of
+    dK, dV and dQ."""
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -72,7 +81,10 @@ def emulate(q, k, v, dout, causal, window, split_heads=False):
     bf16 = q.dtype == torch.bfloat16
     rnd = (lambda x: x.to(torch.bfloat16).float()) if bf16 else (
         lambda x: x)
-    tl = tiles(q.dtype)
+    tl = tiles(q.dtype, dh)
+    # the warpgroups' columns: the whole dh, or its two halves
+    halves = ([slice(0, 128), slice(128, dh)] if bf16 and dh > 128
+              else [slice(0, dh)])
     out = flash_attention_plain(q, k, v, causal=causal, window=window)
     lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
     d = (dout.float() * out.float()).sum(-1).transpose(1, 2)   # (B, H, S)
@@ -116,10 +128,11 @@ def emulate(q, k, v, dout, causal, window, split_heads=False):
                                 sc = kf[bi, j, kh] @ qf[bi, i, hh].T * scale
                                 p = torch.where(
                                     m, torch.exp(sc - lse[bi, hh, i]), 0.0)
-                                pv[j - k0] += rnd(p) @ df[bi, i, hh]
                                 dp = vf[bi, j, kh] @ df[bi, i, hh].T
                                 ds = p * (dp - d[bi, hh, i])
-                                pk[j - k0] += rnd(ds) @ qf[bi, i, hh]
+                                for c in halves:
+                                    pv[j - k0, c] += rnd(p) @ df[bi, i, hh, c]
+                                    pk[j - k0, c] += rnd(ds) @ qf[bi, i, hh, c]
                     parts.append((pk, pv))
                 for pk, pv in parts:
                     dk[bi, k0:k1, kh] += pk
@@ -127,7 +140,7 @@ def emulate(q, k, v, dout, causal, window, split_heads=False):
 
     # pass (b): dQ
     bq, kt = tl["bq"], tl["kt"]
-    warp = WG_ROWS if bf16 else 8
+    warp = WG_ROWS if bf16 else 8 if dh <= 128 else 4
     for bi in range(b):
         for hh in range(h):
             kh = hh // g
@@ -150,7 +163,8 @@ def emulate(q, k, v, dout, causal, window, split_heads=False):
                                         0.0)
                         dp = df[bi, i, hh] @ vf[bi, j, kh].T
                         ds = p * (dp - d[bi, hh, i, None])
-                        dq[bi, i, hh] += rnd(ds) @ kf[bi, j, kh]
+                        for c in halves:
+                            dq[bi, i, hh, c] += rnd(ds) @ kf[bi, j, kh, c]
     return tuple(x.to(q.dtype) for x in (dq * scale, dk * scale, dv))
 
 

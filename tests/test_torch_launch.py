@@ -303,14 +303,13 @@ def test_tp_of_other_families_refused_by_name(name):
     kernels' local attention shapes checked (hymba's 25 heads and 5 KV
     heads stay whole at 16-way TP, seamless's 16 go one a rank; at 4-way
     TP qwen2-vl's 12 heads over 2 KV heads would leave a GQA group of 3,
-    which no kernel takes)."""
+    which the kernels take since they run every G)."""
     for cfg in (get_smoke(name), get_config(name)):
         for mesh in (_mesh(data=1, model=2), _mesh(data=2, model=1),
                      _mesh(data=1, model=4), _mesh(data=16, model=16),
                      _mesh(pod=2, data=16, model=16)):
             check_mesh(cfg, mesh)
-            if mesh.shape["model"] != 4:
-                check_mesh(cfg.replace(use_pallas=True), mesh)
+            check_mesh(cfg.replace(use_pallas=True), mesh)
 
 
 def test_sequence_sharded_cache_refused_for_serving():
@@ -361,11 +360,16 @@ def make_prod():
 
 
 def test_local_attention_shape_refused_with_config_and_mesh():
+    """A head dim past 256 has no kernel on any mesh (the reference pads
+    it: ROADMAP A7.1); every local GQA group runs, 12 query heads over 1
+    KV head at 4-way TP leaving G 3 included."""
+    cfg = get_config("tiny-agent").replace(d_head=264, use_pallas=True)
+    with pytest.raises(ValueError, match=r"tiny-agent on mesh .*'model': 4"
+                                         r".*no kernel.*dh from 1 to 256"):
+        check_mesh(cfg, _mesh(data=1, model=4))
     cfg = get_config("tiny-agent").replace(n_heads=12, n_kv_heads=1,
                                            use_pallas=True)
-    with pytest.raises(ValueError, match=r"tiny-agent on mesh .*'model': 4"
-                                         r".*no kernel"):
-        check_mesh(cfg, _mesh(data=1, model=4))
+    check_mesh(cfg, _mesh(data=1, model=4))          # local G 3
     check_mesh(cfg, _mesh(data=1, model=2))          # local G 6
     # llama3-405b at 16-way TP: 8 query heads on one replicated KV head
     check_mesh(get_config("llama3-405b").replace(use_pallas=True),

@@ -1,0 +1,182 @@
+"""Device times and output digests of the four attention kernels.
+
+Runs ``flash_attention`` (forward), its backward, ``paged_decode_attention``
+and ``decode_attention`` (the ring) of a source tree's ``repro_torch`` on
+inputs drawn from one seeded generator, at the head shapes of
+``chip_smoke.py``'s timed rows (agent-7b's, hymba-1.5b's, kimi-k2's dh
+112, in bf16 and f32) and at the shapes the reference pads (Gemma 3 12B's
+dh 256, Llama 3.2 3B's G 3, dh 100, 48 query heads over 1).  For each
+case it prints the median of three readings of back-to-back calls behind
+a sleep kernel (the method of ``chip_smoke.py::cuda_ms``) and the first 16
+hex digits of the SHA-256 of the output's bytes.  ``--src`` names the
+tree (default: this checkout's), so two versions compare in one call on
+one card, parent, change, change, parent; a case the tree's kernels do
+not take prints its error instead:
+
+    python tools/attention_times.py --src /path/to/other/src
+    python tools/attention_times.py
+
+Prints one JSON object a line: the card (``nvidia-smi`` name and power
+limit), then one per case.  Needs a CUDA card; exits 1 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib
+import json
+import subprocess
+import sys
+import zlib
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SLEEP_CYCLES_PER_CALL = 200_000
+# chip_smoke.py's CTX: the contexts of the eight decode rows
+CTX = [4096, 4001, 2085, 1500, 777, 0, 3333, 3333]
+
+# (kernel, dtype, heads, B, S or slots or page, T): flash heads are (H,
+# Hkv, dh), decode heads (Hkv, G, dh)
+CASES = [("flash", "bfloat16", (32, 8, 128), 1, 1024, 1024),
+         ("flash", "bfloat16", (25, 5, 64), 1, 1024, 1024),
+         ("flash", "bfloat16", (64, 8, 112), 1, 1024, 1024),
+         ("flash", "float32", (32, 8, 128), 1, 1024, 1024),
+         ("flash_bwd", "bfloat16", (32, 8, 128), 1, 1024, 1024),
+         ("flash_bwd", "bfloat16", (32, 8, 128), 2, 4096, 4096),
+         ("flash_bwd", "bfloat16", (25, 5, 64), 2, 333, 333),
+         ("flash_bwd", "float32", (32, 8, 128), 1, 512, 512),
+         ("paged", "bfloat16", (8, 4, 128), 8, 128, 0),
+         ("paged", "bfloat16", (8, 7, 128), 8, 128, 0),
+         ("paged", "bfloat16", (8, 8, 112), 8, 128, 0),
+         ("paged", "float32", (8, 4, 128), 8, 16, 0),
+         ("ring", "bfloat16", (8, 4, 128), 8, 4096, 0),
+         ("ring", "bfloat16", (5, 5, 64), 8, 4096, 0),
+         ("ring", "bfloat16", (8, 8, 112), 8, 4096, 0),
+         ("ring", "float32", (8, 4, 128), 8, 4096, 0),
+         # the shapes the reference pads
+         ("flash", "bfloat16", (16, 8, 256), 1, 1024, 1024),
+         ("flash", "bfloat16", (24, 8, 128), 1, 1024, 1024),
+         ("flash", "bfloat16", (32, 8, 100), 1, 1024, 1024),
+         ("flash", "float32", (16, 8, 256), 1, 1024, 1024),
+         ("flash_bwd", "bfloat16", (16, 8, 256), 1, 1024, 1024),
+         ("flash_bwd", "bfloat16", (16, 8, 256), 1, 4096, 4096),
+         ("flash_bwd", "bfloat16", (24, 8, 128), 1, 1024, 1024),
+         ("flash_bwd", "float32", (16, 8, 256), 1, 512, 512),
+         ("paged", "bfloat16", (8, 2, 256), 8, 128, 0),
+         ("paged", "bfloat16", (8, 3, 128), 8, 128, 0),
+         ("paged", "bfloat16", (8, 4, 100), 8, 128, 0),
+         ("paged", "float32", (8, 2, 256), 8, 128, 0),
+         ("ring", "bfloat16", (8, 2, 256), 8, 4096, 0),
+         ("ring", "bfloat16", (1, 48, 128), 8, 4096, 0),
+         ("ring", "float32", (8, 2, 256), 8, 4096, 0)]
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def digest(torch, outs) -> str:
+    """The first 16 hex digits of the SHA-256 of the outputs' bytes."""
+    h = hashlib.sha256()
+    for t in outs:
+        raw = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+        h.update(raw.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def call_of(torch, k, dev, case):
+    """The case's inputs, drawn from a generator seeded by the case, and
+    a function of no arguments that makes the kernel call."""
+    kind, dtype, heads, b, n, t = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(
+        zlib.crc32(str(case).encode()))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    if kind in ("flash", "flash_bwd"):
+        h, hkv, dh = heads
+        q, kk, v = randn(b, n, h, dh), randn(b, t, hkv, dh), \
+            randn(b, t, hkv, dh)
+        if kind == "flash":
+            return lambda: (k.flash_attention(q, kk, v, causal=True),)
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_backward, flash_attention_forward)
+        out, lse = flash_attention_forward(q, kk, v, causal=True)
+        dout = randn(b, n, h, dh)
+        return lambda: flash_attention_backward(q, kk, v, out, lse, dout,
+                                                causal=True)
+    hkv, g, dh = heads
+    q = randn(b, 1, hkv * g, dh)
+    if kind == "ring":
+        last = torch.tensor(CTX, device=dev)[:, None] - 1
+        slot = torch.arange(n, device=dev)[None]
+        kpos = last - torch.remainder(last - slot, n)
+        kpos = torch.where(kpos >= 0, kpos, -1).to(torch.int32)
+        kc, vc = randn(b, n, hkv, dh), randn(b, n, hkv, dh)
+        q_pos = (last[:, 0]).to(torch.int32)
+        return lambda: (k.decode_attention(q, kc, vc, kpos, q_pos),)
+    page = n
+    pages = [-(-c // page) for c in CTX]
+    p_max = 4096 // page
+    perm = torch.randperm(sum(pages), generator=gen, device=dev)
+    bt = torch.full((b, p_max), -1, dtype=torch.int32, device=dev)
+    at = 0
+    for r, p in enumerate(pages):
+        bt[r, :p] = perm[at:at + p].to(torch.int32)
+        at += p
+    kp = randn(sum(pages) + 1, page, hkv, dh)
+    vp = randn(sum(pages) + 1, page, hkv, dh)
+    ctx = torch.tensor(CTX, dtype=torch.int32, device=dev)
+    return lambda: (k.paged_decode_attention(q, kp, vp, bt, ctx),)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the source tree whose repro_torch is timed")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    k = importlib.import_module("repro_torch.kernels")
+    dev = torch.device("cuda")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    print(json.dumps({"card": gpu.strip().splitlines()[0],
+                      "src": str(Path(k.__file__).resolve())}), flush=True)
+    for case in CASES:
+        row = {"case": list(case)}
+        try:
+            call = call_of(torch, k, dev, case)
+            with torch.no_grad():
+                row["digest"] = digest(torch, call())
+                iters = max(1, args.iters // (4 if case[0] == "flash_bwd"
+                                              else 1))
+                xs = sorted(cuda_ms(torch, call, iters) for _ in range(3))
+            row.update(ms=xs[1], spread=xs[2] - xs[0])
+        except (ValueError, RuntimeError) as e:
+            row["error"] = str(e).splitlines()[0]
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
