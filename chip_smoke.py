@@ -366,7 +366,11 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.launch.train import (AdamWConfig, TrainPlan,  # noqa: E402
-                                      init_opt_state, make_train_step)
+                                      abstract_state, init_opt_state,
+                                      make_train_step)
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.runtime.supervisor import (  # noqa: E402
+    SimulatedFailure, SupervisorConfig, TrainSupervisor)
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.serving import cache_utils  # noqa: E402
 from repro_torch.serving.disagg import DisaggPool  # noqa: E402
@@ -4971,6 +4975,13 @@ SHARDED_FRAMES = 512
 # on one device and cut to the step's spec, 15 greedy steps, each rank
 # attending over its encoder range and the ranks combining
 SHARDED_CROSS = ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1))
+# (h) checkpoints of a sharded train state on the same ranks: (c)'s state
+# saved from (2, 1) and restored three ways, a TP step from it; then
+# TrainSupervisor over the TP step (1, 2) at agent-7b's width at 1 layer,
+# bf16, B 2 x S 128, 6 steps, a checkpoint every 2 (async), a failure on
+# both ranks right after the step-4 checkpoint: (config, cut, B, S,
+# steps, interval, failure)
+SHARDED_SUP = ("agent-7b", dict(n_layers=1), 2, 128, 6, 2, 4)
 # the kernels each (f) config runs on its shards: every rank launches
 # each of them on the path
 SHARDED_FAMILY_KERNELS = {
@@ -5160,7 +5171,7 @@ def sharded_frontend(cfg, b: int, patches: int, enc: int,
 
 
 def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
-                 serve: bool = True) -> dict:
+                 serve: bool = True, keep: dict | None = None) -> dict:
     """One config on ``mesh`` in a gloo rank, kernels on, f32: prefill of
     B 2 x 64 (with a VLM's patch embeddings or an encoder-decoder's
     frames, ``sharded_frontend``) and 16 greedy tokens through
@@ -5174,7 +5185,9 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     loss and gradients and holds its step's loss (within 1e-4) and each
     of its gradient shards to them (each leaf within phase 29's band of
     the whole leaf's largest magnitude), so no gradient crosses gloo.
-    Returns the results, stage times and launches."""
+    Returns the results, stage times and launches; ``keep`` (a dict)
+    receives the step, its state after the update, the config, the AdamW
+    config and the batch, for (h) to checkpoint."""
     cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
            else get_config(name))
     cfg = cfg.replace(dtype="float32", use_pallas=True, **cut)
@@ -5289,6 +5302,9 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     marks.append(("update", time.perf_counter()))
     if not all(torch.isfinite(t).all() for t in prm.flatten(params)[0]):
         raise AssertionError(f"{where}: non-finite parameters after a step")
+    if keep is not None:
+        keep.update(step=step, state=(params, opt), cfg=cfg, acfg=acfg,
+                    batch=batch)
     del params, opt
     ref_loss, ref_g = grads_and_loss(cfg, full, batch)
     treedef = prm.flatten(full)[1]
@@ -5458,6 +5474,215 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
     return out
 
 
+def sharded_ckpt_case(tp, kept: dict, dev, phase: str, sizes: dict,
+                      out_dir: str) -> dict:
+    """(h) in a gloo rank: checkpoints of a sharded train state.  (c)'s
+    state after its step (``kept``: agent-7b's width at 2 layers, f32,
+    int8 moments, DP + FSDP on (2, 1)) is saved, async, by its step's
+    held specs (``step.shardings["state"]``): the ranks gather it leaf by
+    leaf and rank 0 writes it under ``out_dir/ckpt``.  It is restored
+    with no shardings (a world of one): every leaf bit-equal to (c)'s
+    state gathered; onto the (1, 2) mesh ``tp`` by the TP step's held
+    specs: every leaf of every rank bit-equal to the whole restore cut
+    by them; onto (2, 1) again: bit-equal to (c)'s shards.  One TP train
+    step from the restored state, kernels on: its loss within 1e-4 and
+    its gradient shards within phase 29's band of the single-device
+    step's from the whole restore, every kernel call held to its plain
+    version.  Then ``TrainSupervisor`` over the TP step
+    (``sizes["sup"]``: config, cut, B, S, steps, checkpoint interval,
+    failure), async checkpoints by its held specs, a ``SimulatedFailure``
+    raised on both ranks right after a checkpoint, under deterministic
+    algorithms: one restart, and the losses by step and every final
+    shard bit-equal to an uninterrupted supervised run's.  Returns the
+    results, the checkpoint's bytes, the stage times and the TP step's
+    launches."""
+    cfg, step_c, state_c = kept["cfg"], kept["step"], kept["state"]
+    acfg, batch = kept["acfg"], kept["batch"]
+    where = f"{phase} {cfg.name}"
+    ckpt = Path(out_dir) / "ckpt"
+    ctx_c = step_c.ctx
+    held_c = prm.flatten(step_c.shardings["state"], is_leaf=shd.is_spec)[0]
+    c_leaves = prm.flatten(state_c)[0]
+    out = {"config": f"{cfg.name} width, {cfg.n_layers} layer(s), f32, "
+           f"int8 moments"}
+    times = {}
+
+    def mark(name: str, t0: float) -> float:
+        sync(dev)
+        now = time.perf_counter()
+        times[name] = now - t0
+        return now
+
+    t = time.perf_counter()
+    mgr = CheckpointManager(ckpt, shardings=(step_c.shardings["state"],
+                                             ctx_c))
+    mgr.save(1, state_c, meta={"data_step": 1}, blocking=False)
+    t = mark("gather", t)
+    mgr.wait()
+    t = mark("write", t)
+    out["bytes"] = (ckpt / "step_1" / "arrays.npz").stat().st_size
+    out["leaves"] = len(c_leaves)
+    # a world of one: the whole tree, like meta tensors of its shapes
+    whole_like = abstract_state(cfg, acfg)
+    whole, _ = CheckpointManager(ckpt).restore(1, whole_like, device=dev)
+    t = mark("restore whole", t)
+    w_leaves = prm.flatten(whole)[0]
+    bad = [i for i, (c, spec, w) in enumerate(zip(c_leaves, held_c,
+                                                  w_leaves))
+           if not torch.equal(parallel.gather_leaf(c, spec, ctx_c), w)]
+    if bad:
+        raise AssertionError(f"{where}: the whole restore's leaves {bad} "
+                             f"differ from (c)'s state gathered")
+    t = mark("compare whole", t)
+    plan = TrainPlan(int8_moments=True)
+    b, s = sizes["train_b"], sizes["train_seq"]
+    step_t = make_train_step(cfg, tp, plan, acfg,
+                             shape=ShapeConfig("sharded", s, b, "train"))
+    ctx_t = step_t.ctx
+    held_t = step_t.shardings["state"]
+    tp_state, _ = CheckpointManager(ckpt).restore(
+        1, parallel.shard_tree(whole_like, held_t, ctx_t),
+        shardings=(held_t, ctx_t))
+    t = mark("restore onto (1, 2)", t)
+    bad = [i for i, (w, spec, g) in enumerate(zip(
+        w_leaves, prm.flatten(held_t, is_leaf=shd.is_spec)[0],
+        prm.flatten(tp_state)[0]))
+        if not torch.equal(parallel.shard_leaf(w, spec, ctx_t), g)]
+    if bad:
+        raise AssertionError(f"{where}: the (1, 2) restore's leaves {bad} "
+                             f"differ from the whole restore cut by the TP "
+                             f"step's held specs")
+    dp_state, _ = mgr.restore(1, state_c)
+    t = mark("restore onto (2, 1)", t)
+    bad = [i for i, (g, c) in enumerate(zip(prm.flatten(dp_state)[0],
+                                            c_leaves))
+           if not torch.equal(g, c)]
+    if bad:
+        raise AssertionError(f"{where}: the (2, 1) restore's leaves {bad} "
+                             f"differ from (c)'s shards")
+    del dp_state
+    # one TP step from the restored state against one device's
+    start = all_counts()
+    with hold_sharded_calls() as held:
+        metrics, grads = step_t.grads(tp_state[0], batch, with_metrics=True)
+    out["kernel_err"] = held.check(where, torch.float32)
+    del held
+    out["launches"] = {k: v - start[k] for k, v in all_counts().items()
+                       if v - start[k]}
+    params_t, opt_t, m = step_t.update(*tp_state, grads, metrics)
+    t = mark("TP step", t)
+    if not all(torch.isfinite(x).all() for x in prm.flatten(params_t)[0]):
+        raise AssertionError(f"{where}: non-finite parameters after the "
+                             f"step from the restored state")
+    del tp_state, params_t, opt_t
+    ref_loss, ref_g = grads_and_loss(cfg, whole[0], batch)
+    mine = prm.flatten(parallel.shard_tree(prm.unflatten(
+        prm.flatten(whole[0])[1], list(ref_g)), step_t.shardings["params"],
+        ctx_t))[0]
+    errs = [((g.float() - r.float()).abs().max()
+             / w.float().abs().max().clamp_min(1e-30)).item()
+            for g, r, w in zip(prm.flatten(grads)[0], mine, ref_g)]
+    loss_err = abs(m["loss"].item() - ref_loss.item())
+    if loss_err > 1e-4 or max(errs) > TRAIN_F32_GRAD_TOL:
+        raise AssertionError(f"{where}: the step from the restored state: "
+                             f"loss off by {loss_err}, gradient shards by up "
+                             f"to {max(errs)}")
+    out.update(loss=m["loss"].item(), loss_err=loss_err, grad_err=max(errs),
+               grad_leaves=len(errs))
+    del whole, grads, ref_g, mine, m, metrics
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = mark("unsharded step", t)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out.update(sharded_supervised(tp, dev, where, sizes["sup"], out_dir))
+    t = mark("supervised runs", t)
+    out["times"] = times
+    return out
+
+
+def sharded_supervised(tp, dev, where: str, sup: tuple, out_dir: str
+                       ) -> dict:
+    """(h)'s supervised runs: ``TrainSupervisor`` over the TP train step
+    of ``sup`` (name, cut, B, S, steps, checkpoint interval, the step a
+    failure is raised at on every rank), each from seed 0's weights,
+    bf16, kernels on, int8 moments, async checkpoints (keep 1) by the
+    step's held specs, under deterministic algorithms (the embedding's
+    backward adds with atomics otherwise): once with the failure, and
+    once uninterrupted with one checkpoint, at its end (checkpoints do
+    not touch the trajectory; the failing run's are what is held).
+    Raises unless the failing run restarts once and its losses by step
+    and every final shard equal the uninterrupted run's."""
+    name, cut, b, s, steps, every, fail = sup
+    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
+           else get_config(name)).replace(use_pallas=True, **cut)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+
+    def run(sub: str, fail_at: tuple, every: int):
+        step_fn = make_train_step(cfg, tp, TrainPlan(int8_moments=True),
+                                  acfg, shape=ShapeConfig("sup", s, b,
+                                                          "train"))
+        full = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        attention.rescale_to_true_fan_in(full)
+        params = parallel.shard_tree(full, step_fn.shardings["params"],
+                                     step_fn.ctx)
+        free(full)
+        pending, losses = set(fail_at), {}
+
+        def one(state, batch, i):
+            if i in pending:
+                pending.discard(i)
+                raise SimulatedFailure(f"chaos at step {i}")
+            p, o, m = step_fn(*state, batch)
+            losses[i] = m["loss"].item()
+            return (p, o)
+
+        d = Path(out_dir) / sub
+        sup_ = TrainSupervisor(
+            CheckpointManager(d, keep=1, shardings=(
+                step_fn.shardings["state"], step_fn.ctx)),
+            SupervisorConfig(ckpt_every=every, async_ckpt=True))
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                        global_batch=b, seed=38))
+        t0 = time.perf_counter()
+        state = sup_.run(state=(params, init_opt_state(
+            params, acfg, step_fn.ctx, cfg=cfg)), pipeline=pipe,
+            step_fn=one, total_steps=steps)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        pipe.close()
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        return state, losses, sup_, seconds
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref, ref_losses, _, ref_s = run("sup-ref", (), steps)
+        got, losses, sup_, got_s = run("sup-crashy", (fail,), every)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(x, y) for x, y in zip(prm.flatten(got)[0],
+                                                 prm.flatten(ref)[0]))
+    if sup_.restarts != 1 or losses != ref_losses or len(losses) != steps \
+            or not same:
+        raise AssertionError(f"{where} supervised: restarts {sup_.restarts}, "
+                             f"losses equal {losses == ref_losses} "
+                             f"({len(losses)} steps), final shards equal "
+                             f"{same}; {sup_.log}")
+    return {"sup_config": f"{cfg.name} width, {cfg.n_layers} layer(s), "
+            f"bf16, int8 moments, B {b} x S {s}, {steps} steps, "
+            f"checkpoints every {every} (async; the uninterrupted run's "
+            f"only at its end)",
+            "sup_log": sup_.log, "sup_losses": [losses[i]
+                                                for i in range(steps)],
+            "sup_seconds": [ref_s, got_s],
+            "sup_leaves": len(prm.flatten(got)[0])}
+
+
 def sharded_rank(rank: int, world: int, store: str, out_dir: str,
                  device_type: str, sizes: dict) -> None:
     """A gloo rank of phase 38 (b) to (g), spawned by the phase (which
@@ -5489,8 +5714,13 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
             sizes["gqa_prompt"] + specs_launch.DECODE_CACHE_PAD,
             sizes["new"], long=False)
         dp = make_mesh((world, 1), ("data", "model"), device_type)
+        kept: dict = {}
         res["dp"] = sharded_case(dp, *sizes["tp"], dev, "sharded (c) DP",
-                                 sizes, serve=False)
+                                 sizes, serve=False, keep=kept)
+        res["ckpt"] = sharded_ckpt_case(tp, kept, dev,
+                                        "sharded (h) checkpoints", sizes,
+                                        out_dir)
+        kept.clear()
         res["long"] = sharded_seq_case(
             dp, *sizes["long"], dev, "sharded (e) long", 1,
             sizes["long_prompt"], sizes["long_ring"], sizes["new"],
@@ -5558,7 +5788,7 @@ def sharded_world2(dev) -> dict:
              "long_prompt": SHARDED_LONG_PROMPT,
              "families": SHARDED_FAMILIES, "frames": SHARDED_FRAMES,
              "patches": SHARDED_PATCHES, "grid": VISION_GRID,
-             "cross": SHARDED_CROSS}
+             "cross": SHARDED_CROSS, "sup": SHARDED_SUP}
     mp.start_processes(sharded_rank, args=(2, sharded_store("world2"),
                                            str(out_dir), dev.type, sizes),
                        nprocs=2, start_method="spawn")
@@ -5674,6 +5904,41 @@ def sharded_world2(dev) -> dict:
                                          f"expected each of {sorted(want)}")
             for k, v in c["launches"].items():
                 seq[k] = seq.get(k, 0) + v
+    c0 = res[0]["ckpt"]
+    for r, got in enumerate(res):
+        c = got["ckpt"]
+        if c["loss"] != c0["loss"] or c["sup_losses"] != c0["sup_losses"]:
+            raise AssertionError(f"{phase} (h): rank {r}'s losses differ "
+                                 f"from rank 0's")
+        tm = c["times"]
+        gb = c["bytes"] / 1e9
+        wrote = (f"written by this rank in {tm['write']:.2f} s "
+                 f"({gb / tm['write']:.3f} GB/s, page cache, {card()})"
+                 if not r else f"rank 0's write awaited {tm['write']:.2f} s")
+        log(phase, f"(h) checkpoints, rank {r}: (c)'s state ({c['config']}, "
+            f"{c['leaves']} leaves), saved async by the held specs: "
+            f"{c['bytes']} B ({gb:.3f} GB), gathered leaf by leaf in "
+            f"{tm['gather']:.2f} s, {wrote}; restored with no shardings in "
+            f"{tm['restore whole']:.2f} s, every leaf bit-equal to (c)'s "
+            f"state gathered ({tm['compare whole']:.2f} s); onto (1, 2) in "
+            f"{tm['restore onto (1, 2)']:.2f} s, bit-equal to the whole "
+            f"restore cut by the TP step's held specs; onto (2, 1) in "
+            f"{tm['restore onto (2, 1)']:.2f} s, bit-equal to (c)'s shards; "
+            f"a TP step from the restored state ({tm['TP step']:.2f} s): "
+            f"loss {c['loss']:.6f} (|diff| {c['loss_err']:.2e}), its "
+            f"{c['grad_leaves']} gradient shards within {c['grad_err']:.3e} "
+            f"of their leaf's largest magnitude in the single-device step "
+            f"from the whole restore ({tm['unsharded step']:.2f} s), every "
+            f"kernel call within {c['kernel_err']:.3e} of its plain "
+            f"version, launches {c['launches']}")
+        log(phase, f"(h) supervised, rank {r}: TrainSupervisor over the TP "
+            f"step, {c['sup_config']}: uninterrupted "
+            f"{c['sup_seconds'][0]:.2f} s, with a failure "
+            f"{c['sup_seconds'][1]:.2f} s ({'; '.join(c['sup_log'])}): the "
+            f"losses by step {[round(x, 6) for x in c['sup_losses']]} and "
+            f"all {c['sup_leaves']} final shards bit-equal to the "
+            f"uninterrupted run's (deterministic algorithms); both runs "
+            f"{tm['supervised runs']:.2f} s")
     log(phase, f"(b) to (g): {wall:.1f} s of wall time for the spawn, "
         f"{max(r['seconds'] for r in res):.1f} s in the ranks ({label}; "
         f"not a multi-GPU figure)")

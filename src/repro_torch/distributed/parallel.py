@@ -7,8 +7,9 @@ shards, explicit process groups, and collectives where the shards meet.
   (``("pod", "data")``), the device and the sharding rules.  A step makes
   its context current (``use_mesh``) while it runs; with none current,
   every hook below is the identity and the model runs as on one device.
-* ``shard_tree`` / ``gather_tree`` -- cut a full tree to this rank's
-  shards by a PartitionSpec tree, and put the shards back together.
+* ``shard_tree`` / ``gather_tree`` (``shard_leaf`` / ``gather_leaf``
+  for one leaf) -- cut a full tree to this rank's shards by a
+  PartitionSpec tree, and put the shards back together.
 * The serve steps' cache plan (``MeshContext.for_serving``): the rows of
   the batch the step's batch spec cuts (all of them where a batch of one
   replicates), and the mesh axis each ring's sequence axis is cut over
@@ -601,12 +602,26 @@ def check_device(device, mesh_device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _cut(t: torch.Tensor, spec, ctx: MeshContext) -> torch.Tensor:
+def shard_leaf(t: torch.Tensor, spec, ctx: MeshContext) -> torch.Tensor:
+    """This rank's block of one whole leaf by its spec (a view).  A dim
+    that does not divide over its entry's axes raises ``ValueError``, as
+    the reference's ``device_put`` onto such a ``NamedSharding`` does."""
     for dim, entry in enumerate(spec):
         n = ctx.size(entry)
         if n > 1:
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of size {t.shape[dim]} does not "
+                                 f"divide over {entry!r} ({n} ranks)")
             size = t.shape[dim] // n
             t = t.narrow(dim, ctx.coord(entry) * size, size)
+    return t
+
+
+def gather_leaf(t: torch.Tensor, spec, ctx: MeshContext) -> torch.Tensor:
+    """One leaf whole again from this rank's shard: an all-gather over
+    each dim its spec cuts (collective: every rank of the mesh calls it)."""
+    for dim, entry in enumerate(spec):
+        t = gather_cat(t, dim, ctx.group(entry))
     return t
 
 
@@ -621,13 +636,15 @@ def shard_tree(tree, specs, mesh_or_ctx):
     spec_leaves = prm.flatten(specs, is_leaf=is_spec)[0]
     if ctx is None:
         return prm.unflatten(treedef, [t.clone() for t in leaves])
-    return prm.unflatten(treedef, [_cut(t, s, ctx).contiguous().clone()
+    return prm.unflatten(treedef, [shard_leaf(t, s, ctx).contiguous().clone()
                                    for t, s in zip(leaves, spec_leaves)])
 
 
 def gather_tree(tree, specs, mesh_or_ctx):
-    """Every leaf whole again (all-gathers over each cut dim): the
-    inverse of ``shard_tree``, for checks and checkpoints."""
+    """Every leaf whole again (``gather_leaf``): the inverse of
+    ``shard_tree``, for checks.  Every rank then holds the whole tree on
+    its device; a checkpoint's save gathers one leaf at a time instead
+    (``checkpoint.manager``)."""
     from repro_torch.distributed.sharding import is_spec
     from repro_torch.models import params as prm
 
@@ -636,12 +653,8 @@ def gather_tree(tree, specs, mesh_or_ctx):
     if ctx is None:
         return tree
     spec_leaves = prm.flatten(specs, is_leaf=is_spec)[0]
-    out = []
-    for t, spec in zip(leaves, spec_leaves):
-        for dim, entry in enumerate(spec):
-            t = gather_cat(t, dim, ctx.group(entry))
-        out.append(t)
-    return prm.unflatten(treedef, out)
+    return prm.unflatten(treedef, [gather_leaf(t, spec, ctx)
+                                   for t, spec in zip(leaves, spec_leaves)])
 
 
 def _as_ctx(mesh_or_ctx):

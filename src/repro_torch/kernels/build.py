@@ -6,7 +6,8 @@ build takes seconds); the sources share device helpers through
 ``csrc/*.cuh``.  Libraries go to ``build/repro_torch/`` at the root of
 the checkout, named by a hash of the source, the headers and the flags,
 so a stale library is never loaded.  ``build_all`` starts one ``nvcc`` per
-source, all at once.
+source, all at once; a source of ``PARTS`` compiles as several parts at
+once (``-DBUILD_PART=<i>``, each an object) linked into its one library.
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# sources compiled in parts, each with -DBUILD_PART=<i>, one part a dtype:
+# the longest compiles of the build on an H100's host, 33-43 s of nvcc
+# whole (tools/build_times.py)
+PARTS = {"decode_attention": 2, "paged_decode_attention": 2,
+         "ssm_scan_bwd": 2}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -45,33 +52,59 @@ def lib_path(name: str) -> Path:
     headers of ``csrc`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + f" parts={PARTS.get(name, 1)}"
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one source into a temporary file; None if the
-    library for this exact source is already built."""
+    """Start ``nvcc`` for one source (each of its parts) into temporary
+    files; None if the library for this exact source is already built."""
     out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    src = str(CSRC / f"{name}.cu")
+    n = PARTS.get(name, 1)
+    if n == 1:
+        objs, cmds = [], [[nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]
+    else:
+        objs = [out.with_suffix(f".{os.getpid()}.{i}.o") for i in range(n)]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[nvcc(), *flags, "-c", f"-DBUILD_PART={i}", "-o", str(o), src]
+                for i, o in enumerate(objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    return procs, objs, tmp, out
 
 
 def _finish(name: str, started) -> str:
-    proc, tmp, out = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
+    procs, objs, tmp, out = started
+    logs = []
+    try:
+        for proc in procs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+        if objs:                    # the parts into the one library
+            link = subprocess.run(
+                [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"linking {name}'s parts failed:\n"
+                                   f"{link.stdout}{link.stderr}")
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)            # atomic: a concurrent loader sees all
-    return log
+    return "".join(logs)
 
 
 def build_all(names: list[str] | None = None) -> dict[str, str]:
@@ -85,9 +118,10 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
             logs[n] = "" if s is None else _finish(n, s)
     finally:
         for s in started.values():  # never leave a compiler running
-            if s is not None and s[0].poll() is None:
-                s[0].kill()
-                s[0].wait()
+            for proc in s[0] if s is not None else []:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return logs
 
 

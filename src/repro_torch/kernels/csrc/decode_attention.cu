@@ -75,13 +75,8 @@
 
 #include "common.cuh"
 
-namespace {
-
-constexpr int NWARPS = 4;
-constexpr int NT = NWARPS * 32;
-constexpr int SPLIT_MAX = 1024;              // most slots a CTA takes
-constexpr int IDS = SPLIT_MAX / NWARPS;      // compacted slots a warp holds
-
+// The launch arguments: outside the anonymous namespace, so the two
+// parts of the build (kernels/build.py PARTS) share the one type.
 struct RingArgs {
   const void* q;
   const void* k;
@@ -97,6 +92,14 @@ struct RingArgs {
   float scale_log2;
   cudaStream_t stream;
 };
+
+namespace {
+
+constexpr int NWARPS = 4;
+constexpr int NT = NWARPS * 32;
+constexpr int SPLIT_MAX = 1024;              // most slots a CTA takes
+constexpr int IDS = SPLIT_MAX / NWARPS;      // compacted slots a warp holds
+
 
 // One CTA: query heads row0 .. row0 + G - 1 (a group chunk of KV head h)
 // of sequence b over ring slots [s0, s1) of split blockIdx.x.
@@ -172,6 +175,29 @@ struct RingLaunch {
 
 }  // namespace
 
+// The launches of one dtype, by the arguments and the group chunk.  The
+// build compiles this file as two parts at once (kernels/build.py PARTS,
+// BUILD_PART 0 and 1: f32 with the entry point, then bf16), each half of
+// the instantiations, and links them into the one library; without
+// BUILD_PART it is whole.
+extern "C" int decode_attention_f32(const void* args, int gc);
+extern "C" int decode_attention_bf16(const void* args, int gc);
+
+#if !defined(BUILD_PART) || BUILD_PART == 0
+extern "C" int decode_attention_f32(const void* args, int gc) {
+  const RingArgs& a = *static_cast<const RingArgs*>(args);
+  return dispatch_decode<RingLaunch, float>(a.dh, gc, a);
+}
+#endif
+
+#if !defined(BUILD_PART) || BUILD_PART == 1
+extern "C" int decode_attention_bf16(const void* args, int gc) {
+  const RingArgs& a = *static_cast<const RingArgs*>(args);
+  return dispatch_decode<RingLaunch, __nv_bfloat16>(a.dh, gc, a);
+}
+#endif
+
+#if !defined(BUILD_PART) || BUILD_PART == 0
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 =
 // bfloat16.  The ring's T slots are split into ceil(T / split_len) ranges
 // (1 <= split_len <= 1024); with more than one, `scratch` holds
@@ -213,7 +239,8 @@ extern "C" int decode_attention_launch(int dtype, const void* q,
              static_cast<int64_t>(slot_stride), batch, t_len, hkv, g, dh,
              splits, split_len, window, scale * LOG2E,
              static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_decode<RingLaunch, float>(dh, gc, a);
-  if (dtype == 1) return dispatch_decode<RingLaunch, __nv_bfloat16>(dh, gc, a);
+  if (dtype == 0) return decode_attention_f32(&a, gc);
+  if (dtype == 1) return decode_attention_bf16(&a, gc);
   return -1;
 }
+#endif

@@ -62,12 +62,8 @@
 
 #include "common.cuh"
 
-namespace {
-
-constexpr int NWARPS = 4;
-constexpr int NT = NWARPS * 32;
-constexpr int MAX_PAGES = 256;               // most pages a CTA takes
-
+// The launch arguments: outside the anonymous namespace, so the two
+// parts of the build (kernels/build.py PARTS) share the one type.
 struct PagedArgs {
   const void* q;
   const void* k;
@@ -82,6 +78,13 @@ struct PagedArgs {
   float scale_log2;
   cudaStream_t stream;
 };
+
+namespace {
+
+constexpr int NWARPS = 4;
+constexpr int NT = NWARPS * 32;
+constexpr int MAX_PAGES = 256;               // most pages a CTA takes
+
 
 // One CTA: query heads row0 .. row0 + G - 1 (a group chunk of KV head h)
 // of sequence b over table entries [p0, p0 + pages_per_split) of its row.
@@ -163,6 +166,29 @@ struct PagedLaunch {
 
 }  // namespace
 
+// The launches of one dtype, by the arguments and the group chunk.  The
+// build compiles this file as two parts at once (kernels/build.py PARTS,
+// BUILD_PART 0 and 1: f32 with the entry point, then bf16), each half of
+// the instantiations, and links them into the one library; without
+// BUILD_PART it is whole.
+extern "C" int paged_decode_attention_f32(const void* args, int gc);
+extern "C" int paged_decode_attention_bf16(const void* args, int gc);
+
+#if !defined(BUILD_PART) || BUILD_PART == 0
+extern "C" int paged_decode_attention_f32(const void* args, int gc) {
+  const PagedArgs& a = *static_cast<const PagedArgs*>(args);
+  return dispatch_decode<PagedLaunch, float>(a.dh, gc, a);
+}
+#endif
+
+#if !defined(BUILD_PART) || BUILD_PART == 1
+extern "C" int paged_decode_attention_bf16(const void* args, int gc) {
+  const PagedArgs& a = *static_cast<const PagedArgs*>(args);
+  return dispatch_decode<PagedLaunch, __nv_bfloat16>(a.dh, gc, a);
+}
+#endif
+
+#if !defined(BUILD_PART) || BUILD_PART == 0
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 =
 // bfloat16.  The P table entries of a row are split into ceil(P /
 // pages_per_split) ranges (1 <= pages_per_split <= 256); with more than
@@ -194,8 +220,8 @@ extern "C" int paged_decode_attention_launch(
               batch, hkv, g, dh, page, p_max, n_pool, splits,
               pages_per_split, window, scale * 1.4426950408889634f,
               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_decode<PagedLaunch, float>(dh, gc, a);
-  if (dtype == 1)
-    return dispatch_decode<PagedLaunch, __nv_bfloat16>(dh, gc, a);
+  if (dtype == 0) return paged_decode_attention_f32(&a, gc);
+  if (dtype == 1) return paged_decode_attention_bf16(&a, gc);
   return -1;
 }
+#endif

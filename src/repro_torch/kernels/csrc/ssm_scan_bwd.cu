@@ -98,6 +98,12 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
+// The strides of q and k: outside the anonymous namespace, so the two
+// parts of the build (kernels/build.py PARTS) share the one type.
+struct Strides {
+  int64_t qb, qt, qh, kb, kt, kh;
+};
+
 namespace {
 
 constexpr int CMAX = 128;        // largest chunk, the rows of every tile
@@ -112,9 +118,6 @@ constexpr int PASS_BATCH = 8;    // chunks whose loads the state pass issues
 constexpr int MAX_DK = 512;
 constexpr int MAX_DV = 1024;
 
-struct Strides {
-  int64_t qb, qt, qh, kb, kt, kh;
-};
 
 // Ls[i] = log_a summed over rows 0 .. i of the chunk (rows past n as 0),
 // as the forward computes it.  Every thread of the CTA calls it.
@@ -1674,6 +1677,39 @@ int launch_all(const void* q, const void* k, const void* v, const float* la,
 
 }  // namespace
 
+// The launches of one dtype (launch_all).  The build compiles this file
+// as two parts at once (kernels/build.py PARTS, BUILD_PART 0 and 1: f32
+// with the entry point, then bf16), each half of the instantiations, and
+// links them into the one library; without BUILD_PART it is whole.
+#define SCAN_BWD_PARAMS                                                     \
+  const void *q, const void *k, const void *v, const float *la,            \
+      const void *dy, const float *states, const float *dh_t,              \
+      const float *h_t, void *dq, void *dk_out, void *dv_out, float *dla,  \
+      float *dh0, float *us, void *ds, float *decay, float *parts,         \
+      void *pw, int batch, int t_len, int heads, int dk, int dv,           \
+      int chunk, bool fused, const Strides &st, cudaStream_t stream
+#define SCAN_BWD_ARGS                                                       \
+  q, k, v, la, dy, states, dh_t, h_t, dq, dk_out, dv_out, dla, dh0, us, ds, \
+      decay, parts, pw, batch, t_len, heads, dk, dv, chunk, fused, st,     \
+      stream
+extern "C" int ssm_scan_bwd_f32(SCAN_BWD_PARAMS);
+extern "C" int ssm_scan_bwd_bf16(SCAN_BWD_PARAMS);
+
+#if !defined(BUILD_PART) || BUILD_PART == 0
+extern "C" int ssm_scan_bwd_f32(SCAN_BWD_PARAMS) {
+  return launch_all<float>(SCAN_BWD_ARGS);
+}
+#endif
+
+#if !defined(BUILD_PART) || BUILD_PART == 1
+extern "C" int ssm_scan_bwd_bf16(SCAN_BWD_PARAMS) {
+  return launch_all<__nv_bfloat16>(SCAN_BWD_ARGS);
+}
+#endif
+#undef SCAN_BWD_PARAMS
+#undef SCAN_BWD_ARGS
+
+#if !defined(BUILD_PART) || BUILD_PART == 0
 // Plain C entry point, loaded with ctypes: four launches on `stream` when
 // `fused`, six otherwise.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, dy
 // and dq, dk, dv); log_a, states (the forward's B * H * nc * dk * dv
@@ -1717,16 +1753,15 @@ extern "C" int ssm_scan_bwd_launch(
   const auto* ht = static_cast<const float*>(h_t);
   const auto f = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
-    return launch_all<float>(q, k, v, la, dy, sp, dht, ht, dq, dk_out,
-                             dv_out, f(dla), f(dh0), f(us), ds, f(decay),
-                             f(parts), pw, batch, t_len, heads, dk, dv, chunk,
-                             fused != 0, st, s);
+    return ssm_scan_bwd_f32(q, k, v, la, dy, sp, dht, ht, dq, dk_out,
+                            dv_out, f(dla), f(dh0), f(us), ds, f(decay),
+                            f(parts), pw, batch, t_len, heads, dk, dv, chunk,
+                            fused != 0, st, s);
   if (dtype == 1)
-    return launch_all<__nv_bfloat16>(q, k, v, la, dy, sp, dht, ht, dq,
-                                      dk_out, dv_out, f(dla), f(dh0), f(us),
-                                      ds, f(decay), f(parts), pw, batch,
-                                      t_len,
-                                      heads, dk, dv, chunk, fused != 0, st,
-                                      s);
+    return ssm_scan_bwd_bf16(q, k, v, la, dy, sp, dht, ht, dq, dk_out,
+                             dv_out, f(dla), f(dh0), f(us), ds, f(decay),
+                             f(parts), pw, batch, t_len, heads, dk, dv,
+                             chunk, fused != 0, st, s);
   return -1;
 }
+#endif

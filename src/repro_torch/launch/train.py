@@ -51,7 +51,7 @@ from repro_torch.optim.adamw import (BLOCK, Q8, AdamWConfig, AdamWState,
                                      adamw_update, global_blocks)
 
 __all__ = ["AdamWConfig", "TrainPlan", "abstract_state", "adamw_init",
-           "check_mesh", "default_plan", "init_opt_state",
+           "check_mesh", "default_plan", "held_pspecs", "init_opt_state",
            "make_compressed_grad_fn", "make_train_step", "opt_pspecs"]
 
 
@@ -108,6 +108,45 @@ def opt_pspecs(cfg: ModelConfig, mesh, acfg: AdamWConfig,
     return AdamWState(step=shd.PartitionSpec(), m=m, v=v)
 
 
+def whole_blocks(shape, n_cut: int) -> bool:
+    """Whether the int8 moments of a leaf of ``shape`` whose last dim is
+    cut over ``n_cut`` ranks keep the whole leaf's block scales on every
+    rank: its local last dim is off the 128-element blocks
+    (``optim.adamw.global_blocks``)."""
+    return bool(shape) and n_cut > 1 and (shape[-1] // n_cut) % BLOCK != 0
+
+
+def held_pspecs(cfg: ModelConfig, mesh, acfg: AdamWConfig,
+                rules: shd.ShardingRules = shd.DEFAULT_RULES):
+    """The (params, opt_state) specs of the layout the sharded step holds
+    (``step.shardings["state"]``, what a checkpoint of its state is saved
+    and restored by): ``param_pspecs`` and ``opt_pspecs``, but the block
+    scales of a ``whole_blocks`` leaf are whole on the last dim, as
+    ``init_opt_state`` keeps them.  ``opt_pspecs``, equal to the
+    reference's, cuts them wherever the block count divides (a (2, 64,
+    192) leaf cut to 96 columns a rank has 2 blocks over 2 ranks)."""
+    p_specs = shd.param_pspecs(cfg, mesh, rules)
+    opt = opt_pspecs(cfg, mesh, acfg, rules)
+    if not acfg.int8_moments:
+        return p_specs, opt
+    sizes = shd.mesh_axis_sizes(mesh)
+    flat_p = flatten(p_specs, is_leaf=shd.is_spec)[0]
+    defs = flatten(transformer.model_defs(cfg),
+                   is_leaf=lambda x: isinstance(x, prm.P))[0]
+
+    def held(tree):
+        flat, treedef = flatten(tree, is_leaf=_is_q8)
+        out = []
+        for q8, spec, p in zip(flat, flat_p, defs):
+            if whole_blocks(p.shape, shd.axes_size(spec[-1] if spec else None,
+                                                   sizes)):
+                q8 = Q8(q8.q, shd.PartitionSpec(*spec[:-1], None))
+            out.append(q8)
+        return unflatten(treedef, out)
+
+    return p_specs, AdamWState(opt.step, held(opt.m), held(opt.v))
+
+
 def abstract_state(cfg: ModelConfig, acfg: AdamWConfig):
     """(params, opt_state) as meta tensors: the dry run's currency."""
     dt = torch_dtype(cfg.dtype)
@@ -137,7 +176,7 @@ class _Leaf:
         self.quant = None
         last = spec[-1] if spec else None
         n_cut = ctx.size(last)
-        if p.shape and n_cut > 1 and (p.shape[-1] // n_cut) % BLOCK:
+        if whole_blocks(p.shape, n_cut):
             n = p.shape[-1] // n_cut
             group = ctx.group(last)
             self.quant = global_blocks(
@@ -281,7 +320,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     shards (``parallel.shard_tree`` by ``step.shardings["params"]``,
     ``init_opt_state``), ``batch`` the global batch, of which the step
     takes this rank's rows.  ``step.shardings`` holds the params, opt
-    and batch specs; ``step.grads(params, batch)`` the reduced gradient
+    and batch specs (the reference's), and ``"state"``, the (params,
+    opt_state) specs of the layout the step holds (``held_pspecs``: a
+    checkpoint of a sharded state is saved and restored by them);
+    ``step.grads(params, batch)`` the reduced gradient
     shards (with ``with_metrics=True``, (metrics, grads)) and
     ``step.update(params, opt_state, grads)`` the AdamW half, so a check
     can hold the gradients of the very step it takes;
@@ -393,6 +435,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     step.shardings = {
         "params": shd.param_pspecs(cfg, spec_mesh, rules),
         "opt": opt_pspecs(cfg, spec_mesh, acfg, rules),
+        "state": held_pspecs(cfg, spec_mesh, acfg, rules),
         "batch": shd.batch_pspec(spec_mesh, rules, batch_size=bsz)}
     step.grads = grads
     step.update = update

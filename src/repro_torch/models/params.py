@@ -170,9 +170,11 @@ def _leaf_dtype(p: P, dtype: torch.dtype) -> torch.dtype:
 
 
 # A leaf of more elements than this is drawn in slices along its leading
-# dims, each slice at most this size, so the f32 temporary stays small:
-# arctic-480b's stacked expert weights hold 8.9 G elements a leaf at two
-# layers, a 35.7 GB f32 draw beside its 17.9 GB bf16 result.  The dense
+# dims, as many whole slices a draw as this size holds, so the f32
+# temporary stays small: arctic-480b's stacked expert weights hold 8.9 G
+# elements a leaf at two layers, a 35.7 GB f32 draw beside its 17.9 GB
+# bf16 result.  (One row a draw, command-r-plus-104b's 256000 x 12288
+# embedding took 256000 draws and 11-15 s on the H100; now 2.)  The dense
 # and hybrid models' leaves are all drawn whole (agent-7b's largest, its
 # stacked MLP weights, holds 1.44 G).
 MAX_DRAW = 2 ** 31
@@ -195,11 +197,15 @@ def _init_one(p: P, gen: torch.Generator, dtype: torch.dtype,
         return x.mul_(std).to(device=device, dtype=dt)
     lead = next(n for n in range(1, len(p.shape) + 1)
                 if math.prod(p.shape[n:]) <= MAX_DRAW)
+    per = MAX_DRAW // math.prod(p.shape[lead:])
+    dim = p.shape[lead - 1]
     out = torch.empty(p.shape, dtype=dt, device=device)
-    for idx in itertools.product(*map(range, p.shape[:lead])):
-        x = torch.randn(p.shape[lead:], generator=gen, dtype=torch.float32,
-                        device=gen.device)
-        out[idx] = x.mul_(std)
+    for idx in itertools.product(*map(range, p.shape[:lead - 1])):
+        for i in range(0, dim, per):
+            n = min(per, dim - i)
+            x = torch.randn((n, *p.shape[lead:]), generator=gen,
+                            dtype=torch.float32, device=gen.device)
+            out[idx][i:i + n] = x.mul_(std)
     return out
 
 

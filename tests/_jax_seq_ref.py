@@ -37,11 +37,21 @@ smoke on ``(1, 2)`` and ``(1, 4)``; they are written to a file of their
 own, so each test runs only the cases it reads:
 
     ... python tests/_jax_seq_ref.py OUT.pkl sp-tiny-2 sp-hymba-4 ...
+
+The ``ckpt`` case writes checkpoints with the JAX package's
+``CheckpointManager`` into ``jax_ckpt/`` beside the pickle: bf16 params
+(seed 0) and int8 AdamW moments after one update on gradients from seed
+3, of tiny-agent and of the llama3-405b smoke (``CKPT_CONFIGS``).  It restores it onto (1, 2) and (2, 1) with
+``NamedSharding``s of ``param_pspecs`` / ``opt_pspecs`` and records, for
+each mesh, each leaf's spec and the bits of its ``addressable_shards`` by
+mesh coordinate, and each whole leaf's bits: what the port's ranks
+restore the same checkpoint against.
 """
 from __future__ import annotations
 
 import pickle
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -163,6 +173,64 @@ def run_sp(case: str) -> dict:
             "grads": jax.device_get(grads), "logits": np.asarray(logits)}
 
 
+def bits(a) -> np.ndarray:
+    """An array's bits as unsigned integers of its width."""
+    a = np.array(np.asarray(a), order="C")
+    return a.view(f"u{a.dtype.itemsize}")
+
+
+# the ``ckpt`` case's configs, bf16: tiny-agent, and the llama3-405b
+# smoke, whose (2, 64, 192) leaves' block scales ``opt_pspecs`` cuts on
+# (1, 2) while the port's ranks hold them whole
+CKPT_CONFIGS = {"tiny": lambda: get_config("tiny-agent"),
+                "llama": lambda: get_smoke("llama3-405b")}
+
+
+def run_ckpt(out_dir: Path) -> dict:
+    return {key: ckpt_case(key, out_dir / "jax_ckpt" / key)
+            for key in CKPT_CONFIGS}
+
+
+def ckpt_case(key: str, directory: Path) -> dict:
+    from jax.sharding import PartitionSpec
+
+    from repro.checkpoint import CheckpointManager
+    from repro.distributed.sharding import param_pspecs
+    from repro.launch.train import opt_pspecs
+    from repro.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    cfg = CKPT_CONFIGS[key]()
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+    # jitted: op by op the update alone took 10 s
+    params = jax.jit(lambda k: models.init(cfg, k))(jax.random.key(0))
+    rng = np.random.default_rng(3)
+    grads = jax.tree.map(lambda p: jnp.asarray(rng.normal(
+        size=p.shape).astype(np.float32)).astype(p.dtype), params)
+    params, opt, _ = jax.jit(lambda g, p: adamw_update(
+        g, adamw_init(p, acfg), p, acfg))(grads, params)
+    state = jax.device_get((params, opt))
+    mgr = CheckpointManager(directory)
+    mgr.save(3, state)
+    is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+    shards = {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = make_mesh(shape, ("data", "model"))
+        specs = (param_pspecs(cfg, mesh), opt_pspecs(cfg, mesh, acfg))
+        tree, _ = mgr.restore(3, state, jax.tree.map(
+            lambda p: NamedSharding(mesh, p), specs, is_leaf=is_spec))
+        pos = {d: ",".join(map(str, i))
+               for i, d in np.ndenumerate(mesh.devices)}
+        shards["x".join(map(str, shape))] = {
+            "specs": [tuple(p) for p in jax.tree.leaves(specs,
+                                                        is_leaf=is_spec)],
+            "bits": [{pos[sh.device]: bits(sh.data)
+                      for sh in leaf.addressable_shards}
+                     for leaf in jax.tree.leaves(tree)]}
+    return {"dir": str(directory), "step": 3,
+            "whole": [bits(a) for a in jax.tree.leaves(state)],
+            "shards": shards}
+
+
 def true_fan_in(tree):
     """The weights with wq, wk and wv (..., d, heads, dh) drawn at
     1/sqrt(d) and wo (..., heads, dh, d) at 1/sqrt(heads * dh)."""
@@ -181,7 +249,8 @@ def true_fan_in(tree):
 
 
 def main(path: str, cases: list) -> None:
-    out = {case: run_sp(case) if case in SP_CASES else run(case)
+    out = {case: run_ckpt(Path(path).parent) if case == "ckpt" else
+           run_sp(case) if case in SP_CASES else run(case)
            for case in cases or CASES}
     with open(path, "wb") as f:
         pickle.dump(out, f)

@@ -14,7 +14,9 @@ rank starts in seconds.
 from __future__ import annotations
 
 import json
+import os
 import pickle
+import threading
 import traceback
 from pathlib import Path
 
@@ -23,17 +25,22 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import models
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import is_spec
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.train import (AdamWConfig, TrainPlan,
                                       init_opt_state, make_train_step)
 from repro_torch.models import params as prm
+from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.models.attention import rescale_to_true_fan_in
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import Q8, adamw_init
+from repro_torch.runtime.supervisor import (SimulatedFailure,
+                                            SupervisorConfig, TrainSupervisor)
 
 def f32(cfg):
     return cfg.replace(dtype="float32")
@@ -678,6 +685,249 @@ for _case in ("sp-tiny-2", "sp-tiny-4", "sp-hymba-2", "sp-hymba-4"):
     CHECKS[f"jax-{_case}"] = (lambda k: lambda c: jax_sp_check(c, k))(_case)
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints of a sharded train state
+# ---------------------------------------------------------------------------
+
+INT8 = AdamWConfig(lr=1e-3, warmup_steps=0, int8_moments=True)
+
+
+def _int8_step(ctx, cfg, b: int = 4, s: int = 16):
+    return make_train_step(cfg, ctx, TrainPlan(int8_moments=True), INT8,
+                           shape=ShapeConfig("t", s, b, "train"))
+
+
+def _fresh(ctx, cfg, step):
+    """This rank's (params, opt_state) of ``step`` from seed 0's weights
+    and zero moments."""
+    p = parallel.shard_tree(_params(cfg), step.shardings["params"], ctx)
+    return p, init_opt_state(p, INT8, ctx, cfg=cfg)
+
+
+def _trained(ctx, cfg, steps: int = 1):
+    """(step, state) after ``steps`` int8 steps on the mesh."""
+    step = _int8_step(ctx, cfg)
+    params, opt = _fresh(ctx, cfg, step)
+    for i in range(steps):
+        params, opt, _ = step(params, opt, _batch(cfg, 4, 16, seed=i))
+    return step, (params, opt)
+
+
+def _zeros(tree):
+    leaves, treedef = prm.flatten(tree)
+    return prm.unflatten(treedef, [torch.zeros_like(t) for t in leaves])
+
+
+def _bit_equal(a, b) -> bool:
+    la, lb = prm.flatten(a)[0], prm.flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def _whole_scales(specs, state) -> list:
+    """The shapes of this rank's q and scales of every int8 moment whose
+    scales it holds whole while its q is cut on the last dim."""
+    def q8s(tree):
+        return prm.flatten(tree.m, is_leaf=lambda x: isinstance(x, Q8))[0]
+    return [[list(q.q.shape), list(q.scale.shape)]
+            for sp, q in zip(q8s(specs[1]), q8s(state[1]))
+            if sp.q and sp.q[-1] is not None and sp.scale[-1] is None]
+
+
+def ckpt_save_check(ctx) -> dict:
+    """tiny-agent's int8 state after one step on this mesh saved (async)
+    by ``step.shardings["state"]`` into ``ckpt/``; rank 0 also writes the
+    tree gathered (``gather_tree``) to ``ckpt_whole.pt`` for the checks
+    that restore it elsewhere.  Restored onto the same mesh: bit-equal
+    to the state saved; restored whole (no shardings) and cut by the
+    specs: bit-equal to it too, which no gather decides."""
+    step, state = _trained(ctx, tiny())
+    specs = step.shardings["state"]
+    mgr = CheckpointManager(Path(RUN_DIR, "ckpt"),
+                            shardings=(specs, ctx))
+    mgr.save(1, state, meta={"data_step": 1}, blocking=False)
+    mgr.wait()
+    whole = parallel.gather_tree(state, specs, ctx)
+    if dist.get_rank() == 0:
+        torch.save(prm.flatten(whole)[0], Path(RUN_DIR, "ckpt_whole.pt"))
+    back, meta = mgr.restore(1, _zeros(state))
+    plain, _ = CheckpointManager(Path(RUN_DIR, "ckpt")).restore(
+        1, _zeros(whole))
+    dist.barrier()
+    return {"same": _bit_equal(back, state), "whole": _bit_equal(plain, whole),
+            "recut": _bit_equal(parallel.shard_tree(plain, specs, ctx), state),
+            "latest": mgr.latest_step(), "step": meta["step"],
+            "whole_scales": _whole_scales(specs, state)}
+
+
+def ckpt_restore_check(ctx) -> dict:
+    """``ckpt-save``'s checkpoint (saved on (2, 1)) restored onto this
+    mesh by its step's held specs: every leaf bit-equal to the whole tree
+    cut by them."""
+    cfg = tiny()
+    step = _int8_step(ctx, cfg)
+    specs = step.shardings["state"]
+    got, _ = CheckpointManager(Path(RUN_DIR, "ckpt")).restore(
+        1, _fresh(ctx, cfg, step), shardings=(specs, ctx))
+    whole = prm.unflatten(prm.flatten(got)[1],
+                          torch.load(Path(RUN_DIR, "ckpt_whole.pt")))
+    return {"equal": _bit_equal(got, parallel.shard_tree(whole, specs, ctx)),
+            "leaves": len(prm.flatten(got)[0])}
+
+
+def ckpt_scales_check(ctx) -> dict:
+    """The llama3-405b smoke's int8 state after a step on this mesh,
+    saved and restored by the held specs: every leaf bit-equal (its
+    (2, 64, 192) leaves, 96 columns a rank on (1, 2), keep both blocks'
+    scales), a restore by ``opt_pspecs`` (the reference's) raises, and a
+    step from the restored state equals one from the state saved, bit
+    for bit."""
+    cfg = f32(get_smoke("llama3-405b"))
+    step, state = _trained(ctx, cfg)
+    specs = step.shardings["state"]
+    mgr = CheckpointManager(Path(RUN_DIR, "ckpt-scales"),
+                            shardings=(specs, ctx))
+    mgr.save(1, state)
+    got, _ = mgr.restore(1, _zeros(state))
+    out = {"same": _bit_equal(got, state),
+           "whole_scales": _whole_scales(specs, got)}
+    try:
+        mgr.restore(1, _zeros(state), shardings=(
+            (step.shardings["params"], step.shardings["opt"]), ctx))
+        out["opt_specs_raise"] = ""
+    except ValueError as e:
+        out["opt_specs_raise"] = str(e)
+    batch = _batch(cfg, 4, 16, seed=7)
+    p1, o1, m1 = step(*state, batch)
+    p2, o2, m2 = step(*got, batch)
+    out["step_equal"] = _bit_equal((p1, o1), (p2, o2)) and bool(
+        torch.equal(m1["loss"], m2["loss"]))
+    return out
+
+
+def _supervised(ctx, sub: str, fail_at=()) -> tuple:
+    """tiny-agent's int8 train step on the mesh under ``TrainSupervisor``,
+    12 steps of B 4 x S 16, checkpoints every 4 (async) by the step's
+    held specs, failures injected on every rank at ``fail_at``: (state,
+    loss by step, restarts).  ``compress_grads`` stays off: its error
+    feedback is the step's, not the state's."""
+    cfg = tiny()
+    acfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=12,
+                       int8_moments=True)
+    step_fn = make_train_step(cfg, ctx, TrainPlan(int8_moments=True), acfg,
+                              shape=ShapeConfig("t", 16, 4, "train"))
+    params = parallel.shard_tree(models.init(
+        cfg, torch.Generator().manual_seed(0), device="cpu"),
+        step_fn.shardings["params"], ctx)
+    pending = set(fail_at)
+    losses = {}
+
+    def one(state, batch, step):
+        if step in pending:
+            pending.discard(step)
+            raise SimulatedFailure(f"chaos at {step}")
+        p, o, m = step_fn(*state, batch)
+        losses[step] = m["loss"].item()
+        return (p, o)
+
+    where = "x".join(str(n) for n in ctx.sizes.values())
+    mgr = CheckpointManager(Path(RUN_DIR, f"{sub}-{where}"), keep=2,
+                            shardings=(step_fn.shardings["state"], ctx))
+    sup = TrainSupervisor(mgr, SupervisorConfig(ckpt_every=4))
+    state = sup.run(state=(params, init_opt_state(params, acfg, ctx,
+                                                  cfg=cfg)),
+                    pipeline=TokenPipeline(DataConfig(
+                        vocab=cfg.vocab, seq_len=16, global_batch=4, seed=5)),
+                    step_fn=one, total_steps=12)
+    return state, losses, sup.restarts
+
+
+def supervised_check(ctx) -> dict:
+    """A supervised sharded run with failures mid-interval (steps 6 and
+    9, checkpoints every 4) against the uninterrupted run: restarts, the
+    losses by step and every final shard."""
+    ref, ref_losses, _ = _supervised(ctx, "sup-ref")
+    got, losses, restarts = _supervised(ctx, "sup-crashy", (6, 9))
+    return {"restarts": restarts, "losses_equal": losses == ref_losses,
+            "steps": len(losses), "equal": _bit_equal(got, ref)}
+
+
+def unsharded_save_check(ctx) -> dict:
+    """``save`` without shardings in a world of more than one rank
+    raises, and writes nothing."""
+    d = Path(RUN_DIR, f"refused-{dist.get_rank()}")
+    try:
+        CheckpointManager(d).save(1, {"w": torch.ones(4)})
+    except ValueError as e:
+        return {"raised": True, "message": str(e),
+                "written": [p.name for p in d.iterdir()]}
+    return {"raised": False, "message": "", "written": []}
+
+
+def _bits(t) -> np.ndarray:
+    """A tensor's bits as unsigned integers of its width (numpy)."""
+    t = t.detach().cpu().contiguous()
+    n = t.element_size()
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(signed[n]).numpy().view(f"u{n}")
+
+
+def jax_ckpt_check(ctx, key: str) -> dict:
+    """The JAX package's checkpoint (``_jax_seq_ref.py``'s ``ckpt``: bf16
+    params and int8 moments after an update, of tiny-agent or the
+    llama3-405b smoke, ``JAX_CKPT``) restored
+    onto this mesh by the held specs, every leaf's bits against the
+    ``addressable_shards`` of the JAX package's own ``restore(...,
+    shardings)`` on the same mesh; a leaf whose held spec is not the
+    reference's (block scales held whole) against the reference's whole
+    leaf cut by the held spec.  On (1, 2) the ranks then save what they
+    restored into ``port_ckpt/`` for the test to restore in JAX."""
+    with open(Path(RUN_DIR, "jax_seq_ref.pkl"), "rb") as f:
+        r = pickle.load(f)["ckpt"][key]
+    cfg = JAX_CKPT[key]()
+    step = _int8_step(ctx, cfg)
+    specs = step.shardings["state"]
+    got, _ = CheckpointManager(r["dir"]).restore(
+        r["step"], _fresh(ctx, cfg, step), shardings=(specs, ctx))
+    coord = ",".join(str(ctx.coords[a]) for a in ("data", "model"))
+    mesh = "x".join(str(ctx.sizes[a]) for a in ("data", "model"))
+    ref = r["shards"][mesh]
+    held = prm.flatten(specs, is_leaf=is_spec)[0]
+    same, whole = 0, 0
+    bad = []
+    for i, (t, spec) in enumerate(zip(prm.flatten(got)[0], held)):
+        if tuple(spec) == tuple(ref["specs"][i]):
+            want = ref["bits"][i][coord]
+            same += 1
+        else:
+            w = torch.from_numpy(r["whole"][i])
+            want = parallel.shard_leaf(w, spec, ctx).contiguous().numpy()
+            whole += 1
+        if want.shape != tuple(t.shape) or not np.array_equal(_bits(t),
+                                                                want):
+            bad.append(i)
+    out = {"bad": bad, "leaves": same + whole, "held_whole": whole}
+    if ctx.sizes.get("model", 1) > 1:
+        CheckpointManager(Path(RUN_DIR, "port_ckpt", key),
+                          shardings=(specs, ctx)).save(r["step"], got)
+    return out
+
+
+# ``_jax_seq_ref.CKPT_CONFIGS``
+JAX_CKPT = {"tiny": lambda: get_config("tiny-agent"),
+            "llama": lambda: get_smoke("llama3-405b")}
+CKPT = {"ckpt-save": ckpt_save_check, "ckpt-restore": ckpt_restore_check,
+        "ckpt-scales": ckpt_scales_check, "ckpt-supervised": supervised_check,
+        "ckpt-refuse-save": unsharded_save_check,
+        "ckpt-jax-tiny": lambda c: jax_ckpt_check(c, "tiny"),
+        "ckpt-jax-llama": lambda c: jax_ckpt_check(c, "llama")}
+CHECKS.update(CKPT)
+# each checkpoint check's own limit, seconds: a rank that restores while
+# another is in a collective would hang, so a stuck check fails alone
+TIMEOUTS = dict.fromkeys(CKPT, 240)
+
+
 def psum_inputs(step: int, rank: int) -> dict:
     """The gradient tree rank ``rank`` reduces at ``step`` (numpy f32; the
     ``bf16`` leaf's values are bf16 numbers)."""
@@ -734,13 +984,30 @@ def _rank(rank: int, world: int, tmp: str, plan: list) -> None:
             ctx = parallel.MeshContext(mesh)
             for name in names:
                 key = f"{tuple(shape)}:{name}"
+                watch = None
+                if name in TIMEOUTS:
+                    watch = threading.Timer(TIMEOUTS[name], _give_up,
+                                            (out, key, rank, tmp,
+                                             TIMEOUTS[name]))
+                    watch.start()
                 try:
                     out[key] = CHECKS[name](ctx)
                 except Exception:
                     out[key] = {"error": traceback.format_exc()[-3000:]}
+                finally:
+                    if watch is not None:
+                        watch.cancel()
     finally:
         Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
         dist.destroy_process_group()
+
+
+def _give_up(out: dict, key: str, rank: int, tmp: str, seconds) -> None:
+    """A check past its limit: record it and end the rank, whose results
+    so far the parent reads."""
+    out[key] = {"error": f"timed out after {seconds} s"}
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    os._exit(0)
 
 
 def spawn(world: int, plan: list, tmp) -> list[dict]:

@@ -1525,7 +1525,10 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     the unsharded model; (b) and (f) sequence parallel, remat keeping
     half the whole-S bytes at the layer boundaries; (g) the seamless
     smoke under a long shape on (2, 1), its cross K/V cut along the
-    encoder axis, held to the unsharded model."""
+    encoder axis, held to the unsharded model; (h) (c)'s state saved and
+    restored three ways bit for bit, a TP step from it held to the
+    unsharded model, and a supervised TP run resumed after a failure
+    bit-equal to an uninterrupted one."""
     monkeypatch.setattr(smoke, "SHARDED_FULL", "tiny-agent")
     monkeypatch.setattr(smoke, "SHARDED_PROMPT", 16)
     monkeypatch.setattr(smoke, "SHARDED_DECODE", 3)
@@ -1550,6 +1553,8 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(smoke, "SHARDED_FRAMES", 12)
     monkeypatch.setattr(smoke, "SHARDED_CROSS",
                         ("smoke:seamless-m4t-large-v2", {}))
+    monkeypatch.setattr(smoke, "SHARDED_SUP", ("tiny-agent", {}, 2, 16, 6, 2,
+                                               4))
     seq = smoke.phase_sharded(torch.device("cpu"))
     assert seq == {}                     # the CPU launches no kernel
     out = capsys.readouterr().out
@@ -1568,7 +1573,16 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     # (b), (f) served on rank 0; (d), (e), (g) on rank 0
     assert out.count("greedy tokens equal the unsharded run's") == 4 + 4 + 1
     assert out.count("equal rank 0's; train step loss") == 2 + 4
-    assert out.count("gradient shards within") == 2 * (3 + 4)
+    # (b), (c), (f), and (h)'s step from the restored state
+    assert out.count("gradient shards within") == 2 * (3 + 4 + 1)
+    for r in (0, 1):
+        assert f"(h) checkpoints, rank {r}: (c)'s state (tiny-agent width, " \
+            "2 layer(s), f32, int8 moments, 61 leaves), saved async" in out
+        assert f"(h) supervised, rank {r}: TrainSupervisor over the TP " \
+            "step, tiny-agent width, 2 layer(s), bf16, int8 moments, B 2 x " \
+            "S 16, 6 steps, checkpoints every 2" in out
+    assert out.count("every leaf bit-equal to (c)'s state gathered") == 2
+    assert out.count("restarted at step 4): the losses by step") == 2
     assert "(d) mesh (1, 2), GQA fallback: the ring cut over model, " \
         "rank 1: tiny-agent width, 2 layers, 4 heads over 1 KV head(s), " \
         "f32, kernels on, 132 of the ring's 264 slots" in out

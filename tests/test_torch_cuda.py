@@ -1680,8 +1680,10 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
     tokens, loss and every gradient shard held to the unsharded model
     and every kernel call on a shard to its plain version; the (1, 2)
     train steps sequence parallel, remat keeping half the whole-S bytes
-    at the layer boundaries; and (g) the seamless smoke under a long
-    shape on (2, 1), its cross K/V cut along the encoder axis."""
+    at the layer boundaries; (g) the seamless smoke under a long shape
+    on (2, 1), its cross K/V cut along the encoder axis; and (h) the
+    (2, 1) state checkpointed and restored, and a supervised TP run
+    resumed after a failure."""
     import json
     from pathlib import Path
 
@@ -1700,7 +1702,8 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
                           ("smoke:qwen2-vl-2b", {}),
                           ("smoke:seamless-m4t-large-v2", {})],
              "frames": 12, "patches": 4, "grid": (2, 3),
-             "cross": ("smoke:seamless-m4t-large-v2", {})}
+             "cross": ("smoke:seamless-m4t-large-v2", {}),
+             "sup": ("tiny-agent", {}, 2, 16, 6, 2, 4)}
     mp.start_processes(chip_smoke.sharded_rank,
                        args=(2, f"file://{tmp_path}/store", str(tmp_path),
                              "cuda", sizes), nprocs=2, start_method="spawn")
@@ -1741,6 +1744,16 @@ def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path, monkeypatch):
             assert got[key]["launches"].get("decode_attention", 0) > 0
             assert got[key]["launches"].get("attention_combine", 0) > 0
     # (f): TP of the other families, each kernel of its path launched
+    # (h): (c)'s state saved from (2, 1), restored three ways bit for bit
+    # (the case raises otherwise), a TP step from it within its bands, and
+    # a supervised run resumed after a failure bit-equal to one without
+    for got in res:
+        c = got["ckpt"]
+        assert c["leaves"] == 61 and c["bytes"] > 0
+        assert c["loss_err"] <= 1e-4 and c["grad_err"] <= 1e-2
+        assert c["launches"].get("flash_attention", 0) > 0
+        assert c["sup_losses"] == res[0]["ckpt"]["sup_losses"]
+        assert c["sup_log"][-1] == "restarted at step 4"
     for i, (name, _) in enumerate(sizes["families"]):
         c0 = res[0]["families"][i]
         assert c0["logits"] <= chip_smoke.SHARDED_LOGIT_TOL

@@ -282,7 +282,7 @@ def test_train_step_runs_and_learns():
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0] - 0.3
-    assert set(step.shardings) == {"params", "opt", "batch"}
+    assert set(step.shardings) == {"params", "opt", "state", "batch"}
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +408,8 @@ FAMILY_SERVE = ["serve-hymba", "serve-xlstm", "serve-qwen2vl",
 # cut over ``model``, the mamba branch cut
 WHOLE_HEADS = ["train-hymba-whole", "serve-hymba-whole"]
 FAMILY = set(FAMILY_TRAIN + FAMILY_SERVE + WHOLE_HEADS)
+CKPT_SAVE = ["ckpt-save"]
+CKPT_JAX = ["ckpt-jax-tiny", "ckpt-jax-llama"]
 PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
             "refuse-tp-hybrid", "serve-tiny-kv1", "serve-tiny-kv1-odd"]
           + FAMILY_TRAIN + FAMILY_SERVE + WHOLE_HEADS
@@ -416,7 +418,13 @@ PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
             "refuse-batch-split", "serve-tiny-long", "serve-hymba-long",
             "serve-danube-long", "jax-ref-long", "refuse-compress-no-pod"]),
          ((2, 1, 1), ["train-tiny-int8", "train-tiny-compress",
-                      "serve-tiny"])]
+                      "serve-tiny"]),
+         # checkpoints of a sharded train state: saved on (2, 1) with
+         # FSDP, restored there, onto (1, 2) and (in the test) onto one
+         # process; the JAX package's checkpoints restored on both meshes
+         ((2, 1), CKPT_SAVE + CKPT_JAX + ["ckpt-supervised"]),
+         ((1, 2), ["ckpt-restore", "ckpt-scales", "ckpt-refuse-save",
+                   "ckpt-supervised"] + CKPT_JAX)]
 PLAN4 = [((2, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
             "serve-kv1-long", "train-hymba-tp", "train-seamless"]),
          ((1, 4), ["refuse-local-shape", "serve-tiny", "jax-ref-gqa"]
@@ -468,12 +476,12 @@ def rank_results(tmp_path_factory):
     # the JAX package's sharded serve steps, in a process whose JAX sees
     # four CPU devices; a failure shows in the jax-ref checks
     subprocess.run([sys.executable, str(root / "tests" / "_jax_seq_ref.py"),
-                    str(ref), "gqa", "long", "hymba", "seamless"], env=env,
-                   timeout=300, check=False)
+                    str(ref), "gqa", "long", "hymba", "seamless", "ckpt"],
+                   env=env, timeout=300, check=False)
     if ref.exists():
         shutil.copy(ref, dirs[4] / ref.name)
     return {2: ranks.spawn(2, PLAN2, dirs[2]),
-            4: ranks.spawn(4, PLAN4, dirs[4])}
+            4: ranks.spawn(4, PLAN4, dirs[4]), "dirs": dirs}
 
 
 @pytest.mark.parametrize("shape,name,world", CASES,
@@ -485,7 +493,9 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
     for r, res in enumerate(rank_results[world]):
         got = res[key]
         assert "error" not in got, f"rank {r}: {got.get('error')}"
-        if name in ACCEPTED:
+        if name.startswith("ckpt-"):
+            _check_ckpt(name, shape, got)
+        elif name in ACCEPTED:
             assert not got["raised"], got
         elif name.startswith("refuse-"):
             assert got["raised"] and REFUSED[name] in got["message"], got
@@ -530,6 +540,82 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             assert got["dropped_ref"] > 0
             assert got["dropped"] <= 1e-6 and got["aux"] <= 1e-6, got
             assert got["y"] <= TOL, got
+
+
+def _check_ckpt(name: str, shape, got: dict) -> None:
+    """A checkpoint check's results (``_torch_ranks.CKPT``)."""
+    if name == "ckpt-save":
+        # restored onto (2, 1) bit-equal to the state saved; the whole
+        # restore equal to the gather and, cut, to the rank's shards;
+        # tiny-agent's 64-column FSDP shards keep whole block scales
+        assert got["same"] and got["whole"] and got["recut"], got
+        assert got["latest"] == got["step"] == 1, got
+        assert [2, 256, 64] in [q for q, _ in got["whole_scales"]], got
+        assert all(sc[-1] == 1 for _, sc in got["whole_scales"]), got
+    elif name == "ckpt-restore":
+        assert got["equal"] and got["leaves"] == 61, got
+    elif name == "ckpt-scales":
+        # the (2, 64, 192) leaves: 96 columns a rank, both blocks' scales
+        assert got["same"] and got["step_equal"], got
+        assert got["whole_scales"] == [[[2, 64, 96], [2, 64, 2]]] * 2, got
+        assert "(2, 64, 1), not the like leaf's (2, 64, 2)" in \
+            got["opt_specs_raise"], got
+    elif name == "ckpt-supervised":
+        assert got["restarts"] == 2 and got["steps"] == 12, got
+        assert got["losses_equal"] and got["equal"], got
+    elif name == "ckpt-refuse-save":
+        assert got["raised"] and "without shardings" in got["message"], got
+        assert got["written"] == [], got
+    else:
+        # the JAX package's restore onto the same mesh, bit for bit; on
+        # (1, 2) the llama smoke's whole scales against the whole leaves
+        assert got["bad"] == [] and got["leaves"] == 61, got
+        whole = 4 if name == "ckpt-jax-llama" and shape == (1, 2) else 0
+        assert got["held_whole"] == whole, got
+
+
+def test_sharded_checkpoint_restores_in_a_world_of_one(rank_results):
+    """The (2, 1) FSDP ranks' checkpoint restored by one process with no
+    mesh: every leaf bit-equal to the tree they gathered."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    d = rank_results["dirs"][2]
+    whole = torch.load(d / "ckpt_whole.pt")
+    like = [torch.zeros_like(t) for t in whole]
+    got, meta = CheckpointManager(d / "ckpt").restore(1, like)
+    assert meta["step"] == 1 and meta["data_step"] == 1
+    assert len(got) == len(whole) == 61
+    for x, y in zip(got, whole):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("key", ["tiny", "llama"])
+def test_port_ranks_checkpoint_restores_in_jax(rank_results, key):
+    """What the (1, 2) ranks restored from the JAX package's checkpoint,
+    saved again from the ranks (whole leaves, rank 0 writing), restores
+    in the JAX package with every leaf's bits equal to its own."""
+    import pickle
+
+    from repro.checkpoint import CheckpointManager as JManager
+    from repro.configs import get_smoke as jget_smoke
+    from repro.optim.adamw import AdamWConfig as JAdamWConfig
+    from repro.optim.adamw import adamw_init as jadamw_init
+
+    d = rank_results["dirs"][2]
+    with open(d / "jax_seq_ref.pkl", "rb") as f:
+        ref = pickle.load(f)["ckpt"][key]
+    cfg = (jget_config("tiny-agent") if key == "tiny"
+           else jget_smoke("llama3-405b"))
+    like = jax.eval_shape(lambda k: (lambda p: (p, jadamw_init(
+        p, JAdamWConfig(int8_moments=True))))(jmodels.init(cfg, k)),
+        jax.random.key(0))
+    tree, meta = JManager(d / "port_ckpt" / key).restore(ref["step"], like)
+    got = jax.tree.leaves(tree)
+    assert meta["step"] == ref["step"] and len(got) == len(ref["whole"])
+    for i, (x, want) in enumerate(zip(got, ref["whole"])):
+        x = np.asarray(x)
+        assert x.shape == want.shape, i
+        assert np.array_equal(x.view(f"u{x.dtype.itemsize}"), want), i
 
 
 @pytest.mark.parametrize("n,cut", [(200, 100), (128, 64), (384, 96)])

@@ -239,9 +239,9 @@ def test_full_size_leaves_drawn_whole_or_sliced_as_intended():
 
 
 def test_leaf_above_threshold_is_drawn_in_slices(monkeypatch):
-    """A leaf above ``MAX_DRAW`` is drawn one slice along its leading
-    dims at a time, the slices as large as the threshold allows, in
-    order; leaves below it are drawn whole."""
+    """A leaf above ``MAX_DRAW`` is drawn in slices along its leading
+    dims, the slices as large as the threshold allows and as many of them
+    a draw as it holds, in order; leaves below it are drawn whole."""
     monkeypatch.setattr(tprm, "MAX_DRAW", 3 * 4 * 5)
     shapes = []
     real = torch.randn
@@ -256,11 +256,14 @@ def test_leaf_above_threshold_is_drawn_in_slices(monkeypatch):
             "small": tprm.P((3, 4, 5), (None,) * 3)}
     got = tprm.init_params(defs, torch.Generator().manual_seed(1),
                            torch.float32, torch.device("cpu"))
-    assert shapes == [(3, 4, 5)] * 2 + [(4, 5)] * 14 + [(3, 4, 5)]
+    # "big": one (3, 4, 5) slice a draw; "bigger": (4, 5) slices, three a
+    # draw (60 elements), 7 = 3 + 3 + 1 of them under each leading index
+    runs = [(3, 4, 5), (3, 4, 5), (1, 4, 5)]
+    assert shapes == [(1, 3, 4, 5)] * 2 + runs * 2 + [(3, 4, 5)]
     gen = torch.Generator().manual_seed(1)
     std = 1 / math.sqrt(4)
     want = torch.stack([real((3, 4, 5), generator=gen) for _ in range(2)])
     assert torch.equal(got["big"], want * std)
-    want = torch.stack([real((4, 5), generator=gen) for _ in range(14)])
+    want = torch.cat([real(s, generator=gen) for s in runs * 2])
     assert torch.equal(got["bigger"], (want * 2 * std).reshape(2, 7, 4, 5))
     assert torch.equal(got["small"], real((3, 4, 5), generator=gen) * std)

@@ -27,13 +27,15 @@ from repro.distributed import sharding as jshd  # noqa: E402
 from repro.launch import specs as jspecs  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
-from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, get_smoke  # noqa: E402
 from repro_torch.configs.base import SHAPES, shape_applicable  # noqa: E402
+from repro_torch.distributed import parallel  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.launch import specs as specs_mod  # noqa: E402
 from repro_torch.launch.mesh import (ShapeMesh, make_production_mesh,  # noqa: E402
                                      mesh_chips)
-from repro_torch.launch.train import opt_pspecs  # noqa: E402
+from repro_torch.launch.train import (abstract_state, held_pspecs,  # noqa: E402
+                                      init_opt_state, opt_pspecs)
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 
@@ -294,3 +296,108 @@ def test_package_exports_cover_the_reference():
             assert getattr(pkg, name) is not None
     with pytest.raises(AttributeError):
         getattr(dist_pkg, "no_such_name")
+
+
+# ---------------------------------------------------------------------------
+# The layout a sharded train step holds, and what a checkpoint cuts
+# ---------------------------------------------------------------------------
+
+
+class ShapeCtx(parallel.MeshContext):
+    """A ``MeshContext`` of axis sizes and this rank's coordinates with no
+    process group: all that ``shard_tree``, ``init_opt_state`` and a
+    sharded ``restore`` read."""
+
+    def __init__(self, coords: dict, **sizes):
+        self.sizes, self.names = dict(sizes), tuple(sizes)
+        self.coords = {a: coords.get(a, 0) for a in sizes}
+        self.groups = dict.fromkeys(sizes)
+        self._joint = {}
+        self.rules = shd.DEFAULT_RULES
+        self.device = torch.device("cpu")
+        self.act_sharding = self.seq = False
+        self.row_axes = self.batch_axes
+        self.ring_seq = self.cross_seq = None
+
+
+def _shapes(tree) -> list:
+    return [tuple(t.shape) for t in prm.flatten(tree)[0]]
+
+
+# where ``opt_pspecs`` (the reference's, by value) cuts block scales the
+# step holds whole: 96 and 128103 columns a rank, off the 128-element
+# blocks, whose counts (2 and 2002) divide over the model axis
+OPT_SPECS_DIFFER = {("smoke:llama3-405b", (1, 2)),
+                    ("smoke:llama3-405b", (2, 2)),
+                    ("seamless-m4t-large-v2", (1, 2)),
+                    ("seamless-m4t-large-v2", (2, 2))}
+
+
+@pytest.mark.parametrize("name", NAMES + [f"smoke:{n}" for n in ARCHS])
+def test_held_pspecs_cut_the_whole_state_to_what_the_step_holds(name):
+    """``held_pspecs`` cut the whole int8 ``adamw_init`` state (meta
+    tensors) to exactly the shapes ``init_opt_state`` holds on a rank of
+    (1, 2), (1, 4), (2, 1) and (2, 2); ``opt_pspecs`` do so everywhere
+    but in ``OPT_SPECS_DIFFER``, where they cut the scales a rank keeps
+    whole."""
+    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
+           else get_config(name))
+    acfg = AdamWConfig(int8_moments=True)
+    whole = abstract_state(cfg, acfg)
+    for mesh in ((1, 2), (1, 4), (2, 1), (2, 2)):
+        ctx = ShapeCtx({}, data=mesh[0], model=mesh[1])
+        params = parallel.shard_tree(whole[0], shd.param_pspecs(cfg, ctx),
+                                     ctx)
+        held = _shapes((params, init_opt_state(params, acfg, ctx, cfg=cfg)))
+        assert _shapes(parallel.shard_tree(
+            whole, held_pspecs(cfg, ctx, acfg), ctx)) == held, mesh
+        by_opt = _shapes(parallel.shard_tree(whole, (
+            shd.param_pspecs(cfg, ctx), opt_pspecs(cfg, ctx, acfg)), ctx))
+        assert (by_opt != held) == ((name, mesh) in OPT_SPECS_DIFFER), mesh
+
+
+def test_held_pspecs_are_the_params_and_opt_specs_with_f32_moments():
+    cfg = get_config("llama3-405b")
+    acfg = AdamWConfig()
+    mesh = _port_mesh(MESHES["2x2"])
+    assert held_pspecs(cfg, mesh, acfg) == (shd.param_pspecs(cfg, mesh),
+                                            opt_pspecs(cfg, mesh, acfg))
+
+
+def test_shard_tree_refuses_a_dim_that_does_not_divide():
+    """A dim that does not split over its axes raises, naming the dim,
+    its size and the axis, as the reference's ``device_put`` does; it
+    once dropped the rows past the last whole shard."""
+    ctx = ShapeCtx({"model": 1}, data=1, model=2)
+    with pytest.raises(ValueError, match=r"dim 1 of size 3 does not divide "
+                                         r"over 'model' \(2 ranks\)"):
+        parallel.shard_tree({"w": torch.arange(12.).reshape(4, 3)},
+                            {"w": P(None, "model")}, ctx)
+    got = parallel.shard_tree({"w": torch.arange(12.).reshape(4, 3)},
+                              {"w": P("model", None)}, ctx)
+    assert torch.equal(got["w"], torch.arange(6., 12.).reshape(2, 3))
+
+
+def test_sharded_restore_refuses_a_shape_it_cannot_give(tmp_path):
+    """A sharded ``restore`` whose cut of a whole leaf is not the ``like``
+    leaf's shape raises, naming the leaf's index and both shapes; a dim
+    that does not divide raises with the leaf's index; a cut that fits
+    gives this rank's rows."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    ctx = ShapeCtx({"model": 1}, data=1, model=2)
+    whole = {"a": torch.arange(8.).reshape(4, 2), "b": torch.ones(3)}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, whole)
+    specs = {"a": P("model", None), "b": P(None)}
+    with pytest.raises(ValueError, match=r"leaf 0: .*\(4, 2\) cut by .* is "
+                                         r"\(2, 2\), not the like leaf's "
+                                         r"\(4, 2\)"):
+        mgr.restore(1, whole, shardings=(specs, ctx))
+    with pytest.raises(ValueError, match=r"leaf 1 of shape \(3,\)"):
+        mgr.restore(1, {"a": torch.zeros(2, 2), "b": torch.zeros(1)},
+                    shardings=({"a": P("model", None), "b": P("model")}, ctx))
+    got, _ = mgr.restore(1, {"a": torch.zeros(2, 2), "b": torch.zeros(3)},
+                         shardings=(specs, ctx))
+    assert torch.equal(got["a"], whole["a"][2:]) and torch.equal(
+        got["b"], whole["b"])
