@@ -23,11 +23,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# sources compiled in parts, each with -DBUILD_PART=<i>, one part a dtype:
-# the longest compiles of the build on an H100's host, 33-43 s of nvcc
-# whole (tools/build_times.py)
+# sources compiled in parts, each with -DBUILD_PART=<i>: one part a dtype
+# for the longest compiles of the build on an H100's host, 33-43 s of nvcc
+# whole (tools/build_times.py); the flash kernels' bodies up to dh 256,
+# then their column-block bodies past it
 PARTS = {"decode_attention": 2, "paged_decode_attention": 2,
-         "ssm_scan_bwd": 2}
+         "ssm_scan_bwd": 2, "flash_attention": 2,
+         "flash_attention_bwd": 2}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -45,6 +45,15 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
   }
 }
 
+// 2^x in one MUFU op (flush to zero; 2^-inf = 0): the tensor-core
+// attention bodies' softmax, whose P is rounded to bf16 next, far coarser
+// than its ~2^-22 relative error.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float load_one(const float* p) { return *p; }
 __device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -162,7 +171,8 @@ __device__ __forceinline__ void merge_parts(int parts, int dh, ML ml,
 }
 
 // The split-KV merge: one CTA per row, one thread per element of the
-// head dim; lse (one float per row) may be null.
+// head dim (at most 256, each taking every 256th past that); lse (one
+// float per row) may be null.
 template <typename T>
 __global__ void split_merge_kernel(const float* __restrict__ part_acc,
                                    const float2* __restrict__ part_ml,
@@ -182,8 +192,8 @@ template <typename T>
 cudaError_t launch_split_merge(const float* part_acc, const float2* part_ml,
                                T* out, float* lse, int rows, int splits,
                                int dh, cudaStream_t stream) {
-  split_merge_kernel<T><<<rows, dh, 0, stream>>>(part_acc, part_ml, out, lse,
-                                                 splits, dh);
+  split_merge_kernel<T><<<rows, dh < 256 ? dh : 256, 0, stream>>>(
+      part_acc, part_ml, out, lse, splits, dh);
   return cudaGetLastError();
 }
 
@@ -206,13 +216,38 @@ cudaError_t launch_split_merge(const float* part_acc, const float2* part_ml,
 // dh that is a multiple of 8 keeps every row start 16-byte aligned in f32
 // and bf16; any other dh (NARROW) takes the same lanes, each loading its
 // elements one at a time, with zeros past dh.
+//
+// Past 256 (WIDE).  A head wider than 256 runs in column blocks of 256:
+// the grid takes one CTA per block of the output's columns, and every CTA
+// computes the whole row's scores, each K row read block by block against
+// the chunk's q rows, which sit in shared memory (f32, already scaled),
+// then folds only its own block of V into its state: the DH 256 lanes, a
+// whole warp a row, 8 elements a lane.  The CTAs of a row compute the
+// same scores in the same order, so they agree on m and l bit for bit,
+// and the first block's CTA writes them (and the log-sum-exp).  The body
+// is generic in the number of blocks, and takes a dh that is not a
+// multiple of 8 at run time (element by element, as NARROW).
 // ---------------------------------------------------------------------------
 
-// the instantiated width that holds head dim dh (1 to 256); 0 where none
-// does
+constexpr int WIDE = 0;              // the DH of the column-block body
+constexpr int WIDE_COLS = 256;       // a column block
+// the most dynamic shared memory the q rows of a wide CTA take: up to 5
+// heads x 38 blocks (dh 9728), f32
+constexpr int WIDE_Q_SMEM = 192 * 1024;
+
+// the instantiated width that holds head dim dh (1 to 256; WIDE past it);
+// -1 for a dh below 1
 inline int head_width(int dh) {
-  if (dh <= 0 || dh > 256) return 0;
-  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+  if (dh <= 0) return -1;
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128
+                                  : dh <= 256 ? 256 : WIDE;
+}
+
+// the dynamic shared memory of a wide CTA of g query heads: their q rows
+// over whole column blocks
+inline int64_t wide_q_bytes(int dh, int g) {
+  return static_cast<int64_t>(g) * ((dh + WIDE_COLS - 1) / WIDE_COLS)
+         * WIDE_COLS * static_cast<int64_t>(sizeof(float));
 }
 
 template <typename T, int DH>
@@ -413,8 +448,11 @@ __device__ __forceinline__ void decode_rows(DecodeState<T, DH, G>& st,
 // query rows row0 .. row0 + heads - 1: with one split the normalised
 // output (zeros for a row with no valid key) and, where lse is not null,
 // each row's log-sum-exp (lse_of), else this split's partial (m, l, acc)
-// in the layout split_merge_kernel reads.  Every thread calls it.
-template <typename T, int DH, int G, int NWARPS>
+// in the layout split_merge_kernel reads.  A wide CTA (COLS: a dh past
+// DH) writes columns col0 .. col0 + DH - 1 of the rows inside dh, and
+// (m, l) and the log-sum-exp only from its first block.  Every thread
+// calls it.
+template <typename T, int DH, int G, int NWARPS, bool COLS = false>
 __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
                                            DecodeSmem<DH, G, NWARPS>& sm,
                                            int heads, int dh,
@@ -423,7 +461,7 @@ __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
                                            float2* __restrict__ part_ml,
                                            float* __restrict__ lse,
                                            int64_t row0, int split,
-                                           int splits) {
+                                           int splits, int col0 = 0) {
   using L = DecodeLanes<T, DH>;
   constexpr int VEC = L::VEC, LPR = L::LPR;
   const int warp = threadIdx.x >> 5;
@@ -458,9 +496,11 @@ __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < heads * dh; idx += NWARPS * 32) {
-    const int g = idx / dh;
-    const int d = idx % dh;
+  if constexpr (!COLS) col0 = 0;
+  const int cw = COLS ? min(dh - col0, DH) : dh;   // the columns written
+  for (int idx = threadIdx.x; idx < heads * cw; idx += NWARPS * 32) {
+    const int g = idx / cw;
+    const int d = idx % cw;
     float mx = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, sm.m[w][g]);
@@ -472,33 +512,179 @@ __device__ __forceinline__ void decode_end(DecodeState<T, DH, G>& st,
       a += sm.acc[w][g][d] * f;
     }
     if (splits == 1) {
-      store_one(out + (row0 + g) * dh + d, lsum > 0.f ? a / lsum : 0.f);
-      if (lse != nullptr && d == 0) lse[row0 + g] = lse_of(mx, lsum);
+      store_one(out + (row0 + g) * dh + col0 + d,
+                lsum > 0.f ? a / lsum : 0.f);
+      if (lse != nullptr && col0 + d == 0) lse[row0 + g] = lse_of(mx, lsum);
     } else {
       const int64_t pr = (row0 + g) * splits + split;
-      part_acc[pr * dh + d] = a;
-      if (d == 0) part_ml[pr] = make_float2(mx, lsum);
+      part_acc[pr * dh + col0 + d] = a;
+      if (col0 + d == 0) part_ml[pr] = make_float2(mx, lsum);
     }
   }
 }
 
 // A range with no valid key: with one split, zeros into out (and NEG_INF
 // into lse, where it is not null); else (m, l) = (NEG_INF, 0) and no
-// accumulator, which the merge weighs as 0.
-template <typename T>
+// accumulator, which the merge weighs as 0.  A wide CTA (COLS: a dh past
+// 256) zeros its own columns col0 .. col0 + 255 inside dh, and writes
+// (m, l) and lse from its first block only.
+template <bool COLS = false, typename T>
 __device__ __forceinline__ void decode_empty(int heads, int dh,
                                              T* __restrict__ out,
                                              float2* __restrict__ part_ml,
                                              float* __restrict__ lse,
                                              int64_t row0, int split,
-                                             int splits) {
+                                             int splits, int col0 = 0) {
+  const int cw = COLS ? min(dh - col0, WIDE_COLS) : dh;
+  const bool first = !COLS || col0 == 0;
   if (splits == 1) {
-    for (int i = threadIdx.x; i < heads * dh; i += blockDim.x)
-      store_one(out + row0 * dh + i, 0.f);
-    if (lse != nullptr && threadIdx.x < heads)
+    for (int i = threadIdx.x; i < heads * cw; i += blockDim.x)
+      store_one(COLS ? out + (row0 + i / cw) * dh + col0 + i % cw
+                     : out + row0 * dh + i, 0.f);
+    if (lse != nullptr && first && threadIdx.x < heads)
       lse[row0 + threadIdx.x] = NEG_INF;
-  } else if (threadIdx.x < heads) {
+  } else if (first && threadIdx.x < heads) {
     part_ml[(row0 + threadIdx.x) * splits + split] = make_float2(NEG_INF, 0.f);
+  }
+}
+
+// The wide body's state: the DH 256 lanes' running softmax of G heads
+// (its q lives in shared memory, so qr stays unused).
+template <typename T, int G>
+using WideState = DecodeState<T, WIDE_COLS, G>;
+
+// q rows row0 .. row0 + heads - 1 into qs (heads x dhp floats, dhp the
+// whole blocks), scaled into log2 units, zeros past dh and past the
+// chunk's heads; the state empty.  Every thread calls it; it ends with a
+// barrier.
+template <typename T, int G>
+__device__ __forceinline__ void wide_begin(WideState<T, G>& st,
+                                           float* __restrict__ qs,
+                                           const T* __restrict__ q,
+                                           int64_t row0, int heads, int dh,
+                                           int dhp, float scale_log2) {
+  for (int i = threadIdx.x; i < G * dhp; i += blockDim.x) {
+    const int g = i / dhp, d = i % dhp;
+    qs[i] = g < heads && d < dh
+                ? load_one(q + (row0 + g) * dh + d) * scale_log2 : 0.f;
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st.acc[g][i] = 0.f;
+    st.m[g] = NEG_INF;
+    st.l[g] = 0.f;
+  }
+  __syncthreads();
+}
+
+// Fold the warp's n valid rows into the state, as decode_rows does, for a
+// head of dh columns in column blocks (qs from wide_begin): lane l takes
+// elements 8 l .. 8 l + 7 of each block of a row, so a row's scores sum
+// every block's products in the lane, then over the warp; only block cb
+// of V enters the state.  narrow: dh is not a multiple of 8 (loads
+// element by element).
+template <typename T, int G, typename RowOff>
+__device__ __forceinline__ void wide_rows(WideState<T, G>& st,
+                                          const float* __restrict__ qs,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v, int n,
+                                          int dh, int dhp, int cb,
+                                          bool narrow, RowOff row_off) {
+  using L = DecodeLanes<T, WIDE_COLS>;
+  constexpr int VEC = L::VEC, LD = L::LOADS;
+  constexpr int U = DECODE_UNROLL;
+  static_assert(VEC == 8 && L::LPR == 32, "a row a warp, 8 a lane");
+  const int lane = threadIdx.x & 31;
+  const auto load = [&](const T* p, int left, uint4 (&raw)[LD]) {
+    if (narrow)
+      load_lane<T, WIDE_COLS, true>(p, left, raw);
+    else
+      load_lane<T, WIDE_COLS, false>(p, left, raw);
+  };
+  const int vcol = cb * WIDE_COLS + lane * VEC;
+  for (int j0 = 0; j0 < n; j0 += U) {
+    bool ok[U];
+    int64_t off[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = j0 + u < n;
+      off[u] = ok[u] ? row_off(j0 + u) : 0;
+    }
+    float s[G][U];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[g][u] = 0.f;
+    for (int col = lane * VEC; col < dhp; col += WIDE_COLS) {
+      uint4 kr[U][LD];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int i = 0; i < LD; ++i) kr[u][i] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u] && col < dh) load(k + off[u] + col, dh - col, kr[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[VEC];
+        lane_to_float<T, WIDE_COLS>(kr[u], kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float4 q0 =
+              *reinterpret_cast<const float4*>(qs + g * dhp + col);
+          const float4 q1 =
+              *reinterpret_cast<const float4*>(qs + g * dhp + col + 4);
+          const float qf[VEC] = {q0.x, q0.y, q0.z, q0.w,
+                                 q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) s[g][u] = fmaf(qf[i], kf[i], s[g][u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float part = s[g][u];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        s[g][u] = ok[u] ? part : -INFINITY;
+      }
+    // online softmax; s becomes p
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = st.m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[g][u]);
+      const float alpha = exp2f(st.m[g] - mx);
+      st.l[g] *= alpha;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) st.acc[g][i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[g][u] = exp2f(s[g][u] - mx);
+        st.l[g] += s[g][u];
+      }
+      st.m[g] = mx;
+    }
+    uint4 vr[U][LD];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int i = 0; i < LD; ++i) vr[u][i] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok[u] && vcol < dh) load(v + off[u] + vcol, dh - vcol, vr[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[VEC];
+      lane_to_float<T, WIDE_COLS>(vr[u], vf);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          st.acc[g][i] = fmaf(s[g][u], vf[i], st.acc[g][i]);
+    }
   }
 }
 
@@ -530,9 +716,13 @@ int dispatch_width(int dh, int gc, const A& a) {
   }
 }
 
+// A head past 256 takes the column-block body, Launch<T, WIDE, gc,
+// false>, which reads a dh that is not a multiple of 8 at run time.
 template <template <typename, int, int, bool> class Launch, typename T,
           typename A>
 int dispatch_decode(int dh, int gc, const A& a) {
+  if (head_width(dh) == WIDE)
+    return dispatch_group<Launch, T, WIDE, false>(gc, a);
   return dh % 8 ? dispatch_width<Launch, T, true>(dh, gc, a)
                 : dispatch_width<Launch, T, false>(dh, gc, a);
 }

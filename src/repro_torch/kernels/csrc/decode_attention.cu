@@ -29,10 +29,11 @@
 //                            (the KV heads a rank's query heads read, of a
 //                            ring that holds them all)
 //   kpos   (B, T) int32, q_pos (B,) int32, lse (B, Hkv*G) f32
-// dh is any of 1 to 256 and G any (the split-KV core in common.cuh: dh
-// runs on the 32, 64, 128 or 256 wide instantiation with idle tail lanes,
-// loading element by element where dh is not a multiple of 8; G past 5
-// in chunks of at most 4).
+// dh is any from 1 and G any (the split-KV core in common.cuh: dh up to
+// 256 runs on the 32, 64, 128 or 256 wide instantiation with idle tail
+// lanes, loading element by element where dh is not a multiple of 8; a
+// wider dh in column blocks of 256, one CTA a block, decode_wide_kernel;
+// G past 5 in chunks of at most 4).
 //
 // What bounds it: the bytes of K and V of the valid slots, 2 * valid *
 // Hkv * dh * sizeof(T) per sequence, against 3.35 TB/s of HBM.  The
@@ -159,12 +160,91 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(RingArgs a) {
              split, a.splits);
 }
 
+// The wide body (common.cuh, WIDE): one CTA per (split, column block of
+// 256, group chunk, sequence), the chunk's q rows in dynamic shared
+// memory; otherwise decode_split_kernel.
+template <typename T, int G>
+__global__ void __launch_bounds__(NT) decode_wide_kernel(RingArgs a) {
+  __shared__ int ids[NWARPS][IDS];
+  __shared__ DecodeSmem<WIDE_COLS, G, NWARPS> sm;
+  extern __shared__ __align__(16) float qs[];
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* out = static_cast<T*>(a.out);
+
+  const int split = blockIdx.x;
+  const int chunks = (a.g + G - 1) / G;
+  const int ncb = (a.dh + WIDE_COLS - 1) / WIDE_COLS;
+  const int cb = blockIdx.y % ncb;           // the CTA's column block
+  const int hc = blockIdx.y / ncb;
+  const int h = hc / chunks;
+  const int c0 = (hc % chunks) * G;
+  const int heads = min(G, a.g - c0);
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int s0 = split * a.split_len;
+  const int s1 = min(s0 + a.split_len, a.t_len);
+  const int64_t row0 = (static_cast<int64_t>(b) * a.hkv + h) * a.g + c0;
+
+  const int qp = a.q_pos[b];
+  const int lo = a.window > 0 ? qp - a.window + 1 : 0;
+  const int32_t* kp_b = a.kpos + static_cast<int64_t>(b) * a.t_len;
+  int n = 0;
+  for (int t0 = s0 + warp * 32; t0 < s1; t0 += NWARPS * 32) {
+    const int t = t0 + lane;
+    const int kp = t < s1 ? kp_b[t] : -1;
+    const bool valid = kp >= 0 && kp >= lo && kp <= qp;
+    const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+    if (valid) ids[warp][n + __popc(ballot & ((1u << lane) - 1u))] = t;
+    n += __popc(ballot);
+  }
+  __syncwarp();
+
+  if (!__syncthreads_or(n > 0)) {
+    decode_empty<true>(heads, a.dh, out, a.part_ml, a.lse, row0, split,
+                       a.splits, cb * WIDE_COLS);
+    return;
+  }
+
+  WideState<T, G> st;
+  const int dhp = ncb * WIDE_COLS;
+  wide_begin<T, G>(st, qs, q, row0, heads, a.dh, dhp, a.scale_log2);
+  const int64_t rs = a.slot_stride;
+  const int64_t base = static_cast<int64_t>(b) * a.t_len * rs
+                       + static_cast<int64_t>(h) * a.dh;
+  const int* wid = ids[warp];
+  wide_rows<T, G>(st, qs, k + base, v + base, n, a.dh, dhp, cb,
+                  a.dh % 8 != 0, [=](int j) { return wid[j] * rs; });
+  decode_end<T, WIDE_COLS, G, NWARPS, true>(
+      st, sm, heads, a.dh, out, a.part_acc, a.part_ml, a.lse, row0, split,
+      a.splits, cb * WIDE_COLS);
+}
+
 template <typename T, int DH, int G, bool NARROW>
 struct RingLaunch {
   static int run(const RingArgs& a) {
-    const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
-    decode_split_kernel<T, DH, G, NARROW><<<grid, NT, 0, a.stream>>>(a);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err;
+    if constexpr (DH == WIDE) {
+      const int ncb = (a.dh + WIDE_COLS - 1) / WIDE_COLS;
+      const int64_t smem = wide_q_bytes(a.dh, G);
+      if (smem > WIDE_Q_SMEM) return -1;
+      static bool smem_set = false;  // the attribute, once per instantiation
+      if (!smem_set) {
+        err = cudaFuncSetAttribute(decode_wide_kernel<T, G>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   WIDE_Q_SMEM);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        smem_set = true;
+      }
+      const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G) * ncb, a.batch);
+      decode_wide_kernel<T, G><<<grid, NT, smem, a.stream>>>(a);
+    } else {
+      const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
+      decode_split_kernel<T, DH, G, NARROW><<<grid, NT, 0, a.stream>>>(a);
+    }
+    err = cudaGetLastError();
     if (err == cudaSuccess && a.splits > 1)
       err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),
                                a.lse, a.batch * a.hkv * a.g, a.splits, a.dh,
@@ -222,8 +302,10 @@ extern "C" int decode_attention_launch(int dtype, const void* q,
                                        int gc, void* lse,
                                        long long slot_stride) {
   if (t_len <= 0 || batch <= 0 || batch > 65535 || hkv <= 0 || g <= 0 ||
-      gc <= 0 || gc > g ||
-      hkv * ((g + gc - 1) / gc) > 65535 || split_len <= 0 ||
+      gc <= 0 || gc > g || dh <= 0 ||
+      static_cast<int64_t>(hkv) * ((g + gc - 1) / gc)
+              * (dh > WIDE_COLS ? (dh + WIDE_COLS - 1) / WIDE_COLS : 1)
+          > 65535 || split_len <= 0 ||
       split_len > SPLIT_MAX || slot_stride < static_cast<long long>(hkv) * dh)
     return -1;
   const int splits = (t_len + split_len - 1) / split_len;

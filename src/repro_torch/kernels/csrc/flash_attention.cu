@@ -17,8 +17,9 @@
 // Layouts are the model's, so nothing is transposed or padded:
 //   q, out (B, S, H, dh)    element (b, i, h, d) at ((b*S + i)*H + h)*dh + d
 //   k, v   (B, T, Hkv, dh)  element (b, j, h, d) at ((b*T + j)*Hkv + h)*dh + d
-// G = H / Hkv is a run-time value.  dh is any multiple of 8 up to 256:
-// the body is instantiated at DH = 32, 64, 128 and 256, and a dh below DH
+// G = H / Hkv is a run-time value.  dh is any multiple of 8 (past 256 in
+// the column-block bodies of part 1, below).  Up to 256 the body is
+// instantiated at DH = 32, 64, 128 and 256, and a dh below DH
 // (112 and 120 on the 128 one, 200 on the 256 one) loads zeros into the
 // columns past dh of q and of the K/V tiles (cp.async's src-size 0) and
 // stores only dh columns, so the DH-wide products compute the dh-wide
@@ -84,6 +85,17 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
+// A head past 256: the column-block bodies of part 1 (below).
+extern "C" int flash_attention_wide(int dtype, const void* q, const void* k,
+                                    const void* v, void* out, float* lse,
+                                    int batch, int s_len, int t_len, int h_q,
+                                    int g, int dh, int causal, int window,
+                                    float scale, cudaStream_t stream);
+
+// The build compiles this file as two parts at once (kernels/build.py
+// PARTS): the bodies up to DH 256 with the entry point, then the
+// column-block bodies; without BUILD_PART it is whole.
+#if !defined(BUILD_PART) || BUILD_PART == 0
 namespace {
 
 constexpr int BQ = 64;           // query rows per CTA
@@ -261,14 +273,6 @@ __host__ __device__ constexpr bool tc_q_shared(int dh) { return dh > 128; }
 constexpr int tc_smem_bytes(int dh) {
   return (tc_stages(dh) * 2 * TC_BK + (tc_q_shared(dh) ? TC_BQ : 0))
          * (dh + 8) * 2;
-}
-
-// 2^x in one MUFU op (flush to zero; 2^-inf = 0).  P is rounded to bf16
-// next, far coarser than its ~2^-22 relative error.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ unsigned load_pair(const __nv_bfloat16* p) {
@@ -626,10 +630,10 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (CUDA
 // cores), 1 = bfloat16 (tensor cores).  Any G = h_q / hkv (the kernels
-// take it at run time) and any dh that is a multiple of 8 up to 256, on
-// the 32, 64, 128 or 256 wide instantiation with zero columns past dh
-// (the wrapper pads any other dh up to a multiple of 8, and passes the
-// real dh's scale).
+// take it at run time) and any dh that is a multiple of 8: up to 256 on
+// the 32, 64, 128 or 256 wide instantiation with zero columns past dh,
+// past it in column blocks (the wrapper pads any other dh up to a
+// multiple of 8, and passes the real dh's scale).
 // lse, when not null, receives each query row's f32 natural log-sum-exp
 // of its scaled scores, (B, H, S) at (b * H + h) * S + i, -inf for a row
 // with no valid key: the backward (flash_attention_bwd.cu) recomputes P
@@ -663,8 +667,500 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     FLASH_DH(64);
     FLASH_DH(128);
     FLASH_DH(256);
+    case WIDE:
+      return flash_attention_wide(dtype, q, k, v, out, lse_f, batch, s_len,
+                                  t_len, h_q, g, dh, causal, window, scale,
+                                  st);
     default: return -1;
   }
 #undef FLASH_DH
   return static_cast<int>(err);
 }
+#endif  // part 0
+
+#if !defined(BUILD_PART) || BUILD_PART == 1
+// ---------------------------------------------------------------------------
+// Part 1: a head past 256, in column blocks.  One CTA per (b, query head,
+// 64 query rows, block of the output's columns): every CTA computes the
+// whole scores S = Q K^T, summed over 64-column chunks of dh, and
+// accumulates only its own block of O += P V.  The CTAs of a row block
+// compute the same S in the same order, so they agree on the softmax bit
+// for bit, and the first block's CTA writes the log-sum-exp.  The S of a
+// tile is computed once per column block: at dh 512 the bf16 body's two
+// 256-column blocks do 1.5 times the products of one pass, the f32 body's
+// eight 64-column blocks 4.5 times.  Any number of blocks; the wrapper
+// pads a dh that is not a multiple of 8, as below 256.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int W_BQ = 64;         // query rows per CTA
+constexpr int W_BK = 64;         // keys per tile (bf16)
+constexpr int W_NT = 128;        // one warp per 16 query rows (bf16)
+constexpr int W_KC = 64;         // columns of dh a Q or K chunk holds
+constexpr int W_CP = W_KC + 8;   // chunk pitch, bf16 (16 bytes of pad)
+constexpr int W_ST = 3;          // stages of the cp.async ring
+// columns of O a bf16 CTA owns: the fewest recomputes of S the registers
+// allow (255 a thread, 120 bytes of spill); at agent-7b's width with heads
+// of 512, blocks of 128 were 19% slower (PERF.md §6)
+constexpr int W_DB = 256;
+
+// one stage: a Q chunk and a K chunk, or a V block; bf16 elements
+__host__ __device__ constexpr int w_stage_elems() {
+  return 2 * W_BQ * W_CP > W_BK * (W_DB + 8) ? 2 * W_BQ * W_CP
+                                               : W_BK * (W_DB + 8);
+}
+constexpr int W_SMEM = W_ST * w_stage_elems() * 2;
+
+// Item i of a CTA's walk into stage st: for tile it = i / (nch + 1),
+// items 0 .. nch - 1 are the Q and K chunks of columns 64 c .., item nch
+// the V block of the CTA's columns; rows past S or T and columns past dh
+// as zeros.
+__device__ __forceinline__ void wide_issue(
+    __nv_bfloat16* st, int i, int nch, const __nv_bfloat16* qb,
+    int64_t qrow, const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+    int64_t krow, int q0, int s_len, int k_begin, int t_len, int dh,
+    int col0) {
+  const int it = i / (nch + 1), part = i % (nch + 1);
+  const int k0 = k_begin + it * W_BK;
+  if (part < nch) {
+    const int c0 = part * W_KC;
+    __nv_bfloat16* sk = st + W_BQ * W_CP;
+#pragma unroll
+    for (int j = 0; j < W_BQ * (W_KC / 8) / W_NT; ++j) {
+      const int c = threadIdx.x + j * W_NT;
+      const int row = c / (W_KC / 8);
+      const int col = (c % (W_KC / 8)) * 8;
+      const bool qok = q0 + row < s_len && c0 + col < dh;
+      cp_async16(st + row * W_CP + col,
+                 qb + (qok ? (q0 + row) * qrow + c0 + col : 0), qok);
+      const bool kok = k0 + row < t_len && c0 + col < dh;
+      cp_async16(sk + row * W_CP + col,
+                 kb + (kok ? (k0 + row) * krow + c0 + col : 0), kok);
+    }
+  } else {
+    constexpr int VP = W_DB + 8;
+#pragma unroll
+    for (int j = 0; j < W_BK * (W_DB / 8) / W_NT; ++j) {
+      const int c = threadIdx.x + j * W_NT;
+      const int row = c / (W_DB / 8);
+      const int col = (c % (W_DB / 8)) * 8;
+      const bool ok = k0 + row < t_len && col0 + col < dh;
+      cp_async16(st + row * VP + col,
+                 vb + (ok ? (k0 + row) * krow + col0 + col : 0), ok);
+    }
+  }
+}
+
+// bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators), as
+// flash_attention_mma_kernel: four warps of 16 query rows, P rounded to
+// bf16 in registers as the A fragments of P V, the online softmax in exp2
+// units.  Q and K arrive in 64-column chunks through a 3-stage cp.async
+// ring, so shared memory does not grow with dh; each tile's S sums its
+// chunks, then the V block of the CTA's W_DB columns arrives.
+__global__ void __launch_bounds__(W_NT, 1)
+flash_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int s_len, int t_len, int h_q,
+                      int g, int dh, int causal, int window,
+                      float scale_log2) {
+  constexpr int NS = W_BK / 8;          // n-tiles of S (8 keys each)
+  constexpr int ND = W_DB / 8;          // n-tiles of O (8 columns each)
+  constexpr int VP = W_DB + 8;
+  constexpr int STAGE = w_stage_elems();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  const int nvb = (dh + W_DB - 1) / W_DB;
+  const int h = blockIdx.x / nvb;
+  const int col0 = (blockIdx.x % nvb) * W_DB;   // the CTA's columns of O
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * W_BQ;  // heaviest first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int hkv = h_q / g;
+  const int kh = h / g;
+  const int w0 = q0 + warp * 16;
+  const int w_last = min(w0 + 15, s_len - 1);
+
+  int k_begin = 0, k_end = t_len;
+  if (causal) {
+    k_end = min(min(q0 + W_BQ, s_len), t_len);
+    if (window > 0) k_begin = max(q0 - window + 1, 0);
+  }
+  k_begin = (k_begin / W_BK) * W_BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + W_BK - 1) / W_BK
+                                      : 0;
+  const int nch = (dh + W_KC - 1) / W_KC;
+  const int items = n_tiles * (nch + 1);
+
+  const int64_t qrow = static_cast<int64_t>(h_q) * dh;  // one row's stride
+  const __nv_bfloat16* qb = q + static_cast<int64_t>(b) * s_len * qrow
+                            + static_cast<int64_t>(h) * dh;
+  const int64_t krow = static_cast<int64_t>(hkv) * dh;
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * t_len * krow
+                            + static_cast<int64_t>(kh) * dh;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * t_len * krow
+                            + static_cast<int64_t>(kh) * dh;
+
+#pragma unroll
+  for (int st = 0; st < W_ST - 1; ++st) {
+    if (st < items)
+      wide_issue(smem + st * STAGE, st, nch, qb, qrow, kb, vb, krow, q0,
+                 s_len, k_begin, t_len, dh, col0);
+    cp_async_commit();
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float s[NS][4];
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait<W_ST - 2>();
+    __syncthreads();             // item i landed; item i - 1 consumed
+    if (i + W_ST - 1 < items)
+      wide_issue(smem + (i + W_ST - 1) % W_ST * STAGE, i + W_ST - 1, nch, qb,
+                 qrow, kb, vb, krow, q0, s_len, k_begin, t_len, dh, col0);
+    cp_async_commit();
+
+    const int part = i % (nch + 1);
+    const int k0 = k_begin + (i / (nch + 1)) * W_BK;
+    bool need = w0 < s_len;
+    bool full = k0 + W_BK <= t_len;
+    if (causal) {
+      need = need && k0 <= w_last;
+      full = full && k0 + W_BK - 1 <= w0;
+      if (window > 0) {
+        need = need && k0 + W_BK - 1 > w0 - window;
+        full = full && k0 > w_last - window;
+      }
+    }
+    if (!need) continue;
+    const __nv_bfloat16* sq = smem + (i % W_ST) * STAGE;
+
+    if (part < nch) {
+      // S += Q K^T over this chunk's 64 columns
+      const __nv_bfloat16* sk = sq + W_BQ * W_CP;
+      if (part == 0) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < W_KC / 16; kk += 2) {
+        unsigned qs0[4], qs1[4];
+        const __nv_bfloat16* qp =
+            sq + (warp * 16 + (lane & 15)) * W_CP + kk * 16 + (lane >> 4) * 8;
+        hopper::ldmatrix_x4(qs0, qp);
+        hopper::ldmatrix_x4(qs1, qp + 16);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          unsigned kf[4];
+          hopper::ldmatrix_x4(kf, sk + (j * 8 + (lane & 7)) * W_CP + kk * 16
+                                      + (lane >> 3) * 8);
+          hopper::mma_bf16(s[j], qs0, kf[0], kf[1]);
+          hopper::mma_bf16(s[j], qs1, kf[2], kf[3]);
+        }
+      }
+      continue;
+    }
+
+    // the V block: the softmax of the tile's S, then O += P V
+    const __nv_bfloat16* sv = sq;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * tq + (e & 1);
+          const int row = w0 + gq + (e >> 1) * 8;
+          bool ok = key < t_len;
+          if (causal)
+            ok = ok && key <= row && (window <= 0 || key > row - window);
+          if (!ok) s[j][e] = -INFINITY;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      ms[r] = mx[r] * scale_log2;
+      const float alpha = ex2((m[r] - mx[r]) * scale_log2);
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+      m[r] = mx[r];
+    }
+    unsigned pa[W_BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float p0 = ex2(fmaf(s[j][0], scale_log2, -ms[0]));
+      const float p1 = ex2(fmaf(s[j][1], scale_log2, -ms[0]));
+      const float p2 = ex2(fmaf(s[j][2], scale_log2, -ms[1]));
+      const float p3 = ex2(fmaf(s[j][3], scale_log2, -ms[1]));
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pa[j / 2][(j & 1) * 2] = hopper::pack_bf16x2(p0, p1);
+      pa[j / 2][(j & 1) * 2 + 1] = hopper::pack_bf16x2(p2, p3);
+    }
+#pragma unroll
+    for (int kk = 0; kk < W_BK / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        unsigned vf[4];
+        hopper::ldmatrix_x4_trans(vf, sv + (kk * 16 + (lane & 7)
+                                            + ((lane >> 3) & 1) * 8) * VP
+                                          + n * 8 + (lane >> 4) * 8);
+        hopper::mma_bf16(acc[n], pa[kk], vf[0], vf[1]);
+        hopper::mma_bf16(acc[n + 1], pa[kk], vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  if (lse != nullptr && col0 == 0 && tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + gq + 8 * r;
+      if (row < s_len)
+        lse[(static_cast<int64_t>(b) * h_q + h) * s_len + row] =
+            l[r] > 0.f ? (m[r] * scale_log2 + __log2f(l[r])) * LN2
+                       : -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + gq + 8 * r;
+    if (row >= s_len) continue;
+    __nv_bfloat16* op = out + (static_cast<int64_t>(b) * s_len + row) * qrow
+                        + static_cast<int64_t>(h) * dh + col0 + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      if (col0 + n * 8 < dh)           // dh % 8 == 0: whole 8-column tiles
+        *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
+            __floats2bfloat162_rn(acc[n][2 * r] * inv[r],
+                                  acc[n][2 * r + 1] * inv[r]);
+  }
+}
+
+// f32: IEEE FMAs on the CUDA cores, as flash_attention_kernel: four
+// threads a query row, 64 rows a CTA, 32-key tiles staged in shared
+// memory 64 columns at a time (the K chunks, then the V block of the
+// CTA's 64 columns); a thread's share of q is read again for every chunk.
+constexpr int WF_TPR = 4;                 // threads per query row
+constexpr int WF_NT = W_BQ * WF_TPR;
+constexpr int WF_BK = 32;                 // keys per tile
+constexpr int WF_DB = 64;                 // columns of O a CTA owns
+constexpr int WF_NF = W_KC / (4 * WF_TPR);  // float4s of a chunk a thread
+
+__global__ void __launch_bounds__(WF_NT)
+flash_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int s_len, int t_len, int h_q,
+                      int g, int dh, int causal, int window, float scale) {
+  __shared__ __align__(16) float ts[WF_BK][W_KC];   // a K chunk or V block
+  const int nvb = (dh + WF_DB - 1) / WF_DB;
+  const int h = blockIdx.x / nvb;
+  const int col0 = (blockIdx.x % nvb) * WF_DB;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.z * W_BQ;
+  const int hkv = h_q / g;
+  const int kh = h / g;
+  const int r = threadIdx.x / WF_TPR;
+  const int c = threadIdx.x % WF_TPR;
+  const int qi = q0 + r;
+  const bool live = qi < s_len;
+
+  int lo = 0, hi = t_len - 1;
+  if (causal) {
+    hi = min(qi, t_len - 1);
+    if (window > 0) lo = max(qi - window + 1, 0);
+  }
+  int k_begin = 0, k_end = t_len;
+  if (causal) {
+    const int last = min(q0 + W_BQ, s_len) - 1;
+    k_end = min(last + 1, t_len);
+    if (window > 0) k_begin = max(q0 - window + 1, 0);
+  }
+  k_begin = (k_begin / WF_BK) * WF_BK;
+
+  const int64_t qrow = static_cast<int64_t>(h_q) * dh;
+  const float* qp = q + (static_cast<int64_t>(b) * s_len + (live ? qi : 0))
+                        * qrow + static_cast<int64_t>(h) * dh;
+  const int64_t krow = static_cast<int64_t>(hkv) * dh;
+  const float* kb = k + static_cast<int64_t>(b) * t_len * krow
+                    + static_cast<int64_t>(kh) * dh;
+  const float* vb = v + static_cast<int64_t>(b) * t_len * krow
+                    + static_cast<int64_t>(kh) * dh;
+  // stage rows t0 .. t0 + WF_BK - 1, columns c0 .. c0 + 63 of x into ts
+  // (zeros past T and past dh)
+  const auto stage = [&](const float* x, int t0, int c0) {
+    for (int idx = threadIdx.x * 4; idx < WF_BK * W_KC; idx += WF_NT * 4) {
+      const int j = idx / W_KC, d = idx % W_KC;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (t0 + j < t_len && c0 + d < dh)
+        load_row<4>(x + (t0 + j) * krow + c0 + d, f);
+      *reinterpret_cast<float4*>(&ts[j][d]) = make_float4(f[0], f[1], f[2],
+                                                          f[3]);
+    }
+  };
+
+  float acc[WF_NF][4];
+#pragma unroll
+  for (int f = 0; f < WF_NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+  float m = NEG_INF, l = 0.f;
+
+  for (int t0 = k_begin; t0 < k_end; t0 += WF_BK) {
+    const bool need = live && t0 <= hi && t0 + WF_BK - 1 >= lo;
+    const bool wneed = __any_sync(0xffffffffu, need);
+    float sc[WF_BK];
+#pragma unroll
+    for (int j = 0; j < WF_BK; ++j) sc[j] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += W_KC) {
+      __syncthreads();              // the previous tile or chunk is consumed
+      stage(kb, t0, c0);
+      __syncthreads();
+      if (!wneed) continue;
+      float qr[WF_NF][4];
+#pragma unroll
+      for (int f = 0; f < WF_NF; ++f) {
+        const int col = c0 + (f * WF_TPR + c) * 4;
+        if (col < dh) {
+          load_row<4>(qp + col, qr[f]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qr[f][e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qr[f][e] *= scale;
+      }
+#pragma unroll
+      for (int j = 0; j < WF_BK; ++j) {
+        float part = 0.f;
+#pragma unroll
+        for (int f = 0; f < WF_NF; ++f) {
+          const float4 kx = *reinterpret_cast<const float4*>(
+              &ts[j][(f * WF_TPR + c) * 4]);
+          part += qr[f][0] * kx.x + qr[f][1] * kx.y + qr[f][2] * kx.z +
+                  qr[f][3] * kx.w;
+        }
+        sc[j] += part;
+      }
+    }
+    __syncthreads();                // the last chunk is consumed
+    stage(vb, t0, col0);            // the CTA's columns of V
+    __syncthreads();
+    if (!wneed) continue;
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < WF_BK; ++j) {
+      sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], 1);
+      sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], 2);
+      const int t = t0 + j;
+      sc[j] = t >= lo && t <= hi ? sc[j] : NEG_INF;
+      mx = fmaxf(mx, sc[j]);
+    }
+    const float alpha = expf(m - mx);
+    l *= alpha;
+#pragma unroll
+    for (int f = 0; f < WF_NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][e] *= alpha;
+#pragma unroll
+    for (int j = 0; j < WF_BK; ++j) {
+      const int t = t0 + j;
+      const float p = (t >= lo && t <= hi) ? expf(sc[j] - mx) : 0.f;
+      l += p;
+#pragma unroll
+      for (int f = 0; f < WF_NF; ++f) {
+        const float4 vx = *reinterpret_cast<const float4*>(
+            &ts[j][(f * WF_TPR + c) * 4]);
+        acc[f][0] += p * vx.x; acc[f][1] += p * vx.y;
+        acc[f][2] += p * vx.z; acc[f][3] += p * vx.w;
+      }
+    }
+    m = mx;
+  }
+
+  if (!live) return;
+  if (lse != nullptr && col0 == 0 && c == 0)
+    lse[(static_cast<int64_t>(b) * h_q + h) * s_len + qi] =
+        l > 0.f ? m + logf(l) : -INFINITY;
+  const float inv = 1.f / (l == 0.f ? 1.f : l);
+  float* op = out + (static_cast<int64_t>(b) * s_len + qi) * qrow
+              + static_cast<int64_t>(h) * dh + col0;
+#pragma unroll
+  for (int f = 0; f < WF_NF; ++f) {
+    const int col = (f * WF_TPR + c) * 4;
+    if (col0 + col >= dh) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) op[col + e] = acc[f][e] * inv;
+  }
+}
+
+}  // namespace
+
+extern "C" int flash_attention_wide(int dtype, const void* q, const void* k,
+                                    const void* v, void* out, float* lse,
+                                    int batch, int s_len, int t_len, int h_q,
+                                    int g, int dh, int causal, int window,
+                                    float scale, cudaStream_t stream) {
+  const int nvb = dtype == 0 ? (dh + WF_DB - 1) / WF_DB
+                             : (dh + W_DB - 1) / W_DB;
+  const int blocks = (s_len + W_BQ - 1) / W_BQ;
+  if (batch > 65535 || blocks > 65535 ||
+      static_cast<int64_t>(h_q) * nvb > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(h_q * nvb, batch, blocks);
+  if (dtype == 0) {
+    flash_wide_f32_kernel<<<grid, WF_NT, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, s_len,
+        t_len, h_q, g, dh, causal, window, scale);
+  } else {
+    static bool smem_set = false;   // the attribute, once
+    if (!smem_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_wide_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          W_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set = true;
+    }
+    flash_wide_mma_kernel<<<grid, W_NT, W_SMEM, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), lse, s_len, t_len, h_q, g, dh,
+        causal, window, scale * LOG2E);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // part 1

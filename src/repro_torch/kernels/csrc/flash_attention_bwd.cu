@@ -88,6 +88,7 @@
 //   128 or 256 wide body, with zero columns past dh; at DH 256 tiles of
 //   16 rows, eight threads a key or row and 32-row dQ blocks.  The wrapper
 //   pads any other dh to a multiple of 8 in a zero-filled copy.
+// * A dh past 256, in both types: the column-block passes of part 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +97,18 @@
 #include "hopper.cuh"
 #include "wgmma.cuh"
 
+// A head past 256: the dK/dV and dQ passes of part 1 (below), after the
+// D pre-pass of part 0.
+extern "C" int flash_attention_bwd_wide(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, void* dq, void* dk, void* dv,
+    int batch, int s_len, int t_len, int h_q, int g, int dh, int causal,
+    int window, float scale, cudaStream_t stream);
+
+// The build compiles this file as two parts at once (kernels/build.py
+// PARTS): the bodies up to DH 256 with the D pre-pass and the entry
+// point, then the column-block passes; without BUILD_PART it is whole.
+#if !defined(BUILD_PART) || BUILD_PART == 0
 namespace {
 
 // LOG2E: common.cuh
@@ -439,12 +452,6 @@ struct Layout {
   static constexpr int SMEM = FIXED + RING * STAGE;
   static_assert(RING >= 2, "the ring needs two stages");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // k-step kk (16 columns of dh) of a K-major 64-row operand DH wide: box
 // kk / 4, 32 bytes a step inside its swizzled rows
@@ -1337,8 +1344,9 @@ int launch_tma(const BwdArgs& a) {
 // bytes, which dh % 8 == 0 gives).  q, out, dout and dq are (B, S, H,
 // dh); k, v, dk and dv (B, T, Hkv, dh); lse is the forward's (B, H, S) f32
 // log-sum-exp and dsum a (B, H, S) f32 scratch the caller allocates (D).
-// Every tensor is contiguous and 16-byte aligned.  Launches the D
-// pre-pass, dK/dV and dQ, in that order, on `stream`; allocates nothing.
+// Every tensor is contiguous and 16-byte aligned.  dh is any multiple of
+// 8 (past 256 in part 1's column blocks).  Launches the D pre-pass,
+// dK/dV and dQ, in that order, on `stream`; allocates nothing.
 // Returns the CUDA error of the first launch that fails (0 on success),
 // -1 when the (dtype, dh, G) combination is not supported, -2 when the
 // driver refuses a tensor map.
@@ -1355,6 +1363,14 @@ extern "C" int flash_attention_bwd_launch(
                   h_q, h_q / hkv, dh, causal, window, scale,
                   static_cast<cudaStream_t>(stream)};
   if (dh % 8) return -1;
+  if (head_width(dh) == WIDE) {
+    const cudaError_t err = dtype == 0 ? launch_dot<float>(a)
+                                       : launch_dot<__nv_bfloat16>(a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return flash_attention_bwd_wide(dtype, q, k, v, dout, a.lse, a.dsum, dq,
+                                    dk, dv, batch, s_len, t_len, h_q, a.g,
+                                    dh, causal, window, scale, a.stream);
+  }
   switch (head_width(dh)) {
     case 32:
       return dtype == 0 ? static_cast<int>(launch_f32<32>(a))
@@ -1372,3 +1388,733 @@ extern "C" int flash_attention_bwd_launch(
       return -1;
   }
 }
+#endif  // part 0
+
+#if !defined(BUILD_PART) || BUILD_PART == 1
+// ---------------------------------------------------------------------------
+// Part 1: a head past 256, in column blocks.  Each pass owns a block of
+// its outputs' columns and computes S and dP again over the whole dh, 64
+// columns of it at a time, then adds the block's columns of the products:
+// * dK/dV: one CTA per (b, KV head, column block, a block of keys); it
+//   walks the G query heads of the group, and for each the query tiles
+//   that can see its keys, so the GQA sum stays in the CTA in a fixed
+//   order.  Per tile: S^T = K Q^T and dP^T = V dO^T over the chunks, then
+//   P^T and dS^T, then dV += P^T dO and dK += dS^T Q over the block.
+// * dQ: one CTA per (b, query head, column block, a block of query rows),
+//   the last row blocks (the heaviest) first: per key tile S = Q K^T and
+//   dP = dO V^T over the chunks, then dQ += dS K over the block.
+// bf16 runs on the tensor cores (flash_bwd_wide_mma_kernel: 64 rows a
+// CTA, 64-column tiles; dQ blocks of 128 columns, dK/dV of 64); f32 in
+// IEEE FMAs on the CUDA cores (four threads a key or row, 16-row tiles,
+// blocks of 64).  No atomics: two runs give the same bits.  The price of
+// owning a column block is the recompute: at dh 512 in bf16 the four dQ
+// and eight dK/dV blocks each compute the whole S and dP, 27 products of
+// dh per valid pair and head where the bound counts five.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int WB_TP = 4;                    // threads a key or query row
+constexpr int WB_KC = 64;                   // a chunk and a column block
+constexpr int WB_NF = WB_KC / (4 * WB_TP);  // float4s of a chunk a thread
+constexpr int WB_KEYS = 32;                 // keys of a dK/dV CTA
+constexpr int WB_ROWS = 64;                 // query rows of a dQ CTA
+constexpr int WB_T = 16;                    // rows of a staged tile
+
+// this thread's quarter c of columns c0 .. c0 + 63 of the row at p,
+// interleaved by float4 (flash_attention.cu's f32 layout); zeros past dh
+__device__ __forceinline__ void wb_share(const float* p, int c0, int c,
+                                         int dh,
+                                         float (&r)[WB_NF][4]) {
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f) {
+    const int col = c0 + (f * WB_TP + c) * 4;
+    if (col < dh) {
+      load_row<4>(p + col, r[f]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[f][e] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float wb_dot(const float (&r)[WB_NF][4],
+                                        const float* row, int c) {
+  float part = 0.f;
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f) {
+    const float4 x = *reinterpret_cast<const float4*>(&row[(f * WB_TP + c)
+                                                           * 4]);
+    part += r[f][0] * x.x + r[f][1] * x.y + r[f][2] * x.z + r[f][3] * x.w;
+  }
+  return part;
+}
+
+__device__ __forceinline__ void wb_axpy(float (&acc)[WB_NF][4], float a,
+                                        const float* row, int c) {
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f) {
+    const float4 x = *reinterpret_cast<const float4*>(&row[(f * WB_TP + c)
+                                                           * 4]);
+    acc[f][0] = fmaf(a, x.x, acc[f][0]);
+    acc[f][1] = fmaf(a, x.y, acc[f][1]);
+    acc[f][2] = fmaf(a, x.z, acc[f][2]);
+    acc[f][3] = fmaf(a, x.w, acc[f][3]);
+  }
+}
+
+// rows r0 .. r0 + WB_T - 1 (zeros from n on) and columns c0 .. c0 + 63
+// (zeros past dh) of x, rows rs apart, into an f32 tile; NTH threads
+template <int NTH>
+__device__ __forceinline__ void wb_stage(float (*t)[WB_KC], const float* x,
+                                         int64_t rs, int r0, int n, int c0,
+                                         int dh) {
+  for (int idx = threadIdx.x * 4; idx < WB_T * WB_KC; idx += NTH * 4) {
+    const int j = idx / WB_KC, d = idx % WB_KC;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 + j < n && c0 + d < dh)
+      load_row<4>(x + (r0 + j) * rs + c0 + d, f);
+    *reinterpret_cast<float4*>(&t[j][d]) = make_float4(f[0], f[1], f[2],
+                                                       f[3]);
+  }
+}
+
+__global__ void __launch_bounds__(WB_KEYS * WB_TP)
+flash_bwd_wide_dkdv_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dsum,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int s_len,
+                           int t_len, int h_q, int g, int dh, int causal,
+                           int window, float scale) {
+  constexpr int NTH = WB_KEYS * WB_TP;
+  __shared__ __align__(16) float ta[WB_T][WB_KC];   // Q: a chunk, the block
+  __shared__ __align__(16) float tb[WB_T][WB_KC];   // dO: the same
+  const int nvb = (dh + WB_KC - 1) / WB_KC;
+  const int kh = blockIdx.x / nvb;
+  const int col0 = (blockIdx.x % nvb) * WB_KC;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * WB_KEYS;
+  const int r = threadIdx.x / WB_TP;
+  const int c = threadIdx.x % WB_TP;
+  const int kj = k0 + r;
+  const bool live = kj < t_len;
+  const int hkv = h_q / g;
+  const int64_t qrow = static_cast<int64_t>(h_q) * dh;
+  const int64_t krow = static_cast<int64_t>(hkv) * dh;
+  const int64_t koff = (static_cast<int64_t>(b) * t_len + (live ? kj : 0))
+                       * krow + static_cast<int64_t>(kh) * dh;
+
+  // the queries that can see the CTA's keys
+  int i_begin = 0, i_end = s_len;
+  if (causal) {
+    i_begin = k0;
+    if (window > 0)
+      i_end = static_cast<int>(min(static_cast<int64_t>(s_len),
+                                   static_cast<int64_t>(k0) + WB_KEYS - 1
+                                       + window));
+  }
+
+  float dka[WB_NF][4], dva[WB_NF][4];
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[f][e] = dva[f][e] = 0.f;
+
+  for (int gi = 0; gi < g; ++gi) {
+    const int h = kh * g + gi;
+    const int64_t hoff = static_cast<int64_t>(b) * s_len * qrow
+                         + static_cast<int64_t>(h) * dh;
+    const float* lse_h = lse + (static_cast<int64_t>(b) * h_q + h) * s_len;
+    const float* d_h = dsum + (static_cast<int64_t>(b) * h_q + h) * s_len;
+    for (int i0 = i_begin; i0 < i_end; i0 += WB_T) {
+      bool need = live;
+      if (causal) {
+        need = need && i0 + WB_T - 1 >= kj;
+        if (window > 0) need = need && i0 <= kj + window - 1;
+      }
+      const bool wneed = __any_sync(0xffffffffu, need);
+      float st[WB_T], dpt[WB_T];
+#pragma unroll
+      for (int j = 0; j < WB_T; ++j) st[j] = dpt[j] = 0.f;
+      for (int c0 = 0; c0 < dh; c0 += WB_KC) {
+        __syncthreads();            // the previous tiles are consumed
+        wb_stage<NTH>(ta, q + hoff, qrow, i0, s_len, c0, dh);
+        wb_stage<NTH>(tb, dout + hoff, qrow, i0, s_len, c0, dh);
+        __syncthreads();
+        if (!wneed) continue;
+        float kr[WB_NF][4], vr[WB_NF][4];
+        wb_share(k + koff, c0, c, dh, kr);
+        wb_share(v + koff, c0, c, dh, vr);
+#pragma unroll
+        for (int j = 0; j < WB_T; ++j) {
+          st[j] += wb_dot(kr, ta[j], c);
+          dpt[j] += wb_dot(vr, tb[j], c);
+        }
+      }
+      __syncthreads();              // the last chunk is consumed
+      wb_stage<NTH>(ta, q + hoff, qrow, i0, s_len, col0, dh);
+      wb_stage<NTH>(tb, dout + hoff, qrow, i0, s_len, col0, dh);
+      __syncthreads();
+      if (!wneed) continue;
+#pragma unroll
+      for (int j = 0; j < WB_T; ++j) {
+        float sv = st[j], dpv = dpt[j];
+#pragma unroll
+        for (int o = 1; o < WB_TP; o <<= 1) {
+          sv += __shfl_xor_sync(0xffffffffu, sv, o);
+          dpv += __shfl_xor_sync(0xffffffffu, dpv, o);
+        }
+        const int i = i0 + j;
+        bool ok = live && i < s_len;
+        if (causal) ok = ok && kj <= i && (window <= 0 || kj > i - window);
+        const float p = ok ? expf(sv * scale - lse_h[i]) : 0.f;
+        const float ds = ok ? p * (dpv - d_h[i]) : 0.f;
+        wb_axpy(dva, p, tb[j], c);
+        wb_axpy(dka, ds, ta[j], c);
+      }
+    }
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f) {
+    const int col = col0 + (f * WB_TP + c) * 4;
+    if (col >= dh) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      store_one(dk + koff + col + e, dka[f][e] * scale);
+      store_one(dv + koff + col + e, dva[f][e]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WB_ROWS * WB_TP)
+flash_bwd_wide_dq_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dsum, float* __restrict__ dq,
+                         int s_len, int t_len, int h_q, int g, int dh,
+                         int causal, int window, float scale) {
+  constexpr int NTH = WB_ROWS * WB_TP;
+  __shared__ __align__(16) float ta[WB_T][WB_KC];   // K: a chunk, the block
+  __shared__ __align__(16) float tb[WB_T][WB_KC];   // V: a chunk
+  const int nvb = (dh + WB_KC - 1) / WB_KC;
+  const int h = blockIdx.x / nvb;
+  const int col0 = (blockIdx.x % nvb) * WB_KC;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WB_ROWS;  // heaviest first
+  const int r = threadIdx.x / WB_TP;
+  const int c = threadIdx.x % WB_TP;
+  const int qi = q0 + r;
+  const bool live = qi < s_len;
+  const int hkv = h_q / g;
+  const int kh = h / g;
+  const int64_t qrow = static_cast<int64_t>(h_q) * dh;
+  const int64_t krow = static_cast<int64_t>(hkv) * dh;
+  const int64_t qoff = (static_cast<int64_t>(b) * s_len + (live ? qi : 0))
+                       * qrow + static_cast<int64_t>(h) * dh;
+  const int64_t kvoff = static_cast<int64_t>(b) * t_len * krow
+                        + static_cast<int64_t>(kh) * dh;
+  const int64_t srow = (static_cast<int64_t>(b) * h_q + h) * s_len
+                       + (live ? qi : 0);
+  const float lse_i = lse[srow];
+  const float d_i = dsum[srow];
+
+  int lo = 0, hi = t_len - 1;
+  if (causal) {
+    hi = min(qi, t_len - 1);
+    if (window > 0) lo = max(qi - window + 1, 0);
+  }
+  int k_begin = 0, k_end = t_len;
+  if (causal) {
+    k_end = min(min(q0 + WB_ROWS, s_len), t_len);
+    if (window > 0) k_begin = max(q0 - window + 1, 0);
+  }
+  k_begin = (k_begin / WB_T) * WB_T;
+
+  float dqa[WB_NF][4];
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[f][e] = 0.f;
+
+  for (int t0 = k_begin; t0 < k_end; t0 += WB_T) {
+    const bool need = live && t0 <= hi && t0 + WB_T - 1 >= lo;
+    const bool wneed = __any_sync(0xffffffffu, need);
+    float st[WB_T], dpt[WB_T];
+#pragma unroll
+    for (int j = 0; j < WB_T; ++j) st[j] = dpt[j] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += WB_KC) {
+      __syncthreads();
+      wb_stage<NTH>(ta, k + kvoff, krow, t0, t_len, c0, dh);
+      wb_stage<NTH>(tb, v + kvoff, krow, t0, t_len, c0, dh);
+      __syncthreads();
+      if (!wneed) continue;
+      float qr[WB_NF][4], dr[WB_NF][4];
+      wb_share(q + qoff, c0, c, dh, qr);
+      wb_share(dout + qoff, c0, c, dh, dr);
+#pragma unroll
+      for (int j = 0; j < WB_T; ++j) {
+        st[j] += wb_dot(qr, ta[j], c);
+        dpt[j] += wb_dot(dr, tb[j], c);
+      }
+    }
+    __syncthreads();
+    wb_stage<NTH>(ta, k + kvoff, krow, t0, t_len, col0, dh);
+    __syncthreads();
+    if (!wneed) continue;
+#pragma unroll
+    for (int j = 0; j < WB_T; ++j) {
+      float sv = st[j], dpv = dpt[j];
+#pragma unroll
+      for (int o = 1; o < WB_TP; o <<= 1) {
+        sv += __shfl_xor_sync(0xffffffffu, sv, o);
+        dpv += __shfl_xor_sync(0xffffffffu, dpv, o);
+      }
+      const int t = t0 + j;
+      const bool ok = live && t >= lo && t <= hi;
+      const float p = ok ? expf(sv * scale - lse_i) : 0.f;
+      wb_axpy(dqa, ok ? p * (dpv - d_i) : 0.f, ta[j], c);
+    }
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int f = 0; f < WB_NF; ++f) {
+    const int col = col0 + (f * WB_TP + c) * 4;
+    if (col >= dh) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store_one(dq + qoff + col + e,
+                                          dqa[f][e] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators), as the
+// forward's column-block body: four warps of 16 rows a CTA (query rows in
+// dQ, keys in dK/dV), 64-column tiles of the other side (keys, queries)
+// walked in order, and per tile S and dP summed over 64-column chunks of
+// dh that arrive (the rows' two operands and the tile's two) through a
+// 3-stage cp.async ring, then the tile's columns of the outputs' block.
+// P and dS are rounded to bf16 in the registers that hold them and enter
+// the output products as A fragments (the C layout of m16n8 is the A
+// layout of m16n8k16), with no trip through shared memory.  dQ owns 128
+// columns a CTA, dK/dV 64 of each (two sets of sums).
+// ---------------------------------------------------------------------------
+
+constexpr int WM_ROWS = 64;            // rows of a CTA
+constexpr int WM_T = 64;               // columns of a tile
+constexpr int WM_NT = 128;             // one warp per 16 rows
+constexpr int WM_P = WB_KC + 8;        // chunk pitch, bf16
+constexpr int WM_QB = 128;             // dQ's column block
+constexpr int WM_KB = 64;              // dK's and dV's column block
+constexpr int WM_ST = 3;               // stages of the ring
+// a stage: four chunks, or a tile's column blocks (at most two of 64 or
+// one of 128 columns), bf16 elements
+constexpr int WM_STAGE = 4 * WM_ROWS * WM_P;
+constexpr int WM_SMEM = WM_ST * WM_STAGE * 2;
+
+// 64 rows (r0 .., zeros from n on) and 64 columns (c0 .., zeros past dh)
+// of x, rows rs apart, into a tile of pitch pitch by cp.async
+__device__ __forceinline__ void wm_rows(__nv_bfloat16* t, int pitch,
+                                        const __nv_bfloat16* x, int64_t rs,
+                                        int r0, int n, int c0, int cols,
+                                        int dh) {
+  for (int c = threadIdx.x; c < WM_ROWS * (cols / 8); c += WM_NT) {
+    const int row = c / (cols / 8);
+    const int col = (c % (cols / 8)) * 8;
+    const bool ok = r0 + row < n && c0 + col < dh;
+    cp_async16(t + row * pitch + col,
+               x + (ok ? (r0 + row) * rs + c0 + col : 0), ok);
+  }
+}
+
+// The launch's operands.  rows: the CTA's (q and dout in dQ, k and v in
+// dK/dV), tile: the walked side's (k and v; q and dout), each with its
+// row stride and count.
+struct WmOps {
+  const __nv_bfloat16 *a1, *a2, *b1, *b2;
+  int64_t ars, brs;
+  int na, nb;
+};
+
+// Item i of a CTA's walk into stage st: for tile it = i / (nch + 1),
+// items 0 .. nch - 1 are the 64-column chunks of the rows' two operands
+// and of the tile's two, item nch the tile's columns of the outputs'
+// block (b1's in dQ; b1's and b2's in dK/dV).
+template <bool KV>
+__device__ __forceinline__ void wm_issue(__nv_bfloat16* st, int i, int nch,
+                                         const WmOps& o, int r0, int t0,
+                                         int dh, int col0) {
+  const int part = i % (nch + 1);
+  const int b0 = t0 + (i / (nch + 1)) * WM_T;
+  if (part < nch) {
+    const int c0 = part * WB_KC;
+    const int tile = WM_ROWS * WM_P;
+    wm_rows(st, WM_P, o.a1, o.ars, r0, o.na, c0, WB_KC, dh);
+    wm_rows(st + tile, WM_P, o.a2, o.ars, r0, o.na, c0, WB_KC, dh);
+    wm_rows(st + 2 * tile, WM_P, o.b1, o.brs, b0, o.nb, c0, WB_KC, dh);
+    wm_rows(st + 3 * tile, WM_P, o.b2, o.brs, b0, o.nb, c0, WB_KC, dh);
+  } else if constexpr (KV) {
+    wm_rows(st, WM_KB + 8, o.b1, o.brs, b0, o.nb, col0, WM_KB, dh);
+    wm_rows(st + WM_T * (WM_KB + 8), WM_KB + 8, o.b2, o.brs, b0, o.nb,
+            col0, WM_KB, dh);
+  } else {
+    wm_rows(st, WM_QB + 8, o.b1, o.brs, b0, o.nb, col0, WM_QB, dh);
+  }
+}
+
+// acc (16 rows x 8 nd columns) += a (16 x 64, four k-steps of A
+// fragments) times the tile rows of t (64 x pitch, bf16) as an MN-major B
+template <int ND>
+__device__ __forceinline__ void wm_cols(float (&acc)[ND][4],
+                                        const unsigned (&a)[4][4],
+                                        const __nv_bfloat16* t, int pitch) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int n = 0; n < ND; n += 2) {
+      unsigned vf[4];
+      hopper::ldmatrix_x4_trans(vf, t + (kk * 16 + (lane & 7)
+                                         + ((lane >> 3) & 1) * 8) * pitch
+                                       + n * 8 + (lane >> 4) * 8);
+      hopper::mma_bf16(acc[n], a[kk], vf[0], vf[1]);
+      hopper::mma_bf16(acc[n + 1], a[kk], vf[2], vf[3]);
+    }
+  }
+}
+
+// One pass.  dQ (KV false): CTA (query head h x column block, b, 64 query
+// rows), the key tiles each row block's mask leaves; dK/dV (KV true): CTA
+// (KV head x column block, b, 64 keys), for each of the G query heads the
+// query tiles that can see the keys.  Element (e) of a C fragment is row
+// w0 + gq + 8 (e >> 1), tile column j * 8 + 2 tq + (e & 1).
+template <bool KV>
+__global__ void __launch_bounds__(WM_NT, 1)
+flash_bwd_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          __nv_bfloat16* __restrict__ out1,
+                          __nv_bfloat16* __restrict__ out2, int s_len,
+                          int t_len, int h_q, int g, int dh, int causal,
+                          int window, float scale) {
+  constexpr int CB = KV ? WM_KB : WM_QB;
+  constexpr int ND = CB / 8;
+  constexpr int NS = WM_T / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const float sl2 = scale * LOG2E;
+
+  const int nvb = (dh + CB - 1) / CB;
+  const int head = blockIdx.x / nvb;             // KV: a KV head
+  const int col0 = (blockIdx.x % nvb) * CB;
+  const int b = blockIdx.y;
+  const int r0 = (KV ? blockIdx.z : gridDim.z - 1 - blockIdx.z) * WM_ROWS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int hkv = h_q / g;
+  const int w0 = r0 + warp * 16;                 // the warp's first row
+  const int64_t qrs = static_cast<int64_t>(h_q) * dh;
+  const int64_t krs = static_cast<int64_t>(hkv) * dh;
+  const int nch = (dh + WB_KC - 1) / WB_KC;
+  const int n_rows = KV ? t_len : s_len;
+  const int w_last = min(w0 + 15, n_rows - 1);
+
+  float acc1[ND][4], acc2[KV ? ND : 1][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (KV ? ND : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
+  float s[NS][4], dp[NS][4];
+
+  for (int gi = 0; gi < (KV ? g : 1); ++gi) {
+    const int h = KV ? head * g + gi : head;     // the query head
+    const int kh = KV ? head : h / g;
+    const int64_t qoff = static_cast<int64_t>(b) * s_len * qrs
+                         + static_cast<int64_t>(h) * dh;
+    const int64_t koff = static_cast<int64_t>(b) * t_len * krs
+                         + static_cast<int64_t>(kh) * dh;
+    const float* lse_h = lse + (static_cast<int64_t>(b) * h_q + h) * s_len;
+    const float* d_h = dsum + (static_cast<int64_t>(b) * h_q + h) * s_len;
+    const WmOps o = KV ? WmOps{k + koff, v + koff, q + qoff, dout + qoff,
+                               krs, qrs, t_len, s_len}
+                       : WmOps{q + qoff, dout + qoff, k + koff, v + koff,
+                               qrs, krs, s_len, t_len};
+    // the tiles to walk: dQ the keys its rows' masks leave, dK/dV the
+    // queries that can see its keys
+    int t0 = 0, t1 = KV ? s_len : t_len;
+    if (causal) {
+      if (KV) {
+        t0 = r0;
+        if (window > 0)
+          t1 = static_cast<int>(min(static_cast<int64_t>(s_len),
+                                    static_cast<int64_t>(r0) + WM_ROWS - 1
+                                        + window));
+      } else {
+        t1 = min(min(r0 + WM_ROWS, s_len), t_len);
+        if (window > 0) t0 = max(r0 - window + 1, 0);
+      }
+    }
+    t0 = (t0 / WM_T) * WM_T;
+    const int n_tiles = t1 > t0 ? (t1 - t0 + WM_T - 1) / WM_T : 0;
+    const int items = n_tiles * (nch + 1);
+    // dQ: the warp's rows' (log2-unit) log-sum-exps and D, once
+    float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+    if constexpr (!KV) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = w0 + gq + 8 * r;
+        if (row < s_len) {
+          lr[r] = lse_h[row] * LOG2E;
+          dr[r] = d_h[row];
+        }
+      }
+    }
+
+    __syncthreads();             // the previous head's last stage is read
+#pragma unroll
+    for (int st = 0; st < WM_ST - 1; ++st) {
+      if (st < items)
+        wm_issue<KV>(smem + st * WM_STAGE, st, nch, o, r0, t0, dh, col0);
+      cp_async_commit();
+    }
+    for (int i = 0; i < items; ++i) {
+      cp_async_wait<WM_ST - 2>();
+      __syncthreads();           // item i landed; item i - 1 consumed
+      if (i + WM_ST - 1 < items)
+        wm_issue<KV>(smem + (i + WM_ST - 1) % WM_ST * WM_STAGE,
+                     i + WM_ST - 1, nch, o, r0, t0, dh, col0);
+      cp_async_commit();
+
+      const int part = i % (nch + 1);
+      const int c0 = t0 + (i / (nch + 1)) * WM_T;   // the tile's first
+      // warp-uniform: does any pair of the warp's rows and the tile pass
+      // the mask, and do all?
+      bool need = w0 < n_rows;
+      bool full;
+      if (KV) {
+        full = w0 + 15 < t_len && c0 + WM_T <= s_len;
+        if (causal) {
+          need = need && c0 + WM_T - 1 >= w0;
+          full = full && c0 >= w0 + 15;
+          if (window > 0) {
+            need = need && c0 <= w_last + window - 1;
+            full = full && c0 + WM_T - 1 <= w0 + window - 1;
+          }
+        }
+      } else {
+        full = c0 + WM_T <= t_len;
+        if (causal) {
+          need = need && c0 <= w_last;
+          full = full && c0 + WM_T - 1 <= w0;
+          if (window > 0) {
+            need = need && c0 + WM_T - 1 > w0 - window;
+            full = full && c0 > w_last - window;
+          }
+        }
+      }
+      if (!need) continue;
+      const __nv_bfloat16* sa = smem + (i % WM_ST) * WM_STAGE;
+
+      if (part < nch) {
+        // S += A1 B1^T and dP += A2 B2^T over this chunk
+        constexpr int TILE = WM_ROWS * WM_P;
+        if (part == 0) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < WB_KC / 16; kk += 2) {
+          unsigned a10[4], a11[4], a20[4], a21[4];
+          const int ao = (warp * 16 + (lane & 15)) * WM_P + kk * 16
+                         + (lane >> 4) * 8;
+          hopper::ldmatrix_x4(a10, sa + ao);
+          hopper::ldmatrix_x4(a11, sa + ao + 16);
+          hopper::ldmatrix_x4(a20, sa + TILE + ao);
+          hopper::ldmatrix_x4(a21, sa + TILE + ao + 16);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const int bo = (j * 8 + (lane & 7)) * WM_P + kk * 16
+                           + (lane >> 3) * 8;
+            unsigned bf[4];
+            hopper::ldmatrix_x4(bf, sa + 2 * TILE + bo);
+            hopper::mma_bf16(s[j], a10, bf[0], bf[1]);
+            hopper::mma_bf16(s[j], a11, bf[2], bf[3]);
+            hopper::ldmatrix_x4(bf, sa + 3 * TILE + bo);
+            hopper::mma_bf16(dp[j], a20, bf[0], bf[1]);
+            hopper::mma_bf16(dp[j], a21, bf[2], bf[3]);
+          }
+        }
+        continue;
+      }
+
+      // P and dS of the tile, as bf16 A fragments (tile columns 16 kk ..)
+      unsigned pa[4][4], da[4][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = w0 + gq + (e >> 1) * 8;
+          const int col = c0 + j * 8 + 2 * tq + (e & 1);
+          const int key = KV ? row : col, qi = KV ? col : row;
+          bool ok = true;
+          if (!full) {
+            ok = key < t_len && qi < s_len;
+            if (causal)
+              ok = ok && key <= qi && (window <= 0 || key > qi - window);
+          }
+          float l2, dv;
+          if constexpr (KV) {
+            l2 = ok ? lse_h[qi] * LOG2E : 0.f;
+            dv = ok ? d_h[qi] : 0.f;
+          } else {
+            l2 = lr[e >> 1];
+            dv = dr[e >> 1];
+          }
+          p[e] = ok ? ex2(fmaf(s[j][e], sl2, -l2)) : 0.f;
+          ds[e] = p[e] * (dp[j][e] - dv);
+        }
+        pa[j / 2][(j & 1) * 2] = hopper::pack_bf16x2(p[0], p[1]);
+        pa[j / 2][(j & 1) * 2 + 1] = hopper::pack_bf16x2(p[2], p[3]);
+        da[j / 2][(j & 1) * 2] = hopper::pack_bf16x2(ds[0], ds[1]);
+        da[j / 2][(j & 1) * 2 + 1] = hopper::pack_bf16x2(ds[2], ds[3]);
+      }
+      if constexpr (KV) {
+        wm_cols(acc1, da, sa, CB + 8);                    // dK += dS^T Q
+        wm_cols(acc2, pa, sa + WM_T * (CB + 8), CB + 8);  // dV += P^T dO
+      } else {
+        wm_cols(acc1, da, sa, CB + 8);                    // dQ += dS K
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  // rows w0 + gq and + 8: the outputs' block, dK and dQ times the scale
+  const int64_t rs = KV ? krs : qrs;
+  const int64_t base = static_cast<int64_t>(b) * n_rows * rs
+                       + static_cast<int64_t>(head) * dh + col0 + 2 * tq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + gq + 8 * r;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (col0 + n * 8 >= dh) continue;   // dh % 8 == 0: whole 8-column tiles
+      const int64_t at = base + row * rs + n * 8;
+      *reinterpret_cast<__nv_bfloat162*>(out1 + at) = __floats2bfloat162_rn(
+          acc1[n][2 * r] * scale, acc1[n][2 * r + 1] * scale);
+      if constexpr (KV)
+        *reinterpret_cast<__nv_bfloat162*>(out2 + at) =
+            __floats2bfloat162_rn(acc2[n][2 * r], acc2[n][2 * r + 1]);
+    }
+  }
+}
+
+cudaError_t launch_wide_mma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* dsum, void* dq, void* dk, void* dv,
+                            int batch, int s_len, int t_len, int h_q, int g,
+                            int dh, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  static bool smem_set = false;   // the attributes, once
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_wide_mma_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, WM_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_wide_mma_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 WM_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int hkv = h_q / g;
+  const int kblocks = (t_len + WM_ROWS - 1) / WM_ROWS;
+  const int qblocks = (s_len + WM_ROWS - 1) / WM_ROWS;
+  const int nk = (dh + WM_KB - 1) / WM_KB, nq = (dh + WM_QB - 1) / WM_QB;
+  if (batch > 65535 || kblocks > 65535 || qblocks > 65535 ||
+      static_cast<int64_t>(h_q) * nk > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const auto* qt = static_cast<const __nv_bfloat16*>(q);
+  const auto* kt = static_cast<const __nv_bfloat16*>(k);
+  const auto* vt = static_cast<const __nv_bfloat16*>(v);
+  const auto* dt = static_cast<const __nv_bfloat16*>(dout);
+  flash_bwd_wide_mma_kernel<true>
+      <<<dim3(hkv * nk, batch, kblocks), WM_NT, WM_SMEM, stream>>>(
+          qt, kt, vt, dt, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), s_len, t_len, h_q, g, dh, causal,
+          window, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_wide_mma_kernel<false>
+      <<<dim3(h_q * nq, batch, qblocks), WM_NT, WM_SMEM, stream>>>(
+          qt, kt, vt, dt, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+          nullptr, s_len, t_len, h_q, g, dh, causal, window, scale);
+  return cudaGetLastError();
+}
+
+int launch_wide_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* dsum,
+                    void* dq, void* dk, void* dv, int batch, int s_len,
+                    int t_len, int h_q, int g, int dh, int causal,
+                    int window, float scale, cudaStream_t stream) {
+  const int nvb = (dh + WB_KC - 1) / WB_KC;
+  const int hkv = h_q / g;
+  const int kblocks = (t_len + WB_KEYS - 1) / WB_KEYS;
+  const int qblocks = (s_len + WB_ROWS - 1) / WB_ROWS;
+  if (batch > 65535 || kblocks > 65535 || qblocks > 65535 ||
+      static_cast<int64_t>(h_q) * nvb > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto* qt = static_cast<const float*>(q);
+  const auto* kt = static_cast<const float*>(k);
+  const auto* vt = static_cast<const float*>(v);
+  const auto* dt = static_cast<const float*>(dout);
+  flash_bwd_wide_dkdv_kernel
+      <<<dim3(hkv * nvb, batch, kblocks), WB_KEYS * WB_TP, 0, stream>>>(
+          qt, kt, vt, dt, lse, dsum, static_cast<float*>(dk),
+          static_cast<float*>(dv), s_len, t_len, h_q, g, dh, causal, window,
+          scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_wide_dq_kernel
+      <<<dim3(h_q * nvb, batch, qblocks), WB_ROWS * WB_TP, 0, stream>>>(
+          qt, kt, vt, dt, lse, dsum, static_cast<float*>(dq), s_len, t_len,
+          h_q, g, dh, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int flash_attention_bwd_wide(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, void* dq, void* dk, void* dv,
+    int batch, int s_len, int t_len, int h_q, int g, int dh, int causal,
+    int window, float scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_wide_f32(q, k, v, dout, lse, dsum, dq, dk, dv, batch,
+                           s_len, t_len, h_q, g, dh, causal, window, scale,
+                           stream);
+  return static_cast<int>(launch_wide_mma(q, k, v, dout, lse, dsum, dq, dk,
+                                          dv, batch, s_len, t_len, h_q, g,
+                                          dh, causal, window, scale,
+                                          stream));
+}
+#endif  // part 1

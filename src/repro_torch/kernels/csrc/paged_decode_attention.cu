@@ -20,9 +20,10 @@
 //   pool (Npool, page, Hkv, dh)      element (p, s, h, d) at
 //                                    ((p*page + s)*Hkv + h)*dh + d
 //   bt   (B, P) int32, ctx (B,) int32
-// dh is any of 1 to 256 and G any (the split-KV core in common.cuh: a dh
-// that is not a multiple of 8 loads element by element).  A page of 128
-// rows holds 64 KB a KV head at dh 256 in bf16.
+// dh is any from 1 and G any (the split-KV core in common.cuh: a dh that
+// is not a multiple of 8 loads element by element; a dh past 256 runs in
+// column blocks of 256, one CTA a block, paged_wide_kernel).  A page of
+// 128 rows holds 64 KB a KV head at dh 256 in bf16.
 //
 // What bounds it: the bytes of K and V of the valid keys, 2 * keys * Hkv
 // * dh * sizeof(T) per sequence, against 3.35 TB/s of HBM.  The
@@ -150,12 +151,93 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(PagedArgs a) {
              split, a.splits);
 }
 
+// The wide body (common.cuh, WIDE): one CTA per (split, column block of
+// 256, group chunk, sequence), the chunk's q rows in dynamic shared
+// memory; otherwise paged_split_kernel.
+template <typename T, int G>
+__global__ void __launch_bounds__(NT) paged_wide_kernel(PagedArgs a) {
+  __shared__ int pids[MAX_PAGES];
+  __shared__ DecodeSmem<WIDE_COLS, G, NWARPS> sm;
+  extern __shared__ __align__(16) float qs[];
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* out = static_cast<T*>(a.out);
+
+  const int split = blockIdx.x;
+  const int chunks = (a.g + G - 1) / G;
+  const int ncb = (a.dh + WIDE_COLS - 1) / WIDE_COLS;
+  const int cb = blockIdx.y % ncb;           // the CTA's column block
+  const int hc = blockIdx.y / ncb;
+  const int h = hc / chunks;
+  const int c0 = (hc % chunks) * G;
+  const int heads = min(G, a.g - c0);
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row0 = (static_cast<int64_t>(b) * a.hkv + h) * a.g + c0;
+
+  const int c = a.ctx[b];
+  const int hi = min(c, a.p_max * a.page);
+  const int lo = a.window > 0 ? max(c - a.window, 0) : 0;
+  const int p0 = split * a.pages_per_split;
+  const int s0 = max(p0 * a.page, lo);
+  const int s1 = min((p0 + a.pages_per_split) * a.page, hi);
+  if (s0 >= s1) {
+    decode_empty<true>(heads, a.dh, out, a.part_ml, nullptr, row0, split,
+                       a.splits, cb * WIDE_COLS);
+    return;
+  }
+
+  const int pa = s0 / a.page;
+  const int32_t* bt_b = a.bt + static_cast<int64_t>(b) * a.p_max;
+  for (int i = threadIdx.x; i <= (s1 - 1) / a.page - pa; i += NT)
+    pids[i] = min(max(bt_b[pa + i], 0), a.n_pool - 1);
+
+  WideState<T, G> st;
+  const int dhp = ncb * WIDE_COLS;
+  // (its barrier also publishes the page ids)
+  wide_begin<T, G>(st, qs, q, row0, heads, a.dh, dhp, a.scale_log2);
+  const int per = (s1 - s0 + NWARPS - 1) / NWARPS;
+  const int w0 = s0 + warp * per;
+  const int n = max(min(per, s1 - w0), 0);
+  const int64_t rs = static_cast<int64_t>(a.hkv) * a.dh;
+  const int64_t head = static_cast<int64_t>(h) * a.dh;
+  const int page = a.page;
+  const int* pid = pids;
+  wide_rows<T, G>(st, qs, k + head, v + head, n, a.dh, dhp, cb,
+                  a.dh % 8 != 0, [=](int j) {
+                    const int t = w0 + j;
+                    return (static_cast<int64_t>(pid[t / page - pa]) * page
+                            + t % page) * rs;
+                  });
+  decode_end<T, WIDE_COLS, G, NWARPS, true>(
+      st, sm, heads, a.dh, out, a.part_acc, a.part_ml, nullptr, row0, split,
+      a.splits, cb * WIDE_COLS);
+}
+
 template <typename T, int DH, int G, bool NARROW>
 struct PagedLaunch {
   static int run(const PagedArgs& a) {
-    const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
-    paged_split_kernel<T, DH, G, NARROW><<<grid, NT, 0, a.stream>>>(a);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err;
+    if constexpr (DH == WIDE) {
+      const int ncb = (a.dh + WIDE_COLS - 1) / WIDE_COLS;
+      const int64_t smem = wide_q_bytes(a.dh, G);
+      if (smem > WIDE_Q_SMEM) return -1;
+      static bool smem_set = false;  // the attribute, once per instantiation
+      if (!smem_set) {
+        err = cudaFuncSetAttribute(paged_wide_kernel<T, G>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   WIDE_Q_SMEM);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        smem_set = true;
+      }
+      const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G) * ncb, a.batch);
+      paged_wide_kernel<T, G><<<grid, NT, smem, a.stream>>>(a);
+    } else {
+      const dim3 grid(a.splits, a.hkv * ((a.g + G - 1) / G), a.batch);
+      paged_split_kernel<T, DH, G, NARROW><<<grid, NT, 0, a.stream>>>(a);
+    }
+    err = cudaGetLastError();
     if (err == cudaSuccess && a.splits > 1)
       err = launch_split_merge(a.part_acc, a.part_ml, static_cast<T*>(a.out),
                                nullptr, a.batch * a.hkv * a.g, a.splits,
@@ -204,7 +286,10 @@ extern "C" int paged_decode_attention_launch(
     int hkv, int g, int dh, int page, int p_max, int n_pool, int window,
     float scale, void* stream, void* scratch, int pages_per_split, int gc) {
   if (batch <= 0 || batch > 65535 || hkv <= 0 || g <= 0 || gc <= 0 ||
-      gc > g || hkv * ((g + gc - 1) / gc) > 65535 || page <= 0 ||
+      gc > g || dh <= 0 ||
+      static_cast<int64_t>(hkv) * ((g + gc - 1) / gc)
+              * (dh > WIDE_COLS ? (dh + WIDE_COLS - 1) / WIDE_COLS : 1)
+          > 65535 || page <= 0 ||
       p_max <= 0 || n_pool <= 0 || pages_per_split <= 0 ||
       pages_per_split > MAX_PAGES)
     return -1;

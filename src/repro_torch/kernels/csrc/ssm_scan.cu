@@ -58,8 +58,9 @@
 //      (on the CPU), within the bf16 band of 2e-2 (PERF.md §6).  Only the
 //      key steps at or below a warp's rows run.  The inter-chunk term
 //      q . H stays in f32 FMAs (dk per output).
-//    * otherwise (f32, or dk above 64 up to 512, e.g. mLSTM's 512 and
-//      513): ssm_chunk_output_kernel, f32 FMAs on the CUDA cores (no TF32),
+//    * otherwise (f32, or dk above 64, e.g. mLSTM's 512 and 513, and at
+//      xLSTM's 1.3B width 1024 and 1025): ssm_chunk_output_kernel, f32
+//      FMAs on the CUDA cores (no TF32),
 //      the (chunk x chunk) scores in shared memory from dk tiles of 32,
 //      then q . H over the same tiles and P V; the scores are computed
 //      again for every 64 columns of dv.
@@ -82,8 +83,6 @@ constexpr int TILE = 64;         // state tile of phases 1-2; dv tile of 3
 constexpr int JB = 64;           // chunk rows staged at a time in phase 1
 constexpr int DKT = 32;          // dk staged at a time in the f32 phase 3
 constexpr int PASS_BATCH = 8;    // chunks whose loads phase 2 issues at once
-constexpr int MAX_DK = 512;
-constexpr int MAX_DV = 1024;
 
 struct Strides {
   int64_t qb, qt, qh, kb, kt, kh;
@@ -720,7 +719,8 @@ int launch_all(const void* q, const void* k, const void* v,
   const int dkr = dk <= 16 ? 16 : dk <= 32 ? 32 : TILE;
   const int n_dkt = (dk + dkr - 1) / dkr;
   const int n_dvt = (dv + TILE - 1) / TILE;
-  if (static_cast<int64_t>(heads) * n_dkt * n_dvt > 65535 || batch > 65535)
+  if (static_cast<int64_t>(heads) * n_dkt * n_dvt > 65535 || batch > 65535 ||
+      (static_cast<int64_t>(dk) * dv + NT - 1) / NT > 0x7fffffffLL)
     return -1;
   const dim3 sgrid(nc, heads * n_dkt * n_dvt, batch);
   // 16-byte loads in phase 1 where phase 3 takes them too (bf16, aligned)
@@ -781,8 +781,9 @@ int launch_all(const void* q, const void* k, const void* v,
 // wrapper checks), 0 the CUDA-core one.  states: B * H * nc * dk * dv
 // floats, decay: B * H * nc floats, nc = ceil(T / chunk).  Strides are in
 // elements.  Returns the CUDA error of the launches (0 on success), or -1
-// when a size is out of range (dk 1..512, dv 1..1024, chunk 1..128).
-// Nothing is allocated and nothing synchronises.
+// when a size is out of range (dk and dv from 1, chunk 1..128, the grids'
+// rows: H x dk tiles x dv tiles and B at most 65535, phase 2's dk dv / 256
+// CTAs below 2^31).  Nothing is allocated and nothing synchronises.
 extern "C" int ssm_scan_launch(int dtype, const void* q, const void* k,
                                const void* v, const void* log_a,
                                const void* h0, void* y, void* h_t,
@@ -791,8 +792,8 @@ extern "C" int ssm_scan_launch(int dtype, const void* q, const void* k,
                                int chunk, int fast, long long qsb,
                                long long qst, long long qsh, long long ksb,
                                long long kst, long long ksh, void* stream) {
-  if (batch <= 0 || t_len <= 0 || heads <= 0 || dk < 1 || dk > MAX_DK ||
-      dv < 1 || dv > MAX_DV || chunk < 1 || chunk > CMAX ||
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || dk < 1 || dv < 1 ||
+      chunk < 1 || chunk > CMAX ||
       (fast && (dtype != 1 || dk > 64 || dk % 8 != 0 || dv % 8 != 0)))
     return -1;
   const Strides st{qsb, qst, qsh, ksb, kst, ksh};

@@ -115,8 +115,6 @@ constexpr int FUSED_DV = 64;     // dv the fused pass holds whole
 constexpr int FUSED_DK = 64;     // dk the fused pass holds whole
 constexpr int PASS_BATCH = 8;    // chunks whose loads the state pass issues
                                  // at once
-constexpr int MAX_DK = 512;
-constexpr int MAX_DV = 1024;
 
 
 // Ls[i] = log_a summed over rows 0 .. i of the chunk (rows past n as 0),
@@ -1725,8 +1723,8 @@ extern "C" int ssm_scan_bwd_bf16(SCAN_BWD_PARAMS) {
 // 16-byte aligned (the wrapper checks the alignment).  q and k take
 // strides (in elements) over (b, t, h) and a unit stride over dk; v, dy
 // and the outputs are contiguous.  Returns the CUDA error of the launches
-// (0 on success), or -1 when a size is out of range (dk 1..512, dv
-// 1..1024, chunk 1..128, grid limits).  Nothing is allocated and nothing
+// (0 on success), or -1 when a size is out of range (dk and dv from 1,
+// chunk 1..128, grid limits).  Nothing is allocated and nothing
 // synchronises.
 extern "C" int ssm_scan_bwd_launch(
     int dtype, const void* q, const void* k, const void* v,
@@ -1737,8 +1735,9 @@ extern "C" int ssm_scan_bwd_launch(
     int t_len, int heads, int dk, int dv, int chunk, int fused,
     long long qsb, long long qst, long long qsh, long long ksb,
     long long kst, long long ksh, void* stream) {
-  if (batch <= 0 || t_len <= 0 || heads <= 0 || dk < 1 || dk > MAX_DK ||
-      dv < 1 || dv > MAX_DV || chunk < 1 || chunk > CMAX)
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || dk < 1 || dv < 1 ||
+      chunk < 1 || chunk > CMAX ||
+      (static_cast<int64_t>(dk) * dv + NT - 1) / NT > 0x7fffffffLL)
     return -1;
   if ((dh_t == nullptr) != (h_t == nullptr)) return -1;
   const int vec = dtype == 1 ? 8 : 4;     // elements of 16 bytes

@@ -23,8 +23,9 @@ HBM.  The kernel splits the ring into ranges of slots, one CTA per
 (range, KV head, sequence), as ``decode_splits`` plans from the shapes
 alone; each CTA reads its range's ``kpos`` first and loads only the
 valid slots' rows, and a second kernel merges the ranges' partial
-softmax states from an f32 scratch this wrapper allocates.  See the CUDA
-source for the design.
+softmax states from an f32 scratch this wrapper allocates.  A head past
+256 takes one CTA per column block of 256 besides (``attention_shapes``).
+See the CUDA source for the design.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import math
 import torch
 
 from repro_torch.kernels.attention_shapes import (
-    DTYPES, check_attention_shape, check_grid, group_chunk)
+    DTYPES, check_decode_shape, check_grid, group_chunk)
 from repro_torch.kernels.grad import refuse_grad
 
 NEG_INF = -1e30
@@ -142,9 +143,9 @@ def _launch(q, k, v, kpos, q_pos, window: int, with_lse: bool):
     b, _, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    check_attention_shape(q.dtype, dh, g)
+    check_decode_shape(q.dtype, dh, g)
     gc = group_chunk(g)
-    check_grid(hkv, g, gc)
+    check_grid(hkv, g, gc, dh)
     rs = slot_stride(k)
     if slot_stride(v) != rs:
         raise ValueError("k and v must be laid out alike")

@@ -40,7 +40,11 @@ beyond TF32.  The backward's bound is operations too, ``10 * dh`` per
 (query row, head, valid key); its bf16 body runs on TMA and ``wgmma``
 (a dK/dV pass of 128-key blocks and a dQ pass of 128-row blocks, each
 two consumer warpgroups of 64 rows fed 64-row tiles by a producer
-warp).  See the CUDA sources for the designs.
+warp).  A dh past 256 runs in column blocks, each CTA owning a block of
+its output's columns and computing the whole scores again: bf16 on the
+tensor cores (``mma.sync``; the forward's blocks of 256, dQ's of 128,
+dK's and dV's of 64), f32 in FMAs in blocks of 64.  See the CUDA sources
+for the designs.
 """
 from __future__ import annotations
 

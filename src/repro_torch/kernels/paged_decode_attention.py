@@ -22,7 +22,9 @@ whole pages, one CTA per (range, KV head or group chunk, sequence), as
 ``paged_decode_splits`` plans from the shapes alone; each CTA reads its
 row's ``ctx`` first and walks only its valid keys, and a second kernel
 merges the ranges' partial softmax states from an f32 scratch this
-wrapper allocates.  See the CUDA source for the design.
+wrapper allocates.  A head past 256 takes one CTA per column block of
+256 besides (``attention_shapes``).  See the CUDA source for the
+design.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels.attention_shapes import (
-    DTYPES, check_attention_shape, check_grid, group_chunk)
+    DTYPES, check_decode_shape, check_grid, group_chunk)
 from repro_torch.kernels.decode_attention import SPLIT_LENS, TARGET_CTAS
 from repro_torch.kernels.grad import refuse_grad
 
@@ -127,9 +129,9 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
     b, _, h, dh = q.shape
     n_pool, page, hkv, _ = k_pages.shape
     g = h // hkv
-    check_attention_shape(q.dtype, dh, g)
+    check_decode_shape(q.dtype, dh, g)
     gc = group_chunk(g)
-    check_grid(hkv, g, gc)
+    check_grid(hkv, g, gc, dh)
     # rows are read 16 bytes a lane where dh is a multiple of 8, else an
     # element at a time
     row = 16 if dh % 8 == 0 else q.element_size()

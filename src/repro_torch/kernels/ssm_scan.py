@@ -43,6 +43,14 @@ reverse state pass, the chunk pass, dlog_a's suffix sums); above that
 (the mLSTM's dk 512, dv 513) a pair pass writes P and W once per chunk
 in the input type for tile passes over dk and dv (six launches).  bf16
 runs the products on the tensor cores, f32 in FMAs on the CUDA cores.
+
+Both directions take any dk and dv: every pass walks them in tiles
+(the forward's state tiles of up to 64 x 64 and dk tiles of 32, the
+backward's 64-column tiles), so the only refusals are the grids' limits
+(``scan_plan``, ``backward_plan``).  xLSTM's mLSTM at the paper's 1.3B
+width (d_model 2048) scans at dk 1024 and dv 1025, at 2.7B at 1280 and
+1281; their f32 chunk states are ``B H nc dk dv`` floats, 0.54 GB at B 4,
+T 1024, H 4 and dk 1024.
 """
 from __future__ import annotations
 
@@ -53,9 +61,8 @@ import torch
 import torch.nn.functional as F
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DK = 512          # mLSTM's head dim
-MAX_DV = 1024         # mLSTM's 513 (head dim + the normaliser column)
 MAX_CHUNK = 128       # rows of a chunk a CTA holds
+GRID_ROWS = 65535     # a grid's y and z
 TILE = 64             # dv tile of every phase
 FAST_MAX_DK = 64      # the tensor-core phase 3 holds q and k whole
 
@@ -72,16 +79,37 @@ class ScanPlan:
     decay_shape: tuple
 
 
+def _check_grid(b: int, dk: int, dv: int, rows: dict) -> None:
+    """Raise ``ValueError``, naming the launch, where a grid passes the
+    card's limits: ``rows`` maps each launch to its grid's y (heads x
+    tiles), each at most ``GRID_ROWS``; z is B; the state passes take
+    ``ceil(dk dv / 256)`` CTAs in x, below 2^31."""
+    if b > GRID_ROWS:
+        raise ValueError(f"no kernel for B {b}: the grids' z, at most "
+                         f"{GRID_ROWS}")
+    if -(-dk * dv // 256) >= 2 ** 31:
+        raise ValueError(f"no kernel for dk {dk} x dv {dv}: the state "
+                         f"pass's grid x, below 2^31")
+    for name, y in rows.items():
+        if y > GRID_ROWS:
+            raise ValueError(f"no kernel for dk {dk}, dv {dv}: {name}'s "
+                             f"grid has {y} rows, at most {GRID_ROWS}")
+
+
 def scan_plan(b: int, t: int, h: int, dk: int, dv: int, chunk: int,
               bf16: bool, aligned: bool) -> ScanPlan:
     """The plan from ints only.  ``aligned``: q, k and v rows start on
     16 bytes (strides multiples of 8 elements, 16-byte aligned bases),
-    which the tensor-core phase 3 loads 16 bytes at a time."""
-    if not (1 <= dk <= MAX_DK and 1 <= dv <= MAX_DV):
-        raise ValueError(f"no kernel for dk {dk}, dv {dv} (dk 1..{MAX_DK}, "
-                         f"dv 1..{MAX_DV})")
+    which the tensor-core phase 3 loads 16 bytes at a time.  Any dk and
+    dv from 1: only the grids' limits refuse (``_check_grid``)."""
+    if dk < 1 or dv < 1:
+        raise ValueError(f"no kernel for dk {dk}, dv {dv} (dk and dv from "
+                         f"1)")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be 1..{MAX_CHUNK}, got {chunk}")
+    dkr = 16 if dk <= 16 else 32 if dk <= 32 else TILE
+    _check_grid(b, dk, dv, {"the chunk-state pass": h * -(-dk // dkr)
+                            * -(-dv // TILE)})
     nc = -(-t // chunk)
     fast = (bf16 and aligned and dk <= FAST_MAX_DK and dk % 8 == 0
             and dv % 8 == 0)
@@ -113,6 +141,11 @@ def backward_plan(b: int, t: int, h: int, dk: int, dv: int, chunk: int,
     (8 bf16, 4 f32); ``aligned``: q, k, v and dy rows start on 16 bytes,
     which the fused pass loads 16 bytes at a time."""
     scan_plan(b, t, h, dk, dv, chunk, False, False)     # the size checks
+    n_dvt = -(-dv // TILE)
+    _check_grid(b, dk, dv, {"the pair pass": h * 2 * -(-chunk // TILE),
+                            "the U pass": h * -(-dk // 128) * n_dvt,
+                            "the dq/dk pass": h * -(-dk // TILE) * 2,
+                            "the dv pass": h * n_dvt})
     nc = -(-t // chunk)
     fused = (aligned and dk <= FUSED_MAX and dv <= FUSED_MAX
              and dk % vec == 0 and dv % vec == 0)
@@ -231,8 +264,6 @@ def _launch(q, k, v, log_a, h0, chunk: int, keep_states: bool = False):
                          f"{list(DTYPES)})")
     plan = scan_plan(b, t, h, dk, dv, chunk, q.dtype == torch.bfloat16,
                      _rows16(q, k, v))
-    if h * -(-dk // 16) * -(-dv // TILE) > 65535 or b > 65535:
-        raise ValueError(f"no kernel for B {b}, H {h} (grid limits)")
     _check_qk_strides(q, k)
     if not v.is_contiguous():
         raise ValueError("v must be contiguous")

@@ -109,11 +109,11 @@ def check_serve(cfg: ModelConfig, mesh, cache_specs,
     if cfg.use_pallas and any("model" in parallel.entry_axes(kv[-3])
                               for kv in _kv_specs(cache_specs,
                                                   (KVCache, CrossKV))):
-        from repro_torch.kernels.attention_shapes import check_attention_shape
+        from repro_torch.kernels.attention_shapes import check_decode_shape
 
         try:
-            check_attention_shape(prm.torch_dtype(cfg.dtype), cfg.d_head,
-                                  cfg.n_heads // cfg.n_kv_heads)
+            check_decode_shape(prm.torch_dtype(cfg.dtype), cfg.d_head,
+                               cfg.n_heads // cfg.n_kv_heads)
         except ValueError as e:
             raise ValueError(f"{where}: decode over a ring cut over "
                              f"'model' attends with all {cfg.n_heads} "

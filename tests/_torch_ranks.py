@@ -571,13 +571,16 @@ def dispatch_check(ctx, cfg, b: int, s: int) -> dict:
 def refusal_check(ctx, what: str) -> dict:
     """The named refusal raises ValueError; returns its message.
     ``tp-hybrid``, refused until the model axis cut the hybrid and
-    recurrent families, is now a step that builds (raised False)."""
+    recurrent families, is now a step that builds (raised False);
+    ``local-shape`` is a dtype no kernel takes (a head dim past 256, once
+    refused, runs in column blocks)."""
     try:
         if what == "tp-hybrid":
             make_train_step(CONFIGS["hymba"](), ctx, TrainPlan(),
                             AdamWConfig())
         elif what == "local-shape":
-            make_train_step(tiny().replace(d_head=264, use_pallas=True), ctx)
+            make_train_step(tiny().replace(dtype="float16", use_pallas=True),
+                            ctx)
         elif what == "batch-split":
             make_train_step(tiny(), ctx, TrainPlan(), AdamWConfig(),
                             shape=ShapeConfig("t", 16, 3, "train"))

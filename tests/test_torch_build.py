@@ -75,6 +75,7 @@ def test_the_parts_name_their_library():
     """A library's name hashes its source, the headers, the flags and
     the number of parts it is built in."""
     assert build.PARTS == {"decode_attention": 2,
-                           "paged_decode_attention": 2, "ssm_scan_bwd": 2}
+                           "paged_decode_attention": 2, "ssm_scan_bwd": 2,
+                           "flash_attention": 2, "flash_attention_bwd": 2}
     names = {build.lib_path(n).name for n in build.sources()}
     assert len(names) == len(build.sources())

@@ -221,8 +221,13 @@ def test_scan_phase_checks_and_bound(smoke, monkeypatch):
         (1, 20, 2, 80, 81, 8, False, 0.1, 0.3)])
     monkeypatch.setattr(smoke, "MLSTM_SCAN",
                         (1, 24, 2, 72, 73, 8, False, 0.1, 0.0))
+    monkeypatch.setattr(smoke, "MLSTM_13B_SCAN",
+                        (1, 24, 2, 520, 1030, 8, False, 0.1, 0.0))
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
-    row = smoke.phase_ssm_scan(torch.device("cpu"))
+    row, past = smoke.phase_ssm_scan(torch.device("cpu"))
+    assert past["name"] == "ssm_scan at xLSTM's 1.3B width"
+    assert set(past) == set(row) | {"shapes"}
+    assert past["ms"] == 1.0 and past["library_ms"] is None
     assert row["name"] == "ssm_scan" and row["library_ms"] is None
     assert row["replaces"] == "src/repro/kernels/ssm_scan.py:69"
     assert row["max_abs_err"] == 0.0 and row["bound_by"] == "bytes"
@@ -580,17 +585,24 @@ def test_paged_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
     # the shapes the reference pads: dh 256 (two loads a lane in f32), G
     # 3 and a dh that is not a multiple of 8
     monkeypatch.setattr(smoke, "WIDE_HEADS", [(1, 2, 256), (2, 3, 36)])
+    # past 256: column blocks, one of them short and element by element
+    monkeypatch.setattr(smoke, "PAST_HEADS", [(1, 2, 300)])
+    monkeypatch.setattr(smoke, "DH1024_HEADS", (1, 1, 520))
     for name in ("PAGED_HEADS", "ARCTIC_PAGED_HEADS", "KIMI_HEADS"):
         hkv, g, dh = getattr(smoke, name)
         monkeypatch.setattr(smoke, name, (2, g, dh // 4))
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
-    row = smoke.phase_kernels(torch.device("cpu"))
+    row, past = smoke.phase_kernels(torch.device("cpu"))
     out = capsys.readouterr().out
-    assert out.count("paged_decode_attention torch.") == 2 * 6 * 2 * 2
+    assert out.count("paged_decode_attention torch.") == 2 * 8 * 2 * 2
     assert "Hkv=2 G=12 dh=24 page 16 window 512" in out
     assert "Hkv=1 G=2 dh=256 page 128 window -1" in out
     assert "Hkv=2 G=3 dh=36 page 16 window 512" in out
-    assert out.count("kernel 1.0000 ms") == 5
+    assert "Hkv=1 G=1 dh=520 page 16 window 512" in out
+    assert out.count("kernel 1.0000 ms") == 6
+    assert past["name"] == "paged_decode_attention past dh 256"
+    assert past["shapes"] == ["Hkv=1 G=2 dh=300", "Hkv=1 G=1 dh=520"]
+    assert past["max_abs_err"] == 0.0 and past["ms"] == 1.0
     assert row["name"] == "paged_decode_attention" and row["ms"] == 1.0
     assert row["max_abs_err"] == 0.0 and row["bound_by"] == "bytes"
     assert set(row) == {"name", "route", "source", "replaces", "launches",
@@ -940,17 +952,25 @@ def test_wide_width_parity_runs_on_cpu(smoke, monkeypatch, capsys, label):
 
 
 def test_wide_heads_phase_runs_on_cpu(smoke, monkeypatch, capsys):
-    """Phase 39 at the smokes of its two configs with the head shapes
-    kept (dh 256; G 3) on the CPU: paged, ring and mixed serving with
+    """Phase 39 at the smokes of its configs with the head shapes kept
+    (dh 256; G 3; dh 512 at G 2; the xLSTM smoke's mLSTM past dk 512)
+    on the CPU: paged, ring and mixed serving (xLSTM on the ring) with
     the eager runs' kernel calls held (plain against plain here), then
-    the 2-layer train step with every leaf moved."""
+    the train step with every leaf moved."""
     from repro_torch.configs import get_smoke
 
+    dense = ("paged", "ring", "mixed")
     monkeypatch.setattr(smoke, "WIDE_MODELS", [
         ("Gemma 3 12B's shape", "gemma3-27b",
-         {"d_head": 256, "local_global_ratio": 1}, 2),
+         {"d_head": 256, "local_global_ratio": 1}, 2, dense, (2, 1, 32)),
         ("Llama 3.2 3B's shape", "llama3-405b",
-         {"n_heads": 6, "n_kv_heads": 2}, 2)])
+         {"n_heads": 6, "n_kv_heads": 2}, 2, dense, (2, 1, 32)),
+        ("agent-7b at d_head 512", "tiny-agent",
+         {"d_head": 512, "n_heads": 4, "n_kv_heads": 2}, 2, dense,
+         (2, 1, 32)),
+        ("xLSTM 1.3B's width", "xlstm-350m",
+         {"d_model": 520, "mlstm_ratio": 1}, 2,
+         ("ring",), (2, 1, 32))])
     monkeypatch.setattr(smoke, "get_config",
                         lambda name: get_smoke(name).replace(
                             dtype="float32"))
@@ -962,7 +982,6 @@ def test_wide_heads_phase_runs_on_cpu(smoke, monkeypatch, capsys):
         mixed=True, prefill_chunk=64, max_batch_tokens=72))
     monkeypatch.setattr(smoke, "SYSTEM_PROMPT", 48)
     monkeypatch.setattr(smoke, "PROFILE_LEN", 64)
-    monkeypatch.setattr(smoke, "WIDE_TRAIN", (2, 1, 32))
     monkeypatch.setattr(smoke, "WIDE_NEW", 6)
     monkeypatch.setattr(smoke, "TRAIN_FULL_STEPS", 1)
     for name in ("reset_peak_memory_stats", "max_memory_allocated",
@@ -972,16 +991,22 @@ def test_wide_heads_phase_runs_on_cpu(smoke, monkeypatch, capsys):
         (400.0, 8, "void paged_split_kernel<float, 256, 2, false>(...)"),
         (3400.0, 40, "gemm")])
     used = smoke.phase_wide(torch.device("cpu"))
-    assert set(used.values()) == {0}               # CPU: plain versions
+    assert {v for runs in used.values() for counts in runs.values()
+            for v in counts.values()} == {0}       # CPU: plain versions
+    assert set(used["xLSTM 1.3B's width"]) == {"ring", "train"}
     out = capsys.readouterr().out
-    for label in ("Gemma 3 12B's shape", "Llama 3.2 3B's shape"):
-        for how in ("paged", "ring", "mixed"):
+    for label, name, _, _, layouts, _ in smoke.WIDE_MODELS:
+        for how in layouts:
             assert f"[wide heads {label} {how}] eager run: every kernel " \
                 "call held to its plain version" in out
         assert f"[wide heads {label}] train: 0 flash forward and 0 " \
-            "backward calls held" in out
-    assert out.count("greedy tokens equal") == 6
-    assert out.count("leaves moved") == 2
+            "backward calls, 0 ssm_scan forward and 0 backward calls " \
+            "held" in out
+    # the xLSTM smoke at d_model 520: an mLSTM of dk 520, dv 521, each
+    # prefill's scan held (one mLSTM and one sLSTM layer)
+    assert "'ssm_scan': 8" in out
+    assert out.count("greedy tokens equal") == 10
+    assert out.count("leaves moved") == 4
 
 
 def test_xlstm_serve_phase_runs_on_cpu(smoke, monkeypatch, capsys):

@@ -129,8 +129,9 @@ def test_paged_decode_split_kernel_every_head_dim_and_group(cuda_device,
 
 @pytest.mark.cuda
 def test_paged_decode_kernel_rejects_unsupported(cuda_device):
-    args = case(cuda_device, torch.float32, 2, 2, 2, 264, 16, [40, 17])
-    with pytest.raises(ValueError, match="dh from 1 to 256"):   # past 256
+    # five heads' q rows at dh 9736 pass a wide CTA's shared memory
+    args = case(cuda_device, torch.float32, 2, 1, 5, 9736, 16, [40, 17])
+    with pytest.raises(ValueError, match="shared memory"):
         paged_decode_attention(*args)
     args = case(cuda_device, torch.float32, 2, 2, 2, 64, 16, [40, 17])
     args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
@@ -448,12 +449,12 @@ def test_decode_kernels_bit_equal_to_before_the_lse(cuda_device, case):
 @pytest.mark.cuda
 def test_ring_kernels_reject_unsupported(cuda_device):
     before = (flash_attention.launches, decode_attention.launches)
-    with pytest.raises(ValueError, match="dh from 1 to 256"):  # past 256
-        flash_attention(*flash_case(cuda_device, torch.float32, 1, 40, 40,
+    with pytest.raises(ValueError, match="no kernel for dtype"):
+        flash_attention(*flash_case(cuda_device, torch.float16, 1, 40, 40,
                                     2, 2, 264))
-    with pytest.raises(ValueError, match="dh from 1 to 256"):
+    with pytest.raises(ValueError, match="shared memory"):
         decode_attention(*ring_case(cuda_device, torch.float32, [30, 17],
-                                    64, 2, 2, 264))
+                                    64, 1, 5, 9736))
     fargs = flash_case(cuda_device, torch.float32, 1, 40, 40, 2, 2, 64)
     fargs[1] = fargs[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -552,10 +553,10 @@ def test_ssm_scan_kernel_is_deterministic(cuda_device):
 @pytest.mark.cuda
 def test_ssm_scan_kernel_rejects_unsupported(cuda_device):
     before = ssm_scan.launches
-    with pytest.raises(ValueError, match="dk 513"):       # past MAX_DK
-        ssm_scan(*scan_case(cuda_device, torch.float32, 1, 40, 2, 513, 16))
-    with pytest.raises(ValueError, match="dv 1025"):      # past MAX_DV
-        ssm_scan(*scan_case(cuda_device, torch.float32, 1, 40, 1, 16, 1025))
+    with pytest.raises(ValueError, match="grid"):         # 65536 heads
+        ssm_scan(*scan_case(cuda_device, torch.float32, 1, 4, 65536, 1, 1))
+    with pytest.raises(ValueError, match="B 65536"):      # the grids' z
+        ssm_scan(*scan_case(cuda_device, torch.float32, 65536, 1, 1, 1, 1))
     args = list(scan_case(cuda_device, torch.float32, 1, 40, 2, 16, 16))
     args[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="unit stride"):
@@ -1880,3 +1881,196 @@ def test_sequence_parallel_collectives_and_encoder_cut_cross_attention(
         assert got["launches"] == [1, 1], got
         assert got["cross"] <= TOL[torch.float32], got
         assert got["cross_plain"] <= TOL[torch.float32], got
+
+
+# ---------------------------------------------------------------------------
+# Past the old limits: attention heads wider than 256 in column blocks, and
+# the scan at xLSTM's 1.3B and 2.7B mLSTM widths
+# ---------------------------------------------------------------------------
+
+# (Hkv, G, dh): agent-7b's width at d_head 512, G 3 at 384, dh 300 (not a
+# multiple of 256; element by element in decode, padded to 304 in flash),
+# sixteen heads over one; then dh 1024 and 2000
+WIDE_HEADS = [(8, 2, 512), (4, 3, 384), (8, 4, 300), (1, 16, 512),
+              (2, 5, 1024), (1, 1, 2000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv,g,dh", WIDE_HEADS)
+def test_decode_kernels_past_256(cuda_device, dtype, hkv, g, dh):
+    """Both decode kernels with a head past 256 (one CTA a column block
+    of 256): the paged kernel over pages of 16 and 128, full and
+    windowed, zeros for the ctx 0 row and equal bits for two equal rows;
+    the ring over one split, many and a ragged last one, with its
+    log-sum-exp, which the call without it leaves bit-equal."""
+    ctx = [1000, 999, 130, 1, 0, 777, 777]
+    live = torch.tensor([c > 0 for c in ctx], device=cuda_device)
+    for page in (16, 128):
+        args = case(cuda_device, dtype, len(ctx), hkv, g, dh, page, ctx,
+                    seed=dh + g)
+        args[0][6] = args[0][5]
+        args[3][6] = args[3][5]
+        for window in (-1, 200):
+            before = paged_decode_attention.launches
+            out = paged_decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            assert paged_decode_attention.launches == before + 1
+            want = paged_decode_attention_plain(*args, window=window)
+            torch.testing.assert_close(out[live].float(), want[live].float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+            assert not out[4].any() and torch.equal(out[5], out[6])
+    for slots, window in ((64, -1), (1024, -1), (3000, 256)):
+        args = ring_case(cuda_device, dtype, [999, 998, 129, 0, 5000], slots,
+                         hkv, g, dh)
+        before = decode_attention.launches
+        out, lse = decode_attention(*args, window=window, with_lse=True)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        want, want_lse = decode_attention_plain(*args, window=window,
+                                                with_lse=True)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert lse_err(lse, want_lse) <= 1e-4
+        assert torch.equal(out, decode_attention(*args, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv,g,dh", WIDE_HEADS)
+@pytest.mark.parametrize("s,t,causal,window", [(300, 300, True, -1),
+                                               (130, 130, True, 48),
+                                               (200, 90, False, -1)])
+def test_flash_kernels_past_256(cuda_device, dtype, hkv, g, dh, s, t, causal,
+                                window):
+    """The flash forward (column blocks of 256 in bf16, 64 in f32) and
+    its backward (blocks of 64) with a head past 256: out and the
+    log-sum-exp against the plain version, dq, dk and dv against autograd
+    through it, each within the band of its largest magnitude, and the
+    backward bit-equal on a second run."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_forward, flash_attention_lse_plain)
+    q, k, v = flash_case(cuda_device, dtype, 1, s, t, hkv, g, dh, seed=dh)
+    before = flash_attention.launches
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    want_lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
+    assert (lse - want_lse).abs().max() <= 1e-4
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device).to(dtype)
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+    grads = flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                           window=window)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, again, grads):
+        assert x.shape == z.shape and torch.equal(x, y)
+        assert rel_err(x, z) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dk,dv,t,chunk", [(1024, 1025, 300, 128),
+                                           (1280, 1281, 200, 64),
+                                           (600, 1100, 130, 128)])
+def test_ssm_scan_kernels_past_the_old_widths(cuda_device, dtype, dk, dv, t,
+                                              chunk):
+    """The scan forward and backward at xLSTM's mLSTM widths at 1.3B (dk
+    1024, dv 1025) and 2.7B (1280, 1281), and a dv past the old 1024 with
+    a dk past the old 512: y, h_T and the five gradients against the plain
+    version and autograd through it (1e-4 in f32, 2e-2 in bf16), q and k
+    scaled by dk^-1/2 as the mLSTM scales them."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
+                                              ssm_scan_backward_plain)
+    q, k, v, la, h0 = scan_case(cuda_device, dtype, 1, t, 2, dk, dv,
+                                decay=0.1, h0_scale=0.2)
+    q, k = ((x.float() * (dk ** -0.5 / 0.3)).to(dtype) for x in (q, k))
+    before = ssm_scan.launches
+    y, h_t = ssm_scan(q, k, v, la, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan_plain(q, k, v, la, h0, chunk=chunk)
+    band = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=band,
+                               rtol=band)
+    torch.testing.assert_close(h_t, want_h, atol=band, rtol=band)
+    dy = scan_grads(v.shape, dtype, cuda_device, 6)
+    dht = scan_grads(h0.shape, torch.float32, cuda_device, 7)
+    got = ssm_scan_backward(q, k, v, la, h0, dy, dht, chunk=chunk)
+    want = ssm_scan_backward_plain(q, k, v, la, h0, dy, dht, chunk=chunk)
+    torch.cuda.synchronize()
+    for x, z in zip(got, want):
+        assert x.shape == z.shape and rel_err(x, z) <= band
+
+
+# tools/attention_times.py --cases old on the parent tree (the kernels up
+# to dh 256 before the column-block bodies), NVIDIA H100 80GB HBM3, 700.00
+# W: the digests of the 31 old cases, in CASES order; the tree with the
+# column-block bodies printed the same
+DIGESTS_BEFORE_COLUMN_BLOCKS = [
+    "c2ea613e7f630075",
+    "e0a27b200d0e6312",
+    "7295734b2dbbe081",
+    "bd9cf9595cda2f7d",
+    "8ddb76773b881621",
+    "a94020595d2dc0f8",
+    "948fc05539cbd527",
+    "57672b5ecce5fb5a",
+    "a0c7f791c2ea487d",
+    "f3ff2f2f76e0b49e",
+    "caf0991dc714af1c",
+    "7602b1386fcf9570",
+    "822945e1f2c7d297",
+    "adf86524dcc58eac",
+    "8682a1b2c4900809",
+    "b541d29e9d5aeaf0",
+    "1605d43c41e94d85",
+    "dfb67441aab3776c",
+    "25845e5192a7eefc",
+    "9608a7bc6a40d440",
+    "e9e3eb71db58f43a",
+    "c5204624ddc294bc",
+    "6029bbded5c12e64",
+    "9fc518911afd1926",
+    "f7535df5fd2dfe38",
+    "cf760f06f894463a",
+    "f47de5d1a208edfc",
+    "a64051e5173e3617",
+    "472ecec2a45e2de9",
+    "7c9a744d9605fe7d",
+    "60c2f1debf8d1b42",
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(31))
+def test_attention_kernels_bit_equal_to_before_the_column_blocks(
+        cuda_device, case):
+    """The four attention kernels' outputs at the shapes up to dh 256
+    (``tools/attention_times.py``'s CASES), as digests of their bytes,
+    equal those the kernels gave before the column-block bodies past 256
+    were added."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import attention_times
+    from repro_torch import kernels
+
+    spec = attention_times.CASES[case]
+    with torch.no_grad():
+        got = attention_times.digest(torch, attention_times.call_of(
+            torch, kernels, cuda_device, spec)())
+    assert got == DIGESTS_BEFORE_COLUMN_BLOCKS[case], spec

@@ -360,13 +360,16 @@ def make_prod():
 
 
 def test_local_attention_shape_refused_with_config_and_mesh():
-    """A head dim past 256 has no kernel on any mesh (the reference pads
-    it: ROADMAP A7.1); every local GQA group runs, 12 query heads over 1
-    KV head at 4-way TP leaving G 3 included."""
-    cfg = get_config("tiny-agent").replace(d_head=264, use_pallas=True)
+    """A dtype the kernels do not take is refused on any mesh, the config
+    and the mesh named; every head dim runs (past 256 in column blocks,
+    ROADMAP A7.1), and every local GQA group, 12 query heads over 1 KV
+    head at 4-way TP leaving G 3 included."""
+    cfg = get_config("tiny-agent").replace(dtype="float16", use_pallas=True)
     with pytest.raises(ValueError, match=r"tiny-agent on mesh .*'model': 4"
-                                         r".*no kernel.*dh from 1 to 256"):
+                                         r".*no kernel for dtype"):
         check_mesh(cfg, _mesh(data=1, model=4))
+    check_mesh(get_config("tiny-agent").replace(d_head=264, use_pallas=True),
+               _mesh(data=1, model=4))
     cfg = get_config("tiny-agent").replace(n_heads=12, n_kv_heads=1,
                                            use_pallas=True)
     check_mesh(cfg, _mesh(data=1, model=4))          # local G 3

@@ -42,7 +42,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul_plain, tma_plan)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
-    MAX_CHUNK, MAX_DK, MAX_DV, scan_plan, ssm_scan_plain)
+    MAX_CHUNK, scan_plan, ssm_scan_plain)
 
 needs_pallas = pytest.mark.skipif(not HAVE_PALLAS_API,
                                   reason=PALLAS_SKIP_REASON)
@@ -262,10 +262,14 @@ def test_scan_plan_fast_path(bf16, aligned, dk, dv, fast):
 
 
 @pytest.mark.parametrize("dk,dv,chunk,match", [
-    (MAX_DK + 1, 16, 64, "dk"), (16, MAX_DV + 1, 64, "dv"),
+    (64 * 200, 64 * 200, 64, "grid has 80000 rows"),
+    (64 * 32768, 16, 64, "chunk-state pass's grid"),
     (16, 16, MAX_CHUNK + 1, "chunk"), (16, 16, 0, "chunk"),
     (0, 16, 64, "dk")])
 def test_scan_plan_refuses_and_names_it(dk, dv, chunk, match):
+    """Any dk and dv from 1 run; what is refused names its cause: a grid
+    past 65535 rows (two heads x 200 x 200 state tiles; 32768 dk tiles),
+    a chunk outside 1..128, a width below 1."""
     with pytest.raises(ValueError, match=match):
         scan_plan(1, 64, 2, dk, dv, chunk, True, True)
 

@@ -4,7 +4,8 @@ The reference's ``repro/kernels/ops.py`` pads every head dim to a
 multiple of 128 and every decode GQA group to a multiple of 8 before its
 Pallas kernels, so the JAX package attends at any dh and any G.  The
 port's four attention kernels take every dh from 1 to 256 and every G
-themselves (``kernels/attention_shapes.py``).  Here, on the CPU:
+themselves (``kernels/attention_shapes.py``; past 256 in column blocks
+since, ``tests/test_torch_past_limits.py``).  Here, on the CPU:
 
 * the plain versions of flash (forward, and its gradient by autograd),
   ring decode (with and without the log-sum-exp) and paged decode at dh
@@ -52,8 +53,8 @@ from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import (decode_attention,  # noqa: E402
                                  flash_attention, paged_decode_attention)
 from repro_torch.kernels.attention_shapes import (  # noqa: E402
-    GROUPS, HEAD_DIM_MAX, check_attention_shape, check_grid, group_chunk,
-    pad_width)
+    BLOCK_WIDTH, GROUPS, check_attention_shape, check_decode_shape,
+    check_grid, group_chunk, pad_width)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -108,23 +109,31 @@ def rel(got, want) -> float:
 # ---------------------------------------------------------------------------
 
 def test_every_head_dim_to_256_and_every_group_is_taken():
+    """Every dh up to 256 on the instantiated widths, and past it in
+    column blocks of ``BLOCK_WIDTH`` (ROADMAP A7.1), every G."""
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in range(1, HEAD_DIM_MAX + 1):
+        for dh in range(1, 4 * BLOCK_WIDTH + 1):
             check_attention_shape(dtype, dh, 3)
+            check_decode_shape(dtype, dh, 3)
         for g in range(1, 130):
             check_attention_shape(dtype, 256, g)
-    assert HEAD_DIM_MAX == 256 and {3, 9, 48} <= set(GROUPS)
+            check_decode_shape(dtype, 512, g)
+    assert BLOCK_WIDTH == 256 and {3, 9, 48} <= set(GROUPS)
 
 
-@pytest.mark.parametrize("dtype,dh,g", [(torch.float32, 257, 2),
-                                        (torch.bfloat16, 512, 1),
+@pytest.mark.parametrize("dtype,dh,g", [(torch.float32, 9736, 5),
+                                        (torch.bfloat16, 49408, 1),
                                         (torch.float32, 0, 2),
                                         (torch.float32, -8, 2),
                                         (torch.float32, 64, 0),
                                         (torch.float16, 64, 2)])
 def test_shapes_without_a_kernel_are_refused(dtype, dh, g):
-    with pytest.raises(ValueError, match="no kernel.*dh from 1 to 256"):
-        check_attention_shape(dtype, dh, g)
+    """What is still refused, naming its cause: a dtype other than f32 and
+    bf16, a dh or G below 1, and a decode head whose chunk's q rows pass
+    a wide CTA's shared memory (five heads at dh 9736, one at 49408)."""
+    with pytest.raises(ValueError, match="no (decode )?kernel for .*("
+                                         "any dh >= 1|shared memory)"):
+        check_decode_shape(dtype, dh, g)
 
 
 @pytest.mark.parametrize("g,chunk,chunks", [(3, 3, 1), (9, 3, 3),

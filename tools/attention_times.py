@@ -5,7 +5,8 @@ and ``decode_attention`` (the ring) of a source tree's ``repro_torch`` on
 inputs drawn from one seeded generator, at the head shapes of
 ``chip_smoke.py``'s timed rows (agent-7b's, hymba-1.5b's, kimi-k2's dh
 112, in bf16 and f32) and at the shapes the reference pads (Gemma 3 12B's
-dh 256, Llama 3.2 3B's G 3, dh 100, 48 query heads over 1).  For each
+dh 256, Llama 3.2 3B's G 3, dh 100, 48 query heads over 1), and past
+dh 256 (``WIDE_CASES``; ``--cases wide`` runs only those).  For each
 case it prints the median of three readings of back-to-back calls behind
 a sleep kernel (the method of ``chip_smoke.py::cuda_ms``) and the first 16
 hex digits of the SHA-256 of the output's bytes.  ``--src`` names the
@@ -36,7 +37,8 @@ SLEEP_CYCLES_PER_CALL = 200_000
 CTX = [4096, 4001, 2085, 1500, 777, 0, 3333, 3333]
 
 # (kernel, dtype, heads, B, S or slots or page, T): flash heads are (H,
-# Hkv, dh), decode heads (Hkv, G, dh)
+# Hkv, dh), decode heads (Hkv, G, dh), and every WIDE_CASES' heads (Hkv,
+# G, dh)
 CASES = [("flash", "bfloat16", (32, 8, 128), 1, 1024, 1024),
          ("flash", "bfloat16", (25, 5, 64), 1, 1024, 1024),
          ("flash", "bfloat16", (64, 8, 112), 1, 1024, 1024),
@@ -69,6 +71,18 @@ CASES = [("flash", "bfloat16", (32, 8, 128), 1, 1024, 1024),
          ("ring", "bfloat16", (8, 2, 256), 8, 4096, 0),
          ("ring", "bfloat16", (1, 48, 128), 8, 4096, 0),
          ("ring", "float32", (8, 2, 256), 8, 4096, 0)]
+# heads past 256, in column blocks: agent-7b's width at d_head 512 (16
+# over 8), G 3 at 384, dh 300, 16 heads over 1; f32 at 512, and dh 1024
+WIDE_CASES = [(kind, dtype, heads, b, n, t)
+              for kind, b, n, t in (("flash", 1, 1024, 1024),
+                                    ("flash_bwd", 1, 1024, 1024),
+                                    ("paged", 8, 128, 0),
+                                    ("ring", 8, 4096, 0))
+              for dtype, heads in (
+                  [("bfloat16", h) for h in ((8, 2, 512), (4, 3, 384),
+                                             (8, 4, 300), (1, 16, 512))]
+                  + [("float32", (8, 2, 512)), ("bfloat16", (2, 2, 1024)),
+                     ("float32", (2, 2, 1024))])]
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -106,6 +120,8 @@ def call_of(torch, k, dev, case):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
     if kind in ("flash", "flash_bwd"):
+        if len(heads) == 3 and case in WIDE_CASES:   # (Hkv, G, dh)
+            heads = (heads[0] * heads[1], heads[0], heads[2])
         h, hkv, dh = heads
         q, kk, v = randn(b, n, h, dh), randn(b, t, hkv, dh), \
             randn(b, t, hkv, dh)
@@ -147,6 +163,9 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the source tree whose repro_torch is timed")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--cases", choices=("old", "wide", "all"),
+                    default="all", help="the shapes up to dh 256, those "
+                    "past it, or both")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -161,7 +180,9 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout
     print(json.dumps({"card": gpu.strip().splitlines()[0],
                       "src": str(Path(k.__file__).resolve())}), flush=True)
-    for case in CASES:
+    cases = {"old": CASES, "wide": WIDE_CASES,
+             "all": CASES + WIDE_CASES}[args.cases]
+    for case in cases:
         row = {"case": list(case)}
         try:
             call = call_of(torch, k, dev, case)
