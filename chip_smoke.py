@@ -191,7 +191,10 @@ code is non-zero and the final JSON line is not printed:
                  backwards a step), every leaf changed, the first and
                  last layer's backward held to the plain one, tokens/s,
                  the model-FLOPs share of the bf16 peak, peak memory and
-                 one profiled step.
+                 one profiled step; then the dry run's step pass of the
+                 same step (meta tensors on the host, a world of one):
+                 its MemTracker peak within 10% of max_memory_allocated,
+                 its counted kernel calls equal to a step's launches.
 31. train agent-1b -- full depth, two microbatches of B 1 x S 4096, f32
                  moments and accumulators: step ms and peak memory.
 32. train_lm  -- the train_lm twin at lm-100m, 75 steps with --chaos and
@@ -220,7 +223,7 @@ code is non-zero and the final JSON line is not printed:
                  calls held on a slice of the experts, peak memory), then
                  make_train_step with int8 moments at 64 experts.
 36. train ssm -- hymba-1.5b in full, B 2 x S 4096, and xlstm-350m at 8 of
-                 its 24 layers (one 7:1 cycle), B 4 x S 1024: bf16,
+                 its 24 layers (one 7:1 cycle), B 4 x S 512: bf16,
                  remat, f32 moments, a warm-up and two
                  timed steps, exact launches, tokens/s, peak memory; then
                  one profiled hymba step: the ssm_scan backward's device
@@ -286,6 +289,11 @@ code is non-zero and the final JSON line is not printed:
                  ring decode (with its log-sum-exp) and attention_combine
                  call held to its plain version.  (b) to (g) times are
                  two processes sharing one card, not a multi-GPU figure.
+                 In (b) and (c) each rank records the collectives of its
+                 train step (kind, result bytes, group size, in order);
+                 they equal those of the dry run's fake pass of the same
+                 step as that rank (meta tensors, a fake world of two),
+                 which this process runs while the ranks do.
 
 Every engine phase (4 to 23, 39) replays its decode and mixed steps as
 CUDA graphs, captured once per engine, and the serve phases (6, 7, 9,
@@ -339,6 +347,10 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
+# the formulas' parts that tests/test_torch_chip_smoke.py reads here
+from repro_torch.kernels.work import (flash_valid_keys,  # noqa: E402,F401
+                                      stored_bytes)
 from repro_torch.kernels.attention_combine import (  # noqa: E402
     attention_combine, attention_combine_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -360,6 +372,7 @@ import torch.distributed as dist  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed import parallel  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import specs as specs_launch  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -547,15 +560,11 @@ def needed_keys(window: int) -> list[int]:
 
 def bound(args, window: int) -> tuple[float, str]:
     """Least time for this call: bytes it must move (K/V of the valid
-    keys, q, out, tables, ctx) at HBM rate vs its f32 operations."""
+    keys, q, out, tables, ctx) at HBM rate vs its f32 operations
+    (``work.paged_decode``)."""
     q, kp, _, bt, ctx = args
-    _, _, hkv, dh = kp.shape
-    g = q.shape[2] // hkv
-    keys = sum(needed_keys(window))
-    nbytes = (2 * keys * hkv * dh * kp.element_size()
-              + 2 * q.numel() * q.element_size()
-              + bt.numel() * 4 + ctx.numel() * 4)
-    return bound_of(nbytes, 4 * g * dh * keys * hkv, torch.float32)
+    return bound_of(*work.paged_decode(q, kp, bt, ctx,
+                                       sum(needed_keys(window))))
 
 
 def sdpa_inputs(args, window: int):
@@ -740,16 +749,6 @@ def flash_case(dtype, s: int, t: int, gen: torch.Generator, dev, b: int = 1,
             for shape in ((b, s, h, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
 
 
-def flash_valid_keys(s: int, t: int, causal: bool, window: int) -> int:
-    """Valid (query row, key) pairs of one head."""
-    if not causal:
-        return s * t
-    i = np.arange(s)
-    hi = np.minimum(i, t - 1)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def flash_live_rows(s: int, t: int, causal: bool, window: int) -> np.ndarray:
     """(S,) bool: the query rows with at least one valid key.  The kernel
     writes zeros for the others, the plain version a uniform average."""
@@ -762,13 +761,9 @@ def flash_live_rows(s: int, t: int, causal: bool, window: int) -> np.ndarray:
 
 def flash_bound(args, causal: bool, window: int) -> tuple[float, str]:
     """q, k, v read once and out written once, against 4 * dh operations
-    per valid (row, head, key): two for q.k, two for p.v."""
+    per valid (row, head, key) (``work.flash``)."""
     q, k, _ = args
-    b, s, h, dh = q.shape
-    t = k.shape[1]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops = 4 * dh * b * h * flash_valid_keys(s, t, causal, window)
-    return bound_of(nbytes, ops, q.dtype)
+    return bound_of(*work.flash(q, k, causal, window))
 
 
 def flash_sdpa_inputs(args, causal: bool, window: int):
@@ -991,14 +986,9 @@ def check_flash_backward(dtype, heads, b, s, t, causal, window, gen,
 
 def bwd_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
     """q, k, v, out, dout read once, lse and D, dq, dk, dv written once;
-    10 * dh operations per valid (row, head, key): QK^T and dO V^T, and
-    P^T dO, dS^T Q and dS K, two per element each."""
-    b, s, h, dh = q.shape
-    t = k.shape[1]
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-        + 2 * b * h * s * 4
-    ops = 10 * dh * b * h * flash_valid_keys(s, t, causal, window)
-    return bound_of(nbytes, ops, q.dtype)
+    10 * dh operations per valid (row, head, key)
+    (``work.flash_backward``)."""
+    return bound_of(*work.flash_backward(q, k, causal, window))
 
 
 def time_flash_backward(args, causal: bool, window: int, label: str):
@@ -1137,15 +1127,10 @@ def ring_valid(args, window: int) -> torch.Tensor:
 
 def ring_bound(args, window: int) -> tuple[float, str]:
     """K/V of the valid slots, q, out, kpos and q_pos, against 4 * G *
-    dh f32 operations per valid slot and KV head."""
+    dh f32 operations per valid slot and KV head (``work.ring_decode``)."""
     q, k, _, kpos, q_pos = args
-    hkv, dh = k.shape[2], k.shape[3]
-    g = q.shape[2] // hkv
-    keys = int(ring_valid(args, window).sum())
-    nbytes = (2 * keys * hkv * dh * k.element_size()
-              + 2 * q.numel() * q.element_size()
-              + kpos.numel() * 4 + q_pos.numel() * 4)
-    return bound_of(nbytes, 4 * g * dh * keys * hkv, torch.float32)
+    return bound_of(*work.ring_decode(q, k, kpos, q_pos,
+                                      int(ring_valid(args, window).sum())))
 
 
 def time_ring_decode(args, live, label: str):
@@ -1321,11 +1306,8 @@ def combine_case(dtype, gen: torch.Generator, dev, dh=None):
 
 def combine_bound(outs, lses) -> tuple[float, str]:
     """Each rank's partial and log-sum-exp read once, the output written
-    once; about 4 operations per rank and element."""
-    r, b, h, dh = outs.shape
-    nbytes = (outs.numel() * outs.element_size() + lses.numel() * 4
-              + b * h * dh * outs.element_size())
-    return bound_of(nbytes, 4 * r * b * h * dh, torch.float32)
+    once; about 4 operations per rank and element (``work.combine``)."""
+    return bound_of(*work.combine(outs, lses))
 
 
 def phase_combine(dev) -> dict:
@@ -1462,28 +1444,11 @@ def scan_case(dtype, b, t, h, dk, dv, shared, decay, h0_scale,
     return q, k, v, log_a, h0
 
 
-def stored_bytes(x: torch.Tensor) -> int:
-    """Bytes a call must read of ``x``: a broadcast head axis once."""
-    n = x.numel() // x.shape[2] if x.ndim == 4 and x.stride(2) == 0 \
-        else x.numel()
-    return n * x.element_size()
-
-
 def scan_bound(args, chunk: int) -> tuple[float, str]:
     """q, k (once per broadcast row), v, log_a and h0 read once, y and
-    h_T written once, against the operations of the chunked form: 2 *
-    (dk + dv) per causal (i, j) pair of a chunk for the scores and the
-    intra-chunk y, 4 * dk * dv per token for the inter-chunk y and the
-    state update."""
-    q, k, v, log_a, h0 = args
-    b, t, h, dk = q.shape
-    dv = v.shape[3]
-    pairs = sum(n * (n + 1) // 2 for n in
-                (min(chunk, t - c0) for c0 in range(0, t, chunk)))
-    nbytes = (sum(stored_bytes(x) for x in args)
-              + v.numel() * v.element_size() + h0.numel() * 4)
-    ops = b * h * (2 * (dk + dv) * pairs + 4 * t * dk * dv)
-    return bound_of(nbytes, ops, q.dtype)
+    h_T written once, against the operations of the chunked form
+    (``work.scan``)."""
+    return bound_of(*work.scan(*args, chunk))
 
 
 def phase_ssm_scan(dev) -> list:
@@ -1600,14 +1565,10 @@ def gm_buffer(dtype, counts: torch.Tensor, c: int, d: int,
 
 def gm_bound(x, w, counts) -> tuple[float, str]:
     """The weights of the live experts, the live rows of x, all of out and
-    counts, against 2 * sum(min(counts, C)) * d * f operations."""
-    e, c, d = x.shape
-    f = w.shape[2]
-    rows = int(counts.clamp(0, c).sum())
-    live = int((counts > 0).sum())
-    nbytes = ((live * d * f + rows * d + e * c * f) * x.element_size()
-              + counts.numel() * 4)
-    return bound_of(nbytes, 2 * rows * d * f, x.dtype)
+    counts, against 2 * sum(min(counts, C)) * d * f operations
+    (``work.grouped_matmul``)."""
+    return bound_of(*work.grouped_matmul(
+        x, w, counts, *work.live_rows(counts, x.shape[1])))
 
 
 def gm_errors(got, want) -> tuple[float, float]:
@@ -3791,6 +3752,8 @@ def phase_train(dev) -> dict:
         f"{n_layers - 1} of the warm-up step) held to the plain backward on "
         f"their own inputs")
     del calls
+    step_pass_check(phase, cfg, plan, peak, {k: v // steps
+                                             for k, v in want.items()})
 
     # one profiled step: device busy against the unprofiled step time
     batch = next(it)
@@ -3824,6 +3787,45 @@ def phase_train(dev) -> dict:
     del opt
     free(params)
     return used
+
+
+# the dry run's step pass must hold the card's peak within this share
+STEP_PASS_PEAK_TOL = 0.10
+
+
+def step_pass_check(phase: str, cfg, plan, peak: int, per_step: dict) -> None:
+    """The dry run's step pass (``launch.dryrun.step_pass``, a world of
+    one on meta tensors, on the host) of this phase's step: its
+    ``MemTracker`` peak within STEP_PASS_PEAK_TOL of the card's
+    ``max_memory_allocated`` ``peak``, and its counted kernel calls equal
+    to the launches of one step ``per_step`` (on the CPU, where nothing
+    launches and no peak is read, the pass runs and is printed)."""
+    t0 = time.perf_counter()
+    res = dryrun.step_pass(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"), None, plan,
+                           costs=False)
+    meta = res["memory"]["peak_bytes"]
+    calls = {k: v["calls"] for k, v in res["kernels"].items()}
+    seconds = time.perf_counter() - t0
+    if peak:
+        if abs(meta - peak) > STEP_PASS_PEAK_TOL * peak:
+            raise AssertionError(f"{phase}: the step pass's peak {meta} B is "
+                                 f"not within {STEP_PASS_PEAK_TOL:.0%} of "
+                                 f"max_memory_allocated {peak} B")
+        want = {k: v for k, v in per_step.items() if v}
+        if calls != want:
+            raise AssertionError(f"{phase}: the step pass counted kernel "
+                                 f"calls {calls}, a step launched {want}")
+    log(phase, f"the dry run's step pass of this step (meta tensors, a world "
+        f"of one, on the host, counted from shapes): peak "
+        f"{meta / 1e9:.2f} GB (arguments "
+        f"{res['memory']['argument_bytes'] / 1e9:.2f} GB) against "
+        + (f"max_memory_allocated {peak / 1e9:.2f} GB "
+           f"({100 * (meta - peak) / peak:+.1f}%, within "
+           f"{STEP_PASS_PEAK_TOL:.0%})" if peak else "no card")
+        + f"; kernel calls {calls}"
+        + (" equal to a step's launches" if peak else "")
+        + f"; {seconds:.1f} s")
 
 
 def phase_train_1b(dev) -> None:
@@ -3997,22 +3999,9 @@ def check_gm_backward(x, w, counts, dout, what: str,
 
 def gm_bwd_bound(x, w, counts, part: str = "both") -> tuple[float, str]:
     """The bound of dX and dW together (``part`` "both"), of dX alone
-    ("dx": the live experts' weights and the live rows of dout read, all
-    of dx written, 2 * rows * d * f operations) or of dW alone ("dw": the
-    live rows of x and dout read, all of dw (E * d * f) written, as many
-    operations).  Together: the live experts' weights, the live rows of x
-    and dout read once, dx and dw written, 4 * rows * d * f operations."""
-    e, c, d = x.shape
-    f = w.shape[2]
-    rows = int(counts.clamp(0, c).sum())
-    live = int((counts > 0).sum())
-    dx_bytes = live * d * f + rows * f + e * c * d
-    dw_bytes = rows * (d + f) + e * d * f
-    elems = {"both": live * d * f + rows * (d + f) + e * c * d + e * d * f,
-             "dx": dx_bytes, "dw": dw_bytes}[part]
-    ops = (4 if part == "both" else 2) * rows * d * f
-    return bound_of(elems * x.element_size() + counts.numel() * 4, ops,
-                    x.dtype)
+    ("dx") or of dW alone ("dw") (``work.grouped_matmul_backward``)."""
+    return bound_of(*work.grouped_matmul_backward(
+        x, w, counts, *work.live_rows(counts, x.shape[1]), part))
 
 
 def gm_backward_part(x, w, counts, dout, part: str):
@@ -4133,20 +4122,8 @@ def check_scan_backward(dtype, case, gen, dev) -> float:
 def scan_bwd_bound(q, k, v, states) -> tuple[float, str]:
     """q, k (once per broadcast row), v, dy, log_a and the forward's chunk
     states read; dq, dk (full shape), dv and dlog_a written; against the
-    chunked form's operations: per (token, head) 2 * chunk * (dk + dv)
-    for the pair matrices, 2 * chunk * (2 dk + dv) for the three chunk
-    products (about half the pairs are causal: counted whole, as the
-    kernel computes them) and 8 * dk * dv for U and the three state
-    terms."""
-    b, t, h, dk = q.shape
-    dv = v.shape[3]
-    chunk = min(128, t)
-    el = v.element_size()
-    nbytes = (stored_bytes(q) + stored_bytes(k) + 2 * v.numel() * el
-              + b * t * h * 4 + states.numel() * 4
-              + 2 * b * t * h * dk * el + v.numel() * el + b * t * h * 4)
-    ops = b * t * h * (2 * chunk * (3 * dk + 2 * dv) + 8 * dk * dv)
-    return bound_of(nbytes, ops, q.dtype)
+    chunked form's operations (``work.scan_backward``)."""
+    return bound_of(*work.scan_backward(q, k, v, states))
 
 
 def time_scan_backward(dtype, case, gen, dev, label: str):
@@ -4653,9 +4630,10 @@ def profile_train_step(phase: str, cfg, step, params, opt, batch,
 
 # train ssm: hymba-1.5b in full, B 2 x S 4096; xlstm-350m at one whole
 # 7:1 cycle (8 of its 24 layers; the sLSTM token loop under autograd took
-# 10.7 s a step in full), B 4 x S 1024 (S 4096 would be slow likewise):
-# (config, B, S[, cut])
-SSM_TRAIN = [("hymba-1.5b", 2, 4096), ("xlstm-350m", 4, 1024,
+# 10.7 s a step in full), B 4 x S 512 (the loop's host time grows with S:
+# S 1024 took 7.5 s a step; cut to pay for the dry run's step passes in
+# phases 30 and 38): (config, B, S[, cut])
+SSM_TRAIN = [("hymba-1.5b", 2, 4096), ("xlstm-350m", 4, 512,
                                       {"n_layers": 8})]
 # train vlm encdec: qwen2-vl-2b in full, B 2 x S 4096 with 256 patch
 # embeddings a row; seamless-m4t-large-v2 in full, B 2 x 1000 frames x
@@ -5329,6 +5307,14 @@ def sharded_frontend(cfg, b: int, patches: int, enc: int,
                         device=dev).to(prm.torch_dtype(cfg.dtype))]
 
 
+def sharded_cfg(name: str, cut: dict):
+    """A phase 38 config: the registry's (or a ``smoke:`` name's smoke),
+    f32, kernels on, cut by ``cut``."""
+    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
+           else get_config(name))
+    return cfg.replace(dtype="float32", use_pallas=True, **cut)
+
+
 def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
                  serve: bool = True, keep: dict | None = None) -> dict:
     """One config on ``mesh`` in a gloo rank, kernels on, f32: prefill of
@@ -5347,9 +5333,7 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     Returns the results, stage times and launches; ``keep`` (a dict)
     receives the step, its state after the update, the config, the AdamW
     config and the batch, for (h) to checkpoint."""
-    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
-           else get_config(name))
-    cfg = cfg.replace(dtype="float32", use_pallas=True, **cut)
+    cfg = sharded_cfg(name, cut)
     ref = dist.get_rank() == 0
     marks = [("start", time.perf_counter())]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -5443,7 +5427,8 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     if dev.type == "cuda":
         sync(dev)
         torch.cuda.reset_peak_memory_stats()
-    with hold_sharded_calls() as held, models.boundary_saves() as saved:
+    with hold_sharded_calls() as held, models.boundary_saves() as saved, \
+            parallel.record_collectives() as coll:
         metrics, grads = step.grads(params, batch, with_metrics=True)
     worst = max(worst, held.check(where, torch.float32))
     del held
@@ -5456,8 +5441,10 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     launches = {k: v - start[k] + (used[k] if serve else 0)
                 for k, v in counts().items()}
     # the step's AdamW half on the gradients just held
-    params, opt, m = step.update(params, opt, grads, metrics)
+    with parallel.record_collectives() as coll_update:
+        params, opt, m = step.update(params, opt, grads, metrics)
     sync(dev)
+    out["collectives"] = [list(c) for c in coll + coll_update]
     marks.append(("update", time.perf_counter()))
     if not all(torch.isfinite(t).all() for t in prm.flatten(params)[0]):
         raise AssertionError(f"{where}: non-finite parameters after a step")
@@ -5524,9 +5511,7 @@ def sharded_seq_case(mesh, name: str, cut: dict, dev, phase: str, b: int,
     runs the unsharded model: greedy tokens equal, logits within
     SHARDED_LOGIT_TOL.  Returns the results, the rank's slots and the
     launches of the decode steps, counted from 0 just before them."""
-    cfg = (get_smoke(name[len("smoke:"):]) if name.startswith("smoke:")
-           else get_config(name))
-    cfg = cfg.replace(dtype="float32", use_pallas=True, **cut)
+    cfg = sharded_cfg(name, cut)
     ref = dist.get_rank() == 0
     marks = [("start", time.perf_counter())]
     full = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -5920,6 +5905,58 @@ def phase_sharded(dev) -> dict:
     return seq
 
 
+# (b) and (c): the cases whose train steps the dry run's fake passes
+# hold, (key, mesh, label)
+FAKE_CASES = [("tp", (1, 2), "(b) TP"), ("ep", (1, 2), "(b) EP"),
+              ("dp", (2, 1), "(c) DP + FSDP")]
+
+
+def fake_collectives(sizes: dict) -> dict:
+    """The collectives of the dry run's fake pass (``launch.dryrun.
+    rank_pass``: meta tensors, one rank of a fake world of the mesh's
+    two) of each FAKE_CASES train step as each rank, {(key, rank): [(kind,
+    bytes, group size)]}, and the passes' seconds.  Run on this host while
+    the gloo ranks run, so the phase waits no longer."""
+    t0 = time.perf_counter()
+    b, s = sizes["train_b"], sizes["train_seq"]
+    out = {}
+    for key, mesh, _ in FAKE_CASES:
+        cfg = sharded_cfg(*sizes["ep" if key == "ep" else "tp"])
+        for r in range(2):
+            fake = dryrun.rank_pass(
+                cfg, ShapeConfig("sharded", s, b, "train"),
+                dict(zip(("data", "model"), mesh)), r,
+                TrainPlan(int8_moments=True), memory=False, costs=False)
+            out[key, r] = [list(c) for c in fake["calls"]]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def hold_fake_collectives(phase: str, res: list, fake: dict) -> None:
+    """(b) and (c): the collectives each rank made over its train step
+    (``parallel.record_collectives`` around the gradients and the AdamW
+    half: kind, result bytes and group size, in order) equal those of the
+    dry run's fake pass of the same step as that rank
+    (``fake_collectives``)."""
+    for key, mesh, what in FAKE_CASES:
+        for r, got in enumerate(res):
+            want = fake[key, r]
+            if got[key]["collectives"] != want:
+                raise AssertionError(
+                    f"{phase} {what}: rank {r}'s train step made the "
+                    f"collectives {got[key]['collectives']}, the dry run's "
+                    f"fake pass of it {want}")
+            kinds = dryrun.collective_bytes(want)
+            log(phase, f"{what}, rank {r}: the train step's {len(want)} "
+                f"collectives equal the dry run's fake pass of the step as "
+                f"rank {r} of a fake world on {mesh}, call by call (kind, "
+                f"bytes, group size): " + ", ".join(
+                    f"{k} {v} B" for k, v in kinds.items()
+                    if v and k not in ("count", "total")))
+    log(phase, f"the fake passes took {fake['seconds']:.1f} s on the host, "
+        f"while the ranks ran")
+
+
 def sharded_world2(dev) -> dict:
     """(b) to (g): two gloo ranks spawned on the card (``sharded_rank``),
     their results printed and held.  Returns the launches of (d)'s, (e)'s
@@ -5948,9 +5985,14 @@ def sharded_world2(dev) -> dict:
              "families": SHARDED_FAMILIES, "frames": SHARDED_FRAMES,
              "patches": SHARDED_PATCHES, "grid": VISION_GRID,
              "cross": SHARDED_CROSS, "sup": SHARDED_SUP}
-    mp.start_processes(sharded_rank, args=(2, sharded_store("world2"),
-                                           str(out_dir), dev.type, sizes),
-                       nprocs=2, start_method="spawn")
+    ranks = mp.start_processes(sharded_rank, args=(
+        2, sharded_store("world2"), str(out_dir), dev.type, sizes),
+        nprocs=2, start_method="spawn", join=False)
+    try:
+        fake = fake_collectives(sizes)
+    finally:
+        while not ranks.join():
+            pass
     wall = time.perf_counter() - t0
     res = [json.loads((out_dir / f"rank{r}.json").read_text())
            for r in range(2)]
@@ -6020,6 +6062,7 @@ def sharded_world2(dev) -> dict:
                     raise AssertionError(f"{phase} {what}: rank {r} "
                                          f"launched {c['launches']}, "
                                          f"expected each of {sorted(want)}")
+    hold_fake_collectives(phase, res, fake)
     seq = {}
     for key, what in (("gqa", "(d) mesh (1, 2), GQA fallback: the ring cut "
                               "over model"),

@@ -37,7 +37,10 @@ shards, explicit process groups, and collectives where the shards meet.
 
 Every collective of a group of one rank is skipped, so a world of one
 runs the single-device step's operations exactly.  A collective that
-fails raises; nothing falls back.
+fails raises; nothing falls back.  ``record_collectives`` lists, in
+order, the collectives the helpers make inside a block (kind, result
+bytes, group size): the dry run's step pass reads a step's traffic from
+it, and real ranks can hold their traffic to that pass's.
 
 ``gloo`` with CUDA tensors (two ranks sharing one card, where NCCL
 refuses): every collective used here (``all_reduce`` with SUM and MAX,
@@ -87,14 +90,43 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+# the lists of the ``record_collectives`` blocks open now (process-wide,
+# as ``_ACTIVE``: a CUDA backward runs on the autograd engine's threads)
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Within the block, every collective this process's helpers below
+    make, in order, as ``(kind, bytes, group size)``: the kind as XLA
+    names it (``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``)
+    and the bytes of its result on this rank (the reduced tensor, the
+    gathered whole, this rank's chunk).  A group of one rank makes no
+    collective and records none.  Works on any backend: the dry run's
+    fake world, gloo and NCCL ranks alike."""
+    calls: list = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(calls)
+
+
+def _record(kind: str, result: torch.Tensor, n: int) -> None:
+    for calls in _RECORDERS:
+        calls.append((kind, result.numel() * result.element_size(), n))
+
+
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``t`` reduced over ``group`` (``"sum"`` or
     ``"max"``)."""
-    if group_size(group) == 1:
+    n = group_size(group)
+    if n == 1:
         return t
     out = t.clone()
     dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op], group=group)
+    _record("all-reduce", out, n)
     return out
 
 
@@ -106,7 +138,9 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=group)
-    return torch.stack(parts)
+    out = torch.stack(parts)
+    _record("all-gather", out, n)
+    return out
 
 
 def gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -125,6 +159,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     chunks = [c.contiguous() for c in t.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=group)
+    _record("reduce-scatter", out, n)
     return out
 
 

@@ -17,6 +17,14 @@ kernels too (``csrc/flash_attention_bwd.cu``, ``grouped_matmul_bwd.cu``,
 wrappers and ``attention_combine`` have no backward and raise under grad
 (``grad.py``).
 
+Meta tensors (the dry run's step pass, ``launch/dryrun.py``) take each
+wrapper's meta branch: it allocates what the launch allocates (outputs,
+scratch, and under autograd what the Function saves), at the launch's
+shapes and dtypes, counts the call with its operations and bytes
+(``work.count``, the formulas ``chip_smoke.py`` bounds each kernel by)
+and returns; it never launches, never moves ``.launches`` (the card's
+count) and never runs the plain version.
+
 ``attention_combine`` is port-side: it combines the partial softmaxes of
 a sequence-sharded ring's ranks (``decode_attention(..., with_lse=True)``
 over each rank's slots), where the reference leaves the reduction to

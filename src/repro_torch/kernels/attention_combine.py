@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.attention_shapes import DTYPES
 from repro_torch.kernels.grad import refuse_grad
 
@@ -70,13 +71,16 @@ def _launch(outs, lses) -> torch.Tensor:
 
     r, b, h, dh = outs.shape
     outs, lses = outs.contiguous(), lses.contiguous()
+    out = torch.empty((b, h, dh), dtype=outs.dtype, device=outs.device)
+    if outs.device.type == "meta":
+        work.count("attention_combine", work.combine(outs, lses))
+        return out
     fn = build.load("attention_combine").attention_combine_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_void_p])
-    out = torch.empty((b, h, dh), dtype=outs.dtype, device=outs.device)
     stream = torch.cuda.current_stream(outs.device).cuda_stream
     err = fn(DTYPES[outs.dtype], outs.data_ptr(), lses.data_ptr(),
              out.data_ptr(), r, b * h, dh, stream)
@@ -92,14 +96,15 @@ def attention_combine(outs: torch.Tensor, lses: torch.Tensor
     the same query rows; lses (R, B, H) f32 their log-sum-exps (NEG_INF:
     no valid key).  Returns (B, H, dh) in the inputs' dtype.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
+    CUDA tensors launch the Hopper kernel (or raise), meta tensors
+    take the meta branch (``kernels.__init__``); CPU tensors take
     the plain version.  ``attention_combine.launches`` counts the calls
     that launch the kernel.  Serving runs it under no_grad: it has no
     backward and raises under grad (``grad.py``)."""
     _check(outs, lses)
     if outs.device.type == "cpu":
         return attention_combine_plain(outs, lses)
-    if outs.device.type != "cuda":
+    if outs.device.type not in ("cuda", "meta"):
         raise ValueError(f"no attention_combine for device {outs.device}")
     refuse_grad("attention_combine", outs, lses)
     return _launch(outs, lses)

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.attention_shapes import (
     DTYPES, check_decode_shape, check_grid, group_chunk)
 from repro_torch.kernels.grad import refuse_grad
@@ -158,6 +159,18 @@ def _launch(q, k, v, kpos, q_pos, window: int, with_lse: bool):
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
+    splits, split_len = decode_splits(b, hkv, t)
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    # per (query row, split): the partial accumulator, then (m, l)
+    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
+    if q.device.type == "meta":
+        keys = b * (min(t, window) if window > 0 else t)
+        work.count("decode_attention",
+                   work.ring_decode(q, k, kpos, q_pos, keys))
+        return (out, lse) if with_lse else out
     fn = build.load("decode_attention").decode_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -166,13 +179,6 @@ def _launch(q, k, v, kpos, q_pos, window: int, with_lse: bool):
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_longlong])
-    splits, split_len = decode_splits(b, hkv, t)
-    out = torch.empty_like(q)
-    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    # per (query row, split): the partial accumulator, then (m, l)
-    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
-                           device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              kpos.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, t, hkv, g,
@@ -196,7 +202,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid slot gives out = 0 and lse = NEG_INF: what a rank of a
     sequence-sharded ring gives ``attention_combine``.
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
+    CUDA tensors launch the Hopper kernel (or raise), meta tensors
+    take the meta branch (``kernels.__init__``); CPU tensors take
     the plain version.  ``decode_attention.launches`` counts the calls
     that launch the kernel (one per call, whether or not the splits need
     the merge kernel after it)."""
@@ -204,7 +211,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kpos, q_pos, window=window,
                                       with_lse=with_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode_attention for device {q.device}")
     refuse_grad("decode_attention", q, k, v)
     return _launch(q, k, v, kpos, q_pos, window, with_lse)

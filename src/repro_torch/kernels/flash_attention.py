@@ -53,6 +53,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.attention_shapes import (DTYPES,
                                                   check_attention_shape,
                                                   pad_width)
@@ -161,24 +162,28 @@ def _launch(q, k, v, causal: bool, window: int,
     check_attention_shape(q.dtype, dh, h // hkv)
     _check_launch("flash_attention", q, k, v)
     width = pad_width(dh)
+    q_in, k_in = q, k
     q, k, v = (_padded(x, width) for x in (q, k, v))
-    fn = build.load("flash_attention").flash_attention_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), lse.data_ptr() if with_lse else None, b, s, t,
-             h, hkv, width, int(bool(causal)), int(window),
-             1.0 / math.sqrt(dh), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: error {err}")
-    flash_attention.launches += 1
+    if q.device.type == "meta":
+        work.count("flash_attention", work.flash(q_in, k_in, causal, window))
+    else:
+        fn = build.load("flash_attention").flash_attention_launch
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), lse.data_ptr() if with_lse else None, b, s,
+                 t, h, hkv, width, int(bool(causal)), int(window),
+                 1.0 / math.sqrt(dh), stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention launch failed: error {err}")
+        flash_attention.launches += 1
     if width != dh:
         out = out[..., :dh].contiguous()
     return (out, lse) if with_lse else out
@@ -205,27 +210,32 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
     # other runs on zero-padded copies (the padded columns of out and
     # dout add nothing to D = rowsum(dout * out)), cut back below
     width = pad_width(dh)
+    q_in, k_in = q, k
     q, k, v, out, dout = (_padded(x, width) for x in (q, k, v, out, dout))
-    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-             dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, s, t, h, hkv, width, int(bool(causal)), int(window),
-             1.0 / math.sqrt(dh), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_backward launch failed: error "
-                           f"{err}")
-    flash_attention_backward.launches += 1
+    if q.device.type == "meta":
+        work.count("flash_attention_backward",
+                   work.flash_backward(q_in, k_in, causal, window))
+    else:
+        fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                           + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, s, t, h, hkv, width, int(bool(causal)),
+                 int(window), 1.0 / math.sqrt(dh), stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_backward launch failed: "
+                               f"error {err}")
+        flash_attention_backward.launches += 1
     if width != dh:
         dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
@@ -257,7 +267,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model layout: q (B, S, H, dh); k, v (B, T, Hkv, dh).  Returns
     (B, S, H, dh).
 
-    CUDA tensors launch the Hopper kernel (or raise); with grad mode on
+    CUDA tensors launch the Hopper kernel (or raise), meta tensors
+    take the meta branch (``kernels.__init__``); with grad mode on
     and an input that requires grad, the call is the autograd Function
     whose backward is the Hopper backward kernel (there is no fallback to
     the plain version's autograd).  CPU tensors take the plain version,
@@ -267,7 +278,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash_attention for device {q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window)
@@ -280,7 +291,7 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     (B, H, S) log-sum-exp the backward reads: (out, lse).  Counts on
     ``flash_attention.launches``."""
     _check(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError("flash_attention_forward runs on CUDA tensors")
     return _launch(q, k, v, causal, window, with_lse=True)
 
@@ -292,7 +303,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     ``dout``.  ``flash_attention_backward.launches`` counts the calls,
     from here and from autograd."""
     _check(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError("flash_attention_backward runs on CUDA tensors; "
                          "the CPU differentiates flash_attention_plain")
     return _launch_backward(q, k, v, out, lse, dout, causal, window)

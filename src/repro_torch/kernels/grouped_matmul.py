@@ -40,6 +40,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels import work
+
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the CUDA source's paths: f32 FMAs a column at a time, f32 FMAs four
 # columns a load (f % 4 == 0, w 16-byte aligned), bf16 on the tensor cores
@@ -163,6 +165,10 @@ def _launch(x, w, counts) -> torch.Tensor:
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or d == 0:
         return out.zero_()
+    if x.device.type == "meta":
+        work.count("grouped_matmul", work.grouped_matmul(
+            x, w, counts, *work.live_rows(counts, c)))
+        return out
     lib = build.load("grouped_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     path = kernel_path(x, w)
@@ -235,6 +241,12 @@ def _launch_backward(x, w, counts, dout, need_dx: bool = True,
     if x.numel() == 0 or w.numel() == 0:
         return (dx.zero_() if need_dx else None,
                 dw.zero_() if need_dw else None)
+    if x.device.type == "meta":
+        rows, live = work.live_rows(counts, c)
+        part = "both" if need_dx and need_dw else "dx" if need_dx else "dw"
+        work.count("grouped_matmul_backward", work.grouped_matmul_backward(
+            x, w, counts, rows, live, part))
+        return dx, dw
     fn = build.load("grouped_matmul_bwd").grouped_matmul_bwd_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -278,7 +290,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     int32, the live rows of each expert (clamped to [0, C]); rows past
     them are zeros.
 
-    CUDA tensors launch the Hopper kernel (or raise); with grad mode on
+    CUDA tensors launch the Hopper kernel (or raise), meta tensors
+    take the meta branch (``kernels.__init__``); with grad mode on
     and x or w requiring grad, the call is the autograd Function whose
     backward is the Hopper backward kernel (there is no fallback to the
     plain version's autograd).  CPU tensors take the plain version, which
@@ -287,7 +300,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, counts)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, counts)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no grouped_matmul for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _GroupedMatmul.apply(x, w, counts)
@@ -300,7 +313,7 @@ def grouped_matmul_backward(x, w, counts, dout):
     ``dout``.  ``grouped_matmul_backward.launches`` counts the calls, from
     here and from autograd."""
     _check(x, w, counts)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError("grouped_matmul_backward runs on CUDA tensors; the "
                          "CPU differentiates grouped_matmul_plain")
     return _launch_backward(x, w, counts, dout)

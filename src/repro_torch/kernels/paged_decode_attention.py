@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.attention_shapes import (
     DTYPES, check_decode_shape, check_grid, group_chunk)
 from repro_torch.kernels.decode_attention import SPLIT_LENS, TARGET_CTAS
@@ -143,6 +144,20 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
+    p_max = block_tables.shape[1]
+    splits, per = paged_decode_splits(b, hkv, p_max, page)
+    out = torch.empty_like(q)
+    # per (query row, split): the partial accumulator, then (m, l)
+    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
+    if q.device.type == "meta":
+        # ctx_lens holds no data: every page of the table counts
+        t = p_max * page
+        keys = b * (min(t, window) if window > 0 else t)
+        work.count("paged_decode_attention",
+                   work.paged_decode(q, k_pages, block_tables, ctx_lens,
+                                     keys))
+        return out
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -150,12 +165,6 @@ def _launch(q, k_pages, v_pages, block_tables, ctx_lens,
                        + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_int, ctypes.c_int])
-    p_max = block_tables.shape[1]
-    splits, per = paged_decode_splits(b, hkv, p_max, page)
-    out = torch.empty_like(q)
-    # per (query row, split): the partial accumulator, then (m, l)
-    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
-                           device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
@@ -177,7 +186,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     dh); block_tables (B, P) int32, -1 = unmapped; ctx_lens (B,) int32.
     Returns (B, 1, H, dh).
 
-    CUDA tensors launch the Hopper kernel (or raise); CPU tensors take
+    CUDA tensors launch the Hopper kernel (or raise), meta tensors
+    take the meta branch (``kernels.__init__``); CPU tensors take
     the plain version.  ``paged_decode_attention.launches`` counts the
     calls that launch the kernel (one per call, whether or not the splits
     need the merge kernel after it)."""
@@ -186,7 +196,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, ctx_lens,
                                             window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged_decode_attention for device {q.device}")
     refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     return _launch(q, k_pages, v_pages, block_tables, ctx_lens, window)

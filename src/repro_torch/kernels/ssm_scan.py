@@ -60,6 +60,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import work
+
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128       # rows of a chunk a CTA holds
 GRID_ROWS = 65535     # a grid's y and z
@@ -268,19 +270,22 @@ def _launch(q, k, v, log_a, h0, chunk: int, keep_states: bool = False):
     if not v.is_contiguous():
         raise ValueError("v must be contiguous")
     la = log_a.float().contiguous()
-    h0 = h0.float().contiguous()
-    fn = build.load("ssm_scan").ssm_scan_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
-                       + [ctypes.c_void_p])
+    h0_in, h0 = h0, h0.float().contiguous()
     y = torch.empty_like(v)
     h_t = torch.empty_like(h0)
     states = torch.empty(plan.states_shape, dtype=torch.float32,
                          device=q.device)
     decay = torch.empty(plan.decay_shape, dtype=torch.float32,
                         device=q.device)
+    if q.device.type == "meta":
+        work.count("ssm_scan", work.scan(q, k, v, log_a, h0_in, chunk))
+        return (y, h_t, states) if keep_states else (y, h_t)
+    fn = build.load("ssm_scan").ssm_scan_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              la.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(),
@@ -334,12 +339,6 @@ def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
     if dh_t is not None:
         dh_t = dh_t.float().contiguous()
         h_t = h_t.float().contiguous()
-    fn = build.load("ssm_scan_bwd").ssm_scan_bwd_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
-                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
-                       + [ctypes.c_void_p])
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     dq = torch.empty((b, t, h, dk), dtype=q.dtype, device=dev)
@@ -353,6 +352,15 @@ def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
     tiled = dict(dtype=q.dtype, device=dev)
     ds = None if plan.fused else torch.empty(plan.states_shape, **tiled)
     pw = None if plan.fused else torch.empty(plan.pw_shape, **tiled)
+    if dev.type == "meta":
+        work.count("ssm_scan_backward", work.scan_backward(q, k, v, states))
+        return dq, dk_, dv_, dla, dh0
+    fn = build.load("ssm_scan_bwd").ssm_scan_bwd_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -400,7 +408,8 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h0 (B, H, dk, dv).  Returns (y (B, T, H, dv), h_T (B, H, dk, dv)
     f32).  Any T: a ragged last chunk is handled, not refused.
 
-    CUDA tensors launch the Hopper kernels (or raise); with grad mode on
+    CUDA tensors launch the Hopper kernels (or raise), meta tensors
+    take the meta branch (``kernels.__init__``); with grad mode on
     and an input that requires grad, the call is the autograd Function
     whose backward is the Hopper backward kernel (there is no fallback to
     the plain version's autograd).  CPU tensors take the plain version,
@@ -411,7 +420,7 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, log_a, h0)
     if q.device.type == "cpu":
         return ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no ssm_scan for device {q.device}")
     chunk = min(chunk, q.shape[1])
     if torch.is_grad_enabled() and any(
@@ -428,7 +437,7 @@ def ssm_scan_backward(q, k, v, log_a, h0, dy, dh_t=None, *,
     none reaches it).  Counts one launch on ``ssm_scan`` and one on
     ``ssm_scan_backward.launches``."""
     _check(q, k, v, log_a, h0)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError("ssm_scan_backward runs on CUDA tensors; the CPU "
                          "differentiates ssm_scan_plain")
     chunk = min(chunk, q.shape[1])

@@ -965,6 +965,39 @@ def psum_check(ctx, steps: int = 3) -> dict:
 CHECKS["psum"] = psum_check
 
 
+# ---------------------------------------------------------------------------
+# Collectives of the dry run's steps (tests/test_torch_dryrun_steps.py)
+# ---------------------------------------------------------------------------
+
+# the steps each rank records: one train step (gradients, then the AdamW
+# half), one prefill and one decode step, as the dry run builds them
+COLL_SHAPES = {"train": ShapeConfig("t", 16, 4, "train"),
+               "prefill": ShapeConfig("p", 16, 4, "prefill"),
+               "decode": ShapeConfig("d", 16, 4, "decode")}
+
+
+def collectives_check(ctx, cfg, kinds) -> dict:
+    """The (kind, bytes, group size) of every collective this rank makes
+    in each step of ``kinds`` (``launch.dryrun.build_step`` on its CPU
+    tensors, zeros), as ``parallel.record_collectives`` lists them."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for kind in kinds:
+        run, args = dryrun.build_step(cfg, COLL_SHAPES[kind], ctx,
+                                      device="cpu")
+        with parallel.record_collectives() as calls:
+            run(*args)
+        out[kind] = [list(c) for c in calls]
+    return out
+
+
+CHECKS["coll-tiny"] = lambda c: collectives_check(
+    c, CONFIGS["tiny"](), ("train", "prefill", "decode"))
+CHECKS["coll-arctic"] = lambda c: collectives_check(
+    c, CONFIGS["arctic"](), ("train",))
+
+
 def _axes(shape) -> tuple:
     return {1: ("pod",), 2: ("data", "model"),
             3: ("pod", "data", "model")}[len(shape)]

@@ -2074,3 +2074,66 @@ def test_attention_kernels_bit_equal_to_before_the_column_blocks(
         got = attention_times.digest(torch, attention_times.call_of(
             torch, kernels, cuda_device, spec)())
     assert got == DIGESTS_BEFORE_COLUMN_BLOCKS[case], spec
+
+
+# ---------------------------------------------------------------------------
+# The kernels' meta branches (the dry run's step pass) against the launches
+# ---------------------------------------------------------------------------
+
+ALLOCATIONS = ("empty", "empty_like", "empty_strided", "new_empty",
+               "new_empty_strided")
+
+
+def _allocations():
+    """A dispatch mode listing the (shape, dtype) of every tensor the
+    block allocates uninitialised: a kernel's outputs and scratch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Allocations(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ in ALLOCATIONS:
+                self.made.append((tuple(out.shape), out.dtype))
+            return out
+
+    return Allocations()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", [
+    "flash_attention", "flash_attention_forward", "flash_attention_backward",
+    "decode_attention", "paged_decode_attention", "ssm_scan",
+    "ssm_scan_backward", "grouped_matmul", "grouped_matmul_backward",
+    "attention_combine"])
+def test_meta_branch_allocates_and_returns_what_the_launch_does(
+        cuda_device, name, dtype):
+    """Each entry point on meta tensors allocates the tensors its launch
+    allocates (outputs and scratch, in order), returns its shapes and
+    dtypes, and counts one call where the launch counts one launch; the
+    meta call leaves the launch count alone."""
+    import test_torch_dryrun_steps as steps
+    from repro_torch.kernels import work
+
+    gen = torch.Generator().manual_seed(0)
+    xs = steps.ARGS[name](gen, dtype)
+    call, _, _ = steps._call(name, xs, dtype, gen)
+    counted_as = steps.COUNTED.get(name, name)
+    wrapper = steps.WRAPPERS[counted_as]
+    n0 = wrapper.launches
+    with torch.no_grad(), _allocations() as real:
+        got = call([x.to(cuda_device) for x in xs])
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    with torch.no_grad(), _allocations() as meta, \
+            work.count_calls() as counted:
+        want = call(steps._meta(xs))
+    assert wrapper.launches == n0 + 1
+    assert counted[counted_as]["calls"] == 1
+    assert steps._shapes(want) == steps._shapes(got)
+    assert meta.made == real.made

@@ -78,7 +78,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "repro_torch.distributed.parallel",
               "repro_torch.launch.mesh", "repro_torch.launch.specs",
               "repro_torch.launch.serve", "repro_torch.launch.dryrun",
-              "repro_torch.kernels.attention_combine"):
+              "repro_torch.kernels.attention_combine",
+              "repro_torch.kernels.work", "repro_torch.launch.fake_world"):
         assert m in mods
     code = (
         "import importlib, json, sys\n"
