@@ -248,7 +248,10 @@ code is non-zero and the final JSON line is not printed:
                  bands, every kernel call on a rank's shards held to its
                  plain version, each kernel's launches printed.  (c) The
                  same ranks on (2, 1), DP + FSDP, agent-7b's width at 2
-                 layers: the train-step check.  (d) The same ranks serve
+                 layers: the train-step check; (c') the same, B 2 in 2
+                 microbatches of one row (rank 1 holds none and
+                 launches nothing), and at arctic's width.  (d) The same
+                 ranks serve
                  over a ring whose sequence axis the cache spec cuts over
                  model (the GQA fallback), agent-7b's width at 2 layers
                  with 16 query heads over one KV head (G 16, as each
@@ -289,11 +292,12 @@ code is non-zero and the final JSON line is not printed:
                  ring decode (with its log-sum-exp) and attention_combine
                  call held to its plain version.  (b) to (g) times are
                  two processes sharing one card, not a multi-GPU figure.
-                 In (b) and (c) each rank records the collectives of its
-                 train step (kind, result bytes, group size, in order);
-                 they equal those of the dry run's fake pass of the same
-                 step as that rank (meta tensors, a fake world of two),
-                 which this process runs while the ranks do.
+                 In (b), (c) and (c') each rank records the collectives of
+                 its train step (kind, result bytes, group size, in
+                 order); they equal those of the dry run's fake pass of
+                 the same step as that rank (meta tensors, a fake world
+                 of two), which this process runs while the ranks do, and
+                 in (c') rank 0's in kind and group size.
 
 Every engine phase (4 to 23, 39) replays its decode and mixed steps as
 CUDA graphs, captured once per engine, and the serve phases (6, 7, 9,
@@ -375,6 +379,7 @@ from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import specs as specs_launch  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
@@ -930,7 +935,10 @@ WIDE_BWD_TIMED = [(16, 8, 256), (24, 8, 128), (32, 8, 100),
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got - want| over the largest |want|, as the scan's checks."""
+    """max |got - want| over the largest |want|, as the scan's checks; 0
+    for an empty output (a call on a rank that holds no row)."""
+    if not want.numel():
+        return 0.0
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max().clamp_min(1e-30)).item()
 
@@ -3066,6 +3074,8 @@ def call_err(got, want) -> torch.Tensor:
                              d.max() if d.numel() else torch.zeros(
                                  (), device=out.device))
     want = want.float()
+    if not want.numel():         # a call on a rank that holds no row
+        return torch.zeros((), device=want.device)
     return ((got.detach().float() - want).abs().max()
             / want.abs().max().clamp_min(1e-30))
 
@@ -3270,7 +3280,9 @@ SLICE_SERVE = [
 # step at 2 layers, B 1 x S 4096 (Gemma: one local and one global); and
 # xlstm-350m at the 1.3B width at 8 of the paper's 48 blocks (one 7:1
 # cycle, 0.77 B parameters) on the ring only, the layout the port serves
-# xLSTM on, with its train step at those 8 layers, B 2 x S 1024:
+# xLSTM on, with its train step at those 8 layers, B 2 x S 512 (S 1024,
+# its sLSTM token loop twice as long, took 6.9 s more on an H100 80GB HBM3
+# at 700 W: tools/smoke_cuts.py):
 # (label, config, widths, layers, layouts, train (layers, B, S))
 SERVE_LAYOUTS = ("paged", "ring", "mixed")
 WIDE_MODELS = [("Gemma 3 12B's shape", "gemma3-27b", GEMMA3_12B, 6,
@@ -3280,7 +3292,7 @@ WIDE_MODELS = [("Gemma 3 12B's shape", "gemma3-27b", GEMMA3_12B, 6,
                ("agent-7b at d_head 512", "agent-7b", AGENT7B_D512, 4,
                 SERVE_LAYOUTS, (2, 1, 4096)),
                ("xLSTM 1.3B's width", "xlstm-350m", XLSTM_13B, 8, ("ring",),
-                (8, 2, 1024))]
+                (8, 2, 512))]
 # new tokens a request of the graph runs (the eager runs: EAGER_NEW)
 WIDE_NEW = 64
 
@@ -4233,21 +4245,22 @@ def record_training_kernels():
 
 
 def hold_training_calls(phase: str, calls: dict, dtype,
-                        held: int | None = None) -> float:
+                        held: int | None = None, first: int = 0) -> float:
     """Each recorded grouped_matmul and ssm_scan call, forward and
     backward, against its plain version on that call's own inputs,
     relative to each output's largest magnitude (grouped_matmul on its
-    first ``held`` experts when given).  Returns the worst error."""
+    first ``held`` experts when given); the calls are numbered from
+    ``first`` in the log.  Returns the worst error."""
     worst = 0.0
     sl = slice(0, held)
-    for i, ((x, w, counts), out) in enumerate(calls["gm_fwd"]):
+    for i, ((x, w, counts), out) in enumerate(calls["gm_fwd"], first):
         err = rel_err(out[sl], grouped_matmul_plain(x[sl], w[sl],
                                                     counts[sl]))
         check("grouped_matmul", err, dtype, f"{phase} forward call {i}, "
               f"relative")
         worst = max(worst, err)
     for i, ((x, w, counts, dout, need_dx, need_dw), got) in enumerate(
-            calls["gm_bwd"]):
+            calls["gm_bwd"], first):
         want = grouped_matmul_backward_plain(x[sl], w[sl], counts[sl],
                                              dout[sl])
         errs = [rel_err(g[sl], wv) for g, wv, need in zip(
@@ -4257,7 +4270,7 @@ def hold_training_calls(phase: str, calls: dict, dtype,
               + "/".join(f"{e:.2e}" for e in errs) + ", relative")
         worst = max(worst, *errs)
         del want
-    for i, (args, res) in enumerate(calls["scan_fwd"]):
+    for i, (args, res) in enumerate(calls["scan_fwd"], first):
         q, k, v, log_a, h0, chunk = args[:6]
         want = ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)
         errs = [rel_err(res[0], want[0]), rel_err(res[1], want[1])]
@@ -4265,7 +4278,7 @@ def hold_training_calls(phase: str, calls: dict, dtype,
               + "/".join(f"{e:.2e}" for e in errs) + ", relative",
               tol=SCAN_TOL[dtype])
         worst = max(worst, *errs)
-    for i, (args, got) in enumerate(calls["scan_bwd"]):
+    for i, (args, got) in enumerate(calls["scan_bwd"], first):
         q, k, v, la, states, h_t, dy, dh_t, chunk = args
         want = ssm_scan_backward_plain(q, k, v, la, states[:, :, 0], dy,
                                        dh_t, chunk=chunk)
@@ -5112,6 +5125,15 @@ SHARDED_FRAMES = 512
 # on one device and cut to the step's spec, 15 greedy steps, each rank
 # attending over its encoder range and the ranks combining
 SHARDED_CROSS = ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1))
+# (c') the same ranks on (2, 1), DP + FSDP, a batch split that does not
+# divide over them (ROADMAP §C, port fault 7): (b)'s B 2 x S 512 in
+# SHARDED_UNEVEN_MICRO microbatches of one row, so rank 1 holds no row of
+# either and runs both microbatches' forward and backward on empty
+# tensors (GSPMD's padded shards), at agent-7b's width at 2 layers and at
+# arctic's at 1 layer with 8 experts (a microbatch of one global row
+# routes on the MoE's global dispatch, as the reference's does); f32
+# moments, each rank held to the mesh-less step with the same plan
+SHARDED_UNEVEN_MICRO = 2
 # (h) checkpoints of a sharded train state on the same ranks: (c)'s state
 # saved from (2, 1) and restored three ways, a TP step from it; then
 # TrainSupervisor over the TP step (1, 2) at agent-7b's width at 1 layer,
@@ -5267,29 +5289,63 @@ class hold_sharded_calls:
     """Within the block, every flash, ring decode (with its log-sum-exp
     over a ring cut over ``model``), attention_combine, grouped_matmul
     and ssm_scan call a rank makes on its local shard, forward (served or
-    trained) and backward, is kept; ``check(phase, dtype)`` holds each to
-    its plain version on the call's own inputs, within the band of
-    ``dtype`` (``kernelwise``, ``hold_flash_calls``,
-    ``hold_training_calls``; the scan within SCAN_TOL)."""
+    trained) and backward, is held to its plain version on the call's own
+    inputs as it is made, within the band of ``dtype`` (``kernelwise``,
+    ``hold_flash_calls``, ``hold_training_calls``; the scan within
+    SCAN_TOL), so no call's inputs outlive it (a step's FSDP-gathered
+    expert weights, 1.1 GB a call at arctic's width, would not fit two
+    ranks' calls on one card); ``check()`` returns the worst error.
+    ``where`` names the phase in the log and in a failure."""
+
+    def __init__(self, where: str, dtype=torch.float32):
+        self.where, self.dtype, self.worst = where, dtype, 0.0
+
+    def _flash(self, forward: bool):
+        seen = itertools.count()
+
+        def hold(args, res):
+            call = (next(seen), list(args),
+                    list(res if isinstance(res, tuple) else (res,)))
+            self.worst = max(self.worst, hold_flash_calls(
+                self.where, [call] if forward else [],
+                [] if forward else [call], self.dtype))
+        return record_calls("repro_torch.kernels.flash_attention",
+                            "_launch" if forward else "_launch_backward",
+                            hold)
+
+    def _training(self, module: str, name: str, kind: str):
+        seen = itertools.count()
+
+        def hold(args, res):
+            calls = dict.fromkeys(("gm_fwd", "gm_bwd", "scan_fwd",
+                                   "scan_bwd"), [])
+            calls[kind] = [(args, res)]
+            self.worst = max(self.worst, hold_training_calls(
+                self.where, calls, self.dtype, first=next(seen)))
+        return record_calls(module, name, hold)
 
     def __enter__(self):
         self._stack = contextlib.ExitStack()
         self.kw = self._stack.enter_context(kernelwise(combine=True))
-        self.fwd = self._stack.enter_context(record_flash(True))
-        self.bwd = self._stack.enter_context(record_flash(False))
-        self.gm = self._stack.enter_context(record_training_kernels())
+        for forward in (True, False):
+            self._stack.enter_context(self._flash(forward))
+        for module, name, kind in (
+                (GM_MOD, "_launch", "gm_fwd"),
+                (GM_MOD, "_launch_backward", "gm_bwd"),
+                (SCAN_MOD, "_launch", "scan_fwd"),
+                (SCAN_MOD, "_launch_backward", "scan_bwd")):
+            self._stack.enter_context(self._training(module, name, kind))
         return self
 
     def __exit__(self, *exc):
         return self._stack.__exit__(*exc)
 
-    def check(self, phase: str, dtype) -> float:
+    def check(self) -> float:
         err = self.kw.max_err()
-        if not err <= TOL[dtype]:
-            raise AssertionError(f"{phase}: a served kernel call differs "
-                                 f"from its plain version by {err}")
-        return max(err, hold_flash_calls(phase, self.fwd, self.bwd, dtype),
-                   hold_training_calls(phase, self.gm, dtype))
+        if not err <= TOL[self.dtype]:
+            raise AssertionError(f"{self.where}: a served kernel call "
+                                 f"differs from its plain version by {err}")
+        return max(err, self.worst)
 
 
 def sharded_frontend(cfg, b: int, patches: int, enc: int,
@@ -5319,7 +5375,7 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
                  serve: bool = True, keep: dict | None = None) -> dict:
     """One config on ``mesh`` in a gloo rank, kernels on, f32: prefill of
     B 2 x 64 (with a VLM's patch embeddings or an encoder-decoder's
-    frames, ``sharded_frontend``) and 16 greedy tokens through
+    frames, ``sharded_frontend``) and SHARDED_NEW greedy tokens through
     make_prefill_step / make_serve_step, and one make_train_step (its
     gradients, then its AdamW half on them; ``family_batch``, with
     SHARDED_FRAMES frames for an encoder-decoder), every kernel call on
@@ -5370,9 +5426,9 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
         cache = serve_launch.init_cache(cfg, mesh, shape_d)
         got_t, logits = [], []
         with torch.no_grad():
-            with hold_sharded_calls() as held:
+            with hold_sharded_calls(where) as held:
                 got, cache = pre(params, toks, cache, *extra)
-            worst = max(worst, held.check(where, torch.float32))
+            worst = max(worst, held.check())
             nxt = torch.zeros((b, 1), dtype=torch.long, device=dev)
             for i in range(sizes["new"]):
                 got_t.append(got.argmax(-1))
@@ -5380,9 +5436,9 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
                 if i == sizes["new"] - 1:
                     break
                 nxt[rows] = got_t[-1][:, None]
-                with hold_sharded_calls() as held:
+                with hold_sharded_calls(where) as held:
                     got, cache = dec(params, nxt, cache)
-                worst = max(worst, held.check(where, torch.float32))
+                worst = max(worst, held.check())
             del params, cache
             used = {k: v - start[k] for k, v in counts().items()}
             if ref:
@@ -5427,10 +5483,11 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     if dev.type == "cuda":
         sync(dev)
         torch.cuda.reset_peak_memory_stats()
-    with hold_sharded_calls() as held, models.boundary_saves() as saved, \
+    with hold_sharded_calls(where) as held, \
+            models.boundary_saves() as saved, \
             parallel.record_collectives() as coll:
         metrics, grads = step.grads(params, batch, with_metrics=True)
-    worst = max(worst, held.check(where, torch.float32))
+    worst = max(worst, held.check())
     del held
     sync(dev)
     out.update(boundary_bytes(cfg, step.ctx, saved, b, s,
@@ -5473,6 +5530,78 @@ def sharded_case(mesh, name: str, cut: dict, dev, phase: str, sizes: dict,
     out.update(loss=m["loss"].item(), kernel_err=worst,
                launches={k: v for k, v in launches.items() if v})
     return out
+
+
+def sharded_uneven_case(mesh, name: str, cut: dict, dev, phase: str,
+                        sizes: dict) -> dict:
+    """(c') in a gloo rank: one train step of B 2 x S 512 in
+    SHARDED_UNEVEN_MICRO microbatches on ``mesh`` (2, 1), kernels on, f32,
+    so rank 0 holds each microbatch's row and rank 1 none: its loss and
+    each of its gradient shards held to the mesh-less step with the same
+    plan on the same weights and batch (the loss within 1e-4, each leaf
+    within phase 29's band of the whole leaf's largest magnitude), every
+    kernel call of the sharded step held to its plain version, its
+    launches and its collectives (around the gradients and the AdamW
+    half) returned."""
+    cfg = sharded_cfg(name, cut)
+    marks = [("start", time.perf_counter())]
+    full = models.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    attention.rescale_to_true_fan_in(full)
+    where = f"{phase} {cfg.name} on {dict(parallel.context(mesh).sizes)}"
+    plan = TrainPlan(microbatch=SHARDED_UNEVEN_MICRO)
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    b, s = sizes["train_b"], sizes["train_seq"]
+    batch = family_batch(cfg, b, s, torch.Generator(device=dev).manual_seed(1),
+                         dev)
+    sync(dev)
+    marks.append(("init", time.perf_counter()))
+    start = all_counts()
+    step = make_train_step(cfg, mesh, plan, acfg,
+                           shape=ShapeConfig("sharded", s, b, "train"))
+    specs = step.shardings["params"]
+    params = parallel.shard_tree(full, specs, mesh)
+    opt = init_opt_state(params, acfg, mesh, cfg=cfg)
+    with hold_sharded_calls(where) as held, \
+            parallel.record_collectives() as coll:
+        metrics, grads = step.grads(params, batch, with_metrics=True)
+    kernel_err = held.check()
+    del held
+    with parallel.record_collectives() as coll_update:
+        params, opt, m = step.update(params, opt, grads, metrics)
+    sync(dev)
+    launches = {k: v - start[k] for k, v in all_counts().items()}
+    marks.append(("sharded step, held", time.perf_counter()))
+    if not all(torch.isfinite(t).all() for t in prm.flatten(params)[0]):
+        raise AssertionError(f"{where}: non-finite parameters after a step")
+    del params, opt
+    ref = make_train_step(cfg, None, plan, acfg, device=dev)
+    ref_m, ref_g = ref.grads(full, batch, with_metrics=True)
+    mine = prm.flatten(parallel.shard_tree(ref_g, specs, mesh))[0]
+    errs = [((g.float() - r.float()).abs().max()
+             / w.float().abs().max().clamp_min(1e-30)).item()
+            for g, r, w in zip(prm.flatten(grads)[0], mine,
+                               prm.flatten(ref_g)[0])]
+    loss_err = abs(m["loss"].item() - ref_m["loss"].item())
+    if loss_err > 1e-4 or max(errs) > TRAIN_F32_GRAD_TOL:
+        raise AssertionError(f"{where}: train step loss off by {loss_err}, "
+                             f"gradient shards by up to {max(errs)}")
+    del grads, ref_g, mine
+    sync(dev)
+    marks.append(("mesh-less step", time.perf_counter()))
+    rows = int(train_launch._local_rows(
+        torch.arange(b), plan.microbatch, step.ctx.batch_world,
+        step.ctx.batch_rank).numel()) // plan.microbatch
+    free(full)
+    return {"config": f"{cfg.name} width, {cfg.n_layers} layer(s)"
+            + (f", {cfg.n_experts} experts" if cfg.n_experts else ""),
+            "rows": rows, "loss": m["loss"].item(), "loss_err": loss_err,
+            "grad_err": max(errs), "leaves": len(errs),
+            "kernel_err": kernel_err,
+            "launches": {k: v for k, v in launches.items() if v},
+            "collectives": [list(c) for c in coll + coll_update],
+            "stages": ", ".join(f"{n} {t1 - t0:.1f} s" for (_, t0), (n, t1)
+                                in zip(marks, marks[1:]))}
 
 
 def boundary_bytes(cfg, ctx, saved: list, b: int, s: int, frames: int,
@@ -5707,9 +5836,9 @@ def sharded_ckpt_case(tp, kept: dict, dev, phase: str, sizes: dict,
     del dp_state
     # one TP step from the restored state against one device's
     start = all_counts()
-    with hold_sharded_calls() as held:
+    with hold_sharded_calls(where) as held:
         metrics, grads = step_t.grads(tp_state[0], batch, with_metrics=True)
-    out["kernel_err"] = held.check(where, torch.float32)
+    out["kernel_err"] = held.check()
     del held
     out["launches"] = {k: v - start[k] for k, v in all_counts().items()
                        if v - start[k]}
@@ -5861,6 +5990,10 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str,
         kept: dict = {}
         res["dp"] = sharded_case(dp, *sizes["tp"], dev, "sharded (c) DP",
                                  sizes, serve=False, keep=kept)
+        for key in ("tp", "ep"):
+            res[f"uneven-{key}"] = sharded_uneven_case(
+                dp, *sizes[key], dev, "sharded (c') DP, a rank with no row",
+                sizes)
         res["ckpt"] = sharded_ckpt_case(tp, kept, dev,
                                         "sharded (h) checkpoints", sizes,
                                         out_dir)
@@ -5905,10 +6038,16 @@ def phase_sharded(dev) -> dict:
     return seq
 
 
-# (b) and (c): the cases whose train steps the dry run's fake passes
-# hold, (key, mesh, label)
-FAKE_CASES = [("tp", (1, 2), "(b) TP"), ("ep", (1, 2), "(b) EP"),
-              ("dp", (2, 1), "(c) DP + FSDP")]
+# (b), (c) and (c'): the cases whose train steps the dry run's fake
+# passes hold, (key, mesh, label, the config's key in ``sizes``, plan)
+FAKE_CASES = [
+    ("tp", (1, 2), "(b) TP", "tp", TrainPlan(int8_moments=True)),
+    ("ep", (1, 2), "(b) EP", "ep", TrainPlan(int8_moments=True)),
+    ("dp", (2, 1), "(c) DP + FSDP", "tp", TrainPlan(int8_moments=True)),
+    ("uneven-tp", (2, 1), "(c') agent-7b's width, rank 1 empty", "tp",
+     TrainPlan(microbatch=SHARDED_UNEVEN_MICRO)),
+    ("uneven-ep", (2, 1), "(c') arctic's width, rank 1 empty", "ep",
+     TrainPlan(microbatch=SHARDED_UNEVEN_MICRO))]
 
 
 def fake_collectives(sizes: dict) -> dict:
@@ -5920,13 +6059,13 @@ def fake_collectives(sizes: dict) -> dict:
     t0 = time.perf_counter()
     b, s = sizes["train_b"], sizes["train_seq"]
     out = {}
-    for key, mesh, _ in FAKE_CASES:
-        cfg = sharded_cfg(*sizes["ep" if key == "ep" else "tp"])
+    for key, mesh, _, model, plan in FAKE_CASES:
+        cfg = sharded_cfg(*sizes[model])
         for r in range(2):
             fake = dryrun.rank_pass(
                 cfg, ShapeConfig("sharded", s, b, "train"),
-                dict(zip(("data", "model"), mesh)), r,
-                TrainPlan(int8_moments=True), memory=False, costs=False)
+                dict(zip(("data", "model"), mesh)), r, plan, memory=False,
+                costs=False)
             out[key, r] = [list(c) for c in fake["calls"]]
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -5938,7 +6077,7 @@ def hold_fake_collectives(phase: str, res: list, fake: dict) -> None:
     half: kind, result bytes and group size, in order) equal those of the
     dry run's fake pass of the same step as that rank
     (``fake_collectives``)."""
-    for key, mesh, what in FAKE_CASES:
+    for key, mesh, what, _, _ in FAKE_CASES:
         for r, got in enumerate(res):
             want = fake[key, r]
             if got[key]["collectives"] != want:
@@ -5996,10 +6135,11 @@ def sharded_world2(dev) -> dict:
     wall = time.perf_counter() - t0
     res = [json.loads((out_dir / f"rank{r}.json").read_text())
            for r in range(2)]
-    for r, got in enumerate(res):
-        if "error" in got:
-            raise AssertionError(f"{phase}: rank {r} failed:\n"
-                                 f"{got['error']}")
+    failed = [f"rank {r} failed:\n{got['error']}"
+              for r, got in enumerate(res) if "error" in got]
+    if failed:
+        # every rank's: the first to fail ends the others' collectives
+        raise AssertionError(f"{phase}: " + "\n".join(failed))
     label = ("two processes sharing one " + card() + " over gloo"
              if dev.type == "cuda" else "two CPU processes over gloo")
     cases = [(("tp",), "(b) mesh (1, 2), TP", None),
@@ -6062,6 +6202,42 @@ def sharded_world2(dev) -> dict:
                     raise AssertionError(f"{phase} {what}: rank {r} "
                                          f"launched {c['launches']}, "
                                          f"expected each of {sorted(want)}")
+    for key, what in (("uneven-tp", "(c') mesh (2, 1), DP + FSDP, B 2 in 2 "
+                                    "microbatches of one row"),
+                      ("uneven-ep", "(c') mesh (2, 1), DP + FSDP, B 2 in 2 "
+                                    "microbatches of one row, the MoE's "
+                                    "global dispatch")):
+        c0 = res[0][key]
+        kinds = [(k, n) for k, _, n in c0["collectives"]]
+        for r, got in enumerate(res):
+            c = got[key]
+            if c["loss"] != c0["loss"] or c["rows"] != (0 if r else 1):
+                raise AssertionError(f"{phase} {what}: rank {r} holds "
+                                     f"{c['rows']} rows, loss {c['loss']} "
+                                     f"against rank 0's {c0['loss']}")
+            if [(k, n) for k, _, n in c["collectives"]] != kinds:
+                raise AssertionError(f"{phase} {what}: rank {r}'s "
+                                     f"collectives differ from rank 0's")
+            if dev.type == "cuda":
+                want = {"flash_attention", "flash_attention_backward"} | (
+                    {"grouped_matmul", "grouped_matmul_backward"}
+                    if key == "uneven-ep" else set())
+                if (r and c["launches"]) or (
+                        not r and not want <= set(c["launches"])):
+                    raise AssertionError(
+                        f"{phase} {what}: rank {r} launched "
+                        f"{c['launches']}; rank 0 must launch each of "
+                        f"{sorted(want)}, rank 1 (no row) nothing")
+            log(phase, f"{what}, rank {r}: {c['config']}, f32, kernels on, "
+                f"{c['rows']} row(s) of each microbatch: train step loss "
+                f"{c['loss']:.6f} (|diff| {c['loss_err']:.2e} against the "
+                f"mesh-less step with the same plan), its {c['leaves']} "
+                f"gradient shards within {c['grad_err']:.3e} of their "
+                f"leaf's largest magnitude; every kernel call within "
+                f"{c['kernel_err']:.3e} of its plain version; launches "
+                f"{c['launches'] or 'none'}; its {len(c['collectives'])} "
+                f"collectives equal rank 0's in kind and group size, in "
+                f"order; {c['stages']}")
     hold_fake_collectives(phase, res, fake)
     seq = {}
     for key, what in (("gqa", "(d) mesh (1, 2), GQA fallback: the ring cut "

@@ -256,7 +256,7 @@ def _unflat(fn, x: torch.Tensor, lead):
     """``fn`` on x (T, d) viewed as (*lead, d), flattened back to rows."""
     if lead is None:
         return fn(x)
-    return fn(x.view(*lead, x.shape[-1])).reshape(-1, x.shape[-1])
+    return fn(x.view(*lead, x.shape[-1])).flatten(0, -2)
 
 
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
@@ -386,6 +386,9 @@ class MeshContext:
                        if mesh.device_type == "cuda"
                        else torch.device(mesh.device_type))
         self.row_axes = self.batch_axes
+        # the global rows of the batch a train step's model call runs
+        # (``with_rows``), which need not divide over the row axes
+        self.n_rows: Optional[int] = None
         self.ring_seq: Optional[Callable[[int], object]] = None
         self.cross_seq = None
         # set by the train and prefill steps from ``cfg.act_sharding``
@@ -464,6 +467,22 @@ class MeshContext:
     @property
     def row_world(self) -> int:
         return self.size(self.row_axes)
+
+    def global_rows(self, b: int) -> int:
+        """The rows of the global batch of which this rank holds ``b``:
+        the count a train step set (``with_rows``; ranks may hold
+        different counts, some none), else ``b`` on each of the
+        ``row_world`` ranks."""
+        return self.n_rows if self.n_rows is not None else b * self.row_world
+
+    def with_rows(self, n: int) -> "MeshContext":
+        """A copy for one model call over a global batch of ``n`` rows,
+        cut over the row axes in GSPMD's padded shards
+        (``launch.train._local_rows``).  The copy shares the process
+        groups."""
+        ctx = copy.copy(self)
+        ctx.n_rows = n
+        return ctx
 
     # -- sequence parallelism ---------------------------------------------
 

@@ -160,6 +160,12 @@ def _launch(q, k, v, causal: bool, window: int,
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     check_attention_shape(q.dtype, dh, h // hkv)
+    if b == 0:
+        # a rank that holds no row of a batch split: no launch (a grid of
+        # no CTAs is not a launch), nothing counted
+        out = torch.empty_like(q)
+        lse = torch.empty((0, h, s), dtype=torch.float32, device=q.device)
+        return (out, lse) if with_lse else out
     _check_launch("flash_attention", q, k, v)
     width = pad_width(dh)
     q_in, k_in = q, k
@@ -204,6 +210,8 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32 {(b, h, s)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    if b == 0:                  # no row: empty gradients, no launch
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _check_launch("flash_attention_backward", q, k, v, out, lse, dout)
     # a dh that is a multiple of 8 makes every row stride of the bf16
     # kernels' tensor maps, H dh and Hkv dh elements, 16-byte whole; any
@@ -272,9 +280,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and an input that requires grad, the call is the autograd Function
     whose backward is the Hopper backward kernel (there is no fallback to
     the plain version's autograd).  CPU tensors take the plain version,
-    which autograd differentiates.  ``flash_attention.launches`` counts
-    forward launches, ``flash_attention_backward.launches`` backward
-    ones."""
+    which autograd differentiates.  A batch of no rows (B 0) launches
+    nothing, forward or backward, and returns empty tensors.
+    ``flash_attention.launches`` counts forward launches,
+    ``flash_attention_backward.launches`` backward ones."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -264,6 +264,13 @@ def _launch(q, k, v, log_a, h0, chunk: int, keep_states: bool = False):
     if q.dtype not in DTYPES:
         raise ValueError(f"no kernel for dtype {q.dtype} (dtypes "
                          f"{list(DTYPES)})")
+    if b == 0:
+        # a rank that holds no row of a batch split: no launch (a grid of
+        # no CTAs is not a launch), nothing counted
+        f32 = dict(dtype=torch.float32, device=q.device)
+        y, h_t = torch.empty_like(v), torch.empty((0, h, dk, dv), **f32)
+        states = torch.empty((0, h, -(-t // chunk), dk, dv), **f32)
+        return (y, h_t, states) if keep_states else (y, h_t)
     plan = scan_plan(b, t, h, dk, dv, chunk, q.dtype == torch.bfloat16,
                      _rows16(q, k, v))
     _check_qk_strides(q, k)
@@ -321,6 +328,11 @@ def _launch_backward(q, k, v, la, states, h_t, dy, dh_t, chunk: int):
     if q.dtype not in DTYPES:
         raise ValueError(f"no kernel for dtype {q.dtype} (dtypes "
                          f"{list(DTYPES)})")
+    if b == 0:                  # no row: empty gradients, no launch
+        f32 = dict(dtype=torch.float32, device=q.device)
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), torch.empty((0, t, h), **f32),
+                torch.empty((0, h, dk, dv), **f32))
     vec = 16 // q.element_size()
     plan = backward_plan(b, t, h, dk, dv, chunk, vec,
                          _rows16(q, k, v, dy, vec=vec))
@@ -413,10 +425,12 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and an input that requires grad, the call is the autograd Function
     whose backward is the Hopper backward kernel (there is no fallback to
     the plain version's autograd).  CPU tensors take the plain version,
-    which autograd differentiates.  ``ssm_scan.launches`` counts calls
-    that launched the forward kernels (three launches each, one count),
-    ``ssm_scan_backward.launches`` backward calls (four launches at
-    hymba's width, six at the mLSTM's; one count)."""
+    which autograd differentiates.  A batch of no rows (B 0) launches
+    nothing, forward or backward, and returns empty tensors.
+    ``ssm_scan.launches`` counts calls that launched the forward kernels
+    (three launches each, one count), ``ssm_scan_backward.launches``
+    backward calls (four launches at hymba's width, six at the mLSTM's;
+    one count)."""
     _check(q, k, v, log_a, h0)
     if q.device.type == "cpu":
         return ssm_scan_plain(q, k, v, log_a, h0, chunk=chunk)

@@ -499,15 +499,17 @@ def activation_bytes(cfg, shape, mesh, microbatch: int = 1) -> int:
     """Per-device bytes of the layer inputs remat keeps through a train
     step's backward: each stack's layers x B_local x S_local x d x
     itemsize (the decoder's at the shape's S, an encoder's at its frame
-    count), B cut over the batch axes as ``batch_pspec`` cuts it and
-    into ``microbatch`` slices, one of which is in flight, and S over
+    count), B into ``microbatch`` slices, one of which is in flight, each
+    cut over the batch axes as ``batch_pspec`` cuts the batch, in GSPMD's
+    padded shards (``ceil(B / microbatch / n)`` rows: a microbatch of 16
+    rows over 32 ranks holds 1 on the ranks that hold any), and S over
     ``model`` where the reference's ``_constrain_act`` cuts it
     (``cfg.act_sharding``, S > 1 and a multiple of the model axis), as
     the port's sequence-parallel steps hold it."""
     sizes = shd.mesh_axis_sizes(mesh)
     b_spec = shd.batch_pspec(mesh, batch_size=shape.global_batch)
-    b_local = shape.global_batch // shd.axes_size(b_spec[0], sizes)
-    b_local //= microbatch
+    n = shd.axes_size(b_spec[0], sizes)
+    b_local = -(-shape.global_batch // (microbatch * n))
     m = sizes.get("model", 1)
     stacks = [(cfg.plan(), shape.seq_len)]
     if cfg.is_encdec:
@@ -549,7 +551,8 @@ def cell_record(arch: str, shape_name: str, mesh, mesh_name: str) -> dict:
         rec["plan"] = {"microbatch": plan.microbatch,
                        "accum_dtype": plan.accum_dtype,
                        "int8_moments": plan.int8_moments}
-        refuse = _refusal(lambda: check_mesh(cfg, mesh, shape.global_batch))
+        refuse = _refusal(lambda: check_mesh(cfg, mesh, shape.global_batch,
+                                             plan.microbatch))
     else:
         params, _ = abstract_state(cfg, AdamWConfig())
         by = {"params": shard_bytes(params, shd.param_pspecs(cfg, mesh),

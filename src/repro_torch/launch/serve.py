@@ -103,7 +103,7 @@ def check_serve(cfg: ModelConfig, mesh, cache_specs,
     with ``cfg.use_pallas`` a ring or cross K/V cut over ``model`` whose
     whole GQA group (every query head over its KV heads) no decode kernel
     takes.  Shape logic only."""
-    check_mesh(cfg, mesh, None, rules)
+    check_mesh(cfg, mesh)
     sizes = shd.mesh_axis_sizes(mesh)
     where = f"{cfg.name} on mesh {sizes}"
     if cfg.use_pallas and any("model" in parallel.entry_axes(kv[-3])

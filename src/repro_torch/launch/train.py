@@ -232,20 +232,21 @@ def _has_attention(cfg: ModelConfig) -> bool:
 
 
 def check_mesh(cfg: ModelConfig, mesh, batch: Optional[int] = None,
-               rules: shd.ShardingRules = shd.DEFAULT_RULES) -> None:
+               microbatch: int = 1) -> None:
     """Raise ``ValueError``, naming the config and the mesh, for what the
-    port's sharded steps do not run: a batch that does not split over the
-    batch axes, and with ``cfg.use_pallas`` a local attention shape no
-    kernel takes (the self attention's, and the cross attention's, whose
-    heads are cut alike).  Shape logic only: ``mesh`` is any mesh-like
-    object (every rank's local shapes are alike)."""
+    port's sharded steps do not run: a global ``batch`` that
+    ``microbatch`` slices do not split (``_check_microbatches``), and with
+    ``cfg.use_pallas`` a local attention shape no kernel takes (the self
+    attention's, and the cross attention's, whose heads are cut alike).
+    A batch that does not divide over the batch axes runs, in padded
+    shards (``_local_rows``), as the reference's GSPMD runs it.  Shape
+    logic only: ``mesh`` is any mesh-like object (every rank's local
+    attention shapes are alike)."""
     sizes = shd.mesh_axis_sizes(mesh)
     where = f"{cfg.name} on mesh {sizes}"
     m = sizes.get("model", 1)
-    b_axes = tuple(a for a in rules.batch_axes if a in sizes)
-    if batch is not None and batch % shd.axes_size(b_axes, sizes):
-        raise ValueError(f"{where}: a global batch of {batch} does not "
-                         f"split over the batch axes {b_axes}")
+    if batch is not None:
+        _check_microbatches(batch, microbatch, f"{where}: ")
     if cfg.use_pallas and _has_attention(cfg):
         from repro_torch.kernels.attention_shapes import check_attention_shape
         from repro_torch.models.attention import local_kv_heads
@@ -272,16 +273,29 @@ def check_mesh(cfg: ModelConfig, mesh, batch: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 
+def _check_microbatches(batch: int, k: int, where: str = "") -> None:
+    """Raise ``ValueError`` (its message after ``where``) where ``k``
+    microbatches do not split a global batch of ``batch`` rows.  The
+    reference's ``slice_mb`` takes ``batch // k`` rows a microbatch and
+    drops the rest (ROADMAP §C, reference fault 8); the port refuses
+    instead."""
+    if batch % k:
+        raise ValueError(f"{where}a global batch of {batch} does not split "
+                         f"into {k} microbatches")
+
+
 def _local_rows(x: torch.Tensor, k: int, n: int, r: int) -> torch.Tensor:
     """Rank ``r`` of ``n``'s rows of a global batch split into ``k``
-    microbatches: its share of each, microbatch after microbatch, so its
-    i-th local microbatch is its share of the global i-th."""
-    b = x.shape[0]
-    if b % (k * n):
-        raise ValueError(f"a global batch of {b} does not split into {k} "
-                         f"microbatches over {n} ranks")
-    return x.reshape(k, n, b // (k * n), *x.shape[1:])[:, r].reshape(
-        b // n, *x.shape[1:])
+    microbatches of ``b`` rows: of each, rows ``[r c, min((r + 1) c, b))``
+    with ``c = ceil(b / n)``, GSPMD's padded shard without the pads, so a
+    rank may hold fewer rows than another, or none.  Its shares follow
+    each other microbatch by microbatch, so its i-th local microbatch is
+    its share of the global i-th; all are of one size."""
+    b = x.shape[0] // k
+    c = -(-b // n)
+    lo, hi = min(r * c, b), min((r + 1) * c, b)
+    return x.reshape(k, b, *x.shape[1:])[:, lo:hi].reshape(
+        k * (hi - lo), *x.shape[1:])
 
 
 def make_compressed_grad_fn(cfg: ModelConfig, mesh):
@@ -310,7 +324,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     config takes them, positions (B, S) or (B, S, 3), vision_embeds (B,
     P, d) and frames (B, T_enc, d) (numpy arrays or tensors); the global
     batch splits into ``plan.microbatch`` equal slices of every key, as
-    the reference's ``slice_mb`` maps over every leaf.
+    the reference's ``slice_mb`` maps over every leaf (a B they do not
+    divide raises ``ValueError``, where the reference drops rows).
     ``metrics``: loss (and xent, aux without microbatches), grad_norm and
     lr, as 0-d tensors on the device.
 
@@ -319,7 +334,10 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     runs on its device; ``params`` and ``opt_state`` are then this rank's
     shards (``parallel.shard_tree`` by ``step.shardings["params"]``,
     ``init_opt_state``), ``batch`` the global batch, of which the step
-    takes this rank's rows.  ``step.shardings`` holds the params, opt
+    takes this rank's rows of each microbatch (``_local_rows``: where they
+    do not divide over the batch axes some ranks hold fewer, or none, and
+    run every microbatch's forward and backward, and so every collective,
+    on what they hold).  ``step.shardings`` holds the params, opt
     and batch specs (the reference's), and ``"state"``, the (params,
     opt_state) specs of the layout the step holds (``held_pspecs``: a
     checkpoint of a sharded state is saved and restored by them);
@@ -337,20 +355,28 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     else:
         dev = ctx.device
         parallel.check_device(device, dev)
-        check_mesh(cfg, ctx, shape.global_batch if shape else None, rules)
+        check_mesh(cfg, ctx, shape.global_batch if shape else None,
+                   max(plan.microbatch, 1))
     accum_dt = torch_dtype(plan.accum_dtype)
     leaves = _leaves(cfg, ctx, rules) if ctx is not None else None
     xpod = (make_compressed_grad_fn(cfg, ctx)
             if plan.compress_grads else None)
     carried = {"ef": None}
 
-    def grads_of(params, mb):
+    def grads_of(params, mb, rows: int):
+        """Loss, metrics and gradients of one (micro)batch of ``rows``
+        global rows, of which ``mb`` holds this rank's.  A rank that holds
+        none gets a zero gradient for a leaf its graph does not reach;
+        on any other a leaf cut out of the graph raises."""
         leaves_, treedef = flatten(params)
-        with torch.enable_grad(), parallel.use_mesh(ctx):
+        run_ctx = None if ctx is None else ctx.with_rows(rows)
+        empty = next(iter(mb.values())).shape[0] == 0
+        with torch.enable_grad(), parallel.use_mesh(run_ctx):
             live = [p.detach().requires_grad_(True) for p in leaves_]
             loss, metrics = transformer.loss_fn(unflatten(treedef, live),
                                                 cfg, mb)
-            grads = torch.autograd.grad(loss, live)
+            grads = torch.autograd.grad(loss, live, allow_unused=empty,
+                                        materialize_grads=empty)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, unflatten(treedef, list(grads))
 
@@ -382,26 +408,28 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return parallel.all_reduce(total, torch.distributed.group.WORLD)
 
     def local(batch):
+        """This rank's rows of the global ``batch`` and the global rows of
+        each of its ``plan.microbatch`` slices, checked on the global
+        batch before any split (the same error on every rank)."""
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        if ctx is None or ctx.batch_world == 1:
-            return batch
-        return {k: _local_rows(x, max(plan.microbatch, 1), ctx.batch_world,
-                               ctx.batch_rank) for k, x in batch.items()}
+        k = max(plan.microbatch, 1)
+        gb = next(iter(batch.values())).shape[0]
+        _check_microbatches(gb, k)
+        if ctx is not None and ctx.batch_world > 1:
+            batch = {n: _local_rows(x, k, ctx.batch_world, ctx.batch_rank)
+                     for n, x in batch.items()}
+        return batch, gb // k
 
-    def accumulate(params, batch):
+    def accumulate(params, batch, rows: int):
         k = plan.microbatch
         if k <= 1:
-            return grads_of(params, batch)
-        gb = next(iter(batch.values())).shape[0]
-        if gb % k:
-            raise ValueError(f"global batch {gb} does not split into "
-                             f"{k} microbatches")
-        b = gb // k
+            return grads_of(params, batch, rows)
+        b = next(iter(batch.values())).shape[0] // k
         acc = None
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(k):
             mb = {n: x[i * b:(i + 1) * b] for n, x in batch.items()}
-            mb_loss, _, grads = grads_of(params, mb)
+            mb_loss, _, grads = grads_of(params, mb, rows)
             g_leaves, treedef = flatten(grads)
             if acc is None:
                 acc = [torch.zeros(g.shape, dtype=accum_dt, device=dev)
@@ -422,7 +450,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return params, opt_state, {**(metrics or {}), **opt_metrics}
 
     def grads(params, batch, with_metrics: bool = False, carry: bool = False):
-        _, metrics, g = accumulate(params, local(batch))
+        _, metrics, g = accumulate(params, *local(batch))
         g = g if ctx is None else reduce(g, carry)
         return (metrics, g) if with_metrics else g
 

@@ -71,21 +71,26 @@ def _expert_product(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
 
 
 def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
-                with_stats: bool = True, group=None, lead=None):
-    """Token-level MoE core: xt (T, d) -> (y (T, d), aux, dropped); the
-    two statistics are None without ``with_stats``.  ``lead``: the shape
-    the T tokens flatten, (B, S) or (S,).  Where the stack's S is cut
-    over ``model``, xt arrives gathered along S (``lead``'s last axis),
-    so routing, capacity and the statistics see every token, and y
-    leaves as this rank's rows of S (``parallel.leave``: T / m tokens).
+                with_stats: bool = True, group=None, lead=None,
+                t_all: Optional[int] = None):
+    """Token-level MoE core: xt (T, d) -> (y (*lead, d), aux, dropped);
+    the two statistics are None without ``with_stats``.  ``lead``: the
+    shape the T tokens flatten, (B, S) or (S,) (by default (T,)).  Where
+    the stack's S is cut over ``model``, xt arrives gathered along S
+    (``lead``'s last axis), so routing, capacity and the statistics see
+    every token, and y leaves as this rank's rows of S
+    (``parallel.leave``: S / m along that axis).  A rank with no token
+    (an empty rank's share of a batch split) dispatches into buffers of
+    no rows, so its expert products launch nothing.
 
     ``group``, a data-parallel process group whose ranks hold the other
     slices of the batch (in rank order), makes the dispatch the whole
-    batch's: capacity from the global token count, each token's place in
-    its expert after the earlier ranks' tokens (an all-gather of the
-    per-expert counts), and the statistics over the global batch.  Where
-    the model axis cuts the experts (EP), this rank runs only its
-    experts' products and the combine's partial sums are reduced."""
+    batch's: capacity from the global token count ``t_all``, each
+    token's place in its expert after the earlier ranks' tokens (an
+    all-gather of the per-expert counts), and the statistics over the
+    global batch.  Where the model axis cuts the experts (EP), this rank
+    runs only its experts' products and the combine's partial sums are
+    reduced."""
     t, d = xt.shape
     lead = (t,) if lead is None else tuple(lead)
     sdim = len(lead) - 1
@@ -118,17 +123,20 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     else:
         loads = parallel.all_gather(load, group)                # (n, E)
         offset = loads[:torch.distributed.get_rank(group)].sum(0)
-        t_all, load_all = t * loads.shape[0], loads.sum(0)
+        load_all = loads.sum(0)
     c = capacity(t_all, cfg)
+    # this rank's buffer rows an expert: none where it holds no token (an
+    # empty rank of a batch split), whose expert products launch nothing
+    cb = c if t else 0
     keep = pos_in_e + offset[sorted_expert] < c
     # this rank's slots: its experts' rows, counted from its first token
     e0 = e_off or 0
     mine = keep & (sorted_expert >= e0) & (sorted_expert < e0 + e_loc)
-    dest = torch.where(mine, (sorted_expert - e0) * c + pos_in_e, e_loc * c)
+    dest = torch.where(mine, (sorted_expert - e0) * cb + pos_in_e, e_loc * cb)
 
-    buf = xt.new_zeros((e_loc * c + 1, d))      # row e_loc*c: sink of drops
+    buf = xt.new_zeros((e_loc * cb + 1, d))     # row e_loc*cb: sink of drops
     buf[dest] = xin[order // k]
-    buf = buf[:e_loc * c].view(e_loc, c, d)
+    buf = buf[:e_loc * cb].view(e_loc, cb, d)
 
     # --- expert computation (grouped matmul layout) -------------------------
     counts = torch.minimum(load, (c - offset).clamp_min(0))
@@ -139,13 +147,13 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     out_buf = _expert_product(h, params["w_out"], counts, cfg)  # (E, C, d)
 
     # --- return + combine ----------------------------------------------------
-    y_sorted = out_buf.reshape(e_loc * c, d)[torch.where(mine, dest, 0)]
+    y_sorted = out_buf.reshape(e_loc * cb, d)[torch.where(mine, dest, 0)]
     y_sorted = torch.where(mine[:, None], y_sorted, 0)
     y_flat = torch.empty_like(y_sorted)
     y_flat[order] = y_sorted
     gates = gate_vals if model is None else parallel.copy_to(gate_vals, model)
     y = (y_flat.view(t, k, d).float() * gates[..., None]).sum(dim=1)
-    y = parallel.leave(y, model, sdim, lead)
+    y = parallel.leave(y.view(*lead, d), model, sdim)       # (*lead, d)
     if not with_stats:
         return y.to(xt.dtype), None, None
 
@@ -165,6 +173,14 @@ def _moe_tokens(params: dict, xt: torch.Tensor, cfg: ModelConfig,
 GROUPWISE_MIN_TOKENS = 256
 
 
+def _total(vals: list, like: torch.Tensor) -> torch.Tensor:
+    """The sum of a list of 0-d f32 tensors, an f32 zero if it is empty
+    (a rank that holds no row)."""
+    if not vals:
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+    return torch.stack(vals).sum()
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
             spec: BlockSpec, with_stats: bool = True
             ) -> tuple[torch.Tensor, Optional[MoEStats]]:
@@ -181,24 +197,30 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     ctx = parallel.current()
     world = ctx.row_world if ctx is not None else 1
-    if s >= GROUPWISE_MIN_TOKENS and b * world > 1:
-        rows = [_moe_tokens(params, x[i], cfg, with_stats, lead=(s,))
-                for i in range(b)]
-        y = torch.stack([r[0] for r in rows])
+    # the global batch's rows, which ranks may hold unevenly (a train
+    # step's padded shards): every rank takes the same path
+    n = ctx.global_rows(b) if ctx is not None else b
+    if s >= GROUPWISE_MIN_TOKENS and n > 1:
+        # one row a group; a rank with no row runs one empty group, so
+        # its weights and model-axis collectives are a row's
+        rows = [_moe_tokens(params, r.flatten(0, 1), cfg,
+                            with_stats and r.shape[0] > 0, lead=r.shape[:2])
+                for r in x.split(1)]
+        y = torch.cat([r[0] for r in rows])
+        if with_stats:
+            aux_r = [r[1] for r in rows if r[1] is not None]
+            drop_r = [r[2] for r in rows if r[2] is not None]
         if with_stats and world == 1:
-            aux = torch.stack([r[1] for r in rows]).mean()
-            dropped = torch.stack([r[2] for r in rows]).mean()
+            aux = torch.stack(aux_r).mean()
+            dropped = torch.stack(drop_r).mean()
         elif with_stats:
             # the mean over the global batch's rows
-            aux = parallel.reduce_from(torch.stack([r[1] for r in rows])
-                                       .sum(), ctx.rows) / (b * world)
-            dropped = parallel.all_reduce(torch.stack(
-                [r[2] for r in rows]).sum(), ctx.rows) / (b * world)
+            aux = parallel.reduce_from(_total(aux_r, x), ctx.rows) / n
+            dropped = parallel.all_reduce(_total(drop_r, x), ctx.rows) / n
     else:
-        yt, aux, dropped = _moe_tokens(
-            params, x.reshape(b * s, d), cfg, with_stats,
-            ctx.rows if world > 1 else None, (b, s))
-        y = yt.reshape(b, -1, d)
+        y, aux, dropped = _moe_tokens(
+            params, x.flatten(0, 1), cfg, with_stats,
+            ctx.rows if world > 1 else None, (b, s), n * s)
 
     # --- shared experts (always-on) ------------------------------------------
     if "shared" in params:

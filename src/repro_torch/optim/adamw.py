@@ -100,17 +100,29 @@ def global_blocks(offset: int, full: int, reduce_max: Callable):
     leaf's 128-element blocks, their scales (..., ceil(full / 128)) kept
     whole on every rank, each block's max |x| the max over the ranks
     sharing it (``reduce_max``).  Gives the unsharded leaf's numbers
-    exactly."""
+    exactly.  Only the blocks the shard touches are made element-wide (at
+    most its width plus two blocks), never the whole leaf's width."""
     nb = -(-full // BLOCK)
 
+    def window(n: int) -> tuple[int, int, int]:
+        """The shard's first and last-plus-one block, and its offset in
+        the first."""
+        b0 = offset // BLOCK
+        return b0, -(-(offset + n) // BLOCK), offset - b0 * BLOCK
+
     def spread(scale, n):
-        return scale.repeat_interleave(BLOCK, -1)[..., offset:offset + n]
+        b0, b1, lo = window(n)
+        return scale[..., b0:b1].repeat_interleave(BLOCK, -1)[..., lo:lo + n]
 
     def quantize(x: torch.Tensor) -> Q8:
         n = x.shape[-1]
-        wide = x.new_zeros(*x.shape[:-1], nb * BLOCK)
-        wide[..., offset:offset + n] = x.abs()
-        amax = reduce_max(wide.reshape(*x.shape[:-1], nb, BLOCK).amax(-1))
+        b0, b1, lo = window(n)
+        part = x.new_zeros(*x.shape[:-1], (b1 - b0) * BLOCK)
+        part[..., lo:lo + n] = x.abs()
+        amax = x.new_zeros(*x.shape[:-1], nb)
+        amax[..., b0:b1] = part.reshape(*x.shape[:-1], b1 - b0,
+                                        BLOCK).amax(-1)
+        amax = reduce_max(amax)
         scale = torch.clamp(amax / 127.0, min=1e-12)
         q = torch.clamp(torch.round(x / spread(scale, n)), -127, 127)
         return Q8(q.to(torch.int8), scale.float())

@@ -38,6 +38,10 @@ own, so each test runs only the cases it reads:
 
     ... python tests/_jax_seq_ref.py OUT.pkl sp-tiny-2 sp-hymba-4 ...
 
+The ``micro-pod`` case is the JAX package's jitted train step on a
+``(2, 2, 1)`` pod x data x model mesh at B 4 in 4 microbatches, one row
+each over four batch ranks (``run_micro_pod``).
+
 The ``ckpt`` case writes checkpoints with the JAX package's
 ``CheckpointManager`` into ``jax_ckpt/`` beside the pickle: bf16 params
 (seed 0) and int8 AdamW moments after one update on gradients from seed
@@ -56,7 +60,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import NamedSharding
+from jax.sharding import NamedSharding, PartitionSpec
 
 from repro import models
 from repro.configs import get_config, get_smoke
@@ -173,6 +177,53 @@ def run_sp(case: str) -> dict:
             "grads": jax.device_get(grads), "logits": np.asarray(logits)}
 
 
+def run_micro_pod() -> dict:
+    """The ``micro-pod`` case: the JAX package's jitted train step on a
+    (2, 2, 1) pod x data x model mesh, tiny-agent in f32 at B 4 in 4
+    microbatches, so each microbatch's one row is a padded shard over the
+    four batch ranks (its ``_constrain_act`` keeps neither batch axis):
+    the loss, the gradient norm, the updated parameters, and the
+    gradient (the mean of the microbatches' ``jax.grad``, on one device)
+    that says which updates stand clear of f32 noise."""
+    from repro.launch.train import TrainPlan, make_train_step
+    from repro.models import transformer
+    from repro.optim.adamw import AdamWConfig, adamw_init
+
+    b, s, k = 4, 16, 4
+    cfg = CONFIGS["tiny"]().replace(dtype="float32")
+    kw = dict(lr=1e-2, warmup_steps=0, clip_norm=1e3)
+    acfg = AdamWConfig(**kw)
+    tree = true_fan_in(jax.device_get(models.init(cfg, jax.random.key(0))))
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, -5:] = -1
+    batch = {"tokens": toks, "labels": labels}
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    with jax.set_mesh(mesh):
+        step, specs = make_train_step(cfg, mesh, TrainPlan(microbatch=k),
+                                      acfg, shape=ShapeConfig("t", s, b,
+                                                              "train"))
+        put = lambda x, spec: jax.device_put(x, jax.tree.map(  # noqa: E731
+            lambda p: NamedSharding(mesh, p), spec,
+            is_leaf=lambda p: isinstance(p, PartitionSpec)))
+        params = put(tree, specs["params"])
+        opt = put(adamw_init(jax.tree.map(jnp.asarray, tree), acfg),
+                  specs["opt"])
+        new, _, m = step(params, opt, {n: put(v, specs["batch"])
+                                       for n, v in batch.items()})
+    grads = [jax.grad(lambda p: transformer.loss_fn(p, cfg, {
+        n: v[i:i + 1] for n, v in batch.items()})[0])(tree)
+        for i in range(k)]
+    mean = jax.tree.map(lambda *g: sum(np.asarray(x) for x in g) / k,
+                        *grads)
+    return {"config": "tiny", "weights": tree, "batch": batch,
+            "microbatch": k, "acfg": kw, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "params": jax.device_get(new), "grads": mean}
+
+
 def bits(a) -> np.ndarray:
     """An array's bits as unsigned integers of its width."""
     a = np.array(np.asarray(a), order="C")
@@ -192,8 +243,6 @@ def run_ckpt(out_dir: Path) -> dict:
 
 
 def ckpt_case(key: str, directory: Path) -> dict:
-    from jax.sharding import PartitionSpec
-
     from repro.checkpoint import CheckpointManager
     from repro.distributed.sharding import param_pspecs
     from repro.launch.train import opt_pspecs
@@ -250,6 +299,7 @@ def true_fan_in(tree):
 
 def main(path: str, cases: list) -> None:
     out = {case: run_ckpt(Path(path).parent) if case == "ckpt" else
+           run_micro_pod() if case == "micro-pod" else
            run_sp(case) if case in SP_CASES else run(case)
            for case in cases or CASES}
     with open(path, "wb") as f:

@@ -33,7 +33,7 @@ from repro_torch.distributed.sharding import is_spec
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.train import (AdamWConfig, TrainPlan,
+from repro_torch.launch.train import (AdamWConfig, TrainPlan, _local_rows,
                                       init_opt_state, make_train_step)
 from repro_torch.models import params as prm
 from repro_torch.data import DataConfig, TokenPipeline
@@ -169,11 +169,19 @@ def train_check(ctx, cfg, b: int, s: int, int8: bool, microbatch: int = 1,
     params = parallel.shard_tree(full, specs, ctx)
     opt = init_opt_state(params, acfg, ctx, cfg=cfg)
     ref_g = ref_step.grads(ref_p, batches[0])
-    got_g = parallel.gather_tree(step.grads(params, batches[0]), specs, ctx)
+    with parallel.record_collectives() as calls:
+        got_g = step.grads(params, batches[0])
+    got_g = parallel.gather_tree(got_g, specs, ctx)
     out = {"grads": _max_diff(got_g, ref_g), "grad_rel": _max_rel(got_g,
                                                                   ref_g),
            "grad_max": _max_diff(ref_g, prm.tree_map(torch.zeros_like,
-                                                     ref_g))}
+                                                     ref_g)),
+           # the rows this rank holds of each microbatch, and the kind and
+           # group size of each collective of its gradients, in order
+           "rows": int(_local_rows(torch.arange(b), microbatch,
+                                   ctx.batch_world, ctx.batch_rank).numel()
+                       // microbatch),
+           "calls": [[kind, n] for kind, _, n in calls]}
     losses, norms = [], []
     for i, batch in enumerate(batches):
         ref_p, ref_o, rm = ref_step(ref_p, ref_o, batch)
@@ -338,6 +346,34 @@ def jax_ref_check(ctx, case: str) -> dict:
     return {"logits": max(diffs), "steps": len(r["fed"]),
             "logit_max": max(float(np.abs(x).max()) for x in r["logits"]),
             **_first_ring(cache)}
+
+
+def jax_micro_check(ctx) -> dict:
+    """One step of the sharded train step, 4 microbatches of one row over
+    the (2, 2, 1) ranks, against the JAX package's jitted step on a
+    forced (2, 2, 1) CPU mesh (``_jax_seq_ref.py``'s ``micro-pod``, run
+    by the test into this spawn's directory): the loss, the gradient
+    norm and the updated parameters where the gradient clears f32 noise
+    (``_first_update``)."""
+    with open(Path(RUN_DIR, "jax_seq_ref.pkl"), "rb") as f:
+        r = pickle.load(f)["micro-pod"]
+    cfg = CONFIGS[r["config"]]()
+    acfg = AdamWConfig(**r["acfg"])
+    full = prm.from_jax(cfg, r["weights"], device="cpu")
+    step = make_train_step(cfg, ctx, TrainPlan(microbatch=r["microbatch"]),
+                           acfg)
+    specs = step.shardings["params"]
+    params = parallel.shard_tree(_clone(full), specs, ctx)
+    opt = init_opt_state(params, acfg, ctx, cfg=cfg)
+    batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
+    params, _, m = step(params, opt, batch)
+    got = parallel.gather_tree(params, specs, ctx)
+    want = prm.from_jax(cfg, r["params"], device="cpu")
+    grads = prm.from_jax(cfg, r["grads"], device="cpu")
+    return {"loss": abs(float(m["loss"]) - r["loss"]),
+            "norm_rel": abs(float(m["grad_norm"]) - r["grad_norm"])
+            / r["grad_norm"],
+            **_first_update(got, want, full, grads, r["grad_norm"], acfg)}
 
 
 def _norm_scales(tree) -> list:
@@ -581,9 +617,13 @@ def refusal_check(ctx, what: str) -> dict:
         elif what == "local-shape":
             make_train_step(tiny().replace(dtype="float16", use_pallas=True),
                             ctx)
-        elif what == "batch-split":
-            make_train_step(tiny(), ctx, TrainPlan(), AdamWConfig(),
-                            shape=ShapeConfig("t", 16, 3, "train"))
+        elif what == "microbatch-split":
+            # reference fault 8: the step raises on the global batch,
+            # before any rank takes its rows, where the reference's
+            # ``slice_mb`` drops the fifth row
+            step = make_train_step(tiny(), ctx, TrainPlan(microbatch=2),
+                                   AdamWConfig())
+            step.grads(_params(tiny()), _batch(tiny(), 5, 16))
         elif what == "compress-no-pod":
             make_train_step(tiny(), ctx, TrainPlan(compress_grads=True),
                             AdamWConfig())
@@ -663,7 +703,11 @@ CHECKS = {
     "jax-ref-seamless": lambda c: jax_ref_check(c, "seamless"),
     "refuse-tp-hybrid": lambda c: refusal_check(c, "tp-hybrid"),
     "refuse-local-shape": lambda c: refusal_check(c, "local-shape"),
-    "refuse-batch-split": lambda c: refusal_check(c, "batch-split"),
+    # a global batch of 3 over 2 batch ranks, refused until the steps
+    # took GSPMD's padded shards: 2 rows and 1
+    "refuse-batch-split": lambda c: train_check(c, CONFIGS["tiny"](), 3, 16,
+                                                False),
+    "refuse-microbatch-split": lambda c: refusal_check(c, "microbatch-split"),
     "refuse-compress-no-pod": lambda c: refusal_check(c, "compress-no-pod"),
     "train-tiny-compress": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
                                                  False, compress=True),
@@ -673,6 +717,27 @@ CHECKS = {
                                                  40, 6, long=True),
     "jax-ref-seamless-long": lambda c: jax_ref_check(c, "seamless-long"),
     "world1-tiny": lambda c: world1_check(c, CONFIGS["tiny"](), 4, 16),
+    # batch splits that do not divide over the batch ranks (GSPMD's padded
+    # shards, ``launch.train._local_rows``): on (2, 1) one row a
+    # microbatch, rank 1 empty, dense and the MoE's global dispatch (S
+    # 16); the MoE's per-row dispatch at S 256 over 2 rows and 1 (each
+    # microbatch of one row would route globally, as the reference's);
+    # on (2, 2, 1) 4 microbatches of one row (ranks 1 to 3 empty), 2 of
+    # 3 rows (held 1, 1, 1 and 0), and the per-row dispatch of 2 rows
+    # over 4 ranks (ranks 2 and 3 empty)
+    "train-tiny-uneven": lambda c: train_check(c, CONFIGS["tiny"](), 2, 16,
+                                               False, microbatch=2),
+    "train-arctic-uneven": lambda c: train_check(c, CONFIGS["arctic"](), 2,
+                                                 16, False, microbatch=2),
+    "train-arctic-rows-uneven": lambda c: train_check(
+        c, CONFIGS["arctic"](), 3, 256, False, steps=1),
+    "train-tiny-micro4": lambda c: train_check(c, CONFIGS["tiny"](), 4, 16,
+                                               False, microbatch=4),
+    "train-tiny-micro-odd": lambda c: train_check(c, CONFIGS["tiny"](), 6,
+                                                  16, False, microbatch=2),
+    "train-arctic-rows-empty": lambda c: train_check(
+        c, CONFIGS["arctic"](), 2, 256, False, steps=1),
+    "jax-micro-pod": lambda c: jax_micro_check(c),
     "sp-collectives": collectives_check,
 }
 # sequence parallelism over ``model`` (tests/test_torch_sequence_parallel.py)
@@ -929,6 +994,12 @@ CHECKS.update(CKPT)
 # each checkpoint check's own limit, seconds: a rank that restores while
 # another is in a collective would hang, so a stuck check fails alone
 TIMEOUTS = dict.fromkeys(CKPT, 240)
+# the uneven batch splits, whose ranks would hang on a collective one of
+# them skipped
+TIMEOUTS.update(dict.fromkeys(
+    ["refuse-batch-split", "train-tiny-uneven", "train-arctic-uneven",
+     "train-arctic-rows-uneven", "train-tiny-micro4", "train-tiny-micro-odd",
+     "train-arctic-rows-empty", "jax-micro-pod"], 240))
 
 
 def psum_inputs(step: int, rank: int) -> dict:

@@ -1598,8 +1598,20 @@ def test_sharded_phase_runs_on_cpu(smoke, monkeypatch, tmp_path, capsys):
     # (b), (f) served on rank 0; (d), (e), (g) on rank 0
     assert out.count("greedy tokens equal the unsharded run's") == 4 + 4 + 1
     assert out.count("equal rank 0's; train step loss") == 2 + 4
-    # (b), (c), (f), and (h)'s step from the restored state
-    assert out.count("gradient shards within") == 2 * (3 + 4 + 1)
+    # (b), (c), (c') twice, (f), and (h)'s step from the restored state
+    assert out.count("gradient shards within") == 2 * (3 + 2 + 4 + 1)
+    # (c'): rank 1 holds no row of either microbatch, runs both, and
+    # makes rank 0's collectives
+    for key in ("of one row", "of one row, the MoE's global dispatch"):
+        for r, rows in ((0, 1), (1, 0)):
+            assert f"(c') mesh (2, 1), DP + FSDP, B 2 in 2 microbatches " \
+                f"{key}, rank {r}: " in out
+    assert out.count("0 row(s) of each microbatch: train step loss") == 2
+    assert out.count("1 row(s) of each microbatch: train step loss") == 2
+    assert out.count("collectives equal rank 0's in kind and group size") \
+        == 4
+    assert out.count("(c') arctic's width, rank 1 empty, rank 1: the train "
+                     "step's") == 1
     for r in (0, 1):
         assert f"(h) checkpoints, rank {r}: (c)'s state (tiny-agent width, " \
             "2 layer(s), f32, int8 moments, 61 leaves), saved async" in out
@@ -1666,3 +1678,24 @@ def test_combine_phase_inputs_bound_and_held_errors(smoke):
     assert smoke.call_err(shifted, pair).item() == float("inf")
     zeros = torch.zeros(3, 4)
     assert smoke.call_err(zeros, zeros).item() == 0.0
+
+
+def test_smoke_cuts_undoes_each_cut(smoke, monkeypatch):
+    """``tools/smoke_cuts.py``'s old runs: each constant a cut may set
+    at its value before any cut, nothing else of the smoke changed, and
+    the ``[time]`` lines read back as each phase's seconds."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import smoke_cuts
+
+    monkeypatch.setattr(smoke, "EAGER_NEW", 8)
+    monkeypatch.setattr(smoke, "SHARDED_NEW", 8)
+    monkeypatch.setattr(smoke, "WIDE_MODELS", list(smoke.WIDE_MODELS))
+    before = list(smoke.WIDE_MODELS)
+    assert before[-1][1] == "xlstm-350m" and before[-1][5] == (8, 2, 512)
+    smoke_cuts.undo_cuts(smoke)
+    assert (smoke.EAGER_NEW, smoke.SHARDED_NEW) == (16, 16)
+    assert smoke.WIDE_MODELS[:-1] == before[:-1]
+    assert smoke.WIDE_MODELS[-1] == before[-1][:5] + ((8, 2, 1024),)
+    assert smoke_cuts.phase_times(
+        "[time] 2 build: 24.5 s\nx\n[time] 38 sharded: 129.3 s\n") == {
+            "2 build": 24.5, "38 sharded": 129.3}

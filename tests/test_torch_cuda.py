@@ -2137,3 +2137,45 @@ def test_meta_branch_allocates_and_returns_what_the_launch_does(
     assert counted[counted_as]["calls"] == 1
     assert steps._shapes(want) == steps._shapes(got)
     assert meta.made == real.made
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", [
+    "flash_attention", "flash_attention_forward", "flash_attention_backward",
+    "ssm_scan", "ssm_scan_backward", "grouped_matmul",
+    "grouped_matmul_backward"])
+def test_no_rows_launch_nothing(cuda_device, name, dtype):
+    """A rank that holds no row of a batch split calls the kernels at B 0
+    (``grouped_matmul`` at C 0): each entry point returns its plain
+    version's shapes and raises nothing, and no kernel is launched (a
+    grid of no CTAs is not a launch), forward or, under autograd,
+    backward."""
+    import test_torch_dryrun_steps as steps
+
+    xs, extra = steps._empty_args(name)
+    # q, k, v (x, w) and the tensors of their shapes in ``dtype``; log_a,
+    # h0 and the log-sum-exp stay f32
+    xs = [x.to(dtype) if i < 3 and x.is_floating_point() else x
+          for i, x in enumerate(xs)]
+    extra = [e.to(dtype) if e.ndim != 3 or name.startswith("grouped")
+             else e for e in extra]
+    call, plain = steps.EMPTY[name]
+    want = steps._shapes(plain(xs, extra))
+    before = {k: w.launches for k, w in steps.WRAPPERS.items()}
+    got = call([x.to(cuda_device) for x in xs],
+               [e.to(cuda_device) for e in extra])
+    torch.cuda.synchronize()
+    assert steps._shapes(got) == want
+    if name in ("flash_attention", "ssm_scan", "grouped_matmul"):
+        live = [x.to(cuda_device).requires_grad_(x.is_floating_point())
+                for x in xs]
+        out = call(live, [])
+        outs = out if isinstance(out, tuple) else (out,)
+        grads = torch.autograd.grad(outs[0].sum(), [
+            x for x in live if x.requires_grad])
+        torch.cuda.synchronize()
+        assert [g.shape for g in grads] == [
+            x.shape for x in live if x.requires_grad]
+    assert {k: w.launches for k, w in steps.WRAPPERS.items()} == before

@@ -67,10 +67,13 @@ def test_fake_world_leaves_nothing_behind():
                            3)
     assert res["collectives"]["count"] > 0
     assert not dist.is_initialized() and parallel._ACTIVE == []
-    # a step that raises inside the world tears it down too
+    # a step that raises inside the world tears it down too (a batch of 3
+    # over the two data ranks runs, in padded shards; 2 microbatches do
+    # not split it)
     with pytest.raises(ValueError, match="batch"):
         with fake_world((2, 2), AXES, 1) as ctx:
-            make_train_step(cfg, ctx, shape=ShapeConfig("t", 16, 3, "train"))
+            make_train_step(cfg, ctx, TrainPlan(microbatch=2),
+                            shape=ShapeConfig("t", 16, 3, "train"))
     assert not dist.is_initialized() and parallel._ACTIVE == []
     # what a process with no group expects still holds
     with pytest.raises(RuntimeError, match="process group"):
@@ -446,3 +449,127 @@ def test_every_family_runs_on_the_single_pod_mesh(arch):
     for r in rec["ranks"].values():
         assert r["memory"]["peak_bytes"] <= rec["memory"]["peak_bytes"]
         assert r["flops"] <= rec["flops"]
+
+
+# ---------------------------------------------------------------------------
+# (j) a batch of no rows, and the multi-pod train cells' empty ranks
+# ---------------------------------------------------------------------------
+
+
+def _empty_args(name):
+    """Inputs of a kernel entry point at B 0 (``grouped_matmul``'s at C 0,
+    an expert's rows of a rank that holds no token), with the extra
+    arguments the call takes."""
+    gen = torch.Generator().manual_seed(2)
+    if name.startswith("flash"):
+        xs = [_rand(gen, (0, 24, 8, 40)), _rand(gen, (0, 24, 2, 40)),
+              _rand(gen, (0, 24, 2, 40))]
+        return xs, [xs[0] * 0, torch.zeros((0, 8, 24)), xs[0] + 1]
+    if name.startswith("ssm"):
+        xs = [_rand(gen, (0, 20, 3, 8)), _rand(gen, (0, 20, 3, 8)),
+              _rand(gen, (0, 20, 3, 6)), torch.zeros((0, 20, 3)),
+              torch.zeros((0, 3, 8, 6))]
+        return xs, [torch.zeros((0, 20, 3, 6))]
+    xs = [_rand(gen, (4, 0, 16)), _rand(gen, (4, 16, 24)),
+          torch.zeros(4, dtype=torch.int32)]
+    return xs, [torch.zeros((4, 0, 24))]
+
+
+EMPTY = {
+    "flash_attention": (lambda a, e: fa_mod.flash_attention(*a),
+                        lambda a, e: fa_mod.flash_attention_plain(*a)),
+    "flash_attention_forward": (
+        lambda a, e: fa_mod.flash_attention_forward(*a),
+        lambda a, e: (fa_mod.flash_attention_plain(*a),
+                      fa_mod.flash_attention_lse_plain(a[0], a[1]))),
+    "flash_attention_backward": (
+        lambda a, e: fa_mod.flash_attention_backward(*a, *e),
+        lambda a, e: fa_mod.flash_attention_backward_plain(*a, e[2])),
+    "ssm_scan": (lambda a, e: scan_mod.ssm_scan(*a, chunk=8),
+                 lambda a, e: scan_mod.ssm_scan_plain(*a, chunk=8)),
+    "ssm_scan_backward": (
+        lambda a, e: scan_mod.ssm_scan_backward(*a, *e, chunk=8),
+        lambda a, e: scan_mod.ssm_scan_backward_plain(*a, *e, chunk=8)),
+    "grouped_matmul": (lambda a, e: gm_mod.grouped_matmul(*a),
+                       lambda a, e: gm_mod.grouped_matmul_plain(*a)),
+    "grouped_matmul_backward": (
+        lambda a, e: gm_mod.grouped_matmul_backward(*a, *e),
+        lambda a, e: gm_mod.grouped_matmul_backward_plain(*a, *e))}
+
+
+@pytest.mark.parametrize("name", list(EMPTY))
+def test_kernel_on_no_rows_counts_nothing(name):
+    """A rank that holds no row of a batch split calls the kernels on B 0:
+    on meta each entry point returns its plain version's shapes and
+    counts no call (on the card it launches nothing: a grid of no CTAs
+    is not a launch), and under autograd neither does its backward."""
+    xs, extra = _empty_args(name)
+    call, plain = EMPTY[name]
+    ref = _shapes(plain(xs, extra))
+    before = {k: w.launches for k, w in WRAPPERS.items()}
+    with work.count_calls() as counted:
+        got = call(_meta(xs), _meta(extra))
+    assert _shapes(got) == ref and counted == {}
+    assert {k: w.launches for k, w in WRAPPERS.items()} == before
+    if name in ("flash_attention", "ssm_scan", "grouped_matmul"):
+        metas = [x.to("meta").requires_grad_(x.is_floating_point())
+                 for x in xs]
+        live = [x for x in metas if x.requires_grad]
+        with work.count_calls() as counted:
+            out = call(metas, [])
+            outs = out if isinstance(out, tuple) else (out,)
+            grads = torch.autograd.grad(outs[0].sum(), live)
+        assert counted == {}
+        assert [g.shape for g in grads] == [x.shape for x in live]
+
+
+MULTI = ShapeMesh(("pod", "data", "model"), (2, 16, 16))
+# the multi-pod train cells: 16 microbatches of 16 rows over 32 batch
+# ranks, ranks 16 to 31 of each microbatch (the last rank's too) empty
+MULTI_TRAIN = ("llama3-405b", "command-r-plus-104b", "arctic-480b",
+               "kimi-k2-1t-a32b")
+
+
+@pytest.mark.parametrize("arch", MULTI_TRAIN)
+def test_multi_pod_train_acts_are_one_row_not_zero(arch):
+    """``activation_bytes`` of the multi-pod train cells: GSPMD's padded
+    shard of a 16-row microbatch over 32 batch ranks is one row, S cut
+    over the 16 model ranks: layers x 1 x S/16 x d x itemsize (the floor
+    it once took gave 0)."""
+    cfg = get_config(arch)
+    shape = SHAPES["train_4k"]
+    plan = dryrun.default_plan(cfg, shape)
+    assert plan.microbatch == 16
+    want = cfg.n_layers * 1 * (shape.seq_len // 16) * cfg.d_model * 2
+    assert dryrun.activation_bytes(cfg, shape, MULTI, 16) == want > 0
+    rec = dryrun.cell_record(arch, "train_4k", MULTI, "multi")
+    assert rec["bytes_per_device"]["acts"] == want
+    assert rec["port_refuses"] is None
+
+
+@pytest.mark.parametrize("arch", ["llama3-405b", "kimi-k2-1t-a32b"])
+def test_multi_pod_train_cell_runs_on_its_empty_ranks(arch):
+    """The real 16-microbatch plan of a multi-pod train cell at one unit
+    of ``_scaled_cfg`` (llama3: 1 layer; kimi: its dense layer and an
+    MoE layer), kernels on: rank 0 (a row of each microbatch) and rank
+    511 (none) both run the step; the empty rank makes the same
+    collectives (kind and group size, in order) and counts no kernel
+    call, where rank 0 counts flash's (and kimi's expert products')."""
+    full = get_config(arch)
+    shape = SHAPES["train_4k"]
+    plan = dryrun.default_plan(full, shape)
+    cfg = dryrun._scaled_cfg(full, 1).replace(use_pallas=True)
+    sizes = dict(zip(MULTI.axis_names, (2, 16, 16)))
+    # the collectives and kernel calls only: the memory counter would
+    # triple the pass's time (the CLI's --steps records both ranks' peaks)
+    got = {r: dryrun.rank_pass(cfg, shape, sizes, r, plan, memory=False,
+                               costs=False)
+           for r in (0, 511)}
+    calls = {r: [(kind, n) for kind, _, n in res["calls"]]
+             for r, res in got.items()}
+    assert calls[0] and calls[0] == calls[511]
+    assert got[511]["kernels"] == {}
+    want = {"flash_attention", "flash_attention_backward"} | (
+        {"grouped_matmul", "grouped_matmul_backward"} if full.n_experts
+        else set())
+    assert set(got[0]["kernels"]) == want

@@ -42,9 +42,18 @@ against its single-device steps.
 * every family over ``model`` accepted where it once was refused (the
   hybrid, xLSTM, VLM and encoder-decoder configs on the CPU meshes and
   the production mesh, their serve cells too); the refusals: a local
-  attention shape no kernel takes, a batch that does not split for
-  training, compressed gradients without a pod axis, a shape-only mesh
-  of many devices;
+  attention shape no kernel takes, a global batch its microbatches do
+  not split (on every rank, where the reference drops rows: ROADMAP §C,
+  reference fault 8), compressed gradients without a pod axis, a
+  shape-only mesh of many devices;
+* batch splits that do not divide over the batch ranks, as the
+  reference's GSPMD pads them: a batch of 3 on (2, 1), microbatches of
+  one row with rank 1 empty (tiny-agent, the arctic smoke's global
+  dispatch), the MoE's per-row dispatch over 2 rows and 1, and on a
+  (2, 2, 1) pod mesh 4 microbatches of one row, 2 of 3 rows and the
+  per-row dispatch with two empty ranks, each held to one device, every
+  rank's collectives equal rank 0's; and 4 microbatches of one row on
+  (2, 2, 1) against the JAX package's own step on a forced CPU mesh;
 * the dry run: a record for every applicable cell on both production
   meshes, its per-device parameter and optimizer bytes equal to the
   reference's ``abstract_state`` cut by the reference's specs, and none
@@ -411,6 +420,18 @@ FAMILY_SERVE = ["serve-hymba", "serve-xlstm", "serve-qwen2vl",
 # cut over ``model``, the mamba branch cut
 WHOLE_HEADS = ["train-hymba-whole", "serve-hymba-whole"]
 FAMILY = set(FAMILY_TRAIN + FAMILY_SERVE + WHOLE_HEADS)
+# batch splits that do not divide over the batch ranks: GSPMD's padded
+# shards, some ranks empty (``_torch_ranks``), and the rows each rank
+# holds of a microbatch
+UNEVEN2 = ["train-tiny-uneven", "train-arctic-uneven",
+           "train-arctic-rows-uneven"]
+UNEVEN4 = ["train-tiny-micro4", "train-tiny-micro-odd",
+           "train-arctic-rows-empty"]
+ROWS = {"train-tiny-uneven": [1, 0], "train-arctic-uneven": [1, 0],
+        "train-arctic-rows-uneven": [2, 1], "refuse-batch-split": [2, 1],
+        "train-tiny-micro4": [1, 0, 0, 0],
+        "train-tiny-micro-odd": [1, 1, 1, 0],
+        "train-arctic-rows-empty": [1, 1, 0, 0]}
 CKPT_SAVE = ["ckpt-save"]
 CKPT_JAX = ["ckpt-jax-tiny", "ckpt-jax-llama"]
 PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
@@ -419,7 +440,8 @@ PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
           + ["jax-ref-hymba", "jax-ref-seamless"]),
          ((2, 1), TRAIN + ["train-hymba", "serve-hymba"] + SERVE + MOE + [
             "refuse-batch-split", "serve-tiny-long", "serve-hymba-long",
-            "serve-danube-long", "jax-ref-long", "refuse-compress-no-pod"]),
+            "serve-danube-long", "jax-ref-long", "refuse-compress-no-pod",
+            "refuse-microbatch-split"] + UNEVEN2),
          ((2, 1, 1), ["train-tiny-int8", "train-tiny-compress",
                       "serve-tiny"]),
          # checkpoints of a sharded train state: saved on (2, 1) with
@@ -431,14 +453,18 @@ PLAN2 = [((1, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
 PLAN4 = [((2, 2), TRAIN + ["train-tiny-kv1"] + SERVE + MOE + [
             "serve-kv1-long", "train-hymba-tp", "train-seamless"]),
          ((1, 4), ["refuse-local-shape", "serve-tiny", "jax-ref-gqa"]
-          + FAMILY_TRAIN + FAMILY_SERVE)]
+          + FAMILY_TRAIN + FAMILY_SERVE),
+         ((2, 2, 1), UNEVEN4 + ["jax-micro-pod"])]
 CASES = [(shape, n, w) for w, plan in ((2, PLAN2), (4, PLAN4))
          for shape, names in plan for n in names]
-REFUSED = {"refuse-batch-split": "does not split",
+REFUSED = {"refuse-microbatch-split": "a global batch of 5 does not split "
+                                      "into 2 microbatches",
            "refuse-compress-no-pod": "'pod'",
            "refuse-local-shape": "no kernel"}
 # refused until the model axis cut every family: now the step builds
 ACCEPTED = {"refuse-tp-hybrid"}
+# refused until the steps took padded shards: now a train check
+SPLIT = {"refuse-batch-split"}
 # the config of each serve and JAX-reference check
 # (``_torch_ranks.CONFIGS``)
 SERVED = {"serve-tiny": "tiny", "serve-arctic": "arctic",
@@ -479,7 +505,8 @@ def rank_results(tmp_path_factory):
     # the JAX package's sharded serve steps, in a process whose JAX sees
     # four CPU devices; a failure shows in the jax-ref checks
     subprocess.run([sys.executable, str(root / "tests" / "_jax_seq_ref.py"),
-                    str(ref), "gqa", "long", "hymba", "seamless", "ckpt"],
+                    str(ref), "gqa", "long", "hymba", "seamless", "ckpt",
+                    "micro-pod"],
                    env=env, timeout=300, check=False)
     if ref.exists():
         shutil.copy(ref, dirs[4] / ref.name)
@@ -500,7 +527,7 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             _check_ckpt(name, shape, got)
         elif name in ACCEPTED:
             assert not got["raised"], got
-        elif name.startswith("refuse-"):
+        elif name in REFUSED:
             assert got["raised"] and REFUSED[name] in got["message"], got
         elif name in FAMILY and name.startswith("train-"):
             # one step, each gradient leaf relative to its largest
@@ -516,7 +543,7 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             assert got["grads"] <= 2 * got["grad_max"] / 127, got
             assert got["loss0"] <= TOL
             assert got["ef_leaves"] > 0 and got["ef_max"] > 0
-        elif name.startswith("train-"):
+        elif name.startswith("train-") or name in SPLIT:
             assert got["grads"] <= TOL * max(got["grad_max"], 1.0), got
             assert got["loss"] <= TOL and got["norm_rel"] <= TOL, got
             assert got["params"] <= TOL and got["moved"] > 10 * TOL, got
@@ -533,6 +560,11 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             assert got["slots"] * n == got["ring"], got
             if name == "serve-seamless":         # cross K/V cut by heads
                 assert got["cross_heads"] == kv // m, got
+        elif name == "jax-micro-pod":
+            # the JAX package's own step on the forced (2, 2, 1) mesh
+            assert got["loss"] <= TOL and got["norm_rel"] <= TOL, got
+            assert got["params_sure"] <= TOL and got["held"] >= 0.5, got
+            assert got["bounded"], got
         elif name.startswith("jax-ref-"):
             # the port's sharded steps against the JAX package's own
             band = _band(name)
@@ -543,6 +575,22 @@ def test_sharded_step_matches_single_device(rank_results, shape, name,
             assert got["dropped_ref"] > 0
             assert got["dropped"] <= 1e-6 and got["aux"] <= 1e-6, got
             assert got["y"] <= TOL, got
+
+
+@pytest.mark.parametrize("shape,name,world", [
+    (s, n, w) for s, n, w in CASES if n in ROWS],
+    ids=[f"{'x'.join(map(str, s))}-{n}" for s, n, _ in CASES if n in ROWS])
+def test_uneven_split_ranks_make_the_same_collectives(rank_results, shape,
+                                                      name, world):
+    """Every rank of a batch split that does not divide runs every
+    microbatch, so its collectives (kind and group size, in order) are
+    rank 0's, whatever rows it holds: GSPMD's padded shards, some
+    empty."""
+    key = f"{tuple(shape)}:{name}"
+    res = [r[key] for r in rank_results[world]]
+    assert [r["rows"] for r in res] == ROWS[name]
+    assert res[0]["calls"] and all(r["calls"] == res[0]["calls"]
+                                   for r in res)
 
 
 def _check_ckpt(name: str, shape, got: dict) -> None:

@@ -182,7 +182,8 @@ def test_dryrun_counts_what_remat_keeps():
     """``acts`` of every train cell on both production meshes: with
     ``act_sharding`` off it is the model axis's size times the figure
     with it on (every stack's S divides 16), layers x B_local x S x d x
-    itemsize over the microbatches; the cells' records carry it."""
+    itemsize over the microbatches, B_local a microbatch's padded shard
+    (at least one row); the cells' records carry it."""
     n = 0
     for multi in (False, True):
         mesh = make_production_mesh(multi_pod=multi)
@@ -198,9 +199,11 @@ def test_dryrun_counts_what_remat_keeps():
                 off = dryrun.activation_bytes(
                     cfg.replace(act_sharding=False), shape, mesh, k)
                 assert off == sizes["model"] * on, (arch, shape.name)
-                b = shape.global_batch // shd.axes_size(
+                # a microbatch's padded shard: one row of 16 over the
+                # multi-pod mesh's 32 batch ranks, where a floor gave 0
+                b = -(-shape.global_batch // (k * shd.axes_size(
                     shd.batch_pspec(mesh, batch_size=shape.global_batch)[0],
-                    sizes) // k
+                    sizes)))
                 enc = specs_mod.enc_len(cfg, shape)
                 want = (cfg.n_layers * shape.seq_len + cfg.enc_layers * enc
                         ) * b * cfg.d_model * (2 if cfg.dtype == "bfloat16"
