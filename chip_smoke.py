@@ -876,6 +876,11 @@ def phase_flash(dev) -> list:
                                   heads=(h, hkv, dh)),
                        f"B=1 S=T=1024 H={h} Hkv={hkv} dh={dh}")
             for h, hkv, dh in PAST_FLASH_HEADS]
+    # the train step's forward call: agent-7b's heads at B 2 x S 4096
+    time_flash(flash_case(torch.bfloat16, TRAIN_SEQ, TRAIN_SEQ, gen, dev,
+                          b=TRAIN_BATCH),
+               f"B={TRAIN_BATCH} S=T={TRAIN_SEQ} H=32 Hkv=8 dh=128 (the "
+               f"train step's)")
 
     # the JSON row: agent-7b's ring prefill of its longest prompt
     ms, plain_ms, library_ms, bound_ms, bound_by = time_flash(
@@ -2739,7 +2744,7 @@ def profile_prefill(eng: TorchEngine, prompt_len: int, phase: str) -> None:
     prefill(prof)
     rows = device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3
-    flash_ms = sum(r[0] for r in rows if "flash_attention" in r[2]) / 1e3
+    flash_ms = sum(r[0] for r in rows if kernel_class(r[2]) == "flash") / 1e3
     log("profile", f"{phase}: prefill of one {prompt_len}-token prompt: "
         f"device busy {device_ms:.2f} ms of {wall_ms:.2f} ms unprofiled "
         f"({100 * device_ms / wall_ms:.1f}% busy); flash_attention "
@@ -3364,7 +3369,7 @@ def free(params) -> None:
 
 # the kernels of the port's redesigns, whose instantiations phase 2 lists
 NEW_KERNELS = ("paged_split_kernel", "decode_split_kernel",
-               "flash_attention_mma_kernel", "flash_attention_kernel",
+               "flash_fwd_tma_kernel", "flash_attention_kernel",
                "split_merge_kernel", "grouped_matmul_tma_kernel",
                "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
                "ssm_chunk_output_kernel", "ssm_chunk_output_mma_kernel",
@@ -3790,6 +3795,12 @@ def phase_train(dev) -> dict:
         f"{c} {ms_:.1f} ms ({100 * ms_ / busy:.1f}%, {n_} calls)"
         for c, (ms_, n_) in sorted(classes.items(),
                                    key=lambda kv: -kv[1][0])))
+    fwd = [(us, count) for us, count, key in rows
+           if "flash" in key and "flash_bwd" not in key]
+    fwd_ms = sum(us for us, _ in fwd) / 1e3
+    log("profile", f"{phase}: the flash forward's kernel {fwd_ms:.1f} ms in "
+        f"{sum(c for _, c in fwd)} launches, "
+        f"{100 * fwd_ms / max(busy, 1e-9):.1f}% of the step's device time")
     bwd = [(us, count) for us, count, key in rows if "flash_bwd" in key]
     bwd_ms = sum(us for us, _ in bwd) / 1e3
     log("profile", f"{phase}: the flash backward's kernels (D pre-pass, "

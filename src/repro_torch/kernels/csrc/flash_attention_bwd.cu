@@ -1250,20 +1250,6 @@ cudaError_t launch_f32(const BwdArgs& a) {
 }
 
 
-// the (dh, heads, rows, B) tensor map of a (B, rows, heads, dh) bf16
-// tensor, in boxes of 64 columns of dh x 1 head x 64 rows
-bool head_map(CUtensorMap* map, const void* p, int batch, int rows,
-              int heads, int dh) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(dh),
-                            static_cast<uint64_t>(heads),
-                            static_cast<uint64_t>(rows),
-                            static_cast<uint64_t>(batch)};
-  const uint64_t strides[3] = {2ull * dh, 2ull * heads * dh,
-                               2ull * rows * heads * dh};
-  const uint32_t box[4] = {BOX, 1, TILE, 1};
-  return hopper::encode_tensor_map_nd(map, p, 4, dims, strides, box);
-}
-
 template <int DH>
 int launch_tma(const BwdArgs& a) {
   using L = Layout<DH>;
@@ -1299,10 +1285,10 @@ int launch_tma(const BwdArgs& a) {
   if (a.batch > 65535 || kblocks > 65535 || qblocks > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap qm, dm, km, vm;
-  if (!head_map(&qm, a.q, a.batch, a.s_len, a.h_q, a.dh) ||
-      !head_map(&dm, a.dout, a.batch, a.s_len, a.h_q, a.dh) ||
-      !head_map(&km, a.k, a.batch, a.t_len, hkv, a.dh) ||
-      !head_map(&vm, a.v, a.batch, a.t_len, hkv, a.dh))
+  if (!hopper::head_map(&qm, a.q, a.batch, a.s_len, a.h_q, a.dh, TILE) ||
+      !hopper::head_map(&dm, a.dout, a.batch, a.s_len, a.h_q, a.dh, TILE) ||
+      !hopper::head_map(&km, a.k, a.batch, a.t_len, hkv, a.dh, TILE) ||
+      !hopper::head_map(&vm, a.v, a.batch, a.t_len, hkv, a.dh, TILE))
     return -2;
   cudaError_t err = launch_dot<__nv_bfloat16>(a);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -227,10 +227,26 @@ __device__ __forceinline__ void fence_regs(float (&acc)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
+// the same for register A operands (bf16 pairs), which an asynchronous
+// product still reads after its issue
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(unsigned (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 // a barrier of the `threads` threads that name `id` (1-15; 0 is
 // __syncthreads), e.g. one warpgroup
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrives at barrier `id` without waiting: the other threads of its count
+// wait in named_barrier until these have arrived
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // two f32 values as a bf16x2 word, round to nearest even
@@ -379,6 +395,22 @@ inline bool encode_tensor_map(CUtensorMap* map, const void* base, uint64_t d0,
   const uint64_t strides[2] = {s1, s2};
   const uint32_t box[3] = {b0, b1, 1};
   return encode_tensor_map_nd(map, base, 3, dims, strides, box);
+}
+
+// The (dh, heads, rows, B) tensor map of a (B, rows, heads, dh) bf16
+// tensor, in boxes of 64 columns of dh x 1 head x box_rows rows: rows
+// past `rows` arrive as zeros, never the next batch's, and columns past
+// dh as zeros, never the next head's (the flash kernels' Q, K, V, dO)
+inline bool head_map(CUtensorMap* map, const void* p, int batch, int rows,
+                     int heads, int dh, int box_rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(dh),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[3] = {2ull * dh, 2ull * heads * dh,
+                               2ull * rows * heads * dh};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(box_rows), 1};
+  return encode_tensor_map_nd(map, p, 4, dims, strides, box);
 }
 
 // The device's SM count, read once per device (the persistent grids)

@@ -33,10 +33,17 @@ comes out as zeros from the kernel (with LSE ``-inf`` and a zero
 gradient) and as the uniform average from the plain version.
 
 Bound on the card: operations, ``4 * dh`` per (query row, head, valid
-key), against the tensor cores' bf16 rate.  bf16 runs on the tensor
-cores (``mma.sync``, f32 accumulators, P rounded to bf16 before P V);
-f32 runs IEEE FMAs on the CUDA cores, since the f32 band of 2e-5 is
-beyond TF32.  The backward's bound is operations too, ``10 * dh`` per
+key), against the tensor cores' bf16 rate.  bf16 up to dh 256 runs on
+TMA and ``wgmma`` with warp specialisation: a persistent grid walking
+(query head, b, 128 query rows) items, a producer warp streaming K/V
+tiles of 128 keys (64 at
+dh past 128) by TMA through (dh, heads, rows, B) tensor maps, and two
+consumer warpgroups of 64 rows that compute S = Q K^T from shared memory
+and O += P V with P rounded to bf16 in registers, the next tile's scores
+overlapping this tile's P V and the two warpgroups taking turns at the
+tensor cores; f32 runs IEEE FMAs on the CUDA cores, since the f32 band of
+2e-5 is beyond TF32.  What still holds the bf16 body back is in the CUDA
+source's note.  The backward's bound is operations too, ``10 * dh`` per
 (query row, head, valid key); its bf16 body runs on TMA and ``wgmma``
 (a dK/dV pass of 128-key blocks and a dQ pass of 128-row blocks, each
 two consumer warpgroups of 64 rows fed 64-row tiles by a producer

@@ -9,11 +9,13 @@ designs in PyTorch and checks them against the plain versions:
   rules of ``split_merge_kernel`` (``csrc/common.cuh``): an empty range
   writes m = NEG_INF, l = 0 and no acc, and a row with no valid slot comes
   out as zeros.  Held to ``decode_attention_plain`` within 1e-5 (f32).
-* bf16 flash attention on the tensor cores walks 64-row query blocks of
-  four 16-row warps over 64-key tiles with an online softmax in exp2
-  units, masks only the tiles a warp does not wholly see as valid, skips
-  the tiles none of its rows needs, and rounds P to bf16 before P V.
-  Held to ``flash_attention_plain`` within the bf16 band 2e-2.
+* bf16 flash attention on the tensor cores walks 128-row query blocks of
+  two 64-row warpgroups over key tiles of 128 (64 at a 256-wide body)
+  with an online softmax in exp2 units, masks only the tiles a
+  warpgroup does not wholly see as valid, skips the tiles none of its
+  rows needs (one run of the block's tiles, which the kernel's pipeline
+  assumes), and rounds P to bf16 before P V.  Held to
+  ``flash_attention_plain`` within the bf16 band 2e-2.
 * paged decode splits each row's block table into ranges of whole pages
   (``paged_decode_splits``); each CTA takes one range, one KV head and a
   group chunk (past 5 heads, chunks of at most 4), walks the range's
@@ -43,7 +45,12 @@ NEG_INF = -1e30
 LOG2E = 1.0 / math.log(2.0)
 SPLIT_MAX = 1024           # csrc/decode_attention.cu: most slots of a CTA
 NWARPS = 4                 # warps of a decode CTA
-TQ, TK, WQ = 64, 64, 16    # flash: query rows, keys of a tile, rows a warp
+TQ, WQ = 128, 64           # flash: query rows of a CTA, of a warpgroup
+
+
+def key_tile(dh):
+    """Keys of a bf16 tile: 128 up to the 128-wide body, 64 at 256."""
+    return 128 if dh <= 128 else 64
 
 
 # ---------------------------------------------------------------------------
@@ -203,17 +210,18 @@ def test_merge_of_empty_ranges_only_is_zero():
 # bf16 flash attention: the tensor-core tile loop
 # ---------------------------------------------------------------------------
 
-def warp_tile(w0, s, t, k0, causal, window):
-    """The kernel's warp-uniform test of a tile: (need, full).  ``need``:
-    some live row of the warp's 16 has a valid key in the tile; ``full``:
-    every (row, key) pair of the tile is valid for the warp's live rows."""
+def warp_tile(w0, s, t, k0, tk, causal, window):
+    """The kernel's warpgroup-uniform test of a tile: (need, full).
+    ``need``: some live row of the warpgroup's 64 has a valid key in the
+    tile; ``full``: every (row, key) pair of the tile is valid for the
+    warpgroup's live rows."""
     w_last = min(w0 + WQ - 1, s - 1)
-    need, full = w0 < s, k0 + TK <= t
+    need, full = w0 < s, k0 + tk <= t
     if causal:
         need = need and k0 <= w_last
-        full = full and k0 + TK - 1 <= w0
+        full = full and k0 + tk - 1 <= w0
         if window > 0:
-            need = need and k0 + TK - 1 > w0 - window
+            need = need and k0 + tk - 1 > w0 - window
             full = full and k0 > w_last - window
     return need, full
 
@@ -228,6 +236,7 @@ def flash_tiles_emulation(q, k, v, causal, window, scale=None):
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
+    tk = key_tile(dh)
     c = LOG2E * (1 / math.sqrt(dh) if scale is None else scale)
     out = torch.zeros(b, s, h, dh)
     for bi in range(b):
@@ -243,18 +252,25 @@ def flash_tiles_emulation(q, k, v, causal, window, scale=None):
                     k_end = min(q0 + TQ, s, t)
                     if window > 0:
                         k_begin = max(q0 - window + 1, 0)
-                k_begin = k_begin // TK * TK
+                k_begin = k_begin // tk * tk
+                tiles = list(range(k_begin, k_end, tk))
+                for w in range(TQ // WQ):
+                    # the tiles a warpgroup needs are one run of the walk
+                    needed = [i for i, k0 in enumerate(tiles) if warp_tile(
+                        q0 + w * WQ, s, t, k0, tk, causal, window)[0]]
+                    assert needed == list(range(needed[0], needed[-1] + 1)) \
+                        if needed else True
                 m = torch.full((TQ,), NEG_INF)
                 l = torch.zeros(TQ)
                 acc = torch.zeros(TQ, dh)
-                for k0 in range(k_begin, k_end, TK):
-                    keys = torch.arange(k0, k0 + TK)
-                    kt = torch.zeros(TK, dh)
-                    vt = torch.zeros(TK, dh)    # ragged: zero-filled rows
-                    kt[:min(TK, t - k0)] = kf[k0:k0 + TK]
-                    vt[:min(TK, t - k0)] = vf[k0:k0 + TK]
+                for k0 in tiles:
+                    keys = torch.arange(k0, k0 + tk)
+                    kt = torch.zeros(tk, dh)
+                    vt = torch.zeros(tk, dh)    # ragged: zero-filled rows
+                    kt[:min(tk, t - k0)] = kf[k0:k0 + tk]
+                    vt[:min(tk, t - k0)] = vf[k0:k0 + tk]
                     sc = qf @ kt.T
-                    ok = (keys < t)[None, :].expand(TQ, TK).clone()
+                    ok = (keys < t)[None, :].expand(TQ, tk).clone()
                     if causal:
                         ok &= keys[None, :] <= rows[:, None]
                         if window > 0:
@@ -263,9 +279,10 @@ def flash_tiles_emulation(q, k, v, causal, window, scale=None):
                     for w in range(TQ // WQ):
                         r = slice(w * WQ, (w + 1) * WQ)
                         w0 = q0 + w * WQ
-                        need, full = warp_tile(w0, s, t, k0, causal, window)
+                        need, full = warp_tile(w0, s, t, k0, tk, causal,
+                                               window)
                         live = rows[r] < s
-                        if not need:     # no live row of the warp is valid
+                        if not need:     # no live row of it is valid
                             assert not ok[r][live].any()
                             continue
                         if full:         # no mask: every pair is valid
@@ -301,7 +318,7 @@ def live_rows(s, t, causal, window):
     return torch.clamp(i - window + 1, min=0) <= torch.clamp(i, max=t - 1)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
 def test_flash_tiles_bf16_match_plain_at_1024(dh):
     """The 2-head cut of a 1024-token causal prefill: two query heads over
     one KV head, every tile of the causal triangle."""
@@ -317,8 +334,10 @@ def test_flash_tiles_bf16_match_plain_at_1024(dh):
     (2, 77, 77, 32, True, 5),          # B = 2, a narrow window
     (1, 900, 900, 128, True, 512),     # window-edge tiles
     (1, 400, 200, 64, True, 64),       # S > T: rows 263.. have no key
-    (1, 200, 90, 128, False, -1),      # non-causal, ragged second tile
-    (1, 64, 40, 32, False, -1)])       # non-causal, T under one tile
+    (1, 200, 90, 128, False, -1),      # non-causal, T under one tile
+    (1, 64, 40, 32, False, -1),        # non-causal, T under one tile
+    (2, 333, 333, 256, True, 100),     # 64-key tiles, a window, B = 2
+    (1, 300, 150, 200, True, 40)])     # 64-key tiles, S > T
 def test_flash_tiles_bf16_edges(b, s, t, dh, causal, window):
     args = flash_inputs(b, s, t, 2, 1, dh, seed=s)
     got = flash_tiles_emulation(*args, causal, window)

@@ -408,10 +408,10 @@ def test_expected_grouped_matmul_calls_follow_prefill_forwards(
 
 
 PTXAS_LOG = """\
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126flash_attention_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiif' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_126flash_attention_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiif
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_tma_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_tma_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiiiiif
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Used 168 registers, used 16 barriers, 400 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118split_merge_kernelIfEEvPKfPK6float2PT_ii' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_118split_merge_kernelIfEEvPKfPK6float2PT_ii
     8 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
@@ -421,8 +421,8 @@ ptxas info    : Used 30 registers, used 0 barriers, 380 bytes cmem[0]
 
 def test_ptxas_entries_reads_registers_and_spills(smoke):
     entries = smoke.ptxas_entries(PTXAS_LOG)
-    assert [e[1:] for e in entries] == [(128, 0), (30, 12)]
-    assert "flash_attention_mma_kernel" in entries[0][0]
+    assert [e[1:] for e in entries] == [(168, 0), (30, 12)]
+    assert "flash_fwd_tma_kernel" in entries[0][0]
     assert "split_merge_kernel" in entries[1][0]
     assert all(any(k in e[0] for k in smoke.NEW_KERNELS) for e in entries)
     assert smoke.ptxas_entries("nvcc: nothing compiled") == []
@@ -502,7 +502,7 @@ def test_prefill_profile_runs_on_cpu(smoke, monkeypatch, capsys):
         max_slots=2, num_pages=16, page_size=16, max_context=128),
         cache_layout="ring", device="cpu")
     monkeypatch.setattr(smoke, "device_rows", lambda prof: [
-        (750.0, 2, "void flash_attention_mma_kernel<128>(...)"),
+        (750.0, 2, "void flash_fwd_tma_kernel<128>(...)"),
         (2250.0, 10, "gemm")])
     smoke.profile_prefill(eng, 40, "serve ring")
     out = capsys.readouterr().out

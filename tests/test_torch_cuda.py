@@ -207,6 +207,78 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, b, s, t, g, dh,
     assert torch.isfinite(out).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,g,dh,causal,window", [
+    # zero columns past dh: 16 and 32 on the 64-wide body, 112 and 120 on
+    # the 128, 200 on the 256
+    (1, 300, 300, 4, 16, True, -1),
+    (2, 77, 77, 2, 32, True, 5),
+    (1, 300, 300, 8, 112, True, -1),
+    (2, 130, 130, 6, 120, True, 48),
+    (1, 400, 200, 2, 200, True, 64),
+    # B 2 with a ragged S: the second batch's rows follow the first's
+    (2, 333, 333, 5, 64, True, -1),
+    (2, 1000, 1000, 2, 256, True, 300),
+    # S > T under a window: rows 955.. have no valid key
+    (1, 1100, 700, 5, 64, True, 256),
+    # non-causal T of 40 and 90, under one key tile
+    (1, 64, 40, 7, 128, False, -1),
+    (2, 200, 90, 16, 128, False, -1),
+    # G 1 and 48; a 1024-token causal prefill (every ring stage reused)
+    (1, 200, 90, 1, 256, False, -1),
+    (1, 513, 513, 1, 64, True, -1),
+    (1, 256, 256, 48, 128, True, -1),
+    (1, 1024, 1024, 4, 128, True, -1)])
+def test_flash_forward_tma_body_matches_plain(cuda_device, b, s, t, g, dh,
+                                              causal, window):
+    """The bf16 body (TMA-fed K/V tiles, wgmma, two consumer warpgroups
+    of 64 rows) at the edges of its tiles: out against the plain version
+    within 2e-2, the LSE within 2e-2 of the largest magnitude, a row with
+    no valid key zeros with LSE -inf, and two calls equal byte for byte
+    (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_forward, flash_attention_lse_plain)
+    dtype = torch.bfloat16
+    q, k, v = flash_case(cuda_device, dtype, b, s, t, 2, g, dh, seed=dh + s)
+    before = flash_attention.launches
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=window)
+    again, lse_again = flash_attention_forward(q, k, v, causal=causal,
+                                               window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    want_lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
+    i = torch.arange(s, device=cuda_device)
+    live = (torch.clamp(i - window + 1, min=0) <= torch.clamp(i, max=t - 1)
+            if causal and window > 0 else torch.ones_like(i, dtype=bool))
+    torch.testing.assert_close(out[:, live].float(), want[:, live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert rel_err(lse[..., live], want_lse[..., live]) <= TOL[dtype]
+    assert not out[:, ~live].any()
+    assert torch.isneginf(lse[..., ~live]).all()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_forward_rows_past_t_are_not_the_next_batch(cuda_device, dh):
+    """bf16, B 2, non-causal, T 90: the key tile of 128 (64 at dh 256)
+    runs past T.  The second batch's first V rows are +inf; a tile that
+    read them as the first batch's rows past T would give 0 * inf = NaN in
+    the first batch's output.  The tensor maps read rows past T as
+    zeros, so the first batch matches the plain version."""
+    dtype = torch.bfloat16
+    q, k, v = flash_case(cuda_device, dtype, 2, 150, 90, 2, 3, dh, seed=9)
+    v[1, :40] = float("inf")
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q[:1], k[:1], v[:1], causal=False)
+    assert torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[:1].float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
 def ring_case(dev, dtype, q_pos, slots, hkv, g, dh, seed=2):
     """Rings after writing positions 0..q_pos[b] at slot ``pos % slots``
     (wrapped where q_pos >= slots)."""
@@ -2015,18 +2087,21 @@ def test_ssm_scan_kernels_past_the_old_widths(cuda_device, dtype, dk, dv, t,
         assert x.shape == z.shape and rel_err(x, z) <= band
 
 
-# tools/attention_times.py --cases old on the parent tree (the kernels up
-# to dh 256 before the column-block bodies), NVIDIA H100 80GB HBM3, 700.00
-# W: the digests of the 31 old cases, in CASES order; the tree with the
-# column-block bodies printed the same
-DIGESTS_BEFORE_COLUMN_BLOCKS = [
-    "c2ea613e7f630075",
-    "e0a27b200d0e6312",
-    "7295734b2dbbe081",
+# tools/attention_times.py --cases old, NVIDIA H100 80GB HBM3, 700.00 W:
+# the digests of the 31 cases up to dh 256, in CASES order.  The 19
+# unmarked ones are those the kernels gave before the column-block bodies
+# past 256 were added (the tree with those bodies printed the same).  The
+# 12 marked ones are the bf16 flash cases, the forward and the backward
+# fed by its out and LSE, as the TMA + wgmma forward body gives them: it
+# rounds in another order than the mma.sync body it replaced
+ATTENTION_DIGESTS = [
+    "9da215e2f8817df6",  # TMA + wgmma forward
+    "3bb75661af02ea41",  # TMA + wgmma forward
+    "44050acae7f1f05a",  # TMA + wgmma forward
     "bd9cf9595cda2f7d",
-    "8ddb76773b881621",
-    "a94020595d2dc0f8",
-    "948fc05539cbd527",
+    "6d42f2b22ae54e3f",  # TMA + wgmma forward
+    "c49623b6e9d329ff",  # TMA + wgmma forward
+    "88b36ffcd29b0744",  # TMA + wgmma forward
     "57672b5ecce5fb5a",
     "a0c7f791c2ea487d",
     "f3ff2f2f76e0b49e",
@@ -2036,13 +2111,13 @@ DIGESTS_BEFORE_COLUMN_BLOCKS = [
     "adf86524dcc58eac",
     "8682a1b2c4900809",
     "b541d29e9d5aeaf0",
-    "1605d43c41e94d85",
-    "dfb67441aab3776c",
-    "25845e5192a7eefc",
+    "ebc20a252280cac7",  # TMA + wgmma forward
+    "d812c485c9a5601e",  # TMA + wgmma forward
+    "a9a92cbb88810b94",  # TMA + wgmma forward
     "9608a7bc6a40d440",
-    "e9e3eb71db58f43a",
-    "c5204624ddc294bc",
-    "6029bbded5c12e64",
+    "db192e91b6ed1cbd",  # TMA + wgmma forward
+    "0811a26f65ee05fd",  # TMA + wgmma forward
+    "4cd6f7291a22f054",  # TMA + wgmma forward
     "9fc518911afd1926",
     "f7535df5fd2dfe38",
     "cf760f06f894463a",
@@ -2059,9 +2134,11 @@ DIGESTS_BEFORE_COLUMN_BLOCKS = [
 def test_attention_kernels_bit_equal_to_before_the_column_blocks(
         cuda_device, case):
     """The four attention kernels' outputs at the shapes up to dh 256
-    (``tools/attention_times.py``'s CASES), as digests of their bytes,
-    equal those the kernels gave before the column-block bodies past 256
-    were added."""
+    (``tools/attention_times.py``'s first 31 CASES), as digests of their
+    bytes, equal ``ATTENTION_DIGESTS``: the decode, f32 flash and f32
+    backward cases those the kernels gave before the column-block bodies
+    past 256 were added, the bf16 flash cases those of the TMA + wgmma
+    forward body."""
     import sys
     from pathlib import Path
 
@@ -2073,7 +2150,7 @@ def test_attention_kernels_bit_equal_to_before_the_column_blocks(
     with torch.no_grad():
         got = attention_times.digest(torch, attention_times.call_of(
             torch, kernels, cuda_device, spec)())
-    assert got == DIGESTS_BEFORE_COLUMN_BLOCKS[case], spec
+    assert got == ATTENTION_DIGESTS[case], spec
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,15 @@ a sleep kernel (the method of ``chip_smoke.py::cuda_ms``) and the first 16
 hex digits of the SHA-256 of the output's bytes.  ``--src`` names the
 tree (default: this checkout's), so two versions compare in one call on
 one card, parent, change, change, parent; a case the tree's kernels do
-not take prints its error instead:
+not take prints its error instead.  A forward case also prints
+``sdpa_ms``, PyTorch's ``scaled_dot_product_attention`` on the same
+inputs timed the same way.  ``--kinds flash`` runs the forward's cases
+alone (every head shape ``chip_smoke.py`` times, the train shape,
+agent-7b's heads at B 2 x S 4096, and three shapes at one head, where
+the grid's heaviest item runs alone on one SM):
 
-    python tools/attention_times.py --src /path/to/other/src
-    python tools/attention_times.py
+    python tools/attention_times.py --src /path/to/other/src --kinds flash
+    python tools/attention_times.py --kinds flash
 
 Prints one JSON object a line: the card (``nvidia-smi`` name and power
 limit), then one per case.  Needs a CUDA card; exits 1 without one.
@@ -70,7 +75,19 @@ CASES = [("flash", "bfloat16", (32, 8, 128), 1, 1024, 1024),
          ("paged", "float32", (8, 2, 256), 8, 128, 0),
          ("ring", "bfloat16", (8, 2, 256), 8, 4096, 0),
          ("ring", "bfloat16", (1, 48, 128), 8, 4096, 0),
-         ("ring", "float32", (8, 2, 256), 8, 4096, 0)]
+         ("ring", "float32", (8, 2, 256), 8, 4096, 0),
+         # the rest of chip_smoke.py's timed flash heads (arctic-480b's,
+         # Gemma 3 4B's, 48 query heads over 1) and the train shape:
+         # agent-7b's heads at B 2 x S 4096
+         ("flash", "bfloat16", (56, 8, 128), 1, 1024, 1024),
+         ("flash", "bfloat16", (8, 4, 256), 1, 1024, 1024),
+         ("flash", "bfloat16", (48, 1, 128), 1, 1024, 1024),
+         ("flash", "bfloat16", (32, 8, 128), 2, 4096, 4096),
+         # one head: the heaviest (last) 128-row block alone bounds the
+         # whole shape's time when the grid has about one item an SM
+         ("flash", "bfloat16", (1, 1, 128), 1, 1024, 1024),
+         ("flash", "bfloat16", (1, 1, 256), 1, 1024, 1024),
+         ("flash", "bfloat16", (1, 1, 128), 2, 4096, 4096)]
 # heads past 256, in column blocks: agent-7b's width at d_head 512 (16
 # over 8), G 3 at 384, dh 300, 16 heads over 1; f32 at 512, and dh 1024
 WIDE_CASES = [(kind, dtype, heads, b, n, t)
@@ -109,9 +126,10 @@ def digest(torch, outs) -> str:
     return h.hexdigest()[:16]
 
 
-def call_of(torch, k, dev, case):
+def call_of(torch, k, dev, case, sdpa: bool = False):
     """The case's inputs, drawn from a generator seeded by the case, and
-    a function of no arguments that makes the kernel call."""
+    a function of no arguments that makes the kernel call (with
+    ``sdpa``, a forward case's SDPA call on the same inputs)."""
     kind, dtype, heads, b, n, t = case
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(
@@ -125,6 +143,12 @@ def call_of(torch, k, dev, case):
         h, hkv, dh = heads
         q, kk, v = randn(b, n, h, dh), randn(b, t, hkv, dh), \
             randn(b, t, hkv, dh)
+        if kind == "flash" and sdpa:
+            sq = q.transpose(1, 2).contiguous()
+            sk, sv = (x.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+                      .contiguous() for x in (kk, v))
+            return lambda: (torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True),)
         if kind == "flash":
             return lambda: (k.flash_attention(q, kk, v, causal=True),)
         from repro_torch.kernels.flash_attention import (
@@ -166,6 +190,8 @@ def main() -> int:
     ap.add_argument("--cases", choices=("old", "wide", "all"),
                     default="all", help="the shapes up to dh 256, those "
                     "past it, or both")
+    ap.add_argument("--kinds", default="flash,flash_bwd,paged,ring",
+                    help="the kernels to run, comma-separated")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -180,8 +206,10 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout
     print(json.dumps({"card": gpu.strip().splitlines()[0],
                       "src": str(Path(k.__file__).resolve())}), flush=True)
-    cases = {"old": CASES, "wide": WIDE_CASES,
-             "all": CASES + WIDE_CASES}[args.cases]
+    kinds = set(args.kinds.split(","))
+    cases = [c for c in {"old": CASES, "wide": WIDE_CASES,
+                         "all": CASES + WIDE_CASES}[args.cases]
+             if c[0] in kinds]
     for case in cases:
         row = {"case": list(case)}
         try:
@@ -192,6 +220,12 @@ def main() -> int:
                                               else 1))
                 xs = sorted(cuda_ms(torch, call, iters) for _ in range(3))
             row.update(ms=xs[1], spread=xs[2] - xs[0])
+            if case[0] == "flash":
+                call = call_of(torch, k, dev, case, sdpa=True)
+                with torch.no_grad():
+                    xs = sorted(cuda_ms(torch, call, iters)
+                                for _ in range(3))
+                row["sdpa_ms"] = xs[1]
         except (ValueError, RuntimeError) as e:
             row["error"] = str(e).splitlines()[0]
         print(json.dumps(row), flush=True)
