@@ -26,7 +26,12 @@ code is non-zero and the final JSON line is not printed:
                  over a slot range and attention_combine (a
                  sequence-sharded ring's ranks), held to their plain
                  versions and timed at llama3-405b's decode_32k rank
-                 shape with their bounds.
+                 shape with their bounds; paged flash (suffix prefill and
+                 the mixed step's chunk: 512 rows at 1024, 8 of them pad
+                 rows, at agent-7b's, gemma3-27b's windowed, kimi-k2's,
+                 arctic's and Gemma 3 12B's heads, pages of 16, dh 512
+                 and dh 100), each timed beside its plain version, the
+                 gather path it replaces and SDPA over the gathered K/V.
 4. parity     -- agent-7b width at 2 layers in f32: TorchEngine's greedy
                  tokens are equal across the paged layout with and
                  without its kernel and the ring layout with and without
@@ -46,8 +51,9 @@ code is non-zero and the final JSON line is not printed:
                  to a sibling engine, while another decodes beside it,
                  continues with an unsuspended run's greedy tokens.
 6. serve      -- agent-7b in full (32 layers, bf16), paged layout, serves
-                 8 requests; the paged kernel launches once per layer per
-                 decode step; a profile of four decode steps follows.
+                 8 requests; the paged decode kernel launches once per
+                 layer per decode step, paged flash once per layer per
+                 prefill chunk; a profile of four decode steps follows.
 7. serve ring -- the same weights and requests on the ring layout: the
                  flash kernel launches once per layer per prefill, the
                  ring decode kernel once per layer per decode step, and
@@ -57,7 +63,8 @@ code is non-zero and the final JSON line is not printed:
                  512, a PrefixCache: the 8 requests, then 8 over one
                  1024-token system prompt with 64-256-token suffixes;
                  prefill tokens computed against the uncached count, step
-                 times, profiles of decode and mixed steps.
+                 times, profiles of decode and mixed steps (the mixed
+                 step's attention share: paged flash and paged decode).
 18. serve control -- (after 15) the same weights on two paged mixed
                  engines, llm-0 and llm-1, under the control plane: 16
                  requests (every third INTERACTIVE) on llm-0, a Registry,
@@ -369,6 +376,10 @@ from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     _launch_backward as gm_launch_backward)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain, paged_decode_splits)
+from repro_torch.kernels.paged_flash_attention import (  # noqa: E402
+    paged_flash_attention, paged_flash_attention_plain)
+from repro_torch.kernels.paged_flash_attention import (  # noqa: E402
+    live_rows as paged_live_rows, valid_counts as paged_valid_counts)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan, ssm_scan_backward, ssm_scan_backward_plain, ssm_scan_plain)
 scan_mod = importlib.import_module("repro_torch.kernels.ssm_scan")
@@ -897,6 +908,168 @@ def phase_flash(dev) -> list:
     return [row, past_row(row, "flash_attention past dh 256", worst_past,
                           past[0], head_shapes([h for h in held
                                                 if h[2] > 256], "H Hkv dh"))]
+
+
+# paged flash (suffix prefill and the mixed step's chunk), each case:
+# label, (Hkv, G, dh), page, window.  A chunk of 512 rows at start 1024,
+# its last 8 rows pad rows (q_pos -1), as serve mixed's buffer pads a
+# chunk; page ids shuffled over the pool, the table 4096 slots wide with
+# its tail unmapped.  agent-7b's heads at the scheduler's page of 128 (the
+# JSON row), gemma3-27b's with its 1024 window, kimi-k2's G 8 (dh 112),
+# arctic's 56 over 8, Gemma 3 12B's dh 256, pages of 16 (eight boxes a
+# tile), a head past 256 (agent-7b's width at d_head 512) and a dh of 100
+# (read in place, on the CUDA-core body)
+PAGED_FLASH_CASES = [("agent-7b", PAGED_HEADS, 128, -1),
+                     ("gemma3-27b window 1024", (16, 2, 128), 128, 1024),
+                     ("kimi-k2", KIMI_HEADS, 128, -1),
+                     ("arctic-480b", ARCTIC_PAGED_HEADS, 128, -1),
+                     ("Gemma 3 12B", GEMMA12_HEADS, 128, -1),
+                     ("agent-7b pages of 16", PAGED_HEADS, 16, -1),
+                     ("agent-7b at d_head 512", (8, 2, 512), 128, -1),
+                     ("dh 100", (8, 4, 100), 128, -1)]
+CHUNK_START, CHUNK_ROWS, CHUNK_PAD, CHUNK_WIDTH = 1024, 512, 8, 4096
+
+
+def paged_flash_case(dtype, heads, page: int, gen: torch.Generator, dev):
+    """(q, k_pages, v_pages, block_tables, q_pos) of one mixed chunk:
+    ``CHUNK_ROWS`` query rows, the first ``CHUNK_ROWS - CHUNK_PAD`` at
+    positions ``CHUNK_START`` onward, the rest -1; the sequence's pages
+    shuffled over a pool of just those pages and the sink, its table
+    ``CHUNK_WIDTH`` slots wide."""
+    hkv, g, dh = heads
+    start, rows, width = CHUNK_START, CHUNK_ROWS, CHUNK_WIDTH
+    fill = rows - CHUNK_PAD
+    need = -(-(start + fill) // page)
+    perm = torch.randperm(need, generator=gen, device=dev).cpu()
+    bt = torch.full((1, width // page), -1, dtype=torch.int32)
+    bt[0, :need] = perm.to(torch.int32)
+    q_pos = torch.full((1, rows), -1, dtype=torch.int32)
+    q_pos[0, :fill] = start + torch.arange(fill, dtype=torch.int32)
+    q = torch.randn((1, rows, hkv * g, dh), generator=gen, device=dev)
+    kp = torch.randn((need + 1, page, hkv, dh), generator=gen, device=dev)
+    vp = torch.randn((need + 1, page, hkv, dh), generator=gen, device=dev)
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype), bt.to(dev),
+            q_pos.to(dev))
+
+
+def paged_flash_bound(args, window: int) -> tuple[float, str]:
+    """The valid pairs' operations and the live keys' K/V, q, out, table
+    and q_pos bytes (``work.paged_flash``) of this call's inputs."""
+    q, kp, _, bt, q_pos = args
+    pairs, keys = paged_valid_counts(bt, q_pos, kp.shape[1], window)
+    return bound_of(*work.paged_flash(q, kp, bt, q_pos, pairs, keys))
+
+
+def gather_path(args, window: int):
+    """What the paged path ran before the kernel, and still runs with
+    the kernels off: ``paged_view`` + ``attention_cached``."""
+    q, kp, vp, bt, q_pos = args
+    view = attention.paged_view(attention.PagedKVCache(kp, vp), bt)
+    return attention.attention_cached(q, view, q_pos, window=window)
+
+
+def check_paged_flash(label: str, dtype, heads, page: int, window: int,
+                      gen: torch.Generator, dev):
+    """The kernel against its plain version on the live rows, twice with
+    equal bits, zeros on the pad rows.  Returns (max |kernel - plain|,
+    the inputs)."""
+    args = paged_flash_case(dtype, heads, page, gen, dev)
+    out = paged_flash_attention(*args, window=window)
+    again = paged_flash_attention(*args, window=window)
+    torch.cuda.synchronize()
+    want = paged_flash_attention_plain(*args, window=window)
+    live = paged_live_rows(args[3], args[4], page, window)
+    err = (out.float() - want.float())[live].abs().max().item()
+    check("paged_flash_attention", err, dtype,
+          f"{dtype} {label} Hkv={heads[0]} G={heads[1]} dh={heads[2]} page "
+          f"{page} window {window}, {CHUNK_ROWS} rows at {CHUNK_START} "
+          f"({CHUNK_PAD} pad rows), live rows")
+    if out[~live].any():
+        raise AssertionError("paged_flash_attention: a pad row is not zero")
+    if not torch.equal(out, again):
+        raise AssertionError("paged_flash_attention: two calls differ")
+    if not torch.isfinite(out).all():
+        raise AssertionError("non-finite kernel output")
+    return err, args
+
+
+def time_paged_flash(label: str, args, window: int):
+    """Kernel, plain, gather path and SDPA times of one chunk, and the
+    bound; SDPA runs over the K/V already gathered contiguous (the
+    view's, heads repeated) with the valid pairs as its mask, and is held
+    to the kernel's function on the live rows."""
+    q, kp, vp, bt, q_pos = args
+    page, hkv = kp.shape[1], kp.shape[2]
+    h = q.shape[2]
+    ms = cuda_ms(lambda: paged_flash_attention(*args, window=window), 20)
+    plain_ms = cuda_ms(lambda: paged_flash_attention_plain(
+        *args, window=window), 3)
+    gather_ms = cuda_ms(lambda: gather_path(args, window), 3)
+    view = attention.paged_view(attention.PagedKVCache(kp, vp), bt)
+    sk, sv = (x.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+              .contiguous() for x in (view.k, view.v))
+    sq = q.transpose(1, 2).contiguous()
+    kpos = view.kpos[:, None, :].long()
+    qp = q_pos.long()[:, :, None]
+    mask = (kpos >= 0) & (kpos <= qp)
+    if window > 0:
+        mask &= kpos > qp - window
+    mask = mask[:, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+    live = paged_live_rows(bt, q_pos, page, window)
+    lib_err = (sdpa().transpose(1, 2).float() - paged_flash_attention(
+        *args, window=window).float())[live].abs().max().item()
+    if lib_err > TOL[torch.bfloat16]:
+        raise AssertionError(f"library yardstick computes another "
+                             f"function: {lib_err}")
+    library_ms = cuda_ms(sdpa, 10)
+    bound_ms, bound_by = paged_flash_bound(args, window)
+    log("kernels", f"paged_flash_attention bf16 {label} Hkv={hkv} "
+        f"G={h // hkv} dh={q.shape[3]} page={page} window={window}, "
+        f"{CHUNK_ROWS} rows at {CHUNK_START} ({CHUNK_PAD} pad rows), "
+        f"{card()}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.4f} ms, the gather path it "
+        f"replaces (paged_view + attention_cached) {gather_ms:.4f} ms, SDPA "
+        f"over the gathered contiguous K/V {library_ms:.4f} ms; kernel at "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def phase_paged_flash(dev) -> list:
+    """[kernels] paged flash: every PAGED_FLASH_CASES case in f32 and
+    bf16 against the plain version, each bf16 case timed; the JSON rows
+    of agent-7b's chunk and of the head past 256."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = worst_past = 0.0
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, heads, page, window in PAGED_FLASH_CASES:
+            err, args = check_paged_flash(label, dtype, heads, page, window,
+                                          gen, dev)
+            if dtype == torch.bfloat16:
+                times[label] = time_paged_flash(label, args, window)
+                if heads[2] > 256:
+                    worst_past = max(worst_past, err)
+                else:
+                    worst = max(worst, err)
+            del args
+    ms, plain_ms, library_ms, bound_ms, bound_by = times["agent-7b"]
+    row = {"name": "paged_flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_flash_attention.cu",
+           "replaces": "src/repro/models/attention.py:352 (port-side: "
+                       "self_attention_paged's gather path, paged_view + "
+                       "attention_cached, for Sq > 1; no Pallas kernel)",
+           "launches": None, "max_abs_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "shapes": head_shapes([c[1] for c in PAGED_FLASH_CASES
+                                  if c[1][2] <= 256], "Hkv G dh")}
+    return [row, past_row(row, "paged_flash_attention past dh 256",
+                          worst_past, times["agent-7b at d_head 512"],
+                          head_shapes([c[1] for c in PAGED_FLASH_CASES
+                                       if c[1][2] > 256], "Hkv G dh"))]
 
 
 # the flash backward (training's attention gradient), each case: heads
@@ -1758,6 +1931,7 @@ def mean_ms(res: dict, kind: str) -> float:
 
 
 KERNELS = {"paged_decode_attention": paged_decode_attention,
+           "paged_flash_attention": paged_flash_attention,
            "flash_attention": flash_attention,
            "decode_attention": decode_attention,
            "ssm_scan": ssm_scan,
@@ -1780,25 +1954,29 @@ def kind_layers(cfg, kinds) -> int:
 
 
 def expected_launches(eng: TorchEngine, prefills: int, decodes: int,
-                      mixed: int = 0) -> dict:
+                      mixed: int = 0, single: int = 0) -> dict:
     """Launches of each kernel on a run of ``eng`` that ran ``prefills``
     serialized prefill forwards (the ring layout one per prompt; the
     paged layout one per chunk, and the scheduler's token budget splits a
-    step's prompts into chunks) and ``decodes`` and ``mixed`` bodies of
-    the decode and mixed steps (a graph's warm-up runs and replays, or
-    the eager calls): one per attention layer per prefill (flash; ring)
-    or per decode row set (the layout's decode kernel; a mixed step's
-    decode rows), one SSM scan per prefill in each layer with a matrix
-    memory (a hybrid's mamba branch, an mLSTM layer; ring), and three
-    grouped_matmul per MoE layer per forward (either layout; a mixed
-    step is two forwards, its decode rows and its chunk, whose gather
-    path launches no attention kernel); none without the flag, and none
-    on the CPU, where the wrappers take the plain versions."""
+    step's prompts into chunks), ``single`` of them a paged chunk of one
+    token, and ``decodes`` and ``mixed`` bodies of the decode and mixed
+    steps (a graph's warm-up runs and replays, or the eager calls): one
+    per attention layer per prefill (flash; ring) or per decode row set
+    (the layout's decode kernel; a mixed step's decode rows), one paged
+    flash per attention layer per paged prefill chunk of more than one
+    token and per mixed step's chunk (a chunk of one token runs the
+    paged decode kernel), one SSM scan per prefill in each layer with a
+    matrix memory (a hybrid's mamba branch, an mLSTM layer; ring), and
+    three grouped_matmul per MoE layer per forward (either layout; a
+    mixed step is two forwards, its decode rows and its chunk); none
+    without the flag, and none on the CPU, where the wrappers take the
+    plain versions."""
     want = dict.fromkeys(KERNELS, 0)
     if eng.cfg.use_pallas and eng.device.type == "cuda":
         n = kind_layers(eng.cfg, ("attn", "dec", "hymba"))
         if eng.cache_layout == "paged":
-            want["paged_decode_attention"] = n * (decodes + mixed)
+            want["paged_decode_attention"] = n * (decodes + mixed + single)
+            want["paged_flash_attention"] = n * (prefills - single + mixed)
         else:
             want["flash_attention"] = n * prefills
             want["decode_attention"] = n * decodes
@@ -1814,14 +1992,19 @@ def count_prefill_work(eng: TorchEngine) -> list:
     (serialized or in a mixed step's chunk) the scheduler hands ``eng``
     from now on: each serialized item is one forward (a whole prompt on
     the ring layout, a chunk on the paged one).  Returns ``[forwards,
-    tokens]``, updated as the engine steps."""
-    count = [0, 0]
+    tokens, single]``, updated as the engine steps; ``single`` counts the
+    paged forwards of one token (``TorchEngine._run_prefill_paged``'s
+    chunk, the prompt's last token where the rest was cached)."""
+    count = [0, 0, 0]
     plan_step = eng.scheduler.plan_step
 
     def counted():
         plan = plan_step()
         if plan.kind == StepKind.PREFILL:
             count[0] += len(plan.prefills)
+            for w in plan.prefills:
+                start = min(w.req.prefilled, w.req.prompt_len - 1)
+                count[2] += min(w.chunk, w.req.prompt_len - start) == 1
         count[1] += sum(w.chunk for w in plan.prefills)
         return plan
     eng.scheduler.plan_step = counted
@@ -1842,9 +2025,10 @@ def served_counts(eng: TorchEngine, reqs, before: dict,
     if eng.cache_layout == "ring" and forwards[0] != len(reqs):
         raise AssertionError(f"{eng.name}: {forwards[0]} ring prefills for "
                              f"{len(reqs)} prompts")
-    res["prefill_forwards"], res["prefill_tokens"] = forwards
+    res["prefill_forwards"], res["prefill_tokens"] = forwards[:2]
     res["runs"] = runs
-    want = expected_launches(eng, forwards[0], runs["decode"], runs["mixed"])
+    want = expected_launches(eng, forwards[0], runs["decode"], runs["mixed"],
+                             0 if eng.cache_layout == "ring" else forwards[2])
     if used != want:
         raise AssertionError(f"{eng.name}: kernel launches {used}, "
                              f"expected {want}")
@@ -2036,10 +2220,9 @@ def release(eng: TorchEngine) -> None:
 
 def held_run(how: str, hold: bool):
     """The block's kernel calls held to their plain versions
-    (``kernelwise`` with paged decode and the scan) where ``hold`` and
-    ``how`` is the
-    eager run, whose steps call the wrappers (a graph run replays them);
-    else a block that holds nothing."""
+    (``kernelwise`` with paged decode, paged flash and the scan) where
+    ``hold`` and ``how`` is the eager run, whose steps call the wrappers
+    (a graph run replays them); else a block that holds nothing."""
     if hold and how == "eager":
         return kernelwise(paged=True, scan=True)
     return contextlib.nullcontext()
@@ -2455,6 +2638,7 @@ def serve_control(dev, cfg, params, how: str, suspend: bool) -> dict:
     parked = {}                             # index -> (tier, step, pos)
     moves, times = [], {"decode": [], "mixed": [], "control": []}
     runs = {e.name: dict(e.step_runs) for e in engines}
+    forwards = {e.name: count_prefill_work(e) for e in engines}
     torch.cuda.reset_peak_memory_stats()
     for r in reqs:
         llm0.submit(r)
@@ -2532,8 +2716,9 @@ def serve_control(dev, cfg, params, how: str, suspend: bool) -> dict:
                      for k in ("decode", "mixed")} for e in engines}
     want = dict.fromkeys(KERNELS, 0)
     for e in engines:
-        for k, v in expected_launches(e, 0, used[e.name]["decode"],
-                                      used[e.name]["mixed"]).items():
+        pf = forwards[e.name]
+        for k, v in expected_launches(e, pf[0], used[e.name]["decode"],
+                                      used[e.name]["mixed"], pf[2]).items():
             want[k] += v
     return {"tokens": [list(r.output_tokens) for r in reqs], "times": times,
             "moves": moves, "wall": wall, "runs": used, "want": want,
@@ -2696,6 +2881,19 @@ def profile_mixed(eng: TorchEngine, step_ms: float, phase: str, how: str,
         raise AssertionError(f"profiled {kinds}, not mixed steps")
     if not log_profile(phase, f"mixed step ({how})", rows, step_ms, steps):
         return
+    busy = sum(r[0] for r in rows)
+    by_class: dict = {}
+    for us, _, key in rows:
+        by_class[kernel_class(key)] = by_class.get(kernel_class(key), 0) + us
+    dec = sum(r[0] for r in rows if any(k in r[2] for k in DECODE_KERNELS))
+    flash = by_class.get("flash", 0)
+    log("profile", f"{phase}: mixed step ({how}) attention: the chunk's "
+        f"paged flash (class flash) {flash / 1e3 / steps:.3f} ms/step "
+        f"({100 * flash / busy:.1f}% of the device time), the decode rows' "
+        f"paged decode {dec / 1e3 / steps:.3f} ms/step "
+        f"({100 * dec / busy:.1f}%); by class: "
+        + ", ".join(f"{k} {v / 1e3 / steps:.3f} ms/step" for k, v in
+                    sorted(by_class.items(), key=lambda kv: -kv[1])))
     for us, count, key in sorted(rows, reverse=True)[:6]:
         log("profile", f"  {phase} mixed: {us / 1e3 / steps:8.3f} ms/step  "
             f"{count / steps:6.0f} calls/step  {key[:90]}")
@@ -2979,13 +3177,22 @@ def paged_rows(q, k_pages, v_pages, block_tables, ctx_lens, **_):
     return ctx_lens > 0
 
 
+def paged_flash_rows(q, k_pages, v_pages, block_tables, q_pos, *,
+                     window: int = -1):
+    """(B, S) bool: the paged flash rows with a valid key (a mixed chunk's
+    pad tail has none)."""
+    return paged_live_rows(block_tables, q_pos, k_pages.shape[1], window)
+
+
 def live_only(x, rows):
     """``x`` (an output, or an (out, lse) pair) with its rows that have
     no valid key zeroed: the kernel writes zeros there, the plain version
-    the uniform average of an all-masked softmax."""
+    the uniform average of an all-masked softmax.  ``rows`` is (B,) or,
+    for a call of many query rows, (B, S)."""
     if isinstance(x, tuple):
         return (live_only(x[0], rows), x[1])
-    return torch.where(rows.view(-1, *[1] * (x.dim() - 1)), x.float(), 0.0)
+    return torch.where(rows.view(*rows.shape, *[1] * (x.dim() - rows.dim())),
+                       x.float(), 0.0)
 
 
 class kernelwise:
@@ -2998,16 +3205,17 @@ class kernelwise:
     |kernel - plain| of the log-sum-exps of the rows with a valid key
     (the empty rows' NEG_INF must agree exactly); ``calls`` counts the
     calls held.  The combine is held with ``combine=True`` (a
-    sequence-sharded ring's serve steps), paged decode with
-    ``paged=True`` (a served batch's eager steps); the decode kernels'
-    rows with no valid key (idle slots) are not held."""
+    sequence-sharded ring's serve steps), paged decode and paged flash
+    with ``paged=True`` (a served batch's eager steps); the rows with no
+    valid key (idle slots, a mixed chunk's pad tail) are not held."""
 
     KERNELS = {"flash_attention": flash_attention_plain,
                "decode_attention": decode_attention_plain}
     # the rows of a call held (the others come out as zeros from the
     # kernel): ring and paged decode's rows with a valid key
     ROWS = {"decode_attention": ring_rows,
-            "paged_decode_attention": paged_rows}
+            "paged_decode_attention": paged_rows,
+            "paged_flash_attention": paged_flash_rows}
 
     def __init__(self, combine: bool = False, paged: bool = False,
                  scan: bool = False):
@@ -3018,7 +3226,9 @@ class kernelwise:
         if paged:
             self.KERNELS = {**self.KERNELS,
                             "paged_decode_attention":
-                                paged_decode_attention_plain}
+                                paged_decode_attention_plain,
+                            "paged_flash_attention":
+                                paged_flash_attention_plain}
 
     def __enter__(self):
         self.errs, self.calls = [], dict.fromkeys(self.KERNELS, 0)
@@ -5036,9 +5246,9 @@ def phase_serve_disagg(dev, cfg, params, phase: str = "serve disagg") -> dict:
         raise AssertionError(f"{phase}: decode engine captures "
                              f"{dict(dec.step_captures)}")
     want = dict.fromkeys(KERNELS, 0)
-    for e, pf, runs in ((pre, forwards[0], 0),
-                        (dec, 0, dec.step_runs["decode"])):
-        for k, v in expected_launches(e, pf, runs).items():
+    for e, pf, runs, single in ((pre, forwards[0], 0, forwards[2]),
+                                (dec, 0, dec.step_runs["decode"], 0)):
+        for k, v in expected_launches(e, pf, runs, 0, single).items():
             want[k] += v
     if used != want:
         raise AssertionError(f"{phase}: kernel launches {used}, expected "
@@ -6368,6 +6578,7 @@ def main() -> int:
 
     with timed_phase("3, 28 kernels"):
         rows = [*phase_kernels(dev), *phase_flash(dev),
+                *phase_paged_flash(dev),
                 *phase_flash_backward(dev), *phase_ring_decode(dev),
                 *phase_ssm_scan(dev), phase_grouped_matmul(dev),
                 phase_combine(dev)]
@@ -6558,16 +6769,18 @@ def main() -> int:
         seq = phase_sharded(dev)
     log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
 
-    main_path = {"paged_decode_attention": control, "flash_attention": hymba,
+    main_path = {"paged_decode_attention": control,
+                 "paged_flash_attention": control, "flash_attention": hymba,
                  "decode_attention": hymba, "ssm_scan": hymba,
                  "grouped_matmul": arctic, "flash_attention_backward": train,
                  "grouped_matmul_backward": moe,
                  "ssm_scan_backward": ssm_run, "attention_combine": seq}
     # the bodies past the old limits: phase 39's runs at agent-7b's width
-    # with heads of 512 (paged, ring and its train step) and xLSTM's 1.3B
-    # width (ring and its train step)
+    # with heads of 512 (paged, its prefill chunks on paged flash; ring;
+    # its train step) and xLSTM's 1.3B width (ring and its train step)
     d512, x13 = wide["agent-7b at d_head 512"], wide["xLSTM 1.3B's width"]
     past_path = {"paged_decode_attention": d512["paged"],
+                 "paged_flash_attention": d512["paged"],
                  "decode_attention": d512["ring"],
                  "flash_attention": d512["ring"],
                  "flash_attention_backward": d512["train"],

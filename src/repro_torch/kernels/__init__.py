@@ -14,8 +14,8 @@ Training: ``flash_attention``, ``grouped_matmul`` and ``ssm_scan`` under
 grad are autograd Functions whose backwards are hand-written Hopper
 kernels too (``csrc/flash_attention_bwd.cu``, ``grouped_matmul_bwd.cu``,
 ``ssm_scan_bwd.cu``; ``*_backward`` calls them directly); the two decode
-wrappers and ``attention_combine`` have no backward and raise under grad
-(``grad.py``).
+wrappers, ``paged_flash_attention`` and ``attention_combine`` have no
+backward and raise under grad (``grad.py``).
 
 Meta tensors (the dry run's step pass, ``launch/dryrun.py``) take each
 wrapper's meta branch: it allocates what the launch allocates (outputs,
@@ -28,7 +28,10 @@ count) and never runs the plain version.
 ``attention_combine`` is port-side: it combines the partial softmaxes of
 a sequence-sharded ring's ranks (``decode_attention(..., with_lse=True)``
 over each rank's slots), where the reference leaves the reduction to
-GSPMD.
+GSPMD.  So is ``paged_flash_attention``: the paged layout's suffix
+prefill and mixed chunk over the pool through the block tables, where
+the reference gathers each table (``paged_view``) and computes the
+attention with jnp.
 """
 from repro_torch.kernels.attention_combine import (attention_combine,
                                                    attention_combine_plain)
@@ -42,6 +45,8 @@ from repro_torch.kernels.grouped_matmul import (
     grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.paged_flash_attention import (
+    paged_flash_attention, paged_flash_attention_plain)
 from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_backward,
                                           ssm_scan_backward_plain,
                                           ssm_scan_plain)
@@ -52,5 +57,6 @@ __all__ = ["attention_combine", "attention_combine_plain",
            "flash_attention_plain", "grouped_matmul",
            "grouped_matmul_backward", "grouped_matmul_backward_plain",
            "grouped_matmul_plain", "paged_decode_attention",
-           "paged_decode_attention_plain", "ssm_scan", "ssm_scan_backward",
+           "paged_decode_attention_plain", "paged_flash_attention",
+           "paged_flash_attention_plain", "ssm_scan", "ssm_scan_backward",
            "ssm_scan_backward_plain", "ssm_scan_plain"]

@@ -26,10 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # sources compiled in parts, each with -DBUILD_PART=<i>: one part a dtype
 # for the longest compiles of the build on an H100's host, 33-43 s of nvcc
 # whole (tools/build_times.py); the flash kernels' bodies up to dh 256,
-# then their column-block bodies past it
+# then their column-block bodies past it; the paged flash kernel's TMA
+# bodies, its CUDA-core bodies, its column-block bodies
 PARTS = {"decode_attention": 2, "paged_decode_attention": 2,
          "ssm_scan_bwd": 2, "flash_attention": 2,
-         "flash_attention_bwd": 2}
+         "flash_attention_bwd": 2, "paged_flash_attention": 3}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

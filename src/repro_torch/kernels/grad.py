@@ -4,8 +4,9 @@ A wrapper fills its output through ``ctypes`` from ``data_ptr()``s, so on
 a CUDA tensor the output has no ``grad_fn``: under autograd the inputs
 would silently get no gradient.  ``flash_attention``, ``grouped_matmul``
 and ``ssm_scan`` have backward kernels (their autograd Functions); the
-two decode wrappers and ``attention_combine`` call ``refuse_grad`` before
-they launch, and raise instead of returning a tensor cut from the graph.  Serving runs under
+two decode wrappers, ``paged_flash_attention`` and ``attention_combine``
+call ``refuse_grad`` before they launch, and raise instead of returning
+a tensor cut from the graph.  Serving runs under
 ``torch.inference_mode``, where grad mode is off, so the guard never
 fires there.
 """
@@ -18,6 +19,7 @@ BACKWARD_ITEM = {
     "paged_decode_attention": "A4.5 (a decode step under grad)",
     "decode_attention": "A4.5 (a decode step under grad)",
     "attention_combine": "A4.5 (a decode step under grad)",
+    "paged_flash_attention": "A4.5 (a paged prefill under grad)",
 }
 
 

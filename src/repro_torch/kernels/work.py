@@ -10,7 +10,8 @@ the keys a decode call's contexts hold, the live rows and experts of an
 expert product.  A meta tensor holds no data, so the meta branches
 count the most the shapes allow: every slot of a ring (within its
 window), every page of a block table, every row and expert of the
-dispatch buffer; ``flash`` and ``scan`` depend on the shapes alone.
+dispatch buffer, every page of a paged flash call's table with every
+row at full context; ``flash`` and ``scan`` depend on the shapes alone.
 """
 from __future__ import annotations
 
@@ -61,6 +62,21 @@ def paged_decode(q, k_pages, block_tables, ctx_lens, keys: int) -> Work:
               + 2 * q.numel() * q.element_size()
               + block_tables.numel() * 4 + ctx_lens.numel() * 4)
     return Work(nbytes, 4 * g * dh * keys * hkv, torch.float32)
+
+
+def paged_flash(q, k_pages, block_tables, q_pos, pairs: int,
+                keys: int) -> Work:
+    """K/V of the ``keys`` live keys (those some row of their sequence
+    attends), q, out, the tables and q_pos read or written once, against
+    4 * dh operations per valid (row, key) pair of each query head: two
+    for q.k, two for p.v.  ``pairs`` counts the (row, key) pairs over the
+    batch."""
+    h, dh = q.shape[2], q.shape[3]
+    hkv = k_pages.shape[2]
+    nbytes = (2 * keys * hkv * dh * k_pages.element_size()
+              + 2 * q.numel() * q.element_size()
+              + block_tables.numel() * 4 + q_pos.numel() * 4)
+    return Work(nbytes, 4 * dh * h * pairs, q.dtype)
 
 
 @lru_cache(maxsize=256)

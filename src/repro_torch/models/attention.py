@@ -12,10 +12,12 @@ Two layouts share one masked-softmax core:
   runs the Hopper kernel ``kernels.flash_attention`` and decode
   ``kernels.decode_attention``.
 * ``paged`` -- one shared page pool per layer (``PagedKVCache``).
-  Decode with ``cfg.use_pallas`` runs ``kernels.paged_decode_attention``
-  straight over the pool and the live block tables; everything else
-  gathers a contiguous view of each sequence's pages (``paged_view``)
-  and runs ``attention_cached``, as the reference does.
+  With ``cfg.use_pallas`` both run straight over the pool and the live
+  block tables: decode (Sq = 1) on ``kernels.paged_decode_attention``,
+  suffix prefill and the mixed step's chunk (Sq > 1) on
+  ``kernels.paged_flash_attention``.  Without it every call gathers a
+  contiguous view of each sequence's pages (``paged_view``) and runs
+  ``attention_cached``, as the reference does for all but decode.
 
 Cache-free paths serve the encoder of an encoder-decoder model:
 ``self_attention`` (``causal=False`` in an encoder block) and the cross
@@ -68,7 +70,8 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.distributed import parallel
 from repro_torch.kernels import (attention_combine, attention_combine_plain,
                                  decode_attention, flash_attention,
-                                 paged_decode_attention)
+                                 paged_decode_attention,
+                                 paged_flash_attention)
 from repro_torch.models.layers import apply_rope
 from repro_torch.models import params as prm
 from repro_torch.models.params import P
@@ -445,7 +448,11 @@ def self_attention_paged(params: dict, x: torch.Tensor, cache: PagedKVCache,
                          positions: torch.Tensor, tables: torch.Tensor,
                          ) -> tuple[torch.Tensor, PagedKVCache]:
     """Write-then-attend over the shared page pool, for decode (Sq = 1)
-    and suffix prefill (Sq = uncached prompt tokens)."""
+    and suffix prefill (Sq = uncached prompt tokens, or the mixed step's
+    padded chunk, whose tail rows sit at position -1).  With
+    ``cfg.use_pallas`` decode runs the paged decode kernel and Sq > 1 the
+    paged flash kernel, both over the pool in place; without it the
+    gather path, as the reference."""
     q, k, v = qkv_project(params, x, cfg, positions)
     pos1 = _pos1d(positions)
     cache = paged_cache_write_at(cache, k, v, pos1, tables)
@@ -455,6 +462,10 @@ def self_attention_paged(params: dict, x: torch.Tensor, cache: PagedKVCache,
         ctx = torch.where(tables[:, 0] >= 0, pos1[:, 0] + 1, 0)
         out = paged_decode_attention(q, cache.k, cache.v, tables,
                                      ctx.to(torch.int32), window=spec.window)
+    elif cfg.use_pallas:
+        out = paged_flash_attention(q, cache.k, cache.v, tables,
+                                    pos1.to(torch.int32).contiguous(),
+                                    window=spec.window)
     else:
         view = paged_view(cache, tables)
         out = attention_cached(q, view, pos1, window=spec.window,

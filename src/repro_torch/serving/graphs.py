@@ -42,7 +42,7 @@ from repro_torch import kernels
 # the kernel wrappers whose launch counts replays keep exact
 WRAPPERS = (kernels.paged_decode_attention, kernels.decode_attention,
             kernels.grouped_matmul, kernels.flash_attention,
-            kernels.ssm_scan)
+            kernels.ssm_scan, kernels.paged_flash_attention)
 # eager runs of a step before its capture
 WARMUP_RUNS = 2
 

@@ -76,6 +76,7 @@ def test_the_parts_name_their_library():
     the number of parts it is built in."""
     assert build.PARTS == {"decode_attention": 2,
                            "paged_decode_attention": 2, "ssm_scan_bwd": 2,
-                           "flash_attention": 2, "flash_attention_bwd": 2}
+                           "flash_attention": 2, "flash_attention_bwd": 2,
+                           "paged_flash_attention": 3}
     names = {build.lib_path(n).name for n in build.sources()}
     assert len(names) == len(build.sources())

@@ -177,11 +177,19 @@ def test_expected_launches_follow_layout_and_flag(smoke, small):
         if not use_pallas:
             assert set(want.values()) == {0}
         elif layout == "paged":
+            # a prefill chunk of more than one token on paged flash, of
+            # one on paged decode
             assert want == {"paged_decode_attention": 5 * n,
+                            "paged_flash_attention": 3 * n,
                             "flash_attention": 0, "decode_attention": 0,
                             "ssm_scan": 0, "grouped_matmul": 0}
+            assert smoke.expected_launches(eng, 3, 5, 2, 1) == {
+                "paged_decode_attention": 8 * n,
+                "paged_flash_attention": 4 * n, "flash_attention": 0,
+                "decode_attention": 0, "ssm_scan": 0, "grouped_matmul": 0}
         else:
             assert want == {"paged_decode_attention": 0,
+                            "paged_flash_attention": 0,
                             "flash_attention": 3 * n,
                             "decode_attention": 5 * n, "ssm_scan": 0,
                             "grouped_matmul": 0}
@@ -205,9 +213,9 @@ def test_expected_launches_of_a_hybrid(smoke):
         eng.device = torch.device("cuda")       # as the card would count
         n = cfg.n_layers
         assert smoke.expected_launches(eng, 2, 7) == (
-            {"paged_decode_attention": 0, "flash_attention": 2 * n,
-             "decode_attention": 7 * n, "ssm_scan": 2 * n,
-             "grouped_matmul": 0} if use_pallas
+            {"paged_decode_attention": 0, "paged_flash_attention": 0,
+             "flash_attention": 2 * n, "decode_attention": 7 * n,
+             "ssm_scan": 2 * n, "grouped_matmul": 0} if use_pallas
             else dict.fromkeys(smoke.KERNELS, 0))
 
 
@@ -305,6 +313,7 @@ def test_expected_launches_of_moe(smoke, name):
                 mixed = smoke.expected_launches(eng, 3, 7, 2)
                 assert mixed["grouped_matmul"] == 3 * 2 * (3 + 7 + 2 * 2)
                 assert mixed["paged_decode_attention"] == 9 * n
+                assert mixed["paged_flash_attention"] == 5 * n
             else:
                 assert (want["flash_attention"],
                         want["decode_attention"]) == (3 * n, 7 * n)
@@ -611,6 +620,105 @@ def test_paged_kernel_phase_on_cpu(smoke, monkeypatch, capsys):
     assert row["shapes"][-2:] == ["Hkv=1 G=2 dh=256", "Hkv=2 G=3 dh=36"]
 
 
+def test_paged_flash_phase_on_cpu(smoke, monkeypatch, capsys):
+    """phase_paged_flash at a short chunk on the CPU, where the wrapper
+    takes its plain version (the pad rows zeroed, as the kernel writes
+    them): every case in both dtypes is checked (twice, equal), each bf16
+    case timed beside the gather path and SDPA over the gathered K/V, and
+    both JSON rows have every key."""
+    from repro_torch.kernels import paged_flash_attention_plain
+    from repro_torch.kernels.paged_flash_attention import live_rows
+
+    def kernel(*args, window=-1):
+        out = paged_flash_attention_plain(*args, window=window)
+        out[~live_rows(args[3], args[4], args[1].shape[1], window)] = 0
+        return out
+
+    monkeypatch.setattr(smoke, "paged_flash_attention", kernel)
+    monkeypatch.setattr(smoke, "CHUNK_START", 40)
+    monkeypatch.setattr(smoke, "CHUNK_ROWS", 24)
+    monkeypatch.setattr(smoke, "CHUNK_WIDTH", 128)
+    monkeypatch.setattr(smoke, "PAGED_FLASH_CASES", [
+        ("agent-7b", (2, 4, 32), 16, -1), ("window", (2, 2, 32), 16, 20),
+        ("pages of 8", (1, 8, 24), 8, -1),
+        ("agent-7b at d_head 512", (1, 2, 300), 16, -1),
+        ("dh 100", (2, 2, 25), 16, -1)])
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    row, past = smoke.phase_paged_flash(torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert out.count("paged_flash_attention torch.") == 2 * 5
+    assert "(8 pad rows), live rows" in out
+    assert out.count("SDPA over the gathered contiguous K/V 1.0000 ms") == 5
+    assert "the gather path it replaces (paged_view + attention_cached)" \
+        in out
+    assert row["name"] == "paged_flash_attention" and row["ms"] == 1.0
+    assert row["max_abs_err"] == 0.0
+    assert set(row) == set(past) == {
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes"}
+    assert past["name"] == "paged_flash_attention past dh 256"
+    assert past["shapes"] == ["Hkv=1 G=2 dh=300"]
+    # the bound: the valid pairs' operations at the bf16 rate against the
+    # live keys' K/V, q, out, table and q_pos bytes
+    args = smoke.paged_flash_case(torch.bfloat16, (2, 4, 32), 16,
+                                  torch.Generator().manual_seed(0),
+                                  torch.device("cpu"))
+    pairs, keys = sum(40 + i + 1 for i in range(16)), 40 + 16
+    t_ops = 4 * 32 * 8 * pairs / smoke.BF16_OPS_PER_S
+    t_bytes = (2 * keys * 2 * 32 * 2 + 2 * 24 * 8 * 32 * 2 + 8 * 4
+               + 24 * 4) / smoke.HBM_BYTES_PER_S
+    assert smoke.paged_flash_bound(args, -1) == (
+        pytest.approx(1e3 * max(t_ops, t_bytes)),
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+
+@pytest.fixture
+def tools(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+
+
+def test_attention_times_paged_cases_are_the_smokes(smoke, tools):
+    """tools/attention_times.py's bf16 chunk cases and chunk shape are
+    chip_smoke.py's PAGED_FLASH_CASES and CHUNK_*, so the tool times the
+    smoke's cases."""
+    import attention_times as at
+
+    assert sorted((c[2], c[3], c[4]) for c in at.PAGED_FLASH_CASES
+                  if c[1] == "bfloat16" and len(c) == 5) == sorted(
+        (heads, page, window)
+        for _, heads, page, window in smoke.PAGED_FLASH_CASES)
+    assert (at.CHUNK_START, at.CHUNK_ROWS, at.CHUNK_PAD, at.CHUNK_WIDTH) \
+        == (smoke.CHUNK_START, smoke.CHUNK_ROWS, smoke.CHUNK_PAD,
+            smoke.CHUNK_WIDTH)
+
+
+def test_paged_serve_times_traffic_is_the_smokes(smoke, tools):
+    """tools/paged_serve_times.py's copies of the smoke's serve traffic
+    are equal to it: the prompts' lengths, the schedules, the system
+    prompt, and the tokens of both waves (serve mixed's seeds 3, 9 and
+    10)."""
+    import paged_serve_times as ps
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import Request
+
+    assert ps.SERVE_LENS == smoke.SERVE_LENS
+    assert ps.SERVE_SCHED == smoke.SERVE_SCHED
+    assert ps.MIXED_SCHED == smoke.MIXED_SCHED
+    assert ps.SYSTEM_PROMPT == smoke.SYSTEM_PROMPT
+    vocab = get_config(ps.MODEL).vocab
+    suffixes = np.random.default_rng(9).integers(64, 257, 8)
+    assert ps.SUFFIXES == suffixes.tolist()
+    for got, want in (
+            (ps.requests(Request, vocab, ps.SERVE_LENS, 3),
+             smoke.make_requests(smoke.SERVE_LENS, ps.NEW, vocab, seed=3)),
+            (ps.requests(Request, vocab, ps.SUFFIXES, 10, ps.SYSTEM_PROMPT),
+             smoke.shared_prefix_requests(smoke.SYSTEM_PROMPT, suffixes,
+                                          ps.NEW, vocab, seed=10))):
+        assert [r.prompt_len for r in got] == [r.prompt_len for r in want]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.prompt_tokens, b.prompt_tokens)
+
 def test_kimi_parity_phase_runs_on_cpu(smoke, monkeypatch, capsys):
     """chip_smoke's kimi parity phase at kimi-smoke sizes on the CPU:
     both layouts, kernels on and off, full attention and a window."""
@@ -649,11 +757,13 @@ def test_expected_launches_of_kimi_serve(smoke, layout):
                           cache_layout=layout)
     want = smoke.expected_launches(eng, 10 if layout == "paged" else 8, 63)
     if layout == "paged":
-        assert want == {"paged_decode_attention": 126, "flash_attention": 0,
+        assert want == {"paged_decode_attention": 126,
+                        "paged_flash_attention": 20, "flash_attention": 0,
                         "decode_attention": 0, "ssm_scan": 0,
                         "grouped_matmul": 3 * (10 + 63)}
     else:
-        assert want == {"paged_decode_attention": 0, "flash_attention": 16,
+        assert want == {"paged_decode_attention": 0,
+                        "paged_flash_attention": 0, "flash_attention": 16,
                         "decode_attention": 126, "ssm_scan": 0,
                         "grouped_matmul": 3 * (8 + 63)}
 
@@ -821,8 +931,9 @@ def test_expected_launches_of_xlstm(smoke):
     eng = SimpleNamespace(cfg=cfg, device=torch.device("cuda"),
                           cache_layout="ring")
     assert smoke.expected_launches(eng, 3, 7) == {
-        "paged_decode_attention": 0, "flash_attention": 0,
-        "decode_attention": 0, "ssm_scan": 4 * 3, "grouped_matmul": 0}
+        "paged_decode_attention": 0, "paged_flash_attention": 0,
+        "flash_attention": 0, "decode_attention": 0, "ssm_scan": 4 * 3,
+        "grouped_matmul": 0}
     eng.cfg = cfg.replace(use_pallas=False)
     assert set(smoke.expected_launches(eng, 3, 7).values()) == {0}
     full = get_config("xlstm-350m")

@@ -22,7 +22,8 @@ from test_torch_threads import one_torch_thread  # noqa: E402,F401
 from repro_torch.kernels import (attention_combine,  # noqa: E402
                                  attention_combine_plain, decode_attention,
                                  flash_attention, grouped_matmul,
-                                 paged_decode_attention, ssm_scan)
+                                 paged_decode_attention,
+                                 paged_flash_attention, ssm_scan)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -31,6 +32,8 @@ from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_plain)
+from repro_torch.kernels.paged_flash_attention import (  # noqa: E402
+    live_rows, paged_flash_attention_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan_plain  # noqa: E402
 from repro_torch.serving.graphs import WARMUP_RUNS  # noqa: E402
 
@@ -1348,15 +1351,20 @@ def test_flash_under_grad_is_the_kernel_pair(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["paged_decode_attention",
                                    "decode_attention", "decode_with_lse",
-                                   "attention_combine"])
+                                   "attention_combine",
+                                   "paged_flash_attention"])
 def test_kernels_without_backward_refuse_grad(cuda_device, which):
-    """The two decode wrappers and the combine, which have no backward,
-    raise under grad, naming the ROADMAP item, instead of returning an
-    output cut from the graph; under no_grad they launch as before."""
+    """The two decode wrappers, paged flash and the combine, which have
+    no backward, raise under grad, naming the ROADMAP item, instead of
+    returning an output cut from the graph; under no_grad they launch as
+    before."""
     dev, f32 = cuda_device, torch.float32
     if which == "paged_decode_attention":
         args = case(dev, f32, 2, 2, 4, 64, 16, [40, 7])
         fn, kw = paged_decode_attention, {"window": -1}
+    elif which == "paged_flash_attention":
+        args = paged_chunk(dev, f32, 2, 4, 64, 16, [40, 7], [20, 9], 24)
+        fn, kw = paged_flash_attention, {"window": -1}
     elif which == "decode_with_lse":
         args = ring_case(dev, f32, [39, 6], 64, 2, 4, 64)
         fn, kw = decode_attention, {"window": -1, "with_lse": True}
@@ -1374,6 +1382,145 @@ def test_kernels_without_backward_refuse_grad(cuda_device, which):
     with torch.no_grad():
         fn(*args, **kw)
     assert fn.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# Paged flash: suffix prefill and the mixed step's chunk over the pool
+# ---------------------------------------------------------------------------
+
+def paged_chunk(dev, dtype, hkv, g, dh, page, starts, fills, rows,
+                width=None, seed=0, hole=None):
+    """Pool, block tables and q_pos of a chunk a row: row r attends back
+    into ``starts[r]`` resident tokens with ``fills[r]`` query rows at
+    positions ``starts[r]`` onward and pad rows (-1) to ``rows``; its
+    pages shuffled over the pool, its table ``width`` slots wide (default:
+    two pages past the longest row) with its tail unmapped; ``hole``
+    (row, entry) unmaps a page inside a row's range."""
+    rng = np.random.default_rng(seed)
+    b = len(starts)
+    need = [-(-(st + n) // page) for st, n in zip(starts, fills)]
+    p_max = (width // page if width else max(need) + 2)
+    perm = rng.permutation(sum(need))
+    bt = np.full((b, p_max), -1, np.int32)
+    at = 0
+    for r, n in enumerate(need):
+        bt[r, :n] = perm[at:at + n]
+        at += n
+    if hole is not None:
+        bt[hole] = -1
+    q_pos = np.full((b, rows), -1, np.int32)
+    for r, (st, n) in enumerate(zip(starts, fills)):
+        q_pos[r, :n] = st + np.arange(n)
+    q = rng.standard_normal((b, rows, hkv * g, dh))
+    kp = rng.standard_normal((sum(need) + 1, page, hkv, dh))
+    vp = rng.standard_normal((sum(need) + 1, page, hkv, dh))
+    return ([torch.from_numpy(a).to(dev, dtype) for a in (q, kp, vp)]
+            + [torch.from_numpy(bt).to(dev), torch.from_numpy(q_pos).to(dev)])
+
+
+# (Hkv, G, dh, page, window, starts, fills, rows, hole): chip_smoke.py's
+# chunk cases at agent-7b's heads (pages of 128 and 16), gemma3-27b's
+# window, kimi-k2's G 8 at dh 112, arctic's 56 over 8, Gemma 3 12B's dh
+# 256, a head past 256 and dh 100; then the edges: two rows with a hole
+# in a table, pages of 8 and 48 (boxes of 8 and 16 rows), pages of 4
+# (the bf16 CUDA-core body), G 1, dh 300 (column blocks element by
+# element), a fresh prompt (start 0), a chunk of pad rows only, one row
+PAGED_FLASH = [
+    (8, 4, 128, 128, -1, [1024], [504], 512, None),
+    (8, 4, 128, 16, -1, [1024], [504], 512, None),
+    (16, 2, 128, 128, 1024, [1024], [504], 512, None),
+    (8, 8, 112, 128, -1, [1024], [504], 512, None),
+    (8, 7, 128, 128, -1, [1024], [504], 512, None),
+    (8, 2, 256, 128, -1, [1024], [504], 512, None),
+    (8, 2, 512, 128, -1, [1024], [504], 512, None),
+    (8, 4, 100, 128, -1, [1024], [504], 512, None),
+    (2, 4, 128, 16, 100, [300, 5], [140, 60], 150, (1, 2)),
+    (2, 4, 64, 8, -1, [33, 0], [40, 9], 48, (0, 1)),
+    (2, 2, 128, 48, 30, [100, 0], [70, 33], 70, None),
+    (2, 3, 128, 4, -1, [33, 0], [40, 9], 48, None),
+    (2, 1, 256, 16, 100, [90, 0], [64, 20], 70, (1, 1)),
+    (2, 2, 300, 16, 40, [90, 0], [64, 20], 70, None),
+    (2, 4, 128, 128, -1, [0, 0], [200, 77], 200, None),
+    (2, 4, 64, 16, -1, [40, 0], [0, 0], 30, None),
+    (1, 2, 32, 8, -1, [7], [1], 1, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("spec", PAGED_FLASH, ids=str)
+def test_paged_flash_kernel_matches_plain(cuda_device, dtype, spec):
+    """The paged flash kernel against its plain version on the live rows
+    (2e-5 f32, 2e-2 bf16), zeros on the rows with no valid key, one
+    launch a call."""
+    hkv, g, dh, page, window, starts, fills, rows, hole = spec
+    args = paged_chunk(cuda_device, dtype, hkv, g, dh, page, starts, fills,
+                       rows, seed=dh + page, hole=hole)
+    before = paged_flash_attention.launches
+    out = paged_flash_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_flash_attention.launches == before + 1
+    want = paged_flash_attention_plain(*args, window=window)
+    live = live_rows(args[3], args[4], page, window)
+    if live.any():
+        err = (out.float() - want.float())[live].abs().max().item()
+        assert err <= TOL[dtype], err
+    assert not out[~live].any()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dh,page", [(128, 128), (128, 16), (256, 128),
+                                     (512, 128), (100, 16)])
+def test_paged_flash_kernel_is_bit_identical(cuda_device, dtype, dh, page):
+    """No atomics: two calls give the same bits."""
+    args = paged_chunk(cuda_device, dtype, 2, 4, dh, page, [600, 30],
+                       [300, 90], 320, hole=(1, 1))
+    a = paged_flash_attention(*args, window=-1)
+    b = paged_flash_attention(*args, window=-1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny-agent", "arctic-480b"])
+def test_mixed_graph_replays_paged_flash(cuda_device, name):
+    """bf16, kernels on, paged and mixed: the mixed step is captured once
+    (its warm-up under sync debug "error", so a host read in the wrapper
+    would fail there) and every body run of it, warm-up and replays,
+    launches paged flash once per layer for its chunk, as each serialized
+    prefill chunk of more than one token does; the graph run's greedy ids
+    equal the eager run's."""
+    from repro_torch.serving.scheduler import StepKind
+
+    cfg, params = graph_case(cuda_device, name)
+    n = cfg.n_layers
+    toks = {}
+    for graphs in (True, False):
+        eng = step_engine(cfg, params, cuda_device, "paged", graphs,
+                          mixed=True)
+        serial = [0]
+        plan_step = eng.scheduler.plan_step
+
+        def counted(_plan=plan_step, _serial=serial):
+            plan = _plan()
+            if plan.kind == StepKind.PREFILL:
+                for w in plan.prefills:
+                    start = min(w.req.prefilled, w.req.prompt_len - 1)
+                    _serial[0] += min(w.chunk, w.req.prompt_len - start) > 1
+            return plan
+        eng.scheduler.plan_step = counted
+        before = paged_flash_attention.launches
+        toks[graphs] = served_tokens(eng)
+        torch.cuda.synchronize()
+        assert eng.step_captures == {"decode": 1, "mixed": 1}
+        assert eng.step_runs["mixed"] > 0
+        assert paged_flash_attention.launches - before == n * (
+            eng.step_runs["mixed"] + serial[0])
+        eng.release_graphs()
+    assert toks[True] == toks[False]
 
 
 def gm_dout(x, f, seed=5):
@@ -2187,7 +2334,7 @@ def _allocations():
     "flash_attention", "flash_attention_forward", "flash_attention_backward",
     "decode_attention", "paged_decode_attention", "ssm_scan",
     "ssm_scan_backward", "grouped_matmul", "grouped_matmul_backward",
-    "attention_combine"])
+    "attention_combine", "paged_flash_attention"])
 def test_meta_branch_allocates_and_returns_what_the_launch_does(
         cuda_device, name, dtype):
     """Each entry point on meta tensors allocates the tensors its launch

@@ -43,10 +43,11 @@ from repro_torch.launch.train import TrainPlan, make_train_step  # noqa: E402
 from repro_torch.sim.costmodel import CostModel  # noqa: E402
 
 # the kernel modules (the package exports their wrappers by the same names)
-ac_mod, dec_mod, fa_mod, gm_mod, pg_mod, scan_mod = (
+ac_mod, dec_mod, fa_mod, gm_mod, pg_mod, pf_mod, scan_mod = (
     importlib.import_module(f"repro_torch.kernels.{m}") for m in (
         "attention_combine", "decode_attention", "flash_attention",
-        "grouped_matmul", "paged_decode_attention", "ssm_scan"))
+        "grouped_matmul", "paged_decode_attention", "paged_flash_attention",
+        "ssm_scan"))
 
 MESHES = [(1, 2), (2, 1), (2, 2)]
 AXES = ("data", "model")
@@ -185,6 +186,7 @@ PLAINS = [(fa_mod, "flash_attention_plain"),
           (fa_mod, "flash_attention_backward_plain"),
           (dec_mod, "decode_attention_plain"),
           (pg_mod, "paged_decode_attention_plain"),
+          (pf_mod, "paged_flash_attention_plain"),
           (scan_mod, "ssm_scan_plain"),
           (scan_mod, "ssm_scan_backward_plain"),
           (gm_mod, "grouped_matmul_plain"),
@@ -194,6 +196,7 @@ WRAPPERS = {"flash_attention": fa_mod.flash_attention,
             "flash_attention_backward": fa_mod.flash_attention_backward,
             "decode_attention": dec_mod.decode_attention,
             "paged_decode_attention": pg_mod.paged_decode_attention,
+            "paged_flash_attention": pf_mod.paged_flash_attention,
             "ssm_scan": scan_mod.ssm_scan,
             "ssm_scan_backward": scan_mod.ssm_scan_backward,
             "grouped_matmul": gm_mod.grouped_matmul,
@@ -225,6 +228,15 @@ def _paged_args(gen, dtype):
             _rand(gen, (6, 16, 2, 32), dtype),
             _rand(gen, (6, 16, 2, 32), dtype), tables,
             torch.tensor([40, 20], dtype=torch.int32)]
+
+
+def _paged_flash_args(gen, dtype):
+    tables = torch.tensor([[0, 1, 2], [3, 4, -1]], dtype=torch.int32)
+    q_pos = torch.tensor([list(range(30, 40)), [20, 21, 22] + [-1] * 7],
+                         dtype=torch.int32)
+    return [_rand(gen, (2, 10, 8, 32), dtype),
+            _rand(gen, (6, 16, 2, 32), dtype),
+            _rand(gen, (6, 16, 2, 32), dtype), tables, q_pos]
 
 
 def _scan_args(gen, dtype):
@@ -271,6 +283,12 @@ def _call(name, xs, dtype, gen):
         return (lambda a: pg_mod.paged_decode_attention(*a, window=24),
                 lambda a: pg_mod.paged_decode_attention_plain(*a, window=24),
                 lambda a: work.paged_decode(a[0], a[1], a[3], a[4], 2 * 24))
+    if name == "paged_flash_attention":
+        # meta: every row at full context within the window, every page
+        return (lambda a: pf_mod.paged_flash_attention(*a, window=24),
+                lambda a: pf_mod.paged_flash_attention_plain(*a, window=24),
+                lambda a: work.paged_flash(a[0], a[1], a[3], a[4],
+                                           2 * 10 * 24, 2 * 48))
     if name == "ssm_scan":
         return (lambda a: scan_mod.ssm_scan(*a, chunk=8),
                 lambda a: scan_mod.ssm_scan_plain(*a, chunk=8),
@@ -301,6 +319,7 @@ def _call(name, xs, dtype, gen):
 ARGS = {"flash_attention": _flash_args, "flash_attention_forward": _flash_args,
         "flash_attention_backward": _flash_args,
         "decode_attention": _ring_args, "paged_decode_attention": _paged_args,
+        "paged_flash_attention": _paged_flash_args,
         "ssm_scan": _scan_args, "ssm_scan_backward": _scan_args,
         "grouped_matmul": _gm_args, "grouped_matmul_backward": _gm_args,
         "attention_combine": lambda gen, dtype: [

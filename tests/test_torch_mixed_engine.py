@@ -11,7 +11,9 @@ tests/test_mixed_batching.py: GQA/MQA x chunk 0/7/16, the kernel flag
 (the reference's Pallas kernel in interpret mode, the port's plain
 version), and arctic-480b's smoke config, whose padded chunk routes its
 pad tokens through the experts in both packages (capacity from the
-chunk capacity, not its fill).
+chunk capacity, not its fill); and the port's kernels on (the paged
+flash and paged decode wrappers' plain versions) against the
+reference's flag off, dense, windowed and arctic.
 """
 import numpy as np
 import pytest
@@ -152,6 +154,51 @@ def test_mixed_kernel_path_tokens_match_reference():
     jcfg, tcfg, tree = setup(use_pallas=True)
     jeng, teng = engines(jcfg, tcfg, tree, chunk=8)
     ps = prompts(jcfg.vocab, 33, 21)
+    assert serve(teng, Request, ps) == serve(jeng, JRequest, ps)
+
+
+@pytest.mark.parametrize("name,kw", [("tiny-agent", {}),
+                                     ("tiny-agent", {"window": 24}),
+                                     ("arctic-480b", {})],
+                         ids=["dense", "dense-swa", "moe"])
+def test_mixed_kernels_on_tokens_match_reference(name, kw):
+    """The port with ``use_pallas`` -- its mixed chunk and serialized
+    prefills on ``paged_flash_attention``, its decode rows on
+    ``paged_decode_attention``, their plain versions here -- against the
+    reference's mixed ``Engine`` with the flag off (the gather path and
+    jnp decode, the same function): greedy tokens equal, chunk 16.
+    arctic's padded chunk routes its pad rows through the experts in both
+    packages."""
+    jcfg, tcfg, tree = setup(name, **kw)
+    jeng, teng = engines(jcfg, tcfg.replace(use_pallas=True), tree,
+                         chunk=16)
+    ps = prompts(jcfg.vocab, 40, 23, 31, seed=6)
+    assert serve(teng, Request, ps) == serve(jeng, JRequest, ps)
+    assert teng.step_runs["mixed"] > 0
+
+
+@pytest.mark.parametrize("name", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_mixed_moe_tokens_with_zero_pad_rows(name, monkeypatch):
+    """On the card the paged flash kernel writes zeros for the chunk's pad
+    rows, where its plain version and the reference write the uniform
+    average of an all-masked softmax; in an MoE layer the pad rows then
+    route through the experts with other values, against the same
+    capacity.  With the wrapper's plain version made to zero them as the
+    kernel does, the port's MoE mixed tokens still equal the reference's
+    (ROADMAP C, "A row with no valid key")."""
+    from repro_torch.kernels.paged_flash_attention import (
+        live_rows, paged_flash_attention_plain)
+    from repro_torch.models import attention as tattn
+
+    def as_the_kernel(*args, window=-1):
+        out = paged_flash_attention_plain(*args, window=window)
+        out[~live_rows(args[3], args[4], args[1].shape[1], window)] = 0
+        return out
+    monkeypatch.setattr(tattn, "paged_flash_attention", as_the_kernel)
+    jcfg, tcfg, tree = setup(name)
+    jeng, teng = engines(jcfg, tcfg.replace(use_pallas=True), tree,
+                         chunk=16)
+    ps = prompts(jcfg.vocab, 40, 23, 31, seed=9)
     assert serve(teng, Request, ps) == serve(jeng, JRequest, ps)
 
 

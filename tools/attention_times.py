@@ -17,10 +17,22 @@ not take prints its error instead.  A forward case also prints
 inputs timed the same way.  ``--kinds flash`` runs the forward's cases
 alone (every head shape ``chip_smoke.py`` times, the train shape,
 agent-7b's heads at B 2 x S 4096, and three shapes at one head, where
-the grid's heaviest item runs alone on one SM):
+the grid's heaviest item runs alone on one SM).  ``--kinds paged_flash``
+runs the paged flash kernel at ``chip_smoke.py``'s mixed-chunk cases
+(``PAGED_FLASH_CASES``: 512 rows at position 1024, 8 of them pad rows,
+pages shuffled over the pool), each row with ``sdpa_ms`` (SDPA over the
+K/V already gathered contiguous, with the valid pairs as its mask) and
+``gather_ms`` (the gather path the kernel replaces, ``paged_view`` +
+``attention_cached``); and agent-7b's 1024-token prompt prefilled whole
+through the table, beside the flash forward's contiguous case:
 
     python tools/attention_times.py --src /path/to/other/src --kinds flash
     python tools/attention_times.py --kinds flash
+    python tools/attention_times.py --kinds paged_flash
+
+The card is warmed once per process (two seconds of bf16 matmuls) before
+the first timed case, so the first case is not timed while the clocks
+ramp.
 
 Prints one JSON object a line: the card (``nvidia-smi`` name and power
 limit), then one per case.  Needs a CUDA card; exits 1 without one.
@@ -33,6 +45,7 @@ import importlib
 import json
 import subprocess
 import sys
+import time
 import zlib
 from pathlib import Path
 
@@ -88,6 +101,29 @@ CASES = [("flash", "bfloat16", (32, 8, 128), 1, 1024, 1024),
          ("flash", "bfloat16", (1, 1, 128), 1, 1024, 1024),
          ("flash", "bfloat16", (1, 1, 256), 1, 1024, 1024),
          ("flash", "bfloat16", (1, 1, 128), 2, 4096, 4096)]
+# paged flash at a mixed chunk (kernel, dtype, (Hkv, G, dh), page, window);
+# the bf16 chunk cases are chip_smoke.py's PAGED_FLASH_CASES, and CHUNK_*
+# its CHUNK_* (tests/test_torch_chip_smoke.py holds them equal):
+# agent-7b's heads at pages of 128 and 16 (bf16 and f32), gemma3-27b's
+# under its 1024 window, kimi-k2's G 8 at dh 112, arctic's 56 over 8,
+# Gemma 3 12B's dh 256, agent-7b's width at d_head 512, dh 100; then
+# (..., start, rows, pad rows) agent-7b's 1024-token prompt prefilled
+# whole through the table, the flash forward's timed shape (B 1, S = T =
+# 1024 causal)
+PAGED_FLASH_CASES = [("paged_flash", "bfloat16", (8, 4, 128), 128, -1),
+                     ("paged_flash", "bfloat16", (8, 4, 128), 16, -1),
+                     ("paged_flash", "bfloat16", (16, 2, 128), 128, 1024),
+                     ("paged_flash", "bfloat16", (8, 8, 112), 128, -1),
+                     ("paged_flash", "bfloat16", (8, 7, 128), 128, -1),
+                     ("paged_flash", "bfloat16", (8, 2, 256), 128, -1),
+                     ("paged_flash", "bfloat16", (8, 2, 512), 128, -1),
+                     ("paged_flash", "bfloat16", (8, 4, 100), 128, -1),
+                     ("paged_flash", "float32", (8, 4, 128), 128, -1),
+                     ("paged_flash", "bfloat16", (8, 4, 128), 128, -1, 0,
+                      1024, 0)]
+# the chunk: rows at positions CHUNK_START onward, the last CHUNK_PAD
+# pad rows, a table CHUNK_WIDTH slots wide
+CHUNK_START, CHUNK_ROWS, CHUNK_PAD, CHUNK_WIDTH = 1024, 512, 8, 4096
 # heads past 256, in column blocks: agent-7b's width at d_head 512 (16
 # over 8), G 3 at 384, dh 300, 16 heads over 1; f32 at 512, and dh 1024
 WIDE_CASES = [(kind, dtype, heads, b, n, t)
@@ -126,10 +162,69 @@ def digest(torch, outs) -> str:
     return h.hexdigest()[:16]
 
 
+def warm(torch, dev, seconds: float = 2.0) -> None:
+    """Keep the card busy with bf16 matmuls for ``seconds``, so the first
+    timed case does not run while its clocks ramp."""
+    a = torch.randn((4096, 4096), device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+
+
+def paged_flash_call(torch, k, dev, case, how: str = "kernel"):
+    """A paged flash case's inputs (a mixed chunk drawn the way
+    ``chip_smoke.py``'s ``paged_flash_case`` draws it, from another seed:
+    a generator seeded by the case) and its call: ``how`` "kernel",
+    "sdpa" (SDPA over the gathered contiguous K/V, the valid pairs its
+    mask) or "gather" (``paged_view`` + ``attention_cached``)."""
+    from repro_torch.models import attention
+
+    _, dtype, (hkv, g, dh), page, window, *chunk = case
+    start, rows, pad = chunk or (CHUNK_START, CHUNK_ROWS, CHUNK_PAD)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(
+        zlib.crc32(str(case).encode()))
+    fill = rows - pad
+    need = -(-(start + fill) // page)
+    bt = torch.full((1, CHUNK_WIDTH // page), -1, dtype=torch.int32,
+                    device=dev)
+    bt[0, :need] = torch.randperm(need, generator=gen,
+                                  device=dev).to(torch.int32)
+    q_pos = torch.full((1, rows), -1, dtype=torch.int32, device=dev)
+    q_pos[0, :fill] = start + torch.arange(fill, device=dev,
+                                           dtype=torch.int32)
+    q = torch.randn((1, rows, hkv * g, dh), generator=gen,
+                    device=dev).to(dt)
+    kp, vp = (torch.randn((need + 1, page, hkv, dh), generator=gen,
+                          device=dev).to(dt) for _ in range(2))
+    if how == "kernel":
+        return lambda: (k.paged_flash_attention(q, kp, vp, bt, q_pos,
+                                                window=window),)
+    view = attention.paged_view(attention.PagedKVCache(kp, vp), bt)
+    if how == "gather":
+        return lambda: (attention.attention_cached(q, view, q_pos,
+                                                   window=window),)
+    sk, sv = (x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+              for x in (view.k, view.v))
+    sq = q.transpose(1, 2).contiguous()
+    kpos, qp = view.kpos[:, None, :].long(), q_pos.long()[:, :, None]
+    mask = (kpos >= 0) & (kpos <= qp)
+    if window > 0:
+        mask &= kpos > qp - window
+    mask = mask[:, None]
+    return lambda: (torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask),)
+
+
 def call_of(torch, k, dev, case, sdpa: bool = False):
     """The case's inputs, drawn from a generator seeded by the case, and
     a function of no arguments that makes the kernel call (with
     ``sdpa``, a forward case's SDPA call on the same inputs)."""
+    if case[0] == "paged_flash":
+        return paged_flash_call(torch, k, dev, case,
+                                "sdpa" if sdpa else "kernel")
     kind, dtype, heads, b, n, t = case
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(
@@ -191,7 +286,8 @@ def main() -> int:
                     default="all", help="the shapes up to dh 256, those "
                     "past it, or both")
     ap.add_argument("--kinds", default="flash,flash_bwd,paged,ring",
-                    help="the kernels to run, comma-separated")
+                    help="the kernels to run, comma-separated (also "
+                    "paged_flash)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -207,9 +303,12 @@ def main() -> int:
     print(json.dumps({"card": gpu.strip().splitlines()[0],
                       "src": str(Path(k.__file__).resolve())}), flush=True)
     kinds = set(args.kinds.split(","))
-    cases = [c for c in {"old": CASES, "wide": WIDE_CASES,
-                         "all": CASES + WIDE_CASES}[args.cases]
-             if c[0] in kinds]
+    cases = [c for c in {"old": CASES + PAGED_FLASH_CASES,
+                         "wide": WIDE_CASES,
+                         "all": CASES + WIDE_CASES + PAGED_FLASH_CASES
+                         }[args.cases] if c[0] in kinds]
+    if cases:
+        warm(torch, dev)
     for case in cases:
         row = {"case": list(case)}
         try:
@@ -220,13 +319,19 @@ def main() -> int:
                                               else 1))
                 xs = sorted(cuda_ms(torch, call, iters) for _ in range(3))
             row.update(ms=xs[1], spread=xs[2] - xs[0])
-            if case[0] == "flash":
+            if case[0] in ("flash", "paged_flash"):
                 call = call_of(torch, k, dev, case, sdpa=True)
                 with torch.no_grad():
                     xs = sorted(cuda_ms(torch, call, iters)
                                 for _ in range(3))
                 row["sdpa_ms"] = xs[1]
-        except (ValueError, RuntimeError) as e:
+            if case[0] == "paged_flash":
+                call = paged_flash_call(torch, k, dev, case, "gather")
+                with torch.no_grad():
+                    xs = sorted(cuda_ms(torch, call, max(1, iters // 4))
+                                for _ in range(3))
+                row["gather_ms"] = xs[1]
+        except (ValueError, RuntimeError, AttributeError) as e:
             row["error"] = str(e).splitlines()[0]
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
